@@ -1,0 +1,29 @@
+"""ps_tpu_torch — the PyTorch/CUDA port of ps_tpu, for NVIDIA H100s.
+
+A second package beside ``ps_tpu`` (the JAX reference, unchanged): the
+same ``init(backend=...)`` → ``KVStore`` / ``SparseEmbedding`` →
+``make_composite_step`` API and the same numerics, in PyTorch. Where
+``ps_tpu`` has a Pallas kernel for the TPU, the port has a kernel written
+by hand for Hopper (``ops/csrc/``), built with ``nvcc`` at first use.
+
+Ported so far: the Wide-&-Deep composite step on one device, with the
+fused sparse apply as a CUDA kernel. ROADMAP.md lists what is still to
+port.
+"""
+
+from ps_tpu_torch.config import Config
+from ps_tpu_torch.api import init, shutdown, is_initialized, current_context
+from ps_tpu_torch.kv.store import KVStore
+from ps_tpu_torch.kv.sparse import SparseEmbedding
+from ps_tpu_torch.train import make_composite_step
+
+__all__ = [
+    "Config",
+    "init",
+    "shutdown",
+    "is_initialized",
+    "current_context",
+    "KVStore",
+    "SparseEmbedding",
+    "make_composite_step",
+]

@@ -1,0 +1,68 @@
+"""Import hygiene of the port: ``ps_tpu_torch/`` and ``chip_smoke.py``
+import no jax, flax, optax or ps_tpu (the reference package; the name
+``ps_tpu_torch`` is the port's own), and no ``try`` falls back to the
+plain sparse apply when something fails."""
+
+import ast
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ps_tpu"}
+FILES = sorted(str(p.relative_to(ROOT))
+               for p in (ROOT / "ps_tpu_torch").rglob("*.py")) + ["chip_smoke.py"]
+
+
+def _called_names(node):
+    for sub in ast.walk(node):
+        if isinstance(sub, ast.Call):
+            f = sub.func
+            if isinstance(f, ast.Name):
+                yield f.id
+            elif isinstance(f, ast.Attribute):
+                yield f.attr
+
+
+def violations(source: str) -> list:
+    """What the hygiene rules forbid in one module's source."""
+    out = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            names = []
+        for name in names:
+            if name.split(".")[0] in FORBIDDEN:
+                out.append(f"line {node.lineno}: imports {name}")
+        if isinstance(node, ast.Try):
+            for handler in node.handlers:
+                if "_apply_torch" in set(_called_names(handler)):
+                    out.append(f"line {handler.lineno}: falls back to "
+                               f"_apply_torch in an except handler")
+    return out
+
+
+@pytest.mark.parametrize("path", FILES)
+def test_port_file_is_clean(path):
+    assert violations((ROOT / path).read_text()) == []
+
+
+def test_checker_catches_what_it_forbids():
+    bad = (
+        "import jax.numpy as jnp\n"
+        "from ps_tpu.kv import keys\n"
+        "import flax, os\n"
+        "from optax import adam\n"
+        "try:\n"
+        "    out = _apply_cuda(a)\n"
+        "except RuntimeError:\n"
+        "    out = ops._apply_torch(a)\n"
+    )
+    assert len(violations(bad)) == 5
+    good = ("import ps_tpu_torch\nfrom ps_tpu_torch.ops import sparse_apply\n"
+            "from . import jaxlike\ntry:\n    x = 1\nexcept ValueError:\n"
+            "    raise\n")
+    assert violations(good) == []

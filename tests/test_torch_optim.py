@@ -1,0 +1,128 @@
+"""The port's optimizers against the reference's, on the same numpy inputs.
+
+- Row-wise rules (``apply_rows`` and the derived ``apply``) against
+  ``ps_tpu.optim.rowwise``: sgd bitwise in f32; adagrad and adam within
+  rtol 1e-6, atol 1e-7 (mean over D and ``pow`` may round differently).
+- Dense sgd and adam against optax (through ``ps_tpu.optim``) over 5
+  steps, within rtol 1e-6.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from ps_tpu.optim import make_optimizer as ref_make_optimizer
+from ps_tpu.optim import rowwise as ref_rowwise
+from ps_tpu_torch.optim import Optimizer, make_optimizer
+from ps_tpu_torch.optim import rowwise
+
+R, D = 12, 5
+
+
+def _inputs(seed):
+    rng = np.random.default_rng(seed)
+    rows = rng.normal(size=(R, D)).astype(np.float32)
+    gsum = rng.normal(size=(R, D)).astype(np.float32)
+    cnt = rng.integers(0, 3, size=R).astype(np.int32)  # 0 = untouched
+    gsum[cnt == 0] = 0.0
+    return rows, gsum, cnt
+
+
+def _leaves_np(state):
+    if isinstance(state, dict):
+        return [state[k] for k in sorted(state)]
+    if isinstance(state, (tuple, list)):
+        return list(state)
+    return [state]
+
+
+@pytest.mark.parametrize("view", ["apply_rows", "apply"])
+@pytest.mark.parametrize("optimizer", ["sgd", "adagrad", "adam"])
+def test_rowwise_matches_reference(optimizer, view):
+    kw = {"learning_rate": 0.05}
+    ref = ref_rowwise.make_rowwise(optimizer, **kw)
+    port = rowwise.make_rowwise(optimizer, **kw)
+    rows, _, _ = _inputs(0)
+    ref_rows, ref_state = jnp.asarray(rows), ref.init(jnp.asarray(rows))
+    port_rows = torch.as_tensor(rows)
+    port_state = port.init(port_rows)
+    for step in range(3):  # state carries over
+        _, gsum, cnt = _inputs(step + 1)
+        arg = cnt if view == "apply_rows" else cnt > 0
+        ref_rows, ref_state = getattr(ref, view)(
+            ref_rows, ref_state, jnp.asarray(gsum), jnp.asarray(arg))
+        port_rows, port_state = getattr(port, view)(
+            port_rows, port_state, torch.as_tensor(gsum), torch.as_tensor(arg))
+    got, want = port_rows.numpy(), np.asarray(ref_rows)
+    if optimizer == "sgd":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    ref_leaves = jax.tree_util.tree_leaves(ref_state)
+    port_leaves = _leaves_np(port_state)
+    assert len(ref_leaves) == len(port_leaves)
+    for g, w in zip(port_leaves, ref_leaves):
+        assert g.numpy().dtype == np.asarray(w).dtype
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
+                                   atol=1e-7)
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adagrad", "adam"])
+def test_rowwise_state_size_and_kernel_description(optimizer):
+    port = rowwise.make_rowwise(optimizer, learning_rate=0.3)
+    ref = ref_rowwise.make_rowwise(optimizer, learning_rate=0.3)
+    for dim in (1, 16):
+        assert port.state_scalars_per_row(dim) == ref.state_scalars_per_row(dim)
+    assert port.kind == optimizer and port.hyper["lr"] == 0.3
+
+
+def _dense_params(seed):
+    rng = np.random.default_rng(seed)
+    return {"a/kernel": rng.normal(size=(4, 3)).astype(np.float32),
+            "a/bias": rng.normal(size=(3,)).astype(np.float32),
+            "b": rng.normal(size=(7,)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("sgd", {"learning_rate": 0.1}),
+    ("adam", {"learning_rate": 1e-2}),
+    ("adam", {"learning_rate": 3e-3, "b1": 0.8, "b2": 0.99, "eps": 1e-6}),
+])
+def test_dense_optimizer_matches_optax(name, kw):
+    ref = ref_make_optimizer(name, **kw)
+    port = make_optimizer(name, **kw)
+    p0 = _dense_params(0)
+    ref_p = {k: jnp.asarray(v) for k, v in p0.items()}
+    ref_s = ref.init(ref_p)
+    port_p = {k: torch.as_tensor(v.copy()) for k, v in p0.items()}
+    port_s = port.init(port_p)
+    for step in range(5):
+        grads = _dense_params(step + 1)
+        updates, ref_s = ref.update({k: jnp.asarray(v) for k, v in
+                                     grads.items()}, ref_s, ref_p)
+        ref_p = optax.apply_updates(ref_p, updates)
+        port.step_(port_p, {k: torch.as_tensor(v) for k, v in grads.items()},
+                   port_s)
+    for k in p0:
+        np.testing.assert_allclose(port_p[k].numpy(), np.asarray(ref_p[k]),
+                                   rtol=1e-6)
+    if name == "adam":
+        assert int(port_s["count"]) == 5
+        assert port_s["count"].dtype == torch.int32
+
+
+def test_make_optimizer_resolves_and_rejects():
+    opt = make_optimizer("ADAM", learning_rate=0.1)
+    assert isinstance(opt, Optimizer) and opt.name == "adam"
+    assert make_optimizer(opt) is opt
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        make_optimizer("lamb")
+    with pytest.raises(ValueError, match="kwargs"):
+        make_optimizer(opt, learning_rate=0.2)
+    with pytest.raises(TypeError):
+        make_optimizer(3)
+    with pytest.raises(ValueError, match="unknown rowwise optimizer"):
+        rowwise.make_rowwise("lamb")
