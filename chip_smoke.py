@@ -6,26 +6,43 @@
 Phases, each raising on failure:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. build: every CUDA kernel of the port, from ps_tpu_torch/ops/csrc/;
-3. kernel vs plain version on the card: the sparse-apply sweep (4 id
+2. build: every CUDA kernel of the port, from ps_tpu_torch/ops/csrc/, one
+   nvcc for each source, all started together;
+3. sparse apply vs its plain version on the card: the sweep (4 id
    distributions x sgd/adagrad/adam x f32/bf16) and one Zipf batch at the
    Wide-&-Deep shapes per rule, type and table width; determinism; the
    arrival order of a hot id's sum against a host oracle, bitwise;
-4. the main path: the Wide-&-Deep composite step, first at a small size
+4. the Wide-&-Deep path: the composite step, first at a small size
    against the same step on the CPU, then at the full published width
    (26 x 100,000 rows, D = 16, MLP 256/128/64, batch 512) for 50 steps
    through ps_tpu_torch.init(backend='cuda'), with the kernel launch
    counts read around it;
-5. timings at the main path's shapes with CUDA events: the kernel's
-   device time (with and without the wrapper's sort), what a caller of
-   the wrapper waits, and the plain version.
+5. sparse-apply timings at that path's shapes with CUDA events: the
+   kernel's device time (with and without the wrapper's sort), what a
+   caller of the wrapper waits, and the plain version;
+6. flash attention vs its plain version on the card: f32/bf16 x causal x
+   4 masks (all ones, random padding, a fully masked batch row, key 0
+   masked) at the tests' shape (B 2, S 128, h 4, d 16) and BERT-base's
+   (B 32, S 512, h 12, d 64); exact zeros and lse = -1e30 on rows that
+   attend nothing; determinism; the gradients through the kernel against
+   the plain forward's through the same backward;
+7. the BERT path: a tiny BERT (flash, f32, seq 128, batch 16) for 3 LAMB
+   steps on the card against the CPU; BERT-base in f32 with flash against
+   full attention on two padded sequences of 512; then the main path,
+   BERT-base MLM in bf16 with flash attention, seq 512, global batch 32,
+   server-side LAMB, 20 steps through ps_tpu_torch.init(backend='cuda'),
+   with the flash launch count read around it;
+8. flash-attention timings at the main path's shape ([384, 512, 64]
+   bf16): the kernel's device time, what a caller waits, the plain
+   version and scaled_dot_product_attention as the yardstick.
 
-It prints one JSON line per table, then the kernels line, then
+It prints one JSON line per timed kernel, then the kernels line, then
 ``{"ok": true, "device": {...}}`` as its last line. Without a GPU, or
 without the rest of the repository beside it, it fails before printing
 any result.
 """
 
+import importlib
 import json
 import os
 import subprocess
@@ -39,11 +56,19 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor cores, the same sheet
 RTOL, ATOL = 1e-6, 1e-7    # f32; bf16 is held to one bf16 ulp
 STEPS, BATCH = 50, 512
 SLEEP_CYCLES = 200_000_000  # ~0.1 s at the H100's clock: _device_ms's head start
 SOURCE = "ps_tpu_torch/ops/csrc/sparse_apply.cu"
 REPLACES = "ps_tpu/ops/sparse_apply.py:297"
+# flash attention: the kernel sums keys in its own order, so f32 is held to
+# the reference's flash-vs-einsum bound and bf16 to two bf16 ulps (p and
+# the output are rounded to bf16 after sums taken in different orders)
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 1.6e-2}
+FLASH_SOURCE = "ps_tpu_torch/ops/csrc/flash_attention.cu"
+FLASH_REPLACES = "ps_tpu/ops/flash_attention.py:136"
+BERT_STEPS, BERT_BATCH, BERT_SEQ = 20, 32, 512
 
 
 def log(msg):
@@ -143,12 +168,13 @@ def phase_build():
     from ps_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.build(["sparse_apply"])
+    _build.build(_build.KERNELS)
     secs = time.perf_counter() - t0
     ver = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
                          text=True, check=True, timeout=60).stdout
-    log(f"build: {SOURCE} with {ver.strip().splitlines()[-1]} "
-        f"({' '.join(_build.NVCC_FLAGS)}) in {secs:.2f} s")
+    log(f"build: {SOURCE} and {FLASH_SOURCE} with "
+        f"{ver.strip().splitlines()[-1]} ({' '.join(_build.NVCC_FLAGS)}) in "
+        f"{secs:.2f} s")
 
 
 def _kernel_vs_plain(opt, table, state, ids, grads):
@@ -425,6 +451,254 @@ def phase_timings(errs, by_rule):
     return entries
 
 
+def _flash():
+    # the module itself: ps_tpu_torch.ops exports the function under its name
+    return importlib.import_module("ps_tpu_torch.ops.flash_attention")
+
+
+def _flash_case(b, s, h, d, dtype, mask_kind, seed):
+    """q, k, v [b*h, s, d] on the card, N(0, 1), and a [b, s] int32 mask."""
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(dev).manual_seed(seed)
+    q, k, v = (torch.randn((b * h, s, d), generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    mask = torch.ones((b, s), dtype=torch.int32, device=dev)
+    if mask_kind == "padding":
+        mask = (torch.rand((b, s), generator=g, device=dev) < 0.7).to(
+            torch.int32)
+        mask[:, 0] = 1
+    elif mask_kind == "row_masked":
+        mask[-1] = 0  # the last batch row attends nothing
+    elif mask_kind == "key0_masked":
+        mask[:, 0] = 0  # with causal, query 0 attends nothing
+    return q, k, v, mask
+
+
+def _flash_compare(got, want, dtype, what):
+    tol = FLASH_TOL[dtype]
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"{what}: kernel vs plain max abs err {err}")
+    return err
+
+
+def phase_flash_vs_plain():
+    fa = _flash()
+    errs, cases = {}, 0
+    for b, s, h, d in ((2, 128, 4, 16), (BERT_BATCH, BERT_SEQ, 12, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (False, True):
+                for mask_kind in ("ones", "padding", "row_masked",
+                                  "key0_masked"):
+                    what = (f"flash {dtype} causal={causal} {mask_kind} "
+                            f"[{b * h}, {s}, {d}]")
+                    q, k, v, mask = _flash_case(b, s, h, d, dtype, mask_kind,
+                                                seed=cases)
+                    scale = d ** -0.5
+                    out, lse = fa._flash_fwd_cuda(q, k, v, mask, scale,
+                                                  causal, h)
+                    again, lse2 = fa._flash_fwd_cuda(q, k, v, mask, scale,
+                                                     causal, h)
+                    p_out, p_lse = fa._flash_fwd_torch(q, k, v, mask, scale,
+                                                       causal, h)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(out, again) and torch.equal(lse, lse2)):
+                        raise AssertionError(f"{what}: two runs differ")
+                    err = _flash_compare(out, p_out, dtype, what)
+                    _flash_compare(lse, p_lse, torch.float32, what + " lse")
+                    dead = p_lse < -1e29
+                    if (not torch.equal(dead, lse == -1e30)
+                            or bool(out[dead].any())):
+                        raise AssertionError(
+                            f"{what}: rows that attend nothing are not "
+                            f"exactly 0 with lse -1e30")
+                    if mask_kind == "row_masked" and not bool(dead.any()):
+                        raise AssertionError(f"{what}: no dead row")
+                    # gradients through the kernel vs through the plain
+                    # forward, both with the same blockwise backward
+                    do = torch.randn_like(out, dtype=torch.float32).to(dtype)
+                    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                    fa._Flash.apply(*leaves, mask, scale, causal, 128,
+                                    h).backward(do)
+                    want = fa._blockwise_bwd(q, k, v, mask, p_out, p_lse, do,
+                                             scale=scale, causal=causal,
+                                             block_k=128, heads=h)
+                    for leaf, w, name in zip(leaves, want, "qkv"):
+                        _flash_compare(leaf.grad, w, dtype,
+                                       f"{what} d{name}")
+                    errs[(b, dtype, causal, mask_kind)] = err
+                    cases += 1
+                    del q, k, v, out, again, p_out, leaves, want
+    log(f"flash kernel vs plain: {cases} cases (f32/bf16 x causal x 4 masks "
+        f"x 2 shapes), forward and gradients within rtol/atol "
+        f"{FLASH_TOL[torch.float32]} (f32) / {FLASH_TOL[torch.bfloat16]} "
+        f"(bf16), bitwise deterministic, exact zeros and lse -1e30 on dead "
+        f"rows; max abs err f32 "
+        f"{max(e for k, e in errs.items() if k[1] == torch.float32):.3g}, "
+        f"bf16 {max(e for k, e in errs.items() if k[1] == torch.bfloat16):.3g}")
+    return errs[(BERT_BATCH, torch.bfloat16, False, "ones")]
+
+
+def _bert_run(model, device, batches, steps=None):
+    """``steps`` LAMB steps of ``model`` through init + KVStore.make_step
+    on ``device``; returns the losses, the step times and the params."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.models.bert import make_mlm_loss_fn
+
+    ps.init(backend="cuda", device=device)
+    store = ps.KVStore(optimizer="lamb", learning_rate=1e-3,
+                       weight_decay=0.01, placement="sharded")
+    store.init(model.param_tree())
+    run = store.make_step(make_mlm_loss_fn(model))
+    batches = [store.shard_batch(b) for b in batches]
+    losses, times, params = [], [], None
+    for batch in batches:
+        t0 = time.perf_counter()
+        loss, params = run(batch)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    losses = [float(x) for x in losses]
+    ps.shutdown()
+    return losses, times, params
+
+
+def phase_bert_small_vs_cpu():
+    """A tiny BERT with flash attention, 3 LAMB steps on the card and on
+    the CPU (whose plain versions the tests hold to the JAX reference),
+    from the same weights: they agree within the reference's LAMB-parity
+    bounds (tests/test_bert.py)."""
+    from ps_tpu_torch.data.synthetic import mlm_batches
+    from ps_tpu_torch.kv import keys
+    from ps_tpu_torch.models.bert import BertConfig, BertMLM
+
+    fa = _flash()
+    cfg = BertConfig.tiny(max_len=128, attn="flash")
+    model = BertMLM(cfg, generator=torch.Generator().manual_seed(0))
+    out = {}
+    for device in ("cpu", "cuda"):
+        before = fa.LAUNCHES
+        losses, _, params = _bert_run(model, device, mlm_batches(
+            16, 128, vocab_size=cfg.vocab_size, seed=3, steps=3))
+        flat, _ = keys.flatten_with_keys(params)
+        out[device] = (fa.LAUNCHES - before, losses,
+                       {k: p.detach().cpu().numpy() for k, p in flat.items()})
+    cpu, gpu = out["cpu"], out["cuda"]
+    if (cpu[0], gpu[0]) != (0, 3 * cfg.num_layers):
+        raise AssertionError(f"flash launches cpu {cpu[0]}, cuda {gpu[0]}")
+    np.testing.assert_allclose(gpu[1], cpu[1], rtol=1e-5)
+    for k in cpu[2]:
+        np.testing.assert_allclose(gpu[2][k], cpu[2][k], rtol=2e-4, atol=1e-5,
+                                   err_msg=k)
+    log(f"small BERT: 3 LAMB steps (tiny, flash, f32, seq 128, batch 16) on "
+        f"the card equal the CPU's (losses {gpu[1]} vs {cpu[1]}; rtol 1e-5 "
+        f"loss, 2e-4/1e-5 params over {len(cpu[2])} tensors)")
+
+
+def phase_bert_flash_vs_full():
+    """BERT-base in f32, two sequences of 512 padded from position 400:
+    flash logits equal full-attention logits on the unpadded positions
+    within the reference's bound (tests/test_flash_attention.py)."""
+    from ps_tpu_torch.models.bert import BertConfig, BertMLM
+
+    dev = torch.device("cuda", 0)
+    cfg = BertConfig(dtype=torch.float32, attn="flash")
+    flash = BertMLM(cfg, generator=torch.Generator().manual_seed(1)).to(dev)
+    full = BertMLM(BertConfig(dtype=torch.float32, attn="full"),
+                   device="meta")
+    full.load_state_dict(flash.state_dict(), assign=True)
+    rng = np.random.default_rng(0)
+    ids = torch.as_tensor(rng.integers(1000, cfg.vocab_size, size=(2, 512))
+                          .astype(np.int32)).to(dev)
+    mask = torch.ones((2, 512), dtype=torch.int32, device=dev)
+    mask[:, 400:] = 0
+    with torch.no_grad():
+        got = flash(ids, mask)[:, :400]
+        want = full(ids, mask)[:, :400]
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=2e-4, atol=2e-4):
+        raise AssertionError(f"BERT-base flash vs full: max abs err {err}")
+    log(f"BERT-base f32, 2 x 512 padded from 400: flash logits equal full "
+        f"attention's on the unpadded positions within rtol/atol 2e-4 (max "
+        f"abs err {err:.3g})")
+    del flash, full, got, want
+
+
+def phase_bert_main_path():
+    from ps_tpu_torch.data.synthetic import mlm_batches
+    from ps_tpu_torch.models.bert import BertConfig, BertMLM
+
+    fa = _flash()
+    cfg = BertConfig(attn="flash")  # BERT-base, bf16 compute, f32 params
+    model = BertMLM(cfg, generator=torch.Generator().manual_seed(0))
+    batches = list(mlm_batches(BERT_BATCH, BERT_SEQ, vocab_size=cfg.vocab_size,
+                               seed=0, steps=BERT_STEPS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = 0
+    losses, times, _ = _bert_run(model, "cuda", batches)
+    launches = fa.LAUNCHES
+    if launches != cfg.num_layers * BERT_STEPS:
+        raise AssertionError(f"flash launches {launches}, expected "
+                             f"{cfg.num_layers} per step over {BERT_STEPS}")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"loss did not fall: {losses}")
+    step_ms = float(np.median(times[1:])) * 1e3
+    nparams = sum(p.numel() for p in model.parameters())
+    log(f"main path: BERT-base MLM ({nparams / 1e6:.1f}M params), bf16, "
+        f"flash, seq {BERT_SEQ}, global batch {BERT_BATCH}, LAMB lr 1e-3 wd "
+        f"0.01, {BERT_STEPS} steps, flash launches {launches}, loss "
+        f"{np.mean(losses[:5]):.4f} (first 5) -> {np.mean(losses[-5:]):.4f} "
+        f"(last 5); losses {[round(x, 4) for x in losses]}")
+    log(f"main path: median step {step_ms:.3f} ms (host clock, synchronized),"
+        f" {BERT_BATCH / step_ms * 1e3:.2f} seq/s, "
+        f"{BERT_BATCH * BERT_SEQ / step_ms * 1e3:.0f} tokens/s, peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model
+    return launches, step_ms
+
+
+def phase_flash_timings(err, launches):
+    fa = _flash()
+    b, s, h, d = BERT_BATCH, BERT_SEQ, 12, 64
+    q, k, v, mask = _flash_case(b, s, h, d, torch.bfloat16, "ones", seed=99)
+    scale = d ** -0.5
+    kernel = lambda: fa._flash_fwd_cuda(  # noqa: E731
+        q, k, v, mask, scale, False, h)
+    kernel_ms = _device_ms(kernel)
+    call_ms = _call_ms(kernel)
+    plain_ms = _call_ms(lambda: fa._flash_fwd_torch(
+        q, k, v, mask, scale, False, h), iters=20, warmup=3)
+    # the yardstick only: one PyTorch call for the same function on the
+    # same [B, h, S, d] tensors and boolean mask; the port never calls it
+    qs, ks, vs = (t.reshape(b, h, s, d) for t in (q, k, v))
+    keep = (mask > 0)[:, None, None, :]
+    library_ms = _device_ms(lambda: torch.nn.functional.
+                            scaled_dot_product_attention(qs, ks, vs,
+                                                         attn_mask=keep))
+    nbytes = 4 * b * h * s * d * 2 + b * h * s * 4 + b * s * 4
+    flops = 4 * b * h * s * s * d
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, flops_ms)
+    bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
+    log(json.dumps({
+        "kernel": "flash_attention/fwd", "shape": [b * h, s, d],
+        "dtype": "bfloat16", "mask": "all ones", "causal": False,
+        "bytes": nbytes, "flops": flops, "kernel_ms": kernel_ms,
+        "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "tflops": flops / kernel_ms / 1e9, "launches_per_step": 12}))
+    return {"name": "flash_attention/fwd", "route": "cuda",
+            "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
+            "launches": launches, "max_abs_err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on an NVIDIA GPU",
@@ -442,6 +716,11 @@ def main():
     phase_small_path_vs_cpu()
     by_rule, _ = phase_main_path()
     entries = phase_timings(errs, by_rule)
+    flash_err = phase_flash_vs_plain()
+    phase_bert_small_vs_cpu()
+    phase_bert_flash_vs_full()
+    launches, _ = phase_bert_main_path()
+    entries.append(phase_flash_timings(flash_err, launches))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

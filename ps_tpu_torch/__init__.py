@@ -6,9 +6,10 @@ same ``init(backend=...)`` → ``KVStore`` / ``SparseEmbedding`` →
 ``ps_tpu`` has a Pallas kernel for the TPU, the port has a kernel written
 by hand for Hopper (``ops/csrc/``), built with ``nvcc`` at first use.
 
-Ported so far: the Wide-&-Deep composite step on one device, with the
-fused sparse apply as a CUDA kernel. ROADMAP.md lists what is still to
-port.
+Ported so far, on one device: the Wide-&-Deep composite step, with the
+fused sparse apply as a CUDA kernel; and BERT MLM with server-side LAMB,
+whose ``attn='flash'`` runs the flash-attention forward as a CUDA kernel.
+ROADMAP.md lists what is still to port.
 """
 
 from ps_tpu_torch.config import Config
@@ -16,6 +17,7 @@ from ps_tpu_torch.api import init, shutdown, is_initialized, current_context
 from ps_tpu_torch.kv.store import KVStore
 from ps_tpu_torch.kv.sparse import SparseEmbedding
 from ps_tpu_torch.train import make_composite_step
+from ps_tpu_torch.ops import flash_attention
 
 __all__ = [
     "Config",
@@ -26,4 +28,5 @@ __all__ = [
     "KVStore",
     "SparseEmbedding",
     "make_composite_step",
+    "flash_attention",
 ]

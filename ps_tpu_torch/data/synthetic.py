@@ -1,8 +1,9 @@
 """Deterministic synthetic Criteo-like batches, numpy only.
 
-Counterpart of ``ps_tpu/data/synthetic.py`` (``criteo_batches``, copied
-as it is): the same seed gives byte-identical batches in both packages.
-The other generators are not ported yet.
+Counterpart of ``ps_tpu/data/synthetic.py`` (``mlm_batches`` and
+``criteo_batches``, copied as they are): the same seed gives
+byte-identical batches in both packages. The other generators are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -10,6 +11,30 @@ from __future__ import annotations
 from typing import Iterator
 
 import numpy as np
+
+
+def mlm_batches(batch_size: int, seq_len: int, *, vocab_size: int = 30522,
+                mask_rate: float = 0.15, mask_id: int = 103, seed: int = 0,
+                steps: int = None) -> Iterator[dict]:
+    """Yields BERT-MLM dicts: input_ids, labels (-100 = unmasked), attention_mask."""
+    rng = np.random.default_rng(seed)
+    # reserve a low-id band for special tokens (BERT-style); shrink it for
+    # tiny test vocabularies
+    low = max(min(1000, vocab_size // 4), mask_id + 1)
+    if low >= vocab_size:
+        raise ValueError(f"vocab_size {vocab_size} too small (mask_id {mask_id})")
+    i = 0
+    while steps is None or i < steps:
+        ids = rng.integers(low, vocab_size, size=(batch_size, seq_len)).astype(np.int32)
+        mask = rng.random((batch_size, seq_len)) < mask_rate
+        labels = np.where(mask, ids, -100).astype(np.int32)
+        input_ids = np.where(mask, mask_id, ids).astype(np.int32)
+        yield {
+            "input_ids": input_ids,
+            "labels": labels,
+            "attention_mask": np.ones_like(input_ids),
+        }
+        i += 1
 
 
 def criteo_batches(batch_size: int, *, num_dense: int = 13, num_sparse: int = 26,

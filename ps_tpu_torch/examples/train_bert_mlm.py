@@ -1,0 +1,153 @@
+"""BERT MLM with server-side LAMB — the reference's workload config 3.
+
+Counterpart of ``examples/train_bert_mlm.py``: ``KVStore(optimizer=
+'lamb').make_step`` over ``BertMLM`` on one device — the MLM loss's
+gradient, then LAMB applied by the server in place. ``--attn flash`` runs
+the attention forward through the hand-written CUDA kernel on the card.
+It prints the loss every 10 steps and, last, sequences and tokens per
+second. ``--profile-dir`` traces the steps after two warm-up steps with
+``torch.profiler`` (each step synchronised), writes ``trace.json`` there
+and prints the ops that take the most device time and the device's busy
+share of the traced steps.
+
+Run (on the GPU; ``--device cpu`` runs the plain versions on the CPU):
+    python -m ps_tpu_torch.examples.train_bert_mlm --attn flash --seq-len 512 --steps 20
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import torch
+
+import ps_tpu_torch as ps
+from ps_tpu_torch.data.synthetic import mlm_batches
+from ps_tpu_torch.models.bert import BertConfig, BertMLM, make_mlm_loss_fn
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch-size", type=int, default=32, help="global batch")
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--weight-decay", type=float, default=0.01)
+    ap.add_argument("--size", default="base", choices=["base", "tiny"])
+    ap.add_argument("--placement", default="sharded",
+                    choices=["replicated", "sharded"])
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="tensor-parallel width (not ported: 1 only)")
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"])
+    ap.add_argument("--attn", default="full", choices=["full", "flash"])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--jsonl", default=None)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--profile-dir", default=None)
+    args = ap.parse_args(argv)
+
+    if args.steps < (3 if args.profile_dir else 2):
+        raise SystemExit("--steps must be >= 2 (step 0 is warm-up), and "
+                         ">= 3 with --profile-dir")
+    if args.model_axis > 1:
+        raise NotImplementedError(
+            "--model-axis > 1 (tensor parallelism over a 'model' axis) is "
+            "not ported yet")
+    ctx = ps.init(backend="cuda", device=args.device)
+    device = ctx.device
+
+    dtype = getattr(torch, args.dtype)
+    cfg = (BertConfig(dtype=dtype, attn=args.attn) if args.size == "base"
+           else BertConfig.tiny(dtype=dtype, attn=args.attn))
+    model = BertMLM(cfg, generator=torch.Generator().manual_seed(args.seed))
+    store = ps.KVStore(optimizer="lamb", learning_rate=args.lr,
+                       weight_decay=args.weight_decay,
+                       placement=args.placement)
+    store.init(model.param_tree())
+    nparams = sum(p.numel() for p in model.parameters())
+    print(f"BERT-{args.size} MLM: {nparams / 1e6:.1f}M params, device "
+          f"{device}, global batch {args.batch_size} x seq {args.seq_len}, "
+          f"attn {args.attn}, {args.dtype}, LAMB placement={args.placement}")
+
+    run = store.make_step(make_mlm_loss_fn(model))
+    log = open(args.jsonl, "w") if args.jsonl else None
+    prof = _profiler(args.profile_dir, device, args.steps)
+    traced_s = 0.0
+    t0 = None
+    for step, batch in enumerate(mlm_batches(
+            args.batch_size, args.seq_len, vocab_size=cfg.vocab_size,
+            seed=args.seed, steps=args.steps)):
+        ts = time.perf_counter()
+        loss, _ = run(store.shard_batch(batch))
+        if prof is not None:
+            _sync(device)
+            prof.step()
+            if step >= 2:
+                traced_s += time.perf_counter() - ts
+        if step == 0:  # warm-up: kernel build, allocator, first launches
+            _sync(device)
+            t0 = time.perf_counter()
+        if step % 10 == 0 or step == args.steps - 1:
+            value = float(loss)
+            print(f"step {step:4d}  loss {value:.4f}")
+            if log:
+                log.write(json.dumps({"step": step, "loss": value}) + "\n")
+    _sync(device)
+    secs = time.perf_counter() - t0
+    seq_s = (args.steps - 1) * args.batch_size / secs
+    print(f"done: {seq_s:.1f} seq/s, {seq_s * args.seq_len:.0f} tokens/s on "
+          f"{device} ({secs / (args.steps - 1) * 1e3:.2f} ms/step after "
+          f"warm-up)")
+    if log:
+        log.close()
+    if prof is not None:
+        prof.stop()
+        _report(prof, args.profile_dir, traced_s)
+    ps.shutdown()
+    return seq_s
+
+
+def _profiler(out_dir, device, steps):
+    """A started ``torch.profiler`` that skips step 0, warms up on step 1
+    and records the rest, or None without ``out_dir``. On the card it
+    records device activity only: recording every CPU op as well slows
+    eager steps of thousands of launches several times over."""
+    if not out_dir:
+        return None
+    act = torch.profiler.ProfilerActivity
+    prof = torch.profiler.profile(
+        activities=[act.CUDA if device.type == "cuda" else act.CPU],
+        schedule=torch.profiler.schedule(wait=1, warmup=1, active=steps - 2))
+    prof.start()
+    return prof
+
+
+def _report(prof, out_dir, traced_s):
+    """Write the trace; print the kernels (and copies) that take the most
+    device time and the device's busy share of the traced steps' wall
+    time (one stream: device events do not overlap, so their times add)."""
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.key.startswith("ProfilerStep")]  # a step's span
+    device.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_us = sum(e.self_device_time_total for e in device)
+    for e in device[:30]:
+        print(f"{e.self_device_time_total / 1e3:12.3f} ms "
+              f"{100 * e.self_device_time_total / max(busy_us, 1):5.1f}% "
+              f"{e.count:7d}x  {e.key[:110]}")
+    print(f"profile: device busy {busy_us / 1e3:.3f} ms of "
+          f"{traced_s * 1e3:.3f} ms traced "
+          f"({busy_us / 1e4 / max(traced_s, 1e-9):.1f}% busy)")
+
+if __name__ == "__main__":
+    main()

@@ -29,8 +29,8 @@ class KVStore:
     """A named parameter store with PS push/pull semantics.
 
     Args:
-      optimizer: 'sgd' | 'adam' or an :class:`~ps_tpu_torch.optim.Optimizer`
-        — the server-side update rule.
+      optimizer: 'sgd' | 'adam' | 'lamb' or an
+        :class:`~ps_tpu_torch.optim.Optimizer` — the server-side update rule.
       mode: 'sync' | None (inherit from Config); async is not ported yet.
       aggregate: 'mean' (default) or 'sum'.
       placement: 'replicated' or 'sharded' — the same at one device.

@@ -10,11 +10,16 @@ folds the bias correction into the step size), so these follow optax
 - adam: ``scale_by_adam`` — ``mu = (1-b1)*g + b1*mu``,
   ``nu = (1-b2)*g**2 + b2*nu``, an int32 ``count`` incremented first, bias
   correction ``m / (1 - b**count)``, ``u = mu_hat / (sqrt(nu_hat + eps_root)
-  + eps)`` — then ``-lr * u``, then ``p + u``.
+  + eps)`` — then ``-lr * u``, then ``p + u``;
+- lamb: ``optax.lamb``'s chain — ``scale_by_adam`` (eps 1e-6, eps_root 0),
+  ``add_decayed_weights`` (``u + wd * p`` on every tensor, biases and
+  LayerNorm parameters included), ``scale_by_trust_ratio`` (``u *
+  ‖p‖ / ‖u‖`` per parameter tensor, exactly 1 where either norm is 0),
+  then ``-lr * u``, then ``p + u``.
 
 An optimizer works on ``{key: tensor}`` dicts and updates parameters and
 state in place (``step_``); in-place update is what JAX's buffer donation
-bought the reference. ``momentum`` and ``lamb`` are not ported yet.
+bought the reference. ``momentum`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from typing import Any, Callable, Dict, Union
 
 import torch
 
-__all__ = ["Optimizer", "make_optimizer", "sgd", "adam"]
+__all__ = ["Optimizer", "make_optimizer", "sgd", "adam", "lamb"]
 
 _INT32_MAX = 2**31 - 1
 
@@ -55,37 +60,63 @@ def sgd(learning_rate: float = 0.01) -> Optimizer:
     return Optimizer("sgd", init, step_)
 
 
+def _adam_init(params):
+    some = next(iter(params.values()), None)
+    device = some.device if some is not None else None
+    return {
+        "count": torch.zeros((), dtype=torch.int32, device=device),
+        "mu": {k: torch.zeros_like(p) for k, p in params.items()},
+        "nu": {k: torch.zeros_like(p) for k, p in params.items()},
+    }
+
+
+def _scale_by_adam_(grads, state, b1, b2, eps, eps_root):
+    """optax's ``scale_by_adam``: advance ``state`` in place and yield
+    ``(key, u)`` for every gradient."""
+    count = state["count"]
+    count.add_((count < _INT32_MAX).to(torch.int32))  # safe_increment
+    bc1 = 1 - b1 ** count
+    bc2 = 1 - b2 ** count
+    for k, g in grads.items():
+        mu, nu = state["mu"][k], state["nu"][k]
+        mu.mul_(b1).add_((1 - b1) * g)
+        nu.mul_(b2).add_((1 - b2) * (g * g))
+        mu_hat = mu / bc1.to(mu.dtype)
+        nu_hat = nu / bc2.to(nu.dtype)
+        yield k, mu_hat / (torch.sqrt(nu_hat + eps_root) + eps)
+
+
 def adam(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
          eps: float = 1e-8, eps_root: float = 0.0) -> Optimizer:
-    def init(params):
-        some = next(iter(params.values()), None)
-        device = some.device if some is not None else None
-        return {
-            "count": torch.zeros((), dtype=torch.int32, device=device),
-            "mu": {k: torch.zeros_like(p) for k, p in params.items()},
-            "nu": {k: torch.zeros_like(p) for k, p in params.items()},
-        }
+    @torch.no_grad()
+    def step_(params, grads, state):
+        for k, u in _scale_by_adam_(grads, state, b1, b2, eps, eps_root):
+            params[k].add_(-learning_rate * u)
+
+    return Optimizer("adam", _adam_init, step_)
+
+
+def lamb(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-6, weight_decay: float = 0.0) -> Optimizer:
+    """LAMB, the reference's server-side optimizer for BERT. The trust
+    ratio is per parameter tensor, so each key is one tensor of its own."""
 
     @torch.no_grad()
     def step_(params, grads, state):
-        count = state["count"]
-        count.add_((count < _INT32_MAX).to(torch.int32))  # safe_increment
-        bc1 = 1 - b1 ** count
-        bc2 = 1 - b2 ** count
-        for k, p in params.items():
-            g = grads[k]
-            mu, nu = state["mu"][k], state["nu"][k]
-            mu.mul_(b1).add_((1 - b1) * g)
-            nu.mul_(b2).add_((1 - b2) * (g * g))
-            mu_hat = mu / bc1.to(mu.dtype)
-            nu_hat = nu / bc2.to(nu.dtype)
-            u = mu_hat / (torch.sqrt(nu_hat + eps_root) + eps)
-            p.add_(-learning_rate * u)
+        for k, u in _scale_by_adam_(grads, state, b1, b2, eps, 0.0):
+            p = params[k]
+            u = u + weight_decay * p
+            p_norm = torch.linalg.vector_norm(p)
+            u_norm = torch.linalg.vector_norm(u)
+            ratio = torch.where((p_norm == 0) | (u_norm == 0),
+                                torch.ones((), dtype=p.dtype, device=p.device),
+                                p_norm / u_norm)
+            p.add_(-learning_rate * (u * ratio))
 
-    return Optimizer("adam", init, step_)
+    return Optimizer("lamb", _adam_init, step_)
 
 
-_REGISTRY = {"sgd": sgd, "adam": adam}
+_REGISTRY = {"sgd": sgd, "adam": adam, "lamb": lamb}
 
 
 def make_optimizer(opt: Union[str, Optimizer], **kwargs) -> Optimizer:

@@ -1,7 +1,8 @@
 """Import hygiene of the port: ``ps_tpu_torch/`` and ``chip_smoke.py``
 import no jax, flax, optax or ps_tpu (the reference package; the name
-``ps_tpu_torch`` is the port's own), and no ``try`` falls back to the
-plain sparse apply when something fails."""
+``ps_tpu_torch`` is the port's own), and no ``try`` falls back to a
+kernel's plain version (the sparse apply's ``_apply_torch``, flash
+attention's ``_flash_fwd_torch``) when something fails."""
 
 import ast
 import pathlib
@@ -10,6 +11,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ps_tpu"}
+PLAIN_VERSIONS = {"_apply_torch", "_flash_fwd_torch"}
 FILES = sorted(str(p.relative_to(ROOT))
                for p in (ROOT / "ps_tpu_torch").rglob("*.py")) + ["chip_smoke.py"]
 
@@ -39,9 +41,10 @@ def violations(source: str) -> list:
                 out.append(f"line {node.lineno}: imports {name}")
         if isinstance(node, ast.Try):
             for handler in node.handlers:
-                if "_apply_torch" in set(_called_names(handler)):
+                for name in sorted(PLAIN_VERSIONS
+                                   & set(_called_names(handler))):
                     out.append(f"line {handler.lineno}: falls back to "
-                               f"_apply_torch in an except handler")
+                               f"{name} in an except handler")
     return out
 
 
@@ -60,8 +63,12 @@ def test_checker_catches_what_it_forbids():
         "    out = _apply_cuda(a)\n"
         "except RuntimeError:\n"
         "    out = ops._apply_torch(a)\n"
+        "try:\n"
+        "    out = _flash_fwd_cuda(q, k, v)\n"
+        "except Exception:\n"
+        "    out = _flash_fwd_torch(q, k, v)\n"
     )
-    assert len(violations(bad)) == 5
+    assert len(violations(bad)) == 6
     good = ("import ps_tpu_torch\nfrom ps_tpu_torch.ops import sparse_apply\n"
             "from . import jaxlike\ntry:\n    x = 1\nexcept ValueError:\n"
             "    raise\n")

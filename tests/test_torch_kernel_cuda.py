@@ -1,14 +1,23 @@
-"""The CUDA sparse-apply kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 A CUDA kernel has no interpret mode, so these tests need an NVIDIA GPU
-and ``nvcc``; elsewhere they skip (the ``cuda`` marker). They carry the
-sweep of tests/test_torch_sparse_apply.py to ``tier='cuda'``: the kernel
-and the plain version (``batch_segment_sum`` + ``_apply_torch``) run on
-the same CUDA tensors. f32 within rtol 1e-6, atol 1e-7 (the mean over D
-and ``pow`` may round differently); bf16 within one bf16 ulp. Run them on
-the card with ``python -m pytest tests/test_torch_kernel_cuda.py``;
-``chip_smoke.py`` runs the same checks at the Wide-&-Deep shapes.
+and ``nvcc``; elsewhere they skip (the ``cuda`` marker). Run them on the
+card with ``python -m pytest tests/test_torch_kernel_cuda.py``;
+``chip_smoke.py`` runs the same checks at the main paths' shapes.
+
+- Sparse apply: the sweep of tests/test_torch_sparse_apply.py carried to
+  ``tier='cuda'``: the kernel and the plain version (``batch_segment_sum``
+  + ``_apply_torch``) run on the same CUDA tensors. f32 within rtol 1e-6,
+  atol 1e-7 (the mean over D and ``pow`` may round differently); bf16
+  within one bf16 ulp.
+- Flash attention: the kernel and ``_flash_fwd_torch`` on the same CUDA
+  tensors. The kernel sums keys in its own order, so f32 is held to
+  rtol/atol 2e-5 (the reference's flash-vs-einsum bound) and bf16 to
+  1.6e-2 (two bf16 ulps: ``p`` and the output are rounded to bf16 after
+  sums taken in different orders); ``lse`` is f32 in both, 2e-5.
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -107,3 +116,86 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="plain version"):
         ops.fused_sparse_apply(table, (), ids, torch.zeros((2, D), device=cuda),
                                opt, "torch")
+
+
+# -- flash attention -------------------------------------------------------------
+
+fa = importlib.import_module("ps_tpu_torch.ops.flash_attention")
+FB, FS, FH = 2, 128, 4
+
+
+def _flash_inputs(device, dtype, d, mask_kind, seed=0):
+    rng = np.random.default_rng(seed)
+    qkv = [torch.as_tensor(rng.normal(size=(FB * FH, FS, d)).astype(
+        np.float32)).to(device, dtype) for _ in range(3)]
+    mask = np.ones((FB, FS), np.int32)
+    if mask_kind == "padding":
+        mask = (rng.random((FB, FS)) < 0.7).astype(np.int32)
+        mask[:, 0] = 1
+    elif mask_kind == "row_masked":
+        mask[1] = 0  # batch row 1 attends nothing
+    elif mask_kind == "key0_masked":
+        mask[:, 0] = 0  # with causal, query 0 attends nothing
+    return qkv, torch.as_tensor(mask).to(device)
+
+
+def _close(got, want, dtype):
+    tol = 1.6e-2 if dtype == torch.bfloat16 else 2e-5
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("mask_kind",
+                         ["ones", "padding", "row_masked", "key0_masked"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_matches_plain_version(cuda, dtype, d, causal, mask_kind):
+    dtype = getattr(torch, dtype)
+    (q, k, v), mask = _flash_inputs(cuda, dtype, d, mask_kind)
+    scale = d ** -0.5
+    before = fa.LAUNCHES
+    out, lse = fa._flash_fwd_cuda(q, k, v, mask, scale, causal, FH)
+    torch.cuda.synchronize(cuda)
+    assert fa.LAUNCHES == before + 1
+    want_out, want_lse = fa._flash_fwd_torch(q, k, v, mask, scale, causal, FH)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    _close(out, want_out, dtype)
+    _close(lse, want_lse, torch.float32)
+    dead = torch.isclose(want_lse, torch.tensor(-1e30, device=cuda))
+    assert torch.equal(dead, lse == -1e30)  # rows that attend nothing
+    assert torch.all(out[dead] == 0)
+    again, _ = fa._flash_fwd_cuda(q, k, v, mask, scale, causal, FH)
+    assert torch.equal(out, again)  # the same bits run to run
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_grads_through_the_kernel(cuda, dtype, causal):
+    """The gradients through the autograd.Function (kernel forward) against
+    the plain forward's through the same blockwise backward."""
+    dtype = getattr(torch, dtype)
+    (q, k, v), mask = _flash_inputs(cuda, dtype, 64, "padding", seed=1)
+    scale = 64 ** -0.5
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa._Flash.apply(*leaves, mask, scale, causal, 128, FH)
+    do = torch.randn_like(out, dtype=torch.float32).to(dtype)
+    out.backward(do)
+    p_out, p_lse = fa._flash_fwd_torch(q, k, v, mask, scale, causal, FH)
+    want = fa._blockwise_bwd(q, k, v, mask, p_out, p_lse, do, scale=scale,
+                             causal=causal, block_k=128, heads=FH)
+    for leaf, w in zip(leaves, want):
+        assert leaf.grad.dtype == dtype
+        _close(leaf.grad, w, dtype)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    mask = torch.ones((FB, FS), dtype=torch.int32, device=cuda)
+    for dtype, d, match in ((torch.float32, 8, "head_dim"),
+                            (torch.float64, 16, "f32 or bf16")):
+        q = torch.zeros((FB * FH, FS, d), dtype=dtype, device=cuda)
+        with pytest.raises(ValueError, match=match):
+            fa._flash_fwd_cuda(q, q, q, mask, 1.0, False, FH)
+    q = torch.zeros((FB * FH, FS, 16), device=cuda)
+    with pytest.raises(ValueError, match="mask"):
+        fa._flash_fwd_cuda(q, q, q, mask.float(), 1.0, False, FH)

@@ -5,6 +5,8 @@
   rtol 1e-6, atol 1e-7 (mean over D and ``pow`` may round differently).
 - Dense sgd and adam against optax (through ``ps_tpu.optim``) over 5
   steps, within rtol 1e-6.
+- lamb against ``optax.lamb`` over 3 steps on a tree that holds a zero
+  tensor (its trust ratio is exactly 1 at step 1), within rtol 1e-6.
 """
 
 import jax
@@ -114,12 +116,42 @@ def test_dense_optimizer_matches_optax(name, kw):
         assert port_s["count"].dtype == torch.int32
 
 
+@pytest.mark.parametrize("kw", [
+    {"learning_rate": 1e-3, "weight_decay": 0.01},
+    {"learning_rate": 1e-2, "b1": 0.8, "b2": 0.99, "eps": 1e-5},
+])
+def test_lamb_matches_optax(kw):
+    ref = optax.lamb(**kw)
+    port = make_optimizer("lamb", **kw)
+    p0 = _dense_params(0)
+    p0["zero/bias"] = np.zeros((6,), np.float32)  # flax starts biases at 0
+    ref_p = {k: jnp.asarray(v) for k, v in p0.items()}
+    ref_s = ref.init(ref_p)
+    port_p = {k: torch.as_tensor(v.copy()) for k, v in p0.items()}
+    port_s = port.init(port_p)
+    for step in range(3):
+        grads = _dense_params(step + 1)
+        grads["zero/bias"] = np.random.default_rng(step).normal(
+            size=(6,)).astype(np.float32)
+        updates, ref_s = ref.update({k: jnp.asarray(v) for k, v in
+                                     grads.items()}, ref_s, ref_p)
+        ref_p = optax.apply_updates(ref_p, updates)
+        port.step_(port_p, {k: torch.as_tensor(v) for k, v in grads.items()},
+                   port_s)
+        np.testing.assert_allclose(port_p["zero/bias"].numpy(),
+                                   np.asarray(ref_p["zero/bias"]), rtol=1e-6)
+    for k in p0:
+        np.testing.assert_allclose(port_p[k].numpy(), np.asarray(ref_p[k]),
+                                   rtol=1e-6)
+    assert port.name == "lamb" and int(port_s["count"]) == 3
+
+
 def test_make_optimizer_resolves_and_rejects():
     opt = make_optimizer("ADAM", learning_rate=0.1)
     assert isinstance(opt, Optimizer) and opt.name == "adam"
     assert make_optimizer(opt) is opt
     with pytest.raises(ValueError, match="unknown optimizer"):
-        make_optimizer("lamb")
+        make_optimizer("momentum")
     with pytest.raises(ValueError, match="kwargs"):
         make_optimizer(opt, learning_rate=0.2)
     with pytest.raises(TypeError):
