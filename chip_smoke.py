@@ -7,7 +7,9 @@ Phases, each raising on failure:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: every CUDA kernel of the port, from ps_tpu_torch/ops/csrc/, one
-   nvcc for each source, all started together;
+   nvcc for each source, all started together; then the flash library's
+   SASS must hold wgmma (HGMMA) and TMA loads (UTMALDG), and its kernels'
+   registers and shared memory are printed;
 3. sparse apply vs its plain version on the card: the sweep (4 id
    distributions x sgd/adagrad/adam x f32/bf16) and one Zipf batch at the
    Wide-&-Deep shapes per rule, type and table width; determinism; the
@@ -22,8 +24,9 @@ Phases, each raising on failure:
    caller of the wrapper waits, and the plain version;
 6. flash attention vs its plain version on the card: f32/bf16 x causal x
    4 masks (all ones, random padding, a fully masked batch row, key 0
-   masked) at the tests' shape (B 2, S 128, h 4, d 16) and BERT-base's
-   (B 32, S 512, h 12, d 64); exact zeros and lse = -1e30 on rows that
+   masked) at the tests' shape (B 2, S 128, h 4) with d 16 and 32, a
+   ragged length (B 2, S 200, h 4, d 64) and BERT-base's (B 32, S 512,
+   h 12, d 64); exact zeros and lse = -1e30 on rows that
    attend nothing; determinism; the gradients through the kernel against
    the plain forward's through the same backward;
 7. the BERT path: a tiny BERT (flash, f32, seq 128, batch 16) for 3 LAMB
@@ -33,8 +36,9 @@ Phases, each raising on failure:
    server-side LAMB, 20 steps through ps_tpu_torch.init(backend='cuda'),
    with the flash launch count read around it;
 8. flash-attention timings at the main path's shape ([384, 512, 64]
-   bf16): the kernel's device time, what a caller waits, the plain
-   version and scaled_dot_product_attention as the yardstick.
+   bf16): the kernel's device time, its TFLOP/s and share of the bound,
+   what a caller waits, the plain version and
+   scaled_dot_product_attention as the yardstick.
 
 It prints one JSON line per timed kernel, then the kernels line, then
 ``{"ok": true, "device": {...}}`` as its last line. Without a GPU, or
@@ -175,6 +179,24 @@ def phase_build():
     log(f"build: {SOURCE} and {FLASH_SOURCE} with "
         f"{ver.strip().splitlines()[-1]} ({' '.join(_build.NVCC_FLAGS)}) in "
         f"{secs:.2f} s")
+    # the flash kernel must run on Hopper's units: wgmma and TMA loads
+    tools = os.path.dirname(_build.nvcc())
+    lib = str(_build._library_path("flash_attention"))
+    sass = subprocess.run([os.path.join(tools, "cuobjdump"), "-sass", lib],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    log(f"flash SASS: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG "
+        f"instructions")
+    if not all(counts.values()):
+        raise AssertionError(f"flash library lacks wgmma or TMA: {counts}")
+    usage = subprocess.run([os.path.join(tools, "cuobjdump"), "-res-usage",
+                            lib], capture_output=True, text=True, check=True,
+                           timeout=120).stdout.splitlines()
+    for name, res in zip(usage, usage[1:]):
+        if "flash_fwd" in name:
+            kernel = name.split("Function ")[-1].rstrip(":")
+            log(f"flash resources: {kernel}: {res.strip()}")
 
 
 def _kernel_vs_plain(opt, table, state, ids, grads):
@@ -485,7 +507,8 @@ def _flash_compare(got, want, dtype, what):
 def phase_flash_vs_plain():
     fa = _flash()
     errs, cases = {}, 0
-    for b, s, h, d in ((2, 128, 4, 16), (BERT_BATCH, BERT_SEQ, 12, 64)):
+    for b, s, h, d in ((2, 128, 4, 16), (2, 128, 4, 32), (2, 200, 4, 64),
+                       (BERT_BATCH, BERT_SEQ, 12, 64)):
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (False, True):
                 for mask_kind in ("ones", "padding", "row_masked",
@@ -530,7 +553,7 @@ def phase_flash_vs_plain():
                     cases += 1
                     del q, k, v, out, again, p_out, leaves, want
     log(f"flash kernel vs plain: {cases} cases (f32/bf16 x causal x 4 masks "
-        f"x 2 shapes), forward and gradients within rtol/atol "
+        f"x 4 shapes), forward and gradients within rtol/atol "
         f"{FLASH_TOL[torch.float32]} (f32) / {FLASH_TOL[torch.bfloat16]} "
         f"(bf16), bitwise deterministic, exact zeros and lse -1e30 on dead "
         f"rows; max abs err f32 "
@@ -691,6 +714,7 @@ def phase_flash_timings(err, launches):
         "bytes": nbytes, "flops": flops, "kernel_ms": kernel_ms,
         "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_share": bound_ms / kernel_ms,
         "tflops": flops / kernel_ms / 1e9, "launches_per_step": 12}))
     return {"name": "flash_attention/fwd", "route": "cuda",
             "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library, loaded with
 ``ctypes``. Nothing includes PyTorch's headers, so a build takes seconds.
 Libraries go to ``build/ps_tpu_torch/`` at the root of the checkout, named
-by a hash of the source and the flags, so an edited source is rebuilt and
-an unchanged one is loaded as it is. A missing ``nvcc`` or a failed build
+by a hash of the source, every header under ``csrc/`` and the flags, so an
+edited source or header is rebuilt and an unchanged one is loaded as it
+is. A missing ``nvcc`` or a failed build
 raises: there is no fall back to a kernel's plain version.
 """
 
@@ -45,8 +46,14 @@ def nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of ``csrc/<name>.cu``, every
+    header under ``csrc/`` (any source may include any of them) and the
+    flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(p for p in CSRC.rglob("*") if p.suffix in (".cuh", ".h"))
+    for path in (CSRC / f"{name}.cu", *headers):
+        digest.update(str(path.relative_to(CSRC)).encode() + b"\0")
+        digest.update(path.read_bytes() + b"\0")
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -11,7 +11,8 @@ card with ``python -m pytest tests/test_torch_kernel_cuda.py``;
   atol 1e-7 (the mean over D and ``pow`` may round differently); bf16
   within one bf16 ulp.
 - Flash attention: the kernel and ``_flash_fwd_torch`` on the same CUDA
-  tensors. The kernel sums keys in its own order, so f32 is held to
+  tensors, at every head width the kernel is built for and at a length
+  that is no multiple of its 128-row tiles. The kernel sums keys in its own order, so f32 is held to
   rtol/atol 2e-5 (the reference's flash-vs-einsum bound) and bf16 to
   1.6e-2 (two bf16 ulps: ``p`` and the output are rounded to bf16 after
   sums taken in different orders); ``lse`` is f32 in both, 2e-5.
@@ -124,13 +125,13 @@ fa = importlib.import_module("ps_tpu_torch.ops.flash_attention")
 FB, FS, FH = 2, 128, 4
 
 
-def _flash_inputs(device, dtype, d, mask_kind, seed=0):
+def _flash_inputs(device, dtype, d, mask_kind, seed=0, seq=FS):
     rng = np.random.default_rng(seed)
-    qkv = [torch.as_tensor(rng.normal(size=(FB * FH, FS, d)).astype(
+    qkv = [torch.as_tensor(rng.normal(size=(FB * FH, seq, d)).astype(
         np.float32)).to(device, dtype) for _ in range(3)]
-    mask = np.ones((FB, FS), np.int32)
+    mask = np.ones((FB, seq), np.int32)
     if mask_kind == "padding":
-        mask = (rng.random((FB, FS)) < 0.7).astype(np.int32)
+        mask = (rng.random((FB, seq)) < 0.7).astype(np.int32)
         mask[:, 0] = 1
     elif mask_kind == "row_masked":
         mask[1] = 0  # batch row 1 attends nothing
@@ -148,11 +149,23 @@ def _close(got, want, dtype):
 @pytest.mark.parametrize("mask_kind",
                          ["ones", "padding", "row_masked", "key0_masked"])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("d", [16, 32, 64])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_matches_plain_version(cuda, dtype, d, causal, mask_kind):
+    _check_flash_case(cuda, dtype, d, causal, mask_kind, FS)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_ragged_seq(cuda, dtype, causal):
+    """A length that is no multiple of the kernel's tiles: the last query
+    and key tiles run past the end of each head."""
+    _check_flash_case(cuda, dtype, 64, causal, "padding", 200)
+
+
+def _check_flash_case(cuda, dtype, d, causal, mask_kind, seq):
     dtype = getattr(torch, dtype)
-    (q, k, v), mask = _flash_inputs(cuda, dtype, d, mask_kind)
+    (q, k, v), mask = _flash_inputs(cuda, dtype, d, mask_kind, seq=seq)
     scale = d ** -0.5
     before = fa.LAUNCHES
     out, lse = fa._flash_fwd_cuda(q, k, v, mask, scale, causal, FH)
@@ -199,3 +212,8 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q = torch.zeros((FB * FH, FS, 16), device=cuda)
     with pytest.raises(ValueError, match="mask"):
         fa._flash_fwd_cuda(q, q, q, mask.float(), 1.0, False, FH)
+    flat = torch.zeros((FB * FH * FS * 16 + 1,), dtype=torch.bfloat16,
+                       device=cuda)
+    q = flat[1:].view(FB * FH, FS, 16)  # 2 bytes past an aligned address
+    with pytest.raises(ValueError, match="aligned"):
+        fa._flash_fwd_cuda(q, q, q, mask, 1.0, False, FH)
