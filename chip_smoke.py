@@ -13,15 +13,23 @@ Phases, each raising on failure:
 3. sparse apply vs its plain version on the card: the sweep (4 id
    distributions x sgd/adagrad/adam x f32/bf16) and one Zipf batch at the
    Wide-&-Deep shapes per rule, type and table width; determinism; the
-   arrival order of a hot id's sum against a host oracle, bitwise;
+   arrival order of a hot id's sum against a host oracle, bitwise; the
+   grouping pass against torch.sort (sorted ids and permutation bitwise on
+   the real ids, segments against unique_consecutive) at N = 13,312 and
+   N = 1,703,936 (a batch of 65,536) with filler; the kernel against its
+   plain version at N = 1,703,936 for the main path's rules (adagrad
+   D = 16, sgd D = 1, f32);
 4. the Wide-&-Deep path: the composite step, first at a small size
    against the same step on the CPU, then at the full published width
    (26 x 100,000 rows, D = 16, MLP 256/128/64, batch 512) for 50 steps
    through ps_tpu_torch.init(backend='cuda'), with the kernel launch
    counts read around it;
 5. sparse-apply timings at that path's shapes with CUDA events: the
-   kernel's device time (with and without the wrapper's sort), what a
-   caller of the wrapper waits, and the plain version;
+   device time of the whole apply (grouping pass + kernel), of the kernel
+   alone and of the grouping pass alone, torch.sort on the same ids (the
+   parent's sort, a yardstick the port never calls at this N), an empty
+   kernel queued the same way, what a caller of the wrapper waits, and
+   the plain version;
 6. flash attention vs its plain version on the card: f32/bf16 x causal x
    4 masks (all ones, random padding, a fully masked batch row, key 0
    masked) at the tests' shape (B 2, S 128, h 4) with d 16 and 32, a
@@ -66,6 +74,9 @@ STEPS, BATCH = 50, 512
 SLEEP_CYCLES = 200_000_000  # ~0.1 s at the H100's clock: _device_ms's head start
 SOURCE = "ps_tpu_torch/ops/csrc/sparse_apply.cu"
 REPLACES = "ps_tpu/ops/sparse_apply.py:297"
+GROUP_SOURCE = "ps_tpu_torch/ops/csrc/sparse_group.cu"
+GROUP_REPLACES = "ps_tpu/ops/sparse_apply.py:80"  # batch_segment_sum's sort
+BIG_BATCH = 65_536  # a production batch: 1,703,936 ids
 # flash attention: the kernel sums keys in its own order, so f32 is held to
 # the reference's flash-vs-einsum bound and bf16 to two bf16 ulps (p and
 # the output are rounded to bf16 after sums taken in different orders)
@@ -176,7 +187,7 @@ def phase_build():
     secs = time.perf_counter() - t0
     ver = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
                          text=True, check=True, timeout=60).stdout
-    log(f"build: {SOURCE} and {FLASH_SOURCE} with "
+    log(f"build: {GROUP_SOURCE}, {SOURCE} and {FLASH_SOURCE} with "
         f"{ver.strip().splitlines()[-1]} ({' '.join(_build.NVCC_FLAGS)}) in "
         f"{secs:.2f} s")
     # the flash kernel must run on Hopper's units: wgmma and TMA loads
@@ -214,15 +225,45 @@ def _kernel_vs_plain(opt, table, state, ids, grads):
     return (kt, ops.state_leaves(ks)), (pt, ops.state_leaves(pst))
 
 
-def _slice_ids(seed):
+def _slice_ids(seed, batch=BATCH, filler=False):
+    """The ids of one Wide-&-Deep batch on the card; with ``filler``, 1%
+    of them -1 and 1% past the table."""
     from ps_tpu_torch.data.synthetic import criteo_batches
     from ps_tpu_torch.models.wide_deep import WideDeepConfig
 
     cfg = WideDeepConfig()
-    batch = next(criteo_batches(BATCH, vocab_size=cfg.per_feature_vocab,
-                                seed=seed))
-    gids = cfg.global_ids(torch.as_tensor(batch["sparse"]))
-    return cfg, gids.reshape(-1).cuda()
+    data = next(criteo_batches(batch, vocab_size=cfg.per_feature_vocab,
+                               seed=seed))
+    gids = cfg.global_ids(torch.as_tensor(data["sparse"])).reshape(-1)
+    if filler:
+        rng = np.random.default_rng(seed)
+        gids[torch.as_tensor(rng.random(gids.numel()) < 0.01)] = -1
+        gids[torch.as_tensor(rng.random(gids.numel()) < 0.01)] = (
+            cfg.total_rows + 5)
+    return cfg, gids.cuda()
+
+
+def _check_group(group, ids, num_rows):
+    """The grouping pass against torch.sort (stable) on the real ids:
+    sorted ids and permutation bitwise, segments as unique_consecutive's,
+    and as many ids set aside as lie outside [0, num_rows)."""
+    real = (ids >= 0) & (ids < num_rows)
+    want_s, order = torch.sort(ids[real], stable=True)
+    want_perm = torch.nonzero(real).reshape(-1)[order]
+    segs, n_real, lo = (int(x) for x in group.meta.cpu())
+    vals, counts = torch.unique_consecutive(want_s, return_counts=True)
+    starts = lo + torch.cumsum(counts, 0) - counts
+    ok = (n_real == int(real.sum())
+          and torch.equal(group.ids_s[lo:lo + n_real], want_s)
+          and torch.equal(group.perm[lo:lo + n_real].long(), want_perm)
+          and segs == vals.numel()
+          and torch.equal(group.seg_start[:segs].long(), starts)
+          and int(group.seg_start[segs]) == lo + n_real
+          and torch.equal(group.seg_id[:segs], vals))
+    if not ok:
+        raise AssertionError(f"grouping pass differs from torch.sort at "
+                             f"N = {ids.numel()}")
+    return segs, ids.numel() - n_real
 
 
 def phase_kernel_vs_plain():
@@ -319,6 +360,36 @@ def phase_kernel_vs_plain():
         raise AssertionError("hot-id sgd row differs from the host oracle")
     log("arrival order: sgd f32 with a hot id x1000 equals "
         "row - f32(lr) * segment_sum_np(...) bitwise")
+
+    # the grouping pass against torch.sort, at the main path's N and at a
+    # production batch's (where it sorts with torch.sort itself)
+    for batch in (BATCH, BIG_BATCH):
+        _, fids = _slice_ids(seed=6, batch=batch, filler=True)
+        plan = ops.plan_group(fids.numel(), cfg.total_rows)
+        segs, aside = _check_group(ops.group_ids(fids, cfg.total_rows),
+                                   fids, cfg.total_rows)
+        log(f"grouping pass ({plan['path']} path, {plan['passes']} x "
+            f"{plan['digit_bits']}-bit passes): N = {fids.numel()}, "
+            f"{segs} segments, {aside} ids set aside; equals torch.sort "
+            f"bitwise on the real ids")
+        del fids
+
+    # kernel vs plain at a production batch, the main path's two rules
+    _, big = _slice_ids(seed=7, batch=BIG_BATCH, filler=True)
+    for rule, dim in (("adagrad", cfg.embed_dim), ("sgd", 1)):
+        opt = rowwise.make_rowwise(rule, learning_rate=0.05)
+        g = torch.Generator(dev).manual_seed(8)
+        table = 0.01 * torch.randn((cfg.total_rows, dim), generator=g,
+                                   device=dev)
+        grads = torch.randn((big.numel(), dim), generator=g, device=dev)
+        (kt, ks), (pt, ps_) = _kernel_vs_plain(opt, table, opt.init(table),
+                                               big, grads)
+        what = f"N={big.numel()} {rule} f32 D={dim}"
+        err = _compare(kt, pt, torch.float32, what)
+        for a, b in zip(ks, ps_):
+            err = max(err, _compare(a, b, torch.float32, what))
+        log(f"kernel vs plain: {what}: max abs err {err:.3g}")
+        del table, grads, kt, ks, pt, ps_
     return {"deep": errs[("adagrad", torch.float32, cfg.embed_dim)],
             "wide": errs[("sgd", torch.float32, 1)]}
 
@@ -396,6 +467,7 @@ def phase_main_path():
     torch.cuda.reset_peak_memory_stats()
     ops.LAUNCHES = 0
     ops.LAUNCHES_BY_RULE.clear()
+    ops.GROUP_LAUNCHES = 0
     losses, times = [], []
     for batch in batches:
         t0 = time.perf_counter()
@@ -404,9 +476,13 @@ def phase_main_path():
         times.append(time.perf_counter() - t0)
         losses.append(loss)
     launches, by_rule = ops.LAUNCHES, dict(ops.LAUNCHES_BY_RULE)
+    group_launches = ops.GROUP_LAUNCHES
     losses = [float(x) for x in losses]
     if launches != 2 * STEPS or by_rule != {"adagrad": STEPS, "sgd": STEPS}:
         raise AssertionError(f"kernel launches {launches} {by_rule}, "
+                             f"expected 2 per step over {STEPS} steps")
+    if group_launches != 2 * STEPS:  # one grouping pass a table a step
+        raise AssertionError(f"grouping-pass launches {group_launches}, "
                              f"expected 2 per step over {STEPS} steps")
     if not np.all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
@@ -420,21 +496,41 @@ def phase_main_path():
     log(f"main path: Wide-&-Deep {cfg.num_sparse} x {cfg.per_feature_vocab} "
         f"rows, D={cfg.embed_dim}, MLP {tuple(cfg.mlp)}, batch {BATCH}, "
         f"{STEPS} steps, tier cuda, kernel launches {launches} ({by_rule}), "
+        f"grouping-pass launches {group_launches}, "
         f"loss {np.mean(losses[:5]):.4f} (first 5) -> "
         f"{np.mean(losses[-5:]):.4f} (last 5)")
     log(f"main path: median step {step_ms:.3f} ms (host clock, synchronized), "
         f"{BATCH / step_ms * 1e3:.1f} examples/s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     ps.shutdown()
-    return by_rule, step_ms
+    return by_rule, group_launches, step_ms
 
 
-def phase_timings(errs, by_rule):
+def phase_timings(errs, by_rule, group_launches):
     from ps_tpu_torch.ops import sparse_apply as ops
     from ps_tpu_torch.optim import rowwise
 
     cfg, ids = _slice_ids(seed=2)
     dev = ids.device
+    n = ids.numel()
+    empty_ms = _device_ms(lambda: ops.empty_launch(dev))
+    sort_ms = _device_ms(lambda: ops.group_ids(ids, cfg.total_rows))
+    torch_sort_ms = _device_ms(lambda: torch.sort(ids, stable=True))
+    # the plain version syncs inside (nonzero, sum): a caller's time only
+    group_plain_ms = _call_ms(lambda: ops._group_torch(ids, cfg.total_rows),
+                              iters=50)
+    group = ops.group_ids(ids, cfg.total_rows)
+    segs = int(group.meta[0])
+    # each id read once; sorted ids, permutation and segment table written
+    group_bytes = 4 * n + 4 * 2 * n + 4 * (2 * segs + 1) + 4 * ops.META
+    group_bound = group_bytes / HBM_BYTES_PER_S * 1e3
+    log(json.dumps({
+        "kernel": "sparse_group", "ids": n, "segments": segs,
+        "path": ops.plan_group(n, cfg.total_rows)["path"],
+        "bytes": group_bytes, "sort_ms": sort_ms,
+        "torch_sort_ms": torch_sort_ms, "plain_ms": group_plain_ms,
+        "empty_launch_ms": empty_ms, "bound_ms": group_bound,
+        "bound_share": group_bound / sort_ms, "launches_per_step": 2}))
     entries = []
     for table_name, rule, dim in (("deep", "adagrad", cfg.embed_dim),
                                   ("wide", "sgd", 1)):
@@ -443,13 +539,12 @@ def phase_timings(errs, by_rule):
         table = 0.01 * torch.randn((cfg.total_rows, dim), generator=g,
                                    device=dev)
         state = opt.init(table)
-        grads = 1e-3 * torch.randn((ids.numel(), dim), generator=g, device=dev)
-        ids_s, order = torch.sort(ids, stable=True)
+        grads = 1e-3 * torch.randn((n, dim), generator=g, device=dev)
         wrapper = lambda: ops.fused_sparse_apply(  # noqa: E731
             table, state, ids, grads, opt, "cuda")
         kernel_ms = _device_ms(wrapper)
-        launch_ms = _device_ms(lambda: ops._launch(opt, table, state, ids_s,
-                                                   order, grads))
+        launch_ms = _device_ms(lambda: ops._launch(opt, table, state, group,
+                                                   grads))
         call_ms = _call_ms(wrapper)
         # the plain version waits for the card inside (unique_consecutive,
         # boolean masks), so only what its caller waits is measurable
@@ -458,10 +553,12 @@ def phase_timings(errs, by_rule):
         bound_ms, nbytes, uniq = _bound_ms(ids, dim, opt, 4)
         log(json.dumps({
             "kernel": "sparse_apply", "table": table_name, "rule": rule,
-            "shape": [cfg.total_rows, dim], "ids": ids.numel(),
+            "shape": [cfg.total_rows, dim], "ids": n,
             "unique_ids": uniq, "bytes": nbytes, "kernel_ms": kernel_ms,
-            "launch_ms": launch_ms, "call_ms": call_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "launches_per_step": 2,
+            "launch_ms": launch_ms, "sort_ms": sort_ms,
+            "torch_sort_ms": torch_sort_ms, "empty_launch_ms": empty_ms,
+            "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_share": bound_ms / kernel_ms, "launches_per_step": 2,
             "library_ms": None}))
         entries.append({
             "name": f"sparse_apply/{table_name}", "route": "cuda",
@@ -470,6 +567,13 @@ def phase_timings(errs, by_rule):
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes", "library_ms": None})
         del table, state
+    # the grouping pass is checked bitwise against torch.sort (phase 3)
+    entries.append({
+        "name": "sparse_group", "route": "cuda", "source": GROUP_SOURCE,
+        "replaces": GROUP_REPLACES, "launches": group_launches,
+        "max_abs_err": 0.0, "ms": sort_ms, "plain_ms": group_plain_ms,
+        "bound_ms": group_bound, "bound_by": "bytes",
+        "library_ms": torch_sort_ms})
     return entries
 
 
@@ -738,8 +842,8 @@ def main():
     phase_build()
     errs = phase_kernel_vs_plain()
     phase_small_path_vs_cpu()
-    by_rule, _ = phase_main_path()
-    entries = phase_timings(errs, by_rule)
+    by_rule, group_launches, _ = phase_main_path()
+    entries = phase_timings(errs, by_rule, group_launches)
     flash_err = phase_flash_vs_plain()
     phase_bert_small_vs_cpu()
     phase_bert_flash_vs_full()

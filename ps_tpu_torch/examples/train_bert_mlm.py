@@ -18,13 +18,13 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import time
 
 import torch
 
 import ps_tpu_torch as ps
 from ps_tpu_torch.data.synthetic import mlm_batches
+from ps_tpu_torch.examples.profiling import report_profile, start_profiler
 from ps_tpu_torch.models.bert import BertConfig, BertMLM, make_mlm_loss_fn
 
 
@@ -79,7 +79,7 @@ def main(argv=None):
 
     run = store.make_step(make_mlm_loss_fn(model))
     log = open(args.jsonl, "w") if args.jsonl else None
-    prof = _profiler(args.profile_dir, device, args.steps)
+    prof = start_profiler(args.profile_dir, device, args.steps)
     traced_s = 0.0
     t0 = None
     for step, batch in enumerate(mlm_batches(
@@ -110,44 +110,11 @@ def main(argv=None):
         log.close()
     if prof is not None:
         prof.stop()
-        _report(prof, args.profile_dir, traced_s)
+        report_profile(prof, args.profile_dir, traced_s,
+                       args.steps - 2)
     ps.shutdown()
     return seq_s
 
-
-def _profiler(out_dir, device, steps):
-    """A started ``torch.profiler`` that skips step 0, warms up on step 1
-    and records the rest, or None without ``out_dir``. On the card it
-    records device activity only: recording every CPU op as well slows
-    eager steps of thousands of launches several times over."""
-    if not out_dir:
-        return None
-    act = torch.profiler.ProfilerActivity
-    prof = torch.profiler.profile(
-        activities=[act.CUDA if device.type == "cuda" else act.CPU],
-        schedule=torch.profiler.schedule(wait=1, warmup=1, active=steps - 2))
-    prof.start()
-    return prof
-
-
-def _report(prof, out_dir, traced_s):
-    """Write the trace; print the kernels (and copies) that take the most
-    device time and the device's busy share of the traced steps' wall
-    time (one stream: device events do not overlap, so their times add)."""
-    os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
-    device = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.key.startswith("ProfilerStep")]  # a step's span
-    device.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy_us = sum(e.self_device_time_total for e in device)
-    for e in device[:30]:
-        print(f"{e.self_device_time_total / 1e3:12.3f} ms "
-              f"{100 * e.self_device_time_total / max(busy_us, 1):5.1f}% "
-              f"{e.count:7d}x  {e.key[:110]}")
-    print(f"profile: device busy {busy_us / 1e3:.3f} ms of "
-          f"{traced_s * 1e3:.3f} ms traced "
-          f"({busy_us / 1e4 / max(traced_s, 1e-9):.1f}% busy)")
 
 if __name__ == "__main__":
     main()

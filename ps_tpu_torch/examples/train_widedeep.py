@@ -2,8 +2,13 @@
 
 Counterpart of ``examples/train_widedeep.py``: the composite step
 (ps_tpu_torch/train.py) on one device — row gather, dense gradient and
-server-side Adam, and one fused sparse-apply kernel launch per embedding
-table. It prints the loss every 10 steps and the examples per second.
+server-side Adam, and each embedding table's sparse apply: a grouping
+pass and one apply, hand-written kernels on the card. It prints the loss
+every 10 steps and the examples per second. ``--profile-dir`` traces
+the steps after two warm-up steps with ``torch.profiler`` (each step
+synchronised), writes ``trace.json`` there and prints the kernels that
+take the most device time, the device time a step and the device's busy
+share of the traced steps.
 
 Run (on the GPU; ``--device cpu`` runs the plain versions on the CPU):
     python -m ps_tpu_torch.examples.train_widedeep --steps 30
@@ -19,6 +24,7 @@ import torch
 
 import ps_tpu_torch as ps
 from ps_tpu_torch.data.synthetic import criteo_batches
+from ps_tpu_torch.examples.profiling import report_profile, start_profiler
 from ps_tpu_torch.kv.sparse import SparseEmbedding
 from ps_tpu_torch.models.wide_deep import (
     WideDeep, WideDeepConfig, make_ids_fn, make_wide_deep_loss_fn,
@@ -44,10 +50,12 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--jsonl", default=None)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--profile-dir", default=None)
     args = ap.parse_args(argv)
 
-    if args.steps < 2:
-        raise SystemExit("--steps must be >= 2 (step 0 is warm-up)")
+    if args.steps < (3 if args.profile_dir else 2):
+        raise SystemExit("--steps must be >= 2 (step 0 is warm-up), and "
+                         ">= 3 with --profile-dir")
     ctx = ps.init(backend="cuda", device=args.device)
     device = ctx.device
 
@@ -75,11 +83,19 @@ def main(argv=None):
         make_wide_deep_loss_fn(model), make_ids_fn(cfg),
     )
     log = open(args.jsonl, "w") if args.jsonl else None
+    prof = start_profiler(args.profile_dir, device, args.steps)
+    traced_s = 0.0
     t0 = None
     for step, batch in enumerate(criteo_batches(
             args.batch_size, vocab_size=cfg.per_feature_vocab,
             seed=args.seed, steps=args.steps)):
+        ts = time.perf_counter()
         loss, _ = run(dense.shard_batch(batch))
+        if prof is not None:
+            _sync(device)
+            prof.step()
+            if step >= 2:
+                traced_s += time.perf_counter() - ts
         if step == 0:  # warm-up: kernel build, allocator, first launches
             _sync(device)
             t0 = time.perf_counter()
@@ -97,6 +113,9 @@ def main(argv=None):
           f"{(deep.bytes_pushed + deep.bytes_pulled + wide.bytes_pushed + wide.bytes_pulled) / 1e9:.3f} GB")
     if log:
         log.close()
+    if prof is not None:
+        prof.stop()
+        report_profile(prof, args.profile_dir, traced_s, args.steps - 2)
     ps.shutdown()
     return ex_s
 

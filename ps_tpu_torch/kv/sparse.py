@@ -105,10 +105,18 @@ class SparseEmbedding:
         """Apply summed row grads to ``table`` and ``state`` in place.
 
         ``ids``: [N] int32 (duplicates allowed); ``row_grads``: [N, D]
-        grads w.r.t. the gathered rows. Ids outside the table are masked
-        to filler, as the reference's owner-shard mask does. Returns
-        ``(table, state, dropped)`` with ``dropped`` always 0 here."""
+        grads w.r.t. the gathered rows. Ids outside the table are filler,
+        as the reference's owner-shard mask makes them. On the card the
+        kernels' grouping pass sets them aside and never reads their
+        grads, so nothing is masked or copied here; on the CPU they are
+        masked as the reference masks them. Returns ``(table, state,
+        dropped)`` with ``dropped`` always 0 here."""
         ids = ids.reshape(-1).to(torch.int32)
+        if table.device.type == "cuda":
+            g = row_grads.reshape(-1, self.dim).to(torch.float32).contiguous()
+            table, state = fused_sparse_apply(table, state, ids, g, self._opt,
+                                              self.fused_tier)
+            return table, state, 0
         ok = (ids >= 0) & (ids < self.num_rows)
         ids_m = torch.where(ok, ids, -1)
         g = torch.where(ok[:, None], row_grads.reshape(-1, self.dim), 0.0

@@ -22,7 +22,7 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 #: every kernel of the port: csrc/<name>.cu
-KERNELS = ("sparse_apply", "flash_attention")
+KERNELS = ("sparse_group", "sparse_apply", "flash_attention")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ps_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -5,13 +5,18 @@ Counterpart of ``ps_tpu/ops/sparse_apply.py``. One entry point,
 :func:`fused_sparse_apply`, and two tiers (``Config.fused_apply``,
 ``PS_FUSED_APPLY``):
 
-- ``cuda`` — the hand-written kernel (``csrc/sparse_apply.cu``): the
-  wrapper sorts the pushed ids once, stably, on the device, and one launch
-  sums each id's duplicate grads in arrival order and applies the row-wise
-  rule to the row and its state in place. It replaces the reference's
-  Pallas kernel and its ``batch_segment_sum``. On CPU tensors the wrapper
-  runs the plain version instead, and only because the tensors lie on the
-  CPU.
+- ``cuda`` — two hand-written kernels: the grouping pass
+  (``csrc/sparse_group.cu``, :func:`group_ids`) sorts the pushed ids
+  stably and writes one entry per unique real id; the apply
+  (``csrc/sparse_apply.cu``) sums each id's duplicate grads in arrival
+  order and applies the row-wise rule to the row and its state in place.
+  Two launches in all at up to :data:`GROUP_BLOCK_MAX` ids; above it the
+  grouping pass sorts with ``torch.sort`` (a cluster's shared memory holds no
+  more) and builds its segments in two launches. Together they replace the
+  reference's Pallas kernel and its ``batch_segment_sum``. Ids outside
+  ``[0, num_rows)`` are filler: their grads are never read. On CPU tensors
+  the wrapper runs the plain version instead, and only because the tensors
+  lie on the CPU.
 - ``torch`` — the plain version: :func:`batch_segment_sum` then
   :func:`_apply_torch`, mirroring the reference's ``jax`` tier. It takes
   CPU tensors only.
@@ -31,18 +36,30 @@ from __future__ import annotations
 
 import collections
 import ctypes
-from typing import Any, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
 TIERS = ("off", "torch", "cuda")
 
-#: launches of the CUDA kernel, counted where the wrapper launches it
+#: launches of the apply kernel, counted where the wrapper launches it
 LAUNCHES = 0
 #: the same launches by optimizer rule ("sgd", "adagrad", "adam")
 LAUNCHES_BY_RULE: collections.Counter = collections.Counter()
+#: launches of the grouping pass's kernels (one per apply up to
+#: GROUP_BLOCK_MAX ids, two above), counted where the wrapper launches them
+GROUP_LAUNCHES = 0
 
 _RULES = {"sgd": 0, "adagrad": 1, "adam": 2}
+
+#: the most ids the grouping pass sorts in a cluster's shared memory
+GROUP_BLOCK_MAX = 16_384
+#: bits of a radix digit, at most (2,048 per-warp counters per pass)
+DIGIT_BITS = 11
+#: sorted ids per block of the grouping pass's segment kernels
+SEG_TILE = 8_192
+#: ints of the grouping pass's ``meta``: segments, real ids, first real slot
+META = 3
 
 
 def resolve_tier(requested: Optional[str], device) -> str:
@@ -122,12 +139,13 @@ def fused_sparse_apply(table: torch.Tensor, state: Any, ids: torch.Tensor,
                        grads: torch.Tensor, opt, tier: str
                        ) -> Tuple[torch.Tensor, Any]:
     """The entry point every sparse apply routes through. ``ids`` [N] int32
-    are table rows with -1 filler, ``grads`` [N, D] f32 with filler rows
-    zeroed. Updates ``table`` and ``state`` in place (only touched rows'
-    bytes move) and returns them.
+    are table rows; ids outside ``[0, num_rows)`` (-1 filler, ids past the
+    table) are never applied. ``grads`` [N, D] f32. Updates ``table`` and
+    ``state`` in place (only touched rows' bytes move) and returns them.
 
-    On a CUDA table the ``cuda`` tier launches the kernel (or raises); on
-    a CPU table both tiers run the plain version."""
+    On a CUDA table the ``cuda`` tier launches the kernels (or raises) and
+    never reads a filler id's grads; on a CPU table both tiers run the
+    plain version."""
     if tier == "off":
         raise ValueError("tier 'off' is the caller's own full-table path "
                          "— fused_sparse_apply never runs it")
@@ -230,6 +248,172 @@ def _kernel_args(opt, table, state):
     return rule, st_a, st_b, st_t
 
 
+# -- the grouping pass ------------------------------------------------------------
+
+
+class Group(NamedTuple):
+    """What the grouping pass writes, all int32 on the ids' device.
+
+    ``ids_s`` [N] the sorted ids, ``perm`` [N] the stable permutation
+    (``ids_s[i]`` is ``ids[perm[i]]`` for a real id); the real ids occupy
+    ``[lo, lo + n_real)`` of both. Segment ``s < U`` (one per unique real
+    id, ascending) is ``ids_s[seg_start[s]:seg_start[s + 1]]`` with id
+    ``seg_id[s]``. ``meta`` = ``[U, n_real, lo]``. Entries of
+    ``seg_start`` past ``U`` and of ``seg_id`` past ``U - 1`` are scratch.
+    """
+
+    ids_s: torch.Tensor
+    perm: torch.Tensor
+    seg_start: torch.Tensor
+    seg_id: torch.Tensor
+    meta: torch.Tensor
+
+
+def key_bits(num_rows: int) -> int:
+    """Bits of the grouping pass's sort key: real ids are below
+    ``num_rows`` and every filler id becomes ``num_rows`` itself, so
+    ``num_rows.bit_length()`` bits hold them all (22 for 2,600,000)."""
+    return max(1, int(num_rows).bit_length())
+
+
+def plan_group(n: int, num_rows: int, path: Optional[str] = None) -> dict:
+    """The grouping pass's plan for ``n`` ids into ``num_rows`` rows,
+    computed on the host: the path (``cluster`` sorts in the shared
+    memory of a cluster of 8 blocks, up to :data:`GROUP_BLOCK_MAX` ids; ``sorted`` takes
+    ``torch.sort`` and builds the segments in two launches), the key bits,
+    the radix passes and their digit bits (at most :data:`DIGIT_BITS`), the
+    int32 scratch the wrapper allocates, and the launches."""
+    if not 0 <= num_rows < 2**31:
+        raise ValueError(f"num_rows {num_rows} does not fit an int32 id")
+    if not 0 <= n < 2**31:
+        raise ValueError(f"{n} ids do not fit int32 positions")
+    if path is None:
+        path = "cluster" if n <= GROUP_BLOCK_MAX else "sorted"
+    if path not in ("cluster", "sorted"):
+        raise ValueError(f"unknown grouping path {path!r}")
+    if path == "cluster" and n > GROUP_BLOCK_MAX:
+        raise ValueError(f"the cluster path sorts at most {GROUP_BLOCK_MAX} "
+                         f"ids, got {n}")
+    bits = key_bits(num_rows)
+    passes = -(-bits // DIGIT_BITS)
+    blocks = -(-n // SEG_TILE)
+    # block: ids_s, perm, seg_start (n + 1), seg_id, meta; sorted: the same
+    # but ids_s (torch.sort's), plus 3 counts per segment block
+    scratch = (4 * n + 1 + META if path == "cluster"
+               else 3 * n + 1 + META + 3 * blocks)
+    return {"path": path, "key_bits": bits, "passes": passes,
+            "digit_bits": -(-bits // passes), "scratch_ints": scratch,
+            "launches": 1 if path == "cluster" else 2}
+
+
+def group_ids(ids: torch.Tensor, num_rows: int,
+              path: Optional[str] = None) -> Group:
+    """The grouping pass: on CUDA ids, its kernels (``path`` forces one,
+    for timing; None chooses by N), else its plain version."""
+    if ids.dtype != torch.int32 or ids.dim() != 1:
+        raise ValueError(f"ids must be [N] int32, got {tuple(ids.shape)} "
+                         f"{ids.dtype}")
+    if ids.device.type == "cuda":
+        return _group_cuda(ids, num_rows, path)
+    return _group_torch(ids, num_rows)
+
+
+def _group_torch(ids: torch.Tensor, num_rows: int) -> Group:
+    """The grouping pass's plain version: a stable ``torch.sort`` of the
+    keys (filler as ``num_rows``, so it sorts last) and the segments by
+    comparison with each predecessor; the cluster path's layout."""
+    n = ids.shape[0]
+    keys = torch.where((ids >= 0) & (ids < num_rows), ids,
+                       torch.full_like(ids, num_rows))
+    ids_s, order = torch.sort(keys, stable=True)
+    real = ids_s < num_rows
+    head = real.clone()
+    head[1:] &= ids_s[1:] != ids_s[:-1]
+    starts = torch.nonzero(head).reshape(-1).to(torch.int32)
+    segs, n_real = starts.numel(), int(real.sum())
+    seg_start = torch.zeros((n + 1,), dtype=torch.int32, device=ids.device)
+    seg_start[:segs] = starts
+    seg_start[segs] = n_real
+    seg_id = torch.zeros((n,), dtype=torch.int32, device=ids.device)
+    seg_id[:segs] = ids_s[starts.long()]
+    meta = torch.tensor([segs, n_real, 0], dtype=torch.int32,
+                        device=ids.device)
+    return Group(ids_s, order.to(torch.int32), seg_start, seg_id, meta)
+
+
+def _group_lib():
+    from ps_tpu_torch.ops import _build
+
+    lib = _build.load("sparse_group")
+    if not getattr(lib, "_ps_typed", False):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.ps_sparse_group_cluster.argtypes = [p, ll, ll, i, i, p, p, p, p, p,
+                                              i, p]
+        lib.ps_sparse_group_cluster.restype = i
+        lib.ps_sparse_group_sorted.argtypes = [p, p, ll, ll, p, p, p, p, p,
+                                               i, p]
+        lib.ps_sparse_group_sorted.restype = i
+        lib.ps_empty_launch.argtypes = [i, p]
+        lib.ps_empty_launch.restype = i
+        lib.ps_group_error_string.argtypes = [i]
+        lib.ps_group_error_string.restype = ctypes.c_char_p
+        lib._ps_typed = True
+    return lib
+
+
+def _check_rc(lib, rc, what):
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} "
+                           f"({lib.ps_group_error_string(rc).decode()})")
+
+
+def _group_cuda(ids: torch.Tensor, num_rows: int,
+                path: Optional[str] = None) -> Group:
+    """The grouping pass's kernels on the current stream: no host sync;
+    scratch from ``torch.empty``."""
+    global GROUP_LAUNCHES
+    n = ids.shape[0]
+    plan = plan_group(n, num_rows, path)
+    ids = ids.contiguous()
+    scratch = torch.empty((plan["scratch_ints"],), dtype=torch.int32,
+                          device=ids.device)
+    lib = _group_lib()
+    stream = torch.cuda.current_stream(ids.device).cuda_stream
+    dev = ids.device.index
+    if plan["path"] == "cluster":
+        ids_s, perm, seg_start, seg_id, meta = torch.split(
+            scratch, [n, n, n + 1, n, META])
+        rc = lib.ps_sparse_group_cluster(
+            ids.data_ptr(), n, num_rows, plan["passes"], plan["digit_bits"],
+            ids_s.data_ptr(), perm.data_ptr(), seg_start.data_ptr(),
+            seg_id.data_ptr(), meta.data_ptr(), dev, stream)
+        _check_rc(lib, rc, "sparse_group block")
+    else:
+        ids_s, order = torch.sort(ids, stable=True)
+        perm, seg_start, seg_id, meta, counts = torch.split(
+            scratch, [n, n + 1, n, META, plan["scratch_ints"] - 3 * n - 1
+                      - META])
+        rc = lib.ps_sparse_group_sorted(
+            ids_s.data_ptr(), order.data_ptr(), n, num_rows, perm.data_ptr(),
+            seg_start.data_ptr(), seg_id.data_ptr(), meta.data_ptr(),
+            counts.data_ptr(), dev, stream)
+        _check_rc(lib, rc, "sparse_group segments")
+    GROUP_LAUNCHES += plan["launches"]
+    return Group(ids_s, perm, seg_start, seg_id, meta)
+
+
+def empty_launch(device) -> None:
+    """Launch an empty kernel on the current stream: the floor one launch
+    costs, timed beside the kernels. Counted nowhere."""
+    device = torch.device(device)
+    lib = _group_lib()
+    _check_rc(lib, lib.ps_empty_launch(
+        device.index, torch.cuda.current_stream(device).cuda_stream), "empty")
+
+
+# -- the apply kernel --------------------------------------------------------------
+
+
 def _lib():
     from ps_tpu_torch.ops import _build
 
@@ -237,8 +421,8 @@ def _lib():
     if not getattr(lib, "_ps_typed", False):
         p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float)
-        lib.ps_sparse_apply.argtypes = [i, i, p, p, p, p, p, p, p, ll, ll, ll,
-                                        f, f, f, f, f, f, i, p]
+        lib.ps_sparse_apply.argtypes = [i, i, p, p, p, p, p, p, p, p, p, ll,
+                                        ll, f, f, f, f, f, f, i, p]
         lib.ps_sparse_apply.restype = i
         lib.ps_cuda_error_string.argtypes = [i]
         lib.ps_cuda_error_string.restype = ctypes.c_char_p
@@ -246,30 +430,39 @@ def _lib():
     return lib
 
 
-def _launch(opt, table, state, ids_s, order, grads):
-    """One launch of the kernel on sorted ids (``ids_s`` int32, ``order``
-    the stable sort's int64 permutation) and the grads in arrival order.
-    Launches on the current stream and does not synchronise."""
-    global LAUNCHES
-    rule, st_a, st_b, st_t = _kernel_args(opt, table, state)
-    n = ids_s.shape[0]
+def _check_launch_args(table, group: Group, grads):
+    """Check the apply kernel's inputs besides the table and state."""
+    n = group.perm.shape[0]
     dim = table.shape[1]
-    for name, t, dtype, shape in (("ids", ids_s, torch.int32, (n,)),
-                                  ("order", order, torch.int64, (n,)),
-                                  ("grads", grads, torch.float32, (n, dim))):
+    want = (("grads", grads, torch.float32, (n, dim)),
+            ("perm", group.perm, torch.int32, (n,)),
+            ("seg_start", group.seg_start, torch.int32, (n + 1,)),
+            ("seg_id", group.seg_id, torch.int32, (n,)),
+            ("meta", group.meta, torch.int32, (META,)))
+    for name, t, dtype, shape in want:
         if (t.dtype != dtype or tuple(t.shape) != shape
                 or t.device != table.device or not t.is_contiguous()):
             raise ValueError(
                 f"{name} {tuple(t.shape)} {t.dtype} on {t.device}: the "
                 f"kernel takes contiguous {shape} {dtype} on {table.device}")
+
+
+def _launch(opt, table, state, group: Group, grads):
+    """One launch of the apply kernel on a grouping pass's output and the
+    grads in arrival order. Launches on the current stream and does not
+    synchronise."""
+    global LAUNCHES
+    rule, st_a, st_b, st_t = _kernel_args(opt, table, state)
+    _check_launch_args(table, group, grads)
     hp = opt.hyper
     b1, b2 = hp.get("b1", 0.0), hp.get("b2", 0.0)
     lib = _lib()
     rc = lib.ps_sparse_apply(
         rule, int(table.dtype == torch.bfloat16), table.data_ptr(),
-        st_a, st_b, st_t, ids_s.data_ptr(), order.data_ptr(),
-        grads.data_ptr(), n, dim, table.shape[0], hp["lr"], b1, b2,
-        1.0 - b1, 1.0 - b2, hp.get("eps", 0.0), table.device.index,
+        st_a, st_b, st_t, grads.data_ptr(), group.perm.data_ptr(),
+        group.seg_start.data_ptr(), group.seg_id.data_ptr(),
+        group.meta.data_ptr(), group.perm.shape[0], table.shape[1], hp["lr"],
+        b1, b2, 1.0 - b1, 1.0 - b2, hp.get("eps", 0.0), table.device.index,
         torch.cuda.current_stream(table.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sparse_apply kernel launch failed: CUDA error "
@@ -280,13 +473,18 @@ def _launch(opt, table, state, ids_s, order, grads):
 
 
 def _apply_cuda(opt, table, state, ids, grads):
-    """The kernel's wrapper: one stable sort of the ids on the device, then
-    one launch. No host sync, no allocation inside the kernel."""
+    """The kernels' wrapper: the grouping pass, then one launch of the
+    apply. No host sync, no allocation inside a kernel."""
     if ids.dtype != torch.int32 or ids.dim() != 1:
         raise ValueError(f"ids must be [N] int32, got {tuple(ids.shape)} "
                          f"{ids.dtype}")
-    ids_s, order = torch.sort(ids, stable=True)
-    return _launch(opt, table, state, ids_s, order, grads)
+    _kernel_args(opt, table, state)  # raise before launching anything
+    if (grads.dtype != torch.float32 or grads.dim() != 2
+            or grads.shape[0] != ids.shape[0]):
+        raise ValueError(f"grads {tuple(grads.shape)} {grads.dtype}: the "
+                         f"kernel takes [{ids.shape[0]}, D] float32")
+    group = group_ids(ids, table.shape[0])
+    return _launch(opt, table, state, group, grads)
 
 
 # -- HBM traffic model -----------------------------------------------------------

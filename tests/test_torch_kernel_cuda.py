@@ -2,14 +2,21 @@
 
 A CUDA kernel has no interpret mode, so these tests need an NVIDIA GPU
 and ``nvcc``; elsewhere they skip (the ``cuda`` marker). Run them on the
-card with ``python -m pytest tests/test_torch_kernel_cuda.py``;
-``chip_smoke.py`` runs the same checks at the main paths' shapes.
+card with ``python -m pytest tests/test_torch_kernel_cuda.py --noconftest``
+(``tests/conftest.py`` imports jax); ``chip_smoke.py`` runs the same
+checks at the main paths' shapes.
 
 - Sparse apply: the sweep of tests/test_torch_sparse_apply.py carried to
-  ``tier='cuda'``: the kernel and the plain version (``batch_segment_sum``
-  + ``_apply_torch``) run on the same CUDA tensors. f32 within rtol 1e-6,
-  atol 1e-7 (the mean over D and ``pow`` may round differently); bf16
-  within one bf16 ulp.
+  ``tier='cuda'``, and Zipf batches of the Wide-&-Deep slice at N =
+  13,312 and 1,703,936 for 3 rules x f32/bf16 x D in {1, 16, 64}: the
+  kernels and the plain version (``batch_segment_sum`` + ``_apply_torch``)
+  run on the same CUDA tensors. f32 within rtol 1e-6, atol 1e-7 (the mean
+  over D and ``pow`` may round differently); bf16 within one bf16 ulp; a
+  hot id pushed 100,000 times, sgd f32, bitwise against a host oracle.
+- The grouping pass: on the real ids its sorted ids and permutation equal
+  ``torch.sort(ids, stable=True)``'s bitwise and its segments
+  ``unique_consecutive``'s, at N from 1 to 1,703,936, with filler, ids
+  past the table, all-equal ids and ``num_rows`` up to 2**24.
 - Flash attention: the kernel and ``_flash_fwd_torch`` on the same CUDA
   tensors, at every head width the kernel is built for and at a length
   that is no multiple of its 128-row tiles. The kernel sums keys in its own order, so f32 is held to
@@ -104,6 +111,134 @@ def test_kernel_is_deterministic_and_sums_in_arrival_order(cuda):
     want = table0.copy()
     want[uids] = want[uids] - np.float32(LR) * gsum
     np.testing.assert_array_equal(outs[0], want)
+
+
+def _zipf_ids(batch, num_rows, seed, filler=True):
+    """Wide-&-Deep's ids for one batch (26 features, Zipf-1.2), with some
+    turned into -1 filler and ids past the table."""
+    from ps_tpu_torch.data.synthetic import criteo_batches
+    from ps_tpu_torch.models.wide_deep import WideDeepConfig
+
+    cfg = WideDeepConfig()
+    sparse = next(criteo_batches(batch, vocab_size=cfg.per_feature_vocab,
+                                 seed=seed))["sparse"]
+    ids = cfg.global_ids(torch.as_tensor(sparse)).reshape(-1).numpy().copy()
+    ids %= num_rows
+    if filler:
+        rng = np.random.default_rng(seed)
+        ids[rng.random(ids.size) < 0.01] = -1
+        ids[rng.random(ids.size) < 0.01] = num_rows + 5
+    return ids.astype(np.int32)
+
+
+def _group_ids_case(n, kind, num_rows, seed=0):
+    rng = np.random.default_rng(seed)
+    if kind == "equal":
+        return np.full((n,), min(7, num_rows - 1), np.int32)
+    if kind == "zipf" and n % 26 == 0:
+        return _zipf_ids(n // 26, num_rows, seed)
+    ids = rng.integers(0, num_rows, size=n).astype(np.int64)
+    ids[rng.random(n) < 0.1] = -1
+    ids[rng.random(n) < 0.1] = num_rows + rng.integers(0, 1000)
+    ids[rng.random(n) < 0.3] = 3  # a hot id
+    return ids.astype(np.int32)
+
+
+def _check_group(group, ids, num_rows):
+    """The grouping pass against torch.sort and unique_consecutive on the
+    real ids: bitwise."""
+    real = (ids >= 0) & (ids < num_rows)
+    want_s, order = torch.sort(ids[real], stable=True)
+    want_perm = torch.nonzero(real).reshape(-1)[order]
+    segs, n_real, lo = (int(x) for x in group.meta.cpu())
+    assert n_real == int(real.sum())
+    assert ids.numel() - n_real == int((~real).sum())  # set aside
+    assert torch.equal(group.ids_s[lo:lo + n_real], want_s)
+    assert torch.equal(group.perm[lo:lo + n_real].long(), want_perm)
+    vals, counts = torch.unique_consecutive(want_s, return_counts=True)
+    assert segs == vals.numel()
+    starts = lo + torch.cumsum(counts, 0) - counts
+    assert torch.equal(group.seg_start[:segs].long(), starts)
+    assert int(group.seg_start[segs]) == lo + n_real
+    assert torch.equal(group.seg_id[:segs], vals)
+
+
+@pytest.mark.parametrize("num_rows", [2_600_000, 2**24])
+@pytest.mark.parametrize("kind", ["mixed", "equal", "zipf"])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 13_312, 106_496, 1_703_936])
+def test_grouping_pass_equals_torch_sort(cuda, n, kind, num_rows):
+    ids = torch.as_tensor(_group_ids_case(n, kind, num_rows)).to(cuda)
+    before = ops.GROUP_LAUNCHES
+    group = ops.group_ids(ids, num_rows)
+    torch.cuda.synchronize(cuda)
+    plan = ops.plan_group(n, num_rows)
+    assert ops.GROUP_LAUNCHES == before + plan["launches"]
+    _check_group(group, ids, num_rows)
+
+
+@pytest.mark.parametrize("n", [1, 33, 1_000, 13_312, 16_384])
+def test_grouping_sorted_path_at_small_n(cuda, n):
+    """The path above GROUP_BLOCK_MAX, forced at sizes the cluster path
+    also takes: both give the same segments."""
+    ids = torch.as_tensor(_group_ids_case(n, "mixed", 5_000)).to(cuda)
+    sorted_path = ops.group_ids(ids, 5_000, path="sorted")
+    block = ops.group_ids(ids, 5_000)
+    torch.cuda.synchronize(cuda)
+    _check_group(sorted_path, ids, 5_000)
+    _check_group(block, ids, 5_000)
+
+
+@pytest.mark.parametrize("dim", [1, 16, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("optimizer", ["sgd", "adagrad", "adam"])
+@pytest.mark.parametrize("batch", [512, 65_536])
+def test_kernel_matches_plain_version_at_scale(cuda, batch, optimizer, dtype,
+                                               dim):
+    """Zipf batches of the Wide-&-Deep slice (N = 13,312 and 1,703,936)
+    with filler and ids past the table, into 2.6M rows."""
+    num_rows = 2_600_000
+    dtype = getattr(torch, dtype)
+    ids = torch.as_tensor(_zipf_ids(batch, num_rows, seed=1)).to(cuda)
+    g = torch.Generator(cuda).manual_seed(3)
+    opt = rowwise.make_rowwise(optimizer, learning_rate=0.05)
+    table = (0.01 * torch.randn((num_rows, dim), generator=g, device=cuda)
+             ).to(dtype)
+    grads = torch.randn((ids.numel(), dim), generator=g, device=cuda)
+    state = opt.init(table)
+    pt, pst = table.clone(), ops._map_state(torch.Tensor.clone, state)
+    ops.fused_sparse_apply(table, state, ids, grads, opt, "cuda")
+    ops._apply_torch(opt, pt, pst, *ops.batch_segment_sum(ids, grads))
+    torch.cuda.synchronize(cuda)
+    got, want = table.float().cpu().numpy(), pt.float().cpu().numpy()
+    if dtype == torch.bfloat16:
+        ulp = np.spacing(np.abs(want)) * 2**16
+        assert np.all(np.abs(got - want) <= ulp)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    for a, b in zip(ops.state_leaves(state), ops.state_leaves(pst)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-6, atol=1e-7)
+
+
+def test_hot_id_of_100000_duplicates_sums_in_arrival_order(cuda):
+    """sgd f32: one id pushed 100,000 times among others (the grouping
+    pass's torch.sort path, and segments of thousands of tiles) equals
+    the host oracle row - f32(lr) * segment_sum_np(...) bitwise."""
+    rng = np.random.default_rng(12)
+    n = 120_000
+    ids = rng.integers(0, V, size=n).astype(np.int32)
+    ids[rng.permutation(n)[:100_000]] = 5
+    ids[rng.permutation(n)[:500]] = -1
+    grads = rng.normal(size=(n, D)).astype(np.float32)
+    table0 = np.random.default_rng(0).normal(size=(V, D)).astype(np.float32)
+    opt = rowwise.make_rowwise("sgd", learning_rate=LR)
+    table = torch.as_tensor(table0).to(cuda)
+    ops.fused_sparse_apply(table, (), torch.as_tensor(ids).to(cuda),
+                           torch.as_tensor(grads).to(cuda), opt, "cuda")
+    uids, gsum, _ = ops.segment_sum_np(ids, grads)
+    want = table0.copy()
+    want[uids] = want[uids] - np.float32(LR) * gsum
+    np.testing.assert_array_equal(table.cpu().numpy(), want)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):

@@ -224,3 +224,169 @@ def test_kernel_wrapper_checks_what_it_takes():
         ops._kernel_args(rowwise.RowwiseOptimizer(lambda r: (),
                                                   lambda *a: a[:2]),
                          table, ())
+    # the wrapper takes [N] int32 ids and [N, D] float32 grads
+    ids = torch.zeros((3,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="ids must be"):
+        ops._apply_cuda(opt, table, state, ids.long(), torch.zeros((3, 4)))
+    with pytest.raises(ValueError, match="grads"):
+        ops._apply_cuda(opt, table, state, ids, torch.zeros((2, 4)))
+    with pytest.raises(ValueError, match="grads"):
+        ops._apply_cuda(opt, table, state, ids,
+                        torch.zeros((3, 4), dtype=torch.float64))
+    with pytest.raises(ValueError, match="state leaf"):
+        ops._apply_cuda(opt, table, bad, ids, torch.zeros((3, 4)))
+
+
+# -- the grouping pass's host-side plan and plain version -------------------------
+
+
+@pytest.mark.parametrize("num_rows, bits", [
+    (0, 1), (1, 1), (2, 2), (1_000, 10), (2_047, 11), (2_048, 12),
+    (2_600_000, 22), (2**22, 23), (2**24 - 1, 24), (2**24, 25),
+    (2**31 - 1, 31)])
+def test_key_bits_hold_every_real_id_and_the_filler_key(num_rows, bits):
+    """Real ids are below num_rows and filler becomes num_rows itself:
+    key_bits is the fewest bits that hold num_rows."""
+    assert ops.key_bits(num_rows) == bits
+    assert num_rows < 2**bits
+
+
+@pytest.mark.parametrize("n, num_rows, want", [
+    (13_312, 2_600_000, ("cluster", 22, 2, 11, 1)),
+    (1, 10, ("cluster", 4, 1, 4, 1)),
+    (16_384, 2**24, ("cluster", 25, 3, 9, 1)),
+    (16_385, 2_600_000, ("sorted", 22, 2, 11, 2)),
+    (106_496, 2_600_000, ("sorted", 22, 2, 11, 2)),
+    (1_703_936, 2**31 - 1, ("sorted", 31, 3, 11, 2))])
+def test_plan_group_path_bits_and_launches(n, num_rows, want):
+    plan = ops.plan_group(n, num_rows)
+    got = (plan["path"], plan["key_bits"], plan["passes"],
+           plan["digit_bits"], plan["launches"])
+    assert got == want
+    assert plan["digit_bits"] <= ops.DIGIT_BITS
+    assert plan["passes"] * plan["digit_bits"] >= plan["key_bits"]
+
+
+@pytest.mark.parametrize("n", [1, 13_312, 16_384, 16_385, 1_703_936])
+def test_plan_group_scratch_holds_every_output(n):
+    """The int32 scratch the wrapper allocates holds what the path writes:
+    ids_s, perm, seg_start (n + 1), seg_id and meta; on the sorted path
+    torch.sort's ids_s instead, plus 3 counts a segment block."""
+    plan = ops.plan_group(n, 2_600_000)
+    if plan["path"] == "cluster":
+        assert plan["scratch_ints"] == 4 * n + 1 + ops.META
+    else:
+        blocks = -(-n // ops.SEG_TILE)
+        assert plan["scratch_ints"] == 3 * n + 1 + ops.META + 3 * blocks
+    assert ops.plan_group(n, 2_600_000, path="sorted")["path"] == "sorted"
+
+
+def test_plan_group_rejects_what_no_path_takes():
+    with pytest.raises(ValueError, match="at most"):
+        ops.plan_group(ops.GROUP_BLOCK_MAX + 1, 100, path="cluster")
+    with pytest.raises(ValueError, match="unknown grouping path"):
+        ops.plan_group(10, 100, path="radix")
+    with pytest.raises(ValueError, match="int32 id"):
+        ops.plan_group(10, 2**31)
+    with pytest.raises(ValueError, match="int32 positions"):
+        ops.plan_group(2**31, 100)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plain_grouping_equals_a_numpy_oracle(seed):
+    """The grouping pass's plain version (what the card's kernels are held
+    to): stable order of the real ids, filler last, segments as
+    np.unique's, on ids with -1 filler and ids past the table."""
+    rng = np.random.default_rng(seed)
+    num_rows = 50
+    ids = rng.integers(-1, num_rows + 10, size=300).astype(np.int32)
+    ids[rng.random(300) < 0.3] = 7
+    g = ops.group_ids(torch.as_tensor(ids), num_rows)
+    real = (ids >= 0) & (ids < num_rows)
+    order = np.argsort(np.where(real, ids, num_rows), kind="stable")
+    segs, n_real, lo = g.meta.tolist()
+    assert (n_real, lo) == (int(real.sum()), 0)
+    np.testing.assert_array_equal(g.perm.numpy(), order)
+    np.testing.assert_array_equal(g.ids_s.numpy()[:n_real],
+                                  ids[order][:n_real])
+    assert np.all(g.ids_s.numpy()[n_real:] == num_rows)  # set aside
+    uids, first = np.unique(ids[order][:n_real], return_index=True)
+    assert segs == uids.size
+    np.testing.assert_array_equal(g.seg_id.numpy()[:segs], uids)
+    np.testing.assert_array_equal(g.seg_start.numpy()[:segs], first)
+    assert g.seg_start[segs] == n_real
+    for t in g:
+        assert t.dtype == torch.int32
+
+
+def test_group_ids_checks_what_it_takes():
+    with pytest.raises(ValueError, match="int32"):
+        ops.group_ids(torch.zeros((4,), dtype=torch.int64), 10)
+    with pytest.raises(ValueError, match="int32"):
+        ops.group_ids(torch.zeros((2, 2), dtype=torch.int32), 10)
+
+
+def test_launch_checks_the_grouping_output_and_grads():
+    """The apply's wrapper checks a grouping pass's output and the grads
+    before anything touches the card."""
+    table = torch.zeros((6, 4))
+    ids = torch.tensor([1, 3, 1, -1], dtype=torch.int32)
+    group = ops.group_ids(ids, 6)
+    grads = torch.zeros((4, 4))
+    ops._check_launch_args(table, group, grads)
+    with pytest.raises(ValueError, match="grads"):
+        ops._check_launch_args(table, group, grads[:, :3])
+    with pytest.raises(ValueError, match="grads"):
+        ops._check_launch_args(table, group, grads.double())
+    with pytest.raises(ValueError, match="perm"):
+        ops._check_launch_args(table, group._replace(
+            perm=group.perm.long()), grads)
+    with pytest.raises(ValueError, match="seg_start"):
+        ops._check_launch_args(table, group._replace(
+            seg_start=group.seg_start[:-1]), grads)
+    with pytest.raises(ValueError, match="meta"):
+        ops._check_launch_args(table, group._replace(
+            meta=group.meta[:2]), grads)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops._check_launch_args(table, group, torch.zeros((4, 8))[:, ::2])
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adagrad", "adam"])
+def test_embedding_apply_on_the_cpu_masks_filler_as_the_reference(optimizer):
+    """SparseEmbedding.apply on the CPU with -1 and out-of-range ids: the
+    same table and state as the reference's jax tier given the ids its
+    owner-shard mask makes (filler -1, its grads zeroed)."""
+    import ps_tpu_torch
+    from ps_tpu_torch.kv.sparse import SparseEmbedding
+
+    ps_tpu_torch.shutdown()
+    ps_tpu_torch.init(backend="cuda", device="cpu")
+    try:
+        rng = np.random.default_rng(21)
+        emb = SparseEmbedding(V, D, optimizer=optimizer, learning_rate=LR)
+        emb.init(_table0())
+        opt = ref_rowwise.make_rowwise(optimizer, learning_rate=LR)
+        ref_t = jnp.asarray(_table0())
+        ref_s = opt.init(ref_t)
+        for _ in range(3):
+            ids = rng.integers(-1, V + 20, size=40).astype(np.int32)
+            ids[:5] = [-1, V, V + 7, 3, 3]
+            grads = rng.normal(size=(40, D)).astype(np.float32)
+            emb.apply(emb.table, emb.state(), torch.as_tensor(ids),
+                      torch.as_tensor(grads))
+            masked = np.where((ids >= 0) & (ids < V), ids, -1)
+            g = np.where(masked[:, None] >= 0, grads, 0.0).astype(np.float32)
+            ref_t, ref_s = ref_ops.fused_sparse_apply(
+                ref_t, ref_s, jnp.asarray(masked), jnp.asarray(g), opt, "jax")
+        got_t = emb.table.numpy()
+        if optimizer == "sgd":
+            np.testing.assert_array_equal(got_t, np.asarray(ref_t))
+        else:
+            np.testing.assert_allclose(got_t, np.asarray(ref_t), rtol=1e-6,
+                                       atol=1e-7)
+        for got, want in zip(ops.state_leaves(emb.state()),
+                             jax.tree_util.tree_leaves(ref_s)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-6, atol=1e-7)
+    finally:
+        ps_tpu_torch.shutdown()
