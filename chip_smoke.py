@@ -46,7 +46,24 @@ Phases, each raising on failure:
 8. flash-attention timings at the main path's shape ([384, 512, 64]
    bf16): the kernel's device time, its TFLOP/s and share of the bound,
    what a caller waits, the plain version and
-   scaled_dot_product_attention as the yardstick.
+   scaled_dot_product_attention as the yardstick;
+9. ResNet on the card against the CPU, with cuDNN's TF32 allowed as
+   PyTorch allows it by default (the f32 model must turn it off itself): a
+   tiny BasicBlock ResNet (stages (1, 1), 8 filters, small inputs, f32) on
+   28² and a small Bottleneck one on 16², 3 momentum steps each from the
+   same weights (loss rtol 1e-5; params and batch_stats rtol 2e-4, atol
+   2e-5, the reference's bounds); then full-width ResNet-50 in f32 on
+   2 x 224² images, eval and train mode (logits and batch_stats rtol/atol
+   2e-4), which checks the stem's and the stride-2 layers' 'SAME' padding
+   at the published size on the card;
+10. the ResNet path: ResNet-50 v1.5, 224², bf16 compute over f32
+   parameters, global batch 256, momentum lr 0.1 / 0.9, label smoothing
+   0.1, placement 'sharded', seed 0, 20 steps through
+   ps_tpu_torch.init(backend='cuda'), each step's batch already on the
+   card (cycled from 4 pre-generated batches); the median step, images/s,
+   peak device memory and the step's analytic FLOPs and their share of
+   the bf16 peak. This path runs no kernel of the port: the reference's
+   ResNet reaches no Pallas kernel.
 
 It prints one JSON line per timed kernel, then the kernels line, then
 ``{"ok": true, "device": {...}}`` as its last line. Without a GPU, or
@@ -84,6 +101,7 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 1.6e-2}
 FLASH_SOURCE = "ps_tpu_torch/ops/csrc/flash_attention.cu"
 FLASH_REPLACES = "ps_tpu/ops/flash_attention.py:136"
 BERT_STEPS, BERT_BATCH, BERT_SEQ = 20, 32, 512
+RESNET_STEPS, RESNET_BATCH, RESNET_SIZE, RESNET_BATCHES = 20, 256, 224, 4
 
 
 def log(msg):
@@ -169,10 +187,7 @@ def _compare(got, want, dtype, what):
 
 
 def phase_environment():
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    smi = _card_line()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, device "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
@@ -827,6 +842,182 @@ def phase_flash_timings(err, launches):
             "library_ms": library_ms}
 
 
+def _card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def _resnet_run(model, device, batches, steps, in_channels=3,
+                label_smoothing=0.0):
+    """``steps`` momentum steps (lr 0.1, 0.9, 'sharded') of ``model`` from
+    its seed-0 init, through init + KVStore.make_step on ``device``,
+    cycling ``batches``; returns the losses, the step times, the params and
+    the batch_stats. On the card the peak memory count starts after the
+    set-up."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.models.resnet import make_loss_fn
+
+    ps.init(backend="cuda", device=device)
+    params, stats = model.init(torch.Generator().manual_seed(0),
+                               in_channels=in_channels, device=device)
+    store = ps.KVStore(optimizer="momentum", learning_rate=0.1, momentum=0.9,
+                       placement="sharded")
+    store.init(params)
+    run = store.make_step(make_loss_fn(model, label_smoothing), has_aux=True)
+    batches = [store.shard_batch(b) for b in batches]
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for step in range(steps):
+        t0 = time.perf_counter()
+        loss, params, stats = run(batches[step % len(batches)], stats)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    losses = [float(x) for x in losses]
+    ps.shutdown()
+    return losses, times, params, stats
+
+
+def _flat_np(tree):
+    from ps_tpu_torch.kv import keys
+
+    flat, _ = keys.flatten_with_keys(tree)
+    return {k: v.detach().float().cpu().numpy() for k, v in flat.items()}
+
+
+def _perturb_bn(params, stats, seed):
+    """BatchNorm parameters and running statistics moved off the init (which
+    zeroes each block's last BN scale, so a residual branch would add
+    nothing): scales 1 + 0.1·N, the last 0.2·N, biases and running means
+    0.1·N, running variances in [0.5, 1.5]; numpy, from ``seed``."""
+    from ps_tpu_torch.kv import keys
+
+    rng = np.random.default_rng(seed)
+    for tree in (params, stats):
+        for k, t in keys.flatten_with_keys(tree)[0].items():
+            z = torch.as_tensor(rng.normal(size=tuple(t.shape)),
+                                dtype=torch.float32)
+            if k.endswith("scale"):
+                t.copy_(0.2 * z if "BatchNorm_2" in k else 1 + 0.1 * z)
+            elif (k.endswith("bias") and k != "head/bias") or k.endswith("mean"):
+                t.copy_(0.1 * z)
+            elif k.endswith("var"):
+                t.copy_(torch.as_tensor(rng.uniform(
+                    0.5, 1.5, size=tuple(t.shape)), dtype=torch.float32))
+
+
+def phase_resnet_vs_cpu():
+    from ps_tpu_torch.models import resnet
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    try:
+        rng = np.random.default_rng(3)
+        for name, block, size, channels in (
+                ("BasicBlock", resnet.BasicBlock, 28, 1),
+                ("Bottleneck", resnet.BottleneckBlock, 16, 3)):
+            model = resnet.ResNet(stage_sizes=(1, 1), block_cls=block,
+                                  num_filters=8, num_classes=10,
+                                  dtype=torch.float32, small_inputs=True)
+            batches = [(rng.normal(size=(32, size, size, channels)).astype(
+                np.float32), rng.integers(0, 10, 32).astype(np.int32))
+                for _ in range(3)]
+            out = {d: _resnet_run(model, d, batches, 3, in_channels=channels)
+                   for d in ("cpu", "cuda")}
+            cpu, gpu = out["cpu"], out["cuda"]
+            np.testing.assert_allclose(gpu[0], cpu[0], rtol=1e-5)
+            for i in (2, 3):
+                want = _flat_np(cpu[i])
+                for k, g in _flat_np(gpu[i]).items():
+                    np.testing.assert_allclose(g, want[k], rtol=2e-4,
+                                               atol=2e-5, err_msg=k)
+            log(f"small ResNet ({name}, stages (1, 1), 8 filters, f32, "
+                f"{size}²): 3 momentum steps on the card equal the CPU's "
+                f"(losses {gpu[0]} vs {cpu[0]}; rtol 1e-5 loss, 2e-4/2e-5 "
+                f"params and batch_stats)")
+
+        model = resnet.ResNet50(dtype=torch.float32)
+        params, stats = model.init(torch.Generator().manual_seed(1))
+        _perturb_bn(params, stats, seed=2)
+        images = torch.as_tensor(rng.normal(
+            size=(2, RESNET_SIZE, RESNET_SIZE, 3)).astype(np.float32))
+        on = lambda tree: {k: on(v) if isinstance(v, dict)  # noqa: E731
+                           else v.cuda() for k, v in tree.items()}
+        errs = []
+        for train in (False, True):
+            with torch.no_grad():
+                want, want_s = model.apply(params, stats, images, train=train)
+                got, got_s = model.apply(on(params), on(stats),
+                                         images.cuda(), train=train)
+            err = float((got.cpu() - want).abs().max())
+            if not torch.allclose(got.cpu(), want, rtol=2e-4, atol=2e-4):
+                raise AssertionError(f"ResNet-50 f32 train={train}: logits "
+                                     f"max abs err {err}")
+            want_s = _flat_np(want_s)
+            for k, g in _flat_np(got_s).items():
+                np.testing.assert_allclose(g, want_s[k], rtol=2e-4,
+                                           atol=2e-4, err_msg=k)
+            errs.append(err)
+        log(f"ResNet-50 f32, 2 x {RESNET_SIZE}²: card equals CPU in eval "
+            f"and train mode with cuDNN TF32 allowed globally (logits max "
+            f"abs err {errs[0]:.3g} / {errs[1]:.3g}, rtol/atol 2e-4; "
+            f"batch_stats 2e-4)")
+        del params, stats
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def phase_resnet_main_path():
+    from ps_tpu_torch.data.synthetic import imagenet_batches
+    from ps_tpu_torch.models.resnet import ResNet50
+
+    model = ResNet50()  # bf16 compute, f32 params
+    batches = list(imagenet_batches(RESNET_BATCH, image_size=RESNET_SIZE,
+                                    seed=0, steps=RESNET_BATCHES))
+    losses, times, params, stats = _resnet_run(
+        model, "cuda", batches, RESNET_STEPS, label_smoothing=0.1)
+    peak = torch.cuda.max_memory_allocated()
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"loss did not fall: {losses}")
+    flat = _flat_np(stats)
+    moved = [k for k, v in flat.items()
+             if not np.array_equal(v, np.zeros_like(v) if k.endswith("mean")
+                                   else np.ones_like(v))]
+    if len(moved) != len(flat) or not all(np.all(np.isfinite(v))
+                                          for v in flat.values()):
+        raise AssertionError(f"running statistics did not all move: "
+                             f"{sorted(set(flat) - set(moved))[:5]}")
+    if not all(np.all(np.isfinite(v)) for v in _flat_np(params).values()):
+        raise AssertionError("non-finite parameters")
+    step_ms = float(np.median(times[1:])) * 1e3
+    flops = 3 * 2 * model.forward_macs(RESNET_SIZE) * RESNET_BATCH
+    log(f"main path: ResNet-50 v1.5, {RESNET_SIZE}², bf16, global batch "
+        f"{RESNET_BATCH}, momentum lr 0.1 / 0.9, label smoothing 0.1, "
+        f"sharded, {RESNET_STEPS} steps over {RESNET_BATCHES} batches, loss "
+        f"{np.mean(losses[:5]):.4f} (first 5) -> {np.mean(losses[-5:]):.4f} "
+        f"(last 5); losses {[round(x, 4) for x in losses]}; "
+        f"{len(moved)} running statistics moved")
+    log(f"main path: median step {step_ms:.3f} ms (host clock, "
+        f"synchronized, step 0 excluded; step 0 {times[0] * 1e3:.1f} ms), "
+        f"{RESNET_BATCH / step_ms * 1e3:.1f} images/s, peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"main path: {flops / 1e12:.3f} TFLOP a step (3 x 2 x "
+        f"{model.forward_macs(RESNET_SIZE) / 1e9:.3f} G multiply-adds x "
+        f"{RESNET_BATCH}, from the layer shapes), "
+        f"{flops / step_ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * flops / (step_ms / 1e3) / BF16_FLOPS_PER_S:.1f}% of the "
+        f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16 peak; card "
+        f"{_card_line()}")
+    return step_ms
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on an NVIDIA GPU",
@@ -849,6 +1040,8 @@ def main():
     phase_bert_flash_vs_full()
     launches, _ = phase_bert_main_path()
     entries.append(phase_flash_timings(flash_err, launches))
+    phase_resnet_vs_cpu()
+    phase_resnet_main_path()
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

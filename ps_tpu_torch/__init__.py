@@ -7,9 +7,13 @@ same ``init(backend=...)`` → ``KVStore`` / ``SparseEmbedding`` →
 by hand for Hopper (``ops/csrc/``), built with ``nvcc`` at first use.
 
 Ported so far, on one device: the Wide-&-Deep composite step, with the
-fused sparse apply as a CUDA kernel; and BERT MLM with server-side LAMB,
-whose ``attn='flash'`` runs the flash-attention forward as a CUDA kernel.
-ROADMAP.md lists what is still to port.
+fused sparse apply as a CUDA kernel; BERT MLM with server-side LAMB,
+whose ``attn='flash'`` runs the flash-attention forward as a CUDA kernel;
+and ResNet-50 sync data-parallel training with server-side momentum SGD
+(``models/resnet.py``, ``examples/train_resnet50.py``), whose path
+reaches no Pallas kernel in the reference and so runs cuDNN and PyTorch
+ops, fed by the prefetched input path (``data/prefetch.py``,
+``data/files.py``). ROADMAP.md lists what is still to port.
 """
 
 from ps_tpu_torch.config import Config

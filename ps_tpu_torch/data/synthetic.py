@@ -1,16 +1,33 @@
-"""Deterministic synthetic Criteo-like batches, numpy only.
+"""Deterministic synthetic batches shaped like the reference's workloads,
+numpy only.
 
-Counterpart of ``ps_tpu/data/synthetic.py`` (``mlm_batches`` and
-``criteo_batches``, copied as they are): the same seed gives
-byte-identical batches in both packages. The other generators are not
+Counterpart of ``ps_tpu/data/synthetic.py`` (``imagenet_batches``,
+``mlm_batches`` and ``criteo_batches``, copied as they are): the same seed
+gives byte-identical batches in both packages. ``mnist_batches`` is not
 ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Iterator, Tuple
 
 import numpy as np
+
+
+def imagenet_batches(batch_size: int, *, image_size: int = 224, seed: int = 0,
+                     steps: int = None) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Yields (images [B,H,W,3] float32, labels [B] int32 in [0,1000))."""
+    rng = np.random.default_rng(seed)
+    i = 0
+    while steps is None or i < steps:
+        # float32 end to end: ~1.5x faster than normal()+cast and half the
+        # host memory traffic
+        images = rng.standard_normal(
+            size=(batch_size, image_size, image_size, 3), dtype=np.float32
+        )
+        labels = rng.integers(0, 1000, size=batch_size).astype(np.int32)
+        yield images, labels
+        i += 1
 
 
 def mlm_batches(batch_size: int, seq_len: int, *, vocab_size: int = 30522,

@@ -47,3 +47,38 @@ def report_profile(prof, out_dir, traced_s, steps=None):
         print(f"profile: {busy_us / 1e3 / steps:.4f} ms device time and "
               f"{traced_s * 1e3 / steps:.4f} ms wall time a step over "
               f"{steps} traced steps")
+        by_family = {}
+        for e in device:
+            family = _family(e.key)
+            by_family[family] = (by_family.get(family, 0)
+                                 + e.self_device_time_total)
+        for family, us in sorted(by_family.items(), key=lambda kv: -kv[1]):
+            print(f"profile: family {family}: {us / 1e3 / steps:.4f} ms a "
+                  f"step ({100 * us / max(busy_us, 1):.1f}%)")
+
+
+# kernel families by name, first match wins: PyTorch's pooling kernels,
+# cuDNN's convolution kernels (and its layout and padding helpers),
+# products (CUTLASS's and cuBLAS's nvjet kernels, which cuDNN also calls
+# for 1x1 convolutions), PyTorch's batch-norm kernels, reductions (means
+# and sums), multi-tensor (foreach) kernels, copies and casts, and the
+# other elementwise kernels
+_FAMILIES = (
+    ("pooling", ("pool",)),
+    ("convolution", ("conv", "cudnn", "fprop", "dgrad", "wgrad",
+                     "implicit", "nhwc", "nchw")),
+    ("matmul", ("gemm", "cutlass", "cublas", "nvjet")),
+    ("batch_norm", ("batch_norm",)),
+    ("reduction", ("reduce_kernel",)),
+    ("foreach", ("multi_tensor_apply",)),
+    ("copy", ("copy_kernel", "Memcpy", "Memset")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def _family(name: str) -> str:
+    lowered = name.lower()
+    for family, marks in _FAMILIES:
+        if any(m.lower() in lowered for m in marks):
+            return family
+    return "other"

@@ -3,7 +3,8 @@
 Counterpart of ``ps_tpu/kv/store.py``'s whole-tree surface on the 'cuda'
 backend: ``init``, ``keys``, ``params``, ``push_pull``, the fused
 ``make_step`` and ``shard_batch``, with the byte counters behind the
-push/pull GB/s metric. The step runs eagerly and updates the server's
+push/pull GB/s metric and ``collective_bytes`` (0: one device runs no
+collective). The step runs eagerly and updates the server's
 parameters and optimizer state in place, which is what the reference's
 donated XLA program bought it; tensors returned by ``params()`` or a step
 are the server's own and change with the next step. Per-key push/pull and
@@ -17,6 +18,7 @@ from typing import Any, List, Optional, Union
 import torch
 
 from ps_tpu_torch.api import current_context
+from ps_tpu_torch.data.prefetch import to_device
 from ps_tpu_torch.kv import keys as keymod
 from ps_tpu_torch.optim import Optimizer, make_optimizer
 
@@ -29,7 +31,7 @@ class KVStore:
     """A named parameter store with PS push/pull semantics.
 
     Args:
-      optimizer: 'sgd' | 'adam' | 'lamb' or an
+      optimizer: 'sgd' | 'momentum' | 'adam' | 'lamb' or an
         :class:`~ps_tpu_torch.optim.Optimizer` — the server-side update rule.
       mode: 'sync' | None (inherit from Config); async is not ported yet.
       aggregate: 'mean' (default) or 'sum'.
@@ -124,12 +126,21 @@ class KVStore:
         return run
 
     def shard_batch(self, batch: Any) -> Any:
-        """Place a host batch (a dict of arrays or tensors) on the device."""
-        device = self._ctx.device
-        return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        """Place a host batch (a dict, tuple or list of arrays or tensors,
+        e.g. ``(images, labels)``) on the device; on the card the copies
+        leave pinned memory without blocking the host
+        (:func:`ps_tpu_torch.data.prefetch.to_device`)."""
+        return to_device(batch, self._ctx.device)
 
     def params(self) -> Any:
         """Current server-side parameter tree — introspection only."""
         self._require_init()
         kv = {k: self._engine.pull(k) for k in self._key_order}
         return keymod.unflatten(self._treedef, kv, self._key_order)
+
+    @property
+    def collective_bytes(self) -> int:
+        """Bytes the server's collectives have moved per device (the
+        reference's analytic ICI traffic): 0, since one device runs no
+        collective."""
+        return 0

@@ -7,6 +7,10 @@ folds the bias correction into the step size), so these follow optax
 
 - sgd: ``scale_by_learning_rate`` (``u = -lr * g``), then
   ``apply_updates`` (``p + u``);
+- momentum: ``optax.sgd(lr, momentum, nesterov)`` — ``trace`` (``t = g +
+  decay * t``; with nesterov ``u = g + decay * t``, else ``u = t``), then
+  ``-lr * u``, then ``p + u``, each step a handful of ``torch._foreach_*``
+  calls over all tensors at once;
 - adam: ``scale_by_adam`` — ``mu = (1-b1)*g + b1*mu``,
   ``nu = (1-b2)*g**2 + b2*nu``, an int32 ``count`` incremented first, bias
   correction ``m / (1 - b**count)``, ``u = mu_hat / (sqrt(nu_hat + eps_root)
@@ -19,7 +23,7 @@ folds the bias correction into the step size), so these follow optax
 
 An optimizer works on ``{key: tensor}`` dicts and updates parameters and
 state in place (``step_``); in-place update is what JAX's buffer donation
-bought the reference. ``momentum`` is not ported yet.
+bought the reference.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ from typing import Any, Callable, Dict, Union
 
 import torch
 
-__all__ = ["Optimizer", "make_optimizer", "sgd", "adam", "lamb"]
+__all__ = ["Optimizer", "make_optimizer", "sgd", "momentum", "adam",
+           "lamb"]
 
 _INT32_MAX = 2**31 - 1
 
@@ -58,6 +63,30 @@ def sgd(learning_rate: float = 0.01) -> Optimizer:
             p.add_(-learning_rate * grads[k])
 
     return Optimizer("sgd", init, step_)
+
+
+def momentum(learning_rate: float = 0.01, momentum: float = 0.9,
+             nesterov: bool = False) -> Optimizer:
+    """SGD with momentum (optax's trace form) — the reference server's
+    rule for ResNet. The state is one f32 trace a parameter."""
+
+    def init(params):
+        return {k: torch.zeros_like(p) for k, p in params.items()}
+
+    @torch.no_grad()
+    def step_(params, grads, state):
+        keys = list(params)
+        traces = [state[k] for k in keys]
+        torch._foreach_mul_(traces, momentum)
+        torch._foreach_add_(traces, [grads[k] for k in keys])
+        updates = traces
+        if nesterov:
+            updates = torch._foreach_mul(traces, momentum)
+            torch._foreach_add_(updates, [grads[k] for k in keys])
+        torch._foreach_add_([params[k] for k in keys],
+                            torch._foreach_mul(updates, -learning_rate))
+
+    return Optimizer("momentum", init, step_)
 
 
 def _adam_init(params):
@@ -116,7 +145,8 @@ def lamb(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
     return Optimizer("lamb", _adam_init, step_)
 
 
-_REGISTRY = {"sgd": sgd, "adam": adam, "lamb": lamb}
+_REGISTRY = {"sgd": sgd, "momentum": momentum, "adam": adam,
+             "lamb": lamb}
 
 
 def make_optimizer(opt: Union[str, Optimizer], **kwargs) -> Optimizer:

@@ -53,6 +53,17 @@ def test_port_file_is_clean(path):
     assert violations((ROOT / path).read_text()) == []
 
 
+def test_every_slice_module_is_checked():
+    for path in ("ps_tpu_torch/models/resnet.py", "ps_tpu_torch/data/files.py",
+                 "ps_tpu_torch/data/prefetch.py",
+                 "ps_tpu_torch/data/synthetic.py",
+                 "ps_tpu_torch/utils/metrics.py",
+                 "ps_tpu_torch/utils/step_log.py",
+                 "ps_tpu_torch/utils/profiling.py",
+                 "ps_tpu_torch/examples/train_resnet50.py", "chip_smoke.py"):
+        assert path in FILES
+
+
 def test_checker_catches_what_it_forbids():
     bad = (
         "import jax.numpy as jnp\n"

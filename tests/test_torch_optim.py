@@ -5,6 +5,9 @@
   rtol 1e-6, atol 1e-7 (mean over D and ``pow`` may round differently).
 - Dense sgd and adam against optax (through ``ps_tpu.optim``) over 5
   steps, within rtol 1e-6.
+- momentum, with and without nesterov, against ``optax.sgd(lr, momentum,
+  nesterov)`` over 5 steps, bitwise in f32 (the same f32 operations in the
+  same order).
 - lamb against ``optax.lamb`` over 3 steps on a tree that holds a zero
   tensor (its trust ratio is exactly 1 at step 1), within rtol 1e-6.
 """
@@ -117,6 +120,36 @@ def test_dense_optimizer_matches_optax(name, kw):
 
 
 @pytest.mark.parametrize("kw", [
+    {"learning_rate": 0.1, "momentum": 0.9},
+    {"learning_rate": 0.1, "momentum": 0.9, "nesterov": True},
+    {"learning_rate": 0.03, "momentum": 0.5, "nesterov": True},
+])
+def test_momentum_is_bitwise_with_optax(kw):
+    ref = ref_make_optimizer("momentum", **kw)
+    port = make_optimizer("momentum", **kw)
+    p0 = _dense_params(0)
+    ref_p = {k: jnp.asarray(v) for k, v in p0.items()}
+    ref_s = ref.init(ref_p)
+    port_p = {k: torch.as_tensor(v.copy()) for k, v in p0.items()}
+    port_s = port.init(port_p)
+    for step in range(5):
+        grads = _dense_params(step + 1)
+        updates, ref_s = ref.update({k: jnp.asarray(v) for k, v in
+                                     grads.items()}, ref_s, ref_p)
+        ref_p = optax.apply_updates(ref_p, updates)
+        port.step_(port_p, {k: torch.as_tensor(v) for k, v in grads.items()},
+                   port_s)
+        for k in p0:
+            np.testing.assert_array_equal(port_p[k].numpy(),
+                                          np.asarray(ref_p[k]), err_msg=k)
+    trace = jax.tree_util.tree_leaves(ref_s)
+    assert len(trace) == len(port_s)
+    for k, want in zip(sorted(port_s), trace):
+        np.testing.assert_array_equal(port_s[k].numpy(), np.asarray(want))
+    assert port.name == "momentum"
+
+
+@pytest.mark.parametrize("kw", [
     {"learning_rate": 1e-3, "weight_decay": 0.01},
     {"learning_rate": 1e-2, "b1": 0.8, "b2": 0.99, "eps": 1e-5},
 ])
@@ -150,8 +183,9 @@ def test_make_optimizer_resolves_and_rejects():
     opt = make_optimizer("ADAM", learning_rate=0.1)
     assert isinstance(opt, Optimizer) and opt.name == "adam"
     assert make_optimizer(opt) is opt
+    assert make_optimizer("Momentum", learning_rate=0.1).name == "momentum"
     with pytest.raises(ValueError, match="unknown optimizer"):
-        make_optimizer("momentum")
+        make_optimizer("rmsprop")
     with pytest.raises(ValueError, match="kwargs"):
         make_optimizer(opt, learning_rate=0.2)
     with pytest.raises(TypeError):
