@@ -55,7 +55,15 @@ Phases, each raising on failure:
    2e-5, the reference's bounds); then full-width ResNet-50 in f32 on
    2 x 224² images, eval and train mode (logits and batch_stats rtol/atol
    2e-4), which checks the stem's and the stride-2 layers' 'SAME' padding
-   at the published size on the card;
+   at the published size on the card; then every distinct convolution
+   that model runs on 2 x 224² images, forward and backward (output, dgrad
+   and wgrad from random f32 inputs), card against CPU within 1e-4
+   (relative 2-norm), which the same run holds to fail with the model's
+   TF32 guard (``_full_f32``) taken out: this shows the f32 backward is
+   not TF32. The whole model's loss gradient, card against CPU with and
+   without the guard, is printed as a reading, not held: ReLU masks and
+   max-pool choices that round-off flips between the two devices move a
+   few gradients by whole terms;
 10. the ResNet path: ResNet-50 v1.5, 224², bf16 compute over f32
    parameters, global batch 256, momentum lr 0.1 / 0.9, label smoothing
    0.1, placement 'sharded', seed 0, 20 steps through
@@ -71,6 +79,7 @@ without the rest of the repository beside it, it fails before printing
 any result.
 """
 
+import contextlib
 import importlib
 import json
 import os
@@ -102,6 +111,10 @@ FLASH_SOURCE = "ps_tpu_torch/ops/csrc/flash_attention.cu"
 FLASH_REPLACES = "ps_tpu/ops/flash_attention.py:136"
 BERT_STEPS, BERT_BATCH, BERT_SEQ = 20, 32, 512
 RESNET_STEPS, RESNET_BATCH, RESNET_SIZE, RESNET_BATCHES = 20, 256, 224, 4
+# f32 convolutions of ResNet-50, card against CPU: |got - want| / |want|
+# (2-norms) of the output, dgrad and wgrad (TF32's 10-bit mantissa gives
+# ~1e-3; f32 summed in another order ~1e-6)
+RESNET_CONV_TOL = 1e-4
 
 
 def log(msg):
@@ -911,6 +924,99 @@ def _perturb_bn(params, stats, seed):
                     0.5, 1.5, size=tuple(t.shape)), dtype=torch.float32))
 
 
+@contextlib.contextmanager
+def _without_tf32_guard():
+    """The control: the model's TF32 guard taken out, so that cuDNN takes
+    TF32 for f32 convolutions as PyTorch allows it by default."""
+    from ps_tpu_torch.models import resnet
+
+    guard = resnet._full_f32
+    resnet._full_f32 = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        resnet._full_f32 = guard
+
+
+def _conv_configs(model, size):
+    """Every distinct convolution ``model`` runs on 2 x size² images:
+    ``(input shape, kernel shape, stride, padding)`` as its ``_Conv`` gets
+    them (after any asymmetric 'SAME' pad), recorded from a CPU forward."""
+    from ps_tpu_torch.models import resnet
+
+    seen = {}
+    conv = resnet._Conv.apply
+
+    def record(x, w, stride, padding):
+        seen[(tuple(x.shape), tuple(w.shape), stride, tuple(padding))] = None
+        return conv(x, w, stride, padding)
+
+    resnet._Conv.apply = record
+    try:
+        params, stats = model.init(torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            model.apply(params, stats, torch.zeros(2, size, size, 3),
+                        train=False)
+    finally:
+        del resnet._Conv.apply
+    return list(seen)
+
+
+def _conv_outputs(config, device, seed):
+    """Output, dgrad and wgrad of one ``_Conv`` on ``device`` from numpy
+    normals drawn from ``seed`` (channels_last, as the model lays them)."""
+    from ps_tpu_torch.models import resnet
+
+    x_shape, w_shape, stride, padding = config
+    rng = np.random.default_rng(seed)
+
+    def draw(shape, scale=1.0):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32)
+                               * np.float32(scale)).to(
+            device, memory_format=torch.channels_last)
+
+    x = draw(x_shape).requires_grad_()
+    w = draw(w_shape, 1 / np.sqrt(np.prod(w_shape[1:]))).requires_grad_()
+    y = resnet._Conv.apply(x, w, stride, padding)
+    gx, gw = torch.autograd.grad(y, (x, w), draw(tuple(y.shape)))
+    return [t.detach().cpu().numpy() for t in (y, gx, gw)]
+
+
+def _rel_l2(got, want):
+    return max(float(np.linalg.norm(g - w) / np.linalg.norm(w))
+               for g, w in zip(got, want))
+
+
+def _resnet_grads(model, params, stats, images, labels, device, train):
+    """``{key: numpy}``: the gradient of the label-smoothed (0.1) loss with
+    respect to every parameter, computed on ``device``."""
+    from ps_tpu_torch.kv import keys
+    from ps_tpu_torch.models.resnet import cross_entropy_loss
+
+    def on(tree, grad):
+        return {k: on(v, grad) if isinstance(v, dict)
+                else v.detach().to(device).requires_grad_(grad)
+                for k, v in tree.items()}
+
+    params = on(params, True)
+    logits, _ = model.apply(params, on(stats, False), images.to(device),
+                            train=train)
+    loss = cross_entropy_loss(logits, labels.to(device), 0.1)
+    flat, _ = keys.flatten_with_keys(params)
+    grads = torch.autograd.grad(loss, list(flat.values()))
+    return {k: g.cpu().numpy() for k, g in zip(flat, grads)}
+
+
+def _worst_rel(got, want):
+    """The key whose gradient differs most, and that difference over the
+    tensor's largest entry."""
+    rel = {k: float(np.max(np.abs(got[k] - w))
+                    / max(float(np.max(np.abs(w))), 1e-30))
+           for k, w in want.items()}
+    worst = max(rel, key=rel.get)
+    return worst, rel[worst]
+
+
 def phase_resnet_vs_cpu():
     from ps_tpu_torch.models import resnet
 
@@ -967,6 +1073,42 @@ def phase_resnet_vs_cpu():
             f"and train mode with cuDNN TF32 allowed globally (logits max "
             f"abs err {errs[0]:.3g} / {errs[1]:.3g}, rtol/atol 2e-4; "
             f"batch_stats 2e-4)")
+
+        configs = _conv_configs(model, RESNET_SIZE)
+        worst = {True: (0.0, None), False: (0.0, None)}
+        for i, config in enumerate(configs):
+            want = _conv_outputs(config, "cpu", seed=i)
+            for guarded in (True, False):
+                with (contextlib.nullcontext() if guarded
+                      else _without_tf32_guard()):
+                    err = _rel_l2(_conv_outputs(config, "cuda", seed=i), want)
+                worst[guarded] = max(worst[guarded], (err, config))
+        (err, config), (err_tf32, config_tf32) = worst[True], worst[False]
+        if not err <= RESNET_CONV_TOL < err_tf32:
+            raise AssertionError(
+                f"ResNet-50's f32 convolutions, card vs CPU: {err:.3g} "
+                f"({config}) with the TF32 guard, {err_tf32:.3g} "
+                f"({config_tf32}) without it; the tolerance "
+                f"{RESNET_CONV_TOL:g} must lie between")
+        log(f"ResNet-50's {len(configs)} distinct f32 convolutions at 2 x "
+            f"{RESNET_SIZE}², output, dgrad and wgrad: card equals CPU within "
+            f"{err:.3g} (relative 2-norm; worst {config}; tolerance "
+            f"{RESNET_CONV_TOL:g}); without the TF32 guard {err_tf32:.3g} "
+            f"(worst {config_tf32}), so the guard keeps the backward f32")
+
+        labels = torch.as_tensor(rng.integers(0, 1000, 2).astype(np.int32))
+        args = (model, params, stats, images, labels)
+        for train in (False, True):
+            want = _resnet_grads(*args, "cpu", train)
+            key, err = _worst_rel(_resnet_grads(*args, "cuda", train), want)
+            with _without_tf32_guard():
+                key_tf32, err_tf32 = _worst_rel(
+                    _resnet_grads(*args, "cuda", train), want)
+            log(f"reading, not held: ResNet-50 f32, 2 x {RESNET_SIZE}², "
+                f"train={train}, the loss gradient of all {len(want)} "
+                f"parameters, card vs CPU: largest difference over its "
+                f"tensor's largest entry {err:.3g} ({key}) with the TF32 "
+                f"guard, {err_tf32:.3g} ({key_tf32}) without it")
         del params, stats
     finally:
         torch.backends.cudnn.allow_tf32 = saved

@@ -4,7 +4,8 @@ Counterpart of ``ps_tpu/data/prefetch.py``. ``threaded_source`` is copied
 as it is. ``device_prefetch`` keeps ``depth`` batches in flight; where the
 reference's overlap came from ``jax.device_put`` being asynchronous, on the
 card each placement runs on a side CUDA stream: the copies come from
-pinned host memory with ``non_blocking=True`` (:func:`to_device`), and the
+pinned host memory with ``non_blocking=True``
+(:func:`ps_tpu_torch.kv.store.to_device`), and the
 consumer's stream waits on that copy's event only when the batch is handed
 out (``record_stream`` tells the allocator the consumer's stream uses it),
 so batch N+1 lands while step N runs. On the CPU a placement is a plain
@@ -15,27 +16,12 @@ from __future__ import annotations
 
 import collections
 import functools
-from typing import Any, Callable, Iterable, Iterator, Optional
+from typing import Callable, Iterable, Iterator, Optional
 
 import torch
 
-
-def to_device(batch: Any, device) -> Any:
-    """Place a host batch (an array or tensor, or a dict, tuple or list of
-    them) on ``device``. On a CUDA device each host array is copied into
-    pinned memory and from there without blocking the host, on the current
-    stream; elsewhere it is a plain ``.to(device)``."""
-    device = torch.device(device)
-    if isinstance(batch, dict):
-        return {k: to_device(v, device) for k, v in batch.items()}
-    if isinstance(batch, (tuple, list)):
-        return type(batch)(to_device(v, device) for v in batch)
-    t = torch.as_tensor(batch)
-    if device.type != "cuda":
-        return t.to(device)
-    if t.device.type == "cpu":
-        t = t.pin_memory()
-    return t.to(device, non_blocking=True)
+from ps_tpu_torch.api import current_context
+from ps_tpu_torch.kv.store import to_device
 
 
 def _tensors(tree) -> Iterator[torch.Tensor]:
@@ -47,26 +33,21 @@ def _tensors(tree) -> Iterator[torch.Tensor]:
 
 
 def device_prefetch(batches: Iterable, place: Optional[Callable] = None,
-                    depth: int = 2, device=None) -> Iterator:
+                    depth: int = 2) -> Iterator:
     """Yield device-resident batches with ``depth`` placements in flight.
 
     Args:
       batches: host-side batch iterable (e.g. a data generator).
       place: host→device placement, e.g. ``store.shard_batch``. Default:
-        :func:`to_device` to ``device``.
-      depth: batches resident ahead of consumption (2 = double buffering).
-      device: where the batches go; default the device of the runtime
+        a non-blocking copy from pinned memory to the device of the runtime
         :func:`ps_tpu_torch.init` created.
+      depth: batches resident ahead of consumption (2 = double buffering).
     """
     if depth < 1:
         raise ValueError("prefetch depth must be >= 1")
-    if device is None:
-        from ps_tpu_torch.api import current_context
-
-        device = current_context().device
-    device = torch.device(device)
+    device = torch.device(current_context().device)
     if place is None:
-        place = functools.partial(to_device, device=device)
+        place = functools.partial(to_device, device=device, non_blocking=True)
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
     def ready(placed, event):

@@ -24,8 +24,8 @@ import torch
 
 import ps_tpu_torch as ps
 from ps_tpu_torch.data.synthetic import mlm_batches
-from ps_tpu_torch.examples.profiling import report_profile, start_profiler
 from ps_tpu_torch.models.bert import BertConfig, BertMLM, make_mlm_loss_fn
+from ps_tpu_torch.utils import trace
 
 
 def _sync(device: torch.device) -> None:
@@ -79,39 +79,30 @@ def main(argv=None):
 
     run = store.make_step(make_mlm_loss_fn(model))
     log = open(args.jsonl, "w") if args.jsonl else None
-    prof = start_profiler(args.profile_dir, device, args.steps)
-    traced_s = 0.0
     t0 = None
-    for step, batch in enumerate(mlm_batches(
-            args.batch_size, args.seq_len, vocab_size=cfg.vocab_size,
-            seed=args.seed, steps=args.steps)):
-        ts = time.perf_counter()
-        loss, _ = run(store.shard_batch(batch))
-        if prof is not None:
-            _sync(device)
-            prof.step()
-            if step >= 2:
-                traced_s += time.perf_counter() - ts
-        if step == 0:  # warm-up: kernel build, allocator, first launches
-            _sync(device)
-            t0 = time.perf_counter()
-        if step % 10 == 0 or step == args.steps - 1:
-            value = float(loss)
-            print(f"step {step:4d}  loss {value:.4f}")
-            if log:
-                log.write(json.dumps({"step": step, "loss": value}) + "\n")
-    _sync(device)
-    secs = time.perf_counter() - t0
+    with trace(args.profile_dir, device, args.steps) as mark:
+        for step, batch in enumerate(mlm_batches(
+                args.batch_size, args.seq_len, vocab_size=cfg.vocab_size,
+                seed=args.seed, steps=args.steps)):
+            loss, _ = run(store.shard_batch(batch))
+            mark()  # step 0's mark starts the profiler, before the clock
+            if step == 0:  # warm-up: kernel build, allocator, first launches
+                _sync(device)
+                t0 = time.perf_counter()
+            if step % 10 == 0 or step == args.steps - 1:
+                value = float(loss)
+                print(f"step {step:4d}  loss {value:.4f}")
+                if log:
+                    log.write(json.dumps({"step": step, "loss": value})
+                              + "\n")
+        _sync(device)
+        secs = time.perf_counter() - t0
     seq_s = (args.steps - 1) * args.batch_size / secs
     print(f"done: {seq_s:.1f} seq/s, {seq_s * args.seq_len:.0f} tokens/s on "
           f"{device} ({secs / (args.steps - 1) * 1e3:.2f} ms/step after "
           f"warm-up)")
     if log:
         log.close()
-    if prof is not None:
-        prof.stop()
-        report_profile(prof, args.profile_dir, traced_s,
-                       args.steps - 2)
     ps.shutdown()
     return seq_s
 

@@ -95,8 +95,9 @@ def main(argv=None):
     else:
         source = imagenet_batches(args.batch_size, image_size=args.image_size,
                                   seed=args.seed, steps=args.steps)
-    stream = iter(device_prefetch(threaded_source(source),
-                                  place=store.shard_batch, device=device))
+    # the default placement: at one device shard_batch's, but from pinned
+    # memory and without blocking the host
+    stream = iter(device_prefetch(threaded_source(source)))
 
     metrics = TrainMetrics(store, batch_size=args.batch_size, num_chips=ndev)
     log = StepLogger(every=10, jsonl=args.jsonl)
@@ -108,6 +109,7 @@ def main(argv=None):
             if step:
                 waited += time.perf_counter() - t0
             loss, _, model_state = run(batch, model_state)
+            mark()  # step 0's mark starts the profiler, before the clock
             if step == 0:
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)
@@ -116,10 +118,9 @@ def main(argv=None):
                 metrics.step(loss)
             if log.wants(step):
                 log.log(step, loss=float(loss))
-            mark()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-    s = metrics.summary()
+        s = metrics.summary()
     log.close()
     ps.shutdown()
     print(f"input: the steps after warm-up waited {waited * 1e3:.1f} ms for "

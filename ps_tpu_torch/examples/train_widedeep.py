@@ -24,12 +24,12 @@ import torch
 
 import ps_tpu_torch as ps
 from ps_tpu_torch.data.synthetic import criteo_batches
-from ps_tpu_torch.examples.profiling import report_profile, start_profiler
 from ps_tpu_torch.kv.sparse import SparseEmbedding
 from ps_tpu_torch.models.wide_deep import (
     WideDeep, WideDeepConfig, make_ids_fn, make_wide_deep_loss_fn,
 )
 from ps_tpu_torch.train import make_composite_step
+from ps_tpu_torch.utils import trace
 
 
 def _sync(device: torch.device) -> None:
@@ -83,29 +83,24 @@ def main(argv=None):
         make_wide_deep_loss_fn(model), make_ids_fn(cfg),
     )
     log = open(args.jsonl, "w") if args.jsonl else None
-    prof = start_profiler(args.profile_dir, device, args.steps)
-    traced_s = 0.0
     t0 = None
-    for step, batch in enumerate(criteo_batches(
-            args.batch_size, vocab_size=cfg.per_feature_vocab,
-            seed=args.seed, steps=args.steps)):
-        ts = time.perf_counter()
-        loss, _ = run(dense.shard_batch(batch))
-        if prof is not None:
-            _sync(device)
-            prof.step()
-            if step >= 2:
-                traced_s += time.perf_counter() - ts
-        if step == 0:  # warm-up: kernel build, allocator, first launches
-            _sync(device)
-            t0 = time.perf_counter()
-        if step % 10 == 0 or step == args.steps - 1:
-            value = float(loss)
-            print(f"step {step:4d}  loss {value:.4f}")
-            if log:
-                log.write(json.dumps({"step": step, "loss": value}) + "\n")
-    _sync(device)
-    secs = time.perf_counter() - t0
+    with trace(args.profile_dir, device, args.steps) as mark:
+        for step, batch in enumerate(criteo_batches(
+                args.batch_size, vocab_size=cfg.per_feature_vocab,
+                seed=args.seed, steps=args.steps)):
+            loss, _ = run(dense.shard_batch(batch))
+            mark()  # step 0's mark starts the profiler, before the clock
+            if step == 0:  # warm-up: kernel build, allocator, first launches
+                _sync(device)
+                t0 = time.perf_counter()
+            if step % 10 == 0 or step == args.steps - 1:
+                value = float(loss)
+                print(f"step {step:4d}  loss {value:.4f}")
+                if log:
+                    log.write(json.dumps({"step": step, "loss": value})
+                              + "\n")
+        _sync(device)
+        secs = time.perf_counter() - t0
     ex_s = (args.steps - 1) * args.batch_size / secs
     print(f"done: {ex_s:.1f} ex/s on {device} "
           f"({secs / (args.steps - 1) * 1e3:.2f} ms/step after warm-up), "
@@ -113,9 +108,6 @@ def main(argv=None):
           f"{(deep.bytes_pushed + deep.bytes_pulled + wide.bytes_pushed + wide.bytes_pulled) / 1e9:.3f} GB")
     if log:
         log.close()
-    if prof is not None:
-        prof.stop()
-        report_profile(prof, args.profile_dir, traced_s, args.steps - 2)
     ps.shutdown()
     return ex_s
 

@@ -18,13 +18,31 @@ from typing import Any, List, Optional, Union
 import torch
 
 from ps_tpu_torch.api import current_context
-from ps_tpu_torch.data.prefetch import to_device
 from ps_tpu_torch.kv import keys as keymod
 from ps_tpu_torch.optim import Optimizer, make_optimizer
 
 
 def _nbytes(x) -> int:
     return x.numel() * x.element_size() if isinstance(x, torch.Tensor) else 0
+
+
+def to_device(batch: Any, device, non_blocking: bool = False) -> Any:
+    """Place a host batch (an array or tensor, or a dict, tuple or list of
+    them) on ``device`` with ``.to(device)``. With ``non_blocking`` on a
+    CUDA device each host array is first copied into pinned memory, so the
+    copy to the card does not block the host."""
+    device = torch.device(device)
+    if isinstance(batch, dict):
+        return {k: to_device(v, device, non_blocking)
+                for k, v in batch.items()}
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(to_device(v, device, non_blocking) for v in batch)
+    t = torch.as_tensor(batch)
+    if not (non_blocking and device.type == "cuda"):
+        return t.to(device)
+    if t.device.type == "cpu":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
 
 
 class KVStore:
@@ -127,9 +145,7 @@ class KVStore:
 
     def shard_batch(self, batch: Any) -> Any:
         """Place a host batch (a dict, tuple or list of arrays or tensors,
-        e.g. ``(images, labels)``) on the device; on the card the copies
-        leave pinned memory without blocking the host
-        (:func:`ps_tpu_torch.data.prefetch.to_device`)."""
+        e.g. ``(images, labels)``) on the device (:func:`to_device`)."""
         return to_device(batch, self._ctx.device)
 
     def params(self) -> Any:

@@ -7,6 +7,7 @@
   most its capacity; ``device_prefetch`` keeps the order and places
   ``depth`` batches ahead of the consumer;
 - ``to_device`` and ``KVStore.shard_batch`` take dicts, tuples and lists.
+- ``device_prefetch`` places on the device of the runtime ``init`` made.
 """
 
 import threading
@@ -20,8 +21,9 @@ import ps_tpu_torch
 from ps_tpu.data import files as ref_files
 from ps_tpu.data.synthetic import imagenet_batches as ref_imagenet_batches
 from ps_tpu_torch.data import files
-from ps_tpu_torch.data.prefetch import device_prefetch, threaded_source, to_device
+from ps_tpu_torch.data.prefetch import device_prefetch, threaded_source
 from ps_tpu_torch.data.synthetic import imagenet_batches
+from ps_tpu_torch.kv.store import to_device
 
 
 def _same(got, want):
@@ -129,15 +131,19 @@ def test_device_prefetch_keeps_order_and_depth(depth):
 
     source = ((np.full(3, i, np.float32), i) for i in range(6))
     out = []
-    for batch in device_prefetch(source, place=place, depth=depth,
-                                 device="cpu"):
-        # when batch i is handed out, batches up to i + depth - 1 are placed
-        assert len(placed) == min(int(batch[1]) + depth, 6)
-        assert isinstance(batch[0], torch.Tensor)
-        out.append(int(batch[1]))
+    ps_tpu_torch.init(backend="cuda", device="cpu")
+    try:
+        for batch in device_prefetch(source, place=place, depth=depth):
+            # when batch i is handed out, batches up to i + depth - 1 are
+            # placed
+            assert len(placed) == min(int(batch[1]) + depth, 6)
+            assert isinstance(batch[0], torch.Tensor)
+            out.append(int(batch[1]))
+        with pytest.raises(ValueError, match="depth"):
+            next(device_prefetch(iter([1]), depth=0))
+    finally:
+        ps_tpu_torch.shutdown()
     assert out == list(range(6))
-    with pytest.raises(ValueError, match="depth"):
-        next(device_prefetch(iter([1]), depth=0, device="cpu"))
 
 
 def test_device_prefetch_defaults_to_the_runtime_device():
@@ -152,9 +158,10 @@ def test_device_prefetch_defaults_to_the_runtime_device():
 def test_to_device_and_shard_batch_take_dicts_tuples_and_lists():
     images = np.ones((2, 4, 4, 3), np.float32)
     labels = np.arange(2, dtype=np.int32)
-    for batch in ({"images": images, "labels": labels}, (images, labels),
-                  [images, labels]):
-        got = to_device(batch, "cpu")
+    for batch, non_blocking in (({"images": images, "labels": labels}, False),
+                                ((images, labels), True),
+                                ([images, labels], False)):
+        got = to_device(batch, "cpu", non_blocking)
         assert type(got) is type(batch)
         leaves = list(got.values()) if isinstance(got, dict) else got
         assert all(isinstance(t, torch.Tensor) and t.device.type == "cpu"

@@ -31,9 +31,10 @@ from ps_tpu.data.synthetic import mnist_batches
 from ps_tpu.kv.keys import flatten_with_keys as ref_flatten_with_keys
 from ps_tpu.models import resnet as ref_resnet
 from ps_tpu_torch.data.files import write_dataset
-from ps_tpu_torch.examples import profiling, train_resnet50
+from ps_tpu_torch.examples import train_resnet50
 from ps_tpu_torch.kv.keys import flatten_with_keys
 from ps_tpu_torch.models import resnet
+from ps_tpu_torch.utils import profiling, trace
 
 
 @pytest.fixture(autouse=True)
@@ -420,3 +421,23 @@ def test_profile_names_kernel_families(name, family):
     """The trainers' --profile-dir table groups kernels by these names
     (taken from a ResNet-50 step's trace on the card)."""
     assert profiling._family(name) == family
+
+
+def test_trace_writes_the_trace_and_the_step_table(tmp_path, capsys):
+    """``trace`` records steps 2 to ``steps - 1``, writes ``trace.json`` and
+    prints the busy share and the time a step; without a directory it is a
+    no-op, and it refuses fewer than 3 steps."""
+    with trace(str(tmp_path), "cpu", 4) as mark:
+        for _ in range(4):
+            torch.ones(64).cumsum(0)
+            mark()
+    out = capsys.readouterr().out
+    assert (tmp_path / "trace.json").stat().st_size > 0
+    assert "profile: device busy" in out
+    assert "a step over 2 traced steps" in out
+    with trace(None, "cpu", 1) as mark:
+        mark()
+    assert capsys.readouterr().out == ""
+    with pytest.raises(ValueError, match="3 steps"):
+        with trace(str(tmp_path), "cpu", 2):
+            pass
