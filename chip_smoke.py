@@ -71,7 +71,23 @@ Phases, each raising on failure:
    card (cycled from 4 pre-generated batches); the median step, images/s,
    peak device memory and the step's analytic FLOPs and their share of
    the bf16 peak. This path runs no kernel of the port: the reference's
-   ResNet reaches no Pallas kernel.
+   ResNet reaches no Pallas kernel;
+11. MNIST through the local parameter server (config 1): the MLP at hidden
+   32, 2 workers x batch 32, 10 sgd steps through
+   ps_tpu_torch.init(backend='local'), push_all and pull_all, on the card
+   against the CPU (losses and params within 1e-5); then the full width,
+   784-256-10, 2 workers x batch 128, sgd 0.1, 200 steps on cuda:0 with
+   the batches already on the card: the loss must fall; the median step,
+   steps/s and push+pull GB/s;
+12. async DC-ASGD in one process (config 5): backend='cuda', mode='async',
+   3 workers round-robin through make_async_step, the MLP at hidden 32,
+   batch 64, dc_lambda 0.04, 60 cycles, on the card against the CPU
+   (losses and params within 1e-5); then 4 host threads x 12 cycles, whose
+   invariants are exact (version, apply counts, the staleness histogram's
+   sum, finite parameters); cycles/s and the staleness histograms. Phases
+   11 and 12 run no kernel of the port (the reference's MLP and server
+   applies reach no Pallas kernel): the launch counts are set to 0 before
+   each path and must read 0 after it.
 
 It prints one JSON line per timed kernel, then the kernels line, then
 ``{"ok": true, "device": {...}}`` as its last line. Without a GPU, or
@@ -115,6 +131,12 @@ RESNET_STEPS, RESNET_BATCH, RESNET_SIZE, RESNET_BATCHES = 20, 256, 224, 4
 # (2-norms) of the output, dgrad and wgrad (TF32's 10-bit mantissa gives
 # ~1e-3; f32 summed in another order ~1e-6)
 RESNET_CONV_TOL = 1e-4
+# config 1 (local PS) and config 5 (async DC-ASGD), the reference trainers'
+# defaults; card against CPU within 1e-5 (rtol and atol)
+MNIST_STEPS, MNIST_BATCH, MNIST_WORKERS, MNIST_HIDDEN = 200, 128, 2, 256
+ASYNC_CYCLES, ASYNC_BATCH, ASYNC_WORKERS = 60, 64, 3
+STRESS_THREADS, STRESS_CYCLES = 4, 12
+MNIST_TOL = 1e-5
 
 
 def log(msg):
@@ -1160,6 +1182,241 @@ def phase_resnet_main_path():
     return step_ms
 
 
+def _launch_counts(reset=False):
+    """Every kernel wrapper's launch count; with ``reset``, set them to 0
+    first."""
+    from ps_tpu_torch.ops import sparse_apply as ops
+
+    fa = _flash()
+    if reset:
+        ops.LAUNCHES = ops.GROUP_LAUNCHES = fa.LAUNCHES = 0
+        ops.LAUNCHES_BY_RULE.clear()
+    return {"sparse_apply": ops.LAUNCHES, "sparse_group": ops.GROUP_LAUNCHES,
+            "flash_attention/fwd": fa.LAUNCHES}
+
+
+def _no_launches(what):
+    counts = _launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{what} launched kernels: {counts}")
+    log(f"{what}: kernel launches {counts} (no kernel of the port is on "
+        f"this path)")
+
+
+def _close_to_cpu(gpu, cpu, what):
+    """Losses and params, card against CPU, within MNIST_TOL."""
+    (g_losses, g_params), (c_losses, c_params) = gpu, cpu
+    np.testing.assert_allclose(g_losses, c_losses, rtol=MNIST_TOL,
+                               atol=MNIST_TOL, err_msg=f"{what} losses")
+    worst = 0.0
+    for k in c_params:
+        np.testing.assert_allclose(g_params[k], c_params[k], rtol=MNIST_TOL,
+                                   atol=MNIST_TOL, err_msg=f"{what} {k}")
+        worst = max(worst, float(np.max(np.abs(g_params[k] - c_params[k]))))
+    return worst
+
+
+def _mnist_sync(device, hidden, workers, batch, steps):
+    """Config 1's protocol through init(backend='local') on ``device``: each
+    step every worker takes the gradient of its batch against the pulled
+    params and pushes it (push_all), then one pull_all. The batches are
+    placed before the clock starts. Returns the per-step losses (mean over
+    workers), the step times, the params and the bytes pushed + pulled."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.data.synthetic import mnist_batches
+    from ps_tpu_torch.kv.store import value_and_grad
+    from ps_tpu_torch.models.mlp import MLP, make_loss_fn
+
+    ctx = ps.init(backend="local", num_workers=workers, device=device)
+    model = MLP(hidden=hidden)
+    store = ps.KVStore(optimizer="sgd", learning_rate=0.1)
+    store.init(model.init(torch.Generator().manual_seed(0),
+                          device=ctx.device))
+    loss_fn = make_loss_fn(model)
+    streams = [mnist_batches(batch, seed=0, worker=w, num_workers=workers,
+                             steps=steps) for w in range(workers)]
+    batches = [[store.shard_batch(next(s)) for s in streams]
+               for _ in range(steps)]
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    params = store.pull_all()
+    losses, times = [], []
+    for step in range(steps):
+        t0 = time.perf_counter()
+        step_losses = []
+        for w in range(workers):
+            loss, grads, _ = value_and_grad(loss_fn, params, batches[step][w])
+            step_losses.append(loss)
+            store.push_all(grads, worker=w)
+        params = store.pull_all()
+        sync()
+        times.append(time.perf_counter() - t0)
+        losses.append(torch.stack(step_losses).mean())
+    losses = [float(x) for x in losses]
+    nbytes = store.bytes_pushed + store.bytes_pulled
+    ps.shutdown()
+    return losses, times, _flat_np(params), nbytes
+
+
+def phase_mnist_local():
+    small = {}
+    for device in ("cpu", "cuda"):
+        losses, _, params, _ = _mnist_sync(device, 32, 2, 32, 10)
+        small[device] = (losses, params)
+    err = _close_to_cpu(small["cuda"], small["cpu"], "MNIST local, small")
+    log(f"MNIST local PS, small (hidden 32, 2 workers x 32, 10 sgd steps): "
+        f"the card equals the CPU within {MNIST_TOL} (losses "
+        f"{[round(x, 5) for x in small['cuda'][0]]}; params max abs err "
+        f"{err:.3g}); card {_card_line()}")
+    _launch_counts(reset=True)
+    losses, times, params, nbytes = _mnist_sync(
+        "cuda", MNIST_HIDDEN, MNIST_WORKERS, MNIST_BATCH, MNIST_STEPS)
+    _no_launches("MNIST local PS, full width")
+    if not np.all(np.isfinite(losses)) or not all(
+            np.all(np.isfinite(v)) for v in params.values()):
+        raise AssertionError("non-finite loss or params")
+    if not np.mean(losses[-10:]) < np.mean(losses[:10]) - 1.0:
+        raise AssertionError(f"loss did not fall: {losses}")
+    step_ms = float(np.median(times[1:])) * 1e3
+    step_bytes = nbytes / MNIST_STEPS
+    log(f"main path: MNIST MLP 784-{MNIST_HIDDEN}-10 through "
+        f"init(backend='local') on cuda:0, {MNIST_WORKERS} workers x batch "
+        f"{MNIST_BATCH}, sgd 0.1, {MNIST_STEPS} steps of push_all/pull_all, "
+        f"loss {np.mean(losses[:10]):.4f} (first 10) -> "
+        f"{np.mean(losses[-10:]):.4f} (last 10)")
+    log(f"main path: median step {step_ms:.4f} ms (host clock, synchronized, "
+        f"step 0 excluded; step 0 {times[0] * 1e3:.1f} ms), "
+        f"{1e3 / step_ms:.1f} steps/s, push+pull {step_bytes / 1e6:.4f} MB "
+        f"a step, {step_bytes / step_ms / 1e6:.4f} GB/s; card {_card_line()}")
+    return step_ms
+
+
+def _async_store(device, workers):
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.examples.train_mnist_async import build
+
+    ctx = ps.init(backend="cuda", mode="async", num_workers=workers,
+                  dc_lambda=0.04, device=device)
+    params, loss_fn = build(0, ctx.device)
+    store = ps.KVStore(optimizer="sgd", learning_rate=0.1, mode="async")
+    store.init(params)
+    return store, store.make_async_step(loss_fn)
+
+
+def _async_batches(store, workers, cycles):
+    from ps_tpu_torch.data.synthetic import mnist_batches
+
+    streams = [mnist_batches(ASYNC_BATCH, seed=0, worker=w,
+                             num_workers=workers) for w in range(workers)]
+    return [[store.shard_batch(next(s)) for _ in range(cycles)]
+            for s in streams]
+
+
+def _mnist_async(device):
+    """Config 5's single-process trainer: round-robin make_async_step over
+    ASYNC_WORKERS workers for ASYNC_CYCLES cycles, batches placed first.
+    Returns the losses, the cycle times, the params and the histogram."""
+    import ps_tpu_torch as ps
+
+    store, run = _async_store(device, ASYNC_WORKERS)
+    batches = _async_batches(store, ASYNC_WORKERS,
+                             ASYNC_CYCLES // ASYNC_WORKERS)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    losses, times = [], []
+    for step in range(ASYNC_CYCLES):
+        w = step % ASYNC_WORKERS
+        t0 = time.perf_counter()
+        losses.append(run(batches[w][step // ASYNC_WORKERS], worker=w))
+        sync()
+        times.append(time.perf_counter() - t0)
+    losses = [float(x) for x in losses]
+    if store._engine.version != ASYNC_CYCLES:
+        raise AssertionError(f"version {store._engine.version}")
+    out = (losses, times, _flat_np(store.params()),
+           dict(sorted(store.staleness_histogram.items())))
+    ps.shutdown()
+    return out
+
+
+def _async_threads(device):
+    """STRESS_THREADS host threads, one async worker each, STRESS_CYCLES
+    cycles each, on ``device``. Returns the store's engine, its keys, its
+    histogram, its params and the seconds the threads took."""
+    import threading
+
+    import ps_tpu_torch as ps
+
+    store, run = _async_store(device, STRESS_THREADS)
+    batches = _async_batches(store, STRESS_THREADS, STRESS_CYCLES)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    errors = []
+
+    def worker(w):
+        try:
+            for batch in batches[w]:
+                run(batch, worker=w)
+        except Exception as e:  # reported below
+            errors.append((w, repr(e)))
+
+    threads = [threading.Thread(target=worker, args=(w,))
+               for w in range(STRESS_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    sync()
+    secs = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"threaded async workers failed: {errors}")
+    eng, keys = store._engine, store.keys()
+    hist = dict(sorted(store.staleness_histogram.items()))
+    params = _flat_np(store.params())
+    ps.shutdown()
+    return eng, keys, hist, params, secs
+
+
+def phase_mnist_async():
+    _launch_counts(reset=True)
+    runs = {device: _mnist_async(device) for device in ("cpu", "cuda")}
+    _no_launches("MNIST async, round-robin")
+    err = _close_to_cpu(*((runs[d][0], runs[d][2]) for d in ("cuda", "cpu")),
+                        "MNIST async")
+    losses, times, _, hist = runs["cuda"]
+    if hist != runs["cpu"][3]:
+        raise AssertionError(f"staleness histograms {hist} vs "
+                             f"{runs['cpu'][3]}")
+    cycle_ms = float(np.median(times[ASYNC_WORKERS:])) * 1e3
+    log(f"MNIST async DC-ASGD: backend 'cuda', mode 'async', {ASYNC_WORKERS} "
+        f"workers round-robin, hidden 32, batch {ASYNC_BATCH}, dc_lambda 0.04, "
+        f"{ASYNC_CYCLES} cycles: the card equals the CPU within {MNIST_TOL} "
+        f"(params max abs err {err:.3g}); loss {np.mean(losses[:6]):.4f} "
+        f"(first 6) -> {np.mean(losses[-6:]):.4f} (last 6); staleness "
+        f"histogram {hist}; card {_card_line()}")
+    log(f"MNIST async: median cycle {cycle_ms:.4f} ms (host clock, "
+        f"synchronized, first round excluded), {1e3 / cycle_ms:.1f} cycles/s; "
+        f"card {_card_line()}")
+    _launch_counts(reset=True)
+    eng, keys, hist, params, secs = _async_threads("cuda")
+    _no_launches("MNIST async, threaded")
+    total = STRESS_THREADS * STRESS_CYCLES
+    counts = (eng.version, eng._applies, set(eng.apply_count.values()),
+              sum(hist.values()))
+    if counts != (total, total * len(keys), {total}, total):
+        raise AssertionError(f"threaded async invariants: (version, applies, "
+                             f"apply counts, histogram sum) = {counts}")
+    if not all(np.all(np.isfinite(v)) for v in params.values()):
+        raise AssertionError("threaded async: non-finite parameters")
+    log(f"MNIST async, {STRESS_THREADS} host threads x {STRESS_CYCLES} "
+        f"cycles on the card: version {eng.version}, {eng._applies} key "
+        f"applies, every key applied {total} times, staleness histogram "
+        f"{hist}; {total / secs:.1f} cycles/s over {secs * 1e3:.1f} ms; "
+        f"card {_card_line()}")
+    return cycle_ms
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on an NVIDIA GPU",
@@ -1184,6 +1441,8 @@ def main():
     entries.append(phase_flash_timings(flash_err, launches))
     phase_resnet_vs_cpu()
     phase_resnet_main_path()
+    phase_mnist_local()
+    phase_mnist_async()
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

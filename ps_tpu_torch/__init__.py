@@ -13,7 +13,14 @@ and ResNet-50 sync data-parallel training with server-side momentum SGD
 (``models/resnet.py``, ``examples/train_resnet50.py``), whose path
 reaches no Pallas kernel in the reference and so runs cuDNN and PyTorch
 ops, fed by the prefetched input path (``data/prefetch.py``,
-``data/files.py``). ROADMAP.md lists what is still to port.
+``data/files.py``); the local parameter server (``backend='local'``,
+``backends/local.py``) with the per-key push/pull protocol and the MNIST
+MLP (``models/mlp.py``, ``examples/train_mnist_mlp.py``); and async
+DC-ASGD in one process (``mode='async'`` on either backend,
+``KVStore.make_async_step``, ``examples/train_mnist_async.py``). These
+last two reach no Pallas kernel in the reference either. ``shutdown``
+tears the backend down (``abort=True`` after a failure). ROADMAP.md lists
+what is still to port.
 """
 
 from ps_tpu_torch.config import Config

@@ -3,10 +3,15 @@
 Counterpart of ``ps_tpu/api.py``: ``init(backend=...)`` builds the backend
 once per process, ``shutdown()`` drops it. Here:
 
-- ``backend='cuda'`` (default; the counterpart of 'tpu'): one device,
-  ``cuda:0`` unless the caller asks for ``device='cpu'``. With no GPU
-  present it raises; it never carries on on the CPU by itself.
-- ``backend='local'``: the single-process local PS is not ported yet.
+- ``backend='cuda'`` (default; the counterpart of 'tpu'): the fused
+  server on one device, sync or async (DC-ASGD).
+- ``backend='local'``: the single-process local PS (the reference's
+  config 1): per-key push/pull, sync aggregation over
+  ``Config.num_workers`` logical workers, or async.
+
+Either places everything on ``cuda:0`` unless the caller asks for
+``device='cpu'``. With no GPU present it raises; it never carries on on
+the CPU by itself.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ def init(backend: Optional[str] = None, config: Optional[Config] = None,
     raises until :func:`shutdown` resets the runtime.
 
     Args:
-      backend: 'cuda' (or 'local', not ported yet); overrides config.backend.
+      backend: 'cuda' or 'local'; overrides config.backend.
       config: full Config; default is ``Config.from_env()``.
       **overrides: any Config field, e.g. ``device='cpu'``.
     """
@@ -59,20 +64,29 @@ def init(backend: Optional[str] = None, config: Optional[Config] = None,
         if backend is not None:
             config = Config(**{**config.__dict__, "backend": backend})
         if config.backend == "local":
-            raise NotImplementedError(
-                "the local backend is not ported yet; use backend='cuda'")
-        from ps_tpu_torch.backends.cuda import CudaBackend
+            from ps_tpu_torch.backends.local import LocalBackend
 
-        be = CudaBackend(config)
+            be = LocalBackend(config)
+        else:
+            from ps_tpu_torch.backends.cuda import CudaBackend
+
+            be = CudaBackend(config)
         _context = Context(config, be, device=be.device)
         return _context
 
 
-def shutdown() -> None:
-    """Drop the context so a fresh :func:`init` can follow."""
+def shutdown(abort: bool = False) -> None:
+    """Tear down the backend (its ``shutdown(abort=...)``, where it has
+    one) and drop the context so a fresh :func:`init` can follow.
+    ``abort=True`` is the reference's post-failure path, which skips
+    barriers; the one-device backends have none to skip."""
     global _context
     with _lock:
-        _context = None
+        if _context is not None:
+            backend_shutdown = getattr(_context.backend, "shutdown", None)
+            if backend_shutdown is not None:
+                backend_shutdown(abort=abort)
+            _context = None
 
 
 def is_initialized() -> bool:

@@ -1,10 +1,9 @@
 """Deterministic synthetic batches shaped like the reference's workloads,
 numpy only.
 
-Counterpart of ``ps_tpu/data/synthetic.py`` (``imagenet_batches``,
-``mlm_batches`` and ``criteo_batches``, copied as they are): the same seed
-gives byte-identical batches in both packages. ``mnist_batches`` is not
-ported yet.
+Counterpart of ``ps_tpu/data/synthetic.py`` (``mnist_batches``,
+``imagenet_batches``, ``mlm_batches`` and ``criteo_batches``, copied as
+they are): the same seed gives byte-identical batches in both packages.
 """
 
 from __future__ import annotations
@@ -12,6 +11,46 @@ from __future__ import annotations
 from typing import Iterator, Tuple
 
 import numpy as np
+
+
+def mnist_batches(batch_size: int, *, seed: int = 0, steps: int = None,
+                  worker: int = 0, num_workers: int = 1) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Yields (images [B,28,28,1] float32 in [0,1], labels [B] int32).
+
+    Sharding contract: each step draws one deterministic *global* batch of
+    ``batch_size * num_workers`` examples (a pure function of (seed, step)),
+    and worker ``w`` receives rows ``[w*B, (w+1)*B)``. Concatenating all
+    workers' batches therefore reproduces exactly the single-worker
+    ``batch_size * num_workers`` stream — the property the data-parallel
+    parity tests rely on.
+
+    The images are class-conditional sinusoidal gratings (class-dependent
+    frequency/orientation) plus noise, so both a linear model (per-pixel
+    pattern) and a convnet with global pooling (local texture statistics)
+    can learn.
+    """
+    if not (0 <= worker < num_workers):
+        raise ValueError(f"worker {worker} out of range [0, {num_workers})")
+    # one fixed grating prototype per class
+    proto_rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:28, 0:28]
+    freqs = proto_rng.uniform(1.5, 6.0, size=(10, 2))
+    phases = proto_rng.uniform(0, 2 * np.pi, size=10)
+    protos = 0.5 + 0.35 * np.sin(
+        2 * np.pi * (freqs[:, :1, None] * xx + freqs[:, 1:, None] * yy) / 28
+        + phases[:, None, None]
+    )
+    protos = protos[..., None].astype(np.float32)
+    gb = batch_size * num_workers
+    i = 0
+    while steps is None or i < steps:
+        rng = np.random.default_rng([seed, i])
+        labels = rng.integers(0, 10, size=gb).astype(np.int32)
+        noise = 0.3 * rng.standard_normal(size=(gb, 28, 28, 1), dtype=np.float32)
+        images = np.clip(protos[labels] + noise, 0.0, 1.0)
+        sl = slice(worker * batch_size, (worker + 1) * batch_size)
+        yield images[sl], labels[sl]
+        i += 1
 
 
 def imagenet_batches(batch_size: int, *, image_size: int = 224, seed: int = 0,

@@ -137,17 +137,18 @@ class SparseEmbedding:
         return self._state
 
     def pull(self, ids) -> torch.Tensor:
-        """Gather current rows for ids (the sparse pull)."""
-        ids = torch.as_tensor(np.asarray(ids, np.int32)).to(self.device)
+        """Gather current rows for ids (the sparse pull). ``ids``: a list,
+        an array or a tensor on any device."""
+        ids = torch.as_tensor(ids).to(self.device, torch.int32)
         rows = self.lookup(self.table, ids)
         self.bytes_pulled += rows.numel() * rows.element_size()
         return rows
 
     def push(self, ids, row_grads) -> None:
-        """Send (ids, row_grads); the server applies them at once."""
-        np_ids = np.asarray(ids, np.int64).reshape(-1)
-        touched = np_ids[(np_ids >= 0) & (np_ids < self.num_rows)]
-        ids = torch.as_tensor(np_ids.astype(np.int32)).to(self.device)
+        """Send (ids, row_grads); the server applies them at once. ``ids``
+        may lie on the device already; only ``row_version`` reads them on
+        the host."""
+        ids = torch.as_tensor(ids).reshape(-1).to(self.device, torch.int32)
         row_grads = torch.as_tensor(row_grads).to(self.device)
         if tuple(row_grads.shape) != (ids.shape[0], self.dim):
             raise ValueError(f"row_grads shape {tuple(row_grads.shape)} != "
@@ -155,5 +156,7 @@ class SparseEmbedding:
         self.apply(self.table, self._state, ids, row_grads)
         self.bytes_pushed += row_grads.numel() * row_grads.element_size()
         self.push_count += 1
+        host_ids = ids.cpu().numpy()
+        touched = host_ids[(host_ids >= 0) & (host_ids < self.num_rows)]
         self.row_version[touched] = self.push_count
         self.rows_pushed += ids.shape[0]  # no collective bytes at one device

@@ -1,19 +1,28 @@
 """KVStore — the user-facing worker API over parameter keys.
 
-Counterpart of ``ps_tpu/kv/store.py``'s whole-tree surface on the 'cuda'
-backend: ``init``, ``keys``, ``params``, ``push_pull``, the fused
-``make_step`` and ``shard_batch``, with the byte counters behind the
-push/pull GB/s metric and ``collective_bytes`` (0: one device runs no
-collective). The step runs eagerly and updates the server's
-parameters and optimizer state in place, which is what the reference's
-donated XLA program bought it; tensors returned by ``params()`` or a step
-are the server's own and change with the next step. Per-key push/pull and
-the local backend are not ported yet.
+Counterpart of ``ps_tpu/kv/store.py`` on whichever backend
+:func:`ps_tpu_torch.init` selected:
+
+- local backend: every call goes to an in-process ``LocalServer``
+  (per-key push/pull, sync aggregation over logical workers, or async);
+  ``make_step`` runs the explicit protocol, one gradient a worker on its
+  slice of the global batch.
+- cuda backend: ``make_step`` is the fused step (gradient, then the
+  server's apply of the whole tree, in place, which is what the
+  reference's donated XLA program bought it: tensors returned by
+  ``params()`` or such a step are the server's own and change with the
+  next step); per-key pushes stage until the whole tree is there; async
+  mode is ``make_async_step`` over the DC-ASGD server.
+
+``push``/``pull``/``push_all``/``pull_all``/``push_pull`` and the async
+paths apply out of place: a tensor they returned keeps its values. Byte
+counters for every push and pull feed the push/pull GB/s metric, and
+``collective_bytes`` is 0 (one device runs no collective).
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 
@@ -23,7 +32,8 @@ from ps_tpu_torch.optim import Optimizer, make_optimizer
 
 
 def _nbytes(x) -> int:
-    return x.numel() * x.element_size() if isinstance(x, torch.Tensor) else 0
+    """Bytes of a tensor or numpy array (0 for anything else)."""
+    return int(getattr(x, "nbytes", 0))
 
 
 def to_device(batch: Any, device, non_blocking: bool = False) -> Any:
@@ -45,15 +55,40 @@ def to_device(batch: Any, device, non_blocking: bool = False) -> Any:
     return t.to(device, non_blocking=True)
 
 
+def _map_tree(fn, tree: Any) -> Any:
+    """``fn`` over every leaf of a dict/tuple/list structure."""
+    kv, treedef = keymod.flatten_with_keys(tree)
+    return keymod.unflatten(treedef, {k: fn(v) for k, v in kv.items()},
+                            list(kv))
+
+
+def value_and_grad(loss_fn, params: Any, batch: Any, *extra,
+                   has_aux: bool = False):
+    """``(loss, grads, aux)`` of ``loss_fn(params, batch, *extra)`` at
+    ``params`` (a structure of tensors), as ``jax.value_and_grad`` gives
+    them: ``grads`` has the structure of ``params``, with zeros for a
+    parameter the loss does not reach; ``aux`` is None without has_aux."""
+    kv, treedef = keymod.flatten_with_keys(params)
+    keys = list(kv)
+    leaves = {k: v.detach().requires_grad_() for k, v in kv.items()}
+    out = loss_fn(keymod.unflatten(treedef, leaves, keys), batch, *extra)
+    loss, aux = out if has_aux else (out, None)
+    grads = torch.autograd.grad(loss, [leaves[k] for k in keys],
+                                materialize_grads=True)
+    return (loss.detach(), keymod.unflatten(treedef, dict(zip(keys, grads)),
+                                            keys), aux)
+
+
 class KVStore:
     """A named parameter store with PS push/pull semantics.
 
     Args:
       optimizer: 'sgd' | 'momentum' | 'adam' | 'lamb' or an
         :class:`~ps_tpu_torch.optim.Optimizer` — the server-side update rule.
-      mode: 'sync' | None (inherit from Config); async is not ported yet.
+      mode: 'sync' | 'async' | None (inherit from Config).
       aggregate: 'mean' (default) or 'sum'.
-      placement: 'replicated' or 'sharded' — the same at one device.
+      placement: cuda backend only: 'replicated' or 'sharded' — the same
+        at one device.
       **opt_kwargs: forwarded to the named optimizer (e.g. learning_rate).
     """
 
@@ -67,14 +102,24 @@ class KVStore:
         if placement not in ("replicated", "sharded"):
             raise ValueError("placement must be 'replicated' or 'sharded'")
         self.placement = placement
-        self._engine = ctx.backend.create_server(
-            self._opt, mode=mode, aggregate=aggregate, placement=placement,
-            partition_rules=partition_rules)
+        if ctx.config.backend == "local":
+            if partition_rules:
+                raise ValueError(
+                    "partition_rules need the device backend (backend='cuda')")
+            self._engine = ctx.backend.create_server(
+                self._opt, mode=mode, aggregate=aggregate)
+        else:
+            self._engine = ctx.backend.create_server(
+                self._opt, mode=mode, aggregate=aggregate,
+                placement=placement, partition_rules=partition_rules)
         self._treedef = None
         self._key_order: List[str] = []
+        self._async_params: Dict[int, Any] = {}
         self.bytes_pushed = 0
         self.bytes_pulled = 0
         self.step = 0
+
+    # -- registration -------------------------------------------------------
 
     def init(self, params: Any) -> Any:
         """Register a nested dict of tensors (or arrays) with the server;
@@ -84,52 +129,122 @@ class KVStore:
         kv, treedef = keymod.flatten_with_keys(params)
         self._treedef = treedef
         self._key_order = list(kv)
-        return self._engine.register_tree(kv, treedef, self._key_order)
+        if hasattr(self._engine, "register_tree"):
+            return self._engine.register_tree(kv, treedef, self._key_order)
+        for k, v in kv.items():
+            self._engine.register(k, v)
+        return self.params()
 
     def keys(self) -> List[str]:
         return list(self._key_order)
+
+    # -- per-key protocol ---------------------------------------------------
+
+    def push(self, key: str, grad: Any, worker: int = 0) -> None:
+        """Send one key's gradient to the server (it stages or applies,
+        by mode and backend)."""
+        self.bytes_pushed += _nbytes(grad)
+        self._engine.push(key, grad, worker=worker)
+
+    def pull(self, key: str, worker: int = 0) -> torch.Tensor:
+        """Fetch the current (post-apply) value of one key."""
+        val = self._engine.pull(key, worker=worker)
+        self.bytes_pulled += _nbytes(val)
+        return val
+
+    # -- whole-tree protocol ------------------------------------------------
 
     def _require_init(self) -> None:
         if self._treedef is None:
             raise RuntimeError("KVStore.init(params) must be called first")
 
-    def push_pull(self, grads: Any, worker: int = 0) -> Any:
-        """Fused push + apply + pull for a whole gradient tree."""
-        del worker
+    def push_all(self, grads: Any, worker: int = 0) -> None:
+        """Push every key of a gradient tree (its structure must match
+        init's): one ``push_tree`` where the engine has it, else the
+        per-key protocol in key order."""
         self._require_init()
         kv, _ = keymod.flatten_with_keys(grads)
         if set(kv) != set(self._key_order):
             raise ValueError(
                 "gradient tree structure does not match registered params")
-        nbytes = sum(_nbytes(v) for v in kv.values())
-        self.bytes_pushed += nbytes
-        self.bytes_pulled += nbytes
-        out = self._engine.update_tree(kv)
+        push_tree = getattr(self._engine, "push_tree", None)
+        if push_tree is not None:
+            self.bytes_pushed += sum(_nbytes(v) for v in kv.values())
+            push_tree(kv, worker=worker)
+            return
+        for k in self._key_order:
+            self.push(k, kv[k], worker=worker)
+
+    def pull_all(self, worker: int = 0) -> Any:
+        """Pull every key and rebuild the parameter tree (one atomic
+        snapshot on engines with ``pull_tree``)."""
+        self._require_init()
+        pull_tree = getattr(self._engine, "pull_tree", None)
+        if pull_tree is not None:
+            kv = pull_tree(worker=worker)
+            self.bytes_pulled += sum(_nbytes(v) for v in kv.values())
+        else:
+            kv = {k: self.pull(k, worker=worker) for k in self._key_order}
+        return keymod.unflatten(self._treedef, kv, self._key_order)
+
+    def push_pull(self, grads: Any, worker: int = 0) -> Any:
+        """Fused push + apply + pull for a whole gradient tree: one
+        ``update_tree`` on the cuda backend's sync server, else
+        ``push_all`` then ``pull_all``. With several logical workers the
+        sync barrier fires on the last worker's push, so earlier workers
+        call ``push_all`` and ``pull_all`` follows the last push."""
+        self._require_init()
+        if hasattr(self._engine, "update_tree"):
+            kv, _ = keymod.flatten_with_keys(grads)
+            if set(kv) != set(self._key_order):
+                raise ValueError(
+                    "gradient tree structure does not match registered params")
+            nbytes = sum(_nbytes(v) for v in kv.values())
+            self.bytes_pushed += nbytes
+            self.bytes_pulled += nbytes
+            out = self._engine.update_tree(kv)
+            self.step += 1
+            return keymod.unflatten(self._treedef, out, self._key_order)
+        self.push_all(grads, worker=worker)
         self.step += 1
-        return keymod.unflatten(self._treedef, out, self._key_order)
+        return self.pull_all(worker=worker)
+
+    # -- train steps --------------------------------------------------------
 
     def make_step(self, loss_fn, has_aux: bool = False):
         """Build ``run(batch, *extra) -> (loss, params)`` (or ``(loss,
-        params, aux)``): gradient of ``loss_fn(params, batch, *extra)``,
-        then the server apply, in place. ``loss_fn`` returns a scalar loss
-        meaned over the global batch (or ``(loss, aux)`` with has_aux)."""
+        params, aux)``). ``loss_fn(params, batch, *extra)`` returns a scalar
+        loss meaned over the global batch (or ``(loss, aux)`` with has_aux).
+
+        On the cuda backend: the gradient, then the server apply, in place.
+        On the local backend: the explicit protocol. With ``num_workers >
+        1`` the batch is the global batch, split into equal slices (an
+        indivisible batch raises); each logical worker takes the gradient
+        of its slice and pushes, the server aggregates on the last push,
+        and the loss (and aux) are means over the workers. A parameter the
+        loss does not reach gets a zero gradient, and the optimizer still
+        steps it."""
         self._require_init()
         engine = self._engine
+        if getattr(engine, "mode", "sync") == "async":
+            raise RuntimeError(
+                "make_step is the sync fused path; in async mode use "
+                "make_async_step (or push_all/pull_all directly)")
+        if not hasattr(engine, "get_tree_and_state"):
+            return self._make_local_step(loss_fn, has_aux)
         treedef, key_order = self._treedef, self._key_order
         opt = self._opt
         grad_scale = engine.grad_scale
 
         def run(batch, *extra):
             params_kv, state = engine.get_tree_and_state()
-            leaves = {k: params_kv[k].detach().requires_grad_()
-                      for k in key_order}
-            out = loss_fn(keymod.unflatten(treedef, leaves, key_order),
-                          batch, *extra)
-            loss, aux = out if has_aux else (out, None)
-            grads = torch.autograd.grad(loss, [leaves[k] for k in key_order])
+            loss, grads, aux = value_and_grad(
+                loss_fn, keymod.unflatten(treedef, params_kv, key_order),
+                batch, *extra, has_aux=has_aux)
+            gkv, _ = keymod.flatten_with_keys(grads)
             with torch.no_grad():
-                gkv = {k: g * grad_scale if grad_scale != 1.0 else g
-                       for k, g in zip(key_order, grads)}
+                if grad_scale != 1.0:
+                    gkv = {k: g * grad_scale for k, g in gkv.items()}
                 opt.step_(params_kv, gkv, state)
             engine.set_tree_and_state(params_kv, state)
             nbytes = sum(_nbytes(v) for v in params_kv.values())
@@ -138,21 +253,111 @@ class KVStore:
             self.step += 1
             params = keymod.unflatten(treedef, params_kv, key_order)
             if has_aux:
-                return loss.detach(), params, aux
-            return loss.detach(), params
+                return loss, params, aux
+            return loss, params
 
         return run
+
+    def _make_local_step(self, loss_fn, has_aux: bool):
+        nw = self._engine.num_workers
+
+        def slice_w(x, w):
+            n = x.shape[0]
+            if n % nw:
+                raise ValueError(f"global batch dim {n} not divisible by "
+                                 f"num_workers={nw}")
+            r = n // nw
+            return x[w * r:(w + 1) * r]
+
+        def run_local(batch, *extra):
+            params = self.params()
+            if nw == 1:
+                loss, grads, aux = value_and_grad(loss_fn, params, batch,
+                                                  *extra, has_aux=has_aux)
+                new_params = self.push_pull(grads)
+                return (loss, new_params, aux) if has_aux else (loss,
+                                                                new_params)
+            losses, auxes = [], []
+            for w in range(nw):
+                shard = _map_tree(lambda x, _w=w: slice_w(x, _w), batch)
+                loss, grads, aux = value_and_grad(loss_fn, params, shard,
+                                                  *extra, has_aux=has_aux)
+                losses.append(loss)
+                auxes.append(aux)
+                self.push_all(grads, worker=w)
+            self.step += 1
+            new_params = self.pull_all()
+            loss = sum(losses) / nw
+            if not has_aux:
+                return loss, new_params
+            flat = [keymod.flatten_with_keys(a) for a in auxes]
+            treedef, keys = flat[0][1], list(flat[0][0])
+            aux = keymod.unflatten(
+                treedef, {k: sum(f[k] for f, _ in flat) / nw for k in keys},
+                keys)
+            return loss, new_params, aux
+
+        return run_local
+
+    def make_async_step(self, loss_fn, has_aux: bool = False):
+        """Build the async worker cycle ``run(batch, *extra, worker=w)``:
+        the gradient against the parameters this worker last pulled (stale
+        by however many versions others pushed since), pushed (the server
+        applies it at once with the DC-ASGD correction), then a pull of
+        the current version for the worker's next cycle. Returns the loss
+        (and aux with has_aux). Drive workers round-robin or from host
+        threads; ``staleness(w)`` reports each worker's τ."""
+        self._require_init()
+        if getattr(self._engine, "mode", "sync") != "async":
+            raise RuntimeError(
+                "make_async_step requires mode='async' "
+                "(ps_tpu_torch.init(..., mode='async') or "
+                "KVStore(mode='async'))")
+
+        def run(batch, *extra, worker: int = 0):
+            params = self._async_params.get(worker)
+            if params is None:
+                params = self.pull_all(worker=worker)
+            loss, grads, aux = value_and_grad(loss_fn, params, batch, *extra,
+                                              has_aux=has_aux)
+            self.push_all(grads, worker=worker)
+            self._async_params[worker] = self.pull_all(worker=worker)
+            self.step += 1
+            return (loss, aux) if has_aux else loss
+
+        return run
+
+    def staleness(self, worker: int = 0) -> int:
+        """Async mode: whole-model versions behind the server this worker's
+        cached parameters are (0 in sync mode)."""
+        fn = getattr(self._engine, "staleness", None)
+        return fn(worker) if fn else 0
+
+    @property
+    def staleness_histogram(self) -> Dict[int, int]:
+        """Async mode: ``{τ: count}`` of whole-tree pushes by the staleness
+        they were applied at (empty in sync mode)."""
+        hist = getattr(self._engine, "staleness_hist", None)
+        return dict(hist) if hist else {}
 
     def shard_batch(self, batch: Any) -> Any:
         """Place a host batch (a dict, tuple or list of arrays or tensors,
         e.g. ``(images, labels)``) on the device (:func:`to_device`)."""
         return to_device(batch, self._ctx.device)
 
+    # -- introspection ------------------------------------------------------
+
     def params(self) -> Any:
-        """Current server-side parameter tree — introspection only."""
+        """Current server-side parameter tree — introspection only: no byte
+        accounting and no protocol side effects (an async worker's snapshot
+        is recorded by ``pull``/``pull_all``, never by this)."""
         self._require_init()
-        kv = {k: self._engine.pull(k) for k in self._key_order}
+        read = getattr(self._engine, "peek", None) or self._engine.pull
+        kv = {k: read(k) for k in self._key_order}
         return keymod.unflatten(self._treedef, kv, self._key_order)
+
+    def optimizer_state(self, key: str):
+        return self._engine.optimizer_state(key)
 
     @property
     def collective_bytes(self) -> int:
@@ -160,3 +365,7 @@ class KVStore:
         reference's analytic ICI traffic): 0, since one device runs no
         collective."""
         return 0
+
+    @property
+    def num_workers(self) -> int:
+        return self._engine.num_workers

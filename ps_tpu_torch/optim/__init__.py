@@ -6,7 +6,9 @@ folds the bias correction into the step size), so these follow optax
 0.2.6 expression by expression instead:
 
 - sgd: ``scale_by_learning_rate`` (``u = -lr * g``), then
-  ``apply_updates`` (``p + u``);
+  ``apply_updates`` (``p + u``), taken with a float rate as one fused
+  multiply-add (``p.add_(g, alpha=-lr)``), which is how XLA compiles the
+  reference's jitted apply on the CPU: the two agree bitwise there;
 - momentum: ``optax.sgd(lr, momentum, nesterov)`` — ``trace`` (``t = g +
   decay * t``; with nesterov ``u = g + decay * t``, else ``u = t``), then
   ``-lr * u``, then ``p + u``, each step a handful of ``torch._foreach_*``
@@ -21,6 +23,13 @@ folds the bias correction into the step size), so these follow optax
   ‖p‖ / ‖u‖`` per parameter tensor, exactly 1 where either norm is 0),
   then ``-lr * u``, then ``p + u``.
 
+Each takes a float learning rate or a schedule ``count -> lr``, as the
+reference takes an ``optax.Schedule``. A schedule is called with optax's
+``scale_by_schedule`` count, an int32 tensor on the parameters' device
+kept in the state (``{"rule": <the rule's state>, "schedule_count":
+count}``), before that count is incremented, so the first step uses
+``lr(0)``; it returns a float or a 0-d tensor.
+
 An optimizer works on ``{key: tensor}`` dicts and updates parameters and
 state in place (``step_``); in-place update is what JAX's buffer donation
 bought the reference.
@@ -33,10 +42,15 @@ from typing import Any, Callable, Dict, Union
 
 import torch
 
+from ps_tpu_torch.optim.dc import delay_compensate
+
 __all__ = ["Optimizer", "make_optimizer", "sgd", "momentum", "adam",
-           "lamb"]
+           "lamb", "delay_compensate"]
 
 _INT32_MAX = 2**31 - 1
+
+#: a float, or a schedule ``count -> lr`` (optax's ``Schedule``)
+LearningRate = Union[float, Callable[[torch.Tensor], Any]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,21 +65,59 @@ class Optimizer:
                     None]
 
 
-def sgd(learning_rate: float = 0.01) -> Optimizer:
+def _zero_count(params):
+    some = next(iter(params.values()), None)
+    device = some.device if some is not None else None
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+def _safe_increment_(count):
+    """optax's ``safe_increment``, in place: +1 up to the int32 maximum."""
+    count.add_((count < _INT32_MAX).to(torch.int32))
+
+
+def _with_rate(name: str, init, step_, learning_rate: LearningRate
+               ) -> Optimizer:
+    """The :class:`Optimizer` of a rule ``step_(params, grads, state,
+    lr)``: a float ``learning_rate`` is passed as it is; a schedule is
+    evaluated at its own count, before the count is incremented (optax's
+    ``scale_by_schedule``), and passed as a 0-d f32 tensor."""
+    if not callable(learning_rate):
+        return Optimizer(name, init,
+                         lambda p, g, s: step_(p, g, s, learning_rate))
+
+    def init_scheduled(params):
+        return {"rule": init(params), "schedule_count": _zero_count(params)}
+
+    @torch.no_grad()
+    def step_scheduled(params, grads, state):
+        count = state["schedule_count"]
+        lr = torch.as_tensor(learning_rate(count), dtype=torch.float32,
+                             device=count.device)
+        step_(params, grads, state["rule"], lr)
+        _safe_increment_(count)
+
+    return Optimizer(name, init_scheduled, step_scheduled)
+
+
+def sgd(learning_rate: LearningRate = 0.01) -> Optimizer:
     """Plain SGD — the reference server's default apply rule."""
 
     def init(params):
         return ()
 
     @torch.no_grad()
-    def step_(params, grads, state):
+    def step_(params, grads, state, lr):
         for k, p in params.items():
-            p.add_(-learning_rate * grads[k])
+            if isinstance(lr, torch.Tensor):
+                p.add_(-lr * grads[k])
+            else:
+                p.add_(grads[k], alpha=-lr)  # one rounding, as XLA's
 
-    return Optimizer("sgd", init, step_)
+    return _with_rate("sgd", init, step_, learning_rate)
 
 
-def momentum(learning_rate: float = 0.01, momentum: float = 0.9,
+def momentum(learning_rate: LearningRate = 0.01, momentum: float = 0.9,
              nesterov: bool = False) -> Optimizer:
     """SGD with momentum (optax's trace form) — the reference server's
     rule for ResNet. The state is one f32 trace a parameter."""
@@ -74,7 +126,7 @@ def momentum(learning_rate: float = 0.01, momentum: float = 0.9,
         return {k: torch.zeros_like(p) for k, p in params.items()}
 
     @torch.no_grad()
-    def step_(params, grads, state):
+    def step_(params, grads, state, lr):
         keys = list(params)
         traces = [state[k] for k in keys]
         torch._foreach_mul_(traces, momentum)
@@ -84,16 +136,14 @@ def momentum(learning_rate: float = 0.01, momentum: float = 0.9,
             updates = torch._foreach_mul(traces, momentum)
             torch._foreach_add_(updates, [grads[k] for k in keys])
         torch._foreach_add_([params[k] for k in keys],
-                            torch._foreach_mul(updates, -learning_rate))
+                            torch._foreach_mul(updates, -lr))
 
-    return Optimizer("momentum", init, step_)
+    return _with_rate("momentum", init, step_, learning_rate)
 
 
 def _adam_init(params):
-    some = next(iter(params.values()), None)
-    device = some.device if some is not None else None
     return {
-        "count": torch.zeros((), dtype=torch.int32, device=device),
+        "count": _zero_count(params),
         "mu": {k: torch.zeros_like(p) for k, p in params.items()},
         "nu": {k: torch.zeros_like(p) for k, p in params.items()},
     }
@@ -103,7 +153,7 @@ def _scale_by_adam_(grads, state, b1, b2, eps, eps_root):
     """optax's ``scale_by_adam``: advance ``state`` in place and yield
     ``(key, u)`` for every gradient."""
     count = state["count"]
-    count.add_((count < _INT32_MAX).to(torch.int32))  # safe_increment
+    _safe_increment_(count)
     bc1 = 1 - b1 ** count
     bc2 = 1 - b2 ** count
     for k, g in grads.items():
@@ -115,23 +165,25 @@ def _scale_by_adam_(grads, state, b1, b2, eps, eps_root):
         yield k, mu_hat / (torch.sqrt(nu_hat + eps_root) + eps)
 
 
-def adam(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
-         eps: float = 1e-8, eps_root: float = 0.0) -> Optimizer:
+def adam(learning_rate: LearningRate = 1e-3, b1: float = 0.9,
+         b2: float = 0.999, eps: float = 1e-8,
+         eps_root: float = 0.0) -> Optimizer:
     @torch.no_grad()
-    def step_(params, grads, state):
+    def step_(params, grads, state, lr):
         for k, u in _scale_by_adam_(grads, state, b1, b2, eps, eps_root):
-            params[k].add_(-learning_rate * u)
+            params[k].add_(-lr * u)
 
-    return Optimizer("adam", _adam_init, step_)
+    return _with_rate("adam", _adam_init, step_, learning_rate)
 
 
-def lamb(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
-         eps: float = 1e-6, weight_decay: float = 0.0) -> Optimizer:
+def lamb(learning_rate: LearningRate = 1e-3, b1: float = 0.9,
+         b2: float = 0.999, eps: float = 1e-6,
+         weight_decay: float = 0.0) -> Optimizer:
     """LAMB, the reference's server-side optimizer for BERT. The trust
     ratio is per parameter tensor, so each key is one tensor of its own."""
 
     @torch.no_grad()
-    def step_(params, grads, state):
+    def step_(params, grads, state, lr):
         for k, u in _scale_by_adam_(grads, state, b1, b2, eps, 0.0):
             p = params[k]
             u = u + weight_decay * p
@@ -140,9 +192,9 @@ def lamb(learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
             ratio = torch.where((p_norm == 0) | (u_norm == 0),
                                 torch.ones((), dtype=p.dtype, device=p.device),
                                 p_norm / u_norm)
-            p.add_(-learning_rate * (u * ratio))
+            p.add_(-lr * (u * ratio))
 
-    return Optimizer("lamb", _adam_init, step_)
+    return _with_rate("lamb", _adam_init, step_, learning_rate)
 
 
 _REGISTRY = {"sgd": sgd, "momentum": momentum, "adam": adam,

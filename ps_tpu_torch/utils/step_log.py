@@ -25,9 +25,9 @@ class StepLogger:
     """
 
     def __init__(self, every: int = 10, jsonl: Optional[str] = None,
-                 stream: IO = sys.stdout):
+                 stream: Optional[IO] = None):
         self.every = max(int(every), 1)
-        self.stream = stream
+        self.stream = stream  # None: sys.stdout as it is at each line
         self._jsonl: Optional[IO] = open(jsonl, "a") if jsonl else None
 
     def wants(self, step: int) -> bool:
@@ -49,7 +49,7 @@ class StepLogger:
                     parts.append(f"{k} {json.dumps(v, separators=(',', ':'))}")
                 else:
                     parts.append(f"{k} {v}")
-            print("  ".join(parts), file=self.stream)
+            print("  ".join(parts), file=self.stream or sys.stdout)
 
     def close(self) -> None:
         if self._jsonl is not None:

@@ -60,7 +60,13 @@ def test_every_slice_module_is_checked():
                  "ps_tpu_torch/utils/metrics.py",
                  "ps_tpu_torch/utils/step_log.py",
                  "ps_tpu_torch/utils/profiling.py",
-                 "ps_tpu_torch/examples/train_resnet50.py", "chip_smoke.py"):
+                 "ps_tpu_torch/examples/train_resnet50.py",
+                 "ps_tpu_torch/backends/common.py",
+                 "ps_tpu_torch/backends/local.py",
+                 "ps_tpu_torch/optim/dc.py", "ps_tpu_torch/models/mlp.py",
+                 "ps_tpu_torch/examples/train_mnist_mlp.py",
+                 "ps_tpu_torch/examples/train_mnist_async.py",
+                 "chip_smoke.py"):
         assert path in FILES
 
 

@@ -13,6 +13,8 @@ checks at the main paths' shapes.
   run on the same CUDA tensors. f32 within rtol 1e-6, atol 1e-7 (the mean
   over D and ``pow`` may round differently); bf16 within one bf16 ulp; a
   hot id pushed 100,000 times, sgd f32, bitwise against a host oracle.
+- ``SparseEmbedding.push``/``pull`` with ids already on the card against
+  the same calls with host arrays.
 - The grouping pass: on the real ids its sorted ids and permutation equal
   ``torch.sort(ids, stable=True)``'s bitwise and its segments
   ``unique_consecutive``'s, at N from 1 to 1,703,936, with filler, ids
@@ -252,6 +254,39 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="plain version"):
         ops.fused_sparse_apply(table, (), ids, torch.zeros((2, D), device=cuda),
                                opt, "torch")
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adagrad"])
+def test_sparse_push_and_pull_take_ids_on_the_card(cuda, optimizer):
+    """SparseEmbedding.push/pull with ids (and grads) already on the card:
+    the same table, row versions and rows as with host arrays."""
+    import ps_tpu_torch
+
+    ps_tpu_torch.shutdown()
+    ps_tpu_torch.init(backend="cuda")
+    try:
+        rng = np.random.default_rng(13)
+        table = rng.normal(size=(V, D)).astype(np.float32)
+        ids = np.array([3, 7, 3, -1, V + 2, 0, 7, 7], np.int32)
+        grads = rng.normal(size=(ids.size, D)).astype(np.float32)
+        embs = [ps_tpu_torch.SparseEmbedding(V, D, optimizer=optimizer,
+                                             learning_rate=LR)
+                for _ in range(2)]
+        for emb in embs:
+            emb.init(table)
+        embs[0].push(ids, grads)
+        embs[1].push(torch.as_tensor(ids).to(cuda),
+                     torch.as_tensor(grads).to(cuda))
+        np.testing.assert_array_equal(embs[0].table.cpu().numpy(),
+                                      embs[1].table.cpu().numpy())
+        np.testing.assert_array_equal(embs[0].row_version,
+                                      embs[1].row_version)
+        assert embs[1].row_version[[0, 3, 7]].tolist() == [1, 1, 1]
+        on_card = torch.as_tensor([7, 3, 3]).to(cuda)
+        np.testing.assert_array_equal(embs[1].pull(on_card).cpu().numpy(),
+                                      embs[0].pull([7, 3, 3]).cpu().numpy())
+    finally:
+        ps_tpu_torch.shutdown()
 
 
 # -- flash attention -------------------------------------------------------------

@@ -162,9 +162,15 @@ def test_init_without_a_gpu_raises_and_does_not_fall_back(monkeypatch):
         ps_tpu_torch.current_context()
 
 
-def test_init_on_the_cpu_only_on_request():
-    with pytest.raises(NotImplementedError, match="local backend"):
-        ps_tpu_torch.init(backend="local")
+def test_init_on_the_cpu_only_on_request(monkeypatch):
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="needs an NVIDIA GPU"):
+            ps_tpu_torch.init(backend="local")
+    assert not ps_tpu_torch.is_initialized()
+    ctx = ps_tpu_torch.init(backend="local", device="cpu", num_workers=3)
+    assert ctx.device == torch.device("cpu") and ctx.num_workers == 3
+    ps_tpu_torch.shutdown(abort=True)
     ctx = ps_tpu_torch.init(backend="cuda", device="cpu")
     assert ctx.device == torch.device("cpu") and ctx.num_workers == 1
     assert ctx.backend.fused_apply_tier() == "torch"

@@ -10,6 +10,8 @@
   same order).
 - lamb against ``optax.lamb`` over 3 steps on a tree that holds a zero
   tensor (its trust ratio is exactly 1 at step 1), within rtol 1e-6.
+- each of the four with a learning-rate schedule against optax's
+  ``linear_schedule`` over 5 steps, within rtol 1e-6.
 """
 
 import jax
@@ -177,6 +179,47 @@ def test_lamb_matches_optax(kw):
         np.testing.assert_allclose(port_p[k].numpy(), np.asarray(ref_p[k]),
                                    rtol=1e-6)
     assert port.name == "lamb" and int(port_s["count"]) == 3
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("sgd", {}),
+    ("momentum", {"momentum": 0.9}),
+    ("adam", {}),
+    ("lamb", {"weight_decay": 0.01}),
+])
+def test_learning_rate_schedule_matches_optax(name, kw):
+    """A schedule ``count -> lr``: optax.linear_schedule in the reference,
+    the same linear function of the port's int32 count tensor here. Step 0
+    uses lr(0); the rate reaches its end value after 3 steps."""
+    ref_sched = optax.linear_schedule(0.1, 0.02, transition_steps=3)
+    seen = []
+
+    def port_sched(count):
+        seen.append(int(count))
+        frac = 1 - torch.clip(count, 0, 3) / 3
+        return (0.1 - 0.02) * frac + 0.02
+
+    ref = ref_make_optimizer(name, learning_rate=ref_sched, **kw)
+    port = make_optimizer(name, learning_rate=port_sched, **kw)
+    p0 = _dense_params(0)
+    ref_p = {k: jnp.asarray(v) for k, v in p0.items()}
+    ref_s = ref.init(ref_p)
+    port_p = {k: torch.as_tensor(v.copy()) for k, v in p0.items()}
+    port_s = port.init(port_p)
+    for step in range(5):
+        grads = _dense_params(step + 1)
+        updates, ref_s = ref.update({k: jnp.asarray(v) for k, v in
+                                     grads.items()}, ref_s, ref_p)
+        ref_p = optax.apply_updates(ref_p, updates)
+        port.step_(port_p, {k: torch.as_tensor(v) for k, v in grads.items()},
+                   port_s)
+        for k in p0:
+            np.testing.assert_allclose(port_p[k].numpy(),
+                                       np.asarray(ref_p[k]), rtol=1e-6,
+                                       err_msg=f"step {step} {k}")
+    assert seen == [0, 1, 2, 3, 4]
+    count = port_s["schedule_count"]
+    assert int(count) == 5 and count.dtype == torch.int32
 
 
 def test_make_optimizer_resolves_and_rejects():

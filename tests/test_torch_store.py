@@ -114,12 +114,49 @@ def test_push_pull_matches_reference():
         port.push_pull({"scale": torch.zeros(3)})
 
 
+@pytest.mark.parametrize("optimizer,kw", [
+    ("sgd", {"learning_rate": 1e-2}),
+    ("momentum", {"learning_rate": 1e-2, "momentum": 0.9}),
+    ("adam", {"learning_rate": 1e-2}),
+    ("lamb", {"learning_rate": 1e-2, "weight_decay": 0.1}),
+])
+def test_make_step_steps_a_key_the_loss_does_not_reach(optimizer, kw):
+    """jax.value_and_grad gives a zero gradient for a parameter the loss
+    does not read, and optax still steps it (momentum and adam decay their
+    state; lamb's weight decay moves the parameter)."""
+    def params():
+        p = _params()
+        p["unused"] = np.full((2,), 0.5, np.float32)
+        return p
+
+    def ref_loss(p, batch):
+        return _ref_loss({"dense": p["dense"], "scale": p["scale"]}, batch)
+
+    def port_loss(p, batch):
+        return _port_loss({"dense": p["dense"], "scale": p["scale"]}, batch)
+
+    ps_tpu.init(backend="tpu", mesh_shape={"data": 1})
+    ref = ps_tpu.KVStore(optimizer=optimizer, **kw)
+    ref.init(params())
+    run = ref.make_step(ref_loss)
+    for b in _batches():
+        _, want = run({k: jnp.asarray(v) for k, v in b.items()})
+    ps_tpu_torch.init(backend="cuda", device="cpu")
+    port = ps_tpu_torch.KVStore(optimizer=optimizer, **kw)
+    port.init(params())
+    run = port.make_step(port_loss)
+    for b in _batches():
+        _, got = run(port.shard_batch(b))
+    for k in ("unused", "scale"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-5, atol=1e-7)
+
+
 def test_store_rejects_what_is_not_ported():
     ps_tpu_torch.init(backend="cuda", device="cpu")
     with pytest.raises(ValueError, match="placement"):
         ps_tpu_torch.KVStore(placement="zero3")
-    with pytest.raises(NotImplementedError, match="async"):
-        ps_tpu_torch.KVStore(mode="async")
+    assert ps_tpu_torch.KVStore(mode="async")._engine.mode == "async"
     with pytest.raises(NotImplementedError, match="partition_rules"):
         ps_tpu_torch.KVStore(partition_rules=[("w", (None, "model"))])
     store = ps_tpu_torch.KVStore()

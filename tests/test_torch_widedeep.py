@@ -191,6 +191,26 @@ def test_eager_push_pull_matches_reference_apply():
     assert emb.dropped_rows == 0 and ops.LAUNCHES_BY_RULE["adam"] == 0
 
 
+def test_eager_push_pull_take_tensor_ids():
+    """Ids given as tensors (int64 or int32) go the same way as arrays."""
+    ps_tpu_torch.init(backend="cuda", device="cpu")
+    rng = np.random.default_rng(6)
+    table = rng.normal(size=(40, 4)).astype(np.float32)
+    ids = np.array([3, -1, 3, 17, 44, 0], np.int64)
+    grads = rng.normal(size=(6, 4)).astype(np.float32)
+    a, b = (SparseEmbedding(40, 4, optimizer="sgd", learning_rate=0.1)
+            for _ in range(2))
+    a.init(table)
+    b.init(table)
+    a.push(ids, grads)
+    b.push(torch.as_tensor(ids), torch.as_tensor(grads))
+    np.testing.assert_array_equal(a.table.numpy(), b.table.numpy())
+    np.testing.assert_array_equal(a.row_version, b.row_version)
+    assert b.row_version[[0, 3, 17]].tolist() == [1, 1, 1]
+    rows = b.pull(torch.tensor([17, 3], dtype=torch.int32))
+    np.testing.assert_array_equal(rows.numpy(), a.pull([17, 3]).numpy())
+
+
 def test_generator_init_and_bf16_table():
     ps_tpu_torch.init(backend="cuda", device="cpu")
     emb = SparseEmbedding(30, 6, optimizer="adagrad", dtype=torch.bfloat16)
