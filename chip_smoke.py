@@ -87,7 +87,33 @@ Phases, each raising on failure:
    sum, finite parameters); cycles/s and the staleness histograms. Phases
    11 and 12 run no kernel of the port (the reference's MLP and server
    applies reach no Pallas kernel): the launch counts are set to 0 before
-   each path and must read 0 after it.
+   each path and must read 0 after it;
+13. checkpoint and resume on the card (ps_tpu_torch/checkpoint.py), each
+   resumed run against an uninterrupted one, bitwise, and each
+   uninterrupted run twice, which must repeat itself bitwise (BERT's only
+   where PyTorch's deterministic algorithms are on, see (b)): (a) Wide-&-Deep at the full published width of phase 4, 20
+   steps against 10, a save of the dense store and both tables, a fresh
+   store and fresh tables, a restore and 10 more steps: dense params, both
+   tables and every optimizer state equal, and the resumed half launches
+   the grouping pass and the apply 2 + 2 times a step; (b) BERT-base as in
+   phase 7, 4 LAMB steps against 2, save, a fresh store, restore, 2, 12
+   flash launches a step: with PyTorch's default algorithms the
+   uninterrupted run differs from itself (F.embedding's backward over
+   the token-type ids is not deterministic on the card; one gradient
+   taken twice names it), so that spread and the resumed run's distance
+   are printed and the restored state is held to the saved one bitwise;
+   with torch.use_deterministic_algorithms(True), which gives that op its
+   deterministic kernel, params and LAMB state equal the uninterrupted
+   run's and it repeats itself, bitwise; (c) config 1 (local,
+   sync, 784-256-10, 2 workers x 128, 20 sgd steps against 10 + 10) and
+   config 5 (cuda async, 3 workers round-robin through make_async_step,
+   12 cycles against 6 + 6): params and counters equal, and each restored
+   worker's cached pull is the very tensor restored as its stale
+   snapshot. Each checkpoint's bytes on disk, save and restore (file to
+   device) seconds and GB/s are printed, under a temporary directory. A
+   checkpoint of ps_tpu converted by from_reference is restored by the
+   CPU tests (tests/test_torch_checkpoint.py), which need jax to write
+   one; this machine has none.
 
 It prints one JSON line per timed kernel, then the kernels line, then
 ``{"ok": true, "device": {...}}`` as its last line. Without a GPU, or
@@ -137,6 +163,9 @@ MNIST_STEPS, MNIST_BATCH, MNIST_WORKERS, MNIST_HIDDEN = 200, 128, 2, 256
 ASYNC_CYCLES, ASYNC_BATCH, ASYNC_WORKERS = 60, 64, 3
 STRESS_THREADS, STRESS_CYCLES = 4, 12
 MNIST_TOL = 1e-5
+# phase 13: uninterrupted steps (the resumed runs save at half of them)
+CKPT_WD_STEPS, CKPT_BERT_STEPS, CKPT_MNIST_STEPS, CKPT_ASYNC_CYCLES = (
+    20, 4, 20, 12)
 
 
 def log(msg):
@@ -1417,6 +1446,413 @@ def phase_mnist_async():
     return cycle_ms
 
 
+def _state_of(dense=None, tables=()):
+    """Clones of everything a resume must bring back: a dense store's
+    params and optimizer state, and each (name, SparseEmbedding)'s table
+    and per-row state."""
+    from ps_tpu_torch import checkpoint as ckpt
+    from ps_tpu_torch.kv import keys
+
+    out = {}
+    if dense is not None:
+        flat, _ = keys.flatten_with_keys(dense.params())
+        out.update({f"param/{k}": v.detach().clone() for k, v in flat.items()})
+        for i, t in ckpt.flatten_leaves(dense._engine._state).items():
+            out[f"opt/{i}"] = t.clone()
+    for name, emb in tables:
+        out[f"{name}/table"] = emb.table.clone()
+        for i, t in ckpt.flatten_leaves(emb.state()).items():
+            out[f"{name}/opt/{i}"] = t.clone()
+    return out
+
+
+def _differs(got, want):
+    """Names whose tensors are not bitwise equal, with their max abs
+    difference."""
+    out = {}
+    for k, w in want.items():
+        g = got[k]
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+            out[k] = float((g.double() - w.double()).abs().max())
+    return out
+
+
+def _hold_bitwise(what, resumed, first, second):
+    """The resumed state equals the uninterrupted one bitwise, and the
+    uninterrupted run equals itself; either failing raises, naming the
+    tensors and how far apart they are."""
+    again = _differs(second, first)
+    if again:
+        raise AssertionError(f"{what}: the uninterrupted run differs from "
+                             f"itself on the card in {len(again)} tensors: "
+                             f"{dict(list(again.items())[:6])}")
+    diff = _differs(resumed, first)
+    if diff:
+        raise AssertionError(f"{what}: the resumed run differs from the "
+                             f"uninterrupted one in {len(diff)} tensors: "
+                             f"{dict(list(diff.items())[:6])}")
+    log(f"{what}: resumed = uninterrupted, bitwise, over {len(first)} "
+        f"tensors ({sum(t.numel() for t in first.values()):,} elements); "
+        f"the uninterrupted run repeats itself bitwise")
+
+
+def _timed(fn):
+    """Seconds ``fn()`` takes on the host clock, the card synchronised
+    before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _save_breakdown(store, path):
+    """Where one save's time goes, step by step as ``checkpoint.save``
+    takes them: the copies off the card, ``torch.save`` into the page
+    cache, and the ``fsync`` that makes the file durable."""
+    from ps_tpu_torch import checkpoint as ckpt
+
+    arrays, _ = store._engine.state_dict()
+    flat = {}
+    copy_s = _timed(lambda: flat.update(
+        {f"{g}/{n}": ckpt.to_cpu(t) for g, group in arrays.items()
+         for n, t in group.items()}))
+    with open(path, "wb") as f:
+        t0 = time.perf_counter()
+        torch.save(flat, f)
+        f.flush()
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        os.fsync(f.fileno())
+        fsync_s = time.perf_counter() - t0
+    os.remove(path)
+    return copy_s, write_s, fsync_s
+
+
+def _report_checkpoint(what, path, save_s, restore_s):
+    """Print one checkpoint's bytes on disk and its save and restore
+    rates; return (bytes, save s, restore s)."""
+    from ps_tpu_torch import checkpoint as ckpt
+
+    nbytes = ckpt.nbytes(path)
+    log(f"checkpoint {what}: {nbytes:,} bytes; save {save_s:.4f} s "
+        f"({nbytes / save_s / 1e9:.3f} GB/s), restore file to device "
+        f"{restore_s:.4f} s ({nbytes / restore_s / 1e9:.3f} GB/s); card "
+        f"{_card_line()}")
+    return nbytes, save_s, restore_s
+
+
+def _resume_widedeep(tmp):
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.data.synthetic import criteo_batches
+    from ps_tpu_torch.models.wide_deep import WideDeepConfig
+    from ps_tpu_torch.ops import sparse_apply as ops
+
+    cfg = WideDeepConfig()
+    half = CKPT_WD_STEPS // 2
+    host = list(criteo_batches(BATCH, vocab_size=cfg.per_feature_vocab,
+                               seed=1, steps=CKPT_WD_STEPS))
+
+    def start():
+        _, dense, deep, wide, run = _widedeep(cfg, "cuda", seed=0)
+        return dense, deep, wide, run, [dense.shard_batch(b) for b in host]
+
+    def state(dense, deep, wide):
+        return _state_of(dense, (("deep", deep), ("wide", wide)))
+
+    runs = []
+    for _ in range(2):
+        dense, deep, wide, run, batches = start()
+        for b in batches:
+            run(b)
+        runs.append(state(dense, deep, wide))
+        ps.shutdown()
+    names = ("dense", "deep", "wide")
+    paths = {n: os.path.join(tmp, f"wd_{n}") for n in names}
+    dense, deep, wide, run, batches = start()
+    for b in batches[:half]:
+        run(b)
+    save_s = {n: _timed(lambda o=o, n=n: o.save(paths[n]))
+              for n, o in zip(names, (dense, deep, wide))}
+    del dense, deep, wide, run, batches
+    ps.shutdown()
+    dense, deep, wide, run, batches = start()  # the step built before restore
+    sizes = {}
+    for n, o in zip(names, (dense, deep, wide)):
+        restore_s = _timed(lambda o=o, n=n: o.restore(paths[n]))
+        sizes[f"W&D {n}"] = _report_checkpoint(f"W&D {n}", paths[n],
+                                               save_s[n], restore_s)
+    _launch_counts(reset=True)
+    for b in batches[half:]:
+        run(b)
+    torch.cuda.synchronize()
+    counts, by_rule = _launch_counts(), dict(ops.LAUNCHES_BY_RULE)
+    want = {"sparse_apply": 2 * half, "sparse_group": 2 * half,
+            "flash_attention/fwd": 0}
+    if counts != want or by_rule != {"adagrad": half, "sgd": half}:
+        raise AssertionError(f"W&D resumed half: launches {counts} "
+                             f"{by_rule}, expected {want}")
+    _hold_bitwise(f"W&D resume ({CKPT_WD_STEPS} steps against {half} + "
+                  f"save + restore + {half}; launches in the resumed half "
+                  f"{counts})", state(dense, deep, wide), *runs)
+    ps.shutdown()
+    return sizes
+
+
+def _bert_grads_twice(model, batch):
+    """The BERT loss's gradient at ``model``'s weights on one batch, twice
+    on the card: ``{name: max abs difference}`` of the gradients that
+    differ between the two."""
+    from ps_tpu_torch.kv import keys
+    from ps_tpu_torch.kv.store import to_device, value_and_grad
+    from ps_tpu_torch.models.bert import make_mlm_loss_fn
+
+    flat, treedef = keys.flatten_with_keys(model.param_tree())
+    params = keys.unflatten(treedef, {k: v.detach().cuda()
+                                      for k, v in flat.items()}, list(flat))
+    batch = to_device(batch, "cuda")
+    grads = []
+    for _ in range(2):
+        _, g, _ = value_and_grad(make_mlm_loss_fn(model), params, batch)
+        grads.append(keys.flatten_with_keys(g)[0])
+    torch.cuda.synchronize()
+    return _differs(*grads)
+
+
+def _resume_bert(tmp):
+    """BERT-base resume, first with PyTorch's default algorithms (whose
+    one non-deterministic op on this path, F.embedding's backward over the
+    token-type ids, makes the uninterrupted run differ from itself: the
+    phase prints that spread and the resumed run's distance, and holds the
+    restored state to the saved one bitwise), then with
+    torch.use_deterministic_algorithms(True), which gives that op its
+    deterministic kernel: there the resumed run must equal the
+    uninterrupted one bitwise."""
+    import warnings
+
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.data.synthetic import mlm_batches
+    from ps_tpu_torch.models.bert import BertConfig, BertMLM, make_mlm_loss_fn
+
+    cfg = BertConfig(attn="flash")
+    model = BertMLM(cfg, generator=torch.Generator().manual_seed(0))
+    half = CKPT_BERT_STEPS // 2
+    host = list(mlm_batches(BERT_BATCH, BERT_SEQ, vocab_size=cfg.vocab_size,
+                            seed=1, steps=CKPT_BERT_STEPS))
+    per_step = {"sparse_apply": 0, "sparse_group": 0,
+                "flash_attention/fwd": cfg.num_layers}
+
+    def start():
+        ps.init(backend="cuda")
+        store = ps.KVStore(optimizer="lamb", learning_rate=1e-3,
+                           weight_decay=0.01, placement="sharded")
+        store.init(model.param_tree())
+        return (store, store.make_step(make_mlm_loss_fn(model)),
+                [store.shard_batch(b) for b in host])
+
+    def steps(run, batches):
+        _launch_counts(reset=True)
+        for b in batches:
+            run(b)
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+        want = {k: v * len(batches) for k, v in per_step.items()}
+        if counts != want:
+            raise AssertionError(f"BERT: launches {counts}, expected {want}")
+        return counts
+
+    def uninterrupted():
+        store, run, batches = start()
+        steps(run, batches)
+        out = _state_of(store)
+        ps.shutdown()
+        return out
+
+    def resumed(path):
+        store, run, batches = start()
+        steps(run, batches[:half])
+        saved = _state_of(store)
+        parts = _save_breakdown(store, path + ".parts")
+        save_s = _timed(lambda: store.save(path))
+        del store, run, batches
+        ps.shutdown()
+        store, run, batches = start()  # the step built before the restore
+        restore_s = _timed(lambda: store.restore(path))
+        lost = _differs(_state_of(store), saved)
+        if lost:
+            raise AssertionError(f"BERT: the restored state differs from the "
+                                 f"saved one: {dict(list(lost.items())[:6])}")
+        counts = steps(run, batches[half:])
+        out = _state_of(store)
+        ps.shutdown()
+        return out, save_s, restore_s, counts, parts
+
+    what = (f"BERT-base resume (bf16, flash, {BERT_BATCH} x {BERT_SEQ}, LAMB; "
+            f"{CKPT_BERT_STEPS} steps against {half} + save + restore + "
+            f"{half})")
+    grads = _bert_grads_twice(model, host[0])
+    first, second = uninterrupted(), uninterrupted()
+    spread = _differs(second, first)
+    out, save_s, restore_s, counts, parts = resumed(os.path.join(tmp, "bert"))
+    size = _report_checkpoint("BERT-base (params, LAMB mu, nu, count)",
+                              os.path.join(tmp, "bert"), save_s, restore_s)
+    log(f"checkpoint BERT-base, one save's parts: copies off the card "
+        f"{parts[0]:.4f} s, torch.save into the page cache {parts[1]:.4f} s, "
+        f"fsync {parts[2]:.4f} s; card {_card_line()}")
+    dist = _differs(out, first)
+    log(f"{what}, default algorithms: one gradient taken twice differs in "
+        f"{grads or 'no tensor'}; the uninterrupted run differs from itself "
+        f"in {len(spread)} of {len(first)} tensors (max abs "
+        f"{max(spread.values(), default=0.0):.3g}); the resumed run differs "
+        f"from it in {len(dist)} (max abs {max(dist.values(), default=0.0):.3g}"
+        f"); the restored state equals the saved one bitwise; launches in the "
+        f"resumed half {counts}")
+    del first, second, out
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            first, second = uninterrupted(), uninterrupted()
+            out, _, _, counts, _ = resumed(os.path.join(tmp, "bert_det"))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message)[:160] for w in caught
+                     if "determinis" in str(w.message)})
+    if nondet:
+        raise AssertionError(f"BERT: ops without a deterministic version: "
+                             f"{nondet}")
+    _hold_bitwise(f"{what}, torch.use_deterministic_algorithms(True); "
+                  f"launches in the resumed half {counts}", out, first,
+                  second)
+    return size
+
+
+def _local_sync_store():
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.data.synthetic import mnist_batches
+    from ps_tpu_torch.models.mlp import MLP, make_loss_fn
+
+    ctx = ps.init(backend="local", num_workers=MNIST_WORKERS, device="cuda")
+    model = MLP(hidden=MNIST_HIDDEN)
+    store = ps.KVStore(optimizer="sgd", learning_rate=0.1)
+    store.init(model.init(torch.Generator().manual_seed(0),
+                          device=ctx.device))
+    streams = [mnist_batches(MNIST_BATCH, seed=1, worker=w,
+                             num_workers=MNIST_WORKERS,
+                             steps=CKPT_MNIST_STEPS)
+               for w in range(MNIST_WORKERS)]
+    batches = [[store.shard_batch(next(s)) for s in streams]
+               for _ in range(CKPT_MNIST_STEPS)]
+    return store, make_loss_fn(model), batches
+
+
+def _local_sync_steps(store, loss_fn, batches):
+    """Config 1's protocol: every worker's gradient against the pulled
+    params, push_all each, then one pull_all."""
+    from ps_tpu_torch.kv.store import value_and_grad
+
+    params = store.pull_all()
+    for step in batches:
+        for w, batch in enumerate(step):
+            _, grads, _ = value_and_grad(loss_fn, params, batch)
+            store.push_all(grads, worker=w)
+        params = store.pull_all()
+
+
+def _resume_small(tmp):
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.kv import keys
+
+    half = CKPT_MNIST_STEPS // 2
+    runs = []
+    for _ in range(2):
+        store, loss_fn, batches = _local_sync_store()
+        _local_sync_steps(store, loss_fn, batches)
+        runs.append(_state_of(store))
+        ps.shutdown()
+    path = os.path.join(tmp, "mnist_local")
+    store, loss_fn, batches = _local_sync_store()
+    _local_sync_steps(store, loss_fn, batches[:half])
+    save_s = _timed(lambda: store.save(path))
+    ps.shutdown()
+    store, loss_fn, batches = _local_sync_store()
+    sizes = {"config 1": _report_checkpoint(
+        "config 1 (local PS)", path, save_s,
+        _timed(lambda: store.restore(path)))}
+    _local_sync_steps(store, loss_fn, batches[half:])
+    if set(store._engine.apply_count.values()) != {CKPT_MNIST_STEPS}:
+        raise AssertionError(f"config 1 apply counts "
+                             f"{store._engine.apply_count}")
+    _hold_bitwise(f"config 1 resume (local, sync, {MNIST_WORKERS} workers x "
+                  f"{MNIST_BATCH}, 784-{MNIST_HIDDEN}-10, sgd; "
+                  f"{CKPT_MNIST_STEPS} steps against {half} + save + restore "
+                  f"+ {half})", _state_of(store), *runs)
+    ps.shutdown()
+
+    half = CKPT_ASYNC_CYCLES // 2
+    rounds = CKPT_ASYNC_CYCLES // ASYNC_WORKERS
+
+    def cycles(store, run, batches, lo, hi):
+        for c in range(lo, hi):
+            w = c % ASYNC_WORKERS
+            run(batches[w][c // ASYNC_WORKERS], worker=w)
+
+    def counters(store):
+        eng = store._engine
+        return (eng.version, eng._applies, dict(eng.staleness_hist),
+                dict(eng._worker_version))
+
+    runs, refs = [], []
+    for _ in range(2):
+        store, run = _async_store("cuda", ASYNC_WORKERS)
+        cycles(store, run, _async_batches(store, ASYNC_WORKERS, rounds), 0,
+               CKPT_ASYNC_CYCLES)
+        runs.append(_state_of(store))
+        refs.append(counters(store))
+        ps.shutdown()
+    path = os.path.join(tmp, "mnist_async")
+    store, run = _async_store("cuda", ASYNC_WORKERS)
+    cycles(store, run, _async_batches(store, ASYNC_WORKERS, rounds), 0, half)
+    save_s = _timed(lambda: store.save(path))
+    ps.shutdown()
+    store, run = _async_store("cuda", ASYNC_WORKERS)  # built before restore
+    sizes["config 5"] = _report_checkpoint(
+        "config 5 (async, stale snapshots)", path, save_s,
+        _timed(lambda: store.restore(path)))
+    eng = store._engine
+    for w in range(ASYNC_WORKERS):
+        cached, _ = keys.flatten_with_keys(store._async_params[w])
+        if not all(cached[k] is eng._stale[(w, k)] for k in store.keys()):
+            raise AssertionError(f"config 5: worker {w}'s restored cached "
+                                 f"pull is not its stale snapshot")
+    cycles(store, run, _async_batches(store, ASYNC_WORKERS, rounds), half,
+           CKPT_ASYNC_CYCLES)
+    if counters(store) != refs[0] or refs[0] != refs[1]:
+        raise AssertionError(f"config 5 counters {counters(store)} vs "
+                             f"{refs}")
+    _hold_bitwise(f"config 5 resume (cuda async, {ASYNC_WORKERS} workers "
+                  f"round-robin, make_async_step; {CKPT_ASYNC_CYCLES} cycles "
+                  f"against {half} + save + restore + {half}; each restored "
+                  f"worker's cached pull is its stale snapshot; version, "
+                  f"applies, staleness histogram {refs[0][2]} equal)",
+                  _state_of(store), *runs)
+    ps.shutdown()
+    return sizes
+
+
+def phase_checkpoint_resume():
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="ps_ckpt_") as tmp:
+        sizes = _resume_widedeep(tmp)
+        sizes["BERT-base"] = _resume_bert(tmp)
+        sizes.update(_resume_small(tmp))
+    log(json.dumps({"checkpoints": {
+        name: {"bytes": b, "save_s": s, "save_gbps": b / s / 1e9,
+               "restore_s": r, "restore_gbps": b / r / 1e9}
+        for name, (b, s, r) in sizes.items()}, "card": _card_line()}))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on an NVIDIA GPU",
@@ -1443,6 +1879,7 @@ def main():
     phase_resnet_main_path()
     phase_mnist_local()
     phase_mnist_async()
+    phase_checkpoint_resume()
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,11 +18,15 @@ ops, fed by the prefetched input path (``data/prefetch.py``,
 MLP (``models/mlp.py``, ``examples/train_mnist_mlp.py``); and async
 DC-ASGD in one process (``mode='async'`` on either backend,
 ``KVStore.make_async_step``, ``examples/train_mnist_async.py``). These
-last two reach no Pallas kernel in the reference either. ``shutdown``
+last two reach no Pallas kernel in the reference either. Checkpoint and
+resume on one device (``checkpoint``, ``KVStore.save``/``restore``,
+``SparseEmbedding.save``/``restore``) cover every engine, and
+``checkpoint.from_reference`` converts a ``ps_tpu`` checkpoint. ``shutdown``
 tears the backend down (``abort=True`` after a failure). ROADMAP.md lists
 what is still to port.
 """
 
+from ps_tpu_torch import checkpoint
 from ps_tpu_torch.config import Config
 from ps_tpu_torch.api import init, shutdown, is_initialized, current_context
 from ps_tpu_torch.kv.store import KVStore
@@ -31,6 +35,7 @@ from ps_tpu_torch.train import make_composite_step
 from ps_tpu_torch.ops import flash_attention
 
 __all__ = [
+    "checkpoint",
     "Config",
     "init",
     "shutdown",

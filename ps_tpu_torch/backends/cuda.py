@@ -15,10 +15,16 @@ Counterpart of ``ps_tpu/backends/tpu.py`` at one device:
   one optimizer state a key, out of place, behind one lock so host
   threads can drive workers concurrently.
 
+Both servers checkpoint (``ps_tpu_torch/checkpoint.py``): engine
+``cuda_sync`` saves the params, the whole-tree state, ``apply_count`` and
+``collective_bytes``; engine ``cuda_async`` also the stale snapshots and
+the version vector. Each refuses to save mid-step and holds its lock
+across a save or a restore.
+
 At one device 'replicated' and 'sharded' (ZeRO-1) placement are the same
 thing, as on a one-device mesh, and no collective moves a byte. Placement
-across GPUs, the failure detector, and the async server's elastic and
-checkpoint hooks are not ported yet.
+across GPUs, the failure detector, and the async server's elastic hooks
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,15 +44,21 @@ from ps_tpu_torch.backends.common import (
     device_copy,
     make_dc_apply_tree,
 )
+from ps_tpu_torch.checkpoint import CheckpointMixin
 from ps_tpu_torch.config import Config
 from ps_tpu_torch.kv import keys as keymod
 from ps_tpu_torch.ops.sparse_apply import resolve_tier
 
 
-class CudaServer(PeekMixin):
-    """Parameter/optimizer-state store with PS semantics on one device."""
+class CudaServer(PeekMixin, CheckpointMixin):
+    """Parameter/optimizer-state store with PS semantics on one device.
+
+    ``apply_count`` counts whole-tree applies (``update_tree`` and every
+    fused step's ``set_tree_and_state``), as the reference's does;
+    ``collective_bytes`` stays 0: one device runs no collective."""
 
     mode = "sync"
+    engine_name = "cuda_sync"
 
     def __init__(self, optimizer, device: torch.device,
                  aggregate: str = "mean"):
@@ -59,6 +71,8 @@ class CudaServer(PeekMixin):
         self._params: Dict[str, torch.Tensor] = {}
         self._state = None
         self._staged: Dict[str, torch.Tensor] = {}
+        self.apply_count = 0
+        self.collective_bytes = 0
 
     def register_tree(self, kv: Dict[str, Any], treedef, key_order: List[str]):
         if self._params:
@@ -86,6 +100,7 @@ class CudaServer(PeekMixin):
             grads_kv = {k: g * scale for k, g in grads_kv.items()}
         self._params = apply_out_of_place(self._opt, self._params, grads_kv,
                                           self._state)
+        self.apply_count += 1
         return dict(self._params)
 
     # -- per-key protocol (stages, applies at full-tree granularity) --------
@@ -140,9 +155,29 @@ class CudaServer(PeekMixin):
 
     def set_tree_and_state(self, params, state):
         self._params, self._state = dict(params), state
+        self.apply_count += 1
+
+    # -- checkpoint hooks (CheckpointMixin) ---------------------------------
+
+    def _check_checkpointable(self):
+        if self._staged:
+            raise RuntimeError(
+                f"cannot checkpoint mid-step: keys {sorted(self._staged)} "
+                f"are staged but unapplied")
+
+    def _checkpoint_meta(self):
+        return {"apply_count": self.apply_count,
+                "collective_bytes": self.collective_bytes}
+
+    def _load_checkpoint_meta(self, meta):
+        self._staged = {}
+        self.apply_count = int(meta["apply_count"])
+        self.collective_bytes = int(meta["collective_bytes"])
+
+    # no _validate_checkpoint_meta: nothing topology-bound to refuse
 
 
-class AsyncCudaServer(PeekMixin, AsyncStagingMixin):
+class AsyncCudaServer(PeekMixin, AsyncStagingMixin, CheckpointMixin):
     """Parameter server with ASYNC (stale, delay-compensated) apply on one
     device — the reference's workload config 5.
 
@@ -155,6 +190,7 @@ class AsyncCudaServer(PeekMixin, AsyncStagingMixin):
     """
 
     mode = "async"
+    engine_name = "cuda_async"
 
     def __init__(self, optimizer, device: torch.device, num_workers: int,
                  dc_lambda: float = 0.04):
@@ -171,6 +207,7 @@ class AsyncCudaServer(PeekMixin, AsyncStagingMixin):
         self._version = 0  # whole-model versions
         self.apply_count: Dict[str, int] = {}
         self.staleness_hist = collections.Counter()  # τ -> tree pushes
+        self.collective_bytes = 0  # one device runs no collective
         self._lock = threading.RLock()
         self._apply_dc_tree = make_dc_apply_tree(optimizer)
 
@@ -229,6 +266,43 @@ class AsyncCudaServer(PeekMixin, AsyncStagingMixin):
 
     def optimizer_state(self, key: str):
         return self._state[key]
+
+    # -- checkpoint hooks (CheckpointMixin) ---------------------------------
+    # async mode checkpoints the server-side state, every worker's stale
+    # snapshot and the per-worker version vector
+
+    def _check_checkpointable(self):
+        self._check_staged_async()
+
+    def _checkpoint_meta(self):
+        return {
+            "applies": self._applies,
+            "version": self._version,
+            "staleness_hist": {str(t): n
+                               for t, n in self.staleness_hist.items()},
+            "num_workers": self.num_workers,
+            "worker_version": {str(w): v
+                               for w, v in self._worker_version.items()},
+            "apply_count": dict(self.apply_count),
+            "collective_bytes": self.collective_bytes,
+        }
+
+    def _validate_checkpoint_meta(self, meta):
+        if meta["num_workers"] != self.num_workers:
+            raise ValueError(
+                f"checkpoint was written with num_workers="
+                f"{meta['num_workers']} but this store runs num_workers="
+                f"{self.num_workers} — staleness semantics would differ")
+
+    def _load_checkpoint_meta(self, meta):
+        self._worker_version = {int(w): int(v)
+                                for w, v in meta["worker_version"].items()}
+        self._applies = int(meta["applies"])
+        self._version = int(meta["version"])
+        self.staleness_hist = collections.Counter(
+            {int(t): int(n) for t, n in meta["staleness_hist"].items()})
+        self.apply_count = {k: int(v) for k, v in meta["apply_count"].items()}
+        self.collective_bytes = int(meta["collective_bytes"])
 
 
 class CudaBackend:

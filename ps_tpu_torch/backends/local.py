@@ -20,7 +20,10 @@ in one process, with no network. The server's tensors live on
 - Every apply is out of place (``backends/common.py``): tensors a worker
   pulled keep their values.
 
-The checkpoint hooks of the reference's server are not ported yet.
+- **Checkpoints** (engine ``local``, ``ps_tpu_torch/checkpoint.py``): the
+  params, the per-key states (schedule counts included), the async stale
+  snapshots, ``apply_count`` and the version vector; refused while a sync
+  push is pending or an async push is staged, and taken under the lock.
 """
 
 from __future__ import annotations
@@ -40,13 +43,16 @@ from ps_tpu_torch.backends.common import (
     device_copy,
     make_dc_apply_tree,
 )
+from ps_tpu_torch.checkpoint import CheckpointMixin
 from ps_tpu_torch.config import Config
 from ps_tpu_torch.ops.sparse_apply import resolve_tier
 from ps_tpu_torch.optim import Optimizer
 
 
-class LocalServer(PeekMixin, AsyncStagingMixin):
+class LocalServer(PeekMixin, AsyncStagingMixin, CheckpointMixin):
     """In-memory server for one KVStore: params + per-key optimizer state."""
+
+    engine_name = "local"
 
     def __init__(self, optimizer: Optimizer, num_workers: int,
                  device: torch.device, mode: str = "sync",
@@ -157,6 +163,46 @@ class LocalServer(PeekMixin, AsyncStagingMixin):
 
     def optimizer_state(self, key: str):
         return self._state[key]
+
+    # -- checkpoint hooks (CheckpointMixin) ---------------------------------
+
+    def _check_checkpointable(self):
+        if self._pending:
+            raise RuntimeError(
+                f"cannot checkpoint mid-step: keys {sorted(self._pending)} "
+                f"have pending sync pushes")
+        self._check_staged_async()
+
+    def _checkpoint_meta(self):
+        return {
+            "mode": self.mode,
+            "num_workers": self.num_workers,
+            "aggregate": self.aggregate,
+            "apply_count": dict(self.apply_count),
+            "version": self._version,
+            "worker_version": {str(w): v
+                               for w, v in self._worker_version.items()},
+            "staleness_hist": {str(t): n
+                               for t, n in self.staleness_hist.items()},
+        }
+
+    def _validate_checkpoint_meta(self, meta):
+        # mode and aggregate are different math; num_workers is topology
+        for field in ("mode", "num_workers", "aggregate"):
+            if meta[field] != getattr(self, field):
+                raise ValueError(
+                    f"checkpoint was written with {field}={meta[field]!r} but "
+                    f"this store runs {field}={getattr(self, field)!r} — "
+                    f"resume semantics would differ")
+
+    def _load_checkpoint_meta(self, meta):
+        self._pending = {}
+        self.apply_count = {k: int(v) for k, v in meta["apply_count"].items()}
+        self._version = int(meta["version"])
+        self._worker_version = {int(w): int(v)
+                                for w, v in meta["worker_version"].items()}
+        self.staleness_hist = collections.Counter(
+            {int(t): int(n) for t, n in meta["staleness_hist"].items()})
 
 
 class LocalBackend:

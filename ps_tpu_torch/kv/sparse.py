@@ -5,11 +5,15 @@ Counterpart of ``ps_tpu/kv/sparse.py`` at one device. Workers send
 lazy row-wise optimizer to the touched rows only; pulls gather rows back.
 At one device the reference's row exchange (``gather`` or ``a2a``) is the
 identity (its ``k == 1`` branch), so there is none here and nothing is
-ever dropped. The exchange across GPUs, ``export_rows`` / ``adopt_rows``
-and save/restore are not ported yet.
+ever dropped. The exchange across GPUs is not ported yet.
 
 The table and its optimizer state are updated in place by every apply;
-that is what the reference's buffer donation bought it.
+that is what the reference's buffer donation bought it. A row moves with
+its optimizer state (``export_rows`` / ``adopt_rows``), and ``save`` /
+``restore`` checkpoint both (``ps_tpu_torch/checkpoint.py``, engine
+``sparse``). Whatever a restore or ``adopt_state`` installs is checked
+first to be what the CUDA kernel takes: contiguous, on the table's
+device, in the table's and the state's dtypes.
 """
 
 from __future__ import annotations
@@ -19,8 +23,10 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from ps_tpu_torch import checkpoint as ckpt
 from ps_tpu_torch.api import current_context
 from ps_tpu_torch.ops.sparse_apply import fused_sparse_apply, resolve_tier
+from ps_tpu_torch.ops.sparse_apply import state_leaves as _leaves
 from ps_tpu_torch.optim.rowwise import make_rowwise
 
 
@@ -60,15 +66,18 @@ class SparseEmbedding:
         self.bytes_pulled = 0
         self.push_count = 0
         self.rows_pushed = 0
+        self.collective_bytes = 0  # one device runs no collective
+        self._dropped_base = 0  # drops carried over by a restore
         # per-row change stamps: row i's last-touching push, in push_count
         # units (the reference's conditional read path keys off them)
         self.row_version = np.zeros((num_rows,), np.int64)
 
     @property
     def dropped_rows(self) -> int:
-        """Pushed updates lost to a2a bucket overflow: always 0 at one
-        device, where the exchange is the identity."""
-        return 0
+        """Pushed updates lost to a2a bucket overflow. One device adds
+        none (its exchange is the identity); a restore carries over what
+        the checkpoint counted."""
+        return self._dropped_base
 
     def init(self, rng_or_table, scale: float = 0.01) -> torch.Tensor:
         """Create (or adopt) the table and its per-row optimizer state on
@@ -160,3 +169,133 @@ class SparseEmbedding:
         touched = host_ids[(host_ids >= 0) & (host_ids < self.num_rows)]
         self.row_version[touched] = self.push_count
         self.rows_pushed += ids.shape[0]  # no collective bytes at one device
+
+    # -- row movement ------------------------------------------------------------
+
+    def _check_installable(self, table: torch.Tensor, state: Any) -> None:
+        """Refuse a table or state the apply kernel could not take: each
+        tensor must have the live one's shape and dtype and lie contiguous
+        on ``self.device`` (the kernel writes through raw pointers)."""
+        live = [self.table] + _leaves(self._state)
+        got = [table] + _leaves(state)
+        if len(got) != len(live):
+            raise ValueError(f"{len(got) - 1} optimizer-state leaves, this "
+                             f"table's optimizer has {len(live) - 1}")
+        for i, (g, want) in enumerate(zip(got, live)):
+            what = "table" if i == 0 else f"optimizer-state leaf {i - 1}"
+            ckpt.check_like(what, g, want)
+            if g.device != self.device or not g.is_contiguous():
+                raise ValueError(f"{what} must be contiguous on "
+                                 f"{self.device}, got one on {g.device}")
+
+    def export_rows(self, slots) -> Tuple[np.ndarray, list]:
+        """Copy ``slots``' rows and their per-row optimizer state out to
+        host memory (a row never travels without its state). Returns
+        ``(rows [n, D], state_leaves)`` as numpy, the leaves in tree order
+        (dict keys sorted: ``[m, t, v]`` for adam), each sliced to
+        ``slots``. A bf16 table's rows come out as f32 (numpy holds no
+        bf16); the widening is exact."""
+        idx = torch.as_tensor(slots).reshape(-1).to(self.device, torch.int64)
+        rows = self.table.index_select(0, idx)
+        if rows.dtype == torch.bfloat16:
+            rows = rows.float()
+        leaves = [leaf.index_select(0, idx).cpu().numpy()
+                  for leaf in _leaves(self._state)]
+        return rows.cpu().numpy(), leaves
+
+    def adopt_rows(self, slots, rows, state_leaves) -> None:
+        """Write host rows and their per-row optimizer state into
+        ``slots``, in place: the inverse of :meth:`export_rows`. Costs
+        O(moved rows), not a table pass."""
+        idx = torch.as_tensor(slots).reshape(-1).to(self.device, torch.int64)
+        live = _leaves(self._state)
+        if len(state_leaves) != len(live):
+            raise ValueError(f"{len(state_leaves)} optimizer-state "
+                             f"leaves, this table's optimizer has {len(live)}")
+        self.table.index_copy_(0, idx, torch.as_tensor(rows).to(
+            self.device, self.dtype))
+        for leaf, v in zip(live, state_leaves):
+            leaf.index_copy_(0, idx, torch.as_tensor(v).to(self.device,
+                                                          leaf.dtype))
+
+    def adopt_state(self, table: torch.Tensor, state: Any) -> None:
+        """Adopt an externally restored (table, state) pair, after checking
+        that the kernel can take it."""
+        if self._table is None:
+            raise RuntimeError("SparseEmbedding.init must precede adopt_state")
+        self._check_installable(table, state)
+        self._table, self._state = table, state
+
+    # -- checkpoint/resume -----------------------------------------------------
+
+    def _dtype_name(self) -> str:
+        return str(self.dtype).replace("torch.", "")
+
+    def save(self, path: str) -> None:
+        """Checkpoint the table and its per-row optimizer state."""
+        arrays = {
+            "table": ckpt.to_cpu(self.table),
+            "opt": {i: ckpt.to_cpu(t)
+                    for i, t in ckpt.flatten_leaves(self._state).items()},
+        }
+        meta = {
+            "engine": "sparse",
+            "num_rows": self.num_rows,
+            "dim": self.dim,
+            "dtype": self._dtype_name(),
+            "opt_structure": ckpt.opt_fingerprint(self._opt.kind,
+                                                  self._state),
+            "push_count": self.push_count,
+            "bytes_pushed": self.bytes_pushed,
+            "bytes_pulled": self.bytes_pulled,
+            "collective_bytes": self.collective_bytes,
+            "rows_pushed": self.rows_pushed,
+            "dropped_rows": self.dropped_rows,
+        }
+        ckpt.save(path, arrays, meta)
+
+    def restore(self, path: str) -> torch.Tensor:
+        """Restore a checkpoint written by :meth:`save`. Call after
+        ``init`` (same num_rows, dim, dtype and optimizer). Every check
+        runs first, the kernel's included, so a refused restore changes
+        nothing. Returns the restored table."""
+        if self._table is None:
+            raise RuntimeError(
+                "SparseEmbedding.init must be called before restore")
+        meta = ckpt.read_meta(path)
+        if meta.get("engine") != "sparse":
+            raise ValueError(
+                f"checkpoint was written by engine {meta.get('engine')!r}, "
+                f"not a sparse table")
+        if (meta["num_rows"], meta["dim"]) != (self.num_rows, self.dim):
+            raise ValueError(
+                f"checkpoint table is ({meta['num_rows']}, {meta['dim']}), "
+                f"this embedding is ({self.num_rows}, {self.dim})")
+        if meta["dtype"] != self._dtype_name():
+            raise ValueError(
+                f"checkpoint table dtype is {meta['dtype']}, this embedding "
+                f"is {self._dtype_name()} — restore would silently cast")
+        live_structure = ckpt.opt_fingerprint(self._opt.kind, self._state)
+        if meta.get("opt_structure", live_structure) != live_structure:
+            raise ValueError(
+                f"checkpoint optimizer state does not match this table's "
+                f"optimizer (saved {meta['opt_structure']!r}, live "
+                f"{live_structure!r})")
+        arrays = ckpt.restore(path, meta)
+        table = ckpt.place(arrays["table"], self.device)
+        state = ckpt.unflatten_like(
+            self._state, {i: ckpt.place(t, self.device)
+                          for i, t in arrays.get("opt", {}).items()})
+        self._check_installable(table, state)
+        self._table, self._state = table, state
+        self.push_count = int(meta["push_count"])
+        # change stamps are not checkpointed: every row is marked changed
+        # at the restored version, so a conditional reader's delta can only
+        # widen to "everything", never miss a row
+        self.row_version[:] = self.push_count
+        self.bytes_pushed = int(meta["bytes_pushed"])
+        self.bytes_pulled = int(meta["bytes_pulled"])
+        self.collective_bytes = int(meta["collective_bytes"])
+        self.rows_pushed = int(meta["rows_pushed"])
+        self._dropped_base = int(meta["dropped_rows"])
+        return self._table

@@ -17,7 +17,9 @@ Counterpart of ``ps_tpu/kv/store.py`` on whichever backend
 ``push``/``pull``/``push_all``/``pull_all``/``push_pull`` and the async
 paths apply out of place: a tensor they returned keeps its values. Byte
 counters for every push and pull feed the push/pull GB/s metric, and
-``collective_bytes`` is 0 (one device runs no collective).
+``collective_bytes`` is 0 (one device runs no collective). ``save`` and
+``restore`` checkpoint the server state on any engine
+(``ps_tpu_torch/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Any, Dict, List, Optional, Union
 
 import torch
 
+from ps_tpu_torch import checkpoint as ckpt
 from ps_tpu_torch.api import current_context
 from ps_tpu_torch.kv import keys as keymod
 from ps_tpu_torch.optim import Optimizer, make_optimizer
@@ -344,6 +347,99 @@ class KVStore:
         """Place a host batch (a dict, tuple or list of arrays or tensors,
         e.g. ``(images, labels)``) on the device (:func:`to_device`)."""
         return to_device(batch, self._ctx.device)
+
+    # -- checkpoint/resume --------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Checkpoint the full server state to ``path``: params, optimizer
+        state and, in async mode, every worker's stale snapshot and cached
+        pull and the version vector. Restore with :meth:`restore` after an
+        identical ``init``. The engine's lock is held while the state is
+        copied off the device, so host threads driving workers may run
+        around it."""
+        self._require_init()
+        engine = self._engine
+        with engine.checkpoint_lock():
+            arrays, meta = engine.state_dict()
+            # async workers' cached pulls, saved exactly (not inferred): a
+            # worker that pulled manually without caching resumes
+            # cache-less too. A cached leaf that is the very tensor recorded
+            # as that worker's stale snapshot (pull_all does both) is saved
+            # once, as a reference into the stale group.
+            stale = getattr(engine, "_stale", {})
+            cache, aliased = {}, []
+            for w, params in self._async_params.items():
+                kv, _ = keymod.flatten_with_keys(params)
+                for k, v in kv.items():
+                    s = ckpt.encode_stale_key(w, k)
+                    if stale.get((w, k)) is v:
+                        aliased.append(s)
+                    else:
+                        cache[s] = v
+            arrays["worker_cache"] = cache
+            arrays = {g: {n: ckpt.to_cpu(t) for n, t in group.items()}
+                      for g, group in arrays.items()}
+        meta["store"] = {
+            "step": self.step,
+            "bytes_pushed": self.bytes_pushed,
+            "bytes_pulled": self.bytes_pulled,
+            "key_order": self._key_order,
+            "cache_keys": sorted(cache),
+            "cache_stale_aliases": sorted(aliased),
+        }
+        ckpt.save(path, arrays, meta)
+
+    def restore(self, path: str) -> Any:
+        """Restore a checkpoint written by :meth:`save` into this store.
+
+        Call after ``init(params)`` with the same parameter structure and
+        optimizer. Every check runs first, so a refused restore changes
+        nothing; then every tensor is replaced by its saved value on the
+        store's device (contiguous, in the saved dtype), and training
+        resumes bit-identically. The engine object stays the same, so
+        steps built by ``make_step``, ``make_async_step`` or
+        ``make_composite_step`` before the restore keep working. A
+        restored worker's cached pull is the very tensor restored as its
+        stale snapshot, as it was when saved. Returns the restored
+        parameter tree."""
+        self._require_init()
+        meta = ckpt.read_meta(path)
+        saved_order = meta["store"]["key_order"]
+        if saved_order != self._key_order:
+            diff = sorted(set(saved_order) ^ set(self._key_order))[:4]
+            raise ValueError(
+                f"checkpoint parameter keys do not match this store: saved "
+                f"{len(saved_order)} keys, registered {len(self._key_order)}"
+                + (f"; differing keys include {diff}" if diff
+                   else "; same keys in a different order"))
+        arrays = ckpt.restore(path, meta)
+        cache = arrays.pop("worker_cache", {})
+        st = meta["store"]
+        aliases = st.get("cache_stale_aliases", [])
+        if (sorted(cache) != sorted(st["cache_keys"])
+                or not set(aliases) <= set(meta.get("stale_keys", []))):
+            raise ValueError("checkpoint cached pulls do not match its meta")
+        engine = self._engine
+        by_worker: Dict[int, Dict[str, Any]] = {}
+        for s, v in cache.items():
+            w, k = ckpt.decode_stale_key(s)
+            if k not in engine._params:
+                raise ValueError(f"cached pull {s!r} of an unregistered key")
+            ckpt.check_like(f"cached pull {s!r}", v, engine._params[k])
+            by_worker.setdefault(w, {})[k] = ckpt.place(v, engine.device)
+        with engine.checkpoint_lock():
+            engine.load_state_dict(arrays, meta)
+            stale = getattr(engine, "_stale", {})
+            for s in aliases:
+                w, k = ckpt.decode_stale_key(s)
+                by_worker.setdefault(w, {})[k] = stale[(w, k)]
+            self._async_params = {
+                w: keymod.unflatten(self._treedef, kv, self._key_order)
+                for w, kv in by_worker.items()}
+        self.step = int(st["step"])
+        self.bytes_pushed = int(st["bytes_pushed"])
+        self.bytes_pulled = int(st["bytes_pulled"])
+        return self.params()
 
     # -- introspection ------------------------------------------------------
 

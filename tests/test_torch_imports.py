@@ -6,6 +6,8 @@ attention's ``_flash_fwd_torch``) when something fails."""
 
 import ast
 import pathlib
+import subprocess
+import sys
 
 import pytest
 
@@ -66,8 +68,21 @@ def test_every_slice_module_is_checked():
                  "ps_tpu_torch/optim/dc.py", "ps_tpu_torch/models/mlp.py",
                  "ps_tpu_torch/examples/train_mnist_mlp.py",
                  "ps_tpu_torch/examples/train_mnist_async.py",
-                 "chip_smoke.py"):
+                 "ps_tpu_torch/checkpoint.py", "chip_smoke.py"):
         assert path in FILES
+
+
+def test_checkpoint_module_loads_neither_jax_nor_orbax():
+    """A port checkpoint is read and written without JAX: importing
+    ``ps_tpu_torch.checkpoint`` (and through it the package) loads no
+    module of jax, jaxlib, orbax, flax, optax or ps_tpu."""
+    code = ("import sys, ps_tpu_torch.checkpoint; "
+            "print(sorted({m.split('.')[0] for m in sys.modules} & "
+            "{'jax', 'jaxlib', 'orbax', 'flax', 'optax', 'ps_tpu'}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == "[]"
 
 
 def test_checker_catches_what_it_forbids():

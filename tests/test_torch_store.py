@@ -162,3 +162,38 @@ def test_store_rejects_what_is_not_ported():
     store = ps_tpu_torch.KVStore()
     with pytest.raises(RuntimeError, match="init"):
         store.make_step(_port_loss)
+
+
+def test_apply_count_counts_every_tree_apply_as_the_reference():
+    """F4: the sync server counts whole-tree applies as the reference's
+    TpuServer does: one a fused step (set_tree_and_state) and one a
+    completed per-key push (update_tree); collective_bytes stays 0."""
+    k, m = 3, 2
+    rng = np.random.default_rng(3)
+    grads = [jax.tree_util.tree_map(
+        lambda p: rng.normal(size=p.shape).astype(np.float32), _params())
+        for _ in range(m)]
+
+    def drive(ps, store, run, batches, arr):
+        for b in batches:
+            run(b)
+        for g in grads:
+            kv = {"dense/bias": g["dense"]["bias"],
+                  "dense/kernel": g["dense"]["kernel"], "scale": g["scale"]}
+            for key, v in kv.items():
+                store.push(key, arr(v))
+        return store._engine.apply_count
+
+    ps_tpu.init(backend="tpu", mesh_shape={"data": 1})
+    ref = ps_tpu.KVStore(optimizer="adam", learning_rate=1e-2)
+    ref.init(_params())
+    want = drive(ps_tpu, ref, ref.make_step(_ref_loss),
+                 [{n: jnp.asarray(v) for n, v in b.items()}
+                  for b in _batches()], jnp.asarray)
+    ps_tpu_torch.init(backend="cuda", device="cpu")
+    port = ps_tpu_torch.KVStore(optimizer="adam", learning_rate=1e-2)
+    port.init(_params())
+    got = drive(ps_tpu_torch, port, port.make_step(_port_loss),
+                [port.shard_batch(b) for b in _batches()], torch.as_tensor)
+    assert want == got == k + m
+    assert port._engine.collective_bytes == 0
