@@ -90,21 +90,19 @@ Phases, each raising on failure:
    each path and must read 0 after it;
 13. checkpoint and resume on the card (ps_tpu_torch/checkpoint.py), each
    resumed run against an uninterrupted one, bitwise, and each
-   uninterrupted run twice, which must repeat itself bitwise (BERT's only
-   where PyTorch's deterministic algorithms are on, see (b)): (a) Wide-&-Deep at the full published width of phase 4, 20
+   uninterrupted run twice, which must repeat itself bitwise: (a)
+   Wide-&-Deep at the full published width of phase 4, 20
    steps against 10, a save of the dense store and both tables, a fresh
    store and fresh tables, a restore and 10 more steps: dense params, both
    tables and every optimizer state equal, and the resumed half launches
    the grouping pass and the apply 2 + 2 times a step; (b) BERT-base as in
    phase 7, 4 LAMB steps against 2, save, a fresh store, restore, 2, 12
-   flash launches a step: with PyTorch's default algorithms the
-   uninterrupted run differs from itself (F.embedding's backward over
-   the token-type ids is not deterministic on the card; one gradient
-   taken twice names it), so that spread and the resumed run's distance
-   are printed and the restored state is held to the saved one bitwise;
-   with torch.use_deterministic_algorithms(True), which gives that op its
-   deterministic kernel, params and LAMB state equal the uninterrupted
-   run's and it repeats itself, bitwise; (c) config 1 (local,
+   flash launches a step, with PyTorch's default algorithms (one gradient
+   taken twice must be the same bitwise: the embeddings' backward sums in
+   a fixed order) and again with torch.use_deterministic_algorithms(True):
+   params and LAMB state equal the uninterrupted run's, which repeats
+   itself, bitwise, and the restored state the saved one; (c) config 1
+   (local,
    sync, 784-256-10, 2 workers x 128, 20 sgd steps against 10 + 10) and
    config 5 (cuda async, 3 workers round-robin through make_async_step,
    12 cycles against 6 + 6): params and counters equal, and each restored
@@ -114,6 +112,29 @@ Phases, each raising on failure:
    checkpoint of ps_tpu converted by from_reference is restored by the
    CPU tests (tests/test_torch_checkpoint.py), which need jax to write
    one; this machine has none.
+
+14. NCCL at one rank: init(backend='cuda') through coordinator_uri with
+   num_processes=1; the W&D composite step at full width (5 steps) and a
+   small ResNet (Bottleneck, stages (1, 1, 1, 1), bf16, 224², batch 32, 2
+   steps, cuDNN's deterministic algorithms for both runs), with placement
+   'replicated' and 'sharded', equal the one-device path bitwise; the
+   recorded collectives run and move 0 bytes;
+15. two ranks on the one card over gloo, asked for by name (NCCL refuses
+   two ranks on a device), as two worker processes of this script: W&D
+   at full width (global batch 512, 256 a rank) for 20 steps with the
+   gather and the a2a exchange (capacity factor 2): losses within rtol
+   1e-5 of one process, tables, row state and adam slices within rtol
+   1e-4 / atol 1e-6, 2 + 2 sparse launches a rank a step on the grouping
+   pass's cluster path (the dense parameters' deviation is printed); the
+   same within rtol 1e-4 / atol 1e-6 for everything at the reference's
+   shard-parity configuration (vocab 50, D 8, MLP (32, 16), batch 16, 3
+   steps); the sparse kernels timed at a rank's shape; a 2-rank save of
+   the W&D stores restored into one process with elastic=True, bitwise;
+   ResNet-50 at 224², bf16, global batch 256 (128 a rank), sharded, 3
+   steps with cross-rank BatchNorm, its first step's loss and
+   batch_stats against one process on the global batch. Step times and
+   collective bytes are printed; through host memory, they are a
+   correctness run's, not a speed figure.
 
 It prints one JSON line per timed kernel, then the kernels line, then
 ``{"ok": true, "device": {...}}`` as its last line. Without a GPU, or
@@ -166,6 +187,30 @@ MNIST_TOL = 1e-5
 # phase 13: uninterrupted steps (the resumed runs save at half of them)
 CKPT_WD_STEPS, CKPT_BERT_STEPS, CKPT_MNIST_STEPS, CKPT_ASYNC_CYCLES = (
     20, 4, 20, 12)
+# phase 14: W&D steps through the NCCL group of world size 1
+NCCL_WD_STEPS = 5
+# phase 15: two ranks on the one card over gloo
+TWO_WD_STEPS, TWO_CAPACITY, TWO_RESNET_STEPS = 20, 2.0, 3
+TWO_PARITY_STEPS = 3  # the reference's shard-parity run length
+# W&D at full width, two ranks against one process: adam's normalised
+# step turns the last-bit differences of a gradient summed per rank into
+# ~1e-6 where that gradient is near 0, so a handful of the dense params'
+# 151,311 elements sit just outside the shard-parity rtol 1e-4 / atol
+# 1e-6; at most TWO_DENSE_OUTSIDE of them may, and every element stays
+# within TWO_DENSE_ATOL
+TWO_DENSE_OUTSIDE, TWO_DENSE_ATOL = 8, 1e-5
+TWO_RANKS_TIMEOUT_S = 600
+# ResNet-50, step 1 of two ranks against one process on the global batch,
+# in bf16 (the main path) and f32: gates on the loss's relative
+# difference, the worst relative 2-norm of a batch_stats leaf (on each
+# rank) and the relative 2-norm of the parameter update over the leaves
+# the step moves. In bf16 the convolutions see batches of 128 instead of
+# 256 and the BatchNorm sums run in another order, so roundings differ
+# here and there; in f32 the update still differs by ~1e-3 of itself
+# (summation orders, through 53 BatchNorm backwards). A control whose
+# BatchNorm takes each rank's own statistics must fail the last two gates
+TWO_RESNET_GATES = {torch.bfloat16: (1e-4, 1e-3, 2e-2),
+                    torch.float32: (1e-5, 1e-4, 5e-3)}
 
 
 def log(msg):
@@ -473,21 +518,28 @@ def phase_kernel_vs_plain():
             "wide": errs[("sgd", torch.float32, 1)]}
 
 
-def _widedeep(cfg, device, seed):
-    """Build the composite step of the main path on ``device``."""
+def _widedeep(cfg, device, seed, placement="sharded", exchange="gather",
+              capacity_factor=2.0, init=()):
+    """Build the composite step of the main path on ``device``, first
+    through ``ps_tpu_torch.init(backend='cuda', device=device, **init)``,
+    or in the runtime that is up already when ``init`` is None."""
     import ps_tpu_torch as ps
     from ps_tpu_torch.models.wide_deep import (
         WideDeep, make_ids_fn, make_wide_deep_loss_fn)
 
-    ps.init(backend="cuda", device=device)
+    if init is not None:
+        ps.init(backend="cuda", device=device, **dict(init))
     model = WideDeep(cfg, generator=torch.Generator().manual_seed(seed))
     dense = ps.KVStore(optimizer="adam", learning_rate=1e-2,
-                       placement="sharded")
+                       placement=placement)
     dense.init(model.param_tree())
     deep = ps.SparseEmbedding(cfg.total_rows, cfg.embed_dim,
-                              optimizer="adagrad", learning_rate=0.05)
+                              optimizer="adagrad", learning_rate=0.05,
+                              exchange=exchange,
+                              capacity_factor=capacity_factor)
     wide = ps.SparseEmbedding(cfg.total_rows, 1, optimizer="sgd",
-                              learning_rate=0.05)
+                              learning_rate=0.05, exchange=exchange,
+                              capacity_factor=capacity_factor)
     g = torch.Generator().manual_seed(seed + 1)  # CPU: same tables anywhere
     deep.init(g, scale=0.01)
     wide.init(g, scale=0.01)
@@ -914,22 +966,23 @@ def _card_line():
 
 
 def _resnet_run(model, device, batches, steps, in_channels=3,
-                label_smoothing=0.0):
-    """``steps`` momentum steps (lr 0.1, 0.9, 'sharded') of ``model`` from
-    its seed-0 init, through init + KVStore.make_step on ``device``,
-    cycling ``batches``; returns the losses, the step times, the params and
-    the batch_stats. On the card the peak memory count starts after the
-    set-up."""
+                label_smoothing=0.0, placement="sharded", **init):
+    """``steps`` momentum steps (lr 0.1, 0.9, ``placement``) of ``model``
+    from its seed-0 init, through init (with ``init``'s arguments) +
+    KVStore.make_step on ``device``, cycling ``batches``; returns the
+    losses, the step times, the params and the batch_stats. On the card
+    the peak memory count starts after the set-up."""
     import ps_tpu_torch as ps
     from ps_tpu_torch.models.resnet import make_loss_fn
 
-    ps.init(backend="cuda", device=device)
+    ps.init(backend="cuda", device=device, **init)
     params, stats = model.init(torch.Generator().manual_seed(0),
                                in_channels=in_channels, device=device)
     store = ps.KVStore(optimizer="momentum", learning_rate=0.1, momentum=0.9,
-                       placement="sharded")
+                       placement=placement)
     store.init(params)
-    run = store.make_step(make_loss_fn(model, label_smoothing), has_aux=True)
+    run = store.make_step(make_loss_fn(model, label_smoothing,
+                                       mesh=store.mesh), has_aux=True)
     batches = [store.shard_batch(b) for b in batches]
     if device == "cuda":
         torch.cuda.synchronize()
@@ -1620,14 +1673,13 @@ def _bert_grads_twice(model, batch):
 
 
 def _resume_bert(tmp):
-    """BERT-base resume, first with PyTorch's default algorithms (whose
-    one non-deterministic op on this path, F.embedding's backward over the
-    token-type ids, makes the uninterrupted run differ from itself: the
-    phase prints that spread and the resumed run's distance, and holds the
-    restored state to the saved one bitwise), then with
-    torch.use_deterministic_algorithms(True), which gives that op its
-    deterministic kernel: there the resumed run must equal the
-    uninterrupted one bitwise."""
+    """BERT-base resume, first with PyTorch's default algorithms, then with
+    torch.use_deterministic_algorithms(True): in both the uninterrupted run
+    repeats itself and the resumed run equals it, bitwise, and the
+    restored state equals the saved one bitwise. One gradient taken twice
+    in the default mode must be the same bitwise: the embeddings' backward
+    sums in a fixed order (models/bert.py, ``_EmbedLookup``), where
+    F.embedding's CUDA backward over the all-zero token-type ids did not."""
     import warnings
 
     import ps_tpu_torch as ps
@@ -1691,22 +1743,19 @@ def _resume_bert(tmp):
             f"{CKPT_BERT_STEPS} steps against {half} + save + restore + "
             f"{half})")
     grads = _bert_grads_twice(model, host[0])
+    if grads:
+        raise AssertionError(f"BERT: one gradient taken twice in the default "
+                             f"mode differs in {grads}")
     first, second = uninterrupted(), uninterrupted()
-    spread = _differs(second, first)
     out, save_s, restore_s, counts, parts = resumed(os.path.join(tmp, "bert"))
     size = _report_checkpoint("BERT-base (params, LAMB mu, nu, count)",
                               os.path.join(tmp, "bert"), save_s, restore_s)
     log(f"checkpoint BERT-base, one save's parts: copies off the card "
         f"{parts[0]:.4f} s, torch.save into the page cache {parts[1]:.4f} s, "
         f"fsync {parts[2]:.4f} s; card {_card_line()}")
-    dist = _differs(out, first)
-    log(f"{what}, default algorithms: one gradient taken twice differs in "
-        f"{grads or 'no tensor'}; the uninterrupted run differs from itself "
-        f"in {len(spread)} of {len(first)} tensors (max abs "
-        f"{max(spread.values(), default=0.0):.3g}); the resumed run differs "
-        f"from it in {len(dist)} (max abs {max(dist.values(), default=0.0):.3g}"
-        f"); the restored state equals the saved one bitwise; launches in the "
-        f"resumed half {counts}")
+    _hold_bitwise(f"{what}, default algorithms (one gradient taken twice is "
+                  f"the same bitwise); launches in the resumed half {counts}",
+                  out, first, second)
     del first, second, out
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
@@ -1853,7 +1902,515 @@ def phase_checkpoint_resume():
         for name, (b, s, r) in sizes.items()}, "card": _card_line()}))
 
 
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _group_init(world, rank, port, **kw):
+    """``init`` arguments of rank ``rank`` of a ``world``-rank group meeting
+    at ``127.0.0.1:port``."""
+    return dict(coordinator_uri=f"127.0.0.1:{port}", num_processes=world,
+                process_id=rank, **kw)
+
+
+def _wd_state(dense, deep, wide, full=False):
+    """The W&D state as CPU tensors: dense params and this rank's slices
+    of the adam state, and each table and its row state (every rank's rows
+    with ``full``)."""
+    from ps_tpu_torch import checkpoint as ckpt
+    from ps_tpu_torch.parallel import collectives
+
+    out = {k: v.cpu() for k, v in _state_of(dense).items()}
+    for name, emb in (("deep", deep), ("wide", wide)):
+        leaves = {"table": emb.table,
+                  **{f"opt/{i}": t for i, t in
+                     ckpt.flatten_leaves(emb.state()).items()}}
+        for key, t in leaves.items():
+            if full:
+                t = collectives.all_gather(t, emb.mesh)[:emb.num_rows]
+            out[f"{name}/{key}"] = t.detach().cpu().clone()
+    return out
+
+
+def phase_nccl_one_rank():
+    """14: init(backend='cuda') through coordinator_uri with one process:
+    an NCCL group of world size 1 on the card. The W&D composite step at
+    full width and a small ResNet (Bottleneck, stages (1, 1, 1, 1), bf16,
+    224², batch 32) with placement 'replicated' and 'sharded' equal the
+    one-device path bitwise; every collective of the port runs (recorded)
+    and moves 0 bytes."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.data.synthetic import criteo_batches, imagenet_batches
+    from ps_tpu_torch.models import resnet
+    from ps_tpu_torch.models.wide_deep import WideDeepConfig
+
+    cfg = WideDeepConfig()
+    host = list(criteo_batches(BATCH, vocab_size=cfg.per_feature_vocab,
+                               seed=2, steps=NCCL_WD_STEPS))
+    images = list(imagenet_batches(32, image_size=RESNET_SIZE, seed=5,
+                                   steps=2))
+    model = resnet.ResNet(stage_sizes=(1, 1, 1, 1),
+                          block_cls=resnet.BottleneckBlock)
+    for placement in ("replicated", "sharded"):
+        out = {}
+        for path in ("one device", "nccl"):
+            def init():  # a fresh port for each group
+                return (_group_init(1, 0, _free_port()) if path == "nccl"
+                        else {})
+
+            _, dense, deep, wide, run = _widedeep(cfg, "cuda", seed=0,
+                                                  placement=placement,
+                                                  init=init())
+            ctx = ps.current_context()
+            ctx.mesh.calls.clear()
+            _launch_counts(reset=True)
+            losses = [float(run(dense.shard_batch(b))[0]) for b in host]
+            torch.cuda.synchronize()
+            counts = _launch_counts()
+            calls = list(ctx.mesh.calls)
+            out[path] = (losses, _wd_state(dense, deep, wide), counts, calls,
+                         ctx.mesh.backend, dense.collective_bytes
+                         + deep.collective_bytes + wide.collective_bytes)
+            ps.shutdown()
+            # cuDNN's backward algorithms may use atomics: both ResNet runs
+            # take its deterministic ones, so bitwise compares the paths
+            torch.backends.cudnn.deterministic = True
+            try:
+                r_losses, _, params, stats = _resnet_run(
+                    model, "cuda", images, 2, placement=placement, **init())
+            finally:
+                torch.backends.cudnn.deterministic = False
+            out[path] += ({**_flat_np(params), **{
+                f"stats/{k}": v for k, v in _flat_np(stats).items()}},
+                r_losses)
+        one, nccl = out["one device"], out["nccl"]
+        want = {"sparse_apply": 2 * NCCL_WD_STEPS,
+                "sparse_group": 2 * NCCL_WD_STEPS, "flash_attention/fwd": 0}
+        if nccl[4] != "nccl" or one[4] is not None:
+            raise AssertionError(f"backends {one[4]}, {nccl[4]}")
+        if nccl[2] != want or one[2] != want:
+            raise AssertionError(f"W&D launches {one[2]}, {nccl[2]}")
+        if one[0] != nccl[0]:
+            raise AssertionError(f"W&D losses {one[0]} vs {nccl[0]}")
+        diff = _differs(nccl[1], one[1])
+        if diff:
+            raise AssertionError(f"W&D {placement}: NCCL world 1 differs "
+                                 f"from one device in {diff}")
+        if one[7] != nccl[7] or any(not np.array_equal(nccl[6][k], v)
+                                    for k, v in one[6].items()):
+            raise AssertionError(f"ResNet {placement}: NCCL world 1 differs "
+                                 f"from one device")
+        ops = sorted({c.op for c in nccl[3]})
+        if not nccl[3] or any(c.ring_bytes for c in nccl[3]) or nccl[5]:
+            raise AssertionError(f"collectives at world 1: {nccl[3][:4]}, "
+                                 f"{nccl[5]} bytes")
+        log(f"NCCL world size 1, {placement}: W&D full width {NCCL_WD_STEPS} "
+            f"steps (launches {nccl[2]}) and ResNet (Bottleneck (1, 1, 1, 1), "
+            f"bf16, 224², batch 32, 2 steps) equal the one-device path "
+            f"bitwise ({len(one[1])} + {len(one[6])} tensors; losses "
+            f"{nccl[0][-1]:.6f}, {nccl[7][-1]:.6f}); {len(nccl[3])} recorded "
+            f"collectives of the W&D run ({', '.join(ops)}) moved 0 bytes "
+            f"(collective_bytes {nccl[5]}); card {_card_line()}")
+
+
+def _wd_runs():
+    """Phase 15's W&D runs: ``{name: (config, global batch, steps,
+    exchange)}``, the main path at full width with each exchange and the
+    reference's shard-parity configuration (tests/test_sparse.py:184-225:
+    vocab 50, D 8, MLP (32, 16), batch 16, 3 steps)."""
+    from ps_tpu_torch.models.wide_deep import WideDeepConfig
+
+    small = WideDeepConfig(per_feature_vocab=50, embed_dim=8, mlp=(32, 16))
+    return {"gather": (WideDeepConfig(), BATCH, TWO_WD_STEPS, "gather"),
+            "a2a": (WideDeepConfig(), BATCH, TWO_WD_STEPS, "a2a"),
+            "small/gather": (small, 16, 3, "gather"),
+            "small/a2a": (small, 16, 3, "a2a")}
+
+
+def _wd_host(cfg, batch, steps):
+    from ps_tpu_torch.data.synthetic import criteo_batches
+
+    return list(criteo_batches(batch, vocab_size=cfg.per_feature_vocab,
+                               seed=4, steps=steps))
+
+
+def _two_ranks_worker(rank, port, outdir):
+    """Phase 15's rank ``rank`` of 2, sharing the one card over gloo: the
+    W&D runs of :func:`_wd_runs`, a multi-process save, and ResNet-50 at
+    224²; results into ``outdir/rank<r>.pt``."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.data.synthetic import imagenet_batches
+    from ps_tpu_torch.kv.store import rank_slice
+    from ps_tpu_torch.models.resnet import ResNet50, make_loss_fn
+    from ps_tpu_torch.ops import sparse_apply as ops
+
+    ctx = ps.init(backend="cuda", device="cuda:0", **_group_init(
+        2, rank, port, dist_backend="gloo"))
+    mesh = ctx.mesh
+    results = {"backend": mesh.backend, "size": mesh.size}
+
+    def keep(state):  # the tables are the same on both ranks: rank 0's
+        return {k: v for k, v in state.items()
+                if rank == 0 or k.startswith("opt/")}
+
+    for name, (cfg, batch, steps, exchange) in _wd_runs().items():
+        _, dense, deep, wide, run = _widedeep(
+            cfg, "cuda", seed=0, exchange=exchange,
+            capacity_factor=TWO_CAPACITY, init=None)
+        batches = [dense.shard_batch(rank_slice(b, mesh))
+                   for b in _wd_host(cfg, batch, steps)]
+        torch.cuda.synchronize()
+        mesh.calls.clear()
+        _launch_counts(reset=True)
+        losses, times = [], []
+        for i, b in enumerate(batches):
+            t0 = time.perf_counter()
+            loss, _ = run(b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            if i + 1 == TWO_PARITY_STEPS:
+                early = keep(_wd_state(dense, deep, wide, full=True))
+        counts, by_rule = _launch_counts(), dict(ops.LAUNCHES_BY_RULE)
+        n_local = batch // 2 * cfg.num_sparse
+        n_after = 2 * (n_local if exchange == "gather" else
+                       int(np.ceil(n_local / 2 * TWO_CAPACITY)))
+        results[name] = {
+            "losses": losses, "step_ms": float(np.median(times[1:])) * 1e3,
+            "counts": counts, "by_rule": by_rule,
+            "dropped": deep.dropped_rows + wide.dropped_rows,
+            "rows_pushed": deep.rows_pushed + wide.rows_pushed,
+            "dense_bytes": dense.collective_bytes,
+            "sparse_bytes": deep.collective_bytes + wide.collective_bytes,
+            "recorded_bytes": sum(c.ring_bytes for c in mesh.calls),
+            "ids_after_exchange": n_after,
+            "group_path": ops.plan_group(n_after,
+                                         deep.rows_per_shard)["path"],
+            "rows_per_shard": deep.rows_per_shard,
+            "state": keep(_wd_state(dense, deep, wide, full=True)),
+            "early": early,
+            "state_dims": list(dense._engine._state_dims)}
+        if name == "gather":
+            for part, obj in (("dense", dense), ("deep", deep),
+                              ("wide", wide)):
+                obj.save(os.path.join(outdir, f"ckpt_{part}"))
+        del dense, deep, wide, run, batches
+    host = [rank_slice(b, mesh) for b in imagenet_batches(
+        RESNET_BATCH, image_size=RESNET_SIZE, seed=0, steps=TWO_RESNET_STEPS)]
+    # the main path with cross-rank BatchNorm, one step of it in f32, and
+    # the controls: one step with BatchNorm taking this rank's statistics,
+    # which the gates of phase_two_ranks must tell apart
+    for name, dtype, cross, steps in (
+            ("resnet", torch.bfloat16, True, TWO_RESNET_STEPS),
+            ("resnet/local_bn", torch.bfloat16, False, 1),
+            ("resnet_f32", torch.float32, True, 1),
+            ("resnet_f32/local_bn", torch.float32, False, 1)):
+        model = ResNet50(dtype=dtype)
+        params, stats = model.init(torch.Generator().manual_seed(0),
+                                   device="cuda")
+        store = ps.KVStore(optimizer="momentum", learning_rate=0.1,
+                           momentum=0.9, placement="sharded")
+        store.init(params)
+        step = store.make_step(make_loss_fn(
+            model, 0.1, mesh=store.mesh if cross else None), has_aux=True)
+        losses, times, first = [], [], {}
+        for b in host[:steps]:
+            b = store.shard_batch(b)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, params, stats = step(b, stats)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            if not first:  # after step 1: the params are whole on each rank
+                first = {"stats": _flat_np(stats),
+                         "params": _flat_np(params) if rank == 0 else None}
+        results[name] = {"losses": losses, **first,
+                         "step_ms": float(np.median(times[1:] or times)) * 1e3,
+                         "bytes": store.collective_bytes}
+        del model, params, stats, store, step
+    torch.save(results, os.path.join(outdir, f"rank{rank}.pt"))
+    ps.shutdown()
+
+
+def _one_process_wd(cfg, batch, steps):
+    """The W&D run of one process on the card: losses, and the state
+    after TWO_PARITY_STEPS steps and at the end."""
+    import ps_tpu_torch as ps
+
+    _, dense, deep, wide, run = _widedeep(cfg, "cuda", seed=0)
+    losses, early = [], None
+    for i, b in enumerate(_wd_host(cfg, batch, steps)):
+        losses.append(float(run(dense.shard_batch(b))[0]))
+        if i + 1 == TWO_PARITY_STEPS:
+            early = _wd_state(dense, deep, wide)
+    out = _wd_state(dense, deep, wide)
+    ps.shutdown()
+    return losses, early, out
+
+
+def _wd_deviation(per, one, which="state"):
+    """``{name: (max abs difference, elements outside rtol 1e-4 / atol
+    1e-6)}`` of two ranks' W&D state against one process's: rank 0's
+    tables and params, and each rank's adam slices against its slice of
+    the one-process state."""
+    out = {}
+    for k, v in one.items():
+        if k.startswith("opt/"):
+            continue
+        g = per[0][which][k]
+        out[k] = (float((g.double() - v.double()).abs().max()),
+                  int((~torch.isclose(g, v, rtol=1e-4, atol=1e-6)).sum()))
+    opt = sorted((k, v) for k, v in one.items() if k.startswith("opt/"))
+    for r, p in enumerate(per):
+        for (k, v), d in zip(opt, p["state_dims"]):
+            mine = v if d is None else v.narrow(d, r * v.shape[d] // 2,
+                                                v.shape[d] // 2)
+            g = p[which][k]
+            out[f"{k}@{r}"] = (
+                float((g.double() - mine.double()).abs().max()),
+                int((~torch.isclose(g, mine, rtol=1e-4, atol=1e-6)).sum()))
+    return out
+
+
+def _two_ranks_resnet(ranks, name, dtype, batches, start):
+    """Phase 15's ResNet-50 check in ``dtype``: step 1 of the two ranks'
+    run ``name`` and of its local-BatchNorm control against one process
+    on the global batch ``batches[0]`` from the parameters ``start``."""
+    from ps_tpu_torch.models.resnet import ResNet50
+
+    losses, _, params, stats = _resnet_run(ResNet50(dtype=dtype), "cuda",
+                                           batches, 1, label_smoothing=0.1)
+    stats, params = _flat_np(stats), _flat_np(params)
+    # the leaves step 1 moves: a block's branch behind its last BatchNorm,
+    # whose scale starts at 0, gets a zero gradient and stays put
+    moved = [k for k, v in params.items() if np.any(v != start[k])]
+    still = sorted(set(params) - set(moved))
+
+    def update(p):
+        return np.concatenate([(p[k] - start[k]).ravel() for k in moved])
+
+    def deviation(run):
+        r0 = run[0]
+        return (abs(r0["losses"][0] - losses[0]) / abs(losses[0]),
+                max(_rel_l2([r["stats"][k] for r in run], [v] * len(run))
+                    for k, v in stats.items()),
+                _rel_l2([update(r0["params"])], [update(params)]))
+
+    gates = TWO_RESNET_GATES[dtype]
+    held = deviation([r[name] for r in ranks])
+    control = deviation([r[f"{name}/local_bn"] for r in ranks])
+    readings = (f"loss {held[0]:.3g}, batch_stats {held[1]:.3g}, update "
+                f"{held[2]:.3g} (gates {gates}); the control with BatchNorm "
+                f"on each rank's statistics: loss {control[0]:.3g}, "
+                f"batch_stats {control[1]:.3g}, update {control[2]:.3g}")
+    if any(d > g for d, g in zip(held, gates)) or any(
+            np.any(ranks[0][name]["params"][k] != start[k]) for k in still):
+        raise AssertionError(f"ResNet-50 {dtype} two ranks vs one process: "
+                             f"{readings}; {len(still)} leaves should stay "
+                             f"put")
+    if not all(d > g for d, g in zip(control[1:], gates[1:])):
+        raise AssertionError(f"ResNet-50 {dtype}: the control passes a "
+                             f"gate: {readings}")
+    for r in ranks:
+        if not np.all(np.isfinite(r[name]["losses"])):
+            raise AssertionError(f"ResNet-50 two ranks: losses "
+                                 f"{r[name]['losses']}")
+    log(f"two ranks on one card (gloo), ResNet-50 v1.5, 224², "
+        f"{str(dtype)[6:]}, global batch {RESNET_BATCH} ({RESNET_BATCH // 2} "
+        f"a rank), sharded, cross-rank BatchNorm: step 1 against one "
+        f"process on the global batch (loss "
+        f"{ranks[0][name]['losses'][0]:.6f} vs {losses[0]:.6f}), relative: "
+        f"{readings}; {len(moved)} parameter leaves moved, {len(still)} "
+        f"stayed put as in one process; losses "
+        f"{[round(x, 4) for x in ranks[0][name]['losses']]}")
+
+
+def phase_two_ranks(tmp):
+    """15: two ranks on the one card over gloo, asked for by name (NCCL
+    refuses two ranks on one device); the times are a correctness run's,
+    through host memory: no speed figure."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.models.wide_deep import WideDeepConfig
+
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--two-ranks-worker", str(r), str(port), tmp])
+             for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=TWO_RANKS_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if rcs != [0, 0]:
+        raise AssertionError(f"two-rank workers exited {rcs}")
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    if [r["backend"] for r in ranks] != ["gloo", "gloo"]:
+        raise AssertionError(f"backends {[r['backend'] for r in ranks]}")
+    launches = {}
+    for name, (cfg, batch, steps, exchange) in _wd_runs().items():
+        one_losses, early, one = _one_process_wd(cfg, batch, steps)
+        per = [r[name] for r in ranks]
+        np.testing.assert_allclose(per[0]["losses"], one_losses, rtol=1e-5,
+                                   err_msg=name)
+        diff = _wd_deviation(per, one)
+        if name.startswith("small/"):
+            # the reference's own shard-parity test, on the card: tables,
+            # row state, dense params and each rank's adam slices within
+            # tests/test_sparse.py:220-225's rtol 1e-4 / atol 1e-6
+            if any(n for _, n in diff.values()):
+                raise AssertionError(f"{name}: outside rtol 1e-4 / atol "
+                                     f"1e-6 of one process: {diff}")
+            log(f"two ranks on one card (gloo), W&D at the reference's "
+                f"shard-parity configuration ({exchange}; vocab 50, D 8, "
+                f"MLP (32, 16), batch 16, 3 steps): losses rtol 1e-5 and "
+                f"tables, row state, dense params and adam slices rtol 1e-4 "
+                f"/ atol 1e-6 of one process (worst "
+                f"{max(d for d, _ in diff.values()):.3g})")
+            continue
+        want = {"sparse_apply": 2 * steps, "sparse_group": 2 * steps,
+                "flash_attention/fwd": 0}
+        for r in per:
+            if r["counts"] != want or r["by_rule"] != {"adagrad": steps,
+                                                       "sgd": steps}:
+                raise AssertionError(f"{name}: launches {r['counts']} "
+                                     f"{r['by_rule']}, expected {want}")
+            if r["group_path"] != "cluster":
+                raise AssertionError(f"{name}: grouping path "
+                                     f"{r['group_path']}")
+            if not np.all(np.isfinite(r["losses"])) or not (
+                    np.mean(r["losses"][-5:]) < np.mean(r["losses"][:5])):
+                raise AssertionError(f"{name}: losses {r['losses']}")
+        early_diff = _wd_deviation(per, early, "early")
+        # the exchange's work, the tables and their row state, and the
+        # adam slices stay within the shard-parity tolerance after every
+        # step of the run; the dense params within TWO_DENSE_*
+        held = {k: n for k, (_, n) in diff.items()
+                if n and not k.startswith("param/")}
+        if held:
+            raise AssertionError(f"{name}: outside rtol 1e-4 / atol 1e-6 of "
+                                 f"one process after {steps} steps: {held}")
+        for after, d in ((TWO_PARITY_STEPS, early_diff), (steps, diff)):
+            dense = [v for k, v in d.items() if k.startswith("param/")]
+            worst = max(a for a, _ in dense)
+            outside = sum(n for _, n in dense)
+            if worst > TWO_DENSE_ATOL or outside > TWO_DENSE_OUTSIDE:
+                raise AssertionError(
+                    f"{name}: dense params after {after} steps: worst "
+                    f"{worst:.3g} (bound {TWO_DENSE_ATOL}), {outside} "
+                    f"elements outside rtol 1e-4 / atol 1e-6 (bound "
+                    f"{TWO_DENSE_OUTSIDE})")
+        launches[exchange] = {
+            "sparse_apply/deep": [p["by_rule"]["adagrad"] for p in per],
+            "sparse_apply/wide": [p["by_rule"]["sgd"] for p in per],
+            "sparse_group": [p["counts"]["sparse_group"] for p in per]}
+
+        def outside(d):
+            return {k: n for k, (_, n) in d.items() if n} or 0
+
+        log(f"two ranks on one card (gloo), W&D full width, {exchange} "
+            f"(capacity factor {TWO_CAPACITY}): {steps} steps of global "
+            f"batch {batch} ({batch // 2} a rank), losses rtol 1e-5 of one "
+            f"process ({per[0]['losses'][-1]:.6f} vs {one_losses[-1]:.6f}), "
+            f"tables, row state and adam slices within rtol 1e-4 / atol 1e-6 "
+            f"after {steps} steps, dense params within atol "
+            f"{TWO_DENSE_ATOL} with at most {TWO_DENSE_OUTSIDE} elements "
+            f"outside it; all of it against one process: after "
+            f"{TWO_PARITY_STEPS} steps worst "
+            f"{max(d for d, _ in early_diff.values()):.3g}, elements outside "
+            f"rtol 1e-4 / atol 1e-6 {outside(early_diff)}; after {steps} "
+            f"worst {max(d for d, _ in diff.values()):.3g}, outside "
+            f"{outside(diff)}; launches a rank {[p['counts'] for p in per]};"
+            f" grouping pass path '{per[0]['group_path']}' at N = "
+            f"{per[0]['ids_after_exchange']:,} over "
+            f"{per[0]['rows_per_shard']:,} rows a shard; dropped_rows "
+            f"{per[0]['dropped']} of {per[0]['rows_pushed']:,}")
+        log(f"two ranks (gloo, a correctness run through host memory, not a "
+            f"speed figure), W&D {exchange}: median step "
+            f"{[round(p['step_ms'], 3) for p in per]} ms; collective bytes a "
+            f"rank over {steps} steps: dense {per[0]['dense_bytes']:,}, "
+            f"sparse {per[0]['sparse_bytes']:,} (analytic), recorded "
+            f"{per[0]['recorded_bytes']:,}; card {_card_line()}")
+    cfg = WideDeepConfig()
+    # the kernels at a rank's shape: rank 0's rows of the tables and a
+    # batch's ids after the gather exchange, about half of them filler
+    from ps_tpu_torch.ops import sparse_apply as ops
+    from ps_tpu_torch.optim import rowwise
+
+    _, gids = _slice_ids(seed=2)
+    rps = ranks[0]["gather"]["rows_per_shard"]
+    local = torch.where(gids < rps, gids, -1).to(torch.int32)
+    per_rank = {"ids": local.numel(),
+                "ids_owned": int((local >= 0).sum()), "rows": rps}
+    for table_name, rule, dim in (("deep", "adagrad", cfg.embed_dim),
+                                  ("wide", "sgd", 1)):
+        opt = rowwise.make_rowwise(rule, learning_rate=0.05)
+        g = torch.Generator("cuda").manual_seed(5)
+        table = 0.01 * torch.randn((rps, dim), generator=g, device="cuda")
+        state = opt.init(table)
+        grads = 1e-3 * torch.randn((local.numel(), dim), generator=g,
+                                   device="cuda")
+        per_rank[f"{table_name}_ms"] = _device_ms(
+            lambda: ops.fused_sparse_apply(table, state, local, grads, opt,
+                                           "cuda"))
+        per_rank[f"{table_name}_bound_ms"] = _bound_ms(local, dim, opt, 4)[0]
+        del table, state, grads
+    per_rank["group_path"] = ops.plan_group(local.numel(), rps)["path"]
+    log(json.dumps({"sparse_apply_per_rank": per_rank,
+                    "card": _card_line()}))
+    # the multi-process save, restored into one process
+    _, dense, deep, wide, _ = _widedeep(cfg, "cuda", seed=0)
+    for name, obj in (("dense", dense), ("deep", deep), ("wide", wide)):
+        obj.restore(os.path.join(tmp, f"ckpt_{name}"), elastic=True)
+    restored = _wd_state(dense, deep, wide)
+    ps.shutdown()
+    saved = ranks[0]["gather"]["state"]
+    diff = _differs({k: v for k, v in restored.items()
+                     if not k.startswith("opt/")},
+                    {k: v for k, v in saved.items()
+                     if not k.startswith("opt/")})
+    for r, p in enumerate(ranks):
+        for (k, v), d in zip(sorted((k, v) for k, v in restored.items()
+                                    if k.startswith("opt/")),
+                             p["gather"]["state_dims"]):
+            mine = v if d is None else v.narrow(d, r * v.shape[d] // 2,
+                                                v.shape[d] // 2)
+            diff.update(_differs({k: mine}, {k: p["gather"]["state"][k]}))
+    if diff:
+        raise AssertionError(f"elastic restore 2 -> 1 differs: {diff}")
+    log(f"multi-process save at 2 ranks, elastic restore into one process: "
+        f"bitwise over {len(restored)} tensors")
+    # ResNet-50 across the two ranks against one process on the global batch
+    from ps_tpu_torch.data.synthetic import imagenet_batches
+    from ps_tpu_torch.models.resnet import ResNet50
+
+    batches = list(imagenet_batches(RESNET_BATCH, image_size=RESNET_SIZE,
+                                    seed=0, steps=1))
+    start = _flat_np(ResNet50().init(torch.Generator().manual_seed(0))[0])
+    for name, dtype in (("resnet", torch.bfloat16),
+                        ("resnet_f32", torch.float32)):
+        _two_ranks_resnet(ranks, name, dtype, batches, start)
+    res = [r["resnet"] for r in ranks]
+    log(f"two ranks (gloo, a correctness run through host memory, not a "
+        f"speed figure), ResNet-50: median step "
+        f"{[round(r['step_ms'], 1) for r in res]} ms; collective bytes a "
+        f"rank {res[0]['bytes']:,} over {TWO_RESNET_STEPS} steps (analytic); "
+        f"card {_card_line()}")
+    return launches
+
+
 def main():
+    if len(sys.argv) == 5 and sys.argv[1] == "--two-ranks-worker":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _two_ranks_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on an NVIDIA GPU",
               file=sys.stderr)
@@ -1880,6 +2437,16 @@ def main():
     phase_mnist_local()
     phase_mnist_async()
     phase_checkpoint_resume()
+    phase_nccl_one_rank()
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="ps_ranks_") as tmp:
+        launches = phase_two_ranks(tmp)
+    for e in entries:  # each rank's launches in phase 15's 20-step runs
+        if e["name"].startswith("sparse"):
+            e["launches_per_rank_two_ranks"] = {
+                exchange: counts[e["name"]]
+                for exchange, counts in launches.items()}
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,8 +22,15 @@ last two reach no Pallas kernel in the reference either. Checkpoint and
 resume on one device (``checkpoint``, ``KVStore.save``/``restore``,
 ``SparseEmbedding.save``/``restore``) cover every engine, and
 ``checkpoint.from_reference`` converts a ``ps_tpu`` checkpoint. ``shutdown``
-tears the backend down (``abort=True`` after a failure). ROADMAP.md lists
-what is still to port.
+tears the backend down (``abort=True`` after a failure).
+
+Across the ranks of a ``torch.distributed`` process group
+(``init(coordinator_uri=..., num_processes=k, process_id=r)`` or the
+reference's ``PS_*`` variables; ``parallel/``): the sync server
+replicated or ZeRO-1 sharded, row-sharded sparse tables with the
+``gather`` and ``a2a`` exchanges, the composite step, cross-rank
+BatchNorm, and the multi-process checkpoint commit with the elastic
+restore. ROADMAP.md lists what is still to port.
 """
 
 from ps_tpu_torch import checkpoint

@@ -4,7 +4,9 @@ Counterpart of ``ps_tpu/api.py``: ``init(backend=...)`` builds the backend
 once per process, ``shutdown()`` drops it. Here:
 
 - ``backend='cuda'`` (default; the counterpart of 'tpu'): the fused
-  server on one device, sync or async (DC-ASGD).
+  server, sync or async (DC-ASGD), on one device or, sync, across the
+  ranks of a process group (``coordinator_uri``, ``num_processes``,
+  ``process_id``).
 - ``backend='local'``: the single-process local PS (the reference's
   config 1): per-key push/pull, sync aggregation over
   ``Config.num_workers`` logical workers, or async.
@@ -36,6 +38,12 @@ class Context:
     @property
     def num_workers(self) -> int:
         return self.backend.num_workers
+
+    @property
+    def mesh(self):
+        """The cuda backend's :class:`~ps_tpu_torch.parallel.mesh.Mesh`
+        (None on the local backend)."""
+        return getattr(self.backend, "mesh", None)
 
 
 _lock = threading.Lock()
@@ -78,8 +86,8 @@ def init(backend: Optional[str] = None, config: Optional[Config] = None,
 def shutdown(abort: bool = False) -> None:
     """Tear down the backend (its ``shutdown(abort=...)``, where it has
     one) and drop the context so a fresh :func:`init` can follow.
-    ``abort=True`` is the reference's post-failure path, which skips
-    barriers; the one-device backends have none to skip."""
+    ``abort=True`` is the reference's post-failure path: a backend that
+    joined a process group aborts it without the barrier."""
     global _context
     with _lock:
         if _context is not None:

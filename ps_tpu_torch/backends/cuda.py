@@ -1,35 +1,51 @@
-"""The 'cuda' backend: a parameter server on one device.
+"""The 'cuda' backend: a parameter server on one device or across the
+ranks of a ``torch.distributed`` process group.
 
-Counterpart of ``ps_tpu/backends/tpu.py`` at one device:
+Counterpart of ``ps_tpu/backends/tpu.py``:
 
 - ``CudaServer`` (``TpuServer``): the parameter dict ``{key: tensor}``
-  and one whole-tree optimizer state on the device. ``make_step`` updates
-  both in place (in place replaces the reference's donation). The per-key
-  protocol stages pushes until the whole tree is there and then runs
-  ``update_tree``, which like ``push_pull`` applies out of place, so a
-  tensor a caller pulled keeps its values, as the reference's undonated
-  apply keeps them.
+  and one whole-tree optimizer state. Each rank takes the gradient of its
+  slice of the global batch; the server reduces the gradients over the
+  ranks and applies them. 'replicated': one all-reduce of every gradient
+  (a flat buffer a dtype), the mean over ranks, and the whole apply on
+  every rank. 'sharded' (ZeRO-1): each leaf that
+  :mod:`~ps_tpu_torch.parallel.sharding` shards is reduce-scattered, so
+  a rank receives the mean gradient of the slice it owns, steps that
+  slice and its slice of the optimizer state, and all-gathers the
+  parameter; the rest is all-reduced and applied whole. ``make_step``
+  updates the server's tensors in place (in place replaces the
+  reference's donation). The per-key protocol stages pushes until the
+  whole tree is there and then runs ``update_tree``, which, like
+  ``push_pull``, applies out of place, so a tensor a caller pulled keeps
+  its values, as the reference's undonated apply keeps them.
+  ``collective_bytes`` follows the reference's ``_account_update``.
 - ``AsyncCudaServer`` (``AsyncTpuServer``): mode='async', the local
   backend's async semantics (stale apply with the DC-ASGD correction,
   tree-granularity versions, per-worker staging of per-key pushes) with
   one optimizer state a key, out of place, behind one lock so host
-  threads can drive workers concurrently.
+  threads can drive workers concurrently. One process only.
+- ``CudaBackend`` (``TpuBackend``): ``init(backend='cuda')``. With a
+  ``coordinator_uri`` it joins a process group of ``num_processes`` ranks
+  (NCCL on CUDA devices, gloo on the CPU or when ``dist_backend`` names
+  it) and builds the mesh over it.
 
 Both servers checkpoint (``ps_tpu_torch/checkpoint.py``): engine
 ``cuda_sync`` saves the params, the whole-tree state, ``apply_count`` and
-``collective_bytes``; engine ``cuda_async`` also the stale snapshots and
-the version vector. Each refuses to save mid-step and holds its lock
-across a save or a restore.
+``collective_bytes``, each rank its own slices; engine ``cuda_async``
+also the stale snapshots and the version vector. Each refuses to save
+mid-step and holds its lock across a save or a restore.
 
-At one device 'replicated' and 'sharded' (ZeRO-1) placement are the same
-thing, as on a one-device mesh, and no collective moves a byte. Placement
-across GPUs, the failure detector, and the async server's elastic hooks
-are not ported yet.
+Not ported yet: the async server across ranks (ROADMAP Queue 1 item 4),
+the failure detector (``check_health`` is a no-op until ``control/``,
+item 5), the async server's elastic hooks (item 6) and
+``partition_rules`` (item 7).
 """
 
 from __future__ import annotations
 
 import collections
+import datetime
+import os
 import threading
 from typing import Any, Dict, List, Optional
 
@@ -39,7 +55,6 @@ from ps_tpu_torch.backends.common import (
     AGG_WORKER_BASE,
     AsyncStagingMixin,
     PeekMixin,
-    apply_out_of_place,
     backend_device,
     device_copy,
     make_dc_apply_tree,
@@ -48,37 +63,63 @@ from ps_tpu_torch.checkpoint import CheckpointMixin
 from ps_tpu_torch.config import Config
 from ps_tpu_torch.kv import keys as keymod
 from ps_tpu_torch.ops.sparse_apply import resolve_tier
+from ps_tpu_torch.parallel import collectives
+from ps_tpu_torch.parallel.mesh import Mesh, make_mesh
+from ps_tpu_torch.parallel.sharding import (param_sharding, shard,
+                                            sharded_opt_init)
+
+# a rendezvous or a collective that does not complete fails after this
+# many seconds instead of hanging
+GROUP_TIMEOUT_S = 600
 
 
 class CudaServer(PeekMixin, CheckpointMixin):
-    """Parameter/optimizer-state store with PS semantics on one device.
+    """Parameter/optimizer-state store with PS semantics over a mesh.
 
     ``apply_count`` counts whole-tree applies (``update_tree`` and every
-    fused step's ``set_tree_and_state``), as the reference's does;
-    ``collective_bytes`` stays 0: one device runs no collective."""
+    fused step), as the reference's does; ``collective_bytes`` adds each
+    apply's analytic per-rank bytes (0 at one rank)."""
 
     mode = "sync"
     engine_name = "cuda_sync"
 
     def __init__(self, optimizer, device: torch.device,
-                 aggregate: str = "mean"):
+                 aggregate: str = "mean", mesh: Optional[Mesh] = None,
+                 placement: str = "replicated"):
         if aggregate not in ("mean", "sum"):
             raise ValueError("aggregate must be 'mean' or 'sum'")
         self._opt = optimizer
         self.device = device
         self.aggregate = aggregate
-        self.num_workers = 1
+        self.mesh = mesh if mesh is not None else Mesh({"data": 1})
+        self.placement = placement
+        self.num_workers = self.mesh.size
         self._params: Dict[str, torch.Tensor] = {}
         self._state = None
+        self._dims: Dict[str, Optional[int]] = {}
+        self._state_dims: List[Optional[int]] = []
         self._staged: Dict[str, torch.Tensor] = {}
         self.apply_count = 0
         self.collective_bytes = 0
 
     def register_tree(self, kv: Dict[str, Any], treedef, key_order: List[str]):
+        """Register the parameters. Every rank registers the same values
+        (the reference asserts as much across processes)."""
         if self._params:
             raise RuntimeError("server already holds a registered tree")
-        self._params = {k: device_copy(v, self.device) for k, v in kv.items()}
-        self._state = self._opt.init(self._params)
+        k = self.mesh.size
+        self._params = {key: device_copy(v, self.device)
+                        for key, v in kv.items()}
+        self._dims = {key: param_sharding(p.shape, self.placement, k)
+                      for key, p in self._params.items()}
+        if self._opt.name == "lamb" and any(
+                d is not None for d in self._dims.values()):
+            raise NotImplementedError(
+                "lamb's trust ratio needs whole-tensor norms, which a "
+                "shard-local apply does not see; use placement='replicated' "
+                "across ranks (sharded lamb is not ported yet)")
+        self._state, self._state_dims = sharded_opt_init(
+            self._opt.init, self._params, self._dims, self.mesh.rank, k)
         return keymod.unflatten(treedef, self._params, key_order)
 
     def keys(self):
@@ -87,26 +128,99 @@ class CudaServer(PeekMixin, CheckpointMixin):
     @property
     def grad_scale(self) -> float:
         """Aggregation factor on incoming global-mean grads: 1 for 'mean',
-        num_workers for 'sum' (so 1 either way at one device)."""
+        num_workers for 'sum'."""
         return float(self.num_workers) if self.aggregate == "sum" else 1.0
 
-    def update_tree(self, grads_kv: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """One server step on the global grads; returns the new params. Out
-        of place: tensors pulled before keep their values."""
+    # -- the apply across ranks -----------------------------------------------
+
+    def _reduce(self, grads_kv: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """This rank's gradients -> their mean over the ranks: each sharded
+        leaf's for the slice this rank owns only (a reduce-scatter along
+        its shard dimension, moved to the front), the rest whole (one
+        all-reduce a dtype over a flat buffer)."""
+        mesh, k = self.mesh, self.mesh.size
+        if mesh.group is None:
+            return dict(grads_kv)
+        out: Dict[str, torch.Tensor] = {}
+        whole: Dict[torch.dtype, List[str]] = {}
+        for key, g in grads_kv.items():
+            d = self._dims[key]
+            if d is None:
+                whole.setdefault(g.dtype, []).append(key)
+                continue
+            part = collectives.reduce_scatter(g.movedim(d, 0), mesh)
+            if k > 1:
+                part.div_(k)
+            out[key] = part.movedim(0, d)
+        for keys in whole.values():
+            flat = torch.cat([grads_kv[key].reshape(-1) for key in keys])
+            collectives.all_reduce(flat, mesh)
+            if k > 1:
+                flat.div_(k)
+            sizes = [grads_kv[key].numel() for key in keys]
+            for key, part in zip(keys, flat.split(sizes)):
+                out[key] = part.view(grads_kv[key].shape)
+        return out
+
+    def _apply_(self, params: Dict[str, torch.Tensor],
+                grads_kv: Dict[str, torch.Tensor]) -> None:
+        """Reduce this rank's ``grads_kv`` over the ranks and step
+        ``params`` (whole tensors on every rank) in place: each rank steps
+        the slices it owns, then the sharded leaves are all-gathered."""
+        grads = self._reduce(grads_kv)
         scale = self.grad_scale
+        if scale != 1.0:
+            grads = {key: g * scale for key, g in grads.items()}
+        mesh, k, r = self.mesh, self.mesh.size, self.mesh.rank
+        owned = {key: shard(p, self._dims[key], r, k)
+                 for key, p in params.items()}
+        self._opt.step_(owned, grads, self._state)
+        for key, d in self._dims.items():
+            if d is not None:
+                full = collectives.all_gather(owned[key].movedim(d, 0), mesh)
+                params[key].copy_(full.movedim(0, d))
+        self.apply_count += 1
+        self._account_update()
+
+    def _account_update(self):
+        k = self.num_workers
+        if self.placement == "replicated":
+            # grads were all-reduced across the data axis
+            self.collective_bytes += collectives.allreduce_bytes(
+                self._params, k)
+        else:
+            # reduce-scatter grads to owners + all-gather params
+            self.collective_bytes += collectives.reduce_scatter_bytes(
+                self._params, k)
+            self.collective_bytes += collectives.all_gather_bytes(
+                self._params, k)
+
+    def update_tree(self, grads_kv: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """One server step on this rank's grads (their mean over the ranks
+        is applied); returns the new params. Out of place: tensors pulled
+        before keep their values."""
         grads_kv = {k: torch.as_tensor(g, device=self.device)
                     for k, g in grads_kv.items()}
-        if scale != 1.0:
-            grads_kv = {k: g * scale for k, g in grads_kv.items()}
-        self._params = apply_out_of_place(self._opt, self._params, grads_kv,
-                                          self._state)
-        self.apply_count += 1
+        params = {k: p.clone() for k, p in self._params.items()}
+        self._apply_(params, grads_kv)
+        self._params = params
+        return dict(self._params)
+
+    def step_(self, grads_kv: Dict[str, torch.Tensor]) -> None:
+        """The fused step's apply: this rank's grads reduced over the
+        ranks and applied to the server's own tensors in place."""
+        self._apply_(self._params, grads_kv)
+
+    def tree(self) -> Dict[str, torch.Tensor]:
+        """The server's own parameter tensors (the fused steps read and
+        update them in place)."""
         return dict(self._params)
 
     # -- per-key protocol (stages, applies at full-tree granularity) --------
 
     def push(self, key: str, grad: Any, worker: int = 0) -> None:
-        del worker  # one device: the worker set is the one device
+        del worker  # SPMD: each rank pushes its own gradient
         if key not in self._params:
             raise KeyError(f"unregistered key {key!r}")
         if key in self._staged:
@@ -147,15 +261,6 @@ class CudaServer(PeekMixin, CheckpointMixin):
             return node
 
         return narrow(self._state)
-
-    # -- internals for the fused train step ---------------------------------
-
-    def get_tree_and_state(self):
-        return dict(self._params), self._state
-
-    def set_tree_and_state(self, params, state):
-        self._params, self._state = dict(params), state
-        self.apply_count += 1
 
     # -- checkpoint hooks (CheckpointMixin) ---------------------------------
 
@@ -306,36 +411,114 @@ class AsyncCudaServer(PeekMixin, AsyncStagingMixin, CheckpointMixin):
 
 
 class CudaBackend:
-    """Backend for ``ps_tpu_torch.init(backend='cuda')``: everything on one
-    device, ``cuda:0`` unless the config names the CPU."""
+    """Backend for ``ps_tpu_torch.init(backend='cuda')``.
+
+    One process: everything on one device, ``cuda:0`` unless the config
+    names another (or the CPU). With ``coordinator_uri`` (``host:port``)
+    this process is rank ``process_id`` of ``num_processes``: it joins the
+    process group there (``init_method='tcp://host:port'``), on device
+    ``cuda:<local rank>`` (``LOCAL_RANK``, else ``process_id``) unless the
+    config names one, and the mesh spans the group. The group's backend
+    is ``Config.dist_backend``: 'auto' takes NCCL for a CUDA device and
+    gloo for the CPU; 'gloo' or 'nccl' by name. Ranks that share one card
+    need gloo (NCCL refuses two ranks on a device), and it is never
+    chosen for them: they ask for it."""
 
     def __init__(self, config: Config):
         self.config = config
-        device = backend_device(config)
-        if config.num_processes > 1 or config.coordinator_uri is not None:
-            raise NotImplementedError(
-                "multi-process runs are not ported yet (one device only)")
-        if config.mesh_shape and any(v != 1 for v in config.mesh_shape.values()):
-            raise NotImplementedError(
-                f"mesh_shape {config.mesh_shape}: more than one device is "
-                f"not ported yet")
-        self.device = device
-        self.num_workers = 1
+        self._owns_group = False
+        if config.coordinator_uri is not None or config.num_processes > 1:
+            self.device = self._rank_device(config)
+            self._join_group(config)
+        else:
+            self.device = backend_device(config)
+        try:
+            self.mesh = make_mesh(config.mesh_shape)
+        except Exception:
+            self.shutdown(abort=True)
+            raise
+        self.num_workers = self.mesh.size
+
+    @staticmethod
+    def _rank_device(config: Config) -> torch.device:
+        device = torch.device(config.device)
+        if device.type != "cuda" or device.index is not None:
+            return backend_device(config)
+        local = int(os.environ.get("LOCAL_RANK", config.process_id))
+        if not torch.cuda.is_available():
+            return backend_device(config)  # raises: no GPU
+        if local >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"rank {config.process_id} would run on cuda:{local}, and "
+                f"this host has {torch.cuda.device_count()} GPU(s); name "
+                f"the device (device='cuda:0') for ranks that share one, "
+                f"with dist_backend='gloo'")
+        return torch.device("cuda", local)
+
+    def _join_group(self, config: Config) -> None:
+        import torch.distributed as dist
+
+        if config.coordinator_uri is None:
+            raise ValueError(
+                f"num_processes={config.num_processes} needs a "
+                f"coordinator_uri (host:port) to meet the other ranks at")
+        backend = config.dist_backend
+        if backend == "auto":
+            backend = "nccl" if self.device.type == "cuda" else "gloo"
+        if backend not in ("nccl", "gloo"):
+            raise ValueError(f"dist_backend must be 'auto', 'nccl' or "
+                             f"'gloo', got {config.dist_backend!r}")
+        if backend == "nccl" and self.device.type != "cuda":
+            raise ValueError("dist_backend='nccl' needs a CUDA device")
+        if dist.is_initialized():
+            raise RuntimeError("torch.distributed is already initialized "
+                               "outside ps_tpu_torch")
+        kwargs = {"device_id": self.device} if backend == "nccl" else {}
+        dist.init_process_group(
+            backend, init_method=f"tcp://{config.coordinator_uri}",
+            world_size=config.num_processes, rank=config.process_id,
+            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S),
+            **kwargs)
+        self._owns_group = True
+
+    def check_health(self) -> None:
+        """No-op: the failure detector is built on the heartbeat of
+        ``control/``, which comes with the van plane (ROADMAP item 5)."""
 
     def fused_apply_tier(self) -> str:
-        """The concrete sparse fused-apply tier for this backend's device:
+        """The concrete sparse fused-apply tier for this rank's device:
         ``Config.fused_apply`` with 'auto' resolved against it."""
         return resolve_tier(self.config.fused_apply, self.device)
 
     def create_server(self, optimizer, mode: Optional[str] = None,
                       aggregate: str = "mean", placement: str = "replicated",
                       partition_rules=None):
-        del placement  # 'replicated' and 'sharded' coincide at one device
         if partition_rules:
             raise NotImplementedError(
                 "partition_rules (tensor parallelism) are not ported yet")
         if (mode or self.config.mode) == "async":
+            if self.mesh.size > 1:
+                raise NotImplementedError(
+                    "the async server across ranks is not ported yet "
+                    "(ROADMAP Queue 1 item 4); run mode='async' in one "
+                    "process")
             return AsyncCudaServer(optimizer, self.device,
                                    num_workers=self.config.num_workers,
                                    dc_lambda=self.config.dc_lambda)
-        return CudaServer(optimizer, self.device, aggregate=aggregate)
+        return CudaServer(optimizer, self.device, aggregate=aggregate,
+                          mesh=self.mesh, placement=placement)
+
+    def shutdown(self, abort: bool = False) -> None:
+        """Leave the process group this backend joined. ``abort=True`` is
+        the post-failure path: the group is aborted without the barrier
+        (with a peer dead, a barrier would hang every survivor)."""
+        if not self._owns_group:
+            return
+        import torch.distributed as dist
+
+        self._owns_group = False
+        if abort:
+            dist.distributed_c10d._abort_process_group()
+            return
+        dist.barrier()
+        dist.destroy_process_group()

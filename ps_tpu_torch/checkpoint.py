@@ -1,6 +1,6 @@
 """Checkpoint/resume for every engine of the port, in torch-native files.
 
-Counterpart of ``ps_tpu/checkpoint.py`` at one device. A checkpoint holds
+Counterpart of ``ps_tpu/checkpoint.py``. A checkpoint holds
 the server-side state, so a resumed run continues as if never
 interrupted:
 
@@ -26,7 +26,7 @@ directory is flushed. A crash anywhere mid-save leaves the previous
 checkpoint intact (old meta, old arrays). After the commit every arrays
 directory but the new one and the one before it is deleted: a restore
 that read the old meta just before the commit can still finish.
-Single-writer: at most one process saves into a given path at a time.
+Single-writer: at most one job saves into a given path at a time.
 
 Optimizer state is stored as a flat leaf list (:func:`flatten_leaves`);
 its structure lives in the live engine, and ``meta["opt_structure"]``
@@ -44,11 +44,19 @@ A port checkpoint is not an orbax checkpoint. :func:`from_reference`
 converts one of ``ps_tpu``'s, read on the JAX side into numpy, into a
 port checkpoint; nothing converts the other way.
 
-Not ported yet (ROADMAP Queue 1 item 4, with ``torch.distributed``): the
-multi-process commit (barriers, one process writing the meta) and the
-elastic restore across world sizes (``abstract_state_dict``, partial
-restore, ``restore(elastic=True)``). :func:`keep_worker` is the remap
-policy that restore will use.
+Across the k ranks of a process group (the reference's multi-process
+jobs) every rank writes its own slices, ``arrays.<rank>.pt``, into the
+same ``arrays-<gen>/``: of each sharded leaf (ZeRO-1 parameters and
+their optimizer state, a sparse table's rows) the slice it owns, and the
+whole leaves on rank 0 only. A barrier precedes the commit; rank 0 alone
+writes ``meta.json`` (which records ``world_size`` and each sharded
+array's dimension, ``shard_dims``), flushes the directory and collects
+the garbage; a second barrier follows. A restore joins the slices and
+places each rank's own; across a change of world size it is refused
+unless ``restore(elastic=True)``, which re-slices the whole tensors for
+the new layout (and re-pads a sparse table's rows). The reference's
+orbax reshards a sync checkpoint on any restore; the port asks for the
+flag.
 """
 
 from __future__ import annotations
@@ -117,25 +125,20 @@ def _unflatten_groups(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     return out
 
 
-def save(path: str, arrays: Dict[str, Any], meta: Dict[str, Any]) -> None:
-    """Write one checkpoint: ``arrays`` (groups of CPU tensors, or CPU
-    tensors) in one ``torch.save`` file, plus the JSON ``meta``. Crash-safe
-    as the module docstring says."""
-    path = os.path.abspath(path)
-    os.makedirs(path, exist_ok=True)
-    flat = _flatten_groups(arrays)
-    gen, prev_dir = _last_commit(path)
-    gen += 1
-    arrays_dir = f"{_ARRAYS_PREFIX}{gen:08d}"
-    full = os.path.join(path, arrays_dir)
-    # clears a partial directory left by a crashed attempt at this generation
-    shutil.rmtree(full, ignore_errors=True)
-    os.makedirs(full)
-    with open(os.path.join(full, _ARRAYS_FILE), "wb") as f:
+def _rank_file(rank: int, world: int) -> str:
+    return _ARRAYS_FILE if world == 1 else f"arrays.{rank:05d}.pt"
+
+
+def _write(file: str, flat: Dict[str, torch.Tensor]) -> None:
+    with open(file, "wb") as f:
         torch.save(flat, f)
         f.flush()
         os.fsync(f.fileno())
-    _fsync_dir(full)
+
+
+def _commit(path: str, arrays_dir: str, gen: int, prev_dir, meta) -> None:
+    """Write ``meta.json`` (the commit point) and delete every arrays
+    directory but the new one and the one before it."""
     meta = dict(meta)
     meta["arrays_dir"] = arrays_dir
     meta["generation"] = gen
@@ -154,6 +157,54 @@ def save(path: str, arrays: Dict[str, Any], meta: Dict[str, Any]) -> None:
             shutil.rmtree(os.path.join(path, d), ignore_errors=True)
 
 
+def save(path: str, arrays: Dict[str, Any], meta: Dict[str, Any],
+         mesh=None) -> None:
+    """Write one checkpoint: ``arrays`` (groups of CPU tensors, or CPU
+    tensors) in one ``torch.save`` file, plus the JSON ``meta``. Crash-safe
+    as the module docstring says.
+
+    Across the k > 1 ranks of ``mesh`` every rank calls this with the same
+    ``path``, its own slices in ``arrays`` and the same ``meta`` (whose
+    ``shard_dims`` names every sliced array and its dimension): each rank
+    writes ``arrays.<rank>.pt`` into the same ``arrays-<gen>/`` (the
+    generation comes from the committed meta, the same everywhere); a
+    barrier; rank 0 alone commits ``meta.json`` and collects the garbage;
+    a barrier, so the commit is visible to every rank when ``save``
+    returns."""
+    path = os.path.abspath(path)
+    world = 1 if mesh is None else mesh.size
+    meta = dict(meta)
+    meta["world_size"] = world
+    flat = _flatten_groups(arrays)
+    os.makedirs(path, exist_ok=True)
+    gen, prev_dir = _last_commit(path)
+    gen += 1
+    arrays_dir = f"{_ARRAYS_PREFIX}{gen:08d}"
+    full = os.path.join(path, arrays_dir)
+    if world == 1:
+        # clears a partial directory left by a crashed attempt at this
+        # generation
+        shutil.rmtree(full, ignore_errors=True)
+        os.makedirs(full)
+        _write(os.path.join(full, _ARRAYS_FILE), flat)
+        _fsync_dir(full)
+        _commit(path, arrays_dir, gen, prev_dir, meta)
+        return
+    import torch.distributed as dist
+
+    rank = mesh.rank
+    if rank == 0:
+        shutil.rmtree(full, ignore_errors=True)
+        os.makedirs(full)
+    dist.barrier(group=mesh.group)
+    _write(os.path.join(full, _rank_file(rank, world)), flat)
+    dist.barrier(group=mesh.group)  # every rank's arrays are on disk
+    if rank == 0:
+        _fsync_dir(full)
+        _commit(path, arrays_dir, gen, prev_dir, meta)
+    dist.barrier(group=mesh.group)
+
+
 def read_meta(path: str) -> Dict[str, Any]:
     with open(os.path.join(os.path.abspath(path), _META_FILE)) as f:
         return json.load(f)
@@ -161,27 +212,46 @@ def read_meta(path: str) -> Dict[str, Any]:
 
 def restore(path: str, meta: Optional[Dict[str, Any]] = None
             ) -> Dict[str, Any]:
-    """The committed checkpoint's arrays as groups of CPU tensors, memory
-    mapped from the file (copy them to where they belong)."""
+    """The committed checkpoint's arrays as groups of whole CPU tensors,
+    memory mapped from the file (copy them to where they belong). A
+    checkpoint written by k > 1 ranks is read from every rank's file:
+    each array named in ``meta['shard_dims']`` is its ranks' slices
+    joined in rank order along its dimension, every other array rank
+    0's."""
     if meta is None:
         meta = read_meta(path)
-    file = os.path.join(os.path.abspath(path), meta["arrays_dir"],
-                        _ARRAYS_FILE)
-    return _unflatten_groups(torch.load(file, map_location="cpu",
-                                        weights_only=True, mmap=True))
+    folder = os.path.join(os.path.abspath(path), meta["arrays_dir"])
+    world = int(meta.get("world_size", 1))
+
+    def load(rank):
+        return torch.load(os.path.join(folder, _rank_file(rank, world)),
+                          map_location="cpu", weights_only=True, mmap=True)
+
+    flat = load(0)
+    if world > 1:
+        dims = meta.get("shard_dims", {})
+        parts = [flat] + [load(r) for r in range(1, world)]
+        for name, d in dims.items():
+            flat[name] = torch.cat([p[name] for p in parts], dim=d)
+    return _unflatten_groups(flat)
 
 
 def nbytes(path: str, meta: Optional[Dict[str, Any]] = None) -> int:
-    """Size on disk of the committed checkpoint's arrays file."""
+    """Size on disk of the committed checkpoint's arrays (every rank's
+    file)."""
     if meta is None:
         meta = read_meta(path)
-    return os.path.getsize(os.path.join(os.path.abspath(path),
-                                        meta["arrays_dir"], _ARRAYS_FILE))
+    folder = os.path.join(os.path.abspath(path), meta["arrays_dir"])
+    world = int(meta.get("world_size", 1))
+    return sum(os.path.getsize(os.path.join(folder, _rank_file(r, world)))
+               for r in range(world))
 
 
 def to_cpu(t: torch.Tensor) -> torch.Tensor:
-    """A CPU copy that later in-place updates of ``t`` do not reach."""
-    return t.detach().to("cpu", copy=True)
+    """A contiguous CPU copy that later in-place updates of ``t`` do not
+    reach (a slice's copy holds the slice alone)."""
+    return t.detach().to("cpu", copy=True,
+                         memory_format=torch.contiguous_format)
 
 
 def place(t: torch.Tensor, device) -> torch.Tensor:
@@ -274,11 +344,11 @@ def decode_stale_key(s: str):
 
 
 def keep_worker(worker: int, num_workers, elastic: bool) -> bool:
-    """The elastic remap policy, in one place: an elastic shrink drops all
-    per-worker state (stale snapshots, cached pulls, version-vector
-    entries) of workers >= the new worker count; everything else
-    survives. Only ``elastic=False`` restores exist yet (ROADMAP Queue 1
-    item 4 adds the elastic one)."""
+    """The elastic remap policy of async workers, in one place: an elastic
+    shrink drops all per-worker state (stale snapshots, cached pulls,
+    version-vector entries) of workers >= the new worker count;
+    everything else survives. The async server runs in one process, so
+    its restores are not elastic yet."""
     return not (elastic and num_workers is not None and worker >= num_workers)
 
 
@@ -346,15 +416,55 @@ class CheckpointMixin:
             "opt_structure": self._opt_structure(),
         }
         meta.update(self._checkpoint_meta())
+        mesh = getattr(self, "mesh", None)
+        if mesh is not None and mesh.size > 1:
+            self._keep_own_slices(arrays, meta, mesh)
         return arrays, meta
 
-    def load_state_dict(self, arrays, meta) -> None:
-        """Check ``arrays`` (CPU tensors) and ``meta`` against the live
-        engine, then place them on its device and adopt them."""
+    def _keep_own_slices(self, arrays, meta, mesh) -> None:
+        """Across ranks: keep in ``arrays`` the slices this rank owns of
+        each sharded leaf, and the whole leaves on rank 0 only; name each
+        sharded array and its dimension in ``meta['shard_dims']``."""
+        from ps_tpu_torch.parallel.sharding import shard
+
+        r, k = mesh.rank, mesh.size
+        dims = {f"params/{key}": d for key, d in self._dims.items()}
+        dims.update({f"opt/{i}": d for i, d in zip(arrays["opt"],
+                                                   self._state_dims)})
+        for group in ("params", "opt"):
+            kept = {}
+            for name, t in arrays[group].items():
+                d = dims[f"{group}/{name}"]
+                if d is not None:
+                    # opt leaves are this rank's slices already
+                    kept[name] = shard(t, d, r, k) if group == "params" else t
+                elif r == 0:
+                    kept[name] = t
+            arrays[group] = kept
+        meta["shard_dims"] = {n: d for n, d in dims.items() if d is not None}
+        meta["placement"] = self.placement
+
+    def load_state_dict(self, arrays, meta, elastic: bool = False) -> None:
+        """Check ``arrays`` (whole CPU tensors, as :func:`restore` reads
+        them) and ``meta`` against the live engine, then place this rank's
+        slices of them on its device and adopt them. A checkpoint written
+        by another number of ranks is refused unless ``elastic``, which
+        reads it into this engine's layout."""
         if meta.get("engine") != self.engine_name:
             raise ValueError(
                 f"checkpoint was written by engine {meta.get('engine')!r} but "
                 f"this store runs {self.engine_name!r} — backend/mode mismatch")
+        mesh = getattr(self, "mesh", None)
+        world = mesh.size if mesh is not None else 1
+        saved_world = int(meta.get("world_size", 1))
+        if saved_world != world and not elastic:
+            raise ValueError(
+                f"checkpoint was written by {saved_world} rank(s) and this "
+                f"job runs {world}; restore(elastic=True) reads it into "
+                f"this job's layout")
+        state_dims = getattr(self, "_state_dims", None) or [None] * len(
+            flatten_leaves(self._state))
+        r = mesh.rank if mesh is not None else 0
         params = arrays.get("params", {})
         if set(params) != set(self._params):
             raise ValueError("checkpoint keys do not match registered keys")
@@ -372,8 +482,12 @@ class CheckpointMixin:
         if set(opt) != set(live_opt):
             raise ValueError(f"checkpoint holds {len(opt)} optimizer-state "
                              f"leaves, this optimizer has {len(live_opt)}")
-        for i, live in live_opt.items():
-            check_like(f"optimizer-state leaf {i}", opt[i], live)
+        for (i, live), d in zip(live_opt.items(), state_dims):
+            whole = list(live.shape)
+            if d is not None:
+                whole[d] *= world
+            check_like(f"optimizer-state leaf {i}", opt[i],
+                       torch.empty(whole, dtype=live.dtype, device="meta"))
         stale = arrays.get("stale", {})
         if sorted(stale) != sorted(meta.get("stale_keys", [])):
             raise ValueError("checkpoint stale snapshots do not match its "
@@ -391,8 +505,12 @@ class CheckpointMixin:
         # change: a refused restore leaves the engine untouched
         self._validate_checkpoint_meta(meta)
         new_params = {k: place(params[k], self.device) for k in self._params}
-        new_state = unflatten_like(
-            self._state, {i: place(t, self.device) for i, t in opt.items()})
+        new_state = unflatten_like(self._state, {
+            i: place(opt[i] if d is None
+                     else opt[i].narrow(d, r * opt[i].shape[d] // world,
+                                        opt[i].shape[d] // world),
+                     self.device)
+            for i, d in zip(live_opt, state_dims)})
         new_stale = {decode_stale_key(s): place(v, self.device)
                      for s, v in stale.items()}
         self._params = new_params

@@ -20,9 +20,12 @@ Environment variables honored by :meth:`Config.from_env`:
 - ``PS_BACKEND``           — 'local' or 'cuda' (default 'cuda'; 'local'
   is not ported yet)
 - ``PS_NUM_WORKERS``       — logical worker count for sync aggregation
-- ``PS_COORDINATOR_URI``   — multi-host coordinator ``host:port`` (tpu backend)
-- ``PS_NUM_PROCESSES``     — multi-host process count
-- ``PS_PROCESS_ID``        — this process's id
+- ``PS_COORDINATOR_URI``   — where the ranks meet, ``host:port`` (cuda
+  backend; rank 0 listens there)
+- ``PS_NUM_PROCESSES``     — the world size (ranks)
+- ``PS_PROCESS_ID``        — this process's rank
+- ``PS_DIST_BACKEND``      — 'auto' (NCCL on CUDA, gloo on the CPU),
+  'nccl' or 'gloo'
 - ``PS_MODE``              — 'sync' or 'async' (delay-compensated)
 - ``PS_DC_LAMBDA``         — DC-ASGD delay-compensation coefficient
   (async mode; default 0.04)
@@ -301,10 +304,14 @@ class Config:
       num_workers: logical worker count for the local backend's sync
         aggregation semantics (server applies once all workers pushed).
         For the 'tpu' backend the worker count is the mesh's data-axis size.
-      coordinator_uri: ``host:port`` of the jax.distributed coordinator for
-        multi-host runs. ``None`` means single-host.
-      num_processes / process_id: multi-host topology for
-        ``jax.distributed.initialize``.
+      coordinator_uri: ``host:port`` where the ranks of a multi-process
+        run meet (``init_method='tcp://host:port'``; rank 0 listens
+        there). ``None`` means one process.
+      num_processes / process_id: the world size and this process's rank
+        in the ``torch.distributed`` process group.
+      dist_backend: the process group's backend — 'auto' (NCCL on a CUDA
+        device, gloo on the CPU), 'nccl', or 'gloo' (which ranks sharing
+        one card must ask for).
       role: cross-process PS deployments — 'server' or 'worker' (None =
         the SPMD single-controller topology with no PS processes).
       server_uris: worker side — ``h0:p0,h1:p1,...`` naming every server
@@ -558,6 +565,9 @@ class Config:
     coordinator_uri: Optional[str] = None
     num_processes: int = 1
     process_id: int = 0
+    # the process group's backend across ranks: 'auto' (NCCL on a CUDA
+    # device, gloo on the CPU), 'nccl' or 'gloo' (ranks sharing one card)
+    dist_backend: str = "auto"
     mesh_shape: Optional[dict] = None  # pslint: disable=PSL402 -- a structured {axis: size} dict, not env-spellable; launchers pass it programmatically
     mode: str = "sync"
     dc_lambda: float = 0.04
@@ -747,6 +757,9 @@ class Config:
             raise ValueError(f"unknown mode {self.mode!r}; use 'sync' or 'async'")
         if self.num_workers < 1:
             raise ValueError("num_workers must be >= 1")
+        if self.dist_backend not in ("auto", "nccl", "gloo"):
+            raise ValueError(f"unknown dist_backend {self.dist_backend!r}; "
+                             f"use 'auto', 'nccl' or 'gloo'")
         if self.role not in (None, "server", "worker"):
             if self.role == "scheduler":
                 raise ValueError(
@@ -913,6 +926,8 @@ class Config:
             kwargs["num_processes"] = int(env["PS_NUM_PROCESSES"])
         if "PS_PROCESS_ID" in env:
             kwargs["process_id"] = int(env["PS_PROCESS_ID"])
+        if "PS_DIST_BACKEND" in env:
+            kwargs["dist_backend"] = env["PS_DIST_BACKEND"]
         if "PS_MODE" in env:
             kwargs["mode"] = env["PS_MODE"]
         if "PS_DC_LAMBDA" in env:

@@ -2,12 +2,16 @@
 config 2 and its headline benchmark.
 
 Counterpart of ``examples/train_resnet50.py``, with the same flags and
-defaults, on one device: ``KVStore(optimizer='momentum').make_step`` over
+defaults: ``KVStore(optimizer='momentum').make_step`` over
 :class:`~ps_tpu_torch.models.resnet.ResNet` (v1.5, bf16 compute over f32
 parameters) — the label-smoothed loss's gradient, then momentum SGD applied
 by the server in place, with the BatchNorm statistics threaded through the
-step as aux state. ``placement='sharded'`` is ``'replicated'`` at one
-device, and no collective moves a byte.
+step as aux state. It takes its topology from the environment as the
+reference's trainer does: one process, or k ranks (``PS_COORDINATOR_URI``,
+``PS_NUM_PROCESSES``, ``PS_PROCESS_ID``), each drawing the same global
+batches and training on its slice, with BatchNorm over the global batch
+and ``placement='sharded'`` ZeRO-1 across the ranks (the same as
+``'replicated'`` at one, where no collective moves a byte).
 
 The input overlaps the steps: the generator (or the memory-mapped file read
 of ``--data``) runs in a producer thread, and each batch is copied to the
@@ -34,6 +38,7 @@ import torch
 import ps_tpu_torch as ps
 from ps_tpu_torch.data.prefetch import device_prefetch, threaded_source
 from ps_tpu_torch.data.synthetic import imagenet_batches
+from ps_tpu_torch.kv.store import rank_slice
 from ps_tpu_torch.models.resnet import ResNet50, make_loss_fn
 from ps_tpu_torch.utils import StepLogger, TrainMetrics, trace
 
@@ -78,13 +83,14 @@ def main(argv=None):
                        momentum=args.momentum, placement=args.placement)
     store.init(params)
     nparams = sum(math.prod(s) for s in model.shapes()[0].values())
-    print(f"ResNet-50: {nparams / 1e6:.1f}M params, {ndev} device "
-          f"({device}), global batch {args.batch_size}, "
+    print(f"ResNet-50: {nparams / 1e6:.1f}M params, {ndev} device(s) "
+          f"({device}, rank {ctx.mesh.rank}), global batch {args.batch_size}, "
           f"{args.image_size}x{args.image_size}, {args.dtype}, momentum "
           f"placement={args.placement}")
 
     run = store.make_step(
-        make_loss_fn(model, label_smoothing=args.label_smoothing),
+        make_loss_fn(model, label_smoothing=args.label_smoothing,
+                     mesh=store.mesh),
         has_aux=True)
     if args.data:
         from ps_tpu_torch.data.files import file_batches
@@ -95,6 +101,7 @@ def main(argv=None):
     else:
         source = imagenet_batches(args.batch_size, image_size=args.image_size,
                                   seed=args.seed, steps=args.steps)
+    source = (rank_slice(b, ctx.mesh) for b in source)
     # the default placement: at one device shard_batch's, but from pinned
     # memory and without blocking the host
     stream = iter(device_prefetch(threaded_source(source)))

@@ -17,9 +17,10 @@ Counterpart of ``ps_tpu/kv/store.py`` on whichever backend
 ``push``/``pull``/``push_all``/``pull_all``/``push_pull`` and the async
 paths apply out of place: a tensor they returned keeps its values. Byte
 counters for every push and pull feed the push/pull GB/s metric, and
-``collective_bytes`` is 0 (one device runs no collective). ``save`` and
-``restore`` checkpoint the server state on any engine
-(``ps_tpu_torch/checkpoint.py``).
+``collective_bytes`` the server's analytic per-rank collective traffic.
+``save`` and ``restore`` checkpoint the server state on any engine, each
+rank writing its own slices (``ps_tpu_torch/checkpoint.py``), and
+``restore(elastic=True)`` reads a checkpoint of another world size.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from ps_tpu_torch import checkpoint as ckpt
 from ps_tpu_torch.api import current_context
 from ps_tpu_torch.kv import keys as keymod
 from ps_tpu_torch.optim import Optimizer, make_optimizer
+from ps_tpu_torch.parallel import collectives
 
 
 def _nbytes(x) -> int:
@@ -56,6 +58,40 @@ def to_device(batch: Any, device, non_blocking: bool = False) -> Any:
     if t.device.type == "cpu":
         t = t.pin_memory()
     return t.to(device, non_blocking=True)
+
+
+def _batch_part(batch: Any, index: int, count: int, what: str) -> Any:
+    """Part ``index`` of ``count`` equal parts (dim 0) of every array of a
+    batch; an indivisible batch raises, naming ``what`` is counted."""
+
+    def part(x):
+        n = x.shape[0]
+        if n % count:
+            raise ValueError(f"global batch dim {n} not divisible by "
+                             f"{what}={count}")
+        m = n // count
+        return x[index * m:(index + 1) * m]
+
+    return _map_tree(part, batch)
+
+
+def rank_slice(batch: Any, mesh) -> Any:
+    """This rank's equal slice (dim 0) of every array of a global host
+    batch: what a rank passes to ``shard_batch`` when each rank draws the
+    same global batch. The batch itself at one rank."""
+    if mesh is None or mesh.size == 1:
+        return batch
+    return _batch_part(batch, mesh.rank, mesh.size, "ranks")
+
+
+def global_mean(value: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean over the mesh's ranks of a per-rank value (a loss meaned
+    over this rank's slice of the batch): the global batch's mean where
+    the slices are equal. Returned as it is without a process group."""
+    if mesh.group is None:
+        return value
+    total = collectives.all_reduce(value.detach().clone(), mesh)
+    return total / mesh.size if mesh.size > 1 else total
 
 
 def _map_tree(fn, tree: Any) -> Any:
@@ -90,8 +126,9 @@ class KVStore:
         :class:`~ps_tpu_torch.optim.Optimizer` — the server-side update rule.
       mode: 'sync' | 'async' | None (inherit from Config).
       aggregate: 'mean' (default) or 'sum'.
-      placement: cuda backend only: 'replicated' or 'sharded' — the same
-        at one device.
+      placement: cuda backend only: 'replicated' or 'sharded' (ZeRO-1:
+        each rank owns a slice of each parameter and its optimizer state;
+        the same as 'replicated' at one rank).
       **opt_kwargs: forwarded to the named optimizer (e.g. learning_rate).
     """
 
@@ -217,9 +254,16 @@ class KVStore:
     def make_step(self, loss_fn, has_aux: bool = False):
         """Build ``run(batch, *extra) -> (loss, params)`` (or ``(loss,
         params, aux)``). ``loss_fn(params, batch, *extra)`` returns a scalar
-        loss meaned over the global batch (or ``(loss, aux)`` with has_aux).
+        loss meaned over the batch it is given (or ``(loss, aux)`` with
+        has_aux).
 
         On the cuda backend: the gradient, then the server apply, in place.
+        Across ranks each rank passes its local slice of the global batch
+        (equal slices, as the reference's multi-process ``shard_batch``
+        takes them); the server applies the mean gradient over the ranks,
+        and the loss returned is the mean over the ranks, the global
+        batch's. ``aux`` is this rank's as the loss function returned it
+        (cross-rank BatchNorm statistics are already global).
         On the local backend: the explicit protocol. With ``num_workers >
         1`` the batch is the global batch, split into equal slices (an
         indivisible batch raises); each logical worker takes the gradient
@@ -233,23 +277,19 @@ class KVStore:
             raise RuntimeError(
                 "make_step is the sync fused path; in async mode use "
                 "make_async_step (or push_all/pull_all directly)")
-        if not hasattr(engine, "get_tree_and_state"):
+        if not hasattr(engine, "step_"):
             return self._make_local_step(loss_fn, has_aux)
         treedef, key_order = self._treedef, self._key_order
-        opt = self._opt
-        grad_scale = engine.grad_scale
 
         def run(batch, *extra):
-            params_kv, state = engine.get_tree_and_state()
+            params_kv = engine.tree()
             loss, grads, aux = value_and_grad(
                 loss_fn, keymod.unflatten(treedef, params_kv, key_order),
                 batch, *extra, has_aux=has_aux)
             gkv, _ = keymod.flatten_with_keys(grads)
             with torch.no_grad():
-                if grad_scale != 1.0:
-                    gkv = {k: g * grad_scale for k, g in gkv.items()}
-                opt.step_(params_kv, gkv, state)
-            engine.set_tree_and_state(params_kv, state)
+                engine.step_(gkv)
+                loss = global_mean(loss, engine.mesh)
             nbytes = sum(_nbytes(v) for v in params_kv.values())
             self.bytes_pushed += nbytes
             self.bytes_pulled += nbytes
@@ -264,14 +304,6 @@ class KVStore:
     def _make_local_step(self, loss_fn, has_aux: bool):
         nw = self._engine.num_workers
 
-        def slice_w(x, w):
-            n = x.shape[0]
-            if n % nw:
-                raise ValueError(f"global batch dim {n} not divisible by "
-                                 f"num_workers={nw}")
-            r = n // nw
-            return x[w * r:(w + 1) * r]
-
         def run_local(batch, *extra):
             params = self.params()
             if nw == 1:
@@ -282,7 +314,7 @@ class KVStore:
                                                                 new_params)
             losses, auxes = [], []
             for w in range(nw):
-                shard = _map_tree(lambda x, _w=w: slice_w(x, _w), batch)
+                shard = _batch_part(batch, w, nw, "num_workers")
                 loss, grads, aux = value_and_grad(loss_fn, params, shard,
                                                   *extra, has_aux=has_aux)
                 losses.append(loss)
@@ -345,7 +377,10 @@ class KVStore:
 
     def shard_batch(self, batch: Any) -> Any:
         """Place a host batch (a dict, tuple or list of arrays or tensors,
-        e.g. ``(images, labels)``) on the device (:func:`to_device`)."""
+        e.g. ``(images, labels)``) on this rank's device
+        (:func:`to_device`). One process: the global batch. Across ranks:
+        this rank's slice of the global batch, as the reference's
+        multi-process ``shard_batch`` takes it."""
         return to_device(batch, self._ctx.device)
 
     # -- checkpoint/resume --------------------------------------------------
@@ -387,9 +422,9 @@ class KVStore:
             "cache_keys": sorted(cache),
             "cache_stale_aliases": sorted(aliased),
         }
-        ckpt.save(path, arrays, meta)
+        ckpt.save(path, arrays, meta, mesh=getattr(engine, "mesh", None))
 
-    def restore(self, path: str) -> Any:
+    def restore(self, path: str, elastic: bool = False) -> Any:
         """Restore a checkpoint written by :meth:`save` into this store.
 
         Call after ``init(params)`` with the same parameter structure and
@@ -400,8 +435,12 @@ class KVStore:
         steps built by ``make_step``, ``make_async_step`` or
         ``make_composite_step`` before the restore keep working. A
         restored worker's cached pull is the very tensor restored as its
-        stale snapshot, as it was when saved. Returns the restored
-        parameter tree."""
+        stale snapshot, as it was when saved. Across ranks every rank
+        calls it and takes its own slices. A checkpoint written by another
+        number of ranks is refused unless ``elastic=True``, which reads
+        each leaf whole and keeps the slice this rank owns under the live
+        layout (the values are the saved ones, bitwise). Returns the
+        restored parameter tree."""
         self._require_init()
         meta = ckpt.read_meta(path)
         saved_order = meta["store"]["key_order"]
@@ -428,7 +467,7 @@ class KVStore:
             ckpt.check_like(f"cached pull {s!r}", v, engine._params[k])
             by_worker.setdefault(w, {})[k] = ckpt.place(v, engine.device)
         with engine.checkpoint_lock():
-            engine.load_state_dict(arrays, meta)
+            engine.load_state_dict(arrays, meta, elastic=elastic)
             stale = getattr(engine, "_stale", {})
             for s in aliases:
                 w, k = ckpt.decode_stale_key(s)
@@ -456,11 +495,17 @@ class KVStore:
         return self._engine.optimizer_state(key)
 
     @property
+    def mesh(self):
+        """The ranks this store's step reduces over (None on the local
+        backend): what a loss with cross-rank statistics needs."""
+        return getattr(self._engine, "mesh", None)
+
+    @property
     def collective_bytes(self) -> int:
-        """Bytes the server's collectives have moved per device (the
-        reference's analytic ICI traffic): 0, since one device runs no
-        collective."""
-        return 0
+        """Bytes the server's collectives have moved per rank: the
+        reference's analytic ring traffic (0 at one rank, and on the local
+        and async servers, which run none)."""
+        return getattr(self._engine, "collective_bytes", 0)
 
     @property
     def num_workers(self) -> int:

@@ -37,6 +37,7 @@ from torch import nn
 
 from ps_tpu_torch.kv import keys as keymod
 from ps_tpu_torch.ops.flash_attention import flash_attention
+from ps_tpu_torch.parallel import collectives
 
 # flax's lecun_normal draws a unit normal truncated to [-2, 2], rescaled by
 # this constant (its standard deviation) so the variance is 1/fan_in
@@ -114,9 +115,39 @@ class LayerNorm(nn.Module):
                             self.bias, eps=_LN_EPS)
 
 
+class _EmbedLookup(torch.autograd.Function):
+    """``F.embedding``'s forward with a backward whose summation order is
+    fixed: the output gradients are stably sorted by id and each id's rows
+    summed in that order (``segment_reduce``). PyTorch's CUDA backward of
+    ``F.embedding`` sums a heavily repeated id in an order that changes
+    from run to run (all 16,384 token-type ids of a 32 x 512 batch are 0;
+    measured on an H100), which made BERT's default path differ from
+    itself; the reference's XLA program is deterministic."""
+
+    @staticmethod
+    def forward(ctx, ids, table):
+        ctx.save_for_backward(ids)
+        ctx.num_rows = table.shape[0]
+        return F.embedding(ids, table)
+
+    @staticmethod
+    def backward(ctx, gy):
+        (ids,) = ctx.saved_tensors
+        flat = ids.reshape(-1)
+        gy = gy.reshape(flat.numel(), -1)
+        order = torch.argsort(flat, stable=True)
+        rows, counts = torch.unique_consecutive(flat[order],
+                                                return_counts=True)
+        sums = torch.segment_reduce(gy[order], "sum", lengths=counts)
+        grad = gy.new_zeros((ctx.num_rows, gy.shape[1]))
+        grad[rows] = sums  # distinct rows: a plain write
+        return None, grad
+
+
 class Embed(nn.Module):
     """flax ``Embed``: ``embedding`` [num, features], drawn from a normal
-    of variance 1/features (flax's default embedding init)."""
+    of variance 1/features (flax's default embedding init). Its backward
+    is deterministic (:class:`_EmbedLookup`)."""
 
     def __init__(self, num: int, features: int, generator=None, device=None):
         super().__init__()
@@ -127,7 +158,7 @@ class Embed(nn.Module):
                             generator=generator)
 
     def forward(self, ids):
-        return F.embedding(ids, self.embedding)
+        return _EmbedLookup.apply(ids, self.embedding)
 
 
 class SelfAttention(nn.Module):
@@ -260,29 +291,39 @@ class BertMLM(nn.Module):
             own[key].copy_(src)
 
 
-def mlm_loss(logits, labels, ignore_index: int = -100):
+def mlm_loss(logits, labels, ignore_index: int = -100, mesh=None):
     """Mean cross-entropy over masked positions only (labels ==
     ignore_index elsewhere), in the logsumexp form ``lse(logits) -
-    logits[label]``; an all-ignored batch gives 0."""
+    logits[label]``; an all-ignored batch gives 0.
+
+    With the ``mesh`` of k > 1 ranks, ``labels`` are this rank's slice of
+    the global batch, and the mean is the global batch's (as the
+    reference's loss over the sharded batch takes it): this rank's sum
+    over the global count of masked positions, times k, so the mean over
+    the ranks, which the step reports and whose gradient the server
+    applies, is the global mean (every rank must make the call)."""
     valid = labels != ignore_index
     safe_labels = torch.where(valid, labels, 0).long()
     lse = torch.logsumexp(logits.float(), dim=-1)
     tok = torch.gather(logits, -1, safe_labels[..., None])[..., 0].float()
     ce = lse - tok
-    n = torch.clamp(valid.sum(), min=1)
-    return (ce * valid).sum() / n
+    if mesh is None or mesh.group is None or mesh.size == 1:
+        return (ce * valid).sum() / torch.clamp(valid.sum(), min=1)
+    n = collectives.all_reduce(valid.sum().reshape(1), mesh)[0]
+    return (ce * valid).sum() / (torch.clamp(n, min=1) / mesh.size)
 
 
-def make_mlm_loss_fn(model: BertMLM):
+def make_mlm_loss_fn(model: BertMLM, mesh=None):
     """PS-step loss closure: ``loss_fn(params, batch) -> loss`` over the
     data generator's {input_ids, labels, attention_mask} dict batches, with
-    ``params`` the nested dict of :meth:`BertMLM.param_tree`."""
+    ``params`` the nested dict of :meth:`BertMLM.param_tree`; with the
+    store's ``mesh`` (``KVStore.mesh``) the mean is the global batch's."""
 
     def loss_fn(params, batch):
         flat, _ = keymod.flatten_with_keys(params)
         logits = torch.func.functional_call(
             model, {k.replace("/", "."): p for k, p in flat.items()},
             (batch["input_ids"], batch["attention_mask"]))
-        return mlm_loss(logits, batch["labels"])
+        return mlm_loss(logits, batch["labels"], mesh=mesh)
 
     return loss_fn

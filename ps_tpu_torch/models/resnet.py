@@ -18,7 +18,9 @@ bf16 compute over f32 parameters, with flax's numerics carried over:
   · (rsqrt(var + eps) · scale) + bias`` in f32, then cast to the compute
   type; the running statistics become ``0.9·old + 0.1·batch`` with the
   biased variance. Its backward saves only the input, in the compute type,
-  and per-channel f32 statistics;
+  and per-channel f32 statistics. Across ranks the statistics are the
+  global batch's (cross-rank BatchNorm, :class:`_BatchNormTrain`), as
+  the reference's GSPMD BatchNorm takes them;
 - with ``dtype=torch.float32`` every convolution runs in full f32 on the
   card, forward and backward (cuDNN would take TF32 by default), under a
   setting scoped to the model.
@@ -50,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from ps_tpu_torch.kv import keys as keymod
+from ps_tpu_torch.parallel import collectives
 
 # flax's lecun_normal draws a unit normal truncated to [-2, 2], rescaled by
 # this constant (its standard deviation) so the variance is 1/fan_in
@@ -126,40 +129,77 @@ class _BatchNormTrain(torch.autograd.Function):
     batch's f32 mean and biased variance. Saves the input (in its own type)
     and per-channel statistics; the backward is the batch-norm gradient
     (PyTorch's ``native_batch_norm_backward`` with this forward's mean and
-    1/std), which equals flax's with the variance above 0."""
+    1/std), which equals flax's with the variance above 0.
+
+    Across the ranks of ``mesh`` the statistics are the global batch's, as
+    the reference's BatchNorm takes them over the sharded global batch
+    (GSPMD reduces its means over the mesh): the forward all-reduces the
+    f32 per-channel ``[Σx, Σx²]`` and the element count before it forms
+    the mean and the variance by flax's formula, and the backward
+    all-reduces the two per-channel sums the input's gradient needs
+    (``Σgy`` and ``Σgy·(x - mean)``); the scale's and the bias's gradients
+    stay this rank's sums, which the server's reduction averages."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias):
+    def forward(ctx, x, scale, bias, mesh):
         xf = x.float()
-        mean = xf.mean((0, 2, 3))
-        var = torch.clamp_min(torch.square(xf).mean((0, 2, 3))
-                              - torch.square(mean), 0.0)
+        if mesh is None:
+            mean = xf.mean((0, 2, 3))
+            var = torch.clamp_min(torch.square(xf).mean((0, 2, 3))
+                                  - torch.square(mean), 0.0)
+        else:
+            c = x.shape[1]
+            sums = torch.cat([xf.sum((0, 2, 3)),
+                              torch.square(xf).sum((0, 2, 3)),
+                              xf.new_full((1,), x.numel() // c)])
+            collectives.all_reduce(sums, mesh)
+            ctx.count = sums[2 * c]
+            mean = sums[:c] / ctx.count
+            var = torch.clamp_min(sums[c:2 * c] / ctx.count
+                                  - torch.square(mean), 0.0)
         del xf
         y = _normalize(x, mean, var, scale, bias)
         ctx.save_for_backward(x, scale, mean, torch.rsqrt(var + _BN_EPS))
+        ctx.mesh = mesh
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, gy, _gmean, _gvar):
         x, scale, mean, rstd = ctx.saved_tensors
-        return torch.ops.aten.native_batch_norm_backward(
-            gy, x, scale, None, None, mean, rstd, True, _BN_EPS,
-            list(ctx.needs_input_grad))
+        if ctx.mesh is None:
+            gx, gscale, gbias = torch.ops.aten.native_batch_norm_backward(
+                gy, x, scale, None, None, mean, rstd, True, _BN_EPS,
+                list(ctx.needs_input_grad[:3]))
+            return gx, gscale, gbias, None
+        c, shape = x.shape[1], (1, -1, 1, 1)
+        gyf = gy.float()
+        xmu = x.float() - mean.view(shape)
+        sums = torch.cat([gyf.sum((0, 2, 3)), (gyf * xmu).sum((0, 2, 3))])
+        gbias, gscale = sums[:c].clone(), sums[c:] * rstd
+        collectives.all_reduce(sums, ctx.mesh)
+        mean_dy, mean_dy_xmu = sums[:c] / ctx.count, sums[c:] / ctx.count
+        gx = ((gyf - mean_dy.view(shape)
+               - xmu * (rstd * rstd * mean_dy_xmu).view(shape))
+              * (rstd * scale).view(shape))
+        return gx.to(x.dtype), gscale, gbias, None
 
 
 class _Scope:
     """One module's parameters and batch statistics during a forward, and
     the statistics it produces — what a flax scope holds."""
 
-    def __init__(self, params, stats, train: bool, dtype, new_stats=None):
+    def __init__(self, params, stats, train: bool, dtype, new_stats=None,
+                 mesh=None):
         self.params, self.stats = params, stats
         self.train, self.dtype = train, dtype
         self.new_stats = {} if new_stats is None else new_stats
+        self.mesh = mesh  # the ranks BatchNorm reduces over, or None
 
     def child(self, name: str) -> "_Scope":
         return _Scope(self.params[name], self.stats[name], self.train,
-                      self.dtype, self.new_stats.setdefault(name, {}))
+                      self.dtype, self.new_stats.setdefault(name, {}),
+                      self.mesh)
 
     def conv(self, name: str, x, stride: int = 1):
         """flax ``Conv(use_bias=False, padding='SAME')`` in the compute
@@ -175,7 +215,8 @@ class _Scope:
         if not self.train:
             self.new_stats[name] = s
             return _normalize(x, s["mean"], s["var"], p["scale"], p["bias"])
-        y, mean, var = _BatchNormTrain.apply(x, p["scale"], p["bias"])
+        y, mean, var = _BatchNormTrain.apply(x, p["scale"], p["bias"],
+                                             self.mesh)
         self.new_stats[name] = {
             "mean": _BN_MOMENTUM * s["mean"] + (1 - _BN_MOMENTUM) * mean,
             "var": _BN_MOMENTUM * s["var"] + (1 - _BN_MOMENTUM) * var}
@@ -380,10 +421,17 @@ class ResNet:
             out.append(self._place(converted, device))
         return tuple(out)
 
-    def apply(self, params, batch_stats, images, train: bool = True):
+    def apply(self, params, batch_stats, images, train: bool = True,
+              mesh=None):
         """Logits ``[B, num_classes]`` (f32) for NHWC ``images`` and the
-        new ``batch_stats`` (the given ones when ``train`` is False)."""
-        scope = _Scope(params, batch_stats, train, self.dtype)
+        new ``batch_stats`` (the given ones when ``train`` is False).
+        With the ``mesh`` of more than one rank, ``images`` is this rank's
+        slice of the global batch and training-mode BatchNorm takes the
+        global batch's statistics (every rank must make the call); without
+        it, the statistics are those of ``images``."""
+        if mesh is not None and (mesh.group is None or mesh.size == 1):
+            mesh = None
+        scope = _Scope(params, batch_stats, train, self.dtype, mesh=mesh)
         with _full_f32():
             x = images.to(self.dtype).permute(0, 3, 1, 2)  # channels_last
             x = scope.conv("conv_init", x, 1 if self.small_inputs else 2)
@@ -432,16 +480,18 @@ ResNet152 = functools.partial(ResNet, stage_sizes=(3, 8, 36, 3),
                               block_cls=BottleneckBlock)
 
 
-def make_loss_fn(model: ResNet, label_smoothing: float = 0.0):
+def make_loss_fn(model: ResNet, label_smoothing: float = 0.0, mesh=None):
     """PS-step loss closure for a BatchNorm model:
     ``loss_fn(params, batch, model_state) -> (loss, new_model_state)`` for
     ``KVStore.make_step(loss_fn, has_aux=True)``; ``batch`` is ``(images,
-    labels)`` and the ``batch_stats`` thread through as aux state."""
+    labels)`` and the ``batch_stats`` thread through as aux state. With
+    the store's ``mesh`` (``KVStore.mesh``) BatchNorm takes the global
+    batch's statistics across its ranks."""
 
     def loss_fn(params, batch, model_state):
         images, labels = batch
         logits, new_state = model.apply(params, model_state, images,
-                                        train=True)
+                                        train=True, mesh=mesh)
         return cross_entropy_loss(logits, labels, label_smoothing), new_state
 
     return loss_fn

@@ -2,10 +2,16 @@
 
 Counterpart of ``ps_tpu/train.py``. Each step gathers the embedding rows,
 takes the gradient of the loss, applies the dense optimizer on the server
-and pushes the row grads into each ``SparseEmbedding``, whose apply is one
-fused kernel launch per table on the card. Where the reference compiles
-all of it into one donated XLA program, the port runs it eagerly and
-updates parameters, tables and optimizer state in place.
+and pushes the row grads into each ``SparseEmbedding``, whose apply is a
+grouping pass and one apply kernel per table on the card. Where the
+reference compiles all of it into one donated XLA program, the port runs
+it eagerly and updates parameters, tables and optimizer state in place.
+
+Across ranks each rank passes its slice of the global batch: the dense
+half goes through the server's reduction (``KVStore``), each table's
+rows travel to and from their owners (``SparseEmbedding``'s exchange),
+and every rank launches each table's kernels once a step on the rows it
+owns. The loss returned is the global batch's.
 
 Gradients w.r.t. embeddings are taken against the *gathered rows* (shape
 [N, D]), made leaf tensors, never against the full table: that is the
@@ -21,7 +27,7 @@ import torch
 
 from ps_tpu_torch.kv import keys as keymod
 from ps_tpu_torch.kv.sparse import SparseEmbedding
-from ps_tpu_torch.kv.store import KVStore, _nbytes
+from ps_tpu_torch.kv.store import KVStore, _nbytes, global_mean
 
 
 def make_composite_step(
@@ -50,13 +56,12 @@ def make_composite_step(
     dense_store._require_init()
     treedef = dense_store._treedef
     key_order = list(dense_store._key_order)
-    opt = dense_store._opt
-    grad_scale = engine.grad_scale
     names = sorted(emb_stores)
+    mesh = engine.mesh
 
     def run(batch, *extra):
         ids = ids_fn(batch)
-        params_kv, state = engine.get_tree_and_state()
+        params_kv = engine.tree()
         leaves = {k: params_kv[k].detach().requires_grad_() for k in key_order}
         rows = {n: emb_stores[n].lookup(emb_stores[n].table, ids[n])
                 .requires_grad_() for n in names}
@@ -68,30 +73,31 @@ def make_composite_step(
         gkv = dict(zip(key_order, grads[:len(key_order)]))
         grows = dict(zip(names, grads[len(key_order):]))
         with torch.no_grad():
-            if grad_scale != 1.0:
-                gkv = {k: g * grad_scale for k, g in gkv.items()}
-            opt.step_(params_kv, gkv, state)
+            engine.step_(gkv)
             for n in names:
                 store = emb_stores[n]
-                store.apply(store.table, store.state(),
-                            ids[n].reshape(-1),
-                            grows[n].reshape(-1, store.dim))
-        engine.set_tree_and_state(params_kv, state)
+                g = grows[n].reshape(-1, store.dim)
+                if mesh.size > 1:  # the global batch's mean, as the dense
+                    g = g / mesh.size
+                _, _, dropped = store.apply(store.table, store.state(),
+                                            ids[n].reshape(-1), g)
+                store.record_dropped(dropped)
+            loss = global_mean(loss.detach(), mesh)
         nbytes = sum(_nbytes(v) for v in params_kv.values())
         dense_store.bytes_pushed += nbytes
         dense_store.bytes_pulled += nbytes
         dense_store.step += 1
         for n in names:
             store = emb_stores[n]
-            n_ids = ids[n].numel()
+            n_ids = ids[n].numel() * store.k  # the global batch's ids
             row_bytes = n_ids * store.dim * store.table.element_size()
             store.bytes_pushed += row_bytes   # row grads out
             store.bytes_pulled += row_bytes   # gathered rows in
-            store.rows_pushed += n_ids
+            store._account_push(n_ids)
             store.push_count += 1
         params = keymod.unflatten(treedef, params_kv, key_order)
         if has_aux:
-            return loss.detach(), params, aux
-        return loss.detach(), params
+            return loss, params, aux
+        return loss, params
 
     return run

@@ -217,3 +217,34 @@ def test_trainer_runs_tiny_on_cpu(capsys):
     with pytest.raises(NotImplementedError, match="tensor"):
         train_bert_mlm.main(["--size", "tiny", "--device", "cpu",
                              "--model-axis", "2"])
+
+
+@pytest.mark.parametrize("num_rows,ids_kind", [(2, "zeros"), (2, "mixed"),
+                                               (512, "random")])
+def test_embedding_backward_is_fixed_order_and_equals_f_embedding(
+        num_rows, ids_kind):
+    """F5: ``Embed``'s forward is ``F.embedding``'s, bitwise; its gradient
+    (ids stably sorted, each id's rows summed in that order) equals
+    ``F.embedding``'s within f32 round-off: per element, recursive
+    summation of n terms errs by at most n·2^-24·Σ|terms|."""
+    rng = np.random.default_rng(0)
+    ids = {"zeros": np.zeros((16, 32), np.int64),
+           "mixed": rng.integers(0, 2, (16, 32)),
+           "random": rng.integers(0, num_rows, (16, 32))}[ids_kind]
+    ids = torch.tensor(ids)
+    table = torch.tensor(rng.normal(size=(num_rows, 24)).astype(np.float32),
+                         requires_grad=True)
+    gy = torch.tensor(rng.normal(size=(16, 32, 24)).astype(np.float32))
+    out = bert._EmbedLookup.apply(ids, table)
+    want = torch.nn.functional.embedding(ids, table)
+    assert torch.equal(out, want)
+    (got_g,) = torch.autograd.grad(out, table, gy)
+    (want_g,) = torch.autograd.grad(want, table, gy)
+    counts = np.bincount(ids.reshape(-1).numpy(), minlength=num_rows)
+    abs_sum = torch.zeros_like(want_g).index_add_(
+        0, ids.reshape(-1), gy.reshape(-1, 24).abs()).numpy()
+    bound = counts[:, None] * 2.0 ** -24 * abs_sum
+    assert np.all(np.abs(got_g.numpy() - want_g.numpy()) <= bound)
+    (again,) = torch.autograd.grad(bert._EmbedLookup.apply(ids, table),
+                                   table, gy)
+    assert torch.equal(again, got_g)

@@ -68,8 +68,32 @@ def test_every_slice_module_is_checked():
                  "ps_tpu_torch/optim/dc.py", "ps_tpu_torch/models/mlp.py",
                  "ps_tpu_torch/examples/train_mnist_mlp.py",
                  "ps_tpu_torch/examples/train_mnist_async.py",
-                 "ps_tpu_torch/checkpoint.py", "chip_smoke.py"):
+                 "ps_tpu_torch/checkpoint.py", "chip_smoke.py",
+                 "ps_tpu_torch/parallel/__init__.py",
+                 "ps_tpu_torch/parallel/collectives.py",
+                 "ps_tpu_torch/parallel/mesh.py",
+                 "ps_tpu_torch/parallel/sharding.py",
+                 "ps_tpu_torch/backends/cuda.py", "ps_tpu_torch/kv/store.py",
+                 "ps_tpu_torch/kv/sparse.py", "ps_tpu_torch/train.py",
+                 "ps_tpu_torch/models/bert.py", "ps_tpu_torch/config.py",
+                 "ps_tpu_torch/api.py",
+                 "ps_tpu_torch/examples/train_widedeep.py"):
         assert path in FILES
+
+
+def test_parallel_modules_load_neither_jax_nor_its_package():
+    """The multi-device layer runs on torch.distributed alone: importing
+    ``ps_tpu_torch.parallel`` (mesh, collectives, sharding) loads no module
+    of jax, jaxlib, flax, optax or ps_tpu."""
+    code = ("import sys, ps_tpu_torch.parallel.mesh, "
+            "ps_tpu_torch.parallel.collectives, "
+            "ps_tpu_torch.parallel.sharding; "
+            "print(sorted({m.split('.')[0] for m in sys.modules} & "
+            "{'jax', 'jaxlib', 'flax', 'optax', 'ps_tpu'}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == "[]"
 
 
 def test_checkpoint_module_loads_neither_jax_nor_orbax():

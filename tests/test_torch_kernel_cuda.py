@@ -387,3 +387,28 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q = flat[1:].view(FB * FH, FS, 16)  # 2 bytes past an aligned address
     with pytest.raises(ValueError, match="aligned"):
         fa._flash_fwd_cuda(q, q, q, mask, 1.0, False, FH)
+
+
+def test_bert_gradient_repeats_bitwise_in_default_mode(cuda):
+    """F5: a BERT-tiny gradient taken twice on the card in PyTorch's default
+    (non-deterministic) mode is the same bitwise, every tensor. 8,192
+    token-type ids, all 0: PyTorch's own ``F.embedding`` backward sums
+    them in a varying order at this count."""
+    from ps_tpu_torch.data.synthetic import mlm_batches
+    from ps_tpu_torch.kv import keys
+    from ps_tpu_torch.models import bert
+
+    assert not torch.are_deterministic_algorithms_enabled()
+    model = bert.BertMLM(bert.BertConfig.tiny(),
+                         generator=torch.Generator().manual_seed(0)).to(cuda)
+    batch = next(mlm_batches(128, 64, vocab_size=512, seed=1))
+    batch = {k: torch.as_tensor(v).to(cuda) for k, v in batch.items()}
+    loss_fn = bert.make_mlm_loss_fn(model)
+    flat, treedef = keys.flatten_with_keys(model.param_tree())
+    grads = []
+    for _ in range(2):
+        leaves = {k: v.detach().requires_grad_() for k, v in flat.items()}
+        loss = loss_fn(keys.unflatten(treedef, leaves, list(flat)), batch)
+        grads.append(torch.autograd.grad(loss, list(leaves.values())))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
