@@ -135,6 +135,39 @@ Phases, each raising on failure:
    batch_stats against one process on the global batch. Step times and
    collective bytes are printed; through host memory, they are a
    correctness run's, not a speed figure.
+16. the van plane (config 5 across processes, over loopback TCP; no
+   kernel of the port is on this path, and the launch counts must read 0
+   around it): (a) one ``--role server`` process of
+   ps_tpu_torch/examples/train_mnist_async.py (parameters on the card,
+   full event log) and 3 ``--role worker`` processes (gradients on the
+   card), MLP hidden 32, batch 64, lr 0.1, dc_lambda 0.04, 60 cycles a
+   worker: the event log replayed through a one-process server, each
+   gradient recomputed from what its worker pulled, equals the server's
+   params bitwise on the card; a CPU witness in lockstep recomputes every
+   gradient from the card's pulled params, within 1e-5 of the card's
+   (the 2-norm difference over the gradient's norm, floored at the run's
+   median), and ends within 1e-5 of the server's params
+   (a CPU replay on its own trajectory, whose gradients feed back its own
+   rounding, is printed); every loss finite; the loss of the initial and of the final params on
+   a held-out batch and the staleness histogram are printed; (b) the
+   same over a two-server key partition, replayed per shard; (c) one
+   worker, serial against bucketed (16 KiB buckets, pool 2; bitwise the
+   same params) and ``--overlap`` (the serial losses, loss for loss);
+   (d) two ranks on the
+   card over gloo with heartbeats on (timeout 500 ms): one dies hard and
+   the other's ``check_health()`` names it within 2 s; a server process
+   is killed and its worker raises ``ServerFailureError`` naming server 0;
+   (b)-(d) run at once; pinned staging: 3 concurrent workers on the card
+   (one serial, two bucketed), 200 pulls and push_pulls of a 7 MB tree,
+   every pulled tree bitwise the event-log replay; (e) MNIST cycles/s
+   (every cycle after each worker's first over the shared window from
+   the first worker's second cycle to the last worker's end) and the
+   median cycle split into compute and van time, from (a); a
+   BERT-base-shaped f32 tree (442,939,392 bytes, tools/bench_van.py's
+   shape) between a server and worker threads on the card: pull and
+   push_pull GB/s with 1 and 3 workers and the staging copies' share of
+   a cycle. Run it alone with ``python3 -c "import chip_smoke as c,
+   tempfile; c.phase_van(tempfile.mkdtemp())"``.
 
 It prints one JSON line per timed kernel, then the kernels line, then
 ``{"ok": true, "device": {...}}`` as its last line. Without a GPU, or
@@ -2405,11 +2438,666 @@ def phase_two_ranks(tmp):
         f"card {_card_line()}")
     return launches
 
+# -- phase 16: the van plane on the card ------------------------------------
+
+VAN_TRAINER = "ps_tpu_torch.examples.train_mnist_async"
+VAN_TIMEOUT_S = 300
+# (c): an MNIST MLP tree of 101,800 bytes in 16 KiB buckets (7 buckets)
+VAN_BUCKET_BYTES, VAN_POOL = 16 << 10, 2
+# (a), (b): a gradient tree recomputed on the CPU from the card's pulled
+# params against the card's, ‖Δg‖₂ / max(‖g‖₂, the run's median ‖g‖₂)
+VAN_GRAD_RTOL = 1e-5
+# (d): the heartbeat horizon of the kill drill
+VAN_HB_TIMEOUT_MS, VAN_HB_INTERVAL_MS = 500, 50
+# the pinned-staging check: pulls + push_pulls under 3 concurrent workers
+STAGING_ROUNDS, STAGING_WORKERS = 200, 3
+BERT_LIKE_MB, BERT_LIKE_CYCLES = 440.0, 3
+
+
+def _van_env():
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    # servers and workers start together: a worker dials until its server
+    # listens, for up to a minute
+    env["PS_CONNECT_MAX_WAIT_MS"] = "60000"
+    return here, env
+
+
+def _spawn_trainer(*args):
+    here, env = _van_env()
+    return subprocess.Popen(
+        [sys.executable, "-m", VAN_TRAINER, *map(str, args)], cwd=here,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _wait_listening(port, timeout=120.0):
+    import socket
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=1).close()
+            return
+        except OSError:
+            time.sleep(0.1)
+    raise TimeoutError(f"no server came up on port {port}")
+
+
+def _distinct_ports(n):
+    """``n`` free TCP ports, all different: bound together, then released
+    (the runs of phase 16 start at once, each told its ports)."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sock in socks:
+            sock.bind(("127.0.0.1", 0))
+        return [sock.getsockname()[1] for sock in socks]
+    finally:
+        for sock in socks:
+            sock.close()
+
+
+def _stop_all(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+class _VanRun:
+    """One cross-process config-5 run: ``shards`` server processes
+    (parameters on the card) and ``workers`` worker processes (gradients
+    on the card) of the trainer, over loopback TCP, each dumping its
+    record into ``out``. :meth:`start` launches the servers and the
+    workers at once (a worker dials until its server listens);
+    :meth:`finish` waits (all processes are killed at ``VAN_TIMEOUT_S``)
+    and reads the dumps."""
+
+    def __init__(self, out, workers, steps, shards=None, worker_args=()):
+        self.out, self.workers, self.steps = out, workers, steps
+        self.shards, self.worker_args = shards, list(worker_args)
+        os.makedirs(out, exist_ok=True)
+        self.procs = []
+
+    def start(self, ports=None):
+        ports = ports or _distinct_ports(self.shards or 1)
+        try:
+            for s, p in enumerate(ports):
+                self.procs.append(_spawn_trainer(
+                    "--role", "server", "--port", p, "--num-workers",
+                    self.workers, "--dump", self.out,
+                    *(["--shard", s, "--num-shards", self.shards]
+                      if self.shards else [])))
+            uri = ",".join(f"127.0.0.1:{p}" for p in ports)
+            for w in range(self.workers):
+                self.procs.append(_spawn_trainer(
+                    "--role", "worker", "--server", uri, "--worker-id", w,
+                    "--steps", self.steps, "--dump", self.out,
+                    *self.worker_args))
+        except BaseException:
+            _stop_all(self.procs)
+            raise
+        self.t0 = time.perf_counter()
+        return self
+
+    def finish(self):
+        outs = []
+        try:
+            deadline = time.monotonic() + VAN_TIMEOUT_S
+            for p in self.procs:
+                outs.append(p.communicate(
+                    timeout=max(deadline - time.monotonic(), 1))[0])
+        finally:
+            _stop_all(self.procs)
+        self.wall_s = time.perf_counter() - self.t0
+        for p, o in zip(self.procs, outs):
+            if p.returncode != 0:
+                raise AssertionError(f"{' '.join(p.args[3:9])} exited "
+                                     f"{p.returncode}:\n{o[-3000:]}")
+        sfx = [""] if not self.shards else [str(s)
+                                            for s in range(self.shards)]
+        self.infos = [json.load(open(os.path.join(self.out,
+                                                  f"server{x}.json")))
+                      for x in sfx]
+        self.final = {}
+        for x in sfx:
+            self.final.update(torch.load(
+                os.path.join(self.out, f"server_params{x}.pt")))
+        self.records = [json.load(open(os.path.join(self.out,
+                                                    f"worker{w}.json")))
+                        for w in range(self.workers)]
+        return self
+
+
+def _van_harness():
+    """``tests/test_torch_van_harness.py`` of this checkout, loaded by its
+    path (another ``tests`` package on the path cannot shadow it): its
+    :func:`replay` replays a run of the trainer's processes."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_torch_van_harness.py")
+    spec = importlib.util.spec_from_file_location("_van_harness", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _van_replay_check(run, what):
+    """The servers' event logs replayed through one-process servers, every
+    gradient recomputed from what its worker pulled: on the card, bitwise
+    the servers' final parameters. A witness replays in lockstep on the
+    CPU, its gradients recomputed there from the params pulled on the
+    card: each gradient tree within VAN_GRAD_RTOL of the card's (its
+    2-norm difference over its own norm, floored at the run's median
+    norm: a gradient that nearly cancels keeps the rounding of its
+    terms; the unfloored reading is printed beside the smallest and
+    largest norms), and its final parameters within MNIST_TOL. A CPU
+    replay on
+    its own trajectory is printed, not held: its gradients feed back its
+    own rounding through every stale apply."""
+    harness = _van_harness()
+    logs = [i["event_log"] for i in run.infos]
+    total = run.workers * run.steps
+    for info in run.infos:
+        if info["version"] != total or sum(
+                info["staleness_hist"].values()) != total:
+            raise AssertionError(f"{what}: server version "
+                                 f"{info['version']}, histogram "
+                                 f"{info['staleness_hist']}; {total} pushes "
+                                 f"were sent")
+    on_card, witness, grad_err = harness.replay(logs, run.workers, "cuda",
+                                                witness="cpu")
+    free = harness.replay(logs, run.workers, "cpu")
+    if sorted(on_card) != sorted(run.final):
+        raise AssertionError(f"{what}: replayed keys differ")
+    if grad_err["witness"] > VAN_GRAD_RTOL:
+        raise AssertionError(f"{what}: a gradient tree recomputed on the CPU "
+                             f"is {grad_err['witness']:.3g} off the card's, "
+                             f"past {VAN_GRAD_RTOL} ({grad_err})")
+    worst, drift = 0.0, 0.0
+    for k, v in run.final.items():
+        if not torch.equal(on_card[k].cpu(), v):
+            raise AssertionError(f"{what}: {k} replayed on the card is not "
+                                 f"bitwise the servers' final value")
+        np.testing.assert_allclose(witness[k].numpy(), v.numpy(),
+                                   rtol=MNIST_TOL, atol=MNIST_TOL,
+                                   err_msg=f"{what}: {k} on the CPU")
+        worst = max(worst, float((witness[k] - v).abs().max()))
+        drift = max(drift, float((free[k] - v).abs().max()))
+    losses = [r["losses"] for r in run.records]
+    if not all(np.all(np.isfinite(x)) for x in losses):
+        raise AssertionError(f"{what}: non-finite loss")
+    # printed, not held: at the trainer's defaults (lr 0.1, τ mostly 2)
+    # async DC-ASGD does not reliably lower the loss within 60 cycles a
+    # worker, in one process either
+    first, last = _van_eval_losses(run.final)
+    return {"grad_err": grad_err, "cpu_err": worst, "free_drift": drift,
+            "loss": (first, last)}
+
+
+def _van_grad_errs(checked):
+    e = checked["grad_err"]
+    return (f"{e['witness']:.3g} of the larger of the push's norm and the "
+            f"median (bound {VAN_GRAD_RTOL}); {e['relative']:.3g} of the "
+            f"push's own, norms {e['smallest']:.3g} to {e['largest']:.3g} "
+            f"of the median")
+
+
+def _van_eval_losses(final):
+    """The loss of the initial and of the final params of config 5 on one
+    held-out batch of 1,024 examples, on the CPU."""
+    from ps_tpu_torch.data.synthetic import mnist_batches
+    from ps_tpu_torch.examples.train_mnist_async import build
+    from ps_tpu_torch.kv import keys
+
+    params, loss_fn = build(0, "cpu")
+    flat, treedef = keys.flatten_with_keys(params)
+    trained = keys.unflatten(treedef, final, list(flat))
+    batch = tuple(torch.as_tensor(x) for x in
+                  next(mnist_batches(1024, seed=1)))
+    with torch.no_grad():
+        return (float(loss_fn(params, batch)),
+                float(loss_fn(trained, batch)))
+
+
+def _van_mnist_numbers(run):
+    """(e) for MNIST: cycles/s, the median cycle and its compute and van
+    parts, and the staging copies' share of the worker's cycles."""
+    cycles, van, staging, busy = [], [], 0.0, 0.0
+    for r in run.records:
+        cycles += r["cycle_s"][1:]
+        van += r["van_s"][-len(r["cycle_s"]) + 1:]
+        staging += r["staging_s"]
+        busy += sum(r["cycle_s"])
+    cyc, v = float(np.median(cycles)), float(np.median(van))
+    # every cycle after each worker's first (connect, first pull, the
+    # allocators' warm-up) over one shared window on the host's monotonic
+    # clock: from the first worker's second cycle to the last worker's end
+    start = min(r["window"][0] for r in run.records)
+    end = max(r["window"][1] for r in run.records)
+    n = sum(len(r["cycle_s"]) - 1 for r in run.records)
+    return {"median_cycle_ms": cyc * 1e3, "median_van_ms": v * 1e3,
+            "median_compute_ms": (cyc - v) * 1e3, "cycles_per_s": n /
+            (end - start), "window_s": end - start, "cycles": n,
+            "staging_share": staging / busy}
+
+
+def _van_heartbeat_worker(rank, port, hb_base, out):
+    """(d), one of two ranks sharing the card over gloo with heartbeats on:
+    rank 1 dies hard after one step; rank 0 polls check_health() and
+    writes what it raised and how long after the step it took."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.control import WorkerFailureError
+
+    ps.init(backend="cuda", device="cuda:0", dist_backend="gloo",
+            heartbeat_base_port=hb_base,
+            heartbeat_timeout_ms=VAN_HB_TIMEOUT_MS,
+            heartbeat_interval_ms=VAN_HB_INTERVAL_MS,
+            **_group_init(2, rank, port))
+    import torch.distributed as dist
+
+    t = torch.ones(4, device="cuda")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    if rank == 1:
+        os._exit(17)  # hard death, no goodbye
+    backend = ps.current_context().backend
+    t0 = time.monotonic()
+    result = {"dead": None}
+    try:
+        while time.monotonic() - t0 < 60:
+            backend.check_health()
+            time.sleep(0.01)
+    except WorkerFailureError as e:
+        result = {"dead": e.dead, "seconds": time.monotonic() - t0,
+                  "message": str(e)}
+    ps.shutdown(abort=True)
+    with open(os.path.join(out, "heartbeat.json"), "w") as f:
+        json.dump(result, f)
+
+
+def _start_heartbeat_drill(tmp, port):
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        hb_base = sock.getsockname()[1]
+    hb_base = min(hb_base, 65000)
+    _, env = _van_env()
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              "--van-heartbeat-worker", str(r), str(port),
+                              str(hb_base), tmp], env=env)
+            for r in range(2)]
+
+
+def _finish_heartbeat_drill(procs, tmp):
+    try:
+        rcs = [p.wait(timeout=VAN_TIMEOUT_S) for p in procs]
+    finally:
+        _stop_all(procs)
+    if rcs != [0, 17]:
+        raise AssertionError(f"heartbeat drill ranks exited {rcs}")
+    got = json.load(open(os.path.join(tmp, "heartbeat.json")))
+    if got["dead"] != [1] or got["seconds"] > 4 * VAN_HB_TIMEOUT_MS / 1e3:
+        raise AssertionError(f"heartbeat drill: {got}")
+    return got
+
+
+def _start_doomed_server(port):
+    return port, _spawn_trainer("--role", "server", "--port", port,
+                                "--num-workers", 1)
+
+
+def _van_kill_server(port, server):
+    """(d): a worker on the card against a trainer server process; the
+    server is killed, the worker's next cycle raises ServerFailureError
+    naming server 0."""
+    import signal
+
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.examples.train_mnist_async import build
+    from ps_tpu_torch.kv import keys
+
+    try:
+        _wait_listening(port)
+        params, _ = build(0, "cuda")
+        w = ps.connect_async(f"127.0.0.1:{port}", 0, params)
+        w.pull_all()
+        flat, treedef = keys.flatten_with_keys(params)
+        grads = keys.unflatten(treedef, {k: torch.full_like(v, 1e-3)
+                                         for k, v in flat.items()},
+                               list(flat))
+        w.push_pull(grads)
+        server.send_signal(signal.SIGKILL)
+        server.wait(timeout=30)
+        try:
+            for _ in range(20):  # a first push may land in a dead buffer
+                w.push_pull(grads)
+                time.sleep(0.05)
+        except ps.ServerFailureError as e:
+            if e.server != 0 or "server 0" not in str(e):
+                raise AssertionError(f"kill server: {e!r}") from e
+            message = str(e)
+        else:
+            raise AssertionError("a dead server raised no "
+                                 "ServerFailureError")
+        for ch in w._chs:
+            ch.close()
+    finally:
+        _stop_all([server])
+    return message
+
+
+def _staging_grads(keys_shapes, worker, cycle):
+    rng = np.random.default_rng([worker, cycle])
+    return {k: torch.from_numpy(rng.normal(0, 1e-2, shape).astype(
+        np.float32)).cuda() for k, shape in keys_shapes}
+
+
+def _van_pinned_staging():
+    """The two orderings of pinned staging, under three concurrent
+    workers on the card (one serial, two bucketed): STAGING_ROUNDS pulls
+    and push_pulls in all, every pulled tree kept and held bitwise against
+    the server's event log replayed through a one-process server."""
+    import threading
+
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.backends.remote_async import AsyncPSService
+
+    rng = np.random.default_rng(5)
+    shapes = [("a/w", (512, 1024)), ("b/w", (1024, 1024)), ("c/b", (777,)),
+              ("d/w", (64, 3000))]
+    params = {k: torch.from_numpy(rng.normal(0, 1, s).astype(np.float32))
+              for k, s in shapes}
+
+    def store_on_card():
+        ps.init(backend="cuda", mode="async", num_workers=STAGING_WORKERS,
+                dc_lambda=0.04)
+        store = ps.KVStore(optimizer="sgd", learning_rate=0.05, mode="async")
+        store.init({k: v.cuda() for k, v in params.items()})
+        return store
+
+    store = store_on_card()
+    svc = AsyncPSService(store, record_full_history=True)
+    uri = f"127.0.0.1:{svc.port}"
+    per = STAGING_ROUNDS // STAGING_WORKERS
+    pulled = {w: [] for w in range(STAGING_WORKERS)}
+    errors = []
+
+    def worker(w):
+        try:
+            c = ps.connect_async(uri, w, {k: v.cuda()
+                                          for k, v in params.items()},
+                                 bucket_bytes=None if w == 0 else 1 << 20)
+            pulled[w].append(c.pull_all())
+            for i in range(per):
+                if i % 2:
+                    pulled[w].append(c.pull_all())
+                else:
+                    pulled[w].append(c.push_pull(
+                        _staging_grads(shapes, w, i // 2)))
+            c.close()
+        except Exception as e:  # reported below
+            errors.append((w, repr(e)))
+
+    threads = [threading.Thread(target=worker, args=(w,))
+               for w in range(STAGING_WORKERS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=VAN_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"staging workers failed: {errors}")
+    log_ = list(svc.event_log)
+    staged_gb = svc.transport.staging_bytes / 1e9
+    tree_mb = sum(v.nbytes for v in params.values()) / 1e6
+    svc.stop()
+    ps.shutdown()
+    store = store_on_card()
+    eng = store._engine
+    seen = {w: 0 for w in range(STAGING_WORKERS)}
+    pushes = {w: 0 for w in range(STAGING_WORKERS)}
+    for op, w in log_:
+        if op == "pull":
+            want = eng.pull_tree(worker=w)
+            got = pulled[w][seen[w]]
+            seen[w] += 1
+            for k in want:
+                if not torch.equal(got[k], want[k]):
+                    raise AssertionError(
+                        f"pinned staging: worker {w}'s pull {seen[w] - 1} "
+                        f"differs from the replay at {k}")
+        else:
+            eng.push_tree(_staging_grads(shapes, w, pushes[w]), worker=w)
+            pushes[w] += 1
+    ps.shutdown()
+    if seen != {w: len(pulled[w]) for w in pulled}:
+        raise AssertionError(f"pinned staging: pulls {seen} replayed")
+    return sum(seen.values()), sum(pushes.values()), secs, staged_gb, tree_mb
+
+
+def _bert_like_tree(target_mb):
+    """tools/bench_van.py's tree: one [30522, 768] embedding, then
+    [768, 3072] blocks until target_mb MB, f32 on the card."""
+    tree = {"embed/word": torch.zeros(30522, 768, device="cuda")}
+    total, i = tree["embed/word"].nbytes, 0
+    while total < target_mb * 1e6:
+        tree[f"layer{i // 4}/block{i % 4}"] = torch.zeros(768, 3072,
+                                                         device="cuda")
+        total += 768 * 3072 * 4
+        i += 1
+    return tree, total
+
+
+def _van_bert_like():
+    """(e): pull and push_pull GB/s of a BERT-base-shaped f32 tree between
+    a server and workers on the card (threads of this process), with 1 and
+    3 workers, and the share of a cycle the staging copies take."""
+    import threading
+
+    import ps_tpu_torch as ps
+
+    ps.init(backend="cuda", mode="async", num_workers=3)
+    tree, nbytes = _bert_like_tree(BERT_LIKE_MB)
+    store = ps.KVStore(optimizer="sgd", learning_rate=0.01, mode="async")
+    store.init(tree)
+    svc = ps.serve_async(store)
+    uri = f"127.0.0.1:{svc.port}"
+    grads = {k: torch.full_like(v, 1e-3) for k, v in tree.items()}
+    out = {"tree_bytes": nbytes, "tensors": len(tree)}
+    w0 = ps.connect_async(uri, 0, tree)
+    w0.pull_all()  # warm-up: pinned buffers, the allocators
+    t0 = time.perf_counter()
+    for _ in range(BERT_LIKE_CYCLES):
+        w0.pull_all()
+    out["pull_gbps_1"] = BERT_LIKE_CYCLES * nbytes / (
+        time.perf_counter() - t0) / 1e9
+    # one pull split: the server's copy off the card, the rest of the
+    # round trip (encode, loopback TCP, the receive buffer), the worker's
+    # copy onto the card
+    from ps_tpu_torch.control import tensor_van as tv
+
+    srv0 = svc.transport.staging_s
+    t0 = time.perf_counter()
+    msg = w0._request(0, tv.encode(tv.PULL, 0, None))
+    t1 = time.perf_counter()
+    w0._merge_params({0: msg})
+    t2 = time.perf_counter()
+    d2h = svc.transport.staging_s - srv0
+    out["pull_split_ms"] = (d2h * 1e3, (t1 - t0 - d2h) * 1e3,
+                            (t2 - t1) * 1e3)
+    s0 = w0.transport.staging_s
+    t0 = time.perf_counter()
+    for _ in range(BERT_LIKE_CYCLES):
+        w0.push_pull(grads)
+    dt = time.perf_counter() - t0
+    out["push_pull_gbps_1"] = 2 * BERT_LIKE_CYCLES * nbytes / dt / 1e9
+    out["staging_share_1"] = (w0.transport.staging_s - s0) / dt
+    ws = [w0] + [ps.connect_async(uri, w, tree) for w in (1, 2)]
+    for w in ws[1:]:
+        w.pull_all()
+    before = [w.transport.staging_s for w in ws]
+    errors = []
+
+    def cycles(w):
+        try:
+            for _ in range(BERT_LIKE_CYCLES):
+                w.push_pull(grads)
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=cycles, args=(w,)) for w in ws]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=VAN_TIMEOUT_S)
+    dt = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"BERT-like workers failed: {errors}")
+    out["push_pull_gbps_3"] = 3 * 2 * BERT_LIKE_CYCLES * nbytes / dt / 1e9
+    out["staging_share_3"] = sum(
+        w.transport.staging_s - b for w, b in zip(ws, before)) / (3 * dt)
+    out["server_staging_gb"] = svc.transport.staging_bytes / 1e9
+    for w in ws:
+        w.close()
+    svc.stop()
+    ps.shutdown()
+    return out
+
+
+def phase_van(tmp):
+    """16: the van plane on the card (config 5 across processes)."""
+    _launch_counts(reset=True)
+    card = _card_line()
+    # (a) one server, three workers, the reference trainer's defaults
+    a = _VanRun(os.path.join(tmp, "a"), ASYNC_WORKERS, ASYNC_CYCLES).start()
+    a.finish()
+    ra = _van_replay_check(a, "van (a)")
+    # printed, not held: the workers start when their processes do, so
+    # how much their cycles overlap is up to the machine (the CPU tests
+    # hold real staleness behind a start barrier)
+    hist = a.infos[0]["staleness_hist"]
+    log(f"van (a): config 5 across processes, one --role server process "
+        f"(params on the card) and {ASYNC_WORKERS} --role worker processes, "
+        f"MLP hidden 32, batch {ASYNC_BATCH}, lr 0.1, dc_lambda 0.04, "
+        f"{ASYNC_CYCLES} cycles a worker: the event log replayed on the card "
+        f"is bitwise the server's params; the CPU witness's gradient "
+        f"trees, from the card's pulls, off the card's by at most "
+        f"{_van_grad_errs(ra)}; its params within {MNIST_TOL} (max abs "
+        f"err {ra['cpu_err']:.3g}); a CPU replay on its own trajectory "
+        f"{ra['free_drift']:.3g} off (printed); staleness histogram {hist}; "
+        f"loss on a held-out batch {ra['loss'][0]:.4f} -> "
+        f"{ra['loss'][1]:.4f}; card {card}")
+    m = _van_mnist_numbers(a)
+    log(f"van (e) MNIST: {m['cycles_per_s']:.1f} cycles/s over "
+        f"{ASYNC_WORKERS} workers ({m['cycles']} cycles after each worker's "
+        f"first in a shared window of {m['window_s']:.4f} s); median cycle "
+        f"{m['median_cycle_ms']:.4f} "
+        f"ms = compute {m['median_compute_ms']:.4f} + van (push_pull) "
+        f"{m['median_van_ms']:.4f} ms; staging copies "
+        f"{100 * m['staging_share']:.2f}% of the workers' cycles; card "
+        f"{card}")
+    # (b), (c), (d): a two-server partition, one worker serial / bucketed
+    # / overlapped, and the failures, all at once (their times are not
+    # measurements)
+    bucket = ["--bucket-bytes", VAN_BUCKET_BYTES, "--pool", VAN_POOL]
+    runs = {
+        "b": _VanRun(os.path.join(tmp, "b"), ASYNC_WORKERS, ASYNC_CYCLES,
+                     shards=2),
+        "serial": _VanRun(os.path.join(tmp, "serial"), 1, ASYNC_CYCLES),
+        "bucketed": _VanRun(os.path.join(tmp, "bucketed"), 1, ASYNC_CYCLES,
+                            worker_args=bucket),
+        "overlap": _VanRun(os.path.join(tmp, "overlap"), 1, ASYNC_CYCLES,
+                           worker_args=bucket + ["--overlap"]),
+    }
+    started, failure = [], None
+    ports = _distinct_ports(7)
+    drill = _start_heartbeat_drill(tmp, ports.pop())
+    doomed = _start_doomed_server(ports.pop())
+    try:
+        for r in runs.values():
+            started.append(r.start([ports.pop()
+                                    for _ in range(r.shards or 1)]))
+        msg = _van_kill_server(*doomed)
+        hb = _finish_heartbeat_drill(drill, tmp)
+    finally:
+        _stop_all(drill + [doomed[1]])
+        for r in started:  # finish (or kill) every run that started
+            try:
+                r.finish()
+            except Exception as e:  # the first failure is raised below
+                failure = failure or e
+    if failure is not None:
+        raise failure
+    b = runs["b"]
+    rb = _van_replay_check(b, "van (b)")
+    keys = [set(i["keys"]) for i in b.infos]
+    if keys[0] & keys[1] or sorted(keys[0] | keys[1]) != sorted(b.final):
+        raise AssertionError(f"van (b): the partition is not disjoint and "
+                             f"complete: {keys}")
+    log(f"van (b): the same over a two-server key partition ({len(keys[0])} "
+        f"+ {len(keys[1])} keys): replay per shard bitwise on the card, "
+        f"the CPU witness's gradient trees off by at most "
+        f"{_van_grad_errs(rb)}; its "
+        f"params within {MNIST_TOL} (max abs err {rb['cpu_err']:.3g}; on "
+        f"its own trajectory {rb['free_drift']:.3g}); "
+        f"histograms {[i['staleness_hist'] for i in b.infos]}")
+    ser, buc, ovl = runs["serial"], runs["bucketed"], runs["overlap"]
+    for k, v in ser.final.items():
+        if not torch.equal(buc.final[k], v):
+            raise AssertionError(f"van (c): bucketed {k} is not bitwise the "
+                                 f"serial one")
+    if ovl.records[0]["losses"] != ser.records[0]["losses"]:
+        raise AssertionError("van (c): the overlapped losses are not the "
+                             "serial ones")
+    nb = buc.records[0]["summary"]["transport_buckets"]
+    if nb < 2 * (ASYNC_CYCLES - 1):
+        raise AssertionError(f"van (c): {nb} buckets: the tree did not "
+                             f"split")
+    log(f"van (c): one worker, {ASYNC_CYCLES} cycles: bucketed "
+        f"({VAN_BUCKET_BYTES} B buckets, pool {VAN_POOL}; {nb} bucket rounds "
+        f"after cycle 0) gives bitwise the serial params; --overlap gives "
+        f"the serial losses loss for loss (overlap efficiency "
+        f"{ovl.records[0]['summary'].get('overlap_efficiency')})")
+    log(f"van (d): a killed rank: check_health() raised "
+        f"{hb['message']!r} {hb['seconds']:.3f} s after the last step "
+        f"(heartbeat_timeout_ms {VAN_HB_TIMEOUT_MS}); a killed server: "
+        f"{msg!r}")
+    pulls, pushes, secs, gb, mb = _van_pinned_staging()
+    log(f"van: pinned staging, {STAGING_WORKERS} concurrent workers on the "
+        f"card (one serial, two bucketed): {pulls} pulled trees of "
+        f"{mb:.2f} MB over {pushes} pushes, each bitwise the event-log "
+        f"replay; {gb:.3f} GB staged by the server in {secs:.2f} s")
+    bert = _van_bert_like()
+    log(f"van (e) BERT-base-shaped tree ({bert['tree_bytes']:,} bytes f32, "
+        f"{bert['tensors']} tensors, server and workers on the card): pull "
+        f"{bert['pull_gbps_1']:.3f} GB/s, push_pull "
+        f"{bert['push_pull_gbps_1']:.3f} GB/s with 1 worker (staging "
+        f"{100 * bert['staging_share_1']:.1f}% of its cycle), push_pull "
+        f"{bert['push_pull_gbps_3']:.3f} GB/s over 3 workers (staging "
+        f"{100 * bert['staging_share_3']:.1f}%); one pull = the server's "
+        f"copy off the card {bert['pull_split_ms'][0]:.1f} ms + encode, "
+        f"TCP and receive {bert['pull_split_ms'][1]:.1f} ms + the worker's "
+        f"copy onto the card {bert['pull_split_ms'][2]:.1f} ms; card {card}")
+    _no_launches("van plane")
+    return {"mnist": m, "bert_like": bert, "heartbeat_s": hb["seconds"]}
+
 
 def main():
     if len(sys.argv) == 5 and sys.argv[1] == "--two-ranks-worker":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         _two_ranks_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
+    if len(sys.argv) == 6 and sys.argv[1] == "--van-heartbeat-worker":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _van_heartbeat_worker(int(sys.argv[2]), int(sys.argv[3]),
+                              int(sys.argv[4]), sys.argv[5])
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on an NVIDIA GPU",
@@ -2442,6 +3130,8 @@ def main():
 
     with tempfile.TemporaryDirectory(prefix="ps_ranks_") as tmp:
         launches = phase_two_ranks(tmp)
+    with tempfile.TemporaryDirectory(prefix="ps_van_") as tmp:
+        phase_van(tmp)
     for e in entries:  # each rank's launches in phase 15's 20-step runs
         if e["name"].startswith("sparse"):
             e["launches_per_rank_two_ranks"] = {

@@ -30,7 +30,14 @@ reference's ``PS_*`` variables; ``parallel/``): the sync server
 replicated or ZeRO-1 sharded, row-sharded sparse tables with the
 ``gather`` and ``a2a`` exchanges, the composite step, cross-rank
 BatchNorm, and the multi-process checkpoint commit with the elastic
-restore. ROADMAP.md lists what is still to port.
+restore, with a heartbeat failure detector (``control/``,
+``CudaBackend.check_health``).
+
+Across processes over the native TCP van (``native/``, ``control/``,
+``backends/van_service.py``, ``backends/remote_async.py``): async DC-ASGD
+with a server process (``serve_async``, one server or ``shard_tree``
+key shards) and worker processes (``connect_async``), serial or bucketed,
+on the reference's wire bytes. ROADMAP.md lists what is still to port.
 """
 
 from ps_tpu_torch import checkpoint
@@ -40,6 +47,12 @@ from ps_tpu_torch.kv.store import KVStore
 from ps_tpu_torch.kv.sparse import SparseEmbedding
 from ps_tpu_torch.train import make_composite_step
 from ps_tpu_torch.ops import flash_attention
+from ps_tpu_torch.backends.remote_async import (
+    ServerFailureError,
+    connect_async,
+    serve_async,
+    shard_tree,
+)
 
 __all__ = [
     "checkpoint",
@@ -52,4 +65,8 @@ __all__ = [
     "SparseEmbedding",
     "make_composite_step",
     "flash_attention",
+    "serve_async",
+    "connect_async",
+    "shard_tree",
+    "ServerFailureError",
 ]

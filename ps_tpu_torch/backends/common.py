@@ -5,8 +5,16 @@ async whole-tree DC apply (``make_dc_apply_tree``), the side-effect-free
 read (``PeekMixin``), the per-worker staging of per-key async pushes
 (``AsyncStagingMixin``) and the worker-id floor of aggregator identities
 (``AGG_WORKER_BASE``), plus the one place a backend picks its device.
-The transport, bucket and failover parts of the reference's file belong
-to the van plane and are not ported yet.
+
+And the van half: the typed server failure, the uri parser, the payload
+helpers, ``BucketPlan``/``BucketAssembler`` (fusion buckets and their
+tear-proof reassembly), ``ChannelPump`` (one connection and its sender
+thread) and ``BucketedTransportMixin`` (the worker side of the bucketed,
+pipelined transport), plus the staging of tensors between the card and
+pinned host memory (``stage_to_host``, ``stage_to_device``), which every
+CUDA tensor crossing the van takes. Replica sets and their failover,
+compression and the shared-memory lane are not ported yet (ROADMAP Queue
+1 item 5): a replica list, a codec and an shm offer raise.
 
 Every apply here is out of place: it clones the parameter, updates the
 clone and puts it in the server's dict, so a tensor a worker pulled (and
@@ -17,12 +25,17 @@ place.
 
 from __future__ import annotations
 
-from typing import Dict
+import heapq
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ps_tpu_torch.control import tensor_van as tv
 from ps_tpu_torch.optim import Optimizer, delay_compensate
+from ps_tpu_torch.utils.metrics import TransportStats
 
 #: Worker-id floor for aggregator identities: an aggregator pushes its
 #: group's merged gradient under a synthetic worker id past this base, so
@@ -186,3 +199,561 @@ class AsyncStagingMixin:
             raise RuntimeError(
                 f"cannot checkpoint mid-push: workers {sorted(pending)} have "
                 f"staged but uncommitted per-key async pushes")
+
+
+# -- the van half ------------------------------------------------------------
+
+
+class ServerFailureError(RuntimeError):
+    """A remote PS server died mid-job (its connection failed).
+
+    ``server`` (when known) is the failed server's index into the worker's
+    address list."""
+
+    def __init__(self, message: str, server: Optional[int] = None):
+        super().__init__(message)
+        self.server = server
+
+
+def parse_replica_uri(uri: str):
+    """``"h0:p0,h1:p1"`` -> ``(addresses, replica_sets)``: commas separate
+    shards, each a singleton set (no failover). The reference also takes
+    ``|``-separated replica sets; replication is not ported yet, so one
+    raises."""
+    primaries, sets = [], []
+    for part in uri.split(","):
+        members = part.strip().split("|")
+        if len(members) > 1:
+            raise NotImplementedError(
+                f"replica sets ({part.strip()!r}) need shard replication "
+                f"(replica/), which is not ported yet (ROADMAP Queue 1 "
+                f"item 5)")
+        host, port = members[0].strip().rsplit(":", 1)
+        primaries.append((host, int(port)))
+        sets.append([(host, int(port))])
+    return primaries, sets
+
+
+#: Default fusion-bucket size of the pipelined transport (~4 MiB: per-frame
+#: overhead is noise, and many buckets of a tree are in flight at once).
+DEFAULT_BUCKET_BYTES = 4 << 20
+
+#: Default drain_to deadline of the coordinated checkpoint.
+DRAIN_TO_TIMEOUT_S = 30.0
+
+# one bucket slice: (key, dtype_str, shape, lo, hi) — byte range [lo, hi)
+# within the key's contiguous row-major buffer
+Slice = Tuple[str, str, list, int, int]
+
+
+def _sync_device(device: torch.device) -> None:
+    """Wait for the calling thread's current stream on ``device``."""
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    event.synchronize()
+
+
+def stage_to_host(tensors: Dict[str, object], stats: Optional[TransportStats]
+                  = None, copy: bool = False) -> Dict[str, np.ndarray]:
+    """``{key: tensor}`` -> ``{key: numpy array}`` that a frame can carry.
+
+    A CUDA tensor is copied into a fresh pinned host tensor on the calling
+    thread's current stream, and the copies are waited for (one event)
+    before anything is returned, so no send can start on bytes still in
+    flight from the card; ``stats`` records their bytes and seconds. A CPU
+    tensor is a view (a copy with ``copy``: the caller may change it
+    later), numpy arrays pass as they are."""
+    out: Dict[str, np.ndarray] = {}
+    staged, device, t0 = 0, None, time.perf_counter()
+    for k, v in tensors.items():
+        if isinstance(v, torch.Tensor) and v.device.type == "cuda":
+            if v.dtype == torch.bfloat16:
+                tv.host_array(v.detach().cpu())  # raises the typed error
+            pinned = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            pinned.copy_(v.detach(), non_blocking=True)
+            out[k] = pinned.numpy()
+            staged += pinned.nbytes
+            device = v.device
+        elif isinstance(v, torch.Tensor):
+            out[k] = tv.host_array(v.detach().clone() if copy else v)
+        else:
+            out[k] = np.array(v) if copy else tv.host_array(v)
+    if device is not None:
+        _sync_device(device)
+        if stats is not None:
+            stats.record_staging(staged, time.perf_counter() - t0)
+    return out
+
+
+def stage_to_device(arrays: Dict[str, np.ndarray], device: torch.device,
+                    stats: Optional[TransportStats] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """``{key: numpy array}`` (views of a received frame) -> tensors on
+    ``device`` that own their memory. On a CUDA device the copies are
+    waited for before returning, so the frame's buffer may go back to its
+    receive pool at once; on the CPU the arrays are copied out of it."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {k: torch.from_numpy(np.array(a)) for k, a in arrays.items()}
+    t0 = time.perf_counter()
+    out = {}
+    for k, a in arrays.items():
+        a = a if a.flags.writeable else np.array(a)
+        out[k] = torch.from_numpy(a).to(device, non_blocking=True)
+    _sync_device(device)
+    if stats is not None:
+        stats.record_staging(sum(a.nbytes for a in arrays.values()),
+                             time.perf_counter() - t0)
+    return out
+
+
+def payload_nbytes(payload) -> int:
+    """Wire size of a frame in either form: a contiguous bytes/bytearray,
+    or the zero-copy ``(header, chunks)`` parts."""
+    if isinstance(payload, tuple):
+        header, chunks = payload
+        return len(header) + sum(len(c) for c in chunks)
+    return len(payload)
+
+
+def send_payload(ch, payload) -> None:
+    """Send either payload form on ``ch`` (vectored for parts)."""
+    if isinstance(payload, tuple):
+        ch.send_parts(*payload)
+    else:
+        ch.send(payload)
+
+
+def request_payload(ch, payload):
+    """``ch.request`` for either payload form; returns the reply frame."""
+    if isinstance(payload, tuple):
+        return ch.request_parts(*payload)
+    return ch.request(payload)
+
+
+class BucketPlan:
+    """Slice a flat ``{key: array}`` payload into fixed-size fusion buckets.
+
+    Keys are packed greedily in transport order (sorted: front of the
+    model first). A tensor larger than ``bucket_bytes`` is split across
+    consecutive buckets; small tensors fuse. Every bucket but the last
+    holds exactly ``bucket_bytes`` payload bytes, so striping buckets
+    round-robin over a connection pool balances it. A bucket's frame
+    carries its ``(key, dtype, shape, lo, hi)`` slice table in
+    ``extra["slices"]``, so the receiver reassembles it with
+    :class:`BucketAssembler` with no plan agreed out of band.
+    """
+
+    def __init__(self, specs: Sequence[Tuple[str, str, list, int]],
+                 bucket_bytes: int = DEFAULT_BUCKET_BYTES):
+        """``specs``: ``(key, dtype_str, shape, nbytes)`` in transport
+        order."""
+        self.bucket_bytes = max(int(bucket_bytes), 1)
+        buckets: List[List[Slice]] = []
+        cur: List[Slice] = []
+        fill = 0
+        for key, dt, shape, nbytes in specs:
+            shape = list(shape)
+            if nbytes == 0:
+                cur.append((key, dt, shape, 0, 0))  # the key must appear
+                continue
+            off = 0
+            while off < nbytes:
+                if fill >= self.bucket_bytes:
+                    buckets.append(cur)
+                    cur, fill = [], 0
+                take = min(nbytes - off, self.bucket_bytes - fill)
+                cur.append((key, dt, shape, off, off + take))
+                off += take
+                fill += take
+        buckets.append(cur)  # the last (empty for an empty payload)
+        self.buckets = buckets
+        self.total_bytes = sum(n for _, _, _, n in specs)
+
+    @classmethod
+    def from_arrays(cls, arrays: Dict[str, np.ndarray],
+                    bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                    order: Optional[Sequence[str]] = None) -> "BucketPlan":
+        keys = list(order) if order is not None else sorted(arrays)
+        specs = []
+        for k in keys:
+            a = np.asarray(arrays[k])
+            specs.append((k, a.dtype.str, list(a.shape), a.nbytes))
+        return cls(specs, bucket_bytes)
+
+    @property
+    def nbuckets(self) -> int:
+        return len(self.buckets)
+
+    def _bucket_chunks_meta(self, arrays, b: int, extra: Optional[dict]):
+        chunks = []
+        slices = self.buckets[b]
+        for key, _, _, lo, hi in slices:
+            a = np.ascontiguousarray(np.asarray(arrays[key]))
+            chunks.append(memoryview(a.reshape(-1)).cast("B")[lo:hi])
+        meta = {**(extra or {}),
+                "bucket": b, "nbuckets": self.nbuckets,
+                "slices": [[k, dt, shape, lo, hi]
+                           for k, dt, shape, lo, hi in slices]}
+        return chunks, meta
+
+    def encode_bucket(self, kind: int, worker: int, arrays, b: int,
+                      extra: Optional[dict] = None) -> bytearray:
+        """Frame bucket ``b``: each slice's bytes copied once into it."""
+        chunks, meta = self._bucket_chunks_meta(arrays, b, extra)
+        return tv.encode_chunks(kind, worker, chunks, meta)
+
+    def encode_bucket_parts(self, kind: int, worker: int, arrays, b: int,
+                            extra: Optional[dict] = None):
+        """Zero-copy form of :meth:`encode_bucket`: ``(header, chunks)``
+        with the slice views unstaged (they pin their arrays until sent)."""
+        chunks, meta = self._bucket_chunks_meta(arrays, b, extra)
+        return tv.encode_chunks_parts(kind, worker, chunks, meta)
+
+    def bucket_encoder(self, writev: bool):
+        """Zero-copy parts when ``writev`` is on, the staged frame
+        otherwise."""
+        return self.encode_bucket_parts if writev else self.encode_bucket
+
+
+class BucketAssembler:
+    """Reassemble a multi-bucket payload; a torn epoch is never observable.
+
+    Buckets may arrive in any order. A bucket of another epoch is refused
+    (a straggler of an aborted push can never contaminate a later tree), a
+    duplicate bucket is refused, and :meth:`finish` refuses any key whose
+    bytes are incomplete. Only when all ``nbuckets`` buckets of one epoch
+    have landed does :meth:`add` report completion; the caller applies the
+    tree at once, so readers see whole pushes or nothing.
+    """
+
+    def __init__(self, epoch: int, nbuckets: int):
+        self.epoch = int(epoch)
+        self.nbuckets = int(nbuckets)
+        self._seen: set = set()
+        self._flat: Dict[str, np.ndarray] = {}    # key -> uint8 buffer
+        self._meta: Dict[str, Tuple[str, list, int]] = {}
+        self._filled: Dict[str, int] = {}
+
+    def add(self, bucket: int, raw, slices, epoch: Optional[int] = None
+            ) -> bool:
+        """Stage one bucket; returns True when the epoch is complete."""
+        if epoch is not None and int(epoch) != self.epoch:
+            raise RuntimeError(
+                f"bucket of epoch {epoch} offered to assembler of epoch "
+                f"{self.epoch} — torn multi-bucket push refused")
+        b = int(bucket)
+        if not (0 <= b < self.nbuckets):
+            raise RuntimeError(
+                f"bucket {b} out of range 0..{self.nbuckets - 1}")
+        if b in self._seen:
+            raise RuntimeError(f"duplicate bucket {b} for epoch {self.epoch}")
+        raw = (np.frombuffer(raw, np.uint8) if not isinstance(raw, np.ndarray)
+               else raw.reshape(-1).view(np.uint8))
+        off = 0
+        for key, dt, shape, lo, hi in slices:
+            if key not in self._flat:
+                nbytes = (int(np.prod(shape, dtype=np.int64))
+                          * np.dtype(dt).itemsize)
+                self._flat[key] = np.empty(nbytes, np.uint8)
+                self._meta[key] = (dt, list(shape), nbytes)
+                self._filled[key] = 0
+            n = hi - lo
+            self._flat[key][lo:hi] = raw[off:off + n]
+            self._filled[key] += n
+            off += n
+        self._seen.add(b)
+        return len(self._seen) == self.nbuckets
+
+    def finish(self) -> Dict[str, np.ndarray]:
+        """The assembled ``{key: array}`` tree (the assembler's own
+        buffers: safe to hold past the frames' lifetimes)."""
+        if len(self._seen) != self.nbuckets:
+            raise RuntimeError(
+                f"epoch {self.epoch} incomplete: {len(self._seen)}/"
+                f"{self.nbuckets} buckets")
+        out = {}
+        for key, (dt, shape, nbytes) in self._meta.items():
+            if self._filled[key] != nbytes:
+                raise RuntimeError(
+                    f"key {key!r} torn: {self._filled[key]}/{nbytes} bytes "
+                    f"in epoch {self.epoch}")
+            out[key] = self._flat[key].view(np.dtype(dt)).reshape(shape)
+        return out
+
+
+class ChannelPump:
+    """One persistent connection and its sender thread.
+
+    Callers ``submit`` frames and get a Future for the reply at once; the
+    pump thread drains its queue over its own channel (one driving thread
+    a channel, as the van requires). The queue is ordered by a small
+    integer priority (lower first), ties by submission, so equal
+    priorities stay FIFO: bucket senders pass the bucket index, so a
+    backlog drains front-of-model first."""
+
+    def __init__(self, ch, on_io: Optional[Callable] = None):
+        self._ch = ch
+        self._on_io = on_io  # (bytes_out, bytes_in, seconds) per request
+        self._cv = threading.Condition()
+        self._heap: list = []   # (priority, seq, payload, fut)
+        self._seq = 0
+        self._closed = False
+        self._t = threading.Thread(target=self._loop, daemon=True)
+        self._t.start()
+
+    def submit(self, payload, priority: int = 0):
+        import concurrent.futures
+
+        fut = concurrent.futures.Future()
+        with self._cv:
+            if self._closed:
+                # fail fast rather than queue behind a dead thread
+                fut.set_exception(tv.VanError("pump closed"))
+                return fut
+            self._seq += 1
+            heapq.heappush(self._heap,
+                           (int(priority), self._seq, payload, fut))
+            self._cv.notify()
+        return fut
+
+    def _loop(self) -> None:
+        while True:
+            with self._cv:
+                while not self._heap and not self._closed:
+                    self._cv.wait()
+                if not self._heap:
+                    return  # closed and drained
+                _, _, payload, fut = heapq.heappop(self._heap)
+            if not fut.set_running_or_notify_cancel():
+                continue
+            t0 = time.perf_counter()
+            try:
+                reply = request_payload(self._ch, payload)
+            except BaseException as e:  # surfaced at the caller's wait
+                fut.set_exception(e)
+                continue
+            dt = time.perf_counter() - t0
+            if self._on_io is not None:
+                try:
+                    self._on_io(payload_nbytes(payload), len(reply), dt)
+                except Exception:
+                    pass  # accounting must never fail the transport
+            fut.set_result(reply)
+
+    def close(self) -> None:
+        """Stop the thread (after the queue drains) and close the channel;
+        requests that slipped in behind the close are failed."""
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._t.join(timeout=10)
+        with self._cv:
+            leftovers, self._heap = self._heap, []
+        for _, _, _, fut in leftovers:
+            fut.set_exception(tv.VanError("pump closed"))
+        self._ch.close()
+
+
+class BucketedTransportMixin:
+    """Worker-side plumbing of the bucketed, pipelined transport: the pump
+    pool, byte and timing accounting, the background cycles and the flush
+    barrier.
+
+    Contract: the worker sets ``_addrs``, ``_bytes_lock``, ``worker`` and
+    ``bytes_pushed``/``bytes_pulled``, calls :meth:`_init_transport` in its
+    init and :meth:`_open_pumps` once its channels are validated.
+    """
+
+    _failure_noun = "PS server"
+
+    def _init_transport(self, bucket_bytes: Optional[int],
+                        pool_size: Optional[int], compress=None,
+                        writev: Optional[bool] = None,
+                        shm: Optional[bool] = None,
+                        bucket_priority: Optional[bool] = None) -> None:
+        import uuid
+
+        from ps_tpu_torch.config import env_flag
+
+        if compress not in (None, "none"):
+            raise NotImplementedError(
+                f"compress={compress!r}: gradient codecs (compress/) are "
+                f"not ported yet (ROADMAP Queue 1 item 5); pass None")
+        if shm if shm is not None else env_flag("PS_SHM", False):
+            raise NotImplementedError(
+                "shm=True: the shared-memory lane (control/shm_lane.py) is "
+                "not ported yet (ROADMAP Queue 1 item 5)")
+        # <= 0 selects the serial transport (PS_BUCKET_BYTES=0 convention)
+        self.bucket_bytes = (None if bucket_bytes is None
+                             or int(bucket_bytes) <= 0 else int(bucket_bytes))
+        self.writev = (env_flag("PS_WRITEV", True)
+                       if writev is None else bool(writev))
+        self.bucket_priority = (env_flag("PS_BUCKET_PRIORITY", True)
+                                if bucket_priority is None
+                                else bool(bucket_priority))
+        # incarnation nonce sent with every push: a reconnected worker's
+        # epochs restart from zero, and the nonce keeps a staged epoch of
+        # the old incarnation from completing with new buckets. (nonce,
+        # push-seq) is also the dedup token: a server acks, unapplied, a
+        # push whose seq it already applied for this nonce.
+        self._transport_nonce = uuid.uuid4().hex[:12]
+        self._push_seq = 0
+        self.pool_size = (max(int(pool_size), 1) if pool_size is not None
+                          else (2 if self.bucket_bytes is not None else 1))
+        self.transport = TransportStats()
+        # reusable receive buffers for pump replies (consumed, copied out,
+        # then returned before the next borrow can alias them)
+        self._recv_pool = tv.RecvBufferPool(stats=self.transport)
+        self._push_epoch = 0
+        self._pull_epoch = 0
+        self._pumps: Dict[int, List[ChannelPump]] = {}
+        self._bg_pool = None            # the background cycle thread
+        self._pending_cycles: List = []  # unobserved background handles
+
+    def _bucket_submit_priority(self, b: int) -> int:
+        """Pump priority of bucket ``b``: its index when priority
+        scheduling is on, else 0 (pure FIFO)."""
+        return int(b) if self.bucket_priority else 0
+
+    def _dial_transport_channel(self, host, port):
+        ch = tv.Channel.connect(host, port)
+        ch.stats = self.transport
+        ch.pool = self._recv_pool
+        return ch
+
+    def _open_pumps(self, indices) -> None:
+        """Dial ``pool_size`` extra connections a server; the main channels
+        stay free for control traffic (stats, checkpoints)."""
+        for i in indices:
+            host, port = self._addrs[i]
+            # registered before filled, so a failed dial mid-pool leaves
+            # the opened pumps reachable by _close_transport
+            self._pumps[i] = pumps = []
+            for _ in range(self.pool_size):
+                pumps.append(ChannelPump(
+                    self._dial_transport_channel(host, port),
+                    on_io=self._on_pump_io))
+
+    def _release_frame(self, frame) -> None:
+        """Return a consumed reply frame's buffer to the receive pool."""
+        self._recv_pool.ret(frame)
+
+    def _on_pump_io(self, sent: int, received: int, seconds: float) -> None:
+        with self._bytes_lock:
+            self.bytes_pushed += sent
+            self.bytes_pulled += received
+        self.transport.record_bucket(sent + received, seconds)
+
+    def _close_transport(self) -> None:
+        """Tear down the pumps and the cycle thread; safe on a partial
+        construction."""
+        if getattr(self, "_bg_pool", None) is not None:
+            self._bg_pool.shutdown(wait=False)
+            self._bg_pool = None
+        for pumps in getattr(self, "_pumps", {}).values():
+            for p in pumps:
+                p.close()
+        self._pumps = {}
+
+    def _bg_executor(self):
+        """The one background thread that runs whole transport cycles, so
+        cycles serialize per worker and the push/pull order the staleness
+        bound rests on is the serial order."""
+        if self._bg_pool is None:
+            import concurrent.futures
+
+            self._bg_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="ps-transport")
+        return self._bg_pool
+
+    def _bucket_reply(self, i: int, fut):
+        """Resolve one pump future; a dead channel raises the typed failure
+        the serial path raises."""
+        try:
+            return fut.result()
+        except tv.VanError as e:
+            host, port = self._addrs[i]
+            raise ServerFailureError(
+                f"{self._failure_noun} {i} ({host}:{port}) failed "
+                f"mid-job: {e}", server=i) from e
+
+    def _next_push_seq(self) -> int:
+        self._push_seq += 1
+        return self._push_seq
+
+    def _reply_error(self, i: int, extra: dict) -> BaseException:
+        """The error of an ERR reply: a 'not serving' refusal is the
+        retryable server failure, anything else an application error."""
+        host, port = self._addrs[i]
+        if extra.get("backup"):
+            return ServerFailureError(
+                f"{self._failure_noun} {i} ({host}:{port}) is not "
+                f"serving: {extra.get('error')}", server=i)
+        return RuntimeError(f"server {i} error: {extra.get('error')}")
+
+    def _hello(self, ch) -> dict:
+        """One HELLO round trip."""
+        kind, _, _, extra = tv.decode(
+            ch.request(tv.encode(tv.HELLO, self.worker, None)))
+        if kind != tv.OK:
+            raise RuntimeError(f"HELLO refused: {extra.get('error')}")
+        return extra
+
+    def _hello_any(self, i: int):
+        """Connect-time dial of server ``i``; returns ``(channel,
+        hello_extra)``."""
+        host, port = self._addrs[i]
+        ch = tv.Channel.connect(host, port)
+        ch.stats = self.transport
+        try:
+            return ch, self._hello(ch)
+        except RuntimeError as e:
+            ch.close()
+            raise ServerFailureError(
+                f"{self._failure_noun} {i} ({host}:{port}) refused "
+                f"HELLO: {e}", server=i) from e
+
+    def _track_pending(self, pending) -> None:
+        """Register a background handle for flush(); resolved ones (and
+        failures already delivered through wait()) are pruned."""
+        self._pending_cycles = [
+            c for c in self._pending_cycles
+            if not c.done() or (c._exc is not None
+                                and not getattr(c, "_observed", False))
+        ]
+        self._pending_cycles.append(pending)
+
+    def flush(self) -> None:
+        """Barrier: wait until every background cycle has landed (pushes
+        applied server-side and pulls merged), re-raising the first
+        failure. After flush() the worker is where a serial caller would
+        be."""
+        cycles, self._pending_cycles = self._pending_cycles, []
+        err = None
+        for c in cycles:
+            if getattr(c, "_observed", False):
+                continue  # this failure was already delivered via wait()
+            try:
+                c.wait()
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                err = err or e
+        if err is not None:
+            raise err
+
+    def _saved_transport_state(self) -> tuple:
+        """What must survive a reconnect: the wire counters, the transport
+        stats and the push/pull epoch streams."""
+        return (self.bytes_pushed, self.bytes_pulled, self.collective_bytes,
+                self.transport, self._push_epoch, self._pull_epoch)
+
+    def _restore_transport_state(self, saved: tuple) -> None:
+        (self.bytes_pushed, self.bytes_pulled, self.collective_bytes,
+         self.transport, self._push_epoch, self._pull_epoch) = saved
+        # the re-dial built its accounting against a new stats object
+        self._recv_pool.stats = self.transport
+        for pumps in self._pumps.values():
+            for p in pumps:
+                p._ch.stats = self.transport
+        for ch in getattr(self, "_chs", []):
+            ch.stats = self.transport

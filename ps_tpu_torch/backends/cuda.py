@@ -35,10 +35,14 @@ Both servers checkpoint (``ps_tpu_torch/checkpoint.py``): engine
 also the stale snapshots and the version vector. Each refuses to save
 mid-step and holds its lock across a save or a restore.
 
+With ``Config.heartbeat_peers()`` set and more than one process, the
+backend also runs the heartbeat failure detector of ``control/`` on this
+rank's port: ``check_health()`` raises ``WorkerFailureError`` naming a
+dead rank, and ``shutdown(abort=True)`` is the exit after it.
+
 Not ported yet: the async server across ranks (ROADMAP Queue 1 item 4),
-the failure detector (``check_health`` is a no-op until ``control/``,
-item 5), the async server's elastic hooks (item 6) and
-``partition_rules`` (item 7).
+the async server's elastic hooks (item 6) and ``partition_rules`` (item
+7).
 """
 
 from __future__ import annotations
@@ -427,17 +431,43 @@ class CudaBackend:
     def __init__(self, config: Config):
         self.config = config
         self._owns_group = False
+        self.failure_detector = None
         if config.coordinator_uri is not None or config.num_processes > 1:
             self.device = self._rank_device(config)
             self._join_group(config)
         else:
             self.device = backend_device(config)
         try:
+            self._start_failure_detector(config)
             self.mesh = make_mesh(config.mesh_shape)
         except Exception:
+            # a failed init leaves no beat thread running (peers would see
+            # a rank alive that never joined) and no process group
+            if self.failure_detector is not None:
+                self.failure_detector.close()
+                self.failure_detector = None
             self.shutdown(abort=True)
             raise
         self.num_workers = self.mesh.size
+
+    def _start_failure_detector(self, config: Config) -> None:
+        """With ``heartbeat_peers()`` set and several processes: monitor
+        this rank's port, beat every peer, and wait until every peer's
+        first beat has arrived."""
+        all_peers = config.heartbeat_peers()
+        if all_peers is None or config.num_processes <= 1:
+            return
+        from ps_tpu_torch.control import FailureDetector
+
+        peers = {i: hp for i, hp in all_peers.items()
+                 if i != config.process_id}
+        self.failure_detector = FailureDetector(
+            node_id=config.process_id, peers=peers,
+            port=all_peers[config.process_id][1],
+            bind=config.resolved_heartbeat_bind(),
+            interval_ms=config.heartbeat_interval_ms,
+            timeout_ms=config.heartbeat_timeout_ms)
+        self.failure_detector.wait_for_peers()
 
     @staticmethod
     def _rank_device(config: Config) -> torch.device:
@@ -482,8 +512,10 @@ class CudaBackend:
         self._owns_group = True
 
     def check_health(self) -> None:
-        """No-op: the failure detector is built on the heartbeat of
-        ``control/``, which comes with the van plane (ROADMAP item 5)."""
+        """Raise ``WorkerFailureError`` if a peer process stopped beating
+        (a no-op when the failure detector is off)."""
+        if self.failure_detector is not None:
+            self.failure_detector.check()
 
     def fused_apply_tier(self) -> str:
         """The concrete sparse fused-apply tier for this rank's device:
@@ -511,7 +543,12 @@ class CudaBackend:
     def shutdown(self, abort: bool = False) -> None:
         """Leave the process group this backend joined. ``abort=True`` is
         the post-failure path: the group is aborted without the barrier
-        (with a peer dead, a barrier would hang every survivor)."""
+        (with a peer dead, a barrier would hang every survivor). The
+        failure detector says goodbye first, so fellow survivors see this
+        exit as a leave, not a death."""
+        if self.failure_detector is not None:
+            self.failure_detector.close(goodbye=True)
+            self.failure_detector = None
         if not self._owns_group:
             return
         import torch.distributed as dist

@@ -1,34 +1,57 @@
-"""Async-SGD MNIST — the reference's workload config 5, in one process.
+"""Async-SGD MNIST — the reference's workload config 5, in one process or
+in its real deployment shape across processes.
 
-Counterpart of the single-process form of ``examples/train_mnist_async.py``:
-the server applies every arriving gradient at once with the DC-ASGD
-correction, and each worker computes against whatever (stale) parameters
-it last pulled. The workers are driven round-robin from one host, so each
-re-pulls only on its own turn and staleness accrues. It logs the loss,
-the worker and its staleness every 10 cycles, and last the server's
-version, the staleness histogram and the cycle rate. ``--profile-dir``
-traces the cycles after two warm-up cycles with ``torch.profiler`` and
-prints the kernels that take the most device time and the device's busy
-share.
+Counterpart of ``examples/train_mnist_async.py``: the server applies every
+arriving gradient at once with the DC-ASGD correction, and each worker
+computes against whatever (stale) parameters it last pulled.
 
-The reference's cross-process roles (``--role server|worker`` over the
-native van) are not ported yet (ROADMAP Queue 1 item 5).
+Single process (``--role single``, the default): the workers are driven
+round-robin from one host, so each re-pulls only on its own turn and
+staleness accrues. It logs the loss, the worker and its staleness every 10
+cycles, and last the server's version, the staleness histogram and the
+cycle rate. ``--profile-dir`` traces the cycles after two warm-up cycles
+with ``torch.profiler``.
 
-Run (on the GPU; ``--device cpu`` runs on the CPU):
-    python -m ps_tpu_torch.examples.train_mnist_async --steps 60 --num-workers 3
+Across processes, over the native van's TCP layer (server first):
+
+    python -m ps_tpu_torch.examples.train_mnist_async --role server \\
+        --port 7077 --num-workers 2
+    python -m ps_tpu_torch.examples.train_mnist_async --role worker \\
+        --server localhost:7077 --worker-id 0 --steps 30
+    python -m ps_tpu_torch.examples.train_mnist_async --role worker \\
+        --server localhost:7077 --worker-id 1 --steps 30
+
+A key partition over N servers: start server s with ``--shard s
+--num-shards N`` and give every worker ``--server h0:p0,h1:p1``. Workers
+take ``--bucket-bytes`` (the bucketed transport), ``--pool`` (its
+connections a server) and ``--overlap`` (each cycle in the background).
+The server holds its parameters on ``--device`` and each worker takes its
+gradients there; a server stops once every worker said goodbye. With
+``--dump DIR`` the server writes its full event log, staleness histogram
+and final parameters (``server<shard>.json``, ``server_params<shard>.pt``)
+and each worker its losses and cycle times (``worker<id>.json``): the
+event log, with each worker's gradients recomputed from what it pulled,
+replays the run through one-process servers.
+
+Not ported yet, each raising: ``--compress`` other than none (compress/)
+and the replication flags ``--backup``, ``--watch-port``,
+``--replicate-to``, ``--beat`` (replica/), all ROADMAP Queue 1 item 5.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import time
-
+import numpy as np
 import torch
 
 import ps_tpu_torch as ps
 from ps_tpu_torch.data.synthetic import mnist_batches
+from ps_tpu_torch.kv.store import to_device
 from ps_tpu_torch.models.mlp import MLP, make_loss_fn
-from ps_tpu_torch.utils import StepLogger, trace
+from ps_tpu_torch.utils import StepLogger, TrainMetrics, trace
 
 
 def build(seed: int, device):
@@ -38,13 +61,15 @@ def build(seed: int, device):
     return params, make_loss_fn(model)
 
 
-def main(argv=None):
+def parse_args(argv=None):
+    # env-var topology (PS_ROLE / DMLC_ROLE style) is the flag default
     cfg = ps.Config.from_env()
     ap = argparse.ArgumentParser()
     ap.add_argument("--role", default=cfg.role or "single",
                     choices=["single", "server", "worker"])
     ap.add_argument("--steps", type=int, default=60,
-                    help="worker cycles, round-robin over the workers")
+                    help="single: cycles round-robin over the workers; "
+                         "worker: this node's cycles")
     ap.add_argument("--batch-size", type=int, default=64)
     ap.add_argument("--num-workers", type=int, default=3)
     ap.add_argument("--lr", type=float, default=0.1)
@@ -52,13 +77,166 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--profile-dir", default=None,
-                    help="torch.profiler trace dir")
+                    help="single: torch.profiler trace dir")
+    ap.add_argument("--dump", default=None,
+                    help="server/worker: write the run's record here")
+    # cross-process wiring
+    ap.add_argument("--port", type=int, default=0, help="server listen port")
+    ap.add_argument("--bind", default="127.0.0.1",
+                    help="server listen address (0.0.0.0 explicitly for a "
+                         "multi-host job; the endpoint is unauthenticated)")
+    ap.add_argument("--server", default=cfg.server_uris,
+                    help="worker: host:port, comma-separated for an "
+                         "N-server partition (or env PS_SERVER_URIS / "
+                         "PS_ASYNC_SERVER_URI)")
+    ap.add_argument("--worker-id", type=int, default=cfg.worker_id)
+    ap.add_argument("--bucket-bytes", type=int,
+                    default=cfg.bucket_bytes or 0,
+                    help="worker: fusion-bucket size of the bucketed "
+                         "transport (0 = serial; env PS_BUCKET_BYTES)")
+    ap.add_argument("--pool", type=int, default=cfg.transport_pool,
+                    help="worker: connections a server for the bucketed "
+                         "transport (env PS_TRANSPORT_POOL)")
+    ap.add_argument("--overlap", action="store_true",
+                    help="worker: run each cycle in the background "
+                         "(needs --bucket-bytes)")
+    ap.add_argument("--compress", default=cfg.compress or "none",
+                    choices=["none", "cast16", "int8", "topk"])
+    ap.add_argument("--shard", type=int, default=cfg.shard,
+                    help="server: this server's index in the key partition")
+    ap.add_argument("--num-shards", type=int, default=cfg.num_shards,
+                    help="server: servers in the key partition")
+    ap.add_argument("--backup", action="store_true")
+    ap.add_argument("--watch-port", type=int, default=0)
+    ap.add_argument("--replicate-to", default=None)
+    ap.add_argument("--beat", default=None)
     args = ap.parse_args(argv)
-    if args.role != "single":
+    if args.compress != "none":
         raise NotImplementedError(
-            f"--role {args.role}: the cross-process async roles need the van "
-            f"plane, which is not ported yet (ROADMAP Queue 1 item 5)")
+            f"--compress {args.compress}: gradient codecs (compress/) are "
+            f"not ported yet (ROADMAP Queue 1 item 5)")
+    if args.backup or args.watch_port or args.replicate_to or args.beat:
+        raise NotImplementedError(
+            "--backup/--watch-port/--replicate-to/--beat: shard replication "
+            "(replica/) is not ported yet (ROADMAP Queue 1 item 5)")
+    return args
 
+
+def run_worker(args):
+    uri = args.server
+    if not uri:
+        raise SystemExit("worker needs --server host:port "
+                         "(or PS_SERVER_URIS / PS_ASYNC_SERVER_URI)")
+    params, loss_fn = build(args.seed, args.device)
+    w = ps.connect_async(uri, args.worker_id, params,
+                         bucket_bytes=args.bucket_bytes or None,
+                         pool_size=args.pool if args.bucket_bytes else None)
+    device = w.device  # params' device; a bare "cuda" is cuda:0
+    run = w.make_async_step(loss_fn, overlap=args.overlap)
+    log = StepLogger(every=10)
+    # the wire bytes on the van's sockets: the reference's push/pull GB/s
+    # in its physical form
+    metrics = TrainMetrics(w, batch_size=args.batch_size, num_chips=1)
+    stream = mnist_batches(args.batch_size, seed=args.seed,
+                           worker=args.worker_id, num_workers=w.num_workers)
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else (lambda: None))
+    losses, cycle_s = [], []
+    # the window after the first cycle (connect, first pull, warm-up), on
+    # the host's monotonic clock, which every process of the host shares
+    t_after_first = None
+    for step in range(args.steps):
+        batch = to_device(next(stream), device)
+        sync()
+        t0 = time.perf_counter()
+        loss = run(batch)
+        sync()
+        cycle_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+        if step == 0:
+            metrics.mark_compiled()
+            t_after_first = time.monotonic()
+        else:
+            metrics.step(loss)
+        if log.wants(step):
+            log.log(step, loss=float(loss), version=w.version)
+    if args.overlap:
+        w.flush()  # land the last background cycle before reporting
+    t_end = time.monotonic()
+    s = metrics.summary()
+    van = w.transport.latency_quantiles()
+    van_name = "cycle_s" if args.overlap else "push_pull_s"
+    med = float(np.median(cycle_s[1:] or cycle_s))
+    print(f"worker {args.worker_id}: done at server version {w.version}; "
+          f"wire push {s['push_gb']:.4f} GB / pull {s['pull_gb']:.4f} GB "
+          f"({s['push_pull_gbps']:.3f} GB/s); median cycle "
+          f"{med * 1e3:.3f} ms ({van_name} p50 "
+          f"{van[van_name]['p50'] * 1e3:.3f} ms)", flush=True)
+    if "overlap_efficiency" in s:
+        print(f"worker {args.worker_id}: overlap efficiency "
+              f"{s['overlap_efficiency']:.2f}", flush=True)
+    record = {
+        "worker": args.worker_id, "losses": [float(x) for x in losses],
+        "cycle_s": cycle_s, "window": [t_after_first, t_end],
+        "van": van, "versions": list(w.versions),
+        "van_s": w.transport.op_samples(van_name[:-2]),
+        "staging_s": w.transport.staging_s,
+        "staging_bytes": w.transport.staging_bytes,
+        "bytes": [w.bytes_pushed, w.bytes_pulled],
+        "summary": s,
+    }
+    w.close()
+    if args.dump:
+        with open(os.path.join(args.dump, f"worker{args.worker_id}.json"),
+                  "w") as f:
+            json.dump(record, f)
+    return record
+
+
+def run_server(args):
+    ctx = ps.init(backend="cuda", mode="async", num_workers=args.num_workers,
+                  dc_lambda=args.dc_lambda, device=args.device)
+    params, _ = build(args.seed, ctx.device)
+    store = ps.KVStore(optimizer="sgd", learning_rate=args.lr, mode="async")
+    if args.num_shards is not None:
+        store.init(ps.shard_tree(params, args.shard, args.num_shards))
+    else:
+        store.init(params)
+    from ps_tpu_torch.backends.remote_async import AsyncPSService
+
+    engine = store._engine
+    svc = AsyncPSService(store, port=args.port, bind=args.bind,
+                         shard=args.shard, num_shards=args.num_shards,
+                         record_full_history=bool(args.dump))
+    shard_note = ("" if args.num_shards is None
+                  else f", shard {args.shard}/{args.num_shards}")
+    print(f"async PS server on port {svc.port} ({args.num_workers} workers "
+          f"expected{shard_note}; params on {ctx.device})", flush=True)
+    # quiesce on goodbyes: a worker says goodbye only after its last reply
+    # arrived, so stop() cannot race a reply
+    svc.wait_for_goodbyes(args.num_workers)
+    hist = dict(sorted(engine.staleness_hist.items()))
+    print(f"served {svc.apply_log.total} pushes, final version "
+          f"{engine.version}, staleness histogram {hist}", flush=True)
+    if args.dump:
+        suffix = "" if args.shard is None else str(args.shard)
+        torch.save({k: v.detach().cpu() for k, v in engine._params.items()},
+                   os.path.join(args.dump, f"server_params{suffix}.pt"))
+        with open(os.path.join(args.dump, f"server{suffix}.json"), "w") as f:
+            json.dump({"event_log": svc.event_log,
+                       "apply_log": svc.apply_log,
+                       "keys": svc._key_order,
+                       "staleness_hist": {str(t): n
+                                          for t, n in hist.items()},
+                       "version": engine.version,
+                       "staging_s": svc.transport.staging_s,
+                       "staging_bytes": svc.transport.staging_bytes}, f)
+    svc.stop()
+    ps.shutdown()
+    return {"version": engine.version, "staleness_histogram": hist}
+
+
+def run_single(args):
     ctx = ps.init(backend="cuda", mode="async", num_workers=args.num_workers,
                   dc_lambda=args.dc_lambda, device=args.device)
     params, loss_fn = build(args.seed, ctx.device)
@@ -93,6 +271,15 @@ def main(argv=None):
     ps.shutdown()
     return {"losses": [float(x) for x in losses], "version": version,
             "staleness_histogram": hist, "cycles_per_sec": args.steps / dt}
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.role == "worker":
+        return run_worker(args)
+    if args.role == "server":
+        return run_server(args)
+    return run_single(args)
 
 
 if __name__ == "__main__":

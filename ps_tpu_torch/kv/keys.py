@@ -5,11 +5,14 @@ nested dicts, lists and tuples ("mlp_0/kernel"), visited in the order
 ``jax.tree_util`` visits them: dict keys sorted, sequences in order,
 ``None`` an empty node. The same nested dict therefore gives the same key
 strings in the same order in both packages, which checkpoints, partition
-rules and the weight converter rely on.
+rules and the weight converter rely on. :func:`shard_for_key` is the
+reference's key-to-server hash, so a port server and a reference worker
+(or the other way round) agree on which server owns a key.
 """
 
 from __future__ import annotations
 
+import zlib
 from typing import Any, Dict, List, Tuple
 
 _LEAF = object()  # marks a leaf's place in a treedef
@@ -58,3 +61,10 @@ def unflatten(treedef, kv: Dict[str, Any], key_order: List[str]) -> Any:
         return node
 
     return build(treedef)
+
+
+def shard_for_key(key: str, num_shards: int) -> int:
+    """Deterministic key -> server assignment (hash partition): the CRC-32
+    of the key string modulo the number of servers, as the reference
+    computes it."""
+    return zlib.crc32(key.encode()) % num_shards

@@ -26,6 +26,20 @@ _TRUNC_STD = 0.87962566103423978
 _ERF_SQRT2 = math.erf(math.sqrt(2.0))  # 2·Φ(2) - 1
 
 
+def _serial_erfinv_(t: torch.Tensor) -> torch.Tensor:
+    """``t.erfinv_()`` on one intra-op thread. A process's first parallel
+    elementwise op on the CPU now and then comes out differently while
+    torch's thread pool starts; on one thread the draw is a function of the
+    seed alone, in every process (a server and the replay of its run draw
+    the same weights)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return t.erfinv_()
+    finally:
+        torch.set_num_threads(threads)
+
+
 class MLP:
     """784 → hidden → 10 classifier over images ``[B, 28, 28, 1]`` (any
     trailing shape of ``in_features`` elements)."""
@@ -52,9 +66,9 @@ class MLP:
         for key, shape in sorted(self.shapes().items()):
             if key.endswith("kernel"):
                 std = math.sqrt(1.0 / shape[0]) / _TRUNC_STD
-                flat[key] = torch.empty(shape).uniform_(
+                flat[key] = _serial_erfinv_(torch.empty(shape).uniform_(
                     -_ERF_SQRT2, _ERF_SQRT2, generator=generator
-                ).erfinv_().mul_(math.sqrt(2.0) * std)
+                )).mul_(math.sqrt(2.0) * std)
             else:
                 flat[key] = torch.zeros(shape)
         return _nest({k: t.to(device) for k, t in flat.items()})

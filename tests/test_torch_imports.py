@@ -77,8 +77,33 @@ def test_every_slice_module_is_checked():
                  "ps_tpu_torch/kv/sparse.py", "ps_tpu_torch/train.py",
                  "ps_tpu_torch/models/bert.py", "ps_tpu_torch/config.py",
                  "ps_tpu_torch/api.py",
-                 "ps_tpu_torch/examples/train_widedeep.py"):
+                 "ps_tpu_torch/examples/train_widedeep.py",
+                 "ps_tpu_torch/native/__init__.py",
+                 "ps_tpu_torch/control/__init__.py",
+                 "ps_tpu_torch/control/tensor_van.py",
+                 "ps_tpu_torch/control/heartbeat.py",
+                 "ps_tpu_torch/backends/van_service.py",
+                 "ps_tpu_torch/backends/remote_async.py",
+                 "ps_tpu_torch/kv/keys.py"):
         assert path in FILES
+
+
+def test_van_plane_loads_neither_jax_nor_its_package():
+    """The van plane (the native loader, control/, the service and the
+    remote worker) runs without JAX and never reaches into ps_tpu/: its
+    modules load no jax, jaxlib, flax, optax or ps_tpu, and the native
+    loader builds the port's own copy of van.cpp."""
+    code = ("import sys, ps_tpu_torch.native as n, "
+            "ps_tpu_torch.control.tensor_van, ps_tpu_torch.control.heartbeat, "
+            "ps_tpu_torch.backends.van_service, "
+            "ps_tpu_torch.backends.remote_async; "
+            "print(sorted({m.split('.')[0] for m in sys.modules} & "
+            "{'jax', 'jaxlib', 'flax', 'optax', 'ps_tpu'}), "
+            "n._DIR.name, n._DIR.parent.name)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.split() == ["[]", "native", "ps_tpu_torch"]
 
 
 def test_parallel_modules_load_neither_jax_nor_its_package():

@@ -69,6 +69,22 @@ def test_init_matches_flax_layout_and_distribution():
     assert torch.equal(again["dense1"]["kernel"], flat["dense1/kernel"])
 
 
+def test_init_draws_on_one_thread_whatever_the_thread_count():
+    """The draw runs its erfinv on one intra-op thread, so the weights are
+    the seed's alone; the caller's thread count is left as it was."""
+    threads = torch.get_num_threads()
+    try:
+        draws = []
+        for n in (1, 4):
+            torch.set_num_threads(n)
+            draws.append(MLP(hidden=64).init(torch.Generator().manual_seed(3)))
+            assert torch.get_num_threads() == n
+        assert torch.equal(draws[0]["dense1"]["kernel"],
+                           draws[1]["dense1"]["kernel"])
+    finally:
+        torch.set_num_threads(threads)
+
+
 def test_forward_and_loss_match_flax():
     ref_model, ref_params = _flax()
     images, labels = next(ref_mnist_batches(16, seed=2))
