@@ -168,6 +168,33 @@ Phases, each raising on failure:
    push_pull GB/s with 1 and 3 workers and the staging copies' share of
    a cycle. Run it alone with ``python3 -c "import chip_smoke as c,
    tempfile; c.phase_van(tempfile.mkdtemp())"``.
+17. the sparse PS across processes (config 4, Wide-&-Deep's published
+   width): (a) two ``serve_sparse`` server processes, shard s of 2 of
+   2,600,000 rows, each holding its 1,300,000 rows of the deep table
+   ([*, 16], adagrad) and the wide one ([*, 1], sgd), lr 0.05, from a
+   numpy seed, on the card, and three ``connect_sparse`` worker processes
+   (``tests/test_torch_van_harness.py``'s sparse roles) x 60 cycles of
+   one Criteo-like batch's 13,312 global ids, their ids and grads on the
+   card, even cycles pull then push, odd ones push_pull: each apply log
+   has its expected length; replayed through the port's tables on the
+   card it gives the servers' tables and state bitwise, and every pulled
+   row set equals, bitwise, the replay's rows at the versions its reply
+   carried; replayed through the torch tier on the CPU it gives sgd
+   bitwise and adagrad within rtol 1e-6 / atol 1e-7; each applied push
+   launched 2 grouping (cluster path) + 2 apply kernels in its server;
+   (b) one worker, serial against bucketed (16 KiB buckets, pool 2):
+   bitwise the same tables, and a pull after ``push_async`` sees that
+   push; (c) ``checkpoint_all`` mid-run over both shards, both servers
+   restarted from it: the continued run equals the uninterrupted one
+   bitwise; (d) a SIGKILLed server 0 raises ``ServerFailureError`` naming
+   server 0; (e) the masked full-table 'off' tier against the kernels at
+   phase 4's shape, 5 pushes: sgd bitwise, adagrad within rtol 1e-6 /
+   atol 1e-7; (f) cycles/s over one shared window, the median pull, push
+   and push_pull, each server's median sparse apply and rows/s, the
+   staging share of a cycle, and both sparse kernels timed at a server
+   shard's shape (the median routed push) against their bound. Run it
+   alone with ``python3 -c "import chip_smoke as c, tempfile;
+   c.phase_build(); c.phase_sparse_ps(tempfile.mkdtemp())"``.
 
 It prints one JSON line per timed kernel, then the kernels line, then
 ``{"ok": true, "device": {...}}`` as its last line. Without a GPU, or
@@ -3089,6 +3116,496 @@ def phase_van(tmp):
     return {"mnist": m, "bert_like": bert, "heartbeat_s": hb["seconds"]}
 
 
+# phase 17: the sparse PS across processes at config 4's full width
+SPARSE_SHARDS, SPARSE_WORKERS, SPARSE_CYCLES = 2, 3, 60
+SPARSE_TIMEOUT_S = 300
+# (b): one worker, serial against 16 KiB buckets over a pool of 2
+SPARSE_BUCKET_BYTES, SPARSE_POOL, SPARSE_TRANSPORT_CYCLES = 16 << 10, 2, 8
+SPARSE_CKPT_CYCLES = 6  # (c): cycles before and after the checkpoint
+OFF_PUSHES = 5          # (e)
+
+
+def _emb_leaves(emb):
+    """A table's optimizer-state leaves in tree order."""
+    from ps_tpu_torch.ops.sparse_apply import state_leaves
+
+    return state_leaves(emb.state())
+
+
+def _sparse_cycles(harness, w, worker, lo, hi):
+    """Cycles ``lo..hi-1`` of ``worker`` at W&D's width (the harness's
+    ids and grads), on the card: even cycles pull then push, odd ones
+    push_pull."""
+    ids = harness.sparse_ids("wd", worker, hi)
+    for c in range(lo, hi):
+        idt = torch.from_numpy(ids[c]).cuda()
+        pushes = {n: (idt, torch.from_numpy(harness.sparse_grads(
+            "wd", worker, c, n, ids[c].size)).cuda())
+            for n in harness.SPARSE_TABLES}
+        req = {n: idt for n in harness.SPARSE_TABLES}
+        if c % 2 == 0:
+            w.pull(req)
+            w.push(pushes)
+        else:
+            w.push_pull(pushes, req)
+
+
+def _sparse_services(harness, tables=None):
+    """The two shard services in this process, tables on the card."""
+    import ps_tpu_torch as ps
+
+    totals = {n: v for n, (v, _) in harness.sparse_spec("wd").items()}
+    return [ps.serve_sparse(
+        tables[s] if tables else harness.sparse_tables("wd", s,
+                                                       SPARSE_SHARDS),
+        shard=s, num_shards=SPARSE_SHARDS, total_rows=totals)
+        for s in range(SPARSE_SHARDS)]
+
+
+def _sparse_state(svcs):
+    """Every table and optimizer-state leaf of the services, cloned."""
+    from ps_tpu_torch.ops.sparse_apply import state_leaves
+
+    return [{n: [t.table.clone()] + [x.clone()
+                                     for x in state_leaves(t.state())]
+             for n, t in s._tables.items()} for s in svcs]
+
+
+def _same_state(got, want, what):
+    for s, (x, y) in enumerate(zip(got, want)):
+        for n in x:
+            if not all(torch.equal(p, q) for p, q in zip(x[n], y[n])):
+                raise AssertionError(f"{what}: shard {s} table {n} differs")
+
+
+def _sparse_uri(svcs):
+    return ",".join(f"127.0.0.1:{s.port}" for s in svcs)
+
+
+def _sparse_transports(harness):
+    """(b): one worker, serial against bucketed: bitwise the same tables;
+    then a push_async followed by a pull sees its own push. Returns the
+    bucket rounds of the bucketed run."""
+    import ps_tpu_torch as ps
+
+    states, buckets = [], 0
+    for bucket_bytes in (None, SPARSE_BUCKET_BYTES):
+        svcs = _sparse_services(harness)
+        try:
+            w = ps.connect_sparse(
+                _sparse_uri(svcs), 0, harness.sparse_spec("wd"),
+                bucket_bytes=bucket_bytes,
+                pool_size=SPARSE_POOL if bucket_bytes else None)
+            _sparse_cycles(harness, w, 0, 0, SPARSE_TRANSPORT_CYCLES)
+            states.append(_sparse_state(svcs))
+            if bucket_bytes:
+                buckets = w.transport.buckets
+                ids = harness.sparse_ids("wd", 1, 1)[0]
+                idt = torch.from_numpy(ids).cuda()
+                before = w.versions()
+                w.push_async({n: (idt, torch.from_numpy(
+                    harness.sparse_grads("wd", 1, 0, n, ids.size)).cuda())
+                    for n in harness.SPARSE_TABLES})
+                rows = w.pull({n: idt for n in harness.SPARSE_TABLES})
+                if w.versions() != {n: v + SPARSE_SHARDS
+                                    for n, v in before.items()}:
+                    raise AssertionError(
+                        f"sparse (b): a pull after push_async saw versions "
+                        f"{w.versions()}, from {before}")
+                for n, r in rows.items():
+                    for svc in svcs:
+                        lo, hi = svc._meta[n]["lo"], svc._meta[n]["hi"]
+                        pos = torch.nonzero((idt >= lo) & (idt < hi))
+                        pos = pos.reshape(-1)
+                        want = svc._tables[n].table[(idt[pos] - lo).long()]
+                        if not torch.equal(r[pos], want):
+                            raise AssertionError(
+                                "sparse (b): a pull after push_async did "
+                                "not see its own push")
+            w.close()
+        finally:
+            for s in svcs:
+                s.stop()
+    _same_state(states[1], states[0], "sparse (b): bucketed against serial")
+    if buckets < 2 * SPARSE_SHARDS * SPARSE_TRANSPORT_CYCLES:
+        raise AssertionError(f"sparse (b): {buckets} bucket rounds: the "
+                             f"pushes did not split")
+    return buckets
+
+
+def _sparse_checkpoint(harness, tmp):
+    """(c): checkpoint_all mid-run over the two shards; both servers
+    restart from it and the run that continues equals the uninterrupted
+    one, bitwise. Returns the save's seconds."""
+    import ps_tpu_torch as ps
+
+    path = os.path.join(tmp, "ckpt")
+    k = SPARSE_CKPT_CYCLES
+    svcs = _sparse_services(harness)
+    try:
+        w = ps.connect_sparse(_sparse_uri(svcs), 0, harness.sparse_spec("wd"))
+        _sparse_cycles(harness, w, 0, 0, k)
+        t0 = time.perf_counter()
+        versions = w.checkpoint_all(path)
+        save_s = time.perf_counter() - t0
+        _sparse_cycles(harness, w, 0, k, 2 * k)
+        uninterrupted = _sparse_state(svcs)
+    finally:
+        for s in svcs:
+            s.stop()
+    tables = []
+    for s in range(SPARSE_SHARDS):
+        t = harness.sparse_tables("wd", s, SPARSE_SHARDS)
+        for n, emb in t.items():
+            emb.restore(os.path.join(path, f"shard{s}", n))
+        tables.append(t)
+    svcs = _sparse_services(harness, tables)
+    try:
+        w.reconnect([("127.0.0.1", s.port) for s in svcs])
+        if w.versions() != versions:
+            raise AssertionError(f"sparse (c): restarted servers at versions "
+                                 f"{w.versions()}, saved {versions}")
+        _sparse_cycles(harness, w, 0, k, 2 * k)
+        _same_state(_sparse_state(svcs), uninterrupted,
+                    "sparse (c): resumed against uninterrupted")
+        w.close()
+    finally:
+        for s in svcs:
+            s.stop()
+    return save_s
+
+
+def _sparse_kill(harness, servers, out):
+    """(d): a SIGKILL of server 0 of two; the worker raises
+    ServerFailureError naming server 0."""
+    import signal
+
+    import ps_tpu_torch as ps
+
+    try:
+        ports = [harness.server_port(p, out, s)
+                 for s, p in enumerate(servers)]
+        w = ps.connect_sparse(",".join(f"127.0.0.1:{p}" for p in ports), 0,
+                              harness.sparse_spec("small"))
+        ids = harness.sparse_ids("small", 0, 20)
+
+        def push(c):
+            w.push({n: (ids[c], harness.sparse_grads("small", 0, c, n,
+                                                     ids[c].size))
+                    for n in harness.SPARSE_TABLES})
+
+        push(0)
+        servers[0].send_signal(signal.SIGKILL)
+        servers[0].wait(timeout=30)
+        try:
+            for c in range(1, 20):  # a first push may land in a dead buffer
+                push(c)
+                time.sleep(0.05)
+        except ps.ServerFailureError as e:
+            if e.server != 0 or "server 0" not in str(e):
+                raise AssertionError(f"sparse (d): {e!r}") from e
+            message = str(e)
+        else:
+            raise AssertionError("sparse (d): a dead server raised no "
+                                 "ServerFailureError")
+        for ch in w._chs:
+            ch.close()
+    finally:
+        harness.kill_all(servers)
+    return message
+
+
+def _sparse_off_tier():
+    """(e): the masked full-table tier against the kernels on the card at
+    phase 4's shape, OFF_PUSHES pushes of a batch's ids each."""
+    from ps_tpu_torch.ops import sparse_apply as ops
+    from ps_tpu_torch.optim import rowwise
+
+    cfg, _ = _slice_ids(seed=0)
+    pushes = [_slice_ids(seed=20 + i)[1] for i in range(OFF_PUSHES)]
+    errs, off_ms = {}, {}
+    for name, rule, dim in (("deep", "adagrad", cfg.embed_dim),
+                            ("wide", "sgd", 1)):
+        opt = rowwise.make_rowwise(rule, learning_rate=0.05)
+        g = torch.Generator("cuda").manual_seed(9)
+        table = 0.01 * torch.randn((cfg.total_rows, dim), generator=g,
+                                   device="cuda")
+        grads = [torch.randn((ids.numel(), dim), generator=g, device="cuda")
+                 for ids in pushes]
+        runs = {}
+        for tier in ("cuda", "off"):
+            t, st = table.clone(), opt.init(table)
+            for ids, gr in zip(pushes, grads):
+                ops.fused_sparse_apply(t, st, ids, gr, opt, tier)
+            runs[tier] = [t] + ops.state_leaves(st)
+        torch.cuda.synchronize()
+        if rule == "sgd" and not torch.equal(runs["off"][0], runs["cuda"][0]):
+            raise AssertionError("sparse (e): the 'off' tier's sgd table is "
+                                 "not bitwise the kernel's")
+        errs[name] = max(_compare(a, b, torch.float32, f"off tier {name}")
+                         for a, b in zip(runs["off"], runs["cuda"]))
+        t, st = table.clone(), opt.init(table)
+        # a caller's time: the tier reads its pass sizes on the host
+        off_ms[name] = _call_ms(lambda: ops.fused_sparse_apply(
+            t, st, pushes[0], grads[0], opt, "off"), iters=10, warmup=2)
+        del table, grads, runs, t, st
+    return errs, off_ms
+
+
+def _sparse_shard_timings(harness, card):
+    """(f): both sparse kernels at a server shard's shape: the routed push
+    of median size over (a)'s pushes, into [1,300,000, D] tables."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.backends.remote_sparse import row_range
+    from ps_tpu_torch.ops import sparse_apply as ops
+    from ps_tpu_torch.optim import rowwise
+
+    routed = []  # (size, shard-local ids)
+    for w in range(SPARSE_WORKERS):
+        for s in range(SPARSE_SHARDS):
+            for per in harness.routed_pushes("wd", w, s, SPARSE_SHARDS,
+                                             SPARSE_CYCLES):
+                routed.append((per["deep"][0].size, per["deep"][0]))
+    routed.sort(key=lambda x: x[0])
+    n_med, local = routed[len(routed) // 2]
+    rows = row_range(0, SPARSE_SHARDS, harness.sparse_spec("wd")["deep"][0])
+    rows = rows[1] - rows[0]
+    ids = torch.from_numpy(local).cuda()
+    group_ms = _device_ms(lambda: ops.group_ids(ids, rows))
+    group = ops.group_ids(ids, rows)
+    segs = int(group.meta[0])
+    group_bytes = 4 * n_med + 4 * 2 * n_med + 4 * (2 * segs + 1) + 4 * ops.META
+    out = {"ids": n_med, "max_ids": routed[-1][0],
+           "path": ops.plan_group(n_med, rows)["path"],
+           "group": {"ms": group_ms,
+                     "bound_ms": group_bytes / HBM_BYTES_PER_S * 1e3,
+                     "plain_ms": _call_ms(lambda: ops._group_torch(ids, rows),
+                                          iters=50),
+                     "library_ms": _device_ms(
+                         lambda: torch.sort(ids, stable=True))}}
+    log(json.dumps({"kernel": "sparse_group", "where": "sparse PS shard",
+                    "ids": n_med, "segments": segs, "rows": rows,
+                    **out["group"], "card": card}))
+    ps.init(backend="cuda")
+    for name in ("deep", "wide"):
+        rule = harness.SPARSE_TABLES[name][0]
+        dim = harness.sparse_spec("wd")[name][1]
+        opt = rowwise.make_rowwise(rule, learning_rate=harness.SPARSE_LR)
+        g = torch.Generator("cuda").manual_seed(5)
+        table = 0.01 * torch.randn((rows, dim), generator=g, device="cuda")
+        state = opt.init(table)
+        grads = 1e-3 * torch.randn((n_med, dim), generator=g, device="cuda")
+        emb = ps.SparseEmbedding(rows, dim, optimizer=rule,
+                                 learning_rate=harness.SPARSE_LR)
+        emb.init(table)
+        bound_ms, nbytes, uniq = _bound_ms(ids, dim, opt, 4)
+        out[name] = {
+            "ms": _device_ms(lambda: ops.fused_sparse_apply(
+                table, state, ids, grads, opt, "cuda")),
+            "launch_ms": _device_ms(lambda: ops._launch(opt, table, state,
+                                                        group, grads)),
+            "plain_ms": _call_ms(lambda: ops._apply_torch(
+                opt, table, state, *ops.batch_segment_sum(ids, grads)),
+                iters=50),
+            # what the service's apply waits: the table's push, its
+            # row_version read of the ids on the host included
+            "push_ms": _call_ms(lambda: emb.push(ids, grads), iters=50),
+            "bound_ms": bound_ms, "bytes": nbytes, "unique_ids": uniq}
+        log(json.dumps({"kernel": "sparse_apply", "where": "sparse PS shard",
+                        "table": name, "rule": rule, "shape": [rows, dim],
+                        "ids": n_med, **out[name], "card": card}))
+        del table, state, grads, emb
+    ps.shutdown()
+    return out
+
+
+def _sparse_numbers(infos, records):
+    """(f) from (a): cycles/s over one shared window, the median round
+    trips, each server's median sparse apply and rows/s, the staging
+    share of the workers' cycles."""
+    start = min(r["window"][0] for r in records)
+    end = max(r["window"][1] for r in records)
+    n = sum(len(r["cycle_s"]) - 1 for r in records)
+    ops_ms = {k: float(np.median(sum((r["ops"][k] for r in records), [])))
+              * 1e3 for k in ("pull", "push", "push_pull")}
+    servers = [{"sparse_apply_ms": float(np.median(i["sparse_apply_s"])) * 1e3,
+                "apply_ms": float(np.median(i["apply_s"])) * 1e3,
+                "rows_per_s": i["rows"] / sum(i["sparse_apply_s"]),
+                "pushes": len(i["apply_log"])} for i in infos]
+    busy = sum(sum(r["cycle_s"]) for r in records)
+    return {"cycles_per_s": n / (end - start), "cycles": n,
+            "window_s": end - start, "ops_ms": ops_ms, "servers": servers,
+            "median_cycle_ms": float(np.median(sum(
+                (r["cycle_s"][1:] for r in records), []))) * 1e3,
+            "staging_share": sum(r["staging_s"] for r in records) / busy}
+
+
+def phase_sparse_ps(tmp):
+    """17: the sparse PS across processes on the card (config 4)."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.ops import _build
+
+    _build.build(("sparse_group", "sparse_apply"))  # cached after phase 2
+    harness = _van_harness()
+    card = _card_line()
+    t_phase = time.perf_counter()
+    # (a) two server processes, three worker processes
+    a_out = os.path.join(tmp, "a")
+    os.makedirs(a_out)
+    procs = [harness.spawn("sparse-server", a_out, SPARSE_WORKERS,
+                           SPARSE_CYCLES, s, SPARSE_SHARDS, "cuda", "wd")
+             for s in range(SPARSE_SHARDS)]
+    procs += [harness.spawn("sparse-worker", f"@{SPARSE_SHARDS}", a_out, w,
+                            SPARSE_CYCLES, "cuda", "wd", SPARSE_WORKERS, 1)
+              for w in range(SPARSE_WORKERS)]
+    outs = harness.finish(procs, SPARSE_TIMEOUT_S, fail_fast=True)
+    for p, o in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"sparse (a): {' '.join(p.args[-9:])} "
+                                 f"exited {p.returncode}:\n{o[-3000:]}")
+    t_a = time.perf_counter() - t_phase
+    # (d)'s servers boot while (a) is checked and (b)-(c) run
+    d_out = os.path.join(tmp, "d")
+    os.makedirs(d_out)
+    doomed = [harness.spawn("sparse-server", d_out, 1, 10_000, s,
+                            SPARSE_SHARDS, "cuda", "small")
+              for s in range(SPARSE_SHARDS)]
+    try:
+        infos = [json.load(open(os.path.join(a_out,
+                                             f"sparse_server{s}.json")))
+                 for s in range(SPARSE_SHARDS)]
+        finals = [dict(np.load(os.path.join(a_out, f"sparse_tables{s}.npz")))
+                  for s in range(SPARSE_SHARDS)]
+        records = [json.load(open(os.path.join(a_out,
+                                               f"sparse_worker{w}.json")))
+                   for w in range(SPARSE_WORKERS)]
+        pulls = {w: (dict(np.load(os.path.join(a_out,
+                                               f"sparse_pulls{w}.npz"))),
+                     records[w]) for w in range(SPARSE_WORKERS)}
+        launches = {"sparse_apply/deep": 0, "sparse_apply/wide": 0,
+                    "sparse_group": 0}
+        for s, info in enumerate(infos):
+            n = len(info["apply_log"])
+            want = harness.expected_pushes("wd", s, SPARSE_SHARDS,
+                                           SPARSE_WORKERS, SPARSE_CYCLES)
+            if n != want or info["tiers"] != {"deep": "cuda",
+                                              "wide": "cuda"}:
+                raise AssertionError(f"sparse (a): shard {s} applied {n} of "
+                                     f"{want} pushes, tiers {info['tiers']}")
+            got = info["launches"]
+            if (got["apply"], got["group"], got["by_rule"]) != (
+                    2 * n, 2 * n, {"adagrad": n, "sgd": n}):
+                raise AssertionError(f"sparse (a): shard {s} launched {got} "
+                                     f"for {n} pushes: expected 2 grouping "
+                                     f"(cluster path) + 2 apply a push")
+            launches["sparse_apply/deep"] += got["by_rule"]["adagrad"]
+            launches["sparse_apply/wide"] += got["by_rule"]["sgd"]
+            launches["sparse_group"] += got["group"]
+        ps.init(backend="cuda")
+        card_tables, checked = harness.sparse_replay(
+            infos, "wd", SPARSE_WORKERS, SPARSE_CYCLES, pulls=pulls)
+        for s, final in enumerate(finals):
+            for name, emb in card_tables[s].items():
+                leaves = [emb.table] + _emb_leaves(emb)
+                saved = [final[name]] + [final[f"{name}/state{i}"]
+                                         for i in range(len(leaves) - 1)]
+                if not all(np.array_equal(x.cpu().numpy(), y)
+                           for x, y in zip(leaves, saved)):
+                    raise AssertionError(f"sparse (a): shard {s} {name} "
+                                         f"replayed on the card is not "
+                                         f"bitwise the server's")
+        ps.shutdown()
+        del card_tables, pulls
+        ps.init(backend="cuda", device="cpu")
+        cpu_tables, _ = harness.sparse_replay(infos, "wd", SPARSE_WORKERS,
+                                              SPARSE_CYCLES)
+        cpu_err = {"table": 0.0, "state": 0.0}
+        for s, final in enumerate(finals):
+            for name, emb in cpu_tables[s].items():
+                leaves = [emb.table] + _emb_leaves(emb)
+                saved = [final[name]] + [final[f"{name}/state{i}"]
+                                         for i in range(len(leaves) - 1)]
+                for k, (x, y) in enumerate(zip(leaves, saved)):
+                    x = x.numpy()
+                    if harness.SPARSE_TABLES[name][0] == "sgd":
+                        if not np.array_equal(x, y):
+                            raise AssertionError(
+                                f"sparse (a): shard {s} {name} on the CPU "
+                                f"is not bitwise the card's")
+                    np.testing.assert_allclose(
+                        x, y, rtol=RTOL, atol=ATOL,
+                        err_msg=f"sparse (a): shard {s} {name} on the CPU")
+                    what = "state" if k else "table"
+                    cpu_err[what] = max(cpu_err[what],
+                                        float(np.max(np.abs(x - y))))
+        ps.shutdown()
+        del cpu_tables, finals
+        t_check = time.perf_counter() - t_phase - t_a
+        m = _sparse_numbers(infos, records)
+        log(f"sparse (a): {SPARSE_SHARDS} serve_sparse processes (shard s "
+            f"of {SPARSE_SHARDS}, W&D's deep [1,300,000, 16] adagrad and "
+            f"wide [1,300,000, 1] sgd, lr {harness.SPARSE_LR}, on the card) "
+            f"and {SPARSE_WORKERS} connect_sparse processes x "
+            f"{SPARSE_CYCLES} cycles of 13,312 ids (ids and grads on the "
+            f"card): applies {[s['pushes'] for s in m['servers']]}, each "
+            f"2 grouping (cluster path) + 2 apply launches; the logs "
+            f"replayed on the card bitwise the servers' tables and state; "
+            f"{checked} pulled row sets bitwise the replay at their "
+            f"versions; the CPU's torch tier: sgd bitwise, adagrad max abs "
+            f"err {cpu_err['table']:.3g} on the tables, "
+            f"{cpu_err['state']:.3g} on the accumulators (rtol {RTOL}, "
+            f"atol {ATOL}); run "
+            f"{t_a:.1f} s, checks {t_check:.1f} s")
+        # (b), (c) in this process, tables on the card
+        ps.init(backend="cuda")
+        buckets = _sparse_transports(harness)
+        log(f"sparse (b): one worker, {SPARSE_TRANSPORT_CYCLES} cycles: "
+            f"bucketed ({SPARSE_BUCKET_BYTES} B buckets, pool {SPARSE_POOL}, "
+            f"{buckets} bucket rounds) gives bitwise the serial tables and "
+            f"state; a pull after push_async saw its push")
+        save_s = _sparse_checkpoint(harness, tmp)
+        ps.shutdown()
+        log(f"sparse (c): checkpoint_all after {SPARSE_CKPT_CYCLES} cycles "
+            f"over both shards ({save_s:.3f} s), both servers restarted from "
+            f"it, {SPARSE_CKPT_CYCLES} more cycles bitwise the "
+            f"uninterrupted run's tables and state")
+        message = _sparse_kill(harness, doomed, d_out)
+        log(f"sparse (d): a SIGKILLed server 0: {message!r}")
+    finally:
+        harness.kill_all(doomed)
+    off_err, off_ms = _sparse_off_tier()
+    log(f"sparse (e): the 'off' tier on the card, {OFF_PUSHES} pushes of "
+        f"13,312 ids into [2,600,000, 16] adagrad and [2,600,000, 1] sgd: "
+        f"sgd bitwise the kernels', adagrad max abs err {off_err['deep']:.3g} "
+        f"(rtol {RTOL}, atol {ATOL}); one push {off_ms['deep']:.4f} / "
+        f"{off_ms['wide']:.4f} ms (a caller's time)")
+    shard = _sparse_shard_timings(harness, card)
+    log(f"sparse (f): {m['cycles_per_s']:.1f} cycles/s over "
+        f"{SPARSE_WORKERS} workers ({m['cycles']} cycles after each "
+        f"worker's first, shared window {m['window_s']:.4f} s); median "
+        f"cycle {m['median_cycle_ms']:.4f} ms; median round trips pull "
+        f"{m['ops_ms']['pull']:.4f}, push {m['ops_ms']['push']:.4f}, "
+        f"push_pull {m['ops_ms']['push_pull']:.4f} ms; staging "
+        f"{100 * m['staging_share']:.2f}% of the workers' cycles")
+    for s, srv in enumerate(m["servers"]):
+        log(f"sparse (f): server {s}: median sparse apply "
+            f"{srv['sparse_apply_ms']:.4f} ms (both tables, synchronized), "
+            f"{srv['rows_per_s']:.0f} rows/s; median apply with the lock "
+            f"{srv['apply_ms']:.4f} ms")
+    log(f"sparse (f): kernels at a shard's shape (median push "
+        f"{shard['ids']} ids, largest {shard['max_ids']}, "
+        f"{shard['path']} path): grouping {shard['group']['ms']:.5f} ms "
+        f"(bound {shard['group']['bound_ms']:.6f}); deep "
+        f"{shard['deep']['ms']:.5f} (bound {shard['deep']['bound_ms']:.6f}), "
+        f"wide {shard['wide']['ms']:.5f} (bound "
+        f"{shard['wide']['bound_ms']:.6f}); a table's push as the service "
+        f"waits it {shard['deep']['push_ms']:.4f} / "
+        f"{shard['wide']['push_ms']:.4f} ms; card {card}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "shard": shard, "numbers": m,
+            "off_err": off_err}
+
+
 def main():
     if len(sys.argv) == 5 and sys.argv[1] == "--two-ranks-worker":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -3132,11 +3649,22 @@ def main():
         launches = phase_two_ranks(tmp)
     with tempfile.TemporaryDirectory(prefix="ps_van_") as tmp:
         phase_van(tmp)
+    with tempfile.TemporaryDirectory(prefix="ps_sparse_") as tmp:
+        sparse = phase_sparse_ps(tmp)
     for e in entries:  # each rank's launches in phase 15's 20-step runs
         if e["name"].startswith("sparse"):
             e["launches_per_rank_two_ranks"] = {
                 exchange: counts[e["name"]]
                 for exchange, counts in launches.items()}
+            # the servers' launches in phase 17 (a), and the kernel's time
+            # at a server shard's shape
+            e["launches_sparse_ps"] = sparse["launches"][e["name"]]
+            part = sparse["shard"][e["name"].split("/")[-1]
+                                   if "/" in e["name"] else "group"]
+            e["sparse_ps_shard"] = {"ids": sparse["shard"]["ids"],
+                                    "ms": part["ms"],
+                                    "bound_ms": part["bound_ms"],
+                                    "plain_ms": part["plain_ms"]}
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

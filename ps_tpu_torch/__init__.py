@@ -37,7 +37,11 @@ Across processes over the native TCP van (``native/``, ``control/``,
 ``backends/van_service.py``, ``backends/remote_async.py``): async DC-ASGD
 with a server process (``serve_async``, one server or ``shard_tree``
 key shards) and worker processes (``connect_async``), serial or bucketed,
-on the reference's wire bytes. ROADMAP.md lists what is still to port.
+on the reference's wire bytes; and the sparse PS of range-sharded
+embedding tables (``backends/remote_sparse.py``): ``serve_sparse`` in
+each server process, its tables on the card and every push applied by
+the sparse-apply kernel, ``connect_sparse`` in the workers. ROADMAP.md
+lists what is still to port.
 """
 
 from ps_tpu_torch import checkpoint
@@ -53,6 +57,7 @@ from ps_tpu_torch.backends.remote_async import (
     serve_async,
     shard_tree,
 )
+from ps_tpu_torch.backends.remote_sparse import connect_sparse, serve_sparse
 
 __all__ = [
     "checkpoint",
@@ -68,5 +73,7 @@ __all__ = [
     "serve_async",
     "connect_async",
     "shard_tree",
+    "serve_sparse",
+    "connect_sparse",
     "ServerFailureError",
 ]

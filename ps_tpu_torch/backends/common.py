@@ -227,7 +227,7 @@ def parse_replica_uri(uri: str):
             raise NotImplementedError(
                 f"replica sets ({part.strip()!r}) need shard replication "
                 f"(replica/), which is not ported yet (ROADMAP Queue 1 "
-                f"item 5)")
+                f"item 5.6)")
         host, port = members[0].strip().rsplit(":", 1)
         primaries.append((host, int(port)))
         sets.append([(host, int(port))])
@@ -579,11 +579,11 @@ class BucketedTransportMixin:
         if compress not in (None, "none"):
             raise NotImplementedError(
                 f"compress={compress!r}: gradient codecs (compress/) are "
-                f"not ported yet (ROADMAP Queue 1 item 5); pass None")
+                f"not ported yet (ROADMAP Queue 1 item 5.3); pass None")
         if shm if shm is not None else env_flag("PS_SHM", False):
             raise NotImplementedError(
                 "shm=True: the shared-memory lane (control/shm_lane.py) is "
-                "not ported yet (ROADMAP Queue 1 item 5)")
+                "not ported yet (ROADMAP Queue 1 item 5.2)")
         # <= 0 selects the serial transport (PS_BUCKET_BYTES=0 convention)
         self.bucket_bytes = (None if bucket_bytes is None
                              or int(bucket_bytes) <= 0 else int(bucket_bytes))

@@ -209,9 +209,9 @@ class AsyncPSService(VanService):
         acked without applying."""
         extra = extra or {}
         if extra.get("enc"):
-            raise _not_ported("a codec-packed push (compress/)", "5")
+            raise _not_ported("a codec-packed push (compress/)", "5.3")
         if extra.get("members"):
-            raise _not_ported("a merged push (the aggregator)", "5")
+            raise _not_ported("a merged push (the aggregator)", "5.5")
         pseq = extra.get("pseq")
         pnonce = extra.get("pnonce")
         # onto the engine's device before the lock (a CUDA copy is waited
@@ -303,7 +303,7 @@ class AsyncPSService(VanService):
         epoch, b = int(extra["epoch"]), int(extra["bucket"])
         if b == 0:
             if extra.get("compress"):
-                raise _not_ported("a compressed pull (compress/)", "5")
+                raise _not_ported("a compressed pull (compress/)", "5.3")
             bb = int(extra.get("bucket_bytes") or DEFAULT_BUCKET_BYTES)
             kv, version, key_order = self._snapshot(worker)
             host = stage_to_host(kv, stats=self.transport)
@@ -382,12 +382,12 @@ class AsyncPSService(VanService):
         if kind == tv.CHECKPOINT:
             return self._checkpoint(worker, extra)
         if kind in (tv.READ, tv.NOT_MODIFIED):
-            raise _not_ported("the read path (READ)", "5")
+            raise _not_ported("the read path (READ)", "5.8")
         if kind in (tv.MIGRATE_OUT, tv.MIGRATE_BEGIN, tv.MIGRATE_ROW,
                     tv.MIGRATE_COMMIT, tv.MIGRATE_ABORT):
             raise _not_ported(f"{tv.kind_name(kind)} (elastic/)", "6")
         if kind == tv.RESEED:
-            raise _not_ported("RESEED (replica/)", "5")
+            raise _not_ported("RESEED (replica/)", "5.6")
         return tv.encode(tv.ERR, worker, None,
                          extra={"error": f"bad kind {kind}"})
 
@@ -521,9 +521,9 @@ def connect_async(uri: Optional[str], worker: int, params_like,
     if coordinator is not None:
         raise _not_ported("coordinator= (elastic membership, elastic/)", "6")
     if aggregator is not None:
-        raise _not_ported("aggregator= (backends/aggregator.py)", "5")
+        raise _not_ported("aggregator= (backends/aggregator.py)", "5.5")
     if read_staleness or pull_cache:
-        raise _not_ported("the read path (read_staleness, pull_cache)", "5")
+        raise _not_ported("the read path (read_staleness, pull_cache)", "5.8")
     if uri is None:
         raise ValueError("connect_async needs a server uri")
     del shm_bytes, failover_timeout  # no shm lane, no replica set to ride

@@ -1,0 +1,1132 @@
+"""Cross-process sparse PS: embedding tables served over the van.
+
+Counterpart of ``ps_tpu/backends/remote_sparse.py``, the reference's
+classic async deployment: Wide-&-Deep with range-sharded tables on server
+processes, and workers that push and pull rows.
+
+- Each SERVER process owns a contiguous row range of every table
+  (:func:`row_range`) as a one-process :class:`~ps_tpu_torch.kv.sparse.
+  SparseEmbedding` on its device, with its per-row optimizer state, and
+  serves ROW_PULL / ROW_PUSH / ROW_PUSH_PULL / ROW_BUCKET_PUSH frames
+  (:class:`SparsePSService`). One service owns several named tables
+  (Wide-&-Deep's "deep" [V, D] and "wide" [V, 1]), so a worker's cycle is
+  one round trip a server. Every applied push goes through
+  ``SparseEmbedding.push``: on the card, the grouping pass and the apply
+  kernel (``ops/csrc/sparse_group.cu``, ``sparse_apply.cu``).
+- Each WORKER process runs :class:`RemoteSparseWorker`: it routes global
+  ids to their owners by range, fans the per-server requests out
+  concurrently and scatters the pulled rows back into id order. Pushes
+  apply at once on the server (async semantics; a per-table version
+  counts the applies). A dead server surfaces as a typed
+  :class:`ServerFailureError` naming its index.
+
+Tensors cross the van as numpy views of host memory. A pushed gradient
+(or id) on the card is copied to pinned host memory and waited for before
+the send (``stage_to_host``); the server copies a push's rows onto its
+table's device, waited for, before the frame's receive buffer goes back
+to its pool (``stage_to_device``). Pulled rows come back as tensors on
+the device of the ids that asked for them; numpy or list ids get CPU
+tensors. The frames are the reference's: a port worker drives a reference
+server and a reference worker a port server.
+
+Parity: each server records its apply order; replaying that (worker,
+cycle) push sequence, routed by the same range split, through a
+one-process ``SparseEmbedding`` of the server's local size gives the
+same table bitwise.
+
+Not ported yet, each raising with its ROADMAP Queue 1 item: the native
+serve loop (5.1), the shared-memory lane (5.2), compression (5.3),
+replication, backups and failover across a replica set (5.6), tiered
+tables (5.7), the read path (``read_rows``, READ; 5.8) and elastic
+membership (``coordinator=``; 6). The service's hooks for them are inert
+(``VanService``). The reference's trace spans and ``obs`` counters
+(item 6) are not recorded.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ps_tpu_torch.backends.common import (
+    DRAIN_TO_TIMEOUT_S,
+    BucketedTransportMixin,
+    BucketPlan,
+    ServerFailureError,
+    parse_replica_uri,
+    payload_nbytes,
+    request_payload,
+    stage_to_device,
+    stage_to_host,
+)
+from ps_tpu_torch.backends.remote_async import (
+    CheckpointRoundError,
+    CheckpointRoundsMixin,
+    PendingCycle,
+    _not_ported,
+    _Op,
+)
+from ps_tpu_torch.backends.van_service import (
+    VanService,
+    log_tail,
+    make_history_log,
+    resolve_ckpt_dir,
+)
+from ps_tpu_torch.control import tensor_van as tv
+
+__all__ = [
+    "SparsePSService", "RemoteSparseWorker", "ServerFailureError",
+    "serve_sparse", "connect_sparse", "row_range", "dedupe_rows_np",
+]
+
+
+def row_range(shard: int, num_shards: int, total_rows: int) -> Tuple[int, int]:
+    """The contiguous global row range ``[lo, hi)`` that server ``shard``
+    of ``num_shards`` owns in a ``total_rows``-row table: an even ceil
+    split, the last shard taking what remains (fewer rows, or none)."""
+    if not (0 <= shard < num_shards):
+        raise ValueError(f"shard {shard} out of range for {num_shards}")
+    per = math.ceil(total_rows / num_shards)
+    lo = min(shard * per, total_rows)
+    return lo, min(lo + per, total_rows)
+
+
+def dedupe_rows_np(ids: np.ndarray, grads: np.ndarray
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """The worker's pre-push merge: each unique id's grads summed in f32,
+    rounded once back to the wire dtype, ids ascending. Host numpy, so a
+    port worker's payload equals a reference worker's byte for byte."""
+    if ids.size == 0:
+        return ids, grads
+    uniq, inv = np.unique(ids, return_inverse=True)
+    summed = np.zeros((uniq.size, grads.shape[1]), np.float32)
+    np.add.at(summed, inv, grads.astype(np.float32))
+    return uniq.astype(ids.dtype), summed.astype(grads.dtype)
+
+
+def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+class SparsePSService(VanService):
+    """Serve named :class:`SparseEmbedding` tables to remote workers.
+
+    Accepting, serving and draining live in :class:`VanService`; this
+    class is the protocol: HELLO, ROW_PULL, ROW_PUSH, ROW_PUSH_PULL,
+    ROW_BUCKET_PUSH, STATS and CHECKPOINT over the tables.
+
+    Args:
+      tables: ``{name: initialized one-process SparseEmbedding}``; in
+        sharded mode each holds only this server's :func:`row_range` rows
+        of the table's global size. A bf16 table is refused (the wire has
+        no bfloat16).
+      port/bind: as :class:`~ps_tpu_torch.backends.remote_async.
+        AsyncPSService` (loopback by default: the endpoint is
+        unauthenticated).
+      shard/num_shards: this server's place in an N-server row partition
+        (None = one server owns every row).
+      total_rows: sharded mode only, ``{name: global rows}``: each local
+        table's ``num_rows`` is checked against its slice, so a
+        mis-sliced topology fails here, and workers check coverage at
+        connect time.
+      ckpt_root: confine CHECKPOINT saves under this server-side root.
+      record_full_history: keep every apply-log entry (replay parity); by
+        default the log is a ring of ``history`` entries.
+
+    The pull path gathers the requested rows into a fresh tensor under
+    the lock, on the serve thread's stream, so the gather is ordered
+    before any later in-place apply; its copy off the card is waited for
+    before the reply frame is encoded, outside the lock.
+    """
+
+    def __init__(self, tables: Dict[str, Any], port: int = 0,
+                 bind: str = "127.0.0.1", shard: Optional[int] = None,
+                 num_shards: Optional[int] = None,
+                 total_rows: Optional[Dict[str, int]] = None,
+                 ckpt_root: Optional[str] = None,
+                 writev: Optional[bool] = None,
+                 shm: Optional[bool] = None,
+                 backup: bool = False,
+                 record_full_history: bool = False,
+                 history: int = 4096,
+                 coordinator=None,
+                 advertise_host: str = "127.0.0.1",
+                 native_loop: Optional[bool] = None,
+                 loop_threads: Optional[int] = None):
+        if coordinator is not None:
+            raise _not_ported("coordinator= (elastic membership, elastic/)",
+                              "6")
+        del advertise_host  # only an elastic member advertises itself
+        if not tables:
+            raise ValueError("no tables to serve")
+        if (shard is None) != (num_shards is None):
+            raise ValueError("pass shard and num_shards together")
+        self.shard, self.num_shards = shard, num_shards
+        self._tables = dict(tables)
+        self._meta: Dict[str, dict] = {}
+        for name, emb in self._tables.items():
+            if hasattr(emb, "prefetch") or hasattr(emb, "tier_stats"):
+                raise _not_ported(f"table {name!r}: a tiered table "
+                                  f"(kv/tiered.py)", "5.7")
+            if emb.dtype == torch.bfloat16:
+                raise TypeError(
+                    f"table {name!r} is bfloat16: its rows cannot travel "
+                    f"the van (numpy has no bfloat16, and the reference's "
+                    f"frame names such a leaf '<V2'); serve float32")
+            if num_shards is None:
+                lo, hi = 0, emb.num_rows
+                total = emb.num_rows
+            else:
+                if total_rows is None or name not in total_rows:
+                    raise ValueError(
+                        f"sharded mode needs total_rows[{name!r}]")
+                total = int(total_rows[name])
+                lo, hi = row_range(shard, num_shards, total)
+                if emb.num_rows != hi - lo:
+                    raise ValueError(
+                        f"table {name!r} holds {emb.num_rows} rows but "
+                        f"shard {shard}/{num_shards} of {total} owns "
+                        f"[{lo}, {hi}) = {hi - lo} rows — init it with "
+                        f"row_range(shard, num_shards, total)")
+            self._meta[name] = {
+                "total_rows": total, "lo": lo, "hi": hi, "dim": emb.dim,
+                "dtype": _numpy_dtype(emb.dtype).str,
+            }
+        self._devices = sorted({emb.device for emb in self._tables.values()
+                                if emb.device.type == "cuda"}, key=str)
+        # one lock: a multi-table push applies atomically, and a pull never
+        # sees half of one
+        self._lock = threading.Lock()
+        self._draining = False
+        # checkpoint pause: pushes block (not refuse) while a coordinated
+        # snapshot is in flight, but for those a drain_to round admits
+        self._paused = False
+        self._pause_cond = threading.Condition(self._lock)
+        self._ckpt_root = ckpt_root
+        # seeded from the tables' own (possibly restored) counters, so a
+        # server restarted from a checkpoint resumes its version stream
+        self.versions: Dict[str, int] = {
+            n: int(emb.push_count) for n, emb in self._tables.items()}
+        self.rows_applied: Dict[str, int] = {
+            n: int(emb.rows_pushed) for n, emb in self._tables.items()}
+        #: each table's apply tier ('cuda', 'torch' or 'off')
+        self.fused_tiers: Dict[str, str] = {
+            n: emb.fused_tier for n, emb in self._tables.items()}
+        # exactly-once and the checkpoint's drain round: worker -> (nonce,
+        # cycle seq, fanout) of its last applied push. A sparse cycle
+        # routes to a subset of the shards, so the seq and the fanout make
+        # the shards' reports comparable
+        self._applied_pseq: Dict[int, tuple] = {}
+        self._drain_targets: Dict[int, tuple] = {}
+        self._log_lock = threading.Lock()
+        # worker id per applied push message
+        self.apply_log = make_history_log(record_full_history, history)
+        super().__init__(port=port, bind=bind, writev=writev, shm=shm,
+                         backup=backup, native_loop=native_loop,
+                         loop_threads=loop_threads)
+
+    # -- server internals -----------------------------------------------------
+
+    def _hello_extra(self) -> dict:
+        return {
+            "tables": self._meta,
+            "shard": self.shard,
+            "num_shards": self.num_shards,
+            "versions": dict(self.versions),
+            "epoch": self.epoch,
+            "role": self.role,
+        }
+
+    def _split(self, tensors: Dict[str, np.ndarray]
+               ) -> Dict[str, Dict[str, np.ndarray]]:
+        """``{"deep/ids": x}`` frames -> ``{"deep": {"ids": x}}``."""
+        out: Dict[str, Dict[str, np.ndarray]] = {}
+        for k, v in tensors.items():
+            name, _, field = k.partition("/")
+            if name not in self._tables:
+                raise KeyError(f"unknown table {name!r}")
+            out.setdefault(name, {})[field] = v
+        return out
+
+    def _localize(self, name: str, ids: np.ndarray) -> np.ndarray:
+        m = self._meta[name]
+        ids = np.asarray(ids, np.int32)
+        if ids.size and (ids.min() < m["lo"] or ids.max() >= m["hi"]):
+            raise IndexError(
+                f"ids outside this server's {name!r} range "
+                f"[{m['lo']}, {m['hi']})")
+        return ids - m["lo"]
+
+    def _sync_tables(self) -> None:
+        for dev in self._devices:
+            torch.cuda.synchronize(dev)
+
+    def _apply_push(self, worker: int,
+                    per_table: Dict[str, Dict[str, np.ndarray]],
+                    extra: Optional[dict] = None
+                    ) -> Tuple[Optional[int], bool]:
+        """Apply one multi-table push; returns ``(replication_seq,
+        dedup)``. ``extra``'s ``pseq``/``pnonce``/``pfan`` are the
+        worker's cycle token: a seq at or below the last applied one (same
+        nonce) is a replay, acked without an apply."""
+        extra = extra or {}
+        if extra.get("enc"):
+            raise _not_ported("a codec-packed push (compress/)", "5.3")
+        pseq = extra.get("pseq")
+        pnonce = extra.get("pnonce")
+        pfan = extra.get("pfan")
+        todo = []
+        for name, t in per_table.items():
+            if "ids" not in t or "grads" not in t:
+                raise KeyError(f"push for {name!r} needs ids + grads")
+            want = (np.asarray(t["ids"]).size, self._meta[name]["dim"])
+            if tuple(np.shape(t["grads"])) != want:
+                # checked for every table first: a push applies whole
+                raise ValueError(f"push for {name!r}: grads of shape "
+                                 f"{tuple(np.shape(t['grads']))}, want {want}")
+            # onto the table's device before the lock, waited for: this
+            # also copies the grads out of the receive buffer, which goes
+            # back to its pool once the reply is sent
+            on = stage_to_device(
+                {"ids": self._localize(name, t["ids"]), "grads": t["grads"]},
+                self._tables[name].device, stats=self.transport)
+            todo.append((name, on["ids"], on["grads"]))
+        if not todo:
+            return None, False  # push_pull with no rows for this server
+        t_apply = time.perf_counter()
+        with self._lock:
+            while (self._paused and not self._draining
+                   and not self._admit_while_paused(worker)):
+                self._pause_wait_begin()
+                try:
+                    self._pause_cond.wait()  # a checkpoint snapshot
+                finally:
+                    self._pause_wait_end()
+            if self._draining:
+                raise RuntimeError("server is draining; push refused")
+            # the replay check runs after any pause park: the wait
+            # releases the lock, so the ledger may have moved meanwhile
+            if pseq is not None and not self._admit_fresh_hint():
+                last = self._applied_pseq.get(worker)
+                if (last is not None and last[0] == pnonce
+                        and int(pseq) <= last[1]):
+                    self.transport.record_dedup_hit()
+                    return None, True
+            t_rows = time.perf_counter()
+            rows = 0
+            for name, ids, grads in todo:
+                self._tables[name].push(ids, grads)
+                self.versions[name] += 1
+                self.rows_applied[name] += int(ids.numel())
+                rows += int(ids.numel())
+            # wait for the applies inside the timed window, so that
+            # sparse_apply_s times the apply and not its enqueue (a later
+            # request on this lock would wait for the same work)
+            self._sync_tables()
+            self.transport.record_sparse_apply(
+                rows, time.perf_counter() - t_rows)
+            self._invalidate_reads()
+            apply_s = time.perf_counter() - t_apply
+            if pseq is not None:
+                self._applied_pseq[worker] = (pnonce, int(pseq),
+                                              list(pfan or []))
+            self._admit_publish(worker)
+            self._pause_cond.notify_all()  # a drain_to waiter may watch
+            with self._log_lock:
+                self.apply_log.append(worker)
+            rseq = self._replicate("push", worker, per_table, {
+                "pseq": pseq, "pnonce": pnonce, "pfan": pfan})
+        self.transport.record_apply(apply_s)
+        self.transport.record_fresh_lag(time.perf_counter() - t_apply)
+        return rseq, False
+
+    def _admit_while_paused(self, worker: int) -> bool:
+        """Under pause, admit exactly the pushes a drain_to round waits
+        on: this worker's applied cycle seq still lags its cross-shard
+        target (same incarnation)."""
+        tgt = self._drain_targets.get(worker)
+        if tgt is None:
+            return False
+        nonce, seq = tgt
+        rec = self._applied_pseq.get(worker)
+        if rec is None:
+            return True  # the targeted cycle's message is still in flight
+        return rec[0] == nonce and rec[1] < seq
+
+    def _rows_payload(self, worker: int,
+                      per_table: Dict[str, Dict[str, np.ndarray]]):
+        rows = {}
+        with self._lock:
+            for name, t in per_table.items():
+                ids = self._localize(name, t["ids"])
+                rows[f"{name}/rows"] = self._tables[name].pull(ids)
+            versions = dict(self.versions)
+        # outside the lock: each gather is a fresh tensor no apply writes,
+        # queued on this thread's stream ahead of any apply that takes the
+        # lock after it; the copy off the card is waited for here
+        out = stage_to_host(rows, stats=self.transport)
+        if self.writev:
+            return tv.encode_parts(tv.OK, worker, out,
+                                   extra={"versions": versions})
+        return tv.encode(tv.OK, worker, out, extra={"versions": versions})
+
+    def _push_reply(self, worker: int, dedup: bool, **extra):
+        return tv.encode(tv.OK, worker, None, extra={
+            "versions": dict(self.versions), **extra, "dedup": dedup})
+
+    def _stats(self, worker: int):
+        with self._log_lock:
+            log = log_tail(self.apply_log)  # a bounded tail, the true total
+            log_total = self.apply_log.total
+        out = {
+            "versions": dict(self.versions),
+            "rows_applied": dict(self.rows_applied),
+            "fused": {"tiers": dict(self.fused_tiers),
+                      "rows_applied": sum(self.rows_applied.values())},
+            "tier": {},  # tiered tables are refused (item 5.7)
+            "apply_log": log,
+            "apply_log_total": log_total,
+            "stale_epochs": self.transport.stale_epochs,
+            "stale_epoch_buckets": self.transport.stale_epoch_buckets,
+            "metrics": self.transport.metrics_snapshot(),
+        }
+        out.update(self.replica_state())
+        return tv.encode(tv.OK, worker, None, extra=out)
+
+    def _handle(self, kind: int, worker: int, tensors, extra):
+        if kind == tv.HELLO:
+            return tv.encode(tv.OK, worker, None, extra=self._hello_extra())
+        if kind == tv.ROW_PULL:
+            return self._rows_payload(worker, self._split(tensors))
+        if kind == tv.ROW_PUSH:
+            rseq, dedup = self._apply_push(worker, self._split(tensors),
+                                           extra=extra)
+            self._await_replication(rseq)
+            return self._push_reply(worker, dedup)
+        if kind == tv.ROW_PUSH_PULL:
+            per = self._split(tensors)
+            push = {n: t for n, t in per.items() if "grads" in t}
+            pull = {n: {"ids": t["pull_ids"]}
+                    for n, t in per.items() if "pull_ids" in t}
+            rseq, _ = self._apply_push(worker, push, extra=extra)
+            self._await_replication(rseq)
+            return self._rows_payload(worker, pull)
+        if kind == tv.ROW_BUCKET_PUSH:
+            # one fusion bucket of a multi-bucket row push: staged until its
+            # epoch completes, then the whole multi-table push applies at
+            # once (a torn push is never observable)
+            tree = self._stage_bucket_push(
+                worker, int(extra["bucket"]), int(extra["nbuckets"]),
+                int(extra["epoch"]), tensors["raw"], extra["slices"],
+                nonce=extra.get("nonce"))
+            if tree is None:
+                return tv.encode(tv.OK, worker, None,
+                                 extra={"staged": int(extra["bucket"])})
+            rseq, dedup = self._apply_push(worker, self._split(tree),
+                                           extra=extra)
+            self._await_replication(rseq)
+            return self._push_reply(worker, dedup, committed=True)
+        if kind == tv.STATS:
+            return self._stats(worker)
+        if kind == tv.CHECKPOINT:
+            return self._checkpoint(worker, extra)
+        if kind in (tv.READ, tv.NOT_MODIFIED):
+            raise _not_ported("the read path (READ)", "5.8")
+        return tv.encode(tv.ERR, worker, None,
+                         extra={"error": f"bad kind {kind}"})
+
+    def _checkpoint(self, worker: int, extra: dict):
+        """The coordinated, cross-shard-atomic checkpoint, driven by
+        :meth:`RemoteSparseWorker.checkpoint_all`: 'pause' blocks new
+        applies and reports each worker's last applied (nonce, cycle seq,
+        fanout); 'drain_to' admits exactly the in-flight sub-pushes that
+        bring every shard of a cycle's fanout to the cross-shard max, so a
+        cycle is saved on all the shards it addressed or on none; 'save'
+        writes every owned table under ``<dir>[/shard<i>]/<table>``
+        (``SparseEmbedding.save``, under the lock); 'resume' releases the
+        applies. 'pause' hands out a token every later phase presents;
+        ``phase='resume', force=True`` is the operator's override when a
+        coordinator died holding it. A restarted server inits its
+        range-sliced tables, restores each, and its versions resume from
+        the restored push counts."""
+        phase = extra.get("phase", "save")
+        if phase == "pause":
+            with self._lock:
+                token = self._ckpt_issue_token()
+                if token is None:
+                    return tv.encode(tv.ERR, worker, None,
+                                     extra={"error": self._ckpt_busy_error()})
+                self._paused = True
+                applied = {str(w): [nonce, seq, fan]
+                           for w, (nonce, seq, fan)
+                           in self._applied_pseq.items()}
+            return tv.encode(tv.OK, worker, None, extra={
+                "versions": dict(self.versions), "token": token,
+                "applied_pseq": applied})
+        if phase == "resume" and extra.get("force"):
+            with self._lock:
+                self._paused = False
+                self._ckpt_clear_token()
+                self._pause_cond.notify_all()
+            return tv.encode(tv.OK, worker, None, extra={
+                "versions": dict(self.versions), "forced": True})
+        err = self._ckpt_token_error(phase, extra)
+        if err is not None:
+            return tv.encode(tv.ERR, worker, None, extra={"error": err})
+        if phase == "drain_to":
+            # a worker that reconnected mid-round (another nonce) counts
+            # as satisfied: its old incarnation's messages cannot arrive
+            targets = {int(w): (t[0], int(t[1]))
+                       for w, t in extra.get("targets", {}).items()}
+            deadline = time.monotonic() + float(
+                extra.get("timeout", DRAIN_TO_TIMEOUT_S))
+
+            def lagging(w, nonce, seq):
+                rec = self._applied_pseq.get(w)
+                if rec is None:
+                    return True  # the targeted cycle is still in flight
+                if rec[0] != nonce:
+                    return False  # a new incarnation: the old one is dead
+                return rec[1] < seq
+
+            with self._lock:
+                self._drain_targets = targets
+                self._pause_cond.notify_all()
+                while any(lagging(w, n, s) for w, (n, s) in targets.items()):
+                    left = deadline - time.monotonic()
+                    if left <= 0 or self._draining:
+                        self._drain_targets = {}
+                        return tv.encode(tv.ERR, worker, None, extra={
+                            "error": ("drain_to aborted: server draining"
+                                      if self._draining else
+                                      "drain_to timed out: a worker's "
+                                      "in-flight push never arrived")})
+                    self._pause_cond.wait(left)
+                self._drain_targets = {}
+            return tv.encode(tv.OK, worker, None,
+                             extra={"versions": dict(self.versions)})
+        if phase == "resume":
+            with self._lock:
+                self._paused = False
+                self._ckpt_clear_token()
+                self._pause_cond.notify_all()
+            return tv.encode(tv.OK, worker, None,
+                             extra={"versions": dict(self.versions)})
+        base = resolve_ckpt_dir(self._ckpt_root, extra["dir"])
+        root = (base if self.num_shards is None
+                else os.path.join(base, f"shard{self.shard}"))
+        with self._lock:
+            for name, emb in self._tables.items():
+                emb.save(os.path.join(root, name))
+            versions = dict(self.versions)
+        return tv.encode(tv.OK, worker, None,
+                         extra={"versions": versions, "path": root})
+
+    def _set_draining(self) -> None:
+        with self._lock:
+            self._draining = True
+            self._pause_cond.notify_all()  # paused pushes wake into refusal
+        self._invalidate_reads()
+
+
+def serve_sparse(tables: Dict[str, Any], port: int = 0,
+                 bind: str = "127.0.0.1", shard: Optional[int] = None,
+                 num_shards: Optional[int] = None,
+                 total_rows: Optional[Dict[str, int]] = None,
+                 ckpt_root: Optional[str] = None,
+                 backup: bool = False,
+                 native_loop: Optional[bool] = None,
+                 loop_threads: Optional[int] = None) -> SparsePSService:
+    """Expose initialized sparse tables to remote worker processes.
+
+    One server: each table holds its full row space, no shard arguments.
+    Server ``s`` of ``N`` (the range-sharded topology): each table is
+    made with ``hi - lo`` rows for ``lo, hi = row_range(s, N, total)``
+    and ``total_rows={name: total}`` is passed. The tables live on the
+    device ``ps_tpu_torch.init`` chose; workers join with
+    :func:`connect_sparse`. ``backup=True`` and ``native_loop=True``
+    raise (ROADMAP Queue 1 items 5.6 and 5.1)."""
+    return SparsePSService(tables, port=port, bind=bind, shard=shard,
+                           num_shards=num_shards, total_rows=total_rows,
+                           ckpt_root=ckpt_root, backup=backup,
+                           native_loop=native_loop,
+                           loop_threads=loop_threads)
+
+
+def connect_sparse(uri: Optional[str], worker: int,
+                   tables: Dict[str, Tuple[int, int]],
+                   bucket_bytes: Optional[int] = None,
+                   pool_size: Optional[int] = None,
+                   compress=None, writev: Optional[bool] = None,
+                   shm: Optional[bool] = None,
+                   shm_bytes: Optional[int] = None,
+                   failover_timeout: Optional[float] = None,
+                   coordinator=None) -> "RemoteSparseWorker":
+    """Join a cross-process sparse PS as worker ``worker``.
+
+    ``uri`` is ``host:port`` or a comma-separated list naming every server
+    of the row partition; ``tables`` is ``{name: (total_rows, dim)}``,
+    checked against what the servers advertise (coverage must be exact
+    and disjoint). ``bucket_bytes`` enables the bucketed transport and
+    :meth:`RemoteSparseWorker.push_async`.
+
+    Ids and grads may be numpy arrays, lists or tensors on any device;
+    pulled rows come back as tensors on the device of the ids that asked
+    for them (the CPU for numpy or list ids).
+
+    Not ported yet (each raises, naming its ROADMAP Queue 1 item):
+    ``compress`` other than None/'none' (5.3), ``shm=True`` (5.2), ``|``
+    replica sets in ``uri`` (5.6) and ``coordinator`` (6)."""
+    if coordinator is not None:
+        raise _not_ported("coordinator= (elastic membership, elastic/)", "6")
+    if uri is None:
+        raise ValueError("connect_sparse needs a server uri")
+    del shm_bytes, failover_timeout  # no shm lane, no replica set to ride
+    addrs, _ = parse_replica_uri(uri)
+    return RemoteSparseWorker(addrs, worker, tables,
+                              bucket_bytes=bucket_bytes, pool_size=pool_size,
+                              compress=compress, writev=writev, shm=shm)
+
+
+class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
+    """A worker node of the cross-process sparse PS.
+
+    Routes global row ids to their owner servers by range, fans the
+    per-server requests out concurrently (one round trip a server a
+    cycle) and reassembles pulled rows in id order. ``versions()`` sums
+    each table's per-server apply counters.
+
+    Transport: ``bucket_bytes=None`` (default) sends each cycle as one
+    frame a server; with it set, row pushes travel as fusion buckets
+    striped over ``pool_size`` connections a server, and
+    :meth:`push_async`/:meth:`flush` give non-blocking pushes. A dead
+    server raises :class:`ServerFailureError` naming it; there is no
+    failover (replication is ROADMAP Queue 1 item 5.6)."""
+
+    _failure_noun = "sparse PS server"
+
+    def __init__(self, addrs: Sequence[Tuple[str, int]], worker: int,
+                 tables: Dict[str, Tuple[int, int]],
+                 bucket_bytes: Optional[int] = None,
+                 pool_size: Optional[int] = None,
+                 compress=None, writev: Optional[bool] = None,
+                 shm: Optional[bool] = None):
+        self._init_multi(list(addrs), worker, tables,
+                         bucket_bytes=bucket_bytes, pool_size=pool_size,
+                         compress=compress, writev=writev, shm=shm)
+
+    def _init_multi(self, addrs: List[Tuple[str, int]], worker: int,
+                    tables: Dict[str, Tuple[int, int]],
+                    bucket_bytes: Optional[int] = None,
+                    pool_size: Optional[int] = None,
+                    compress=None, writev: Optional[bool] = None,
+                    shm: Optional[bool] = None) -> None:
+        """A fresh dial and validation: ``__init__``'s body, which
+        :meth:`reconnect` reruns (a failed re-dial leaves the identity
+        fields for a clean retry)."""
+        self.worker = worker
+        self._addrs = [tuple(a) for a in addrs]
+        self._spec = {n: (int(v), int(d)) for n, (v, d) in tables.items()}
+        n = len(self._addrs)
+        self._chs: List[tv.Channel] = []
+        # per table: sorted [(lo, hi, server index)]
+        self._ranges: Dict[str, List[Tuple[int, int, int]]] = {
+            name: [] for name in self._spec}
+        self._dtype: Dict[str, np.dtype] = {}
+        self._versions: Dict[str, List[int]] = {
+            name: [0] * n for name in self._spec}
+        # wire bytes: request payloads out, reply frames in
+        self.bytes_pushed = 0
+        self.bytes_pulled = 0
+        self.collective_bytes = 0  # no collective on the van path
+        self._bytes_lock = threading.Lock()
+        self._init_transport(bucket_bytes, pool_size, compress=compress,
+                             writev=writev, shm=shm)
+        try:
+            self._connect_and_validate()
+        except Exception:
+            for ch in self._chs:
+                ch.close()
+            raise
+        self._pool = None
+        if n > 1:
+            import concurrent.futures
+
+            self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=n)
+        if self.bucket_bytes is not None:
+            try:
+                self._open_pumps(range(n))
+            except Exception:
+                self._close_transport()
+                for ch in self._chs:
+                    ch.close()
+                raise
+
+    def _connect_and_validate(self) -> None:
+        n = len(self._addrs)
+        for i in range(n):
+            ch, extra = self._hello_any(i)
+            host, port = self._addrs[i]
+            self._chs.append(ch)
+            ns = extra.get("num_shards")
+            if ns is not None and int(ns) != n:
+                raise ValueError(
+                    f"server {i} ({host}:{port}) is shard {extra['shard']}/"
+                    f"{ns} but this worker dialed {n} server(s)")
+            meta = extra["tables"]
+            if sorted(meta) != sorted(self._spec):
+                raise ValueError(
+                    f"server {i} serves tables {sorted(meta)}, worker "
+                    f"expects {sorted(self._spec)}")
+            for name, m in meta.items():
+                total, dim = self._spec[name]
+                if int(m["total_rows"]) != total or int(m["dim"]) != dim:
+                    raise ValueError(
+                        f"table {name!r}: server {i} says "
+                        f"({m['total_rows']}, {m['dim']}), worker expects "
+                        f"({total}, {dim})")
+                dt = np.dtype(m["dtype"])
+                if self._dtype.setdefault(name, dt) != dt:
+                    raise ValueError(f"table {name!r}: servers disagree "
+                                     f"on dtype")
+                self._ranges[name].append((int(m["lo"]), int(m["hi"]), i))
+            # seeded from the server's counters (nonzero after a restart
+            # from a checkpoint)
+            for name, v in extra.get("versions", {}).items():
+                self._versions[name][i] = int(v)
+        for name, ranges in self._ranges.items():
+            ranges.sort()
+            total = self._spec[name][0]
+            pos, prev = 0, None
+            for lo, hi, i in ranges:
+                if hi <= lo:
+                    continue
+                if lo < pos:
+                    raise ValueError(
+                        f"table {name!r}: rows [{lo}, {min(hi, pos)}) "
+                        f"claimed by both server {prev} and server {i} "
+                        f"(overlapping partition)")
+                if lo != pos:
+                    raise ValueError(
+                        f"table {name!r}: rows [{pos}, {lo}) owned by no "
+                        f"server (partition has a hole)")
+                pos, prev = hi, i
+            if pos != total:
+                raise ValueError(
+                    f"table {name!r}: rows [{pos}, {total}) owned by no "
+                    f"server")
+
+    def versions(self) -> Dict[str, int]:
+        """Per-table applies summed over the servers."""
+        return {n: sum(v) for n, v in self._versions.items()}
+
+    # -- protocol -------------------------------------------------------------
+
+    def _request(self, i: int, payload):
+        try:
+            reply = request_payload(self._chs[i], payload)
+        except tv.VanError as e:
+            host, port = self._addrs[i]
+            raise ServerFailureError(
+                f"sparse PS server {i} ({host}:{port}) failed mid-job: {e}",
+                server=i) from e
+        with self._bytes_lock:
+            self.bytes_pushed += payload_nbytes(payload)
+            self.bytes_pulled += len(reply)
+        return reply
+
+    def _fanout(self, payloads: Dict[int, Any]) -> Dict[int, memoryview]:
+        """One concurrent round. Every future is waited for before an
+        error propagates: a request still running would otherwise drive a
+        channel that a later call drives too."""
+        if self._pool is None or len(payloads) == 1:
+            return {i: self._request(i, p) for i, p in payloads.items()}
+        import concurrent.futures
+
+        futs = {i: self._pool.submit(self._request, i, p)
+                for i, p in payloads.items()}
+        concurrent.futures.wait(futs.values())
+        return {i: f.result() for i, f in futs.items()}
+
+    def _route(self, name: str, ids: np.ndarray) -> Dict[int, np.ndarray]:
+        """``{server: positions into ids}`` for the table's range split."""
+        out: Dict[int, np.ndarray] = {}
+        for lo, hi, i in self._ranges[name]:
+            pos = np.nonzero((ids >= lo) & (ids < hi))[0]
+            if pos.size:
+                out[i] = pos
+        covered = sum(p.size for p in out.values())
+        if covered != ids.size:
+            bad = ids[(ids < 0) | (ids >= self._spec[name][0])]
+            raise IndexError(
+                f"table {name!r}: ids out of range, e.g. {bad[:3]}")
+        return out
+
+    def _check(self, i: int, msg):
+        kind, _, tensors, extra = tv.decode(msg)
+        if kind != tv.OK:
+            raise self._reply_error(i, extra)
+        for name, v in extra.get("versions", {}).items():
+            self._versions[name][i] = int(v)
+        return tensors
+
+    def _host_ids(self, requests: Dict[str, Any]):
+        """``{table: ids}`` of any kind -> ``{table: [N] int32 numpy}`` (a
+        CUDA tensor through pinned memory) and ``{table: device}`` the
+        pulled rows go back to."""
+        devices = {n: (ids.device if isinstance(ids, torch.Tensor)
+                       else torch.device("cpu"))
+                   for n, ids in requests.items()}
+        host = stage_to_host(dict(requests), stats=self.transport)
+        return ({n: np.asarray(v, np.int32).reshape(-1)
+                 for n, v in host.items()}, devices)
+
+    def _on_devices(self, rows: Dict[str, np.ndarray], devices
+                    ) -> Dict[str, torch.Tensor]:
+        """Assembled host rows -> tensors on each request's device (the
+        copies onto the card waited for)."""
+        out: Dict[str, torch.Tensor] = {}
+        for dev in set(devices.values()):
+            mine = {n: r for n, r in rows.items() if devices[n] == dev}
+            if dev.type == "cuda":
+                out.update(stage_to_device(mine, dev, stats=self.transport))
+            else:  # the assembled rows are this call's own arrays
+                out.update({n: torch.from_numpy(r) for n, r in mine.items()})
+        return out
+
+    def pull(self, requests: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """``{table: global ids [N]} -> {table: rows [N, dim]}``: one
+        concurrent round over the owners, rows in id order, on the ids'
+        device."""
+        if self._pending_cycles:
+            self.flush()  # a pull must not overtake an in-flight push
+        with _Op(self.transport, "pull"):
+            ids, devices = self._host_ids(requests)
+            reqs, routes = self._build_pull(ids)
+            msgs = self._fanout({
+                i: tv.encode(tv.ROW_PULL, self.worker, t)
+                for i, t in reqs.items()})
+            return self._on_devices(self._merge_rows(ids, routes, msgs),
+                                    devices)
+
+    def read_rows(self, requests: Dict[str, Any]):
+        """The side-effect-free READ path: not ported yet."""
+        raise _not_ported("read_rows (the read path, READ)", "5.8")
+
+    def _build_pull(self, ids: Dict[str, np.ndarray]):
+        reqs: Dict[int, Dict[str, np.ndarray]] = {}
+        routes: Dict[str, Dict[int, np.ndarray]] = {}
+        for name, x in ids.items():
+            routes[name] = self._route(name, x)
+            for i, pos in routes[name].items():
+                reqs.setdefault(i, {})[f"{name}/ids"] = x[pos]
+        return reqs, routes
+
+    def _merge_rows(self, ids, routes, msgs) -> Dict[str, np.ndarray]:
+        tensors = {i: self._check(i, m) for i, m in msgs.items()}
+        return self._assemble_rows(ids, routes, tensors)
+
+    def _assemble_rows(self, ids, routes, tensors) -> Dict[str, np.ndarray]:
+        out: Dict[str, np.ndarray] = {}
+        for name, per_server in routes.items():
+            rows = np.zeros((ids[name].shape[0], self._spec[name][1]),
+                            self._dtype[name])
+            for i, pos in per_server.items():
+                rows[pos] = np.asarray(tensors[i][f"{name}/rows"])
+            out[name] = rows
+        return out
+
+    def _build_push(self, pushes: Dict[str, Tuple[Any, Any]], dedupe: bool
+                    ) -> Dict[int, Dict[str, np.ndarray]]:
+        """Per-server ``{"<table>/ids", "<table>/grads"}`` payloads: the
+        ids and grads on the host (CUDA tensors through pinned memory),
+        the optional worker-side dedupe, then the range routing. The
+        payload never aliases the caller's arrays."""
+        flat = {}
+        for name, (ids, grads) in pushes.items():
+            flat[f"{name}/ids"], flat[f"{name}/grads"] = ids, grads
+        host = stage_to_host(flat, stats=self.transport)
+        reqs: Dict[int, Dict[str, np.ndarray]] = {}
+        for name in pushes:
+            ids = np.asarray(host[f"{name}/ids"], np.int32).reshape(-1)
+            grads = np.asarray(host[f"{name}/grads"]).reshape(
+                ids.shape[0], self._spec[name][1])
+            if dedupe:
+                ids, grads = dedupe_rows_np(ids, grads)
+            for i, pos in self._route(name, ids).items():
+                reqs.setdefault(i, {})[f"{name}/ids"] = ids[pos]
+                reqs[i][f"{name}/grads"] = grads[pos]
+        return reqs
+
+    def push(self, pushes: Dict[str, Tuple[Any, Any]],
+             dedupe: bool = True) -> None:
+        """``{table: (global ids [N], row grads [N, dim])}``: the owners
+        apply at once (async semantics). ``dedupe`` merges duplicate rows
+        here first, shrinking the payload (the servers sum duplicates
+        either way). With ``bucket_bytes`` each server's payload travels
+        as fusion buckets; the server applies it as one unit either
+        way."""
+        with _Op(self.transport, "push"):
+            reqs = self._build_push(pushes, dedupe)
+            pseq, pfan = self._next_push_seq(), sorted(reqs)
+            if self.bucket_bytes is not None:
+                self.flush()  # keep per-worker push order == epoch order
+                self._push_buckets_sync(reqs, pseq=pseq, pfan=pfan)
+                return
+            msgs = self._fanout({
+                i: self._encode_serial_push(tv.ROW_PUSH, t, pseq=pseq,
+                                            pfan=pfan)
+                for i, t in reqs.items()})
+            for i, m in msgs.items():
+                self._check(i, m)
+
+    def _encode_serial_push(self, kind: int, t: Dict[str, np.ndarray],
+                            pseq: Optional[int] = None,
+                            pfan: Optional[List[int]] = None):
+        """One serial row-push frame tagged with the (nonce, cycle seq,
+        fanout) token: the dedup key, and what the checkpoint's drain
+        round compares across shards. Zero-copy parts with ``writev``."""
+        extra = None
+        if pseq is not None:
+            extra = {"pseq": pseq, "pnonce": self._transport_nonce,
+                     "pfan": pfan}
+        if self.writev:
+            return tv.encode_parts(kind, self.worker, t, extra)
+        return tv.encode(kind, self.worker, t, extra)
+
+    # -- bucketed, non-blocking push -------------------------------------------
+
+    def _push_buckets_sync(self, reqs: Dict[int, Dict[str, np.ndarray]],
+                           pseq: Optional[int] = None,
+                           pfan: Optional[List[int]] = None) -> None:
+        """Stripe each server's payload over the pool as byte-sliced
+        fusion buckets, every bucket tagged with the push's cycle token;
+        the completing bucket's reply carries the committed versions."""
+        self._push_epoch += 1
+        epoch = self._push_epoch
+        futs: List[Tuple[int, Any]] = []
+        for i, t in reqs.items():
+            t = {k: np.ascontiguousarray(v) for k, v in t.items()}
+            plan = BucketPlan.from_arrays(t, self.bucket_bytes)
+            pumps = self._pumps[i]
+            enc_bucket = plan.bucket_encoder(self.writev)
+            for b in range(plan.nbuckets):
+                extra = {"epoch": epoch, "nonce": self._transport_nonce,
+                         "pseq": pseq, "pnonce": self._transport_nonce,
+                         "pfan": pfan, "enc": []}
+                payload = enc_bucket(tv.ROW_BUCKET_PUSH, self.worker, t, b,
+                                     extra=extra)
+                futs.append((i, pumps[b % len(pumps)].submit(
+                    payload, priority=self._bucket_submit_priority(b))))
+        for i, fut in futs:
+            reply = self._bucket_reply(i, fut)
+            try:
+                self._check(i, reply)
+            finally:
+                self._release_frame(reply)  # even when _check raises
+
+    def push_async(self, pushes: Dict[str, Tuple[Any, Any]],
+                   dedupe: bool = True) -> PendingCycle:
+        """Non-blocking :meth:`push`: the payloads are built now (the
+        caller may change its arrays afterwards), then a background sender
+        drains the buckets while the caller computes. :meth:`flush` (or
+        ``handle.wait()``) restores synchronous semantics; per-worker push
+        order is kept either way."""
+        if self.bucket_bytes is None:
+            raise RuntimeError(
+                "push_async needs the bucketed transport — construct the "
+                "worker with bucket_bytes=... (e.g. 4 << 20)")
+        reqs = self._build_push(pushes, dedupe)
+        pseq, pfan = self._next_push_seq(), sorted(reqs)
+        pending = PendingCycle(self.transport)
+        self._track_pending(pending)
+
+        def run():
+            t0 = time.perf_counter()
+            try:
+                with _Op(self.transport, "cycle"):
+                    self._push_buckets_sync(reqs, pseq=pseq, pfan=pfan)
+            except BaseException as e:
+                pending._fail(e)
+            else:
+                pending._resolve(None)
+            finally:
+                self.transport.record_cycle(time.perf_counter() - t0)
+
+        self._bg_executor().submit(run)
+        return pending
+
+    def push_pull(self, pushes: Dict[str, Tuple[Any, Any]],
+                  requests: Dict[str, Any],
+                  dedupe: bool = True) -> Dict[str, torch.Tensor]:
+        """Push this cycle's row grads and pull the next cycle's rows in
+        one round trip a server (the sparse async cycle); the rows are
+        the ones after this push."""
+        if self._pending_cycles:
+            self.flush()  # a cycle must not overtake an in-flight push
+        with _Op(self.transport, "push_pull"):
+            reqs = self._build_push(pushes, dedupe)
+            # the cycle's fanout is the servers receiving grads: a
+            # pull-only message must not count toward the drain round
+            pseq, pfan = self._next_push_seq(), sorted(reqs)
+            ids, devices = self._host_ids(requests)
+            pull_reqs, routes = self._build_pull(ids)
+            for i, t in pull_reqs.items():
+                for name_ids, v in t.items():
+                    name = name_ids.split("/")[0]
+                    reqs.setdefault(i, {})[f"{name}/pull_ids"] = v
+            msgs = self._fanout({
+                i: self._encode_serial_push(tv.ROW_PUSH_PULL, t, pseq=pseq,
+                                            pfan=pfan)
+                for i, t in reqs.items()})
+            return self._on_devices(self._merge_rows(ids, routes, msgs),
+                                    devices)
+
+    # -- checkpoint, reconnect, stats -------------------------------------------
+
+    def checkpoint_all(self, path: str) -> Dict[str, int]:
+        """A coordinated, cross-shard-atomic checkpoint, keyed by cycle
+        seq: **pause** (every server blocks new applies and reports each
+        worker's last applied (nonce, seq, fanout)), **drain_to** (every
+        shard in the newest cycle's fanout admits the in-flight sub-pushes
+        needed to reach it), **save** (each server writes its tables under
+        ``path``, ``path/shard<i>/<table>`` when partitioned), **resume**.
+        A push is on every shard it addressed, or on none. Returns the
+        per-table versions summed over the servers at the snapshot. A
+        failed round still resumes the servers it paused. Restart: each
+        server inits its range-sliced tables, restores each from its shard
+        directory and serves again; workers :meth:`reconnect`."""
+        tokens: Dict[int, dict] = {}
+        try:
+            try:
+                paused = self._checkpoint_round({"dir": path,
+                                                 "phase": "pause"})
+            except CheckpointRoundError as e:
+                tokens = self._ckpt_tokens(e.oks)
+                raise
+            tokens = self._ckpt_tokens(paused)
+            drain = self._drain_targets_from_pause(paused)
+            if drain:
+                per_server = {
+                    i: dict(tokens.get(i, {}), targets=drain.get(i, {}))
+                    for i in range(len(self._chs))}
+                self._checkpoint_round({"dir": path, "phase": "drain_to",
+                                        "timeout": DRAIN_TO_TIMEOUT_S},
+                                       per_server=per_server)
+            saves = self._checkpoint_round({"dir": path, "phase": "save"},
+                                           per_server=tokens)
+        except BaseException:
+            try:
+                self._checkpoint_round({"dir": path, "phase": "resume"},
+                                       per_server=tokens)
+            except Exception:
+                pass  # the original failure names the culprit
+            raise
+        self._checkpoint_round({"dir": path, "phase": "resume"},
+                               per_server=tokens)
+        totals: Dict[str, int] = {n: 0 for n in self._spec}
+        for extra in saves.values():
+            for n, v in extra["versions"].items():
+                totals[n] += int(v)
+        return totals
+
+    def _drain_targets_from_pause(self, paused: Dict[int, dict]
+                                  ) -> Dict[int, Dict[int, list]]:
+        """The cross-shard max by cycle seq: from each shard's report of
+        per-worker (nonce, seq, fanout), each worker's newest applied
+        cycle, and per shard ``{worker: [nonce, seq]}`` for the shards in
+        that cycle's fanout that still lag it (empty: no drain round). A
+        worker whose nonce differs across shards reconnected mid-round and
+        is skipped: its in-flight cycle died with the old connections."""
+        per_shard: Dict[int, dict] = {
+            i: extra.get("applied_pseq", {}) for i, extra in paused.items()}
+        nonces: Dict[int, str] = {}
+        best: Dict[int, tuple] = {}  # worker -> (seq, fanout)
+        skip = set()
+        for table in per_shard.values():
+            for w_s, rec in table.items():
+                w, nonce, seq = int(w_s), rec[0], int(rec[1])
+                if w in nonces and nonces[w] != nonce:
+                    skip.add(w)
+                    continue
+                nonces[w] = nonce
+                if w not in best or seq > best[w][0]:
+                    best[w] = (seq, [int(x) for x in (rec[2] or [])])
+        targets: Dict[int, Dict[int, list]] = {}
+        for i in per_shard:
+            t: Dict[int, list] = {}
+            for w, (seq, fan) in best.items():
+                if w in skip or i not in fan:
+                    continue
+                rec = per_shard[i].get(str(w))
+                applied = (int(rec[1]) if rec is not None
+                           and rec[0] == nonces[w] else 0)
+                if applied < seq:
+                    t[w] = [nonces[w], seq]
+            if t:
+                targets[i] = t
+        return targets
+
+    def reconnect(self, addrs: Optional[Sequence[Tuple[str, int]]] = None
+                  ) -> None:
+        """Dial every server again (at new addresses when given: restarted
+        servers come back on new ports) and revalidate the row partition.
+        The wire counters, the transport stats and the push epoch stream
+        survive, a failed re-dial included (retry it)."""
+        try:
+            self.flush()  # land (or fail fast) in-flight background pushes
+        except Exception:
+            pass  # a dead server is why we reconnect
+        saved = self._saved_transport_state()
+        self._close_transport()
+        for ch in self._chs:
+            ch.close()  # dead or stale; no SHUTDOWN owed
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+        try:
+            self._init_multi(
+                list(addrs) if addrs is not None else self._addrs,
+                self.worker, dict(self._spec),
+                bucket_bytes=self.bucket_bytes, pool_size=self.pool_size,
+                writev=self.writev)
+        finally:
+            self._restore_transport_state(saved)
+
+    def stats(self) -> dict:
+        """One server: its STATS dict. Several: ``{"servers": [...],
+        "versions": per-table totals}``."""
+        msgs = self._fanout({i: tv.encode(tv.STATS, self.worker, None)
+                             for i in range(len(self._chs))})
+        extras = {i: tv.decode(m)[3] for i, m in msgs.items()}
+        if len(self._chs) == 1:
+            return extras[0]
+        return {"servers": [extras.get(i) for i in range(len(self._chs))],
+                "versions": self.versions()}
+
+    def close(self) -> None:
+        try:
+            if self._pending_cycles:
+                self.flush()  # land in-flight pushes before the goodbyes
+        except Exception:
+            pass  # a dead server must not block the teardown
+        self._close_transport()  # pool channels hang up without a goodbye
+        for ch in self._chs:
+            try:
+                ch.request(tv.encode(tv.SHUTDOWN, self.worker, None))
+            except tv.VanError:
+                pass
+            ch.close()
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

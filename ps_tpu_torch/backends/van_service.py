@@ -6,7 +6,9 @@ worker connection, a request -> reply loop over framed tensor messages,
 and a stop that never tears a reply off the wire. The concrete service
 (``AsyncPSService`` in ``remote_async.py``) provides the protocol
 (:meth:`VanService._handle`) and the commit gate
-(:meth:`VanService._set_draining`).
+(:meth:`VanService._set_draining`); ``SparsePSService`` in
+``remote_sparse.py`` also calls the apply-path hooks of native admission,
+the read cache and replication, which stay inert here.
 
 The drain contract: ``stop()`` first stops admitting connections (accept
 thread joined, listener closed), then waits (bounded by ``grace``) for
@@ -184,15 +186,15 @@ class VanService:
             raise NotImplementedError(
                 "native_loop: the native epoll serve loop "
                 "(control/native_loop.py) is not ported yet (ROADMAP Queue "
-                "1 item 5); serve thread-per-connection (the default)")
+                "1 item 5.1); serve thread-per-connection (the default)")
         if backup:
             raise NotImplementedError(
                 "backup=True: shard replication (replica/) is not ported "
-                "yet (ROADMAP Queue 1 item 5)")
+                "yet (ROADMAP Queue 1 item 5.6)")
         if shm:
             raise NotImplementedError(
                 "shm=True: the shared-memory lane (control/shm_lane.py) is "
-                "not ported yet (ROADMAP Queue 1 item 5); a worker's offer "
+                "not ported yet (ROADMAP Queue 1 item 5.2); a worker's offer "
                 "is refused and it stays on TCP")
         del loop_threads  # sizes the native loop only
         # vectored replies: live snapshot views go to the kernel as iovecs
@@ -251,12 +253,31 @@ class VanService:
         return {"role": self.role, "epoch": self.epoch, "now": time.time(),
                 "dedup_hits": self.transport.dedup_hits}
 
+    # -- hooks of the sparse service's apply path, inert until their
+    # features are ported (each refused at construction meanwhile) ----------
+
+    def _admit_fresh_hint(self) -> bool:
+        """Native admission's freshness stamp (ROADMAP Queue 1 item 5.1)."""
+        return False
+
+    def _admit_publish(self, worker: int) -> None:
+        """Republish a worker's ledger row to native admission (item 5.1)."""
+
+    def _invalidate_reads(self, tags=None) -> None:
+        """Drop the cached READ replies an apply made stale (item 5.8)."""
+
+    def _replicate(self, op: str, worker: int, tensors, extra) -> None:
+        """Stream a committed apply to the backups (item 5.6)."""
+
+    def _await_replication(self, seq) -> None:
+        """Wait for the backups' ack of a replicated apply (item 5.6)."""
+
     def _dispatch(self, kind: int, worker: int, tensors, extra):
         if kind in self._REPLICA_KINDS:
             return tv.encode(tv.ERR, worker, None, extra={
                 "error": (f"{tv.kind_name(kind)}: shard replication "
                           f"(replica/) is not ported yet (ROADMAP Queue 1 "
-                          f"item 5)")})
+                          f"item 5.6)")})
         return self._handle(kind, worker, tensors, extra)
 
     def _dispatch_reply_payload(self, kind: int, worker: int, tensors,
@@ -395,7 +416,7 @@ class VanService:
                         reply = tv.encode(tv.ERR, worker, None, extra={
                             "error": ("shm lane not available on this "
                                       "server (control/shm_lane.py is not "
-                                      "ported; ROADMAP Queue 1 item 5)")})
+                                      "ported; ROADMAP Queue 1 item 5.2)")})
                     else:
                         reply = self._dispatch_reply_payload(
                             kind, worker, tensors, extra)

@@ -112,7 +112,7 @@ Environment variables honored by :meth:`Config.from_env`:
   liveness probe a discovering worker runs before dialing its host's
   registered aggregator (default 200)
 - ``PS_FUSED_APPLY``        — sparse embedding fused apply tier:
-  'off' = legacy masked full-table apply (not ported yet), 'torch' = the
+  'off' = legacy masked full-table apply (either device), 'torch' = the
   plain PyTorch gather→apply→scatter (CPU tensors only), 'cuda' = the
   hand-written CUDA kernel (ps_tpu_torch/ops/csrc/sparse_apply.cu),
   'auto' (default) = cuda on a CUDA device, torch on the CPU
@@ -426,7 +426,7 @@ class Config:
         pump (the parity oracle).
       fused_apply: sparse embedding fused apply tier
         (ps_tpu_torch/ops/sparse_apply.py): 'off' names the legacy
-        masked full-table apply, which is not ported yet; 'torch' is the
+        masked full-table apply, plain torch on either device; 'torch' is the
         plain PyTorch gather→apply→scatter and takes CPU tensors only;
         'cuda' is the hand-written kernel (on CPU tensors its plain
         version); 'auto' (default) resolves by device — cuda on a CUDA
@@ -642,7 +642,7 @@ class Config:
     nl_slow_frame_ms: float = 250.0
     # sparse fused apply (ps_tpu_torch/ops/sparse_apply.py): which tier
     # SparseEmbedding's scatter-apply routes through — 'off' (legacy
-    # masked full-table, not ported), 'torch' (plain version, CPU only),
+    # masked full-table, either device), 'torch' (plain version, CPU only),
     # 'cuda' (the hand-written kernel), 'auto' (by device)
     fused_apply: str = "auto"
     # tiered embedding storage (ps_tpu/kv/tiered.py, README "Tiered

@@ -73,8 +73,9 @@ class SparseEmbedding:
       capacity_factor: 'a2a' only — the per-destination bucket capacity
         multiple.
       dtype: table dtype (f32 default; bf16 halves pull bytes).
-      fused_apply: the apply tier ('cuda' | 'torch' | 'auto'); None
-        inherits the backend's resolution of ``Config.fused_apply``.
+      fused_apply: the apply tier ('cuda' | 'torch' | 'off' | 'auto');
+        None inherits the backend's resolution of ``Config.fused_apply``.
+        'off' is the masked full-table apply, O(table) a push.
     """
 
     def __init__(self, num_rows: int, dim: int, optimizer="adagrad",
@@ -98,10 +99,6 @@ class SparseEmbedding:
         if fused_apply is None:
             fused_apply = ctx.backend.fused_apply_tier()
         self.fused_tier = resolve_tier(fused_apply, self.device)
-        if self.fused_tier == "off":
-            raise NotImplementedError(
-                "fused_apply 'off' (the masked full-table apply) is not "
-                "ported yet; use 'auto'")
         self._table: Optional[torch.Tensor] = None
         self._state: Any = None
 

@@ -21,7 +21,13 @@ Counterpart of ``ps_tpu/ops/sparse_apply.py``. One entry point,
   :func:`_apply_torch`, mirroring the reference's ``jax`` tier. It takes
   CPU tensors only.
 
-``off`` (the reference's masked full-table apply) is not ported yet.
+- ``off`` — the reference's legacy masked full-table apply
+  (``ps_tpu/kv/sparse.py:258-268``), in plain PyTorch on either device:
+  a table-sized ``gsum``/``cnt`` with an overflow slot for the ids
+  outside the table, then the optimizer's masked rule over the whole
+  table (:func:`_apply_off`). The reference computes it in XLA, outside
+  any Pallas kernel, so it has no kernel here either. Its cost is
+  O(table), the fused tiers' O(batch).
 
 In place replaces the reference's buffer donation: the table and the
 state leaves passed in are updated and returned; nothing is copied.
@@ -144,15 +150,15 @@ def fused_sparse_apply(table: torch.Tensor, state: Any, ids: torch.Tensor,
     ``state`` in place (only touched rows' bytes move) and returns them.
 
     On a CUDA table the ``cuda`` tier launches the kernels (or raises) and
-    never reads a filler id's grads; on a CPU table both tiers run the
-    plain version."""
-    if tier == "off":
-        raise ValueError("tier 'off' is the caller's own full-table path "
-                         "— fused_sparse_apply never runs it")
+    never reads a filler id's grads; on a CPU table both fused tiers run
+    the plain version. The ``off`` tier runs the masked full-table apply
+    on either device."""
     if tier not in TIERS:
         raise ValueError(f"unknown fused-apply tier {tier!r}")
     if ids.shape[0] == 0:  # empty push: nothing gathered, nothing written
         return table, state
+    if tier == "off":
+        return _apply_off(opt, table, state, ids, grads)
     if table.device.type == "cuda":
         if tier != "cuda":
             raise ValueError(
@@ -202,6 +208,60 @@ def _apply_torch(opt, table, state, uids, gsum, cnt):
     table.index_copy_(0, dst, new_rows[real].to(table.dtype))
     for leaf, new in zip(state_leaves(state), state_leaves(new_state_rows)):
         leaf.index_copy_(0, dst, new[real].to(leaf.dtype))
+    return table, state
+
+
+# -- the masked full-table tier ('off') ------------------------------------------
+
+
+def _table_sums(ids: torch.Tensor, grads: torch.Tensor, num_rows: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Table-sized ``(gsum [num_rows + 1, D] f32, cnt [num_rows + 1]
+    int32)`` of a push: row r's duplicates summed in f32, from 0, in
+    arrival order (the reference's ``.at[slot].add`` on the CPU, and the
+    kernel's order); ids outside ``[0, num_rows)`` land in the overflow
+    slot ``num_rows``, which the caller cuts off. On the card an
+    ``index_add_`` of colliding ids would sum in any order, so the
+    duplicates are added one rank at a time: pass k adds every id's k-th
+    occurrence, whose rows are distinct (one host read sizes the
+    passes)."""
+    n, dim = grads.shape
+    ok = (ids >= 0) & (ids < num_rows)
+    keys = torch.where(ok, ids, num_rows).to(torch.int64)
+    keys_s, order = torch.sort(keys, stable=True)
+    grads_s = grads[order].to(torch.float32)
+    head = torch.ones((n,), dtype=torch.bool, device=ids.device)
+    head[1:] = keys_s[1:] != keys_s[:-1]
+    starts = torch.nonzero(head).reshape(-1)
+    rank = (torch.arange(n, device=ids.device)
+            - starts[torch.cumsum(head, 0) - 1])
+    by_rank = torch.sort(rank, stable=True).indices
+    sizes = torch.bincount(rank).tolist()
+    gsum = torch.zeros((num_rows + 1, dim), dtype=torch.float32,
+                       device=ids.device)
+    lo = 0
+    for size in sizes:
+        sel = by_rank[lo:lo + size]
+        gsum.index_add_(0, keys_s[sel], grads_s[sel])
+        lo += size
+    cnt = torch.zeros((num_rows + 1,), dtype=torch.int32, device=ids.device)
+    cnt.index_add_(0, keys, torch.ones_like(keys, dtype=torch.int32))
+    return gsum, cnt
+
+
+def _apply_off(opt, table, state, ids, grads):
+    """The reference's masked full-table apply, in place: the push's
+    table-sized sums (:func:`_table_sums`), then ``opt.apply`` over every
+    row with the touched mask ``cnt > 0`` (an untouched row sees a zero
+    gradient and keeps its bits under sgd and adagrad, its state under
+    lazy adam), copied back into ``table`` and ``state``."""
+    num_rows = table.shape[0]
+    gsum, cnt = _table_sums(ids.reshape(-1), grads.reshape(ids.numel(), -1),
+                            num_rows)
+    new_table, new_state = opt.apply(table, state, gsum[:-1], cnt[:-1] > 0)
+    table.copy_(new_table)
+    for leaf, new in zip(state_leaves(state), state_leaves(new_state)):
+        leaf.copy_(new)
     return table, state
 
 

@@ -32,7 +32,12 @@ class TransportStats:
     replayed push acked without an apply); both sides record vectored
     sends and receive-pool hits. The port adds ``record_staging``: the
     bytes and seconds of the copies between the card and pinned host
-    memory that every CUDA tensor crossing the van takes.
+    memory that every CUDA tensor crossing the van takes. A sparse server
+    records each committed push's apply (``record_apply``, lock wait
+    included), its row apply alone (``record_sparse_apply``, with the raw
+    rows it landed) and its push-to-servable lag (``record_fresh_lag``),
+    under the reference's ``apply_s``, ``sparse_apply_s`` and
+    ``fresh_lag_s`` latency names.
     """
 
     def __init__(self, window: int = 256):
@@ -53,6 +58,7 @@ class TransportStats:
         self.dedup_hits = 0
         self.staging_bytes = 0
         self.staging_s = 0.0
+        self.sparse_rows_applied = 0
         # the latest op latencies by name (push, pull, push_pull, cycle):
         # the reference keeps log2 histograms (obs/, not ported yet); a
         # bounded window of samples gives the same quantiles here
@@ -83,6 +89,25 @@ class TransportStats:
                 "p50": float(np.quantile(a, 0.5)),
                 "p99": float(np.quantile(a, 0.99)), "max": float(a.max())}
         return out
+
+    def record_apply(self, seconds: float) -> None:
+        """One server-side apply of a committed push, end to end (lock
+        acquisition included: contention is apply-path latency)."""
+        self.record_op("apply", seconds)
+
+    def record_sparse_apply(self, rows: int, seconds: float) -> None:
+        """One sparse row apply: ``rows`` raw row updates landed in
+        ``seconds`` (the apply alone, lock wait excluded: that lives in
+        ``apply_s``)."""
+        self.record_op("sparse_apply", seconds)
+        with self._lock:
+            self.sparse_rows_applied += int(rows)
+
+    def record_fresh_lag(self, seconds: float) -> None:
+        """Server side: one apply's push-to-first-servable lag (from the
+        push's arrival at the apply to the moment the lock is released
+        and a pull sees it)."""
+        self.record_op("fresh_lag", seconds)
 
     def record_vec_send(self, nbytes: int) -> None:
         """One vectored send: ``nbytes`` of tensor payload went to the
@@ -147,7 +172,8 @@ class TransportStats:
                     self.stale_epochs, self.stale_epoch_buckets,
                     self.vec_frames, self.vec_bytes_avoided,
                     self.pool_hits, self.pool_misses, self.dedup_hits,
-                    self.staging_bytes, self.staging_s)
+                    self.staging_bytes, self.staging_s,
+                    self.sparse_rows_applied)
 
     def summary(self, since: Optional[tuple] = None) -> Dict[str, float]:
         """The interval since ``since`` (a :meth:`snapshot`), as the
@@ -177,6 +203,8 @@ class TransportStats:
         if d[13] > 0:
             out["device_staging_gb"] = round(d[13] / 1e9, 4)
             out["device_staging_s"] = round(d[14], 4)
+        if d[15] > 0:
+            out["sparse_rows_applied"] = int(d[15])
         return out
 
     def metrics_snapshot(self) -> dict:

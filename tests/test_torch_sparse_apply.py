@@ -196,12 +196,15 @@ def test_fused_apply_knob_rejects_reference_only_tiers(monkeypatch):
 
 
 def test_entry_point_rejects_off_and_unknown():
+    """'off' is no longer refused: the entry point runs the masked
+    full-table apply (tests/test_torch_remote_sparse.py holds it to a
+    numpy oracle); an unknown tier still raises."""
     opt = rowwise.make_rowwise("sgd")
     t = torch.zeros((4, D))
     ids = torch.zeros((2,), dtype=torch.int32)
-    g = torch.zeros((2, D))
-    with pytest.raises(ValueError, match="'off'"):
-        ops.fused_sparse_apply(t, (), ids, g, opt, "off")
+    g = torch.ones((2, D))
+    ops.fused_sparse_apply(t, (), ids, g, opt, "off")
+    assert torch.equal(t[0], torch.full((D,), -0.02)) and not t[1:].any()
     with pytest.raises(ValueError, match="unknown fused-apply tier"):
         ops.fused_sparse_apply(t, (), ids, g, opt, "vulkan")
 

@@ -8,6 +8,8 @@ limit, so nothing hangs:
     python tests/test_torch_van_harness.py server <out> <nworkers> <cycles> [<shard> <nshards>]
     python tests/test_torch_van_harness.py worker <ports> <out> <worker> <cycles> [<nworkers>]
     python tests/test_torch_van_harness.py drill <rank> <k> <port> <hb_base> <victim> <out>
+    python tests/test_torch_van_harness.py sparse-server <out> <nworkers> <cycles> <shard> <nshards> <device> <shape>
+    python tests/test_torch_van_harness.py sparse-worker <ports> <out> <worker> <cycles> <device> <shape> <nworkers> <record>
 
 - server: an async KVStore on the CPU (sgd 0.05, dc_lambda 0.04) behind
   ``AsyncPSService`` with its full history, on a port the kernel picks
@@ -26,6 +28,18 @@ limit, so nothing hangs:
   rank dies hard (``os._exit(17)``) after one step, the others poll
   ``check_health()`` until it raises and write what it named.
 
+- sparse-server / sparse-worker: the sparse PS
+  (``backends/remote_sparse.py``), modelled on the reference's
+  ``tests/mp_sparse_worker.py``: server ``shard`` of ``nshards`` owns its
+  row range of a "deep" (adagrad) and a "wide" (sgd) table on ``device``,
+  at ``shape`` "small" (the reference test's 96 rows) or "wd" (W&D's full
+  width), and once every worker said goodbye dumps its tables, apply log,
+  versions and kernel launch counts; a worker (``ports`` may be ``@n``:
+  wait for n servers' port files) runs deterministic cycles of pull +
+  push and push_pull with its ids and grads on ``device``. Phase 17 of
+  ``chip_smoke.py`` runs the same code on the card at "wd";
+  :func:`sparse_replay` replays a run.
+
 Every process of this file computes on one intra-op thread, as the
 replays of its runs do (:func:`one_thread`). :func:`replay` replays a run
 of the MNIST trainer's ``--role server|worker`` processes from its
@@ -35,6 +49,7 @@ servers' event logs; ``chip_smoke.py`` uses it too.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import socket
@@ -73,9 +88,13 @@ def spawn(*args, module=None) -> subprocess.Popen:
                             stderr=subprocess.STDOUT, text=True)
 
 
-def finish(procs, wall_s):
+def finish(procs, wall_s, fail_fast=False):
     """Wait for every process (killing all after ``wall_s`` seconds);
-    returns their outputs."""
+    returns their outputs. With ``fail_fast``, all are killed as soon as
+    one exits non-zero (the others would wait on it), and the outputs
+    are read as they come, so that no pipe fills meanwhile."""
+    if fail_fast:
+        return _finish_fast(procs, wall_s)
     outs = []
     try:
         deadline = time.monotonic() + wall_s
@@ -84,6 +103,31 @@ def finish(procs, wall_s):
                 timeout=max(deadline - time.monotonic(), 1))[0])
     finally:
         kill_all(procs)
+    return outs
+
+
+def _finish_fast(procs, wall_s):
+    import threading
+
+    outs = [""] * len(procs)
+
+    def read(i, p):
+        outs[i] = p.communicate()[0]
+
+    readers = [threading.Thread(target=read, args=(i, p), daemon=True)
+               for i, p in enumerate(procs)]
+    for t in readers:
+        t.start()
+    deadline = time.monotonic() + wall_s
+    try:
+        while (any(t.is_alive() for t in readers)
+               and time.monotonic() < deadline
+               and not any(p.poll() not in (None, 0) for p in procs)):
+            time.sleep(0.05)
+    finally:
+        kill_all(procs)
+        for t in readers:
+            t.join(timeout=10)
     return outs
 
 
@@ -381,12 +425,333 @@ def run_drill(rank, k, port, hb_base, victim, out):
         json.dump(result, f)
 
 
+# -- the sparse PS's processes (backends/remote_sparse.py) ------------------
+
+#: the sparse roles' sizes. "small" is the reference's test size
+#: (tests/mp_sparse_worker.py): 96 rows, D 8 and 1, 24 uniform ids a
+#: cycle. "wd" is Wide-&-Deep's full published width (WideDeepConfig()):
+#: 26 x 100,000 rows, D 16 and 1, a cycle's ids the global ids of one
+#: Criteo-like batch of 512 examples (13,312 ids, Zipf-skewed).
+SPARSE_SHAPES = {
+    "small": {"rows": 96, "deep": 8, "ids": 24},
+    "wd": {"rows": 2_600_000, "deep": 16, "batch": 512, "vocab": 100_000,
+           "features": 26},
+}
+#: name -> (optimizer, seed): the W&D trainer's tables and rules
+SPARSE_TABLES = {"deep": ("adagrad", 11), "wide": ("sgd", 13)}
+SPARSE_LR = 0.05
+
+
+def sparse_spec(shape: str) -> dict:
+    """The worker's ``{name: (total_rows, dim)}``."""
+    sh = SPARSE_SHAPES[shape]
+    return {"deep": (sh["rows"], sh["deep"]), "wide": (sh["rows"], 1)}
+
+
+@functools.lru_cache(maxsize=4)
+def sparse_table(shape: str, name: str) -> np.ndarray:
+    """The whole initial table, drawn from its seed (servers slice it).
+    Shared between calls: copy before changing it."""
+    rows, dim = sparse_spec(shape)[name]
+    rng = np.random.default_rng(SPARSE_TABLES[name][1])
+    return rng.standard_normal((rows, dim), dtype=np.float32) * np.float32(
+        0.01)
+
+
+def sparse_ids(shape: str, worker: int, cycles: int) -> list:
+    """A worker's global ids, one [N] int32 array a cycle (both tables
+    take the same ids, as W&D's do)."""
+    sh = SPARSE_SHAPES[shape]
+    if shape == "small":
+        return [np.random.default_rng([worker, c, 7]).integers(
+            0, sh["rows"], sh["ids"]).astype(np.int32)
+            for c in range(cycles)]
+    from ps_tpu_torch.data.synthetic import criteo_batches
+
+    offsets = np.arange(sh["features"], dtype=np.int32) * sh["vocab"]
+    return [(b["sparse"] + offsets[None, :]).reshape(-1)
+            for b in criteo_batches(sh["batch"], vocab_size=sh["vocab"],
+                                    num_sparse=sh["features"], seed=worker,
+                                    steps=cycles)]
+
+
+def sparse_grads(shape: str, worker: int, cycle: int, name: str,
+                 n: int) -> np.ndarray:
+    """The row grads of one (worker, cycle, table), f32."""
+    dim = sparse_spec(shape)[name][1]
+    rng = np.random.default_rng([worker, cycle, SPARSE_TABLES[name][1]])
+    return rng.standard_normal((n, dim), dtype=np.float32) * np.float32(0.1)
+
+
+def routed_pushes(shape: str, worker: int, shard: int, nshards: int,
+                  cycles: int, ids=None):
+    """The shard-local ``{name: (ids, grads)}`` that ``worker``'s cycles
+    send ``shard``: the worker's payloads (dedupe, then the range split,
+    order kept). A cycle with no row in the range sends no message and is
+    skipped, as the worker skips it."""
+    from ps_tpu_torch.backends.remote_sparse import dedupe_rows_np, row_range
+
+    ids = sparse_ids(shape, worker, cycles) if ids is None else ids
+    for c in range(cycles):
+        per = {}
+        for name, (rows, _) in sparse_spec(shape).items():
+            lo, hi = row_range(shard, nshards, rows)
+            u, g = dedupe_rows_np(ids[c], sparse_grads(shape, worker, c, name,
+                                                       ids[c].size))
+            keep = (u >= lo) & (u < hi)
+            if keep.any():
+                per[name] = (u[keep] - lo, g[keep])
+        if per:
+            yield per
+
+
+def expected_pushes(shape: str, shard: int, nshards: int, nworkers: int,
+                    cycles: int) -> int:
+    """How many push messages reach ``shard``."""
+    return sum(len(list(routed_pushes(shape, w, shard, nshards, cycles)))
+               for w in range(nworkers))
+
+
+def sparse_tables(shape: str, shard: int, nshards: int, fused_apply=None):
+    """The port's tables of ``shard``'s row range, on the device
+    ``ps_tpu_torch.init`` chose."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.backends.remote_sparse import row_range
+
+    out = {}
+    for name, (rows, dim) in sparse_spec(shape).items():
+        lo, hi = row_range(shard, nshards, rows)
+        emb = ps.SparseEmbedding(hi - lo, dim,
+                                 optimizer=SPARSE_TABLES[name][0],
+                                 learning_rate=SPARSE_LR,
+                                 fused_apply=fused_apply)
+        emb.init(sparse_table(shape, name)[lo:hi])
+        out[name] = emb
+    return out
+
+
+def _read_ports(ports: str, out: str) -> str:
+    """``"p0,p1"``, or ``"@n"``: wait for the port files of n servers."""
+    if not ports.startswith("@"):
+        return ports
+    found = []
+    for s in range(int(ports[1:])):
+        path = os.path.join(out, f"port{s}")
+        deadline = time.monotonic() + 300
+        while not os.path.exists(path):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no server wrote {path}")
+            time.sleep(0.02)
+        with open(path) as f:
+            found.append(f.read())
+    return ",".join(found)
+
+
+def run_sparse_server(out, nworkers, cycles, shard, nshards, device,
+                      shape):
+    """Serve ``shard``'s row range of both tables until every worker said
+    goodbye, then dump the tables and their optimizer state
+    (``sparse_tables<shard>.npz``), the apply log, versions, rows, the
+    sparse applies' times and the kernel launch counts
+    (``sparse_server<shard>.json``)."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.backends.remote_sparse import SparsePSService
+    from ps_tpu_torch.ops import sparse_apply as ops
+
+    ps.init(backend="cuda", device=device)
+    tables = sparse_tables(shape, shard, nshards)
+    svc = SparsePSService(
+        tables, shard=shard, num_shards=nshards,
+        total_rows={n: v for n, (v, _) in sparse_spec(shape).items()},
+        record_full_history=True)
+    path = os.path.join(out, f"port{shard}")
+    with open(path + ".tmp", "w") as f:
+        f.write(str(svc.port))
+    os.replace(path + ".tmp", path)
+    if not svc.wait_for_goodbyes(nworkers, timeout=300):
+        raise TimeoutError(f"only {svc.goodbyes}/{nworkers} goodbyes "
+                           f"({len(svc.apply_log)} pushes)")
+    target = expected_pushes(shape, shard, nshards, nworkers, cycles)
+    assert len(svc.apply_log) == target, (len(svc.apply_log), target)
+    from ps_tpu_torch.ops.sparse_apply import state_leaves
+
+    arrays = {}
+    for name, emb in tables.items():
+        arrays[name] = emb.table.cpu().numpy()
+        for i, leaf in enumerate(state_leaves(emb.state())):
+            arrays[f"{name}/state{i}"] = leaf.cpu().numpy()
+    np.savez(os.path.join(out, f"sparse_tables{shard}.npz"), **arrays)
+    with open(os.path.join(out, f"sparse_server{shard}.json"), "w") as f:
+        json.dump({
+            "apply_log": svc.apply_log, "versions": svc.versions,
+            "rows_applied": svc.rows_applied, "meta": svc._meta,
+            "tiers": svc.fused_tiers, "device": str(tables["deep"].device),
+            "launches": {"apply": ops.LAUNCHES,
+                         "group": ops.GROUP_LAUNCHES,
+                         "by_rule": dict(ops.LAUNCHES_BY_RULE)},
+            "sparse_apply_s": svc.transport.op_samples("sparse_apply"),
+            "apply_s": svc.transport.op_samples("apply"),
+            "rows": svc.transport.sparse_rows_applied,
+            "staging_s": svc.transport.staging_s}, f)
+    svc.stop()
+    ps.shutdown()
+
+
+def run_sparse_worker(ports, out, worker, cycles, device, shape,
+                      nworkers=0, record=False):
+    """``cycles`` cycles against the sparse servers: even cycles pull then
+    push, odd ones push_pull (the reference test's mix), ids and grads as
+    tensors on ``device``; once connected it waits until ``nworkers``
+    workers are (a file barrier), so their cycles overlap. Writes
+    ``sparse_worker<id>.json`` (versions, cycle and op times, the shared
+    window) and, with ``record``, every pulled row set and the per-server
+    versions its replies carried (``sparse_pulls<id>.npz``)."""
+    import torch
+
+    from ps_tpu_torch.backends.remote_sparse import connect_sparse
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    uri = ",".join(f"127.0.0.1:{p}"
+                   for p in _read_ports(str(ports), out).split(","))
+    w = connect_sparse(uri, worker, sparse_spec(shape))
+    if nworkers:
+        open(os.path.join(out, f"sparse_ready{worker}"), "w").close()
+        deadline = time.monotonic() + 300
+        while not all(os.path.exists(os.path.join(out, f"sparse_ready{i}"))
+                      for i in range(nworkers)):
+            if time.monotonic() > deadline:
+                raise TimeoutError("the other workers never connected")
+            time.sleep(0.005)
+    ids = sparse_ids(shape, worker, cycles)
+    cycle_s, starts, versions, pulled = [], [], [], {}
+    for c in range(cycles):
+        idt = torch.from_numpy(ids[c]).to(dev)
+        pushes = {n: (idt, torch.from_numpy(sparse_grads(
+            shape, worker, c, n, ids[c].size)).to(dev))
+            for n in SPARSE_TABLES}
+        req = {n: idt for n in SPARSE_TABLES}
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        if shape == "small":
+            time.sleep(0.003 * ((worker * 7 + c * 3) % 5))  # interleave
+        t0 = time.perf_counter()
+        if c % 2 == 0:
+            rows = w.pull(req)
+            seen = {n: list(v) for n, v in w._versions.items()}
+            w.push(pushes)
+        else:
+            rows = w.push_pull(pushes, req)
+            seen = {n: list(v) for n, v in w._versions.items()}
+        cycle_s.append(time.perf_counter() - t0)
+        starts.append(t0)
+        versions.append(seen)  # what the replies carrying the rows said
+        for n, (_, dim) in sparse_spec(shape).items():
+            r = rows[n]
+            assert r.device == dev and tuple(r.shape) == (ids[c].size, dim)
+            assert bool(torch.isfinite(r).all())
+            if record:
+                pulled[f"{c}/{n}"] = r.cpu().numpy()
+    end = time.perf_counter()
+    if record:
+        np.savez(os.path.join(out, f"sparse_pulls{worker}.npz"), **pulled)
+    with open(os.path.join(out, f"sparse_worker{worker}.json"), "w") as f:
+        json.dump({
+            "worker": worker, "versions": versions,
+            "totals": w.versions(), "cycle_s": cycle_s,
+            "window": [starts[1] if cycles > 1 else starts[0], end],
+            "ops": {k: w.transport.op_samples(k)
+                    for k in ("pull", "push", "push_pull")},
+            "staging_s": w.transport.staging_s,
+            "bytes": [w.bytes_pushed, w.bytes_pulled]}, f)
+    w.close()
+
+
+def sparse_replay(infos, shape, nworkers, cycles, pulls=None,
+                  fused_apply=None):
+    """Replay each shard's apply log (``infos``, one server dump a shard,
+    in shard order) through the port's one-process tables on the device
+    ``ps_tpu_torch.init`` chose; returns ``(tables, checked)`` with
+    ``tables[shard][name]`` the replayed ``SparseEmbedding``.
+
+    ``pulls`` (``{worker: (sparse_pulls npz, sparse_worker json)}``) are
+    held to the replay: each pulled row set's rows from shard s must equal,
+    bitwise, the replayed table at the version shard s's reply carried.
+    ``checked`` counts the (pull, shard, table) row sets held."""
+    import torch
+
+    from ps_tpu_torch.backends.remote_sparse import row_range
+
+    nshards = len(infos)
+    ids = {w: sparse_ids(shape, w, cycles) for w in range(nworkers)}
+    out, checked = [], 0
+    for s, info in enumerate(infos):
+        tables = sparse_tables(shape, s, nshards, fused_apply=fused_apply)
+        waiting = {}  # (name, version) -> [(worker, cycle)]
+        for w, (_, rec) in (pulls or {}).items():
+            for c, vs in enumerate(rec["versions"]):
+                for name in tables:
+                    waiting.setdefault((name, vs[name][s]), []).append((w, c))
+
+        def positions(w, c, name):
+            lo, hi = row_range(s, nshards, sparse_spec(shape)[name][0])
+            return np.nonzero((ids[w][c] >= lo) & (ids[w][c] < hi))[0], lo
+
+        def check(name, version):
+            nonlocal checked
+            table = tables[name].table
+            for w, c in waiting.pop((name, version), ()):
+                pos, lo = positions(w, c, name)
+                if not pos.size:
+                    continue
+                got = torch.from_numpy(pulls[w][0][f"{c}/{name}"][pos])
+                want = table.index_select(0, torch.from_numpy(
+                    ids[w][c][pos] - lo).to(table.device).long())
+                if not torch.equal(got.to(table.device), want):
+                    raise AssertionError(
+                        f"worker {w} cycle {c}: {name} rows of shard {s} "
+                        f"differ from the replay at version {version}")
+                checked += 1
+
+        version = {name: 0 for name in tables}
+        for name in tables:
+            check(name, 0)
+        streams = {w: routed_pushes(shape, w, s, nshards, cycles, ids[w])
+                   for w in range(nworkers)}
+        for w in info["apply_log"]:
+            for name, (i, g) in next(streams[w]).items():
+                tables[name].push(i, g)
+                version[name] += 1
+                check(name, version[name])
+        for w in range(nworkers):  # the log consumed every routed push
+            assert next(streams[w], None) is None, (s, w)
+        assert version == info["versions"], (s, version, info["versions"])
+        # a pull at a version the replay never reached matters only when
+        # the pull asked this shard for rows
+        unreached = [(k, w, c) for k, wcs in waiting.items()
+                     for w, c in wcs if positions(w, c, k[0])[0].size]
+        assert not unreached, f"pulls at versions the replay never " \
+                              f"reached: {unreached[:3]}"
+        out.append(tables)
+    return out, checked
+
+
 def main(argv) -> int:
     import torch
 
     torch.set_num_threads(1)  # OMP_NUM_THREADS=1 too: see spawn()
     role = argv[1]
-    if role == "server":
+    if role == "sparse-server":
+        out, nworkers, cycles, shard, nshards, device, shape = argv[2:9]
+        run_sparse_server(out, int(nworkers), int(cycles), int(shard),
+                          int(nshards), device, shape)
+    elif role == "sparse-worker":
+        ports, out, worker, cycles, device, shape, nworkers, record = \
+            argv[2:10]
+        run_sparse_worker(ports, out, int(worker), int(cycles), device,
+                          shape, int(nworkers), record == "1")
+    elif role == "server":
         out, nworkers, cycles = argv[2:5]
         shard = int(argv[5]) if len(argv) > 5 else None
         nshards = int(argv[6]) if len(argv) > 6 else None

@@ -221,5 +221,6 @@ def test_generator_init_and_bf16_table():
         emb.init(torch.Generator())
     with pytest.raises(ValueError, match="table shape"):
         SparseEmbedding(30, 5).init(np.zeros((30, 6), np.float32))
-    with pytest.raises(NotImplementedError, match="'off'"):
-        SparseEmbedding(30, 5, fused_apply="off")
+    # the masked full-table tier is ported: 'off' constructs and applies
+    off = SparseEmbedding(30, 5, fused_apply="off")
+    assert off.fused_tier == "off"
