@@ -33,8 +33,9 @@ Phases, each raising on failure:
 6. flash attention vs its plain version on the card: f32/bf16 x causal x
    4 masks (all ones, random padding, a fully masked batch row, key 0
    masked) at the tests' shape (B 2, S 128, h 4) with d 16 and 32, a
-   ragged length (B 2, S 200, h 4, d 64) and BERT-base's (B 32, S 512,
-   h 12, d 64); exact zeros and lse = -1e30 on rows that
+   ragged length (B 2, S 200, h 4, d 64), BERT-base's (B 32, S 512,
+   h 12, d 64) and a rank's of phase 15 (e) (B 16); exact zeros and
+   lse = -1e30 on rows that
    attend nothing; determinism; the gradients through the kernel against
    the plain forward's through the same backward;
 7. the BERT path: a tiny BERT (flash, f32, seq 128, batch 16) for 3 LAMB
@@ -118,7 +119,9 @@ Phases, each raising on failure:
    small ResNet (Bottleneck, stages (1, 1, 1, 1), bf16, 224², batch 32, 2
    steps, cuDNN's deterministic algorithms for both runs), with placement
    'replicated' and 'sharded', equal the one-device path bitwise; the
-   recorded collectives run and move 0 bytes;
+   recorded collectives run and move 0 bytes; the async DC-ASGD server
+   (config 5: the MLP 784-256-10, 3 workers round-robin, 60 cycles,
+   'replicated' and 'sharded') equals the one-device path bitwise;
 15. two ranks on the one card over gloo, asked for by name (NCCL refuses
    two ranks on a device), as two worker processes of this script: W&D
    at full width (global batch 512, 256 a rank) for 20 steps with the
@@ -132,9 +135,29 @@ Phases, each raising on failure:
    the W&D stores restored into one process with elastic=True, bitwise;
    ResNet-50 at 224², bf16, global batch 256 (128 a rank), sharded, 3
    steps with cross-rank BatchNorm, its first step's loss and
-   batch_stats against one process on the global batch. Step times and
-   collective bytes are printed; through host memory, they are a
-   correctness run's, not a speed figure.
+   batch_stats against one process on the global batch. Then a second
+   pair of worker processes: (e) BERT-base MLM as phase 7 (flash, seq
+   512, global batch 32 as 16 a rank, lr 1e-3, wd 0.01) with LAMB
+   'sharded' across the two ranks, whose trust ratio reduces its norms
+   over the ranks: 3 bf16 steps, losses finite, falling and within the
+   bf16 loss gate of one process on the same global batches, 12 flash
+   launches a rank a step; one f32 step, its applied update per tensor
+   within TWO_BERT_UPDATE_GATES (relative 2-norm) of one process's and
+   of 'replicated' on the same two ranks, and a control whose trust ratio
+   takes each rank's shard-local norm at least 10x outside both gates;
+   each rank's step ms and peak memory (phase 6 holds the flash kernel
+   against its plain version at a rank's shape too); (f) config 5 across
+   the two ranks: the MLP 784-256-10, 3 logical workers round-robin,
+   batch 64 split over the ranks, 'replicated' and 'sharded': after 60
+   cycles (phase 12's) against one process's async server on the same
+   global batches, params within 1e-5, version, staleness histogram and
+   apply counts exactly; after 180 cycles bitwise against a witness (one
+   process pushing the mean of the two half batches' gradients), with
+   one process on the whole batches for as long printed beside it; both
+   ranks' params bitwise equal, collective_bytes the analytic value,
+   cycles/s a rank, no kernel launched. Step times and collective bytes
+   are printed; through host memory, they are a correctness run's, not
+   a speed figure.
 16. the van plane (config 5 across processes, over loopback TCP; no
    kernel of the port is on this path, and the launch counts must read 0
    around it): (a) one ``--role server`` process of
@@ -271,6 +294,41 @@ TWO_RANKS_TIMEOUT_S = 600
 # BatchNorm takes each rank's own statistics must fail the last two gates
 TWO_RESNET_GATES = {torch.bfloat16: (1e-4, 1e-3, 2e-2),
                     torch.float32: (1e-5, 1e-4, 5e-3)}
+# phase 15 (e): BERT-base MLM across the two ranks, LAMB sharded (ZeRO-1),
+# phase 7's configuration; its bf16 losses are held to one process's on
+# the same global batches by the bf16 loss gate above. The f32 step is
+# gated on the applied update p1 - p0, per tensor, by relative 2-norm.
+# Against 'replicated' on the same two ranks the gradients are the same
+# bits (a sum of two), so only the norm's sum order differs (~1e-6).
+# Against one process the gradients sum in another order, and adam's
+# first step maps each element's g to g / (|g| + eps): an element whose
+# gradient is round-off (the attention keys' directions the softmax
+# cancels) comes out as ±1 of that round-off either way, which moves an
+# attention key kernel's update by ~2e-3 of itself. A trust ratio off by
+# a factor moves a whole tensor's update by that factor: the control,
+# whose trust ratio takes each rank's shard-local ‖u‖ (off by ~√2), must
+# land 10x outside both gates
+TWO_BERT_STEPS = 3
+TWO_BERT_UPDATE_GATES = {"one process": 1e-2, "replicated": 1e-4}
+TWO_BERT_CONTROL_FACTOR = 10.0
+# the attention's key bias adds q·b to every score of a query, which the
+# softmax takes out: its gradient is 0 in exact arithmetic and round-off
+# in f32, which adam's first step scales to ±1, so against one process
+# its update is noise of the summation order (~1 relative): that gate
+# skips these tensors and prints them
+TWO_BERT_NOISE_ONLY = "attention/key/bias"
+# phase 15 (f): config 5 across the two ranks (and phase 14 at one rank):
+# the MLP 784-256-10, ASYNC_WORKERS logical workers round-robin for
+# phase 12's ASYNC_CYCLES cycles (TWO_ASYNC_CYCLES a worker), batch
+# ASYNC_BATCH split over the ranks; params within MNIST_TOL of one
+# process, counters exactly. The ranks run on to TWO_ASYNC_WITNESS_CYCLES
+# a worker, held bitwise against the witness: one process that pushes
+# the mean of the two half batches' gradients, which is what the ranks'
+# reduction computes (a sum of two is the same in either order), so
+# where the ranks drift from one process on the whole batch, the drift
+# is the two gradients' rounding, not the apply across the ranks
+TWO_ASYNC_HIDDEN, TWO_ASYNC_CYCLES = 256, ASYNC_CYCLES // ASYNC_WORKERS
+TWO_ASYNC_WITNESS_CYCLES = 3 * TWO_ASYNC_CYCLES
 
 
 def log(msg):
@@ -802,8 +860,10 @@ def _flash_compare(got, want, dtype, what):
 def phase_flash_vs_plain():
     fa = _flash()
     errs, cases = {}, 0
+    # the last two: BERT-base in one process and in a rank of phase 15 (e)
     for b, s, h, d in ((2, 128, 4, 16), (2, 128, 4, 32), (2, 200, 4, 64),
-                       (BERT_BATCH, BERT_SEQ, 12, 64)):
+                       (BERT_BATCH, BERT_SEQ, 12, 64),
+                       (BERT_BATCH // 2, BERT_SEQ, 12, 64)):
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (False, True):
                 for mask_kind in ("ones", "padding", "row_masked",
@@ -848,7 +908,7 @@ def phase_flash_vs_plain():
                     cases += 1
                     del q, k, v, out, again, p_out, leaves, want
     log(f"flash kernel vs plain: {cases} cases (f32/bf16 x causal x 4 masks "
-        f"x 4 shapes), forward and gradients within rtol/atol "
+        f"x 5 shapes), forward and gradients within rtol/atol "
         f"{FLASH_TOL[torch.float32]} (f32) / {FLASH_TOL[torch.bfloat16]} "
         f"(bf16), bitwise deterministic, exact zeros and lse -1e30 on dead "
         f"rows; max abs err f32 "
@@ -1996,6 +2056,109 @@ def _wd_state(dense, deep, wide, full=False):
     return out
 
 
+def _mean_of_slices_step(store, loss_fn):
+    """The witness's cycle, ``run(slices, worker=w)``: make_async_step's
+    cycle in one process, as len(slices) ranks run it on those slices of
+    the worker's batch. Each slice's gradient against the worker's cached
+    pull, their mean pushed (summed in rank order, then divided, as the
+    ranks' reduction does), the slices' mean loss returned."""
+    import functools
+
+    from ps_tpu_torch.kv import keys
+    from ps_tpu_torch.kv.store import value_and_grad
+
+    cached = {}
+
+    def mean(values):
+        return functools.reduce(torch.add, values) / len(values)
+
+    def run(slices, worker=0):
+        params = cached.get(worker)
+        if params is None:
+            params = store.pull_all(worker=worker)
+        outs = [value_and_grad(loss_fn, params, b) for b in slices]
+        flat = [keys.flatten_with_keys(g) for _, g, _ in outs]
+        kv, treedef = flat[0]
+        store.push_all(keys.unflatten(
+            treedef, {key: mean([f[0][key] for f in flat]) for key in kv},
+            list(kv)), worker=worker)
+        cached[worker] = store.pull_all(worker=worker)
+        return mean([loss for loss, _, _ in outs])
+
+    return run
+
+
+def _async_counters_now(store):
+    eng = store._engine
+    return {"version": eng.version,
+            "staleness_hist": dict(sorted(eng.staleness_hist.items())),
+            "apply_count": dict(eng.apply_count),
+            "collective_bytes": store.collective_bytes}
+
+
+def _async_cycles(placement, cycles=TWO_ASYNC_CYCLES,
+                  hidden=TWO_ASYNC_HIDDEN, snapshot=None, witness=None):
+    """Config 5 in the runtime that is up (mode 'async', ASYNC_WORKERS
+    workers): ``cycles`` make_async_step cycles a worker, round-robin, of
+    the MLP 784-``hidden``-10 (sgd 0.1, ``placement``), each rank on its
+    slice of the worker's batches, placed before the clock starts. Returns
+    the losses, the cycle times, the params and the server's counters;
+    with ``snapshot``, also the params and counters after that many
+    cycles a worker (under "snapshot"). With ``witness`` (one process),
+    each cycle is :func:`_mean_of_slices_step` over the batch's slices
+    for ``witness`` ranks."""
+    import types
+
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.data.synthetic import mnist_batches
+    from ps_tpu_torch.kv.store import rank_slice
+    from ps_tpu_torch.models.mlp import MLP, make_loss_fn
+
+    mesh = ps.current_context().mesh
+    model = MLP(hidden=hidden)
+    store = ps.KVStore(optimizer="sgd", learning_rate=0.1, mode="async",
+                       placement=placement)
+    store.init(model.init(torch.Generator().manual_seed(0), device="cuda"))
+    streams = [mnist_batches(ASYNC_BATCH, seed=0, worker=w,
+                             num_workers=ASYNC_WORKERS)
+               for w in range(ASYNC_WORKERS)]
+    if witness:
+        run = _mean_of_slices_step(store, make_loss_fn(model))
+        parts = [types.SimpleNamespace(rank=r, size=witness)
+                 for r in range(witness)]
+        batches = [[[store.shard_batch(rank_slice(b, part)) for part in parts]
+                    for b in (next(st) for _ in range(cycles))]
+                   for st in streams]
+    else:
+        run = store.make_async_step(make_loss_fn(model))
+        batches = [[store.shard_batch(rank_slice(next(st), mesh))
+                    for _ in range(cycles)] for st in streams]
+    torch.cuda.synchronize()
+    mesh.calls.clear()
+    losses, times, at = [], [], None
+    for step in range(cycles * ASYNC_WORKERS):
+        w = step % ASYNC_WORKERS
+        t0 = time.perf_counter()
+        losses.append(run(batches[w][step // ASYNC_WORKERS], worker=w))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if snapshot and step + 1 == snapshot * ASYNC_WORKERS:
+            at = dict(_async_counters_now(store),
+                      params=_flat_np(store.params()),
+                      losses=[float(x) for x in losses])
+    eng = store._engine
+    return dict(_async_counters_now(store),
+                losses=[float(x) for x in losses], times=times,
+                params=_flat_np(store.params()), snapshot=at,
+                calls=[(c.op, c.ring_bytes) for c in mesh.calls],
+                param_bytes=sum(int(v.nbytes) for v in eng._params.values()),
+                dims=dict(eng._dims))
+
+
+def _async_counters(run):
+    return (run["version"], run["staleness_hist"], run["apply_count"])
+
+
 def phase_nccl_one_rank():
     """14: init(backend='cuda') through coordinator_uri with one process:
     an NCCL group of world size 1 on the card. The W&D composite step at
@@ -2075,6 +2238,39 @@ def phase_nccl_one_rank():
             f"{nccl[0][-1]:.6f}, {nccl[7][-1]:.6f}); {len(nccl[3])} recorded "
             f"collectives of the W&D run ({', '.join(ops)}) moved 0 bytes "
             f"(collective_bytes {nccl[5]}); card {_card_line()}")
+    # config 5: the async server through the group of one rank
+    for placement in ("replicated", "sharded"):
+        out = {}
+        for path in ("one device", "nccl"):
+            init = _group_init(1, 0, _free_port()) if path == "nccl" else {}
+            ps.init(backend="cuda", mode="async", num_workers=ASYNC_WORKERS,
+                    dc_lambda=0.04, **init)
+            _launch_counts(reset=True)
+            out[path] = _async_cycles(placement)
+            out[path]["backend"] = ps.current_context().mesh.backend
+            ps.shutdown()
+            _no_launches(f"async server, {path}, {placement}")
+        one, nccl = out["one device"], out["nccl"]
+        if (nccl["backend"], one["backend"]) != ("nccl", None):
+            raise AssertionError(f"backends {one['backend']}, "
+                                 f"{nccl['backend']}")
+        diff = [k for k, v in one["params"].items()
+                if not np.array_equal(nccl["params"][k], v)]
+        if (diff or one["losses"] != nccl["losses"]
+                or _async_counters(one) != _async_counters(nccl)):
+            raise AssertionError(f"async {placement}: NCCL world 1 differs "
+                                 f"from one device in {diff or 'losses'} "
+                                 f"or counters {_async_counters(nccl)}")
+        if not nccl["calls"] or any(b for _, b in nccl["calls"]) or nccl[
+                "collective_bytes"]:
+            raise AssertionError(f"async collectives at world 1: "
+                                 f"{nccl['calls'][:4]}")
+        log(f"NCCL world size 1, async DC-ASGD {placement} (MLP 784-"
+            f"{TWO_ASYNC_HIDDEN}-10, {ASYNC_WORKERS} workers x "
+            f"{TWO_ASYNC_CYCLES} cycles): equal to the one-device path bitwise ({len(one['params'])} "
+            f"tensors, version {nccl['version']}, staleness histogram "
+            f"{nccl['staleness_hist']}); {len(nccl['calls'])} recorded "
+            f"collectives moved 0 bytes")
 
 
 def _wd_runs():
@@ -2197,6 +2393,100 @@ def _two_ranks_worker(rank, port, outdir):
     ps.shutdown()
 
 
+def _bert_two_ranks_runs():
+    """Phase 15 (e)'s runs: ``{name: (dtype, placement, shard-local norms,
+    steps)}``."""
+    return {"bert": (torch.bfloat16, "sharded", False, TWO_BERT_STEPS),
+            "bert_f32": (torch.float32, "sharded", False, 1),
+            "bert_f32/replicated": (torch.float32, "replicated", False, 1),
+            "bert_f32/local_norms": (torch.float32, "sharded", True, 1)}
+
+
+def _bert_batches():
+    from ps_tpu_torch.data.synthetic import mlm_batches
+    from ps_tpu_torch.models.bert import BertConfig
+
+    return list(mlm_batches(BERT_BATCH, BERT_SEQ,
+                            vocab_size=BertConfig().vocab_size, seed=0,
+                            steps=TWO_BERT_STEPS))
+
+
+def _bert_update(model, params):
+    """The applied update ``p1 - p0`` of each tensor, in f32 on the CPU:
+    ``model`` still holds the initial weights (the store steps copies)."""
+    from ps_tpu_torch.kv import keys
+
+    start, _ = keys.flatten_with_keys(model.param_tree())
+    flat, _ = keys.flatten_with_keys(params)
+    return {k: v.detach().float().cpu() - start[k].detach().float().cpu()
+            for k, v in flat.items()}
+
+
+def _two_ranks_ea_worker(rank, port, outdir):
+    """Phase 15's second pair of ranks sharing the one card over gloo:
+    (e) BERT-base MLM with LAMB across the ranks and (f) config 5's async
+    server across them; results into ``outdir/ea<r>.pt``."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.kv.store import rank_slice
+    from ps_tpu_torch.models.bert import BertConfig, BertMLM, make_mlm_loss_fn
+
+    ctx = ps.init(backend="cuda", device="cuda:0", mode="async",
+                  num_workers=ASYNC_WORKERS, dc_lambda=0.04,
+                  **_group_init(2, rank, port, dist_backend="gloo"))
+    mesh = ctx.mesh
+    fa = _flash()
+    results = {"backend": mesh.backend}
+    batches = [rank_slice(b, mesh) for b in _bert_batches()]
+    for name, (dtype, placement, local, steps) in (
+            _bert_two_ranks_runs().items()):
+        model = BertMLM(BertConfig(dtype=dtype, attn="flash"),
+                        generator=torch.Generator().manual_seed(0))
+        store = ps.KVStore(optimizer="lamb", learning_rate=1e-3,
+                           weight_decay=0.01, placement=placement,
+                           mode="sync")
+        store.init(model.param_tree())
+        if local:  # the control: each rank's own ‖u‖ of its slices
+            store._engine._norm_all_reduce = lambda flat: flat
+        run = store.make_step(make_mlm_loss_fn(model, mesh=store.mesh))
+        placed = [store.shard_batch(b) for b in batches[:steps]]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mesh.calls.clear()
+        fa.LAUNCHES = 0
+        losses, times = [], []
+        for b in placed:
+            t0 = time.perf_counter()
+            loss, params = run(b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        sliced = sum(d is not None for d in store._engine._dims.values())
+        results[name] = {
+            "losses": losses, "step_ms": [t * 1e3 for t in times],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": fa.LAUNCHES, "sliced": sliced,
+            "tensors": len(store._engine._dims),
+            "norm_reduces": sum(c.op == "all_reduce" and c.shape == (sliced,)
+                                for c in mesh.calls),
+            "bytes": store.collective_bytes}
+        if dtype == torch.float32:
+            update = _bert_update(model, params)
+            results[name]["update"] = update if rank == 0 else None
+            # every rank's params are the same bits: rank 1 sends a digest
+            results[name]["digest"] = {k: float(v.double().sum())
+                                       for k, v in update.items()}
+        del model, store, run, placed, params
+        torch.cuda.empty_cache()
+    for placement in ("replicated", "sharded"):
+        _launch_counts(reset=True)
+        results[f"async/{placement}"] = _async_cycles(
+            placement, cycles=TWO_ASYNC_WITNESS_CYCLES,
+            snapshot=TWO_ASYNC_CYCLES)
+        results[f"async/{placement}"]["launches"] = _launch_counts()
+    torch.save(results, os.path.join(outdir, f"ea{rank}.pt"))
+    ps.shutdown()
+
+
 def _one_process_wd(cfg, batch, steps):
     """The W&D run of one process on the card: losses, and the state
     after TWO_PARITY_STEPS steps and at the end."""
@@ -2288,6 +2578,213 @@ def _two_ranks_resnet(ranks, name, dtype, batches, start):
         f"{readings}; {len(moved)} parameter leaves moved, {len(still)} "
         f"stayed put as in one process; losses "
         f"{[round(x, 4) for x in ranks[0][name]['losses']]}")
+
+
+def _bert_update_deviation(got, want, skip=None):
+    """The worst relative 2-norm, over the tensors, of ``got``'s update
+    against ``want``'s, and the tensor it is on; with ``skip``, the
+    tensors whose name ends with it apart, their worst third."""
+    worst, skipped = (0.0, ""), (0.0, "")
+    for k, w in want.items():
+        dev = float((got[k].double() - w.double()).norm()
+                    / max(float(w.double().norm()), 1e-30))
+        if skip is not None and k.endswith(skip):
+            skipped = max(skipped, (dev, k))
+        else:
+            worst = max(worst, (dev, k))
+    return worst + skipped
+
+
+def _two_ranks_bert_async(tmp):
+    """Phase 15 (e) and (f): a second pair of worker processes; their
+    results against one process on the card. Returns each rank's flash
+    launches over (e)'s bf16 run."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.models.bert import BertConfig, BertMLM
+
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--two-ranks-ea-worker", str(r), str(port),
+                               tmp])
+             for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=TWO_RANKS_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if rcs != [0, 0]:
+        raise AssertionError(f"two-rank (e)/(f) workers exited {rcs}")
+    ranks = [torch.load(os.path.join(tmp, f"ea{r}.pt"), weights_only=False)
+             for r in range(2)]
+    fa = _flash()
+    batches = _bert_batches()
+    # (e) one process on the same global batches: bf16 losses, f32 update
+    one = {}
+    for dtype, steps in ((torch.bfloat16, TWO_BERT_STEPS),
+                         (torch.float32, 1)):
+        model = BertMLM(BertConfig(dtype=dtype, attn="flash"),
+                        generator=torch.Generator().manual_seed(0))
+        losses, times, params = _bert_run(model, "cuda", batches[:steps])
+        one[dtype] = (losses, _bert_update(model, params)
+                      if dtype == torch.float32 else None, times)
+        del model, params
+        torch.cuda.empty_cache()
+    per = [r["bert"] for r in ranks]
+    loss_gate = TWO_RESNET_GATES[torch.bfloat16][0]
+    rel = [abs(a - b) / abs(b) for a, b in zip(per[0]["losses"],
+                                               one[torch.bfloat16][0])]
+    want_launches = BertConfig().num_layers * TWO_BERT_STEPS
+    for r in per:
+        if not np.all(np.isfinite(r["losses"])) or not (
+                r["losses"][-1] < r["losses"][0]):
+            raise AssertionError(f"BERT two ranks: losses {r['losses']}")
+        if r["launches"] != want_launches or r["norm_reduces"] != \
+                TWO_BERT_STEPS or r["losses"] != per[0]["losses"]:
+            raise AssertionError(
+                f"BERT two ranks: flash launches {r['launches']} (want "
+                f"{want_launches}), norm all-reduces {r['norm_reduces']} "
+                f"(want {TWO_BERT_STEPS}), losses {r['losses']} vs rank 0")
+    if max(rel) > loss_gate:
+        raise AssertionError(f"BERT two ranks bf16 losses {per[0]['losses']} "
+                             f"vs one process {one[torch.bfloat16][0]}: "
+                             f"relative {rel} (gate {loss_gate})")
+    upd = {name: ranks[0][name]["update"] for name in
+           ("bert_f32", "bert_f32/replicated", "bert_f32/local_norms")}
+    for name in upd:
+        if ranks[1][name]["digest"] != ranks[0][name]["digest"]:
+            raise AssertionError(f"{name}: the ranks' params differ")
+    one_f32, rep = one[torch.float32][1], upd["bert_f32/replicated"]
+    held = {"one process": _bert_update_deviation(
+                upd["bert_f32"], one_f32, TWO_BERT_NOISE_ONLY),
+            "replicated": _bert_update_deviation(upd["bert_f32"], rep)}
+    control = {"one process": _bert_update_deviation(
+                   upd["bert_f32/local_norms"], one_f32, TWO_BERT_NOISE_ONLY),
+               "replicated": _bert_update_deviation(
+                   upd["bert_f32/local_norms"], rep)}
+    gates = TWO_BERT_UPDATE_GATES
+    readings = "; ".join(
+        f"against {what}: {held[what][0]:.3g} ({held[what][1]}), gate "
+        f"{gates[what]} ({gates[what] / max(held[what][0], 1e-30):.1f}x "
+        f"margin), the shard-local-norm control {control[what][0]:.3g} "
+        f"({control[what][1]}, {control[what][0] / gates[what]:.1f}x the "
+        f"gate)" for what in gates)
+    readings = (f"worst per-tensor relative 2-norm of the f32 update "
+                f"{readings}; the {TWO_BERT_NOISE_ONLY} tensors "
+                f"(round-off only, not gated against one process): "
+                f"{held['one process'][2]:.3g}, control "
+                f"{control['one process'][2]:.3g}")
+    if any(held[w][0] > gates[w] for w in gates):
+        raise AssertionError(f"BERT two ranks: {readings}")
+    if any(control[w][0] < TWO_BERT_CONTROL_FACTOR * gates[w]
+           for w in gates):
+        raise AssertionError(f"BERT two ranks: the control lands inside "
+                             f"{TWO_BERT_CONTROL_FACTOR}x a gate: "
+                             f"{readings}")
+    r0 = per[0]
+    log(f"two ranks on one card (gloo), BERT-base MLM, LAMB 'sharded' "
+        f"({r0['sliced']} of {r0['tensors']} tensors sliced, one norm "
+        f"all-reduce a step), flash, seq {BERT_SEQ}, global batch "
+        f"{BERT_BATCH} ({BERT_BATCH // 2} a rank), bf16: {TWO_BERT_STEPS} "
+        f"steps, losses {[round(x, 5) for x in r0['losses']]} vs one "
+        f"process {[round(x, 5) for x in one[torch.bfloat16][0]]} (relative "
+        f"{max(rel):.3g}, gate {loss_gate}); flash launches a rank "
+        f"{[r['launches'] for r in per]} ({BertConfig().num_layers} a "
+        f"step); {readings}; card {_card_line()}")
+    log(f"two ranks (gloo, a correctness run through host memory, not a "
+        f"speed figure), BERT-base bf16: step ms a rank "
+        f"{[[round(t, 1) for t in r['step_ms']] for r in per]}, peak memory "
+        f"a rank {[round(r['peak_gib'], 2) for r in per]} GiB; one process "
+        f"{[round(t * 1e3, 1) for t in one[torch.bfloat16][2]]} ms; "
+        f"collective bytes a rank {r0['bytes']:,} over {TWO_BERT_STEPS} "
+        f"steps (analytic); card {_card_line()}")
+    # the flash kernel at a rank's shape
+    b, h, d = BERT_BATCH // 2, 12, 64
+    q, k, v, mask = _flash_case(b, BERT_SEQ, h, d, torch.bfloat16, "ones",
+                                seed=98)
+    rank_ms = _device_ms(lambda: fa._flash_fwd_cuda(q, k, v, mask, d ** -0.5,
+                                                    False, h))
+    del q, k, v, mask
+    # (f) config 5 across the two ranks: after TWO_ASYNC_CYCLES cycles a
+    # worker against one process on the whole batches, and at the end
+    # bitwise against the witness (one process pushing the mean of the
+    # half batches' gradients); one process on the whole batches for as
+    # long is printed beside it, not gated
+    for placement in ("replicated", "sharded"):
+        ps.init(backend="cuda", mode="async", num_workers=ASYNC_WORKERS,
+                dc_lambda=0.04)
+        want = _async_cycles(placement)
+        long = _async_cycles(placement, cycles=TWO_ASYNC_WITNESS_CYCLES)
+        witness = _async_cycles(placement, cycles=TWO_ASYNC_WITNESS_CYCLES,
+                                witness=2)
+        ps.shutdown()
+        got = [r[f"async/{placement}"] for r in ranks]
+        early = [r["snapshot"] for r in got]
+        worst = 0.0
+        for k, w in want["params"].items():
+            np.testing.assert_allclose(early[0]["params"][k], w,
+                                       rtol=MNIST_TOL, atol=MNIST_TOL,
+                                       err_msg=f"async {placement} {k}")
+            worst = max(worst, float(np.abs(early[0]["params"][k] - w).max()))
+        np.testing.assert_allclose(early[0]["losses"], want["losses"],
+                                   rtol=MNIST_TOL, atol=MNIST_TOL)
+        for k, w in witness["params"].items():
+            for r in got:
+                if not np.array_equal(r["params"][k], w):
+                    raise AssertionError(
+                        f"async {placement}: the ranks' {k} after "
+                        f"{TWO_ASYNC_WITNESS_CYCLES} cycles a worker differ "
+                        f"from the witness's by max abs "
+                        f"{float(np.abs(r['params'][k] - w).max()):.3g}")
+        if got[0]["losses"] != witness["losses"]:
+            raise AssertionError(f"async {placement}: the ranks' losses "
+                                 f"differ from the witness's")
+        drift = max(float(np.abs(got[0]["params"][k] - w).max())
+                    for k, w in long["params"].items())
+        for r in got:
+            for run, what, cycles in (
+                    (r["snapshot"], want, TWO_ASYNC_CYCLES),
+                    (r, witness, TWO_ASYNC_WITNESS_CYCLES)):
+                if _async_counters(run) != _async_counters(what):
+                    raise AssertionError(
+                        f"async {placement}: counters {_async_counters(run)}"
+                        f" vs one process {_async_counters(what)}")
+                # 2·N·(k-1)/k a push at k = 2
+                analytic = cycles * ASYNC_WORKERS * want["param_bytes"]
+                if run["collective_bytes"] != analytic:
+                    raise AssertionError(
+                        f"async {placement}: collective_bytes "
+                        f"{run['collective_bytes']} vs {analytic}")
+            if any(r["launches"].values()):
+                raise AssertionError(f"async {placement}: launches "
+                                     f"{r['launches']}")
+        sliced = [k for k, dim in got[0]["dims"].items() if dim is not None]
+        log(f"two ranks on one card (gloo), async DC-ASGD {placement} (MLP "
+            f"784-{TWO_ASYNC_HIDDEN}-10, {ASYNC_WORKERS} workers round-robin, "
+            f"batch {ASYNC_BATCH} as {ASYNC_BATCH // 2} a rank, "
+            f"{len(sliced)} tensors sliced): after {TWO_ASYNC_CYCLES} cycles "
+            f"a worker params within {MNIST_TOL} of one process (max abs "
+            f"{worst:.3g}), version {early[0]['version']}, staleness "
+            f"histogram {early[0]['staleness_hist']} and apply counts as one "
+            f"process's; after {TWO_ASYNC_WITNESS_CYCLES} cycles a worker "
+            f"params, losses and counters (version {got[0]['version']}) "
+            f"bitwise the witness's (one process pushing the mean of the "
+            f"two half batches' gradients), the ranks bitwise equal; one "
+            f"process on the whole batches for as long: max abs {drift:.3g} "
+            f"(not gated); collective_bytes {got[0]['collective_bytes']:,} "
+            f"(analytic), {len(got[0]['calls'])} collectives recorded a "
+            f"rank; no kernel launched")
+        log(f"two ranks (gloo, a correctness run), async {placement}: median "
+            f"cycle a rank "
+            f"{[round(float(np.median(r['times'][ASYNC_WORKERS:])) * 1e3, 3) for r in got]}"
+            f" ms, {[round(1e3 / (float(np.median(r['times'][ASYNC_WORKERS:])) * 1e3), 1) for r in got]}"
+            f" cycles/s a rank; one process "
+            f"{float(np.median(want['times'][ASYNC_WORKERS:])) * 1e3:.3f} ms; "
+            f"card {_card_line()}")
+    return {"launches": [r["launches"] for r in per],
+            "steps": TWO_BERT_STEPS, "rank_shape": [b * h, BERT_SEQ, d],
+            "rank_shape_ms": rank_ms}
 
 
 def phase_two_ranks(tmp):
@@ -2463,7 +2960,7 @@ def phase_two_ranks(tmp):
         f"{[round(r['step_ms'], 1) for r in res]} ms; collective bytes a "
         f"rank {res[0]['bytes']:,} over {TWO_RESNET_STEPS} steps (analytic); "
         f"card {_card_line()}")
-    return launches
+    return launches, _two_ranks_bert_async(tmp)
 
 # -- phase 16: the van plane on the card ------------------------------------
 
@@ -3611,6 +4108,10 @@ def main():
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         _two_ranks_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         return 0
+    if len(sys.argv) == 5 and sys.argv[1] == "--two-ranks-ea-worker":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _two_ranks_ea_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
     if len(sys.argv) == 6 and sys.argv[1] == "--van-heartbeat-worker":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         _van_heartbeat_worker(int(sys.argv[2]), int(sys.argv[3]),
@@ -3646,12 +4147,18 @@ def main():
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="ps_ranks_") as tmp:
-        launches = phase_two_ranks(tmp)
+        launches, flash_two = phase_two_ranks(tmp)
     with tempfile.TemporaryDirectory(prefix="ps_van_") as tmp:
         phase_van(tmp)
     with tempfile.TemporaryDirectory(prefix="ps_sparse_") as tmp:
         sparse = phase_sparse_ps(tmp)
     for e in entries:  # each rank's launches in phase 15's 20-step runs
+        if e["name"] == "flash_attention/fwd":
+            # each rank's launches over phase 15 (e)'s bf16 steps, and the
+            # kernel's time at a rank's shape
+            e["launches_per_rank_two_ranks"] = flash_two["launches"]
+            e["two_ranks"] = {k: flash_two[k] for k in (
+                "steps", "rank_shape", "rank_shape_ms")}
         if e["name"].startswith("sparse"):
             e["launches_per_rank_two_ranks"] = {
                 exchange: counts[e["name"]]

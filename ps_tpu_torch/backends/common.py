@@ -79,18 +79,24 @@ def apply_out_of_place(opt: Optimizer, params: Dict[str, torch.Tensor],
 
 
 def make_dc_apply_tree(opt: Optimizer):
-    """The async whole-tree apply: ``fn(params, states, grads, stales, lam)
-    -> (params, states)`` over ``{key: ...}`` dicts with one optimizer
-    state a key. Key by key: the DC correction against that key's stale
-    snapshot, then the optimizer step on the key's own state. The
-    reference jits this loop into one XLA program; here it runs eagerly."""
+    """The async whole-tree apply: ``fn(params, states, grads, stales, lam,
+    norms=None) -> (params, states)`` over ``{key: ...}`` dicts with one
+    optimizer state a key. Key by key: the DC correction against that
+    key's stale snapshot, then the optimizer step on the key's own state.
+    The correction is elementwise, so ``params``, ``grads`` and
+    ``stales`` may be the slices a rank owns, with ``norms`` for the
+    whole tensors' (:class:`~ps_tpu_torch.optim.ShardNorms`): their
+    deferred steps finish after the last key, one norm all-reduce a tree.
+    The reference jits this loop into one XLA program; here it runs
+    eagerly."""
 
-    def apply_dc_tree(params, states, grads, stales, lam):
+    def apply_dc_tree(params, states, grads, stales, lam, norms=None):
         grads = delay_compensate(grads, params, stales, lam)
-        new_p = {}
+        new_p = {k: p.clone() for k, p in params.items()}
         for k in params:
-            new_p.update(apply_out_of_place(opt, {k: params[k]},
-                                            {k: grads[k]}, states[k]))
+            opt.step_({k: new_p[k]}, {k: grads[k]}, states[k], norms)
+        if norms is not None:
+            norms.finish()
         return new_p, {k: states[k] for k in params}
 
     return apply_dc_tree

@@ -23,7 +23,23 @@ Counterpart of ``ps_tpu/backends/tpu.py``:
   backend's async semantics (stale apply with the DC-ASGD correction,
   tree-granularity versions, per-worker staging of per-key pushes) with
   one optimizer state a key, out of place, behind one lock so host
-  threads can drive workers concurrently. One process only.
+  threads can drive workers concurrently in one process. Across ranks a
+  logical worker's push is this rank's gradient and the server applies
+  its mean over the ranks, placed as the sync server places it: each
+  rank corrects and steps the slices it owns, against the same slices of
+  the pusher's stale snapshot, and all-gathers them ('sharded'), or the
+  whole tree ('replicated'). Versions, staleness and apply counts are
+  the same on every rank; host threads are refused there, since each
+  rank's lock would order the pushes differently and the collectives
+  would pair different pushes.
+- Under 'sharded' LAMB takes its trust ratio's norms of whole tensors
+  (``optim.ShardNorms``): ``‖p‖`` of the whole parameter, which every
+  rank holds, and ``‖u‖`` from the slices' ``Σu²`` summed over the ranks
+  in one all-reduce of a flat tensor a step (a push on the async server,
+  which keeps one state a key and defers every sliced key's trust step
+  to the end of the tree). That all-reduce is recorded in
+  ``mesh.calls``; ``collective_bytes`` does not count it, as the
+  reference's XLA inserts it uncounted.
 - ``CudaBackend`` (``TpuBackend``): ``init(backend='cuda')``. With a
   ``coordinator_uri`` it joins a process group of ``num_processes`` ranks
   (NCCL on CUDA devices, gloo on the CPU or when ``dist_backend`` names
@@ -40,9 +56,8 @@ backend also runs the heartbeat failure detector of ``control/`` on this
 rank's port: ``check_health()`` raises ``WorkerFailureError`` naming a
 dead rank, and ``shutdown(abort=True)`` is the exit after it.
 
-Not ported yet: the async server across ranks (ROADMAP Queue 1 item 4),
-the async server's elastic hooks (item 6) and ``partition_rules`` (item
-7).
+Not ported yet: the async server's elastic hooks (ROADMAP Queue 1 item
+6) and ``partition_rules`` (item 7).
 """
 
 from __future__ import annotations
@@ -63,10 +78,11 @@ from ps_tpu_torch.backends.common import (
     device_copy,
     make_dc_apply_tree,
 )
-from ps_tpu_torch.checkpoint import CheckpointMixin
+from ps_tpu_torch.checkpoint import CheckpointMixin, keep_worker
 from ps_tpu_torch.config import Config
 from ps_tpu_torch.kv import keys as keymod
 from ps_tpu_torch.ops.sparse_apply import resolve_tier
+from ps_tpu_torch.optim import ShardNorms
 from ps_tpu_torch.parallel import collectives
 from ps_tpu_torch.parallel.mesh import Mesh, make_mesh
 from ps_tpu_torch.parallel.sharding import (param_sharding, shard,
@@ -77,7 +93,70 @@ from ps_tpu_torch.parallel.sharding import (param_sharding, shard,
 GROUP_TIMEOUT_S = 600
 
 
-class CudaServer(PeekMixin, CheckpointMixin):
+class _RankApplyMixin:
+    """The apply across the ranks of ``self.mesh`` that both servers share:
+    the mean of the ranks' gradients (each sharded leaf's for the slice
+    this rank owns), the norms LAMB takes of sliced leaves, and the
+    all-gather of a stepped slice. ``self._dims`` maps each key to the
+    dimension it is sharded on, or None."""
+
+    def _reduce(self, grads_kv: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """This rank's gradients -> their mean over the ranks: each sharded
+        leaf's for the slice this rank owns only (a reduce-scatter along
+        its shard dimension, moved to the front), the rest whole (one
+        all-reduce a dtype over a flat buffer)."""
+        mesh, k = self.mesh, self.mesh.size
+        if mesh.group is None:
+            return dict(grads_kv)
+        out: Dict[str, torch.Tensor] = {}
+        whole: Dict[torch.dtype, List[str]] = {}
+        for key, g in grads_kv.items():
+            d = self._dims[key]
+            if d is None:
+                whole.setdefault(g.dtype, []).append(key)
+                continue
+            part = collectives.reduce_scatter(g.movedim(d, 0), mesh)
+            if k > 1:
+                part.div_(k)
+            out[key] = part.movedim(0, d)
+        for keys in whole.values():
+            flat = torch.cat([grads_kv[key].reshape(-1) for key in keys])
+            collectives.all_reduce(flat, mesh)
+            if k > 1:
+                flat.div_(k)
+            sizes = [grads_kv[key].numel() for key in keys]
+            for key, part in zip(keys, flat.split(sizes)):
+                out[key] = part.view(grads_kv[key].shape)
+        return out
+
+    def _owned(self, key: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a whole tensor of ``key`` (a view)."""
+        return shard(t, self._dims[key], self.mesh.rank, self.mesh.size)
+
+    def _norms(self, params: Dict[str, torch.Tensor]
+               ) -> Optional[ShardNorms]:
+        """What LAMB needs to step slices of ``params`` (whole tensors):
+        None where nothing is sliced."""
+        whole = {key: p for key, p in params.items()
+                 if self._dims[key] is not None}
+        return ShardNorms(whole, self._norm_all_reduce) if whole else None
+
+    def _norm_all_reduce(self, flat: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of the sliced leaves' partial ``Σu²``."""
+        return collectives.all_reduce(flat, self.mesh)
+
+    def _gather(self, key: str, owned: torch.Tensor) -> torch.Tensor:
+        """Every rank's stepped slice of ``key``, joined: the whole tensor
+        (a fresh one; ``owned`` itself where ``key`` is whole)."""
+        d = self._dims[key]
+        if d is None:
+            return owned
+        return collectives.all_gather(owned.movedim(d, 0),
+                                      self.mesh).movedim(0, d)
+
+
+class CudaServer(_RankApplyMixin, PeekMixin, CheckpointMixin):
     """Parameter/optimizer-state store with PS semantics over a mesh.
 
     ``apply_count`` counts whole-tree applies (``update_tree`` and every
@@ -116,12 +195,6 @@ class CudaServer(PeekMixin, CheckpointMixin):
                         for key, v in kv.items()}
         self._dims = {key: param_sharding(p.shape, self.placement, k)
                       for key, p in self._params.items()}
-        if self._opt.name == "lamb" and any(
-                d is not None for d in self._dims.values()):
-            raise NotImplementedError(
-                "lamb's trust ratio needs whole-tensor norms, which a "
-                "shard-local apply does not see; use placement='replicated' "
-                "across ranks (sharded lamb is not ported yet)")
         self._state, self._state_dims = sharded_opt_init(
             self._opt.init, self._params, self._dims, self.mesh.rank, k)
         return keymod.unflatten(treedef, self._params, key_order)
@@ -137,36 +210,6 @@ class CudaServer(PeekMixin, CheckpointMixin):
 
     # -- the apply across ranks -----------------------------------------------
 
-    def _reduce(self, grads_kv: Dict[str, torch.Tensor]
-                ) -> Dict[str, torch.Tensor]:
-        """This rank's gradients -> their mean over the ranks: each sharded
-        leaf's for the slice this rank owns only (a reduce-scatter along
-        its shard dimension, moved to the front), the rest whole (one
-        all-reduce a dtype over a flat buffer)."""
-        mesh, k = self.mesh, self.mesh.size
-        if mesh.group is None:
-            return dict(grads_kv)
-        out: Dict[str, torch.Tensor] = {}
-        whole: Dict[torch.dtype, List[str]] = {}
-        for key, g in grads_kv.items():
-            d = self._dims[key]
-            if d is None:
-                whole.setdefault(g.dtype, []).append(key)
-                continue
-            part = collectives.reduce_scatter(g.movedim(d, 0), mesh)
-            if k > 1:
-                part.div_(k)
-            out[key] = part.movedim(0, d)
-        for keys in whole.values():
-            flat = torch.cat([grads_kv[key].reshape(-1) for key in keys])
-            collectives.all_reduce(flat, mesh)
-            if k > 1:
-                flat.div_(k)
-            sizes = [grads_kv[key].numel() for key in keys]
-            for key, part in zip(keys, flat.split(sizes)):
-                out[key] = part.view(grads_kv[key].shape)
-        return out
-
     def _apply_(self, params: Dict[str, torch.Tensor],
                 grads_kv: Dict[str, torch.Tensor]) -> None:
         """Reduce this rank's ``grads_kv`` over the ranks and step
@@ -176,14 +219,14 @@ class CudaServer(PeekMixin, CheckpointMixin):
         scale = self.grad_scale
         if scale != 1.0:
             grads = {key: g * scale for key, g in grads.items()}
-        mesh, k, r = self.mesh, self.mesh.size, self.mesh.rank
-        owned = {key: shard(p, self._dims[key], r, k)
-                 for key, p in params.items()}
-        self._opt.step_(owned, grads, self._state)
+        owned = {key: self._owned(key, p) for key, p in params.items()}
+        norms = self._norms(params)
+        self._opt.step_(owned, grads, self._state, norms)
+        if norms is not None:
+            norms.finish()
         for key, d in self._dims.items():
             if d is not None:
-                full = collectives.all_gather(owned[key].movedim(d, 0), mesh)
-                params[key].copy_(full.movedim(0, d))
+                params[key].copy_(self._gather(key, owned[key]))
         self.apply_count += 1
         self._account_update()
 
@@ -278,7 +321,7 @@ class CudaServer(PeekMixin, CheckpointMixin):
         return {"apply_count": self.apply_count,
                 "collective_bytes": self.collective_bytes}
 
-    def _load_checkpoint_meta(self, meta):
+    def _load_checkpoint_meta(self, meta, elastic=False):
         self._staged = {}
         self.apply_count = int(meta["apply_count"])
         self.collective_bytes = int(meta["collective_bytes"])
@@ -286,29 +329,40 @@ class CudaServer(PeekMixin, CheckpointMixin):
     # no _validate_checkpoint_meta: nothing topology-bound to refuse
 
 
-class AsyncCudaServer(PeekMixin, AsyncStagingMixin, CheckpointMixin):
+class AsyncCudaServer(_RankApplyMixin, PeekMixin, AsyncStagingMixin,
+                      CheckpointMixin):
     """Parameter server with ASYNC (stale, delay-compensated) apply on one
-    device — the reference's workload config 5.
+    device or across the ranks of a mesh — the reference's workload
+    config 5.
 
     Every whole-tree push applies at once with the DC-ASGD correction
     against the pusher's last-pulled snapshot of each key; per-key pushes
     stage and commit as one tree. ``version`` advances once a whole-model
     apply; ``staleness(w)`` is the versions since worker w's last pull.
     Applies and pulls serialize on one lock, so host threads can drive
-    workers concurrently; they share the device's default stream.
+    workers concurrently in one process; they share the device's default
+    stream. Across ranks every rank makes the same calls in the same
+    order from one thread (a push there is a collective), and a pull
+    returns whole tensors, bitwise the same on every rank.
     """
 
     mode = "async"
     engine_name = "cuda_async"
 
     def __init__(self, optimizer, device: torch.device, num_workers: int,
-                 dc_lambda: float = 0.04):
+                 dc_lambda: float = 0.04, mesh: Optional[Mesh] = None,
+                 placement: str = "replicated"):
         self._opt = optimizer
         self.device = device
         self.num_workers = num_workers
         self.dc_lambda = dc_lambda
+        self.mesh = mesh if mesh is not None else Mesh({"data": 1})
+        self.placement = placement
         self._params: Dict[str, torch.Tensor] = {}
         self._state: Dict[str, Any] = {}
+        self._dims: Dict[str, Optional[int]] = {}
+        self._state_dims: List[Optional[int]] = []
+        self._thread: Optional[int] = None  # the one thread across ranks
         self._stale: Dict[tuple, torch.Tensor] = {}
         self._staged_async: Dict[int, Dict[str, Any]] = {}
         self._worker_version: Dict[int, int] = {}
@@ -316,21 +370,66 @@ class AsyncCudaServer(PeekMixin, AsyncStagingMixin, CheckpointMixin):
         self._version = 0  # whole-model versions
         self.apply_count: Dict[str, int] = {}
         self.staleness_hist = collections.Counter()  # τ -> tree pushes
-        self.collective_bytes = 0  # one device runs no collective
+        self.collective_bytes = 0  # the reference's analytic bytes
         self._lock = threading.RLock()
-        self._apply_dc_tree = make_dc_apply_tree(optimizer)
+        self._dc_apply = make_dc_apply_tree(optimizer)
 
     def register_tree(self, kv: Dict[str, Any], treedef, key_order: List[str]):
+        """Register the parameters, one optimizer state a key (of the
+        slice this rank owns under 'sharded'). Every rank registers the
+        same values."""
         if self._params:
             raise RuntimeError("server already holds a registered tree")
-        self._params = {k: device_copy(v, self.device) for k, v in kv.items()}
-        for k, v in self._params.items():
-            self._state[k] = self._opt.init({k: v})
-            self.apply_count[k] = 0
+        r, k = self.mesh.rank, self.mesh.size
+        self._params = {key: device_copy(v, self.device)
+                        for key, v in kv.items()}
+        state_dims = {}
+        for key, v in self._params.items():
+            self._dims[key] = param_sharding(v.shape, self.placement, k)
+            self._state[key], state_dims[key] = sharded_opt_init(
+                self._opt.init, {key: v}, {key: self._dims[key]}, r, k)
+            self.apply_count[key] = 0
+        # in checkpoint.flatten_leaves order: the keys sorted
+        self._state_dims = [d for key in sorted(state_dims)
+                            for d in state_dims[key]]
         return keymod.unflatten(treedef, self._params, key_order)
 
     def keys(self):
         return list(self._params)
+
+    def _check_thread(self) -> None:
+        """Across ranks every push and pull comes from one thread: each
+        rank's lock would order concurrent threads' calls its own way, and
+        the collectives of a push would pair different pushes."""
+        if self.mesh.size == 1:
+            return
+        me = threading.get_ident()
+        if self._thread is None:
+            self._thread = me
+        elif self._thread != me:
+            raise RuntimeError(
+                "the async server across ranks is driven from one thread: "
+                "host threads driving workers concurrently would order "
+                "their pushes differently on each rank, and a push's "
+                "collectives would pair different pushes across the ranks "
+                "(threads are a one-process feature)")
+
+    def _apply_dc_tree(self, params, states, grads, stales, lam):
+        """The DC apply of a (partial) tree, out of place: this rank's
+        gradients reduced to their mean over the ranks; each rank corrects
+        and steps the slices it owns against the same slices of the stale
+        snapshots, then the sharded leaves are all-gathered (one device:
+        the whole tree here)."""
+        if self.mesh.group is None:
+            return self._dc_apply(params, states, grads, stales, lam)
+        grads = self._reduce(grads)
+        owned, states = self._dc_apply(
+            {key: self._owned(key, p) for key, p in params.items()},
+            states, grads,
+            {key: self._owned(key, v) for key, v in stales.items()}, lam,
+            self._norms(params))
+        return ({key: self._gather(key, t).contiguous()
+                 for key, t in owned.items()}, states)
 
     def _check_worker(self, worker: int) -> None:
         # ids at or past AGG_WORKER_BASE are aggregator identities: legal
@@ -347,6 +446,7 @@ class AsyncCudaServer(PeekMixin, AsyncStagingMixin, CheckpointMixin):
         if key not in self._params:
             raise KeyError(f"unregistered key {key!r}")
         self._check_worker(worker)
+        self._check_thread()
         with self._lock:
             self._stage_async_push(key, grad, worker)
 
@@ -355,21 +455,27 @@ class AsyncCudaServer(PeekMixin, AsyncStagingMixin, CheckpointMixin):
         if set(grads_kv) != set(self._params):
             raise ValueError("gradient keys do not match registered keys")
         self._check_worker(worker)
+        self._check_thread()
         with self._lock:
             self._commit_tree(grads_kv, worker)
 
     def _commit_tree_accounting(self, grads_kv) -> None:
+        # the reference's count: an all-reduce of the pushed keys' bytes
         self._applies += len(grads_kv)
+        self.collective_bytes += collectives.allreduce_bytes(
+            {key: self._params[key] for key in grads_kv}, self.mesh.size)
 
     def pull(self, key: str, worker: int = 0) -> torch.Tensor:
         if key not in self._params:
             raise KeyError(f"unregistered key {key!r}")
+        self._check_thread()
         with self._lock:
             return self._pull_async(worker, [key])[key]
 
     def pull_tree(self, worker: int = 0) -> Dict[str, torch.Tensor]:
         """Atomic whole-tree pull: the snapshot and the version record come
         from one server state."""
+        self._check_thread()
         with self._lock:
             return self._pull_async(worker, self._params)
 
@@ -396,16 +502,20 @@ class AsyncCudaServer(PeekMixin, AsyncStagingMixin, CheckpointMixin):
             "collective_bytes": self.collective_bytes,
         }
 
-    def _validate_checkpoint_meta(self, meta):
-        if meta["num_workers"] != self.num_workers:
+    def _validate_checkpoint_meta(self, meta, elastic=False):
+        if meta["num_workers"] != self.num_workers and not elastic:
             raise ValueError(
                 f"checkpoint was written with num_workers="
                 f"{meta['num_workers']} but this store runs num_workers="
-                f"{self.num_workers} — staleness semantics would differ")
+                f"{self.num_workers} — staleness semantics would differ "
+                f"(restore(elastic=True) remaps: surviving workers keep "
+                f"their versions, removed workers' state is dropped, new "
+                f"workers join fresh)")
 
-    def _load_checkpoint_meta(self, meta):
-        self._worker_version = {int(w): int(v)
-                                for w, v in meta["worker_version"].items()}
+    def _load_checkpoint_meta(self, meta, elastic=False):
+        self._worker_version = {
+            int(w): int(v) for w, v in meta["worker_version"].items()
+            if keep_worker(int(w), self.num_workers, elastic)}
         self._applies = int(meta["applies"])
         self._version = int(meta["version"])
         self.staleness_hist = collections.Counter(
@@ -529,14 +639,10 @@ class CudaBackend:
             raise NotImplementedError(
                 "partition_rules (tensor parallelism) are not ported yet")
         if (mode or self.config.mode) == "async":
-            if self.mesh.size > 1:
-                raise NotImplementedError(
-                    "the async server across ranks is not ported yet "
-                    "(ROADMAP Queue 1 item 4); run mode='async' in one "
-                    "process")
             return AsyncCudaServer(optimizer, self.device,
                                    num_workers=self.config.num_workers,
-                                   dc_lambda=self.config.dc_lambda)
+                                   dc_lambda=self.config.dc_lambda,
+                                   mesh=self.mesh, placement=placement)
         return CudaServer(optimizer, self.device, aggregate=aggregate,
                           mesh=self.mesh, placement=placement)
 

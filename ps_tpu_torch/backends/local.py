@@ -24,6 +24,8 @@ in one process, with no network. The server's tensors live on
   params, the per-key states (schedule counts included), the async stale
   snapshots, ``apply_count`` and the version vector; refused while a sync
   push is pending or an async push is staged, and taken under the lock.
+  ``restore(elastic=True)`` remaps an async checkpoint of another
+  ``num_workers`` as the reference does (``checkpoint.keep_worker``).
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from ps_tpu_torch.backends.common import (
     device_copy,
     make_dc_apply_tree,
 )
-from ps_tpu_torch.checkpoint import CheckpointMixin
+from ps_tpu_torch.checkpoint import CheckpointMixin, keep_worker
 from ps_tpu_torch.config import Config
 from ps_tpu_torch.ops.sparse_apply import resolve_tier
 from ps_tpu_torch.optim import Optimizer
@@ -186,21 +188,25 @@ class LocalServer(PeekMixin, AsyncStagingMixin, CheckpointMixin):
                                for t, n in self.staleness_hist.items()},
         }
 
-    def _validate_checkpoint_meta(self, meta):
-        # mode and aggregate are different math; num_workers is topology
-        for field in ("mode", "num_workers", "aggregate"):
+    def _validate_checkpoint_meta(self, meta, elastic=False):
+        # mode and aggregate are different math; num_workers is topology,
+        # which an elastic restore remaps
+        fields = ("mode", "aggregate") if elastic else (
+            "mode", "num_workers", "aggregate")
+        for field in fields:
             if meta[field] != getattr(self, field):
                 raise ValueError(
                     f"checkpoint was written with {field}={meta[field]!r} but "
                     f"this store runs {field}={getattr(self, field)!r} — "
                     f"resume semantics would differ")
 
-    def _load_checkpoint_meta(self, meta):
+    def _load_checkpoint_meta(self, meta, elastic=False):
         self._pending = {}
         self.apply_count = {k: int(v) for k, v in meta["apply_count"].items()}
         self._version = int(meta["version"])
-        self._worker_version = {int(w): int(v)
-                                for w, v in meta["worker_version"].items()}
+        self._worker_version = {
+            int(w): int(v) for w, v in meta["worker_version"].items()
+            if keep_worker(int(w), self.num_workers, elastic)}
         self.staleness_hist = collections.Counter(
             {int(t): int(n) for t, n in meta["staleness_hist"].items()})
 

@@ -48,7 +48,8 @@ Across the k ranks of a process group (the reference's multi-process
 jobs) every rank writes its own slices, ``arrays.<rank>.pt``, into the
 same ``arrays-<gen>/``: of each sharded leaf (ZeRO-1 parameters and
 their optimizer state, a sparse table's rows) the slice it owns, and the
-whole leaves on rank 0 only. A barrier precedes the commit; rank 0 alone
+whole leaves (the async server's stale snapshots and cached pulls among
+them) on rank 0 only. A barrier precedes the commit; rank 0 alone
 writes ``meta.json`` (which records ``world_size`` and each sharded
 array's dimension, ``shard_dims``), flushes the directory and collects
 the garbage; a second barrier follows. A restore joins the slices and
@@ -347,8 +348,8 @@ def keep_worker(worker: int, num_workers, elastic: bool) -> bool:
     """The elastic remap policy of async workers, in one place: an elastic
     shrink drops all per-worker state (stale snapshots, cached pulls,
     version-vector entries) of workers >= the new worker count;
-    everything else survives. The async server runs in one process, so
-    its restores are not elastic yet."""
+    everything else survives, and a worker the grown job adds joins
+    fresh (its first pull sets its version)."""
     return not (elastic and num_workers is not None and worker >= num_workers)
 
 
@@ -377,14 +378,19 @@ class CheckpointMixin:
         """Engine-specific JSON-able counters (versions, apply counts)."""
         return {}
 
-    def _validate_checkpoint_meta(self, meta: Dict[str, Any]) -> None:
+    def _validate_checkpoint_meta(self, meta: Dict[str, Any],
+                                  elastic: bool = False) -> None:
         """Refuse a checkpoint whose semantics differ. Runs before any
         engine state is changed, so a refused restore leaves the engine as
-        it was."""
+        it was. ``elastic`` relaxes the topology checks (the worker
+        count)."""
 
-    def _load_checkpoint_meta(self, meta: Dict[str, Any]) -> None:
+    def _load_checkpoint_meta(self, meta: Dict[str, Any],
+                              elastic: bool = False) -> None:
         """Adopt the counters written by :meth:`_checkpoint_meta` (the meta
-        already passed :meth:`_validate_checkpoint_meta`)."""
+        already passed :meth:`_validate_checkpoint_meta`). Under
+        ``elastic`` an engine drops the per-worker entries of workers that
+        no longer exist (:func:`keep_worker`)."""
 
     # -- shared implementation ---------------------------------------------------
 
@@ -423,8 +429,9 @@ class CheckpointMixin:
 
     def _keep_own_slices(self, arrays, meta, mesh) -> None:
         """Across ranks: keep in ``arrays`` the slices this rank owns of
-        each sharded leaf, and the whole leaves on rank 0 only; name each
-        sharded array and its dimension in ``meta['shard_dims']``."""
+        each sharded leaf, and the whole leaves (stale snapshots among
+        them) on rank 0 only; name each sharded array and its dimension in
+        ``meta['shard_dims']``."""
         from ps_tpu_torch.parallel.sharding import shard
 
         r, k = mesh.rank, mesh.size
@@ -441,6 +448,8 @@ class CheckpointMixin:
                 elif r == 0:
                     kept[name] = t
             arrays[group] = kept
+        if r:
+            arrays["stale"] = {}
         meta["shard_dims"] = {n: d for n, d in dims.items() if d is not None}
         meta["placement"] = self.placement
 
@@ -449,7 +458,10 @@ class CheckpointMixin:
         them) and ``meta`` against the live engine, then place this rank's
         slices of them on its device and adopt them. A checkpoint written
         by another number of ranks is refused unless ``elastic``, which
-        reads it into this engine's layout."""
+        reads it into this engine's layout, and an async checkpoint of
+        another worker count: the surviving workers keep their versions
+        and stale snapshots, the dropped workers' snapshots are never
+        read, and new workers join fresh."""
         if meta.get("engine") != self.engine_name:
             raise ValueError(
                 f"checkpoint was written by engine {meta.get('engine')!r} but "
@@ -492,6 +504,9 @@ class CheckpointMixin:
         if sorted(stale) != sorted(meta.get("stale_keys", [])):
             raise ValueError("checkpoint stale snapshots do not match its "
                              "meta's stale_keys")
+        nw = getattr(self, "num_workers", None)
+        stale = {s: v for s, v in stale.items()
+                 if keep_worker(decode_stale_key(s)[0], nw, elastic)}
         for s, v in stale.items():
             k = decode_stale_key(s)[1]
             if k not in self._params:
@@ -503,7 +518,7 @@ class CheckpointMixin:
                              f"snapshots")
         # every check, the engine's own included, happens before any
         # change: a refused restore leaves the engine untouched
-        self._validate_checkpoint_meta(meta)
+        self._validate_checkpoint_meta(meta, elastic=elastic)
         new_params = {k: place(params[k], self.device) for k in self._params}
         new_state = unflatten_like(self._state, {
             i: place(opt[i] if d is None
@@ -521,7 +536,7 @@ class CheckpointMixin:
             self._staged_async = {}
         if hasattr(self, "_stale"):
             self._stale = new_stale
-        self._load_checkpoint_meta(meta)
+        self._load_checkpoint_meta(meta, elastic=elastic)
 
 
 # -- the carry function: ps_tpu's checkpoints into the port's ------------------

@@ -1,8 +1,13 @@
 """BERT MLM with server-side LAMB — the reference's workload config 3.
 
 Counterpart of ``examples/train_bert_mlm.py``: ``KVStore(optimizer=
-'lamb').make_step`` over ``BertMLM`` on one device — the MLM loss's
-gradient, then LAMB applied by the server in place. ``--attn flash`` runs
+'lamb').make_step`` over ``BertMLM`` — the MLM loss's gradient, then LAMB
+applied by the server in place — on one device or across the ranks of a
+process group (``PS_COORDINATOR_URI``, ``PS_NUM_PROCESSES``,
+``PS_PROCESS_ID``, ``PS_DIST_BACKEND``), each rank on its slice of the
+same global batches, with LAMB ZeRO-1 sharded at the default
+``--placement sharded`` (its trust ratio's norms reduced over the ranks).
+``--attn flash`` runs
 the attention forward through the hand-written CUDA kernel on the card.
 It prints the loss every 10 steps and, last, sequences and tokens per
 second. ``--profile-dir`` traces the steps after two warm-up steps with
@@ -12,6 +17,12 @@ share of the traced steps.
 
 Run (on the GPU; ``--device cpu`` runs the plain versions on the CPU):
     python -m ps_tpu_torch.examples.train_bert_mlm --attn flash --seq-len 512 --steps 20
+
+Two ranks on the CPU, one shell each (r = 0, 1):
+    PS_COORDINATOR_URI=127.0.0.1:29500 PS_NUM_PROCESSES=2 PS_PROCESS_ID=r \
+        PS_DIST_BACKEND=gloo python -m ps_tpu_torch.examples.train_bert_mlm \
+        --device cpu --size tiny --steps 3 --seq-len 32 --batch-size 8 \
+        --dtype float32
 """
 
 from __future__ import annotations
@@ -24,6 +35,7 @@ import torch
 
 import ps_tpu_torch as ps
 from ps_tpu_torch.data.synthetic import mlm_batches
+from ps_tpu_torch.kv.store import rank_slice
 from ps_tpu_torch.models.bert import BertConfig, BertMLM, make_mlm_loss_fn
 from ps_tpu_torch.utils import trace
 
@@ -60,9 +72,12 @@ def main(argv=None):
     if args.model_axis > 1:
         raise NotImplementedError(
             "--model-axis > 1 (tensor parallelism over a 'model' axis) is "
-            "not ported yet")
+            "not ported yet (ROADMAP Queue 1 item 7)")
     ctx = ps.init(backend="cuda", device=args.device)
     device = ctx.device
+    if args.batch_size % ctx.num_workers:
+        raise SystemExit(f"--batch-size must be divisible by the rank count "
+                         f"({ctx.num_workers})")
 
     dtype = getattr(torch, args.dtype)
     cfg = (BertConfig(dtype=dtype, attn=args.attn) if args.size == "base"
@@ -74,17 +89,18 @@ def main(argv=None):
     store.init(model.param_tree())
     nparams = sum(p.numel() for p in model.parameters())
     print(f"BERT-{args.size} MLM: {nparams / 1e6:.1f}M params, device "
-          f"{device}, global batch {args.batch_size} x seq {args.seq_len}, "
-          f"attn {args.attn}, {args.dtype}, LAMB placement={args.placement}")
+          f"{device} (rank {ctx.mesh.rank} of {ctx.num_workers}), global "
+          f"batch {args.batch_size} x seq {args.seq_len}, attn {args.attn}, "
+          f"{args.dtype}, LAMB placement={args.placement}")
 
-    run = store.make_step(make_mlm_loss_fn(model))
+    run = store.make_step(make_mlm_loss_fn(model, mesh=store.mesh))
     log = open(args.jsonl, "w") if args.jsonl else None
     t0 = None
     with trace(args.profile_dir, device, args.steps) as mark:
         for step, batch in enumerate(mlm_batches(
                 args.batch_size, args.seq_len, vocab_size=cfg.vocab_size,
                 seed=args.seed, steps=args.steps)):
-            loss, _ = run(store.shard_batch(batch))
+            loss, _ = run(store.shard_batch(rank_slice(batch, ctx.mesh)))
             mark()  # step 0's mark starts the profiler, before the clock
             if step == 0:  # warm-up: kernel build, allocator, first launches
                 _sync(device)

@@ -10,7 +10,15 @@ round-robin from one host, so each re-pulls only on its own turn and
 staleness accrues. It logs the loss, the worker and its staleness every 10
 cycles, and last the server's version, the staleness histogram and the
 cycle rate. ``--profile-dir`` traces the cycles after two warm-up cycles
-with ``torch.profiler``.
+with ``torch.profiler``. The single role also runs across the ranks of a
+process group (``PS_COORDINATOR_URI``, ``PS_NUM_PROCESSES``,
+``PS_PROCESS_ID``, ``PS_DIST_BACKEND``), as the reference's runs on its
+mesh: every rank drives the same cycles, each on its slice of a worker's
+batch, and the server applies the mean gradient over the ranks:
+
+    PS_COORDINATOR_URI=127.0.0.1:29500 PS_NUM_PROCESSES=2 PS_PROCESS_ID=r \
+        PS_DIST_BACKEND=gloo python -m ps_tpu_torch.examples.train_mnist_async \
+        --device cpu
 
 Across processes, over the native van's TCP layer (server first):
 
@@ -49,7 +57,7 @@ import torch
 
 import ps_tpu_torch as ps
 from ps_tpu_torch.data.synthetic import mnist_batches
-from ps_tpu_torch.kv.store import to_device
+from ps_tpu_torch.kv.store import rank_slice, to_device
 from ps_tpu_torch.models.mlp import MLP, make_loss_fn
 from ps_tpu_torch.utils import StepLogger, TrainMetrics, trace
 
@@ -78,6 +86,8 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--profile-dir", default=None,
                     help="single: torch.profiler trace dir")
+    ap.add_argument("--jsonl", default=None,
+                    help="single: append the logged cycles' records here")
     ap.add_argument("--dump", default=None,
                     help="server/worker: write the run's record here")
     # cross-process wiring
@@ -239,11 +249,17 @@ def run_server(args):
 def run_single(args):
     ctx = ps.init(backend="cuda", mode="async", num_workers=args.num_workers,
                   dc_lambda=args.dc_lambda, device=args.device)
+    if args.batch_size % ctx.mesh.size:
+        raise SystemExit(f"--batch-size must be divisible by the rank count "
+                         f"({ctx.mesh.size})")
     params, loss_fn = build(args.seed, ctx.device)
     store = ps.KVStore(optimizer="sgd", learning_rate=args.lr, mode="async")
     store.init(params)
+    if ctx.mesh.size > 1:
+        print(f"rank {ctx.mesh.rank} of {ctx.mesh.size}: each worker's "
+              f"batch {args.batch_size} split over the ranks", flush=True)
     run = store.make_async_step(loss_fn)
-    log = StepLogger(every=10)
+    log = StepLogger(every=10, jsonl=args.jsonl)
     streams = [
         mnist_batches(args.batch_size, seed=args.seed, worker=w,
                       num_workers=args.num_workers)
@@ -254,7 +270,8 @@ def run_single(args):
     with trace(args.profile_dir, ctx.device, args.steps) as mark:
         for step in range(args.steps):
             w = step % args.num_workers
-            loss = run(store.shard_batch(next(streams[w])), worker=w)
+            loss = run(store.shard_batch(rank_slice(next(streams[w]),
+                                                    ctx.mesh)), worker=w)
             mark()
             losses.append(loss)
             if log.wants(step):
@@ -263,6 +280,7 @@ def run_single(args):
         if ctx.device.type == "cuda":
             torch.cuda.synchronize(ctx.device)
         dt = max(time.perf_counter() - t0, 1e-9)
+    log.close()
     hist = store.staleness_histogram
     version = store._engine.version
     print(f"done: version {version}, "

@@ -20,7 +20,8 @@ counters for every push and pull feed the push/pull GB/s metric, and
 ``collective_bytes`` the server's analytic per-rank collective traffic.
 ``save`` and ``restore`` checkpoint the server state on any engine, each
 rank writing its own slices (``ps_tpu_torch/checkpoint.py``), and
-``restore(elastic=True)`` reads a checkpoint of another world size.
+``restore(elastic=True)`` reads a checkpoint of another world size or,
+in async mode, of another worker count.
 """
 
 from __future__ import annotations
@@ -340,8 +341,13 @@ class KVStore:
         by however many versions others pushed since), pushed (the server
         applies it at once with the DC-ASGD correction), then a pull of
         the current version for the worker's next cycle. Returns the loss
-        (and aux with has_aux). Drive workers round-robin or from host
-        threads; ``staleness(w)`` reports each worker's τ."""
+        (and aux with has_aux). Drive workers round-robin or, in one
+        process, from host threads; ``staleness(w)`` reports each worker's
+        τ. Across ranks every rank runs the same cycles in the same order,
+        each on its slice of the logical worker's global batch (as
+        ``make_step`` takes it): the server applies the mean gradient over
+        the ranks, and the loss returned is the mean over the ranks, the
+        global batch's."""
         self._require_init()
         if getattr(self._engine, "mode", "sync") != "async":
             raise RuntimeError(
@@ -357,6 +363,8 @@ class KVStore:
                                               has_aux=has_aux)
             self.push_all(grads, worker=worker)
             self._async_params[worker] = self.pull_all(worker=worker)
+            if self.mesh is not None:
+                loss = global_mean(loss, self.mesh)
             self.step += 1
             return (loss, aux) if has_aux else loss
 
@@ -411,7 +419,11 @@ class KVStore:
                         aliased.append(s)
                     else:
                         cache[s] = v
-            arrays["worker_cache"] = cache
+            mesh = getattr(engine, "mesh", None)
+            # across ranks the cached pulls are whole and the same on every
+            # rank: rank 0 writes them
+            arrays["worker_cache"] = ({} if mesh is not None and mesh.rank
+                                      else cache)
             arrays = {g: {n: ckpt.to_cpu(t) for n, t in group.items()}
                       for g, group in arrays.items()}
         meta["store"] = {
@@ -439,8 +451,13 @@ class KVStore:
         calls it and takes its own slices. A checkpoint written by another
         number of ranks is refused unless ``elastic=True``, which reads
         each leaf whole and keeps the slice this rank owns under the live
-        layout (the values are the saved ones, bitwise). Returns the
-        restored parameter tree."""
+        layout (the values are the saved ones, bitwise). An async
+        checkpoint of another ``num_workers`` is refused unless
+        ``elastic=True`` too, which keeps the surviving workers' versions,
+        stale snapshots and cached pulls, drops the removed workers'
+        (their bytes are never read) and lets new workers join fresh
+        (their first pull sets their version). Returns the restored
+        parameter tree."""
         self._require_init()
         meta = ckpt.read_meta(path)
         saved_order = meta["store"]["key_order"]
@@ -459,19 +476,26 @@ class KVStore:
                 or not set(aliases) <= set(meta.get("stale_keys", []))):
             raise ValueError("checkpoint cached pulls do not match its meta")
         engine = self._engine
+        nw = getattr(engine, "num_workers", None)
         by_worker: Dict[int, Dict[str, Any]] = {}
         for s, v in cache.items():
             w, k = ckpt.decode_stale_key(s)
             if k not in engine._params:
                 raise ValueError(f"cached pull {s!r} of an unregistered key")
             ckpt.check_like(f"cached pull {s!r}", v, engine._params[k])
-            by_worker.setdefault(w, {})[k] = ckpt.place(v, engine.device)
+            # an elastic shrink never reads a dropped worker's bytes
+            if ckpt.keep_worker(w, nw, elastic):
+                by_worker.setdefault(w, {})[k] = v
         with engine.checkpoint_lock():
             engine.load_state_dict(arrays, meta, elastic=elastic)
+            by_worker = {w: {k: ckpt.place(v, engine.device)
+                             for k, v in kv.items()}
+                         for w, kv in by_worker.items()}
             stale = getattr(engine, "_stale", {})
             for s in aliases:
                 w, k = ckpt.decode_stale_key(s)
-                by_worker.setdefault(w, {})[k] = stale[(w, k)]
+                if ckpt.keep_worker(w, nw, elastic):
+                    by_worker.setdefault(w, {})[k] = stale[(w, k)]
             self._async_params = {
                 w: keymod.unflatten(self._treedef, kv, self._key_order)
                 for w, kv in by_worker.items()}
@@ -503,8 +527,8 @@ class KVStore:
     @property
     def collective_bytes(self) -> int:
         """Bytes the server's collectives have moved per rank: the
-        reference's analytic ring traffic (0 at one rank, and on the local
-        and async servers, which run none)."""
+        reference's analytic ring traffic (0 at one rank and on the local
+        server, which runs none)."""
         return getattr(self._engine, "collective_bytes", 0)
 
     @property

@@ -12,32 +12,13 @@ bias``: the reference runs them outside any Pallas kernel.
 
 from __future__ import annotations
 
-import math
 from typing import Dict
 
 import numpy as np
 import torch
 
 from ps_tpu_torch.kv import keys as keymod
-
-# flax's lecun_normal draws a unit normal truncated to [-2, 2], rescaled by
-# this constant (its standard deviation) so the variance is 1/fan_in
-_TRUNC_STD = 0.87962566103423978
-_ERF_SQRT2 = math.erf(math.sqrt(2.0))  # 2·Φ(2) - 1
-
-
-def _serial_erfinv_(t: torch.Tensor) -> torch.Tensor:
-    """``t.erfinv_()`` on one intra-op thread. A process's first parallel
-    elementwise op on the CPU now and then comes out differently while
-    torch's thread pool starts; on one thread the draw is a function of the
-    seed alone, in every process (a server and the replay of its run draw
-    the same weights)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        return t.erfinv_()
-    finally:
-        torch.set_num_threads(threads)
+from ps_tpu_torch.models.draws import lecun_normal
 
 
 class MLP:
@@ -65,10 +46,7 @@ class MLP:
         flat = {}
         for key, shape in sorted(self.shapes().items()):
             if key.endswith("kernel"):
-                std = math.sqrt(1.0 / shape[0]) / _TRUNC_STD
-                flat[key] = _serial_erfinv_(torch.empty(shape).uniform_(
-                    -_ERF_SQRT2, _ERF_SQRT2, generator=generator
-                )).mul_(math.sqrt(2.0) * std)
+                flat[key] = lecun_normal(shape, shape[0], generator)
             else:
                 flat[key] = torch.zeros(shape)
         return _nest({k: t.to(device) for k, t in flat.items()})

@@ -52,12 +52,9 @@ import torch
 import torch.nn.functional as F
 
 from ps_tpu_torch.kv import keys as keymod
+from ps_tpu_torch.models.draws import lecun_normal
 from ps_tpu_torch.parallel import collectives
 
-# flax's lecun_normal draws a unit normal truncated to [-2, 2], rescaled by
-# this constant (its standard deviation) so the variance is 1/fan_in
-_TRUNC_STD = 0.87962566103423978
-_ERF_SQRT2 = math.erf(math.sqrt(2.0))  # 2·Φ(2) - 1
 _BN_MOMENTUM = 0.9
 _BN_EPS = 1e-5
 
@@ -373,11 +370,7 @@ class ResNet:
         for key in sorted(shapes):
             shape = shapes[key]
             if key.endswith("kernel"):  # lecun_normal over the fan-in
-                # a unit normal truncated to [-2, 2] by its inverse CDF
-                std = math.sqrt(1.0 / math.prod(shape[1:])) / _TRUNC_STD
-                t = torch.empty(shape).uniform_(
-                    -_ERF_SQRT2, _ERF_SQRT2, generator=generator
-                ).erfinv_().mul_(math.sqrt(2.0) * std)
+                t = lecun_normal(shape, math.prod(shape[1:]), generator)
             elif key.endswith("scale"):
                 t = torch.full(shape, norms[key[:-len("/scale")]][1])
             else:

@@ -33,19 +33,28 @@ count}``), before that count is incremented, so the first step uses
 An optimizer works on ``{key: tensor}`` dicts and updates parameters and
 state in place (``step_``); in-place update is what JAX's buffer donation
 bought the reference.
+
+Under ZeRO-1 a rank steps only the slices it owns, and LAMB's trust ratio
+needs the norms of whole tensors. The server passes them in as
+:class:`ShardNorms`: the whole parameter of each sliced key (every rank
+holds it, so ``‖p‖`` is local) and a sum over the ranks. LAMB defers
+each sliced key's trust step to it, and the server's ``finish()`` after
+the step reduces every deferred partial ``Σu²`` in one flat all-reduce,
+however many ``step_`` calls deferred them (the async engine steps key by
+key). The other rules are elementwise and ignore it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Union
+from typing import Any, Callable, Dict, List, Union
 
 import torch
 
 from ps_tpu_torch.optim.dc import delay_compensate
 
-__all__ = ["Optimizer", "make_optimizer", "sgd", "momentum", "adam",
-           "lamb", "delay_compensate"]
+__all__ = ["Optimizer", "ShardNorms", "make_optimizer", "sgd", "momentum",
+           "adam", "lamb", "delay_compensate"]
 
 _INT32_MAX = 2**31 - 1
 
@@ -54,15 +63,47 @@ LearningRate = Union[float, Callable[[torch.Tensor], Any]]
 
 
 @dataclasses.dataclass(frozen=True)
+class ShardNorms:
+    """How a rank that steps slices sees whole tensors' norms: ``whole``
+    maps each key whose ``params`` entry is a slice to the whole
+    parameter (before the step), and ``all_reduce`` sums a flat f32 tensor
+    over the ranks in place and returns it, the same on every rank.
+
+    A rule ``defer``s a step that waits for a partial sum's total; the
+    server calls ``finish()`` once after its ``step_`` calls, which sums
+    every deferred partial in one ``all_reduce`` and runs the deferred
+    steps in order."""
+
+    whole: Dict[str, torch.Tensor]
+    all_reduce: Callable[[torch.Tensor], torch.Tensor]
+    _pending: List[tuple] = dataclasses.field(default_factory=list)
+
+    def defer(self, partial: torch.Tensor,
+              step: Callable[[torch.Tensor], None]) -> None:
+        self._pending.append((partial, step))
+
+    @torch.no_grad()
+    def finish(self) -> None:
+        pending = list(self._pending)
+        self._pending.clear()
+        if not pending:
+            return
+        totals = self.all_reduce(torch.stack([p for p, _ in pending]))
+        for (_, step), total in zip(pending, totals):
+            step(total)
+
+
+@dataclasses.dataclass(frozen=True)
 class Optimizer:
-    """``init(params) -> state``; ``step_(params, grads, state)`` applies
-    one update to ``params`` and ``state`` in place. ``params`` and
-    ``grads`` are ``{key: tensor}`` dicts with the same keys."""
+    """``init(params) -> state``; ``step_(params, grads, state,
+    norms=None)`` applies one update to ``params`` and ``state`` in place.
+    ``params`` and ``grads`` are ``{key: tensor}`` dicts with the same
+    keys; ``norms`` (:class:`ShardNorms`) is given where some ``params``
+    are ZeRO-1 slices."""
 
     name: str
     init: Callable[[Dict[str, torch.Tensor]], Any]
-    step_: Callable[[Dict[str, torch.Tensor], Dict[str, torch.Tensor], Any],
-                    None]
+    step_: Callable[..., None]
 
 
 def _zero_count(params):
@@ -78,23 +119,23 @@ def _safe_increment_(count):
 
 def _with_rate(name: str, init, step_, learning_rate: LearningRate
                ) -> Optimizer:
-    """The :class:`Optimizer` of a rule ``step_(params, grads, state,
-    lr)``: a float ``learning_rate`` is passed as it is; a schedule is
+    """The :class:`Optimizer` of a rule ``step_(params, grads, state, lr,
+    norms)``: a float ``learning_rate`` is passed as it is; a schedule is
     evaluated at its own count, before the count is incremented (optax's
     ``scale_by_schedule``), and passed as a 0-d f32 tensor."""
     if not callable(learning_rate):
-        return Optimizer(name, init,
-                         lambda p, g, s: step_(p, g, s, learning_rate))
+        return Optimizer(name, init, lambda p, g, s, norms=None: step_(
+            p, g, s, learning_rate, norms))
 
     def init_scheduled(params):
         return {"rule": init(params), "schedule_count": _zero_count(params)}
 
     @torch.no_grad()
-    def step_scheduled(params, grads, state):
+    def step_scheduled(params, grads, state, norms=None):
         count = state["schedule_count"]
         lr = torch.as_tensor(learning_rate(count), dtype=torch.float32,
                              device=count.device)
-        step_(params, grads, state["rule"], lr)
+        step_(params, grads, state["rule"], lr, norms)
         _safe_increment_(count)
 
     return Optimizer(name, init_scheduled, step_scheduled)
@@ -107,7 +148,7 @@ def sgd(learning_rate: LearningRate = 0.01) -> Optimizer:
         return ()
 
     @torch.no_grad()
-    def step_(params, grads, state, lr):
+    def step_(params, grads, state, lr, norms):
         for k, p in params.items():
             if isinstance(lr, torch.Tensor):
                 p.add_(-lr * grads[k])
@@ -126,7 +167,7 @@ def momentum(learning_rate: LearningRate = 0.01, momentum: float = 0.9,
         return {k: torch.zeros_like(p) for k, p in params.items()}
 
     @torch.no_grad()
-    def step_(params, grads, state, lr):
+    def step_(params, grads, state, lr, norms):
         keys = list(params)
         traces = [state[k] for k in keys]
         torch._foreach_mul_(traces, momentum)
@@ -169,7 +210,7 @@ def adam(learning_rate: LearningRate = 1e-3, b1: float = 0.9,
          b2: float = 0.999, eps: float = 1e-8,
          eps_root: float = 0.0) -> Optimizer:
     @torch.no_grad()
-    def step_(params, grads, state, lr):
+    def step_(params, grads, state, lr, norms):
         for k, u in _scale_by_adam_(grads, state, b1, b2, eps, eps_root):
             params[k].add_(-lr * u)
 
@@ -180,19 +221,32 @@ def lamb(learning_rate: LearningRate = 1e-3, b1: float = 0.9,
          b2: float = 0.999, eps: float = 1e-6,
          weight_decay: float = 0.0) -> Optimizer:
     """LAMB, the reference's server-side optimizer for BERT. The trust
-    ratio is per parameter tensor, so each key is one tensor of its own."""
+    ratio is per parameter tensor, so each key is one tensor of its own.
+    A key that is a ZeRO-1 slice (in ``norms.whole``) takes ``‖p‖`` of the
+    whole parameter and ``‖u‖`` as the root of its slices' ``Σu²`` summed
+    over the ranks: its trust step is deferred to ``norms.finish()``,
+    which sums every such key's partial in one flat all-reduce."""
+
+    def trust_step_(p, u, p_norm, u_norm, lr):
+        ratio = torch.where((p_norm == 0) | (u_norm == 0),
+                            torch.ones((), dtype=p.dtype, device=p.device),
+                            p_norm / u_norm)
+        p.add_(-lr * (u * ratio))
 
     @torch.no_grad()
-    def step_(params, grads, state, lr):
+    def step_(params, grads, state, lr, norms):
+        whole = norms.whole if norms is not None else {}
         for k, u in _scale_by_adam_(grads, state, b1, b2, eps, 0.0):
             p = params[k]
             u = u + weight_decay * p
-            p_norm = torch.linalg.vector_norm(p)
-            u_norm = torch.linalg.vector_norm(u)
-            ratio = torch.where((p_norm == 0) | (u_norm == 0),
-                                torch.ones((), dtype=p.dtype, device=p.device),
-                                p_norm / u_norm)
-            p.add_(-lr * (u * ratio))
+            if k in whole:
+                p_norm = torch.linalg.vector_norm(whole[k])
+                norms.defer((u * u).sum(),
+                            lambda total, p=p, u=u, p_norm=p_norm:
+                            trust_step_(p, u, p_norm, total.sqrt(), lr))
+                continue
+            trust_step_(p, u, torch.linalg.vector_norm(p),
+                        torch.linalg.vector_norm(u), lr)
 
     return _with_rate("lamb", _adam_init, step_, learning_rate)
 

@@ -417,6 +417,91 @@ def test_async_resume_matches_reference_resume(tmp_path):
     _close(_phase2(store, params, _t), want, **TOL)
 
 
+def _remap_drill(path, params, start, arr, step):
+    """``tests/test_checkpoint.py::test_elastic_async_worker_remap``'s drill
+    on one framework: ``start(num_workers)`` makes a store; 3 workers pull
+    and push, save; a strict restore into 2 workers is refused; elastic
+    3 -> 2 and 3 -> 4. Returns what each stage left, as numpy."""
+    out = {}
+    store = start(3)
+    for w in range(3):
+        store.pull_all(worker=w)
+        store.push_all(arr(_grads_like(params, w)), worker=w)
+    store.save(path)
+    out["saved"] = _np(store.params())
+    step()
+
+    store = start(2)
+    with pytest.raises(ValueError, match="num_workers"):
+        store.restore(path)
+    out["shrunk"] = _np(store.restore(path, elastic=True))
+    eng = store._engine
+    out["shrunk_versions"] = dict(eng._worker_version)
+    out["shrunk_stale"] = sorted(eng._stale)
+    out["shrunk_cache"] = sorted(store._async_params)
+    store.push_all(arr(_grads_like(params, 7)), worker=1)
+    out["shrunk_after"] = _np(store.params())
+    out["shrunk_version"] = eng.version
+    with pytest.raises(ValueError, match="worker"):
+        store.push_all(arr(_grads_like(params, 8)), worker=2)
+    step()
+
+    store = start(4)
+    out["grown"] = _np(store.restore(path, elastic=True))
+    eng = store._engine
+    out["grown_versions"] = dict(eng._worker_version)
+    store.pull_all(worker=3)
+    out["grown_staleness"] = store.staleness(3)
+    store.push_all(arr(_grads_like(params, 9)), worker=3)
+    store.push_all(arr(_grads_like(params, 10)), worker=0)  # stale by 1
+    out["grown_after"] = _np(store.params())
+    out["grown_hist"] = dict(store.staleness_histogram)
+    step()
+    return out
+
+
+@pytest.mark.parametrize("backend", ["local", "cuda"])
+def test_elastic_async_worker_remap(tmp_path, backend):
+    """An async checkpoint of 3 workers restored into 2 and into 4 with
+    ``elastic=True`` (the strict restore refused): the surviving workers
+    keep their versions and stale snapshots, the dropped worker's state is
+    gone and its id invalid, a new worker joins fresh; the resumed runs
+    equal the reference's resumed runs (its local backend, or its mesh
+    engine for 'cuda')."""
+    _, params = _ref_params()
+
+    def ref_start(nw):
+        kw = dict(mesh_shape={"data": 1}) if backend == "cuda" else {}
+        ps_tpu.init(backend="tpu" if backend == "cuda" else "local",
+                    mode="async", num_workers=nw, dc_lambda=0.04, **kw)
+        store = ps_tpu.KVStore(optimizer="sgd", learning_rate=0.1,
+                               mode="async")
+        store.init(params)
+        return store
+
+    want = _remap_drill(str(tmp_path / "ref"), params, ref_start,
+                        lambda g: jax.tree_util.tree_map(jnp.asarray, g),
+                        ps_tpu.shutdown)
+    got = _remap_drill(str(tmp_path / "port"), params,
+                       lambda nw: _port_store(backend, mode="async",
+                                              num_workers=nw),
+                       _t, ps_tpu_torch.shutdown)
+    assert got["shrunk_versions"] == want["shrunk_versions"] == {0: 0, 1: 1}
+    assert {w for w, _ in got["shrunk_stale"]} == {0, 1}
+    assert set(got["shrunk_cache"]) <= {0, 1}
+    assert got["grown_versions"] == want["grown_versions"]
+    assert set(got["grown_versions"]) == {0, 1, 2}
+    assert got["grown_staleness"] == want["grown_staleness"] == 0
+    assert got["shrunk_version"] == want["shrunk_version"] == 4
+    assert got["grown_hist"] == want["grown_hist"]
+    for stage in ("saved", "shrunk", "grown"):
+        _equal(got[stage], got["saved"])
+        _equal(want[stage], want["saved"])
+    _close(got["saved"], want["saved"], **TOL)
+    for stage in ("shrunk_after", "grown_after"):
+        _close(got[stage], want[stage], **TOL)
+
+
 @pytest.mark.parametrize("backend", ["local", "cuda"])
 def test_make_async_step_resume_keeps_cache_aliases(tmp_path, backend):
     """Resume mid-async-training through the worker cycle: each restored

@@ -66,6 +66,7 @@ def test_every_slice_module_is_checked():
                  "ps_tpu_torch/backends/common.py",
                  "ps_tpu_torch/backends/local.py",
                  "ps_tpu_torch/optim/dc.py", "ps_tpu_torch/models/mlp.py",
+                 "ps_tpu_torch/models/draws.py",
                  "ps_tpu_torch/examples/train_mnist_mlp.py",
                  "ps_tpu_torch/examples/train_mnist_async.py",
                  "ps_tpu_torch/checkpoint.py", "chip_smoke.py",

@@ -6,7 +6,8 @@ steps whose gradient reductions cross the process boundary. Parity: a
 2-process run equals one process over the same global batches (rtol
 1e-5, the reference's), its ranks agree, and a 2-process save restored
 by a new 2-process group continues as an uninterrupted run (rtol 1e-6).
-Both trainers run as 2 processes from the same variables.
+The Wide-&-Deep, ResNet-50, BERT (sharded LAMB) and async MNIST trainers
+run as 2 processes from the same variables.
 """
 
 import json
@@ -129,6 +130,24 @@ def test_trainers_run_as_two_processes_from_the_environment(tmp_path):
             ("ps_tpu_torch.examples.train_resnet50",
              ["--device", "cpu", "--steps", "2", "--batch-size", "4",
               "--image-size", "32", "--dtype", "float32"])):
+        one = _trainer(module, args, tmp_path, 1)[0]
+        two = _trainer(module, args, tmp_path, 2)
+        assert len(one) >= 2, module
+        for losses in two:
+            np.testing.assert_allclose(losses, one, rtol=1e-5, err_msg=module)
+
+
+def test_bert_and_async_trainers_run_as_two_processes(tmp_path):
+    """BERT-tiny at the trainer's default placement (sharded LAMB) and the
+    async MNIST trainer's single role, as 2 processes, report the
+    one-process run's losses (rtol 1e-5)."""
+    for module, args in (
+            ("ps_tpu_torch.examples.train_bert_mlm",
+             ["--device", "cpu", "--size", "tiny", "--steps", "3",
+              "--seq-len", "32", "--batch-size", "8", "--dtype",
+              "float32"]),
+            ("ps_tpu_torch.examples.train_mnist_async",
+             ["--device", "cpu", "--steps", "30"])):
         one = _trainer(module, args, tmp_path, 1)[0]
         two = _trainer(module, args, tmp_path, 2)
         assert len(one) >= 2, module

@@ -102,7 +102,6 @@ def ranks(tmp_path_factory):
         ("byte_accounting", {}),
         ("collectives_recorded", dict(placement="replicated")),
         ("collectives_recorded", dict(placement="sharded")),
-        ("async_refused", {}),
     ]
     return torch_ranks.run_ranks(K, cases,
                                  tmp_path_factory.mktemp("backend"))
@@ -252,11 +251,6 @@ def test_collective_byte_accounting(ranks):
         ref = _ref_steps(placement, "adam", ADAM, _batches(64, 5))
         for r in _case(ranks, case):
             assert r["collective_bytes"] == ref["collective_bytes"] > 0
-
-
-def test_async_mode_across_ranks_is_not_ported(ranks):
-    for r in _case(ranks, 8):
-        assert "item 4" in r["error"]
 
 
 # -- the collectives a step runs (test_hlo_collectives, 'data' axis) ------------

@@ -115,13 +115,13 @@ def _calls(mesh):
 
 
 def _mlp_store(params, optimizer, opt_kw, placement, hidden,
-               aggregate="mean"):
+               aggregate="mean", mode=None):
     import ps_tpu_torch as ps
     from ps_tpu_torch.models.mlp import MLP
 
     model = MLP(hidden=hidden)
     store = ps.KVStore(optimizer=optimizer, placement=placement,
-                       aggregate=aggregate, **opt_kw)
+                       aggregate=aggregate, mode=mode, **opt_kw)
     store.init(model.params_from_jax(params))
     return model, store
 
@@ -214,29 +214,6 @@ def case_collectives_recorded(rank, k, *, placement):
     eng = store._engine
     return {"calls": _calls(mesh), "dims": dict(eng._dims),
             "state_shapes": {i: v.shape for i, v in _state_np(eng).items()}}
-
-
-def case_async_refused(rank, k):
-    import ps_tpu_torch as ps
-
-    try:
-        ps.KVStore(optimizer="sgd", mode="async")
-    except NotImplementedError as e:
-        return {"error": str(e)}
-    return {"error": ""}
-
-
-def case_lamb_sharded_refused(rank, k):
-    import torch
-
-    import ps_tpu_torch as ps
-
-    store = ps.KVStore(optimizer="lamb", placement="sharded")
-    try:
-        store.init({"w": torch.zeros((4 * k, 2))})
-    except NotImplementedError as e:
-        return {"error": str(e)}
-    return {"error": ""}
 
 
 def _sparse(num_rows, dim, optimizer, opt_kw, exchange="gather",
@@ -337,21 +314,25 @@ def case_widedeep_steps(rank, k, *, params, deep_table, wide_table, batches,
             "sparse_collective_bytes": deep.collective_bytes}
 
 
-def case_resnet_step(rank, k, *, params, stats, images, labels, placement):
-    """One momentum step of the tiny ResNet on this rank's slice."""
+def case_resnet_step(rank, k, *, params, stats, images, labels, placement,
+                     resnet50=False, label_smoothing=0.0):
+    """One momentum step of the tiny ResNet (or of ResNet-50 in f32) on
+    this rank's slice."""
     import torch
 
     import ps_tpu_torch as ps
     from ps_tpu_torch.models import resnet
 
-    model = resnet.ResNet(stage_sizes=(1, 1), block_cls=resnet.BasicBlock,
-                          num_filters=8, num_classes=10, small_inputs=True,
-                          dtype=torch.float32)
+    model = (resnet.ResNet50(dtype=torch.float32) if resnet50 else
+             resnet.ResNet(stage_sizes=(1, 1), block_cls=resnet.BasicBlock,
+                           num_filters=8, num_classes=10, small_inputs=True,
+                           dtype=torch.float32))
     p, s = model.params_from_jax(params, stats)
     store = ps.KVStore(optimizer="momentum", learning_rate=0.1,
                        momentum=0.9, placement=placement)
     store.init(p)
-    run = store.make_step(resnet.make_loss_fn(model, mesh=store.mesh),
+    run = store.make_step(resnet.make_loss_fn(model, label_smoothing,
+                                              mesh=store.mesh),
                           has_aux=True)
     local = store.shard_batch((_slice(images, rank, k),
                                _slice(labels, rank, k)))
@@ -367,8 +348,11 @@ def case_resnet_step(rank, k, *, params, stats, images, labels, placement):
     return out
 
 
-def case_bert_step(rank, k, *, params, batch):
-    """One LAMB step of BERT-tiny, replicated, on this rank's slice."""
+def case_bert_step(rank, k, *, params, batches, placement="replicated",
+                   learning_rate=1e-3, weight_decay=0.01, local_norms=False):
+    """LAMB steps of BERT-tiny, each on this rank's slice of a global
+    batch. ``local_norms``: a control whose trust ratio takes each rank's
+    shard-local ``‖u‖`` (the norm all-reduce taken out)."""
     import torch
 
     import ps_tpu_torch as ps
@@ -377,14 +361,184 @@ def case_bert_step(rank, k, *, params, batch):
     model = bert.BertMLM(bert.BertConfig.tiny(),
                          generator=torch.Generator().manual_seed(0))
     model.params_from_jax(params)
-    store = ps.KVStore(optimizer="lamb", learning_rate=1e-3,
-                       weight_decay=0.01, placement="replicated")
+    store = ps.KVStore(optimizer="lamb", learning_rate=learning_rate,
+                       weight_decay=weight_decay, placement=placement,
+                       mode="sync")
     store.init(model.param_tree())
-    loss, out = store.make_step(bert.make_mlm_loss_fn(model,
-                                                      mesh=store.mesh))(
-        store.shard_batch({key: _slice(v, rank, k)
-                           for key, v in batch.items()}))
-    return {"loss": float(loss), "params": _flat_np(out)}
+    if local_norms:
+        store._engine._norm_all_reduce = lambda flat: flat
+    run = store.make_step(bert.make_mlm_loss_fn(model, mesh=store.mesh))
+    store.mesh.calls.clear()
+    losses = []
+    for batch in batches:
+        loss, out = run(store.shard_batch({key: _slice(v, rank, k)
+                                           for key, v in batch.items()}))
+        losses.append(float(loss))
+    return {"loss": losses[0], "losses": losses, "params": _flat_np(out),
+            "calls": _calls(store.mesh), "dims": dict(store._engine._dims),
+            "collective_bytes": store.collective_bytes}
+
+
+def _tree_t(tree):
+    """A nested dict of numpy arrays as torch tensors."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {key: _tree_t(v) for key, v in tree.items()}
+    return torch.as_tensor(np.asarray(tree))
+
+
+def _async_result(store, **extra):
+    eng = store._engine
+    return {"version": eng.version, "applies": eng._applies,
+            "staleness_hist": dict(eng.staleness_hist),
+            "apply_count": dict(eng.apply_count),
+            "worker_version": dict(eng._worker_version),
+            "collective_bytes": store.collective_bytes,
+            "calls": _calls(store.mesh), "dims": dict(eng._dims), **extra}
+
+
+def case_async_protocol(rank, k, *, params, grads, placement, hidden,
+                        optimizer="sgd", opt_kw=None):
+    """``tests/test_async_tpu.py``'s fixed interleaving: w0 pulls, w1
+    pushes twice, w0 pushes stale by 2, w0 pulls. Every rank pushes the
+    same global gradient, so the server's mean over the ranks is it."""
+    _, store = _mlp_store(params, optimizer, opt_kw or {"learning_rate": 0.1},
+                          placement, hidden, mode="async")
+    store.mesh.calls.clear()
+    g0, g1a, g1b = (_tree_t(grads[i]) for i in range(3))
+    store.pull_all(worker=0)
+    store.push_all(g1a, worker=1)
+    store.push_all(g1b, worker=1)
+    store.push_all(g0, worker=0)
+    out = _flat_np(store.pull_all(worker=0))
+    return _async_result(store, params=out)
+
+
+def case_async_dc_math(rank, k, *, params, grads, placement, hidden):
+    """``test_dc_correction_math``: one push stale by one version."""
+    _, store = _mlp_store(params, "sgd", {"learning_rate": 0.1}, placement,
+                          hidden, mode="async")
+    w_stale = _flat_np(store.pull_all(worker=0))
+    store.push_all(_tree_t(grads[0]), worker=1)
+    w_now = _flat_np(store.params())
+    store.push_all(_tree_t(grads[1]), worker=0)
+    return {"w_stale": w_stale, "w_now": w_now,
+            "got": _flat_np(store.params())}
+
+
+def case_async_versions(rank, k, *, params, grad, placement, hidden):
+    """``test_version_and_staleness`` (3 workers)."""
+    _, store = _mlp_store(params, "sgd", {"learning_rate": 0.1}, placement,
+                          hidden, mode="async")
+    store.pull_all(worker=0)
+    seen = [store.staleness(0)]
+    store.push_all(_tree_t(grad), worker=1)
+    store.push_all(_tree_t(grad), worker=2)
+    seen += [store._engine.version, store.staleness(0)]
+    store.pull_all(worker=0)
+    seen.append(store.staleness(0))
+    return {"seen": seen}
+
+
+def case_async_trains(rank, k, *, params, batches, placement, hidden):
+    """``test_make_async_step_trains``: 2 workers round-robin, each cycle
+    on this rank's slice of the worker's global batch."""
+    from ps_tpu_torch.models.mlp import make_loss_fn
+
+    model, store = _mlp_store(params, "sgd", {"learning_rate": 0.1},
+                              placement, hidden, mode="async")
+    run = store.make_async_step(make_loss_fn(model))
+    losses = []
+    for step_batches in batches:
+        for w, (images, labels) in enumerate(step_batches):
+            losses.append(float(run(store.shard_batch(
+                (_slice(images, rank, k), _slice(labels, rank, k))),
+                worker=w)))
+    return _async_result(store, losses=losses, staleness=store.staleness(0),
+                         params=_flat_np(store.params()))
+
+
+def case_async_guards(rank, k, *, params, hidden):
+    """``test_mode_guards``: make_step refuses the async store and
+    make_async_step the sync one, on every rank, before any collective."""
+    out = {}
+    for mode, build in (("async", "make_step"), ("sync", "make_async_step")):
+        _, store = _mlp_store(params, "sgd", {}, "replicated", hidden,
+                              mode=mode)
+        try:
+            getattr(store, build)(lambda p, b: 0.0)
+            out[mode] = ""
+        except RuntimeError as e:
+            out[mode] = str(e)
+    return out
+
+
+def case_async_threads(rank, k, *, params, grad, hidden):
+    """Host threads driving workers across ranks are refused, at once and
+    on every rank; the group goes on working from the first thread."""
+    import threading
+
+    _, store = _mlp_store(params, "sgd", {"learning_rate": 0.1},
+                          "replicated", hidden, mode="async")
+    store.pull_all(worker=0)
+    errors = []
+
+    def other():
+        try:
+            store.pull_all(worker=1)
+        except RuntimeError as e:
+            errors.append(str(e))
+
+    t = threading.Thread(target=other)
+    t.start()
+    t.join(timeout=60)
+    store.push_all(_tree_t(grad), worker=0)
+    return {"errors": errors, "alive": t.is_alive(),
+            "version": store._engine.version}
+
+
+def case_async_ckpt(rank, k, *, params, grads, placement, hidden, path,
+                    save=False, restore=None):
+    """The async checkpoint across ranks. Without ``restore``: 3 workers
+    each pull and push, then ``save`` or not, then worker 1 pushes and
+    worker 0 pushes stale. With ``restore`` ('strict' or 'elastic'):
+    restore ``path`` into this group's ``num_workers`` and make those two
+    pushes; a worker the grown job adds (id 3) then pulls and pushes, and
+    a push by an id past ``num_workers`` must raise on every rank."""
+    _, store = _mlp_store(params, "sgd", {"learning_rate": 0.1}, placement,
+                          hidden, mode="async")
+    out = {}
+    eng = store._engine
+    if restore is None:
+        for w in range(3):
+            store.pull_all(worker=w)
+            store.push_all(_tree_t(grads[w]), worker=w)
+        if save:
+            store.save(path)
+            out["saved"] = _flat_np(store.params())
+    else:
+        try:
+            out["restored"] = _flat_np(store.restore(
+                path, elastic=restore == "elastic"))
+        except ValueError as e:
+            return {"refused": str(e)}
+        out["restored_versions"] = dict(eng._worker_version)
+        out["restored_stale"] = sorted({w for w, _ in eng._stale})
+        out["restored_cache"] = sorted(store._async_params)
+    store.push_all(_tree_t(grads[3]), worker=1)
+    store.push_all(_tree_t(grads[4]), worker=0)
+    if store.num_workers > 3:
+        store.pull_all(worker=3)
+        out["new_worker_staleness"] = store.staleness(3)
+        store.push_all(_tree_t(grads[5]), worker=3)
+    try:
+        store.push_all(_tree_t(grads[5]), worker=store.num_workers)
+        out["out_of_range"] = ""
+    except ValueError as e:
+        out["out_of_range"] = str(e)
+    out.update(_async_result(store, params=_flat_np(store.params())))
+    return out
 
 
 def case_ckpt(rank, k, *, params, batches, path, steps, save=False,

@@ -73,7 +73,7 @@ def ranks(tmp_path_factory):
     flat, _ = ref_flatten(params)
     cases = _resnet_cases() + [
         ("bert_step", dict(params={k: np.asarray(v) for k, v in flat.items()},
-                           batch=batch))]
+                           batches=[batch]))]
     return torch_ranks.run_ranks(K, cases, tmp_path_factory.mktemp("resnet"))
 
 
@@ -212,11 +212,3 @@ def test_bert_lamb_step_across_ranks_matches_reference(ranks):
         for k, w in want.items():
             np.testing.assert_allclose(r["params"][k], w, rtol=2e-4,
                                        atol=1e-5, err_msg=k)
-
-
-def test_sharded_lamb_across_ranks_is_refused(tmp_path):
-    """LAMB's trust ratio needs whole-tensor norms, which a shard-local
-    apply does not have: 'sharded' LAMB across ranks raises."""
-    out = torch_ranks.run_ranks(2, [("lamb_sharded_refused", {})], tmp_path)
-    for r in out:
-        assert "whole-tensor norms" in r[0]["error"]

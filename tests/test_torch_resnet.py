@@ -166,6 +166,36 @@ def test_init_follows_flax():
         memory_format=torch.channels_last)
 
 
+def test_init_draws_on_one_thread_whatever_the_thread_count(monkeypatch):
+    """Every conv kernel's erfinv runs on one intra-op thread (the guard
+    the MLP's draw takes, ``models/draws.py``), so the weights are the
+    seed's alone in every process; the caller's thread count is left as
+    it was."""
+    threads = torch.get_num_threads()
+    erfinv_ = torch.Tensor.erfinv_
+    seen = []
+
+    def spy(t):
+        seen.append(torch.get_num_threads())
+        return erfinv_(t)
+
+    monkeypatch.setattr(torch.Tensor, "erfinv_", spy)
+    model = _tiny(block_cls=resnet.BottleneckBlock)
+    try:
+        draws = []
+        for n in (1, 4):
+            torch.set_num_threads(n)
+            draws.append(flatten_with_keys(
+                model.init(torch.Generator().manual_seed(3))[0])[0])
+            assert torch.get_num_threads() == n
+    finally:
+        torch.set_num_threads(threads)
+    kernels = [k for k in draws[0] if k.endswith("kernel")]
+    assert len(seen) == 2 * len(kernels) and set(seen) == {1}
+    for k in kernels:
+        assert torch.equal(draws[0][k], draws[1][k]), k
+
+
 @pytest.mark.parametrize("size,kernel,stride,pads", [
     (224, 7, 2, (2, 3)), (112, 3, 2, (0, 1)), (56, 3, 2, (0, 1)),
     (57, 3, 2, (1, 1)), (56, 1, 2, (0, 0)), (28, 3, 1, (1, 1)),
