@@ -219,6 +219,31 @@ Phases, each raising on failure:
    alone with ``python3 -c "import chip_smoke as c, tempfile;
    c.phase_build(); c.phase_sparse_ps(tempfile.mkdtemp())"``.
 
+18. the 'model', 'seq' and 'pipe' axes (item 7), two ranks sharing the card
+   over gloo as in phase 15: (a) BERT-base MLM under the trainer's
+   ``--model-axis 2`` (phase 7's configuration, ``{data: 1, model: 2}``,
+   ``bert_partition_rules``, LAMB 'sharded'): each rank runs the flash
+   kernel on its 6 of 12 heads, 12 launches a rank a step; 3 bf16 steps
+   against one process within AXES_BF16_LOSS_GATE; one f32 step whose loss
+   is held to one process's within 1e-5 and whose update, per tensor,
+   within phase 15's one-process gate, with a control that skips the
+   row-parallel all-reduce landing 10x outside both; the kernel held
+   against its plain version at a rank's shape, [192, 512, 64] bf16, and
+   timed beside SDPA; (b) the long-context LM at the reference trainer's
+   defaults (vocab 256, d_model 64, 8 heads, 2 layers, seq 256, batch 8,
+   adam 3e-3, 'sharded'), 6 steps: one process with 'full' on the card,
+   then two ranks on ``{data: 1, seq: 2}`` with 'ring' and with
+   'ulysses', and on ``{data: 1, pipe: 2}`` with 2 microbatches, each
+   within the reference's 2e-4 of one process; the trainer itself
+   (``python -m ps_tpu_torch.examples.train_longctx_lm --mesh
+   data=1,seq=2 --attn ring``) on two processes, its final loss within
+   2e-4; (c) the causal flash kernel through ``lm.make_attn_fn('flash')``
+   at d_model 512, 8 heads, seq 2048 (head width 64), f32 and bf16,
+   against its plain version, timed beside SDPA's causal call, and one
+   LM training step with ``attn='flash'`` (2 launches) against 'full'.
+   Run it alone with ``python3 -c "import chip_smoke as c, tempfile;
+   c.phase_build(); c.phase_axes(tempfile.mkdtemp())"``.
+
 It prints one JSON line per timed kernel, then the kernels line, then
 ``{"ok": true, "device": {...}}`` as its last line. Without a GPU, or
 without the rest of the repository beside it, it fails before printing
@@ -241,6 +266,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor cores, the same sheet
+F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores, the same sheet
 RTOL, ATOL = 1e-6, 1e-7    # f32; bf16 is held to one bf16 ulp
 STEPS, BATCH = 50, 512
 SLEEP_CYCLES = 200_000_000  # ~0.1 s at the H100's clock: _device_ms's head start
@@ -2107,12 +2133,11 @@ def _async_cycles(placement, cycles=TWO_ASYNC_CYCLES,
     cycles a worker (under "snapshot"). With ``witness`` (one process),
     each cycle is :func:`_mean_of_slices_step` over the batch's slices
     for ``witness`` ranks."""
-    import types
-
     import ps_tpu_torch as ps
     from ps_tpu_torch.data.synthetic import mnist_batches
     from ps_tpu_torch.kv.store import rank_slice
     from ps_tpu_torch.models.mlp import MLP, make_loss_fn
+    from ps_tpu_torch.parallel.mesh import Mesh
 
     mesh = ps.current_context().mesh
     model = MLP(hidden=hidden)
@@ -2124,7 +2149,7 @@ def _async_cycles(placement, cycles=TWO_ASYNC_CYCLES,
                for w in range(ASYNC_WORKERS)]
     if witness:
         run = _mean_of_slices_step(store, make_loss_fn(model))
-        parts = [types.SimpleNamespace(rank=r, size=witness)
+        parts = [Mesh({"data": witness}, coords={"data": r})
                  for r in range(witness)]
         batches = [[[store.shard_batch(rank_slice(b, part)) for part in parts]
                     for b in (next(st) for _ in range(cycles))]
@@ -2446,7 +2471,7 @@ def _two_ranks_ea_worker(rank, port, outdir):
                            mode="sync")
         store.init(model.param_tree())
         if local:  # the control: each rank's own ‖u‖ of its slices
-            store._engine._norm_all_reduce = lambda flat: flat
+            store._engine._norm_all_reduce = lambda flat, axis: flat
         run = store.make_step(make_mlm_loss_fn(model, mesh=store.mesh))
         placed = [store.shard_batch(b) for b in batches[:steps]]
         torch.cuda.synchronize()
@@ -4103,6 +4128,534 @@ def phase_sparse_ps(tmp):
             "off_err": off_err}
 
 
+# phase 18: the 'model', 'seq' and 'pipe' axes, two ranks sharing the card
+# over gloo. (a) BERT-base under --model-axis 2, phase 7's configuration.
+# Its f32 step is held to one process's: the loss by phase 15's f32 loss
+# gate and the update per tensor by phase 15's one-process update gate;
+# a control that skips the row-parallel all-reduce (each rank's partial
+# sums taken for the whole) must land AXES_CONTROL_FACTOR outside the
+# update gate. Its bf16 losses are two bf16 forwards that split the
+# GEMMs differently (the heads over two ranks, the row-parallel products
+# in bf16 halves, summed): each activation may round the other way (one bf16 ulp,
+# 2^-8 of itself), so the mean loss is held to AXES_BF16_LOSS_GATE, a
+# quarter of one bf16 rounding; the f32 step is the tight check. (b) the
+# long-context LM at the reference trainer's defaults, each parallel
+# run's losses within the reference's 2e-4 (tests/test_lm.py) of one
+# process's 'full'. (c) the causal flash kernel at a head width it takes,
+# through lm.make_attn_fn('flash')
+AXES_TIMEOUT_S = 600
+AXES_BERT_STEPS = 3
+AXES_CONTROL_FACTOR = 10.0
+AXES_BF16_LOSS_GATE = 1e-3
+AXES_TP = 2
+LM_CFG = dict(vocab=256, d_model=64, n_heads=8, n_layers=2)
+LM_SEQ, LM_BATCH, LM_LR, LM_STEPS = 256, 8, 3e-3, 6
+LM_TOL = 2e-4
+# (mesh, attn, microbatches) of each two-rank LM run
+LM_RUNS = {"ring": ({"data": 1, "seq": 2}, "ring", 0),
+           "ulysses": ({"data": 1, "seq": 2}, "ulysses", 0),
+           "pipe": ({"data": 1, "pipe": 2}, "full", 2)}
+# (c): the causal kernel at d_model 512, 8 heads (head width 64), seq 2048
+CAUSAL_B, CAUSAL_T, CAUSAL_H, CAUSAL_D = 2, 2048, 8, 64
+
+
+@contextlib.contextmanager
+def _no_row_reduce():
+    """The control of phase 18 (a): Megatron's ``g`` (the row-parallel
+    all-reduce over 'model') taken out, so each rank's forward takes its
+    partial sums for the whole."""
+    from ps_tpu_torch.parallel import collectives
+
+    saved = collectives.reduce_from_axis
+    collectives.reduce_from_axis = lambda t, mesh, axis: t
+    try:
+        yield
+    finally:
+        collectives.reduce_from_axis = saved
+
+
+def _axes_bert_runs():
+    """Phase 18 (a)'s runs: ``{name: (dtype, control, steps)}``."""
+    return {"bert": (torch.bfloat16, False, AXES_BERT_STEPS),
+            "bert_f32": (torch.float32, False, 1),
+            "bert_f32/no_row_reduce": (torch.float32, True, 1)}
+
+
+def _axes_bert_worker(rank, port, outdir):
+    """Phase 18 (a) on one of two ranks: BERT-base MLM on ``{data: 1,
+    model: 2}`` with bert_partition_rules and LAMB 'sharded', as the
+    trainer's ``--model-axis 2`` runs it."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.kv.store import rank_slice
+    from ps_tpu_torch.models.bert import (BertConfig, BertMLM,
+                                          bert_partition_rules,
+                                          make_mlm_loss_fn)
+
+    ctx = ps.init(backend="cuda", device="cuda:0",
+                  mesh_shape={"data": 1, "model": AXES_TP},
+                  **_group_init(AXES_TP, rank, port, dist_backend="gloo"))
+    mesh = ctx.mesh
+    fa = _flash()
+    results = {"backend": mesh.backend, "coords": dict(mesh.coords)}
+    batches = [rank_slice(b, mesh) for b in _bert_batches()]
+    for name, (dtype, control, steps) in _axes_bert_runs().items():
+        model = BertMLM(BertConfig(dtype=dtype, attn="flash"),
+                        generator=torch.Generator().manual_seed(0))
+        store = ps.KVStore(optimizer="lamb", learning_rate=1e-3,
+                           weight_decay=0.01, placement="sharded",
+                           partition_rules=bert_partition_rules())
+        store.init(model.param_tree())
+        run = store.make_step(make_mlm_loss_fn(model, mesh=store.mesh))
+        placed = [store.shard_batch(b) for b in batches[:steps]]
+        held = sum(t.numel() for t in store._engine._params.values())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mesh.calls.clear()
+        fa.LAUNCHES = 0
+        losses, times = [], []
+        with _no_row_reduce() if control else contextlib.nullcontext():
+            for b in placed:
+                t0 = time.perf_counter()
+                loss, _ = run(b)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(float(loss))
+        launches = fa.LAUNCHES
+        # the forward's whole leaves (embeddings, LayerNorms, the biases
+        # no rule covers), gathered over 'model' after each step
+        gathers = [c.nbytes for c in mesh.calls
+                   if c.op == "all_gather" and c.axis == "model"]
+        params = store.params()
+        results[name] = {
+            "losses": losses, "step_ms": [t * 1e3 for t in times],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": launches, "held": held, "gathers": gathers,
+            "whole": sum(p.numel() for p in model.parameters()),
+            "row_reduces": sum(c.op == "all_reduce" and c.axis == "model"
+                               and len(c.shape) == 3 for c in mesh.calls)}
+        if dtype == torch.float32:
+            update = _bert_update(model, params)
+            results[name]["update"] = update if rank == 0 else None
+            results[name]["digest"] = {k: float(v.double().sum())
+                                       for k, v in update.items()}
+        del model, store, run, placed, params
+        torch.cuda.empty_cache()
+    torch.save(results, os.path.join(outdir, f"axes_bert{rank}.pt"))
+    ps.shutdown()
+
+
+def _lm_losses(store, loss_fn, mesh, steps=LM_STEPS):
+    """``steps`` steps of the LM through ``store.make_step`` on this rank's
+    part of the reference trainer's batches; the losses and step times."""
+    from ps_tpu_torch.kv.store import rank_slice
+    from ps_tpu_torch.models import lm
+
+    run = store.make_step(loss_fn)
+    losses, times = [], []
+    for b in lm.lm_batches(LM_BATCH, LM_SEQ, vocab=LM_CFG["vocab"], seed=0,
+                           steps=steps):
+        placed = store.shard_batch(rank_slice(b, mesh))
+        t0 = time.perf_counter()
+        loss, _ = run(placed)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    return losses, times
+
+
+def _lm_store(mesh, attn, microbatches):
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.models import lm
+
+    params = lm.init_params(np.random.default_rng(0), **LM_CFG,
+                            max_len=LM_SEQ + 1)
+    attn_fn = lm.make_attn_fn(attn, mesh=mesh)
+    rules = None
+    if microbatches:
+        pp = mesh.axis_size("pipe")
+        params = lm.split_pipeline_params(params, num_stages=pp)
+        rules = lm.pipeline_lm_partition_rules()
+        loss_fn = lm.make_pipelined_loss_fn(
+            n_heads=LM_CFG["n_heads"], num_stages=pp,
+            microbatches=microbatches, mesh=mesh, attn_fn=attn_fn)
+    else:
+        loss_fn = lm.make_loss_fn(n_heads=LM_CFG["n_heads"], attn_fn=attn_fn,
+                                  mesh=mesh)
+    store = ps.KVStore(optimizer="adam", learning_rate=LM_LR,
+                       placement="sharded", partition_rules=rules)
+    store.init(params)
+    return store, loss_fn
+
+
+def _axes_lm_worker(rank, ports, outdir):
+    """Phase 18 (b) on one of two ranks: the LM runs of LM_RUNS, each in a
+    process group of its own (``ports``: one a run, comma-separated)."""
+    import ps_tpu_torch as ps
+
+    results = {}
+    ports = [int(p) for p in ports.split(",")]
+    for port, (name, (shape, attn, micro)) in zip(ports, LM_RUNS.items()):
+        ctx = ps.init(backend="cuda", device="cuda:0", mesh_shape=shape,
+                      **_group_init(2, rank, port, dist_backend="gloo"))
+        store, loss_fn = _lm_store(ctx.mesh, attn, micro)
+        losses, times = _lm_losses(store, loss_fn, ctx.mesh)
+        results[name] = {"losses": losses, "step_ms": [t * 1e3
+                                                       for t in times],
+                         "ops": sorted({(c.op, c.axis)
+                                        for c in ctx.mesh.calls})}
+        ps.shutdown()
+    torch.save(results, os.path.join(outdir, f"axes_lm{rank}.pt"))
+
+
+def _run_pair(flag, port, tmp, extra_env=None, args=()):
+    """Two processes of ``flag`` (this script's worker modes, or a module
+    with ``args``), waited for, killed if they outlive AXES_TIMEOUT_S."""
+    if flag.startswith("--"):
+        cmds = [[sys.executable, os.path.abspath(__file__), flag, str(r),
+                 str(port), tmp] for r in range(2)]
+    else:
+        cmds = [[sys.executable, "-m", flag, *args] for _ in range(2)]
+    procs, outs = [], []
+    here = os.path.dirname(os.path.abspath(__file__))
+    for r, cmd in enumerate(cmds):
+        env = dict(os.environ)
+        env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+        if extra_env:
+            env.update({k: v.format(rank=r) for k, v in extra_env.items()})
+        out = open(os.path.join(tmp, f"pair-{port}-{r}.log"), "w+")
+        outs.append(out)
+        procs.append(subprocess.Popen(cmd, env=env, stdout=out, cwd=here,
+                                      stderr=subprocess.STDOUT, text=True))
+    try:
+        rcs = [p.wait(timeout=AXES_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    logs = []
+    for out in outs:
+        out.seek(0)
+        logs.append(out.read())
+        out.close()
+    if rcs != [0, 0]:
+        raise AssertionError(f"{flag} pair exited {rcs}:\n"
+                             + "\n".join(l[-3000:] for l in logs))
+    return logs
+
+
+def _axes_bert(tmp, card):
+    """Phase 18 (a): two tensor-parallel ranks against one process."""
+    from ps_tpu_torch.models.bert import BertConfig, BertMLM
+
+    _run_pair("--axes-bert-worker", _free_port(), tmp)
+    ranks = [torch.load(os.path.join(tmp, f"axes_bert{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    if [r["backend"] for r in ranks] != ["gloo", "gloo"]:
+        raise AssertionError(f"backends {[r['backend'] for r in ranks]}")
+    batches = _bert_batches()
+    one = {}
+    for dtype, steps in ((torch.bfloat16, AXES_BERT_STEPS),
+                         (torch.float32, 1)):
+        model = BertMLM(BertConfig(dtype=dtype, attn="flash"),
+                        generator=torch.Generator().manual_seed(0))
+        losses, times, params = _bert_run(model, "cuda", batches[:steps])
+        one[dtype] = (losses, _bert_update(model, params)
+                      if dtype == torch.float32 else None, times)
+        del model, params
+        torch.cuda.empty_cache()
+    layers = BertConfig().num_layers
+    per = [r["bert"] for r in ranks]
+    loss_gate = AXES_BF16_LOSS_GATE
+    rel = [abs(a - b) / abs(b) for a, b in zip(per[0]["losses"],
+                                               one[torch.bfloat16][0])]
+    f32_gate = TWO_RESNET_GATES[torch.float32][0]
+    f32_rel = {name: abs(ranks[0][name]["losses"][0] - one[torch.float32][0][0])
+               / abs(one[torch.float32][0][0])
+               for name in ("bert_f32", "bert_f32/no_row_reduce")}
+    if f32_rel["bert_f32"] > f32_gate or \
+            f32_rel["bert_f32/no_row_reduce"] < AXES_CONTROL_FACTOR * f32_gate:
+        raise AssertionError(f"BERT --model-axis 2 f32 loss against one "
+                             f"process: relative {f32_rel} (gate {f32_gate}; "
+                             f"the control must land "
+                             f"{AXES_CONTROL_FACTOR}x outside)")
+    for r in per:
+        if r["launches"] != layers * AXES_BERT_STEPS or \
+                r["losses"] != per[0]["losses"]:
+            raise AssertionError(
+                f"BERT --model-axis 2: flash launches {r['launches']} (want "
+                f"{layers * AXES_BERT_STEPS}), losses {r['losses']} vs rank "
+                f"0's {per[0]['losses']}")
+        # g's all-reduce of the row-parallel sums forward and f's of the
+        # column-parallel inputs' gradients backward: 2 + 2 a layer a step
+        if r["row_reduces"] != 4 * layers * AXES_BERT_STEPS:
+            raise AssertionError(f"BERT --model-axis 2: {r['row_reduces']} "
+                                 f"activation all-reduces over 'model'")
+        # one flat all-gather a step of every f32 leaf the heuristic cut
+        if len(r["gathers"]) != AXES_BERT_STEPS:
+            raise AssertionError(f"BERT --model-axis 2: {len(r['gathers'])} "
+                                 f"all-gathers of the forward's whole "
+                                 f"leaves over 'model' in "
+                                 f"{AXES_BERT_STEPS} steps")
+    if not np.all(np.isfinite(per[0]["losses"])) or max(rel) > loss_gate:
+        raise AssertionError(f"BERT --model-axis 2 bf16 losses "
+                             f"{per[0]['losses']} vs one process "
+                             f"{one[torch.bfloat16][0]}: relative {rel} "
+                             f"(gate {loss_gate})")
+    # (the control's ranks each take their own partial sums: they differ)
+    if ranks[1]["bert_f32"]["digest"] != ranks[0]["bert_f32"]["digest"]:
+        raise AssertionError("bert_f32: the ranks' params differ")
+    gate = TWO_BERT_UPDATE_GATES["one process"]
+    held = _bert_update_deviation(ranks[0]["bert_f32"]["update"],
+                                  one[torch.float32][1], TWO_BERT_NOISE_ONLY)
+    control = _bert_update_deviation(
+        ranks[0]["bert_f32/no_row_reduce"]["update"], one[torch.float32][1],
+        TWO_BERT_NOISE_ONLY)
+    readings = (f"f32 loss against one process: relative "
+                f"{f32_rel['bert_f32']:.3g} (gate {f32_gate}; the control "
+                f"{f32_rel['bert_f32/no_row_reduce']:.3g}); "
+                f"f32 update against one process: worst per-tensor relative "
+                f"2-norm {held[0]:.3g} ({held[1]}), gate {gate}; the control "
+                f"without the row-parallel all-reduce {control[0]:.3g} "
+                f"({control[1]}, {control[0] / gate:.1f}x the gate); the "
+                f"{TWO_BERT_NOISE_ONLY} tensors (round-off only): "
+                f"{held[2]:.3g}")
+    if held[0] > gate:
+        raise AssertionError(f"BERT --model-axis 2: {readings}")
+    if control[0] < AXES_CONTROL_FACTOR * gate:
+        raise AssertionError(f"BERT --model-axis 2: the control lands "
+                             f"inside {AXES_CONTROL_FACTOR}x the gate: "
+                             f"{readings}")
+    r0 = per[0]
+    log(f"phase 18 (a): BERT-base MLM, --model-axis 2 ({{data: 1, model: "
+        f"2}}, two ranks on one card over gloo), bert_partition_rules, LAMB "
+        f"'sharded', flash on each rank's 6 of 12 heads, seq {BERT_SEQ}, "
+        f"global batch {BERT_BATCH}, bf16: {AXES_BERT_STEPS} steps, losses "
+        f"{[round(x, 5) for x in r0['losses']]} vs one process "
+        f"{[round(x, 5) for x in one[torch.bfloat16][0]]} (relative "
+        f"{max(rel):.3g}, gate {loss_gate}); flash launches a rank "
+        f"{[r['launches'] for r in per]} ({layers} a step); "
+        f"{r0['row_reduces']} activation all-reduces over 'model' a rank "
+        f"(2 forward, 2 backward a layer a step); "
+        f"{len(r0['gathers'])} all-gathers over 'model' of the leaves the "
+        f"forward takes whole ({r0['gathers'][0]:,} bytes each, one a "
+        f"step); a rank holds "
+        f"{r0['held']:,} of {r0['whole']:,} parameters; {readings}; card "
+        f"{card}")
+    log(f"phase 18 (a), a correctness run through host memory, not a speed "
+        f"figure: step ms a rank {[[round(t, 1) for t in r['step_ms']] for r in per]}, "
+        f"peak memory a rank {[round(r['peak_gib'], 2) for r in per]} GiB; "
+        f"one process {[round(t * 1e3, 1) for t in one[torch.bfloat16][2]]} "
+        f"ms; card {card}")
+    return {"launches": [r["launches"] for r in per],
+            "peak_gib": [r["peak_gib"] for r in per]}
+
+
+def _flash_entry(q, k, v, mask, heads, causal, dtype):
+    """Kernel against plain on ``q, k, v`` [BH, S, d] and their device
+    times, beside scaled_dot_product_attention's on the same tensors."""
+    fa = _flash()
+    bh, s, d = q.shape
+    b = bh // heads
+    scale = d ** -0.5
+    out, _ = fa._flash_fwd_cuda(q, k, v, mask, scale, causal, heads)
+    want, _ = fa._flash_fwd_torch(q, k, v, mask, scale, causal, heads)
+    err = _flash_compare(out, want, dtype, f"flash [{bh}, {s}, {d}] {dtype} "
+                         f"causal={causal}")
+    ms = _device_ms(lambda: fa._flash_fwd_cuda(q, k, v, mask, scale, causal,
+                                               heads))
+    plain_ms = _call_ms(lambda: fa._flash_fwd_torch(
+        q, k, v, mask, scale, causal, heads), iters=5, warmup=1)
+    qs, ks, vs = (t.reshape(b, heads, s, d) for t in (q, k, v))
+    if causal:
+        library_ms = _device_ms(lambda: torch.nn.functional.
+                                scaled_dot_product_attention(
+                                    qs, ks, vs, is_causal=True))
+    else:
+        keep = (mask > 0)[:, None, None, :]
+        library_ms = _device_ms(lambda: torch.nn.functional.
+                                scaled_dot_product_attention(
+                                    qs, ks, vs, attn_mask=keep))
+    size = torch.finfo(dtype).bits // 8
+    nbytes = 4 * bh * s * d * size + bh * s * 4 + b * s * 4
+    # the score pairs this run needs: all of them, or the causal triangle
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 4 * bh * pairs * d
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / peak * 1e3
+    return {"shape": [bh, s, d], "dtype": str(dtype).split(".")[-1],
+            "causal": causal, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+
+
+def _axes_causal_flash(card):
+    """Phase 18 (c): the causal kernel through lm.make_attn_fn('flash') at
+    head width 64, and one LM step with attn='flash' (n_layers launches)
+    against 'full'."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.models import lm
+
+    fa = _flash()
+    dev = torch.device("cuda", 0)
+    fn = lm.make_attn_fn("flash")
+    entries = {}
+    g = torch.Generator(dev).manual_seed(18)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn((CAUSAL_B, CAUSAL_T, CAUSAL_H, CAUSAL_D),
+                               generator=g, device=dev).to(dtype)
+                   for _ in range(3))
+        fa.LAUNCHES = 0
+        out = fn(q, k, v, causal=True)
+        if fa.LAUNCHES != 1:
+            raise AssertionError(f"make_attn_fn('flash'): {fa.LAUNCHES} "
+                                 f"launches")
+
+        def pack(x):
+            return x.transpose(1, 2).reshape(CAUSAL_B * CAUSAL_H, CAUSAL_T,
+                                             CAUSAL_D).contiguous()
+
+        mask = torch.ones((CAUSAL_B, CAUSAL_T), dtype=torch.int32,
+                          device=dev)
+        got = pack(out)
+        want, _ = fa._flash_fwd_torch(pack(q), pack(k), pack(v), mask,
+                                      CAUSAL_D ** -0.5, True, CAUSAL_H)
+        _flash_compare(got, want, dtype, "make_attn_fn('flash')")
+        entries[str(dtype).split(".")[-1]] = _flash_entry(
+            pack(q), pack(k), pack(v), mask, CAUSAL_H, True, dtype)
+        del q, k, v, out, got, want
+    # one LM training step with the causal kernel against 'full' (f32)
+    cfg = dict(vocab=256, d_model=CAUSAL_H * CAUSAL_D, n_heads=CAUSAL_H,
+               n_layers=2)
+    losses = {}
+    for attn in ("flash", "full"):
+        ctx = ps.init(backend="cuda")
+        params = lm.init_params(np.random.default_rng(0), **cfg,
+                                max_len=CAUSAL_T + 1)
+        store = ps.KVStore(optimizer="adam", learning_rate=LM_LR,
+                           placement="sharded")
+        store.init(params)
+        run = store.make_step(lm.make_loss_fn(
+            n_heads=CAUSAL_H, attn_fn=lm.make_attn_fn(attn)))
+        batch = next(lm.lm_batches(CAUSAL_B, CAUSAL_T, vocab=cfg["vocab"],
+                                   seed=0))
+        placed = store.shard_batch(batch)
+        fa.LAUNCHES = 0
+        loss, _ = run(placed)
+        losses[attn] = (float(loss), fa.LAUNCHES)
+        ps.shutdown()
+        del ctx, store, run, params
+        torch.cuda.empty_cache()
+    if losses["flash"][1] != cfg["n_layers"] or losses["full"][1] != 0:
+        raise AssertionError(f"LM step flash launches {losses}")
+    rel = abs(losses["flash"][0] - losses["full"][0]) / abs(
+        losses["full"][0])
+    if rel > FLASH_TOL[torch.float32]:
+        raise AssertionError(f"LM step flash vs full: {losses} (relative "
+                             f"{rel:.3g})")
+    for name, e in entries.items():
+        log(f"phase 18 (c): causal flash through lm.make_attn_fn('flash'), "
+            f"{name} [{CAUSAL_B * CAUSAL_H}, {CAUSAL_T}, {CAUSAL_D}] (d_model "
+            f"{CAUSAL_H * CAUSAL_D}, {CAUSAL_H} heads): kernel vs plain max "
+            f"abs err {e['max_abs_err']:.3g}; kernel {e['ms']:.5f} ms, "
+            f"scaled_dot_product_attention(is_causal=True) "
+            f"{e['library_ms']:.5f} ms, plain {e['plain_ms']:.3f} ms, bound "
+            f"{e['bound_ms']:.5f} ms ({e['bound_by']}); card {card}")
+    log(f"phase 18 (c): one LM training step (d_model "
+        f"{cfg['d_model']}, {CAUSAL_H} heads, 2 layers, seq {CAUSAL_T}, "
+        f"batch {CAUSAL_B}, f32) with attn='flash': {losses['flash'][1]} "
+        f"launches, loss {losses['flash'][0]:.6f} vs 'full' "
+        f"{losses['full'][0]:.6f} (relative {rel:.3g}, gate "
+        f"{FLASH_TOL[torch.float32]})")
+    return entries, losses["flash"][1]
+
+
+def _axes_lm(tmp, card):
+    """Phase 18 (b): the LM's two-rank runs and the trainer against one
+    process's 'full'."""
+    import ps_tpu_torch as ps
+
+    ps.init(backend="cuda")
+    store, loss_fn = _lm_store(ps.current_context().mesh, "full", 0)
+    one, one_ms = _lm_losses(store, loss_fn, ps.current_context().mesh)
+    ps.shutdown()
+    del store
+    _run_pair("--axes-lm-worker",
+              ",".join(map(str, _distinct_ports(len(LM_RUNS)))), tmp)
+    ranks = [torch.load(os.path.join(tmp, f"axes_lm{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    worst = {}
+    for name, (shape, attn, micro) in LM_RUNS.items():
+        for r in ranks:
+            np.testing.assert_allclose(r[name]["losses"], one, rtol=LM_TOL,
+                                       atol=LM_TOL, err_msg=name)
+        worst[name] = max(abs(a - b) / abs(b) for a, b in
+                          zip(ranks[0][name]["losses"], one))
+        want = {"ring": ("ppermute", "seq"), "ulysses": ("all_to_all", "seq"),
+                "pipe": ("broadcast", "pipe")}[name]
+        if want not in ranks[0][name]["ops"]:
+            raise AssertionError(f"LM {name}: ran {ranks[0][name]['ops']}")
+    # the trainer as a user runs it, two processes, the ring mesh
+    port = _free_port()
+    env = {"PS_COORDINATOR_URI": f"127.0.0.1:{port}", "PS_NUM_PROCESSES": "2",
+           "PS_PROCESS_ID": "{rank}", "PS_DIST_BACKEND": "gloo"}
+    logs = _run_pair("ps_tpu_torch.examples.train_longctx_lm", port, tmp,
+                     env, ["--mesh", "data=1,seq=2", "--attn", "ring",
+                           "--steps", str(LM_STEPS), "--device", "cuda:0"])
+    finals = [float(next(line for line in l.splitlines()
+                         if line.startswith("done:")).split()[-1])
+              for l in logs]
+    for final in finals:
+        if abs(final - one[-1]) > LM_TOL * abs(one[-1]) + 5e-7:
+            raise AssertionError(f"train_longctx_lm final losses {finals} vs "
+                                 f"one process {one[-1]}")
+    log(f"phase 18 (b): the LM at the reference trainer's defaults (vocab "
+        f"{LM_CFG['vocab']}, d_model {LM_CFG['d_model']}, "
+        f"{LM_CFG['n_heads']} heads, {LM_CFG['n_layers']} layers, seq "
+        f"{LM_SEQ}, batch {LM_BATCH}, adam {LM_LR}, 'sharded'), {LM_STEPS} "
+        f"steps on the card: one process 'full' losses "
+        f"{[round(x, 6) for x in one]}; two ranks over gloo, worst relative "
+        + ", ".join(f"{n} ({LM_RUNS[n][0]}, {LM_RUNS[n][1]}"
+                    + (f", {LM_RUNS[n][2]} microbatches" if LM_RUNS[n][2]
+                       else "") + f") {worst[n]:.3g}" for n in LM_RUNS)
+        + f" (gate {LM_TOL}); python -m ps_tpu_torch.examples."
+        f"train_longctx_lm --mesh data=1,seq=2 --attn ring on two processes: "
+        f"final losses {finals} vs {one[-1]:.6f}; step ms a rank "
+        + ", ".join(f"{n} {[round(t, 1) for t in ranks[0][n]['step_ms']]}"
+                    for n in LM_RUNS)
+        + f", one process {[round(t * 1e3, 1) for t in one_ms]} (through "
+        f"host memory: not a speed figure); card {card}")
+
+
+def phase_axes(tmp):
+    """18: the 'model', 'seq' and 'pipe' axes on the card; returns the
+    flash kernel's readings for the kernels line."""
+    card = _card_line()
+    t0 = time.perf_counter()
+    a = _axes_bert(tmp, card)
+    b, s, h, d = BERT_BATCH, BERT_SEQ, 12 // AXES_TP, 64
+    q, k, v, mask = _flash_case(b, s, h, d, torch.bfloat16, "ones", seed=181)
+    rank_entry = _flash_entry(q, k, v, mask, h, False, torch.bfloat16)
+    del q, k, v, mask
+    log(f"phase 18 (a): the flash kernel at a tensor-parallel rank's shape "
+        f"[{b * h}, {s}, {d}] bf16 (6 of 12 heads): kernel vs plain max abs "
+        f"err {rank_entry['max_abs_err']:.3g} (tol "
+        f"{FLASH_TOL[torch.bfloat16]}), kernel {rank_entry['ms']:.5f} ms, "
+        f"scaled_dot_product_attention {rank_entry['library_ms']:.5f} ms, "
+        f"plain {rank_entry['plain_ms']:.3f} ms, bound "
+        f"{rank_entry['bound_ms']:.5f} ms ({rank_entry['bound_by']}); card "
+        f"{card}")
+    _axes_lm(tmp, card)
+    causal, lm_launches = _axes_causal_flash(card)
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s")
+    rank_entry["launches_per_rank"] = a["launches"]
+    for e in causal.values():
+        e["launches_lm_step"] = lm_launches
+    return {"tp_rank": rank_entry, "causal_lm": causal}
+
+
 def main():
     if len(sys.argv) == 5 and sys.argv[1] == "--two-ranks-worker":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -4111,6 +4664,14 @@ def main():
     if len(sys.argv) == 5 and sys.argv[1] == "--two-ranks-ea-worker":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         _two_ranks_ea_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
+    if len(sys.argv) == 5 and sys.argv[1] == "--axes-bert-worker":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _axes_bert_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
+    if len(sys.argv) == 5 and sys.argv[1] == "--axes-lm-worker":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _axes_lm_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
         return 0
     if len(sys.argv) == 6 and sys.argv[1] == "--van-heartbeat-worker":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -4152,6 +4713,8 @@ def main():
         phase_van(tmp)
     with tempfile.TemporaryDirectory(prefix="ps_sparse_") as tmp:
         sparse = phase_sparse_ps(tmp)
+    with tempfile.TemporaryDirectory(prefix="ps_axes_") as tmp:
+        axes = phase_axes(tmp)
     for e in entries:  # each rank's launches in phase 15's 20-step runs
         if e["name"] == "flash_attention/fwd":
             # each rank's launches over phase 15 (e)'s bf16 steps, and the
@@ -4159,6 +4722,10 @@ def main():
             e["launches_per_rank_two_ranks"] = flash_two["launches"]
             e["two_ranks"] = {k: flash_two[k] for k in (
                 "steps", "rank_shape", "rank_shape_ms")}
+            # phase 18: a tensor-parallel rank's heads (a) and the causal
+            # LM's head width 64 (c)
+            e["tensor_parallel_rank"] = axes["tp_rank"]
+            e["causal_lm"] = axes["causal_lm"]
         if e["name"].startswith("sparse"):
             e["launches_per_rank_two_ranks"] = {
                 exchange: counts[e["name"]]

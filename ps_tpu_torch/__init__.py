@@ -31,7 +31,11 @@ replicated or ZeRO-1 sharded, row-sharded sparse tables with the
 ``gather`` and ``a2a`` exchanges, the composite step, cross-rank
 BatchNorm, and the multi-process checkpoint commit with the elastic
 restore, with a heartbeat failure detector (``control/``,
-``CudaBackend.check_health``).
+``CudaBackend.check_health``). The mesh takes the reference's 'model',
+'seq' and 'pipe' axes too: ``partition_rules`` with Megatron BERT
+(``--model-axis``), ring and Ulysses attention, GPipe, and the
+long-context causal LM (``models/lm.py``,
+``examples/train_longctx_lm.py``).
 
 Across processes over the native TCP van (``native/``, ``control/``,
 ``backends/van_service.py``, ``backends/remote_async.py``): async DC-ASGD

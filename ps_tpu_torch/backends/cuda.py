@@ -32,14 +32,16 @@ Counterpart of ``ps_tpu/backends/tpu.py``:
   the same on every rank; host threads are refused there, since each
   rank's lock would order the pushes differently and the collectives
   would pair different pushes.
-- Under 'sharded' LAMB takes its trust ratio's norms of whole tensors
-  (``optim.ShardNorms``): ``‖p‖`` of the whole parameter, which every
-  rank holds, and ``‖u‖`` from the slices' ``Σu²`` summed over the ranks
-  in one all-reduce of a flat tensor a step (a push on the async server,
-  which keeps one state a key and defers every sliced key's trust step
-  to the end of the tree). That all-reduce is recorded in
-  ``mesh.calls``; ``collective_bytes`` does not count it, as the
-  reference's XLA inserts it uncounted.
+- Under 'sharded' (or rules) LAMB takes its trust ratio's norms of
+  whole tensors (``optim.ShardNorms``): ``‖p‖`` of the whole parameter,
+  which a rank holds unless a 'model' or 'pipe' axis slices it (then its
+  ``Σp²`` is summed over those axes), and ``‖u‖`` from the blocks'
+  ``Σu²`` summed over every axis the leaf is cut on, in one all-reduce of
+  a flat tensor an axis a step (a push on the async server, which keeps
+  one state a key and defers every sliced key's trust step to the end of
+  the tree). Those all-reduces are recorded in ``mesh.calls``;
+  ``collective_bytes`` does not count them, as the reference's XLA
+  inserts them uncounted.
 - ``CudaBackend`` (``TpuBackend``): ``init(backend='cuda')``. With a
   ``coordinator_uri`` it joins a process group of ``num_processes`` ranks
   (NCCL on CUDA devices, gloo on the CPU or when ``dist_backend`` names
@@ -56,8 +58,18 @@ backend also runs the heartbeat failure detector of ``control/`` on this
 rank's port: ``check_health()`` raises ``WorkerFailureError`` naming a
 dead rank, and ``shutdown(abort=True)`` is the exit after it.
 
+Placement over a mesh of several axes ('data', 'model', 'seq', 'pipe';
+:mod:`~ps_tpu_torch.parallel.sharding`): both servers take the
+reference's ``partition_rules`` and its heuristic. The sync server holds
+only a rank's 'model' and 'pipe' slices of a leaf: a leaf a rule placed
+there reaches the forward as that slice (Megatron and GPipe forwards),
+one the heuristic placed there is all-gathered before the forward, and
+``pull``/``peek`` return whole tensors. Gradients are summed over 'seq'
+and meaned over 'data', never reduced over 'model' or 'pipe'. The async
+server holds every leaf whole and steps its blocks under the spec.
+
 Not ported yet: the async server's elastic hooks (ROADMAP Queue 1 item
-6) and ``partition_rules`` (item 7).
+6).
 """
 
 from __future__ import annotations
@@ -73,7 +85,6 @@ import torch
 from ps_tpu_torch.backends.common import (
     AGG_WORKER_BASE,
     AsyncStagingMixin,
-    PeekMixin,
     backend_device,
     device_copy,
     make_dc_apply_tree,
@@ -84,79 +95,189 @@ from ps_tpu_torch.kv import keys as keymod
 from ps_tpu_torch.ops.sparse_apply import resolve_tier
 from ps_tpu_torch.optim import ShardNorms
 from ps_tpu_torch.parallel import collectives
-from ps_tpu_torch.parallel.mesh import Mesh, make_mesh
-from ps_tpu_torch.parallel.sharding import (param_sharding, shard,
-                                            sharded_opt_init)
+from ps_tpu_torch.parallel.mesh import (AXES, DATA_AXIS, SEQ_AXIS, Mesh,
+                                        make_mesh)
+from ps_tpu_torch.parallel.sharding import (BATCH_AXES, SLICE_AXES, block,
+                                            param_spec, sharded_opt_init)
 
 # a rendezvous or a collective that does not complete fails after this
 # many seconds instead of hanging
 GROUP_TIMEOUT_S = 600
 
 
+def _data_dims(specs) -> List[Optional[int]]:
+    """Each spec's 'data' dimension, or None."""
+    return [spec.index(DATA_AXIS) if DATA_AXIS in spec else None
+            for spec in specs]
+
+
 class _RankApplyMixin:
-    """The apply across the ranks of ``self.mesh`` that both servers share:
-    the mean of the ranks' gradients (each sharded leaf's for the slice
-    this rank owns), the norms LAMB takes of sliced leaves, and the
-    all-gather of a stepped slice. ``self._dims`` maps each key to the
-    dimension it is sharded on, or None."""
+    """The apply across the ranks of ``self.mesh`` that both servers share.
+
+    ``self._specs`` maps each key to its spec (:mod:`~ps_tpu_torch.
+    parallel.sharding`), ``self._ruled`` says which an explicit rule gave,
+    ``self._whole`` holds each key's whole shape (meta tensors) and
+    ``self._params`` what the rank holds: the block of each leaf along the
+    engine's ``_held_axes`` (the sync server's 'model' and 'pipe'; none
+    on the async server, whose pulls are whole). A rank steps the block
+    it owns along the rest of the spec's axes. ``self._dims`` keeps each
+    key's 'data' dimension (ZeRO-1), or None."""
+
+    _held_axes: tuple = ()
+
+    @property
+    def _owned_axes(self) -> tuple:
+        return tuple(a for a in AXES if a not in self._held_axes)
+
+    def _place(self, key: str, v, rules) -> torch.Tensor:
+        """Choose ``key``'s spec and return the block of ``v`` this rank
+        holds (a tensor of its own on the engine's device)."""
+        t = device_copy(v, self.device)
+        spec, ruled = param_spec(self.mesh.shape, tuple(t.shape),
+                                 self.placement, key, rules)
+        self._specs[key], self._ruled[key] = spec, ruled
+        self._whole[key] = torch.empty(t.shape, dtype=t.dtype, device="meta")
+        self._dims[key] = spec.index(DATA_AXIS) if DATA_AXIS in spec else None
+        held = block(t, spec, self.mesh, self._held_axes)
+        return t if held is t else held.clone()
+
+    def _to_held(self, key: str, g: torch.Tensor) -> torch.Tensor:
+        """A gradient of ``key`` as the block this rank holds: a whole
+        tensor's block (the forward used the leaf whole) or the held block
+        as it is (the forward used that slice)."""
+        held = tuple(self._params[key].shape)
+        if tuple(g.shape) == held:
+            return g
+        if tuple(g.shape) == tuple(self._whole[key].shape):
+            return block(g, self._specs[key], self.mesh, self._held_axes)
+        raise ValueError(f"gradient of {key!r} has shape {tuple(g.shape)}; "
+                         f"this rank holds {held} of "
+                         f"{tuple(self._whole[key].shape)}")
 
     def _reduce(self, grads_kv: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
-        """This rank's gradients -> their mean over the ranks: each sharded
-        leaf's for the slice this rank owns only (a reduce-scatter along
-        its shard dimension, moved to the front), the rest whole (one
-        all-reduce a dtype over a flat buffer)."""
-        mesh, k = self.mesh, self.mesh.size
-        if mesh.group is None:
-            return dict(grads_kv)
-        out: Dict[str, torch.Tensor] = {}
-        whole: Dict[torch.dtype, List[str]] = {}
-        for key, g in grads_kv.items():
-            d = self._dims[key]
-            if d is None:
-                whole.setdefault(g.dtype, []).append(key)
+        """This rank's gradients -> what it steps: summed over 'seq' (its
+        ranks hold partial gradients of the same parameters), then meaned
+        over 'data'; a leaf cut on such an axis is reduce-scattered there
+        (moved to the front), so the rank receives the block it owns, and
+        the rest is all-reduced (one flat buffer a dtype). Over 'model'
+        and 'pipe' nothing is reduced: a leaf sliced there has its
+        block's own gradient on each rank, and a leaf whole there the
+        same gradient on each."""
+        mesh = self.mesh
+        grads = {key: self._to_held(key, g) for key, g in grads_kv.items()}
+        if mesh.world is None:
+            return grads
+        for axis in (SEQ_AXIS, DATA_AXIS):
+            if axis not in mesh.shape or (axis != DATA_AXIS
+                                          and mesh.shape[axis] == 1):
                 continue
-            part = collectives.reduce_scatter(g.movedim(d, 0), mesh)
-            if k > 1:
-                part.div_(k)
-            out[key] = part.movedim(0, d)
-        for keys in whole.values():
-            flat = torch.cat([grads_kv[key].reshape(-1) for key in keys])
-            collectives.all_reduce(flat, mesh)
-            if k > 1:
-                flat.div_(k)
-            sizes = [grads_kv[key].numel() for key in keys]
-            for key, part in zip(keys, flat.split(sizes)):
-                out[key] = part.view(grads_kv[key].shape)
-        return out
+            k = mesh.axis_size(axis)
+            mean = axis == DATA_AXIS and k > 1
+            whole: Dict[torch.dtype, List[str]] = {}
+            for key, g in grads.items():
+                spec = self._specs[key]
+                if axis not in spec:
+                    whole.setdefault(g.dtype, []).append(key)
+                    continue
+                d = spec.index(axis)
+                part = collectives.reduce_scatter(g.movedim(d, 0), mesh,
+                                                  axis=axis)
+                if mean:
+                    part.div_(k)
+                grads[key] = part.movedim(0, d)
+            for keys in whole.values():
+                flat = torch.cat([grads[key].reshape(-1) for key in keys])
+                collectives.all_reduce(flat, mesh, axis=axis)
+                if mean:
+                    flat.div_(k)
+                sizes = [grads[key].numel() for key in keys]
+                for key, part in zip(keys, flat.split(sizes)):
+                    grads[key] = part.view(grads[key].shape)
+        rest = tuple(a for a in self._owned_axes if a not in BATCH_AXES)
+        return {key: block(g, self._specs[key], mesh, rest)
+                for key, g in grads.items()}
 
     def _owned(self, key: str, t: torch.Tensor) -> torch.Tensor:
-        """This rank's slice of a whole tensor of ``key`` (a view)."""
-        return shard(t, self._dims[key], self.mesh.rank, self.mesh.size)
+        """This rank's block of a held tensor of ``key`` (a view)."""
+        return block(t, self._specs[key], self.mesh, self._owned_axes)
 
     def _norms(self, params: Dict[str, torch.Tensor]
                ) -> Optional[ShardNorms]:
-        """What LAMB needs to step slices of ``params`` (whole tensors):
-        None where nothing is sliced."""
-        whole = {key: p for key, p in params.items()
-                 if self._dims[key] is not None}
-        return ShardNorms(whole, self._norm_all_reduce) if whole else None
+        """What LAMB needs to step blocks of ``params`` (held tensors):
+        None where nothing is cut."""
+        whole, p_axes, u_axes = {}, {}, {}
+        for key, p in params.items():
+            cut = tuple(a for a in AXES if a in self._specs[key])
+            if cut:
+                whole[key] = p
+                p_axes[key] = tuple(a for a in cut if a in self._held_axes)
+                u_axes[key] = cut
+        if not whole:
+            return None
+        return ShardNorms(whole, self._norm_all_reduce, p_axes, u_axes)
 
-    def _norm_all_reduce(self, flat: torch.Tensor) -> torch.Tensor:
-        """The sum over the ranks of the sliced leaves' partial ``Σu²``."""
-        return collectives.all_reduce(flat, self.mesh)
+    def _norm_all_reduce(self, flat: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum over one axis's ranks of the cut leaves' partial
+        ``Σu²`` (and ``Σp²``)."""
+        return collectives.all_reduce(flat, self.mesh, axis=axis)
 
     def _gather(self, key: str, owned: torch.Tensor) -> torch.Tensor:
-        """Every rank's stepped slice of ``key``, joined: the whole tensor
-        (a fresh one; ``owned`` itself where ``key`` is whole)."""
-        d = self._dims[key]
-        if d is None:
-            return owned
-        return collectives.all_gather(owned.movedim(d, 0),
-                                      self.mesh).movedim(0, d)
+        """Every rank's stepped block of ``key``, joined into what this
+        rank holds (a fresh tensor; ``owned`` itself where ``key`` is not
+        cut)."""
+        return self._join(key, owned, self._owned_axes)
+
+    def _join(self, key: str, t: torch.Tensor, axes) -> torch.Tensor:
+        for d, ax in enumerate(self._specs[key]):
+            if ax is not None and ax in axes:
+                t = collectives.all_gather(t.movedim(d, 0), self.mesh,
+                                           axis=ax).movedim(0, d)
+        return t
+
+    def _join_many(self, held: Dict[str, torch.Tensor], axes
+                   ) -> Dict[str, torch.Tensor]:
+        """:meth:`_join` of several keys at once: over each of ``axes``,
+        one all-gather of a flat buffer a dtype holding every key cut
+        there (fresh tensors; the inputs where the mesh has no process
+        group)."""
+        out = dict(held)
+        mesh = self.mesh
+        if mesh.world is None:
+            return out
+        for ax in axes:
+            k = mesh.axis_size(ax)
+            by_dtype: Dict[torch.dtype, List[str]] = {}
+            for key, t in out.items():
+                if ax in self._specs[key]:
+                    by_dtype.setdefault(t.dtype, []).append(key)
+            for keys in by_dtype.values():
+                dims = [self._specs[key].index(ax) for key in keys]
+                moved = [out[key].movedim(d, 0) for key, d in zip(keys, dims)]
+                flat = torch.cat([m.reshape(-1) for m in moved])
+                full = collectives.all_gather(flat, mesh, axis=ax).view(k, -1)
+                off = 0
+                for key, d, m in zip(keys, dims, moved):
+                    part = full[:, off:off + m.numel()]
+                    out[key] = part.reshape((k * m.shape[0],)
+                                            + tuple(m.shape[1:])).movedim(0, d)
+                    off += m.numel()
+        return out
+
+    def _whole_of(self, key: str, held: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of ``key`` from this rank's held block (a
+        collective over the held axes; ``held`` itself where none)."""
+        return self._join(key, held, self._held_axes)
+
+    def peek(self, key: str) -> torch.Tensor:
+        """The whole current value of ``key`` (every rank must make the
+        call where the leaf is held in slices)."""
+        if key not in self._params:
+            raise KeyError(f"unregistered key {key!r}")
+        return self._whole_of(key, self._params[key])
 
 
-class CudaServer(_RankApplyMixin, PeekMixin, CheckpointMixin):
+class CudaServer(_RankApplyMixin, CheckpointMixin):
     """Parameter/optimizer-state store with PS semantics over a mesh.
 
     ``apply_count`` counts whole-tree applies (``update_tree`` and every
@@ -165,10 +286,11 @@ class CudaServer(_RankApplyMixin, PeekMixin, CheckpointMixin):
 
     mode = "sync"
     engine_name = "cuda_sync"
+    _held_axes = SLICE_AXES
 
     def __init__(self, optimizer, device: torch.device,
                  aggregate: str = "mean", mesh: Optional[Mesh] = None,
-                 placement: str = "replicated"):
+                 placement: str = "replicated", partition_rules=None):
         if aggregate not in ("mean", "sum"):
             raise ValueError("aggregate must be 'mean' or 'sum'")
         self._opt = optimizer
@@ -176,28 +298,36 @@ class CudaServer(_RankApplyMixin, PeekMixin, CheckpointMixin):
         self.aggregate = aggregate
         self.mesh = mesh if mesh is not None else Mesh({"data": 1})
         self.placement = placement
+        self.partition_rules = partition_rules
         self.num_workers = self.mesh.size
         self._params: Dict[str, torch.Tensor] = {}
         self._state = None
+        self._specs: Dict[str, tuple] = {}
+        self._ruled: Dict[str, bool] = {}
+        self._whole: Dict[str, torch.Tensor] = {}
         self._dims: Dict[str, Optional[int]] = {}
+        self._state_specs: List[tuple] = []
         self._state_dims: List[Optional[int]] = []
         self._staged: Dict[str, torch.Tensor] = {}
+        # (the held dict it was made from, the forward's tree): tree()
+        self._fwd = None
         self.apply_count = 0
         self.collective_bytes = 0
 
     def register_tree(self, kv: Dict[str, Any], treedef, key_order: List[str]):
-        """Register the parameters. Every rank registers the same values
-        (the reference asserts as much across processes)."""
+        """Register the parameters: each rank keeps the block it holds of
+        each (its 'model' and 'pipe' slices) and the optimizer state of
+        the block it owns. Every rank registers the same whole values (the
+        reference asserts as much across processes)."""
         if self._params:
             raise RuntimeError("server already holds a registered tree")
-        k = self.mesh.size
-        self._params = {key: device_copy(v, self.device)
+        self._params = {key: self._place(key, v, self.partition_rules)
                         for key, v in kv.items()}
-        self._dims = {key: param_sharding(p.shape, self.placement, k)
-                      for key, p in self._params.items()}
-        self._state, self._state_dims = sharded_opt_init(
-            self._opt.init, self._params, self._dims, self.mesh.rank, k)
-        return keymod.unflatten(treedef, self._params, key_order)
+        self._state, self._state_specs = sharded_opt_init(
+            self._opt.init, self._params, self._specs, self.mesh,
+            BATCH_AXES)
+        self._state_dims = _data_dims(self._state_specs)
+        return keymod.unflatten(treedef, self.tree(), key_order)
 
     def keys(self):
         return list(self._params)
@@ -213,8 +343,9 @@ class CudaServer(_RankApplyMixin, PeekMixin, CheckpointMixin):
     def _apply_(self, params: Dict[str, torch.Tensor],
                 grads_kv: Dict[str, torch.Tensor]) -> None:
         """Reduce this rank's ``grads_kv`` over the ranks and step
-        ``params`` (whole tensors on every rank) in place: each rank steps
-        the slices it owns, then the sharded leaves are all-gathered."""
+        ``params`` (the held tensors) in place: each rank steps the blocks
+        it owns, then the blocks cut over 'data' or 'seq' are
+        all-gathered."""
         grads = self._reduce(grads_kv)
         scale = self.grad_scale
         if scale != 1.0:
@@ -224,45 +355,66 @@ class CudaServer(_RankApplyMixin, PeekMixin, CheckpointMixin):
         self._opt.step_(owned, grads, self._state, norms)
         if norms is not None:
             norms.finish()
-        for key, d in self._dims.items():
-            if d is not None:
+        for key, spec in self._specs.items():
+            if any(a in spec for a in self._owned_axes):
                 params[key].copy_(self._gather(key, owned[key]))
         self.apply_count += 1
         self._account_update()
 
     def _account_update(self):
+        # the reference's count: the whole tree's bytes over the data axis
         k = self.num_workers
         if self.placement == "replicated":
             # grads were all-reduced across the data axis
             self.collective_bytes += collectives.allreduce_bytes(
-                self._params, k)
+                self._whole, k)
         else:
             # reduce-scatter grads to owners + all-gather params
             self.collective_bytes += collectives.reduce_scatter_bytes(
-                self._params, k)
+                self._whole, k)
             self.collective_bytes += collectives.all_gather_bytes(
-                self._params, k)
+                self._whole, k)
 
     def update_tree(self, grads_kv: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """One server step on this rank's grads (their mean over the ranks
-        is applied); returns the new params. Out of place: tensors pulled
-        before keep their values."""
+        is applied); returns the new params, whole. Out of place: tensors
+        pulled before keep their values."""
         grads_kv = {k: torch.as_tensor(g, device=self.device)
                     for k, g in grads_kv.items()}
         params = {k: p.clone() for k, p in self._params.items()}
         self._apply_(params, grads_kv)
         self._params = params
-        return dict(self._params)
+        return {k: self._whole_of(k, p) for k, p in self._params.items()}
 
     def step_(self, grads_kv: Dict[str, torch.Tensor]) -> None:
-        """The fused step's apply: this rank's grads reduced over the
-        ranks and applied to the server's own tensors in place."""
+        """The fused step's apply: this rank's grads (of the tensors
+        :meth:`tree` gave) reduced over the ranks and applied to the
+        server's own tensors in place; the whole leaves :meth:`tree`
+        gathered are gathered again into the same tensors, so every tree
+        it gave holds the new values."""
         self._apply_(self._params, grads_kv)
+        if self._fwd is not None and self._fwd[0] is self._params:
+            fwd = self._fwd[1]
+            for key, t in self._gathered().items():
+                fwd[key].copy_(t)
+
+    def _gathered(self) -> Dict[str, torch.Tensor]:
+        """The whole of each leaf the heuristic sliced over a held axis
+        (one all-gather a dtype and axis)."""
+        cut = {k: p for k, p in self._params.items() if not self._ruled[k]
+               and any(a in self._specs[k] for a in self._held_axes)}
+        return self._join_many(cut, self._held_axes)
 
     def tree(self) -> Dict[str, torch.Tensor]:
-        """The server's own parameter tensors (the fused steps read and
-        update them in place)."""
-        return dict(self._params)
+        """The parameters the forward takes: the server's own tensors (the
+        fused steps read and update them in place), the block this rank
+        holds of a leaf an explicit rule sliced over 'model' or 'pipe',
+        and, all-gathered there, the whole of a leaf the heuristic sliced
+        (every rank must make the first call; :meth:`step_` keeps these
+        current, so later calls run no collective)."""
+        if self._fwd is None or self._fwd[0] is not self._params:
+            self._fwd = (self._params, {**self._params, **self._gathered()})
+        return dict(self._fwd[1])
 
     # -- per-key protocol (stages, applies at full-tree granularity) --------
 
@@ -289,7 +441,7 @@ class CudaServer(_RankApplyMixin, PeekMixin, CheckpointMixin):
                 f"pull({key!r}) would block: the cuda backend applies at "
                 f"full-tree granularity and keys [{shown}] have not been "
                 f"pushed this step")
-        return self._params[key]
+        return self.peek(key)
 
     def optimizer_state(self, key: str):
         """Per-key view into the whole-tree state: every dict carrying
@@ -329,7 +481,7 @@ class CudaServer(_RankApplyMixin, PeekMixin, CheckpointMixin):
     # no _validate_checkpoint_meta: nothing topology-bound to refuse
 
 
-class AsyncCudaServer(_RankApplyMixin, PeekMixin, AsyncStagingMixin,
+class AsyncCudaServer(_RankApplyMixin, AsyncStagingMixin,
                       CheckpointMixin):
     """Parameter server with ASYNC (stale, delay-compensated) apply on one
     device or across the ranks of a mesh — the reference's workload
@@ -351,16 +503,21 @@ class AsyncCudaServer(_RankApplyMixin, PeekMixin, AsyncStagingMixin,
 
     def __init__(self, optimizer, device: torch.device, num_workers: int,
                  dc_lambda: float = 0.04, mesh: Optional[Mesh] = None,
-                 placement: str = "replicated"):
+                 placement: str = "replicated", partition_rules=None):
         self._opt = optimizer
         self.device = device
         self.num_workers = num_workers
         self.dc_lambda = dc_lambda
         self.mesh = mesh if mesh is not None else Mesh({"data": 1})
         self.placement = placement
+        self.partition_rules = partition_rules
         self._params: Dict[str, torch.Tensor] = {}
         self._state: Dict[str, Any] = {}
+        self._specs: Dict[str, tuple] = {}
+        self._ruled: Dict[str, bool] = {}
+        self._whole: Dict[str, torch.Tensor] = {}
         self._dims: Dict[str, Optional[int]] = {}
+        self._state_specs: List[tuple] = []
         self._state_dims: List[Optional[int]] = []
         self._thread: Optional[int] = None  # the one thread across ranks
         self._stale: Dict[tuple, torch.Tensor] = {}
@@ -375,23 +532,24 @@ class AsyncCudaServer(_RankApplyMixin, PeekMixin, AsyncStagingMixin,
         self._dc_apply = make_dc_apply_tree(optimizer)
 
     def register_tree(self, kv: Dict[str, Any], treedef, key_order: List[str]):
-        """Register the parameters, one optimizer state a key (of the
-        slice this rank owns under 'sharded'). Every rank registers the
+        """Register the parameters, whole on every rank (pulls are whole),
+        and one optimizer state a key, of the block this rank owns under
+        its spec ('sharded', or a rule's axes). Every rank registers the
         same values."""
         if self._params:
             raise RuntimeError("server already holds a registered tree")
-        r, k = self.mesh.rank, self.mesh.size
-        self._params = {key: device_copy(v, self.device)
+        self._params = {key: self._place(key, v, self.partition_rules)
                         for key, v in kv.items()}
-        state_dims = {}
+        state_specs = {}
         for key, v in self._params.items():
-            self._dims[key] = param_sharding(v.shape, self.placement, k)
-            self._state[key], state_dims[key] = sharded_opt_init(
-                self._opt.init, {key: v}, {key: self._dims[key]}, r, k)
+            self._state[key], state_specs[key] = sharded_opt_init(
+                self._opt.init, {key: v}, {key: self._specs[key]},
+                self.mesh)
             self.apply_count[key] = 0
         # in checkpoint.flatten_leaves order: the keys sorted
-        self._state_dims = [d for key in sorted(state_dims)
-                            for d in state_dims[key]]
+        self._state_specs = [spec for key in sorted(state_specs)
+                             for spec in state_specs[key]]
+        self._state_dims = _data_dims(self._state_specs)
         return keymod.unflatten(treedef, self._params, key_order)
 
     def keys(self):
@@ -420,7 +578,7 @@ class AsyncCudaServer(_RankApplyMixin, PeekMixin, AsyncStagingMixin,
         and steps the slices it owns against the same slices of the stale
         snapshots, then the sharded leaves are all-gathered (one device:
         the whole tree here)."""
-        if self.mesh.group is None:
+        if self.mesh.world is None:
             return self._dc_apply(params, states, grads, stales, lam)
         grads = self._reduce(grads)
         owned, states = self._dc_apply(
@@ -635,16 +793,15 @@ class CudaBackend:
     def create_server(self, optimizer, mode: Optional[str] = None,
                       aggregate: str = "mean", placement: str = "replicated",
                       partition_rules=None):
-        if partition_rules:
-            raise NotImplementedError(
-                "partition_rules (tensor parallelism) are not ported yet")
         if (mode or self.config.mode) == "async":
             return AsyncCudaServer(optimizer, self.device,
                                    num_workers=self.config.num_workers,
                                    dc_lambda=self.config.dc_lambda,
-                                   mesh=self.mesh, placement=placement)
+                                   mesh=self.mesh, placement=placement,
+                                   partition_rules=partition_rules)
         return CudaServer(optimizer, self.device, aggregate=aggregate,
-                          mesh=self.mesh, placement=placement)
+                          mesh=self.mesh, placement=placement,
+                          partition_rules=partition_rules)
 
     def shutdown(self, abort: bool = False) -> None:
         """Leave the process group this backend joined. ``abort=True`` is

@@ -47,17 +47,20 @@ port checkpoint; nothing converts the other way.
 Across the k ranks of a process group (the reference's multi-process
 jobs) every rank writes its own slices, ``arrays.<rank>.pt``, into the
 same ``arrays-<gen>/``: of each sharded leaf (ZeRO-1 parameters and
-their optimizer state, a sparse table's rows) the slice it owns, and the
-whole leaves (the async server's stale snapshots and cached pulls among
-them) on rank 0 only. A barrier precedes the commit; rank 0 alone
-writes ``meta.json`` (which records ``world_size`` and each sharded
-array's dimension, ``shard_dims``), flushes the directory and collects
-the garbage; a second barrier follows. A restore joins the slices and
-places each rank's own; across a change of world size it is refused
-unless ``restore(elastic=True)``, which re-slices the whole tensors for
-the new layout (and re-pads a sparse table's rows). The reference's
-orbax reshards a sync checkpoint on any restore; the port asks for the
-flag.
+their optimizer state, a 'model' or 'pipe' slice, a sparse table's
+rows) the block it owns, written by one rank of those that own the same
+block (the one at index 0 of every axis the leaf is not cut on), and
+the whole leaves (the async server's stale snapshots and cached pulls
+among them) on rank 0 only. A barrier precedes the commit; rank 0 alone
+writes ``meta.json`` (which records ``world_size``, the ``mesh_shape``,
+each cut array's spec, ``shard_specs``, and, for an array cut on the
+'data' axis alone, its dimension, ``shard_dims``), flushes the directory
+and collects the garbage; a second barrier follows. A restore joins the
+blocks and places each rank's own; across a change of world size or of
+mesh shape it is refused unless ``restore(elastic=True)``, which
+re-slices the whole tensors for the new layout (and re-pads a sparse
+table's rows). The reference's orbax reshards a sync checkpoint on any
+restore; the port asks for the flag.
 """
 
 from __future__ import annotations
@@ -165,17 +168,20 @@ def save(path: str, arrays: Dict[str, Any], meta: Dict[str, Any],
     as the module docstring says.
 
     Across the k > 1 ranks of ``mesh`` every rank calls this with the same
-    ``path``, its own slices in ``arrays`` and the same ``meta`` (whose
-    ``shard_dims`` names every sliced array and its dimension): each rank
+    ``path``, its own blocks in ``arrays`` and the same ``meta`` (whose
+    ``shard_specs`` or ``shard_dims`` name every cut array's layout): each
+    rank
     writes ``arrays.<rank>.pt`` into the same ``arrays-<gen>/`` (the
     generation comes from the committed meta, the same everywhere); a
     barrier; rank 0 alone commits ``meta.json`` and collects the garbage;
     a barrier, so the commit is visible to every rank when ``save``
     returns."""
     path = os.path.abspath(path)
-    world = 1 if mesh is None else mesh.size
+    world = 1 if mesh is None else mesh.world_size
     meta = dict(meta)
     meta["world_size"] = world
+    if mesh is not None:
+        meta["mesh_shape"] = dict(mesh.shape)
     flat = _flatten_groups(arrays)
     os.makedirs(path, exist_ok=True)
     gen, prev_dir = _last_commit(path)
@@ -193,17 +199,17 @@ def save(path: str, arrays: Dict[str, Any], meta: Dict[str, Any],
         return
     import torch.distributed as dist
 
-    rank = mesh.rank
+    rank = mesh.world_rank
     if rank == 0:
         shutil.rmtree(full, ignore_errors=True)
         os.makedirs(full)
-    dist.barrier(group=mesh.group)
+    dist.barrier(group=mesh.world)
     _write(os.path.join(full, _rank_file(rank, world)), flat)
-    dist.barrier(group=mesh.group)  # every rank's arrays are on disk
+    dist.barrier(group=mesh.world)  # every rank's arrays are on disk
     if rank == 0:
         _fsync_dir(full)
         _commit(path, arrays_dir, gen, prev_dir, meta)
-    dist.barrier(group=mesh.group)
+    dist.barrier(group=mesh.world)
 
 
 def read_meta(path: str) -> Dict[str, Any]:
@@ -216,9 +222,9 @@ def restore(path: str, meta: Optional[Dict[str, Any]] = None
     """The committed checkpoint's arrays as groups of whole CPU tensors,
     memory mapped from the file (copy them to where they belong). A
     checkpoint written by k > 1 ranks is read from every rank's file:
-    each array named in ``meta['shard_dims']`` is its ranks' slices
-    joined in rank order along its dimension, every other array rank
-    0's."""
+    each array named in ``meta['shard_specs']`` (or ``shard_dims``) is
+    its blocks joined in index order along each dimension its spec cuts,
+    every other array rank 0's."""
     if meta is None:
         meta = read_meta(path)
     folder = os.path.join(os.path.abspath(path), meta["arrays_dir"])
@@ -230,11 +236,43 @@ def restore(path: str, meta: Optional[Dict[str, Any]] = None
 
     flat = load(0)
     if world > 1:
-        dims = meta.get("shard_dims", {})
         parts = [flat] + [load(r) for r in range(1, world)]
-        for name, d in dims.items():
-            flat[name] = torch.cat([p[name] for p in parts], dim=d)
+        mesh_shape = meta.get("mesh_shape", {"data": world})
+        for name, spec in saved_specs(meta).items():
+            flat[name] = _join_blocks(parts, name, spec, mesh_shape)
     return _unflatten_groups(flat)
+
+
+def saved_specs(meta: Dict[str, Any]) -> Dict[str, list]:
+    """Each cut array's spec in a checkpoint's meta (one axis name or None
+    a dimension); a meta with ``shard_dims`` alone cut on 'data'."""
+    if "shard_specs" in meta:
+        return meta["shard_specs"]
+    return {name: [None] * d + ["data"]
+            for name, d in meta.get("shard_dims", {}).items()}
+
+
+def _writes_block(spec, mesh) -> bool:
+    """Whether this rank writes its block of an array laid out by
+    ``spec``: the one at index 0 of every axis the array is not cut on
+    (the others own the same block)."""
+    return all(mesh.axis_index(a) == 0 for a in mesh.shape if a not in spec)
+
+
+def _join_blocks(parts, name, spec, mesh_shape) -> torch.Tensor:
+    """The whole array from the blocks the writing ranks' files hold."""
+    axes, sizes = list(mesh_shape), tuple(mesh_shape.values())
+    cuts = [(d, ax) for d, ax in enumerate(spec) if ax is not None]
+
+    def build(level, index):
+        if level == len(cuts):
+            coords = [index.get(a, 0) for a in axes]
+            return parts[int(np.ravel_multi_index(coords, sizes))][name]
+        d, ax = cuts[level]
+        return torch.cat([build(level + 1, {**index, ax: i})
+                          for i in range(mesh_shape[ax])], dim=d)
+
+    return build(0, {})
 
 
 def nbytes(path: str, meta: Optional[Dict[str, Any]] = None) -> int:
@@ -423,60 +461,75 @@ class CheckpointMixin:
         }
         meta.update(self._checkpoint_meta())
         mesh = getattr(self, "mesh", None)
-        if mesh is not None and mesh.size > 1:
+        if mesh is not None and mesh.world_size > 1:
             self._keep_own_slices(arrays, meta, mesh)
         return arrays, meta
 
     def _keep_own_slices(self, arrays, meta, mesh) -> None:
-        """Across ranks: keep in ``arrays`` the slices this rank owns of
-        each sharded leaf, and the whole leaves (stale snapshots among
-        them) on rank 0 only; name each sharded array and its dimension in
-        ``meta['shard_dims']``."""
-        from ps_tpu_torch.parallel.sharding import shard
+        """Across ranks: keep in ``arrays`` the block this rank owns of
+        each cut leaf where it is that block's writer (:func:`_writes_block`),
+        and the whole leaves (stale snapshots among them) on rank 0 only;
+        name each cut array's spec in ``meta['shard_specs']`` (and its
+        dimension in ``meta['shard_dims']`` where 'data' alone cuts it)."""
+        from ps_tpu_torch.parallel.sharding import block
 
-        r, k = mesh.rank, mesh.size
-        dims = {f"params/{key}": d for key, d in self._dims.items()}
-        dims.update({f"opt/{i}": d for i, d in zip(arrays["opt"],
-                                                   self._state_dims)})
+        specs = {f"params/{key}": spec for key, spec in self._specs.items()}
+        specs.update({f"opt/{i}": spec for i, spec in zip(
+            arrays["opt"], self._state_specs)})
+        rest = [a for a in mesh.shape if a not in self._held_axes]
         for group in ("params", "opt"):
             kept = {}
             for name, t in arrays[group].items():
-                d = dims[f"{group}/{name}"]
-                if d is not None:
-                    # opt leaves are this rank's slices already
-                    kept[name] = shard(t, d, r, k) if group == "params" else t
-                elif r == 0:
+                spec = specs[f"{group}/{name}"]
+                if group == "params":  # held -> owned; opt leaves are owned
+                    t = block(t, spec, mesh, rest)
+                if _writes_block(spec, mesh):
                     kept[name] = t
             arrays[group] = kept
-        if r:
+        if mesh.world_rank:
             arrays["stale"] = {}
-        meta["shard_dims"] = {n: d for n, d in dims.items() if d is not None}
+        cut = {n: list(spec) for n, spec in specs.items() if any(spec)}
+        meta["shard_specs"] = cut
+        meta["shard_dims"] = {n: spec.index("data") for n, spec in cut.items()
+                              if set(spec) - {None} == {"data"}}
         meta["placement"] = self.placement
 
     def load_state_dict(self, arrays, meta, elastic: bool = False) -> None:
         """Check ``arrays`` (whole CPU tensors, as :func:`restore` reads
         them) and ``meta`` against the live engine, then place this rank's
-        slices of them on its device and adopt them. A checkpoint written
-        by another number of ranks is refused unless ``elastic``, which
-        reads it into this engine's layout, and an async checkpoint of
-        another worker count: the surviving workers keep their versions
-        and stale snapshots, the dropped workers' snapshots are never
-        read, and new workers join fresh."""
+        blocks of them on its device and adopt them. A checkpoint written
+        by another number of ranks or on another mesh shape is refused
+        unless ``elastic``, which reads it into this engine's layout, and
+        an async checkpoint of another worker count: the surviving
+        workers keep their versions and stale snapshots, the dropped
+        workers' snapshots are never read, and new workers join fresh."""
+        from ps_tpu_torch.parallel.sharding import block
+
         if meta.get("engine") != self.engine_name:
             raise ValueError(
                 f"checkpoint was written by engine {meta.get('engine')!r} but "
                 f"this store runs {self.engine_name!r} — backend/mode mismatch")
         mesh = getattr(self, "mesh", None)
-        world = mesh.size if mesh is not None else 1
+        world = mesh.world_size if mesh is not None else 1
         saved_world = int(meta.get("world_size", 1))
         if saved_world != world and not elastic:
             raise ValueError(
                 f"checkpoint was written by {saved_world} rank(s) and this "
                 f"job runs {world}; restore(elastic=True) reads it into "
                 f"this job's layout")
-        state_dims = getattr(self, "_state_dims", None) or [None] * len(
-            flatten_leaves(self._state))
-        r = mesh.rank if mesh is not None else 0
+        live_shape = dict(mesh.shape) if mesh is not None else {"data": 1}
+        saved_shape = meta.get("mesh_shape", {"data": saved_world})
+        if _layout(saved_shape) != _layout(live_shape) and not elastic:
+            raise ValueError(
+                f"checkpoint was written on mesh {saved_shape} and this job "
+                f"runs {live_shape}; restore(elastic=True) reads it into "
+                f"this job's layout")
+        specs = getattr(self, "_specs", {})
+        held_axes = getattr(self, "_held_axes", ())
+        whole_params = getattr(self, "_whole", self._params)
+        live_opt = flatten_leaves(self._state)
+        state_specs = getattr(self, "_state_specs", None) or [
+            (None,) * v.dim() for v in live_opt.values()]
         params = arrays.get("params", {})
         if set(params) != set(self._params):
             raise ValueError("checkpoint keys do not match registered keys")
@@ -487,17 +540,15 @@ class CheckpointMixin:
                 "optimizer — restore with the optimizer the checkpoint was "
                 f"saved with (saved {meta['opt_structure']!r}, "
                 f"live {live_structure!r})")
-        for k, live in self._params.items():
-            check_like(f"param {k!r}", params[k], live)
-        live_opt = flatten_leaves(self._state)
+        for k in self._params:
+            check_like(f"param {k!r}", params[k], whole_params[k])
         opt = arrays.get("opt", {})
         if set(opt) != set(live_opt):
             raise ValueError(f"checkpoint holds {len(opt)} optimizer-state "
                              f"leaves, this optimizer has {len(live_opt)}")
-        for (i, live), d in zip(live_opt.items(), state_dims):
-            whole = list(live.shape)
-            if d is not None:
-                whole[d] *= world
+        for (i, live), spec in zip(live_opt.items(), state_specs):
+            whole = [n * (live_shape.get(ax, 1) if ax else 1)
+                     for n, ax in zip(live.shape, spec)]
             check_like(f"optimizer-state leaf {i}", opt[i],
                        torch.empty(whole, dtype=live.dtype, device="meta"))
         stale = arrays.get("stale", {})
@@ -519,13 +570,14 @@ class CheckpointMixin:
         # every check, the engine's own included, happens before any
         # change: a refused restore leaves the engine untouched
         self._validate_checkpoint_meta(meta, elastic=elastic)
-        new_params = {k: place(params[k], self.device) for k in self._params}
+        new_params = {
+            k: place(block(params[k], specs[k], mesh, held_axes)
+                     if k in specs else params[k], self.device)
+            for k in self._params}
         new_state = unflatten_like(self._state, {
-            i: place(opt[i] if d is None
-                     else opt[i].narrow(d, r * opt[i].shape[d] // world,
-                                        opt[i].shape[d] // world),
-                     self.device)
-            for i, d in zip(live_opt, state_dims)})
+            i: place(block(opt[i], spec, mesh) if mesh is not None
+                     else opt[i], self.device)
+            for i, spec in zip(live_opt, state_specs)})
         new_stale = {decode_stale_key(s): place(v, self.device)
                      for s, v in stale.items()}
         self._params = new_params
@@ -537,6 +589,12 @@ class CheckpointMixin:
         if hasattr(self, "_stale"):
             self._stale = new_stale
         self._load_checkpoint_meta(meta, elastic=elastic)
+
+
+def _layout(shape: Dict[str, int]) -> list:
+    """A mesh shape's axes of size > 1, in order: two shapes with the same
+    layout place every block on the same rank."""
+    return [(a, int(n)) for a, n in shape.items() if int(n) > 1]
 
 
 # -- the carry function: ps_tpu's checkpoints into the port's ------------------

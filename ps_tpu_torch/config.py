@@ -322,8 +322,11 @@ class Config:
       ckpt_root: server side — confine CHECKPOINT saves under this root
         (client paths relative-only, ``..`` refused); None keeps the
         legacy client-names-the-path behavior (loopback binds only).
-      mesh_shape: optional explicit mesh shape, e.g. ``{'data': 8}`` or
-        ``{'data': 4, 'model': 2}``. Default: all devices on one 'data' axis.
+      mesh_shape: optional explicit mesh shape over the axes 'data',
+        'model', 'seq' and 'pipe', e.g. ``{'data': 8}``, ``{'data': 4,
+        'model': 2}`` or ``{'data': 2, 'seq': 4}``; rank r sits at
+        ``np.unravel_index(r, shape)``. Default: all ranks on one 'data'
+        axis.
       mode: 'sync' or 'async' (async = stale apply with delay compensation).
       dc_lambda: DC-ASGD delay-compensation coefficient (async mode).
       seed: global PRNG seed.

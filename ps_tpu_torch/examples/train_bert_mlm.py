@@ -7,7 +7,10 @@ process group (``PS_COORDINATOR_URI``, ``PS_NUM_PROCESSES``,
 ``PS_PROCESS_ID``, ``PS_DIST_BACKEND``), each rank on its slice of the
 same global batches, with LAMB ZeRO-1 sharded at the default
 ``--placement sharded`` (its trust ratio's norms reduced over the ranks).
-``--attn flash`` runs
+``--model-axis m`` adds Megatron tensor parallelism: the mesh is
+``{data: world/m, model: m}``, the store places the Megatron leaves by
+``bert_partition_rules`` and each rank runs its ``h/m`` heads and its
+slice of the feed-forward. ``--attn flash`` runs
 the attention forward through the hand-written CUDA kernel on the card.
 It prints the loss every 10 steps and, last, sequences and tokens per
 second. ``--profile-dir`` traces the steps after two warm-up steps with
@@ -18,7 +21,8 @@ share of the traced steps.
 Run (on the GPU; ``--device cpu`` runs the plain versions on the CPU):
     python -m ps_tpu_torch.examples.train_bert_mlm --attn flash --seq-len 512 --steps 20
 
-Two ranks on the CPU, one shell each (r = 0, 1):
+Two ranks on the CPU, one shell each (r = 0, 1; add ``--model-axis 2``
+for two tensor-parallel ranks):
     PS_COORDINATOR_URI=127.0.0.1:29500 PS_NUM_PROCESSES=2 PS_PROCESS_ID=r \
         PS_DIST_BACKEND=gloo python -m ps_tpu_torch.examples.train_bert_mlm \
         --device cpu --size tiny --steps 3 --seq-len 32 --batch-size 8 \
@@ -36,7 +40,8 @@ import torch
 import ps_tpu_torch as ps
 from ps_tpu_torch.data.synthetic import mlm_batches
 from ps_tpu_torch.kv.store import rank_slice
-from ps_tpu_torch.models.bert import BertConfig, BertMLM, make_mlm_loss_fn
+from ps_tpu_torch.models.bert import (BertConfig, BertMLM,
+                                      bert_partition_rules, make_mlm_loss_fn)
 from ps_tpu_torch.utils import trace
 
 
@@ -56,7 +61,8 @@ def main(argv=None):
     ap.add_argument("--placement", default="sharded",
                     choices=["replicated", "sharded"])
     ap.add_argument("--model-axis", type=int, default=1,
-                    help="tensor-parallel width (not ported: 1 only)")
+                    help="tensor-parallel width: Megatron placement via "
+                         "bert_partition_rules over a 'model' mesh axis")
     ap.add_argument("--dtype", default="bfloat16",
                     choices=["bfloat16", "float32"])
     ap.add_argument("--attn", default="full", choices=["full", "flash"])
@@ -69,15 +75,20 @@ def main(argv=None):
     if args.steps < (3 if args.profile_dir else 2):
         raise SystemExit("--steps must be >= 2 (step 0 is warm-up), and "
                          ">= 3 with --profile-dir")
-    if args.model_axis > 1:
-        raise NotImplementedError(
-            "--model-axis > 1 (tensor parallelism over a 'model' axis) is "
-            "not ported yet (ROADMAP Queue 1 item 7)")
-    ctx = ps.init(backend="cuda", device=args.device)
+    tp = args.model_axis
+    world = ps.Config.from_env(device=args.device).num_processes
+    if tp > 1:
+        if world % tp:
+            raise SystemExit(f"--model-axis {tp} must divide the device "
+                             f"count ({world})")
+        ctx = ps.init(backend="cuda", device=args.device,
+                      mesh_shape={"data": world // tp, "model": tp})
+    else:
+        ctx = ps.init(backend="cuda", device=args.device)
     device = ctx.device
     if args.batch_size % ctx.num_workers:
-        raise SystemExit(f"--batch-size must be divisible by the rank count "
-                         f"({ctx.num_workers})")
+        raise SystemExit(f"--batch-size must be divisible by the data-axis "
+                         f"size ({ctx.num_workers})")
 
     dtype = getattr(torch, args.dtype)
     cfg = (BertConfig(dtype=dtype, attn=args.attn) if args.size == "base"
@@ -85,11 +96,13 @@ def main(argv=None):
     model = BertMLM(cfg, generator=torch.Generator().manual_seed(args.seed))
     store = ps.KVStore(optimizer="lamb", learning_rate=args.lr,
                        weight_decay=args.weight_decay,
-                       placement=args.placement)
+                       placement=args.placement,
+                       partition_rules=bert_partition_rules() if tp > 1
+                       else None)
     store.init(model.param_tree())
     nparams = sum(p.numel() for p in model.parameters())
     print(f"BERT-{args.size} MLM: {nparams / 1e6:.1f}M params, device "
-          f"{device} (rank {ctx.mesh.rank} of {ctx.num_workers}), global "
+          f"{device} (mesh {ctx.mesh.shape} at {ctx.mesh.coords}), global "
           f"batch {args.batch_size} x seq {args.seq_len}, attn {args.attn}, "
           f"{args.dtype}, LAMB placement={args.placement}")
 

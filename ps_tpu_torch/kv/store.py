@@ -35,6 +35,8 @@ from ps_tpu_torch.api import current_context
 from ps_tpu_torch.kv import keys as keymod
 from ps_tpu_torch.optim import Optimizer, make_optimizer
 from ps_tpu_torch.parallel import collectives
+from ps_tpu_torch.parallel.mesh import SEQ_AXIS
+from ps_tpu_torch.parallel.sharding import check_rules
 
 
 def _nbytes(x) -> int:
@@ -77,21 +79,43 @@ def _batch_part(batch: Any, index: int, count: int, what: str) -> Any:
 
 
 def rank_slice(batch: Any, mesh) -> Any:
-    """This rank's equal slice (dim 0) of every array of a global host
-    batch: what a rank passes to ``shard_batch`` when each rank draws the
-    same global batch. The batch itself at one rank."""
-    if mesh is None or mesh.size == 1:
+    """This rank's part of every array of a global host batch: what a rank
+    passes to ``shard_batch`` when each rank draws the same global batch.
+    Its equal slice of dim 0 by its 'data' index (every rank on the same
+    data index gets the same rows) and, on a 'seq' axis, its equal slice
+    of dim 1, the sequence, by its 'seq' index. The batch itself at one
+    rank."""
+    if mesh is None:
         return batch
-    return _batch_part(batch, mesh.rank, mesh.size, "ranks")
+    if mesh.size > 1:
+        batch = _batch_part(batch, mesh.rank, mesh.size, "ranks")
+    sp = mesh.axis_size(SEQ_AXIS)
+    if sp > 1:
+        def seq_part(x):
+            if x.shape[1] % sp:
+                raise ValueError(f"sequence dim {x.shape[1]} not divisible "
+                                 f"by the '{SEQ_AXIS}' axis ({sp})")
+            n = x.shape[1] // sp
+            i = mesh.axis_index(SEQ_AXIS)
+            return x[:, i * n:(i + 1) * n]
+
+        batch = _map_tree(seq_part, batch)
+    return batch
 
 
 def global_mean(value: torch.Tensor, mesh) -> torch.Tensor:
-    """The mean over the mesh's ranks of a per-rank value (a loss meaned
-    over this rank's slice of the batch): the global batch's mean where
-    the slices are equal. Returned as it is without a process group."""
-    if mesh.group is None:
+    """The global value of a per-rank loss: summed over a 'seq' axis,
+    whose ranks each hold a part of their sequences' mean (the loss of
+    ``models/lm.py`` under sequence parallelism), then meaned over the
+    'data' ranks (each a loss meaned over its slice of the batch): the
+    global batch's mean where the slices are equal. Returned as it is
+    without a process group."""
+    if mesh.world is None:
         return value
-    total = collectives.all_reduce(value.detach().clone(), mesh)
+    total = value.detach().clone()
+    if mesh.axis_size(SEQ_AXIS) > 1:
+        collectives.all_reduce(total, mesh, axis=SEQ_AXIS)
+    collectives.all_reduce(total, mesh)
     return total / mesh.size if mesh.size > 1 else total
 
 
@@ -130,6 +154,14 @@ class KVStore:
       placement: cuda backend only: 'replicated' or 'sharded' (ZeRO-1:
         each rank owns a slice of each parameter and its optimizer state;
         the same as 'replicated' at one rank).
+      partition_rules: cuda backend only: ``[(key regex, spec)]``, a spec
+        one mesh axis or None a dimension, first match wins
+        (:mod:`~ps_tpu_torch.parallel.sharding`); the optimizer state
+        follows its parameter's rule. A leaf a rule slices over 'model'
+        or 'pipe' reaches ``make_step``'s loss function as this rank's
+        slice, so the loss function is written for that placement (the
+        Megatron forwards of ``models/bert.py`` and ``models/lm.py``, the
+        GPipe trunk of ``parallel/pipeline.py``).
       **opt_kwargs: forwarded to the named optimizer (e.g. learning_rate).
     """
 
@@ -143,6 +175,7 @@ class KVStore:
         if placement not in ("replicated", "sharded"):
             raise ValueError("placement must be 'replicated' or 'sharded'")
         self.placement = placement
+        partition_rules = check_rules(partition_rules)
         if ctx.config.backend == "local":
             if partition_rules:
                 raise ValueError(
@@ -264,7 +297,15 @@ class KVStore:
         takes them); the server applies the mean gradient over the ranks,
         and the loss returned is the mean over the ranks, the global
         batch's. ``aux`` is this rank's as the loss function returned it
-        (cross-rank BatchNorm statistics are already global).
+        (cross-rank BatchNorm statistics are already global). On a mesh
+        with 'model', 'seq' or 'pipe' axes the loss function receives
+        ``engine.tree()`` (a rule's 'model'/'pipe' leaves as this rank's
+        slices, the rest whole) and runs the parallel forward; a 'seq'
+        rank's loss is its part of the mean (the parts sum to it), so the
+        gradients are summed over 'seq' and meaned over 'data'. The params
+        returned are that tree, every leaf holding its value after the
+        step (the step updates the tree's tensors in place);
+        ``params()`` gives whole tensors.
         On the local backend: the explicit protocol. With ``num_workers >
         1`` the batch is the global batch, split into equal slices (an
         indivisible batch raises); each logical worker takes the gradient
@@ -387,8 +428,10 @@ class KVStore:
         """Place a host batch (a dict, tuple or list of arrays or tensors,
         e.g. ``(images, labels)``) on this rank's device
         (:func:`to_device`). One process: the global batch. Across ranks:
-        this rank's slice of the global batch, as the reference's
-        multi-process ``shard_batch`` takes it."""
+        this rank's part of the global batch (:func:`rank_slice`: the
+        same rows on every rank of a 'data' index, its part of the
+        sequence on a 'seq' axis), as the reference's multi-process
+        ``shard_batch`` takes it."""
         return to_device(batch, self._ctx.device)
 
     # -- checkpoint/resume --------------------------------------------------

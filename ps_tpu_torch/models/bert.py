@@ -22,6 +22,20 @@ Parameters keep the reference's keys and layouts, one tensor per key
 KVStore registers the same keys and LAMB's per-tensor trust ratios are the
 reference's. Initial weights follow flax's distributions, drawn from a
 ``torch.Generator``.
+
+Tensor parallelism over a 'model' axis (Megatron; the reference lets
+GSPMD partition its one program): under :func:`bert_partition_rules` a
+KVStore hands the forward each rank's slices of Q/K/V (column-parallel
+over the heads, with their biases), ``attention/out`` (row-parallel),
+``intermediate`` (column-parallel) and ``output`` (row-parallel), and
+every other leaf whole (all-gathered over 'model'; vocab-parallel
+embeddings are a feature the reference lacks). The forward sees the
+slices by their shapes and, given the mesh, enters each parallel region
+through ``f`` (identity forward, the gradient all-reduced over 'model')
+and leaves it through ``g``: the row-parallel partial products, in the
+compute type as one process's whole product, all-reduced over 'model'
+in that type, then the whole bias added. ``attn='flash'`` runs the
+kernel on the rank's ``h/m`` heads.
 """
 
 from __future__ import annotations
@@ -38,6 +52,7 @@ from torch import nn
 from ps_tpu_torch.kv import keys as keymod
 from ps_tpu_torch.ops.flash_attention import flash_attention
 from ps_tpu_torch.parallel import collectives
+from ps_tpu_torch.parallel.mesh import MODEL_AXIS
 
 # flax's lecun_normal draws a unit normal truncated to [-2, 2], rescaled by
 # this constant (its standard deviation) so the variance is 1/fan_in
@@ -77,7 +92,13 @@ class BertConfig:
 class Dense(nn.Module):
     """flax ``Dense``/``DenseGeneral``: ``kernel`` [*in_shape, *out_shape]
     contracts the input's trailing ``len(in_shape)`` axes; ``bias``
-    [*out_shape]. Input, kernel and bias are cast to ``dtype`` first."""
+    [*out_shape]. Input, kernel and bias are cast to ``dtype`` first. The
+    kernel may be a rank's slice (its shapes are read off the tensor); as
+    a row-parallel layer (``mesh`` given) each rank's partial product,
+    in ``dtype`` as one process computes the whole, is all-reduced over
+    'model' in ``dtype`` and the bias added after the sum (at two ranks
+    the sum of the two partials rounds once, as an f32 sum cast back
+    would)."""
 
     def __init__(self, in_shape: Sequence[int], out_shape: Sequence[int],
                  dtype: torch.dtype, generator=None, device=None):
@@ -94,12 +115,17 @@ class Dense(nn.Module):
             nn.init.trunc_normal_(self.kernel, std=std, a=-2 * std,
                                   b=2 * std, generator=generator)
 
-    def forward(self, x):
-        lead = x.shape[:x.dim() - len(self.in_shape)]
-        y = torch.matmul(x.reshape(*lead, self.n_in).to(self.dtype),
-                         self.kernel.reshape(self.n_in, -1).to(self.dtype))
+    def forward(self, x, mesh=None):
+        n = len(self.in_shape)
+        n_in = math.prod(self.kernel.shape[:n])
+        lead = x.shape[:x.dim() - n]
+        xin = x.reshape(*lead, n_in).to(self.dtype)
+        w = self.kernel.reshape(n_in, -1).to(self.dtype)
+        y = torch.matmul(xin, w)
+        if mesh is not None:
+            y = collectives.reduce_from_axis(y, mesh, MODEL_AXIS)
         y = y + self.bias.reshape(-1).to(self.dtype)
-        return y.reshape(*lead, *self.out_shape)
+        return y.reshape(*lead, *self.kernel.shape[n:])
 
 
 class LayerNorm(nn.Module):
@@ -161,6 +187,13 @@ class Embed(nn.Module):
         return _EmbedLookup.apply(ids, self.embedding)
 
 
+def _need_mesh(mesh) -> None:
+    if mesh is None:
+        raise ValueError("the attention and FFN kernels are a rank's "
+                         "'model' slices: the forward needs the store's "
+                         "mesh (make_mlm_loss_fn(model, mesh=store.mesh))")
+
+
 class SelfAttention(nn.Module):
     def __init__(self, cfg: BertConfig, generator=None, device=None):
         super().__init__()
@@ -173,8 +206,13 @@ class SelfAttention(nn.Module):
                                       device))
         self.out = Dense((h, d), (H,), cfg.dtype, generator, device)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, mesh=None):
         cfg = self.cfg
+        # the rank's heads: all of them unless the kernels are slices
+        tp = self.query.kernel.shape[1] != cfg.num_heads
+        if tp:
+            _need_mesh(mesh)
+            x = collectives.copy_to_axis(x, mesh, MODEL_AXIS)
         q, k, v = self.query(x), self.key(x), self.value(x)  # [B, S, h, d]
         if cfg.attn == "flash":
             out = flash_attention(q, k, v, mask=mask)
@@ -188,7 +226,7 @@ class SelfAttention(nn.Module):
             bias = torch.where(mask[:, None, None, :] > 0, 0.0, -1e9)
             probs = torch.softmax(scores + bias, dim=-1).to(cfg.dtype)
             out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        return self.out(out)
+        return self.out(out, mesh if tp else None)
 
 
 class EncoderLayer(nn.Module):
@@ -196,6 +234,7 @@ class EncoderLayer(nn.Module):
         super().__init__()
         H, inter = cfg.hidden_size, cfg.intermediate_size
         self.dtype = cfg.dtype
+        self.inter = inter
         self.attention = SelfAttention(cfg, generator, device)
         self.ln_attention = LayerNorm(H, device)
         self.intermediate = Dense((H,), (inter,), cfg.dtype, generator,
@@ -203,20 +242,24 @@ class EncoderLayer(nn.Module):
         self.output = Dense((inter,), (H,), cfg.dtype, generator, device)
         self.ln_output = LayerNorm(H, device)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, mesh=None):
         # post-LN (original BERT): sublayer -> residual -> LayerNorm
-        a = self.attention(x, mask)
+        a = self.attention(x, mask, mesh)
         x = self.ln_attention(x + a).to(self.dtype)
-        h = F.gelu(self.intermediate(x), approximate="tanh")
-        h = self.output(h)
+        tp = self.intermediate.kernel.shape[1] != self.inter
+        h = collectives.copy_to_axis(x, mesh, MODEL_AXIS) if tp else x
+        h = F.gelu(self.intermediate(h), approximate="tanh")
+        h = self.output(h, mesh if tp else None)
         return self.ln_output(x + h).to(self.dtype)
 
 
 class BertMLM(nn.Module):
     """BERT encoder + tied-embedding MLM head.
 
-    ``forward(input_ids, attention_mask, token_type_ids=None) -> logits
-    [B, S, V] (float32)``. ``device='meta'`` builds the shapes alone.
+    ``forward(input_ids, attention_mask, token_type_ids=None, mesh=None)
+    -> logits [B, S, V] (float32)``; ``mesh`` is what a tensor-parallel
+    forward (slices of the Megatron leaves) reduces over. ``device='meta'``
+    builds the shapes alone.
     """
 
     def __init__(self, cfg: BertConfig,
@@ -238,7 +281,8 @@ class BertMLM(nn.Module):
         self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size,
                                                  device=device))
 
-    def forward(self, input_ids, attention_mask, token_type_ids=None):
+    def forward(self, input_ids, attention_mask, token_type_ids=None,
+                mesh=None):
         cfg = self.cfg
         seq = input_ids.shape[1]
         if seq > cfg.max_len:
@@ -252,7 +296,7 @@ class BertMLM(nn.Module):
         x = x + self.type_embed(token_type_ids)
         x = self.ln_embed(x).to(cfg.dtype)
         for layer in self._layers:
-            x = layer(x, attention_mask)
+            x = layer(x, attention_mask, mesh)
         # MLM head: transform + tied decoder, in f32
         x = F.gelu(self.mlm_transform(x), approximate="tanh")
         x = self.ln_mlm(x).to(cfg.dtype)
@@ -316,14 +360,39 @@ def mlm_loss(logits, labels, ignore_index: int = -100, mesh=None):
 def make_mlm_loss_fn(model: BertMLM, mesh=None):
     """PS-step loss closure: ``loss_fn(params, batch) -> loss`` over the
     data generator's {input_ids, labels, attention_mask} dict batches, with
-    ``params`` the nested dict of :meth:`BertMLM.param_tree`; with the
-    store's ``mesh`` (``KVStore.mesh``) the mean is the global batch's."""
+    ``params`` the nested dict of :meth:`BertMLM.param_tree` (or, under
+    :func:`bert_partition_rules` on a 'model' axis, the rank's slices of
+    the Megatron leaves); with the store's ``mesh`` (``KVStore.mesh``) the
+    mean is the global batch's, and a sliced forward reduces over its
+    'model' axis."""
 
     def loss_fn(params, batch):
         flat, _ = keymod.flatten_with_keys(params)
         logits = torch.func.functional_call(
             model, {k.replace("/", "."): p for k, p in flat.items()},
-            (batch["input_ids"], batch["attention_mask"]))
+            (batch["input_ids"], batch["attention_mask"]),
+            {"mesh": mesh})
         return mlm_loss(logits, batch["labels"], mesh=mesh)
 
     return loss_fn
+
+
+def bert_partition_rules():
+    """Megatron tensor-parallel placement for :class:`BertMLM` params
+    (pass to ``KVStore(partition_rules=...)`` on a mesh with a 'model'
+    axis): Q/K/V shard the HEADS dim (column-parallel with their biases),
+    the attention out-projection and the FFN output are row-parallel
+    (biases replicate — they add after the reduction), the FFN
+    intermediate is column-parallel. Embeddings and LayerNorms are left
+    to the heuristic, and the store all-gathers them for the forward.
+    The reference's rules, verbatim."""
+    return [
+        (r"attention/(query|key|value)/kernel$", (None, "model", None)),
+        (r"attention/(query|key|value)/bias$", ("model", None)),
+        (r"attention/out/kernel$", ("model", None, None)),
+        (r"attention/out/bias$", (None,)),
+        (r"/intermediate/kernel$", (None, "model")),
+        (r"/intermediate/bias$", ("model",)),
+        (r"/output/kernel$", ("model", None)),
+        (r"/output/bias$", (None,)),
+    ]

@@ -36,22 +36,25 @@ bought the reference.
 
 Under ZeRO-1 a rank steps only the slices it owns, and LAMB's trust ratio
 needs the norms of whole tensors. The server passes them in as
-:class:`ShardNorms`: the whole parameter of each sliced key (every rank
-holds it, so ``‖p‖`` is local) and a sum over the ranks. LAMB defers
-each sliced key's trust step to it, and the server's ``finish()`` after
-the step reduces every deferred partial ``Σu²`` in one flat all-reduce,
-however many ``step_`` calls deferred them (the async engine steps key by
-key). The other rules are elementwise and ignore it.
+:class:`ShardNorms`: what the rank holds of each sliced key's parameter
+(the whole of it, so ``‖p‖`` is local, unless a 'model' or 'pipe' axis
+slices it too: then its partial ``Σp²`` is summed over those axes), the
+axes each key's stepped slice is cut on, and a sum over one axis. LAMB
+defers each sliced key's trust step to it, and the server's ``finish()``
+after the step reduces every deferred partial in one flat all-reduce an
+axis, however many ``step_`` calls deferred them (the async engine steps
+key by key). The other rules are elementwise and ignore it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Union
+from typing import Any, Callable, Dict, List, Tuple, Union
 
 import torch
 
 from ps_tpu_torch.optim.dc import delay_compensate
+from ps_tpu_torch.parallel.mesh import AXES
 
 __all__ = ["Optimizer", "ShardNorms", "make_optimizer", "sgd", "momentum",
            "adam", "lamb", "delay_compensate"]
@@ -65,22 +68,33 @@ LearningRate = Union[float, Callable[[torch.Tensor], Any]]
 @dataclasses.dataclass(frozen=True)
 class ShardNorms:
     """How a rank that steps slices sees whole tensors' norms: ``whole``
-    maps each key whose ``params`` entry is a slice to the whole
-    parameter (before the step), and ``all_reduce`` sums a flat f32 tensor
-    over the ranks in place and returns it, the same on every rank.
+    maps each key whose ``params`` entry is a slice to what the rank holds
+    of the parameter (before the step), ``p_axes`` to the mesh axes that
+    held tensor is itself a slice on (none: it is the whole parameter),
+    ``u_axes`` to the axes the stepped slice is cut on ('data' where a key
+    is not named), and ``all_reduce(flat, axis)`` sums a flat f32 tensor
+    over one axis's ranks in place and returns it, the same on every
+    rank.
 
-    A rule ``defer``s a step that waits for a partial sum's total; the
+    A rule ``defer``s a step that waits for partial sums' totals; the
     server calls ``finish()`` once after its ``step_`` calls, which sums
-    every deferred partial in one ``all_reduce`` and runs the deferred
-    steps in order."""
+    every deferred partial in one ``all_reduce`` an axis (in the order
+    'data', 'model', 'seq', 'pipe') and runs the deferred steps in
+    order."""
 
     whole: Dict[str, torch.Tensor]
-    all_reduce: Callable[[torch.Tensor], torch.Tensor]
+    all_reduce: Callable[[torch.Tensor, str], torch.Tensor]
+    p_axes: Dict[str, Tuple[str, ...]] = dataclasses.field(
+        default_factory=dict)
+    u_axes: Dict[str, Tuple[str, ...]] = dataclasses.field(
+        default_factory=dict)
     _pending: List[tuple] = dataclasses.field(default_factory=list)
 
-    def defer(self, partial: torch.Tensor,
-              step: Callable[[torch.Tensor], None]) -> None:
-        self._pending.append((partial, step))
+    def defer(self, sums: List[Tuple[torch.Tensor, Tuple[str, ...]]],
+              step: Callable[..., None]) -> None:
+        """Queue ``step(*totals)``: each of ``sums`` is a partial and the
+        axes its total sums it over."""
+        self._pending.append((sums, step))
 
     @torch.no_grad()
     def finish(self) -> None:
@@ -88,9 +102,20 @@ class ShardNorms:
         self._pending.clear()
         if not pending:
             return
-        totals = self.all_reduce(torch.stack([p for p, _ in pending]))
-        for (_, step), total in zip(pending, totals):
-            step(total)
+        entries = [(i, j, axes) for i, (sums, _) in enumerate(pending)
+                   for j, (_, axes) in enumerate(sums)]
+        totals = {(i, j): sums[j][0] for i, (sums, _) in enumerate(pending)
+                  for j in range(len(sums))}
+        for axis in AXES:
+            ids = [(i, j) for i, j, axes in entries if axis in axes]
+            if not ids:
+                continue
+            summed = self.all_reduce(torch.stack([totals[x] for x in ids]),
+                                     axis)
+            for x, total in zip(ids, summed):
+                totals[x] = total
+        for i, (sums, step) in enumerate(pending):
+            step(*(totals[(i, j)] for j in range(len(sums))))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,10 +247,12 @@ def lamb(learning_rate: LearningRate = 1e-3, b1: float = 0.9,
          weight_decay: float = 0.0) -> Optimizer:
     """LAMB, the reference's server-side optimizer for BERT. The trust
     ratio is per parameter tensor, so each key is one tensor of its own.
-    A key that is a ZeRO-1 slice (in ``norms.whole``) takes ``‖p‖`` of the
-    whole parameter and ``‖u‖`` as the root of its slices' ``Σu²`` summed
-    over the ranks: its trust step is deferred to ``norms.finish()``,
-    which sums every such key's partial in one flat all-reduce."""
+    A key that is a slice (in ``norms.whole``) takes ``‖p‖`` of the
+    whole parameter (the held tensor's, or the root of its ``Σp²`` summed
+    over ``norms.p_axes``) and ``‖u‖`` as the root of its slices' ``Σu²``
+    summed over ``norms.u_axes``: its trust step is deferred to
+    ``norms.finish()``, which sums every such key's partials in one flat
+    all-reduce an axis."""
 
     def trust_step_(p, u, p_norm, u_norm, lr):
         ratio = torch.where((p_norm == 0) | (u_norm == 0),
@@ -240,10 +267,19 @@ def lamb(learning_rate: LearningRate = 1e-3, b1: float = 0.9,
             p = params[k]
             u = u + weight_decay * p
             if k in whole:
-                p_norm = torch.linalg.vector_norm(whole[k])
-                norms.defer((u * u).sum(),
-                            lambda total, p=p, u=u, p_norm=p_norm:
-                            trust_step_(p, u, p_norm, total.sqrt(), lr))
+                u_sum = ((u * u).sum(), norms.u_axes.get(k, ("data",)))
+                p_axes = norms.p_axes.get(k, ())
+                if not p_axes:
+                    p_norm = torch.linalg.vector_norm(whole[k])
+                    norms.defer([u_sum],
+                                lambda u_tot, p=p, u=u, p_norm=p_norm:
+                                trust_step_(p, u, p_norm, u_tot.sqrt(), lr))
+                    continue
+                p_sum = ((whole[k] * whole[k]).sum(), p_axes)
+                norms.defer([p_sum, u_sum],
+                            lambda p_tot, u_tot, p=p, u=u:
+                            trust_step_(p, u, p_tot.sqrt(), u_tot.sqrt(),
+                                        lr))
                 continue
             trust_step_(p, u, torch.linalg.vector_norm(p),
                         torch.linalg.vector_norm(u), lr)

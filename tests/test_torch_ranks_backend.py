@@ -134,8 +134,14 @@ def test_mesh_smaller_than_the_ranks_raises(tmp_path):
 
 
 def test_model_axis_raises_naming_item_7():
-    with pytest.raises(NotImplementedError, match="item 7"):
+    """The 'model' axis (item 7) is ported: a mesh with one is refused only
+    where it has no ranks to run on, here one process for two ranks, and
+    an unknown axis is refused by name."""
+    with pytest.raises(ValueError, match="needs 2 devices"):
         ps_tpu_torch.init(device="cpu", mesh_shape={"data": 1, "model": 2})
+    assert not ps_tpu_torch.is_initialized()
+    with pytest.raises(ValueError, match="unknown"):
+        ps_tpu_torch.init(device="cpu", mesh_shape={"tensor": 1})
     assert not ps_tpu_torch.is_initialized()
 
 
@@ -319,13 +325,16 @@ def test_byte_algebra_equals_the_reference(k):
 
 @pytest.mark.parametrize("k", [2, 3, 4, 8])
 def test_every_leaf_is_sharded_on_the_reference_dimension(k):
-    """``param_sharding`` picks the dimension the reference's ``_pick_dim``
-    picks for every shape (None where it keeps the leaf whole), so rank r
-    owns the slice device r owns."""
+    """``param_spec`` puts 'data' on the dimension the reference's
+    ``_pick_dim`` picks for every shape (nowhere where it keeps the leaf
+    whole), so rank r owns the slice device r owns."""
     from ps_tpu.parallel.sharding import _pick_dim
-    from ps_tpu_torch.parallel.sharding import param_sharding
+    from ps_tpu_torch.parallel.sharding import param_spec
 
     for shape in SHAPES:
         want = _pick_dim(shape, k) if shape else None
-        assert param_sharding(shape, "sharded", k) == want, (shape, k)
-        assert param_sharding(shape, "replicated", k) is None
+        spec, _ = param_spec({"data": k}, shape, "sharded")
+        got = spec.index("data") if "data" in spec else None
+        assert got == want, (shape, k)
+        spec, _ = param_spec({"data": k}, shape, "replicated")
+        assert "data" not in spec

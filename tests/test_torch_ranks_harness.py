@@ -366,7 +366,7 @@ def case_bert_step(rank, k, *, params, batches, placement="replicated",
                        mode="sync")
     store.init(model.param_tree())
     if local_norms:
-        store._engine._norm_all_reduce = lambda flat: flat
+        store._engine._norm_all_reduce = lambda flat, axis: flat
     run = store.make_step(bert.make_mlm_loss_fn(model, mesh=store.mesh))
     store.mesh.calls.clear()
     losses = []
@@ -608,6 +608,343 @@ def case_ckpt(rank, k, *, params, batches, path, steps, save=False,
                              if d.startswith("arrays-"))
         out["after_crash"] = _flat_np(store.restore(path))
     return out
+
+
+# -- the 'model', 'seq' and 'pipe' axes ------------------------------------------
+
+
+def _specs(store):
+    return {key: tuple(spec) for key, spec in store._engine._specs.items()}
+
+
+def _state_specs(store):
+    """``{state path: spec}`` of the engine's optimizer state."""
+    from ps_tpu_torch.checkpoint import _leaf_paths
+
+    paths = ["/".join(str(p) for p in path)
+             for path, _ in _leaf_paths(store._engine._state)]
+    return dict(zip(paths, (tuple(s) for s in store._engine._state_specs)))
+
+
+def _block_loss(p, batch):
+    """``tests/test_model_axis.py``'s block loss on whole tensors."""
+    import torch
+
+    x, y = batch
+    d = p["attn"]["out"]["kernel"].shape[0]
+    a = x @ p["attn"]["qkv"]["kernel"] + p["attn"]["qkv"]["bias"]
+    a = torch.tanh(a[:, :d])
+    a = a @ p["attn"]["out"]["kernel"] + p["attn"]["out"]["bias"]
+    h = torch.tanh(a @ p["mlp"]["in"]["kernel"] + p["mlp"]["in"]["bias"])
+    out = h @ p["mlp"]["out"]["kernel"] + p["mlp"]["out"]["bias"]
+    return torch.mean((out - y) ** 2)
+
+
+def _block_tp_loss(mesh):
+    """The same loss written for the Megatron rules' slices: the column-
+    parallel qkv's activations gathered over 'model' (its q columns lie on
+    one rank), the row-parallel out-projections' partial sums reduced."""
+    import torch
+
+    from ps_tpu_torch.parallel import collectives as c
+
+    m = "model"
+
+    def loss(p, batch):
+        x, y = batch
+        d = p["attn"]["out"]["kernel"].shape[1]
+        a = c.gather_from_axis(
+            c.copy_to_axis(x, mesh, m) @ p["attn"]["qkv"]["kernel"]
+            + p["attn"]["qkv"]["bias"], mesh, m, 1)
+        a = torch.tanh(a[:, :d])
+        a = c.reduce_from_axis(c.split_to_axis(a, mesh, m, 1)
+                               @ p["attn"]["out"]["kernel"], mesh, m)
+        a = a + p["attn"]["out"]["bias"]
+        h = torch.tanh(c.copy_to_axis(a, mesh, m) @ p["mlp"]["in"]["kernel"]
+                       + p["mlp"]["in"]["bias"])
+        out = c.reduce_from_axis(h @ p["mlp"]["out"]["kernel"], mesh, m)
+        return torch.mean((out + p["mlp"]["out"]["bias"] - y) ** 2)
+
+    return loss
+
+
+def case_block_steps(rank, k, *, params, batches, rules=None,
+                     optimizer="adam", opt_kw=None, placement="sharded"):
+    """``test_model_axis``'s block trained by ``make_step``: with rules the
+    Megatron loss over this rank's slices, without them the whole loss
+    over the leaves the store gathers. Returns the losses, the whole
+    params, every leaf's spec and the optimizer state's specs."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.kv.store import rank_slice
+
+    store = ps.KVStore(optimizer=optimizer, placement=placement,
+                       partition_rules=rules,
+                       **(opt_kw or {"learning_rate": 1e-3}))
+    store.init(_tree_t(params))
+    mesh = store.mesh
+    run = store.make_step(_block_tp_loss(mesh) if rules else _block_loss)
+    losses = []
+    for b in batches:
+        loss, _ = run(store.shard_batch(rank_slice(tuple(b), mesh)))
+        losses.append(float(loss))
+    return {"losses": losses, "params": _flat_np(store.params()),
+            "specs": _specs(store), "state_specs": _state_specs(store),
+            "coords": dict(mesh.coords)}
+
+
+def case_block_async(rank, k, *, params, batches, rules=None,
+                     placement="sharded"):
+    """The block's async DC-ASGD cycles (one logical worker) under the
+    rules: pulls are whole, each rank steps its blocks of every leaf and
+    all-gathers them. Returns the losses, the whole params and the
+    specs."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.kv.store import rank_slice
+
+    store = ps.KVStore(optimizer="adam", learning_rate=1e-3, mode="async",
+                       placement=placement, partition_rules=rules)
+    store.init(_tree_t(params))
+    run = store.make_async_step(_block_loss)
+    losses = [float(run(store.shard_batch(rank_slice(tuple(b),
+                                                     store.mesh))))
+              for b in batches]
+    return {"losses": losses, "params": _flat_np(store.params()),
+            "specs": _specs(store), "version": store._engine.version}
+
+
+def _bert_tp_store(params, rules, local_norms):
+    import torch
+
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.models import bert
+
+    model = bert.BertMLM(bert.BertConfig.tiny(),
+                         generator=torch.Generator().manual_seed(0))
+    model.params_from_jax(params)
+    store = ps.KVStore(optimizer="lamb", learning_rate=1e-3,
+                       weight_decay=0.01, placement="sharded",
+                       partition_rules=bert.bert_partition_rules() if rules
+                       else None)
+    store.init(model.param_tree())
+    if local_norms:  # the control: each rank's own norms of its slices
+        store._engine._norm_all_reduce = lambda flat, axis: flat
+    return model, store
+
+
+def case_bert_tp(rank, k, *, params, batch, steps, rules=True,
+                 local_norms=False):
+    """BERT-tiny with LAMB 'sharded' and ``bert_partition_rules`` on this
+    rank's data slice of ``batch``, ``steps`` times. ``returned`` is the
+    last step's params tree as ``run`` returned it, ``returned_want`` the
+    same leaves cut from ``store.params()`` (a rule's 'model' slice, the
+    rest whole)."""
+    import torch
+
+    from ps_tpu_torch.kv import keys
+    from ps_tpu_torch.kv.store import rank_slice
+    from ps_tpu_torch.models import bert
+    from ps_tpu_torch.parallel.sharding import SLICE_AXES, block
+
+    model, store = _bert_tp_store(params, rules, local_norms)
+    run = store.make_step(bert.make_mlm_loss_fn(model, mesh=store.mesh))
+    store.mesh.calls.clear()
+    losses = []
+    for _ in range(steps):
+        loss, out = run(store.shard_batch(rank_slice(batch, store.mesh)))
+        losses.append(float(loss))
+    norm_reduces = [(c.axis, c.shape) for c in store.mesh.calls
+                    if c.op == "all_reduce" and len(c.shape) == 1
+                    and c.nbytes < 4096]
+    engine = store._engine
+    whole, _ = keys.flatten_with_keys(store.params())
+    want = {key: _np(block(torch.as_tensor(w), engine._specs[key],
+                           store.mesh, SLICE_AXES)
+                     if engine._ruled[key] else torch.as_tensor(w))
+            for key, w in whole.items()}
+    return {"losses": losses, "params": _flat_np(store.params()),
+            "specs": _specs(store), "norm_reduces": norm_reduces,
+            "held": {key: tuple(t.shape)
+                     for key, t in engine._params.items()},
+            "returned": _flat_np(out), "returned_want": want}
+
+
+def case_bert_tp_ckpt(rank, k, *, params, batch, path, restore=None):
+    """Under ``bert_partition_rules``: two steps, a save, one more step;
+    then a fresh store restores the save and takes the same step. With
+    ``restore`` ('strict' or 'elastic') only restore the save at ``path``
+    into this mesh's store instead."""
+    import os
+
+    from ps_tpu_torch import checkpoint as ckpt
+    from ps_tpu_torch.kv.store import rank_slice
+    from ps_tpu_torch.models import bert
+
+    def fresh():
+        model, store = _bert_tp_store(params, True, False)
+        return store, store.make_step(bert.make_mlm_loss_fn(
+            model, mesh=store.mesh))
+
+    def step(store, run):
+        return float(run(store.shard_batch(rank_slice(batch,
+                                                      store.mesh)))[0])
+
+    store, run = fresh()
+    if restore is not None:
+        try:
+            store.restore(path, elastic=restore == "elastic")
+        except ValueError as e:
+            return {"refused": str(e)}
+        return {"restored": _flat_np(store.params())}
+    for _ in range(2):
+        step(store, run)
+    saved_state = _state_np(store._engine)
+    saved_params = _flat_np(store.params())
+    store.save(path)
+    want = step(store, run)
+    want_params = _flat_np(store.params())
+    store, run = fresh()
+    store.restore(path)
+    out = {"restored_params": _flat_np(store.params()),
+           "saved_params": saved_params,
+           "restored_state": _state_np(store._engine),
+           "saved_state": saved_state}
+    out.update(loss=step(store, run), want_loss=want,
+               params=_flat_np(store.params()), want_params=want_params)
+    meta = ckpt.read_meta(path)
+    out["meta"] = meta
+    out["files"] = sorted(os.listdir(os.path.join(path, meta["arrays_dir"])))
+    return out
+
+
+def case_lm_steps(rank, k, *, attn="full", rules=False, steps=6, vocab=64,
+                  d_model=32, n_heads=4, n_layers=2, seq_len=32, batch=8,
+                  microbatches=0, lr=3e-3, optimizer="adam",
+                  placement="sharded", init_seed=0, data_seed=1,
+                  max_len=None):
+    """``tests/test_lm.py``'s training run on this rank's part of each
+    global batch (``lm_partition_rules`` with ``rules``; a GPipe trunk
+    over 'pipe' with ``microbatches``)."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.kv.store import rank_slice
+    from ps_tpu_torch.models import lm
+
+    ctx = ps.current_context()
+    mesh = ctx.mesh
+    params = lm.init_params(np.random.default_rng(init_seed), vocab=vocab,
+                            d_model=d_model, n_heads=n_heads,
+                            n_layers=n_layers,
+                            max_len=max_len or seq_len + 1)
+    attn_fn = lm.make_attn_fn(attn, mesh=mesh)
+    if microbatches:
+        pp = mesh.axis_size("pipe")
+        params = lm.split_pipeline_params(params, num_stages=pp)
+        part = lm.pipeline_lm_partition_rules()
+        loss_fn = lm.make_pipelined_loss_fn(
+            n_heads=n_heads, num_stages=pp, microbatches=microbatches,
+            mesh=mesh, attn_fn=attn_fn)
+    else:
+        part = lm.lm_partition_rules() if rules else None
+        loss_fn = lm.make_loss_fn(n_heads=n_heads, attn_fn=attn_fn,
+                                  mesh=mesh)
+    store = ps.KVStore(optimizer=optimizer, learning_rate=lr,
+                       placement=placement, partition_rules=part)
+    store.init(params)
+    run = store.make_step(loss_fn)
+    losses = []
+    for b in lm.lm_batches(batch, seq_len, vocab=vocab, seed=data_seed,
+                           steps=steps):
+        loss, _ = run(store.shard_batch(rank_slice(b, mesh)))
+        losses.append(float(loss))
+    return {"losses": losses, "specs": _specs(store),
+            "calls": sorted({(c.op, c.axis) for c in mesh.calls})}
+
+
+def case_seq_attention(rank, k, *, q, k_, v, op, causal):
+    """Ring or Ulysses attention on this rank's block of global [B, T, H,
+    D] q/k/v (its data slice of B, its seq slice of T), the output block
+    and the gradients of ``sum(out ** 2)`` (summed over every rank's
+    block) with respect to this rank's blocks."""
+    import torch
+
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.kv.store import rank_slice
+    from ps_tpu_torch.parallel.ring_attention import (ring_attention,
+                                                      ulysses_attention)
+
+    mesh = ps.current_context().mesh
+    blocks = rank_slice({"q": q, "k": k_, "v": v}, mesh)
+    qb, kb, vb = (torch.tensor(blocks[n], requires_grad=True)
+                  for n in ("q", "k", "v"))
+    fn = {"ring": ring_attention, "ulysses": ulysses_attention}[op]
+    out = fn(qb, kb, vb, mesh, causal=causal)
+    (out ** 2).sum().backward()
+    return {"out": _np(out), "grads": [_np(t.grad) for t in (qb, kb, vb)],
+            "calls": sorted({(c.op, c.axis) for c in mesh.calls})}
+
+
+def case_longctx_trainer(rank, k, *, port, argv):
+    """``train_longctx_lm`` as a launcher runs it: this rank's ``PS_*``
+    variables, a process group of its own at ``port``; returns its final
+    loss."""
+    import os
+
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.examples import train_longctx_lm
+
+    ps.shutdown()
+    os.environ.update({"PS_COORDINATOR_URI": f"127.0.0.1:{port}",
+                       "PS_NUM_PROCESSES": str(k), "PS_PROCESS_ID": str(rank),
+                       "PS_DIST_BACKEND": "gloo"})
+    return train_longctx_lm.main(argv)
+
+
+def _stage_fn(p, x):
+    import torch
+
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def case_pipeline(rank, k, *, stages, x, batches, microbatches):
+    """``tests/test_pipeline.py``'s stack of stages over the 'pipe' axis:
+    the pipelined forward of ``x``, sgd training through the pipeline on
+    ``batches`` (pipeline_partition_rules, a store), and the adam
+    moments' specs under the same rules."""
+    import torch
+
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.kv.store import rank_slice
+    from ps_tpu_torch.parallel import pipeline as pl
+
+    mesh = ps.current_context().mesh
+    stacked = pl.stack_stage_params([_tree_t(s) for s in stages])
+    store = ps.KVStore(optimizer="sgd", learning_rate=0.1,
+                       placement="replicated",
+                       partition_rules=pl.pipeline_partition_rules())
+    store.init({"stack": stacked})
+    fn = pl.make_pipeline_fn(_stage_fn, mesh, microbatches=microbatches)
+    xs = torch.as_tensor(rank_slice(x, mesh))
+    tree = store._engine.tree()
+    with torch.no_grad():
+        out = fn({"w": tree["stack/w"], "b": tree["stack/b"]},
+                 pl.microbatch(xs, microbatches))
+    b_local, dm = xs.shape
+
+    def loss_fn(params, batch):
+        xb, yb = batch
+        h = fn(params["stack"], pl.microbatch(xb, microbatches))
+        return torch.mean((h.reshape(b_local, dm) - yb) ** 2)
+
+    run = store.make_step(loss_fn)
+    losses = [float(run(store.shard_batch(rank_slice(tuple(b), mesh)))[0])
+              for b in batches]
+    held = {key: tuple(t.shape) for key, t in store._engine._params.items()}
+    adam = ps.KVStore(optimizer="adam", learning_rate=1e-3,
+                      placement="replicated",
+                      partition_rules=pl.pipeline_partition_rules())
+    adam.init({"stack": stacked})
+    return {"out": _np(out.reshape(-1, dm)), "losses": losses,
+            "specs": _specs(store), "held": held,
+            "state_specs": _state_specs(adam)}
 
 
 CASES = {name[len("case_"):]: fn for name, fn in globals().items()

@@ -157,8 +157,13 @@ def test_store_rejects_what_is_not_ported():
     with pytest.raises(ValueError, match="placement"):
         ps_tpu_torch.KVStore(placement="zero3")
     assert ps_tpu_torch.KVStore(mode="async")._engine.mode == "async"
-    with pytest.raises(NotImplementedError, match="partition_rules"):
-        ps_tpu_torch.KVStore(partition_rules=[("w", (None, "model"))])
+    # partition_rules are ported: a rule naming an axis the mesh lacks
+    # raises at init, as the reference's, and a bare-string spec at once
+    ruled = ps_tpu_torch.KVStore(partition_rules=[("w", (None, "model"))])
+    with pytest.raises(ValueError, match="not in mesh axes"):
+        ruled.init({"w": torch.zeros(2, 4)})
+    with pytest.raises(ValueError, match="tuple of"):
+        ps_tpu_torch.KVStore(partition_rules=[("w", "model")])
     store = ps_tpu_torch.KVStore()
     with pytest.raises(RuntimeError, match="init"):
         store.make_step(_port_loss)
