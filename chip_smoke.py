@@ -243,6 +243,40 @@ Phases, each raising on failure:
    LM training step with ``attn='flash'`` (2 launches) against 'full'.
    Run it alone with ``python3 -c "import chip_smoke as c, tempfile;
    c.phase_build(); c.phase_axes(tempfile.mkdtemp())"``.
+19. the van's transport options on the card (ROADMAP items 5.1-5.3): (a)
+   phase 17 (a)'s sparse PS (two ``serve_sparse`` processes of 1,300,000
+   rows, deep adagrad and wide sgd; three ``connect_sparse`` processes x
+   60 cycles of 13,312 ids) with the servers on the native epoll loop,
+   run twice: every worker over TCP, so that every frame is decoded,
+   staged onto the card and freed by the loop's pump (the pump must
+   dispatch exactly the workers' pushes and native admission classify
+   exactly their flat ROW_PUSH frames, some of them fresh), then every
+   worker over the shm lane (each connection detached to a serve thread:
+   the ring frames counted, none spilled to TCP); in both each apply log
+   replays on the card to the servers' tables and state bitwise, every
+   pulled row set equals the replay's at its versions, and each push
+   launched 2 grouping + 2 apply kernels; (b) the servers on the loop,
+   workers 0-1 over TCP and worker 2 over the rings, the row grads int8-
+   (seeded by the worker id) and then cast16-compressed above
+   compress_min_bytes (65,536): the checks of (a) for each lane, the
+   decoded grads replayed bitwise (each worker's codec run again in its
+   order), deep's grads encoded and wide's and the ids raw, the bytes
+   pushed against (a)'s printed; (c) config 5 (phase 16 (a)'s MLP, 3
+   worker processes x 60 cycles, bucketed as phase 16 (c)) with the
+   server on the native loop in this process, workers 0 (topk) and 2
+   (cast16 pushes and pulls) over TCP through the loop, worker 1 (topk)
+   over the rings: the loop's pump dispatched a bucket frame at least
+   for every TCP push, the event log replays on the card with every
+   codec bitwise, and a replay of worker 0's last push with its own
+   nonce is acked inside the loop (the native ack count rises, the
+   version and the event log do not move); (d) times, printed and not
+   held: sparse cycles/s and the median pull, push and push_pull of
+   (a)'s two runs against phase 17 (f)'s thread per connection over
+   TCP, config 5's cycles/s against phase 16 (e)'s, and the
+   442,939,392-byte tree's pull and push_pull GB/s over bucketed (4 MiB)
+   rings against TCP. Run it alone (it then runs phase 17 (a) over TCP
+   for its comparison) with ``python3 -c "import chip_smoke as c,
+   tempfile; c.phase_build(); c.phase_transport(tempfile.mkdtemp())"``.
 
 It prints one JSON line per timed kernel, then the kernels line, then
 ``{"ok": true, "device": {...}}`` as its last line. Without a GPU, or
@@ -3013,8 +3047,9 @@ def _van_env():
     return here, env
 
 
-def _spawn_trainer(*args):
+def _spawn_trainer(*args, env_extra=None):
     here, env = _van_env()
+    env.update(env_extra or {})
     return subprocess.Popen(
         [sys.executable, "-m", VAN_TRAINER, *map(str, args)], cwd=here,
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -3973,18 +4008,9 @@ def phase_sparse_ps(tmp):
     t_phase = time.perf_counter()
     # (a) two server processes, three worker processes
     a_out = os.path.join(tmp, "a")
-    os.makedirs(a_out)
-    procs = [harness.spawn("sparse-server", a_out, SPARSE_WORKERS,
-                           SPARSE_CYCLES, s, SPARSE_SHARDS, "cuda", "wd")
-             for s in range(SPARSE_SHARDS)]
-    procs += [harness.spawn("sparse-worker", f"@{SPARSE_SHARDS}", a_out, w,
-                            SPARSE_CYCLES, "cuda", "wd", SPARSE_WORKERS, 1)
-              for w in range(SPARSE_WORKERS)]
-    outs = harness.finish(procs, SPARSE_TIMEOUT_S, fail_fast=True)
-    for p, o in zip(procs, outs):
-        if p.returncode != 0:
-            raise AssertionError(f"sparse (a): {' '.join(p.args[-9:])} "
-                                 f"exited {p.returncode}:\n{o[-3000:]}")
+    procs = _sparse_ps_spawn(harness, a_out, {}, [{}] * SPARSE_WORKERS)
+    infos, finals, records, pulls = _sparse_ps_read(harness, a_out, procs,
+                                                    "sparse (a)")
     t_a = time.perf_counter() - t_phase
     # (d)'s servers boot while (a) is checked and (b)-(c) run
     d_out = os.path.join(tmp, "d")
@@ -3993,51 +4019,10 @@ def phase_sparse_ps(tmp):
                             SPARSE_SHARDS, "cuda", "small")
               for s in range(SPARSE_SHARDS)]
     try:
-        infos = [json.load(open(os.path.join(a_out,
-                                             f"sparse_server{s}.json")))
-                 for s in range(SPARSE_SHARDS)]
-        finals = [dict(np.load(os.path.join(a_out, f"sparse_tables{s}.npz")))
-                  for s in range(SPARSE_SHARDS)]
-        records = [json.load(open(os.path.join(a_out,
-                                               f"sparse_worker{w}.json")))
-                   for w in range(SPARSE_WORKERS)]
-        pulls = {w: (dict(np.load(os.path.join(a_out,
-                                               f"sparse_pulls{w}.npz"))),
-                     records[w]) for w in range(SPARSE_WORKERS)}
-        launches = {"sparse_apply/deep": 0, "sparse_apply/wide": 0,
-                    "sparse_group": 0}
-        for s, info in enumerate(infos):
-            n = len(info["apply_log"])
-            want = harness.expected_pushes("wd", s, SPARSE_SHARDS,
-                                           SPARSE_WORKERS, SPARSE_CYCLES)
-            if n != want or info["tiers"] != {"deep": "cuda",
-                                              "wide": "cuda"}:
-                raise AssertionError(f"sparse (a): shard {s} applied {n} of "
-                                     f"{want} pushes, tiers {info['tiers']}")
-            got = info["launches"]
-            if (got["apply"], got["group"], got["by_rule"]) != (
-                    2 * n, 2 * n, {"adagrad": n, "sgd": n}):
-                raise AssertionError(f"sparse (a): shard {s} launched {got} "
-                                     f"for {n} pushes: expected 2 grouping "
-                                     f"(cluster path) + 2 apply a push")
-            launches["sparse_apply/deep"] += got["by_rule"]["adagrad"]
-            launches["sparse_apply/wide"] += got["by_rule"]["sgd"]
-            launches["sparse_group"] += got["group"]
-        ps.init(backend="cuda")
-        card_tables, checked = harness.sparse_replay(
-            infos, "wd", SPARSE_WORKERS, SPARSE_CYCLES, pulls=pulls)
-        for s, final in enumerate(finals):
-            for name, emb in card_tables[s].items():
-                leaves = [emb.table] + _emb_leaves(emb)
-                saved = [final[name]] + [final[f"{name}/state{i}"]
-                                         for i in range(len(leaves) - 1)]
-                if not all(np.array_equal(x.cpu().numpy(), y)
-                           for x, y in zip(leaves, saved)):
-                    raise AssertionError(f"sparse (a): shard {s} {name} "
-                                         f"replayed on the card is not "
-                                         f"bitwise the server's")
-        ps.shutdown()
-        del card_tables, pulls
+        launches = _sparse_ps_launches(harness, infos, "sparse (a)")
+        checked = _sparse_ps_replay_on_card(harness, infos, finals, pulls,
+                                            "sparse (a)")
+        del pulls
         ps.init(backend="cuda", device="cpu")
         cpu_tables, _ = harness.sparse_replay(infos, "wd", SPARSE_WORKERS,
                                               SPARSE_CYCLES)
@@ -4656,6 +4641,425 @@ def phase_axes(tmp):
     return {"tp_rank": rank_entry, "causal_lm": causal}
 
 
+# phase 19: the van's transport options on the card. (a) phase 17 (a)'s
+# sparse PS with the servers on the native loop, once with every worker
+# over TCP (every frame decoded, staged and freed by the loop's pump, the
+# flat pushes classified by native admission) and once with every worker
+# over the shm lane (each connection detached to a serve thread); (b) the
+# servers on the loop, workers 0-1 over TCP and worker 2 over the rings,
+# their row grads int8- (seeded by the worker id) and then
+# cast16-compressed above compress_min_bytes' 64 KiB default; (c) phase
+# 16 (a)'s config 5 with the server on the native loop in this process,
+# bucketed as phase 16 (c): workers 0 (topk) and 2 (cast16 pushes and
+# pulls) over TCP through the loop, worker 1 (topk) over the rings; (d)
+# times, printed and not held
+TRANSPORT_CODECS = ("int8", "cast16")
+TRANSPORT_WORKER_CODECS = ("topk", "topk", "cast16")
+TRANSPORT_WORKER_SHM = (False, True, False)  # (c): worker 1 on the rings
+TRANSPORT_BUCKET_BYTES = 4 << 20  # (d): the 0.44 GB tree's buckets
+
+
+def _sparse_ps_spawn(harness, out, server_opts, worker_opts):
+    """Phase 17 (a)'s processes with the given transport options
+    (``worker_opts``: one dict a worker)."""
+    os.makedirs(out)
+    procs = [harness.spawn("sparse-server", out, SPARSE_WORKERS,
+                           SPARSE_CYCLES, s, SPARSE_SHARDS, "cuda", "wd",
+                           json.dumps(server_opts))
+             for s in range(SPARSE_SHARDS)]
+    procs += [harness.spawn("sparse-worker", f"@{SPARSE_SHARDS}", out, w,
+                            SPARSE_CYCLES, "cuda", "wd", SPARSE_WORKERS, 1,
+                            json.dumps(worker_opts[w]))
+              for w in range(SPARSE_WORKERS)]
+    return procs
+def _sparse_ps_read(harness, out, procs, what):
+    """Wait for a run's processes and read their dumps: (infos, finals,
+    records, pulls)."""
+    outs = harness.finish(procs, SPARSE_TIMEOUT_S, fail_fast=True)
+    for p, o in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"{what}: {' '.join(p.args[-10:])} exited "
+                                 f"{p.returncode}:\n{o[-3000:]}")
+    infos = [json.load(open(os.path.join(out, f"sparse_server{s}.json")))
+             for s in range(SPARSE_SHARDS)]
+    finals = [dict(np.load(os.path.join(out, f"sparse_tables{s}.npz")))
+              for s in range(SPARSE_SHARDS)]
+    records = [json.load(open(os.path.join(out, f"sparse_worker{w}.json")))
+               for w in range(SPARSE_WORKERS)]
+    pulls = {w: (dict(np.load(os.path.join(out, f"sparse_pulls{w}.npz"))),
+                 records[w]) for w in range(SPARSE_WORKERS)}
+    return infos, finals, records, pulls
+
+
+def _sparse_ps_launches(harness, infos, what):
+    """Each shard applied its expected pushes on the kernels' tier, each
+    push 2 grouping (cluster path) + 2 apply launches; the launches by
+    kernel over the shards."""
+    launches = {"sparse_apply/deep": 0, "sparse_apply/wide": 0,
+                "sparse_group": 0}
+    for s, info in enumerate(infos):
+        n = len(info["apply_log"])
+        want = harness.expected_pushes("wd", s, SPARSE_SHARDS,
+                                       SPARSE_WORKERS, SPARSE_CYCLES)
+        if n != want or info["tiers"] != {"deep": "cuda", "wide": "cuda"}:
+            raise AssertionError(f"{what}: shard {s} applied {n} of {want} "
+                                 f"pushes, tiers {info['tiers']}")
+        got = info["launches"]
+        if (got["apply"], got["group"], got["by_rule"]) != (
+                2 * n, 2 * n, {"adagrad": n, "sgd": n}):
+            raise AssertionError(f"{what}: shard {s} launched {got} for {n} "
+                                 f"pushes: expected 2 grouping (cluster "
+                                 f"path) + 2 apply a push")
+        launches["sparse_apply/deep"] += got["by_rule"]["adagrad"]
+        launches["sparse_apply/wide"] += got["by_rule"]["sgd"]
+        launches["sparse_group"] += got["group"]
+    return launches
+
+
+def _sparse_ps_replay_on_card(harness, infos, finals, pulls, what,
+                              compress=None):
+    """The apply logs replayed through the port's tables on the card (each
+    worker's grads through its codec): the servers' tables and state
+    bitwise, and every pulled row set the replay's at its versions.
+    Returns the row sets held."""
+    import ps_tpu_torch as ps
+
+    ps.init(backend="cuda")
+    try:
+        tables, checked = harness.sparse_replay(
+            infos, "wd", SPARSE_WORKERS, SPARSE_CYCLES, pulls=pulls,
+            compress=compress)
+        for s, final in enumerate(finals):
+            for name, emb in tables[s].items():
+                leaves = [emb.table] + _emb_leaves(emb)
+                saved = [final[name]] + [final[f"{name}/state{i}"]
+                                         for i in range(len(leaves) - 1)]
+                if not all(np.array_equal(x.cpu().numpy(), y)
+                           for x, y in zip(leaves, saved)):
+                    raise AssertionError(f"{what}: shard {s} {name} "
+                                         f"replayed on the card is not "
+                                         f"bitwise the server's")
+    finally:
+        ps.shutdown()
+    return checked
+
+
+def _lanes_in_use(harness, infos, records, opts, what):
+    """No fallback hid a path: the servers served on the native loop,
+    which dispatched exactly the TCP workers' pushes (native admission
+    classified their flat ones, some fresh); each ring worker's frames
+    rode the rings, none spilled to TCP."""
+    harness.check_loop_carried(infos, opts, "wd", SPARSE_CYCLES, what)
+    rings = any(o.get("shm") for o in opts)
+    for s, info in enumerate(infos):
+        if rings and not (info["shm_frames"] > 0
+                          and info["shm_spills"] == 0):
+            raise AssertionError(f"{what}: server {s} {info['shm_frames']} "
+                                 f"shm frames, {info['shm_spills']} spilled")
+    for w, (r, o) in enumerate(zip(records, opts)):
+        if (r["lane"] != ("shm" if o.get("shm") else "tcp")
+                or (o.get("shm") and r["shm_frames"] == 0)
+                or r["shm_spills"]):
+            raise AssertionError(f"{what}: worker {w} lane {r['lane']}, "
+                                 f"{r['shm_frames']} shm frames, "
+                                 f"{r['shm_spills']} spilled")
+
+
+def _transport_sparse(harness, tmp, card):
+    """(a) and (b): returns the launches by kernel, (a)'s numbers on the
+    loop over TCP and over the rings, and the bytes each run's workers
+    pushed."""
+    launches, pushed, numbers = {}, {}, {}
+    tcp = [{"shm": False}] * SPARSE_WORKERS
+    rings = [{"shm": True}] * SPARSE_WORKERS
+    mixed = [{"shm": w == SPARSE_WORKERS - 1} for w in range(SPARSE_WORKERS)]
+    runs = [("a-loop", tcp, None), ("a-rings", rings, None),
+            *[(f"b-{c}", mixed, {"codec": c}) for c in TRANSPORT_CODECS]]
+    started = {}
+    # each (a) run alone, so that its times are not shared
+    for batch in (runs[:1], runs[1:2], runs[2:]):
+        for name, lanes, codec in batch:
+            out = os.path.join(tmp, name)
+            opts = [dict(o, compress=codec) for o in lanes]
+            started[name] = (out, opts, _sparse_ps_spawn(
+                harness, out, {"native_loop": True}, opts))
+        for name, lanes, codec in batch:
+            out, opts, procs = started[name]
+            what = f"transport ({name})"
+            t0 = time.perf_counter()
+            infos, finals, records, pulls = _sparse_ps_read(harness, out,
+                                                            procs, what)
+            _lanes_in_use(harness, infos, records, opts, what)
+            got = _sparse_ps_launches(harness, infos, what)
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            specs = ({w: r["compress"] for w, r in enumerate(records)}
+                     if codec else None)
+            checked = _sparse_ps_replay_on_card(harness, infos, finals,
+                                                pulls, what, specs)
+            pushed[name] = sum(r["bytes"][0] for r in records)
+            keys = records[0]["encoded_keys"]
+            if codec:
+                ratio = sum(r["codec_bytes"][0] for r in records) / sum(
+                    r["codec_bytes"][1] for r in records)
+                if (keys["deep/grads"][0] == 0 or keys["wide/grads"][0]
+                        or keys["deep/ids"][0]):
+                    raise AssertionError(f"{what}: encoded keys {keys}")
+            else:
+                numbers[name] = _sparse_numbers(infos, records)
+            lanes_said = ", ".join(
+                f"worker {w} over {'the rings' if o['shm'] else 'TCP'}"
+                for w, o in enumerate(opts))
+            log(f"{what}: {SPARSE_SHARDS} serve_sparse processes on the "
+                f"native loop, {SPARSE_WORKERS} connect_sparse processes "
+                f"({lanes_said}) x {SPARSE_CYCLES} cycles at W&D's width"
+                + (f", row grads {codec['codec']}" if codec else "")
+                + f": applies {[len(i['apply_log']) for i in infos]}, each "
+                f"2 grouping + 2 apply launches; the loop's pump dispatched "
+                f"{[i['loop_pushes'] for i in infos]} pushes, exactly the "
+                f"TCP workers'; native admission acks "
+                f"{[i['admit']['acks'] for i in infos]}, fresh stamps "
+                f"{[i['admit']['fresh'] for i in infos]}, punts "
+                f"{[i['admit']['punts'] for i in infos]}; replayed on the "
+                f"card bitwise the servers' tables and state, {checked} "
+                f"pulled row sets bitwise the replay's; shm frames servers "
+                f"{[i['shm_frames'] for i in infos]}, workers "
+                f"{[r['shm_frames'] for r in records]}, none spilled; "
+                f"checks {time.perf_counter() - t0:.1f} s")
+            if codec:
+                log(f"{what}: bytes pushed {pushed[name]:,} against "
+                    f"(a)'s raw {pushed['a-loop']:,} "
+                    f"({pushed[name] / pushed['a-loop']:.3f}x); "
+                    f"codec ratio {ratio:.3f}x over what it encoded; "
+                    f"encoded under compress_min_bytes 65,536 (encoded, "
+                    f"raw, largest bytes) by worker 0: " + ", ".join(
+                        f"{k} {v}" for k, v in sorted(keys.items())))
+    return launches, numbers, pushed
+
+
+def _transport_config5(harness, tmp):
+    """(c): returns the worker records (for (d)) and what the loop and the
+    native replay-ack probe saw."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.backends.remote_async import AsyncPSService
+    from ps_tpu_torch.control import tensor_van as tv
+    from ps_tpu_torch.examples.train_mnist_async import build
+
+    out = os.path.join(tmp, "c")
+    os.makedirs(out)
+    ps.init(backend="cuda", mode="async", num_workers=ASYNC_WORKERS,
+            dc_lambda=0.04)
+    params, _ = build(0, "cuda")
+    store = ps.KVStore(optimizer="sgd", learning_rate=0.1, mode="async")
+    store.init(params)
+    svc = AsyncPSService(store, native_loop=True, record_full_history=True)
+    procs = []
+    try:
+        if not svc.native_loop:
+            raise AssertionError("transport (c): the server fell back to "
+                                 "thread per connection")
+        for w, codec in enumerate(TRANSPORT_WORKER_CODECS):
+            env = {"PS_SHM": "1" if TRANSPORT_WORKER_SHM[w] else "0"}
+            if codec == "cast16":
+                env["PS_COMPRESS_PULL"] = "1"
+            procs.append(_spawn_trainer(
+                "--role", "worker", "--server", f"127.0.0.1:{svc.port}",
+                "--worker-id", w, "--steps", ASYNC_CYCLES, "--dump", out,
+                "--bucket-bytes", VAN_BUCKET_BYTES, "--pool", VAN_POOL,
+                "--compress", codec, env_extra=env))
+        outs = []
+        deadline = time.monotonic() + VAN_TIMEOUT_S
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(deadline - time.monotonic(), 1))[0])
+        for p, o in zip(procs, outs):
+            if p.returncode != 0:
+                raise AssertionError(f"transport (c): {' '.join(p.args[3:9])}"
+                                     f" exited {p.returncode}:\n{o[-3000:]}")
+        if not svc.wait_for_goodbyes(ASYNC_WORKERS, timeout=30):
+            raise AssertionError("transport (c): a worker never said goodbye")
+        records = [json.load(open(os.path.join(out, f"worker{w}.json")))
+                   for w in range(ASYNC_WORKERS)]
+        # a replay of worker 0's last push, its own (nonce, seq): acked
+        # inside the loop, the version and the event log unmoved
+        nonce, seq = next(iter(svc._applied_pseq[0].values()))
+        version, events = svc._engine.version, len(svc.event_log)
+        before = svc.admit_stats()
+        with tv.Channel.connect("127.0.0.1", svc.port) as ch:
+            zeros = {k: np.zeros(tuple(v.shape), np.float32)
+                     for k, v in svc._engine._params.items()}
+            kind, _, _, extra = tv.decode(ch.request(tv.encode(
+                tv.PUSH, 0, zeros, extra={"pseq": seq, "pnonce": nonce})))
+        # the loop counts an ack just after writing its bytes
+        deadline = time.monotonic() + 5
+        while (svc.admit_stats()["acks"] < before["acks"] + 1
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        after = svc.admit_stats()
+        if (kind != tv.OK or not extra.get("dedup")
+                or after["acks"] != before["acks"] + 1
+                or svc._engine.version != version
+                or len(svc.event_log) != events):
+            raise AssertionError(f"transport (c): the replayed push was not "
+                                 f"acked natively: {kind} {extra}, acks "
+                                 f"{before['acks']} -> {after['acks']}, "
+                                 f"version {version} -> "
+                                 f"{svc._engine.version}")
+        total = ASYNC_WORKERS * ASYNC_CYCLES
+        # every push of a TCP worker reached the loop's pump as at least
+        # one bucket frame (the ring worker's are served by its thread)
+        loop_pushes = svc.transport.loop_pushes
+        tcp_pushes = ASYNC_CYCLES * TRANSPORT_WORKER_SHM.count(False)
+        if version != total or svc.transport.shm_frames == 0 \
+                or svc.transport.shm_spill_frames \
+                or loop_pushes < tcp_pushes:
+            raise AssertionError(f"transport (c): version {version} of "
+                                 f"{total}; shm frames "
+                                 f"{svc.transport.shm_frames}, spilled "
+                                 f"{svc.transport.shm_spill_frames}; the "
+                                 f"loop dispatched {loop_pushes} push "
+                                 f"frames for {tcp_pushes} TCP pushes")
+        for w, r in enumerate(records):
+            lane = "shm" if TRANSPORT_WORKER_SHM[w] else "tcp"
+            if r["lane"] != lane or r["shm_spills"] or \
+                    r["summary"].get("compress_ratio", 0) <= 1.0:
+                raise AssertionError(f"transport (c): worker {w} lane "
+                                     f"{r['lane']}, summary {r['summary']}")
+            if not np.all(np.isfinite(r["losses"])):
+                raise AssertionError(f"transport (c): worker {w} loss")
+        final = {k: v.detach().clone() for k, v in
+                 svc._engine._params.items()}
+        log_ = list(svc.event_log)
+        codec_bytes = (svc.transport.codec_raw_bytes,
+                       svc.transport.codec_enc_bytes)
+    finally:
+        _stop_all(procs)
+        svc.stop()
+        ps.shutdown()
+    replayed = harness.replay([log_], ASYNC_WORKERS, "cuda", compress={
+        w: r["compress"] for w, r in enumerate(records)})
+    for k, v in final.items():
+        if not torch.equal(replayed[k], v):
+            raise AssertionError(f"transport (c): {k} replayed on the card "
+                                 f"is not bitwise the server's")
+    return records, {"acks": after["acks"], "fresh": after["fresh"],
+                     "punts": after["punts"], "codec_bytes": codec_bytes,
+                     "loop_pushes": loop_pushes, "tcp_pushes": tcp_pushes}
+
+
+def _transport_bert_like():
+    """(d): the 442,939,392-byte tree between a server on the native loop
+    and a worker of this process, bucketed (4 MiB buckets, pool 2), over
+    TCP and over the shm lane: pull and push_pull GB/s, ring frames and
+    spills."""
+    import ps_tpu_torch as ps
+
+    ps.init(backend="cuda", mode="async", num_workers=2)
+    tree, nbytes = _bert_like_tree(BERT_LIKE_MB)
+    store = ps.KVStore(optimizer="sgd", learning_rate=0.01, mode="async")
+    store.init(tree)
+    svc = ps.serve_async(store, native_loop=True)
+    grads = {k: torch.full_like(v, 1e-3) for k, v in tree.items()}
+    out = {"tree_bytes": nbytes}
+    try:
+        for w, lane in enumerate(("tcp", "shm")):
+            wk = ps.connect_async(f"127.0.0.1:{svc.port}", w, tree,
+                                  bucket_bytes=TRANSPORT_BUCKET_BYTES,
+                                  pool_size=2, shm=lane == "shm")
+            wk.pull_all()  # warm-up: pinned buffers, the allocators
+            t0 = time.perf_counter()
+            for _ in range(BERT_LIKE_CYCLES):
+                wk.pull_all()
+            pull = BERT_LIKE_CYCLES * nbytes / (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            for _ in range(BERT_LIKE_CYCLES):
+                wk.push_pull(grads)
+            pp = 2 * BERT_LIKE_CYCLES * nbytes / (time.perf_counter() - t0)
+            out[lane] = {"pull_gbps": pull / 1e9, "push_pull_gbps": pp / 1e9,
+                         "frames": wk.transport.shm_frames,
+                         "spills": wk.transport.shm_spill_frames}
+            wk.close()
+        if out["shm"]["frames"] == 0 or out["shm"]["spills"]:
+            raise AssertionError(f"transport (d): the shm lane carried "
+                                 f"{out['shm']['frames']} frames, spilled "
+                                 f"{out['shm']['spills']}")
+    finally:
+        svc.stop()
+        ps.shutdown()
+    return out
+
+
+def phase_transport(tmp, tcp_sparse=None, tcp_config5=None):
+    """19: the van's transport options on the card. ``tcp_sparse`` and
+    ``tcp_config5`` are phases 17 (f)'s and 16 (e)'s numbers (thread per
+    connection over TCP, raw) from the same run; alone, phase 19 runs
+    phase 17 (a) over TCP itself for its comparison."""
+    from ps_tpu_torch.ops import _build
+
+    _build.build(("sparse_group", "sparse_apply"))  # cached after phase 2
+    harness = _van_harness()
+    card = _card_line()
+    t_phase = time.perf_counter()
+    if tcp_sparse is None:
+        out = os.path.join(tmp, "tcp")
+        procs = _sparse_ps_spawn(harness, out, {}, [{}] * SPARSE_WORKERS)
+        infos, _, records, _ = _sparse_ps_read(harness, out, procs,
+                                               "transport (TCP)")
+        tcp_sparse = _sparse_numbers(infos, records)
+    launches, sparse, pushed = _transport_sparse(harness, tmp, card)
+    records, probe = _transport_config5(harness, tmp)
+    lanes_said = ", ".join(
+        f"worker {w} ({c}) over {'the rings' if shm else 'TCP'}"
+        for w, (c, shm) in enumerate(zip(TRANSPORT_WORKER_CODECS,
+                                         TRANSPORT_WORKER_SHM)))
+    log(f"transport (c): config 5, the server on the native loop in this "
+        f"process, {ASYNC_WORKERS} worker processes ({lanes_said}; the "
+        f"cast16 worker's pulls cast16 too) x {ASYNC_CYCLES} cycles, "
+        f"bucketed ({VAN_BUCKET_BYTES} B, pool {VAN_POOL}): the loop's pump "
+        f"dispatched {probe['loop_pushes']} bucket push frames for the "
+        f"TCP workers' {probe['tcp_pushes']} pushes; the event log "
+        f"replayed on the card with every codec is bitwise the server's "
+        f"params; a replayed push of worker 0 was acked natively (acks "
+        f"{probe['acks']}, fresh stamps {probe['fresh']}, punts "
+        f"{probe['punts']}), the version unmoved; the server decoded "
+        f"{probe['codec_bytes'][1]:,} wire bytes into "
+        f"{probe['codec_bytes'][0]:,}; compression "
+        f"{[round(r['summary']['compress_ratio'], 3) for r in records]}")
+    import types
+
+    c5 = _van_mnist_numbers(types.SimpleNamespace(records=records))
+    bert = _transport_bert_like()
+    tcp = tcp_sparse
+    for name, said in (("a-loop", "on the native loop over TCP"),
+                       ("a-rings", "over the rings (each connection "
+                                   "detached from the loop to a thread)")):
+        got = sparse[name]
+        log(f"transport (d) sparse: {got['cycles_per_s']:.1f} cycles/s "
+            f"{said} against {tcp['cycles_per_s']:.1f} thread per "
+            f"connection over TCP; median pull {got['ops_ms']['pull']:.4f} "
+            f"vs {tcp['ops_ms']['pull']:.4f} ms, push "
+            f"{got['ops_ms']['push']:.4f} vs {tcp['ops_ms']['push']:.4f}, "
+            f"push_pull {got['ops_ms']['push_pull']:.4f} vs "
+            f"{tcp['ops_ms']['push_pull']:.4f} ms; card {card}")
+    log(f"transport (d) config 5: {c5['cycles_per_s']:.1f} cycles/s with "
+        f"every option (median cycle {c5['median_cycle_ms']:.4f} ms)"
+        + (f" against {tcp_config5['cycles_per_s']:.1f} raw over TCP "
+           f"thread per connection (median cycle "
+           f"{tcp_config5['median_cycle_ms']:.4f} ms)" if tcp_config5
+           else "") + f"; card {card}")
+    log(f"transport (d) BERT-base-shaped tree ({bert['tree_bytes']:,} "
+        f"bytes f32, bucketed {TRANSPORT_BUCKET_BYTES} B, pool 2, server on "
+        f"the native loop): pull {bert['shm']['pull_gbps']:.3f} GB/s over "
+        f"the shm lane (its connection's thread) against "
+        f"{bert['tcp']['pull_gbps']:.3f} over TCP through the loop, "
+        f"push_pull {bert['shm']['push_pull_gbps']:.3f} against "
+        f"{bert['tcp']['push_pull_gbps']:.3f}; {bert['shm']['frames']} ring "
+        f"frames, {bert['shm']['spills']} spilled; card {card}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "sparse": sparse, "tcp_sparse": tcp_sparse,
+            "config5": c5, "bert_like": bert, "pushed": pushed}
+
+
 def main():
     if len(sys.argv) == 5 and sys.argv[1] == "--two-ranks-worker":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -4710,11 +5114,14 @@ def main():
     with tempfile.TemporaryDirectory(prefix="ps_ranks_") as tmp:
         launches, flash_two = phase_two_ranks(tmp)
     with tempfile.TemporaryDirectory(prefix="ps_van_") as tmp:
-        phase_van(tmp)
+        van = phase_van(tmp)
     with tempfile.TemporaryDirectory(prefix="ps_sparse_") as tmp:
         sparse = phase_sparse_ps(tmp)
     with tempfile.TemporaryDirectory(prefix="ps_axes_") as tmp:
         axes = phase_axes(tmp)
+    with tempfile.TemporaryDirectory(prefix="ps_transport_") as tmp:
+        transport = phase_transport(tmp, tcp_sparse=sparse["numbers"],
+                                    tcp_config5=van["mnist"])
     for e in entries:  # each rank's launches in phase 15's 20-step runs
         if e["name"] == "flash_attention/fwd":
             # each rank's launches over phase 15 (e)'s bf16 steps, and the
@@ -4730,9 +5137,12 @@ def main():
             e["launches_per_rank_two_ranks"] = {
                 exchange: counts[e["name"]]
                 for exchange, counts in launches.items()}
-            # the servers' launches in phase 17 (a), and the kernel's time
-            # at a server shard's shape
+            # the servers' launches in phase 17 (a) and in phase 19 (a)-(b)
+            # (the native loop over TCP and over the rings, int8 and cast16
+            # row grads), and the
+            # kernel's time at a server shard's shape
             e["launches_sparse_ps"] = sparse["launches"][e["name"]]
+            e["launches_transport"] = transport["launches"][e["name"]]
             part = sparse["shard"][e["name"].split("/")[-1]
                                    if "/" in e["name"] else "group"]
             e["sparse_ps_shard"] = {"ids": sparse["shard"]["ids"],

@@ -10,11 +10,11 @@ And the van half: the typed server failure, the uri parser, the payload
 helpers, ``BucketPlan``/``BucketAssembler`` (fusion buckets and their
 tear-proof reassembly), ``ChannelPump`` (one connection and its sender
 thread) and ``BucketedTransportMixin`` (the worker side of the bucketed,
-pipelined transport), plus the staging of tensors between the card and
-pinned host memory (``stage_to_host``, ``stage_to_device``), which every
-CUDA tensor crossing the van takes. Replica sets and their failover,
-compression and the shared-memory lane are not ported yet (ROADMAP Queue
-1 item 5): a replica list, a codec and an shm offer raise.
+pipelined transport, with the gradient codecs and the same-host
+shared-memory lane offer), plus the staging of tensors between the card
+and pinned host memory (``stage_to_host``, ``stage_to_device``), which
+every CUDA tensor crossing the van takes. Replica sets and their failover
+are not ported yet (ROADMAP Queue 1 item 5.6): a replica list raises.
 
 Every apply here is out of place: it clones the parameter, updates the
 clone and puts it in the server's dict, so a tensor a worker pulled (and
@@ -564,7 +564,9 @@ class ChannelPump:
 class BucketedTransportMixin:
     """Worker-side plumbing of the bucketed, pipelined transport: the pump
     pool, byte and timing accounting, the background cycles and the flush
-    barrier.
+    barrier, and the transport options every connection of a worker
+    shares: the codec policy (``compress``) and the shm lane offer
+    (``shm``, ``shm_bytes``).
 
     Contract: the worker sets ``_addrs``, ``_bytes_lock``, ``worker`` and
     ``bytes_pushed``/``bytes_pulled``, calls :meth:`_init_transport` in its
@@ -577,24 +579,28 @@ class BucketedTransportMixin:
                         pool_size: Optional[int], compress=None,
                         writev: Optional[bool] = None,
                         shm: Optional[bool] = None,
+                        shm_bytes: Optional[int] = None,
                         bucket_priority: Optional[bool] = None) -> None:
         import uuid
 
-        from ps_tpu_torch.config import env_flag
+        from ps_tpu_torch.compress import (CompressPolicy, GradCompressor,
+                                           resolve_spec)
+        from ps_tpu_torch.config import env_flag, env_int
+        from ps_tpu_torch.control.shm_lane import DEFAULT_SHM_BYTES
 
-        if compress not in (None, "none"):
-            raise NotImplementedError(
-                f"compress={compress!r}: gradient codecs (compress/) are "
-                f"not ported yet (ROADMAP Queue 1 item 5.3); pass None")
-        if shm if shm is not None else env_flag("PS_SHM", False):
-            raise NotImplementedError(
-                "shm=True: the shared-memory lane (control/shm_lane.py) is "
-                "not ported yet (ROADMAP Queue 1 item 5.2)")
         # <= 0 selects the serial transport (PS_BUCKET_BYTES=0 convention)
         self.bucket_bytes = (None if bucket_bytes is None
                              or int(bucket_bytes) <= 0 else int(bucket_bytes))
+        # the lanes (None = the env defaults): writev sends frames as
+        # scatter-gather iovecs of the live arrays; shm offers each
+        # connection the same-host ring lane, keeping TCP on a refusal
         self.writev = (env_flag("PS_WRITEV", True)
                        if writev is None else bool(writev))
+        self.shm = env_flag("PS_SHM", False) if shm is None else bool(shm)
+        # a ring under 64 KiB would break the wrap sentinel's framing
+        self.shm_bytes = (env_int("PS_SHM_BYTES", DEFAULT_SHM_BYTES,
+                                  lo=1 << 16)
+                          if shm_bytes is None else int(shm_bytes))
         self.bucket_priority = (env_flag("PS_BUCKET_PRIORITY", True)
                                 if bucket_priority is None
                                 else bool(bucket_priority))
@@ -616,17 +622,62 @@ class BucketedTransportMixin:
         self._pumps: Dict[int, List[ChannelPump]] = {}
         self._bg_pool = None            # the background cycle thread
         self._pending_cycles: List = []  # unobserved background handles
+        # gradient compression: the spec (or None) and the compressor,
+        # which holds the per-key policy and topk's residuals, so it
+        # survives a reconnect (_saved_transport_state)
+        self.compress = resolve_spec(compress)
+        if self.compress is not None and "seed" not in self.compress:
+            # int8's stochastic rounding decorrelated across workers: one
+            # shared seed would add their quantization errors coherently
+            self.compress = dict(self.compress,
+                                 seed=int(getattr(self, "worker", 0)))
+        policy = CompressPolicy.from_spec(self.compress)
+        self._compressor = (GradCompressor(policy, stats=self.transport)
+                            if policy is not None else None)
 
     def _bucket_submit_priority(self, b: int) -> int:
         """Pump priority of bucket ``b``: its index when priority
         scheduling is on, else 0 (pure FIFO)."""
         return int(b) if self.bucket_priority else 0
 
+    def _encode_push_tree(self, arrays: Dict[str, np.ndarray]
+                          ) -> Tuple[Dict[str, np.ndarray], List[str]]:
+        """One server's push payload through the compression policy: the
+        wire tree and the packed keys for the header."""
+        if self._compressor is None:
+            return arrays, []
+        return self._compressor.encode_tree(arrays)
+
+    def _pull_compress_spec(self) -> Optional[dict]:
+        """The codec spec a bucketed pull asks the server to apply to its
+        reply (None unless the spec says ``pull: true``)."""
+        if not self.compress or not self.compress.get("pull"):
+            return None
+        return {k: v for k, v in self.compress.items() if k != "pull"}
+
+    def _maybe_upgrade(self, ch):
+        """Offer the server the shared-memory lane for ``ch`` when ``shm``
+        is on; a refused offer keeps the TCP channel (same semantics)."""
+        if not self.shm:
+            return ch
+        from ps_tpu_torch.control import shm_lane
+
+        up = shm_lane.try_upgrade(ch, getattr(self, "worker", 0),
+                                  self.shm_bytes, stats=self.transport)
+        up.pool = getattr(ch, "pool", None)
+        return up
+
     def _dial_transport_channel(self, host, port):
+        """One data-plane connection: dialed, accounted, and upgraded to
+        the shm lane when the offer is accepted."""
         ch = tv.Channel.connect(host, port)
         ch.stats = self.transport
         ch.pool = self._recv_pool
-        return ch
+        try:
+            return self._maybe_upgrade(ch)
+        except tv.VanError:
+            ch.close()
+            raise
 
     def _open_pumps(self, indices) -> None:
         """Dial ``pool_size`` extra connections a server; the main channels
@@ -749,17 +800,29 @@ class BucketedTransportMixin:
 
     def _saved_transport_state(self) -> tuple:
         """What must survive a reconnect: the wire counters, the transport
-        stats and the push/pull epoch streams."""
+        stats, the push/pull epoch streams and the compressor (topk's
+        residuals are unsent gradient mass)."""
         return (self.bytes_pushed, self.bytes_pulled, self.collective_bytes,
-                self.transport, self._push_epoch, self._pull_epoch)
+                self.transport, self._push_epoch, self._pull_epoch,
+                self._compressor)
 
     def _restore_transport_state(self, saved: tuple) -> None:
         (self.bytes_pushed, self.bytes_pulled, self.collective_bytes,
-         self.transport, self._push_epoch, self._pull_epoch) = saved
+         self.transport, self._push_epoch, self._pull_epoch,
+         self._compressor) = saved
+        if self._compressor is not None:
+            self._compressor.stats = self.transport
         # the re-dial built its accounting against a new stats object
         self._recv_pool.stats = self.transport
+
+        def repoint(ch):
+            while ch is not None:
+                if getattr(ch, "stats", None) is not None:
+                    ch.stats = self.transport
+                ch = getattr(ch, "_ch", None)  # an shm lane wraps its TCP
+
         for pumps in self._pumps.values():
             for p in pumps:
-                p._ch.stats = self.transport
+                repoint(p._ch)
         for ch in getattr(self, "_chs", []):
-            ch.stats = self.transport
+            repoint(ch)

@@ -28,13 +28,20 @@ Parity: each server records its apply order (``event_log``); replaying
 that (worker, grads) sequence through a one-process ``AsyncCudaServer``
 per key range gives bitwise the same parameters.
 
-Not ported yet, each raising with its ROADMAP item: gradient compression
-(``compress/``), elastic membership (``coordinator=``, the ``MIGRATE_*``
-kinds; item 6), the aggregator, replica sets and backups, the read path
-(``READ``, ``read_staleness``, ``pull_cache``), the shared-memory lane and
-the native serve loop (item 5 all), and the reference's trace spans and
-metrics endpoint (``obs/``, item 6). Extra keys in an incoming frame, such
-as a trace context, are ignored.
+The van's transport options are the reference's: the server may serve
+through the native epoll loop with native push admission
+(``native_loop=True``), a worker may move its frames through the
+same-host shared-memory lane (``shm=True``), and a worker's pushes, and
+its bucketed pulls on request, may travel codec-compressed
+(``compress='cast16'|'int8'|'topk'``, ``compress/``), decoded by the
+server before the apply.
+
+Not ported yet, each raising with its ROADMAP Queue 1 item: the
+aggregator (5.5), replica sets and backups (5.6), the read path
+(``READ``, ``read_staleness``, ``pull_cache``; 5.8), elastic membership
+(``coordinator=``, the ``MIGRATE_*`` kinds; 6), and the reference's trace
+spans and metrics endpoint (``obs/``, 6). Extra keys in an incoming
+frame, such as a trace context, are ignored.
 """
 
 from __future__ import annotations
@@ -59,6 +66,7 @@ from ps_tpu_torch.backends.common import (
     stage_to_device,
     stage_to_host,
 )
+from ps_tpu_torch.compress import CompressPolicy, GradCompressor, decode_tree
 from ps_tpu_torch.backends.van_service import (
     VanService,
     log_tail,
@@ -208,8 +216,6 @@ class AsyncPSService(VanService):
         (nonce, seq) at or below the last applied one is a replay and is
         acked without applying."""
         extra = extra or {}
-        if extra.get("enc"):
-            raise _not_ported("a codec-packed push (compress/)", "5.3")
         if extra.get("members"):
             raise _not_ported("a merged push (the aggregator)", "5.5")
         pseq = extra.get("pseq")
@@ -228,9 +234,11 @@ class AsyncPSService(VanService):
             if self._draining:
                 raise RuntimeError("server is draining; push refused")
             # every check runs after any pause park: the wait releases the
-            # lock, so the ledger may have moved meanwhile
+            # lock, so the ledger may have moved meanwhile. A native
+            # admission stamp proves the loop saw this frame strictly fresh
+            # at a generation no apply has superseded: the scan is skipped
             fresh = grads
-            if pseq is not None:
+            if pseq is not None and not self._admit_fresh_hint():
                 fresh = self._dedup_fresh(worker, pnonce, int(pseq), grads)
                 if not fresh:
                     self.transport.record_dedup_hit()
@@ -242,11 +250,16 @@ class AsyncPSService(VanService):
                 raise _not_ported("a partial replay across a key-range move "
                                   "(elastic/)", "6")
             self._engine.push_tree(fresh, worker=worker)
+            # the native mirror's generation moves past the pre-apply one
+            self._invalidate_reads()
             self._applied[worker] = self._applied.get(worker, 0) + 1
             if pseq is not None:
                 toks = self._applied_pseq.setdefault(worker, {})
                 for k in fresh:
                     toks[k] = (pnonce, int(pseq))
+            # republish this worker's settled ledger row and the fresh ack
+            # template to native admission at the post-apply generation
+            self._admit_publish(worker)
             self._pause_cond.notify_all()  # a drain_to waiter may watch
             with self._log_lock:
                 self.apply_log.append(worker)
@@ -279,6 +292,54 @@ class AsyncPSService(VanService):
         return tv.encode(tv.OK, worker, None, extra={
             "version": self._engine.version, **extra, "dedup": dedup})
 
+    def _decode_push(self, tensors, extra) -> Dict[str, np.ndarray]:
+        """Unpack a push's codec-packed keys (``extra["enc"]``) before the
+        apply; the decoded arrays are the codec's own (raw keys stay views
+        of the frame, copied to the device before the frame is released)."""
+        enc = (extra or {}).get("enc")
+        if not enc:
+            return tensors
+        return decode_tree(dict(tensors), enc, stats=self.transport)
+
+    # -- the zero-upcall push plane (VanService's admission hooks) ------------
+
+    def _service_lock(self):
+        return self._engine._lock
+
+    def _admit_kind(self):
+        # whole-tree PUSH only: PUSH_PULL replies with params (no template
+        # can pre-encode them) and bucket frames are staged
+        return tv.PUSH
+
+    def _admit_entry(self, worker: int):
+        """This worker's per-key tokens folded to one (nonce, lo, hi) row:
+        publishable only when every served key carries a token under one
+        nonce (lo the least seq, hi the greatest). A partial or mixed map
+        gives None and the worker's frames go to the pump."""
+        toks = self._applied_pseq.get(worker)
+        order = self._key_order
+        if not toks or not order:
+            return None
+        nonce = None
+        lo = hi = 0
+        for k in order:
+            t = toks.get(k)
+            if t is None or not isinstance(t[0], str):
+                return None
+            if nonce is None:
+                nonce, lo, hi = t[0], int(t[1]), int(t[1])
+            elif t[0] != nonce:
+                return None
+            else:
+                lo = min(lo, int(t[1]))
+                hi = max(hi, int(t[1]))
+        return nonce, lo, hi
+
+    def _admit_ack_bytes(self):
+        # byte for byte the pump's pure-replay ack (the loop patches the
+        # worker id): the current version, dedup set
+        return self._push_reply(0, True)
+
     # -- bucketed transport (server half) -------------------------------------
 
     def _bucket_push(self, worker: int, tensors, extra):
@@ -292,6 +353,9 @@ class AsyncPSService(VanService):
         if tree is None:
             return tv.encode(tv.OK, worker, None,
                              extra={"staged": int(extra["bucket"])})
+        # codec-packed keys (the same list on every bucket of the epoch)
+        # are decoded after the assembly, before the apply
+        tree = decode_tree(tree, extra.get("enc"), stats=self.transport)
         dedup = self._apply_push(worker, tree, extra=extra)
         return self._push_reply(worker, dedup, committed=True)
 
@@ -302,24 +366,37 @@ class AsyncPSService(VanService):
         the serve thread that asks."""
         epoch, b = int(extra["epoch"]), int(extra["bucket"])
         if b == 0:
-            if extra.get("compress"):
-                raise _not_ported("a compressed pull (compress/)", "5.3")
             bb = int(extra.get("bucket_bytes") or DEFAULT_BUCKET_BYTES)
             kv, version, key_order = self._snapshot(worker)
             host = stage_to_host(kv, stats=self.transport)
+            # the return path's compression, asked for per request: the
+            # worker names the spec, the server applies the per-key policy
+            # and names the packed keys in every bucket's header
+            enc: List[str] = []
+            spec = extra.get("compress")
+            if spec:
+                # fresh quantization noise per (worker, pull epoch): a
+                # fixed seed would replay one draw every pull, a bias
+                spec = dict(spec)
+                spec["seed"] = ((int(spec.get("seed", 0)) * 1000003
+                                 + worker * 9176 + epoch) & 0x7FFFFFFF)
+                comp = GradCompressor(CompressPolicy.from_spec(spec),
+                                      stats=self.transport)
+                host, enc = comp.encode_tree(host)
+                host = {k: np.ascontiguousarray(v) for k, v in host.items()}
             plan = BucketPlan.from_arrays(host, bb, order=key_order)
             with self._stage_lock:
                 if plan.nbuckets > 1:
                     self._pull_cache[worker] = {
                         "epoch": epoch, "host": host, "plan": plan,
-                        "version": version,
+                        "version": version, "enc": enc,
                         "left": set(range(1, plan.nbuckets)),
                     }
                 else:
                     self._pull_cache.pop(worker, None)
             return plan.bucket_encoder(self.writev)(
                 tv.OK, worker, host, 0,
-                extra={"epoch": epoch, "version": version, "enc": []})
+                extra={"epoch": epoch, "version": version, "enc": enc})
         with self._stage_lock:
             entry = self._pull_cache.get(worker)
             if (entry is None or entry["epoch"] != epoch
@@ -332,7 +409,8 @@ class AsyncPSService(VanService):
                 self._pull_cache.pop(worker, None)
         return entry["plan"].bucket_encoder(self.writev)(
             tv.OK, worker, entry["host"], b,
-            extra={"epoch": epoch, "version": entry["version"], "enc": []})
+            extra={"epoch": epoch, "version": entry["version"],
+                   "enc": entry["enc"]})
 
     def _stats(self, worker: int):
         with self._log_lock:
@@ -368,10 +446,12 @@ class AsyncPSService(VanService):
         if kind == tv.PULL:
             return self._params_payload(worker)
         if kind == tv.PUSH:
-            dedup = self._apply_push(worker, tensors, extra=extra)
+            dedup = self._apply_push(
+                worker, self._decode_push(tensors, extra), extra=extra)
             return self._push_reply(worker, dedup)
         if kind == tv.PUSH_PULL:
-            self._apply_push(worker, tensors, extra=extra)
+            self._apply_push(worker, self._decode_push(tensors, extra),
+                             extra=extra)
             return self._params_payload(worker)
         if kind == tv.BUCKET_PUSH:
             return self._bucket_push(worker, tensors, extra)
@@ -411,6 +491,9 @@ class AsyncPSService(VanService):
                     return tv.encode(tv.ERR, worker, None,
                                      extra={"error": self._ckpt_busy_error()})
                 self._paused = True
+                # paused: every push must reach the pump and park there,
+                # so native admission is dropped until the resume
+                self._admit_drop()
                 applied = {str(w): n for w, n in self._applied.items()}
             return tv.encode(tv.OK, worker, None, extra={
                 "version": self._engine.version, "applied": applied,
@@ -419,6 +502,7 @@ class AsyncPSService(VanService):
             with self._engine._lock:
                 self._paused = False
                 self._ckpt_clear_token()
+                self._admit_sync(locked=True)  # the pause is over: reseed
                 self._pause_cond.notify_all()
             return tv.encode(tv.OK, worker, None, extra={
                 "version": self._engine.version, "forced": True})
@@ -450,6 +534,7 @@ class AsyncPSService(VanService):
             with self._engine._lock:
                 self._paused = False
                 self._ckpt_clear_token()
+                self._admit_sync(locked=True)  # the pause is over: reseed
                 self._pause_cond.notify_all()
             return tv.encode(tv.OK, worker, None,
                              extra={"version": self._engine.version})
@@ -466,6 +551,8 @@ class AsyncPSService(VanService):
         with self._engine._lock:
             self._draining = True
             self._pause_cond.notify_all()  # paused pushes wake into refusal
+        self._invalidate_reads()
+        self._admit_drop()  # the pump's draining refusal is the only answer
 
 
 def serve_async(store, port: int = 0, bind: str = "127.0.0.1",
@@ -474,17 +561,24 @@ def serve_async(store, port: int = 0, bind: str = "127.0.0.1",
                 ckpt_root: Optional[str] = None,
                 backup: bool = False,
                 native_loop: Optional[bool] = None,
-                loop_threads: Optional[int] = None) -> AsyncPSService:
+                loop_threads: Optional[int] = None,
+                shm: Optional[bool] = None) -> AsyncPSService:
     """Expose an initialized async KVStore to remote worker processes.
 
     Each server process calls this after ``store.init(...)``; workers join
     with :func:`connect_async`. Returns the running service (``.port``,
     ``.stop()``). One server: ``store.init(params)``. Server ``s`` of
     ``N``: ``store.init(shard_tree(params, s, N))`` and
-    ``serve_async(store, shard=s, num_shards=N)``."""
+    ``serve_async(store, shard=s, num_shards=N)``.
+
+    ``native_loop`` (env ``PS_VAN_NATIVE_LOOP``) serves through the native
+    epoll loop on ``loop_threads`` native threads (env
+    ``PS_VAN_LOOP_THREADS``); ``shm`` (env ``PS_SHM``, on by default here)
+    accepts the workers' shared-memory lane offers. ``backup=True`` raises
+    (replication, ROADMAP Queue 1 item 5.6)."""
     return AsyncPSService(store, port=port, bind=bind, shard=shard,
                           num_shards=num_shards, ckpt_root=ckpt_root,
-                          backup=backup, native_loop=native_loop,
+                          shm=shm, backup=backup, native_loop=native_loop,
                           loop_threads=loop_threads)
 
 
@@ -514,9 +608,18 @@ def connect_async(uri: Optional[str], worker: int, params_like,
     :meth:`RemoteAsyncWorker.push_pull_async`). None keeps the serial
     transport, one frame a server a cycle.
 
-    Not ported yet (each raises, naming its ROADMAP item): ``compress``
-    other than None/'none', ``shm=True``, ``coordinator``, ``aggregator``,
-    ``read_staleness``/``pull_cache`` and ``|`` replica sets in ``uri``.
+    ``compress`` picks a gradient codec for the pushes (``compress/``): a
+    name ('cast16', 'int8', 'topk') or a spec such as ``{"codec": "int8",
+    "min_bytes": 65536, "pull": True}``; ``pull`` also compresses the
+    bucketed pulls' return path (topk refused there: its residuals live
+    at the sender). int8's seed defaults to the worker id. ``shm`` (env
+    ``PS_SHM``) offers every connection the same-host shared-memory lane,
+    rings of ``shm_bytes`` (env ``PS_SHM_BYTES``, 16 MiB) a direction; a
+    refused offer keeps TCP.
+
+    Not ported yet (each raises, naming its ROADMAP Queue 1 item):
+    ``aggregator`` (5.5), ``|`` replica sets in ``uri`` (5.6),
+    ``read_staleness``/``pull_cache`` (5.8) and ``coordinator`` (6).
     """
     if coordinator is not None:
         raise _not_ported("coordinator= (elastic membership, elastic/)", "6")
@@ -526,11 +629,12 @@ def connect_async(uri: Optional[str], worker: int, params_like,
         raise _not_ported("the read path (read_staleness, pull_cache)", "5.8")
     if uri is None:
         raise ValueError("connect_async needs a server uri")
-    del shm_bytes, failover_timeout  # no shm lane, no replica set to ride
+    del failover_timeout  # no replica set to ride
     addrs, _ = parse_replica_uri(uri)
     return RemoteAsyncWorker.connect_many(
         addrs, worker, params_like, bucket_bytes=bucket_bytes,
-        pool_size=pool_size, compress=compress, writev=writev, shm=shm)
+        pool_size=pool_size, compress=compress, writev=writev, shm=shm,
+        shm_bytes=shm_bytes)
 
 
 class CheckpointRoundError(RuntimeError):
@@ -673,26 +777,31 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
     def __init__(self, host: str, port: int, worker: int, params_like,
                  bucket_bytes: Optional[int] = None,
                  pool_size: Optional[int] = None, compress=None,
-                 writev: Optional[bool] = None, shm: Optional[bool] = None):
+                 writev: Optional[bool] = None, shm: Optional[bool] = None,
+                 shm_bytes: Optional[int] = None):
         self._init_multi([(host, int(port))], worker, params_like,
                          bucket_bytes=bucket_bytes, pool_size=pool_size,
-                         compress=compress, writev=writev, shm=shm)
+                         compress=compress, writev=writev, shm=shm,
+                         shm_bytes=shm_bytes)
 
     @classmethod
     def connect_many(cls, addrs: Sequence[Tuple[str, int]], worker: int,
                      params_like, bucket_bytes: Optional[int] = None,
                      pool_size: Optional[int] = None, compress=None,
                      writev: Optional[bool] = None,
-                     shm: Optional[bool] = None) -> "RemoteAsyncWorker":
+                     shm: Optional[bool] = None,
+                     shm_bytes: Optional[int] = None) -> "RemoteAsyncWorker":
         self = cls.__new__(cls)
         self._init_multi(list(addrs), worker, params_like,
                          bucket_bytes=bucket_bytes, pool_size=pool_size,
-                         compress=compress, writev=writev, shm=shm)
+                         compress=compress, writev=writev, shm=shm,
+                         shm_bytes=shm_bytes)
         return self
 
     def _init_multi(self, addrs: List[Tuple[str, int]], worker: int,
                     params_like, bucket_bytes=None, pool_size=None,
-                    compress=None, writev=None, shm=None) -> None:
+                    compress=None, writev=None, shm=None,
+                    shm_bytes=None) -> None:
         self.worker = worker
         self.device = _worker_device(params_like)
         kv, self._treedef = keymod.flatten_with_keys(params_like)
@@ -712,7 +821,14 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         self.collective_bytes = 0  # no collective on the van path
         self._bytes_lock = threading.Lock()  # _fanout runs _request in threads
         self._init_transport(bucket_bytes, pool_size, compress=compress,
-                             writev=writev, shm=shm)
+                             writev=writev, shm=shm, shm_bytes=shm_bytes)
+        if self.compress and self.compress.get("pull") \
+                and self.compress.get("codec") == "topk":
+            raise ValueError(
+                "topk cannot compress the pull return path: its error-"
+                "feedback residuals live at the sender, and a server has "
+                "no per-worker residual state — dropped params mass would "
+                "be lost forever. Use cast16/int8 for pull compression.")
         try:
             self._connect_and_validate(kv)
         except Exception:
@@ -777,6 +893,9 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                 raise ValueError(
                     f"servers disagree on num_workers ({self.num_workers} "
                     f"vs {nw} at server {i})")
+            # the topology checked out: offer this (serial and control)
+            # channel the same-host shm lane; a refusal keeps TCP
+            self._chs[i] = self._maybe_upgrade(ch)
         missing = [k for k in self._key_order if k not in self._owner]
         if missing:
             raise ValueError(f"no server owns keys {missing[:3]}"
@@ -899,11 +1018,17 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
 
     def _encode_serial_push(self, kind: int, sub: Dict[str, np.ndarray],
                             pseq: Optional[int] = None):
-        """One serial push frame with the (nonce, seq) dedup token; zero
-        copy parts with ``writev``."""
-        extra = None
+        """One serial push frame, compressed by the policy (the packed keys
+        in ``extra["enc"]``), with the (nonce, seq) dedup token; zero copy
+        parts with ``writev``."""
+        sub, enc = self._encode_push_tree(sub)
+        extra = {}
+        if enc:
+            extra["enc"] = enc
         if pseq is not None:
-            extra = {"pseq": pseq, "pnonce": self._transport_nonce}
+            extra["pseq"] = pseq
+            extra["pnonce"] = self._transport_nonce
+        extra = extra or None
         if self.writev:
             return tv.encode_parts(kind, self.worker, sub, extra)
         return tv.encode(kind, self.worker, sub, extra)
@@ -924,6 +1049,8 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         epoch = self._push_epoch
         futs: List[Tuple[int, Any]] = []
         for i, sub in by_owner.items():
+            # the codec pass first: what buckets is each key's wire form
+            sub, enc = self._encode_push_tree(sub)
             sub = {k: np.ascontiguousarray(v) for k, v in sub.items()}
             plan = BucketPlan.from_arrays(sub, self.bucket_bytes)
             pumps = self._pumps[i]
@@ -931,7 +1058,7 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
             for b in range(plan.nbuckets):
                 extra = {"epoch": epoch, "nonce": self._transport_nonce,
                          "pseq": pseq, "pnonce": self._transport_nonce,
-                         "enc": []}
+                         "enc": enc}
                 payload = enc_bucket(tv.BUCKET_PUSH, self.worker, sub, b,
                                      extra=extra)
                 futs.append((i, pumps[b % len(pumps)].submit(
@@ -949,7 +1076,8 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         """Bucketed pull: bucket 0 snapshots each server's subtree and names
         the bucket count; the rest stream over the pool, front of the
         model first. Each reply is copied into its assembler and its
-        buffer returned to the pool before the next borrow."""
+        buffer returned to the pool before the next borrow; keys the
+        server packed (``pull`` compression) are decoded last."""
         self._pull_epoch += 1
         epoch = self._pull_epoch
         first = {
@@ -957,9 +1085,10 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                 tv.BUCKET_PULL, self.worker, None,
                 extra={"epoch": epoch, "bucket": 0,
                        "bucket_bytes": self.bucket_bytes,
-                       "compress": None}))
+                       "compress": self._pull_compress_spec()}))
             for i in self._active}
         kv: Dict[str, np.ndarray] = {}
+        enc_keys: List[str] = []
         rest: List[Tuple[int, Any]] = []
         assemblers: Dict[int, BucketAssembler] = {}
         for i, fut in first.items():
@@ -969,6 +1098,7 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                 self._release_frame(reply)
                 raise self._reply_error(i, extra)
             self.versions[i] = int(extra["version"])
+            enc_keys.extend(extra.get("enc") or [])
             n = int(extra["nbuckets"])
             asm = BucketAssembler(epoch, n)
             done = asm.add(0, tensors["raw"], extra["slices"], epoch)
@@ -994,7 +1124,7 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
             self._release_frame(reply)
             if done:
                 kv.update(assemblers[i].finish())
-        return kv
+        return decode_tree(kv, enc_keys, stats=self.transport)
 
     def push_pull_async(self, grads) -> PendingCycle:
         """Start one whole transport cycle (bucketed push, then pull) in the
@@ -1100,8 +1230,11 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                 keymod.unflatten(self._treedef, self._kv_like,
                                  self._key_order),
                 bucket_bytes=self.bucket_bytes, pool_size=self.pool_size,
-                writev=self.writev)
+                compress=self.compress, writev=self.writev, shm=self.shm,
+                shm_bytes=self.shm_bytes)
         finally:
+            # the compressor too: topk's residuals are unsent gradient
+            # mass and survive the re-dial
             self._restore_transport_state(saved)
 
     def make_async_step(self, loss_fn, has_aux: bool = False,

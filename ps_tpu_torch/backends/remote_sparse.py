@@ -34,12 +34,20 @@ cycle) push sequence, routed by the same range split, through a
 one-process ``SparseEmbedding`` of the server's local size gives the
 same table bitwise.
 
-Not ported yet, each raising with its ROADMAP Queue 1 item: the native
-serve loop (5.1), the shared-memory lane (5.2), compression (5.3),
-replication, backups and failover across a replica set (5.6), tiered
-tables (5.7), the read path (``read_rows``, READ; 5.8) and elastic
-membership (``coordinator=``; 6). The service's hooks for them are inert
-(``VanService``). The reference's trace spans and ``obs`` counters
+The van's transport options are the reference's: a server may serve
+through the native epoll loop, where native push admission acks a
+replayed ``ROW_PUSH`` without an upcall (``native_loop=True``); a worker
+may move its frames through the same-host shared-memory lane
+(``shm=True``); and a worker's row grads may travel int8- or
+cast16-compressed (``compress=``; the int32 ids always raw, topk
+refused: row pushes are sparse already), decoded by the server before
+they are staged to the table's device. Every such push still ends in the
+sparse-apply kernels.
+
+Not ported yet, each raising with its ROADMAP Queue 1 item: replication,
+backups and failover across a replica set (5.6), tiered tables (5.7),
+the read path (``read_rows``, READ; 5.8) and elastic membership
+(``coordinator=``; 6). The reference's trace spans and ``obs`` counters
 (item 6) are not recorded.
 """
 
@@ -72,6 +80,7 @@ from ps_tpu_torch.backends.remote_async import (
     _not_ported,
     _Op,
 )
+from ps_tpu_torch.compress import decode_tree, resolve_spec
 from ps_tpu_torch.backends.van_service import (
     VanService,
     log_tail,
@@ -276,8 +285,6 @@ class SparsePSService(VanService):
         worker's cycle token: a seq at or below the last applied one (same
         nonce) is a replay, acked without an apply."""
         extra = extra or {}
-        if extra.get("enc"):
-            raise _not_ported("a codec-packed push (compress/)", "5.3")
         pseq = extra.get("pseq")
         pnonce = extra.get("pnonce")
         pfan = extra.get("pfan")
@@ -311,7 +318,9 @@ class SparsePSService(VanService):
             if self._draining:
                 raise RuntimeError("server is draining; push refused")
             # the replay check runs after any pause park: the wait
-            # releases the lock, so the ledger may have moved meanwhile
+            # releases the lock, so the ledger may have moved meanwhile. A
+            # native admission stamp proves the loop saw this frame
+            # strictly fresh at a generation no apply superseded
             if pseq is not None and not self._admit_fresh_hint():
                 last = self._applied_pseq.get(worker)
                 if (last is not None and last[0] == pnonce
@@ -359,6 +368,30 @@ class SparsePSService(VanService):
             return True  # the targeted cycle's message is still in flight
         return rec[0] == nonce and rec[1] < seq
 
+    # -- the zero-upcall push plane (VanService's admission hooks) ------------
+
+    def _service_lock(self):
+        return self._lock
+
+    def _admit_kind(self):
+        # flat ROW_PUSH only: ROW_PUSH_PULL replies with rows (no template
+        # can pre-encode them) and bucketed row pushes stage
+        return tv.ROW_PUSH
+
+    def _admit_entry(self, worker: int):
+        """The worker's last applied cycle as a ledger row: lo == hi ==
+        its seq, so a replay at or below it is settled and anything above
+        strictly fresh (the pump's replay test)."""
+        rec = self._applied_pseq.get(worker)
+        if rec is None or not isinstance(rec[0], str):
+            return None
+        return rec[0], int(rec[1]), int(rec[1])
+
+    def _admit_ack_bytes(self):
+        # byte for byte the pump's pure-replay ack (the loop patches the
+        # worker id): the current table versions, dedup set
+        return self._push_reply(0, True)
+
     def _rows_payload(self, worker: int,
                       per_table: Dict[str, Dict[str, np.ndarray]]):
         rows = {}
@@ -404,6 +437,11 @@ class SparsePSService(VanService):
             return tv.encode(tv.OK, worker, None, extra=self._hello_extra())
         if kind == tv.ROW_PULL:
             return self._rows_payload(worker, self._split(tensors))
+        if kind in (tv.ROW_PUSH, tv.ROW_PUSH_PULL):
+            # codec-packed grads decoded before they are staged to the
+            # table's device (the ids always travel raw)
+            tensors = decode_tree(dict(tensors), extra.get("enc"),
+                                  stats=self.transport)
         if kind == tv.ROW_PUSH:
             rseq, dedup = self._apply_push(worker, self._split(tensors),
                                            extra=extra)
@@ -428,6 +466,7 @@ class SparsePSService(VanService):
             if tree is None:
                 return tv.encode(tv.OK, worker, None,
                                  extra={"staged": int(extra["bucket"])})
+            tree = decode_tree(tree, extra.get("enc"), stats=self.transport)
             rseq, dedup = self._apply_push(worker, self._split(tree),
                                            extra=extra)
             self._await_replication(rseq)
@@ -463,6 +502,8 @@ class SparsePSService(VanService):
                     return tv.encode(tv.ERR, worker, None,
                                      extra={"error": self._ckpt_busy_error()})
                 self._paused = True
+                # paused: every push must reach the pump and park there
+                self._admit_drop()
                 applied = {str(w): [nonce, seq, fan]
                            for w, (nonce, seq, fan)
                            in self._applied_pseq.items()}
@@ -473,6 +514,7 @@ class SparsePSService(VanService):
             with self._lock:
                 self._paused = False
                 self._ckpt_clear_token()
+                self._admit_sync(locked=True)  # the pause is over: reseed
                 self._pause_cond.notify_all()
             return tv.encode(tv.OK, worker, None, extra={
                 "versions": dict(self.versions), "forced": True})
@@ -515,6 +557,7 @@ class SparsePSService(VanService):
             with self._lock:
                 self._paused = False
                 self._ckpt_clear_token()
+                self._admit_sync(locked=True)  # the pause is over: reseed
                 self._pause_cond.notify_all()
             return tv.encode(tv.OK, worker, None,
                              extra={"versions": dict(self.versions)})
@@ -533,6 +576,7 @@ class SparsePSService(VanService):
             self._draining = True
             self._pause_cond.notify_all()  # paused pushes wake into refusal
         self._invalidate_reads()
+        self._admit_drop()  # the pump's draining refusal is the only answer
 
 
 def serve_sparse(tables: Dict[str, Any], port: int = 0,
@@ -542,7 +586,8 @@ def serve_sparse(tables: Dict[str, Any], port: int = 0,
                  ckpt_root: Optional[str] = None,
                  backup: bool = False,
                  native_loop: Optional[bool] = None,
-                 loop_threads: Optional[int] = None) -> SparsePSService:
+                 loop_threads: Optional[int] = None,
+                 shm: Optional[bool] = None) -> SparsePSService:
     """Expose initialized sparse tables to remote worker processes.
 
     One server: each table holds its full row space, no shard arguments.
@@ -550,11 +595,14 @@ def serve_sparse(tables: Dict[str, Any], port: int = 0,
     made with ``hi - lo`` rows for ``lo, hi = row_range(s, N, total)``
     and ``total_rows={name: total}`` is passed. The tables live on the
     device ``ps_tpu_torch.init`` chose; workers join with
-    :func:`connect_sparse`. ``backup=True`` and ``native_loop=True``
-    raise (ROADMAP Queue 1 items 5.6 and 5.1)."""
+    :func:`connect_sparse`. ``native_loop`` (env ``PS_VAN_NATIVE_LOOP``)
+    serves through the native epoll loop on ``loop_threads`` threads;
+    ``shm`` (env ``PS_SHM``, on by default here) accepts the workers'
+    shared-memory lane offers. ``backup=True`` raises (ROADMAP Queue 1
+    item 5.6)."""
     return SparsePSService(tables, port=port, bind=bind, shard=shard,
                            num_shards=num_shards, total_rows=total_rows,
-                           ckpt_root=ckpt_root, backup=backup,
+                           ckpt_root=ckpt_root, shm=shm, backup=backup,
                            native_loop=native_loop,
                            loop_threads=loop_threads)
 
@@ -580,18 +628,24 @@ def connect_sparse(uri: Optional[str], worker: int,
     pulled rows come back as tensors on the device of the ids that asked
     for them (the CPU for numpy or list ids).
 
-    Not ported yet (each raises, naming its ROADMAP Queue 1 item):
-    ``compress`` other than None/'none' (5.3), ``shm=True`` (5.2), ``|``
+    ``compress`` ('cast16' or 'int8', or a spec dict; topk is refused:
+    row pushes are sparse already) encodes the row grads of each push
+    that pass the policy's size floor (``min_bytes``, 64 KiB by default);
+    the ids travel raw. ``shm`` (env ``PS_SHM``) offers every connection
+    the same-host shared-memory lane of ``shm_bytes`` a direction.
+
+    Not ported yet (each raises, naming its ROADMAP Queue 1 item): ``|``
     replica sets in ``uri`` (5.6) and ``coordinator`` (6)."""
     if coordinator is not None:
         raise _not_ported("coordinator= (elastic membership, elastic/)", "6")
     if uri is None:
         raise ValueError("connect_sparse needs a server uri")
-    del shm_bytes, failover_timeout  # no shm lane, no replica set to ride
+    del failover_timeout  # no replica set to ride
     addrs, _ = parse_replica_uri(uri)
     return RemoteSparseWorker(addrs, worker, tables,
                               bucket_bytes=bucket_bytes, pool_size=pool_size,
-                              compress=compress, writev=writev, shm=shm)
+                              compress=compress, writev=writev, shm=shm,
+                              shm_bytes=shm_bytes)
 
 
 class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
@@ -616,17 +670,20 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                  bucket_bytes: Optional[int] = None,
                  pool_size: Optional[int] = None,
                  compress=None, writev: Optional[bool] = None,
-                 shm: Optional[bool] = None):
+                 shm: Optional[bool] = None,
+                 shm_bytes: Optional[int] = None):
         self._init_multi(list(addrs), worker, tables,
                          bucket_bytes=bucket_bytes, pool_size=pool_size,
-                         compress=compress, writev=writev, shm=shm)
+                         compress=compress, writev=writev, shm=shm,
+                         shm_bytes=shm_bytes)
 
     def _init_multi(self, addrs: List[Tuple[str, int]], worker: int,
                     tables: Dict[str, Tuple[int, int]],
                     bucket_bytes: Optional[int] = None,
                     pool_size: Optional[int] = None,
                     compress=None, writev: Optional[bool] = None,
-                    shm: Optional[bool] = None) -> None:
+                    shm: Optional[bool] = None,
+                    shm_bytes: Optional[int] = None) -> None:
         """A fresh dial and validation: ``__init__``'s body, which
         :meth:`reconnect` reruns (a failed re-dial leaves the identity
         fields for a clean retry)."""
@@ -646,8 +703,14 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         self.bytes_pulled = 0
         self.collective_bytes = 0  # no collective on the van path
         self._bytes_lock = threading.Lock()
-        self._init_transport(bucket_bytes, pool_size, compress=compress,
-                             writev=writev, shm=shm)
+        spec = resolve_spec(compress)
+        if spec is not None and spec.get("codec") == "topk":
+            raise ValueError(
+                "topk is not a sparse-push codec: row pushes already "
+                "sparsify, and per-table error-feedback residuals would "
+                "mix different row sets across steps — use cast16 or int8")
+        self._init_transport(bucket_bytes, pool_size, compress=spec,
+                             writev=writev, shm=shm, shm_bytes=shm_bytes)
         try:
             self._connect_and_validate()
         except Exception:
@@ -700,6 +763,8 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
             # from a checkpoint)
             for name, v in extra.get("versions", {}).items():
                 self._versions[name][i] = int(v)
+            # validated: offer the same-host shm lane (TCP on a refusal)
+            self._chs[i] = self._maybe_upgrade(ch)
         for name, ranges in self._ranges.items():
             ranges.sort()
             total = self._spec[name][0]
@@ -889,13 +954,18 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
     def _encode_serial_push(self, kind: int, t: Dict[str, np.ndarray],
                             pseq: Optional[int] = None,
                             pfan: Optional[List[int]] = None):
-        """One serial row-push frame tagged with the (nonce, cycle seq,
-        fanout) token: the dedup key, and what the checkpoint's drain
-        round compares across shards. Zero-copy parts with ``writev``."""
-        extra = None
+        """One serial row-push frame, its grads compressed by the policy,
+        tagged with the (nonce, cycle seq, fanout) token: the dedup key,
+        and what the checkpoint's drain round compares across shards.
+        Zero-copy parts with ``writev``."""
+        t, enc = self._encode_push_tree(t)
+        extra = {}
+        if enc:
+            extra["enc"] = enc
         if pseq is not None:
-            extra = {"pseq": pseq, "pnonce": self._transport_nonce,
-                     "pfan": pfan}
+            extra.update({"pseq": pseq, "pnonce": self._transport_nonce,
+                          "pfan": pfan})
+        extra = extra or None
         if self.writev:
             return tv.encode_parts(kind, self.worker, t, extra)
         return tv.encode(kind, self.worker, t, extra)
@@ -912,6 +982,9 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         epoch = self._push_epoch
         futs: List[Tuple[int, Any]] = []
         for i, t in reqs.items():
+            # the codec pass first (grads compress; the int32 ids pass the
+            # policy's dtype gate untouched)
+            t, enc = self._encode_push_tree(t)
             t = {k: np.ascontiguousarray(v) for k, v in t.items()}
             plan = BucketPlan.from_arrays(t, self.bucket_bytes)
             pumps = self._pumps[i]
@@ -919,7 +992,7 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
             for b in range(plan.nbuckets):
                 extra = {"epoch": epoch, "nonce": self._transport_nonce,
                          "pseq": pseq, "pnonce": self._transport_nonce,
-                         "pfan": pfan, "enc": []}
+                         "pfan": pfan, "enc": enc}
                 payload = enc_bucket(tv.ROW_BUCKET_PUSH, self.worker, t, b,
                                      extra=extra)
                 futs.append((i, pumps[b % len(pumps)].submit(
@@ -1094,7 +1167,8 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                 list(addrs) if addrs is not None else self._addrs,
                 self.worker, dict(self._spec),
                 bucket_bytes=self.bucket_bytes, pool_size=self.pool_size,
-                writev=self.writev)
+                compress=self.compress, writev=self.writev, shm=self.shm,
+                shm_bytes=self.shm_bytes)
         finally:
             self._restore_transport_state(saved)
 

@@ -1,36 +1,61 @@
 """Shared serve/accept/drain machinery for van-backed PS services.
 
-Counterpart of ``ps_tpu/backends/van_service.py``, thread-per-connection
-as the reference serves by default: a TCP listener, one serve thread per
-worker connection, a request -> reply loop over framed tensor messages,
-and a stop that never tears a reply off the wire. The concrete service
-(``AsyncPSService`` in ``remote_async.py``) provides the protocol
-(:meth:`VanService._handle`) and the commit gate
-(:meth:`VanService._set_draining`); ``SparsePSService`` in
-``remote_sparse.py`` also calls the apply-path hooks of native admission,
-the read cache and replication, which stay inert here.
+Counterpart of ``ps_tpu/backends/van_service.py``. A service is a TCP
+listener and a request -> reply loop over framed tensor messages, served
+one of two ways:
 
-The drain contract: ``stop()`` first stops admitting connections (accept
-thread joined, listener closed), then waits (bounded by ``grace``) for
-every request whose frame has arrived to finish its reply, and only then
-sets the draining flag (refusing any straggler commit under the
-subclass's apply lock) and severs the remaining channels, which are idle
-in ``recv`` by then. A request whose processing has begun completes: its
-push is applied and its whole reply reaches the worker. Workers that need
-a clean end send ``SHUTDOWN`` first (``worker.close()`` does), counted in
+- thread per connection (the default): one serve thread a worker
+  connection;
+- the native epoll loop (``native_loop=True`` or ``PS_VAN_NATIVE_LOOP=1``,
+  ``control/native_loop.py``): accept, frame reads and reply writes run on
+  ``loop_threads`` native threads without the GIL, and one Python pump
+  thread dispatches batches of complete frames through the same
+  :meth:`VanService._dispatch`, so replies and refusals are the same
+  bytes. Requests that may park (a push during a checkpoint pause, the
+  checkpoint phases) go to threads of their own. Where the loop cannot
+  start (not Linux, or the native start fails) the service logs it and
+  serves thread per connection; :attr:`VanService.native_loop` says which.
+
+On the loop, native push admission (``PS_PUSH_NATIVE_ADMIT``, on by
+default) classifies whole-tree pushes (dense ``PUSH``, sparse
+``ROW_PUSH``) inside the loop threads against a mirror of the service's
+dedup ledger: a pure replay is acked with the bytes the pump would send,
+a fresh push is stamped so the apply may skip its dedup scan. Every apply
+invalidates the mirror at a generation the pump's publish then re-arms,
+so a native ack never carries a superseded version.
+
+A worker's ``SHM_SETUP`` offer (``control/shm_lane.py``) is accepted
+unless ``shm=False`` or ``PS_SHM=0``: the connection's requests then
+arrive in a shared-memory ring, decoded in place; on the native loop the
+connection is first detached to a serve thread of its own (epoll cannot
+wait on ring cursors).
+
+The concrete service (``AsyncPSService`` in ``remote_async.py``,
+``SparsePSService`` in ``remote_sparse.py``) provides the protocol
+(:meth:`VanService._handle`), the commit gate
+(:meth:`VanService._set_draining`), its apply lock
+(:meth:`VanService._service_lock`) and admission's ledger hooks.
+
+The drain contract: ``stop()`` first stops admitting connections, then
+waits (bounded by ``grace``) for every request whose frame has arrived to
+finish its reply (on the loop: the pump's count plus the loop's pending
+frames and unflushed reply tails), and only then sets the draining flag
+(refusing any straggler commit under the subclass's apply lock) and
+severs the remaining connections. Workers that need a clean end send
+``SHUTDOWN`` first (``worker.close()`` does), counted in
 :attr:`VanService.goodbyes`, so a server can :meth:`wait_for_goodbyes`
 before stopping.
 
-Not ported yet (ROADMAP Queue 1 item 5), each refused loudly: the native
-epoll serve loop (``native_loop=True`` or ``PS_VAN_NATIVE_LOOP=1``), the
-shared-memory lane (``shm=True`` raises; a worker's ``SHM_SETUP`` offer is
-answered ERR, so the connection stays TCP, as a refusing reference server
-keeps it) and the replica/backup/promotion paths (``backup=True`` raises;
-replication kinds are answered ERR).
+Not ported yet, each refused loudly: replication (``backup=True`` raises;
+replication kinds are answered ERR; item 5.6), the read path's native
+cache (item 5.8), and turning the loop's slow frames into flight events
+(item 6; the loop counts them, the STATS reply's ``slow_frames``, and
+they are left in its ring undrained).
 """
 
 from __future__ import annotations
 
+import collections
 import logging
 import os
 import threading
@@ -55,8 +80,6 @@ class RingLog:
     replay-parity checks that need every entry."""
 
     def __init__(self, maxlen: int = 4096):
-        import collections
-
         self._d = collections.deque(maxlen=int(maxlen))
         self.total = 0
 
@@ -119,10 +142,11 @@ def resolve_ckpt_dir(root: Optional[str], client_dir: str) -> str:
 
 
 class _DaemonPool:
-    """A small pool of reusable daemon threads: a worker is spawned per
-    submit only while none is idle (up to ``max_workers``), extra tasks
-    queue. The reference's native serve loop hands blocking requests to
-    it; daemon threads, so a task parked forever never blocks exit."""
+    """A small pool of reusable daemon threads for the native loop's
+    punted requests: a worker is spawned per submit only while none is
+    idle (up to ``max_workers``), extra tasks queue. Daemon threads, so a
+    task parked forever (a pause nothing resumes after ``kill()``) never
+    blocks exit."""
 
     def __init__(self, max_workers: int = 32, name: str = "pool"):
         import queue
@@ -161,45 +185,52 @@ class _DaemonPool:
 
 
 class VanService:
-    """One listener and one serve thread per connection over the tensor van.
+    """One listener over the tensor van, served thread per connection or
+    by the native loop.
 
     Subclasses call ``VanService.__init__`` last in their ``__init__`` (it
     starts accepting at once), implement ``_handle(kind, worker, tensors,
-    extra)`` returning the encoded reply (raise to send ERR), and
-    ``_set_draining()``: under the apply lock, set the flag the commit
-    path checks so no push lands after ``stop()`` returns.
+    extra)`` returning the encoded reply (raise to send ERR),
+    ``_set_draining()`` (under the apply lock, set the flag the commit
+    path checks so no push lands after ``stop()`` returns) and
+    ``_service_lock()``; native admission also takes ``_admit_kind``,
+    ``_admit_entry`` and ``_admit_ack_bytes``.
     """
 
     #: kinds of the replication plane (replica/, not ported yet)
     _REPLICA_KINDS = frozenset({tv.REPLICA_HELLO, tv.REPLICA_APPEND,
                                 tv.REPLICA_PROMOTE, tv.REPLICA_STATE,
                                 tv.REPLICA_SEED})
+    #: data-plane kinds that can park in their handler waiting for a later
+    #: request of this service (a checkpoint pause): the one pump thread
+    #: must never park, so the loop punts them while a pause may be live
+    _COMMIT_KINDS = frozenset({tv.PUSH, tv.PUSH_PULL, tv.BUCKET_PUSH,
+                               tv.ROW_PUSH, tv.ROW_PUSH_PULL,
+                               tv.ROW_BUCKET_PUSH})
+    #: kinds whose handlers run multi-request protocols (the checkpoint
+    #: phases park between the coordinator's requests): always punted
+    _PUNT_KINDS = frozenset({tv.CHECKPOINT})
 
     def __init__(self, port: int = 0, bind: str = "127.0.0.1",
                  writev: Optional[bool] = None, shm: Optional[bool] = None,
                  backup: bool = False, native_loop: Optional[bool] = None,
                  loop_threads: Optional[int] = None):
-        from ps_tpu_torch.config import env_flag
+        from ps_tpu_torch.config import env_flag, env_float, env_int, env_str
+        from ps_tpu_torch.control import native_loop as nlmod
 
-        if native_loop if native_loop is not None else env_flag(
-                "PS_VAN_NATIVE_LOOP", False):
-            raise NotImplementedError(
-                "native_loop: the native epoll serve loop "
-                "(control/native_loop.py) is not ported yet (ROADMAP Queue "
-                "1 item 5.1); serve thread-per-connection (the default)")
         if backup:
             raise NotImplementedError(
                 "backup=True: shard replication (replica/) is not ported "
                 "yet (ROADMAP Queue 1 item 5.6)")
-        if shm:
-            raise NotImplementedError(
-                "shm=True: the shared-memory lane (control/shm_lane.py) is "
-                "not ported yet (ROADMAP Queue 1 item 5.2); a worker's offer "
-                "is refused and it stays on TCP")
-        del loop_threads  # sizes the native loop only
         # vectored replies: live snapshot views go to the kernel as iovecs
         self.writev = (env_flag("PS_WRITEV", True)
                        if writev is None else bool(writev))
+        # a worker's shm offer is accepted unless the server is told not
+        # to (workers offer only on PS_SHM=1; PS_SHM=0 turns both off)
+        self._shm_accept = (env_flag("PS_SHM", True)
+                            if shm is None else bool(shm))
+        # bucket replies carry their index into the loop's priority drain
+        self._bucket_priority = env_flag("PS_BUCKET_PRIORITY", True)
         self._listener = tv.Listener(port=port, bind=bind)
         self._stop = threading.Event()
         self._chan_lock = threading.Lock()
@@ -232,13 +263,92 @@ class VanService:
         self.table_epoch = 0
         self.goodbyes = 0  # workers that sent SHUTDOWN (clean departures)
         self._goodbye_cond = threading.Condition()
-        self._accept_thread = threading.Thread(target=self._accept_loop,
-                                               daemon=True)
-        self._accept_thread.start()
+        # the generation both native mirrors key on: every committed change
+        # bumps it (_invalidate_reads), a publish carries the one it saw
+        self._read_gen = 0
+        self._read_gen_lock = threading.Lock()
+        # per dispatching thread: the frame's native admission stamp
+        self._read_pub = threading.local()
+        want_loop = (env_flag("PS_VAN_NATIVE_LOOP", False)
+                     if native_loop is None else bool(native_loop))
+        if loop_threads is None:
+            loop_threads = env_int("PS_VAN_LOOP_THREADS", 1, lo=1, hi=64)
+        if not (1 <= loop_threads <= 64):
+            logging.getLogger(__name__).warning(
+                "van loop_threads %d outside [1, 64]; clamping", loop_threads)
+            loop_threads = min(max(loop_threads, 1), 64)
+        self._nloop = None
+        self._pump_thread = None
+        self._accept_thread = None
+        # punted requests that can block commit kinds (a CHECKPOINT whose
+        # pause flag is not visible yet): raised by the pump before the
+        # blocker's thread starts, so the punt decision never races it
+        self._loop_blockers = 0
+        # kill() sets this so the pump drops queued frames unapplied
+        self._pump_abort = False
+        # of _pause_blocked, the parks on loop-punted threads (each holds
+        # one claimed loop body): the native drain's discount
+        self._loop_pause_parked = 0
+        if want_loop:
+            if not nlmod.available():
+                logging.getLogger(__name__).warning(
+                    "native_loop requested but the native event loop is "
+                    "unavailable on this platform; serving thread per "
+                    "connection")
+            else:
+                try:
+                    self._nloop = nlmod.NativeEventLoop(
+                        self._listener, threads=loop_threads)
+                except OSError as e:
+                    logging.getLogger(__name__).warning(
+                        "native event loop failed to start (%s); serving "
+                        "thread per connection", e)
+        self._native_admit = False
+        self._nl_stats = False
+        if self._nloop is not None:
+            mode = (env_str("PS_PUSH_NATIVE_ADMIT", "auto")
+                    or "auto").strip().lower()
+            if mode not in ("off", "on", "auto"):
+                logging.getLogger(__name__).warning(
+                    "PS_PUSH_NATIVE_ADMIT=%r not in off|on|auto; keeping "
+                    "'auto'", mode)
+                mode = "auto"
+            kind = self._admit_kind()
+            if mode != "off" and kind is not None:
+                self._nloop.admit_config(kind)
+                self._native_admit = True
+                self._admit_sync()  # a restored ledger starts published
+            self._nl_stats = env_flag("PS_NL_STATS", True)
+            slow_ms = env_float("PS_NL_SLOW_FRAME_MS", 250.0, lo=0.0,
+                                strict=False)
+            self._nloop.telemetry_config(
+                self._nl_stats, int(slow_ms * 1e6) if self._nl_stats else 0)
+            self._pump_thread = threading.Thread(target=self._loop_pump,
+                                                 daemon=True)
+            self._pump_thread.start()
+        else:
+            self._accept_thread = threading.Thread(target=self._accept_loop,
+                                                   daemon=True)
+            self._accept_thread.start()
+
+    @property
+    def native_loop(self) -> bool:
+        """True when this service serves through the native epoll loop."""
+        return self._nloop is not None
 
     @property
     def port(self) -> int:
         return self._listener.port
+
+    def admit_stats(self) -> dict:
+        """Native push admission's counters (acks, refusals, fresh,
+        punts, ledger entries, floor, armed templates); zeros off the
+        loop."""
+        if self._nloop is None:
+            return {"acks": 0, "refusals": 0, "fresh": 0, "punts": 0,
+                    "entries": 0, "floor": 0, "ack_armed": False,
+                    "refusal_armed": False}
+        return self._nloop.admit_stats()
 
     # -- provided by the concrete service --------------------------------------
 
@@ -248,29 +358,160 @@ class VanService:
     def _set_draining(self) -> None:
         raise NotImplementedError
 
+    def _service_lock(self):
+        """The apply lock (dense: the engine's; sparse: the tables')."""
+        raise NotImplementedError
+
     def replica_state(self) -> dict:
-        """Role and epoch (merged into the STATS reply)."""
-        return {"role": self.role, "epoch": self.epoch, "now": time.time(),
-                "dedup_hits": self.transport.dedup_hits}
+        """Role and epoch, and the native loop's counters when it serves
+        (merged into the STATS reply)."""
+        out = {"role": self.role, "epoch": self.epoch, "now": time.time(),
+               "dedup_hits": self.transport.dedup_hits}
+        if self._nloop is not None:
+            t = self.transport
+            loop = {"conns": t.loop_conns, "requests": t.loop_requests,
+                    "pushes": t.loop_pushes,
+                    "slow_frames": t.nl_slow_frames}
+            s = t.hist["nl_queue_wait_s"].summary()
+            if s:
+                loop["qw99_us"] = round(s["p99"] * 1e6, 1)
+            classified = (t.push_native_acks + t.push_native_refusals
+                          + t.push_native_fresh + t.push_native_punts)
+            if classified:
+                loop["padm"] = {
+                    "acks": t.push_native_acks,
+                    "refusals": t.push_native_refusals,
+                    "fresh": t.push_native_fresh,
+                    "punts": t.push_native_punts,
+                    "share": round((t.push_native_acks
+                                    + t.push_native_refusals)
+                                   / classified, 4)}
+            out["loop"] = loop
+        return out
 
-    # -- hooks of the sparse service's apply path, inert until their
-    # features are ported (each refused at construction meanwhile) ----------
-
-    def _admit_fresh_hint(self) -> bool:
-        """Native admission's freshness stamp (ROADMAP Queue 1 item 5.1)."""
-        return False
-
-    def _admit_publish(self, worker: int) -> None:
-        """Republish a worker's ledger row to native admission (item 5.1)."""
-
-    def _invalidate_reads(self, tags=None) -> None:
-        """Drop the cached READ replies an apply made stale (item 5.8)."""
+    # -- hooks of the apply paths ----------------------------------------------
 
     def _replicate(self, op: str, worker: int, tensors, extra) -> None:
         """Stream a committed apply to the backups (item 5.6)."""
 
     def _await_replication(self, seq) -> None:
         """Wait for the backups' ack of a replicated apply (item 5.6)."""
+
+    def _invalidate_reads(self, tags=None) -> None:
+        """Invalidation on apply: call after every committed change. It
+        raises the generation the native admission mirror keys on, which
+        drops the version-stamped replay-ack template (the post-apply
+        :meth:`_admit_publish` re-arms it), so a classification made
+        before the apply can never ack a replay after it. (The reference
+        also drops cached READ replies here; the read path is item 5.8.)
+        A no-op off the loop."""
+        if not self._native_admit:
+            return
+        with self._read_gen_lock:
+            self._read_gen += 1
+            gen = self._read_gen
+        nloop = self._nloop
+        if nloop is not None:
+            nloop.admit_invalidate(gen)
+
+    # -- the zero-upcall push plane --------------------------------------------
+
+    def _admit_kind(self) -> Optional[int]:
+        """Subclass hook: the one wire kind native admission may classify
+        (dense: PUSH; sparse: ROW_PUSH); None = never."""
+        return None
+
+    def _admit_entry(self, worker: int) -> Optional[tuple]:
+        """Subclass hook: this worker's settled ledger row as ``(nonce,
+        lo, hi)``: a replay at or below ``lo`` is fully applied (ackable),
+        one above ``hi`` strictly fresh, between punts. None = not
+        publishable; the worker's frames then go to the pump."""
+        return None
+
+    def _admit_entries(self):
+        """Every publishable ledger row (for a full reseed)."""
+        out = []
+        for w in list(getattr(self, "_applied_pseq", None) or ()):
+            ent = self._admit_entry(int(w))
+            if ent is not None:
+                out.append((int(w), ent[0], int(ent[1]), int(ent[2])))
+        return out
+
+    def _admit_ack_bytes(self) -> Optional[bytes]:
+        """Subclass hook: the encoded replay ack (worker id 0; the loop
+        patches the requester's in), byte for byte what the pump would
+        send for a pure dedup replay now."""
+        return None
+
+    def _admit_sync(self, locked: bool = False) -> None:
+        """Reseed the admission mirror whole (startup, checkpoint resume):
+        drop everything at a fresh generation, then republish the settled
+        ledger, under the apply lock unless the caller holds it."""
+        if not self._native_admit or self._nloop is None:
+            return
+        if not locked:
+            with self._service_lock():
+                return self._admit_sync(locked=True)
+        nloop = self._nloop
+        with self._read_gen_lock:
+            self._read_gen += 1
+            gen = self._read_gen
+        nloop.admit_reset(gen)
+        if getattr(self, "_paused", False) or getattr(self, "_draining",
+                                                      False):
+            return  # paused or draining: every push must reach the pump
+        for w, nonce, lo, hi in self._admit_entries():
+            nloop.admit_put(w, nonce, lo, hi, gen)
+        ack = self._admit_ack_bytes()
+        if ack is not None:
+            nloop.admit_set_ack(ack, gen)
+
+    def _admit_drop(self) -> None:
+        """Suspend admission (checkpoint pause, drain): drop the mirror at
+        a fresh generation, so every push goes to the pump until
+        :meth:`_admit_sync` reseeds it."""
+        if not self._native_admit or self._nloop is None:
+            return
+        with self._read_gen_lock:
+            self._read_gen += 1
+            gen = self._read_gen
+        self._nloop.admit_reset(gen)
+
+    def _admit_publish(self, *workers) -> None:
+        """After an apply (apply lock held, after its
+        :meth:`_invalidate_reads`): publish the named workers' ledger rows
+        and the fresh ack template at the post-apply generation."""
+        if (not self._native_admit or self._nloop is None
+                or getattr(self, "_paused", False)
+                or getattr(self, "_draining", False)):
+            return
+        nloop = self._nloop
+        with self._read_gen_lock:
+            gen = self._read_gen
+        for w in workers:
+            if w is None:
+                continue
+            ent = self._admit_entry(int(w))
+            if ent is not None:
+                nloop.admit_put(int(w), ent[0], int(ent[1]), int(ent[2]),
+                                gen)
+        ack = self._admit_ack_bytes()
+        if ack is not None:
+            nloop.admit_set_ack(ack, gen)
+
+    def _admit_fresh_hint(self) -> bool:
+        """Consume this thread's admission stamp (apply lock held): True
+        iff the loop classified the frame strictly fresh and no apply or
+        reseed landed since, which proves the dedup scan would find
+        nothing. Anything else is False: the full scan."""
+        gen = getattr(self._read_pub, "admit", 0)
+        if not gen:
+            return False
+        self._read_pub.admit = 0
+        with self._read_gen_lock:
+            return gen - 1 == self._read_gen
+
+    # -- dispatch --------------------------------------------------------------
 
     def _dispatch(self, kind: int, worker: int, tensors, extra):
         if kind in self._REPLICA_KINDS:
@@ -283,7 +524,8 @@ class VanService:
     def _dispatch_reply_payload(self, kind: int, worker: int, tensors,
                                 extra):
         """Dispatch, mapping a raised error to an ERR reply: NotServing ->
-        the retryable refusal, anything else -> a plain ERR."""
+        the retryable refusal, anything else -> a plain ERR. Both serve
+        paths go through here, so their replies are the same bytes."""
         try:
             return self._dispatch(kind, worker, tensors, extra)
         except NotServingError as e:
@@ -365,17 +607,22 @@ class VanService:
 
     def _pause_wait_begin(self) -> None:
         """Call just before parking a serve thread on a checkpoint pause
-        (stop() discounts it)."""
+        (stop() discounts it). A park on a loop-punted thread also holds
+        one claimed loop body, which the native drain discounts."""
         with self._inflight_cond:
             self._pause_blocked += 1
+            if getattr(threading.current_thread(), "_ps_loop_req", False):
+                self._loop_pause_parked += 1
             self._inflight_cond.notify_all()
 
     def _pause_wait_end(self) -> None:
         with self._inflight_cond:
             self._pause_blocked -= 1
+            if getattr(threading.current_thread(), "_ps_loop_req", False):
+                self._loop_pause_parked -= 1
             self._inflight_cond.notify_all()
 
-    # -- accept / serve --------------------------------------------------------
+    # -- thread per connection -------------------------------------------------
 
     def _accept_loop(self) -> None:
         while not self._stop.is_set():
@@ -397,11 +644,34 @@ class VanService:
                 self._conns.append(t)
             t.start()
 
-    def _serve(self, ch: tv.Channel) -> None:
+    def _try_shm_upgrade(self, ch: tv.Channel, worker: int, extra: dict):
+        """Attach the worker's offered ring segments; returns ``(lane or
+        None, reply frame)``. Any failure is an ERR reply and the
+        connection stays plain TCP."""
+        from ps_tpu_torch.control import shm_lane
+
+        if not self._shm_accept:
+            return None, tv.encode(tv.ERR, worker, None, extra={
+                "error": "shm lane disabled on this server (PS_SHM=0)"})
+        try:
+            lane = shm_lane.accept_upgrade(ch, extra, stats=self.transport)
+        except Exception as e:
+            return None, tv.encode(tv.ERR, worker, None,
+                                   extra={"error": repr(e)})
+        return lane, tv.encode(tv.OK, worker, None, extra={"shm": True})
+
+    def _serve(self, ch: tv.Channel, lane=None) -> None:
+        # ``conn`` is the data plane: the TCP channel until a successful
+        # SHM_SETUP, the shm lane after (its recv hands out ring frames in
+        # place and watches the TCP side for spills and peer death; stop()
+        # severs through the TCP channel). ``lane`` is set already when
+        # the native loop detached an upgrading connection to this thread
+        conn = lane if lane is not None else ch
         try:
             while not self._stop.is_set():
                 try:
-                    msg = ch.recv()
+                    msg = (conn.recv() if lane is None
+                           else lane.recv(stop=self._stop.is_set))
                 except tv.VanError:
                     return  # worker hung up (or stop() severed an idle conn)
                 with self._inflight_cond:
@@ -409,27 +679,30 @@ class VanService:
                 try:
                     kind, worker, tensors, extra = tv.decode(msg)
                     goodbye = kind == tv.SHUTDOWN
+                    new_lane = None
                     if goodbye:
                         reply = tv.encode(tv.OK, worker, None)
-                    elif kind == tv.SHM_SETUP:
-                        # the worker falls back to TCP on this refusal
-                        reply = tv.encode(tv.ERR, worker, None, extra={
-                            "error": ("shm lane not available on this "
-                                      "server (control/shm_lane.py is not "
-                                      "ported; ROADMAP Queue 1 item 5.2)")})
+                    elif kind == tv.SHM_SETUP and lane is None:
+                        new_lane, reply = self._try_shm_upgrade(ch, worker,
+                                                                extra)
                     else:
                         reply = self._dispatch_reply_payload(
                             kind, worker, tensors, extra)
                     try:
-                        send_payload(ch, reply)
+                        send_payload(conn, reply)
                     except tv.VanError:
+                        if new_lane is not None:
+                            new_lane.close()  # attached, never adopted
                         return  # worker vanished mid-reply
                     finally:
                         # only now is the request frame dead: a reply may
-                        # hold views of it until sent
+                        # hold views of it until sent (a ring frame is
+                        # consumed at the lane's next recv)
                         tensors = None
                         self._recv_pool.ret(msg)
                         msg = None
+                    if new_lane is not None:
+                        conn = lane = new_lane  # the data plane switches
                 finally:
                     with self._inflight_cond:
                         self._inflight -= 1
@@ -440,7 +713,10 @@ class VanService:
                         self._goodbye_cond.notify_all()
                     return
         finally:
-            ch.close()
+            if lane is not None:
+                lane.close()  # closes the TCP channel too
+            else:
+                ch.close()
             with self._chan_lock:
                 try:
                     self._channels.remove(ch)
@@ -450,6 +726,241 @@ class VanService:
                     self._conns.remove(threading.current_thread())
                 except ValueError:
                     pass
+
+    # -- the native loop's pump ------------------------------------------------
+
+    def _loop_pump(self) -> None:
+        """The one Python thread of the native serve path: take batches of
+        complete requests from the loop, dispatch each through
+        :meth:`_dispatch_reply_payload`, reply through the loop's writer.
+        Exits when the loop reports it stopped (poll() -> None). A failure
+        serving one request never ends the pump: it logs, frees the body
+        and goes on."""
+        nloop = self._nloop
+        last_sync = 0.0
+        while True:
+            try:
+                batch = nloop.poll(timeout_ms=100)
+            except Exception:
+                logging.getLogger(__name__).exception(
+                    "native-loop poll failed; pump exiting")
+                return
+            # the counters' sync sweeps every connection's lock natively:
+            # on idle ticks, or at most about once a second under load
+            now = time.monotonic()
+            if not batch or now - last_sync >= 1.0:
+                last_sync = now
+                self._sync_loop_stats(nloop)
+            if batch is None:
+                return
+            if not batch:
+                continue
+            if self._pump_abort:
+                # kill(): drop read-ahead frames unserved, as a SIGKILL
+                for _, _, ptr, _ in batch:
+                    nloop.free(ptr)
+                continue
+            self.transport.record_upcall(len(batch))
+            with self._inflight_cond:
+                self._inflight += len(batch)
+            for cid, view, ptr, admit_gen in batch:
+                try:
+                    self._loop_serve_one(cid, view, ptr, admit_gen)
+                except Exception:
+                    logging.getLogger(__name__).exception(
+                        "native-loop request failed; connection %d "
+                        "continues", cid)
+                    nloop.free(ptr)  # idempotent
+                finally:
+                    with self._inflight_cond:
+                        self._inflight -= 1
+                        self._inflight_cond.notify_all()
+
+    def _sync_loop_stats(self, nloop) -> None:
+        """Fold the loop's own counters into :attr:`transport`."""
+        st = nloop.stats()
+        self.transport.set_loop_stats(st["requests"], st["conns"])
+        if self._native_admit:
+            a = nloop.admit_stats()
+            self.transport.set_admit_stats(a["acks"], a["refusals"],
+                                           a["fresh"], a["punts"])
+        if self._nl_stats:
+            self._sync_nl_telemetry(nloop)
+
+    def _sync_nl_telemetry(self, nloop) -> None:
+        """The in-loop queue-wait histogram lands whole in its
+        ``TransportStats`` histogram (the native stripes own the
+        counting), the slow-frame count in its gauge. The slow frames
+        stay in the loop's ring: turning them into flight events is item
+        6."""
+        self.transport.set_nl_hists(nloop.hist_snapshots())
+        self.transport.set_nl_slow_frames(
+            nloop.stats_snapshot()["slow_frames"])
+
+    def _punt_pool(self) -> _DaemonPool:
+        """The pool for punted requests that cannot park (threads spawn on
+        demand and are reused; only the pump calls this)."""
+        pool = getattr(self, "_punt_executor", None)
+        if pool is None:
+            pool = _DaemonPool(max_workers=32, name="van-punt")
+            self._punt_executor = pool
+        return pool
+
+    def _loop_close_conn(self, cid: int) -> None:
+        """Drop one loop connection (a malformed frame: the framing is
+        gone, as the threaded path poisons its channel)."""
+        fd = self._nloop.detach(cid)
+        if fd >= 0:
+            os.close(fd)
+
+    def _loop_serve_one(self, cid: int, msg, ptr: int,
+                        admit_gen: int = 0) -> None:
+        nloop = self._nloop
+        if self._pump_abort:  # kill() landed mid-batch: drop, don't apply
+            nloop.free(ptr)
+            return
+        try:
+            kind, worker, tensors, extra = tv.decode(msg)
+        except Exception:
+            nloop.free(ptr)
+            self._loop_close_conn(cid)
+            return
+        if kind == tv.SHUTDOWN:
+            nloop.reply(cid, tv.encode(tv.OK, worker, None),
+                        close_after=True)
+            tensors = None
+            nloop.free(ptr)
+            with self._goodbye_cond:
+                self.goodbyes += 1
+                self._goodbye_cond.notify_all()
+            return
+        if kind == tv.SHM_SETUP:
+            self._loop_shm_upgrade(cid, worker, extra, ptr)
+            return
+        if kind in self._PUNT_KINDS or (
+                kind in self._COMMIT_KINDS
+                and (getattr(self, "_paused", False)
+                     or self._loop_blockers > 0)):
+            # a request that may park must not park the pump: a thread of
+            # its own. ``_loop_blockers`` closes the pause race: a punted
+            # CHECKPOINT sets ``_paused`` on its own thread, so the count
+            # is raised here, before that thread starts, and held until
+            # its reply went out; every commit seen meanwhile punts too
+            blocker = kind in self._PUNT_KINDS
+            with self._inflight_cond:
+                self._inflight += 1  # the punted task's share
+                if blocker:
+                    self._loop_blockers += 1
+            try:
+                if blocker or getattr(self, "_paused", False) \
+                        or self._loop_blockers > 0:
+                    # fresh threads while parking is possible: a resume must
+                    # never queue behind pool workers parked on its pause
+                    threading.Thread(
+                        target=self._loop_dispatch_reply,
+                        args=(cid, kind, worker, tensors, extra, ptr, True,
+                              blocker, admit_gen),
+                        daemon=True).start()
+                else:
+                    self._punt_pool().submit(
+                        self._loop_dispatch_reply, cid, kind, worker,
+                        tensors, extra, ptr, True, False, admit_gen)
+            except Exception as e:  # thread exhaustion: refuse, don't die
+                with self._inflight_cond:
+                    self._inflight -= 1
+                    if blocker:
+                        self._loop_blockers -= 1
+                    self._inflight_cond.notify_all()
+                nloop.reply(cid, tv.encode(tv.ERR, worker, None,
+                                           extra={"error": repr(e)}))
+                tensors = None
+                nloop.free(ptr)
+            return
+        self._loop_dispatch_reply(cid, kind, worker, tensors, extra, ptr,
+                                  False, admit_gen=admit_gen)
+
+    def _reply_priority(self, kind: int, extra) -> int:
+        """The loop's writev priority of this reply: a bucket frame's
+        index (front of the model drains first), else 0. Only tails across
+        connections reorder; a connection's replies keep their order."""
+        if not self._bucket_priority:
+            return 0
+        if kind in (tv.BUCKET_PULL, tv.BUCKET_PUSH, tv.ROW_BUCKET_PUSH):
+            try:
+                return int((extra or {}).get("bucket") or 0)
+            except (TypeError, ValueError):
+                return 0
+        return 0
+
+    def _loop_dispatch_reply(self, cid: int, kind: int, worker: int,
+                             tensors, extra, ptr: int, punted: bool,
+                             blocker: bool = False,
+                             admit_gen: int = 0) -> None:
+        nloop = self._nloop
+        prio = self._reply_priority(kind, extra)
+        # this thread serves a loop request for the dispatch: a pause park
+        # inside it counts toward the native drain's discount (reset in
+        # the finally: pool and pump threads are reused)
+        this = threading.current_thread()
+        this._ps_loop_req = True
+        # the frame's admission stamp rides a thread-local to the apply;
+        # set every time, so a previous request's stamp never leaks
+        self._read_pub.admit = int(admit_gen)
+        if kind in self._COMMIT_KINDS:
+            self.transport.record_loop_push()
+        try:
+            reply = self._dispatch_reply_payload(kind, worker, tensors,
+                                                 extra)
+            try:
+                nloop.reply(cid, reply, priority=prio)  # False = gone
+            finally:
+                # only now is the body dead: the reply may alias it, and
+                # every copy out of it to the card was waited for in the
+                # handler (stage_to_device), so free cannot race a DMA
+                tensors = None
+                nloop.free(ptr)
+        finally:
+            this._ps_loop_req = False
+            if punted:
+                with self._inflight_cond:
+                    self._inflight -= 1
+                    if blocker:
+                        self._loop_blockers -= 1
+                    self._inflight_cond.notify_all()
+
+    def _loop_shm_upgrade(self, cid: int, worker: int, extra: dict,
+                          ptr: int) -> None:
+        """SHM_SETUP on the loop: detach the connection's fd and serve it
+        from a thread of its own (the ring wait is GIL-free native code,
+        and epoll cannot wait on ring cursors). A refused upgrade keeps
+        the connection on that thread too, over TCP."""
+        from ps_tpu_torch.control import native_loop as nlmod
+
+        nloop = self._nloop
+        nloop.free(ptr)  # SHM_SETUP carries no tensors; extra is decoded
+        fd = nloop.detach(cid)
+        if fd < 0:
+            return  # the connection died under the request
+        ch = nlmod.adopt_channel(fd)
+        ch.stats = self.transport
+        ch.pool = self._recv_pool
+        lane, reply = self._try_shm_upgrade(ch, worker, extra)
+        try:
+            send_payload(ch, reply)
+        except tv.VanError:
+            (lane if lane is not None else ch).close()
+            return
+        with self._chan_lock:
+            self._conns = [t for t in self._conns
+                           if t.ident is None or t.is_alive()]
+            if self._stop.is_set():
+                (lane if lane is not None else ch).close()
+                return
+            self._channels.append(ch)
+            t = threading.Thread(target=self._serve, args=(ch, lane),
+                                 daemon=True)
+            self._conns.append(t)
+        t.start()
 
     # -- lifecycle -------------------------------------------------------------
 
@@ -471,9 +982,19 @@ class VanService:
 
     def kill(self) -> None:
         """Abrupt death, as a SIGKILL would leave it (drills): sever the
-        listener and every connection now; no drain, no draining flag."""
+        listener and every connection now; no drain, no draining flag, and
+        on the loop the queued frames are dropped unapplied."""
         self._stop.set()
-        self._accept_thread.join(timeout=5)
+        if self._nloop is not None:
+            self._pump_abort = True
+            self._nloop.stop_accept()
+            self._nloop.shutdown_conns()
+            self._nloop.begin_stop()
+            self._pump_thread.join(timeout=5)
+            if not self._pump_thread.is_alive():
+                self._nloop.close()  # a pump stuck mid-apply keeps it
+        else:
+            self._accept_thread.join(timeout=5)
         self._listener.close()
         with self._chan_lock:
             chans = list(self._channels)
@@ -488,6 +1009,9 @@ class VanService:
         drain wait (they finish only once the draining flag wakes them
         into refusal); they get a short window for their ERR replies."""
         self._stop.set()
+        if self._nloop is not None:
+            self._stop_native(grace)
+            return
         # join before closing: the accept thread may be inside tv_accept
         self._accept_thread.join(timeout=5)
         self._listener.close()
@@ -512,6 +1036,12 @@ class VanService:
             if time.monotonic() >= deadline:
                 break
         self._set_draining()
+        self._sever_serve_threads(deadline)
+
+    def _sever_serve_threads(self, deadline: float, extra_alive=()) -> None:
+        """After the draining flag: a short window for pause-parked
+        requests' ERR replies, then sever every serve thread's channel and
+        join the threads."""
         with self._inflight_cond:
             end = min(deadline, time.monotonic() + 2.0)
             while self._inflight > 0 and time.monotonic() < end:
@@ -523,8 +1053,58 @@ class VanService:
             ch.shutdown()  # each serve thread closes its own channel
         for t in conns:
             t.join(timeout=5)
-        stragglers = [t for t in conns if t.is_alive()]
+        stragglers = [t for t in list(conns) + list(extra_alive)
+                      if t.is_alive()]
         if stragglers:
             logging.getLogger(__name__).warning(
                 "%d serve thread(s) outlived the drain join; their pushes "
                 "are refused by the draining flag", len(stragglers))
+
+    def _stop_native(self, grace: float) -> None:
+        """stop() on the native loop: the same contract, where "in flight"
+        is the pump's count plus the loop's pending frames (read but not
+        handed out, claimed and awaiting their reply, unflushed tails), so
+        a reply the loop has not finished writing is never torn."""
+        nloop = self._nloop
+        nloop.stop_accept()  # freeze the connection set
+        deadline = time.monotonic() + grace
+
+        def quiet() -> bool:
+            with self._inflight_cond:
+                infl = self._inflight - self._pause_blocked
+                parked = self._loop_pause_parked
+            # a pause-parked loop request holds one claimed body until its
+            # reply: discounted from the loop's pending count too
+            return infl <= 0 and nloop.pending() - parked <= 0
+
+        drained = False
+        while time.monotonic() < deadline:
+            if quiet():
+                # a frame the loop just completed may not be counted yet
+                time.sleep(0.05)
+                if quiet():
+                    drained = True
+                    break
+            else:
+                time.sleep(0.02)
+        if not drained:
+            logging.getLogger(__name__).warning(
+                "request(s) still in flight after %.1fs drain grace; "
+                "severing anyway", grace)
+        self._set_draining()
+        with self._inflight_cond:
+            end = min(deadline, time.monotonic() + 2.0)
+            while self._inflight > 0 and time.monotonic() < end:
+                self._inflight_cond.wait(max(end - time.monotonic(), 0.01))
+        end = min(deadline, time.monotonic() + 0.5)
+        while nloop.pending() > 0 and time.monotonic() < end:
+            time.sleep(0.02)
+        nloop.shutdown_conns()  # idle peers see EOF now
+        nloop.begin_stop()
+        self._pump_thread.join(timeout=5)
+        # shm-detached connections are classic serve threads
+        self._sever_serve_threads(deadline,
+                                  extra_alive=[self._pump_thread])
+        if not self._pump_thread.is_alive():
+            nloop.close()  # punted threads' reply/free no-op after close
+        self._listener.close()

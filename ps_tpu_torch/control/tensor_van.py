@@ -56,10 +56,7 @@ BUCKET_PUSH = 12    # one slice-bucket of a multi-bucket push; the bucket
 BUCKET_PULL = 13    # bucket 0 snapshots the tree server-side; buckets
 #                     1..n-1 stream the remaining slices of that snapshot
 ROW_BUCKET_PUSH = 14
-SHM_SETUP = 15      # same-host shared-memory lane offer; the port's server
-#                     answers ERR (the lane is not ported), so the
-#                     connection stays plain TCP, as a refusing reference
-#                     server keeps it
+SHM_SETUP = 15      # same-host shared-memory lane offer (shm_lane.py)
 REPLICA_HELLO = 16  # shard replication (replica/, not ported yet)
 REPLICA_APPEND = 17
 REPLICA_PROMOTE = 18
@@ -128,6 +125,18 @@ def _lib():
     ]
     lib.tv_poll_readable.restype = ctypes.c_int
     lib.tv_poll_readable.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    # the shared-memory ring's primitives (control/shm_lane.py): GIL-free
+    # copies, acquire/release cursors and the spin-then-sleep wait
+    lib.tv_memcpy.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                              ctypes.c_uint64]
+    lib.tv_prefault.argtypes = [ctypes.c_void_p, ctypes.c_uint64,
+                                ctypes.c_int]
+    lib.tv_load_u64.restype = ctypes.c_uint64
+    lib.tv_load_u64.argtypes = [ctypes.c_void_p]
+    lib.tv_store_u64.argtypes = [ctypes.c_void_p, ctypes.c_uint64]
+    lib.tv_wait_u64.restype = ctypes.c_int
+    lib.tv_wait_u64.argtypes = [ctypes.c_void_p, ctypes.c_uint64,
+                                ctypes.c_int, ctypes.c_int]
     lib.tv_recv_size.restype = ctypes.c_int64
     lib.tv_recv_size.argtypes = [ctypes.c_void_p]
     lib.tv_recv_into.restype = ctypes.c_int

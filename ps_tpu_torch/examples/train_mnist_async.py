@@ -32,7 +32,12 @@ Across processes, over the native van's TCP layer (server first):
 A key partition over N servers: start server s with ``--shard s
 --num-shards N`` and give every worker ``--server h0:p0,h1:p1``. Workers
 take ``--bucket-bytes`` (the bucketed transport), ``--pool`` (its
-connections a server) and ``--overlap`` (each cycle in the background).
+connections a server), ``--overlap`` (each cycle in the background) and
+``--compress cast16|int8|topk`` with ``--compress-topk`` and
+``--compress-min-bytes`` (the gradient codecs; ``PS_COMPRESS_PULL=1``
+also compresses the bucketed pulls). The van's lanes follow the
+environment: ``PS_VAN_NATIVE_LOOP=1`` serves through the native epoll
+loop, ``PS_SHM=1`` has a worker offer the same-host shared-memory lane.
 The server holds its parameters on ``--device`` and each worker takes its
 gradients there; a server stops once every worker said goodbye. With
 ``--dump DIR`` the server writes its full event log, staleness histogram
@@ -41,9 +46,9 @@ and each worker its losses and cycle times (``worker<id>.json``): the
 event log, with each worker's gradients recomputed from what it pulled,
 replays the run through one-process servers.
 
-Not ported yet, each raising: ``--compress`` other than none (compress/)
-and the replication flags ``--backup``, ``--watch-port``,
-``--replicate-to``, ``--beat`` (replica/), all ROADMAP Queue 1 item 5.
+Not ported yet, raising: the replication flags ``--backup``,
+``--watch-port``, ``--replicate-to``, ``--beat`` (replica/, ROADMAP Queue
+1 item 5.6).
 """
 
 from __future__ import annotations
@@ -111,7 +116,17 @@ def parse_args(argv=None):
                     help="worker: run each cycle in the background "
                          "(needs --bucket-bytes)")
     ap.add_argument("--compress", default=cfg.compress or "none",
-                    choices=["none", "cast16", "int8", "topk"])
+                    choices=["none", "cast16", "int8", "topk"],
+                    help="worker: gradient codec for the wire (env "
+                         "PS_COMPRESS); topk keeps --compress-topk of each "
+                         "tensor with error-feedback residuals")
+    ap.add_argument("--compress-topk", type=float, default=cfg.compress_topk,
+                    help="worker: kept fraction for --compress topk (env "
+                         "PS_COMPRESS_TOPK)")
+    ap.add_argument("--compress-min-bytes", type=int,
+                    default=cfg.compress_min_bytes,
+                    help="worker: tensors under this size travel raw (env "
+                         "PS_COMPRESS_MIN_BYTES)")
     ap.add_argument("--shard", type=int, default=cfg.shard,
                     help="server: this server's index in the key partition")
     ap.add_argument("--num-shards", type=int, default=cfg.num_shards,
@@ -121,14 +136,11 @@ def parse_args(argv=None):
     ap.add_argument("--replicate-to", default=None)
     ap.add_argument("--beat", default=None)
     args = ap.parse_args(argv)
-    if args.compress != "none":
-        raise NotImplementedError(
-            f"--compress {args.compress}: gradient codecs (compress/) are "
-            f"not ported yet (ROADMAP Queue 1 item 5)")
+    args.compress_pull = cfg.compress_pull
     if args.backup or args.watch_port or args.replicate_to or args.beat:
         raise NotImplementedError(
             "--backup/--watch-port/--replicate-to/--beat: shard replication "
-            "(replica/) is not ported yet (ROADMAP Queue 1 item 5)")
+            "(replica/) is not ported yet (ROADMAP Queue 1 item 5.6)")
     return args
 
 
@@ -138,9 +150,15 @@ def run_worker(args):
         raise SystemExit("worker needs --server host:port "
                          "(or PS_SERVER_URIS / PS_ASYNC_SERVER_URI)")
     params, loss_fn = build(args.seed, args.device)
+    compress = None
+    if args.compress != "none":
+        compress = {"codec": args.compress, "topk": args.compress_topk,
+                    "min_bytes": args.compress_min_bytes,
+                    "pull": args.compress_pull}
     w = ps.connect_async(uri, args.worker_id, params,
                          bucket_bytes=args.bucket_bytes or None,
-                         pool_size=args.pool if args.bucket_bytes else None)
+                         pool_size=args.pool if args.bucket_bytes else None,
+                         compress=compress)
     device = w.device  # params' device; a bare "cuda" is cuda:0
     run = w.make_async_step(loss_fn, overlap=args.overlap)
     log = StepLogger(every=10)
@@ -185,6 +203,12 @@ def run_worker(args):
     if "overlap_efficiency" in s:
         print(f"worker {args.worker_id}: overlap efficiency "
               f"{s['overlap_efficiency']:.2f}", flush=True)
+    if "compress_ratio" in s:
+        extra = (f", residual norm {s['residual_norm']:.4f}"
+                 if "residual_norm" in s else "")
+        print(f"worker {args.worker_id}: compression "
+              f"{s['compress_ratio']:.2f}x raw/wire "
+              f"({s['codec_s']:.2f}s in codecs{extra})", flush=True)
     record = {
         "worker": args.worker_id, "losses": [float(x) for x in losses],
         "cycle_s": cycle_s, "window": [t_after_first, t_end],
@@ -193,6 +217,10 @@ def run_worker(args):
         "staging_s": w.transport.staging_s,
         "staging_bytes": w.transport.staging_bytes,
         "bytes": [w.bytes_pushed, w.bytes_pulled],
+        "compress": w.compress,
+        "lane": w.transport.lane(),
+        "shm_frames": w.transport.shm_frames,
+        "shm_spills": w.transport.shm_spill_frames,
         "summary": s,
     }
     w.close()
@@ -220,8 +248,10 @@ def run_server(args):
                          record_full_history=bool(args.dump))
     shard_note = ("" if args.num_shards is None
                   else f", shard {args.shard}/{args.num_shards}")
+    serving = "native loop" if svc.native_loop else "thread per connection"
     print(f"async PS server on port {svc.port} ({args.num_workers} workers "
-          f"expected{shard_note}; params on {ctx.device})", flush=True)
+          f"expected{shard_note}; params on {ctx.device}; {serving})",
+          flush=True)
     # quiesce on goodbyes: a worker says goodbye only after its last reply
     # arrived, so stop() cannot race a reply
     svc.wait_for_goodbyes(args.num_workers)
@@ -240,7 +270,14 @@ def run_server(args):
                                           for t, n in hist.items()},
                        "version": engine.version,
                        "staging_s": svc.transport.staging_s,
-                       "staging_bytes": svc.transport.staging_bytes}, f)
+                       "staging_bytes": svc.transport.staging_bytes,
+                       "native_loop": svc.native_loop,
+                       "admit": svc.admit_stats(),
+                       "loop_pushes": svc.transport.loop_pushes,
+                       "shm_frames": svc.transport.shm_frames,
+                       "codec_bytes": [svc.transport.codec_raw_bytes,
+                                       svc.transport.codec_enc_bytes]},
+                      f)
     svc.stop()
     ps.shutdown()
     return {"version": engine.version, "staleness_histogram": hist}

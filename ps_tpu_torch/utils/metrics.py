@@ -3,20 +3,78 @@ transport's counters.
 
 Counterpart of ``TrainMetrics`` and the part of ``TransportStats`` in
 ``ps_tpu/utils/metrics.py`` that the van's serial and bucketed paths and
-the STATS reply record. The rest of that module (``Meter``, the log2
-latency histograms, the serving, replication and aggregation counters)
-belongs to the observability layer and is not ported yet (ROADMAP Queue 1
-item 6).
+the STATS reply record, with the codec, shared-memory lane and native
+serve loop counters. The rest of that module (``Meter``, the log2
+latency histograms of the registry, the serving, replication and
+aggregation counters) belongs to the observability layer and is not
+ported yet (ROADMAP Queue 1 item 6); the native loop's queue-wait
+histogram is kept here as its raw state (:class:`NativeHist`) in the
+registry's geometry.
 """
 
 from __future__ import annotations
 
 import collections
+import math
 import threading
 import time
 from typing import Deque, Dict, Optional
 
 import numpy as np
+
+
+class NativeHist:
+    """One in-loop histogram of the native serve loop as the loop counts
+    it: the registry's geometry (bucket ``k >= 1`` covers ``(lo *
+    2^((k-1)/4), lo * 2^(k/4)]``, bucket 0 underflow, the last overflow),
+    its raw state overwritten by each sync (the native side owns the
+    counting) and read as quantiles."""
+
+    SUB = 4
+
+    def __init__(self, lo: float = 1e-6, hi: float = 3600.0):
+        self.lo, self.hi = float(lo), float(hi)
+        self._nb = int(math.ceil(math.log2(hi / lo) * self.SUB))
+        self.counts = [0] * (self._nb + 2)
+        self.total = 0
+        self.sum = 0.0
+        self.vmax = 0.0
+        self.vmin = math.inf
+
+    def quantile(self, q: float) -> float:
+        """The estimated ``q``-quantile, interpolated geometrically inside
+        the bucket that crosses it (0 when empty)."""
+        counts = list(self.counts)
+        total = sum(counts)
+        if total == 0:
+            return 0.0
+        rank, cum = q * total, 0.0
+        for k, c in enumerate(counts):
+            if c == 0:
+                continue
+            if cum + c >= rank:
+                if k == 0:
+                    return min(self.lo, self.vmax)
+                if k > self._nb:
+                    return self.vmax
+                lo_k = self.lo * 2.0 ** ((k - 1) / self.SUB)
+                est = lo_k * 2.0 ** ((rank - cum) / c / self.SUB)
+                return min(max(est, self.vmin), self.vmax)
+            cum += c
+        return self.vmax
+
+    def summary(self) -> Optional[dict]:
+        """``{count, mean, p50, p99, max}`` (seconds); None when empty."""
+        if not self.total:
+            return None
+        return {"count": self.total, "mean": self.sum / self.total,
+                "p50": self.quantile(0.5), "p99": self.quantile(0.99),
+                "max": self.vmax}
+
+
+#: the native loop's histograms kept (of ``native_loop.NL_HISTS``' names):
+#: the queue wait, which the STATS reply reads
+NL_HIST_KEYS = ("nl_queue_wait_s",)
 
 
 class TransportStats:
@@ -59,6 +117,35 @@ class TransportStats:
         self.staging_bytes = 0
         self.staging_s = 0.0
         self.sparse_rows_applied = 0
+        # gradient codecs (compress/): payload bytes before and after, the
+        # seconds spent coding, topk's latest residual norm
+        self.codec_raw_bytes = 0
+        self.codec_enc_bytes = 0
+        self.codec_s = 0.0
+        self.residual_norm = 0.0
+        # the shared-memory lane: ring frames (either way) and their bytes,
+        # frames too big for the ring that went over TCP, and the ring
+        # waits' wakeups found spinning or after sleeping
+        self.shm_frames = 0
+        self.shm_frame_bytes = 0
+        self.shm_spill_frames = 0
+        self.spin_wakeups = 0
+        self.sleep_wakeups = 0
+        # the native serve loop: frames read, live connections and slow
+        # frames (absolute values synced from its counters by the pump),
+        # the pump's batched upcalls and the pushes it dispatched, and
+        # native push admission's acks, refusals, fresh stamps and punts
+        self.loop_requests = 0
+        self.loop_conns = 0
+        self.loop_upcalls = 0
+        self.loop_pushes = 0
+        self.nl_slow_frames = 0
+        self.push_native_acks = 0
+        self.push_native_refusals = 0
+        self.push_native_fresh = 0
+        self.push_native_punts = 0
+        self.hist: Dict[str, NativeHist] = {k: NativeHist()
+                                            for k in NL_HIST_KEYS}
         # the latest op latencies by name (push, pull, push_pull, cycle):
         # the reference keeps log2 histograms (obs/, not ported yet); a
         # bounded window of samples gives the same quantiles here
@@ -115,6 +202,101 @@ class TransportStats:
         with self._lock:
             self.vec_frames += 1
             self.vec_bytes_avoided += int(nbytes)
+
+    def record_shm_frame(self, nbytes: int) -> None:
+        """One frame moved through a shared-memory ring (either way)."""
+        with self._lock:
+            self.shm_frames += 1
+            self.shm_frame_bytes += int(nbytes)
+
+    def record_shm_spill(self) -> None:
+        """One frame too large for the ring traveled TCP instead."""
+        with self._lock:
+            self.shm_spill_frames += 1
+
+    def record_wakeup(self, spun: bool) -> None:
+        """One ring wait that found its frame spinning (``spun``) or only
+        after backing off to sleep."""
+        with self._lock:
+            if spun:
+                self.spin_wakeups += 1
+            else:
+                self.sleep_wakeups += 1
+
+    def lane(self) -> str:
+        """The data plane this endpoint's traffic used: "shm" (rings
+        only), "shm+tcp" (a negotiated lane whose oversize frames spilled
+        to TCP) or "tcp"."""
+        with self._lock:
+            if self.shm_spill_frames > 0:
+                return "shm+tcp"
+            return "shm" if self.shm_frames > 0 else "tcp"
+
+    def record_codec(self, raw_bytes: int, enc_bytes: int,
+                     seconds: float) -> None:
+        """One codec pass over a tree (encode or decode side)."""
+        with self._lock:
+            self.codec_raw_bytes += int(raw_bytes)
+            self.codec_enc_bytes += int(enc_bytes)
+            self.codec_s += float(seconds)
+
+    def record_residual_norm(self, norm: float) -> None:
+        with self._lock:
+            self.residual_norm = float(norm)
+
+    def compress_ratio(self) -> Optional[float]:
+        """Raw over encoded bytes of everything the codecs touched (None
+        until a codec ran)."""
+        with self._lock:
+            if self.codec_enc_bytes <= 0:
+                return None
+            return self.codec_raw_bytes / self.codec_enc_bytes
+
+    def record_upcall(self, batch: int) -> None:
+        """One native-loop poll that handed ``batch`` requests to Python."""
+        with self._lock:
+            self.loop_upcalls += 1
+
+    def record_loop_push(self) -> None:
+        """One push (a commit kind) the native loop's pump dispatched."""
+        with self._lock:
+            self.loop_pushes += 1
+
+    def set_loop_stats(self, requests: int, conns: int) -> None:
+        """The native loop's frame count and connection gauge."""
+        with self._lock:
+            self.loop_requests = int(requests)
+            self.loop_conns = int(conns)
+
+    def set_admit_stats(self, acks: int, refusals: int, fresh: int,
+                        punts: int) -> None:
+        """Native push admission's counters (absolute values)."""
+        with self._lock:
+            self.push_native_acks = int(acks)
+            self.push_native_refusals = int(refusals)
+            self.push_native_fresh = int(fresh)
+            self.push_native_punts = int(punts)
+
+    def set_nl_hists(self, states: Dict[str, dict]) -> None:
+        """Overwrite the in-loop histograms with the loop's raw states; a
+        state whose geometry differs from :class:`NativeHist`'s is skipped
+        rather than mis-bucketed."""
+        for key, st in states.items():
+            h = self.hist.get(key)
+            if h is None or len(st["c"]) != len(h.counts) \
+                    or (st["lo"], st["hi"]) != (h.lo, h.hi):
+                continue
+            h.counts = [int(c) for c in st["c"]]
+            h.total = int(st["n"])
+            h.sum = float(st["s"])
+            h.vmax = float(st["mx"])
+            mn = st.get("mn")
+            h.vmin = math.inf if mn is None else float(mn)
+
+    def set_nl_slow_frames(self, slow_frames: int) -> None:
+        """The loop's count of frames over its slow-frame threshold."""
+        with self._lock:
+            self.nl_slow_frames = int(slow_frames)
 
     def record_pool(self, hit: bool) -> None:
         """One receive-buffer-pool borrow (reused buffer or fresh one)."""
@@ -173,7 +355,11 @@ class TransportStats:
                     self.vec_frames, self.vec_bytes_avoided,
                     self.pool_hits, self.pool_misses, self.dedup_hits,
                     self.staging_bytes, self.staging_s,
-                    self.sparse_rows_applied)
+                    self.sparse_rows_applied,
+                    self.codec_raw_bytes, self.codec_enc_bytes,
+                    self.codec_s, self.shm_frames, self.shm_frame_bytes,
+                    self.shm_spill_frames, self.spin_wakeups,
+                    self.sleep_wakeups)
 
     def summary(self, since: Optional[tuple] = None) -> Dict[str, float]:
         """The interval since ``since`` (a :meth:`snapshot`), as the
@@ -205,6 +391,20 @@ class TransportStats:
             out["device_staging_s"] = round(d[14], 4)
         if d[15] > 0:
             out["sparse_rows_applied"] = int(d[15])
+        if d[17] > 0:  # the codecs ran
+            out["compress_ratio"] = round(d[16] / d[17], 4)
+            out["codec_s"] = round(d[18], 4)
+        if self.residual_norm > 0:
+            out["residual_norm"] = round(self.residual_norm, 6)
+        if d[19] > 0 or d[21] > 0:
+            # the lane of this interval, not of the lifetime
+            out["lane"] = "shm+tcp" if d[21] > 0 else "shm"
+            out["shm_frames"] = int(d[19])
+            out["shm_gb"] = round(d[20] / 1e9, 4)
+            if d[21] > 0:
+                out["shm_spill_frames"] = int(d[21])
+            out["spin_wakeups"] = int(d[22])
+            out["sleep_wakeups"] = int(d[23])
         return out
 
     def metrics_snapshot(self) -> dict:

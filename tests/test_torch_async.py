@@ -366,6 +366,6 @@ def test_trainer_runs_on_the_cpu(capsys):
     assert not ps_tpu_torch.is_initialized()
     # the cross-process roles run now (tests/test_torch_remote_async.py);
     # what they still refuse names the item it waits for
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5.6"):
         train_mnist_async.main(["--device", "cpu", "--role", "worker",
-                                "--compress", "int8"])
+                                "--backup"])

@@ -86,17 +86,26 @@ def test_every_slice_module_is_checked():
                  "ps_tpu_torch/backends/van_service.py",
                  "ps_tpu_torch/backends/remote_async.py",
                  "ps_tpu_torch/backends/remote_sparse.py",
-                 "ps_tpu_torch/kv/keys.py"):
+                 "ps_tpu_torch/kv/keys.py",
+                 "ps_tpu_torch/control/shm_lane.py",
+                 "ps_tpu_torch/control/native_loop.py",
+                 "ps_tpu_torch/compress/__init__.py",
+                 "ps_tpu_torch/compress/codecs.py",
+                 "ps_tpu_torch/compress/policy.py",
+                 "ps_tpu_torch/compress/wire.py"):
         assert path in FILES
 
 
 def test_van_plane_loads_neither_jax_nor_its_package():
-    """The van plane (the native loader, control/, the services and the
-    remote workers, dense and sparse) runs without JAX and never reaches into ps_tpu/: its
+    """The van plane (the native loader, control/ with the shm lane and
+    the native loop, the codecs, the services and the remote workers,
+    dense and sparse) runs without JAX and never reaches into ps_tpu/: its
     modules load no jax, jaxlib, flax, optax or ps_tpu, and the native
     loader builds the port's own copy of van.cpp."""
     code = ("import sys, ps_tpu_torch.native as n, "
             "ps_tpu_torch.control.tensor_van, ps_tpu_torch.control.heartbeat, "
+            "ps_tpu_torch.control.shm_lane, ps_tpu_torch.control.native_loop, "
+            "ps_tpu_torch.compress, "
             "ps_tpu_torch.backends.van_service, "
             "ps_tpu_torch.backends.remote_async, "
             "ps_tpu_torch.backends.remote_sparse; "

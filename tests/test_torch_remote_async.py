@@ -789,8 +789,10 @@ def test_reference_worker_against_port_server(bucket_bytes, shm):
         w = ref_connect(uri, 0, {k: jnp.asarray(v) for k, v in
                                  params.items()},
                         bucket_bytes=bucket_bytes, shm=shm)
-        if shm:  # the port's server refused the offer: the worker is on TCP
-            assert all(getattr(ch, "lane", "tcp") == "tcp" for ch in w._chs)
+        if shm:  # the port's server accepted the offer: rings, not TCP
+            assert all(getattr(ch, "lane", "tcp") == "shm" for ch in w._chs)
+            assert all(p._ch.lane == "shm" for ps_ in w._pumps.values()
+                       for p in ps_)
         w.pull_all()
         for g in seq:
             out = w.push_pull({k: jnp.asarray(v) for k, v in g.items()})
@@ -807,14 +809,16 @@ def test_reference_worker_against_port_server(bucket_bytes, shm):
 # -- what is not ported yet --------------------------------------------------
 
 
+#: options a later item ported: they must now be accepted and in effect
+#: (``match`` None), where they used to raise naming their item
 @pytest.mark.parametrize("kwargs,match", [
-    ({"compress": "int8"}, "compress/.*item 5"),
-    ({"shm": True}, "shm_lane.*item 5"),
+    ({"compress": "int8"}, None),
+    ({"shm": True}, None),
     ({"coordinator": "127.0.0.1:1"}, "elastic/.*item 6"),
-    ({"aggregator": "127.0.0.1:1"}, "aggregator.*item 5"),
-    ({"read_staleness": 2}, "read path.*item 5"),
-    ({"pull_cache": True}, "read path.*item 5"),
-    ({"uri": "127.0.0.1:1|127.0.0.1:2"}, "replica/.*item 5"),
+    ({"aggregator": "127.0.0.1:1"}, "aggregator.*item 5.5"),
+    ({"read_staleness": 2}, "read path.*item 5.8"),
+    ({"pull_cache": True}, "read path.*item 5.8"),
+    ({"uri": "127.0.0.1:1|127.0.0.1:2"}, "replica/.*item 5.6"),
 ], ids=["compress", "shm", "coordinator", "aggregator", "read_staleness",
         "pull_cache", "replica-set"])
 def test_deferred_worker_options_raise(kwargs, match):
@@ -822,6 +826,16 @@ def test_deferred_worker_options_raise(kwargs, match):
     (svc,), uri = _job(params)
     try:
         kw = dict(kwargs)
+        if match is None:  # items 5.2 (shm) and 5.3 (compress)
+            w = connect_async(uri, 0, params, **kw)
+            if "shm" in kw:
+                assert w._chs[0].lane == "shm"
+            else:
+                assert w.compress == {"codec": "int8", "seed": 0}
+            w.push_pull({"w": torch.ones(2)})
+            assert w.version == 1
+            w.close()
+            return
         with pytest.raises(NotImplementedError, match=match):
             connect_async(kw.pop("uri", uri), 0, params, **kw)
     finally:
@@ -829,15 +843,27 @@ def test_deferred_worker_options_raise(kwargs, match):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"backup": True}, "replica/.*item 5"),
-    ({"native_loop": True}, "native_loop.*item 5"),
-    ({"shm": True}, "shm_lane.*item 5"),
+    ({"backup": True}, "replica/.*item 5.6"),
+    ({"native_loop": True}, None),
+    ({"shm": True}, None),
     ({"coordinator": "127.0.0.1:1"}, "elastic/.*item 6"),
 ], ids=["backup", "native_loop", "shm", "coordinator"])
 def test_deferred_server_options_raise(kwargs, match):
+    """What stays deferred raises naming its item; what items 5.1 (the
+    native loop) and 5.2 (accepting shm offers) ported is in effect."""
     ps_tpu_torch.init(backend="cuda", mode="async", device="cpu")
     store = ps_tpu_torch.KVStore(optimizer="sgd", mode="async")
     store.init({"w": torch.zeros(2)})
+    if match is None:
+        svc = AsyncPSService(store, **kwargs)
+        try:
+            if "native_loop" in kwargs:
+                assert svc.native_loop
+            else:
+                assert svc._shm_accept and not svc.native_loop
+        finally:
+            svc.stop()
+        return
     with pytest.raises(NotImplementedError, match=match):
         AsyncPSService(store, **kwargs)
 
@@ -865,9 +891,18 @@ def test_deferred_kinds_are_answered_err(kind, match):
                                    ["--replicate-to", "h:1"]],
                          ids=["compress", "backup", "replicate-to"])
 def test_deferred_trainer_flags_raise(flags):
+    """The replication flags raise naming item 5.6; ``--compress`` (item
+    5.3) parses into the worker's codec flags instead."""
     from ps_tpu_torch.examples import train_mnist_async
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    if flags[0] == "--compress":
+        args = train_mnist_async.parse_args(
+            ["--device", "cpu", "--role", "worker", *flags,
+             "--compress-topk", "0.05", "--compress-min-bytes", "4096"])
+        assert (args.compress, args.compress_topk,
+                args.compress_min_bytes) == ("int8", 0.05, 4096)
+        return
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5.6"):
         train_mnist_async.main(["--device", "cpu", "--role", "server",
                                 *flags])
 

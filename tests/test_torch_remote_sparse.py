@@ -660,9 +660,11 @@ def test_port_and_reference_workers_send_the_same_frames():
 # -- what is not ported yet --------------------------------------------------------
 
 
+#: options a later item ported (``match`` None) must be accepted and in
+#: effect, where they used to raise naming their item
 @pytest.mark.parametrize("kwargs,match", [
-    ({"compress": "int8"}, "compress/.*item 5.3"),
-    ({"shm": True}, "shm_lane.*item 5.2"),
+    ({"compress": "int8"}, None),
+    ({"shm": True}, None),
     ({"coordinator": "127.0.0.1:1"}, "elastic/.*item 6"),
     ({"uri": "127.0.0.1:1|127.0.0.1:2"}, "replica/.*item 5.6"),
 ], ids=["compress", "shm", "coordinator", "replica-set"])
@@ -670,6 +672,17 @@ def test_deferred_worker_options_raise(kwargs, match):
     svc = _serve()
     try:
         kw = dict(kwargs)
+        if match is None:  # items 5.3 (compress) and 5.2 (shm)
+            w = connect_sparse(_uri([svc]), 0, SPEC, **kw)
+            if "shm" in kw:
+                assert w._chs[0].lane == "shm"
+            else:
+                assert w.compress == {"codec": "int8", "seed": 0}
+            ids = np.arange(3, dtype=np.int32)
+            w.push({"deep": (ids, np.ones((3, SPEC["deep"][1]), np.float32))})
+            assert w.versions()["deep"] == 1
+            w.close()
+            return
         with pytest.raises(NotImplementedError, match=match):
             connect_sparse(kw.pop("uri", _uri([svc])), 0, SPEC, **kw)
     finally:
@@ -683,8 +696,8 @@ class _TieredLike(SparseEmbedding):
 
 @pytest.mark.parametrize("case,match", [
     ("backup", "replica/.*item 5.6"),
-    ("native_loop", "native_loop.*item 5.1"),
-    ("shm", "shm_lane.*item 5.2"),
+    ("native_loop", None),
+    ("shm", None),
     ("coordinator", "elastic/.*item 6"),
     ("tiered", "tiered.*item 5.7"),
     ("read_rows", "read path.*item 5.8"),
@@ -692,11 +705,21 @@ class _TieredLike(SparseEmbedding):
 ], ids=["backup", "native_loop", "shm", "coordinator", "tiered",
         "read_rows", "READ"])
 def test_deferred_options_raise_and_name_their_item(case, match):
-    """Every option this slice leaves for a later item raises
-    NotImplementedError naming it (READ is answered ERR, naming it)."""
+    """Every option left for a later item raises NotImplementedError
+    naming it (READ is answered ERR, naming it); the native loop (item
+    5.1) and accepting shm offers (item 5.2) are in effect."""
     import re
 
-    if case in ("backup", "native_loop", "shm", "coordinator"):
+    if match is None:
+        svc = SparsePSService(harness.sparse_tables(SHAPE, 0, 1),
+                              **{case: True})
+        try:
+            assert svc.native_loop == (case == "native_loop")
+            assert svc._shm_accept
+        finally:
+            svc.stop()
+        return
+    if case in ("backup", "coordinator"):
         value = "127.0.0.1:1" if case == "coordinator" else True
         with pytest.raises(NotImplementedError, match=match):
             SparsePSService(harness.sparse_tables(SHAPE, 0, 1),

@@ -8,8 +8,8 @@ limit, so nothing hangs:
     python tests/test_torch_van_harness.py server <out> <nworkers> <cycles> [<shard> <nshards>]
     python tests/test_torch_van_harness.py worker <ports> <out> <worker> <cycles> [<nworkers>]
     python tests/test_torch_van_harness.py drill <rank> <k> <port> <hb_base> <victim> <out>
-    python tests/test_torch_van_harness.py sparse-server <out> <nworkers> <cycles> <shard> <nshards> <device> <shape>
-    python tests/test_torch_van_harness.py sparse-worker <ports> <out> <worker> <cycles> <device> <shape> <nworkers> <record>
+    python tests/test_torch_van_harness.py sparse-server <out> <nworkers> <cycles> <shard> <nshards> <device> <shape> [<opts>]
+    python tests/test_torch_van_harness.py sparse-worker <ports> <out> <worker> <cycles> <device> <shape> <nworkers> <record> [<opts>]
 
 - server: an async KVStore on the CPU (sgd 0.05, dc_lambda 0.04) behind
   ``AsyncPSService`` with its full history, on a port the kernel picks
@@ -36,14 +36,18 @@ limit, so nothing hangs:
   width), and once every worker said goodbye dumps its tables, apply log,
   versions and kernel launch counts; a worker (``ports`` may be ``@n``:
   wait for n servers' port files) runs deterministic cycles of pull +
-  push and push_pull with its ids and grads on ``device``. Phase 17 of
-  ``chip_smoke.py`` runs the same code on the card at "wd";
-  :func:`sparse_replay` replays a run.
+  push and push_pull with its ids and grads on ``device``. ``opts`` is a
+  json object of the van's transport options: a server's
+  ``{"native_loop": true}``, a worker's ``{"shm": true, "compress":
+  spec}``. Phases 17 and 19 of ``chip_smoke.py`` run the same code on the
+  card at "wd"; :func:`sparse_replay` replays a run, re-encoding each
+  worker's grads through its codec when it compressed them.
 
 Every process of this file computes on one intra-op thread, as the
 replays of its runs do (:func:`one_thread`). :func:`replay` replays a run
 of the MNIST trainer's ``--role server|worker`` processes from its
-servers' event logs; ``chip_smoke.py`` uses it too.
+servers' event logs (each worker's gradients through its codec when it
+compressed them); ``chip_smoke.py`` uses it too.
 """
 
 from __future__ import annotations
@@ -191,9 +195,18 @@ def one_thread():
         torch.set_num_threads(threads)
 
 
+def _codec_round_trip(tree, compressor):
+    """``{key: array}`` through a compressor's encode and the decode: the
+    tree the receiving side applies."""
+    from ps_tpu_torch.compress import decode_tree
+
+    wire, enc = compressor.encode_tree(tree)
+    return decode_tree(dict(wire), enc)
+
+
 def replay(event_logs, num_workers: int, device, witness=None,
            seed: int = 0, lr: float = 0.1, dc_lambda: float = 0.04,
-           batch_size: int = 64):
+           batch_size: int = 64, compress=None):
     """Replay a run of the MNIST trainer's ``--role server|worker``
     processes from its servers' event logs (one log a shard, in shard
     order) through one-process ``AsyncCudaServer`` engines on ``device``;
@@ -217,10 +230,18 @@ def replay(event_logs, num_workers: int, device, witness=None,
     gradient nearly cancels (a near-uniform softmax) inflates while its
     terms keep their rounding, hence the floor m; ``grad_err["smallest"]``
     and ``grad_err["largest"]`` the least and the largest ``‖g_p‖₂ / m``.
+
+    ``compress`` (``{worker: spec}``, the spec that worker resolved, its
+    seed included) replays the codecs: each push goes through the
+    worker's own compressor (topk's residuals, int8's stream) shard by
+    shard, and with ``pull`` each pull's tree through the server's codec
+    for that worker and pull, so each gradient is taken at what the
+    worker decoded. Not with ``witness``.
     """
     import torch
 
     from ps_tpu_torch.backends.cuda import AsyncCudaServer
+    from ps_tpu_torch.compress import CompressPolicy, GradCompressor
     from ps_tpu_torch.data.synthetic import mnist_batches
     from ps_tpu_torch.examples.train_mnist_async import build
     from ps_tpu_torch.kv import keys as keymod
@@ -248,6 +269,27 @@ def replay(event_logs, num_workers: int, device, witness=None,
     streams = {w: mnist_batches(batch_size, seed=seed, worker=w,
                                 num_workers=num_workers)
                for w in range(num_workers)}
+    compress = compress or {}
+    if compress and witness is not None:
+        raise ValueError("replay: compress does not take a witness")
+    compressors = {w: GradCompressor(CompressPolicy.from_spec(spec))
+                   for w, spec in compress.items()}
+
+    def seen_by_worker(w, tree, epoch):
+        """A pulled tree as worker ``w`` decoded it (its ``epoch``-th
+        bucketed pull): the server's pull codec, seeded as it seeds it."""
+        spec = compress.get(w)
+        if not spec or not spec.get("pull"):
+            return tree
+        spec = {k: v for k, v in spec.items() if k != "pull"}
+        spec["seed"] = ((int(spec.get("seed", 0)) * 1000003 + w * 9176
+                         + epoch) & 0x7FFFFFFF)
+        host = {k: v.cpu().numpy() for k, v in tree.items()}
+        got = _codec_round_trip(host, GradCompressor(
+            CompressPolicy.from_spec(spec)))
+        return {k: torch.from_numpy(np.array(v)).to(tree[k].device)
+                for k, v in got.items()}
+
     pulls = {}    # (worker, shard) -> trees pulled on ``device``
     pushes = {}   # (worker, shard) -> pushes replayed
     grads = {}    # (worker, cycle) -> one gradient a device
@@ -260,7 +302,9 @@ def replay(event_logs, num_workers: int, device, witness=None,
                 op, w = log[cursors[s]]
                 if op == "pull":
                     trees = [e[s].pull_tree(worker=w) for e in engines]
-                    pulls.setdefault((w, s), []).append(trees[0])
+                    n = len(pulls.get((w, s), []))
+                    pulls.setdefault((w, s), []).append(
+                        seen_by_worker(w, trees[0], n + 1))
                 else:
                     c = pushes.get((w, s), 0)
                     if (w, c) not in grads:
@@ -279,6 +323,15 @@ def replay(event_logs, num_workers: int, device, witness=None,
                                 tuple(torch.as_tensor(x).to(dev)
                                       for x in batch))
                             gs.append(keymod.flatten_with_keys(g)[0])
+                        if w in compressors:  # each shard's subtree in turn
+                            g = gs[0]
+                            for t in range(nshards):
+                                sub = {k: g[k].cpu().numpy()
+                                       for k in g if k in owned[t]}
+                                for k, v in _codec_round_trip(
+                                        sub, compressors[w]).items():
+                                    g[k] = torch.from_numpy(
+                                        np.array(v)).to(g[k].device)
                         for g in gs[1:]:
                             diffs.append(sum(float(
                                 (g[k].cpu().double() - v.cpu().double())
@@ -484,25 +537,62 @@ def sparse_grads(shape: str, worker: int, cycle: int, name: str,
 
 
 def routed_pushes(shape: str, worker: int, shard: int, nshards: int,
-                  cycles: int, ids=None):
+                  cycles: int, ids=None, compress=None):
     """The shard-local ``{name: (ids, grads)}`` that ``worker``'s cycles
     send ``shard``: the worker's payloads (dedupe, then the range split,
     order kept). A cycle with no row in the range sends no message and is
-    skipped, as the worker skips it."""
-    from ps_tpu_torch.backends.remote_sparse import dedupe_rows_np, row_range
-
+    skipped, as the worker skips it. With ``compress`` (the spec the
+    worker resolved) the grads are what the server decodes."""
+    if compress is not None:
+        yield from _coded_pushes(shape, worker, nshards, cycles,
+                                 json.dumps(compress, sort_keys=True))[shard]
+        return
     ids = sparse_ids(shape, worker, cycles) if ids is None else ids
     for c in range(cycles):
-        per = {}
-        for name, (rows, _) in sparse_spec(shape).items():
-            lo, hi = row_range(shard, nshards, rows)
-            u, g = dedupe_rows_np(ids[c], sparse_grads(shape, worker, c, name,
-                                                       ids[c].size))
-            keep = (u >= lo) & (u < hi)
-            if keep.any():
-                per[name] = (u[keep] - lo, g[keep])
+        per = _routed(shape, worker, c, ids[c], shard, nshards)
         if per:
             yield per
+
+
+def _routed(shape, worker, cycle, ids, shard, nshards) -> dict:
+    """One cycle's ``{name: (shard-local ids, grads)}`` for ``shard``."""
+    from ps_tpu_torch.backends.remote_sparse import dedupe_rows_np, row_range
+
+    per = {}
+    for name, (rows, _) in sparse_spec(shape).items():
+        lo, hi = row_range(shard, nshards, rows)
+        u, g = dedupe_rows_np(ids, sparse_grads(shape, worker, cycle, name,
+                                                ids.size))
+        keep = (u >= lo) & (u < hi)
+        if keep.any():
+            per[name] = (u[keep] - lo, g[keep])
+    return per
+
+
+@functools.lru_cache(maxsize=4)
+def _coded_pushes(shape: str, worker: int, nshards: int, cycles: int,
+                  spec_json: str):
+    """Every shard's routed pushes of ``worker`` with the grads through
+    the worker's one compressor, in the worker's order: cycle by cycle,
+    shard by shard, each payload's keys in the order the worker builds
+    them (a table's ids, then its grads)."""
+    from ps_tpu_torch.compress import CompressPolicy, GradCompressor
+
+    comp = GradCompressor(CompressPolicy.from_spec(json.loads(spec_json)))
+    ids = sparse_ids(shape, worker, cycles)
+    out = [[] for _ in range(nshards)]
+    for c in range(cycles):
+        for s in range(nshards):
+            per = _routed(shape, worker, c, ids[c], s, nshards)
+            if not per:
+                continue
+            payload = {}
+            for name, (i, g) in per.items():
+                payload[f"{name}/ids"], payload[f"{name}/grads"] = i, g
+            got = _codec_round_trip(payload, comp)
+            out[s].append({name: (i, got[f"{name}/grads"])
+                           for name, (i, _) in per.items()})
+    return out
 
 
 def expected_pushes(shape: str, shard: int, nshards: int, nworkers: int,
@@ -510,6 +600,46 @@ def expected_pushes(shape: str, shard: int, nshards: int, nworkers: int,
     """How many push messages reach ``shard``."""
     return sum(len(list(routed_pushes(shape, w, shard, nshards, cycles)))
                for w in range(nworkers))
+
+
+def push_frames(shape: str, worker: int, shard: int, nshards: int,
+                cycles: int) -> dict:
+    """The serial push frames ``worker`` sends ``shard``, by kind: even
+    cycles pull then push (``ROW_PUSH``), odd ones push_pull
+    (``ROW_PUSH_PULL``); a cycle with no row in the range sends none."""
+    ids = sparse_ids(shape, worker, cycles)
+    out = {"ROW_PUSH": 0, "ROW_PUSH_PULL": 0}
+    for c in range(cycles):
+        if _routed(shape, worker, c, ids[c], shard, nshards):
+            out["ROW_PUSH" if c % 2 == 0 else "ROW_PUSH_PULL"] += 1
+    return out
+
+
+def check_loop_carried(infos, opts, shape, cycles, what=""):
+    """Each server on the native loop dispatched exactly the pushes of its
+    TCP workers (``opts[w]`` without ``shm``: their connections stay on
+    the loop; a ring worker's are detached to a thread), and native
+    admission classified exactly their flat ``ROW_PUSH`` frames, some of
+    them fresh. Raises AssertionError naming ``what``."""
+    nshards = len(infos)
+    for s, info in enumerate(infos):
+        want = {"ROW_PUSH": 0, "ROW_PUSH_PULL": 0}
+        for w, o in enumerate(opts):
+            if not o.get("shm"):
+                for k, n in push_frames(shape, w, s, nshards,
+                                        cycles).items():
+                    want[k] += n
+        a = info["admit"]
+        classified = a["acks"] + a["refusals"] + a["fresh"] + a["punts"]
+        dispatched = (want["ROW_PUSH"] + want["ROW_PUSH_PULL"] - a["acks"]
+                      - a["refusals"])
+        if not (info["native_loop"] and info["loop_pushes"] == dispatched
+                and classified == want["ROW_PUSH"]
+                and (a["fresh"] > 0 or not want["ROW_PUSH"])):
+            raise AssertionError(
+                f"{what}: server {s} on the loop {info['native_loop']} "
+                f"dispatched {info['loop_pushes']} pushes of the TCP "
+                f"workers' {want}; admission {a}")
 
 
 def sparse_tables(shape: str, shard: int, nshards: int, fused_apply=None):
@@ -548,12 +678,13 @@ def _read_ports(ports: str, out: str) -> str:
 
 
 def run_sparse_server(out, nworkers, cycles, shard, nshards, device,
-                      shape):
+                      shape, opts=None):
     """Serve ``shard``'s row range of both tables until every worker said
     goodbye, then dump the tables and their optimizer state
     (``sparse_tables<shard>.npz``), the apply log, versions, rows, the
-    sparse applies' times and the kernel launch counts
-    (``sparse_server<shard>.json``)."""
+    sparse applies' times, the kernel launch counts and the transport's
+    lane, loop, admission and codec counters
+    (``sparse_server<shard>.json``). ``opts``: ``native_loop``."""
     import ps_tpu_torch as ps
     from ps_tpu_torch.backends.remote_sparse import SparsePSService
     from ps_tpu_torch.ops import sparse_apply as ops
@@ -563,7 +694,8 @@ def run_sparse_server(out, nworkers, cycles, shard, nshards, device,
     svc = SparsePSService(
         tables, shard=shard, num_shards=nshards,
         total_rows={n: v for n, (v, _) in sparse_spec(shape).items()},
-        record_full_history=True)
+        record_full_history=True,
+        native_loop=bool((opts or {}).get("native_loop")))
     path = os.path.join(out, f"port{shard}")
     with open(path + ".tmp", "w") as f:
         f.write(str(svc.port))
@@ -592,20 +724,29 @@ def run_sparse_server(out, nworkers, cycles, shard, nshards, device,
             "sparse_apply_s": svc.transport.op_samples("sparse_apply"),
             "apply_s": svc.transport.op_samples("apply"),
             "rows": svc.transport.sparse_rows_applied,
-            "staging_s": svc.transport.staging_s}, f)
+            "staging_s": svc.transport.staging_s,
+            "native_loop": svc.native_loop, "admit": svc.admit_stats(),
+            "upcalls": svc.transport.loop_upcalls,
+            "loop_pushes": svc.transport.loop_pushes,
+            "shm_frames": svc.transport.shm_frames,
+            "shm_spills": svc.transport.shm_spill_frames,
+            "codec_bytes": [svc.transport.codec_raw_bytes,
+                            svc.transport.codec_enc_bytes]}, f)
     svc.stop()
     ps.shutdown()
 
 
 def run_sparse_worker(ports, out, worker, cycles, device, shape,
-                      nworkers=0, record=False):
+                      nworkers=0, record=False, opts=None):
     """``cycles`` cycles against the sparse servers: even cycles pull then
     push, odd ones push_pull (the reference test's mix), ids and grads as
     tensors on ``device``; once connected it waits until ``nworkers``
     workers are (a file barrier), so their cycles overlap. Writes
     ``sparse_worker<id>.json`` (versions, cycle and op times, the shared
-    window) and, with ``record``, every pulled row set and the per-server
-    versions its replies carried (``sparse_pulls<id>.npz``)."""
+    window, the lane's and the codec's counters, which payload keys were
+    encoded and their largest sizes) and, with ``record``, every pulled
+    row set and the per-server versions its replies carried
+    (``sparse_pulls<id>.npz``). ``opts``: ``shm``, ``compress``."""
     import torch
 
     from ps_tpu_torch.backends.remote_sparse import connect_sparse
@@ -615,7 +756,22 @@ def run_sparse_worker(ports, out, worker, cycles, device, shape,
         dev = torch.device("cuda", torch.cuda.current_device())
     uri = ",".join(f"127.0.0.1:{p}"
                    for p in _read_ports(str(ports), out).split(","))
-    w = connect_sparse(uri, worker, sparse_spec(shape))
+    opts = opts or {}
+    w = connect_sparse(uri, worker, sparse_spec(shape),
+                       shm=bool(opts.get("shm")),
+                       compress=opts.get("compress"))
+    keys = {}  # payload key -> [times encoded, times raw, largest bytes]
+    encode = w._encode_push_tree
+
+    def encode_and_count(arrays):
+        wire, enc = encode(arrays)
+        for k, a in arrays.items():
+            row = keys.setdefault(k, [0, 0, 0])
+            row[0 if k in enc else 1] += 1
+            row[2] = max(row[2], int(np.asarray(a).nbytes))
+        return wire, enc
+
+    w._encode_push_tree = encode_and_count
     if nworkers:
         open(os.path.join(out, f"sparse_ready{worker}"), "w").close()
         deadline = time.monotonic() + 300
@@ -664,12 +820,17 @@ def run_sparse_worker(ports, out, worker, cycles, device, shape,
             "ops": {k: w.transport.op_samples(k)
                     for k in ("pull", "push", "push_pull")},
             "staging_s": w.transport.staging_s,
-            "bytes": [w.bytes_pushed, w.bytes_pulled]}, f)
+            "bytes": [w.bytes_pushed, w.bytes_pulled],
+            "lane": w.transport.lane(), "shm_frames": w.transport.shm_frames,
+            "shm_spills": w.transport.shm_spill_frames,
+            "compress": w.compress, "encoded_keys": keys,
+            "codec_bytes": [w.transport.codec_raw_bytes,
+                            w.transport.codec_enc_bytes]}, f)
     w.close()
 
 
 def sparse_replay(infos, shape, nworkers, cycles, pulls=None,
-                  fused_apply=None):
+                  fused_apply=None, compress=None):
     """Replay each shard's apply log (``infos``, one server dump a shard,
     in shard order) through the port's one-process tables on the device
     ``ps_tpu_torch.init`` chose; returns ``(tables, checked)`` with
@@ -678,7 +839,10 @@ def sparse_replay(infos, shape, nworkers, cycles, pulls=None,
     ``pulls`` (``{worker: (sparse_pulls npz, sparse_worker json)}``) are
     held to the replay: each pulled row set's rows from shard s must equal,
     bitwise, the replayed table at the version shard s's reply carried.
-    ``checked`` counts the (pull, shard, table) row sets held."""
+    ``checked`` counts the (pull, shard, table) row sets held.
+
+    ``compress`` (``{worker: spec}``, each worker's resolved spec) replays
+    the grads the servers decoded from each worker's codec."""
     import torch
 
     from ps_tpu_torch.backends.remote_sparse import row_range
@@ -717,7 +881,8 @@ def sparse_replay(infos, shape, nworkers, cycles, pulls=None,
         version = {name: 0 for name in tables}
         for name in tables:
             check(name, 0)
-        streams = {w: routed_pushes(shape, w, s, nshards, cycles, ids[w])
+        streams = {w: routed_pushes(shape, w, s, nshards, cycles, ids[w],
+                                    compress=(compress or {}).get(w))
                    for w in range(nworkers)}
         for w in info["apply_log"]:
             for name, (i, g) in next(streams[w]).items():
@@ -744,13 +909,15 @@ def main(argv) -> int:
     role = argv[1]
     if role == "sparse-server":
         out, nworkers, cycles, shard, nshards, device, shape = argv[2:9]
+        opts = json.loads(argv[9]) if len(argv) > 9 else None
         run_sparse_server(out, int(nworkers), int(cycles), int(shard),
-                          int(nshards), device, shape)
+                          int(nshards), device, shape, opts)
     elif role == "sparse-worker":
         ports, out, worker, cycles, device, shape, nworkers, record = \
             argv[2:10]
+        opts = json.loads(argv[10]) if len(argv) > 10 else None
         run_sparse_worker(ports, out, int(worker), int(cycles), device,
-                          shape, int(nworkers), record == "1")
+                          shape, int(nworkers), record == "1", opts)
     elif role == "server":
         out, nworkers, cycles = argv[2:5]
         shard = int(argv[5]) if len(argv) > 5 else None
