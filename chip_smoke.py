@@ -277,6 +277,45 @@ Phases, each raising on failure:
    rings against TCP. Run it alone (it then runs phase 17 (a) over TCP
    for its comparison) with ``python3 -c "import chip_smoke as c,
    tempfile; c.phase_build(); c.phase_transport(tempfile.mkdtemp())"``.
+20. replication and live failover on the card (ROADMAP item 5.6,
+   ``ps_tpu_torch/replica/``): (a) phase 17 (a)'s sparse PS (W&D's width,
+   two shards of 1,300,000 rows, deep adagrad and wide sgd, three
+   ``connect_sparse`` processes x 60 cycles of 13,312 ids) with each
+   shard a ``serve_sparse`` primary process and a ``backup=True`` process
+   with a ``PromotionWatch`` (horizon 1,000 ms), both on the card,
+   attached with sync ack, the workers dialling ``p0|b0,p1|b1``: after
+   30 cycles the workers pause and each backup's tables and row state
+   must equal its primary's bitwise (SHA-256 of every table and state
+   leaf) and each backup must have launched 2 grouping + 2 apply kernels
+   a replicated push in its own process; then primary 0 is SIGKILLed and
+   the workers run the other 30 cycles: backup 0 promotes with reason
+   ``timeout``, every worker finishes after its failover, every push is
+   applied once (none twice, none acked lost), the promoted backup's log
+   replays through the port's tables on the card to its tables bitwise,
+   and backup 1 ends bitwise primary 1; then (a) again, unkilled, with
+   every primary and backup on the native loop and worker 0 over the
+   rings: each backup bitwise its primary at the pause (with the same
+   launches) and at the end, having applied the same pushes in the same
+   order, and each primary's pump dispatched exactly the TCP workers'
+   pushes; (b) config 5 (phase 16 (a)'s MLP hidden 32, batch 64, lr
+   0.1, dc_lambda 0.04) through ``train_mnist_async.py
+   --replicate-to/--beat`` and ``--backup --watch-port``, the primary
+   SIGKILLed once worker 0 logged cycle 30 of 60: with one worker the
+   losses and the final params bitwise an unkilled run's; with three the
+   promoted backup's event log replayed on the card bitwise its params
+   (a CPU witness in lockstep as in phase 16); (c) (a) with async ack and a
+   window of 8, primary 0 SIGKILLed mid-traffic (once worker 0 finished
+   cycle 30): the backups' lag never past 8, the run goes on, the promoted
+   tables bitwise the replay of what it applied, at most 8 pushes short of
+   all of them, and their distance from the unkilled replay printed; (d)
+   printed, not held: sparse cycles/s and the median push unreplicated
+   (phase 17 (f), the same call) against sync ack, async ack and sync ack
+   on the loop, the sync ack's wait, the stream's bytes a push, kill to
+   promotion, the detection's age and the flip, the workers' failover
+   times, beside the card's name and power limit. Run it alone with
+   ``python3 -c "import chip_smoke as c, tempfile; c.phase_build();
+   c.phase_replication(tempfile.mkdtemp())"`` (its (d) then prints 0 for
+   the unreplicated numbers).
 
 It prints one JSON line per timed kernel, then the kernels line, then
 ``{"ok": true, "device": {...}}`` as its last line. Without a GPU, or
@@ -3140,19 +3179,26 @@ class _VanRun:
             if p.returncode != 0:
                 raise AssertionError(f"{' '.join(p.args[3:9])} exited "
                                      f"{p.returncode}:\n{o[-3000:]}")
-        sfx = [""] if not self.shards else [str(s)
-                                            for s in range(self.shards)]
-        self.infos = [json.load(open(os.path.join(self.out,
-                                                  f"server{x}.json")))
-                      for x in sfx]
-        self.final = {}
-        for x in sfx:
-            self.final.update(torch.load(
-                os.path.join(self.out, f"server_params{x}.pt")))
-        self.records = [json.load(open(os.path.join(self.out,
-                                                    f"worker{w}.json")))
-                        for w in range(self.workers)]
+        self.infos, self.final, self.records = _van_dumps(
+            self.out, self.workers, self.shards)
         return self
+
+
+def _van_dumps(out, workers, shards=None, server_out=None):
+    """The dumps of a run of the trainer: (the servers' records, their
+    final params merged, the workers' records). The servers dumped into
+    ``server_out`` (default ``out``), the workers into ``out``."""
+    server_out = server_out or out
+    sfx = [""] if not shards else [str(s) for s in range(shards)]
+    infos = [json.load(open(os.path.join(server_out, f"server{x}.json")))
+             for x in sfx]
+    final = {}
+    for x in sfx:
+        final.update(torch.load(
+            os.path.join(server_out, f"server_params{x}.pt")))
+    records = [json.load(open(os.path.join(out, f"worker{w}.json")))
+               for w in range(workers)]
+    return infos, final, records
 
 
 def _van_harness():
@@ -3169,7 +3215,7 @@ def _van_harness():
     return mod
 
 
-def _van_replay_check(run, what):
+def _van_replay_check(infos, final, records, workers, steps, what):
     """The servers' event logs replayed through one-process servers, every
     gradient recomputed from what its worker pulled: on the card, bitwise
     the servers' final parameters. A witness replays in lockstep on the
@@ -3183,26 +3229,26 @@ def _van_replay_check(run, what):
     its own trajectory is printed, not held: its gradients feed back its
     own rounding through every stale apply."""
     harness = _van_harness()
-    logs = [i["event_log"] for i in run.infos]
-    total = run.workers * run.steps
-    for info in run.infos:
+    logs = [i["event_log"] for i in infos]
+    total = workers * steps
+    for info in infos:
         if info["version"] != total or sum(
                 info["staleness_hist"].values()) != total:
             raise AssertionError(f"{what}: server version "
                                  f"{info['version']}, histogram "
                                  f"{info['staleness_hist']}; {total} pushes "
                                  f"were sent")
-    on_card, witness, grad_err = harness.replay(logs, run.workers, "cuda",
+    on_card, witness, grad_err = harness.replay(logs, workers, "cuda",
                                                 witness="cpu")
-    free = harness.replay(logs, run.workers, "cpu")
-    if sorted(on_card) != sorted(run.final):
+    free = harness.replay(logs, workers, "cpu")
+    if sorted(on_card) != sorted(final):
         raise AssertionError(f"{what}: replayed keys differ")
     if grad_err["witness"] > VAN_GRAD_RTOL:
         raise AssertionError(f"{what}: a gradient tree recomputed on the CPU "
                              f"is {grad_err['witness']:.3g} off the card's, "
                              f"past {VAN_GRAD_RTOL} ({grad_err})")
     worst, drift = 0.0, 0.0
-    for k, v in run.final.items():
+    for k, v in final.items():
         if not torch.equal(on_card[k].cpu(), v):
             raise AssertionError(f"{what}: {k} replayed on the card is not "
                                  f"bitwise the servers' final value")
@@ -3211,13 +3257,13 @@ def _van_replay_check(run, what):
                                    err_msg=f"{what}: {k} on the CPU")
         worst = max(worst, float((witness[k] - v).abs().max()))
         drift = max(drift, float((free[k] - v).abs().max()))
-    losses = [r["losses"] for r in run.records]
+    losses = [r["losses"] for r in records]
     if not all(np.all(np.isfinite(x)) for x in losses):
         raise AssertionError(f"{what}: non-finite loss")
     # printed, not held: at the trainer's defaults (lr 0.1, τ mostly 2)
     # async DC-ASGD does not reliably lower the loss within 60 cycles a
     # worker, in one process either
-    first, last = _van_eval_losses(run.final)
+    first, last = _van_eval_losses(final)
     return {"grad_err": grad_err, "cpu_err": worst, "free_drift": drift,
             "loss": (first, last)}
 
@@ -3562,7 +3608,8 @@ def phase_van(tmp):
     # (a) one server, three workers, the reference trainer's defaults
     a = _VanRun(os.path.join(tmp, "a"), ASYNC_WORKERS, ASYNC_CYCLES).start()
     a.finish()
-    ra = _van_replay_check(a, "van (a)")
+    ra = _van_replay_check(a.infos, a.final, a.records, a.workers, a.steps,
+                           "van (a)")
     # printed, not held: the workers start when their processes do, so
     # how much their cycles overlap is up to the machine (the CPU tests
     # hold real staleness behind a start barrier)
@@ -3620,7 +3667,8 @@ def phase_van(tmp):
     if failure is not None:
         raise failure
     b = runs["b"]
-    rb = _van_replay_check(b, "van (b)")
+    rb = _van_replay_check(b.infos, b.final, b.records, b.workers, b.steps,
+                           "van (b)")
     keys = [set(i["keys"]) for i in b.infos]
     if keys[0] & keys[1] or sorted(keys[0] | keys[1]) != sorted(b.final):
         raise AssertionError(f"van (b): the partition is not disjoint and "
@@ -5060,6 +5108,596 @@ def phase_transport(tmp, tcp_sparse=None, tcp_config5=None):
             "config5": c5, "bert_like": bert, "pushed": pushed}
 
 
+# phase 20: replication and live failover on the card (replica/, item 5.6).
+# (a) phase 17 (a)'s sparse PS with each shard a primary process and a
+# backup=True process, attached with sync ack, the workers dialling the
+# replica sets; (b) config 5 through the trainer's replication flags; (c)
+# (a) with async ack and a window of REPL_WINDOW; (d) times, printed
+REPL_PAUSE_AT = 30          # (a): cycles before the pause, the checks, the kill
+REPL_WATCH_MS = 1000        # the backups' death horizon (PromotionWatch)
+REPL_WINDOW = 8             # (c): the async ack window
+REPL_CONFIG5_STEPS, REPL_CONFIG5_KILL = 60, 30  # (b)
+
+
+class _Lines:
+    """A process's output read line by line on a thread of its own (its
+    pipe never fills), with :meth:`wait_for` a line that matches."""
+
+    def __init__(self, proc):
+        import threading
+
+        self.proc, self.lines = proc, []
+        self._t = threading.Thread(target=self._read, daemon=True)
+        self._t.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line)
+
+    def wait_for(self, pattern, timeout=VAN_TIMEOUT_S):
+        import re
+
+        deadline = time.monotonic() + timeout
+        seen = 0
+        while time.monotonic() < deadline:
+            for line in self.lines[seen:]:
+                if re.search(pattern, line):
+                    return line
+            seen = len(self.lines)
+            if self.proc.poll() is not None and not self._t.is_alive():
+                break
+            time.sleep(0.002)
+        raise AssertionError(f"{' '.join(self.proc.args[3:9])}: no line "
+                             f"{pattern!r} (exit {self.proc.poll()}):\n"
+                             f"{self.text()[-3000:]}")
+
+    def finish(self, timeout=VAN_TIMEOUT_S):
+        self.proc.wait(timeout=timeout)
+        self._t.join(timeout=30)
+        return self.text()
+
+    def text(self):
+        return "".join(self.lines)
+
+
+def _wait_files(paths, procs, timeout=SPARSE_TIMEOUT_S):
+    """Until every path exists; raises at once if a process died."""
+    deadline = time.monotonic() + timeout
+    while not all(os.path.exists(p) for p in paths):
+        for p in procs:
+            if p.poll() not in (None, 0):
+                out = p.communicate()[0] if p.stdout else ""
+                raise AssertionError(f"{' '.join(p.args[-10:])} exited "
+                                     f"{p.returncode}:\n{out[-3000:]}")
+        if time.monotonic() > deadline:
+            raise AssertionError(f"never appeared: {paths}")
+        time.sleep(0.005)
+
+
+def _repl_spawn(harness, out, ack, window, worker_opts, loop=False):
+    """Phase 17 (a)'s processes, each shard a primary and a backup: the
+    backups first (each with its PromotionWatch), the primaries attach
+    them and beat their watches, the workers dial the replica sets. With
+    ``loop`` every server serves on the native loop and worker 0 dials
+    over the rings (the others over TCP)."""
+    os.makedirs(out)
+    watch = [harness.free_port(harness.socket.SOCK_DGRAM)
+             for _ in range(SPARSE_SHARDS)]
+    spawn = lambda s, opts: harness.spawn(  # noqa: E731
+        "sparse-server", out, SPARSE_WORKERS, SPARSE_CYCLES, s,
+        SPARSE_SHARDS, "cuda", "wd",
+        json.dumps(dict(opts, native_loop=loop, digests=True)))
+    backups = [spawn(s, {"backup": True, "watch_port": watch[s],
+                         "watch_timeout_ms": REPL_WATCH_MS})
+               for s in range(SPARSE_SHARDS)]
+    primaries = [spawn(s, {"replicate": True, "ack": ack, "window": window,
+                           "watch_port": watch[s]})
+                 for s in range(SPARSE_SHARDS)]
+    workers = [harness.spawn("sparse-worker", f"@{SPARSE_SHARDS}", out, w,
+                             SPARSE_CYCLES, "cuda", "wd",
+                             SPARSE_WORKERS, 0,
+                             json.dumps(dict(worker_opts, replicas=True,
+                                             shm=loop and w == 0)))
+               for w in range(SPARSE_WORKERS)]
+    return backups, primaries, workers
+
+
+def _repl_finish(harness, out, procs, killed, what):
+    """Wait for the workers and the live servers; release the backups that
+    were never promoted; read the dumps: (servers {name: info}, worker
+    records)."""
+    import signal
+
+    backups, primaries, workers = procs
+    alive = [p for p in primaries if p not in killed]
+    outs = harness.finish(workers, SPARSE_TIMEOUT_S, fail_fast=True)
+    for p, o in zip(workers, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"{what}: worker exited {p.returncode}:\n"
+                                 f"{o[-3000:]}")
+    with open(os.path.join(out, "done"), "w") as f:
+        f.write("1")
+    outs = harness.finish(alive + backups, SPARSE_TIMEOUT_S)
+    for p, o in zip(alive + backups, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"{what}: {' '.join(p.args[-8:])} exited "
+                                 f"{p.returncode}:\n{o[-3000:]}")
+    for p in killed:
+        if p.returncode != -signal.SIGKILL:
+            raise AssertionError(f"{what}: the killed primary exited "
+                                 f"{p.returncode}")
+    infos = {}
+    for s in range(SPARSE_SHARDS):
+        for tag in ("", "b"):
+            path = os.path.join(out, f"sparse_server{s}{tag}.json")
+            if os.path.exists(path):
+                infos[f"{s}{tag}"] = json.load(open(path))
+    records = [json.load(open(os.path.join(out, f"sparse_worker{w}.json")))
+               for w in range(SPARSE_WORKERS)]
+    return infos, records
+
+
+def _repl_replay_digests(harness, infos, by_cycle=False):
+    """The dumps' logs replayed through the port's tables on the card
+    (``ps_tpu_torch.init`` made by the caller): each shard's digests."""
+    tables, _ = harness.sparse_replay(infos, "wd", SPARSE_WORKERS,
+                                      SPARSE_CYCLES, by_cycle=by_cycle)
+    return [harness.table_digests(t) for t in tables], tables
+
+
+def _repl_launch_check(snap, what):
+    """A backup launched 2 grouping (cluster path) + 2 apply kernels for
+    each replicated push, one of each rule."""
+    n = snap["applies"]
+    got = snap["launches"]
+    if n == 0 or (got["apply"], got["group"], got["by_rule"]) != (
+            2 * n, 2 * n, {"adagrad": n, "sgd": n}):
+        raise AssertionError(f"{what}: a backup launched {got} for {n} "
+                             f"replicated pushes")
+
+
+def _repl_window_numbers(records, last_cycle, before=None):
+    """Cycles/s, the median cycle and the median push over each worker's
+    cycles 1..last_cycle-1 (or those that ended before ``before`` on the
+    host's monotonic clock), over one shared window (phase 17 (f)'s
+    method)."""
+    cycles, pushes, start, end = [], [], None, None
+    for r in records:
+        for c in range(1, last_cycle):
+            t0, dt = r["starts"][c], r["cycle_s"][c]
+            if before is not None and t0 + dt > before:
+                break
+            cycles.append(dt)
+            start = t0 if start is None else min(start, t0)
+            end = t0 + dt if end is None else max(end, t0 + dt)
+        # even cycles pull then push: the push samples are in cycle order
+        pushes += r["ops"]["push"][1:last_cycle // 2]
+    return {"cycles_per_s": len(cycles) / (end - start),
+            "cycles": len(cycles),
+            "median_cycle_ms": float(np.median(cycles)) * 1e3,
+            "push_ms": float(np.median(pushes)) * 1e3}
+
+
+def _repl_pause_check(out, everyone, what):
+    """At the workers' pause (``pause_at``): every server's snapshot; each
+    backup's tables and row state bitwise its primary's, and its kernel
+    launches those of the pushes it applied. Returns the snapshots."""
+    _wait_files([os.path.join(out, f"paused{w}")
+                 for w in range(SPARSE_WORKERS)], everyone)
+    with open(os.path.join(out, "snap"), "w") as f:
+        f.write("1")
+    snaps = [f"snap{s}{tag}.json" for s in range(SPARSE_SHARDS)
+             for tag in ("", "b")]
+    _wait_files([os.path.join(out, x) for x in snaps], everyone)
+    snap = {x[4:-5]: json.load(open(os.path.join(out, x))) for x in snaps}
+    for s in range(SPARSE_SHARDS):
+        p, b = snap[str(s)], snap[f"{s}b"]
+        if (b["role"], p["role"]) != ("backup", "primary") or \
+                p["digests"] != b["digests"] or \
+                p["versions"] != b["versions"] or \
+                p["applies"] != b["applies"] or p["applies"] == 0:
+            raise AssertionError(
+                f"{what}: after {REPL_PAUSE_AT} cycles shard {s}'s backup "
+                f"is not its primary bitwise: {p} against {b}")
+        _repl_launch_check(b, f"{what}: shard {s}")
+    return snap
+
+
+def _repl_sparse_sync(harness, tmp):
+    """(a): sync ack; the pause, the bitwise and launch checks, the kill,
+    the failover; the promoted backup's log replayed bitwise."""
+    import signal
+
+    import ps_tpu_torch as ps
+
+    out = os.path.join(tmp, "a")
+    procs = _repl_spawn(harness, out, "sync", 256,
+                        {"pause_at": REPL_PAUSE_AT})
+    backups, primaries, workers = procs
+    everyone = backups + primaries + workers
+    try:
+        snap = _repl_pause_check(out, everyone, "repl (a)")
+        t_kill = time.perf_counter()
+        primaries[0].send_signal(signal.SIGKILL)
+        primaries[0].wait(timeout=30)
+        with open(os.path.join(out, "resume"), "w") as f:
+            f.write("1")
+        infos, records = _repl_finish(harness, out, procs, [primaries[0]],
+                                      "repl (a)")
+    finally:
+        harness.kill_all(everyone)
+    b0, p1, b1 = infos["0b"], infos["1"], infos["1b"]
+    rep = b0["replica"]
+    if (rep["role"], rep.get("promote_reason"), rep["epoch"]) != (
+            "primary", "timeout", 1):
+        raise AssertionError(f"repl (a): backup 0 did not promote on the "
+                             f"timeout: {rep}")
+    for s, info in ((0, b0), (1, p1)):
+        seen = [tuple(x) for x in info["applied"]]
+        if len(seen) != info["expected"] or len(set(seen)) != len(seen):
+            raise AssertionError(
+                f"repl (a): shard {s} applied {len(seen)} pushes "
+                f"({len(seen) - len(set(seen))} twice), {info['expected']} "
+                f"were sent")
+    if b1["digests"] != p1["digests"]:
+        raise AssertionError("repl (a): shard 1's backup differs from its "
+                             "primary at the end")
+    if any(r["failovers"] < 1 or r["epochs"][0] != 1 for r in records):
+        raise AssertionError(f"repl (a): workers' failovers "
+                             f"{[r['failovers'] for r in records]}, epochs "
+                             f"{[r['epochs'] for r in records]}")
+    ps.init(backend="cuda")
+    try:
+        digests, _ = _repl_replay_digests(harness, [b0, p1])
+    finally:
+        ps.shutdown()
+    for s, (got, info) in enumerate(zip(digests, (b0, p1))):
+        if got != info["digests"]:
+            raise AssertionError(f"repl (a): shard {s}'s log replayed on the "
+                                 f"card is not bitwise its tables")
+    return {"snap": snap, "b0": b0, "p1": p1, "records": records,
+            "t_kill": t_kill,
+            "numbers": _repl_window_numbers(records, REPL_PAUSE_AT)}
+
+
+def _repl_sparse_loop(harness, tmp):
+    """(a) on the native loop, not killed: every server on the loop,
+    worker 0 over the rings. At the pause each backup is bitwise its
+    primary; at the end too, having applied the same pushes in the same
+    order, and promoted on its primary's goodbye if at all, never on the
+    timeout; each primary's pump dispatched exactly the TCP workers'
+    pushes (a commit waiting for the sync ack on a thread of its own)."""
+    out = os.path.join(tmp, "a-loop")
+    procs = _repl_spawn(harness, out, "sync", 256,
+                        {"pause_at": REPL_PAUSE_AT}, loop=True)
+    everyone = sum(procs, [])
+    try:
+        snap = _repl_pause_check(out, everyone, "repl (a), loop")
+        with open(os.path.join(out, "resume"), "w") as f:
+            f.write("1")
+        infos, records = _repl_finish(harness, out, procs, [],
+                                      "repl (a), loop")
+    finally:
+        harness.kill_all(everyone)
+    harness.check_loop_carried(
+        [infos[str(s)] for s in range(SPARSE_SHARDS)],
+        [{"shm": w == 0} for w in range(SPARSE_WORKERS)], "wd",
+        SPARSE_CYCLES, "repl (a), loop")
+    for s in range(SPARSE_SHARDS):
+        p, b = infos[str(s)], infos[f"{s}b"]
+        seen = [tuple(x) for x in p["applied"]]
+        if not (b["native_loop"] and b["upcalls"] > 0
+                and b["replica"].get("promote_reason") in (None, "goodbye")
+                and p["digests"] == b["digests"]
+                and p["applied"] == b["applied"]
+                and len(seen) == len(set(seen)) == p["expected"]):
+            raise AssertionError(
+                f"repl (a), loop: shard {s}'s backup (on the loop "
+                f"{b['native_loop']}, {b['upcalls']} upcalls, "
+                f"{b['replica']}) is not its primary bitwise at the end, or "
+                f"the pushes differ: "
+                f"{len(p['applied'])} / {len(b['applied'])} applied of "
+                f"{p['expected']}")
+    if records[0]["shm_frames"] == 0 or any(
+            r["shm_frames"] for r in records[1:]):
+        raise AssertionError(f"repl (a), loop: ring frames "
+                             f"{[r['shm_frames'] for r in records]}")
+    return {"snap": snap, "infos": infos, "records": records,
+            "numbers": _repl_window_numbers(records, REPL_PAUSE_AT)}
+
+
+def _repl_sparse_async(harness, tmp):
+    """(c): async ack, window REPL_WINDOW, the kill mid-traffic (when
+    worker 0 finished cycle REPL_PAUSE_AT): the lag within the window, the
+    run goes on, the promoted tables are a bitwise replay of what it
+    applied, at most the window's pushes short of all of them."""
+    import signal
+
+    import ps_tpu_torch as ps
+
+    out = os.path.join(tmp, "c")
+    procs = _repl_spawn(harness, out, "async", REPL_WINDOW,
+                        {"cue_at": REPL_PAUSE_AT})
+    backups, primaries, workers = procs
+    everyone = backups + primaries + workers
+    try:
+        _wait_files([os.path.join(out, "cue0")], everyone)
+        t_kill = time.perf_counter()
+        primaries[0].send_signal(signal.SIGKILL)
+        primaries[0].wait(timeout=30)
+        infos, records = _repl_finish(harness, out, procs, [primaries[0]],
+                                      "repl (c)")
+    finally:
+        harness.kill_all(everyone)
+    b0, p1, b1 = infos["0b"], infos["1"], infos["1b"]
+    if (b0["replica"]["role"], b0["replica"].get("promote_reason")) != (
+            "primary", "timeout"):
+        raise AssertionError(f"repl (c): backup 0: {b0['replica']}")
+    lag = p1["lag"]
+    if not 0 <= lag["max"] <= REPL_WINDOW or lag["samples"] == 0:
+        raise AssertionError(f"repl (c): shard 1's backup lagged "
+                             f"{lag['max']} commits (window {REPL_WINDOW})")
+    seen = [tuple(x) for x in b0["applied"]]
+    lost = b0["expected"] - len(seen)
+    if len(set(seen)) != len(seen) or not 0 <= lost <= REPL_WINDOW:
+        raise AssertionError(f"repl (c): the promoted backup applied "
+                             f"{len(seen)} pushes ({len(seen) - len(set(seen))}"
+                             f" twice) of {b0['expected']}")
+    if b1["digests"] != p1["digests"] or \
+            len(p1["applied"]) != p1["expected"]:
+        raise AssertionError("repl (c): shard 1's backup differs from its "
+                             "primary at the end")
+    # the unkilled replay: what the promoted backup applied, then the pushes
+    # of the window it never received
+    sent = {(w, c) for w in range(SPARSE_WORKERS)
+            for c in range(SPARSE_CYCLES)
+            if harness._routed("wd", w, c,
+                               harness.sparse_ids("wd", w, c + 1)[c],
+                               0, SPARSE_SHARDS)}
+    missing = sorted(sent - set(seen))
+    ps.init(backend="cuda")
+    try:
+        digests, tables = _repl_replay_digests(harness, [b0, p1],
+                                               by_cycle=True)
+        if digests[0] != b0["digests"] or digests[1] != p1["digests"]:
+            raise AssertionError("repl (c): the logs replayed on the card "
+                                 "are not bitwise the tables")
+        full, _ = harness.sparse_replay(
+            [dict(b0, applied=list(b0["applied"]) + [list(m)
+                                                     for m in missing],
+                  versions={n: v + len(missing)
+                            for n, v in b0["versions"].items()}), p1],
+            "wd", SPARSE_WORKERS, SPARSE_CYCLES, by_cycle=True)
+        diff = max(float((tables[0][n].table - full[0][n].table).abs().max())
+                   for n in tables[0])
+    finally:
+        ps.shutdown()
+    return {"lag": lag, "lost": lost, "missing": missing, "diff": diff,
+            "b0": b0, "p1": p1, "records": records, "t_kill": t_kill,
+            "numbers": _repl_window_numbers(records, SPARSE_CYCLES,
+                                            before=t_kill)}
+
+
+def _repl_config5_run(harness, out, workers, kill, steps=REPL_CONFIG5_STEPS):
+    """One config-5 topology through the trainer: a --backup server with a
+    watch, a primary replicating to it (sync ack) and beating the watch,
+    ``workers`` workers on the replica set. With ``kill`` the primary is
+    SIGKILLed once worker 0 logged cycle REPL_CONFIG5_KILL. Returns the
+    surviving server's record and params, the workers' records, and the
+    kill time."""
+    import signal
+
+    os.makedirs(out)
+    for d in ("primary", "backup"):
+        os.makedirs(os.path.join(out, d))
+    pp, pb = _distinct_ports(2)
+    watch = harness.free_port(harness.socket.SOCK_DGRAM)
+    env = {"PYTHONUNBUFFERED": "1"}
+    common = ["--num-workers", workers]
+    backup = _Lines(_spawn_trainer(
+        "--role", "server", "--port", pb, "--backup", "--watch-port", watch,
+        "--dump", os.path.join(out, "backup"), *common, env_extra=env))
+    procs = [backup.proc]
+    t_kill = None
+    try:
+        backup.wait_for("BACKUP on port")
+        primary = _Lines(_spawn_trainer(
+            "--role", "server", "--port", pp, "--replicate-to",
+            f"127.0.0.1:{pb}", "--beat", f"127.0.0.1:{watch}",
+            "--dump", os.path.join(out, "primary"), *common, env_extra=env))
+        procs.append(primary.proc)
+        primary.wait_for("replicating to")  # attached: workers may come
+        uri = f"127.0.0.1:{pp}|127.0.0.1:{pb}"
+        ws = [_Lines(_spawn_trainer(
+            "--role", "worker", "--server", uri, "--worker-id", w,
+            "--steps", steps, "--dump", out, env_extra=env))
+            for w in range(workers)]
+        procs += [w.proc for w in ws]
+        if kill:
+            ws[0].wait_for(rf"^step\s+{REPL_CONFIG5_KILL}\s")
+            t_kill = time.perf_counter()
+            primary.proc.send_signal(signal.SIGKILL)
+            primary.proc.wait(timeout=30)
+        for w in ws:
+            text = w.finish()
+            if w.proc.returncode != 0:
+                raise AssertionError(f"repl (b): a worker exited "
+                                     f"{w.proc.returncode}:\n{text[-3000:]}")
+        if kill:
+            # a worker that finished before the kill said its goodbye to
+            # the dead primary (goodbyes are not replicated): say it again
+            # to the promoted backup, which waits for every worker's
+            from ps_tpu_torch.control import tensor_van as tv
+
+            for w in range(workers):
+                rec = json.load(open(os.path.join(out, f"worker{w}.json")))
+                if rec["failovers"] == 0:
+                    with tv.Channel.connect("127.0.0.1", pb) as ch:
+                        ch.request(tv.encode(tv.SHUTDOWN, w, None))
+        survivor = backup if kill else primary
+        text = survivor.finish()
+        if survivor.proc.returncode != 0:
+            raise AssertionError(f"repl (b): the server exited "
+                                 f"{survivor.proc.returncode}:\n"
+                                 f"{text[-3000:]}")
+        promoted = (backup.wait_for("now serving workers") if kill
+                    else None)
+    finally:
+        _stop_all(procs)
+    infos, final, records = _van_dumps(
+        out, workers, server_out=os.path.join(out, "backup" if kill
+                                              else "primary"))
+    return {"info": infos[0], "final": final, "records": records,
+            "t_kill": t_kill, "promoted": promoted}
+
+
+def _repl_config5(harness, tmp):
+    """(b): one worker killed at cycle 30 of 60 against an unkilled run,
+    bitwise (losses, the final params); three workers, the promoted
+    backup's event log replayed bitwise."""
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        runs = [pool.submit(_repl_config5_run, harness,
+                            os.path.join(tmp, name), n, kill)
+                for name, n, kill in (("b1", 1, False), ("b1k", 1, True),
+                                      ("b3k", 3, True))]
+        ref, drill, three = [r.result() for r in runs]
+    for run in (drill, three):
+        rep = run["info"]["replica"]
+        if (rep["role"], rep.get("promote_reason"), rep["epoch"]) != (
+                "primary", "timeout", 1):
+            raise AssertionError(f"repl (b): the backup did not promote on "
+                                 f"the timeout: {rep}")
+    r0, d0 = ref["records"][0], drill["records"][0]
+    # the one worker fails over; of three, a worker done before the kill
+    # never meets the dead primary, but one at least does
+    if d0["failovers"] < 1 or not any(r["failovers"] >= 1
+                                      for r in three["records"]):
+        raise AssertionError("repl (b): no worker of a killed run failed "
+                             "over")
+    if r0["losses"] != d0["losses"]:
+        raise AssertionError("repl (b): the killed run's losses are not "
+                             "bitwise the unkilled run's")
+    for k, v in ref["final"].items():
+        if not torch.equal(drill["final"][k], v):
+            raise AssertionError(f"repl (b): {k} after the failover is not "
+                                 f"bitwise the unkilled run's")
+    if drill["info"]["version"] != REPL_CONFIG5_STEPS:
+        raise AssertionError(f"repl (b): the promoted backup's version "
+                             f"{drill['info']['version']}")
+    checked = _van_replay_check([three["info"]], three["final"],
+                                three["records"], 3, REPL_CONFIG5_STEPS,
+                                "repl (b), 3 workers")
+    return {"drill": drill, "three": three, "checked": checked}
+
+
+def phase_replication(tmp, unreplicated=None):
+    """20: replication and live failover on the card."""
+    from ps_tpu_torch.ops import _build
+
+    _build.build(("sparse_group", "sparse_apply"))  # cached after phase 2
+    harness = _van_harness()
+    card = _card_line()
+    t_phase = time.perf_counter()
+    a = _repl_sparse_sync(harness, tmp)
+    t_a = time.perf_counter() - t_phase
+    b0 = a["b0"]
+    log(f"repl (a): {SPARSE_SHARDS} shards x (a serve_sparse primary + a "
+        f"backup=True process, sync ack, W&D's deep [1,300,000, 16] adagrad "
+        f"and wide [1,300,000, 1] sgd on the card), {SPARSE_WORKERS} "
+        f"connect_sparse workers on the replica sets x {SPARSE_CYCLES} "
+        f"cycles: after {REPL_PAUSE_AT} cycles each backup's tables and row "
+        f"state bitwise its primary's (SHA-256), replicated pushes "
+        f"{[a['snap'][f'{s}b']['applies'] for s in range(SPARSE_SHARDS)]}, "
+        f"each 2 grouping + 2 apply launches in the backup's process; "
+        f"primary 0 SIGKILLed: backup 0 promoted (reason "
+        f"{b0['replica']['promote_reason']}, epoch {b0['replica']['epoch']}"
+        f"), every worker finished ({[r['failovers'] for r in a['records']]}"
+        f" failovers), each push applied once ({b0['expected']} / "
+        f"{a['p1']['expected']}), the promoted log replayed on the card "
+        f"bitwise its tables; {t_a:.1f} s")
+    t0 = time.perf_counter()
+    lp = _repl_sparse_loop(harness, tmp)
+    t_loop = time.perf_counter() - t0
+    pumped = [lp["infos"][str(s)]["loop_pushes"] for s in range(SPARSE_SHARDS)]
+    log(f"repl (a), loop: (a) unkilled with every primary and backup on the "
+        f"native loop and worker 0 over the rings: after {REPL_PAUSE_AT} "
+        f"cycles each backup bitwise its primary, replicated pushes "
+        f"{[lp['snap'][f'{s}b']['applies'] for s in range(SPARSE_SHARDS)]}, "
+        f"2 + 2 launches each; at the end each backup bitwise its primary "
+        f"and the same pushes in the same order; the pumps dispatched "
+        f"{pumped} pushes, exactly the TCP workers'; "
+        f"{lp['records'][0]['shm_frames']} ring frames; {t_loop:.1f} s")
+    t_a += t_loop
+    b = _repl_config5(harness, tmp)
+    t_b = time.perf_counter() - t_phase - t_a
+    ch = b["checked"]
+    log(f"repl (b): config 5 through train_mnist_async.py --replicate-to/"
+        f"--beat and --backup --watch-port (MLP hidden 32, batch 64, lr 0.1,"
+        f" dc_lambda 0.04, sync ack): one worker, the primary SIGKILLed "
+        f"after cycle {REPL_CONFIG5_KILL} of {REPL_CONFIG5_STEPS}: losses "
+        f"and final params bitwise an unkilled run's "
+        f"({b['drill']['promoted'].strip()}); three workers killed the same "
+        f"way: the promoted backup's event log replayed on the card bitwise "
+        f"its params, the CPU witness's gradients "
+        f"{ch['grad_err']['witness']:.3g} off (bound {VAN_GRAD_RTOL}); "
+        f"{t_b:.1f} s")
+    c = _repl_sparse_async(harness, tmp)
+    t_c = time.perf_counter() - t_phase - t_a - t_b
+    log(f"repl (c): (a) with ack='async', window {REPL_WINDOW}, primary 0 "
+        f"SIGKILLed mid-traffic (worker 0 past cycle {REPL_PAUSE_AT}): "
+        f"shard 1's backup lag at most {c['lag']['max']} ({c['lag']['samples']}"
+        f" samples, bound {REPL_WINDOW}); the run went on; the promoted "
+        f"backup applied {len(c['b0']['applied'])} of "
+        f"{c['b0']['expected']} pushes, none twice: {c['lost']} lost in the "
+        f"window (bound {REPL_WINDOW}), its tables bitwise the replay of "
+        f"what it applied and {c['diff']:.6g} (max abs) from the unkilled "
+        f"replay that adds the lost pushes; {t_c:.1f} s")
+    # (d) printed, not held
+    u = unreplicated or {}
+    sa, sc, sl = a["numbers"], c["numbers"], lp["numbers"]
+    p1a, p1c = a["p1"], c["p1"]
+
+    def per_push(info):
+        return info["repl_bytes"] / max(info["repl_entries"], 1)
+
+    def kill_to_promote(run):
+        return (run["b0"]["promoted_at"] - run["t_kill"]) * 1e3
+
+    fo = sum((r["failover_s"] for r in a["records"] + c["records"]), [])
+    fo5 = sum((r["failover_s"] for r in b["drill"]["records"]
+               + b["three"]["records"]), [])
+    wait = 1e3 * float(np.median(p1a["repl_ack_wait_s"]))
+    log(f"repl (d): sparse cycles/s unreplicated {u.get('cycles_per_s', 0):.1f}"
+        f" (phase 17), sync ack {sa['cycles_per_s']:.1f}, async ack "
+        f"{sc['cycles_per_s']:.1f}, sync ack on the loop with a ring worker "
+        f"{sl['cycles_per_s']:.1f}; median push unreplicated "
+        f"{u.get('ops_ms', {}).get('push', 0):.4f} ms, sync "
+        f"{sa['push_ms']:.4f}, async {sc['push_ms']:.4f}, loop "
+        f"{sl['push_ms']:.4f}; median cycle sync {sa['median_cycle_ms']:.4f}"
+        f", async {sc['median_cycle_ms']:.4f}, loop "
+        f"{sl['median_cycle_ms']:.4f} ms; the sync ack's median wait "
+        f"{wait:.4f} ms; stream bytes a push {per_push(p1a):.0f} (sync) / "
+        f"{per_push(p1c):.0f} (async); kill to promotion "
+        f"{kill_to_promote(a):.1f} / {kill_to_promote(c):.1f} ms (the last "
+        f"beat {b0['detect_age_ms']} ms old at detection, horizon "
+        f"{REPL_WATCH_MS}; the flip {b0['replica']['promotion_s'] * 1e3:.3f}"
+        f" ms); workers' failover median {1e3 * float(np.median(fo)):.1f} ms"
+        f", max {1e3 * max(fo):.1f} ms ({len(fo)} re-routes; config 5: "
+        f"median {1e3 * float(np.median(fo5)):.1f} ms of {len(fo5)}); "
+        f"card {card}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    launches = {"sparse_apply/deep": 0, "sparse_apply/wide": 0,
+                "sparse_group": 0}
+    for got in (snap[f"{s}b"]["launches"] for snap in (a["snap"], lp["snap"])
+                for s in range(SPARSE_SHARDS)):
+        launches["sparse_apply/deep"] += got["by_rule"]["adagrad"]
+        launches["sparse_apply/wide"] += got["by_rule"]["sgd"]
+        launches["sparse_group"] += got["group"]
+    return {"launches": launches}
+
+
 def main():
     if len(sys.argv) == 5 and sys.argv[1] == "--two-ranks-worker":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -5122,6 +5760,8 @@ def main():
     with tempfile.TemporaryDirectory(prefix="ps_transport_") as tmp:
         transport = phase_transport(tmp, tcp_sparse=sparse["numbers"],
                                     tcp_config5=van["mnist"])
+    with tempfile.TemporaryDirectory(prefix="ps_replica_") as tmp:
+        replication = phase_replication(tmp, unreplicated=sparse["numbers"])
     for e in entries:  # each rank's launches in phase 15's 20-step runs
         if e["name"] == "flash_attention/fwd":
             # each rank's launches over phase 15 (e)'s bf16 steps, and the
@@ -5143,6 +5783,10 @@ def main():
             # kernel's time at a server shard's shape
             e["launches_sparse_ps"] = sparse["launches"][e["name"]]
             e["launches_transport"] = transport["launches"][e["name"]]
+            # phase 20 (a): the backups' launches for the replicated
+            # pushes, in their own processes
+            e["launches_replication_backups"] = \
+                replication["launches"][e["name"]]
             part = sparse["shard"][e["name"].split("/")[-1]
                                    if "/" in e["name"] else "group"]
             e["sparse_ps_shard"] = {"ids": sparse["shard"]["ids"],

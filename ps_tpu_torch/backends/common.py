@@ -13,8 +13,11 @@ thread) and ``BucketedTransportMixin`` (the worker side of the bucketed,
 pipelined transport, with the gradient codecs and the same-host
 shared-memory lane offer), plus the staging of tensors between the card
 and pinned host memory (``stage_to_host``, ``stage_to_device``), which
-every CUDA tensor crossing the van takes. Replica sets and their failover
-are not ported yet (ROADMAP Queue 1 item 5.6): a replica list raises.
+every CUDA tensor crossing the van takes, and the worker half of
+replication: ``parse_replica_uri`` (``|``-separated replica sets a
+shard) and the failover loop of ``BucketedTransportMixin``
+(``_with_failover``), which re-routes a failed shard to a serving member
+and retries the whole operation.
 
 Every apply here is out of place: it clones the parameter, updates the
 clone and puts it in the server's dict, so a tensor a worker pulled (and
@@ -211,32 +214,41 @@ class AsyncStagingMixin:
 
 
 class ServerFailureError(RuntimeError):
-    """A remote PS server died mid-job (its connection failed).
+    """A remote PS server died mid-job (its connection failed) or refused
+    as not serving (an unpromoted backup, a fenced zombie).
 
     ``server`` (when known) is the failed server's index into the worker's
-    address list."""
+    address list: what the failover loop re-routes."""
 
     def __init__(self, message: str, server: Optional[int] = None):
         super().__init__(message)
         self.server = server
 
 
+class BackupNotServing(Exception):
+    """A replica answered HELLO but is an unpromoted backup: retryable
+    (the failover loop waits out the promotion)."""
+
+
+class ReplicaRejected(Exception):
+    """A replica answered HELLO but failed validation (a stale epoch, a
+    mismatched topology): skipped, the loop keeps cycling the set."""
+
+
 def parse_replica_uri(uri: str):
-    """``"h0:p0,h1:p1"`` -> ``(addresses, replica_sets)``: commas separate
-    shards, each a singleton set (no failover). The reference also takes
-    ``|``-separated replica sets; replication is not ported yet, so one
-    raises."""
+    """``"h0:p0|b0:q0,h1:p1|b1:q1"`` -> ``(primaries, replica_sets)``.
+
+    Commas separate shards; ``|`` separates the members of one shard's
+    replica set, the preferred (primary) first. A plain ``host:port`` list
+    parses to singleton sets: no failover."""
     primaries, sets = [], []
     for part in uri.split(","):
-        members = part.strip().split("|")
-        if len(members) > 1:
-            raise NotImplementedError(
-                f"replica sets ({part.strip()!r}) need shard replication "
-                f"(replica/), which is not ported yet (ROADMAP Queue 1 "
-                f"item 5.6)")
-        host, port = members[0].strip().rsplit(":", 1)
-        primaries.append((host, int(port)))
-        sets.append([(host, int(port))])
+        cands = []
+        for member in part.strip().split("|"):
+            host, port = member.strip().rsplit(":", 1)
+            cands.append((host, int(port)))
+        primaries.append(cands[0])
+        sets.append(cands)
     return primaries, sets
 
 
@@ -740,8 +752,10 @@ class BucketedTransportMixin:
         return self._push_seq
 
     def _reply_error(self, i: int, extra: dict) -> BaseException:
-        """The error of an ERR reply: a 'not serving' refusal is the
-        retryable server failure, anything else an application error."""
+        """The error of an ERR reply: a 'not serving' refusal (an
+        unpromoted backup, a zombie fenced mid-commit) is the same
+        retryable failure a dead connection raises, so the failover loop
+        re-routes and replays; anything else is an application error."""
         host, port = self._addrs[i]
         if extra.get("backup"):
             return ServerFailureError(
@@ -749,27 +763,212 @@ class BucketedTransportMixin:
                 f"serving: {extra.get('error')}", server=i)
         return RuntimeError(f"server {i} error: {extra.get('error')}")
 
+    # -- replica sets and live failover (the worker half of replica/) ----------
+
+    def _init_failover(self, replica_sets, failover_timeout) -> None:
+        """Record each shard's replica set (the preferred member first) and
+        the budget for riding out a promotion. Call after ``_addrs`` is
+        set, before dialing."""
+        from ps_tpu_torch.config import env_float
+
+        n = len(self._addrs)
+        if replica_sets is None:
+            replica_sets = [[tuple(a)] for a in self._addrs]
+        if len(replica_sets) != n:
+            raise ValueError(
+                f"replica_sets names {len(replica_sets)} shards but the "
+                f"worker dialed {n}")
+        self._replica_sets = [[tuple(a) for a in s] for s in replica_sets]
+        for i, s in enumerate(self._replica_sets):
+            if tuple(self._addrs[i]) not in s:
+                raise ValueError(
+                    f"server {i}'s address {self._addrs[i]} is not in its "
+                    f"replica set {s}")
+        if failover_timeout is None:
+            failover_timeout = env_float("PS_FAILOVER_TIMEOUT_MS",
+                                         10_000.0, lo=0.0) / 1e3
+        self.failover_timeout = float(failover_timeout)
+        self._epochs = [0] * n  # shard epochs, learned from HELLO
+
     def _hello(self, ch) -> dict:
-        """One HELLO round trip."""
+        """One HELLO round trip, its refusals typed for the failover
+        loop."""
         kind, _, _, extra = tv.decode(
             ch.request(tv.encode(tv.HELLO, self.worker, None)))
         if kind != tv.OK:
-            raise RuntimeError(f"HELLO refused: {extra.get('error')}")
+            if extra.get("backup"):
+                raise BackupNotServing(extra.get("error"))
+            raise ReplicaRejected(f"HELLO refused: {extra.get('error')}")
         return extra
 
+    def _validate_failover_hello(self, i: int, extra: dict) -> Optional[str]:
+        """Subclass hook: check a promoted replica's HELLO against what the
+        worker validated at connect time (an error string, or None)."""
+        return None
+
+    def _cycle_replica_set(self, i: int, deadline: float,
+                           skip_current: bool = False, validate=None,
+                           cause: Optional[BaseException] = None):
+        """The replica-set dial loop, shared by the connect-time
+        :meth:`_hello_any` and the mid-job :meth:`_failover`: cycle server
+        ``i``'s members until one answers HELLO as a serving primary and
+        passes ``validate`` (an unpromoted backup or a rejected member
+        keeps the loop going), or the deadline passes. Returns ``(channel,
+        hello_extra, addr)``; the channel is accounted, not pooled or
+        upgraded."""
+        cands = self._replica_sets[i]
+        k = cands.index(tuple(self._addrs[i])) \
+            if tuple(self._addrs[i]) in cands else 0
+        if skip_current:
+            k += 1
+        last: Optional[BaseException] = cause
+        while True:
+            host, port = cands[k % len(cands)]
+            k += 1
+            try:
+                ch = tv.Channel.connect(host, port, timeout_ms=2000,
+                                        retries=2, max_wait_s=0.5)
+                ch.stats = self.transport
+                try:
+                    extra = self._hello(ch)
+                    if validate is not None:
+                        err = validate(extra)
+                        if err is not None:
+                            raise ReplicaRejected(err)
+                except BaseException:
+                    ch.close()
+                    raise
+                return ch, extra, (host, port)
+            except (BackupNotServing, ReplicaRejected, tv.VanError,
+                    OSError) as e:
+                last = e
+            if time.monotonic() >= deadline:
+                err = ServerFailureError(
+                    f"no member of {self._failure_noun} {i}'s replica set "
+                    f"{cands} is serving before the failover deadline: "
+                    f"{last}", server=i)
+                if cause is not None:
+                    raise err from cause
+                raise err
+            time.sleep(0.05)
+
     def _hello_any(self, i: int):
-        """Connect-time dial of server ``i``; returns ``(channel,
-        hello_extra)``."""
-        host, port = self._addrs[i]
-        ch = tv.Channel.connect(host, port)
-        ch.stats = self.transport
+        """Connect-time dial of server ``i``: its preferred address or, with
+        a replica set, the first member that answers HELLO as a serving
+        primary (an unpromoted backup keeps the loop cycling within the
+        failover window, so a worker may join a shard mid-promotion).
+        Returns ``(channel, hello_extra)``."""
+        cands = getattr(self, "_replica_sets",
+                        [[tuple(a)] for a in self._addrs])[i]
+        if len(cands) == 1:
+            host, port = cands[0]
+            ch = tv.Channel.connect(host, port)
+            ch.stats = self.transport
+            try:
+                return ch, self._hello(ch)
+            except (BackupNotServing, ReplicaRejected) as e:
+                ch.close()
+                raise ServerFailureError(
+                    f"{self._failure_noun} {i} ({host}:{port}) refused "
+                    f"HELLO: {e}", server=i) from e
+        deadline = time.monotonic() + self.failover_timeout
+        ch, extra, addr = self._cycle_replica_set(i, deadline)
+        self._addrs[i] = addr
+        return ch, extra
+
+    def _failover(self, i: int, cause: BaseException,
+                  deadline: float) -> None:
+        """Re-route shard ``i`` to a serving replica: tear down its dead
+        transport, cycle the replica set (waiting out a promotion), refuse
+        a lower epoch (a zombie old primary must not win the race),
+        revalidate the topology and rebuild the pumps. Raises the typed
+        failure when nothing serves before ``deadline``."""
+        import logging
+
+        t0 = time.monotonic()
+        logging.getLogger(__name__).warning(
+            "%s %d (%s:%d) failed; trying its replica set (%d member(s))",
+            self._failure_noun, i, *self._addrs[i],
+            len(self._replica_sets[i]))
+        for p in self._pumps.pop(i, []):
+            p.close()
         try:
-            return ch, self._hello(ch)
-        except RuntimeError as e:
+            self._chs[i].close()
+        except Exception:  # noqa: BLE001 — the channel is dead either way
+            pass
+
+        def validate(extra):
+            epoch = int(extra.get("epoch") or 0)
+            if epoch < self._epochs[i]:
+                return (f"stale shard epoch {epoch} < {self._epochs[i]} "
+                        f"(zombie old primary?)")
+            return self._validate_failover_hello(i, extra)
+
+        # from the next member: the preferred address just failed
+        ch, extra, addr = self._cycle_replica_set(
+            i, deadline, skip_current=True, validate=validate, cause=cause)
+        try:
+            ch = self._maybe_upgrade(ch)
+        except tv.VanError as e:
+            # the member died during the lane's negotiation (a refusal
+            # keeps TCP): a dead candidate, the caller's loop goes on
             ch.close()
             raise ServerFailureError(
-                f"{self._failure_noun} {i} ({host}:{port}) refused "
-                f"HELLO: {e}", server=i) from e
+                f"{self._failure_noun} {i} died during lane negotiation: "
+                f"{e}", server=i) from e
+        self._chs[i] = ch
+        self._addrs[i] = addr
+        self._epochs[i] = int(extra.get("epoch") or 0)
+        if self.bucket_bytes is not None:
+            self._open_pumps([i])
+        dt = time.monotonic() - t0
+        self.transport.record_failover(dt)
+        logging.getLogger(__name__).warning(
+            "%s %d re-routed to %s:%d (epoch %d) in %.2fs",
+            self._failure_noun, i, *addr, self._epochs[i], dt)
+
+    def _on_server_lost(self, err: ServerFailureError,
+                        deadline: float) -> None:
+        """Hook: a shard failed with no replica left to cycle to, the last
+        chance before the op surfaces the failure. The default raises it
+        (the reference's elastic workers re-discover the fleet here; item
+        6)."""
+        raise err
+
+    def _with_failover(self, fn):
+        """Run one transport operation; on a typed server failure, fail the
+        shard over to a replica and retry the whole operation. Safe
+        because operations are idempotent: pulls read, and every push
+        carries its (nonce, seq) dedup token, so a shard that already
+        applied it (directly, or through its dead primary's replication
+        stream) acks without applying again. The whole window, re-routes
+        of every shard the retry trips over included, is bounded by
+        ``failover_timeout``."""
+        try:
+            return fn()
+        except ServerFailureError as e:
+            err = e
+        deadline = time.monotonic() + self.failover_timeout
+        while True:
+            i = getattr(err, "server", None)
+            if i is None or len(self._replica_sets[i]) <= 1:
+                self._on_server_lost(err, deadline)
+            else:
+                try:
+                    self._failover(i, err, deadline)
+                except ServerFailureError as e:
+                    # a candidate died mid-adoption: keep cycling within
+                    # the same deadline; a deadline-expired failure raises
+                    if time.monotonic() >= deadline:
+                        raise
+                    err = e
+                    continue
+            try:
+                return fn()
+            except ServerFailureError as e:
+                if time.monotonic() >= deadline:
+                    raise
+                err = e
 
     def _track_pending(self, pending) -> None:
         """Register a background handle for flush(); resolved ones (and

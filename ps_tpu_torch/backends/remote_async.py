@@ -16,6 +16,16 @@ layer.
   subtree; one concurrent ``PUSH_PULL`` round a cycle. Staleness is real
   and tracked per server. A dead server surfaces as a typed
   :class:`ServerFailureError`.
+- Replication (``replica/``): a server made with ``backup=True`` follows
+  its primary's stream of committed pushes and pulls (the DC apply depends
+  on what each worker last pulled) through its own ``AsyncCudaServer``
+  and refuses workers until promoted; the primary calls
+  ``svc.attach_backup(host, port, ack=...)`` before admitting workers. A
+  worker given ``"p0:a|b0:c,..."`` replica sets re-routes a failed shard
+  to the next member, waits out the promotion, and replays its in-flight
+  push, which its (nonce, seq) token makes apply exactly once.
+  ``RESEED`` (a primary told to seed a spare) ships the whole state point
+  in one ``REPLICA_SEED`` frame and attaches the spare as its backup.
 
 Tensors cross the van as numpy views of host memory. A CUDA tensor is
 first copied to pinned host memory and the copy waited for before the
@@ -37,15 +47,17 @@ its bucketed pulls on request, may travel codec-compressed
 server before the apply.
 
 Not ported yet, each raising with its ROADMAP Queue 1 item: the
-aggregator (5.5), replica sets and backups (5.6), the read path
-(``READ``, ``read_staleness``, ``pull_cache``; 5.8), elastic membership
-(``coordinator=``, the ``MIGRATE_*`` kinds; 6), and the reference's trace
-spans and metrics endpoint (``obs/``, 6). Extra keys in an incoming
-frame, such as a trace context, are ignored.
+aggregator (5.5; a replicated merged push, ``members``, too), the read
+path (``READ``, on a backup too, ``read_staleness``, ``pull_cache``;
+5.8), elastic membership (``coordinator=``, the ``MIGRATE_*`` kinds, a
+replicated partial ``push_sub``; 6), and the reference's trace spans and
+metrics endpoint (``obs/``, 6). Extra keys in an incoming frame, such as
+a trace context, are ignored.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -188,13 +200,18 @@ class AsyncPSService(VanService):
 
     def _snapshot(self, worker: int):
         """One atomic pull under the engine lock: the tensors, the version
-        and the event-log record mirror the engine's true order."""
+        and the event-log record mirror the engine's true order. Pulls
+        replicate too (the DC apply depends on what each worker last
+        pulled); with sync ack the backup's ack is waited for here,
+        outside the lock, before the reply."""
         with self._engine._lock:
             kv = self._engine.pull_tree(worker=worker)
             version = self._engine.version
             key_order = list(self._key_order)
             with self._log_lock:
                 self.event_log.append(["pull", worker])
+            rseq = self._replicate("pull", worker)
+        self._await_replication(rseq)
         return kv, version, key_order
 
     def _params_payload(self, worker: int):
@@ -209,8 +226,10 @@ class AsyncPSService(VanService):
         return tv.encode(tv.OK, worker, host, extra={"version": version})
 
     def _apply_push(self, worker: int, grads: Dict[str, np.ndarray],
-                    extra: Optional[dict] = None) -> bool:
-        """Apply one whole-tree push; returns whether it was a dedup replay.
+                    extra: Optional[dict] = None
+                    ) -> Tuple[Optional[int], bool]:
+        """Apply one whole-tree push; returns ``(replication_seq,
+        dedup)``, the seq for :meth:`_await_replication`.
 
         ``extra``'s ``pseq``/``pnonce`` are the worker's dedup token: a
         (nonce, seq) at or below the last applied one is a replay and is
@@ -220,6 +239,12 @@ class AsyncPSService(VanService):
             raise _not_ported("a merged push (the aggregator)", "5.5")
         pseq = extra.get("pseq")
         pnonce = extra.get("pnonce")
+        # the replicated entry carries the host bytes that are applied, in
+        # memory of its own: the frame they view goes back to its pool (or
+        # the native loop) once the reply is sent, before the sender
+        # thread encodes the entry
+        wire = ({k: np.array(v) for k, v in grads.items()}
+                if self._replicating() else None)
         # onto the engine's device before the lock (a CUDA copy is waited
         # for); this also copies out of the receive buffer
         grads = stage_to_device(grads, self._device, stats=self.transport)
@@ -242,7 +267,7 @@ class AsyncPSService(VanService):
                 fresh = self._dedup_fresh(worker, pnonce, int(pseq), grads)
                 if not fresh:
                     self.transport.record_dedup_hit()
-                    return True
+                    return None, True
             self._check_push_keys(grads)
             if len(fresh) != len(grads):
                 # only a replay straddling a key-range move leaves part of
@@ -264,7 +289,16 @@ class AsyncPSService(VanService):
             with self._log_lock:
                 self.apply_log.append(worker)
                 self.event_log.append(["push", worker])
-        return False
+            # appended under the engine lock: log order is engine order.
+            # ``wire`` is None when the session degraded since the check
+            # above, and then _replicate appends nothing either
+            if wire is None and self._replicating():
+                # a session attached while this push was staged
+                wire = {k: v.cpu().numpy() for k, v in fresh.items()}
+            rseq = self._replicate("push", worker, wire, {
+                "pseq": pseq, "pnonce": pnonce, "members": None,
+                "birth": time.time()})
+        return rseq, False
 
     def _dedup_fresh(self, worker: int, pnonce, pseq: int, grads):
         """The keys still owed an apply (lock held): a key whose last
@@ -356,7 +390,8 @@ class AsyncPSService(VanService):
         # codec-packed keys (the same list on every bucket of the epoch)
         # are decoded after the assembly, before the apply
         tree = decode_tree(tree, extra.get("enc"), stats=self.transport)
-        dedup = self._apply_push(worker, tree, extra=extra)
+        rseq, dedup = self._apply_push(worker, tree, extra=extra)
+        self._await_replication(rseq)
         return self._push_reply(worker, dedup, committed=True)
 
     def _bucket_pull(self, worker: int, extra):
@@ -446,12 +481,15 @@ class AsyncPSService(VanService):
         if kind == tv.PULL:
             return self._params_payload(worker)
         if kind == tv.PUSH:
-            dedup = self._apply_push(
+            rseq, dedup = self._apply_push(
                 worker, self._decode_push(tensors, extra), extra=extra)
+            self._await_replication(rseq)
             return self._push_reply(worker, dedup)
         if kind == tv.PUSH_PULL:
             self._apply_push(worker, self._decode_push(tensors, extra),
                              extra=extra)
+            # no separate ack wait: the pull's record is a later entry,
+            # and the reply waits on it (acks are in order)
             return self._params_payload(worker)
         if kind == tv.BUCKET_PUSH:
             return self._bucket_push(worker, tensors, extra)
@@ -467,7 +505,7 @@ class AsyncPSService(VanService):
                     tv.MIGRATE_COMMIT, tv.MIGRATE_ABORT):
             raise _not_ported(f"{tv.kind_name(kind)} (elastic/)", "6")
         if kind == tv.RESEED:
-            raise _not_ported("RESEED (replica/)", "5.6")
+            return self._reseed_backup(worker, extra)
         return tv.encode(tv.ERR, worker, None,
                          extra={"error": f"bad kind {kind}"})
 
@@ -554,6 +592,209 @@ class AsyncPSService(VanService):
         self._invalidate_reads()
         self._admit_drop()  # the pump's draining refusal is the only answer
 
+    # -- shard replication (replica/) -------------------------------------------
+
+    def _replica_hello_extra(self) -> dict:
+        return {
+            "kind": "dense",
+            "keys": self._key_order,
+            "shard": self.shard,
+            "num_shards": self.num_shards,
+            "version": self._engine.version,
+            "start_seq": 0,
+        }
+
+    def _replica_validate(self, extra: dict) -> Optional[str]:
+        if extra.get("kind") != "dense":
+            return (f"replication stream kind {extra.get('kind')!r} does "
+                    f"not match this dense service")
+        if sorted(extra.get("keys") or []) != sorted(self._key_order):
+            return "primary and backup disagree on the key range"
+        if (extra.get("shard"), extra.get("num_shards")) \
+                != (self.shard, self.num_shards):
+            return (f"primary is shard {extra.get('shard')}/"
+                    f"{extra.get('num_shards')}, backup is shard "
+                    f"{self.shard}/{self.num_shards}")
+        if int(extra.get("version", -1)) != self._engine.version:
+            return (f"state-point mismatch: primary at version "
+                    f"{extra.get('version')}, backup at "
+                    f"{self._engine.version} — a deltas-only stream cannot "
+                    f"catch up past missed commits; start the pair from the "
+                    f"same initial params or a common checkpoint")
+        return None
+
+    def _replica_apply(self, op: str, worker: int, tensors, extra) -> None:
+        """One replicated event through this backup's engine, with the
+        engine lock held by the dispatcher (so never through
+        :meth:`_apply_push`). The push's gradients go to the engine's
+        device as the primary's did, copied out of the request frame."""
+        if op == "pull":
+            self._engine.pull_tree(worker=worker)
+            with self._log_lock:
+                self.event_log.append(["pull", worker])
+            return
+        if op == "push_sub":
+            raise _not_ported("a replicated partial push (push_sub, a "
+                              "replay across a key-range move, elastic/)",
+                              "6")
+        if op != "push":
+            raise ValueError(f"unknown replica op {op!r}")
+        if extra.get("members"):
+            raise _not_ported("a replicated merged push (the aggregator)",
+                              "5.5")
+        tree = decode_tree(dict(tensors), extra.get("enc"),
+                           stats=self.transport)
+        if sorted(tree) != sorted(self._key_order):
+            raise KeyError("replica push keys do not match the tree")
+        self._engine.push_tree(
+            stage_to_device(tree, self._device, stats=self.transport),
+            worker=worker)
+        self._invalidate_reads()
+        self._applied[worker] = self._applied.get(worker, 0) + 1
+        if extra.get("pseq") is not None:
+            toks = self._applied_pseq.setdefault(worker, {})
+            for k in tree:
+                toks[k] = (extra.get("pnonce"), int(extra["pseq"]))
+        with self._log_lock:
+            self.apply_log.append(worker)
+            self.event_log.append([op, worker])
+
+    def _reseed_backup(self, worker: int, extra: dict):
+        """RESEED (an operator or coordinator to this primary): restore
+        redundancy after a failover or a backup's death used the pair up.
+        Applies are quiesced for the whole of it (the engine lock is
+        re-entrant): the export, the one-frame ``REPLICA_SEED`` install at
+        the spare and the attach are one hold, so the spare receives the
+        exact state point the new stream continues from. Ships every row
+        (param, optimizer state, stale snapshots, apply count), the
+        engine's meta and the per-key exactly-once ledger, in the
+        reference's frame layout; the optimizer state's leaf names are the
+        port's, so the spare is a port service."""
+        spare = str(extra.get("spare") or "")
+        if ":" not in spare:
+            return tv.encode(tv.ERR, worker, None, extra={
+                "error": "reseed needs spare \"host:port\""})
+        if self.role != "primary":
+            return tv.encode(tv.ERR, worker, None, extra={
+                "error": f"only a primary re-seeds (role={self.role})"})
+        if self._engine.mesh.size > 1:
+            return tv.encode(tv.ERR, worker, None, extra={
+                "error": "re-seed of a server across ranks is not supported"})
+        shost, sport = spare.rsplit(":", 1)
+        t0 = time.monotonic()
+        eng = self._engine
+        with eng._lock:
+            old = self._backup_session
+            if old is not None and not old.degraded:
+                return tv.encode(tv.ERR, worker, None, extra={
+                    "error": "a live backup session is already attached"})
+            tensors: Dict[str, np.ndarray] = {}
+            rows = []
+            for i, k in enumerate(self._key_order):
+                state_kv, _ = keymod.flatten_with_keys(eng._state[k])
+                row = {"param": eng._params[k]}
+                row.update({f"s:{sk}": v for sk, v in state_kv.items()})
+                row.update({f"w:{w}": v for (w, kk), v in eng._stale.items()
+                            if kk == k})
+                for name, v in stage_to_host(row, stats=self.transport,
+                                             copy=True).items():
+                    tensors[f"{i}/{name}"] = v
+                rows.append({"key": k, "state_keys": list(state_kv),
+                             "apply_count": int(eng.apply_count.get(k, 0))})
+            frame = tv.encode(tv.REPLICA_SEED, 0, tensors, extra={
+                "kind": "dense",
+                "keys": self._key_order,
+                "shard": self.shard, "num_shards": self.num_shards,
+                "rows": rows,
+                "meta": eng._checkpoint_meta(),
+                "applied": {str(w): int(n) for w, n in self._applied.items()},
+                "tokens": {str(w): {k: [tk[0], int(tk[1])]
+                                    for k, tk in toks.items()}
+                           for w, toks in self._applied_pseq.items()},
+            })
+            nbytes = len(frame)
+            # applies stay frozen while the seed ships: the spare installs
+            # the exact state point the stream continues from (a dead spare
+            # fails the connect, not the primary)
+            ch = tv.Channel.connect(shost, int(sport))
+            try:
+                k2, _, _, rep_ = tv.decode(ch.request(frame))
+            finally:
+                ch.close()
+            if k2 != tv.OK:
+                return tv.encode(tv.ERR, worker, None, extra={
+                    "error": f"spare refused seed: {rep_.get('error')}"})
+            self.attach_backup(shost, int(sport),
+                               ack=str(extra.get("ack", "sync")))
+        dt = time.monotonic() - t0
+        logging.getLogger(__name__).warning(
+            "re-seeded backup at %s: %d key(s), %.1f MB in %.2fs "
+            "(redundancy restored)", spare, len(rows), nbytes / 1e6, dt)
+        return tv.encode(tv.OK, worker, None, extra={
+            "keys": len(rows), "bytes": nbytes, "seconds": round(dt, 4)})
+
+    def _replica_seed(self, worker: int, tensors, extra) -> Optional[str]:
+        """REPLICA_SEED (a re-seeding primary to this empty backup):
+        install the shipped state point whole (rows, the engine's meta and
+        the exactly-once ledger), so the REPLICA_HELLO that follows
+        validates against an exact copy. The spare boots with the same key
+        range as the primary (its values are placeholders); a seed is
+        refused once a stream is attached."""
+        if extra.get("kind") != "dense":
+            return (f"seed kind {extra.get('kind')!r} does not match "
+                    f"this dense service")
+        eng = self._engine
+        meta = dict(extra.get("meta") or {})
+        if int(meta.get("num_workers", eng.num_workers)) != eng.num_workers:
+            return (f"seed is for num_workers={meta.get('num_workers')}, "
+                    f"this spare runs {eng.num_workers} — staleness "
+                    f"semantics would differ")
+        rows = list(extra.get("rows") or [])
+        if sorted(r["key"] for r in rows) != sorted(self._key_order):
+            return "seed's key range differs from the spare's"
+        if (extra.get("shard"), extra.get("num_shards")) \
+                != (self.shard, self.num_shards):
+            return (f"seed is shard {extra.get('shard')}/"
+                    f"{extra.get('num_shards')}, spare is shard "
+                    f"{self.shard}/{self.num_shards}")
+        per: Dict[int, dict] = {}
+        for name, v in (tensors or {}).items():
+            i, _, rest = name.partition("/")
+            per.setdefault(int(i), {})[rest] = v
+        with eng._lock:
+            if self.role != "backup":
+                return f"only a backup accepts a seed (role={self.role})"
+            if self._replica_attached:
+                return ("seed refused: a replication stream is already "
+                        "attached")
+            for i, row in enumerate(rows):
+                k = row["key"]
+                got = stage_to_device(per.get(i, {}), self._device,
+                                      stats=self.transport)
+                fkv, fdef = keymod.flatten_with_keys(eng._state[k])
+                if sorted(fkv) != sorted(row.get("state_keys") or []):
+                    return (f"optimizer-state structure mismatch for {k!r}: "
+                            f"primary and spare must run the same optimizer")
+                eng._params[k] = got["param"]
+                eng._state[k] = keymod.unflatten(
+                    fdef, {sk: got[f"s:{sk}"] for sk in fkv}, list(fkv))
+                for wk in [wk for wk in eng._stale if wk[1] == k]:
+                    del eng._stale[wk]
+                for name, v in got.items():
+                    if name.startswith("w:"):
+                        eng._stale[(int(name[2:]), k)] = v
+            eng._load_checkpoint_meta(meta)
+            self._applied = {int(w): int(n) for w, n
+                             in (extra.get("applied") or {}).items()}
+            self._applied_pseq = {
+                int(w): {k: (tk[0], int(tk[1])) for k, tk in toks.items()}
+                for w, toks in (extra.get("tokens") or {}).items()}
+            self._invalidate_reads()
+        logging.getLogger(__name__).info(
+            "seeded as backup: %d key(s) at version %d", len(rows),
+            eng.version)
+        return None
+
 
 def serve_async(store, port: int = 0, bind: str = "127.0.0.1",
                 shard: Optional[int] = None,
@@ -574,8 +815,15 @@ def serve_async(store, port: int = 0, bind: str = "127.0.0.1",
     ``native_loop`` (env ``PS_VAN_NATIVE_LOOP``) serves through the native
     epoll loop on ``loop_threads`` native threads (env
     ``PS_VAN_LOOP_THREADS``); ``shm`` (env ``PS_SHM``, on by default here)
-    accepts the workers' shared-memory lane offers. ``backup=True`` raises
-    (replication, ROADMAP Queue 1 item 5.6)."""
+    accepts the workers' shared-memory lane offers.
+
+    ``backup=True`` starts the service as a backup: it refuses worker
+    traffic and follows a primary's replication stream until promoted
+    (:class:`~ps_tpu_torch.replica.PromotionWatch`, or ``svc.promote()``).
+    The primary calls ``svc.attach_backup(host, port, ack="sync"|"async",
+    window=...)`` before admitting workers; both start from the same
+    initial params (or a common checkpoint). Parameters and optimizer
+    state stay on the engine's device in both processes."""
     return AsyncPSService(store, port=port, bind=bind, shard=shard,
                           num_shards=num_shards, ckpt_root=ckpt_root,
                           shm=shm, backup=backup, native_loop=native_loop,
@@ -617,9 +865,16 @@ def connect_async(uri: Optional[str], worker: int, params_like,
     rings of ``shm_bytes`` (env ``PS_SHM_BYTES``, 16 MiB) a direction; a
     refused offer keeps TCP.
 
+    Replica sets: each shard's entry may list its replicas separated by
+    ``|``, the primary first: ``"h0:p0|b0:q0,h1:p1|b1:q1"``. When a
+    primary dies the worker retries against the set, waiting out the
+    backup's promotion for up to ``failover_timeout`` seconds (env
+    ``PS_FAILOVER_TIMEOUT_MS``, 10 s), and its (nonce, seq)-tagged pushes
+    apply exactly once at the new primary.
+
     Not ported yet (each raises, naming its ROADMAP Queue 1 item):
-    ``aggregator`` (5.5), ``|`` replica sets in ``uri`` (5.6),
-    ``read_staleness``/``pull_cache`` (5.8) and ``coordinator`` (6).
+    ``aggregator`` (5.5), ``read_staleness``/``pull_cache`` (5.8) and
+    ``coordinator`` (6).
     """
     if coordinator is not None:
         raise _not_ported("coordinator= (elastic membership, elastic/)", "6")
@@ -629,12 +884,12 @@ def connect_async(uri: Optional[str], worker: int, params_like,
         raise _not_ported("the read path (read_staleness, pull_cache)", "5.8")
     if uri is None:
         raise ValueError("connect_async needs a server uri")
-    del failover_timeout  # no replica set to ride
-    addrs, _ = parse_replica_uri(uri)
+    addrs, replica_sets = parse_replica_uri(uri)
     return RemoteAsyncWorker.connect_many(
         addrs, worker, params_like, bucket_bytes=bucket_bytes,
         pool_size=pool_size, compress=compress, writev=writev, shm=shm,
-        shm_bytes=shm_bytes)
+        shm_bytes=shm_bytes, replica_sets=replica_sets,
+        failover_timeout=failover_timeout)
 
 
 class CheckpointRoundError(RuntimeError):
@@ -761,7 +1016,7 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
     and exchanges per-owner subtrees with every server in one concurrent
     round a cycle. ``version`` sums the per-server versions (``versions``).
     A failed server connection raises :class:`ServerFailureError` naming
-    the server.
+    the server, unless its replica set has a member to fail over to.
 
     Transport: with ``bucket_bytes=None`` one frame a server a cycle; with
     ``bucket_bytes`` the payloads are cut into fusion buckets
@@ -790,18 +1045,23 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                      pool_size: Optional[int] = None, compress=None,
                      writev: Optional[bool] = None,
                      shm: Optional[bool] = None,
-                     shm_bytes: Optional[int] = None) -> "RemoteAsyncWorker":
+                     shm_bytes: Optional[int] = None,
+                     replica_sets=None,
+                     failover_timeout: Optional[float] = None
+                     ) -> "RemoteAsyncWorker":
         self = cls.__new__(cls)
         self._init_multi(list(addrs), worker, params_like,
                          bucket_bytes=bucket_bytes, pool_size=pool_size,
                          compress=compress, writev=writev, shm=shm,
-                         shm_bytes=shm_bytes)
+                         shm_bytes=shm_bytes, replica_sets=replica_sets,
+                         failover_timeout=failover_timeout)
         return self
 
     def _init_multi(self, addrs: List[Tuple[str, int]], worker: int,
                     params_like, bucket_bytes=None, pool_size=None,
                     compress=None, writev=None, shm=None,
-                    shm_bytes=None) -> None:
+                    shm_bytes=None, replica_sets=None,
+                    failover_timeout=None) -> None:
         self.worker = worker
         self.device = _worker_device(params_like)
         kv, self._treedef = keymod.flatten_with_keys(params_like)
@@ -822,6 +1082,9 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         self._bytes_lock = threading.Lock()  # _fanout runs _request in threads
         self._init_transport(bucket_bytes, pool_size, compress=compress,
                              writev=writev, shm=shm, shm_bytes=shm_bytes)
+        # each shard's replica set and the promotion-wait budget (singleton
+        # sets: no failover)
+        self._init_failover(replica_sets, failover_timeout)
         if self.compress and self.compress.get("pull") \
                 and self.compress.get("codec") == "topk":
             raise ValueError(
@@ -909,6 +1172,20 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         """Whole-subtree applies summed over the servers."""
         return sum(self.versions)
 
+    def _validate_failover_hello(self, i: int, extra: dict) -> Optional[str]:
+        """A promoted replica must advertise exactly the key range the
+        worker validated for this shard at connect time."""
+        expected = sorted(k for k, o in self._owner.items() if o == i)
+        if sorted(extra.get("keys") or []) != expected:
+            return (f"replica of server {i} advertises a different key "
+                    f"range than the shard the worker validated")
+        nw = extra.get("num_workers")
+        if nw is not None and self.num_workers is not None \
+                and int(nw) != self.num_workers:
+            return (f"replica of server {i} says num_workers={nw}, "
+                    f"job runs {self.num_workers}")
+        return None
+
     # -- protocol -------------------------------------------------------------
 
     def _request(self, i: int, payload):
@@ -975,30 +1252,40 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         with _Op(self.transport, "pull"):
             if self.bucket_bytes is not None:
                 self.flush()
-                return self._merge_host_params(self._pull_buckets())
-            return self._merge_params(self._fanout({
-                i: tv.encode(tv.PULL, self.worker, None)
-                for i in self._active}))
+                return self._with_failover(
+                    lambda: self._merge_host_params(self._pull_buckets()))
+            return self._with_failover(
+                lambda: self._merge_params(self._fanout({
+                    i: tv.encode(tv.PULL, self.worker, None)
+                    for i in self._active})))
 
     def push_all(self, grads) -> None:
         """Push a gradient tree; each owner applies its subtree at once
         with the DC-ASGD correction against this worker's last pull. The
-        push carries this worker's (nonce, seq) dedup token."""
+        push carries this worker's (nonce, seq) dedup token, assigned once
+        and reused by any failover retry, so a shard that already applied
+        it (directly, or through its dead primary's stream) acks it
+        without applying again."""
         kv = self._host_grads(grads)
         pseq = self._next_push_seq()
         with _Op(self.transport, "push"):
             if self.bucket_bytes is not None:
                 self.flush()
-                self._push_buckets_sync(self._split_kv(kv), pseq=pseq)
+                self._with_failover(lambda: self._push_buckets_sync(
+                    self._split_kv(kv), pseq=pseq))
                 return
-            msgs = self._fanout({
-                i: self._encode_serial_push(tv.PUSH, sub, pseq=pseq)
-                for i, sub in self._split_kv(kv).items()})
-            for i, msg in msgs.items():
-                kind, _, _, extra = tv.decode(msg)
-                if kind != tv.OK:
-                    raise self._reply_error(i, extra)
-                self.versions[i] = int(extra["version"])
+
+            def once():
+                msgs = self._fanout({
+                    i: self._encode_serial_push(tv.PUSH, sub, pseq=pseq)
+                    for i, sub in self._split_kv(kv).items()})
+                for i, msg in msgs.items():
+                    kind, _, _, extra = tv.decode(msg)
+                    if kind != tv.OK:
+                        raise self._reply_error(i, extra)
+                    self.versions[i] = int(extra["version"])
+
+            self._with_failover(once)
 
     def push_pull(self, grads) -> Any:
         """push_all + pull_all in one round trip a server, all servers in
@@ -1008,11 +1295,16 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         with _Op(self.transport, "push_pull"):
             if self.bucket_bytes is not None:
                 self.flush()  # a cycle racing a serial call would reorder
-                self._push_buckets_sync(self._split_kv(kv), pseq=pseq)
-                return self._merge_host_params(self._pull_buckets())
-            return self._merge_params(self._fanout({
-                i: self._encode_serial_push(tv.PUSH_PULL, sub, pseq=pseq)
-                for i, sub in self._split_kv(kv).items()}))
+
+                def once_bucketed():
+                    self._push_buckets_sync(self._split_kv(kv), pseq=pseq)
+                    return self._merge_host_params(self._pull_buckets())
+
+                return self._with_failover(once_bucketed)
+            return self._with_failover(
+                lambda: self._merge_params(self._fanout({
+                    i: self._encode_serial_push(tv.PUSH_PULL, sub, pseq=pseq)
+                    for i, sub in self._split_kv(kv).items()})))
 
     # -- bucketed, pipelined transport (worker half) --------------------------
 
@@ -1143,8 +1435,11 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         t0 = time.perf_counter()
         try:
             with _Op(self.transport, "cycle"):
-                self._push_buckets_sync(self._split_kv(kv), pseq=pseq)
-                params = self._merge_host_params(self._pull_buckets())
+                def once():
+                    self._push_buckets_sync(self._split_kv(kv), pseq=pseq)
+                    return self._merge_host_params(self._pull_buckets())
+
+                params = self._with_failover(once)
         except BaseException as e:
             pending._fail(e)
         else:
@@ -1231,7 +1526,10 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                                  self._key_order),
                 bucket_bytes=self.bucket_bytes, pool_size=self.pool_size,
                 compress=self.compress, writev=self.writev, shm=self.shm,
-                shm_bytes=self.shm_bytes)
+                shm_bytes=self.shm_bytes,
+                replica_sets=None if addrs is not None
+                else self._replica_sets,
+                failover_timeout=self.failover_timeout)
         finally:
             # the compressor too: topk's residuals are unsent gradient
             # mass and survive the re-dial

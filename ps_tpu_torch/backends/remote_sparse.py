@@ -18,7 +18,13 @@ processes, and workers that push and pull rows.
   concurrently and scatters the pulled rows back into id order. Pushes
   apply at once on the server (async semantics; a per-table version
   counts the applies). A dead server surfaces as a typed
-  :class:`ServerFailureError` naming its index.
+  :class:`ServerFailureError` naming its index, unless its replica set
+  (``"p0:a|b0:c,p1:d|b1:e"``) has a member to fail over to.
+- Replication (``replica/``): a ``backup=True`` server follows its
+  primary's stream of committed row pushes (global ids and the host grads
+  that were applied) through its own tables, so each replicated push runs
+  the grouping and apply kernels in the backup's process too, and refuses
+  workers until promoted.
 
 Tensors cross the van as numpy views of host memory. A pushed gradient
 (or id) on the card is copied to pinned host memory and waited for before
@@ -44,11 +50,12 @@ refused: row pushes are sparse already), decoded by the server before
 they are staged to the table's device. Every such push still ends in the
 sparse-apply kernels.
 
-Not ported yet, each raising with its ROADMAP Queue 1 item: replication,
-backups and failover across a replica set (5.6), tiered tables (5.7),
-the read path (``read_rows``, READ; 5.8) and elastic membership
-(``coordinator=``; 6). The reference's trace spans and ``obs`` counters
-(item 6) are not recorded.
+Not ported yet, each raising with its ROADMAP Queue 1 item: tiered
+tables and the replayed tier moves of a replicated push (``tier_moves``;
+5.7), the read path (``read_rows``, READ, on a backup too; 5.8) and
+elastic membership (``coordinator=``; 6). The reference's trace spans,
+``obs`` counters and per-table births (the freshness plane; item 6) are
+not recorded.
 """
 
 from __future__ import annotations
@@ -289,6 +296,10 @@ class SparsePSService(VanService):
         pnonce = extra.get("pnonce")
         pfan = extra.get("pfan")
         todo = []
+        # the replicated entry: the global ids and the host grads that are
+        # applied, in memory of its own (the frame they view goes back to
+        # its pool, or the native loop, once the reply is sent)
+        wire = {} if self._replicating() else None
         for name, t in per_table.items():
             if "ids" not in t or "grads" not in t:
                 raise KeyError(f"push for {name!r} needs ids + grads")
@@ -304,6 +315,9 @@ class SparsePSService(VanService):
                 {"ids": self._localize(name, t["ids"]), "grads": t["grads"]},
                 self._tables[name].device, stats=self.transport)
             todo.append((name, on["ids"], on["grads"]))
+            if wire is not None:
+                wire[f"{name}/ids"] = np.array(t["ids"], np.int32)
+                wire[f"{name}/grads"] = np.array(t["grads"])
         if not todo:
             return None, False  # push_pull with no rows for this server
         t_apply = time.perf_counter()
@@ -349,8 +363,18 @@ class SparsePSService(VanService):
             self._pause_cond.notify_all()  # a drain_to waiter may watch
             with self._log_lock:
                 self.apply_log.append(worker)
-            rseq = self._replicate("push", worker, per_table, {
-                "pseq": pseq, "pnonce": pnonce, "pfan": pfan})
+            # appended under the table lock: log order is apply order
+            if wire is None and self._replicating():
+                # a session attached while this push was staged
+                wire = {}
+                for name, ids, grads in todo:
+                    wire[f"{name}/ids"] = (ids.cpu().numpy()
+                                           + self._meta[name]["lo"]
+                                           ).astype(np.int32)
+                    wire[f"{name}/grads"] = grads.cpu().numpy()
+            rseq = self._replicate("push", worker, wire, {
+                "pseq": pseq, "pnonce": pnonce, "pfan": pfan,
+                "tier_moves": None, "birth": time.time()})
         self.transport.record_apply(apply_s)
         self.transport.record_fresh_lag(time.perf_counter() - t_apply)
         return rseq, False
@@ -578,6 +602,76 @@ class SparsePSService(VanService):
         self._invalidate_reads()
         self._admit_drop()  # the pump's draining refusal is the only answer
 
+    # -- shard replication (replica/) -------------------------------------------
+
+    def _replica_hello_extra(self) -> dict:
+        return {
+            "kind": "sparse",
+            "tables": self._meta,
+            "shard": self.shard,
+            "num_shards": self.num_shards,
+            "versions": dict(self.versions),
+            "start_seq": 0,
+        }
+
+    def _replica_validate(self, extra: dict) -> Optional[str]:
+        if extra.get("kind") != "sparse":
+            return (f"replication stream kind {extra.get('kind')!r} does "
+                    f"not match this sparse service")
+        if extra.get("tables") != self._meta:
+            return "primary and backup disagree on table metadata"
+        if (extra.get("shard"), extra.get("num_shards")) \
+                != (self.shard, self.num_shards):
+            return (f"primary is shard {extra.get('shard')}/"
+                    f"{extra.get('num_shards')}, backup is shard "
+                    f"{self.shard}/{self.num_shards}")
+        if {n: int(v) for n, v in (extra.get("versions") or {}).items()} \
+                != self.versions:
+            return (f"state-point mismatch: primary versions "
+                    f"{extra.get('versions')}, backup {self.versions} — "
+                    f"start the pair from the same initial tables or a "
+                    f"common checkpoint")
+        return None
+
+    def _replica_apply(self, op: str, worker: int, tensors, extra) -> None:
+        """One replicated row push through this backup's tables, with the
+        table lock held by the dispatcher (so never through
+        :meth:`_apply_push`): each table's rows go to its device and
+        through ``SparseEmbedding.push``, the grouping and apply kernels
+        on the card, waited for inside the timed window as the primary's
+        apply is. The primary's tier moves (``tier_moves``) are refused
+        (tiered tables are item 5.7)."""
+        if op != "push":
+            raise ValueError(f"unknown replica op {op!r}")
+        if extra.get("tier_moves"):
+            raise _not_ported("replayed tier moves (tiered tables, "
+                              "kv/tiered.py)", "5.7")
+        tree = decode_tree(dict(tensors), extra.get("enc"),
+                           stats=self.transport)
+        todo = []
+        for name, t in self._split(tree).items():
+            on = stage_to_device(
+                {"ids": self._localize(name, t["ids"]), "grads": t["grads"]},
+                self._tables[name].device, stats=self.transport)
+            todo.append((name, on["ids"], on["grads"]))
+        t_rows = time.perf_counter()
+        rows = 0
+        for name, ids, grads in todo:
+            self._tables[name].push(ids, grads)
+            self.versions[name] += 1
+            self.rows_applied[name] += int(ids.numel())
+            rows += int(ids.numel())
+        self._sync_tables()
+        self.transport.record_sparse_apply(rows,
+                                           time.perf_counter() - t_rows)
+        self._invalidate_reads()
+        if extra.get("pseq") is not None:
+            self._applied_pseq[worker] = (extra.get("pnonce"),
+                                          int(extra["pseq"]),
+                                          list(extra.get("pfan") or []))
+        with self._log_lock:
+            self.apply_log.append(worker)
+
 
 def serve_sparse(tables: Dict[str, Any], port: int = 0,
                  bind: str = "127.0.0.1", shard: Optional[int] = None,
@@ -598,8 +692,15 @@ def serve_sparse(tables: Dict[str, Any], port: int = 0,
     :func:`connect_sparse`. ``native_loop`` (env ``PS_VAN_NATIVE_LOOP``)
     serves through the native epoll loop on ``loop_threads`` threads;
     ``shm`` (env ``PS_SHM``, on by default here) accepts the workers'
-    shared-memory lane offers. ``backup=True`` raises (ROADMAP Queue 1
-    item 5.6)."""
+    shared-memory lane offers.
+
+    ``backup=True`` starts the service as a backup: it follows a primary's
+    replication stream, applying every replicated row push through its own
+    tables (the sparse-apply kernels on its device), and refuses workers
+    until promoted. The primary calls ``svc.attach_backup(host, port,
+    ack=...)`` before admitting workers; both start from the same initial
+    tables. Tables born by a push (the reference's births) are not
+    replicated: the freshness plane is item 6."""
     return SparsePSService(tables, port=port, bind=bind, shard=shard,
                            num_shards=num_shards, total_rows=total_rows,
                            ckpt_root=ckpt_root, shm=shm, backup=backup,
@@ -634,18 +735,23 @@ def connect_sparse(uri: Optional[str], worker: int,
     the ids travel raw. ``shm`` (env ``PS_SHM``) offers every connection
     the same-host shared-memory lane of ``shm_bytes`` a direction.
 
-    Not ported yet (each raises, naming its ROADMAP Queue 1 item): ``|``
-    replica sets in ``uri`` (5.6) and ``coordinator`` (6)."""
+    Replica sets: ``"p0:a|b0:c,p1:d|b1:e"`` lists each shard's members,
+    the primary first; a failed primary's shard is retried against the set
+    for up to ``failover_timeout`` seconds (env ``PS_FAILOVER_TIMEOUT_MS``),
+    and the cycle token makes a replayed push apply exactly once.
+
+    Not ported yet (raises, naming its ROADMAP Queue 1 item):
+    ``coordinator`` (6)."""
     if coordinator is not None:
         raise _not_ported("coordinator= (elastic membership, elastic/)", "6")
     if uri is None:
         raise ValueError("connect_sparse needs a server uri")
-    del failover_timeout  # no replica set to ride
-    addrs, _ = parse_replica_uri(uri)
+    addrs, replica_sets = parse_replica_uri(uri)
     return RemoteSparseWorker(addrs, worker, tables,
                               bucket_bytes=bucket_bytes, pool_size=pool_size,
                               compress=compress, writev=writev, shm=shm,
-                              shm_bytes=shm_bytes)
+                              shm_bytes=shm_bytes, replica_sets=replica_sets,
+                              failover_timeout=failover_timeout)
 
 
 class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
@@ -660,8 +766,9 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
     frame a server; with it set, row pushes travel as fusion buckets
     striped over ``pool_size`` connections a server, and
     :meth:`push_async`/:meth:`flush` give non-blocking pushes. A dead
-    server raises :class:`ServerFailureError` naming it; there is no
-    failover (replication is ROADMAP Queue 1 item 5.6)."""
+    server raises :class:`ServerFailureError` naming it, unless its
+    replica set has a member to fail over to; every operation retries
+    whole after a failover."""
 
     _failure_noun = "sparse PS server"
 
@@ -671,11 +778,14 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                  pool_size: Optional[int] = None,
                  compress=None, writev: Optional[bool] = None,
                  shm: Optional[bool] = None,
-                 shm_bytes: Optional[int] = None):
+                 shm_bytes: Optional[int] = None,
+                 replica_sets=None,
+                 failover_timeout: Optional[float] = None):
         self._init_multi(list(addrs), worker, tables,
                          bucket_bytes=bucket_bytes, pool_size=pool_size,
                          compress=compress, writev=writev, shm=shm,
-                         shm_bytes=shm_bytes)
+                         shm_bytes=shm_bytes, replica_sets=replica_sets,
+                         failover_timeout=failover_timeout)
 
     def _init_multi(self, addrs: List[Tuple[str, int]], worker: int,
                     tables: Dict[str, Tuple[int, int]],
@@ -683,7 +793,9 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                     pool_size: Optional[int] = None,
                     compress=None, writev: Optional[bool] = None,
                     shm: Optional[bool] = None,
-                    shm_bytes: Optional[int] = None) -> None:
+                    shm_bytes: Optional[int] = None,
+                    replica_sets=None,
+                    failover_timeout: Optional[float] = None) -> None:
         """A fresh dial and validation: ``__init__``'s body, which
         :meth:`reconnect` reruns (a failed re-dial leaves the identity
         fields for a clean retry)."""
@@ -711,6 +823,7 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                 "mix different row sets across steps — use cast16 or int8")
         self._init_transport(bucket_bytes, pool_size, compress=spec,
                              writev=writev, shm=shm, shm_bytes=shm_bytes)
+        self._init_failover(replica_sets, failover_timeout)
         try:
             self._connect_and_validate()
         except Exception:
@@ -790,6 +903,28 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
     def versions(self) -> Dict[str, int]:
         """Per-table applies summed over the servers."""
         return {n: sum(v) for n, v in self._versions.items()}
+
+    def _validate_failover_hello(self, i: int, extra: dict) -> Optional[str]:
+        """A promoted replica must advertise exactly the row ranges the
+        worker validated for this shard at connect time."""
+        meta = extra.get("tables") or {}
+        if sorted(meta) != sorted(self._spec):
+            return (f"replica of server {i} serves tables {sorted(meta)}, "
+                    f"worker expects {sorted(self._spec)}")
+        for name, m in meta.items():
+            want = next(((lo, hi) for lo, hi, s in self._ranges[name]
+                         if s == i), None)
+            got = (int(m["lo"]), int(m["hi"]))
+            if want is not None and got != want:
+                return (f"replica of server {i} owns {name!r} rows "
+                        f"{got}, worker validated {want}")
+            total, dim = self._spec[name]
+            if int(m["total_rows"]) != total or int(m["dim"]) != dim:
+                return (f"replica of server {i} disagrees on {name!r} "
+                        f"shape")
+            if np.dtype(m["dtype"]) != self._dtype.get(name):
+                return f"replica of server {i} disagrees on {name!r} dtype"
+        return None
 
     # -- protocol -------------------------------------------------------------
 
@@ -874,11 +1009,14 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         with _Op(self.transport, "pull"):
             ids, devices = self._host_ids(requests)
             reqs, routes = self._build_pull(ids)
-            msgs = self._fanout({
-                i: tv.encode(tv.ROW_PULL, self.worker, t)
-                for i, t in reqs.items()})
-            return self._on_devices(self._merge_rows(ids, routes, msgs),
-                                    devices)
+
+            def once():
+                msgs = self._fanout({
+                    i: tv.encode(tv.ROW_PULL, self.worker, t)
+                    for i, t in reqs.items()})
+                return self._merge_rows(ids, routes, msgs)
+
+            return self._on_devices(self._with_failover(once), devices)
 
     def read_rows(self, requests: Dict[str, Any]):
         """The side-effect-free READ path: not ported yet."""
@@ -942,14 +1080,19 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
             pseq, pfan = self._next_push_seq(), sorted(reqs)
             if self.bucket_bytes is not None:
                 self.flush()  # keep per-worker push order == epoch order
-                self._push_buckets_sync(reqs, pseq=pseq, pfan=pfan)
+                self._with_failover(lambda: self._push_buckets_sync(
+                    reqs, pseq=pseq, pfan=pfan))
                 return
-            msgs = self._fanout({
-                i: self._encode_serial_push(tv.ROW_PUSH, t, pseq=pseq,
-                                            pfan=pfan)
-                for i, t in reqs.items()})
-            for i, m in msgs.items():
-                self._check(i, m)
+
+            def once():
+                msgs = self._fanout({
+                    i: self._encode_serial_push(tv.ROW_PUSH, t, pseq=pseq,
+                                                pfan=pfan)
+                    for i, t in reqs.items()})
+                for i, m in msgs.items():
+                    self._check(i, m)
+
+            self._with_failover(once)
 
     def _encode_serial_push(self, kind: int, t: Dict[str, np.ndarray],
                             pseq: Optional[int] = None,
@@ -1024,7 +1167,8 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
             t0 = time.perf_counter()
             try:
                 with _Op(self.transport, "cycle"):
-                    self._push_buckets_sync(reqs, pseq=pseq, pfan=pfan)
+                    self._with_failover(lambda: self._push_buckets_sync(
+                        reqs, pseq=pseq, pfan=pfan))
             except BaseException as e:
                 pending._fail(e)
             else:
@@ -1054,12 +1198,14 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                 for name_ids, v in t.items():
                     name = name_ids.split("/")[0]
                     reqs.setdefault(i, {})[f"{name}/pull_ids"] = v
-            msgs = self._fanout({
-                i: self._encode_serial_push(tv.ROW_PUSH_PULL, t, pseq=pseq,
-                                            pfan=pfan)
-                for i, t in reqs.items()})
-            return self._on_devices(self._merge_rows(ids, routes, msgs),
-                                    devices)
+            def once():
+                msgs = self._fanout({
+                    i: self._encode_serial_push(tv.ROW_PUSH_PULL, t,
+                                                pseq=pseq, pfan=pfan)
+                    for i, t in reqs.items()})
+                return self._merge_rows(ids, routes, msgs)
+
+            return self._on_devices(self._with_failover(once), devices)
 
     # -- checkpoint, reconnect, stats -------------------------------------------
 
@@ -1168,7 +1314,10 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                 self.worker, dict(self._spec),
                 bucket_bytes=self.bucket_bytes, pool_size=self.pool_size,
                 compress=self.compress, writev=self.writev, shm=self.shm,
-                shm_bytes=self.shm_bytes)
+                shm_bytes=self.shm_bytes,
+                replica_sets=None if addrs is not None
+                else self._replica_sets,
+                failover_timeout=self.failover_timeout)
         finally:
             self._restore_transport_state(saved)
 

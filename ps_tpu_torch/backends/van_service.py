@@ -36,6 +36,17 @@ The concrete service (``AsyncPSService`` in ``remote_async.py``,
 (:meth:`VanService._set_draining`), its apply lock
 (:meth:`VanService._service_lock`) and admission's ledger hooks.
 
+Replication (``replica/``): a service made with ``backup=True`` applies a
+primary's REPLICA_APPEND stream through its own engine and answers worker
+traffic with the typed, retryable ``backup: True`` refusal (on the loop,
+native admission answers push frames with the same bytes) until
+:meth:`VanService.promote`. A primary streams each committed apply to its
+backup after :meth:`VanService.attach_backup`; with sync ack the reply
+waits for the backup's ack, so on the loop every commit kind is punted to
+a thread of its own while a session is attached (the pump never waits on
+a backup's round trip). A zombie primary whose backup promoted is fenced
+by the backup's refusal and refuses workers from then on.
+
 The drain contract: ``stop()`` first stops admitting connections, then
 waits (bounded by ``grace``) for every request whose frame has arrived to
 finish its reply (on the loop: the pump's count plus the loop's pending
@@ -46,11 +57,10 @@ severs the remaining connections. Workers that need a clean end send
 :attr:`VanService.goodbyes`, so a server can :meth:`wait_for_goodbyes`
 before stopping.
 
-Not ported yet, each refused loudly: replication (``backup=True`` raises;
-replication kinds are answered ERR; item 5.6), the read path's native
-cache (item 5.8), and turning the loop's slow frames into flight events
-(item 6; the loop counts them, the STATS reply's ``slow_frames``, and
-they are left in its ring undrained).
+Not ported yet, each refused loudly: the read path and its native cache
+(READ, on a backup too; item 5.8), and turning the loop's slow frames
+into flight events (item 6; the loop counts them, the STATS reply's
+``slow_frames``, and they are left in its ring undrained).
 """
 
 from __future__ import annotations
@@ -197,7 +207,7 @@ class VanService:
     ``_admit_entry`` and ``_admit_ack_bytes``.
     """
 
-    #: kinds of the replication plane (replica/, not ported yet)
+    #: kinds of the replication plane (replica/), handled here
     _REPLICA_KINDS = frozenset({tv.REPLICA_HELLO, tv.REPLICA_APPEND,
                                 tv.REPLICA_PROMOTE, tv.REPLICA_STATE,
                                 tv.REPLICA_SEED})
@@ -207,9 +217,16 @@ class VanService:
     _COMMIT_KINDS = frozenset({tv.PUSH, tv.PUSH_PULL, tv.BUCKET_PUSH,
                                tv.ROW_PUSH, tv.ROW_PUSH_PULL,
                                tv.ROW_BUCKET_PUSH})
+    #: kinds whose reply waits for a sync replica ack while a live backup
+    #: session is attached (not once it degraded or was fenced: then
+    #: nothing waits): the commits and the pulls (a pull's record
+    #: replicates too). The reference punts the commit kinds only; a pull
+    #: waiting inline would hold the pump for the backup's round trip
+    _REPLICATED_KINDS = _COMMIT_KINDS | frozenset({tv.PULL, tv.BUCKET_PULL})
     #: kinds whose handlers run multi-request protocols (the checkpoint
-    #: phases park between the coordinator's requests): always punted
-    _PUNT_KINDS = frozenset({tv.CHECKPOINT})
+    #: phases park between the coordinator's requests; a RESEED ships the
+    #: state and attaches a backup): always punted
+    _PUNT_KINDS = frozenset({tv.CHECKPOINT, tv.RESEED})
 
     def __init__(self, port: int = 0, bind: str = "127.0.0.1",
                  writev: Optional[bool] = None, shm: Optional[bool] = None,
@@ -218,10 +235,6 @@ class VanService:
         from ps_tpu_torch.config import env_flag, env_float, env_int, env_str
         from ps_tpu_torch.control import native_loop as nlmod
 
-        if backup:
-            raise NotImplementedError(
-                "backup=True: shard replication (replica/) is not ported "
-                "yet (ROADMAP Queue 1 item 5.6)")
         # vectored replies: live snapshot views go to the kernel as iovecs
         self.writev = (env_flag("PS_WRITEV", True)
                        if writev is None else bool(writev))
@@ -255,12 +268,20 @@ class VanService:
         # later phase, cleared at resume); under the subclass's apply lock
         self._ckpt_token: Optional[int] = None
         self._ckpt_seq = 0
-        # what the HELLO reply advertises: a primary at shard-table epoch
-        # 0 of a static topology (replication and elastic membership are
-        # not ported)
-        self.role = "primary"
+        # replication: a backup applies REPLICA_APPEND events and refuses
+        # worker traffic until promoted; a primary may attach_backup() a
+        # session. The epoch is the shard's fencing token: promotion bumps
+        # it, and workers refuse to re-route to a lower epoch (a zombie).
+        # The table epoch stays 0: elastic membership is not ported
+        self.role = "backup" if backup else "primary"
         self.epoch = 0
         self.table_epoch = 0
+        self._primary_epoch = 0        # backup: learned at REPLICA_HELLO
+        self._replica_applied_seq = 0  # backup: the last applied seq
+        self._replica_attached = False
+        self._backup_session = None    # primary: a BackupSession or None
+        self.promote_reason: Optional[str] = None
+        self.promotion_s: Optional[float] = None  # promote()'s duration
         self.goodbyes = 0  # workers that sent SHUTDOWN (clean departures)
         self._goodbye_cond = threading.Condition()
         # the generation both native mirrors key on: every committed change
@@ -362,11 +383,42 @@ class VanService:
         """The apply lock (dense: the engine's; sparse: the tables')."""
         raise NotImplementedError
 
+    def _replica_hello_extra(self) -> dict:
+        """Primary: the attach-time topology and state point (called
+        under the apply lock by :meth:`attach_backup`)."""
+        raise NotImplementedError
+
+    def _replica_validate(self, extra: dict) -> Optional[str]:
+        """Backup: refuse a mismatched stream (an error string) or accept
+        it (None). Checks topology and the state point: a backup that did
+        not start from the primary's exact state would diverge silently."""
+        raise NotImplementedError
+
+    def _replica_apply(self, op: str, worker: int, tensors, extra) -> None:
+        """Backup: apply one replicated event through the local engine,
+        with :meth:`_service_lock` held (stream order is engine order)."""
+        raise NotImplementedError
+
+    def _replica_seed(self, worker: int, tensors, extra) -> Optional[str]:
+        """Backup: install the whole state point a re-seeding primary
+        shipped (RESEED -> REPLICA_SEED). An error string refuses it; the
+        base refuses (only the dense service opts in)."""
+        return "this service does not support re-seed"
+
     def replica_state(self) -> dict:
-        """Role and epoch, and the native loop's counters when it serves
-        (merged into the STATS reply)."""
-        out = {"role": self.role, "epoch": self.epoch, "now": time.time(),
-               "dedup_hits": self.transport.dedup_hits}
+        """Role, epoch and the replication stream's state, and the native
+        loop's counters when it serves (REPLICA_STATE, and merged into the
+        STATS reply)."""
+        out = {"role": self.role, "epoch": self.epoch, "now": time.time()}
+        s = self._backup_session
+        if s is not None:
+            out["repl"] = s.state()
+        if self._replica_attached:
+            out["replica_applied_seq"] = self._replica_applied_seq
+        if self.promote_reason is not None:
+            out["promote_reason"] = self.promote_reason
+            out["promotion_s"] = self.promotion_s
+        out["dedup_hits"] = self.transport.dedup_hits
         if self._nloop is not None:
             t = self.transport
             loop = {"conns": t.loop_conns, "requests": t.loop_requests,
@@ -391,11 +443,122 @@ class VanService:
 
     # -- hooks of the apply paths ----------------------------------------------
 
-    def _replicate(self, op: str, worker: int, tensors, extra) -> None:
-        """Stream a committed apply to the backups (item 5.6)."""
+    def _replicating(self) -> bool:
+        """Whether a commit now would be streamed (a live session): the
+        apply paths copy a push's host bytes for the log only then."""
+        s = self._backup_session
+        return s is not None and not s.degraded
 
-    def _await_replication(self, seq) -> None:
-        """Wait for the backups' ack of a replicated apply (item 5.6)."""
+    def _replicate(self, op: str, worker: int, tensors=None,
+                   meta: Optional[dict] = None) -> Optional[int]:
+        """Primary commit hook, under the apply lock: append one committed
+        event to the stream. ``tensors`` must own their memory (the sender
+        encodes them after the request's frame went back to its pool).
+        None = unreplicated (no session, or it degraded)."""
+        s = self._backup_session
+        if s is None or s.degraded:
+            return None
+        return s.publish(op, worker, tensors, dict(meta or {}))
+
+    def _await_replication(self, seq: Optional[int]) -> None:
+        """Sync-ack gate, outside the apply lock and before the reply:
+        wait until the backup acked ``seq``. A no-op for async ack, for
+        unreplicated commits and for a degraded session, except one that
+        degraded because the backup promoted: then this zombie's commit
+        never reached the real primary, so the reply is a retryable
+        refusal, and the worker replays the push at the promoted backup
+        (its dedup token makes that exactly once)."""
+        s = self._backup_session
+        if s is None:
+            return
+        if seq is not None and s.ack_mode == "sync":
+            s.wait_acked(seq)
+        # checked for every commit, unreplicated ones after the degrade
+        # too: once fenced, no reply may say a commit stuck at this zombie
+        if s.fenced:
+            raise NotServingError(
+                "fenced mid-commit: this shard's backup promoted — retry "
+                "at the new primary")
+
+    def promote(self, reason: str = "request") -> int:
+        """The backup -> primary transition (idempotent): under the apply
+        lock, so no replicated apply is mid-way and no worker push is
+        admitted across the flip, bump the epoch past the primary's and
+        start serving. With sync ack everything the primary acknowledged
+        to a worker is already in this engine, so there is nothing to
+        rebuild."""
+        t0 = time.perf_counter()
+        with self._service_lock():
+            if self.role == "primary":
+                return self.epoch
+            self.role = "primary"
+            self.epoch = self._primary_epoch + 1
+            self.promote_reason = reason
+        self._invalidate_reads()
+        # reseed native admission from the replicated ledger: the promoted
+        # backup suppresses the replays its dead primary would have, and
+        # stops answering the backup refusal
+        self._admit_sync()
+        self.promotion_s = time.perf_counter() - t0
+        logging.getLogger(__name__).warning(
+            "backup promoted to primary (reason=%s, epoch %d) in %.1fms",
+            reason, self.epoch, self.promotion_s * 1e3)
+        return self.epoch
+
+    def attach_backup(self, host: str, port: int, ack: str = "sync",
+                      window: int = 256, compress=None,
+                      stall_timeout: float = 30.0):
+        """Primary: attach a warm backup and stream every commit to it.
+        Attach before admitting workers (or from a quiesced state): the
+        handshake checks that both replicas stand at the same state point
+        and raises :class:`~ps_tpu_torch.replica.ReplicationError`
+        otherwise, since a deltas-only stream cannot catch a backup up.
+
+        ``ack="sync"``: push and pull replies wait for the backup's ack;
+        a promotion is bitwise what the workers saw. ``ack="async"``:
+        replies return at once and the backup trails by at most
+        ``window`` commits (``repl.lag`` in STATS). ``compress`` runs the
+        stream through a stateless gradient codec."""
+        from ps_tpu_torch.replica.session import BackupSession
+
+        if self.role != "primary":
+            raise RuntimeError("only a primary can attach a backup")
+        with self._service_lock():
+            old = self._backup_session
+            if old is not None and not old.degraded:
+                raise RuntimeError("a live backup session is already "
+                                   "attached")
+            if old is not None:
+                old.close()  # degraded: replaceable without a restart
+            hello = self._replica_hello_extra()
+            hello.update({"epoch": self.epoch, "ack": ack})
+            # the dial and HELLO are atomic with the state point the lock
+            # holds still (connect_timeout_ms bounds them)
+            session = BackupSession(host, port, hello, ack=ack,
+                                    window=window, compress=compress,
+                                    stats=self.transport,
+                                    stall_timeout=stall_timeout)
+            session.on_fenced = self._fence
+            self._backup_session = session
+        return session
+
+    def _fence(self, peer_epoch: int) -> None:
+        """Self-fencing: our backup promoted past us (it refused the
+        stream as a primary of ``peer_epoch``). This service is a zombie
+        and stops serving workers, so history cannot fork; the retryable
+        refusal sends connected workers to the real primary through their
+        replica sets."""
+        with self._service_lock():
+            if self.role != "primary":
+                return
+            self.role = "fenced"
+        self._invalidate_reads()
+        self._admit_sync()  # native admission answers the fenced refusal
+        logging.getLogger(__name__).error(
+            "FENCED: this shard's backup promoted to primary (epoch %d) "
+            "while we were still serving — refusing all worker traffic "
+            "from now on (workers re-route via their replica sets)",
+            peer_epoch)
 
     def _invalidate_reads(self, tags=None) -> None:
         """Invalidation on apply: call after every committed change. It
@@ -443,9 +606,27 @@ class VanService:
         send for a pure dedup replay now."""
         return None
 
+    def _role_refusal(self, worker: int) -> bytes:
+        """The typed, retryable refusal of worker traffic on a backup or
+        a fenced zombie: the pump's reply, and (worker id 0, patched by
+        the loop) native admission's template, the same bytes."""
+        return tv.encode(tv.ERR, worker, None, extra={
+            "error": (f"shard backup is not serving worker traffic "
+                      f"(role={self.role}, epoch {self.epoch}) — "
+                      f"retry after promotion"),
+            "backup": True, "epoch": self.epoch})
+
+    def _admit_refusal_bytes(self) -> Optional[bytes]:
+        """The role refusal the loop answers push frames with while this
+        service does not serve workers; None on a serving primary."""
+        if self.role == "primary":
+            return None
+        return self._role_refusal(0)
+
     def _admit_sync(self, locked: bool = False) -> None:
-        """Reseed the admission mirror whole (startup, checkpoint resume):
-        drop everything at a fresh generation, then republish the settled
+        """Reseed the admission mirror whole (startup, promotion, fencing,
+        checkpoint resume): drop everything at a fresh generation, then
+        arm the role refusal on a non-primary, or republish the settled
         ledger, under the apply lock unless the caller holds it."""
         if not self._native_admit or self._nloop is None:
             return
@@ -457,6 +638,11 @@ class VanService:
             self._read_gen += 1
             gen = self._read_gen
         nloop.admit_reset(gen)
+        refusal = self._admit_refusal_bytes()
+        if refusal is not None:
+            nloop.admit_set_refusal(refusal)
+            return
+        nloop.admit_set_refusal(b"")
         if getattr(self, "_paused", False) or getattr(self, "_draining",
                                                       False):
             return  # paused or draining: every push must reach the pump
@@ -482,6 +668,7 @@ class VanService:
         :meth:`_invalidate_reads`): publish the named workers' ledger rows
         and the fresh ack template at the post-apply generation."""
         if (not self._native_admit or self._nloop is None
+                or self.role != "primary"
                 or getattr(self, "_paused", False)
                 or getattr(self, "_draining", False)):
             return
@@ -514,12 +701,74 @@ class VanService:
     # -- dispatch --------------------------------------------------------------
 
     def _dispatch(self, kind: int, worker: int, tensors, extra):
+        """Route one request: the replication kinds are handled here;
+        worker kinds reach the subclass only on a serving primary, and a
+        backup or a fenced zombie refuses them with the typed, retryable
+        reply (the worker's failover loop keys on ``backup``). STATS is
+        always answered; READ on a backup goes to the handler, which
+        refuses it until the read path is ported (item 5.8)."""
         if kind in self._REPLICA_KINDS:
-            return tv.encode(tv.ERR, worker, None, extra={
-                "error": (f"{tv.kind_name(kind)}: shard replication "
-                          f"(replica/) is not ported yet (ROADMAP Queue 1 "
-                          f"item 5.6)")})
+            return self._handle_replica(kind, worker, tensors, extra)
+        if self.role != "primary" and kind != tv.STATS:
+            if kind == tv.READ and self.role == "backup":
+                return self._handle(kind, worker, tensors, extra)
+            return self._role_refusal(worker)
         return self._handle(kind, worker, tensors, extra)
+
+    def _handle_replica(self, kind: int, worker: int, tensors, extra):
+        if kind == tv.REPLICA_STATE:
+            return tv.encode(tv.OK, worker, None, extra=self.replica_state())
+        if kind == tv.REPLICA_PROMOTE:
+            if self.role != "backup":
+                return tv.encode(tv.ERR, worker, None, extra={
+                    "error": f"cannot promote a {self.role} service"})
+            epoch = self.promote(reason=str(extra.get("reason", "request")))
+            return tv.encode(tv.OK, worker, None,
+                             extra={"epoch": epoch, "role": self.role})
+        if self.role != "backup":
+            # a zombie primary still appending after this backup promoted:
+            # refuse with the fencing signal, so it stops serving instead
+            # of forking history
+            return tv.encode(tv.ERR, worker, None, extra={
+                "error": (f"replication stream refused: this service is "
+                          f"{self.role} (epoch {self.epoch}), not a backup"),
+                "fenced": True, "epoch": self.epoch})
+        if kind == tv.REPLICA_SEED:
+            # the whole state point onto an empty spare, so the
+            # REPLICA_HELLO that follows validates against an exact copy
+            err = self._replica_seed(worker, tensors, extra)
+            if err is not None:
+                return tv.encode(tv.ERR, worker, None, extra={"error": err})
+            return tv.encode(tv.OK, worker, None,
+                             extra={"epoch": self.epoch})
+        if kind == tv.REPLICA_HELLO:
+            err = self._replica_validate(extra)
+            if err is not None:
+                return tv.encode(tv.ERR, worker, None, extra={"error": err})
+            with self._service_lock():
+                self._primary_epoch = int(extra.get("epoch", 0))
+                self._replica_applied_seq = int(extra.get("start_seq", 0))
+                self._replica_attached = True
+            return tv.encode(tv.OK, worker, None, extra={
+                "applied_seq": self._replica_applied_seq,
+                "epoch": self.epoch})
+        # REPLICA_APPEND
+        seq = int(extra["seq"])
+        with self._service_lock():
+            if self.role != "backup":
+                return tv.encode(tv.ERR, worker, None, extra={
+                    "error": "promoted mid-append: stream refused"})
+            if not self._replica_attached:
+                return tv.encode(tv.ERR, worker, None, extra={
+                    "error": "REPLICA_APPEND before REPLICA_HELLO"})
+            if seq != self._replica_applied_seq + 1:
+                return tv.encode(tv.ERR, worker, None, extra={
+                    "error": (f"replication gap: expected seq "
+                              f"{self._replica_applied_seq + 1}, got {seq}")})
+            self._replica_apply(str(extra["op"]),
+                                int(extra.get("w", worker)), tensors, extra)
+            self._replica_applied_seq = seq
+        return tv.encode(tv.OK, worker, None, extra={"applied_seq": seq})
 
     def _dispatch_reply_payload(self, kind: int, worker: int, tensors,
                                 extra):
@@ -840,12 +1089,15 @@ class VanService:
         if kind in self._PUNT_KINDS or (
                 kind in self._COMMIT_KINDS
                 and (getattr(self, "_paused", False)
-                     or self._loop_blockers > 0)):
+                     or self._loop_blockers > 0)) or (
+                kind in self._REPLICATED_KINDS and self._replicating()):
             # a request that may park must not park the pump: a thread of
-            # its own. ``_loop_blockers`` closes the pause race: a punted
-            # CHECKPOINT sets ``_paused`` on its own thread, so the count
-            # is raised here, before that thread starts, and held until
-            # its reply went out; every commit seen meanwhile punts too
+            # its own (a commit or a pull waits for a sync replica ack or a
+            # full ack window; a commit for a checkpoint pause).
+            # ``_loop_blockers`` closes the pause race: a punted CHECKPOINT
+            # sets ``_paused`` on its own thread, so the count is raised
+            # here, before that thread starts, and held until its reply
+            # went out; every commit seen meanwhile punts too
             blocker = kind in self._PUNT_KINDS
             with self._inflight_cond:
                 self._inflight += 1  # the punted task's share
@@ -996,6 +1248,9 @@ class VanService:
         else:
             self._accept_thread.join(timeout=5)
         self._listener.close()
+        s = self._backup_session
+        if s is not None:
+            s.close()
         with self._chan_lock:
             chans = list(self._channels)
         for ch in chans:
@@ -1037,6 +1292,12 @@ class VanService:
                 break
         self._set_draining()
         self._sever_serve_threads(deadline)
+        self._close_backup_session()
+
+    def _close_backup_session(self) -> None:
+        s = self._backup_session
+        if s is not None:
+            s.close()  # after the drain: every acked commit replicated
 
     def _sever_serve_threads(self, deadline: float, extra_alive=()) -> None:
         """After the draining flag: a short window for pause-parked
@@ -1108,3 +1369,4 @@ class VanService:
         if not self._pump_thread.is_alive():
             nloop.close()  # punted threads' reply/free no-op after close
         self._listener.close()
+        self._close_backup_session()

@@ -47,7 +47,7 @@ STATS = 4       # -> json: version, staleness_hist, apply_log
 SHUTDOWN = 5    # server drains and stops serving this connection
 OK = 6
 ERR = 7
-ROW_PULL = 8        # sparse tables (remote_sparse, not ported yet)
+ROW_PULL = 8        # sparse tables (remote_sparse.py)
 ROW_PUSH = 9
 ROW_PUSH_PULL = 10
 CHECKPOINT = 11     # {"dir", "phase"} -> the coordinated checkpoint round
@@ -57,7 +57,7 @@ BUCKET_PULL = 13    # bucket 0 snapshots the tree server-side; buckets
 #                     1..n-1 stream the remaining slices of that snapshot
 ROW_BUCKET_PUSH = 14
 SHM_SETUP = 15      # same-host shared-memory lane offer (shm_lane.py)
-REPLICA_HELLO = 16  # shard replication (replica/, not ported yet)
+REPLICA_HELLO = 16  # shard replication (replica/): attach, then the stream
 REPLICA_APPEND = 17
 REPLICA_PROMOTE = 18
 REPLICA_STATE = 19

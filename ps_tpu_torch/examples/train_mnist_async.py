@@ -46,9 +46,22 @@ and each worker its losses and cycle times (``worker<id>.json``): the
 event log, with each worker's gradients recomputed from what it pulled,
 replays the run through one-process servers.
 
-Not ported yet, raising: the replication flags ``--backup``,
-``--watch-port``, ``--replicate-to``, ``--beat`` (replica/, ROADMAP Queue
-1 item 5.6).
+Replication and live failover (``replica/``): run a second server with
+``--backup --watch-port W``, start the primary with ``--replicate-to
+backup:port --beat backup:W`` (``--replica-ack sync|async``,
+``--replica-window N``), and give the workers the replica set
+``--server primary:port|backup:port``. A backup follows the primary's
+stream until the primary's heartbeats stop, promotes itself (it prints the
+cause and the time), then serves the workers, who re-route to it and
+replay their in-flight push exactly once:
+
+    python -m ps_tpu_torch.examples.train_mnist_async --role server \
+        --port 7078 --num-workers 1 --backup --watch-port 7079
+    python -m ps_tpu_torch.examples.train_mnist_async --role server \
+        --port 7077 --num-workers 1 --replicate-to localhost:7078 \
+        --beat localhost:7079
+    python -m ps_tpu_torch.examples.train_mnist_async --role worker \
+        --server "localhost:7077|localhost:7078" --worker-id 0
 """
 
 from __future__ import annotations
@@ -131,16 +144,39 @@ def parse_args(argv=None):
                     help="server: this server's index in the key partition")
     ap.add_argument("--num-shards", type=int, default=cfg.num_shards,
                     help="server: servers in the key partition")
-    ap.add_argument("--backup", action="store_true")
-    ap.add_argument("--watch-port", type=int, default=0)
-    ap.add_argument("--replicate-to", default=None)
-    ap.add_argument("--beat", default=None)
+    # replication: a second server with --backup --watch-port W; the
+    # primary with --replicate-to backup:port --beat backup:W; workers on
+    # the replica set "primary:port|backup:port"
+    ap.add_argument("--backup", action="store_true",
+                    help="server: start as a backup: follow a primary's "
+                         "replication stream, refuse workers until "
+                         "promoted")
+    ap.add_argument("--watch-port", type=int, default=0,
+                    help="backup: the UDP heartbeat port the primary beats "
+                         "(--beat); the backup promotes itself when the "
+                         "beats stop (0 = no promotion watch)")
+    ap.add_argument("--replicate-to", default=None,
+                    help="primary: host:port of this shard's backup, "
+                         "attached before workers are admitted")
+    ap.add_argument("--replica-ack", default=cfg.replica_ack,
+                    choices=["sync", "async"],
+                    help="primary: sync = replies wait for the backup's ack "
+                         "(a bitwise promotion); async = a lag bounded by "
+                         "--replica-window (env PS_REPLICA_ACK)")
+    ap.add_argument("--replica-window", type=int, default=cfg.replica_window,
+                    help="primary: commits the backup may trail (env "
+                         "PS_REPLICA_WINDOW)")
+    ap.add_argument("--beat", default=None,
+                    help="primary: host:port of the backup's promotion "
+                         "watch to heartbeat")
     args = ap.parse_args(argv)
     args.compress_pull = cfg.compress_pull
-    if args.backup or args.watch_port or args.replicate_to or args.beat:
-        raise NotImplementedError(
-            "--backup/--watch-port/--replicate-to/--beat: shard replication "
-            "(replica/) is not ported yet (ROADMAP Queue 1 item 5.6)")
+    if args.backup and (args.replicate_to or args.beat):
+        raise SystemExit("--backup takes --watch-port; --replicate-to and "
+                         "--beat belong to the primary")
+    if (args.backup or args.watch_port or args.replicate_to or args.beat) \
+            and args.role != "server":
+        raise SystemExit("the replication flags belong to --role server")
     return args
 
 
@@ -221,6 +257,9 @@ def run_worker(args):
         "lane": w.transport.lane(),
         "shm_frames": w.transport.shm_frames,
         "shm_spills": w.transport.shm_spill_frames,
+        "failovers": w.transport.failovers,
+        "failover_s": w.transport.op_samples("failover"),
+        "epochs": list(w._epochs),
         "summary": s,
     }
     w.close()
@@ -245,13 +284,47 @@ def run_server(args):
     engine = store._engine
     svc = AsyncPSService(store, port=args.port, bind=args.bind,
                          shard=args.shard, num_shards=args.num_shards,
-                         record_full_history=bool(args.dump))
+                         record_full_history=bool(args.dump),
+                         backup=args.backup)
     shard_note = ("" if args.num_shards is None
                   else f", shard {args.shard}/{args.num_shards}")
     serving = "native loop" if svc.native_loop else "thread per connection"
-    print(f"async PS server on port {svc.port} ({args.num_workers} workers "
-          f"expected{shard_note}; params on {ctx.device}; {serving})",
-          flush=True)
+    watch = hb = None
+    if args.backup:
+        from ps_tpu_torch.replica import PromotionWatch
+
+        if args.watch_port:
+            watch = PromotionWatch(svc, primary_id=1, port=args.watch_port,
+                                   bind=args.bind)
+        print(f"async PS BACKUP on port {svc.port}{shard_note} — following "
+              f"the primary (params on {ctx.device}; {serving})"
+              + (f", promotion watch on :{watch.port}" if watch else ""),
+              flush=True)
+        while svc.role == "backup":  # until promoted
+            time.sleep(0.01)
+        detect = ("" if watch is None else
+                  f", the primary's last beat {watch.detect_age_ms} ms "
+                  f"before")
+        print(f"promoted to primary (reason={svc.promote_reason}, epoch "
+              f"{svc.epoch}, {svc._replica_applied_seq} replicated events, "
+              f"promotion {svc.promotion_s * 1e3:.3f} ms{detect}) — now "
+              f"serving workers", flush=True)
+    else:
+        if args.replicate_to:
+            host, port = args.replicate_to.rsplit(":", 1)
+            svc.attach_backup(host, int(port), ack=args.replica_ack,
+                              window=args.replica_window)
+        if args.beat:
+            from ps_tpu_torch.control.heartbeat import HeartbeatClient
+
+            host, port = args.beat.rsplit(":", 1)
+            hb = HeartbeatClient(host, int(port), node_id=1)
+        print(f"async PS server on port {svc.port} ({args.num_workers} "
+              f"workers expected{shard_note}; params on {ctx.device}; "
+              f"{serving})"
+              + (f", replicating to {args.replicate_to} "
+                 f"[{args.replica_ack}, window {args.replica_window}]"
+                 if args.replicate_to else ""), flush=True)
     # quiesce on goodbyes: a worker says goodbye only after its last reply
     # arrived, so stop() cannot race a reply
     svc.wait_for_goodbyes(args.num_workers)
@@ -276,8 +349,18 @@ def run_server(args):
                        "loop_pushes": svc.transport.loop_pushes,
                        "shm_frames": svc.transport.shm_frames,
                        "codec_bytes": [svc.transport.codec_raw_bytes,
-                                       svc.transport.codec_enc_bytes]},
+                                       svc.transport.codec_enc_bytes],
+                       "replica": dict(
+                           svc.replica_state(),
+                           repl_entries=svc.transport.repl_entries,
+                           repl_bytes=svc.transport.repl_bytes,
+                           detect_age_ms=(watch.detect_age_ms
+                                          if watch else None))},
                       f)
+    if watch is not None:
+        watch.close()
+    if hb is not None:
+        hb.close(goodbye=True)  # a planned leave: the backup sees 'left'
     svc.stop()
     ps.shutdown()
     return {"version": engine.version, "staleness_histogram": hist}

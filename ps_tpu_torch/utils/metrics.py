@@ -3,10 +3,10 @@ transport's counters.
 
 Counterpart of ``TrainMetrics`` and the part of ``TransportStats`` in
 ``ps_tpu/utils/metrics.py`` that the van's serial and bucketed paths and
-the STATS reply record, with the codec, shared-memory lane and native
-serve loop counters. The rest of that module (``Meter``, the log2
-latency histograms of the registry, the serving, replication and
-aggregation counters) belongs to the observability layer and is not
+the STATS reply record, with the codec, shared-memory lane, native
+serve loop, replication and failover counters. The rest of that module (``Meter``, the log2
+latency histograms of the registry, the serving and aggregation
+counters) belongs to the observability layer and is not
 ported yet (ROADMAP Queue 1 item 6); the native loop's queue-wait
 histogram is kept here as its raw state (:class:`NativeHist`) in the
 registry's geometry.
@@ -146,6 +146,17 @@ class TransportStats:
         self.push_native_punts = 0
         self.hist: Dict[str, NativeHist] = {k: NativeHist()
                                             for k in NL_HIST_KEYS}
+        # shard replication (replica/): entries and bytes the backup acked,
+        # time serve threads waited for sync acks, the backup's lag (a
+        # gauge), whether the stream degraded (the primary goes on
+        # unreplicated), and the worker side's failover re-routes
+        self.repl_entries = 0
+        self.repl_bytes = 0
+        self.repl_ack_wait_s = 0.0
+        self.repl_lag = 0
+        self.repl_degraded = False
+        self.failovers = 0
+        self.failover_s = 0.0
         # the latest op latencies by name (push, pull, push_pull, cycle):
         # the reference keeps log2 histograms (obs/, not ported yet); a
         # bounded window of samples gives the same quantiles here
@@ -195,6 +206,33 @@ class TransportStats:
         push's arrival at the apply to the moment the lock is released
         and a pull sees it)."""
         self.record_op("fresh_lag", seconds)
+
+    def record_repl_entry(self, nbytes: int) -> None:
+        """One replication-log entry acked by the backup (wire bytes)."""
+        with self._lock:
+            self.repl_entries += 1
+            self.repl_bytes += int(nbytes)
+
+    def record_repl_ack_wait(self, seconds: float) -> None:
+        """Time one serve thread spent blocked on a sync replica ack."""
+        self.record_op("repl_ack_wait", seconds)
+        with self._lock:
+            self.repl_ack_wait_s += float(seconds)
+
+    def set_repl_lag(self, lag: int) -> None:
+        with self._lock:
+            self.repl_lag = int(lag)
+
+    def set_repl_degraded(self) -> None:
+        with self._lock:
+            self.repl_degraded = True
+
+    def record_failover(self, seconds: float) -> None:
+        """One worker-side shard re-route to a promoted replica."""
+        self.record_op("failover", seconds)
+        with self._lock:
+            self.failovers += 1
+            self.failover_s += float(seconds)
 
     def record_vec_send(self, nbytes: int) -> None:
         """One vectored send: ``nbytes`` of tensor payload went to the

@@ -364,8 +364,9 @@ def test_trainer_runs_on_the_cpu(capsys):
     assert "done: version 12, staleness histogram {0: 3, 2: 9}" in text
     assert out["version"] == 12 and len(out["losses"]) == 12
     assert not ps_tpu_torch.is_initialized()
-    # the cross-process roles run now (tests/test_torch_remote_async.py);
-    # what they still refuse names the item it waits for
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5.6"):
+    # the cross-process roles run now (tests/test_torch_remote_async.py,
+    # tests/test_torch_replica_failover.py); the replication flags belong
+    # to the server role, and a worker given one is refused
+    with pytest.raises(SystemExit, match="belong to --role server"):
         train_mnist_async.main(["--device", "cpu", "--role", "worker",
                                 "--backup"])

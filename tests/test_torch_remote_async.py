@@ -818,7 +818,7 @@ def test_reference_worker_against_port_server(bucket_bytes, shm):
     ({"aggregator": "127.0.0.1:1"}, "aggregator.*item 5.5"),
     ({"read_staleness": 2}, "read path.*item 5.8"),
     ({"pull_cache": True}, "read path.*item 5.8"),
-    ({"uri": "127.0.0.1:1|127.0.0.1:2"}, "replica/.*item 5.6"),
+    ({"uri": "{uri}|127.0.0.1:1"}, None),
 ], ids=["compress", "shm", "coordinator", "aggregator", "read_staleness",
         "pull_cache", "replica-set"])
 def test_deferred_worker_options_raise(kwargs, match):
@@ -826,12 +826,16 @@ def test_deferred_worker_options_raise(kwargs, match):
     (svc,), uri = _job(params)
     try:
         kw = dict(kwargs)
-        if match is None:  # items 5.2 (shm) and 5.3 (compress)
-            w = connect_async(uri, 0, params, **kw)
+        if match is None:  # items 5.2 (shm), 5.3 (compress), 5.6 (replicas)
+            w = connect_async(kw.pop("uri", uri).format(uri=uri), 0, params,
+                              **kw)
             if "shm" in kw:
                 assert w._chs[0].lane == "shm"
-            else:
+            elif "compress" in kw:
                 assert w.compress == {"codec": "int8", "seed": 0}
+            else:  # the primary first, its backup after it
+                assert w._replica_sets == [[("127.0.0.1", svc.port),
+                                            ("127.0.0.1", 1)]]
             w.push_pull({"w": torch.ones(2)})
             assert w.version == 1
             w.close()
@@ -843,21 +847,24 @@ def test_deferred_worker_options_raise(kwargs, match):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"backup": True}, "replica/.*item 5.6"),
+    ({"backup": True}, None),
     ({"native_loop": True}, None),
     ({"shm": True}, None),
     ({"coordinator": "127.0.0.1:1"}, "elastic/.*item 6"),
 ], ids=["backup", "native_loop", "shm", "coordinator"])
 def test_deferred_server_options_raise(kwargs, match):
     """What stays deferred raises naming its item; what items 5.1 (the
-    native loop) and 5.2 (accepting shm offers) ported is in effect."""
+    native loop), 5.2 (accepting shm offers) and 5.6 (a backup) ported is
+    in effect."""
     ps_tpu_torch.init(backend="cuda", mode="async", device="cpu")
     store = ps_tpu_torch.KVStore(optimizer="sgd", mode="async")
     store.init({"w": torch.zeros(2)})
     if match is None:
         svc = AsyncPSService(store, **kwargs)
         try:
-            if "native_loop" in kwargs:
+            if "backup" in kwargs:
+                assert svc.role == "backup" and svc.epoch == 0
+            elif "native_loop" in kwargs:
                 assert svc.native_loop
             else:
                 assert svc._shm_accept and not svc.native_loop
@@ -871,10 +878,13 @@ def test_deferred_server_options_raise(kwargs, match):
 @pytest.mark.parametrize("kind,match", [
     (tv.READ, "read path.*item 5"),
     (tv.MIGRATE_OUT, "elastic/.*item 6"),
-    (tv.REPLICA_STATE, "replica/.*item 5"),
-    (tv.RESEED, "replica/.*item 5"),
+    (tv.REPLICA_STATE, None),
+    (tv.RESEED, "reseed needs spare"),
 ], ids=["read", "migrate", "replica", "reseed"])
 def test_deferred_kinds_are_answered_err(kind, match):
+    """What stays deferred is answered ERR naming its item; the kinds of
+    item 5.6 are served: REPLICA_STATE reports the role, a RESEED without
+    a spare is refused for that."""
     import re
 
     params = {"w": torch.zeros(2)}
@@ -882,7 +892,10 @@ def test_deferred_kinds_are_answered_err(kind, match):
     try:
         with tv.Channel.connect("127.0.0.1", svc.port) as ch:
             got, _, _, extra = tv.decode(ch.request(tv.encode(kind, 0, None)))
-        assert got == tv.ERR and re.search(match, extra["error"]), extra
+        if match is None:
+            assert got == tv.OK and extra["role"] == "primary", extra
+        else:
+            assert got == tv.ERR and re.search(match, extra["error"]), extra
     finally:
         _stop([svc])
 
@@ -891,8 +904,10 @@ def test_deferred_kinds_are_answered_err(kind, match):
                                    ["--replicate-to", "h:1"]],
                          ids=["compress", "backup", "replicate-to"])
 def test_deferred_trainer_flags_raise(flags):
-    """The replication flags raise naming item 5.6; ``--compress`` (item
-    5.3) parses into the worker's codec flags instead."""
+    """Flags a later item ported parse into their options: ``--compress``
+    (item 5.3) into the worker's codec flags, the replication flags (item
+    5.6) into the server's, which refuses a backup that would also
+    replicate."""
     from ps_tpu_torch.examples import train_mnist_async
 
     if flags[0] == "--compress":
@@ -902,9 +917,15 @@ def test_deferred_trainer_flags_raise(flags):
         assert (args.compress, args.compress_topk,
                 args.compress_min_bytes) == ("int8", 0.05, 4096)
         return
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5.6"):
-        train_mnist_async.main(["--device", "cpu", "--role", "server",
-                                *flags])
+    args = train_mnist_async.parse_args(
+        ["--device", "cpu", "--role", "server", *flags,
+         "--replica-ack", "async", "--replica-window", "8"])
+    assert (args.backup, args.replicate_to) == (
+        flags == ["--backup"], flags[1] if len(flags) > 1 else None)
+    assert (args.replica_ack, args.replica_window) == ("async", 8)
+    with pytest.raises(SystemExit, match="belong to the primary"):
+        train_mnist_async.parse_args(["--role", "server", "--backup",
+                                      "--beat", "h:1"])
 
 
 def test_bf16_push_is_refused_with_a_typed_error():

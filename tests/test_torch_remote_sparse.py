@@ -666,18 +666,22 @@ def test_port_and_reference_workers_send_the_same_frames():
     ({"compress": "int8"}, None),
     ({"shm": True}, None),
     ({"coordinator": "127.0.0.1:1"}, "elastic/.*item 6"),
-    ({"uri": "127.0.0.1:1|127.0.0.1:2"}, "replica/.*item 5.6"),
+    ({"uri": "{uri}|127.0.0.1:1"}, None),
 ], ids=["compress", "shm", "coordinator", "replica-set"])
 def test_deferred_worker_options_raise(kwargs, match):
     svc = _serve()
     try:
         kw = dict(kwargs)
-        if match is None:  # items 5.3 (compress) and 5.2 (shm)
-            w = connect_sparse(_uri([svc]), 0, SPEC, **kw)
+        if match is None:  # items 5.3 (compress), 5.2 (shm), 5.6 (replicas)
+            w = connect_sparse(kw.pop("uri", "{uri}").format(
+                uri=_uri([svc])), 0, SPEC, **kw)
             if "shm" in kw:
                 assert w._chs[0].lane == "shm"
-            else:
+            elif "compress" in kw:
                 assert w.compress == {"codec": "int8", "seed": 0}
+            else:  # the primary first, its backup after it
+                assert w._replica_sets == [[("127.0.0.1", svc.port),
+                                            ("127.0.0.1", 1)]]
             ids = np.arange(3, dtype=np.int32)
             w.push({"deep": (ids, np.ones((3, SPEC["deep"][1]), np.float32))})
             assert w.versions()["deep"] == 1
@@ -695,7 +699,7 @@ class _TieredLike(SparseEmbedding):
 
 
 @pytest.mark.parametrize("case,match", [
-    ("backup", "replica/.*item 5.6"),
+    ("backup", None),
     ("native_loop", None),
     ("shm", None),
     ("coordinator", "elastic/.*item 6"),
@@ -707,7 +711,8 @@ class _TieredLike(SparseEmbedding):
 def test_deferred_options_raise_and_name_their_item(case, match):
     """Every option left for a later item raises NotImplementedError
     naming it (READ is answered ERR, naming it); the native loop (item
-    5.1) and accepting shm offers (item 5.2) are in effect."""
+    5.1), accepting shm offers (item 5.2) and a backup (item 5.6) are in
+    effect."""
     import re
 
     if match is None:
@@ -716,14 +721,14 @@ def test_deferred_options_raise_and_name_their_item(case, match):
         try:
             assert svc.native_loop == (case == "native_loop")
             assert svc._shm_accept
+            assert svc.role == ("backup" if case == "backup" else "primary")
         finally:
             svc.stop()
         return
-    if case in ("backup", "coordinator"):
-        value = "127.0.0.1:1" if case == "coordinator" else True
+    if case == "coordinator":
         with pytest.raises(NotImplementedError, match=match):
             SparsePSService(harness.sparse_tables(SHAPE, 0, 1),
-                            **{case: value})
+                            coordinator="127.0.0.1:1")
         return
     if case == "tiered":
         emb = _TieredLike(8, 2)

@@ -10,6 +10,9 @@ limit, so nothing hangs:
     python tests/test_torch_van_harness.py drill <rank> <k> <port> <hb_base> <victim> <out>
     python tests/test_torch_van_harness.py sparse-server <out> <nworkers> <cycles> <shard> <nshards> <device> <shape> [<opts>]
     python tests/test_torch_van_harness.py sparse-worker <ports> <out> <worker> <cycles> <device> <shape> <nworkers> <record> [<opts>]
+    python tests/test_torch_van_harness.py replica-backup <out> <watch_port> <watch_timeout_ms> <device>
+    python tests/test_torch_van_harness.py replica-primary <out> <watch_port> <ack> <window> <device>
+    python tests/test_torch_van_harness.py replica-worker <out> <steps> <kill_at> <device>
 
 - server: an async KVStore on the CPU (sgd 0.05, dc_lambda 0.04) behind
   ``AsyncPSService`` with its full history, on a port the kernel picks
@@ -42,6 +45,21 @@ limit, so nothing hangs:
   spec}``. Phases 17 and 19 of ``chip_smoke.py`` run the same code on the
   card at "wd"; :func:`sparse_replay` replays a run, re-encoding each
   worker's grads through its codec when it compressed them.
+
+- replica-backup / replica-primary / replica-worker: the failover drill
+  of replication (``replica/``), modelled on the reference's
+  ``tests/mp_replica_worker.py``: the MNIST trainer's MLP (hidden 32,
+  sgd 0.1, dc_lambda 0, one worker) on a backup with a
+  ``PromotionWatch`` on ``watch_port`` (its port in ``backup_port``),
+  and on a primary that attaches it with ``ack`` and ``window`` and
+  beats the watch every 50 ms (``primary.ready`` holds its port once
+  attached); the worker trains ``steps`` steps over the replica set and,
+  after step ``kill_at``, writes ``killpoint`` and waits for ``killed``
+  (the parent's SIGKILL of the primary landed), so its next push meets
+  the dead primary. The servers run until ``done`` appears; the backup
+  then dumps its role, promotion and counters (``backup.json``, its
+  params ``backup_params.npz``), the worker its losses, failovers and
+  final params (``worker.json``, ``worker_params.npz``).
 
 Every process of this file computes on one intra-op thread, as the
 replays of its runs do (:func:`one_thread`). :func:`replay` replays a run
@@ -213,8 +231,11 @@ def replay(event_logs, num_workers: int, device, witness=None,
     returns the final ``{key: tensor}`` of every key.
 
     Each worker's gradient is recomputed from what it pulled: its c-th
-    push takes the gradient of its c-th batch at the params of its c-th
-    pull, merged over the shards. Each log keeps its shard's order; a push
+    push takes the gradient of its c-th batch at the params of its last
+    pull before that push on each shard, merged over the shards (after a
+    failover a worker may pull twice before a push: its in-flight
+    push_pull's push was deduplicated at the promoted backup, which
+    recorded the pull again). Each log keeps its shard's order; a push
     waits until the worker's pulls it depends on were replayed on every
     shard, as in the run. On the run's device the result is the servers'
     final parameters bitwise.
@@ -290,6 +311,16 @@ def replay(event_logs, num_workers: int, device, witness=None,
         return {k: torch.from_numpy(np.array(v)).to(tree[k].device)
                 for k, v in got.items()}
 
+    # (worker, shard) -> for its c-th push there, the index of its last
+    # pull before it
+    used = {}
+    for s, log in enumerate(event_logs):
+        npulls = {}
+        for op, w in log:
+            if op == "pull":
+                npulls[w] = npulls.get(w, 0) + 1
+            else:
+                used.setdefault((w, s), []).append(npulls.get(w, 0) - 1)
     pulls = {}    # (worker, shard) -> trees pulled on ``device``
     pushes = {}   # (worker, shard) -> pushes replayed
     grads = {}    # (worker, cycle) -> one gradient a device
@@ -308,12 +339,12 @@ def replay(event_logs, num_workers: int, device, witness=None,
                 else:
                     c = pushes.get((w, s), 0)
                     if (w, c) not in grads:
-                        if any(len(pulls.get((w, t), [])) <= c
+                        if any(len(pulls.get((w, t), [])) <= used[(w, t)][c]
                                for t in range(nshards)):
                             break  # its pull on another shard comes first
                         kv = {}
                         for t in range(nshards):
-                            kv.update(pulls[(w, t)][c])
+                            kv.update(pulls[(w, t)][used[(w, t)][c]])
                         batch = next(streams[w])
                         gs = []
                         for dev in devices:
@@ -476,6 +507,120 @@ def run_drill(rank, k, port, hb_base, victim, out):
     ps.shutdown(abort=True)
     with open(os.path.join(out, f"drill{rank}.json"), "w") as f:
         json.dump(result, f)
+
+
+# -- the replication drill's processes (replica/) -----------------------------
+
+
+def _wait_file(path, timeout=120.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} never appeared")
+        time.sleep(0.01)
+
+
+def _write(path, text) -> None:
+    with open(path + ".tmp", "w") as f:
+        f.write(str(text))
+    os.replace(path + ".tmp", path)
+
+
+def _replica_store(device):
+    """The MNIST trainer's MLP from seed 0 in an async store (sgd 0.1,
+    dc_lambda 0, one worker) on ``device``."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.examples.train_mnist_async import build
+
+    ctx = ps.init(backend="cuda", mode="async", num_workers=1,
+                  dc_lambda=0.0, device=device)
+    params, _ = build(0, ctx.device)
+    store = ps.KVStore(optimizer="sgd", learning_rate=0.1, mode="async")
+    store.init(params)
+    return store
+
+
+def run_replica_backup(out, watch_port, watch_timeout_ms, device):
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.backends.remote_async import AsyncPSService
+    from ps_tpu_torch.replica import PromotionWatch
+
+    svc = AsyncPSService(_replica_store(device), backup=True)
+    watch = PromotionWatch(svc, primary_id=1, port=watch_port,
+                           timeout_ms=watch_timeout_ms)
+    _write(os.path.join(out, "backup_port"), svc.port)
+    _wait_file(os.path.join(out, "done"), timeout=300)
+    np.savez(os.path.join(out, "backup_params.npz"),
+             **{k: v.cpu().numpy() for k, v in svc._engine._params.items()})
+    with open(os.path.join(out, "backup.json"), "w") as f:
+        json.dump({"role": svc.role, "epoch": svc.epoch,
+                   "promote_reason": svc.promote_reason,
+                   "promotion_s": svc.promotion_s,
+                   "detect_age_ms": watch.detect_age_ms,
+                   "version": svc._engine.version,
+                   "replica_applied_seq": svc._replica_applied_seq,
+                   "dedup_hits": svc.transport.dedup_hits}, f)
+    watch.close()
+    svc.stop()
+    ps.shutdown()
+
+
+def run_replica_primary(out, watch_port, ack, window, device):
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.backends.remote_async import AsyncPSService
+    from ps_tpu_torch.control.heartbeat import HeartbeatClient
+
+    svc = AsyncPSService(_replica_store(device))
+    path = os.path.join(out, "backup_port")
+    _wait_file(path)
+    with open(path) as f:
+        back = int(f.read())
+    svc.attach_backup("127.0.0.1", back, ack=ack, window=int(window))
+    hb = HeartbeatClient("127.0.0.1", watch_port, node_id=1, interval_ms=50)
+    _write(os.path.join(out, "primary.ready"), svc.port)
+    # serves until killed (the drill) or until the run is over
+    _wait_file(os.path.join(out, "done"), timeout=300)
+    hb.close(goodbye=False)
+    svc.stop()
+    ps.shutdown()
+
+
+def run_replica_worker(out, steps, kill_at, device):
+    import torch
+
+    from ps_tpu_torch.backends.remote_async import connect_async
+    from ps_tpu_torch.data.synthetic import mnist_batches
+    from ps_tpu_torch.examples.train_mnist_async import build
+    from ps_tpu_torch.kv import keys
+    from ps_tpu_torch.kv.store import value_and_grad
+
+    params, loss_fn = build(0, device)
+    ready = os.path.join(out, "primary.ready")
+    _wait_file(ready)
+    with open(ready) as f, open(os.path.join(out, "backup_port")) as g:
+        uri = f"127.0.0.1:{f.read()}|127.0.0.1:{g.read()}"
+    w = connect_async(uri, 0, params, failover_timeout=30.0)
+    losses = []
+    p = w.pull_all()
+    for step, (images, labels) in enumerate(mnist_batches(32, steps=steps)):
+        batch = (torch.from_numpy(images).to(w.device),
+                 torch.from_numpy(labels).to(w.device))
+        loss, grads, _ = value_and_grad(loss_fn, p, batch)
+        losses.append(float(loss))
+        p = w.push_pull(grads)  # rides the failover once the kill landed
+        if step == kill_at:
+            # the parent's cue: the primary dies now, and the next push
+            # meets it dead
+            _write(os.path.join(out, "killpoint"), step)
+            _wait_file(os.path.join(out, "killed"), timeout=60)
+    flat, _ = keys.flatten_with_keys(p)
+    np.savez(os.path.join(out, "worker_params.npz"),
+             **{k: v.detach().cpu().numpy() for k, v in flat.items()})
+    with open(os.path.join(out, "worker.json"), "w") as f:
+        json.dump({"losses": losses, "failovers": w.transport.failovers,
+                   "failover_s": w.transport.op_samples("failover"),
+                   "epochs": w._epochs}, f)
+    w.close()
 
 
 # -- the sparse PS's processes (backends/remote_sparse.py) ------------------
@@ -660,21 +805,41 @@ def sparse_tables(shape: str, shard: int, nshards: int, fused_apply=None):
     return out
 
 
-def _read_ports(ports: str, out: str) -> str:
-    """``"p0,p1"``, or ``"@n"``: wait for the port files of n servers."""
+def _read_ports(ports: str, out: str, suffix: str = "") -> str:
+    """``"p0,p1"``, or ``"@n"``: wait for the port files of n servers
+    (``port<s><suffix>``)."""
     if not ports.startswith("@"):
         return ports
     found = []
     for s in range(int(ports[1:])):
-        path = os.path.join(out, f"port{s}")
-        deadline = time.monotonic() + 300
-        while not os.path.exists(path):
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"no server wrote {path}")
-            time.sleep(0.02)
+        path = os.path.join(out, f"port{s}{suffix}")
+        _wait_file(path, timeout=300)
         with open(path) as f:
             found.append(f.read())
     return ",".join(found)
+
+
+def table_digests(tables) -> dict:
+    """SHA-256 of each table's rows and of each of its optimizer-state
+    leaves, over the bytes on the host: equal digests are equal bits."""
+    import hashlib
+
+    from ps_tpu_torch.ops.sparse_apply import state_leaves
+
+    out = {}
+    for name, emb in tables.items():
+        for i, leaf in enumerate([emb.table] + state_leaves(emb.state())):
+            out[f"{name}/{i}"] = hashlib.sha256(
+                leaf.detach().cpu().contiguous().numpy().tobytes()
+            ).hexdigest()
+    return out
+
+
+def _launch_counts() -> dict:
+    from ps_tpu_torch.ops import sparse_apply as ops
+
+    return {"apply": ops.LAUNCHES, "group": ops.GROUP_LAUNCHES,
+            "by_rule": dict(ops.LAUNCHES_BY_RULE)}
 
 
 def run_sparse_server(out, nworkers, cycles, shard, nshards, device,
@@ -684,54 +849,154 @@ def run_sparse_server(out, nworkers, cycles, shard, nshards, device,
     (``sparse_tables<shard>.npz``), the apply log, versions, rows, the
     sparse applies' times, the kernel launch counts and the transport's
     lane, loop, admission and codec counters
-    (``sparse_server<shard>.json``). ``opts``: ``native_loop``."""
+    (``sparse_server<shard>.json``). ``opts``: ``native_loop``; and for
+    replication (``replica/``):
+
+    - ``backup`` (with ``watch_port``, ``watch_timeout_ms``): a backup
+      with a ``PromotionWatch``, its port in ``port<shard>b``; it serves
+      until promoted and every worker said goodbye, or until ``done``
+      appears, and dumps ``sparse_server<shard>b.json``;
+    - ``replicate`` (with ``ack``, ``window``, ``watch_port``): a primary
+      that waits for its backup's port, attaches it and beats its watch
+      every 50 ms before it writes ``port<shard>`` (so workers dial an
+      attached pair), sampling the backup's lag every 0.5 ms;
+    - ``digests``: only the tables' digests are dumped, no npz.
+
+    Every server of a replicated run writes ``snap<shard><tag>.json`` (its
+    tables' digests, launch counts, versions and applies) when ``snap``
+    appears, and records each apply as (worker, cycle) (``applied``: the
+    cycle is the worker's push seq less one)."""
+    import threading
+
     import ps_tpu_torch as ps
     from ps_tpu_torch.backends.remote_sparse import SparsePSService
-    from ps_tpu_torch.ops import sparse_apply as ops
+    from ps_tpu_torch.ops.sparse_apply import state_leaves
 
+    opts = opts or {}
+    backup = bool(opts.get("backup"))
+    tag = "b" if backup else ""
+    replicated = backup or bool(opts.get("replicate"))
     ps.init(backend="cuda", device=device)
     tables = sparse_tables(shape, shard, nshards)
     svc = SparsePSService(
         tables, shard=shard, num_shards=nshards,
         total_rows={n: v for n, (v, _) in sparse_spec(shape).items()},
         record_full_history=True,
-        native_loop=bool((opts or {}).get("native_loop")))
-    path = os.path.join(out, f"port{shard}")
-    with open(path + ".tmp", "w") as f:
-        f.write(str(svc.port))
-    os.replace(path + ".tmp", path)
-    if not svc.wait_for_goodbyes(nworkers, timeout=300):
+        native_loop=bool(opts.get("native_loop")), backup=backup)
+    applied = []
+    if replicated:
+        log_append = svc.apply_log.append
+
+        def record(worker):  # under the service's lock, after the ledger
+            applied.append([worker, svc._applied_pseq[worker][1] - 1])
+            log_append(worker)
+
+        svc.apply_log.append = record
+    watch = hb = None
+    promoted_at = []
+    lag = {"max": 0, "samples": 0}
+    stop_sampling = threading.Event()
+    if backup:
+        from ps_tpu_torch.replica import PromotionWatch
+
+        watch = PromotionWatch(
+            svc, primary_id=1, port=int(opts["watch_port"]),
+            timeout_ms=int(opts.get("watch_timeout_ms", 1000)),
+            on_promote=lambda reason, s: promoted_at.append(
+                time.monotonic()))
+        path = os.path.join(out, f"port{shard}b")
+    else:
+        if opts.get("replicate"):
+            from ps_tpu_torch.control.heartbeat import HeartbeatClient
+
+            back = os.path.join(out, f"port{shard}b")
+            _wait_file(back, timeout=300)
+            with open(back) as f:
+                sess = svc.attach_backup(
+                    "127.0.0.1", int(f.read()), ack=opts.get("ack", "sync"),
+                    window=int(opts.get("window", 256)))
+            hb = HeartbeatClient("127.0.0.1", int(opts["watch_port"]),
+                                 node_id=1, interval_ms=50)
+
+            def sample():
+                while not stop_sampling.wait(0.0005):
+                    lag["max"] = max(lag["max"], sess.lag)
+                    lag["samples"] += 1
+
+            threading.Thread(target=sample, daemon=True).start()
+        path = os.path.join(out, f"port{shard}")
+    if replicated:
+        def snap():
+            _wait_file(os.path.join(out, "snap"), timeout=600)
+            with svc._service_lock():
+                rec = {"digests": table_digests(tables),
+                       "launches": _launch_counts(),
+                       "versions": dict(svc.versions),
+                       "applies": svc.apply_log.total,
+                       "role": svc.role,
+                       "replica_applied_seq": svc._replica_applied_seq,
+                       "repl": svc.replica_state().get("repl")}
+            _write(os.path.join(out, f"snap{shard}{tag}.json"),
+                   json.dumps(rec))
+
+        threading.Thread(target=snap, daemon=True).start()
+    _write(path, svc.port)
+    if backup:
+        done = os.path.join(out, "done")
+        deadline = time.monotonic() + 600
+        while not os.path.exists(done) and not (
+                svc.role == "primary" and svc.goodbyes >= nworkers):
+            if time.monotonic() > deadline:
+                raise TimeoutError("the backup was never released")
+            time.sleep(0.01)
+    elif not svc.wait_for_goodbyes(nworkers, timeout=300):
         raise TimeoutError(f"only {svc.goodbyes}/{nworkers} goodbyes "
                            f"({len(svc.apply_log)} pushes)")
+    stop_sampling.set()
     target = expected_pushes(shape, shard, nshards, nworkers, cycles)
-    assert len(svc.apply_log) == target, (len(svc.apply_log), target)
-    from ps_tpu_torch.ops.sparse_apply import state_leaves
-
-    arrays = {}
-    for name, emb in tables.items():
-        arrays[name] = emb.table.cpu().numpy()
-        for i, leaf in enumerate(state_leaves(emb.state())):
-            arrays[f"{name}/state{i}"] = leaf.cpu().numpy()
-    np.savez(os.path.join(out, f"sparse_tables{shard}.npz"), **arrays)
-    with open(os.path.join(out, f"sparse_server{shard}.json"), "w") as f:
-        json.dump({
-            "apply_log": svc.apply_log, "versions": svc.versions,
-            "rows_applied": svc.rows_applied, "meta": svc._meta,
-            "tiers": svc.fused_tiers, "device": str(tables["deep"].device),
-            "launches": {"apply": ops.LAUNCHES,
-                         "group": ops.GROUP_LAUNCHES,
-                         "by_rule": dict(ops.LAUNCHES_BY_RULE)},
-            "sparse_apply_s": svc.transport.op_samples("sparse_apply"),
-            "apply_s": svc.transport.op_samples("apply"),
-            "rows": svc.transport.sparse_rows_applied,
-            "staging_s": svc.transport.staging_s,
-            "native_loop": svc.native_loop, "admit": svc.admit_stats(),
-            "upcalls": svc.transport.loop_upcalls,
-            "loop_pushes": svc.transport.loop_pushes,
-            "shm_frames": svc.transport.shm_frames,
-            "shm_spills": svc.transport.shm_spill_frames,
-            "codec_bytes": [svc.transport.codec_raw_bytes,
-                            svc.transport.codec_enc_bytes]}, f)
+    if not replicated:
+        assert len(svc.apply_log) == target, (len(svc.apply_log), target)
+    info = {
+        "apply_log": svc.apply_log, "versions": svc.versions,
+        "rows_applied": svc.rows_applied, "meta": svc._meta,
+        "tiers": svc.fused_tiers, "device": str(tables["deep"].device),
+        "launches": _launch_counts(),
+        "sparse_apply_s": svc.transport.op_samples("sparse_apply"),
+        "apply_s": svc.transport.op_samples("apply"),
+        "rows": svc.transport.sparse_rows_applied,
+        "staging_s": svc.transport.staging_s,
+        "native_loop": svc.native_loop, "admit": svc.admit_stats(),
+        "upcalls": svc.transport.loop_upcalls,
+        "loop_pushes": svc.transport.loop_pushes,
+        "shm_frames": svc.transport.shm_frames,
+        "shm_spills": svc.transport.shm_spill_frames,
+        "codec_bytes": [svc.transport.codec_raw_bytes,
+                        svc.transport.codec_enc_bytes]}
+    if replicated:
+        info.update({
+            "expected": target, "applied": applied,
+            "digests": table_digests(tables),
+            "replica": svc.replica_state(),
+            "promoted_at": promoted_at[0] if promoted_at else None,
+            "detect_age_ms": watch.detect_age_ms if watch else None,
+            "repl_entries": svc.transport.repl_entries,
+            "repl_bytes": svc.transport.repl_bytes,
+            "repl_ack_wait_s": svc.transport.op_samples("repl_ack_wait"),
+            "lag": lag})
+    if not opts.get("digests"):
+        arrays = {}
+        for name, emb in tables.items():
+            arrays[name] = emb.table.cpu().numpy()
+            for i, leaf in enumerate(state_leaves(emb.state())):
+                arrays[f"{name}/state{i}"] = leaf.cpu().numpy()
+        np.savez(os.path.join(out, f"sparse_tables{shard}{tag}.npz"),
+                 **arrays)
+    with open(os.path.join(out, f"sparse_server{shard}{tag}.json"), "w") as f:
+        json.dump(info, f)
+    if watch is not None:
+        watch.close()
+    if hb is not None:
+        hb.close(goodbye=True)
     svc.stop()
     ps.shutdown()
 
@@ -746,7 +1011,11 @@ def run_sparse_worker(ports, out, worker, cycles, device, shape,
     window, the lane's and the codec's counters, which payload keys were
     encoded and their largest sizes) and, with ``record``, every pulled
     row set and the per-server versions its replies carried
-    (``sparse_pulls<id>.npz``). ``opts``: ``shm``, ``compress``."""
+    (``sparse_pulls<id>.npz``). ``opts``: ``shm``, ``compress``; and for
+    replication: ``replicas`` (dial each shard's replica set
+    ``port<s>|port<s>b``), ``pause_at`` (after that many cycles write
+    ``paused<id>`` and wait for ``resume``), ``cue_at`` (after that many
+    cycles write ``cue<id>`` and go on)."""
     import torch
 
     from ps_tpu_torch.backends.remote_sparse import connect_sparse
@@ -754,12 +1023,18 @@ def run_sparse_worker(ports, out, worker, cycles, device, shape,
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
+    opts = opts or {}
     uri = ",".join(f"127.0.0.1:{p}"
                    for p in _read_ports(str(ports), out).split(","))
-    opts = opts or {}
+    if opts.get("replicas"):
+        backups = _read_ports(str(ports), out, suffix="b").split(",")
+        uri = ",".join(f"{p}|127.0.0.1:{b}"
+                       for p, b in zip(uri.split(","), backups))
     w = connect_sparse(uri, worker, sparse_spec(shape),
                        shm=bool(opts.get("shm")),
-                       compress=opts.get("compress"))
+                       compress=opts.get("compress"),
+                       failover_timeout=60.0 if opts.get("replicas")
+                       else None)
     keys = {}  # payload key -> [times encoded, times raw, largest bytes]
     encode = w._encode_push_tree
 
@@ -802,6 +1077,11 @@ def run_sparse_worker(ports, out, worker, cycles, device, shape,
             seen = {n: list(v) for n, v in w._versions.items()}
         cycle_s.append(time.perf_counter() - t0)
         starts.append(t0)
+        if c + 1 == opts.get("cue_at"):
+            _write(os.path.join(out, f"cue{worker}"), c)
+        if c + 1 == opts.get("pause_at"):
+            _write(os.path.join(out, f"paused{worker}"), c)
+            _wait_file(os.path.join(out, "resume"), timeout=600)
         versions.append(seen)  # what the replies carrying the rows said
         for n, (_, dim) in sparse_spec(shape).items():
             r = rows[n]
@@ -824,13 +1104,16 @@ def run_sparse_worker(ports, out, worker, cycles, device, shape,
             "lane": w.transport.lane(), "shm_frames": w.transport.shm_frames,
             "shm_spills": w.transport.shm_spill_frames,
             "compress": w.compress, "encoded_keys": keys,
+            "starts": starts, "failovers": w.transport.failovers,
+            "failover_s": w.transport.op_samples("failover"),
+            "epochs": w._epochs,
             "codec_bytes": [w.transport.codec_raw_bytes,
                             w.transport.codec_enc_bytes]}, f)
     w.close()
 
 
 def sparse_replay(infos, shape, nworkers, cycles, pulls=None,
-                  fused_apply=None, compress=None):
+                  fused_apply=None, compress=None, by_cycle=False):
     """Replay each shard's apply log (``infos``, one server dump a shard,
     in shard order) through the port's one-process tables on the device
     ``ps_tpu_torch.init`` chose; returns ``(tables, checked)`` with
@@ -842,7 +1125,12 @@ def sparse_replay(infos, shape, nworkers, cycles, pulls=None,
     ``checked`` counts the (pull, shard, table) row sets held.
 
     ``compress`` (``{worker: spec}``, each worker's resolved spec) replays
-    the grads the servers decoded from each worker's codec."""
+    the grads the servers decoded from each worker's codec.
+
+    ``by_cycle`` replays each dump's ``applied`` (worker, cycle) order
+    instead of each worker's routed pushes in turn (a replicated run with
+    async ack may lose pushes of the window: what was applied is replayed,
+    and nothing need have applied all)."""
     import torch
 
     from ps_tpu_torch.backends.remote_sparse import row_range
@@ -884,13 +1172,18 @@ def sparse_replay(infos, shape, nworkers, cycles, pulls=None,
         streams = {w: routed_pushes(shape, w, s, nshards, cycles, ids[w],
                                     compress=(compress or {}).get(w))
                    for w in range(nworkers)}
-        for w in info["apply_log"]:
-            for name, (i, g) in next(streams[w]).items():
+        if by_cycle:
+            pushes = (_routed(shape, w, c, ids[w][c], s, nshards)
+                      for w, c in info["applied"])
+        else:
+            pushes = (next(streams[w]) for w in info["apply_log"])
+        for per in pushes:
+            for name, (i, g) in per.items():
                 tables[name].push(i, g)
                 version[name] += 1
                 check(name, version[name])
         for w in range(nworkers):  # the log consumed every routed push
-            assert next(streams[w], None) is None, (s, w)
+            assert by_cycle or next(streams[w], None) is None, (s, w)
         assert version == info["versions"], (s, version, info["versions"])
         # a pull at a version the replay never reached matters only when
         # the pull asked this shard for rows
@@ -918,6 +1211,15 @@ def main(argv) -> int:
         opts = json.loads(argv[10]) if len(argv) > 10 else None
         run_sparse_worker(ports, out, int(worker), int(cycles), device,
                           shape, int(nworkers), record == "1", opts)
+    elif role == "replica-backup":
+        out, watch_port, timeout_ms, device = argv[2:6]
+        run_replica_backup(out, int(watch_port), int(timeout_ms), device)
+    elif role == "replica-primary":
+        out, watch_port, ack, window, device = argv[2:7]
+        run_replica_primary(out, int(watch_port), ack, int(window), device)
+    elif role == "replica-worker":
+        out, steps, kill_at, device = argv[2:6]
+        run_replica_worker(out, int(steps), int(kill_at), device)
     elif role == "server":
         out, nworkers, cycles = argv[2:5]
         shard = int(argv[5]) if len(argv) > 5 else None
