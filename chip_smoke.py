@@ -246,7 +246,7 @@ Phases, each raising on failure:
 19. the van's transport options on the card (ROADMAP items 5.1-5.3): (a)
    phase 17 (a)'s sparse PS (two ``serve_sparse`` processes of 1,300,000
    rows, deep adagrad and wide sgd; three ``connect_sparse`` processes x
-   60 cycles of 13,312 ids) with the servers on the native epoll loop,
+   30 cycles of 13,312 ids) with the servers on the native epoll loop,
    run twice: every worker over TCP, so that every frame is decoded,
    staged onto the card and freed by the loop's pump (the pump must
    dispatch exactly the workers' pushes and native admission classify
@@ -280,15 +280,15 @@ Phases, each raising on failure:
 20. replication and live failover on the card (ROADMAP item 5.6,
    ``ps_tpu_torch/replica/``): (a) phase 17 (a)'s sparse PS (W&D's width,
    two shards of 1,300,000 rows, deep adagrad and wide sgd, three
-   ``connect_sparse`` processes x 60 cycles of 13,312 ids) with each
+   ``connect_sparse`` processes x 40 cycles of 13,312 ids) with each
    shard a ``serve_sparse`` primary process and a ``backup=True`` process
    with a ``PromotionWatch`` (horizon 1,000 ms), both on the card,
    attached with sync ack, the workers dialling ``p0|b0,p1|b1``: after
-   30 cycles the workers pause and each backup's tables and row state
+   20 cycles the workers pause and each backup's tables and row state
    must equal its primary's bitwise (SHA-256 of every table and state
    leaf) and each backup must have launched 2 grouping + 2 apply kernels
    a replicated push in its own process; then primary 0 is SIGKILLed and
-   the workers run the other 30 cycles: backup 0 promotes with reason
+   the workers run the other 20 cycles: backup 0 promotes with reason
    ``timeout``, every worker finishes after its failover, every push is
    applied once (none twice, none acked lost), the promoted backup's log
    replays through the port's tables on the card to its tables bitwise,
@@ -305,7 +305,7 @@ Phases, each raising on failure:
    promoted backup's event log replayed on the card bitwise its params
    (a CPU witness in lockstep as in phase 16); (c) (a) with async ack and a
    window of 8, primary 0 SIGKILLed mid-traffic (once worker 0 finished
-   cycle 30): the backups' lag never past 8, the run goes on, the promoted
+   cycle 20): the backups' lag never past 8, the run goes on, the promoted
    tables bitwise the replay of what it applied, at most 8 pushes short of
    all of them, and their distance from the unkilled replay printed; (d)
    printed, not held: sparse cycles/s and the median push unreplicated
@@ -316,6 +316,43 @@ Phases, each raising on failure:
    ``python3 -c "import chip_smoke as c, tempfile; c.phase_build();
    c.phase_replication(tempfile.mkdtemp())"`` (its (d) then prints 0 for
    the unreplicated numbers).
+21. the read path on the card (ROADMAP item 5.8): (a) phase 20 (a)'s two
+   shards of W&D's tables, each a ``serve_sparse`` primary on the native
+   loop with the default 64 MiB read cache and a sync-ack backup process
+   (shard 0 also a frozen backup, never attached), a pusher process
+   running phase 17's cycles at its natural rate and 4 reader processes,
+   each with its own hot id-set of 13,312 Zipf-skewed ids: a raw READ's
+   native hit bitwise the pump miss that published it and its rows
+   bitwise a ROW_PULL at that version; on a 60-id set (120 ids over the
+   two tables, within the 128-id tag cap) a disjoint push leaves the entry serving (one more
+   hit, no miss) and a push into it drops it, the next read the
+   post-apply rows; then 3-s windows of 2 and 4 readers under the
+   pusher's churn, layered (``read_rows`` over ``p|b`` at
+   ``read_staleness=0``, the cache on) and primary-only (the primaries,
+   the cache off), each server read in a window (the backups too,
+   layered) serving NOT_MODIFIED replies and row deltas; with the
+   pusher stopped every reader's held rows
+   (after its NOT_MODIFIED and delta replies) bitwise a full read with
+   ``read_conditional`` off and a pull; replica reads served at bound 0;
+   the frozen backup at bound 1 serves no read, each read it is asked
+   falls back; every primary and backup launched 2 grouping + 2 apply
+   kernels a push, each backup bitwise its primary, and the reads launch
+   none; (b) config 5's server (``replica-primary`` of the van harness)
+   on the loop with a sync-ack backup: a native hit bitwise its pump
+   miss, ``read_all`` bitwise ``pull_all`` at the same version, a
+   ``pull_cache`` reader served from its cache until its version
+   watcher sees a push, then refetching, and a READ conditional on the
+   version it then holds answered NOT_MODIFIED by the primary (the
+   repeat a native hit, bitwise) and the backup; the 442,939,392-byte
+   tree's ``read_all`` bitwise its ``pull_all``; (c) printed, not held:
+   each window's reads/s, native-hit rate, NOT_MODIFIED replies and
+   delta rows served, ``read_rows`` p50/p99, bytes a read, the pusher's
+   cycles/s
+   beside phase 17's, a warm read's bytes against a full read's, the
+   tree's read GB/s and what the cache budget did with it. Run it alone
+   with ``python3 -c "import chip_smoke as c, tempfile; c.phase_build();
+   c.phase_read_path(tempfile.mkdtemp())"`` (phase 17's numbers then
+   print as 0).
 
 It prints one JSON line per timed kernel, then the kernels line, then
 ``{"ok": true, "device": {...}}`` as its last line. Without a GPU, or
@@ -4056,7 +4093,8 @@ def phase_sparse_ps(tmp):
     t_phase = time.perf_counter()
     # (a) two server processes, three worker processes
     a_out = os.path.join(tmp, "a")
-    procs = _sparse_ps_spawn(harness, a_out, {}, [{}] * SPARSE_WORKERS)
+    procs = _sparse_ps_spawn(harness, a_out, {}, [{}] * SPARSE_WORKERS,
+                             SPARSE_CYCLES)
     infos, finals, records, pulls = _sparse_ps_read(harness, a_out, procs,
                                                     "sparse (a)")
     t_a = time.perf_counter() - t_phase
@@ -4067,9 +4105,10 @@ def phase_sparse_ps(tmp):
                             SPARSE_SHARDS, "cuda", "small")
               for s in range(SPARSE_SHARDS)]
     try:
-        launches = _sparse_ps_launches(harness, infos, "sparse (a)")
+        launches = _sparse_ps_launches(harness, infos, "sparse (a)",
+                                       SPARSE_CYCLES)
         checked = _sparse_ps_replay_on_card(harness, infos, finals, pulls,
-                                            "sparse (a)")
+                                            "sparse (a)", SPARSE_CYCLES)
         del pulls
         ps.init(backend="cuda", device="cpu")
         cpu_tables, _ = harness.sparse_replay(infos, "wd", SPARSE_WORKERS,
@@ -4705,18 +4744,19 @@ TRANSPORT_CODECS = ("int8", "cast16")
 TRANSPORT_WORKER_CODECS = ("topk", "topk", "cast16")
 TRANSPORT_WORKER_SHM = (False, True, False)  # (c): worker 1 on the rings
 TRANSPORT_BUCKET_BYTES = 4 << 20  # (d): the 0.44 GB tree's buckets
+TRANSPORT_CYCLES = 30  # (a)-(b): a worker's cycles, half of phase 17's
 
 
-def _sparse_ps_spawn(harness, out, server_opts, worker_opts):
-    """Phase 17 (a)'s processes with the given transport options
-    (``worker_opts``: one dict a worker)."""
+def _sparse_ps_spawn(harness, out, server_opts, worker_opts, cycles):
+    """Phase 17 (a)'s processes, ``cycles`` a worker, with the given
+    transport options (``worker_opts``: one dict a worker)."""
     os.makedirs(out)
     procs = [harness.spawn("sparse-server", out, SPARSE_WORKERS,
-                           SPARSE_CYCLES, s, SPARSE_SHARDS, "cuda", "wd",
+                           cycles, s, SPARSE_SHARDS, "cuda", "wd",
                            json.dumps(server_opts))
              for s in range(SPARSE_SHARDS)]
     procs += [harness.spawn("sparse-worker", f"@{SPARSE_SHARDS}", out, w,
-                            SPARSE_CYCLES, "cuda", "wd", SPARSE_WORKERS, 1,
+                            cycles, "cuda", "wd", SPARSE_WORKERS, 1,
                             json.dumps(worker_opts[w]))
               for w in range(SPARSE_WORKERS)]
     return procs
@@ -4739,8 +4779,9 @@ def _sparse_ps_read(harness, out, procs, what):
     return infos, finals, records, pulls
 
 
-def _sparse_ps_launches(harness, infos, what):
-    """Each shard applied its expected pushes on the kernels' tier, each
+def _sparse_ps_launches(harness, infos, what, cycles):
+    """Each shard applied its expected pushes (``cycles`` a worker) on the
+    kernels' tier, each
     push 2 grouping (cluster path) + 2 apply launches; the launches by
     kernel over the shards."""
     launches = {"sparse_apply/deep": 0, "sparse_apply/wide": 0,
@@ -4748,7 +4789,7 @@ def _sparse_ps_launches(harness, infos, what):
     for s, info in enumerate(infos):
         n = len(info["apply_log"])
         want = harness.expected_pushes("wd", s, SPARSE_SHARDS,
-                                       SPARSE_WORKERS, SPARSE_CYCLES)
+                                       SPARSE_WORKERS, cycles)
         if n != want or info["tiers"] != {"deep": "cuda", "wide": "cuda"}:
             raise AssertionError(f"{what}: shard {s} applied {n} of {want} "
                                  f"pushes, tiers {info['tiers']}")
@@ -4764,7 +4805,7 @@ def _sparse_ps_launches(harness, infos, what):
     return launches
 
 
-def _sparse_ps_replay_on_card(harness, infos, finals, pulls, what,
+def _sparse_ps_replay_on_card(harness, infos, finals, pulls, what, cycles,
                               compress=None):
     """The apply logs replayed through the port's tables on the card (each
     worker's grads through its codec): the servers' tables and state
@@ -4775,7 +4816,7 @@ def _sparse_ps_replay_on_card(harness, infos, finals, pulls, what,
     ps.init(backend="cuda")
     try:
         tables, checked = harness.sparse_replay(
-            infos, "wd", SPARSE_WORKERS, SPARSE_CYCLES, pulls=pulls,
+            infos, "wd", SPARSE_WORKERS, cycles, pulls=pulls,
             compress=compress)
         for s, final in enumerate(finals):
             for name, emb in tables[s].items():
@@ -4792,12 +4833,12 @@ def _sparse_ps_replay_on_card(harness, infos, finals, pulls, what,
     return checked
 
 
-def _lanes_in_use(harness, infos, records, opts, what):
+def _lanes_in_use(harness, infos, records, opts, what, cycles):
     """No fallback hid a path: the servers served on the native loop,
     which dispatched exactly the TCP workers' pushes (native admission
     classified their flat ones, some fresh); each ring worker's frames
     rode the rings, none spilled to TCP."""
-    harness.check_loop_carried(infos, opts, "wd", SPARSE_CYCLES, what)
+    harness.check_loop_carried(infos, opts, "wd", cycles, what)
     rings = any(o.get("shm") for o in opts)
     for s, info in enumerate(infos):
         if rings and not (info["shm_frames"] > 0
@@ -4830,21 +4871,23 @@ def _transport_sparse(harness, tmp, card):
             out = os.path.join(tmp, name)
             opts = [dict(o, compress=codec) for o in lanes]
             started[name] = (out, opts, _sparse_ps_spawn(
-                harness, out, {"native_loop": True}, opts))
+                harness, out, {"native_loop": True}, opts, TRANSPORT_CYCLES))
         for name, lanes, codec in batch:
             out, opts, procs = started[name]
             what = f"transport ({name})"
             t0 = time.perf_counter()
             infos, finals, records, pulls = _sparse_ps_read(harness, out,
                                                             procs, what)
-            _lanes_in_use(harness, infos, records, opts, what)
-            got = _sparse_ps_launches(harness, infos, what)
+            _lanes_in_use(harness, infos, records, opts, what,
+                          TRANSPORT_CYCLES)
+            got = _sparse_ps_launches(harness, infos, what, TRANSPORT_CYCLES)
             for k, v in got.items():
                 launches[k] = launches.get(k, 0) + v
             specs = ({w: r["compress"] for w, r in enumerate(records)}
                      if codec else None)
             checked = _sparse_ps_replay_on_card(harness, infos, finals,
-                                                pulls, what, specs)
+                                                pulls, what, TRANSPORT_CYCLES,
+                                                specs)
             pushed[name] = sum(r["bytes"][0] for r in records)
             keys = records[0]["encoded_keys"]
             if codec:
@@ -4860,7 +4903,7 @@ def _transport_sparse(harness, tmp, card):
                 for w, o in enumerate(opts))
             log(f"{what}: {SPARSE_SHARDS} serve_sparse processes on the "
                 f"native loop, {SPARSE_WORKERS} connect_sparse processes "
-                f"({lanes_said}) x {SPARSE_CYCLES} cycles at W&D's width"
+                f"({lanes_said}) x {TRANSPORT_CYCLES} cycles at W&D's width"
                 + (f", row grads {codec['codec']}" if codec else "")
                 + f": applies {[len(i['apply_log']) for i in infos]}, each "
                 f"2 grouping + 2 apply launches; the loop's pump dispatched "
@@ -5050,7 +5093,8 @@ def phase_transport(tmp, tcp_sparse=None, tcp_config5=None):
     t_phase = time.perf_counter()
     if tcp_sparse is None:
         out = os.path.join(tmp, "tcp")
-        procs = _sparse_ps_spawn(harness, out, {}, [{}] * SPARSE_WORKERS)
+        procs = _sparse_ps_spawn(harness, out, {}, [{}] * SPARSE_WORKERS,
+                                 TRANSPORT_CYCLES)
         infos, _, records, _ = _sparse_ps_read(harness, out, procs,
                                                "transport (TCP)")
         tcp_sparse = _sparse_numbers(infos, records)
@@ -5113,7 +5157,8 @@ def phase_transport(tmp, tcp_sparse=None, tcp_config5=None):
 # backup=True process, attached with sync ack, the workers dialling the
 # replica sets; (b) config 5 through the trainer's replication flags; (c)
 # (a) with async ack and a window of REPL_WINDOW; (d) times, printed
-REPL_PAUSE_AT = 30          # (a): cycles before the pause, the checks, the kill
+REPL_CYCLES = 40            # (a), (c): a worker's cycles (phase 17: 60)
+REPL_PAUSE_AT = 20          # (a): cycles before the pause, the checks, the kill
 REPL_WATCH_MS = 1000        # the backups' death horizon (PromotionWatch)
 REPL_WINDOW = 8             # (c): the async ack window
 REPL_CONFIG5_STEPS, REPL_CONFIG5_KILL = 60, 30  # (b)
@@ -5184,7 +5229,7 @@ def _repl_spawn(harness, out, ack, window, worker_opts, loop=False):
     watch = [harness.free_port(harness.socket.SOCK_DGRAM)
              for _ in range(SPARSE_SHARDS)]
     spawn = lambda s, opts: harness.spawn(  # noqa: E731
-        "sparse-server", out, SPARSE_WORKERS, SPARSE_CYCLES, s,
+        "sparse-server", out, SPARSE_WORKERS, REPL_CYCLES, s,
         SPARSE_SHARDS, "cuda", "wd",
         json.dumps(dict(opts, native_loop=loop, digests=True)))
     backups = [spawn(s, {"backup": True, "watch_port": watch[s],
@@ -5194,7 +5239,7 @@ def _repl_spawn(harness, out, ack, window, worker_opts, loop=False):
                            "watch_port": watch[s]})
                  for s in range(SPARSE_SHARDS)]
     workers = [harness.spawn("sparse-worker", f"@{SPARSE_SHARDS}", out, w,
-                             SPARSE_CYCLES, "cuda", "wd",
+                             REPL_CYCLES, "cuda", "wd",
                              SPARSE_WORKERS, 0,
                              json.dumps(dict(worker_opts, replicas=True,
                                              shm=loop and w == 0)))
@@ -5241,7 +5286,7 @@ def _repl_replay_digests(harness, infos, by_cycle=False):
     """The dumps' logs replayed through the port's tables on the card
     (``ps_tpu_torch.init`` made by the caller): each shard's digests."""
     tables, _ = harness.sparse_replay(infos, "wd", SPARSE_WORKERS,
-                                      SPARSE_CYCLES, by_cycle=by_cycle)
+                                      REPL_CYCLES, by_cycle=by_cycle)
     return [harness.table_digests(t) for t in tables], tables
 
 
@@ -5382,7 +5427,7 @@ def _repl_sparse_loop(harness, tmp):
     harness.check_loop_carried(
         [infos[str(s)] for s in range(SPARSE_SHARDS)],
         [{"shm": w == 0} for w in range(SPARSE_WORKERS)], "wd",
-        SPARSE_CYCLES, "repl (a), loop")
+        REPL_CYCLES, "repl (a), loop")
     for s in range(SPARSE_SHARDS):
         p, b = infos[str(s)], infos[f"{s}b"]
         seen = [tuple(x) for x in p["applied"]]
@@ -5450,7 +5495,7 @@ def _repl_sparse_async(harness, tmp):
     # the unkilled replay: what the promoted backup applied, then the pushes
     # of the window it never received
     sent = {(w, c) for w in range(SPARSE_WORKERS)
-            for c in range(SPARSE_CYCLES)
+            for c in range(REPL_CYCLES)
             if harness._routed("wd", w, c,
                                harness.sparse_ids("wd", w, c + 1)[c],
                                0, SPARSE_SHARDS)}
@@ -5467,14 +5512,14 @@ def _repl_sparse_async(harness, tmp):
                                                      for m in missing],
                   versions={n: v + len(missing)
                             for n, v in b0["versions"].items()}), p1],
-            "wd", SPARSE_WORKERS, SPARSE_CYCLES, by_cycle=True)
+            "wd", SPARSE_WORKERS, REPL_CYCLES, by_cycle=True)
         diff = max(float((tables[0][n].table - full[0][n].table).abs().max())
                    for n in tables[0])
     finally:
         ps.shutdown()
     return {"lag": lag, "lost": lost, "missing": missing, "diff": diff,
             "b0": b0, "p1": p1, "records": records, "t_kill": t_kill,
-            "numbers": _repl_window_numbers(records, SPARSE_CYCLES,
+            "numbers": _repl_window_numbers(records, REPL_CYCLES,
                                             before=t_kill)}
 
 
@@ -5606,7 +5651,7 @@ def phase_replication(tmp, unreplicated=None):
     log(f"repl (a): {SPARSE_SHARDS} shards x (a serve_sparse primary + a "
         f"backup=True process, sync ack, W&D's deep [1,300,000, 16] adagrad "
         f"and wide [1,300,000, 1] sgd on the card), {SPARSE_WORKERS} "
-        f"connect_sparse workers on the replica sets x {SPARSE_CYCLES} "
+        f"connect_sparse workers on the replica sets x {REPL_CYCLES} "
         f"cycles: after {REPL_PAUSE_AT} cycles each backup's tables and row "
         f"state bitwise its primary's (SHA-256), replicated pushes "
         f"{[a['snap'][f'{s}b']['applies'] for s in range(SPARSE_SHARDS)]}, "
@@ -5698,6 +5743,529 @@ def phase_replication(tmp, unreplicated=None):
     return {"launches": launches}
 
 
+# phase 21: the read path on the card (item 5.8). (a) phase 20 (a)'s two
+# shards, each a serve_sparse primary on the native loop (the default 64
+# MiB read cache) and a sync-ack backup, shard 0 also a frozen backup; a
+# pusher at its natural rate and READ_READERS readers of their own hot
+# id-sets; (b) config 5's server on the loop with a sync-ack backup, and
+# the 442,939,392-byte tree; (c) numbers, printed
+READ_WINDOW_S = 3.0
+READ_READERS = (2, 4)
+# a hot set within READ_TAG_CAP (128 ids over every table of a request:
+# 60 of each of the two) is tagged per key
+READ_SMALL_IDS = 60
+READ_FROZEN_READS = 10
+READ_TREE_READS = 3
+READ_CACHE_BYTES = 64 << 20  # PS_NATIVE_READ_CACHE_BYTES' default
+
+
+class _ReadRun:
+    """Phase 21 (a)'s processes and their command files: every server runs
+    each ``cmd<k>.json`` and answers with ``snap<k>_<name>.json``; every
+    reader each ``go<g>.json`` with ``read<g>_<r>.json``."""
+
+    SERVERS = ("0b", "1b", "0f", "0", "1")
+
+    def __init__(self, harness, out):
+        os.makedirs(out)
+        self.h, self.out, self.k, self.g = harness, out, 0, 0
+        opts = {"0b": {"tag": "b", "backup": True},
+                "1b": {"tag": "b", "backup": True},
+                "0f": {"tag": "f", "backup": True},
+                "0": {"native_loop": True, "attach": "b"},
+                "1": {"native_loop": True, "attach": "b"}}
+        self.servers = {n: harness.spawn(
+            "read-server", out, n[0], SPARSE_SHARDS, "cuda", "wd",
+            json.dumps(opts[n])) for n in self.SERVERS}
+        self.pusher = harness.spawn("read-pusher", out, SPARSE_CYCLES,
+                                    "cuda", "wd")
+        self.readers = [harness.spawn("read-reader", out, r, "wd")
+                        for r in range(max(READ_READERS))]
+        self.procs = (list(self.servers.values()) + [self.pusher]
+                      + self.readers)
+
+    def path(self, name):
+        return os.path.join(self.out, name)
+
+    def ports(self):
+        _wait_files([self.path(f"port{n}") for n in self.SERVERS]
+                    + [self.path("pusher_ready")]
+                    + [self.path(f"reader_ready{r}")
+                       for r in range(len(self.readers))], self.procs)
+        return {n: int(open(self.path(f"port{n}")).read())
+                for n in self.SERVERS}
+
+    def _send(self, name, body):
+        with open(self.path(name + ".tmp"), "w") as f:
+            json.dump(body, f)
+        os.replace(self.path(name + ".tmp"), self.path(name))
+
+    def cmd(self, op="snap", **kw):
+        """One command to every server; their snapshots by name."""
+        k, self.k = self.k, self.k + 1
+        self._send(f"cmd{k}.json", dict(kw, op=op))
+        got = [self.path(f"snap{k}_{n}.json") for n in self.SERVERS]
+        _wait_files(got, self.procs)
+        return {n: json.load(open(p)) for n, p in zip(self.SERVERS, got)}
+
+    def window(self, mode, readers, seconds=READ_WINDOW_S):
+        g, self.g = self.g, self.g + 1
+        self._send(f"go{g}.json", {"mode": mode, "readers": readers,
+                                   "seconds": seconds})
+        got = [self.path(f"read{g}_{r}.json")
+               for r in range(len(self.readers))]
+        _wait_files(got, self.procs)
+        return [json.load(open(p)) for p in got]
+
+    def finish(self, failed=False):
+        """Release every process and wait for it (kill them all when the
+        phase failed); raises if one exited non-zero."""
+        if failed:
+            self.h.kill_all(self.procs)
+            return
+        for name in ("push_stop", "exit"):
+            open(self.path(name), "w").close()
+        outs = self.h.finish(self.procs, SPARSE_TIMEOUT_S)
+        for p, o in zip(self.procs, outs):
+            if p.returncode != 0:
+                raise AssertionError(f"read (a): {' '.join(p.args[-6:])} "
+                                     f"exited {p.returncode}:\n{o[-3000:]}")
+
+
+def _read_launch_check(snap, names, what):
+    """Each server launched 2 grouping (cluster path) + 2 apply kernels a
+    push it applied, one of each rule; the launches by kernel."""
+    launches = {"sparse_apply/deep": 0, "sparse_apply/wide": 0,
+                "sparse_group": 0}
+    for n in names:
+        a, got = snap[n]["applies"], snap[n]["launches"]
+        if a == 0 or (got["apply"], got["group"], got["by_rule"]) != (
+                2 * a, 2 * a, {"adagrad": a, "sgd": a}):
+            raise AssertionError(f"{what}: server {n} launched {got} for {a} "
+                                 f"pushes")
+        launches["sparse_apply/deep"] += got["by_rule"]["adagrad"]
+        launches["sparse_apply/wide"] += got["by_rule"]["sgd"]
+        launches["sparse_group"] += got["group"]
+    return launches
+
+
+def _read_revalidations(before, after, names):
+    """The NOT_MODIFIED replies and delta rows ``names`` served between
+    two snapshots, summed."""
+    return {k: sum(after[n][k] - before[n][k] for n in names)
+            for k in ("not_modified", "delta_rows")}
+
+
+def _read_rows_equal(a, b, spec, what):
+    """Two ROW replies (READ or ROW_PULL) of one id-set: the same versions
+    and the same rows, bitwise."""
+    from ps_tpu_torch.control import tensor_van as tv
+
+    _, _, ta, ea = tv.decode(memoryview(a))
+    _, _, tb, eb = tv.decode(memoryview(b))
+    if ea["versions"] != eb["versions"] or not all(
+            np.array_equal(np.asarray(ta[f"{n}/rows"]),
+                           np.asarray(tb[f"{n}/rows"])) for n in spec):
+        raise AssertionError(f"{what}: the rows differ ({ea['versions']} "
+                             f"against {eb['versions']})")
+
+
+def _read_window_numbers(recs, before, after, pusher, span):
+    """One window: reads/s over the readers, read_rows p50/p99, the
+    median bytes a read, replica reads and fallbacks, the primaries' native
+    hit rate, the NOT_MODIFIED replies and delta rows the primaries and
+    the backups served, and the pusher's cycles inside the window."""
+    lat = sum((r.get("lat", []) for r in recs), [])
+    nbytes = sum((r.get("bytes", []) for r in recs), [])
+    hits = misses = 0
+    for n in ("0", "1"):
+        b, a = before[n]["cache"], after[n]["cache"]
+        hits += a["hits"] - b["hits"]
+        misses += a["misses"] - b["misses"]
+    t0, t1 = span
+    cyc = [dt for s, dt in zip(pusher["starts"], pusher["cycle_s"])
+           if s >= t0 and s + dt <= t1]
+    return {"reads_per_s": len(lat) / READ_WINDOW_S, "reads": len(lat),
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+            "bytes": float(np.median(nbytes)),
+            "replica": sum(r.get("replica", 0) for r in recs),
+            "fallbacks": sum(r.get("fallbacks", 0) for r in recs),
+            "native_hits": hits, "native_misses": misses,
+            "hit_rate": hits / max(hits + misses, 1),
+            "primaries": _read_revalidations(before, after, ("0", "1")),
+            "backups": _read_revalidations(before, after, ("0b", "1b")),
+            "push_cycles_per_s": len(cyc) / (t1 - t0)}
+
+
+def _read_sparse(harness, tmp):
+    """(a): the sparse read path under churn; returns its launches and
+    numbers."""
+    from ps_tpu_torch.backends.remote_sparse import connect_sparse, row_range
+    from ps_tpu_torch.control import tensor_van as tv
+
+    run = _ReadRun(harness, os.path.join(tmp, "read"))
+    failed = True
+    try:
+        ports = run.ports()
+        spec = harness.sparse_spec("wd")
+
+        def raw(name, payload):
+            with tv.Channel.connect("127.0.0.1", ports[name]) as ch:
+                return bytes(ch.request(payload))
+
+        # a native hit is bitwise the pump miss that published it, and its
+        # rows the primary's table rows (a ROW_PULL) at that version
+        lo, hi = row_range(0, SPARSE_SHARDS, spec["deep"][0])
+        hot = harness.read_hot_ids("wd", 0)
+        hot0 = hot[(hot >= lo) & (hot < hi)]
+        req = {f"{n}/ids": hot0 for n in spec}
+        miss = raw("0", tv.encode(tv.READ, 0, req))
+        if raw("0", tv.encode(tv.READ, 0, req)) != miss:
+            raise AssertionError("read (a): a native hit differs from its "
+                                 "pump miss")
+        _read_rows_equal(miss, raw("0", tv.encode(tv.ROW_PULL, 0, req)),
+                         spec, "read (a): a READ against a ROW_PULL")
+        s0 = run.cmd()
+        if s0["0"]["cache"]["hits"] < 1:
+            raise AssertionError(f"read (a): no native hit: "
+                                 f"{s0['0']['cache']}")
+        # per-key invalidation, on a hot set within the tag cap: a push
+        # disjoint from it leaves its entry serving, one that touches it
+        # drops it and the next read is the post-apply rows
+        small = np.unique(hot0)[:READ_SMALL_IDS].astype(np.int32)
+        sreq = tv.encode(tv.READ, 0, {f"{n}/ids": small for n in spec})
+        m = raw("0", sreq)
+        if raw("0", sreq) != m:
+            raise AssertionError("read (a): the small set's hit differs")
+        a = run.cmd()["0"]["cache"]
+        rng = np.random.default_rng(21)
+        cw = connect_sparse(f"127.0.0.1:{ports['0']},127.0.0.1:{ports['1']}",
+                            99, spec)
+
+        def push(ids):
+            cw.push({n: (ids, (rng.standard_normal((ids.size, d)) * 0.1)
+                         .astype(np.float32)) for n, (_, d) in spec.items()})
+
+        far = np.setdiff1d(np.arange(max(lo, hi - 1000), hi), hot0)[:64]
+        push(far.astype(np.int32))
+        if raw("0", sreq) != m:
+            raise AssertionError("read (a): a disjoint push changed the "
+                                 "small set's reply")
+        b = run.cmd()["0"]["cache"]
+        if not (b["hits"] == a["hits"] + 1 and b["misses"] == a["misses"]
+                and b["invalidations"] > a["invalidations"]
+                and b["floor"] > a["floor"]):
+            raise AssertionError(f"read (a): a disjoint push dropped the "
+                                 f"entry: {a} then {b}")
+        push(small[:8])
+        fresh = raw("0", sreq)
+        if fresh == m:
+            raise AssertionError("read (a): a push into the small set left "
+                                 "its entry serving")
+        _read_rows_equal(fresh, raw("0", tv.encode(tv.ROW_PULL, 0, {
+            f"{n}/ids": small for n in spec})), spec,
+            "read (a): the small set after the push")
+        snap = run.cmd()
+        if snap["0"]["cache"]["misses"] != b["misses"] + 1:
+            raise AssertionError(f"read (a): {b} then {snap['0']['cache']}")
+        _read_launch_check(snap, ("0", "0b"), "read (a), the two pushes")
+        # the pusher alone, then the readers' windows under its churn:
+        # layered (the replica sets at bound 0, the cache on) and
+        # primary-only (the primaries, the cache off)
+        open(run.path("push_go"), "w").close()
+        t0 = time.perf_counter()
+        time.sleep(READ_WINDOW_S)
+        alone = (t0, time.perf_counter())
+        spans, recs, snaps = {}, {}, {}
+        for mode in ("layered", "primary"):
+            if mode == "primary":
+                run.cmd("cache", bytes=0)
+            for r in READ_READERS:
+                before = run.cmd()
+                t0 = time.perf_counter()
+                recs[(mode, r)] = run.window(mode, r)
+                spans[(mode, r)] = (t0, time.perf_counter())
+                snaps[(mode, r)] = (before, run.cmd())
+                # the readers revalidated under churn: each server they
+                # read (the backups too, layered) answered NOT_MODIFIED
+                # and sent row deltas
+                read = (("0", "1", "0b", "1b") if mode == "layered"
+                        else ("0", "1"))
+                for n in read:
+                    got = _read_revalidations(before, snaps[(mode, r)][1],
+                                              (n,))
+                    if min(got.values()) < 1:
+                        raise AssertionError(
+                            f"read (a): {mode} R={r}: server {n} served "
+                            f"{got['not_modified']} NOT_MODIFIED and "
+                            f"{got['delta_rows']} delta rows")
+        run.cmd("cache", bytes=READ_CACHE_BYTES)
+        open(run.path("push_stop"), "w").close()
+        _wait_files([run.path("pusher.json")], run.procs)
+        pusher = json.load(open(run.path("pusher.json")))
+        # the pusher stopped: every conditional reader's held rows are a
+        # full read's, and a pull's, bitwise; a frozen backup at bound 1
+        # serves nothing, every read it is asked falls back
+        quiet = run.cmd()
+        final = run.window("final", len(run.readers))
+        if not all(r["equal"] for r in final):
+            raise AssertionError(f"read (a): a reader's held rows differ "
+                                 f"from a full read: "
+                                 f"{[r['equal'] for r in final]}")
+        fw = connect_sparse(f"127.0.0.1:{ports['0']}|127.0.0.1:"
+                            f"{ports['0f']},127.0.0.1:{ports['1']}", 98, spec,
+                            read_staleness=1)
+        for _ in range(READ_FROZEN_READS):
+            got = fw.read_rows({n: hot for n in spec})
+            want = cw.pull({n: hot for n in spec})
+            if not all(np.array_equal(got[n].numpy(), want[n].numpy())
+                       for n in spec):
+                raise AssertionError("read (a): a read past the frozen "
+                                     "backup is not the primary's rows")
+        frozen = {"replica": fw.transport.reads_replica,
+                  "fallbacks": fw.transport.read_fallbacks}
+        fw.close()
+        cw.close()
+        end = run.cmd(digests=True)
+        if frozen != {"replica": 0, "fallbacks": READ_FROZEN_READS // 2} or \
+                end["0f"]["reads_served"] != READ_FROZEN_READS // 2:
+            raise AssertionError(f"read (a): the frozen backup at bound 1: "
+                                 f"{frozen}, it served "
+                                 f"{end['0f']['reads_served']} reads")
+        for n in ("0", "1", "0b", "1b"):
+            if end[n]["launches"] != quiet[n]["launches"]:
+                raise AssertionError(f"read (a): reads launched kernels in "
+                                     f"server {n}: {quiet[n]['launches']} "
+                                     f"then {end[n]['launches']}")
+            if end[n]["reads_served"] <= quiet[n]["reads_served"] \
+                    and n in ("0", "1"):
+                raise AssertionError(f"read (a): server {n} served no read")
+        for s in ("0", "1"):
+            if (end[s]["digests"], end[s]["applies"]) != (
+                    end[s + "b"]["digests"], end[s + "b"]["applies"]):
+                raise AssertionError(f"read (a): shard {s}'s backup is not "
+                                     f"its primary bitwise")
+        launches = _read_launch_check(end, ("0", "1", "0b", "1b"),
+                                      "read (a), the churn")
+        layered = [recs[("layered", r)] for r in READ_READERS]
+        replica = sum(x.get("replica", 0) for rs in layered for x in rs)
+        if replica == 0:
+            raise AssertionError("read (a): no replica served a read at "
+                                 "bound 0 with sync ack")
+        failed = False
+    finally:
+        run.finish(failed)
+    numbers = {k: _read_window_numbers(recs[k], *snaps[k], pusher, spans[k])
+               for k in recs}
+    t0, t1 = alone
+    numbers["alone"] = {"push_cycles_per_s": sum(
+        1 for s, dt in zip(pusher["starts"], pusher["cycle_s"])
+        if s >= t0 and s + dt <= t1) / (t1 - t0)}
+    numbers["bytes_full"] = float(np.median([r["bytes_full"] for r in final]))
+    numbers["bytes_warm_nm"] = float(np.median([r["bytes_warm"]
+                                                for r in final]))
+    numbers["pushes"] = {n: end[n]["applies"] for n in ("0", "1")}
+    return {"launches": launches, "numbers": numbers, "replica": replica,
+            "frozen": frozen}
+
+
+def _read_dense(harness, out, procs):
+    """(b): config 5's server on the loop with a sync-ack backup."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.control import tensor_van as tv
+    from ps_tpu_torch.examples.train_mnist_async import build
+
+    _wait_files([os.path.join(out, "primary.ready"),
+                 os.path.join(out, "backup_port")], procs)
+    prim = int(open(os.path.join(out, "primary.ready")).read())
+    back = int(open(os.path.join(out, "backup_port")).read())
+    uri = f"127.0.0.1:{prim}|127.0.0.1:{back}"
+    with tv.Channel.connect("127.0.0.1", prim) as ch:
+        miss = bytes(ch.request(tv.encode(tv.READ, 0, None)))
+        if bytes(ch.request(tv.encode(tv.READ, 0, None))) != miss:
+            raise AssertionError("read (b): a native hit differs from its "
+                                 "pump miss")
+    from ps_tpu_torch.kv import keys as keymod
+
+    params, _ = build(0, "cuda")
+    flat, treedef = keymod.flatten_with_keys(params)
+    grads = keymod.unflatten(treedef, {k: torch.full_like(v, 1e-3)
+                                       for k, v in flat.items()}, list(flat))
+
+    def leaves(tree):
+        return keymod.flatten_with_keys(tree)[0]
+
+    w = ps.connect_async(uri, 0, params)
+    rc = ps.connect_async(uri, 0, params, pull_cache=True)
+    try:
+        for _ in range(3):
+            w.push_all(grads)
+        pulled = leaves(w.pull_all())
+        read, version = w.read_all_versioned()
+        read = leaves(read)
+        if version != w.version or any(
+                not torch.equal(read[k], pulled[k]) for k in pulled):
+            raise AssertionError(f"read (b): read_all at version {version} "
+                                 f"is not pull_all at {w.version} bitwise")
+        first = [leaves(rc.read_all()) for _ in range(3)]
+        if (rc.transport.read_wire, rc.transport.read_cache_hits) != (1, 2):
+            raise AssertionError(f"read (b): the cache served "
+                                 f"{rc.transport.read_cache_hits} of 3")
+        v0 = rc.versions[0]
+        w.push_all(grads)
+        deadline = time.monotonic() + 10.0
+        while rc.versions[0] <= v0 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        # its snapshot is behind the server now: the conditional READ is
+        # answered in full
+        again, held = rc.read_all_versioned()
+        again = leaves(again)
+        pulled = leaves(w.pull_all())
+        if rc.transport.read_wire != 2 or held != w.version or any(
+                not (torch.equal(again[k], pulled[k])
+                     and not torch.equal(first[0][k], pulled[k]))
+                for k in pulled):
+            raise AssertionError(f"read (b): the cache reader: "
+                                 f"{rc.transport.read_wire} wire reads, "
+                                 f"version {held} against {w.version}")
+        # revalidating what it now holds: NOT_MODIFIED from the primary
+        # (a native hit the second time, bitwise) and from the backup
+        cond = tv.encode(tv.READ, 0, None, extra={"cond": held})
+        for port in (prim, back):
+            with tv.Channel.connect("127.0.0.1", port) as ch:
+                nm = bytes(ch.request(cond))
+                kind, _, _, extra = tv.decode(memoryview(nm))
+                if (kind, extra.get("version")) != (tv.NOT_MODIFIED, held) \
+                        or bytes(ch.request(cond)) != nm:
+                    raise AssertionError(f"read (b): a READ at the held "
+                                         f"version {held} from port {port}: "
+                                         f"kind {kind}, {extra}")
+    finally:
+        w.close()
+        rc.close()
+        open(os.path.join(out, "done"), "w").close()
+    outs = harness.finish(procs, VAN_TIMEOUT_S)
+    for p, o in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"read (b): {' '.join(p.args[-6:])} exited "
+                                 f"{p.returncode}:\n{o[-3000:]}")
+
+
+def _read_tree():
+    """(b): the 442,939,392-byte tree, read_all against pull_all from a
+    server on the loop with the default cache budget."""
+    import ps_tpu_torch as ps
+
+    ps.init(backend="cuda", mode="async", num_workers=1)
+    tree, nbytes = _bert_like_tree(BERT_LIKE_MB)
+    store = ps.KVStore(optimizer="sgd", learning_rate=0.01, mode="async")
+    store.init(tree)
+    svc = ps.serve_async(store, native_loop=True)
+    try:
+        wk = ps.connect_async(f"127.0.0.1:{svc.port}", 0, tree)
+        pulled = wk.pull_all()
+        wk.read_all()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(READ_TREE_READS):
+            read = wk.read_all()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if any(not torch.equal(read[k], pulled[k]) for k in pulled):
+            raise AssertionError("read (b): the tree's read_all is not its "
+                                 "pull_all bitwise")
+        wk.close()
+        cs = svc._nloop.cache_stats()
+        if cs["entries"] or cs["rejects"] < READ_TREE_READS + 1:
+            raise AssertionError(f"read (b): the cache took the tree: {cs}")
+        return {"tree_bytes": nbytes,
+                "read_gbps": READ_TREE_READS * nbytes / dt / 1e9,
+                "cache": cs}
+    finally:
+        svc.stop()
+        ps.shutdown()
+
+
+def phase_read_path(tmp, pushed=None):
+    """21: the read path on the card. ``pushed`` is phase 17's numbers,
+    for the pusher's cycles/s beside them."""
+    from ps_tpu_torch.ops import _build
+
+    _build.build(("sparse_group", "sparse_apply"))  # cached after phase 2
+    harness = _van_harness()
+    card = _card_line()
+    t_phase = time.perf_counter()
+    dense_out = os.path.join(tmp, "dense")
+    os.makedirs(dense_out)
+    watch = harness.free_port(harness.socket.SOCK_DGRAM)
+    dense = [harness.spawn("replica-backup", dense_out, watch, 60_000,
+                           "cuda"),
+             harness.spawn("replica-primary", dense_out, watch, "sync", 256,
+                           "cuda", "1")]
+    try:
+        a = _read_sparse(harness, tmp)
+        t_a = time.perf_counter() - t_phase
+        _read_dense(harness, dense_out, dense)
+    finally:
+        harness.kill_all(dense)
+    tree = _read_tree()
+    t_b = time.perf_counter() - t_phase - t_a
+    n = a["numbers"]
+    log(f"read (a): {SPARSE_SHARDS} shards of W&D's deep [1,300,000, 16] "
+        f"adagrad and wide [1,300,000, 1] sgd on the card, each a "
+        f"serve_sparse primary on the native loop ({READ_CACHE_BYTES >> 20} "
+        f"MiB read cache) with a sync-ack backup, a pusher running phase "
+        f"17's cycles, {READ_READERS} readers of 13,312-id hot sets: a "
+        f"native hit bitwise its pump miss and its rows bitwise a ROW_PULL "
+        f"at that version; a {READ_SMALL_IDS}-id set kept serving across a "
+        f"disjoint push and dropped on one into it, the next read the "
+        f"post-apply rows; in every churn window each server read served "
+        f"NOT_MODIFIED replies and row deltas, and with the pusher stopped "
+        f"every conditional "
+        f"reader's held rows bitwise a full read and a pull; "
+        f"{a['replica']} replica reads at bound 0; a frozen backup at bound "
+        f"1 served {a['frozen']['replica']} reads, {a['frozen']['fallbacks']}"
+        f" fell back; the primaries applied {n['pushes']} pushes, each 2 "
+        f"grouping + 2 apply launches in the primary and in its backup, and "
+        f"the reads launched none; {t_a:.1f} s")
+    log(f"read (b): config 5's server (MLP 784-32-10) on the loop with a "
+        f"sync-ack backup: a native hit bitwise its pump miss, read_all "
+        f"bitwise pull_all at the same version, a pull_cache reader served "
+        f"from its cache until its watcher saw the push, then refetched; a "
+        f"READ conditional on what it then held answered NOT_MODIFIED by the "
+        f"primary and the backup; the {tree['tree_bytes']:,}-byte "
+        f"tree's read_all bitwise its pull_all; {t_b:.1f} s")
+    p17 = pushed or {}
+    for (mode, r), x in sorted((k, v) for k, v in n.items()
+                               if isinstance(k, tuple)):
+        log(f"read (c): {mode} R={r}: {x['reads_per_s']:.1f} reads/s "
+            f"({x['reads']} in {READ_WINDOW_S} s), read_rows p50 "
+            f"{x['p50_ms']:.3f} ms p99 {x['p99_ms']:.3f} ms, median "
+            f"{x['bytes']:.0f} bytes a read, native hits "
+            f"{x['native_hits']} of {x['native_hits'] + x['native_misses']} "
+            f"({x['hit_rate']:.4f}), {x['replica']} replica reads, "
+            f"{x['fallbacks']} fallbacks; served NOT_MODIFIED / delta rows: "
+            f"primaries {x['primaries']['not_modified']} / "
+            f"{x['primaries']['delta_rows']}, backups "
+            f"{x['backups']['not_modified']} / "
+            f"{x['backups']['delta_rows']}; the pusher "
+            f"{x['push_cycles_per_s']:.2f} cycles/s; card {card}")
+    log(f"read (c): the pusher alone {n['alone']['push_cycles_per_s']:.2f} "
+        f"cycles/s (phase 17 in this call: {SPARSE_WORKERS} workers "
+        f"{p17.get('cycles_per_s', 0):.2f} cycles/s, median cycle "
+        f"{p17.get('median_cycle_ms', 0):.3f} ms; 0 when phase 17 did not "
+        f"run); a warm read's bytes with the pusher stopped "
+        f"{n['bytes_warm_nm']:.0f} (NOT_MODIFIED) against a full read's "
+        f"{n['bytes_full']:.0f} (PS_READ_CONDITIONAL=0); the "
+        f"{tree['tree_bytes']:,}-byte tree read at {tree['read_gbps']:.3f} "
+        f"GB/s, never cached ({tree['cache']['rejects']} puts over the "
+        f"{READ_CACHE_BYTES:,}-byte budget refused, "
+        f"{tree['cache']['entries']} entries); card {card}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": a["launches"], "numbers": n, "tree": tree}
+
+
 def main():
     if len(sys.argv) == 5 and sys.argv[1] == "--two-ranks-worker":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -5762,6 +6330,8 @@ def main():
                                     tcp_config5=van["mnist"])
     with tempfile.TemporaryDirectory(prefix="ps_replica_") as tmp:
         replication = phase_replication(tmp, unreplicated=sparse["numbers"])
+    with tempfile.TemporaryDirectory(prefix="ps_read_") as tmp:
+        read = phase_read_path(tmp, pushed=sparse["numbers"])
     for e in entries:  # each rank's launches in phase 15's 20-step runs
         if e["name"] == "flash_attention/fwd":
             # each rank's launches over phase 15 (e)'s bf16 steps, and the
@@ -5787,6 +6357,9 @@ def main():
             # pushes, in their own processes
             e["launches_replication_backups"] = \
                 replication["launches"][e["name"]]
+            # phase 21 (a): the primaries' and backups' launches for the
+            # churn pushes the reads ran beside (the reads launch none)
+            e["launches_read_path"] = read["launches"][e["name"]]
             part = sparse["shard"][e["name"].split("/")[-1]
                                    if "/" in e["name"] else "group"]
             e["sparse_ps_shard"] = {"ids": sparse["shard"]["ids"],

@@ -29,6 +29,7 @@ place.
 from __future__ import annotations
 
 import heapq
+import itertools
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -934,6 +935,110 @@ class BucketedTransportMixin:
         (the reference's elastic workers re-discover the fleet here; item
         6)."""
         raise err
+
+    # -- the read path's rotation over a replica set ---------------------------
+
+    def _init_read_rotation(self, read_staleness) -> None:
+        """The staleness bound of replica reads (versions; env
+        ``PS_READ_STALENESS``, 0: a replica serves only what is provably
+        current), the rotation counters, one a shard (``next()`` on one is
+        atomic under the GIL, so concurrent readers never lose a step),
+        the members' failure cooldowns and the read channels, one a
+        (shard, member)."""
+        from ps_tpu_torch.config import env_int
+
+        self.read_staleness = (env_int("PS_READ_STALENESS", 0, lo=0)
+                               if read_staleness is None
+                               else max(int(read_staleness), 0))
+        # one counter a shard: a counter shared by the shards of a read
+        # steps once a shard, so with as many shards as members each shard
+        # would start every read at the same member
+        self._read_rr: Dict[int, object] = {}
+        self._read_bad: Dict[tuple, float] = {}
+        self._read_chs: Dict[tuple, tv.Channel] = {}
+
+    def _read_order(self, i: int):
+        """``(members, primary)``: shard ``i``'s replica set in this read's
+        rotating order, without the members in a failure cooldown (the
+        primary is always tried: it is the last resort)."""
+        members = self._replica_sets[i]
+        primary = tuple(self._addrs[i])
+        start = next(self._read_rr.setdefault(i, itertools.count()))
+        now = time.monotonic()
+        order = [tuple(members[(start + j) % len(members)])
+                 for j in range(len(members))]
+        return [a for a in order
+                if a == primary or self._read_bad.get(a, 0.0) <= now], primary
+
+    def _read_request(self, i: int, addr, payload):
+        """One READ round trip to member ``addr`` of shard ``i`` on its
+        read channel; the reply frame. A failed dial or request drops the
+        channel, sits the member out of the rotation for 2 s and raises;
+        an answer ends its cooldown."""
+        try:
+            ch = self._read_chs.get((i, addr))
+            if ch is None:
+                # a short budget: a dead replica costs this read
+                # milliseconds, not the dial's boot patience
+                ch = tv.Channel.connect(addr[0], addr[1], timeout_ms=2000,
+                                        retries=2, max_wait_s=0.5)
+                ch.stats = self.transport
+                self._read_chs[(i, addr)] = ch
+            reply = ch.request(payload)
+        except (tv.VanError, OSError):
+            ch = self._read_chs.pop((i, addr), None)
+            if ch is not None:
+                ch.close()
+            self._read_bad[addr] = time.monotonic() + 2.0
+            raise
+        self._read_bad.pop(addr, None)
+        return reply
+
+    def _read_known(self, i: int) -> int:
+        """Subclass hook: the newest version this worker has seen of shard
+        ``i``, what a replica's served version is judged against."""
+        raise NotImplementedError
+
+    def _read_rotate(self, i: int, payload, judge) -> tuple:
+        """One READ of shard ``i`` over its replica set, members in
+        rotating order. ``judge(reply, kind, extra)`` names the version the
+        staleness bound judges a reply at, or None for a reply that serves
+        nothing (its error goes on as the last). A non-primary more than
+        ``read_staleness`` behind :meth:`_read_known` is refused (a
+        fallback) and the rotation goes on; the primary always qualifies.
+        Returns ``(kind, tensors, extra, version, replica)``."""
+        order, primary = self._read_order(i)
+        last: Optional[BaseException] = None
+        for addr in order:
+            try:
+                reply = self._read_request(i, addr, payload)
+            except (tv.VanError, OSError) as e:
+                last = e
+                continue
+            kind, _, tensors, extra = tv.decode(reply)
+            version = judge(reply, kind, extra)
+            if version is None:
+                last = RuntimeError(str(extra.get("error")))
+                continue
+            known = self._read_known(i)
+            if addr != primary and known - version > self.read_staleness:
+                self.transport.record_read_fallback()
+                self.transport.record_read_gap(known - version)
+                last = RuntimeError(
+                    f"replica {addr} at version {version} exceeds the "
+                    f"staleness bound ({known} known, "
+                    f"{self.read_staleness} allowed)")
+                continue
+            self.transport.record_read_route(replica=addr != primary)
+            return kind, tensors, extra, version, addr != primary
+        raise ServerFailureError(
+            f"read failed at every member of {self._failure_noun} {i}'s "
+            f"replica set {self._replica_sets[i]}: {last}", server=i)
+
+    def _close_read_channels(self) -> None:
+        for ch in list(getattr(self, "_read_chs", {}).values()):
+            ch.close()
+        self._read_chs = {}
 
     def _with_failover(self, fn):
         """Run one transport operation; on a typed server failure, fail the

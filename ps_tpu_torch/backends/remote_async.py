@@ -46,10 +46,21 @@ its bucketed pulls on request, may travel codec-compressed
 (``compress='cast16'|'int8'|'topk'``, ``compress/``), decoded by the
 server before the apply.
 
+The read path: a ``READ`` is a side-effect-free pull (no event-log record,
+no replication entry, no DC snapshot) whose reply is a pure function of
+committed state, stamped with the version and the birth of the last
+apply (``obs/freshness.py``), so the native loop can cache it; a
+``READ`` carrying ``{"cond": v}`` at the current version gets a
+NOT_MODIFIED stamp instead. A backup answers READs too. The worker's
+:meth:`RemoteAsyncWorker.read_all` spreads reads over each shard's
+replica set within a staleness bound of ``read_staleness`` versions,
+coalesces concurrent reads of a shard into one fetch, and with
+``pull_cache=True`` keeps the last snapshot until its version watcher
+sees the shard move, then revalidates it with a conditional READ.
+
 Not ported yet, each raising with its ROADMAP Queue 1 item: the
-aggregator (5.5; a replicated merged push, ``members``, too), the read
-path (``READ``, on a backup too, ``read_staleness``, ``pull_cache``;
-5.8), elastic membership (``coordinator=``, the ``MIGRATE_*`` kinds, a
+aggregator (5.5; a replicated merged push, ``members``, too, and its
+members' reads), elastic membership (``coordinator=``, the ``MIGRATE_*`` kinds, a
 replicated partial ``push_sub``; 6), and the reference's trace spans and
 metrics endpoint (``obs/``, 6). Extra keys in an incoming frame, such as
 a trace context, are ignored.
@@ -87,6 +98,7 @@ from ps_tpu_torch.backends.van_service import (
 )
 from ps_tpu_torch.control import tensor_van as tv
 from ps_tpu_torch.kv import keys as keymod
+from ps_tpu_torch.obs import freshness
 from ps_tpu_torch.utils.metrics import TransportStats
 
 __all__ = [
@@ -129,10 +141,10 @@ class AsyncPSService(VanService):
       record_full_history: keep every event-log entry (replay parity);
         by default the logs are rings of ``history`` entries.
 
-    The pull path leans on the engine's out-of-place applies: a snapshot
-    taken under the engine lock is a set of tensors no later apply writes
-    into, so it is copied off the card and sent outside the lock while
-    other workers apply. An in-place apply would tear such pulls.
+    The pull and read paths lean on the engine's out-of-place applies: a
+    snapshot taken under the engine lock is a set of tensors no later
+    apply writes into, so it is copied off the card and sent outside the
+    lock while other workers apply. An in-place apply would tear them.
     """
 
     def __init__(self, store, port: int = 0, bind: str = "127.0.0.1",
@@ -161,6 +173,13 @@ class AsyncPSService(VanService):
         self._store = store
         self._engine = engine
         self._device = torch.device(engine.device)
+        # the birth stamp of the servable version (obs/freshness.py),
+        # stamped under the engine lock at every apply and carried by every
+        # READ reply as committed state (never a serve-time clock, which
+        # would break the byte-deterministic replies the native cache
+        # serves). Never-applied state has none: two services over the
+        # same state encode the same replies
+        self._birth: Optional[dict] = None
         self._key_order = list(store._key_order)
         if num_shards is not None:
             misplaced = [k for k in self._key_order
@@ -225,6 +244,58 @@ class AsyncPSService(VanService):
                                    extra={"version": version})
         return tv.encode(tv.OK, worker, host, extra={"version": version})
 
+    def _read_payload(self) -> bytes:
+        """One READ: a version-stamped snapshot of this shard's whole
+        subtree. Unlike PULL it records no event, replicates nothing and
+        takes no DC snapshot, so the reply (worker id 0, a contiguous
+        encode) is a pure function of committed state and the native loop
+        can answer repeats from its cache. The publish generation is taken
+        under the engine lock with the snapshot; the applies are out of
+        place, so the copy off the card and the encode run outside it."""
+        if self._engine.mesh.size > 1:
+            raise RuntimeError("a READ of a server across ranks is not "
+                               "supported: its ranks hold slices")
+        with self._engine._lock:
+            kv = {k: self._engine._params[k] for k in self._key_order}
+            version = self._engine.version
+            birth = dict(self._birth) if self._birth is not None else None
+            gen = self._read_gen_snapshot()
+        host = stage_to_host(kv, stats=self.transport)
+        reply = tv.encode(tv.OK, 0, host, extra={"version": version,
+                                                 **(birth or {})})
+        self._note_read_snapshot(gen, version)
+        self.transport.record_read_served()
+        self._note_serve_age(birth)
+        return reply
+
+    def _read_cond_reply(self, extra) -> bytes:
+        """A READ, conditional when ``extra["cond"]`` names the caller's
+        version: a target at or below it is answered with a NOT_MODIFIED
+        stamp (the birth included, so a revalidated snapshot reports its
+        true age); anything else is :meth:`_read_payload`. Deterministic
+        like the full reply (worker id 0): the native cache serves it as a
+        version-floor entry."""
+        cond = None
+        if isinstance(extra, dict) and extra.get("cond") is not None:
+            cond = int(extra["cond"])
+        if cond is not None:
+            with self._engine._lock:
+                version = self._engine.version
+                birth = dict(self._birth) if self._birth is not None else None
+                gen = self._read_gen_snapshot()
+            if version <= cond:
+                reply = tv.encode(tv.NOT_MODIFIED, 0, None,
+                                  extra={"version": version, **(birth or {})})
+                self._note_read_snapshot(gen, version)
+                self.transport.record_read_served()
+                self.transport.record_read_not_modified()
+                self._note_serve_age(birth)
+                return reply
+        return self._read_payload()
+
+    def _read_version(self):
+        return self._engine.version
+
     def _apply_push(self, worker: int, grads: Dict[str, np.ndarray],
                     extra: Optional[dict] = None
                     ) -> Tuple[Optional[int], bool]:
@@ -248,6 +319,7 @@ class AsyncPSService(VanService):
         # onto the engine's device before the lock (a CUDA copy is waited
         # for); this also copies out of the receive buffer
         grads = stage_to_device(grads, self._device, stats=self.transport)
+        t_apply = time.perf_counter()
         with self._engine._lock:
             while (self._paused and not self._draining
                    and not self._admit_while_paused(worker)):
@@ -275,8 +347,12 @@ class AsyncPSService(VanService):
                 raise _not_ported("a partial replay across a key-range move "
                                   "(elastic/)", "6")
             self._engine.push_tree(fresh, worker=worker)
-            # the native mirror's generation moves past the pre-apply one
+            # cached READ replies now describe a superseded version: drop
+            # them and refuse any in-flight publish of the pre-apply
+            # snapshot (the admission mirror's generation moves too)
             self._invalidate_reads()
+            self._birth = freshness.birth_record()
+            apply_s = time.perf_counter() - t_apply
             self._applied[worker] = self._applied.get(worker, 0) + 1
             if pseq is not None:
                 toks = self._applied_pseq.setdefault(worker, {})
@@ -297,7 +373,12 @@ class AsyncPSService(VanService):
                 wire = {k: v.cpu().numpy() for k, v in fresh.items()}
             rseq = self._replicate("push", worker, wire, {
                 "pseq": pseq, "pnonce": pnonce, "members": None,
-                "birth": time.time()})
+                "birth": self._birth["birth"]})
+        # the apply (lock wait included), and the push-to-servable lag: the
+        # lock is released and the floor raised, a READ serves the new
+        # version from here on
+        self.transport.record_apply(apply_s)
+        self.transport.record_fresh_lag(time.perf_counter() - t_apply)
         return rseq, False
 
     def _dedup_fresh(self, worker: int, pnonce, pseq: int, grads):
@@ -480,6 +561,8 @@ class AsyncPSService(VanService):
             })
         if kind == tv.PULL:
             return self._params_payload(worker)
+        if kind == tv.READ:
+            return self._read_cond_reply(extra)
         if kind == tv.PUSH:
             rseq, dedup = self._apply_push(
                 worker, self._decode_push(tensors, extra), extra=extra)
@@ -499,8 +582,6 @@ class AsyncPSService(VanService):
             return self._stats(worker)
         if kind == tv.CHECKPOINT:
             return self._checkpoint(worker, extra)
-        if kind in (tv.READ, tv.NOT_MODIFIED):
-            raise _not_ported("the read path (READ)", "5.8")
         if kind in (tv.MIGRATE_OUT, tv.MIGRATE_BEGIN, tv.MIGRATE_ROW,
                     tv.MIGRATE_COMMIT, tv.MIGRATE_ABORT):
             raise _not_ported(f"{tv.kind_name(kind)} (elastic/)", "6")
@@ -540,7 +621,10 @@ class AsyncPSService(VanService):
             with self._engine._lock:
                 self._paused = False
                 self._ckpt_clear_token()
-                self._admit_sync(locked=True)  # the pause is over: reseed
+                # the pause is over: every cached READ drops and admission
+                # reseeds
+                self._invalidate_reads()
+                self._admit_sync(locked=True)
                 self._pause_cond.notify_all()
             return tv.encode(tv.OK, worker, None, extra={
                 "version": self._engine.version, "forced": True})
@@ -572,7 +656,10 @@ class AsyncPSService(VanService):
             with self._engine._lock:
                 self._paused = False
                 self._ckpt_clear_token()
-                self._admit_sync(locked=True)  # the pause is over: reseed
+                # the pause is over: every cached READ drops and admission
+                # reseeds
+                self._invalidate_reads()
+                self._admit_sync(locked=True)
                 self._pause_cond.notify_all()
             return tv.encode(tv.OK, worker, None,
                              extra={"version": self._engine.version})
@@ -649,7 +736,14 @@ class AsyncPSService(VanService):
         self._engine.push_tree(
             stage_to_device(tree, self._device, stats=self.transport),
             worker=worker)
+        # a backup serves READs: its cached replies go stale on every
+        # replicated apply. It installs the primary's birth (a foreign
+        # stamp: the wall clock crosses processes, the monotonic one does
+        # not), so its reads report the age since the primary's apply
         self._invalidate_reads()
+        b = extra.get("birth")
+        self._birth = (freshness.foreign_record(float(b)) if b is not None
+                       else freshness.birth_record())
         self._applied[worker] = self._applied.get(worker, 0) + 1
         if extra.get("pseq") is not None:
             toks = self._applied_pseq.setdefault(worker, {})
@@ -790,6 +884,7 @@ class AsyncPSService(VanService):
                 int(w): {k: (tk[0], int(tk[1])) for k, tk in toks.items()}
                 for w, toks in (extra.get("tokens") or {}).items()}
             self._invalidate_reads()
+            self._birth = freshness.birth_record()
         logging.getLogger(__name__).info(
             "seeded as backup: %d key(s) at version %d", len(rows),
             eng.version)
@@ -872,16 +967,25 @@ def connect_async(uri: Optional[str], worker: int, params_like,
     ``PS_FAILOVER_TIMEOUT_MS``, 10 s), and its (nonce, seq)-tagged pushes
     apply exactly once at the new primary.
 
+    The read path (:meth:`RemoteAsyncWorker.read_all`): ``read_staleness``
+    (env ``PS_READ_STALENESS``, 0) is how many versions a replica's reply
+    may trail the newest version this worker knows of its primary; reads
+    rotate over each shard's replica set and a reply past the bound falls
+    back toward the primary. ``pull_cache`` (env ``PS_PULL_CACHE``, off)
+    keeps each shard's last read until a version watcher (REPLICA_STATE
+    at ``PS_HEARTBEAT_INTERVAL_MS``) or a reply shows it moved past the
+    bound; the next read then revalidates with a conditional READ
+    (``PS_READ_CONDITIONAL``, on) or refetches.
+
     Not ported yet (each raises, naming its ROADMAP Queue 1 item):
-    ``aggregator`` (5.5), ``read_staleness``/``pull_cache`` (5.8) and
+    ``aggregator`` (5.5; a member's pushes and reads through it) and
     ``coordinator`` (6).
     """
     if coordinator is not None:
         raise _not_ported("coordinator= (elastic membership, elastic/)", "6")
     if aggregator is not None:
-        raise _not_ported("aggregator= (backends/aggregator.py)", "5.5")
-    if read_staleness or pull_cache:
-        raise _not_ported("the read path (read_staleness, pull_cache)", "5.8")
+        raise _not_ported("aggregator= (backends/aggregator.py; a member's "
+                          "pushes and READs)", "5.5")
     if uri is None:
         raise ValueError("connect_async needs a server uri")
     addrs, replica_sets = parse_replica_uri(uri)
@@ -889,7 +993,8 @@ def connect_async(uri: Optional[str], worker: int, params_like,
         addrs, worker, params_like, bucket_bytes=bucket_bytes,
         pool_size=pool_size, compress=compress, writev=writev, shm=shm,
         shm_bytes=shm_bytes, replica_sets=replica_sets,
-        failover_timeout=failover_timeout)
+        failover_timeout=failover_timeout, read_staleness=read_staleness,
+        pull_cache=pull_cache)
 
 
 class CheckpointRoundError(RuntimeError):
@@ -1025,6 +1130,10 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
     whole cycle in the background, and :meth:`flush` restores serial
     semantics. Either way each server applies whole trees and records the
     same event order, so the math is the same.
+
+    Reads (:meth:`read_all`) run on channels of their own, one per
+    replica-set member, so they may be called from threads beside the
+    training loop.
     """
 
     _failure_noun = "async PS server"
@@ -1033,11 +1142,14 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                  bucket_bytes: Optional[int] = None,
                  pool_size: Optional[int] = None, compress=None,
                  writev: Optional[bool] = None, shm: Optional[bool] = None,
-                 shm_bytes: Optional[int] = None):
+                 shm_bytes: Optional[int] = None,
+                 read_staleness: Optional[int] = None,
+                 pull_cache: Optional[bool] = None):
         self._init_multi([(host, int(port))], worker, params_like,
                          bucket_bytes=bucket_bytes, pool_size=pool_size,
                          compress=compress, writev=writev, shm=shm,
-                         shm_bytes=shm_bytes)
+                         shm_bytes=shm_bytes, read_staleness=read_staleness,
+                         pull_cache=pull_cache)
 
     @classmethod
     def connect_many(cls, addrs: Sequence[Tuple[str, int]], worker: int,
@@ -1047,21 +1159,26 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                      shm: Optional[bool] = None,
                      shm_bytes: Optional[int] = None,
                      replica_sets=None,
-                     failover_timeout: Optional[float] = None
+                     failover_timeout: Optional[float] = None,
+                     read_staleness: Optional[int] = None,
+                     pull_cache: Optional[bool] = None
                      ) -> "RemoteAsyncWorker":
         self = cls.__new__(cls)
         self._init_multi(list(addrs), worker, params_like,
                          bucket_bytes=bucket_bytes, pool_size=pool_size,
                          compress=compress, writev=writev, shm=shm,
                          shm_bytes=shm_bytes, replica_sets=replica_sets,
-                         failover_timeout=failover_timeout)
+                         failover_timeout=failover_timeout,
+                         read_staleness=read_staleness,
+                         pull_cache=pull_cache)
         return self
 
     def _init_multi(self, addrs: List[Tuple[str, int]], worker: int,
                     params_like, bucket_bytes=None, pool_size=None,
                     compress=None, writev=None, shm=None,
                     shm_bytes=None, replica_sets=None,
-                    failover_timeout=None) -> None:
+                    failover_timeout=None, read_staleness=None,
+                    pull_cache=None) -> None:
         self.worker = worker
         self.device = _worker_device(params_like)
         kv, self._treedef = keymod.flatten_with_keys(params_like)
@@ -1085,6 +1202,7 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         # each shard's replica set and the promotion-wait budget (singleton
         # sets: no failover)
         self._init_failover(replica_sets, failover_timeout)
+        self._init_read_path(read_staleness, pull_cache)
         if self.compress and self.compress.get("pull") \
                 and self.compress.get("codec") == "topk":
             raise ValueError(
@@ -1529,11 +1647,298 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                 shm_bytes=self.shm_bytes,
                 replica_sets=None if addrs is not None
                 else self._replica_sets,
-                failover_timeout=self.failover_timeout)
+                failover_timeout=self.failover_timeout,
+                read_staleness=self.read_staleness,
+                pull_cache=self.pull_cache)
         finally:
             # the compressor too: topk's residuals are unsent gradient
             # mass and survive the re-dial
             self._restore_transport_state(saved)
+
+    # -- the read path ------------------------------------------------------------
+
+    def _init_read_path(self, read_staleness, pull_cache) -> None:
+        """The worker's half of the read path: read channels spread over
+        each shard's replica set (a staleness bound, the primary as the
+        fallback), a snapshot cache invalidated by observed version bumps,
+        and concurrent reads of a shard coalesced into one fetch."""
+        from ps_tpu_torch.config import env_flag, env_float
+
+        self._close_read_path()  # reconnect() runs _init_multi again
+        # the staleness bound in seconds served ages are judged against,
+        # and one ClockSync per shard toward its primary (where births are
+        # stamped), fed by the version watcher's REPLICA_STATE round trips
+        self.freshness_slo = env_float("PS_FRESHNESS_SLO", 0.5, lo=1e-3)
+        self._read_clock: Dict[int, Any] = {}
+        # a replica reply trailing the newest known version of its shard by
+        # more than read_staleness is refused, and the read goes on toward
+        # the primary
+        self._init_read_rotation(read_staleness)
+        # repeat reads at an unchanged version cost no round trip; version
+        # bumps ride every reply this worker decodes and the watcher's
+        # REPLICA_STATE polls
+        self.pull_cache = (env_flag("PS_PULL_CACHE", False)
+                           if pull_cache is None else bool(pull_cache))
+        # a held snapshot is revalidated with a conditional READ: an
+        # unchanged target answers NOT_MODIFIED, a stamp instead of the tree
+        self.read_conditional = env_flag("PS_READ_CONDITIONAL", True)
+        self._read_cv = threading.Condition()
+        # in-flight fetch records, one a shard: waiters read the result out
+        # of the record, so with the cache off a snapshot dies with its
+        # last reader
+        self._read_fetching: Dict[int, dict] = {}
+        self._read_snaps: Dict[int, dict] = {}  # pull_cache only
+        self._read_pool = None  # the fan-out executor, made on first use
+        self._watch_chs: Dict[int, tv.Channel] = {}
+        self._read_watch = None
+        self._read_watch_stop = threading.Event()
+
+    def _close_read_path(self) -> None:
+        stop = getattr(self, "_read_watch_stop", None)
+        if stop is not None:
+            stop.set()
+        pool = getattr(self, "_read_pool", None)
+        if pool is not None:
+            pool.shutdown(wait=False)
+            self._read_pool = None
+        watch = getattr(self, "_read_watch", None)
+        if watch is not None:
+            # joined before its channels close: a watcher mid-iteration
+            # could otherwise dial and store a channel after the sweep
+            watch.join(timeout=5)
+        self._close_read_channels()
+        for ch in list(getattr(self, "_watch_chs", {}).values()):
+            ch.close()
+        self._watch_chs = {}
+        self._read_watch = None
+
+    def read_all(self) -> Any:
+        """A side-effect-free read of the current params, the serving
+        pull: unlike :meth:`pull_all` the server records no pull (no DC
+        snapshot, no replication entry), a backup within
+        ``read_staleness`` versions may answer, the native loop answers
+        repeats from its cache, and concurrent callers share one fetch a
+        shard. The params :meth:`pull_all` returned are not touched. The
+        tree's tensors lie on this worker's device."""
+        return self.read_all_versioned()[0]
+
+    def read_all_versioned(self) -> Tuple[Any, int]:
+        """:meth:`read_all` and the summed versions of the bytes as they
+        were served, which may trail :attr:`version` (the newest versions
+        this worker has seen) when a replica answered within the bound."""
+        tree, version, _ = self.read_all_stamped()
+        return tree, version
+
+    def read_all_stamped(self) -> Tuple[Any, int, Optional[dict]]:
+        """:meth:`read_all_versioned` and the oldest birth record among
+        the served shard snapshots (None when none carried one): a
+        re-publisher stamps merged bytes with their oldest part's age."""
+        with _Op(self.transport, "read"):
+            kv: Dict[str, Any] = {}
+            version = 0
+            births: List[dict] = []
+            if len(self._active) > 1:
+                import concurrent.futures
+
+                pool = self._read_executor()
+                futs = {i: pool.submit(self._read_shard, i)
+                        for i in self._active}
+                concurrent.futures.wait(futs.values())
+                snaps = [f.result() for f in futs.values()]
+            else:
+                snaps = [self._read_shard(i) for i in self._active]
+            for snap in snaps:
+                kv.update(snap["kv"])
+                version += int(snap["version"])
+                if snap.get("b") is not None:
+                    births.append(snap["b"])
+            missing = [k for k in self._key_order if k not in kv]
+            if missing:
+                raise RuntimeError(f"read returned no value for "
+                                   f"{missing[:3]}")
+            tree = keymod.unflatten(
+                self._treedef,
+                stage_to_device(kv, self.device, stats=self.transport),
+                self._key_order)
+            birth = (min(births, key=lambda b: b["birth"])
+                     if births else None)
+            return tree, version, birth
+
+    def _read_executor(self):
+        if self._read_pool is None:
+            import concurrent.futures
+
+            self._read_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=len(self._active),
+                thread_name_prefix="ps-read")
+        return self._read_pool
+
+    def _read_fresh_enough(self, version: int, i: int) -> bool:
+        return self.versions[i] - int(version) <= self.read_staleness
+
+    def _note_read_age(self, i: int, snap: dict, tier: str) -> None:
+        """One serve's data age: ``now - birth``, resolved with shard
+        ``i``'s ClockSync offset when the birth came from another process
+        (the source rides the sample; a negative age is clamped)."""
+        b = snap.get("b")
+        if b is None:
+            return  # a server that stamps no birth
+        cs = self._read_clock.get(i)
+        off = cs.offset_us if cs is not None else None
+        age, src, clamped = freshness.age_of(b, off)
+        self.transport.record_read_age(age, src=src, tier=tier,
+                                       bound=self.freshness_slo,
+                                       clamped=clamped)
+
+    def _read_shard(self, i: int) -> dict:
+        """One shard's snapshot: the cached one while its version is
+        within the bound of the newest known, else one coalesced fetch. A
+        waiter sharing another caller's fetch holds its result to the same
+        bound: an ack seen while the fetch was in flight makes it stale for
+        this reader, who then fetches again."""
+        self._ensure_version_watch()
+        while True:
+            with self._read_cv:
+                snap = self._read_snaps.get(i)
+                if (snap is not None and self.pull_cache
+                        and self._read_fresh_enough(snap["version"], i)):
+                    self.transport.record_read_cache(True)
+                    self._note_read_age(i, snap, "cache")
+                    return snap
+                rec = self._read_fetching.get(i)
+                if rec is not None:
+                    self._read_cv.wait(0.05)
+                    got = rec.get("snap") if rec.get("done") else None
+                    if got is not None \
+                            and self._read_fresh_enough(got["version"], i):
+                        self.transport.record_read_coalesced()
+                        self._note_read_age(i, got, "cache")
+                        return got
+                    continue
+                rec = {"done": False, "snap": None}
+                self._read_fetching[i] = rec
+                break
+        try:
+            snap = self._read_fetch(i)
+            with self._read_cv:
+                rec["snap"] = snap
+                if self.pull_cache:
+                    self._read_snaps[i] = snap
+            self._note_read_age(i, snap, snap.get("tier") or "wire")
+            return snap
+        finally:
+            with self._read_cv:
+                rec["done"] = True
+                self._read_fetching.pop(i, None)
+                self._read_cv.notify_all()
+
+    def _read_fetch(self, i: int) -> dict:
+        """One wire READ for shard ``i`` over its replica set: members in
+        rotating order, a non-primary whose reply is past the staleness
+        bound refused (a fallback) and the rotation going on. The primary
+        always qualifies, so a healthy shard never fails the bound."""
+        self.transport.record_read_cache(False)
+        # with a snapshot in hand, say which version it is: an unchanged
+        # target answers NOT_MODIFIED and the bytes are kept
+        snap0 = None
+        if self.pull_cache and self.read_conditional:
+            with self._read_cv:
+                snap0 = self._read_snaps.get(i)
+        if snap0 is not None:
+            payload = tv.encode(tv.READ, 0, None,
+                                extra={"cond": int(snap0["version"])})
+        else:
+            payload = tv.encode(tv.READ, 0, None)
+        def judge(reply, kind, extra):
+            if kind == tv.NOT_MODIFIED and snap0 is not None:
+                # the held bytes are at the snapshot's version, at or above
+                # the stamp: that is what the bound judges
+                return max(int(extra["version"]), int(snap0["version"]))
+            return int(extra["version"]) if kind == tv.OK else None
+
+        kind, tensors, extra, version, replica = self._read_rotate(
+            i, payload, judge)
+        if version > self.versions[i]:
+            self.versions[i] = version
+        if kind == tv.NOT_MODIFIED:
+            # the stamp's birth describes the bytes held: a revalidation
+            # refreshes their age
+            birth = freshness.from_extra(extra) or snap0.get("b")
+            return {"version": version, "kv": snap0["kv"], "b": birth,
+                    "tier": "nm"}
+        # copies of our own: the reply frame dies with this scope
+        return {"version": version,
+                "kv": {k: np.array(v) for k, v in tensors.items()},
+                "b": freshness.from_extra(extra),
+                "tier": "replica" if replica else "wire"}
+
+    def _read_known(self, i: int) -> int:
+        return self.versions[i]
+
+    def _ensure_version_watch(self) -> None:
+        """Start the version watcher once, on the first read, when the
+        cache is on: it polls each shard's REPLICA_STATE on the heartbeat
+        cadence, so a pure reader learns of version bumps without a
+        pull."""
+        if not self.pull_cache or self._read_watch is not None:
+            return
+        with self._read_cv:
+            if self._read_watch is not None:
+                return
+            # the watcher binds its own stop event and channel dict: a
+            # reconnect installs fresh ones, which an old watcher never
+            # writes into
+            t = threading.Thread(
+                target=self._version_watch,
+                args=(self._read_watch_stop, self._watch_chs),
+                daemon=True, name="ps-read-watch")
+            self._read_watch = t
+        t.start()
+
+    def _version_watch(self, stop, chs) -> None:
+        from ps_tpu_torch.config import env_int
+        from ps_tpu_torch.obs.clock import ClockSync
+
+        interval = env_int("PS_HEARTBEAT_INTERVAL_MS", 100, lo=1) / 1e3
+        payload = tv.encode(tv.REPLICA_STATE, 0, None)
+        # a re-dial cooldown a shard: a dead shard must not hold up the
+        # others' probes behind its connect timeout every round
+        bad: Dict[int, float] = {}
+        while not stop.wait(interval):
+            for i in list(self._active):
+                if stop.is_set():
+                    return
+                ch = chs.get(i)
+                if ch is None and bad.get(i, 0.0) > time.monotonic():
+                    continue
+                try:
+                    if ch is None:
+                        host, port = self._addrs[i]
+                        ch = tv.Channel.connect(host, port,
+                                                timeout_ms=2000, retries=1,
+                                                max_wait_s=0.2)
+                        chs[i] = ch
+                    t0 = time.time()
+                    reply = ch.request(payload)
+                    t1 = time.time()
+                    kind, _, _, extra = tv.decode(reply)
+                    v = extra.get("version")
+                    if kind == tv.OK and v is not None \
+                            and int(v) > self.versions[i]:
+                        self.versions[i] = int(v)
+                    if kind == tv.OK and extra.get("now") is not None:
+                        # each poll is also a clock probe toward the shard's
+                        # primary (the reply carries its "now")
+                        cs = self._read_clock.get(i)
+                        if cs is None:
+                            cs = self._read_clock[i] = ClockSync()
+                        cs.observe(t0, t1, float(extra["now"]))
+                    bad.pop(i, None)
+                except (tv.VanError, OSError, IndexError):
+                    if ch is not None:
+                        ch.close()
+                    chs.pop(i, None)
+                    bad[i] = time.monotonic() + 2.0
 
     def make_async_step(self, loss_fn, has_aux: bool = False,
                         overlap: bool = False):
@@ -1574,6 +1979,7 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                 self.flush()  # land in-flight cycles before the goodbyes
         except Exception:
             pass  # a dead server must not block the teardown
+        self._close_read_path()
         self._close_transport()  # pool channels hang up without a goodbye
         for ch in self._chs:
             try:

@@ -50,12 +50,24 @@ refused: row pushes are sparse already), decoded by the server before
 they are staged to the table's device. Every such push still ends in the
 sparse-apply kernels.
 
+The read path: a ``READ`` of ``{"<table>/ids": ...}`` is a
+side-effect-free row fetch whose reply (worker id 0) is a pure function
+of committed state, stamped with the table versions and each table's
+birth (``obs/freshness.py``), so the native loop can cache it; the entry
+is tagged with the (table, row) pairs it covers, and an apply drops only
+the entries it intersects. A conditional READ (``{"conds": {table: v},
+"cond": sum}``) gets only the rows whose per-row change stamp
+(``SparseEmbedding.row_version``) moved past ``v`` (a delta), or a
+NOT_MODIFIED stamp when no requested table moved. A backup answers READs
+too. :meth:`RemoteSparseWorker.read_rows` revalidates the rows it holds
+for an id-set with conditional READs and spreads reads over each shard's
+replica set within a staleness bound.
+
 Not ported yet, each raising with its ROADMAP Queue 1 item: tiered
-tables and the replayed tier moves of a replicated push (``tier_moves``;
-5.7), the read path (``read_rows``, READ, on a backup too; 5.8) and
-elastic membership (``coordinator=``; 6). The reference's trace spans,
-``obs`` counters and per-table births (the freshness plane; item 6) are
-not recorded.
+tables (and so their reads, conditional ones included) and the replayed
+tier moves of a replicated push (``tier_moves``; 5.7), and elastic
+membership (``coordinator=``; 6). The reference's trace spans and
+``obs`` registry counters are not recorded (item 6).
 """
 
 from __future__ import annotations
@@ -95,6 +107,7 @@ from ps_tpu_torch.backends.van_service import (
     resolve_ckpt_dir,
 )
 from ps_tpu_torch.control import tensor_van as tv
+from ps_tpu_torch.obs import freshness
 
 __all__ = [
     "SparsePSService", "RemoteSparseWorker", "ServerFailureError",
@@ -111,6 +124,31 @@ def row_range(shard: int, num_shards: int, total_rows: int) -> Tuple[int, int]:
     per = math.ceil(total_rows / num_shards)
     lo = min(shard * per, total_rows)
     return lo, min(lo + per, total_rows)
+
+
+#: per-key read-cache invalidation: a cached READ entry is tagged with one
+#: u64 a (table, global row id) it covers, and a row apply drops only the
+#: entries it intersects. Past these caps the tags are left off: an
+#: untagged entry drops on any invalidation, an untagged apply drops
+#: everything (no tag arithmetic for huge batches under the apply lock)
+READ_TAG_CAP = 128
+APPLY_TAG_CAP = 512
+
+
+def _table_hash(name: str) -> int:
+    """A stable 64-bit seed a table name (tags never leave the process)."""
+    import hashlib
+
+    return int.from_bytes(
+        hashlib.blake2b(name.encode(), digest_size=8).digest(), "little")
+
+
+def _row_tags(table_hash: int, ids: np.ndarray) -> set:
+    """One mix-hashed u64 tag a (table, global row id)."""
+    mask = (1 << 64) - 1
+    return {(table_hash ^ ((int(i) + 0x9E3779B97F4A7C15)
+                          * 0xBF58476D1CE4E5B9)) & mask
+            for i in np.asarray(ids).ravel().tolist()}
 
 
 def dedupe_rows_np(ids: np.ndarray, grads: np.ndarray
@@ -155,10 +193,10 @@ class SparsePSService(VanService):
       record_full_history: keep every apply-log entry (replay parity); by
         default the log is a ring of ``history`` entries.
 
-    The pull path gathers the requested rows into a fresh tensor under
-    the lock, on the serve thread's stream, so the gather is ordered
-    before any later in-place apply; its copy off the card is waited for
-    before the reply frame is encoded, outside the lock.
+    The pull and read paths gather the requested rows into a fresh
+    tensor under the lock, on the serve thread's stream, so the gather is
+    ordered before any later in-place apply; its copy off the card is
+    waited for before the reply frame is encoded, outside the lock.
     """
 
     def __init__(self, tables: Dict[str, Any], port: int = 0,
@@ -231,6 +269,10 @@ class SparsePSService(VanService):
             n: int(emb.push_count) for n, emb in self._tables.items()}
         self.rows_applied: Dict[str, int] = {
             n: int(emb.rows_pushed) for n, emb in self._tables.items()}
+        # a birth stamp a table: when its current version committed. It
+        # rides READ replies as committed state; a never-applied table has
+        # none, so two services over the same state encode the same replies
+        self._births: Dict[str, dict] = {}
         #: each table's apply tier ('cuda', 'torch' or 'off')
         self.fused_tiers: Dict[str, str] = {
             n: emb.fused_tier for n, emb in self._tables.items()}
@@ -241,6 +283,7 @@ class SparsePSService(VanService):
         self._applied_pseq: Dict[int, tuple] = {}
         self._drain_targets: Dict[int, tuple] = {}
         self._log_lock = threading.Lock()
+        self._table_hashes: Dict[str, int] = {}
         # worker id per applied push message
         self.apply_log = make_history_log(record_full_history, history)
         super().__init__(port=port, bind=bind, writev=writev, shm=shm,
@@ -354,7 +397,16 @@ class SparsePSService(VanService):
             self._sync_tables()
             self.transport.record_sparse_apply(
                 rows, time.perf_counter() - t_rows)
-            self._invalidate_reads()
+            # per key: only cached id-sets this push touched drop; the
+            # generation rises for everyone, so an in-flight publish of a
+            # pre-apply snapshot is refused either way
+            self._invalidate_reads(
+                tags=self._tags_for(per_table, APPLY_TAG_CAP))
+            # one birth for every table of the push (they committed
+            # together under this lock)
+            stamp = freshness.birth_record()
+            for name, _ids, _g in todo:
+                self._births[name] = stamp
             apply_s = time.perf_counter() - t_apply
             if pseq is not None:
                 self._applied_pseq[worker] = (pnonce, int(pseq),
@@ -374,7 +426,7 @@ class SparsePSService(VanService):
                     wire[f"{name}/grads"] = grads.cpu().numpy()
             rseq = self._replicate("push", worker, wire, {
                 "pseq": pseq, "pnonce": pnonce, "pfan": pfan,
-                "tier_moves": None, "birth": time.time()})
+                "tier_moves": None, "birth": stamp["birth"]})
         self.transport.record_apply(apply_s)
         self.transport.record_fresh_lag(time.perf_counter() - t_apply)
         return rseq, False
@@ -433,6 +485,113 @@ class SparsePSService(VanService):
                                    extra={"versions": versions})
         return tv.encode(tv.OK, worker, out, extra={"versions": versions})
 
+    def _read_rows_payload(self, per_table, extra=None) -> bytes:
+        """One READ: a side-effect-free row fetch whose reply (worker id 0)
+        the native cache serves to byte-identical requests until an apply
+        touches its rows. The publish generation is taken under the lock
+        with the rows.
+
+        A conditional request (``extra["conds"]``: table -> the caller's
+        version) ships, a table, only the rows whose ``row_version`` passed
+        that version (``<table>/dids`` global ids, ``<table>/drows``), and
+        when no requested table moved, a NOT_MODIFIED stamp. A table
+        without a cond is served whole."""
+        conds = None
+        if isinstance(extra, dict) and isinstance(extra.get("conds"), dict):
+            conds = extra["conds"]
+        rows = {}
+        delta_rows = 0
+        with self._lock:
+            versions = dict(self.versions)
+            gen = self._read_gen_snapshot()
+            # each requested table's birth, taken with the rows:
+            # [wall, monotonic, stamper token]
+            births = {}
+            for name in per_table:
+                b = self._births.get(name)
+                if b is not None:
+                    births[name] = [b["birth"], b["bmono"], b["bpid"]]
+            for name, t in per_table.items():
+                v = conds.get(name) if conds is not None else None
+                if v is None:
+                    ids = self._localize(name, t["ids"])
+                    rows[f"{name}/rows"] = self._tables[name].pull(ids)
+                    continue
+                v = int(v)
+                if int(versions[name]) <= v:
+                    continue  # unchanged: nothing to ship
+                emb = self._tables[name]
+                uids = np.unique(np.asarray(t["ids"], np.int64))
+                uids = uids[uids >= 0]
+                lids = self._localize(name, uids)
+                changed = emb.row_version[lids] > v
+                uids, lids = uids[changed], lids[changed]
+                if uids.size == 0:
+                    continue  # the table moved, the requested rows did not
+                rows[f"{name}/dids"] = uids.astype(np.int64)
+                rows[f"{name}/drows"] = emb.pull(lids)
+                delta_rows += int(uids.size)
+        # outside the lock: each gather is a fresh tensor queued ahead of
+        # any later apply; the copy off the card is waited for here
+        out = stage_to_host(rows, stats=self.transport)
+        vsum = self._vsum(versions)
+        # the serve-side age judges the oldest requested table
+        oldest = (min((freshness.from_extra({"births": births}, table=n)
+                       for n in births),
+                      key=lambda b: b["birth"]) if births else None)
+        tags = self._tags_for(per_table, READ_TAG_CAP)
+        if conds is not None and not out:
+            # no requested table moved for this caller: a stamp (births
+            # included, so a revalidation refreshes the age)
+            reply = tv.encode(tv.NOT_MODIFIED, 0, None,
+                              extra={"versions": versions,
+                                     "version": vsum, "births": births})
+            self.transport.record_read_not_modified()
+        elif conds is not None:
+            reply = tv.encode(tv.OK, 0, out,
+                              extra={"versions": versions,
+                                     "version": vsum, "delta": 1,
+                                     "births": births})
+            if delta_rows:
+                self.transport.record_read_delta_rows(delta_rows)
+        else:
+            reply = tv.encode(tv.OK, 0, out, extra={"versions": versions,
+                                                    "version": vsum,
+                                                    "births": births})
+        self._note_read_snapshot(gen, vsum, tags=tags)
+        self.transport.record_read_served()
+        self._note_serve_age(oldest)
+        return reply
+
+    def _tbl_hash(self, name: str) -> int:
+        h = self._table_hashes.get(name)
+        if h is None:
+            h = self._table_hashes[name] = _table_hash(name)
+        return h
+
+    def _tags_for(self, per_table, cap: int):
+        """The invalidation tags of a request's or an apply's global
+        id-sets, or None past ``cap`` (untagged: the conservative
+        behavior). The id count is checked before any hashing."""
+        if sum(int(np.asarray(t["ids"]).size)
+               for t in per_table.values()) > cap:
+            return None
+        tags: set = set()
+        for name, t in per_table.items():
+            tags |= _row_tags(self._tbl_hash(name), t["ids"])
+        return sorted(tags) if tags else None
+
+    @staticmethod
+    def _vsum(versions) -> int:
+        return int(sum(int(v) for v in versions.values()))
+
+    def _read_version(self):
+        # without the lock: this runs on the loop's one pump thread
+        # (REPLICA_STATE, the stats tick) and must not queue behind an
+        # apply or a checkpoint save. The table set is fixed and versions
+        # only grow, so an unlocked sum is a monotone probe
+        return self._vsum(self.versions)
+
     def _push_reply(self, worker: int, dedup: bool, **extra):
         return tv.encode(tv.OK, worker, None, extra={
             "versions": dict(self.versions), **extra, "dedup": dedup})
@@ -461,6 +620,8 @@ class SparsePSService(VanService):
             return tv.encode(tv.OK, worker, None, extra=self._hello_extra())
         if kind == tv.ROW_PULL:
             return self._rows_payload(worker, self._split(tensors))
+        if kind == tv.READ:
+            return self._read_rows_payload(self._split(tensors), extra)
         if kind in (tv.ROW_PUSH, tv.ROW_PUSH_PULL):
             # codec-packed grads decoded before they are staged to the
             # table's device (the ids always travel raw)
@@ -499,8 +660,6 @@ class SparsePSService(VanService):
             return self._stats(worker)
         if kind == tv.CHECKPOINT:
             return self._checkpoint(worker, extra)
-        if kind in (tv.READ, tv.NOT_MODIFIED):
-            raise _not_ported("the read path (READ)", "5.8")
         return tv.encode(tv.ERR, worker, None,
                          extra={"error": f"bad kind {kind}"})
 
@@ -538,7 +697,10 @@ class SparsePSService(VanService):
             with self._lock:
                 self._paused = False
                 self._ckpt_clear_token()
-                self._admit_sync(locked=True)  # the pause is over: reseed
+                # the pause is over: every cached READ drops and admission
+                # reseeds
+                self._invalidate_reads()
+                self._admit_sync(locked=True)
                 self._pause_cond.notify_all()
             return tv.encode(tv.OK, worker, None, extra={
                 "versions": dict(self.versions), "forced": True})
@@ -581,7 +743,10 @@ class SparsePSService(VanService):
             with self._lock:
                 self._paused = False
                 self._ckpt_clear_token()
-                self._admit_sync(locked=True)  # the pause is over: reseed
+                # the pause is over: every cached READ drops and admission
+                # reseeds
+                self._invalidate_reads()
+                self._admit_sync(locked=True)
                 self._pause_cond.notify_all()
             return tv.encode(tv.OK, worker, None,
                              extra={"versions": dict(self.versions)})
@@ -648,8 +813,9 @@ class SparsePSService(VanService):
                               "kv/tiered.py)", "5.7")
         tree = decode_tree(dict(tensors), extra.get("enc"),
                            stats=self.transport)
+        split = self._split(tree)
         todo = []
-        for name, t in self._split(tree).items():
+        for name, t in split.items():
             on = stage_to_device(
                 {"ids": self._localize(name, t["ids"]), "grads": t["grads"]},
                 self._tables[name].device, stats=self.transport)
@@ -664,7 +830,17 @@ class SparsePSService(VanService):
         self._sync_tables()
         self.transport.record_sparse_apply(rows,
                                            time.perf_counter() - t_rows)
-        self._invalidate_reads()
+        # per key, as the primary's apply: a backup's cached reads of
+        # id-sets this push did not touch stay valid
+        self._invalidate_reads(tags=self._tags_for(split, APPLY_TAG_CAP))
+        # the primary's birth for the touched tables (a foreign stamp: the
+        # wall clock only), so replica reads report the age since the
+        # primary's apply
+        b = extra.get("birth")
+        stamp = (freshness.foreign_record(float(b)) if b is not None
+                 else freshness.birth_record())
+        for name in split:
+            self._births[name] = stamp
         if extra.get("pseq") is not None:
             self._applied_pseq[worker] = (extra.get("pnonce"),
                                           int(extra["pseq"]),
@@ -697,10 +873,9 @@ def serve_sparse(tables: Dict[str, Any], port: int = 0,
     ``backup=True`` starts the service as a backup: it follows a primary's
     replication stream, applying every replicated row push through its own
     tables (the sparse-apply kernels on its device), and refuses workers
-    until promoted. The primary calls ``svc.attach_backup(host, port,
-    ack=...)`` before admitting workers; both start from the same initial
-    tables. Tables born by a push (the reference's births) are not
-    replicated: the freshness plane is item 6."""
+    until promoted, but for READs, which it answers from its replicated
+    tables. The primary calls ``svc.attach_backup(host, port, ack=...)``
+    before admitting workers; both start from the same initial tables."""
     return SparsePSService(tables, port=port, bind=bind, shard=shard,
                            num_shards=num_shards, total_rows=total_rows,
                            ckpt_root=ckpt_root, shm=shm, backup=backup,
@@ -716,7 +891,9 @@ def connect_sparse(uri: Optional[str], worker: int,
                    shm: Optional[bool] = None,
                    shm_bytes: Optional[int] = None,
                    failover_timeout: Optional[float] = None,
-                   coordinator=None) -> "RemoteSparseWorker":
+                   coordinator=None,
+                   read_staleness: Optional[int] = None
+                   ) -> "RemoteSparseWorker":
     """Join a cross-process sparse PS as worker ``worker``.
 
     ``uri`` is ``host:port`` or a comma-separated list naming every server
@@ -739,6 +916,10 @@ def connect_sparse(uri: Optional[str], worker: int,
     the primary first; a failed primary's shard is retried against the set
     for up to ``failover_timeout`` seconds (env ``PS_FAILOVER_TIMEOUT_MS``),
     and the cycle token makes a replayed push apply exactly once.
+    :meth:`RemoteSparseWorker.read_rows` rotates its reads over each set;
+    a replica's reply more than ``read_staleness`` versions (env
+    ``PS_READ_STALENESS``, 0) behind the newest this worker knows of its
+    shard is refused and the read goes on toward the primary.
 
     Not ported yet (raises, naming its ROADMAP Queue 1 item):
     ``coordinator`` (6)."""
@@ -751,7 +932,8 @@ def connect_sparse(uri: Optional[str], worker: int,
                               bucket_bytes=bucket_bytes, pool_size=pool_size,
                               compress=compress, writev=writev, shm=shm,
                               shm_bytes=shm_bytes, replica_sets=replica_sets,
-                              failover_timeout=failover_timeout)
+                              failover_timeout=failover_timeout,
+                              read_staleness=read_staleness)
 
 
 class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
@@ -768,7 +950,14 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
     :meth:`push_async`/:meth:`flush` give non-blocking pushes. A dead
     server raises :class:`ServerFailureError` naming it, unless its
     replica set has a member to fail over to; every operation retries
-    whole after a failover."""
+    whole after a failover.
+
+    Reads (:meth:`read_rows`) go over READ frames: the worker keeps the
+    rows of the last read of each server's id-set and revalidates them
+    with a conditional READ (``PS_READ_CONDITIONAL``, on), merging the
+    delta or keeping them on NOT_MODIFIED. With a replica set they rotate
+    over its members on channels of their own, held to
+    ``read_staleness``."""
 
     _failure_noun = "sparse PS server"
 
@@ -780,12 +969,14 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                  shm: Optional[bool] = None,
                  shm_bytes: Optional[int] = None,
                  replica_sets=None,
-                 failover_timeout: Optional[float] = None):
+                 failover_timeout: Optional[float] = None,
+                 read_staleness: Optional[int] = None):
         self._init_multi(list(addrs), worker, tables,
                          bucket_bytes=bucket_bytes, pool_size=pool_size,
                          compress=compress, writev=writev, shm=shm,
                          shm_bytes=shm_bytes, replica_sets=replica_sets,
-                         failover_timeout=failover_timeout)
+                         failover_timeout=failover_timeout,
+                         read_staleness=read_staleness)
 
     def _init_multi(self, addrs: List[Tuple[str, int]], worker: int,
                     tables: Dict[str, Tuple[int, int]],
@@ -795,10 +986,12 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                     shm: Optional[bool] = None,
                     shm_bytes: Optional[int] = None,
                     replica_sets=None,
-                    failover_timeout: Optional[float] = None) -> None:
+                    failover_timeout: Optional[float] = None,
+                    read_staleness: Optional[int] = None) -> None:
         """A fresh dial and validation: ``__init__``'s body, which
         :meth:`reconnect` reruns (a failed re-dial leaves the identity
         fields for a clean retry)."""
+        from ps_tpu_torch.config import env_flag, env_float
         self.worker = worker
         self._addrs = [tuple(a) for a in addrs]
         self._spec = {n: (int(v), int(d)) for n, (v, d) in tables.items()}
@@ -815,6 +1008,13 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         self.bytes_pulled = 0
         self.collective_bytes = 0  # no collective on the van path
         self._bytes_lock = threading.Lock()
+        # the read path: the rows of the last read of each server's id-set,
+        # revalidated by the next read of the same id-set; the bound in
+        # seconds served ages are judged against
+        self.read_conditional = env_flag("PS_READ_CONDITIONAL", True)
+        self.freshness_slo = env_float("PS_FRESHNESS_SLO", 0.5, lo=1e-3)
+        self._read_snaps: Dict[int, dict] = {}
+        self._read_lock = threading.Lock()
         spec = resolve_spec(compress)
         if spec is not None and spec.get("codec") == "topk":
             raise ValueError(
@@ -824,6 +1024,7 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         self._init_transport(bucket_bytes, pool_size, compress=spec,
                              writev=writev, shm=shm, shm_bytes=shm_bytes)
         self._init_failover(replica_sets, failover_timeout)
+        self._init_read_rotation(read_staleness)
         try:
             self._connect_and_validate()
         except Exception:
@@ -1018,9 +1219,170 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
 
             return self._on_devices(self._with_failover(once), devices)
 
-    def read_rows(self, requests: Dict[str, Any]):
-        """The side-effect-free READ path: not ported yet."""
-        raise _not_ported("read_rows (the read path, READ)", "5.8")
+    def read_rows(self, requests: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """A side-effect-free row read: :meth:`pull` over READ frames (no
+        pull event at the server, worker id 0), so byte-identical hot
+        id-sets are answered from a server's native read cache, and a
+        backup may answer within ``read_staleness``. It does not wait for
+        in-flight pushes: it sees what is committed when it lands.
+
+        With ``PS_READ_CONDITIONAL`` (on) a read of an id-set this worker
+        read last time from that server is conditional: it names the
+        versions of the rows in hand, an unchanged server answers
+        NOT_MODIFIED and a changed one ships only the rows whose change
+        stamp moved, merged into the held rows. Rows come back on the
+        ids' device, as :meth:`pull`'s do."""
+        with _Op(self.transport, "read"):
+            ids, devices = self._host_ids(requests)
+            reqs, routes = self._build_pull(ids)
+
+            def once():
+                payloads, snaps = {}, {}
+                for i, t in reqs.items():
+                    snap = None
+                    if self.read_conditional:
+                        with self._read_lock:
+                            cand = self._read_snaps.get(i)
+                        if cand is not None and cand["sig"] == \
+                                self._read_sig(t):
+                            snap = cand
+                    if snap is not None:
+                        # "cond" last: the native loop finds the version
+                        # floor by its last occurrence in the request's tail
+                        conds = {n: int(v) for n, v in snap["conds"].items()}
+                        payloads[i] = tv.encode(
+                            tv.READ, 0, t,
+                            extra={"conds": conds,
+                                   "cond": int(sum(conds.values()))})
+                    else:
+                        payloads[i] = tv.encode(tv.READ, 0, t)
+                    snaps[i] = snap
+                got = self._read_fanout(payloads, snaps)
+                tensors = {i: self._revalidate(i, reqs[i], snaps[i], *r)
+                           for i, r in got.items()}
+                return self._assemble_rows(ids, routes, tensors)
+
+            return self._on_devices(self._with_failover(once), devices)
+
+    def _read_fanout(self, payloads: Dict[int, Any], snaps: Dict[int, Any]
+                     ) -> Dict[int, tuple]:
+        """One concurrent round of READs: ``{server: (kind, tensors, extra,
+        tier)}``. A server without replicas is read on its channel; a
+        replica set is read by :meth:`_read_replicas`."""
+        def one(i):
+            if len(self._replica_sets[i]) <= 1:
+                kind, _, tensors, extra = tv.decode(
+                    self._request(i, payloads[i]))
+                return kind, tensors, extra, "wire"
+            return self._read_replicas(i, payloads[i], snaps[i])
+
+        if self._pool is None or len(payloads) == 1:
+            return {i: one(i) for i in payloads}
+        import concurrent.futures
+
+        futs = {i: self._pool.submit(one, i) for i in payloads}
+        concurrent.futures.wait(futs.values())
+        return {i: f.result() for i, f in futs.items()}
+
+    def _read_known(self, i: int) -> int:
+        """The newest version this worker has seen of server ``i``: its
+        table versions summed, as a READ reply's ``version``."""
+        return sum(v[i] for v in self._versions.values())
+
+    def _read_replicas(self, i: int, payload, snap) -> tuple:
+        """One READ of server ``i`` over its replica set
+        (:meth:`_read_rotate`). A replica's NOT_MODIFIED is judged at the
+        replica's own version: one that never saw the held rows' version
+        cannot vouch for them."""
+        def judge(reply, kind, extra):
+            with self._bytes_lock:
+                self.bytes_pushed += payload_nbytes(payload)
+                self.bytes_pulled += len(reply)
+            if kind == tv.OK or (kind == tv.NOT_MODIFIED and snap is not None):
+                return int(extra["version"])
+            return None
+
+        kind, tensors, extra, _, replica = self._read_rotate(i, payload,
+                                                             judge)
+        return kind, tensors, extra, "replica" if replica else "wire"
+
+    def _note_rows_age(self, extra: dict, req, tier: str) -> None:
+        """One age sample a table this reply served (``now - birth`` from
+        the reply's per-table stamps). No clock offset rides the sparse
+        worker, so an age across processes is a wall-clock difference,
+        tagged so, and clamped when negative."""
+        for key in req:
+            b = freshness.from_extra(extra, table=key[: -len("/ids")])
+            if b is None:
+                continue
+            age, src, clamped = freshness.age_of(b)
+            self.transport.record_read_age(age, src=src, tier=tier,
+                                           bound=self.freshness_slo,
+                                           clamped=clamped)
+
+    @staticmethod
+    def _read_sig(req: Dict[str, np.ndarray]) -> tuple:
+        """The identity of one server's id-set: held rows revalidate only
+        the exact request they were read for."""
+        return tuple(sorted(
+            (k, np.asarray(v).tobytes()) for k, v in req.items()))
+
+    def _revalidate(self, i: int, req, snap, kind, tensors, extra,
+                    tier: str = "wire") -> Dict[str, np.ndarray]:
+        """One server's READ reply -> its rows (arrays of their own):
+        NOT_MODIFIED keeps the held rows, a delta is merged into a copy of
+        them (a reader of the old rows never sees a torn merge), a full
+        reply replaces them. The rows are held for the next read of the
+        same id-set. Versions only move forward: a replica may answer
+        behind what this worker knows."""
+        if kind == tv.NOT_MODIFIED and snap is not None:
+            for name, v in (extra.get("versions") or {}).items():
+                self._versions[name][i] = max(self._versions[name][i], int(v))
+            # the stamp's births describe the rows held: a revalidation
+            # refreshes their age
+            self._note_rows_age(extra, req, "nm")
+            return snap["tensors"]
+        if kind != tv.OK:
+            raise self._reply_error(i, extra)
+        versions = extra.get("versions") or {}
+        for name, v in versions.items():
+            self._versions[name][i] = max(self._versions[name][i], int(v))
+        self._note_rows_age(extra, req, tier)
+        out: Dict[str, np.ndarray] = {}
+        if extra.get("delta") and snap is not None:
+            for key in req:
+                name = key[: -len("/ids")]
+                rk, dk = f"{name}/rows", f"{name}/dids"
+                if dk in tensors:
+                    ids = np.asarray(req[key], np.int64)
+                    dids = np.asarray(tensors[dk])  # unique, ascending
+                    drows = np.asarray(tensors[f"{name}/drows"])
+                    rows = np.array(snap["tensors"][rk])
+                    pos = np.nonzero(np.isin(ids, dids))[0]
+                    rows[pos] = drows[np.searchsorted(dids, ids[pos])]
+                    out[rk] = rows
+                elif rk in tensors:
+                    out[rk] = np.array(tensors[rk])
+                else:  # the table did not move since its cond
+                    out[rk] = snap["tensors"][rk]
+        else:
+            out = {k: np.array(v) for k, v in tensors.items()}
+        if self.read_conditional:
+            conds = {}
+            for key in req:
+                name = key[: -len("/ids")]
+                v = versions.get(name)
+                if v is None or f"{name}/rows" not in out:
+                    conds = None
+                    break
+                conds[name] = int(v)
+            if conds is not None:
+                with self._read_lock:
+                    self._read_snaps[i] = {
+                        "sig": self._read_sig(req),
+                        "conds": conds, "tensors": out,
+                    }
+        return out
 
     def _build_pull(self, ids: Dict[str, np.ndarray]):
         reqs: Dict[int, Dict[str, np.ndarray]] = {}
@@ -1304,6 +1666,7 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
             pass  # a dead server is why we reconnect
         saved = self._saved_transport_state()
         self._close_transport()
+        self._close_read_channels()
         for ch in self._chs:
             ch.close()  # dead or stale; no SHUTDOWN owed
         if self._pool is not None:
@@ -1317,7 +1680,8 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                 shm_bytes=self.shm_bytes,
                 replica_sets=None if addrs is not None
                 else self._replica_sets,
-                failover_timeout=self.failover_timeout)
+                failover_timeout=self.failover_timeout,
+                read_staleness=self.read_staleness)
         finally:
             self._restore_transport_state(saved)
 
@@ -1338,6 +1702,7 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                 self.flush()  # land in-flight pushes before the goodbyes
         except Exception:
             pass  # a dead server must not block the teardown
+        self._close_read_channels()
         self._close_transport()  # pool channels hang up without a goodbye
         for ch in self._chs:
             try:

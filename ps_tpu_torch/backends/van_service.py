@@ -47,6 +47,25 @@ a thread of its own while a session is attached (the pump never waits on
 a backup's round trip). A zombie primary whose backup promoted is fenced
 by the backup's refusal and refuses workers from then on.
 
+The read path: a READ is side-effect free (no event-log record, no
+replication entry, no DC snapshot) and its reply is a pure function of
+committed state (worker id 0, a contiguous encode, the version and the
+birth stamp of the applies), so on the loop the pump publishes each READ
+reply it sends into the loop's native read cache under the exact request
+bytes; the next identical READ is answered inside the loop threads with
+those bytes, without an upcall. A conditional READ (``"cond"``, the
+caller's version, last in the extra) whose target has not moved is
+answered NOT_MODIFIED, published as a version-floor entry that serves
+every conditional READ at or above it. Every committed change calls
+:meth:`VanService._invalidate_reads`, which raises the generation the
+handlers capture under the apply lock with their snapshot, so a publish
+an apply overtook is refused at the native floor; the sparse service
+names the rows it touched (per-key tags) and only intersecting entries
+drop. ``PS_NATIVE_READ_CACHE_BYTES`` bounds the cache (64 MiB; 0 turns
+it off, and an entry over the budget is never cached). A backup answers
+READs from its replicated state; the version in the reply lets the
+worker hold replica reads to its staleness bound.
+
 The drain contract: ``stop()`` first stops admitting connections, then
 waits (bounded by ``grace``) for every request whose frame has arrived to
 finish its reply (on the loop: the pump's count plus the loop's pending
@@ -57,10 +76,9 @@ severs the remaining connections. Workers that need a clean end send
 :attr:`VanService.goodbyes`, so a server can :meth:`wait_for_goodbyes`
 before stopping.
 
-Not ported yet, each refused loudly: the read path and its native cache
-(READ, on a backup too; item 5.8), and turning the loop's slow frames
-into flight events (item 6; the loop counts them, the STATS reply's
-``slow_frames``, and they are left in its ring undrained).
+Not ported yet: turning the loop's slow frames into flight events (item
+6; the loop counts them, the STATS reply's ``slow_frames``, and they are
+left in its ring undrained).
 """
 
 from __future__ import annotations
@@ -74,6 +92,7 @@ from typing import Dict, List, Optional
 
 from ps_tpu_torch.backends.common import BucketAssembler, send_payload
 from ps_tpu_torch.control import tensor_van as tv
+from ps_tpu_torch.obs import freshness
 from ps_tpu_torch.utils.metrics import TransportStats
 
 
@@ -261,6 +280,8 @@ class VanService:
         self._stage_lock = threading.Lock()
         self._push_stage: Dict[int, BucketAssembler] = {}
         self.transport = TransportStats()
+        # the staleness bound (seconds) served ages are judged against
+        self._fresh_slo = env_float("PS_FRESHNESS_SLO", 0.5, lo=1e-3)
         # a request frame is dead once its reply is sent, so the serve
         # loop borrows its receive buffer and returns it per request
         self._recv_pool = tv.RecvBufferPool(stats=self.transport)
@@ -285,11 +306,16 @@ class VanService:
         self.goodbyes = 0  # workers that sent SHUTDOWN (clean departures)
         self._goodbye_cond = threading.Condition()
         # the generation both native mirrors key on: every committed change
-        # bumps it (_invalidate_reads), a publish carries the one it saw
+        # bumps it (_invalidate_reads); a READ handler captures it under the
+        # apply lock with its snapshot, and the pump publishes the reply at
+        # that generation, so a publish an apply overtook is refused at the
+        # native floor
         self._read_gen = 0
         self._read_gen_lock = threading.Lock()
-        # per dispatching thread: the frame's native admission stamp
+        # per dispatching thread: the frame's native admission stamp, and
+        # the (generation, version, tags) a READ handler's reply serializes
         self._read_pub = threading.local()
+        self._native_read_cache = False
         want_loop = (env_flag("PS_VAN_NATIVE_LOOP", False)
                      if native_loop is None else bool(native_loop))
         if loop_threads is None:
@@ -327,6 +353,13 @@ class VanService:
         self._native_admit = False
         self._nl_stats = False
         if self._nloop is not None:
+            # the native read cache's byte budget; 0 turns it off and every
+            # READ goes to the pump
+            cache_bytes = env_int("PS_NATIVE_READ_CACHE_BYTES", 64 << 20,
+                                  lo=0)
+            if cache_bytes:
+                self._nloop.cache_config(tv.READ, cache_bytes)
+                self._native_read_cache = True
             mode = (env_str("PS_PUSH_NATIVE_ADMIT", "auto")
                     or "auto").strip().lower()
             if mode not in ("off", "on", "auto"):
@@ -419,11 +452,32 @@ class VanService:
             out["promote_reason"] = self.promote_reason
             out["promotion_s"] = self.promotion_s
         out["dedup_hits"] = self.transport.dedup_hits
+        v = self._read_version()
+        if v is not None:
+            # the version probe the worker's read cache rides (its version
+            # watcher polls REPLICA_STATE)
+            out["version"] = v
+        t = self.transport
+        if t.reads_served or t.read_native_hits:
+            out["read"] = {
+                "served": t.reads_served,
+                "native_hits": t.read_native_hits,
+                "native_misses": t.read_native_misses,
+                "entries": t.read_cache_entries,
+                "nm": t.read_not_modified,
+                "delta_rows": t.read_delta_rows,
+                "native_cond_hits": t.read_native_cond_hits,
+            }
+        f = t.fresh_snapshot()
+        if f is not None:
+            out["fresh"] = f
         if self._nloop is not None:
-            t = self.transport
             loop = {"conns": t.loop_conns, "requests": t.loop_requests,
                     "pushes": t.loop_pushes,
                     "slow_frames": t.nl_slow_frames}
+            s = t.hist["nl_read_hit_s"].summary()
+            if s:
+                loop["nlp99_us"] = round(s["p99"] * 1e6, 1)
             s = t.hist["nl_queue_wait_s"].summary()
             if s:
                 loop["qw99_us"] = round(s["p99"] * 1e6, 1)
@@ -560,22 +614,90 @@ class VanService:
             "from now on (workers re-route via their replica sets)",
             peer_epoch)
 
+    # -- the read path ----------------------------------------------------------
+
+    def _read_version(self):
+        """Subclass hook: the version a READ reply is stamped with (dense:
+        the engine's; sparse: the sum of the table versions). None = this
+        service serves no READ."""
+        return None
+
+    def set_read_cache_bytes(self, n: int) -> None:
+        """Set the native read cache's byte budget while serving, as
+        ``PS_NATIVE_READ_CACHE_BYTES`` does at startup: 0 turns the cache
+        off and drops what it holds (every READ goes to the pump), any
+        other budget turns it on. Turning it on raises the publish floor
+        past every READ snapshot taken while it was off, when no apply
+        invalidated. Raises off the native loop, which has no cache."""
+        if self._nloop is None:
+            raise RuntimeError("the native read cache runs in the native "
+                               "loop: serve with native_loop=True")
+        n = int(n)
+        if n < 0:
+            raise ValueError(f"a read cache budget of {n} bytes")
+        if n:
+            self._nloop.cache_config(tv.READ, n)
+            self._native_read_cache = True
+            self._invalidate_reads()
+        else:
+            self._native_read_cache = False
+            self._nloop.cache_config(tv.READ, 0)
+
+    def _read_gen_snapshot(self) -> int:
+        """The current publish generation. A READ handler calls this under
+        its apply lock, with the snapshot it serializes, and hands the pair
+        to :meth:`_note_read_snapshot`."""
+        with self._read_gen_lock:
+            return self._read_gen
+
     def _invalidate_reads(self, tags=None) -> None:
-        """Invalidation on apply: call after every committed change. It
-        raises the generation the native admission mirror keys on, which
-        drops the version-stamped replay-ack template (the post-apply
-        :meth:`_admit_publish` re-arms it), so a classification made
-        before the apply can never ack a replay after it. (The reference
-        also drops cached READ replies here; the read path is item 5.8.)
-        A no-op off the loop."""
-        if not self._native_admit:
+        """Invalidation on apply: call after every committed change a
+        cached READ reply could observe (applies, replicated applies,
+        promotion, fencing, drain, a seed). It raises the generation, so
+        an in-flight publish of a pre-apply snapshot is refused at the
+        native floor, and drops cached READ replies: all of them, or with
+        ``tags`` (the sparse service's per-(table, row) hashes) only the
+        entries whose tags intersect, so hot id-sets the apply did not
+        touch keep serving. The admission mirror rides the same
+        generation: its version-stamped replay-ack template drops (the
+        post-apply :meth:`_admit_publish` re-arms it), so a classification
+        made before the apply never acks a replay after it. A no-op when
+        both native mirrors are off."""
+        if not (self._native_read_cache or self._native_admit):
             return
         with self._read_gen_lock:
             self._read_gen += 1
             gen = self._read_gen
         nloop = self._nloop
         if nloop is not None:
-            nloop.admit_invalidate(gen)
+            if self._native_read_cache:
+                nloop.cache_invalidate(gen, tags=tags)
+            if self._native_admit:
+                nloop.admit_invalidate(gen)
+
+    def _note_serve_age(self, birth: Optional[dict],
+                        tier: Optional[str] = None) -> None:
+        """Record one serve's data age (``now - birth``) from the birth
+        record a READ handler just encoded; the tier is ``pump`` on a
+        primary (a native hit re-serves the same stamped bytes) and
+        ``replica`` on a backup."""
+        if birth is None:
+            return
+        age, src, clamped = freshness.age_of(birth)
+        self.transport.record_read_age(
+            age, src=src,
+            tier=tier or ("pump" if self.role == "primary" else "replica"),
+            bound=self._fresh_slo, clamped=clamped)
+
+    def _note_read_snapshot(self, gen: int, version: int,
+                            tags=None) -> None:
+        """A READ handler records the generation and version its reply
+        serializes, and the tags of the rows it covers; the pump publishes
+        the reply at exactly that generation, with those tags. Thread-local:
+        handlers run on the pump or on serve threads."""
+        self._read_pub.gen = gen
+        self._read_pub.version = int(version)
+        self._read_pub.tags = tags
 
     # -- the zero-upcall push plane --------------------------------------------
 
@@ -705,8 +827,9 @@ class VanService:
         worker kinds reach the subclass only on a serving primary, and a
         backup or a fenced zombie refuses them with the typed, retryable
         reply (the worker's failover loop keys on ``backup``). STATS is
-        always answered; READ on a backup goes to the handler, which
-        refuses it until the read path is ported (item 5.8)."""
+        always answered, and a backup answers READs from its replicated
+        state (the reply's version lets the worker hold it to its
+        staleness bound); a fenced zombie refuses them too."""
         if kind in self._REPLICA_KINDS:
             return self._handle_replica(kind, worker, tensors, extra)
         if self.role != "primary" and kind != tv.STATS:
@@ -1029,6 +1152,11 @@ class VanService:
         """Fold the loop's own counters into :attr:`transport`."""
         st = nloop.stats()
         self.transport.set_loop_stats(st["requests"], st["conns"])
+        if self._native_read_cache:
+            cs = nloop.cache_stats()
+            self.transport.set_read_cache_stats(
+                cs["hits"], cs["misses"], cs["entries"], cs["bytes"],
+                cond_hits=cs["cond_hits"])
         if self._native_admit:
             a = nloop.admit_stats()
             self.transport.set_admit_stats(a["acks"], a["refusals"],
@@ -1037,8 +1165,8 @@ class VanService:
             self._sync_nl_telemetry(nloop)
 
     def _sync_nl_telemetry(self, nloop) -> None:
-        """The in-loop queue-wait histogram lands whole in its
-        ``TransportStats`` histogram (the native stripes own the
+        """The in-loop queue-wait and read-hit histograms land whole in
+        their ``TransportStats`` histograms (the native stripes own the
         counting), the slow-frame count in its gauge. The slow frames
         stay in the loop's ring: turning them into flight events is item
         6."""
@@ -1074,6 +1202,11 @@ class VanService:
             nloop.free(ptr)
             self._loop_close_conn(cid)
             return
+        # a READ here missed the native cache: its exact request bytes are
+        # the key its reply is published under (a copy: the frame is freed
+        # after the reply)
+        raw = (bytes(msg) if kind == tv.READ and self._native_read_cache
+               else None)
         if kind == tv.SHUTDOWN:
             nloop.reply(cid, tv.encode(tv.OK, worker, None),
                         close_after=True)
@@ -1111,12 +1244,12 @@ class VanService:
                     threading.Thread(
                         target=self._loop_dispatch_reply,
                         args=(cid, kind, worker, tensors, extra, ptr, True,
-                              blocker, admit_gen),
+                              blocker, raw, admit_gen),
                         daemon=True).start()
                 else:
                     self._punt_pool().submit(
                         self._loop_dispatch_reply, cid, kind, worker,
-                        tensors, extra, ptr, True, False, admit_gen)
+                        tensors, extra, ptr, True, False, raw, admit_gen)
             except Exception as e:  # thread exhaustion: refuse, don't die
                 with self._inflight_cond:
                     self._inflight -= 1
@@ -1129,7 +1262,7 @@ class VanService:
                 nloop.free(ptr)
             return
         self._loop_dispatch_reply(cid, kind, worker, tensors, extra, ptr,
-                                  False, admit_gen=admit_gen)
+                                  False, raw=raw, admit_gen=admit_gen)
 
     def _reply_priority(self, kind: int, extra) -> int:
         """The loop's writev priority of this reply: a bucket frame's
@@ -1146,7 +1279,7 @@ class VanService:
 
     def _loop_dispatch_reply(self, cid: int, kind: int, worker: int,
                              tensors, extra, ptr: int, punted: bool,
-                             blocker: bool = False,
+                             blocker: bool = False, raw=None,
                              admit_gen: int = 0) -> None:
         nloop = self._nloop
         prio = self._reply_priority(kind, extra)
@@ -1161,8 +1294,15 @@ class VanService:
         if kind in self._COMMIT_KINDS:
             self.transport.record_loop_push()
         try:
+            if raw is not None:
+                # pump and pool threads are reused: never publish under a
+                # previous request's generation or tags
+                self._read_pub.gen = None
+                self._read_pub.tags = None
             reply = self._dispatch_reply_payload(kind, worker, tensors,
                                                  extra)
+            if raw is not None and isinstance(reply, (bytes, bytearray)):
+                self._publish_read(raw, reply)
             try:
                 nloop.reply(cid, reply, priority=prio)  # False = gone
             finally:
@@ -1179,6 +1319,29 @@ class VanService:
                     if blocker:
                         self._loop_blockers -= 1
                     self._inflight_cond.notify_all()
+
+    def _publish_read(self, raw: bytes, reply) -> None:
+        """Publish on miss: the READ reply the pump is about to send
+        becomes the native cache's entry for the request bytes ``raw``, at
+        the generation its handler captured, so a hit is bitwise this
+        reply. Three shapes: a NOT_MODIFIED reply is published as a
+        version-floor entry (the loop cuts the request's cond digits out of
+        the key, so a conditional READ at any version at or above the
+        stamp shares it); any other reply to a conditional request depends
+        on the caller's version and is not published; an unconditional
+        reply is published under its exact bytes. A put the floor refuses
+        (an apply overtook it) or the budget refuses (an entry larger than
+        the cache) is counted by the loop (``rejects``)."""
+        gen = getattr(self._read_pub, "gen", None)
+        if gen is None:
+            return  # an ERR reply, or no snapshot was taken
+        tags = getattr(self._read_pub, "tags", None)
+        if len(reply) >= 1 and reply[0] == tv.NOT_MODIFIED:
+            self._nloop.cache_put_cond(
+                raw, reply, gen, tags=tags,
+                vfloor=int(getattr(self._read_pub, "version", 0)))
+        elif b'"cond":' not in raw[-4096:]:
+            self._nloop.cache_put(raw, reply, gen, tags=tags)
 
     def _loop_shm_upgrade(self, cid: int, worker: int, extra: dict,
                           ptr: int) -> None:

@@ -23,8 +23,11 @@ Ownership (as on the C side):
 The loop also mirrors the services' push ledger (native push admission:
 a pure replay is acked, a role refusal answered, a fresh push stamped,
 all inside the loop threads) and keeps its own latency histograms.
-Its read cache (the ``cache_*`` calls) serves the READ path, which is not
-ported yet: those methods raise (ROADMAP Queue 1 item 5.8).
+Its read cache (the ``cache_*`` calls) answers a READ whose exact request
+bytes it holds with the reply the pump published for them, without an
+upcall, until an apply invalidates the entry (by generation, or by the
+sparse service's per-row tags); a NOT_MODIFIED entry answers every
+conditional READ at or above its version floor.
 
 Linux only (epoll); :func:`available` gates the services' fallback to
 thread-per-connection serving.
@@ -319,15 +322,114 @@ class NativeEventLoop:
         finally:
             self._unpin()
 
-    # -- native read cache: the READ path's, not ported yet -----------------
+    # -- native read cache (zero-upcall READ serving) ---------------------------
 
-    def _read_cache_refused(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the native read cache serves the READ path, which is not "
-            "ported yet (ROADMAP Queue 1 item 5.8)")
+    def cache_config(self, kind: int, max_bytes: int) -> None:
+        """Enable the native read cache: frames whose first body byte is
+        ``kind`` (the wire kind — tv.READ) are answered inside the loop
+        threads on an exact-byte match, with ``max_bytes`` bounding
+        key+reply memory (0 disables)."""
+        with self._lock:
+            if not self._closed:
+                self._lib.nl_cache_config(self._h, int(kind),
+                                          int(max_bytes))
 
-    cache_config = cache_put = cache_put_cond = _read_cache_refused
-    cache_invalidate = cache_stats = _read_cache_refused
+    def cache_put(self, key: bytes, reply, gen: int,
+                  tags=None) -> bool:
+        """Publish one reply frame for the request bytes ``key`` at
+        publish generation ``gen`` (captured under the engine lock with
+        the snapshot the reply serializes). ``tags`` optionally names the
+        state slice the reply covers (u64s — the sparse service's
+        per-(table, row) hashes) so :meth:`cache_invalidate` with tags
+        can drop only intersecting entries; None publishes an untagged
+        entry that every invalidation drops (the conservative default).
+        False = refused: the cache is off, the entry is over budget, or —
+        the invalidation race — an apply already raised the floor past
+        ``gen``. Buffers are copied native-side; never retained."""
+        kv = np.frombuffer(key, np.uint8)
+        rv = np.frombuffer(reply, np.uint8)
+        if not self._pin():
+            return False
+        try:
+            if tags:
+                arr = (ctypes.c_uint64 * len(tags))(*[int(t) for t in tags])
+                ok = self._lib.nl_cache_put_tagged(
+                    self._h, kv.ctypes.data, kv.nbytes, rv.ctypes.data,
+                    rv.nbytes, int(gen), arr, len(tags))
+            else:
+                ok = self._lib.nl_cache_put(self._h, kv.ctypes.data,
+                                            kv.nbytes, rv.ctypes.data,
+                                            rv.nbytes, int(gen))
+        finally:
+            self._unpin()
+        del kv, rv  # pinned the sources for exactly the call's duration
+        return bool(ok)
+
+    def cache_put_cond(self, key: bytes, reply, gen: int, tags=None,
+                       vfloor: int = 0) -> bool:
+        """Publish one conditional (NOT_MODIFIED) reply for the
+        CONDITIONAL request bytes ``key``: the native side sniffs the
+        request's ``"cond":`` token, excises its digits, and stores the
+        spliced key with version floor ``vfloor`` (the server version the
+        reply stamps) — any later conditional request whose sniffed known
+        version >= ``vfloor`` is answered from this entry with zero
+        upcalls, exactly the pump's unchanged-target comparison. Floor
+        refusal, budget, eviction and ``tags`` semantics match
+        :meth:`cache_put`."""
+        kv = np.frombuffer(key, np.uint8)
+        rv = np.frombuffer(reply, np.uint8)
+        if not self._pin():
+            return False
+        try:
+            arr, n = None, 0
+            if tags:
+                arr = (ctypes.c_uint64 * len(tags))(*[int(t) for t in tags])
+                n = len(tags)
+            ok = self._lib.nl_cache_put_cond(
+                self._h, kv.ctypes.data, kv.nbytes, rv.ctypes.data,
+                rv.nbytes, int(gen), arr, n, int(vfloor))
+        finally:
+            self._unpin()
+        del kv, rv  # pinned the sources for exactly the call's duration
+        return bool(ok)
+
+    def cache_invalidate(self, gen: int, tags=None) -> None:
+        """Invalidation-on-apply: raise the publish floor to ``gen`` and
+        drop cached entries — every entry when ``tags`` is None, else
+        only entries whose tag set intersects ``tags`` (untagged entries
+        always drop: they claim nothing). Pin-based (not the handle
+        lock): this runs on the engine apply path and must never queue
+        behind a multi-MB reply."""
+        if not self._pin():
+            return
+        try:
+            if tags:
+                arr = (ctypes.c_uint64 * len(tags))(*[int(t) for t in tags])
+                self._lib.nl_cache_invalidate_tags(self._h, int(gen), arr,
+                                                   len(tags))
+            else:
+                self._lib.nl_cache_invalidate(self._h, int(gen))
+        finally:
+            self._unpin()
+
+    def cache_stats(self) -> dict:
+        """Cumulative cache counters: hits (zero-upcall replies), misses
+        (cacheable frames that took the pump path), puts, rejects,
+        invalidations, live entries, bytes held, the invalidation floor,
+        and cond_hits (the subset of hits served from a version-floor
+        NOT_MODIFIED entry)."""
+        with self._lock:
+            if self._closed:
+                return {"hits": 0, "misses": 0, "puts": 0, "rejects": 0,
+                        "invalidations": 0, "entries": 0, "bytes": 0,
+                        "floor": 0, "cond_hits": 0}
+            self._lib.nl_cache_stats(self._h, self._cache_out)
+            o = self._cache_out
+            return {"hits": int(o[0]), "misses": int(o[1]),
+                    "puts": int(o[2]), "rejects": int(o[3]),
+                    "invalidations": int(o[4]), "entries": int(o[5]),
+                    "bytes": int(o[6]), "floor": int(o[7]),
+                    "cond_hits": int(o[8])}
 
     # -- native push admission (the zero-upcall push plane) -------------------
 

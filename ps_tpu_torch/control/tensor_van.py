@@ -71,7 +71,8 @@ MIGRATE_ROW = 26
 MIGRATE_COMMIT = 27
 MIGRATE_ABORT = 28
 COORD_TELEMETRY = 29
-READ = 30           # the side-effect-free read path (not ported yet)
+READ = 30           # the side-effect-free read path; {"cond": v} last
+NOT_MODIFIED = 31   # a conditional READ's reply when v is current
 NOT_MODIFIED = 31
 COORD_POLICY = 32
 RESEED = 33

@@ -4,12 +4,13 @@ transport's counters.
 Counterpart of ``TrainMetrics`` and the part of ``TransportStats`` in
 ``ps_tpu/utils/metrics.py`` that the van's serial and bucketed paths and
 the STATS reply record, with the codec, shared-memory lane, native
-serve loop, replication and failover counters. The rest of that module (``Meter``, the log2
-latency histograms of the registry, the serving and aggregation
-counters) belongs to the observability layer and is not
-ported yet (ROADMAP Queue 1 item 6); the native loop's queue-wait
-histogram is kept here as its raw state (:class:`NativeHist`) in the
-registry's geometry.
+serve loop, replication, failover and read-path counters and the
+freshness plane's ages. The rest of that module (``Meter``, the log2
+latency histograms of the registry, the aggregation counters) belongs to
+the observability layer and is not ported yet (ROADMAP Queue 1 item 6):
+a latency is kept as a bounded window of samples, and the native loop's
+queue-wait and read-hit histograms as their raw state
+(:class:`NativeHist`) in the registry's geometry.
 """
 
 from __future__ import annotations
@@ -73,8 +74,9 @@ class NativeHist:
 
 
 #: the native loop's histograms kept (of ``native_loop.NL_HISTS``' names):
-#: the queue wait, which the STATS reply reads
-NL_HIST_KEYS = ("nl_queue_wait_s",)
+#: the queue wait and the native read hit's service time, which the STATS
+#: reply reads
+NL_HIST_KEYS = ("nl_queue_wait_s", "nl_read_hit_s")
 
 
 class TransportStats:
@@ -96,6 +98,15 @@ class TransportStats:
     rows it landed) and its push-to-servable lag (``record_fresh_lag``),
     under the reference's ``apply_s``, ``sparse_apply_s`` and
     ``fresh_lag_s`` latency names.
+
+    The read path: a server counts the READs it answered in Python
+    (``record_read_served``), its NOT_MODIFIED replies and delta rows,
+    and the native read cache's counters (``set_read_cache_stats``); a
+    worker its cache hits and wire reads, coalesced waiters, replica
+    reads and staleness-bound fallbacks with their version gaps
+    (``read_gap_v``). Both record each serve's data age
+    (``record_read_age``, ``read_age_s``), which :meth:`fresh_snapshot`
+    summarizes for STATS.
     """
 
     def __init__(self, window: int = 256):
@@ -157,32 +168,63 @@ class TransportStats:
         self.repl_degraded = False
         self.failovers = 0
         self.failover_s = 0.0
-        # the latest op latencies by name (push, pull, push_pull, cycle):
-        # the reference keeps log2 histograms (obs/, not ported yet); a
-        # bounded window of samples gives the same quantiles here
-        self._op_samples: Dict[str, Deque] = collections.defaultdict(
+        # the read path: READs answered in Python; the native cache's hits,
+        # misses, version-floor hits, entries and bytes (absolute values
+        # synced by the pump); the worker's cache hits, wire reads,
+        # coalesced waiters, replica-served reads and staleness-bound
+        # fallbacks; NOT_MODIFIED replies and delta rows served
+        self.reads_served = 0
+        self.read_native_hits = 0
+        self.read_native_misses = 0
+        self.read_native_cond_hits = 0
+        self.read_cache_entries = 0
+        self.read_cache_bytes = 0
+        self.read_cache_hits = 0
+        self.read_wire = 0
+        self.read_coalesced = 0
+        self.reads_replica = 0
+        self.read_fallbacks = 0
+        self.read_not_modified = 0
+        self.read_delta_rows = 0
+        # the freshness plane: serves that recorded an age, those within
+        # the bound, negative ages clamped, the age sources and, per
+        # serving tier, [count, max age]
+        self.reads_aged = 0
+        self.reads_fresh = 0
+        self.fresh_clock_clamped = 0
+        self.fresh_src: Dict[str, int] = {"mono": 0, "sync": 0, "wall": 0}
+        self.fresh_tiers: Dict[str, list] = {}
+        # the latest samples by the reference's histogram name (push_s,
+        # pull_s, read_s, read_age_s, read_gap_v, ...): the reference
+        # keeps log2 histograms (obs/, not ported yet); a bounded window
+        # of samples gives the same quantiles here
+        self._samples: Dict[str, Deque] = collections.defaultdict(
             lambda: collections.deque(maxlen=4096))
 
     def record_op(self, name: str, seconds: float) -> None:
         """One client-side logical transport op (``push``/``pull``/
-        ``push_pull``/``cycle``) end to end."""
+        ``push_pull``/``read``/``cycle``) end to end."""
+        self._record_sample(name + "_s", seconds)
+
+    def _record_sample(self, key: str, value: float) -> None:
         with self._lock:
-            self._op_samples[name].append(float(seconds))
+            self._samples[key].append(float(value))
 
     def op_samples(self, name: str) -> list:
         """The latest latencies (seconds) of op ``name``, oldest first."""
         with self._lock:
-            return list(self._op_samples.get(name, ()))
+            return list(self._samples.get(name + "_s", ()))
 
     def latency_quantiles(self) -> Dict[str, dict]:
-        """``{name + "_s": {count, mean, p50, p99, max}}`` (seconds) over
-        each op's latest samples, as the reference names them."""
+        """``{name: {count, mean, p50, p99, max}}`` over each sampled
+        quantity's latest samples, under the reference's histogram names
+        (``push_s``, ``read_age_s``, ``read_gap_v``, ...)."""
         with self._lock:
-            samples = {k: list(v) for k, v in self._op_samples.items() if v}
+            samples = {k: list(v) for k, v in self._samples.items() if v}
         out = {}
         for name, xs in samples.items():
             a = np.asarray(xs)
-            out[name + "_s"] = {
+            out[name] = {
                 "count": len(xs), "mean": float(a.mean()),
                 "p50": float(np.quantile(a, 0.5)),
                 "p99": float(np.quantile(a, 0.99)), "max": float(a.max())}
@@ -335,6 +377,128 @@ class TransportStats:
         """The loop's count of frames over its slow-frame threshold."""
         with self._lock:
             self.nl_slow_frames = int(slow_frames)
+
+    # -- the read path -----------------------------------------------------------
+
+    def record_read_served(self) -> None:
+        """Server side: one READ answered in Python (the pump, a native
+        cache miss, or a serve thread)."""
+        with self._lock:
+            self.reads_served += 1
+
+    def set_read_cache_stats(self, hits: int, misses: int, entries: int,
+                             nbytes: int, cond_hits: int = 0) -> None:
+        """The native read cache's counters (absolute values: the native
+        side owns the counting). ``cond_hits`` are the hits served from a
+        version-floor (NOT_MODIFIED) entry."""
+        with self._lock:
+            self.read_native_hits = int(hits)
+            self.read_native_misses = int(misses)
+            self.read_cache_entries = int(entries)
+            self.read_cache_bytes = int(nbytes)
+            self.read_native_cond_hits = int(cond_hits)
+
+    def record_read_cache(self, hit: bool) -> None:
+        """Worker side: one read served from the local parameter cache
+        (``hit``) or one that needed a wire fetch."""
+        with self._lock:
+            if hit:
+                self.read_cache_hits += 1
+            else:
+                self.read_wire += 1
+
+    def record_read_coalesced(self) -> None:
+        """Worker side: one reader shared another caller's in-flight
+        fetch instead of issuing its own."""
+        with self._lock:
+            self.read_coalesced += 1
+
+    def record_read_route(self, replica: bool) -> None:
+        """Worker side: one wire read served by a replica (``replica``)
+        or by the primary."""
+        with self._lock:
+            if replica:
+                self.reads_replica += 1
+
+    def record_read_fallback(self) -> None:
+        """Worker side: a replica's reply was past the staleness bound and
+        the read went on toward the primary."""
+        with self._lock:
+            self.read_fallbacks += 1
+
+    def record_read_gap(self, versions: int) -> None:
+        """Worker side: how many versions a refused replica reply trailed
+        the newest known one (``read_gap_v``)."""
+        self._record_sample("read_gap_v", versions)
+
+    def record_read_not_modified(self) -> None:
+        """Server side: one conditional READ answered NOT_MODIFIED."""
+        with self._lock:
+            self.read_not_modified += 1
+
+    def record_read_delta_rows(self, rows: int) -> None:
+        """Server side: one conditional sparse READ shipped ``rows``
+        changed rows instead of the whole requested id-set."""
+        with self._lock:
+            self.read_delta_rows += int(rows)
+
+    def record_read_age(self, seconds: float, src: str = "mono",
+                        tier: str = "wire",
+                        bound: Optional[float] = None,
+                        clamped: bool = False) -> None:
+        """One serve's data age (``now - version birth``, resolved by
+        ``obs/freshness.age_of``): ``src`` is the clock it came from,
+        ``tier`` the serving tier (cache, wire, replica, nm, pump, ...),
+        ``bound`` the staleness bound in seconds this endpoint holds
+        reads to, ``clamped`` marks a negative age clamped to zero."""
+        self._record_sample("read_age_s", seconds)
+        with self._lock:
+            self.reads_aged += 1
+            if bound is not None and seconds <= bound:
+                self.reads_fresh += 1
+            if src in self.fresh_src:
+                self.fresh_src[src] += 1
+            t = self.fresh_tiers.setdefault(tier, [0, 0.0])
+            t[0] += 1
+            if seconds > t[1]:
+                t[1] = float(seconds)
+            if clamped:
+                self.fresh_clock_clamped += 1
+
+    def fresh_snapshot(self) -> Optional[dict]:
+        """The STATS reply's ``fresh`` dict (None until an age or a lag
+        was recorded): age and lag quantiles in ms, the share within the
+        bound, clamps, the source mix and each tier's count and largest
+        age, under the reference's keys."""
+        with self._lock:
+            ages = list(self._samples.get("read_age_s", ()))
+            lags = list(self._samples.get("fresh_lag_s", ()))
+            aged, within = self.reads_aged, self.reads_fresh
+            clamped = self.fresh_clock_clamped
+            src = {k: v for k, v in self.fresh_src.items() if v}
+            tiers = {t: {"n": int(n), "max_ms": round(mx * 1e3, 3)}
+                     for t, (n, mx) in self.fresh_tiers.items()}
+        if aged == 0 and not lags:
+            return None
+        out: dict = {"aged": int(aged)}
+        if ages:
+            out["age_p50_ms"] = round(float(np.quantile(ages, 0.5)) * 1e3, 3)
+            out["age_p99_ms"] = round(float(np.quantile(ages, 0.99)) * 1e3,
+                                      3)
+        if aged > 0:
+            out["within"] = int(within)
+            out["fresh_share"] = round(within / aged, 4)
+        if lags:
+            out["lag_p50_ms"] = round(float(np.quantile(lags, 0.5)) * 1e3, 3)
+            out["lag_p99_ms"] = round(float(np.quantile(lags, 0.99)) * 1e3,
+                                      3)
+        if clamped:
+            out["clamped"] = int(clamped)
+        if src:
+            out["src"] = src
+        if tiers:
+            out["tiers"] = tiers
+        return out
 
     def record_pool(self, hit: bool) -> None:
         """One receive-buffer-pool borrow (reused buffer or fresh one)."""

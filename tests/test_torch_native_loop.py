@@ -672,15 +672,31 @@ def test_slow_frames_are_counted_and_left_in_the_loops_ring(monkeypatch):
 
 
 def test_read_cache_calls_name_item_5_8():
+    """The read cache's calls (item 5.8, once refused) are bound: a
+    service on the loop configures the default budget at startup, a put
+    at the current generation is taken and one below the floor an
+    invalidation raised is refused, a conditional put keys on the
+    request with its cond digits cut out, and the stats carry nine
+    counters."""
     from ps_tpu_torch.utils.metrics import NL_HIST_KEYS
 
     svc = Echo(native_loop=True)
     try:
-        for call in (lambda: svc._nloop.cache_config(tv.READ, 1 << 20),
-                     lambda: svc._nloop.cache_put(b"k", b"v", 1),
-                     svc._nloop.cache_stats):
-            with pytest.raises(NotImplementedError, match="item 5.8"):
-                call()
+        assert svc._native_read_cache
+        nloop = svc._nloop
+        key = tv.encode(tv.READ, 0, None)
+        assert nloop.cache_put(key, b"reply", 1)
+        nloop.cache_invalidate(2)
+        assert not nloop.cache_put(key, b"stale", 1)  # under the floor
+        cond = tv.encode(tv.READ, 0, None, extra={"cond": 5})
+        assert nloop.cache_put_cond(cond, bytes([tv.NOT_MODIFIED]), 2,
+                                    vfloor=5)
+        cs = nloop.cache_stats()
+        assert set(cs) == {"hits", "misses", "puts", "rejects",
+                           "invalidations", "entries", "bytes", "floor",
+                           "cond_hits"}
+        assert cs["puts"] == 2 and cs["rejects"] == 1 and cs["floor"] == 2
+        assert cs["entries"] == 1 and cs["invalidations"] == 1
         assert set(NL_HIST_KEYS) <= {k for _, k in nl.NL_HISTS}
     finally:
         svc.stop()

@@ -704,17 +704,34 @@ class _TieredLike(SparseEmbedding):
     ("shm", None),
     ("coordinator", "elastic/.*item 6"),
     ("tiered", "tiered.*item 5.7"),
-    ("read_rows", "read path.*item 5.8"),
-    ("READ", "read path.*item 5.8"),
+    ("read_rows", None),
+    ("READ", None),
 ], ids=["backup", "native_loop", "shm", "coordinator", "tiered",
         "read_rows", "READ"])
 def test_deferred_options_raise_and_name_their_item(case, match):
     """Every option left for a later item raises NotImplementedError
-    naming it (READ is answered ERR, naming it); the native loop (item
-    5.1), accepting shm offers (item 5.2) and a backup (item 5.6) are in
-    effect."""
-    import re
-
+    naming it (a tiered table, and so its reads, item 5.7); the native
+    loop (item 5.1), accepting shm offers (item 5.2), a backup (item 5.6)
+    and the read path (``read_rows`` and READ, item 5.8, once refused
+    naming it) are in effect."""
+    if case in ("read_rows", "READ"):
+        svc = _serve()
+        try:
+            w = connect_sparse(_uri([svc]), 0, SPEC)
+            ids = np.arange(3, dtype=np.int32)
+            want = w.pull({"deep": ids})["deep"].numpy()
+            if case == "read_rows":
+                got = w.read_rows({"deep": ids})["deep"].numpy()
+            else:
+                kind, _, tensors, extra = tv.decode(w._chs[0].request(
+                    tv.encode(tv.READ, 0, {"deep/ids": ids})))
+                assert kind == tv.OK and extra["version"] == 0, extra
+                got = np.array(tensors["deep/rows"])
+            np.testing.assert_array_equal(got, want)
+            w.close()
+        finally:
+            svc.stop()
+        return
     if match is None:
         svc = SparsePSService(harness.sparse_tables(SHAPE, 0, 1),
                               **{case: True})
@@ -736,19 +753,6 @@ def test_deferred_options_raise_and_name_their_item(case, match):
         with pytest.raises(NotImplementedError, match=match):
             SparsePSService({"t": emb})
         return
-    svc = _serve()
-    try:
-        w = connect_sparse(_uri([svc]), 0, SPEC)
-        if case == "read_rows":
-            with pytest.raises(NotImplementedError, match=match):
-                w.read_rows({"deep": np.arange(3, dtype=np.int32)})
-        else:
-            kind, _, _, extra = tv.decode(w._chs[0].request(tv.encode(
-                tv.READ, 0, {"deep/ids": np.arange(3, dtype=np.int32)})))
-            assert kind == tv.ERR and re.search(match, extra["error"])
-        w.close()
-    finally:
-        svc.stop()
 
 
 def test_bf16_table_is_refused_with_a_typed_error():

@@ -13,6 +13,9 @@ limit, so nothing hangs:
     python tests/test_torch_van_harness.py replica-backup <out> <watch_port> <watch_timeout_ms> <device>
     python tests/test_torch_van_harness.py replica-primary <out> <watch_port> <ack> <window> <device>
     python tests/test_torch_van_harness.py replica-worker <out> <steps> <kill_at> <device>
+    python tests/test_torch_van_harness.py read-server <out> <shard> <nshards> <device> <shape> <opts>
+    python tests/test_torch_van_harness.py read-pusher <out> <cycles> <device> <shape>
+    python tests/test_torch_van_harness.py read-reader <out> <reader> <shape>
 
 - server: an async KVStore on the CPU (sgd 0.05, dc_lambda 0.04) behind
   ``AsyncPSService`` with its full history, on a port the kernel picks
@@ -59,7 +62,25 @@ limit, so nothing hangs:
   the dead primary. The servers run until ``done`` appears; the backup
   then dumps its role, promotion and counters (``backup.json``, its
   params ``backup_params.npz``), the worker its losses, failovers and
-  final params (``worker.json``, ``worker_params.npz``).
+  final params (``worker.json``, ``worker_params.npz``). The primary
+  takes an optional ``loop`` (1: the native loop) after ``device``.
+
+- read-server / read-pusher / read-reader: the read path's processes
+  (phase 21 of ``chip_smoke.py``), over the sparse roles' tables: a
+  server (``opts``: ``tag`` of its port file ``port<shard><tag>``,
+  ``backup``, ``native_loop``, ``attach``: the tag of the backup it
+  attaches with sync ack) runs the commands ``cmd<k>.json`` in order
+  (``{"op": "snap"}``, or ``{"op": "cache", "bytes": n}``: the native
+  read cache's budget, 0 off) and after each writes
+  ``snap<k>_<shard><tag>.json`` (launches, applies, versions, read
+  counters, the native cache's counters, and with ``"digests": true``
+  its tables' digests), until ``exit`` appears; the
+  pusher runs a sparse worker's cycles against the primaries from
+  ``push_go`` until ``push_stop`` and writes ``pusher.json``; a reader
+  reads its hot id-set (a Criteo-like batch of its own seed) with
+  ``read_rows`` for each window ``go<k>.json`` (``{"mode": "layered" |
+  "primary" | "final", "readers": R, "seconds": s}``) and writes
+  ``read<k>_<reader>.json``, until ``exit``.
 
 Every process of this file computes on one intra-op thread, as the
 replays of its runs do (:func:`one_thread`). :func:`replay` replays a run
@@ -565,12 +586,12 @@ def run_replica_backup(out, watch_port, watch_timeout_ms, device):
     ps.shutdown()
 
 
-def run_replica_primary(out, watch_port, ack, window, device):
+def run_replica_primary(out, watch_port, ack, window, device, loop=False):
     import ps_tpu_torch as ps
     from ps_tpu_torch.backends.remote_async import AsyncPSService
     from ps_tpu_torch.control.heartbeat import HeartbeatClient
 
-    svc = AsyncPSService(_replica_store(device))
+    svc = AsyncPSService(_replica_store(device), native_loop=loop)
     path = os.path.join(out, "backup_port")
     _wait_file(path)
     with open(path) as f:
@@ -1112,6 +1133,185 @@ def run_sparse_worker(ports, out, worker, cycles, device, shape,
     w.close()
 
 
+# -- the read path's processes (backends/remote_sparse.py's READ) ------------
+
+#: a reader's hot id-set: one Criteo-like batch of this seed plus its index
+READ_SEED = 1000
+
+
+def read_hot_ids(shape: str, reader: int) -> np.ndarray:
+    """Reader ``reader``'s hot id-set: the global ids of one batch drawn
+    by the sparse roles' generator (13,312 Zipf-skewed ids at "wd")."""
+    return sparse_ids(shape, READ_SEED + reader, 1)[0]
+
+
+def _poll(path: str, stop: str = None, timeout: float = 600.0) -> bool:
+    """Until ``path`` exists (True) or ``stop`` does (False)."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if stop is not None and os.path.exists(stop):
+            return False
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"never appeared: {path}")
+        time.sleep(0.002)
+    return True
+
+
+def _read_snap(svc, tables, digests=False) -> dict:
+    """A read server's counters (and with ``digests`` its tables'), under
+    its lock."""
+    with svc._service_lock():
+        t = svc.transport
+        return {
+            "role": svc.role, "launches": _launch_counts(),
+            "applies": svc.apply_log.total, "versions": dict(svc.versions),
+            "reads_served": t.reads_served,
+            "not_modified": t.read_not_modified,
+            "delta_rows": t.read_delta_rows,
+            "cache": (svc._nloop.cache_stats() if svc._nloop is not None
+                      else None),
+            "native_read_cache": svc._native_read_cache,
+            "digests": table_digests(tables) if digests else None}
+
+
+def run_read_server(out, shard, nshards, device, shape, opts):
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.backends.remote_sparse import SparsePSService
+
+    tag = opts.get("tag", "")
+    ps.init(backend="cuda", device=device)
+    tables = sparse_tables(shape, shard, nshards)
+    svc = SparsePSService(
+        tables, shard=shard, num_shards=nshards,
+        total_rows={n: v for n, (v, _) in sparse_spec(shape).items()},
+        native_loop=bool(opts.get("native_loop")),
+        backup=bool(opts.get("backup")))
+    if opts.get("attach"):
+        back = os.path.join(out, f"port{shard}{opts['attach']}")
+        _wait_file(back, timeout=300)
+        with open(back) as f:
+            svc.attach_backup("127.0.0.1", int(f.read()), ack="sync")
+    _write(os.path.join(out, f"port{shard}{tag}"), svc.port)
+    k, stop = 0, os.path.join(out, "exit")
+    while _poll(os.path.join(out, f"cmd{k}.json"), stop):
+        with open(os.path.join(out, f"cmd{k}.json")) as f:
+            cmd = json.load(f)
+        if cmd["op"] == "cache" and svc._nloop is not None:
+            svc.set_read_cache_bytes(cmd["bytes"])
+        _write(os.path.join(out, f"snap{k}_{shard}{tag}.json"),
+               json.dumps(_read_snap(svc, tables, cmd.get("digests"))))
+        k += 1
+    svc.stop()
+    ps.shutdown()
+
+
+def run_read_pusher(out, cycles, device, shape):
+    """Worker 0's cycles of the sparse roles (even: pull then push, odd:
+    push_pull), on ``device``, against the primaries, round and round
+    from ``push_go`` until ``push_stop``; ``pusher.json`` holds each
+    cycle's start and length."""
+    import torch
+
+    from ps_tpu_torch.backends.remote_sparse import connect_sparse
+
+    dev = torch.device(device)
+    uri = ",".join(f"127.0.0.1:{p}"
+                   for p in _read_ports("@2", out).split(","))
+    w = connect_sparse(uri, 0, sparse_spec(shape))
+    ids = sparse_ids(shape, 0, cycles)
+    grads = [{n: sparse_grads(shape, 0, c, n, ids[c].size)
+              for n in SPARSE_TABLES} for c in range(cycles)]
+    _write(os.path.join(out, "pusher_ready"), 1)
+    _poll(os.path.join(out, "push_go"))
+    stop = os.path.join(out, "push_stop")
+    starts, cycle_s, c = [], [], 0
+    while not os.path.exists(stop):
+        i = c % cycles
+        idt = torch.from_numpy(ids[i]).to(dev)
+        pushes = {n: (idt, torch.from_numpy(grads[i][n]).to(dev))
+                  for n in SPARSE_TABLES}
+        req = {n: idt for n in SPARSE_TABLES}
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        if c % 2 == 0:
+            w.pull(req)
+            w.push(pushes)
+        else:
+            w.push_pull(pushes, req)
+        cycle_s.append(time.perf_counter() - t0)
+        starts.append(t0)
+        c += 1
+    _write(os.path.join(out, "pusher.json"), json.dumps({
+        "starts": starts, "cycle_s": cycle_s, "versions": w.versions()}))
+    w.close()
+
+
+def run_read_reader(out, reader, shape):
+    """Reader ``reader``: ``read_rows`` of its hot id-set over the replica
+    sets at bound 0 ("layered") or over the primaries alone ("primary"),
+    for a window's seconds, recording each read's latency and wire bytes;
+    "final" (the pusher stopped) reads once more conditionally and once
+    with a full read (``read_conditional`` off), and holds the two equal
+    bitwise and equal to a pull."""
+    from ps_tpu_torch.backends.remote_sparse import connect_sparse
+
+    ports = _read_ports("@2", out).split(",")
+    backs = _read_ports("@2", out, suffix="b").split(",")
+    spec = sparse_spec(shape)
+    layered = connect_sparse(",".join(
+        f"127.0.0.1:{p}|127.0.0.1:{b}" for p, b in zip(ports, backs)),
+        100 + reader, spec, read_staleness=0)
+    primary = connect_sparse(",".join(f"127.0.0.1:{p}" for p in ports),
+                             100 + reader, spec)
+    ids = read_hot_ids(shape, reader)
+    req = {n: ids for n in spec}
+    _write(os.path.join(out, f"reader_ready{reader}"), 1)
+    k, stop = 0, os.path.join(out, "exit")
+    while _poll(os.path.join(out, f"go{k}.json"), stop):
+        with open(os.path.join(out, f"go{k}.json")) as f:
+            go = json.load(f)
+        rec = {"reader": reader, "mode": go["mode"]}
+        if go["mode"] == "final":
+            held = layered.read_rows(req)
+            b0 = layered.bytes_pulled
+            again = layered.read_rows(req)  # a warm read, nothing moved
+            warm = layered.bytes_pulled - b0
+            layered.read_conditional = False
+            b0 = layered.bytes_pulled
+            full = layered.read_rows(req)
+            rec["bytes_full"] = layered.bytes_pulled - b0
+            rec["bytes_warm"] = warm
+            layered.read_conditional = True
+            pulled = primary.pull(req)
+            rec["equal"] = all(
+                np.array_equal(held[n].numpy(), full[n].numpy())
+                and np.array_equal(again[n].numpy(), full[n].numpy())
+                and np.array_equal(full[n].numpy(), pulled[n].numpy())
+                for n in spec)
+        elif reader < int(go["readers"]):
+            w = layered if go["mode"] == "layered" else primary
+            t = w.transport
+            before = (t.reads_replica, t.read_fallbacks)
+            lat, nbytes = [], []
+            end = time.perf_counter() + float(go["seconds"])
+            while time.perf_counter() < end:
+                b0 = w.bytes_pulled
+                t0 = time.perf_counter()
+                rows = w.read_rows(req)
+                lat.append(time.perf_counter() - t0)
+                nbytes.append(w.bytes_pulled - b0)
+            assert all(tuple(rows[n].shape) == (ids.size, d)
+                       for n, (_, d) in spec.items())
+            rec.update({"lat": lat, "bytes": nbytes,
+                        "replica": t.reads_replica - before[0],
+                        "fallbacks": t.read_fallbacks - before[1]})
+        _write(os.path.join(out, f"read{k}_{reader}.json"), json.dumps(rec))
+        k += 1
+    layered.close()
+    primary.close()
+
+
 def sparse_replay(infos, shape, nworkers, cycles, pulls=None,
                   fused_apply=None, compress=None, by_cycle=False):
     """Replay each shard's apply log (``infos``, one server dump a shard,
@@ -1216,7 +1416,18 @@ def main(argv) -> int:
         run_replica_backup(out, int(watch_port), int(timeout_ms), device)
     elif role == "replica-primary":
         out, watch_port, ack, window, device = argv[2:7]
-        run_replica_primary(out, int(watch_port), ack, int(window), device)
+        run_replica_primary(out, int(watch_port), ack, int(window), device,
+                            loop=len(argv) > 7 and argv[7] == "1")
+    elif role == "read-server":
+        out, shard, nshards, device, shape, opts = argv[2:8]
+        run_read_server(out, int(shard), int(nshards), device, shape,
+                        json.loads(opts))
+    elif role == "read-pusher":
+        out, cycles, device, shape = argv[2:6]
+        run_read_pusher(out, int(cycles), device, shape)
+    elif role == "read-reader":
+        out, reader, shape = argv[2:5]
+        run_read_reader(out, int(reader), shape)
     elif role == "replica-worker":
         out, steps, kill_at, device = argv[2:6]
         run_replica_worker(out, int(steps), int(kill_at), device)
