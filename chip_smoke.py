@@ -353,6 +353,43 @@ Phases, each raising on failure:
    with ``python3 -c "import chip_smoke as c, tempfile; c.phase_build();
    c.phase_read_path(tempfile.mkdtemp())"`` (phase 17's numbers then
    print as 0).
+22. two-level aggregation on the card (ROADMAP item 5.5,
+   ``ps_tpu_torch/backends/aggregator.py``; no kernel of the port is on
+   this path: the launch counts are set to 0 before it and must read 0
+   after it): (a) config 5's async server in this process on the card,
+   the MNIST MLP at 784-256-10, behind an ``agg-server`` process of the
+   van harness on the native loop (group 3) and three ``worker``
+   processes given ``aggregator=`` over the rings, 30 lockstep rounds:
+   with sgd at lr 0.5, integer gradients and an integer init the
+   server's params bitwise the closed form; with DC-ASGD (dc_lambda
+   0.04, lr 0.1, the MLP's seeded init) within 1e-5 of a CPU replay of
+   the same merged rounds through the server's event log; 30 merged
+   rounds at a realized fan-in of 3.0, the upstream bytes a round at or
+   under the members' (a flat worker's frames) / 3 + 16 KiB, and the
+   aggregator launched no kernel and never initialized CUDA; (b) the
+   reference's two kill windows in this process with the server on the
+   card (the aggregator killed after the merged commit, before any
+   member's ack, and before the forward): each member degrades to the
+   flat path once, every push applies once, bitwise, and the
+   post-commit replays dedup through the members' tokens; then (a)'s
+   group with its agg-server SIGKILLed once 15 merged rounds committed:
+   each member degrades once, bitwise the closed form; (c) (a)'s sgd
+   leg over a primary and a sync-ack backup process (phase 20's replica
+   roles at 784-256-10), the aggregator in this process: after round
+   15's commit the backup's READ is bitwise its primary's, the primary
+   is SIGKILLed and the aggregator killed before the members' acks, the
+   backup promotes, the members' replays (over TCP) dedup there through
+   the replicated members' tokens, and its params end bitwise the
+   closed form; (d) at (a)'s aggregator: a member READ bitwise the
+   upstream's at the same version, its repeat a native hit bitwise the
+   miss, a READ conditional on that version NOT_MODIFIED, serve ages
+   under tier ``agg`` with none clamped; (e) printed, not held: (a)'s
+   rounds/s, (b)'s members aggregated against flat, the ``agg_hold``
+   p50/p99, and the 442,939,392-byte tree at fan-in 2 for 3 rounds: the
+   upstream bytes a round against flat and the rates, beside the card's
+   name and power limit. Run it alone with ``python3 -c "import
+   chip_smoke as c, tempfile; c.phase_aggregation(tempfile.mkdtemp())"``
+   (it needs no kernel build).
 
 It prints one JSON line per timed kernel, then the kernels line, then
 ``{"ok": true, "device": {...}}`` as its last line. Without a GPU, or
@@ -6266,6 +6303,632 @@ def phase_read_path(tmp, pushed=None):
     return {"launches": a["launches"], "numbers": n, "tree": tree}
 
 
+AGG_HIDDEN = 256        # the MNIST MLP at 784-256-10 (phase 11's full width)
+AGG_FAN_IN = 3          # (a)-(c): one aggregator, three member processes
+AGG_ROUNDS = 30         # (a)-(c): lockstep rounds a member
+AGG_LR = 0.5            # the sgd legs: a power of two, every sum exact
+AGG_DC_LAMBDA = 0.04    # (a)'s DC-ASGD leg: the trainer's default
+AGG_DC_LR, AGG_DC_SCALE = 0.1, 2.0 ** -8  # its lr and gradient scale
+AGG_KILL_AT = 15        # (b), (c): the round after which the kill lands
+AGG_BYTES_SLACK = 16 << 10  # (a): a merged round's header overhead, a round
+AGG_TIMEOUT_S = 240
+AGG_TREE_FAN_IN, AGG_TREE_ROUNDS = 2, 3  # (e): the 0.44 GB tree
+
+
+def _agg_upstream(harness, dc_lambda=0.0, lr=AGG_LR, init="int"):
+    """Config 5's async server in this process on the card: the MLP at
+    784-256-10 from :func:`agg_tree` (``init``), sgd at ``lr``, its full
+    event log kept."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.backends.remote_async import AsyncPSService
+
+    ps.init(backend="cuda", mode="async", num_workers=AGG_FAN_IN,
+            dc_lambda=dc_lambda)
+    params0 = harness.agg_tree(AGG_HIDDEN, init)
+    store = ps.KVStore(optimizer="sgd", learning_rate=lr, mode="async")
+    store.init({k: torch.from_numpy(v).cuda() for k, v in params0.items()})
+    return params0, store, AsyncPSService(store, record_full_history=True)
+
+
+def _agg_params(store):
+    return {k: v.cpu().numpy() for k, v in store._engine._params.items()}
+
+
+def _agg_exact(got, want, what):
+    for k in want:
+        if not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"{what}: {k} is not bitwise the closed "
+                                 f"form (max diff "
+                                 f"{float(np.max(np.abs(got[k] - want[k])))})")
+
+
+def _agg_group(harness, out, uri, member_opts, aggregator=None,
+               on_version=None):
+    """One aggregation group as processes: an ``agg-server`` on the native
+    loop over ``uri`` (or the ``aggregator`` at ``host:port`` given) and
+    AGG_FAN_IN ``worker`` processes on the card, over the shm lane unless
+    ``member_opts`` says otherwise, AGG_ROUNDS lockstep rounds each.
+    ``on_version`` is polled while the members run (the parent's cue for a
+    kill). Returns (the agg-server process or None, the members'
+    records); the agg-server still serves until ``agg_done``."""
+    os.makedirs(out, exist_ok=True)
+    procs = []
+    opts = dict({"shm": True}, **member_opts, hidden=AGG_HIDDEN,
+                device="cuda", failover_timeout=60.0,
+                aggregator=aggregator or "@")
+    if aggregator is None:
+        procs.append(harness.spawn("agg-server", out, uri, AGG_FAN_IN,
+                                   json.dumps({"hidden": AGG_HIDDEN})))
+    # the members' file barrier after their first pull starts the rounds
+    # together (a process's start is seconds, the flush timeout 2)
+    members = [harness.spawn("worker", 0, out, w, AGG_ROUNDS, AGG_FAN_IN,
+                             json.dumps(dict(opts, uri=uri)))
+               for w in range(AGG_FAN_IN)]
+    procs += members
+    try:
+        deadline = time.monotonic() + AGG_TIMEOUT_S
+        while any(p.poll() is None for p in members):
+            bad = [p for p in procs if p.poll() not in (None, 0)
+                   and not getattr(p, "killed", False)]
+            if bad or time.monotonic() > deadline:
+                harness.kill_all(procs)
+                raise AssertionError(
+                    "aggregation group failed:\n" + "\n".join(
+                        f"{' '.join(map(str, p.args[-6:]))}: exit "
+                        f"{p.returncode}\n{p.stdout.read()[-3000:]}"
+                        for p in (bad or procs)))
+            if on_version is not None:
+                on_version(procs[0])
+            time.sleep(0.005)
+    except BaseException:
+        harness.kill_all(procs)
+        raise
+    records = [json.load(open(os.path.join(out, f"worker{w}.json")))
+               for w in range(AGG_FAN_IN)]
+    return (None if aggregator else procs[0]), records
+
+
+def _agg_finish(harness, out, proc):
+    """Release an agg-server and read its dump."""
+    open(os.path.join(out, "agg_done"), "w").close()
+    text = proc.communicate(timeout=AGG_TIMEOUT_S)[0]
+    if proc.returncode != 0:
+        raise AssertionError(f"agg-server exited {proc.returncode}:\n"
+                             f"{text[-3000:]}")
+    info = json.load(open(os.path.join(out, "agg.json")))
+    if any(v for k, v in info["launches"].items() if k != "by_rule") \
+            or info["launches"]["by_rule"] or info["cuda_initialized"]:
+        raise AssertionError(f"the aggregator launched a kernel or touched "
+                             f"the card: {info['launches']}, CUDA "
+                             f"initialized {info['cuda_initialized']}")
+    return info
+
+
+def _agg_member_checks(records, what, degrades=0, lane="shm"):
+    for r in records:
+        if r["agg_degrades"] != degrades or r["push_seq"] != AGG_ROUNDS \
+                or r["aggregated"] != (degrades == 0):
+            raise AssertionError(
+                f"{what}: member {r['worker']} degraded "
+                f"{r['agg_degrades']} time(s) (want {degrades}), pushed "
+                f"{r['push_seq']} of {AGG_ROUNDS}")
+        if r["lane"] != lane:
+            raise AssertionError(f"{what}: member {r['worker']} on lane "
+                                 f"{r['lane']}, not {lane}")
+
+
+def _raw_request(port, payload):
+    from ps_tpu_torch.control import tensor_van as tv
+
+    with tv.Channel.connect("127.0.0.1", port) as ch:
+        return bytes(ch.request(payload))
+
+
+def _agg_reads(agg_port, svc_port):
+    """(d) at a live aggregator: a member READ bitwise the upstream's at
+    the same version, its repeat (a native hit) bitwise it, and a READ
+    conditional on that version answered NOT_MODIFIED."""
+    from ps_tpu_torch.control import tensor_van as tv
+
+    miss = _raw_request(agg_port, tv.encode(tv.READ, 0, None))
+    hit = _raw_request(agg_port, tv.encode(tv.READ, 0, None))
+    up = _raw_request(svc_port, tv.encode(tv.READ, 0, None))
+    if hit != miss:
+        raise AssertionError("(d): the repeated member READ is not bitwise "
+                             "the pump miss that published it")
+    k1, _, t1, e1 = tv.decode(memoryview(miss))
+    k2, _, t2, e2 = tv.decode(memoryview(up))
+    if (k1, k2) != (tv.OK, tv.OK) or int(e1["version"]) != int(
+            e2["version"]) or sorted(t1) != sorted(t2) or any(
+            not np.array_equal(t1[k], t2[k]) for k in t1):
+        raise AssertionError(f"(d): the member READ (version "
+                             f"{e1.get('version')}) is not bitwise the "
+                             f"upstream's (version {e2.get('version')})")
+    v = int(e1["version"])
+    nm = _raw_request(agg_port, tv.encode(tv.READ, 0, None,
+                                          extra={"cond": v}))
+    kind, _, tensors, extra = tv.decode(memoryview(nm))
+    if kind != tv.NOT_MODIFIED or tensors or int(extra["version"]) != v:
+        raise AssertionError(f"(d): a READ conditional on version {v} got "
+                             f"kind {kind}")
+    return v
+
+
+def _agg_sgd(harness, tmp):
+    """(a)'s integer-exact sgd leg, and (d) at its aggregator."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.backends.common import AGG_WORKER_BASE
+
+    params0, store, svc = _agg_upstream(harness)
+    out = os.path.join(tmp, "sgd")
+    uri = f"127.0.0.1:{svc.port}"
+    try:
+        proc, records = _agg_group(harness, out, uri, {})
+        try:
+            with open(os.path.join(out, "agg_port")) as f:
+                agg_port = int(f.read())
+            version = _agg_reads(agg_port, svc.port)
+        finally:
+            info = _agg_finish(harness, out, proc)
+        want = harness.agg_expected(
+            params0, {w: range(AGG_ROUNDS) for w in range(AGG_FAN_IN)},
+            AGG_LR)
+        _agg_exact(_agg_params(store), want, "(a) sgd")
+        if version != AGG_ROUNDS or store._engine.version != AGG_ROUNDS \
+                or set(svc._applied) != {AGG_WORKER_BASE}:
+            raise AssertionError(f"(a): version {store._engine.version}, "
+                                 f"appliers {sorted(svc._applied)}")
+    finally:
+        svc.stop()
+        ps.shutdown()
+    _agg_member_checks(records, "(a) sgd")
+    s = info["summary"]
+    if info["rounds"] != AGG_ROUNDS or s.get("agg_rounds") != AGG_ROUNDS \
+            or s.get("agg_fan_in") != float(AGG_FAN_IN):
+        raise AssertionError(f"(a): {info['rounds']} rounds, summary {s}")
+    # a member's cycle to the aggregator is a flat worker's cycle to a
+    # one-shard server: the same frames, so flat = the members' bytes
+    flat = sum(r["bytes"][-1] - r["bytes"][0] for r in records) / (
+        AGG_ROUNDS - 1)
+    up = info["upstream"]
+    upstream = (up["bytes_pushed"] + up["bytes_pulled"]) / AGG_ROUNDS
+    if upstream > flat / AGG_FAN_IN + AGG_BYTES_SLACK:
+        raise AssertionError(f"(a): {upstream:.0f} upstream bytes a round "
+                             f"against flat {flat:.0f} / {AGG_FAN_IN}")
+    fresh = info["fresh"] or {}
+    tiers = fresh.get("tiers", {})
+    if tiers.get("agg", {}).get("n", 0) < 2 or fresh.get("clamped", 0) \
+            or (info["cache"] or {}).get("hits", 0) < 1:
+        raise AssertionError(f"(d): serve ages {fresh}, native cache "
+                             f"{info['cache']}")
+    hold = np.asarray(info["hold_s"]) * 1e3
+    return {"flat_bytes": flat, "upstream_bytes": upstream,
+            "hold_p50_ms": float(np.quantile(hold, 0.5)),
+            "hold_p99_ms": float(np.quantile(hold, 0.99)),
+            "rounds_per_s": float(np.mean([
+                (AGG_ROUNDS - 1) / (r["ends"][-1] - r["ends"][0])
+                for r in records])),
+            "version": version, "cache": info["cache"], "fresh": fresh}
+
+
+def _agg_dc(harness, tmp):
+    """(a)'s DC-ASGD leg: the card's params within MNIST_TOL of a CPU
+    replay of the same merged rounds through the server's event log."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.backends.common import AGG_WORKER_BASE
+
+    params0, store, svc = _agg_upstream(harness, AGG_DC_LAMBDA, AGG_DC_LR,
+                                        "seed")
+    out = os.path.join(tmp, "dc")
+    try:
+        proc, records = _agg_group(harness, out, f"127.0.0.1:{svc.port}",
+                                   {"scale": AGG_DC_SCALE})
+        info = _agg_finish(harness, out, proc)
+        card = _agg_params(store)
+        events = [tuple(e) for e in svc.event_log]
+    finally:
+        svc.stop()
+        ps.shutdown()
+    _agg_member_checks(records, "(a) DC-ASGD")
+    if info["rounds"] != AGG_ROUNDS or {w for _, w in events} != {
+            AGG_WORKER_BASE} or sum(op == "push" for op, _ in events) \
+            != AGG_ROUNDS:
+        raise AssertionError(f"(a) DC-ASGD: {info['rounds']} rounds, "
+                             f"events {events[:6]}...")
+    ps.init(backend="cuda", mode="async", num_workers=AGG_FAN_IN,
+            dc_lambda=AGG_DC_LAMBDA, device="cpu")
+    try:
+        replay = ps.KVStore(optimizer="sgd", learning_rate=AGG_DC_LR,
+                            mode="async")
+        replay.init({k: torch.from_numpy(v) for k, v in params0.items()})
+        eng, r = replay._engine, 0
+        for op, w in events:
+            if op == "pull":
+                eng.pull_tree(worker=w)
+            else:
+                merged = harness.agg_merged(params0, range(AGG_FAN_IN), r,
+                                            AGG_DC_SCALE)
+                eng.push_tree({k: torch.from_numpy(v)
+                               for k, v in merged.items()}, worker=w)
+                r += 1
+        cpu = {k: v.numpy() for k, v in eng._params.items()}
+    finally:
+        ps.shutdown()
+    worst = 0.0
+    for k in cpu:
+        np.testing.assert_allclose(card[k], cpu[k], rtol=MNIST_TOL,
+                                   atol=MNIST_TOL, err_msg=f"(a) DC {k}")
+        worst = max(worst, float(np.max(np.abs(card[k] - cpu[k]))))
+    return {"worst": worst}
+
+
+def _agg_kill_windows(harness):
+    """(b)'s two windows of the reference's kill drill in this process,
+    the server on the card: the aggregator dies after the merged commit
+    (before any member's ack) or before the forward; each member degrades
+    once and every push applies once, bitwise, and the post-commit replays
+    dedup by the members' tokens."""
+    import threading
+
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.backends.aggregator import AggregatorService
+    from ps_tpu_torch.backends.van_service import VanService
+
+    out = {}
+    for window in ("after_forward", "before_forward"):
+        params0, store, svc = _agg_upstream(harness)
+        uri = f"127.0.0.1:{svc.port}"
+        like = {k: torch.from_numpy(v).cuda() for k, v in params0.items()}
+        agg = AggregatorService(uri, like, group_size=AGG_FAN_IN)
+        ws = [ps.connect_async(uri, w, like,
+                               aggregator=f"127.0.0.1:{agg.port}",
+                               failover_timeout=30.0)
+              for w in range(AGG_FAN_IN)]
+        try:
+            for w in ws:
+                w.pull_all()
+
+            def rounds(steps):
+                errs = []
+
+                def loop(i):
+                    try:
+                        for s in steps:
+                            ws[i].push_pull({
+                                k: torch.from_numpy(v).cuda()
+                                for k, v in harness.agg_grads(
+                                    params0, i, s).items()})
+                    except BaseException as e:  # noqa: BLE001
+                        errs.append(e)
+
+                ts = [threading.Thread(target=loop, args=(i,))
+                      for i in range(AGG_FAN_IN)]
+                for t in ts:
+                    t.start()
+                for t in ts:
+                    t.join(timeout=AGG_TIMEOUT_S)
+                if errs or any(t.is_alive() for t in ts):
+                    raise AssertionError(f"(b) {window}: {errs}")
+
+            rounds([0])
+            orig = agg._client.push_pull
+
+            def dying(*a, _w=window, **kw):
+                if _w == "after_forward":
+                    got = orig(*a, **kw)
+                    VanService.kill(agg)
+                    return got
+                VanService.kill(agg)
+                raise RuntimeError("aggregator died before the forward")
+
+            agg._client.push_pull = dying
+            rounds([1])
+            rounds([2])
+            degrades = [w.transport.agg_degrades for w in ws]
+            if degrades != [1] * AGG_FAN_IN or any(
+                    w._agg_fallback is not None for w in ws):
+                raise AssertionError(f"(b) {window}: degrades {degrades}")
+            want = harness.agg_expected(
+                params0, {w: range(3) for w in range(AGG_FAN_IN)}, AGG_LR)
+            _agg_exact(_agg_params(store), want, f"(b) {window}")
+            dedup = svc.transport.dedup_hits
+            if window == "after_forward" and dedup < AGG_FAN_IN:
+                raise AssertionError(f"(b): {dedup} dedup hits after a "
+                                     f"post-commit kill")
+            out[window] = {"dedup_hits": dedup,
+                           "applies": svc.apply_log.total}
+        finally:
+            for w in ws:
+                w.close()
+            agg.kill()
+            svc.stop()
+            ps.shutdown()
+    return out
+
+
+def _agg_sigkill(harness, tmp):
+    """(b): (a)'s group with its agg-server SIGKILLed once the shard
+    committed AGG_KILL_AT merged rounds: each member degrades once and
+    every push applies once, bitwise. The members' cycles before and
+    after give aggregated against flat rounds/s (printed)."""
+    import signal
+
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.backends.common import AGG_WORKER_BASE
+
+    params0, store, svc = _agg_upstream(harness)
+    out = os.path.join(tmp, "kill")
+    killed = {}
+
+    def kill(proc):
+        if not killed and store._engine.version >= AGG_KILL_AT:
+            proc.killed = True
+            proc.send_signal(signal.SIGKILL)
+            killed["version"] = store._engine.version
+
+    try:
+        proc, records = _agg_group(harness, out, f"127.0.0.1:{svc.port}",
+                                   {}, on_version=kill)
+        proc.wait(timeout=30)
+        if not killed:
+            raise AssertionError("(b): the aggregator was never killed")
+        want = harness.agg_expected(
+            params0, {w: range(AGG_ROUNDS) for w in range(AGG_FAN_IN)},
+            AGG_LR)
+        _agg_exact(_agg_params(store), want, "(b) SIGKILL")
+        merged = sum(1 for w in svc.apply_log if w == AGG_WORKER_BASE)
+        flat = svc.apply_log.total - merged
+        dedup = svc.transport.dedup_hits
+    finally:
+        svc.stop()
+        ps.shutdown()
+    _agg_member_checks(records, "(b) SIGKILL", degrades=1)
+    # the members' cycles: aggregated before the one that degraded, flat
+    # after it
+    agg_rate, flat_rate = [], []
+    for r in records:
+        ends, d = r["ends"], r["degraded_at"]
+        if d > 1:
+            agg_rate.append((d - 1) / (ends[d - 1] - ends[0]))
+        if len(ends) - d > 2:
+            flat_rate.append((len(ends) - d - 2) / (ends[-1] - ends[d + 1]))
+    return {"killed_at": killed["version"], "merged": merged, "flat": flat,
+            "dedup_hits": dedup,
+            "agg_rounds_per_s": float(np.mean(agg_rate)) if agg_rate else 0.0,
+            "flat_rounds_per_s": float(np.mean(flat_rate))
+            if flat_rate else 0.0}
+
+
+def _agg_replicated(harness, tmp):
+    """(c): (a)'s sgd leg over a replicated upstream: a primary and a
+    sync-ack backup (phase 20's replica roles, the MLP at 784-256-10),
+    the aggregator in this process; once round AGG_KILL_AT committed, the
+    backup is read bitwise its primary, the primary is SIGKILLed and the
+    aggregator killed before any member's ack: the members degrade, fail
+    over to the promoted backup, and their replays dedup there through the
+    members' tokens the merged pushes replicated."""
+    import signal
+
+    from ps_tpu_torch.backends.aggregator import AggregatorService
+    from ps_tpu_torch.backends.van_service import VanService
+    from ps_tpu_torch.control import tensor_van as tv
+
+    out = os.path.join(tmp, "repl")
+    os.makedirs(out)
+    watch = harness.free_port(harness.socket.SOCK_DGRAM)
+    opts = json.dumps({"hidden": AGG_HIDDEN, "lr": AGG_LR,
+                       "num_workers": AGG_FAN_IN})
+    servers = [harness.spawn("replica-backup", out, watch, REPL_WATCH_MS,
+                             "cuda", opts),
+               harness.spawn("replica-primary", out, watch, "sync", 256,
+                             "cuda", "0", opts)]
+    agg = None
+    try:
+        _wait_files([os.path.join(out, "primary.ready")], servers,
+                    AGG_TIMEOUT_S)
+        with open(os.path.join(out, "primary.ready")) as f:
+            pport = int(f.read())
+        with open(os.path.join(out, "backup_port")) as f:
+            bport = int(f.read())
+        uri = f"127.0.0.1:{pport}|127.0.0.1:{bport}"
+        params0 = harness.agg_tree(AGG_HIDDEN)
+        agg = AggregatorService(
+            uri, {k: torch.from_numpy(v) for k, v in params0.items()},
+            group_size=AGG_FAN_IN, failover_timeout=60.0)
+        orig, seen = agg._client.push_pull, {}
+
+        def dying(*a, **kw):
+            got = orig(*a, **kw)
+            if agg._client.version == AGG_KILL_AT and not seen:
+                seen["members"] = len(kw.get("members") or {})
+                # the round committed at the primary and, acked sync, at
+                # the backup: both READ at one version, bitwise
+                reads = [tv.decode(memoryview(_raw_request(
+                    p, tv.encode(tv.READ, 0, None)))) for p in (pport,
+                                                                bport)]
+                seen["versions"] = [int(r[3]["version"]) for r in reads]
+                seen["equal"] = all(np.array_equal(reads[0][2][k],
+                                                   reads[1][2][k])
+                                    for k in reads[0][2])
+                servers[1].send_signal(signal.SIGKILL)
+                VanService.kill(agg)
+            return got
+
+        agg._client.push_pull = dying
+        # over TCP: a killed service's serve thread could still hand a
+        # parked member its ack through the rings
+        _, records = _agg_group(harness, out, uri, {"shm": False},
+                                aggregator=f"127.0.0.1:{agg.port}")
+        open(os.path.join(out, "done"), "w").close()
+        text = servers[0].communicate(timeout=AGG_TIMEOUT_S)[0]
+        if servers[0].returncode != 0:
+            raise AssertionError(f"(c) backup exited "
+                                 f"{servers[0].returncode}:\n{text[-3000:]}")
+        info = json.load(open(os.path.join(out, "backup.json")))
+        final = dict(np.load(os.path.join(out, "backup_params.npz")))
+    finally:
+        if agg is not None:
+            agg.kill()
+        harness.kill_all(servers)
+    if seen.get("versions") != [AGG_KILL_AT] * 2 or not seen.get("equal") \
+            or seen.get("members") != AGG_FAN_IN:
+        raise AssertionError(f"(c): before the kill the backup was not "
+                             f"bitwise its primary: {seen}")
+    _agg_member_checks(records, "(c)", degrades=1, lane="tcp")
+    want = harness.agg_expected(
+        params0, {w: range(AGG_ROUNDS) for w in range(AGG_FAN_IN)}, AGG_LR)
+    _agg_exact(final, want, "(c) the promoted backup")
+    if info["role"] != "primary" or info["dedup_hits"] < AGG_FAN_IN:
+        raise AssertionError(f"(c): the backup {info}")
+    return {"dedup_hits": info["dedup_hits"],
+            "promote_reason": info["promote_reason"],
+            "promotion_s": info["promotion_s"],
+            "version": info["version"]}
+
+
+def _agg_tree_bytes():
+    """(e): the 442,939,392-byte tree at fan-in AGG_TREE_FAN_IN for
+    AGG_TREE_ROUNDS rounds, aggregated and flat, in this process with the
+    server on the card: the upstream bytes a round against the flat
+    workers' and the rates."""
+    import threading
+
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.backends.aggregator import AggregatorService
+
+    ps.init(backend="cuda", mode="async", num_workers=2 * AGG_TREE_FAN_IN,
+            dc_lambda=0.0)
+    tree, nbytes = _bert_like_tree(BERT_LIKE_MB)
+    store = ps.KVStore(optimizer="sgd", learning_rate=0.01, mode="async")
+    store.init(tree)
+    svc = ps.serve_async(store)
+    uri = f"127.0.0.1:{svc.port}"
+    grads = {k: torch.full_like(v, 1e-3) for k, v in tree.items()}
+    out = {"tree_bytes": nbytes}
+
+    def drive(ws):
+        errs = []
+
+        def cycles(w):
+            try:
+                for _ in range(AGG_TREE_ROUNDS):
+                    w.push_pull(grads)
+            except Exception as e:  # noqa: BLE001 (reported below)
+                errs.append(repr(e))
+
+        ts = [threading.Thread(target=cycles, args=(w,)) for w in ws]
+        t0 = time.perf_counter()
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=AGG_TIMEOUT_S)
+        if errs or any(t.is_alive() for t in ts):
+            raise AssertionError(f"(e): {errs}")
+        return time.perf_counter() - t0
+
+    agg = None
+    try:
+        flat = [ps.connect_async(uri, w, tree) for w in range(AGG_TREE_FAN_IN)]
+        for w in flat:
+            w.pull_all()
+        b0 = sum(w.bytes_pushed + w.bytes_pulled for w in flat)
+        dt = drive(flat)
+        out["flat_bytes"] = (sum(w.bytes_pushed + w.bytes_pulled
+                                 for w in flat) - b0) / AGG_TREE_ROUNDS
+        out["flat_gbps"] = out["flat_bytes"] * AGG_TREE_ROUNDS / dt / 1e9
+        for w in flat:
+            w.close()
+        agg = AggregatorService(uri, tree, group_size=AGG_TREE_FAN_IN)
+        ws = [ps.connect_async(uri, AGG_TREE_FAN_IN + w, tree,
+                               aggregator=f"127.0.0.1:{agg.port}")
+              for w in range(AGG_TREE_FAN_IN)]
+        for w in ws:
+            w.pull_all()
+        b0 = agg._client.bytes_pushed + agg._client.bytes_pulled
+        dt = drive(ws)
+        up = agg._client.bytes_pushed + agg._client.bytes_pulled - b0
+        out["upstream_bytes"] = up / AGG_TREE_ROUNDS
+        out["upstream_gbps"] = up / dt / 1e9
+        out["member_gbps"] = sum(
+            w.bytes_pushed + w.bytes_pulled for w in ws) / dt / 1e9
+        out["rounds"] = agg.transport.agg_rounds
+        for w in ws:
+            w.close()
+    finally:
+        if agg is not None:
+            agg.stop()
+        svc.stop()
+        ps.shutdown()
+    return out
+
+
+def phase_aggregation(tmp):
+    """22: two-level aggregation on the card (ROADMAP item 5.5)."""
+    harness = _van_harness()
+    card = _card_line()
+    t0 = time.perf_counter()
+    _launch_counts(reset=True)
+    sgd = _agg_sgd(harness, tmp)
+    t_a = time.perf_counter()
+    dc = _agg_dc(harness, tmp)
+    t_dc = time.perf_counter()
+    windows = _agg_kill_windows(harness)
+    sig = _agg_sigkill(harness, tmp)
+    t_b = time.perf_counter()
+    repl = _agg_replicated(harness, tmp)
+    t_c = time.perf_counter()
+    big = _agg_tree_bytes()
+    _no_launches("phase 22 (two-level aggregation)")
+    t_e = time.perf_counter()
+    log(f"aggregation (a): the MLP at 784-256-10 on the card behind config "
+        f"5's async server in this process, an agg-server process on the "
+        f"native loop (group {AGG_FAN_IN}) and {AGG_FAN_IN} member processes "
+        f"over the rings, {AGG_ROUNDS} lockstep rounds: sgd (lr {AGG_LR}, "
+        f"integer gradients) bitwise the closed form, {AGG_ROUNDS} merged "
+        f"rounds at fan-in {AGG_FAN_IN}.0, upstream "
+        f"{sgd['upstream_bytes']:.0f} bytes a round against the members' "
+        f"{sgd['flat_bytes']:.0f} (flat / {AGG_FAN_IN} = "
+        f"{sgd['flat_bytes'] / AGG_FAN_IN:.0f}); DC-ASGD (dc_lambda "
+        f"{AGG_DC_LAMBDA}, lr {AGG_DC_LR}) within {dc['worst']:.3e} of a "
+        f"CPU replay of the merged rounds (gate {MNIST_TOL}); the aggregator "
+        f"launched no kernel and never initialized CUDA; "
+        f"{t_dc - t0:.1f} s")
+    log(f"aggregation (b): in this process, the aggregator killed after the "
+        f"merged commit ({windows['after_forward']['dedup_hits']} replays "
+        f"deduplicated) and before the forward: each member degraded once, "
+        f"every push applied once, bitwise; the agg-server process "
+        f"SIGKILLed at version {sig['killed_at']}: {sig['merged']} merged "
+        f"and {sig['flat']} flat applies, {sig['dedup_hits']} replays "
+        f"deduplicated, each member degraded once, bitwise the closed form; "
+        f"{t_b - t_dc:.1f} s")
+    log(f"aggregation (c): a primary and a sync-ack backup process "
+        f"upstream: the backup bitwise its primary at version "
+        f"{AGG_KILL_AT}, the primary SIGKILLed with the aggregator after "
+        f"that round's commit, the backup promoted ({repl['promote_reason']}"
+        f", {repl['promotion_s'] * 1e3:.3f} ms) and deduplicated "
+        f"{repl['dedup_hits']} member replays, each member degraded once, "
+        f"its params bitwise the closed form; {t_c - t_b:.1f} s")
+    log(f"aggregation (d): a member READ at version {sgd['version']} bitwise "
+        f"the upstream's, its repeat a native hit bitwise the miss "
+        f"({sgd['cache']['hits']} hits), a READ conditional on it "
+        f"NOT_MODIFIED; serve ages under tier agg: "
+        f"{sgd['fresh']['tiers']['agg']}, none clamped")
+    log(f"aggregation (e): {sgd['rounds_per_s']:.2f} rounds/s aggregated in "
+        f"(a); in (b)'s SIGKILL run the same members "
+        f"{sig['agg_rounds_per_s']:.2f} cycles/s aggregated against "
+        f"{sig['flat_rounds_per_s']:.2f} flat; agg_hold p50 "
+        f"{sgd['hold_p50_ms']:.3f} ms p99 {sgd['hold_p99_ms']:.3f} ms; the "
+        f"{big['tree_bytes']:,}-byte tree at fan-in {AGG_TREE_FAN_IN}, "
+        f"{AGG_TREE_ROUNDS} rounds: upstream {big['upstream_bytes']:.0f} "
+        f"bytes a round against flat {big['flat_bytes']:.0f} "
+        f"({big['flat_bytes'] / big['upstream_bytes']:.3f}x), upstream "
+        f"{big['upstream_gbps']:.3f} GB/s, members {big['member_gbps']:.3f} "
+        f"GB/s, flat {big['flat_gbps']:.3f} GB/s; card {card}; "
+        f"{t_e - t_c:.1f} s; phase {t_e - t0:.1f} s")
+    return {"sgd": sgd, "dc": dc, "windows": windows, "sigkill": sig,
+            "replicated": repl, "tree": big}
+
+
 def main():
     if len(sys.argv) == 5 and sys.argv[1] == "--two-ranks-worker":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -6332,6 +6995,8 @@ def main():
         replication = phase_replication(tmp, unreplicated=sparse["numbers"])
     with tempfile.TemporaryDirectory(prefix="ps_read_") as tmp:
         read = phase_read_path(tmp, pushed=sparse["numbers"])
+    with tempfile.TemporaryDirectory(prefix="ps_agg_") as tmp:
+        phase_aggregation(tmp)
     for e in entries:  # each rank's launches in phase 15's 20-step runs
         if e["name"] == "flash_attention/fwd":
             # each rank's launches over phase 15 (e)'s bf16 steps, and the

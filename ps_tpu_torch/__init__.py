@@ -44,8 +44,11 @@ key shards) and worker processes (``connect_async``), serial or bucketed,
 on the reference's wire bytes; and the sparse PS of range-sharded
 embedding tables (``backends/remote_sparse.py``): ``serve_sparse`` in
 each server process, its tables on the card and every push applied by
-the sparse-apply kernel, ``connect_sparse`` in the workers. ROADMAP.md
-lists what is still to port.
+the sparse-apply kernel, ``connect_sparse`` in the workers; and
+two-level aggregation (``backends/aggregator.py``): ``serve_aggregator``
+pre-reduces a host group's pushes into one upstream push a round, and
+``connect_async(..., aggregator=...)`` routes a worker through it, with
+the flat path as its fallback. ROADMAP.md lists what is still to port.
 """
 
 from ps_tpu_torch import checkpoint
@@ -55,6 +58,7 @@ from ps_tpu_torch.kv.store import KVStore
 from ps_tpu_torch.kv.sparse import SparseEmbedding
 from ps_tpu_torch.train import make_composite_step
 from ps_tpu_torch.ops import flash_attention
+from ps_tpu_torch.backends.aggregator import AggregatorService, serve_aggregator
 from ps_tpu_torch.backends.remote_async import (
     ServerFailureError,
     connect_async,
@@ -77,6 +81,8 @@ __all__ = [
     "serve_async",
     "connect_async",
     "shard_tree",
+    "serve_aggregator",
+    "AggregatorService",
     "serve_sparse",
     "connect_sparse",
     "ServerFailureError",

@@ -58,12 +58,18 @@ coalesces concurrent reads of a shard into one fetch, and with
 ``pull_cache=True`` keeps the last snapshot until its version watcher
 sees the shard move, then revalidates it with a conditional READ.
 
-Not ported yet, each raising with its ROADMAP Queue 1 item: the
-aggregator (5.5; a replicated merged push, ``members``, too, and its
-members' reads), elastic membership (``coordinator=``, the ``MIGRATE_*`` kinds, a
-replicated partial ``push_sub``; 6), and the reference's trace spans and
-metrics endpoint (``obs/``, 6). Extra keys in an incoming frame, such as
-a trace context, are ignored.
+Two-level aggregation (``backends/aggregator.py``): a worker given
+``aggregator=`` dials its host group's aggregator instead of the shards
+and degrades to the flat path if it dies; a server records a merged
+push's ``members`` tokens beside the aggregator's own, replicates them,
+and acks a merged push whose members all settled on their own as a
+replay (a partial overlap is refused).
+
+Not ported yet, each raising with its ROADMAP Queue 1 item: elastic
+membership (``coordinator=``, the ``MIGRATE_*`` kinds, a replicated
+partial ``push_sub``; 6.2), and the reference's trace spans and metrics
+endpoint (``obs/``, 6.1). Extra keys in an incoming frame, such as a
+trace context or ``members_tc``, are ignored.
 """
 
 from __future__ import annotations
@@ -165,7 +171,7 @@ class AsyncPSService(VanService):
             raise ValueError("AsyncPSService requires an async-mode KVStore")
         if coordinator is not None:
             raise _not_ported("coordinator= (elastic membership, elastic/)",
-                              "6")
+                              "6.2")
         if (shard is None) != (num_shards is None):
             raise ValueError("pass shard and num_shards together")
         del advertise_host  # only an elastic member advertises itself
@@ -304,10 +310,16 @@ class AsyncPSService(VanService):
 
         ``extra``'s ``pseq``/``pnonce`` are the worker's dedup token: a
         (nonce, seq) at or below the last applied one is a replay and is
-        acked without applying."""
+        acked without applying. An aggregator's merged push also carries
+        ``members``, each constituent's own ``{worker: [nonce, seq]}``
+        token: recorded with the apply, so a member that degraded to the
+        flat path and replays a push its dead aggregator already forwarded
+        is acked; checked before it, so a merged push whose members all
+        settled on their own is a replay, and one whose members partly
+        settled is refused. ``members_tc`` (the members' trace contexts)
+        is accepted and ignored until spans are ported (item 6.1)."""
         extra = extra or {}
-        if extra.get("members"):
-            raise _not_ported("a merged push (the aggregator)", "5.5")
+        members = extra.get("members") or None
         pseq = extra.get("pseq")
         pnonce = extra.get("pnonce")
         # the replicated entry carries the host bytes that are applied, in
@@ -340,6 +352,13 @@ class AsyncPSService(VanService):
                 if not fresh:
                     self.transport.record_dedup_hit()
                     return None, True
+            if members:
+                # a merged push against its members' own flat replays (the
+                # group degraded mid-round and raced its dead aggregator's
+                # in-flight push): first writer wins a member
+                if self._check_members(members, fresh) == "dedup":
+                    self.transport.record_dedup_hit()
+                    return None, True
             self._check_push_keys(grads)
             if len(fresh) != len(grads):
                 # only a replay straddling a key-range move leaves part of
@@ -358,9 +377,14 @@ class AsyncPSService(VanService):
                 toks = self._applied_pseq.setdefault(worker, {})
                 for k in fresh:
                     toks[k] = (pnonce, int(pseq))
-            # republish this worker's settled ledger row and the fresh ack
-            # template to native admission at the post-apply generation
-            self._admit_publish(worker)
+            # a merged push's members' tokens beside the aggregator's own
+            # (different worker ids: neither evicts the other), so the
+            # ledger holds exactly once across the handoff either way
+            self._record_members(members, fresh)
+            # republish the settled ledger rows this apply advanced (the
+            # pusher's and every member's) and the fresh ack template to
+            # native admission at the post-apply generation
+            self._admit_publish(worker, *[int(w) for w in members or {}])
             self._pause_cond.notify_all()  # a drain_to waiter may watch
             with self._log_lock:
                 self.apply_log.append(worker)
@@ -372,7 +396,7 @@ class AsyncPSService(VanService):
                 # a session attached while this push was staged
                 wire = {k: v.cpu().numpy() for k, v in fresh.items()}
             rseq = self._replicate("push", worker, wire, {
-                "pseq": pseq, "pnonce": pnonce, "members": None,
+                "pseq": pseq, "pnonce": pnonce, "members": members,
                 "birth": self._birth["birth"]})
         # the apply (lock wait included), and the push-to-servable lag: the
         # lock is released and the floor raised, a READ serves the new
@@ -381,17 +405,63 @@ class AsyncPSService(VanService):
         self.transport.record_fresh_lag(time.perf_counter() - t_apply)
         return rseq, False
 
+    @staticmethod
+    def _token_settled(cur, nonce, seq: int) -> bool:
+        """The ledger's one predicate, shared by the dedup scan, the
+        members' check and their recording: a recorded token at or past
+        (nonce, seq) means that push already carries the key. Same-nonce
+        comparison only: a new nonce is a new incarnation whose seqs
+        restart."""
+        return cur is not None and cur[0] == nonce and int(seq) <= cur[1]
+
+    def _record_members(self, members, fresh) -> None:
+        """Record a merged push's members' (worker, nonce, seq) tokens for
+        every key it applied (lock held). ``members`` is the aggregator's
+        ``{worker_str: [nonce, seq]}`` map, None on ordinary pushes. The
+        ledger only advances: a member that already applied a later flat
+        push keeps its token, or a seq the engine holds would dedup no
+        more."""
+        for w_str, t in (members or {}).items():
+            toks = self._applied_pseq.setdefault(int(w_str), {})
+            for k in fresh:
+                if self._token_settled(toks.get(k), t[0], t[1]):
+                    continue
+                toks[k] = (t[0], int(t[1]))
+
+    def _check_members(self, members, fresh) -> str:
+        """Classify a merged push against its members' recorded tokens
+        (lock held): "apply" when no member's push is in the engine yet,
+        "dedup" when every member's is, on every key (the merged push is
+        a replay of settled state). A partial overlap raises: a summed
+        tree cannot be applied in part, and the remaining members' flat
+        replays settle the round exactly once."""
+        stale = total = 0
+        for w_str, t in members.items():
+            toks = self._applied_pseq.get(int(w_str)) or {}
+            for k in fresh:
+                total += 1
+                if self._token_settled(toks.get(k), t[0], t[1]):
+                    stale += 1
+        if stale == 0:
+            return "apply"
+        if stale == total:
+            return "dedup"
+        raise RuntimeError(
+            "merged push refused: some of its constituent pushes were "
+            "already applied individually (the group degraded mid-round "
+            "and replayed flat) — a summed tree cannot be partially "
+            "applied; the remaining members' flat replays settle the "
+            "round exactly-once")
+
     def _dedup_fresh(self, worker: int, pnonce, pseq: int, grads):
         """The keys still owed an apply (lock held): a key whose last
         applied token is at or past (pnonce, pseq) already carries this
-        push. Same-nonce comparison only: a new nonce is a new worker
-        incarnation whose seqs restart."""
+        push."""
         toks = self._applied_pseq.get(worker)
         if not toks:
             return grads
         return {k: v for k, v in grads.items()
-                if not (toks.get(k) is not None and toks[k][0] == pnonce
-                        and pseq <= toks[k][1])}
+                if not self._token_settled(toks.get(k), pnonce, pseq)}
 
     def _check_push_keys(self, grads) -> None:
         if sorted(grads) != sorted(self._key_order):
@@ -726,9 +796,6 @@ class AsyncPSService(VanService):
                               "6")
         if op != "push":
             raise ValueError(f"unknown replica op {op!r}")
-        if extra.get("members"):
-            raise _not_ported("a replicated merged push (the aggregator)",
-                              "5.5")
         tree = decode_tree(dict(tensors), extra.get("enc"),
                            stats=self.transport)
         if sorted(tree) != sorted(self._key_order):
@@ -749,6 +816,9 @@ class AsyncPSService(VanService):
             toks = self._applied_pseq.setdefault(worker, {})
             for k in tree:
                 toks[k] = (extra.get("pnonce"), int(extra["pseq"]))
+        # a merged push's members' tokens ride the entry: a promoted backup
+        # suppresses a degraded member's replay as its primary would have
+        self._record_members(extra.get("members"), tree)
         with self._log_lock:
             self.apply_log.append(worker)
             self.event_log.append([op, worker])
@@ -977,15 +1047,22 @@ def connect_async(uri: Optional[str], worker: int, params_like,
     bound; the next read then revalidates with a conditional READ
     (``PS_READ_CONDITIONAL``, on) or refetches.
 
-    Not ported yet (each raises, naming its ROADMAP Queue 1 item):
-    ``aggregator`` (5.5; a member's pushes and reads through it) and
-    ``coordinator`` (6).
+    Two-level aggregation: ``aggregator="host:port"`` routes this worker's
+    whole data plane through its host group's
+    :class:`~ps_tpu_torch.backends.aggregator.AggregatorService`: the
+    group's pushes pre-reduce there and go upstream once a round, its
+    pulls and READs share one upstream fetch a round. ``uri`` still names
+    the shards: if the aggregator dies, the worker degrades to the flat
+    worker-to-shard path without a restart, keeping its dedup identity, so
+    a replay of a push the aggregator already forwarded is acked unapplied.
+
+    Not ported yet (raises, naming its ROADMAP Queue 1 item):
+    ``coordinator`` (elastic membership and the aggregator's discovery
+    through it, 6.2).
     """
     if coordinator is not None:
-        raise _not_ported("coordinator= (elastic membership, elastic/)", "6")
-    if aggregator is not None:
-        raise _not_ported("aggregator= (backends/aggregator.py; a member's "
-                          "pushes and READs)", "5.5")
+        raise _not_ported("coordinator= (elastic membership, elastic/)",
+                          "6.2")
     if uri is None:
         raise ValueError("connect_async needs a server uri")
     addrs, replica_sets = parse_replica_uri(uri)
@@ -993,8 +1070,8 @@ def connect_async(uri: Optional[str], worker: int, params_like,
         addrs, worker, params_like, bucket_bytes=bucket_bytes,
         pool_size=pool_size, compress=compress, writev=writev, shm=shm,
         shm_bytes=shm_bytes, replica_sets=replica_sets,
-        failover_timeout=failover_timeout, read_staleness=read_staleness,
-        pull_cache=pull_cache)
+        failover_timeout=failover_timeout, aggregator=aggregator,
+        read_staleness=read_staleness, pull_cache=pull_cache)
 
 
 class CheckpointRoundError(RuntimeError):
@@ -1160,6 +1237,8 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                      shm_bytes: Optional[int] = None,
                      replica_sets=None,
                      failover_timeout: Optional[float] = None,
+                     aggregator: Optional[str] = None,
+                     agg_role: bool = False,
                      read_staleness: Optional[int] = None,
                      pull_cache: Optional[bool] = None
                      ) -> "RemoteAsyncWorker":
@@ -1169,6 +1248,7 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                          compress=compress, writev=writev, shm=shm,
                          shm_bytes=shm_bytes, replica_sets=replica_sets,
                          failover_timeout=failover_timeout,
+                         aggregator=aggregator, agg_role=agg_role,
                          read_staleness=read_staleness,
                          pull_cache=pull_cache)
         return self
@@ -1177,9 +1257,23 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                     params_like, bucket_bytes=None, pool_size=None,
                     compress=None, writev=None, shm=None,
                     shm_bytes=None, replica_sets=None,
-                    failover_timeout=None, read_staleness=None,
-                    pull_cache=None) -> None:
+                    failover_timeout=None, aggregator=None, agg_role=False,
+                    read_staleness=None, pull_cache=None) -> None:
         self.worker = worker
+        # two-level aggregation: with an aggregator this worker dials only
+        # it (one "shard" advertising the whole tree) and remembers the
+        # flat shard topology, so the aggregator's death degrades it to the
+        # flat path (_degrade_to_flat). ``agg_role`` marks the aggregator's
+        # own upstream client, whose id lies at or past AGG_WORKER_BASE
+        self._agg_fallback = None
+        self._agg_uri = aggregator
+        if aggregator is not None:
+            self._agg_fallback = {"addrs": [tuple(a) for a in addrs],
+                                  "replica_sets": replica_sets}
+            ahost, aport = str(aggregator).rsplit(":", 1)
+            addrs = [(ahost, int(aport))]
+            replica_sets = None
+        self._agg_role = bool(agg_role)
         self.device = _worker_device(params_like)
         kv, self._treedef = keymod.flatten_with_keys(params_like)
         # empty placeholders on the worker's device, not the tensors:
@@ -1281,7 +1375,7 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         if missing:
             raise ValueError(f"no server owns keys {missing[:3]}"
                              f"{'...' if len(missing) > 3 else ''}")
-        if not (0 <= self.worker < self.num_workers):
+        if not self._agg_role and not (0 <= self.worker < self.num_workers):
             raise ValueError(f"worker id {self.worker} out of range for a "
                              f"{self.num_workers}-worker job")
 
@@ -1303,6 +1397,58 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
             return (f"replica of server {i} says num_workers={nw}, "
                     f"job runs {self.num_workers}")
         return None
+
+    # -- two-level aggregation: the degrade to the flat path ------------------
+
+    def _on_server_lost(self, err: ServerFailureError,
+                        deadline: float) -> None:
+        """A shard failed with no replica to cycle to. When that shard is
+        this worker's aggregator, degrade to the flat topology remembered
+        at connect time; the op that failed is then retried under its
+        original (nonce, seq) token, which a shard that applied its merged
+        form recorded as this member's, so it is acked, not applied
+        again. Any other loss raises (the reference's elastic workers
+        re-discover the fleet here; item 6.2)."""
+        if self._agg_fallback is not None:
+            self._degrade_to_flat(err)
+            return
+        raise err
+
+    def _degrade_to_flat(self, cause: BaseException) -> None:
+        """Rebuild the whole transport against the remembered shards,
+        keeping the transport's identity: the counters, the epoch streams,
+        the codec's residuals and above all the dedup nonce and the push
+        seq (a degrade is not a new incarnation: the failed op replays
+        with its original token right after this)."""
+        fb = self._agg_fallback
+        # the reference records an "agg_degrade" flight event here; the
+        # flight recorder is item 6.1
+        self.transport.record_agg_degrade()
+        saved = self._saved_transport_state()
+        nonce, push_seq = self._transport_nonce, self._push_seq
+        self._close_transport()
+        for ch in self._chs:
+            ch.close()
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+        try:
+            self._init_multi(
+                fb["addrs"], self.worker,
+                keymod.unflatten(self._treedef, self._kv_like,
+                                 self._key_order),
+                bucket_bytes=self.bucket_bytes, pool_size=self.pool_size,
+                compress=self.compress, writev=self.writev, shm=self.shm,
+                shm_bytes=self.shm_bytes, replica_sets=fb["replica_sets"],
+                failover_timeout=self.failover_timeout,
+                read_staleness=self.read_staleness,
+                pull_cache=self.pull_cache)
+        finally:
+            self._restore_transport_state(saved)
+            self._transport_nonce, self._push_seq = nonce, push_seq
+        logging.getLogger(__name__).warning(
+            "worker %d: aggregator lost (%s) — degraded to the flat "
+            "worker→shard path (%d shard(s))", self.worker, cause,
+            len(self._addrs))
 
     # -- protocol -------------------------------------------------------------
 
@@ -1377,25 +1523,32 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                     i: tv.encode(tv.PULL, self.worker, None)
                     for i in self._active})))
 
-    def push_all(self, grads) -> None:
+    def push_all(self, grads, members: Optional[dict] = None,
+                 members_tc: Optional[dict] = None) -> None:
         """Push a gradient tree; each owner applies its subtree at once
         with the DC-ASGD correction against this worker's last pull. The
         push carries this worker's (nonce, seq) dedup token, assigned once
         and reused by any failover retry, so a shard that already applied
         it (directly, or through its dead primary's stream) acks it
-        without applying again."""
+        without applying again. ``members`` (an aggregator's merged push
+        only) carries the members' own tokens, so the shards' ledger
+        covers a degraded member's flat replay too; ``members_tc`` their
+        trace contexts (sent when given; untraced until item 6.1)."""
         kv = self._host_grads(grads)
         pseq = self._next_push_seq()
         with _Op(self.transport, "push"):
             if self.bucket_bytes is not None:
                 self.flush()
                 self._with_failover(lambda: self._push_buckets_sync(
-                    self._split_kv(kv), pseq=pseq))
+                    self._split_kv(kv), pseq=pseq, members=members,
+                    members_tc=members_tc))
                 return
 
             def once():
                 msgs = self._fanout({
-                    i: self._encode_serial_push(tv.PUSH, sub, pseq=pseq)
+                    i: self._encode_serial_push(tv.PUSH, sub, pseq=pseq,
+                                                members=members,
+                                                members_tc=members_tc)
                     for i, sub in self._split_kv(kv).items()})
                 for i, msg in msgs.items():
                     kind, _, _, extra = tv.decode(msg)
@@ -1405,9 +1558,11 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
 
             self._with_failover(once)
 
-    def push_pull(self, grads) -> Any:
+    def push_pull(self, grads, members: Optional[dict] = None,
+                  members_tc: Optional[dict] = None) -> Any:
         """push_all + pull_all in one round trip a server, all servers in
-        flight together (the async cycle)."""
+        flight together (the async cycle). ``members`` and ``members_tc``
+        as in :meth:`push_all`."""
         kv = self._host_grads(grads)
         pseq = self._next_push_seq()
         with _Op(self.transport, "push_pull"):
@@ -1415,22 +1570,29 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                 self.flush()  # a cycle racing a serial call would reorder
 
                 def once_bucketed():
-                    self._push_buckets_sync(self._split_kv(kv), pseq=pseq)
+                    self._push_buckets_sync(self._split_kv(kv), pseq=pseq,
+                                            members=members,
+                                            members_tc=members_tc)
                     return self._merge_host_params(self._pull_buckets())
 
                 return self._with_failover(once_bucketed)
             return self._with_failover(
                 lambda: self._merge_params(self._fanout({
-                    i: self._encode_serial_push(tv.PUSH_PULL, sub, pseq=pseq)
+                    i: self._encode_serial_push(tv.PUSH_PULL, sub, pseq=pseq,
+                                                members=members,
+                                                members_tc=members_tc)
                     for i, sub in self._split_kv(kv).items()})))
 
     # -- bucketed, pipelined transport (worker half) --------------------------
 
     def _encode_serial_push(self, kind: int, sub: Dict[str, np.ndarray],
-                            pseq: Optional[int] = None):
+                            pseq: Optional[int] = None,
+                            members: Optional[dict] = None,
+                            members_tc: Optional[dict] = None):
         """One serial push frame, compressed by the policy (the packed keys
-        in ``extra["enc"]``), with the (nonce, seq) dedup token; zero copy
-        parts with ``writev``."""
+        in ``extra["enc"]``), with the (nonce, seq) dedup token and, for a
+        merged push, the members' tokens (and their trace contexts when
+        given); zero copy parts with ``writev``."""
         sub, enc = self._encode_push_tree(sub)
         extra = {}
         if enc:
@@ -1438,6 +1600,10 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         if pseq is not None:
             extra["pseq"] = pseq
             extra["pnonce"] = self._transport_nonce
+        if members:
+            extra["members"] = members
+        if members_tc:
+            extra["members_tc"] = members_tc
         extra = extra or None
         if self.writev:
             return tv.encode_parts(kind, self.worker, sub, extra)
@@ -1451,10 +1617,13 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                 "pipelined path")
 
     def _push_buckets_sync(self, by_owner: Dict[int, Dict[str, np.ndarray]],
-                           pseq: Optional[int] = None) -> None:
+                           pseq: Optional[int] = None,
+                           members: Optional[dict] = None,
+                           members_tc: Optional[dict] = None) -> None:
         """Cut each owner's subtree into buckets, stripe them over the
         pool, wait for every ack and adopt the committed versions. The
-        server sees one whole-tree apply, as for a serial PUSH."""
+        server sees one whole-tree apply, as for a serial PUSH; every
+        bucket carries the merged push's ``members`` when given."""
         self._push_epoch += 1
         epoch = self._push_epoch
         futs: List[Tuple[int, Any]] = []
@@ -1469,6 +1638,10 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                 extra = {"epoch": epoch, "nonce": self._transport_nonce,
                          "pseq": pseq, "pnonce": self._transport_nonce,
                          "enc": enc}
+                if members:
+                    extra["members"] = members
+                if members_tc:
+                    extra["members_tc"] = members_tc
                 payload = enc_bucket(tv.BUCKET_PUSH, self.worker, sub, b,
                                      extra=extra)
                 futs.append((i, pumps[b % len(pumps)].submit(
@@ -1625,7 +1798,9 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                   ) -> None:
         """Dial every server again (at new addresses when given: restarted
         servers come back on new ports) and revalidate the partition. The
-        wire counters, transport stats and epoch streams survive."""
+        wire counters, transport stats and epoch streams survive. A plain
+        re-dial of an aggregated worker dials its aggregator again, the
+        flat fallback kept; new addresses always mean the flat topology."""
         try:
             self.flush()
         except Exception:
@@ -1636,18 +1811,23 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
             ch.close()  # dead or stale; no SHUTDOWN owed
         if self._pool is not None:
             self._pool.shutdown(wait=False)
+        fb = self._agg_fallback if addrs is None else None
         try:
             self._init_multi(
-                list(addrs) if addrs is not None else self._addrs,
+                list(addrs) if addrs is not None
+                else (fb["addrs"] if fb is not None else self._addrs),
                 self.worker,
                 keymod.unflatten(self._treedef, self._kv_like,
                                  self._key_order),
                 bucket_bytes=self.bucket_bytes, pool_size=self.pool_size,
                 compress=self.compress, writev=self.writev, shm=self.shm,
                 shm_bytes=self.shm_bytes,
-                replica_sets=None if addrs is not None
-                else self._replica_sets,
+                replica_sets=(None if addrs is not None
+                              else fb["replica_sets"] if fb is not None
+                              else self._replica_sets),
                 failover_timeout=self.failover_timeout,
+                aggregator=None if addrs is not None else self._agg_uri,
+                agg_role=self._agg_role,
                 read_staleness=self.read_staleness,
                 pull_cache=self.pull_cache)
         finally:

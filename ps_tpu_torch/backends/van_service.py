@@ -246,6 +246,13 @@ class VanService:
     #: phases park between the coordinator's requests; a RESEED ships the
     #: state and attaches a backup): always punted
     _PUNT_KINDS = frozenset({tv.CHECKPOINT, tv.RESEED})
+    #: subclass hook: kinds whose handlers can park waiting for another
+    #: member's later request of this same service (the aggregator's group
+    #: barrier: a push waits for its group's other pushes). The loop
+    #: always gives them a fresh thread, never the punt pool: with more
+    #: members than pool threads, the push that completes the round would
+    #: queue behind the parked ones and deadlock the barrier it releases
+    _BARRIER_KINDS: frozenset = frozenset()
 
     def __init__(self, port: int = 0, bind: str = "127.0.0.1",
                  writev: Optional[bool] = None, shm: Optional[bool] = None,
@@ -1219,14 +1226,16 @@ class VanService:
         if kind == tv.SHM_SETUP:
             self._loop_shm_upgrade(cid, worker, extra, ptr)
             return
-        if kind in self._PUNT_KINDS or (
+        barrier = kind in self._BARRIER_KINDS
+        if kind in self._PUNT_KINDS or barrier or (
                 kind in self._COMMIT_KINDS
                 and (getattr(self, "_paused", False)
                      or self._loop_blockers > 0)) or (
                 kind in self._REPLICATED_KINDS and self._replicating()):
             # a request that may park must not park the pump: a thread of
             # its own (a commit or a pull waits for a sync replica ack or a
-            # full ack window; a commit for a checkpoint pause).
+            # full ack window; a commit for a checkpoint pause; a barrier
+            # kind for the other members of its round).
             # ``_loop_blockers`` closes the pause race: a punted CHECKPOINT
             # sets ``_paused`` on its own thread, so the count is raised
             # here, before that thread starts, and held until its reply
@@ -1237,10 +1246,11 @@ class VanService:
                 if blocker:
                     self._loop_blockers += 1
             try:
-                if blocker or getattr(self, "_paused", False) \
+                if blocker or barrier or getattr(self, "_paused", False) \
                         or self._loop_blockers > 0:
                     # fresh threads while parking is possible: a resume must
-                    # never queue behind pool workers parked on its pause
+                    # never queue behind pool workers parked on its pause,
+                    # nor a round's last push behind its parked members
                     threading.Thread(
                         target=self._loop_dispatch_reply,
                         args=(cid, kind, worker, tensors, extra, ptr, True,

@@ -17,8 +17,7 @@ role/coordinator env vars keep working.
 
 Environment variables honored by :meth:`Config.from_env`:
 
-- ``PS_BACKEND``           — 'local' or 'cuda' (default 'cuda'; 'local'
-  is not ported yet)
+- ``PS_BACKEND``           — 'local' or 'cuda' (default 'cuda')
 - ``PS_NUM_WORKERS``       — logical worker count for sync aggregation
 - ``PS_COORDINATOR_URI``   — where the ranks meet, ``host:port`` (cuda
   backend; rank 0 listens there)
@@ -297,7 +296,7 @@ class Config:
     Attributes:
       backend: 'cuda' (the counterpart of the reference's 'tpu': every
         table, parameter and optimizer state lives on ``device``) or
-        'local' (the single-process local PS; not ported yet).
+        'local' (the single-process local PS, ``backends/local.py``).
       device: where the 'cuda' backend places everything — 'cuda'
         (default, ``cuda:0``) or 'cpu', which only code can ask for (the
         tests do); there is no silent fall back to the CPU.
@@ -342,8 +341,8 @@ class Config:
         order), numerics identical to FIFO by construction; off restores
         the pure FIFO drain for A/B comparison.
       agg_group_size: hierarchical two-level aggregation — how many
-        same-host workers share one :class:`~ps_tpu.backends.aggregator.
-        AggregatorService` (the local fan-in cross-host bytes/step shrink
+        same-host workers share one :class:`~ps_tpu_torch.backends.
+        aggregator.AggregatorService` (the local fan-in cross-host bytes/step shrink
         by). 1 (default) keeps the flat worker→shard topology; launchers
         start one aggregator per host when > 1.
       agg_flush_timeout_ms: aggregator side — how long an incomplete
@@ -594,7 +593,7 @@ class Config:
     # aggregation & priority scheduling"): pending bucket flushes drain
     # front-of-model first instead of FIFO; deterministic, math-neutral
     bucket_priority: bool = True
-    # hierarchical two-level aggregation (ps_tpu/backends/aggregator):
+    # hierarchical two-level aggregation (backends/aggregator.py):
     # same-host workers pre-reduce through one per-host aggregator and
     # cross the host boundary once per group round (1 = flat topology),
     # with a bounded wait for stragglers before a partial flush

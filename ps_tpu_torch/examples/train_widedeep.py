@@ -14,6 +14,10 @@ traced steps.
 Run (on the GPU; ``--device cpu`` runs the plain versions on the CPU):
     python -m ps_tpu_torch.examples.train_widedeep --steps 30
 
+``--data DIR`` reads a column-npy dataset (fields ``dense``, ``sparse``,
+``label``; ``ps_tpu_torch.data.files.write_dataset``) instead of the
+synthetic generator, reshuffled every epoch from ``--seed``.
+
 As k processes, one a rank, from the reference's variables (each rank
 draws the same global batches and trains on its slice; the tables are
 row-sharded over the ranks):
@@ -30,6 +34,7 @@ import time
 import torch
 
 import ps_tpu_torch as ps
+from ps_tpu_torch.data.files import file_batches
 from ps_tpu_torch.data.synthetic import criteo_batches
 from ps_tpu_torch.kv.sparse import SparseEmbedding
 from ps_tpu_torch.kv.store import rank_slice
@@ -58,6 +63,10 @@ def main(argv=None):
     ap.add_argument("--exchange", default="gather", choices=["gather", "a2a"])
     ap.add_argument("--capacity-factor", type=float, default=2.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--data", default=None, metavar="DIR",
+                    help="column-npy dataset directory (fields dense, "
+                         "sparse, label — see ps_tpu_torch.data.files."
+                         "write_dataset); default: synthetic generator")
     ap.add_argument("--jsonl", default=None)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--profile-dir", default=None)
@@ -98,11 +107,17 @@ def main(argv=None):
         make_wide_deep_loss_fn(model), make_ids_fn(cfg),
     )
     log = open(args.jsonl, "w") if args.jsonl else None
+    if args.data:
+        stream = file_batches(args.data, args.batch_size, steps=args.steps,
+                              shuffle=True, seed=args.seed,
+                              fields=("dense", "sparse", "label"))
+    else:
+        stream = criteo_batches(args.batch_size,
+                                vocab_size=cfg.per_feature_vocab,
+                                seed=args.seed, steps=args.steps)
     t0 = None
     with trace(args.profile_dir, device, args.steps) as mark:
-        for step, batch in enumerate(criteo_batches(
-                args.batch_size, vocab_size=cfg.per_feature_vocab,
-                seed=args.seed, steps=args.steps)):
+        for step, batch in enumerate(stream):
             loss, _ = run(dense.shard_batch(rank_slice(batch, ctx.mesh)))
             mark()  # step 0's mark starts the profiler, before the clock
             if step == 0:  # warm-up: kernel build, allocator, first launches

@@ -356,7 +356,7 @@ class SparseEmbedding:
         if self.k > 1:
             raise NotImplementedError(
                 f"{what} moves rows within one rank's table; across ranks "
-                f"(tiered storage, ROADMAP Queue 1 item 5) it is not ported")
+                f"(tiered storage, ROADMAP Queue 1 item 5.7) it is not ported")
 
     def adopt_state(self, table: torch.Tensor, state: Any) -> None:
         """Adopt an externally restored (table, state) pair, after checking

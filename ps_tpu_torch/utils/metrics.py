@@ -4,10 +4,10 @@ transport's counters.
 Counterpart of ``TrainMetrics`` and the part of ``TransportStats`` in
 ``ps_tpu/utils/metrics.py`` that the van's serial and bucketed paths and
 the STATS reply record, with the codec, shared-memory lane, native
-serve loop, replication, failover and read-path counters and the
-freshness plane's ages. The rest of that module (``Meter``, the log2
-latency histograms of the registry, the aggregation counters) belongs to
-the observability layer and is not ported yet (ROADMAP Queue 1 item 6):
+serve loop, replication, failover, read-path and two-level aggregation
+counters and the freshness plane's ages. The rest of that module
+(``Meter``, the log2 latency histograms of the registry) belongs to the
+observability layer and is not ported yet (ROADMAP Queue 1 item 6.1):
 a latency is kept as a bounded window of samples, and the native loop's
 queue-wait and read-hit histograms as their raw state
 (:class:`NativeHist`) in the registry's geometry.
@@ -194,6 +194,13 @@ class TransportStats:
         self.fresh_clock_clamped = 0
         self.fresh_src: Dict[str, int] = {"mono": 0, "sync": 0, "wall": 0}
         self.fresh_tiers: Dict[str, list] = {}
+        # two-level aggregation (backends/aggregator.py): merged upstream
+        # flushes, the constituent pushes merged into them (their ratio is
+        # the realized local fan-in), and worker-side aggregator-loss
+        # degrades to the flat topology
+        self.agg_rounds = 0
+        self.agg_members = 0
+        self.agg_degrades = 0
         # the latest samples by the reference's histogram name (push_s,
         # pull_s, read_s, read_age_s, read_gap_v, ...): the reference
         # keeps log2 histograms (obs/, not ported yet); a bounded window
@@ -275,6 +282,25 @@ class TransportStats:
         with self._lock:
             self.failovers += 1
             self.failover_s += float(seconds)
+
+    def record_agg_round(self, members: int) -> None:
+        """One merged upstream flush at an aggregator (``members``
+        constituent pushes pre-reduced into it: the local fan-in the
+        upstream bytes shrink by)."""
+        with self._lock:
+            self.agg_rounds += 1
+            self.agg_members += int(members)
+
+    def record_agg_hold(self, seconds: float) -> None:
+        """How long one member's push was held at the aggregator, from its
+        arrival to the merged upstream commit (``agg_hold_s``)."""
+        self._record_sample("agg_hold_s", seconds)
+
+    def record_agg_degrade(self) -> None:
+        """One worker-side aggregator loss: a degrade to the flat
+        topology."""
+        with self._lock:
+            self.agg_degrades += 1
 
     def record_vec_send(self, nbytes: int) -> None:
         """One vectored send: ``nbytes`` of tensor payload went to the
@@ -561,7 +587,8 @@ class TransportStats:
                     self.codec_raw_bytes, self.codec_enc_bytes,
                     self.codec_s, self.shm_frames, self.shm_frame_bytes,
                     self.shm_spill_frames, self.spin_wakeups,
-                    self.sleep_wakeups)
+                    self.sleep_wakeups, self.agg_rounds, self.agg_members,
+                    self.agg_degrades)
 
     def summary(self, since: Optional[tuple] = None) -> Dict[str, float]:
         """The interval since ``since`` (a :meth:`snapshot`), as the
@@ -607,6 +634,13 @@ class TransportStats:
                 out["shm_spill_frames"] = int(d[21])
             out["spin_wakeups"] = int(d[22])
             out["sleep_wakeups"] = int(d[23])
+        if d[24] > 0:
+            # two-level aggregation: rounds, and the realized local fan-in
+            # (constituents a merged flush) the upstream bytes shrink by
+            out["agg_rounds"] = int(d[24])
+            out["agg_fan_in"] = round(d[25] / d[24], 3)
+        if d[26] > 0:
+            out["agg_degrades"] = int(d[26])
         return out
 
     def metrics_snapshot(self) -> dict:

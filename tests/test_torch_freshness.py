@@ -224,7 +224,8 @@ def test_three_tier_age_drill():
     revalidation (which must record the grown age of the held bytes) and
     (c) a replica, whose birth is the primary's, installed from the
     stream as a foreign record and so resolved through sync or wall, never
-    mono. The reference's fourth tier, the aggregator, is item 5.5."""
+    mono. The reference's fourth tier, the aggregator, is held in
+    ``tests/test_torch_aggregation.py``."""
     prim = _svc()
     back = _svc(backup=True)
     prim.attach_backup("127.0.0.1", back.port, ack="sync")

@@ -86,6 +86,7 @@ def test_every_slice_module_is_checked():
                  "ps_tpu_torch/backends/van_service.py",
                  "ps_tpu_torch/backends/remote_async.py",
                  "ps_tpu_torch/backends/remote_sparse.py",
+                 "ps_tpu_torch/backends/aggregator.py",
                  "ps_tpu_torch/kv/keys.py",
                  "ps_tpu_torch/control/shm_lane.py",
                  "ps_tpu_torch/control/native_loop.py",
@@ -106,8 +107,8 @@ def test_every_slice_module_is_checked():
 def test_van_plane_loads_neither_jax_nor_its_package():
     """The van plane (the native loader, control/ with the shm lane and
     the native loop, the codecs, the services and the remote workers,
-    dense and sparse, replica/ and obs/, the read path's freshness stamps
-    and clock) runs without JAX and never reaches into ps_tpu/: its
+    dense and sparse, the aggregator, replica/ and obs/, the read path's
+    freshness stamps and clock) runs without JAX and never reaches into ps_tpu/: its
     modules load no jax, jaxlib, flax, optax or ps_tpu, and the native
     loader builds the port's own copy of van.cpp."""
     code = ("import sys, ps_tpu_torch.native as n, "
@@ -116,7 +117,8 @@ def test_van_plane_loads_neither_jax_nor_its_package():
             "ps_tpu_torch.compress, "
             "ps_tpu_torch.backends.van_service, "
             "ps_tpu_torch.backends.remote_async, "
-            "ps_tpu_torch.backends.remote_sparse, ps_tpu_torch.replica, "
+            "ps_tpu_torch.backends.remote_sparse, "
+            "ps_tpu_torch.backends.aggregator, ps_tpu_torch.replica, "
             "ps_tpu_torch.obs, ps_tpu_torch.obs.clock; "
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'jax', 'jaxlib', 'flax', 'optax', 'ps_tpu'}), "

@@ -34,7 +34,8 @@ import pytest
 import torch
 
 import ps_tpu_torch
-from ps_tpu_torch.backends.common import BucketPlan, ServerFailureError
+from ps_tpu_torch.backends.common import (AGG_WORKER_BASE, BucketPlan,
+                                          ServerFailureError)
 from ps_tpu_torch.backends.remote_async import (
     AsyncPSService,
     RemoteAsyncWorker,
@@ -815,7 +816,7 @@ def test_reference_worker_against_port_server(bucket_bytes, shm):
     ({"compress": "int8"}, None),
     ({"shm": True}, None),
     ({"coordinator": "127.0.0.1:1"}, "elastic/.*item 6"),
-    ({"aggregator": "127.0.0.1:1"}, "aggregator.*item 5.5"),
+    ({"aggregator": "{agg}"}, None),
     ({"read_staleness": 2}, None),
     ({"pull_cache": True}, None),
     ({"uri": "{uri}|127.0.0.1:1"}, None),
@@ -824,13 +825,23 @@ def test_reference_worker_against_port_server(bucket_bytes, shm):
 def test_deferred_worker_options_raise(kwargs, match):
     params = {"w": torch.zeros(2)}
     (svc,), uri = _job(params)
+    agg = None
     try:
         kw = dict(kwargs)
         if match is None:
-            # items 5.2 (shm), 5.3 (compress), 5.6 (replicas), 5.8 (reads)
+            # items 5.2 (shm), 5.3 (compress), 5.5 (aggregator), 5.6
+            # (replicas), 5.8 (reads)
+            if "aggregator" in kw:
+                from ps_tpu_torch.backends.aggregator import AggregatorService
+
+                agg = AggregatorService(uri, params, group_size=1)
+                kw["aggregator"] = f"127.0.0.1:{agg.port}"
             w = connect_async(kw.pop("uri", uri).format(uri=uri), 0, params,
                               **kw)
-            if "shm" in kw:
+            if "aggregator" in kw:
+                assert w._addrs == [("127.0.0.1", agg.port)]
+                assert w._agg_fallback["addrs"] == [("127.0.0.1", svc.port)]
+            elif "shm" in kw:
                 assert w._chs[0].lane == "shm"
             elif "compress" in kw:
                 assert w.compress == {"codec": "int8", "seed": 0}
@@ -843,6 +854,9 @@ def test_deferred_worker_options_raise(kwargs, match):
                                             ("127.0.0.1", 1)]]
             w.push_pull({"w": torch.ones(2)})
             assert w.version == 1
+            if agg is not None:  # one merged round, from the group's id
+                assert agg.transport.agg_rounds == 1
+                assert set(svc._applied) == {AGG_WORKER_BASE}
             if "read_staleness" in kw or "pull_cache" in kw:
                 # the read sees the push; the cache answers the repeat
                 read = w.read_all()
@@ -856,6 +870,8 @@ def test_deferred_worker_options_raise(kwargs, match):
         with pytest.raises(NotImplementedError, match=match):
             connect_async(kw.pop("uri", uri), 0, params, **kw)
     finally:
+        if agg is not None:
+            agg.stop()
         _stop([svc])
 
 

@@ -6,16 +6,17 @@ torch and the port and never jax, and kill each one after a wall-clock
 limit, so nothing hangs:
 
     python tests/test_torch_van_harness.py server <out> <nworkers> <cycles> [<shard> <nshards>]
-    python tests/test_torch_van_harness.py worker <ports> <out> <worker> <cycles> [<nworkers>]
+    python tests/test_torch_van_harness.py worker <ports> <out> <worker> <cycles> [<nworkers> [<opts>]]
     python tests/test_torch_van_harness.py drill <rank> <k> <port> <hb_base> <victim> <out>
     python tests/test_torch_van_harness.py sparse-server <out> <nworkers> <cycles> <shard> <nshards> <device> <shape> [<opts>]
     python tests/test_torch_van_harness.py sparse-worker <ports> <out> <worker> <cycles> <device> <shape> <nworkers> <record> [<opts>]
-    python tests/test_torch_van_harness.py replica-backup <out> <watch_port> <watch_timeout_ms> <device>
-    python tests/test_torch_van_harness.py replica-primary <out> <watch_port> <ack> <window> <device>
+    python tests/test_torch_van_harness.py replica-backup <out> <watch_port> <watch_timeout_ms> <device> [<opts>]
+    python tests/test_torch_van_harness.py replica-primary <out> <watch_port> <ack> <window> <device> [<loop> [<opts>]]
     python tests/test_torch_van_harness.py replica-worker <out> <steps> <kill_at> <device>
     python tests/test_torch_van_harness.py read-server <out> <shard> <nshards> <device> <shape> <opts>
     python tests/test_torch_van_harness.py read-pusher <out> <cycles> <device> <shape>
     python tests/test_torch_van_harness.py read-reader <out> <reader> <shape>
+    python tests/test_torch_van_harness.py agg-server <out> <uri> <group_size> <opts>
 
 - server: an async KVStore on the CPU (sgd 0.05, dc_lambda 0.04) behind
   ``AsyncPSService`` with its full history, on a port the kernel picks
@@ -29,7 +30,14 @@ limit, so nothing hangs:
   real; writes ``worker<id>.json``. Given ``nworkers``, it waits after
   its first pull until that many workers have pulled (a file barrier in
   ``out``), so the workers' cycles overlap however their processes
-  started.
+  started. ``opts`` (json, ``nworkers`` 0 for none) makes it a member of
+  an aggregation group: ``aggregator`` (``host:port``, or ``"@"`` for the
+  port an ``agg-server`` in ``out`` wrote), ``uri`` (the shards, replica
+  sets allowed, instead of ``ports``), ``shm``, ``device`` and
+  ``failover_timeout``; with ``hidden`` its tree is :func:`agg_tree`'s
+  and its gradients :func:`agg_grads`' (``scale``), pushed without
+  jitter, and its record also holds each cycle's end, its wire bytes and
+  whether, how often and in which cycle it degraded to the flat path.
 - drill: rank ``rank`` of ``k`` gloo ranks with heartbeats on; the victim
   rank dies hard (``os._exit(17)``) after one step, the others poll
   ``check_health()`` until it raises and write what it named.
@@ -63,7 +71,10 @@ limit, so nothing hangs:
   then dumps its role, promotion and counters (``backup.json``, its
   params ``backup_params.npz``), the worker its losses, failovers and
   final params (``worker.json``, ``worker_params.npz``). The primary
-  takes an optional ``loop`` (1: the native loop) after ``device``.
+  takes an optional ``loop`` (1: the native loop) after ``device``. An
+  ``opts`` json after ``device`` (the primary's after ``loop``) serves
+  :func:`agg_tree`'s MLP instead (``hidden``, ``lr``, ``num_workers``),
+  as phase 22 (c) of ``chip_smoke.py`` does.
 
 - read-server / read-pusher / read-reader: the read path's processes
   (phase 21 of ``chip_smoke.py``), over the sparse roles' tables: a
@@ -81,6 +92,18 @@ limit, so nothing hangs:
   ``read_rows`` for each window ``go<k>.json`` (``{"mode": "layered" |
   "primary" | "final", "readers": R, "seconds": s}``) and writes
   ``read<k>_<reader>.json``, until ``exit``.
+
+- agg-server: two-level aggregation (``backends/aggregator.py``): an
+  ``AggregatorService`` of ``group_size`` members over the shards at
+  ``uri`` (a ``server``'s or a ``replica-primary``'s), for
+  :func:`agg_tree`'s structure at ``hidden``, on the native loop unless
+  ``opts`` says ``"native_loop": false``; writes its port to
+  ``agg_port`` and, once ``agg_done`` appears, dumps ``agg.json`` (rounds,
+  the realized fan-in, every member push's hold, the upstream bytes, the
+  member reads it served and their ages, the native read cache's
+  counters, the kernel launch counts and whether CUDA was initialized:
+  an aggregator launches no kernel). Its members are ``worker``
+  processes given ``aggregator``.
 
 Every process of this file computes on one intra-op thread, as the
 replays of its runs do (:func:`one_thread`). :func:`replay` replays a run
@@ -469,16 +492,30 @@ def run_server(out, nworkers, cycles, shard=None, nshards=None):
     ps.shutdown()
 
 
-def run_worker(ports, out, worker, cycles, nworkers=None):
+def run_worker(ports, out, worker, cycles, nworkers=None, opts=None):
     import torch
 
     import ps_tpu_torch as ps
 
-    params = model_params()
-    uri = ",".join(f"127.0.0.1:{p}" for p in str(ports).split(","))
-    w = ps.connect_async(uri, worker, {k: torch.from_numpy(v)
-                                       for k, v in params.items()})
-    versions = []
+    opts = opts or {}
+    device = opts.get("device", "cpu")
+    if "hidden" in opts:
+        params = agg_tree(opts["hidden"])
+    else:
+        params = model_params()
+    uri = opts.get("uri") or ",".join(f"127.0.0.1:{p}"
+                                      for p in str(ports).split(","))
+    agg = opts.get("aggregator")
+    if agg == "@":
+        path = os.path.join(out, "agg_port")
+        _wait_file(path)
+        with open(path) as f:
+            agg = f"127.0.0.1:{f.read()}"
+    w = ps.connect_async(uri, worker, {k: torch.from_numpy(v).to(device)
+                                       for k, v in params.items()},
+                         aggregator=agg, shm=opts.get("shm"),
+                         failover_timeout=opts.get("failover_timeout"))
+    versions, ends, nbytes = [], [], []
     w.pull_all()
     if nworkers:
         open(os.path.join(out, f"pulled{worker}"), "w").close()
@@ -488,14 +525,30 @@ def run_worker(ports, out, worker, cycles, nworkers=None):
             if time.monotonic() > deadline:
                 raise TimeoutError("the other workers never pulled")
             time.sleep(0.005)
+    t0 = time.perf_counter()
+    degraded_at = None
     for c in range(cycles):
-        time.sleep(0.003 * ((worker * 7 + c * 3) % 5))  # interleave
-        w.push_pull({k: torch.from_numpy(v) for k, v in
-                     make_grads(params, worker, c).items()})
+        if "hidden" in opts:
+            grads = agg_grads(params, worker, c, opts.get("scale", 1.0))
+        else:
+            time.sleep(0.003 * ((worker * 7 + c * 3) % 5))  # interleave
+            grads = make_grads(params, worker, c)
+        w.push_pull({k: torch.from_numpy(v).to(device)
+                     for k, v in grads.items()})
         versions.append(w.version)
+        ends.append(time.perf_counter() - t0)
+        nbytes.append(w.bytes_pushed + w.bytes_pulled)
+        if agg and degraded_at is None and w._agg_fallback is None:
+            degraded_at = c
     with open(os.path.join(out, f"worker{worker}.json"), "w") as f:
         json.dump({"worker": worker, "versions": versions,
-                   "per_server_versions": w.versions}, f)
+                   "per_server_versions": w.versions, "ends": ends,
+                   "bytes": nbytes, "nonce": w._transport_nonce,
+                   "push_seq": w._push_seq,
+                   "aggregated": w._agg_fallback is not None,
+                   "degraded_at": degraded_at,
+                   "agg_degrades": w.transport.agg_degrades,
+                   "lane": w.transport.lane()}, f)
     w.close()
 
 
@@ -547,26 +600,37 @@ def _write(path, text) -> None:
     os.replace(path + ".tmp", path)
 
 
-def _replica_store(device):
+def _replica_store(device, opts=None):
     """The MNIST trainer's MLP from seed 0 in an async store (sgd 0.1,
-    dc_lambda 0, one worker) on ``device``."""
+    dc_lambda 0, one worker) on ``device``; with ``opts``, :func:`agg_tree`
+    at ``hidden`` with ``lr`` and ``num_workers``."""
+    import torch
+
     import ps_tpu_torch as ps
     from ps_tpu_torch.examples.train_mnist_async import build
 
-    ctx = ps.init(backend="cuda", mode="async", num_workers=1,
-                  dc_lambda=0.0, device=device)
-    params, _ = build(0, ctx.device)
-    store = ps.KVStore(optimizer="sgd", learning_rate=0.1, mode="async")
+    opts = opts or {}
+    ctx = ps.init(backend="cuda", mode="async",
+                  num_workers=opts.get("num_workers", 1), dc_lambda=0.0,
+                  device=device)
+    if "hidden" in opts:
+        params = {k: torch.from_numpy(v).to(ctx.device)
+                  for k, v in agg_tree(opts["hidden"]).items()}
+    else:
+        params, _ = build(0, ctx.device)
+    store = ps.KVStore(optimizer="sgd", learning_rate=opts.get("lr", 0.1),
+                       mode="async")
     store.init(params)
     return store
 
 
-def run_replica_backup(out, watch_port, watch_timeout_ms, device):
+def run_replica_backup(out, watch_port, watch_timeout_ms, device,
+                       opts=None):
     import ps_tpu_torch as ps
     from ps_tpu_torch.backends.remote_async import AsyncPSService
     from ps_tpu_torch.replica import PromotionWatch
 
-    svc = AsyncPSService(_replica_store(device), backup=True)
+    svc = AsyncPSService(_replica_store(device, opts), backup=True)
     watch = PromotionWatch(svc, primary_id=1, port=watch_port,
                            timeout_ms=watch_timeout_ms)
     _write(os.path.join(out, "backup_port"), svc.port)
@@ -586,12 +650,13 @@ def run_replica_backup(out, watch_port, watch_timeout_ms, device):
     ps.shutdown()
 
 
-def run_replica_primary(out, watch_port, ack, window, device, loop=False):
+def run_replica_primary(out, watch_port, ack, window, device, loop=False,
+                        opts=None):
     import ps_tpu_torch as ps
     from ps_tpu_torch.backends.remote_async import AsyncPSService
     from ps_tpu_torch.control.heartbeat import HeartbeatClient
 
-    svc = AsyncPSService(_replica_store(device), native_loop=loop)
+    svc = AsyncPSService(_replica_store(device, opts), native_loop=loop)
     path = os.path.join(out, "backup_port")
     _wait_file(path)
     with open(path) as f:
@@ -642,6 +707,99 @@ def run_replica_worker(out, steps, kill_at, device):
                    "failover_s": w.transport.op_samples("failover"),
                    "epochs": w._epochs}, f)
     w.close()
+
+
+# -- two-level aggregation's processes (backends/aggregator.py) -------------
+
+
+def agg_tree(hidden: int, init: str = "int") -> dict:
+    """The MNIST MLP's tree at ``hidden`` (784-hidden-10) as a flat
+    ``{key: float32 array}``: with ``init="int"`` the i-th key (sorted) is
+    all ``i % 2``, so that integer gradients and a power-of-two learning
+    rate keep every sum exact (the closed form of :func:`agg_expected` is
+    then bitwise); with ``"seed"`` the MLP's own initialization from seed
+    0."""
+    import torch
+
+    from ps_tpu_torch.kv import keys
+    from ps_tpu_torch.models.mlp import MLP
+
+    tree = MLP(hidden=hidden).init(torch.Generator().manual_seed(0))
+    flat, _ = keys.flatten_with_keys(tree)
+    if init == "seed":
+        return {k: v.numpy() for k, v in flat.items()}
+    return {k: np.full(tuple(v.shape), float(i % 2), np.float32)
+            for i, (k, v) in enumerate(sorted(flat.items()))}
+
+
+def agg_grads(params, worker: int, cycle: int, scale: float = 1.0) -> dict:
+    """The integer gradient of (worker, cycle): the i-th key (sorted) all
+    ``(3 * worker + cycle + 1 + i) * scale``."""
+    return {k: np.full(params[k].shape, (3 * worker + cycle + 1 + i) * scale,
+                       np.float32)
+            for i, k in enumerate(sorted(params))}
+
+
+def agg_merged(params, workers, cycle: int, scale: float = 1.0) -> dict:
+    """The aggregator's merge of one round: the members' gradients summed
+    in ascending member order into an accumulator of its own, as
+    ``AggregatorService`` sums them."""
+    merged = {}
+    for w in sorted(workers):
+        g = agg_grads(params, w, cycle, scale)
+        if not merged:
+            merged = {k: np.array(v) for k, v in g.items()}
+        else:
+            for k, v in g.items():
+                merged[k] += v
+    return merged
+
+
+def agg_expected(params0, cycles_by_worker, lr: float) -> dict:
+    """The closed form once every (worker, cycle) gradient of
+    :func:`agg_grads` (scale 1) applied once under sgd: exact in float32
+    for :func:`agg_tree`'s ``"int"`` init and a power-of-two ``lr``."""
+    out = {}
+    for i, k in enumerate(sorted(params0)):
+        tot = sum(3 * w + c + 1 + i for w, cycles in cycles_by_worker.items()
+                  for c in cycles)
+        out[k] = (params0[k] - np.float32(lr * tot)).astype(np.float32)
+    return out
+
+
+def run_agg_server(out, uri, group_size, opts):
+    """One host group's aggregator until ``agg_done`` appears (or a
+    SIGKILL), then its dump (``agg.json``)."""
+    import torch
+
+    from ps_tpu_torch.backends.aggregator import AggregatorService
+    from ps_tpu_torch.ops import flash_attention  # noqa: F401 (counters)
+
+    fa = sys.modules["ps_tpu_torch.ops.flash_attention"]
+    like = {k: torch.from_numpy(v)
+            for k, v in agg_tree(opts.get("hidden", 256)).items()}
+    agg = AggregatorService(uri, like, group_size=group_size,
+                            native_loop=opts.get("native_loop", True),
+                            loop_threads=1,
+                            flush_timeout_ms=opts.get("flush_timeout_ms"))
+    _write(os.path.join(out, "agg_port"), agg.port)
+    _wait_file(os.path.join(out, "agg_done"), timeout=600)
+    t = agg.transport
+    cache = agg._nloop.cache_stats() if agg.native_loop else None
+    info = {"rounds": agg._rounds_done, "group_size": agg.group_size,
+            "summary": t.summary(), "hold_s": t.op_samples("agg_hold"),
+            "upstream": {"bytes_pushed": agg._client.bytes_pushed,
+                         "bytes_pulled": agg._client.bytes_pulled},
+            "reads_served": t.reads_served,
+            "not_modified": t.read_not_modified,
+            "fresh": t.fresh_snapshot(), "cache": cache,
+            "loop_pushes": t.loop_pushes,
+            "launches": dict(_launch_counts(),
+                             flash=fa.LAUNCHES),
+            "cuda_initialized": torch.cuda.is_initialized()}
+    with open(os.path.join(out, "agg.json"), "w") as f:
+        json.dump(info, f)
+    agg.stop()
 
 
 # -- the sparse PS's processes (backends/remote_sparse.py) ------------------
@@ -1413,11 +1571,17 @@ def main(argv) -> int:
                           shape, int(nworkers), record == "1", opts)
     elif role == "replica-backup":
         out, watch_port, timeout_ms, device = argv[2:6]
-        run_replica_backup(out, int(watch_port), int(timeout_ms), device)
+        run_replica_backup(out, int(watch_port), int(timeout_ms), device,
+                           json.loads(argv[6]) if len(argv) > 6 else None)
     elif role == "replica-primary":
         out, watch_port, ack, window, device = argv[2:7]
         run_replica_primary(out, int(watch_port), ack, int(window), device,
-                            loop=len(argv) > 7 and argv[7] == "1")
+                            loop=len(argv) > 7 and argv[7] == "1",
+                            opts=json.loads(argv[8]) if len(argv) > 8
+                            else None)
+    elif role == "agg-server":
+        out, uri, group_size, opts = argv[2:6]
+        run_agg_server(out, uri, int(group_size), json.loads(opts))
     elif role == "read-server":
         out, shard, nshards, device, shape, opts = argv[2:8]
         run_read_server(out, int(shard), int(nshards), device, shape,
@@ -1439,7 +1603,9 @@ def main(argv) -> int:
     elif role == "worker":
         ports, out, worker, cycles = argv[2:6]
         nworkers = int(argv[6]) if len(argv) > 6 else None
-        run_worker(ports, out, int(worker), int(cycles), nworkers)
+        opts = json.loads(argv[7]) if len(argv) > 7 else None
+        run_worker(ports, out, int(worker), int(cycles), nworkers or None,
+                   opts)
     else:
         rank, k, port, hb_base, victim, out = argv[2:8]
         run_drill(int(rank), int(k), int(port), int(hb_base), int(victim),
