@@ -391,6 +391,43 @@ Phases, each raising on failure:
    chip_smoke as c, tempfile; c.phase_aggregation(tempfile.mkdtemp())"``
    (it needs no kernel build).
 
+23. tiered embedding storage on the card (ROADMAP item 5.7,
+   ``ps_tpu_torch/kv/tiered.py``): (a) in this process, W&D's deep table
+   (26 x 100,000 rows, D 16, adagrad, lr 0.05) as a ``TieredTable`` of
+   650,000 slots on the card over a pinned host arena (the table 4x the
+   budget, admit_freq 2), against an all-hot ``SparseEmbedding`` of every
+   row: 8 pushes confined to the hot set bitwise an untiered table of the
+   budget's rows; 16 warm-up and 60 timed pushes of 13,312 ids (512 x 26
+   fields, each field's ids zipf(1.3) % 100,000 plus its offset, a fresh
+   batch a push, a pull of a quarter every 4th timed push): the rows hot since
+   init and never moved bitwise, every row within rtol 1e-6 / atol 1e-7,
+   the row sum within 1e-9 of the sum of |rows|, one grouping and one
+   apply launch a push; ``save``/``restore`` bitwise; a TTL leg
+   (evict_ttl_ms 1, 6 pushes) held the same way; tiered and all-hot
+   rows/s, the hit rate, promotions and evictions per 1k pushes, the cold
+   pass's p50/p99 and the hot tier's bytes on the card against the
+   all-hot table's; (b) phase 20's layout with each shard's two tables
+   tiered at rows // 4 (325,000 slots), every server on the native loop
+   and each primary with a sync-ack backup, three workers over TCP x 30
+   cycles: at cycle 5 this process reads a 13,312-id set through
+   ``read_rows`` and runs ``checkpoint_all`` while the workers go on; at
+   the workers' pause at cycle 15 every backup's directory, hot table,
+   arena and cold state are bitwise its primary's (SHA-256), its launches
+   2 + 2 a replicated push, and the conditional ``read_rows`` after the
+   tier moves bitwise a pull; then primary 0 is SIGKILLed: backup 0
+   promotes, every push is applied once, the applied logs replayed
+   through tiered tables on the card give the servers' tables bitwise and
+   through all-hot ones their row sums, and the checkpoint restored into
+   fresh services is bitwise the logs' first pushes; cycles/s beside phase
+   17's and the tier stats are printed; (c) two gloo ranks on the card,
+   the table cut to 4 fields (400,000 rows, 100,000 slots), each rank
+   pushing its half of 6 pushes: rank 0's move logs, the directory, both
+   tiers and the row sum bitwise one process on the whole pushes. The
+   kernels line gives each sparse kernel's launches here
+   (``launches_tiered``). Run it alone with ``python3 -c "import
+   chip_smoke as c, tempfile; c.phase_build();
+   c.phase_tiered(tempfile.mkdtemp())"``.
+
 It prints one JSON line per timed kernel, then the kernels line, then
 ``{"ok": true, "device": {...}}`` as its last line. Without a GPU, or
 without the rest of the repository beside it, it fails before printing
@@ -6929,6 +6966,656 @@ def phase_aggregation(tmp):
             "replicated": repl, "tree": big}
 
 
+# phase 23: tiered embedding storage (ROADMAP item 5.7, kv/tiered.py). (a)
+# in this process at Wide-&-Deep's full width, the table 4x its device
+# budget (bench_tiered's acceptance shape); the all-hot oracle is an
+# untiered table of every row on the same stream. A row resident on the
+# card since init and never moved is updated by the kernels alone, so it
+# is held bitwise; a row that went through the host tier was updated by
+# the plain rule's torch ops on the card, which may round a mean of
+# squares the other way, so every row is held to RTOL / ATOL. Row sums
+# are held within TIERED_SUM_RTOL of the sum of |rows| (a lost update
+# moves it by a step, ~1e-3). (b) phase 20's layout with tiered shards on
+# the native loop; (c) two gloo ranks on the card at a cut depth.
+TIERED_BUDGET = 650_000   # (a): a quarter of W&D's 2,600,000 rows
+TIERED_ADMIT = 2
+TIERED_ZIPF = 1.3         # bench_tiered's skew
+TIERED_WARMUP, TIERED_PUSHES = 16, 60  # each push a fresh batch
+TIERED_HOT_PUSHES = 8     # (a): the stream confined to the hot set
+TIERED_TTL_PUSHES = 6     # (a): the TTL leg (evict_ttl_ms 1)
+TIERED_BREAKDOWN = 8      # (a): pushes timed stage by stage, after the gates
+TIERED_DIV = 4            # (b): a shard's budget, its rows // 4
+TIERED_CYCLES, TIERED_KILL_AT, TIERED_CUE_AT = 30, 15, 5  # (b)
+TIERED_RANK_FIELDS, TIERED_RANK_PUSHES = 4, 6  # (c): the cut depth
+TIERED_SUM_RTOL = 1e-9
+TIERED_LR = 0.05
+
+
+def _tiered_stream(fields, vocab, pushes, dim, seed=0):
+    """bench_tiered's W&D-shaped ids: a push is one batch of BATCH rows x
+    ``fields`` fields, each field's ids zipf(1.3) % ``vocab`` plus its
+    offset (13,312 ids at W&D's width), a fresh batch a push (so rare ids
+    keep arriving cold); grads N(0, 0.01²)."""
+    rng = np.random.default_rng(seed)
+    offsets = np.arange(fields, dtype=np.int64) * vocab
+    ids = [((rng.zipf(TIERED_ZIPF, size=(BATCH, fields)) % vocab) + offsets)
+           .astype(np.int32).reshape(-1) for _ in range(pushes)]
+    grads = [rng.standard_normal((BATCH * fields, dim), dtype=np.float32)
+             * np.float32(0.01) for _ in range(pushes)]
+    return ids, grads
+
+
+def _tiered_table(rows, dim, budget, full, **kw):
+    from ps_tpu_torch.kv.tiered import TieredTable
+
+    t = TieredTable(rows, dim, "adagrad", device_rows=budget,
+                    learning_rate=TIERED_LR, **kw)
+    t.init(full)
+    return t
+
+
+def _all_hot(rows, dim, full):
+    import ps_tpu_torch as ps
+
+    emb = ps.SparseEmbedding(rows, dim, "adagrad", learning_rate=TIERED_LR)
+    emb.init(full)
+    return emb
+
+
+def _tiered_same(a, b, what):
+    """Two tiered tables' directories and both tiers, bitwise."""
+    for attr in ("tier", "slot", "freq", "ref", "last_ms", "slot_to_id"):
+        if not np.array_equal(getattr(a, attr), getattr(b, attr)):
+            raise AssertionError(f"{what}: directory {attr} differs")
+    leaves = lambda t: ([t.hot.table] + _emb_leaves(t.hot)  # noqa: E731
+                        + [t.arena] + t.cold_state)
+    if a.hand != b.hand or not all(
+            torch.equal(x, y) for x, y in zip(leaves(a), leaves(b))):
+        raise AssertionError(f"{what}: the tiers or the hand differ")
+
+
+def _tiered_rows_gate(t, oracle, still, what):
+    """Every row of ``t`` against the all-hot ``oracle``: the rows in
+    ``still`` (hot since init, never moved) bitwise, every row within
+    RTOL / ATOL; the row sums within TIERED_SUM_RTOL. Returns (max abs
+    err, row-sum difference)."""
+    got = t.pull(np.arange(t.num_rows, dtype=np.int32)).numpy()
+    want = oracle.table.cpu().numpy()[:t.num_rows]
+    if not np.array_equal(got[still], want[still]):
+        raise AssertionError(f"{what}: a row hot since init differs from "
+                             f"the all-hot table")
+    err = float(np.max(np.abs(got - want)))
+    if not np.allclose(got, want, rtol=RTOL, atol=ATOL):
+        raise AssertionError(f"{what}: rows differ from the all-hot table "
+                             f"by up to {err} (rtol {RTOL}, atol {ATOL})")
+    got_sum, want_sum = t.row_sum(), float(want.astype(np.float64).sum())
+    scale = float(np.abs(want).astype(np.float64).sum())
+    if abs(got_sum - want_sum) > TIERED_SUM_RTOL * scale:
+        raise AssertionError(f"{what}: row sum {got_sum!r} against the "
+                             f"all-hot {want_sum!r} (sum |x| {scale!r})")
+    return err, got_sum - want_sum
+
+
+def _tiered_one_process(tmp, fields=None, vocab=None, budget=TIERED_BUDGET,
+                        device="cuda"):
+    """(a): W&D's deep table (26 x 100,000 rows, D 16, adagrad) tiered at
+    ``budget`` slots against all-hot, in this process on ``device``."""
+    from ps_tpu_torch.kv.tiered import TieredTable
+    from ps_tpu_torch.models.wide_deep import WideDeepConfig
+    from ps_tpu_torch.ops import sparse_apply as ops
+
+    cfg = WideDeepConfig()
+    fields = fields or cfg.num_sparse
+    vocab = vocab or cfg.per_feature_vocab
+    rows, dim = fields * vocab, cfg.embed_dim
+    full = np.random.default_rng(17).standard_normal(
+        (rows, dim), dtype=np.float32) * np.float32(0.01)
+    ids, grads = _tiered_stream(fields, vocab, TIERED_WARMUP + TIERED_PUSHES,
+                                dim)
+    grads = [torch.from_numpy(g).to(device) for g in grads]
+    sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
+            else lambda: None)
+    # a stream confined to the hot set: bitwise an untiered budget table
+    rng = np.random.default_rng(3)
+    hot_t = _tiered_table(rows, dim, budget, full, admit_freq=1 << 30)
+    hot_u = _all_hot(budget, dim, full[:budget])
+    for i in range(TIERED_HOT_PUSHES):
+        hid = rng.integers(0, budget, ids[0].size).astype(np.int32)
+        hot_t.push(hid, grads[i])
+        hot_u.push(hid, grads[i])
+    if not (torch.equal(hot_t.hot.table, hot_u.table) and torch.equal(
+            _emb_leaves(hot_t.hot)[0], _emb_leaves(hot_u)[0])) or \
+            hot_t.promotions or hot_t.evictions:
+        raise AssertionError("tiered (a): a stream confined to the hot set "
+                             "is not bitwise the untiered budget table")
+    del hot_t, hot_u
+
+    def run(emb, moved=None):
+        cold_s = []
+        for i in range(TIERED_WARMUP + TIERED_PUSHES):
+            if i == TIERED_WARMUP:
+                sync()
+                if moved is not None:
+                    emb.drain_cold_gather()
+                    stats0 = emb.tier_stats()
+                t0 = time.perf_counter()
+            emb.push(ids[i], grads[i])
+            if moved is not None:
+                moved.update(op[1] for op in emb.pop_moves()["ops"]
+                             if op[0] != "r")
+            if i >= TIERED_WARMUP and i % 4 == 3:  # the serving read leg
+                emb.pull(ids[i][:ids[i].size // 4])
+        sync()
+        secs = time.perf_counter() - t0
+        if moved is not None:
+            cold_s = emb.drain_cold_gather()
+            st = emb.tier_stats()
+            stats = {k: st[k] - stats0[k] for k in (
+                "hot_hits", "misses", "promotions", "evictions")}
+            return secs, stats, cold_s
+        return secs
+
+    t = _tiered_table(rows, dim, budget, full, admit_freq=TIERED_ADMIT)
+    moved = set()
+    _launch_counts(reset=True)
+    secs, stats, cold_s = run(t, moved)
+    launches = {"group": ops.GROUP_LAUNCHES, "apply": ops.LAUNCHES}
+    n = TIERED_WARMUP + TIERED_PUSHES
+    if launches != {"group": n, "apply": n} or t.promotions == 0 \
+            or t.evictions == 0:
+        raise AssertionError(f"tiered (a): {launches} launches for {n} "
+                             f"pushes, {t.promotions} promotions, "
+                             f"{t.evictions} evictions")
+    oracle = _all_hot(rows, dim, full)
+    secs_hot = run(oracle)
+    still = t.slot_to_id[t.slot_to_id >= 0]
+    still = still[~np.isin(still, np.fromiter(moved, np.int64))]
+    err, dsum = _tiered_rows_gate(t, oracle, still, "tiered (a) mixed")
+    hot_bytes = sum(x.numel() * x.element_size()
+                    for x in [t.hot.table] + _emb_leaves(t.hot))
+    all_bytes = sum(x.numel() * x.element_size()
+                    for x in [oracle.table] + _emb_leaves(oracle))
+    # checkpoint: both tiers and the directory, restored bitwise
+    t0 = time.perf_counter()
+    t.save(os.path.join(tmp, "tiered_a"))
+    back = _tiered_table(rows, dim, budget, full, admit_freq=TIERED_ADMIT)
+    back.restore(os.path.join(tmp, "tiered_a"))
+    _tiered_same(t, back, "tiered (a) save/restore")
+    ckpt_s = time.perf_counter() - t0
+    del back, oracle
+    more_ids, more = _tiered_stream(fields, vocab, TIERED_BREAKDOWN, dim,
+                                    seed=5)
+    breakdown = _tiered_breakdown(
+        t, more_ids, [torch.from_numpy(g).to(device) for g in more], sync)
+    # TTL: idle hot rows demote after 1 ms; nothing lost
+    ttl = _tiered_table(rows, dim, budget, full, admit_freq=TIERED_ADMIT,
+                        evict_ttl_ms=1)
+    ttl_oracle = _all_hot(rows, dim, full)
+    for i in range(TIERED_TTL_PUSHES):
+        ttl.push(ids[i], grads[i])
+        ttl_oracle.push(ids[i], grads[i])
+        time.sleep(0.002)
+    ttl_evictions = ttl.evictions
+    if not ttl_evictions:
+        raise AssertionError("tiered (a) TTL: nothing demoted")
+    ttl_err, ttl_dsum = _tiered_rows_gate(ttl, ttl_oracle, np.zeros(0, int),
+                                          "tiered (a) TTL")
+    del ttl, ttl_oracle
+    total = stats["hot_hits"] + stats["misses"]
+    return {
+        "rows": rows, "budget": budget, "ids": int(ids[0].size),
+        "tiered_rows_per_s": TIERED_PUSHES * ids[0].size / secs,
+        "all_hot_rows_per_s": TIERED_PUSHES * ids[0].size / secs_hot,
+        "hit_rate": stats["hot_hits"] / total,
+        "promotions_per_1k": stats["promotions"] * 1000 / TIERED_PUSHES,
+        "evictions_per_1k": stats["evictions"] * 1000 / TIERED_PUSHES,
+        "cold_p50_ms": float(np.quantile(cold_s, 0.5)) * 1e3,
+        "cold_p99_ms": float(np.quantile(cold_s, 0.99)) * 1e3,
+        "cold_passes": len(cold_s), "hot_bytes": hot_bytes,
+        "all_hot_bytes": all_bytes, "launches": launches,
+        "still_hot": int(still.size), "err": err, "dsum": dsum,
+        "ttl_err": ttl_err, "ttl_dsum": ttl_dsum,
+        "ttl_evictions": ttl_evictions, "ckpt_s": ckpt_s,
+        "moved": len(moved), "breakdown": breakdown}
+
+
+def _tiered_breakdown(t, ids, grads, sync):
+    """Where a tiered push's time goes: ms a push (host clock) in the
+    plan, the moves, the hot tier's push, the cold pass and the rest,
+    over fresh pushes ``ids``/``grads``, each stage timed by a wrapper on
+    this table alone."""
+    spent = {"plan": 0.0, "moves": 0.0, "hot push": 0.0, "cold pass": 0.0}
+    owners = {"plan": (t, "_plan_moves"), "moves": (t, "_apply_moves"),
+              "hot push": (t.hot, "push"), "cold pass": (t, "_push_cold")}
+
+    def timed(stage, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[stage] += time.perf_counter() - t0
+        return run
+
+    for stage, (obj, name) in owners.items():
+        setattr(obj, name, timed(stage, getattr(obj, name)))
+    try:
+        sync()
+        t0 = time.perf_counter()
+        for i, g in zip(ids, grads):
+            t.push(i, g)
+        sync()
+        total = time.perf_counter() - t0
+    finally:
+        for obj, name in owners.values():
+            delattr(obj, name)
+    out = {k: v * 1e3 / len(ids) for k, v in spent.items()}
+    out["rest"] = total * 1e3 / len(ids) - sum(out.values())
+    out["push"] = total * 1e3 / len(ids)
+    return out
+
+
+def _tiered_prefix(harness, info, s, pushes, shape):
+    """Shard ``s``'s first ``pushes`` applies (``info['applied']`` order)
+    replayed through fresh tiered tables."""
+    tables = harness.sparse_tables(shape, s, SPARSE_SHARDS, tiered=TIERED_DIV)
+    ids = {}
+    for w, c in info["applied"][:pushes]:
+        if w not in ids:
+            ids[w] = harness.sparse_ids(shape, w, TIERED_CYCLES)
+        for name, (i, g) in harness._routed(shape, w, c, ids[w][c], s,
+                                            SPARSE_SHARDS).items():
+            tables[name].push(i, g)
+    return tables
+
+
+def _tiered_served(harness, tmp, device="cuda", shape="wd"):
+    """(b): phase 20's layout, each shard a tiered primary on the native
+    loop with a sync-ack backup; three workers over TCP; a reader process
+    (this one) reads and checkpoints mid-traffic; primary 0 SIGKILLed at
+    the workers' pause."""
+    import signal
+
+    import ps_tpu_torch as ps
+    from ps_tpu_torch import checkpoint as ckpt
+
+    out = os.path.join(tmp, "b")
+    os.makedirs(out)
+    watch = [harness.free_port(harness.socket.SOCK_DGRAM)
+             for _ in range(SPARSE_SHARDS)]
+    spec = harness.sparse_spec(shape)
+
+    def server(s, opts):  # the reader says goodbye too: one more worker
+        return harness.spawn(
+            "sparse-server", out, SPARSE_WORKERS + 1, TIERED_CYCLES, s,
+            SPARSE_SHARDS, device, shape,
+            json.dumps(dict(opts, native_loop=True, digests=True,
+                            tiered=TIERED_DIV)))
+
+    backups = [server(s, {"backup": True, "watch_port": watch[s],
+                          "watch_timeout_ms": REPL_WATCH_MS})
+               for s in range(SPARSE_SHARDS)]
+    primaries = [server(s, {"replicate": True, "ack": "sync", "window": 256,
+                            "watch_port": watch[s]})
+                 for s in range(SPARSE_SHARDS)]
+    workers = [harness.spawn("sparse-worker", f"@{SPARSE_SHARDS}", out, w,
+                             TIERED_CYCLES, device, shape, SPARSE_WORKERS, 0,
+                             json.dumps({"replicas": True,
+                                         "pause_at": TIERED_KILL_AT,
+                                         "cue_at": TIERED_CUE_AT}))
+               for w in range(SPARSE_WORKERS)]
+    procs = (backups, primaries, workers)
+    everyone = backups + primaries + workers
+    ckdir = os.path.join(tmp, "b_ckpt")
+    probe = harness.sparse_ids(shape, 7, 1)[0]
+    ps.init(backend="cuda", device=device)
+    try:
+        _wait_files([os.path.join(out, f"cue{w}")
+                     for w in range(SPARSE_WORKERS)], everyone)
+        ports = [open(os.path.join(out, f"port{s}{t}")).read()
+                 for s in range(SPARSE_SHARDS) for t in ("", "b")]
+        uri = ",".join(f"127.0.0.1:{ports[2 * s]}|127.0.0.1:{ports[2 * s + 1]}"
+                       for s in range(SPARSE_SHARDS))
+        reader = ps.connect_sparse(uri, SPARSE_WORKERS, spec,
+                                   failover_timeout=60.0)
+        req = {n: probe for n in spec}
+        first = {n: r.clone() for n, r in reader.read_rows(req).items()}
+        t0 = time.perf_counter()
+        saved = reader.checkpoint_all(ckdir)  # the workers run on
+        ckpt_s = time.perf_counter() - t0
+        snap = _repl_pause_check(out, everyone, "tiered (b)")
+        again = reader.read_rows(req)  # conditional: a delta after moves
+        pulled = reader.pull(req)
+        for n in spec:
+            if not torch.equal(again[n].cpu(), pulled[n].cpu()):
+                raise AssertionError(f"tiered (b): the conditional read of "
+                                     f"{n} after tier moves is not a pull")
+            if torch.equal(again[n].cpu(), first[n].cpu()):
+                raise AssertionError(f"tiered (b): {n} did not change")
+        reader.close()
+        moves = [snap[str(s)]["tier"][n]["promotions"]
+                 for s in range(SPARSE_SHARDS) for n in spec]
+        if min(moves) == 0:
+            raise AssertionError(f"tiered (b): promotions {moves}")
+        primaries[0].send_signal(signal.SIGKILL)
+        primaries[0].wait(timeout=30)
+        with open(os.path.join(out, "resume"), "w") as f:
+            f.write("1")
+        infos, records = _repl_finish(harness, out, procs, [primaries[0]],
+                                      "tiered (b)")
+    finally:
+        harness.kill_all(everyone)
+    b0, p1, b1 = infos["0b"], infos["1"], infos["1b"]
+    rep = b0["replica"]
+    if (rep["role"], rep.get("promote_reason"), rep["epoch"]) != (
+            "primary", "timeout", 1):
+        raise AssertionError(f"tiered (b): backup 0 did not promote: {rep}")
+    for s, info in ((0, b0), (1, p1)):
+        seen = [tuple(x) for x in info["applied"]]
+        want = harness.expected_pushes(shape, s, SPARSE_SHARDS,
+                                       SPARSE_WORKERS, TIERED_CYCLES)
+        if len(seen) != want or len(set(seen)) != len(seen):
+            twice = len(seen) - len(set(seen))
+            raise AssertionError(f"tiered (b): shard {s} applied "
+                                 f"{len(seen)} pushes ({twice} twice) of "
+                                 f"{want}")
+    if b1["digests"] != p1["digests"]:
+        raise AssertionError("tiered (b): shard 1's backup differs from its "
+                             "primary at the end")
+    if any(r["failovers"] < 1 or r["epochs"][0] != 1 for r in records):
+        raise AssertionError(f"tiered (b): failovers "
+                             f"{[r['failovers'] for r in records]}")
+    try:
+        # the applied logs through tiered tables: the servers' bitwise
+        tiered, _ = harness.sparse_replay([b0, p1], shape, SPARSE_WORKERS,
+                                          TIERED_CYCLES, by_cycle=True,
+                                          tiered=TIERED_DIV)
+        for s, (tables, info) in enumerate(zip(tiered, (b0, p1))):
+            if harness.table_digests(tables) != info["digests"]:
+                raise AssertionError(f"tiered (b): shard {s}'s log replayed "
+                                     f"through tiered tables differs")
+        del tiered
+        # ... and through all-hot ones: the row sums conserved
+        hot, _ = harness.sparse_replay([b0, p1], shape, SPARSE_WORKERS,
+                                       TIERED_CYCLES, by_cycle=True)
+        dsum = {}
+        for s, (tables, info) in enumerate(zip(hot, (b0, p1))):
+            for n, emb in tables.items():
+                x = emb.table.double()
+                want, scale = float(x.sum()), float(x.abs().sum())
+                d = info["row_sum"][n] - want
+                dsum[f"{s}/{n}"] = d
+                if abs(d) > TIERED_SUM_RTOL * scale:
+                    raise AssertionError(
+                        f"tiered (b): shard {s} {n} row sum "
+                        f"{info['row_sum'][n]!r} against the all-hot "
+                        f"replay's {want!r}")
+        del hot
+        # the checkpoint: restored into fresh services, bitwise the first
+        # pushes of each shard's log
+        totals = {n: v for n, (v, _) in spec.items()}
+        svcs, held = [], []
+        for s, info in enumerate((b0, p1)):
+            v = ckpt.read_meta(os.path.join(ckdir, f"shard{s}", "deep"))[
+                "push_count"]
+            want = _tiered_prefix(harness, info, s, v, shape)
+            tables = harness.sparse_tables(shape, s, SPARSE_SHARDS,
+                                           tiered=TIERED_DIV)
+            for n, emb in tables.items():
+                emb.restore(os.path.join(ckdir, f"shard{s}", n))
+            if harness.table_digests(tables) != harness.table_digests(want):
+                raise AssertionError(f"tiered (b): shard {s}'s checkpoint "
+                                     f"is not its first {v} pushes")
+            held.append(want)
+            svcs.append(ps.serve_sparse(tables, shard=s,
+                                        num_shards=SPARSE_SHARDS,
+                                        total_rows=totals))
+        w = ps.connect_sparse(",".join(f"127.0.0.1:{x.port}" for x in svcs),
+                              0, spec)
+        try:
+            got = w.pull(req)
+            if w.versions() != saved:
+                raise AssertionError(f"tiered (b): restored versions "
+                                     f"{w.versions()}, saved {saved}")
+            for n in spec:
+                want = torch.empty((probe.size, spec[n][1]))
+                for s in range(SPARSE_SHARDS):
+                    m = _in_shard(probe, s, spec[n][0])
+                    want[torch.from_numpy(m)] = held[s][n].pull(
+                        probe[m] - _shard_lo(s, spec[n][0])).cpu()
+                if not torch.equal(got[n].cpu(), want):
+                    raise AssertionError(f"tiered (b): a pull of {n} from "
+                                         f"the restored services differs")
+            w.close()
+        finally:
+            for x in svcs:
+                x.stop()
+    finally:
+        ps.shutdown()
+    return {"snap": snap, "b0": b0, "p1": p1, "b1": b1, "records": records,
+            "saved": saved, "ckpt_s": ckpt_s, "dsum": dsum,
+            "numbers": _repl_window_numbers(records, TIERED_KILL_AT)}
+
+
+def _shard_lo(s, rows):
+    from ps_tpu_torch.backends.remote_sparse import row_range
+
+    return row_range(s, SPARSE_SHARDS, rows)[0]
+
+
+def _in_shard(ids, s, rows):
+    from ps_tpu_torch.backends.remote_sparse import row_range
+
+    lo, hi = row_range(s, SPARSE_SHARDS, rows)
+    return (ids >= lo) & (ids < hi)
+
+
+def _tiered_ranks_case():
+    """(c)'s table and stream: W&D's deep table cut to
+    TIERED_RANK_FIELDS fields (D 16), a quarter of it the budget."""
+    from ps_tpu_torch.models.wide_deep import WideDeepConfig
+
+    cfg = WideDeepConfig()
+    rows, dim = TIERED_RANK_FIELDS * cfg.per_feature_vocab, cfg.embed_dim
+    full = np.random.default_rng(19).standard_normal(
+        (rows, dim), dtype=np.float32) * np.float32(0.01)
+    ids, grads = _tiered_stream(TIERED_RANK_FIELDS, cfg.per_feature_vocab,
+                                TIERED_RANK_PUSHES, dim, seed=1)
+    return rows, dim, rows // 4, full, ids, grads
+
+
+def _tiered_snapshot(t):
+    """A tiered table's directory and both tiers (the hot one gathered
+    over the ranks) as numpy, and its row sum."""
+    rows, leaves = t.hot.export_rows(np.arange(t.device_rows))
+    return {"hot": rows, "hot_state": leaves, "arena": t.arena.numpy().copy(),
+            "cold": [x.numpy().copy() for x in t.cold_state],
+            "dir": {a: getattr(t, a).copy() for a in (
+                "tier", "slot", "freq", "ref", "slot_to_id")},
+            "hand": t.hand, "row_sum": t.row_sum(),
+            "promotions": t.promotions, "evictions": t.evictions}
+
+
+def _tiered_ranks_worker(rank, port, outdir):
+    """(c)'s rank ``rank`` of 2 on the one card over gloo: its half of
+    every push; results into ``outdir/tiered_rank<r>.pkl``."""
+    import pickle
+
+    import ps_tpu_torch as ps
+
+    ps.init(backend="cuda", device="cuda:0", **_group_init(
+        2, rank, port, dist_backend="gloo"))
+    rows, dim, budget, full, ids, grads = _tiered_ranks_case()
+    t = _tiered_table(rows, dim, budget, full, admit_freq=TIERED_ADMIT)
+    t.mesh.calls.clear()
+    _launch_counts(reset=True)
+    logs = []
+    for i in range(TIERED_RANK_PUSHES):
+        half = ids[i].size // 2
+        part = slice(rank * half, (rank + 1) * half)
+        t.push(ids[i][part], torch.from_numpy(grads[i][part]).cuda())
+        logs.append(t.pop_moves())
+    res = {"launches": _launch_counts(), "logs": logs,
+           "ops": sorted({c.op for c in t.mesh.calls})}
+    res.update(_tiered_snapshot(t))
+    with open(os.path.join(outdir, f"tiered_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    ps.shutdown()
+
+
+def _tiered_two_ranks(tmp):
+    """(c): two gloo ranks on the card, each pushing its half of each of
+    (a)'s pushes at the cut depth, against one process on the whole
+    pushes: move logs, directory, both tiers and the row sum bitwise."""
+    import pickle
+
+    import ps_tpu_torch as ps
+
+    _run_pair("--tiered-ranks-worker", _free_port(), tmp)
+    res = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"tiered_rank{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    rows, dim, budget, full, ids, grads = _tiered_ranks_case()
+    ps.init(backend="cuda")
+    try:
+        t = _tiered_table(rows, dim, budget, full, admit_freq=TIERED_ADMIT)
+        logs = []
+        for i in range(TIERED_RANK_PUSHES):
+            t.push(ids[i], torch.from_numpy(grads[i]).cuda())
+            logs.append(t.pop_moves())
+        want = _tiered_snapshot(t)
+    finally:
+        ps.shutdown()
+    if not want["promotions"] or not want["evictions"]:
+        raise AssertionError(f"tiered (c): no churn: {want['promotions']} "
+                             f"promotions, {want['evictions']} evictions")
+    for r, got in enumerate(res):
+        same = (got["logs"] == logs and got["hand"] == want["hand"]
+                and got["row_sum"] == want["row_sum"]
+                and all(np.array_equal(got["dir"][a], want["dir"][a])
+                        for a in want["dir"])
+                and all(np.array_equal(x, y) for x, y in zip(
+                    [got["hot"], got["arena"]] + got["hot_state"]
+                    + got["cold"], [want["hot"], want["arena"]]
+                    + want["hot_state"] + want["cold"])))
+        if not same:
+            raise AssertionError(f"tiered (c): rank {r} is not one process "
+                                 f"bitwise")
+        n = TIERED_RANK_PUSHES
+        if (got["launches"]["sparse_group"], got["launches"]["sparse_apply"]) \
+                != (n, n) or not {"all_gather", "all_reduce",
+                                  "broadcast"} <= set(got["ops"]):
+            raise AssertionError(f"tiered (c): rank {r} launched "
+                                 f"{got['launches']}, ran {got['ops']}")
+    return {"launches": res[0]["launches"], "ops": res[0]["ops"],
+            "rows": rows, "budget": budget, "ids": int(ids[0].size),
+            "promotions": want["promotions"], "evictions": want["evictions"]}
+
+
+def _tiered_served_launches(infos):
+    """Each live server of (b) launched 2 grouping + 2 apply kernels a
+    push it applied (its hot tiers'); the launches by kernel."""
+    out = {"sparse_apply/deep": 0, "sparse_apply/wide": 0, "sparse_group": 0}
+    for name, info in infos.items():
+        n = len(info["applied"])
+        got = info["launches"]
+        if n == 0 or (got["apply"], got["group"], got["by_rule"]) != (
+                2 * n, 2 * n, {"adagrad": n, "sgd": n}):
+            raise AssertionError(f"tiered (b): server {name} launched {got} "
+                                 f"for {n} pushes")
+        out["sparse_apply/deep"] += got["by_rule"]["adagrad"]
+        out["sparse_apply/wide"] += got["by_rule"]["sgd"]
+        out["sparse_group"] += got["group"]
+    return out
+
+
+def phase_tiered(tmp, untiered=None):
+    """23: tiered embedding storage on the card (ROADMAP item 5.7)."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.ops import _build
+
+    _build.build(("sparse_group", "sparse_apply"))  # cached after phase 2
+    harness = _van_harness()
+    card = _card_line()
+    t0 = time.perf_counter()
+    ps.init(backend="cuda")
+    try:
+        a = _tiered_one_process(tmp)
+    finally:
+        ps.shutdown()
+    t_a = time.perf_counter()
+    log(f"tiered (a): W&D's deep table [{a['rows']:,}, 16] adagrad lr "
+        f"{TIERED_LR} as a TieredTable of {a['budget']:,} slots on the card "
+        f"(admit_freq {TIERED_ADMIT}) against an all-hot SparseEmbedding: "
+        f"{TIERED_HOT_PUSHES} pushes confined to the hot set bitwise an "
+        f"untiered budget table; {TIERED_WARMUP} + {TIERED_PUSHES} pushes "
+        f"of {a['ids']:,} ids (zipf {TIERED_ZIPF}, a fresh batch a push, a "
+        f"pull of a quarter every 4th timed push): "
+        f"{a['still_hot']:,} rows hot since init bitwise, every row within "
+        f"rtol {RTOL} / atol {ATOL} (max abs err {a['err']:.3g}, "
+        f"{a['moved']:,} rows moved), row sum - all-hot {a['dsum']:.3g}; "
+        f"{a['launches']['group']} grouping + {a['launches']['apply']} "
+        f"apply launches; save/restore bitwise ({a['ckpt_s']:.2f} s); TTL "
+        f"1 ms, {TIERED_TTL_PUSHES} pushes: {a['ttl_evictions']:,} "
+        f"demotions, max abs err {a['ttl_err']:.3g}, row sum - all-hot "
+        f"{a['ttl_dsum']:.3g}; {t_a - t0:.1f} s")
+    log(f"tiered (a): {a['tiered_rows_per_s']:.0f} rows/s tiered against "
+        f"{a['all_hot_rows_per_s']:.0f} all-hot "
+        f"({a['tiered_rows_per_s'] / a['all_hot_rows_per_s']:.4f}x); hit "
+        f"rate {a['hit_rate']:.4f}; {a['promotions_per_1k']:.1f} promotions "
+        f"and {a['evictions_per_1k']:.1f} evictions per 1k pushes; cold "
+        f"pass p50 {a['cold_p50_ms']:.4f} ms, p99 {a['cold_p99_ms']:.4f} ms "
+        f"({a['cold_passes']} passes); hot tier {a['hot_bytes']:,} bytes on "
+        f"the card against {a['all_hot_bytes']:,} all-hot; a push's ms by "
+        f"stage over {TIERED_BREAKDOWN} more (host clock): "
+        f"{json.dumps(a['breakdown'])}; card {card}")
+    b = _tiered_served(harness, tmp)
+    t_b = time.perf_counter()
+    served = _tiered_served_launches({k: b[k] for k in ("b0", "p1", "b1")})
+    m = b["numbers"]
+    rate = (untiered or {}).get("cycles_per_s", 0.0)
+    tier = {f"{s}/{n}": b[k]["tier"][n] for s, k in ((0, "b0"), (1, "p1"))
+            for n in ("deep", "wide")}
+    log(f"tiered (b): {SPARSE_SHARDS} shards x (a tiered serve_sparse "
+        f"primary on the native loop, budget rows // {TIERED_DIV} = 325,000 "
+        f"slots a table, + a sync-ack backup), {SPARSE_WORKERS} workers x "
+        f"{TIERED_CYCLES} cycles over TCP: at cycle {TIERED_KILL_AT} every "
+        f"backup's directory, hot table, arena and cold state bitwise its "
+        f"primary's; a conditional read_rows after tier moves bitwise a "
+        f"pull; checkpoint_all at cycle {TIERED_CUE_AT} mid-traffic "
+        f"({b['ckpt_s']:.3f} s) restored into fresh services bitwise the "
+        f"logs' first pushes; primary 0 SIGKILLed, backup 0 promoted, each "
+        f"push applied once, the logs replayed through tiered tables "
+        f"bitwise the servers', row sums - all-hot replay {b['dsum']}; "
+        f"launches {served}; {t_b - t_a:.1f} s")
+    log(f"tiered (b): {m['cycles_per_s']:.2f} cycles/s before the kill "
+        f"(median cycle {m['median_cycle_ms']:.3f} ms, push "
+        f"{m['push_ms']:.3f} ms) against phase 17's untiered {rate:.2f}; "
+        f"tier_stats {json.dumps(tier)}")
+    c = _tiered_two_ranks(tmp)
+    t_c = time.perf_counter()
+    log(f"tiered (c): two gloo ranks on the card, [{c['rows']:,}, 16] at "
+        f"{c['budget']:,} slots, {TIERED_RANK_PUSHES} pushes of "
+        f"{c['ids']:,} ids split over the ranks ({c['promotions']} "
+        f"promotions, {c['evictions']} evictions): move logs, directory, "
+        f"both tiers and the row sum bitwise one process; a rank's launches "
+        f"{c['launches']}, collectives {c['ops']}; {t_c - t_b:.1f} s; "
+        f"phase {t_c - t0:.1f} s")
+    launches = {
+        "sparse_group": {"one_process": a["launches"]["group"],
+                         "served": served["sparse_group"],
+                         "two_ranks_rank": c["launches"]["sparse_group"]},
+        "sparse_apply/deep": {"one_process": a["launches"]["apply"],
+                              "served": served["sparse_apply/deep"],
+                              "two_ranks_rank": c["launches"]["sparse_apply"]},
+        "sparse_apply/wide": {"one_process": 0,
+                              "served": served["sparse_apply/wide"],
+                              "two_ranks_rank": 0}}
+    return {"launches": launches, "a": a, "b": b, "c": c,
+            "seconds": t_c - t0}
+
+
 def main():
     if len(sys.argv) == 5 and sys.argv[1] == "--two-ranks-worker":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -6945,6 +7632,10 @@ def main():
     if len(sys.argv) == 5 and sys.argv[1] == "--axes-lm-worker":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         _axes_lm_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        return 0
+    if len(sys.argv) == 5 and sys.argv[1] == "--tiered-ranks-worker":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _tiered_ranks_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         return 0
     if len(sys.argv) == 6 and sys.argv[1] == "--van-heartbeat-worker":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -6997,6 +7688,8 @@ def main():
         read = phase_read_path(tmp, pushed=sparse["numbers"])
     with tempfile.TemporaryDirectory(prefix="ps_agg_") as tmp:
         phase_aggregation(tmp)
+    with tempfile.TemporaryDirectory(prefix="ps_tiered_") as tmp:
+        tiered = phase_tiered(tmp, untiered=sparse["numbers"])
     for e in entries:  # each rank's launches in phase 15's 20-step runs
         if e["name"] == "flash_attention/fwd":
             # each rank's launches over phase 15 (e)'s bf16 steps, and the
@@ -7025,6 +7718,9 @@ def main():
             # phase 21 (a): the primaries' and backups' launches for the
             # churn pushes the reads ran beside (the reads launch none)
             e["launches_read_path"] = read["launches"][e["name"]]
+            # phase 23: the hot tiers' launches in (a) one process, (b)
+            # the served shards (the live servers) and (c) a gloo rank
+            e["launches_tiered"] = tiered["launches"][e["name"]]
             part = sparse["shard"][e["name"].split("/")[-1]
                                    if "/" in e["name"] else "group"]
             e["sparse_ps_shard"] = {"ids": sparse["shard"]["ids"],

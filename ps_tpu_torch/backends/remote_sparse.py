@@ -63,11 +63,18 @@ too. :meth:`RemoteSparseWorker.read_rows` revalidates the rows it holds
 for an id-set with conditional READs and spreads reads over each shard's
 replica set within a staleness bound.
 
-Not ported yet, each raising with its ROADMAP Queue 1 item: tiered
-tables (and so their reads, conditional ones included) and the replayed
-tier moves of a replicated push (``tier_moves``; 5.7), and elastic
-membership (``coordinator=``; 6). The reference's trace spans and
-``obs`` registry counters are not recorded (item 6).
+A served table may be a :class:`~ps_tpu_torch.kv.tiered.TieredTable`
+(a device hot set over a host arena). Its pushes reach it as host arrays
+of their own memory (it splits them by its directory and stages the hot
+half itself), its cold slab is prefetched before the apply lock, and
+after the apply its move log (``tier_moves``) is harvested: the moved
+rows join the read-cache invalidation, the log rides the replicated
+push's meta and a backup replays it verbatim, and the cold passes'
+latencies go to ``cold_gather_s``. STATS reports each tiered table's
+``tier_stats()``; its reads gather the cold rows on the host. Not ported
+yet: elastic membership (``coordinator=``; ROADMAP item 6), which raises
+naming it. The reference's trace spans and ``obs`` registry counters are
+not recorded (item 6.1).
 """
 
 from __future__ import annotations
@@ -164,6 +171,11 @@ def dedupe_rows_np(ids: np.ndarray, grads: np.ndarray
     return uniq.astype(ids.dtype), summed.astype(grads.dtype)
 
 
+def _host(x) -> np.ndarray:
+    """A tensor's or an array's values as a numpy array on the host."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
     return torch.empty((), dtype=dtype).numpy().dtype
 
@@ -176,10 +188,10 @@ class SparsePSService(VanService):
     ROW_BUCKET_PUSH, STATS and CHECKPOINT over the tables.
 
     Args:
-      tables: ``{name: initialized one-process SparseEmbedding}``; in
-        sharded mode each holds only this server's :func:`row_range` rows
-        of the table's global size. A bf16 table is refused (the wire has
-        no bfloat16).
+      tables: ``{name: initialized one-process SparseEmbedding}`` (or
+        ``TieredTable``); in sharded mode each holds only this server's
+        :func:`row_range` rows of the table's global size. A bf16 table is
+        refused (the wire has no bfloat16).
       port/bind: as :class:`~ps_tpu_torch.backends.remote_async.
         AsyncPSService` (loopback by default: the endpoint is
         unauthenticated).
@@ -225,9 +237,6 @@ class SparsePSService(VanService):
         self._tables = dict(tables)
         self._meta: Dict[str, dict] = {}
         for name, emb in self._tables.items():
-            if hasattr(emb, "prefetch") or hasattr(emb, "tier_stats"):
-                raise _not_ported(f"table {name!r}: a tiered table "
-                                  f"(kv/tiered.py)", "5.7")
             if emb.dtype == torch.bfloat16:
                 raise TypeError(
                     f"table {name!r} is bfloat16: its rows cannot travel "
@@ -351,18 +360,19 @@ class SparsePSService(VanService):
                 # checked for every table first: a push applies whole
                 raise ValueError(f"push for {name!r}: grads of shape "
                                  f"{tuple(np.shape(t['grads']))}, want {want}")
-            # onto the table's device before the lock, waited for: this
-            # also copies the grads out of the receive buffer, which goes
-            # back to its pool once the reply is sent
-            on = stage_to_device(
-                {"ids": self._localize(name, t["ids"]), "grads": t["grads"]},
-                self._tables[name].device, stats=self.transport)
-            todo.append((name, on["ids"], on["grads"]))
+            todo.append((name,) + self._stage_push(name, t))
             if wire is not None:
                 wire[f"{name}/ids"] = np.array(t["ids"], np.int32)
                 wire[f"{name}/grads"] = np.array(t["grads"])
         if not todo:
             return None, False  # push_pull with no rows for this server
+        # a tiered table stages its cold slab's arena gather now, beside
+        # whatever apply holds the lock; its generation tag drops the slab
+        # if that apply moves rows first
+        for name, ids, _g in todo:
+            pf = getattr(self._tables[name], "prefetch", None)
+            if pf is not None:
+                pf(ids)
         t_apply = time.perf_counter()
         with self._lock:
             while (self._paused and not self._draining
@@ -389,19 +399,23 @@ class SparsePSService(VanService):
             for name, ids, grads in todo:
                 self._tables[name].push(ids, grads)
                 self.versions[name] += 1
-                self.rows_applied[name] += int(ids.numel())
-                rows += int(ids.numel())
+                self.rows_applied[name] += len(ids)
+                rows += len(ids)
             # wait for the applies inside the timed window, so that
             # sparse_apply_s times the apply and not its enqueue (a later
             # request on this lock would wait for the same work)
             self._sync_tables()
             self.transport.record_sparse_apply(
                 rows, time.perf_counter() - t_rows)
-            # per key: only cached id-sets this push touched drop; the
-            # generation rises for everyone, so an in-flight publish of a
-            # pre-apply snapshot is refused either way
-            self._invalidate_reads(
-                tags=self._tags_for(per_table, APPLY_TAG_CAP))
+            # a tiered table's move log, for the replication stream (tier
+            # placement is replicated state)
+            tier_moves = self._pop_tier_moves(todo)
+            # per key: only cached id-sets this push touched drop, and the
+            # rows a tier move touched beyond them; the generation rises
+            # for everyone, so an in-flight publish of a pre-apply
+            # snapshot is refused either way
+            self._invalidate_reads(tags=self._move_tags(
+                self._tags_for(per_table, APPLY_TAG_CAP), tier_moves))
             # one birth for every table of the push (they committed
             # together under this lock)
             stamp = freshness.birth_record()
@@ -420,16 +434,65 @@ class SparsePSService(VanService):
                 # a session attached while this push was staged
                 wire = {}
                 for name, ids, grads in todo:
-                    wire[f"{name}/ids"] = (ids.cpu().numpy()
+                    wire[f"{name}/ids"] = (_host(ids)
                                            + self._meta[name]["lo"]
                                            ).astype(np.int32)
-                    wire[f"{name}/grads"] = grads.cpu().numpy()
+                    wire[f"{name}/grads"] = _host(grads)
             rseq = self._replicate("push", worker, wire, {
                 "pseq": pseq, "pnonce": pnonce, "pfan": pfan,
-                "tier_moves": None, "birth": stamp["birth"]})
+                "tier_moves": tier_moves or None, "birth": stamp["birth"]})
         self.transport.record_apply(apply_s)
         self.transport.record_fresh_lag(time.perf_counter() - t_apply)
         return rseq, False
+
+    def _stage_push(self, name: str, t: Dict[str, np.ndarray]):
+        """A push's (local ids, grads) out of the receive buffer, which
+        goes back to its pool once the reply is sent: onto the table's
+        device, waited for; a tiered table's as host arrays of their own
+        (it splits them by its directory and stages the hot half)."""
+        emb = self._tables[name]
+        ids = self._localize(name, t["ids"])
+        if hasattr(emb, "pop_moves"):
+            return ids, np.array(t["grads"])
+        on = stage_to_device({"ids": ids, "grads": t["grads"]}, emb.device,
+                             stats=self.transport)
+        return on["ids"], on["grads"]
+
+    def _pop_tier_moves(self, todo) -> Dict[str, dict]:
+        """Harvest the tiered tables' move logs of this push, and drain
+        their cold passes' latencies into ``cold_gather_s``. Empty logs
+        stay off the wire: a backup replays an empty log for an absent
+        entry and never plans moves itself."""
+        tier_moves: Dict[str, dict] = {}
+        for name, *_ in todo:
+            emb = self._tables[name]
+            pop = getattr(emb, "pop_moves", None)
+            if pop is None:
+                continue
+            mv = pop()
+            if mv.get("ops"):
+                tier_moves[name] = mv
+            for secs in emb.drain_cold_gather():
+                self.transport.record_cold_gather(secs)
+        return tier_moves
+
+    def _move_tags(self, tags, tier_moves: Dict[str, dict]):
+        """Apply tags joined by the tags of the rows a tier move touched
+        (TTL and CLOCK victims lie outside the push's id-set, and a cached
+        read of them must drop too). None (already untagged) stays None;
+        past the cap the union degrades the same way."""
+        if tags is None or not tier_moves:
+            return tags
+        out = set(tags)
+        for name, mv in tier_moves.items():
+            moved = np.asarray([rid for kind, rid, _s in mv["ops"]
+                                if kind != "r"], np.int64)
+            if moved.size:
+                out |= _row_tags(self._tbl_hash(name),
+                                 moved + self._meta[name]["lo"])
+            if len(out) > APPLY_TAG_CAP:
+                return None
+        return sorted(out)
 
     def _admit_while_paused(self, worker: int) -> bool:
         """Under pause, admit exactly the pushes a drain_to round waits
@@ -605,7 +668,9 @@ class SparsePSService(VanService):
             "rows_applied": dict(self.rows_applied),
             "fused": {"tiers": dict(self.fused_tiers),
                       "rows_applied": sum(self.rows_applied.values())},
-            "tier": {},  # tiered tables are refused (item 5.7)
+            "tier": {n: emb.tier_stats()
+                     for n, emb in self._tables.items()
+                     if hasattr(emb, "tier_stats")},
             "apply_log": log,
             "apply_log_total": log_total,
             "stale_epochs": self.transport.stale_epochs,
@@ -671,7 +736,8 @@ class SparsePSService(VanService):
         bring every shard of a cycle's fanout to the cross-shard max, so a
         cycle is saved on all the shards it addressed or on none; 'save'
         writes every owned table under ``<dir>[/shard<i>]/<table>``
-        (``SparseEmbedding.save``, under the lock); 'resume' releases the
+        (``SparseEmbedding.save`` or ``TieredTable.save``, both tiers in
+        one commit, under the lock); 'resume' releases the
         applies. 'pause' hands out a token every later phase presents;
         ``phase='resume', force=True`` is the operator's override when a
         coordinator died holding it. A restarted server inits its
@@ -804,35 +870,40 @@ class SparsePSService(VanService):
         :meth:`_apply_push`): each table's rows go to its device and
         through ``SparseEmbedding.push``, the grouping and apply kernels
         on the card, waited for inside the timed window as the primary's
-        apply is. The primary's tier moves (``tier_moves``) are refused
-        (tiered tables are item 5.7)."""
+        apply is. A tiered table replays the primary's move log
+        (``tier_moves``; an absent entry is an empty log) and never plans
+        moves of its own, so its directory stays bitwise the primary's."""
         if op != "push":
             raise ValueError(f"unknown replica op {op!r}")
-        if extra.get("tier_moves"):
-            raise _not_ported("replayed tier moves (tiered tables, "
-                              "kv/tiered.py)", "5.7")
         tree = decode_tree(dict(tensors), extra.get("enc"),
                            stats=self.transport)
         split = self._split(tree)
-        todo = []
-        for name, t in split.items():
-            on = stage_to_device(
-                {"ids": self._localize(name, t["ids"]), "grads": t["grads"]},
-                self._tables[name].device, stats=self.transport)
-            todo.append((name, on["ids"], on["grads"]))
+        moves = extra.get("tier_moves") or {}
+        todo = [(name,) + self._stage_push(name, t)
+                for name, t in split.items()]
         t_rows = time.perf_counter()
         rows = 0
         for name, ids, grads in todo:
-            self._tables[name].push(ids, grads)
+            emb = self._tables[name]
+            if hasattr(emb, "pop_moves"):
+                emb.push(ids, grads,
+                         moves=moves.get(name) or {"ops": [], "hand": None})
+            else:
+                emb.push(ids, grads)
             self.versions[name] += 1
-            self.rows_applied[name] += int(ids.numel())
-            rows += int(ids.numel())
+            self.rows_applied[name] += len(ids)
+            rows += len(ids)
         self._sync_tables()
         self.transport.record_sparse_apply(rows,
                                            time.perf_counter() - t_rows)
+        # a backup replicates nowhere further: its logs are dropped, its
+        # cold passes timed
+        self._pop_tier_moves(todo)
         # per key, as the primary's apply: a backup's cached reads of
-        # id-sets this push did not touch stay valid
-        self._invalidate_reads(tags=self._tags_for(split, APPLY_TAG_CAP))
+        # id-sets this push did not touch stay valid, the replayed moves'
+        # rows joining the tags
+        self._invalidate_reads(tags=self._move_tags(
+            self._tags_for(split, APPLY_TAG_CAP), moves))
         # the primary's birth for the touched tables (a foreign stamp: the
         # wall clock only), so replica reads report the age since the
         # primary's apply

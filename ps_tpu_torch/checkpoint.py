@@ -11,7 +11,10 @@ interrupted:
   worker's stale snapshot and cached pull and the version vector, so the
   resumed run sees the staleness each worker would have seen;
 - **sparse tables**: the table and its per-row optimizer state
-  (``SparseEmbedding.save``/``restore``).
+  (``SparseEmbedding.save``/``restore``);
+- **tiered tables**: both tiers with their per-row optimizer states and
+  the row directory, one commit (``TieredTable.save``/``restore``,
+  engine ``tiered``).
 
 Layout under ``<path>/``: ``arrays-<gen:08d>/arrays.pt``, one
 ``torch.save`` of a flat ``{name: CPU tensor}`` dict (``params/<key>``,
@@ -601,7 +604,17 @@ def _layout(shape: Dict[str, int]) -> list:
 
 #: the reference's engine names -> the port's
 _ENGINES = {"tpu_sync": "cuda_sync", "tpu_async": "cuda_async",
-            "local": "local", "sparse": "sparse"}
+            "local": "local", "sparse": "sparse", "tiered": "tiered"}
+
+#: a tiered table's directory arrays and their dtypes
+_TIERED_DIRECTORY = {"dir_tier": np.uint8, "dir_slot": np.int32,
+                     "dir_freq": np.int64, "dir_ref": np.uint8,
+                     "dir_last_ms": np.int64, "slot_to_id": np.int32}
+
+#: a row-wise optimizer's state skeleton (the structure its fingerprint
+#: names)
+_ROWWISE_SKELETONS = {"adam": {"m": 0, "t": 0, "v": 0}, "adagrad": 0,
+                      "sgd": ()}
 
 #: optax's chain of named states (in ``optax`` order) -> the port's
 #: optimizer and whether it runs a schedule
@@ -693,14 +706,18 @@ def from_reference(arrays: Dict[str, Any], meta: Dict[str, Any],
     """Write a port checkpoint at ``path`` from a ``ps_tpu`` checkpoint.
 
     ``arrays`` are the reference checkpoint's groups as numpy arrays
-    (``params``, ``opt``, ``stale``, ``worker_cache``; or ``table`` and
-    ``opt`` for a sparse table), as ``ps_tpu.checkpoint.restore`` returns
-    them; ``meta`` is its ``meta.json``. Engines map ``tpu_sync`` ->
-    ``cuda_sync``, ``tpu_async`` -> ``cuda_async``, ``local`` and
-    ``sparse`` to themselves. Optax's flat state maps onto the port's for
-    sgd (and its schedule count), momentum, adam and lamb; a sparse
-    table's for the row-wise sgd, adagrad and adam. Anything else is
-    refused and named. Returns the port meta written."""
+    (``params``, ``opt``, ``stale``, ``worker_cache``; ``table`` and
+    ``opt`` for a sparse table; ``hot_table``, ``hot_opt``, ``arena``,
+    ``cold_opt``, the ``dir_*`` arrays and ``slot_to_id`` for a tiered
+    one), as ``ps_tpu.checkpoint.restore`` returns them; ``meta`` is its
+    ``meta.json``. Engines map ``tpu_sync`` -> ``cuda_sync``,
+    ``tpu_async`` -> ``cuda_async``, ``local``, ``sparse`` and ``tiered``
+    to themselves. Optax's flat state maps onto the port's for sgd (and
+    its schedule count), momentum, adam and lamb; a sparse or tiered
+    table's (both tiers') for the row-wise sgd, adagrad and adam; a
+    tiered table's directory keeps its arrays, and its ``hand``,
+    ``dir_gen`` and counters stay in the meta. Anything else is refused
+    and named. Returns the port meta written."""
     from ps_tpu_torch.optim import make_optimizer
 
     engine = _ENGINES.get(meta.get("engine"))
@@ -720,11 +737,12 @@ def from_reference(arrays: Dict[str, Any], meta: Dict[str, Any],
         out = {"table": _from_numpy(arrays["table"]),
                "opt": {f"{i:05d}": _from_numpy(a)
                        for i, a in enumerate(ref_leaves)}}
-        skeleton = {"adam": {"m": 0, "t": 0, "v": 0}, "adagrad": 0,
-                    "sgd": ()}[kind]
-        out_meta["opt_structure"] = opt_fingerprint(kind, skeleton)
+        out_meta["opt_structure"] = opt_fingerprint(
+            kind, _ROWWISE_SKELETONS[kind])
         save(path, out, out_meta)
         return out_meta
+    if engine == "tiered":
+        return _tiered_from_reference(arrays, meta, out_meta, path)
     params = {k: _from_numpy(v) for k, v in arrays["params"].items()}
     per_key = engine != "cuda_sync"  # the sync cuda server: one whole state
     name, scheduled, order = _parse_reference_structure(
@@ -762,6 +780,35 @@ def from_reference(arrays: Dict[str, Any], meta: Dict[str, Any],
            "worker_cache": {s: _from_numpy(v) for s, v in
                             arrays.get("worker_cache", {}).items()}}
     out_meta["opt_structure"] = opt_fingerprint(name, live)
+    save(path, out, out_meta)
+    return out_meta
+
+
+def _tiered_from_reference(arrays, meta, out_meta, path) -> Dict[str, Any]:
+    """The ``tiered`` branch of :func:`from_reference`: both tiers' row-wise
+    states leaf for leaf, the directory in its own dtypes."""
+    dim = int(meta["dim"])
+
+    def leaves(group):
+        g = arrays.get(group, {})
+        return [g[f"{i:05d}"] for i in range(len(g))]
+
+    hot_rows = int(np.shape(arrays["hot_table"])[0])
+    kind = _rowwise_kind(leaves("hot_opt"), hot_rows, dim)
+    if _rowwise_kind(leaves("cold_opt"), int(meta["num_rows"]), dim) != kind:
+        raise ValueError("the reference tiered table's hot and cold "
+                         "optimizer states hold different rules")
+    out = {"hot_table": _from_numpy(arrays["hot_table"]),
+           "arena": _from_numpy(arrays["arena"]),
+           **{grp: {f"{i:05d}": _from_numpy(a)
+                    for i, a in enumerate(leaves(grp))}
+              for grp in ("hot_opt", "cold_opt")},
+           **{k: _from_numpy(np.asarray(arrays[k], dt))
+              for k, dt in _TIERED_DIRECTORY.items()}}
+    out_meta["opt_structure"] = opt_fingerprint(kind,
+                                                _ROWWISE_SKELETONS[kind])
+    out_meta["padded_rows"] = hot_rows
+    out_meta["shard_dims"] = {}
     save(path, out, out_meta)
     return out_meta
 

@@ -34,9 +34,9 @@ On the card the kernels' grouping pass sets ids outside the shard aside
 they are masked as the reference masks them. The table and its optimizer
 state are updated in place by every apply, which is what the reference's
 buffer donation bought it. A row moves with its optimizer state
-(``export_rows`` / ``adopt_rows``, one rank), and ``save`` / ``restore``
-checkpoint both (``ps_tpu_torch/checkpoint.py``, engine ``sparse``), each
-rank its rows; ``restore(elastic=True)`` re-pads and re-shards a
+(``export_rows`` / ``adopt_rows``, across ranks too: the tiered store's
+demotions and promotions), and ``save`` / ``restore`` checkpoint both
+(``ps_tpu_torch/checkpoint.py``, engine ``sparse``), each rank its rows; ``restore(elastic=True)`` re-pads and re-shards a
 checkpoint written by another number of ranks. Whatever a restore or
 ``adopt_state`` installs is checked first to be what the CUDA kernel
 takes: contiguous, on the table's device, in the table's and the state's
@@ -319,44 +319,73 @@ class SparseEmbedding:
                 raise ValueError(f"{what} must be contiguous on "
                                  f"{self.device}, got one on {g.device}")
 
+    def _owned(self, slots) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``slots`` (global rows) as this rank's local rows, and which of
+        them this rank owns (every one on one rank)."""
+        idx = torch.as_tensor(slots).reshape(-1).to(self.device, torch.int64)
+        if self.k == 1:
+            return idx, torch.ones_like(idx, dtype=torch.bool)
+        local = idx - self.mesh.rank * self.rows_per_shard
+        return local, (local >= 0) & (local < self.rows_per_shard)
+
+    def _gather_owned(self, t: torch.Tensor, local: torch.Tensor,
+                      mine: torch.Tensor) -> torch.Tensor:
+        """Rows ``local`` of this rank's ``t``, each from the rank that owns
+        it: every rank gathers the rows it owns (zeros for the rest), one
+        all-gather brings every rank's, and each row is taken from its
+        owner's block, bit for bit."""
+        rows = t.index_select(0, torch.where(mine, local, 0))
+        if self.k == 1:
+            return rows
+        rows = torch.where(mine.reshape((-1,) + (1,) * (rows.dim() - 1)),
+                           rows, torch.zeros_like(rows))
+        n = rows.shape[0]
+        every = collectives.all_gather(rows, self.mesh)
+        glob = local + self.mesh.rank * self.rows_per_shard
+        owner = torch.div(glob, self.rows_per_shard, rounding_mode="floor")
+        return every.index_select(0, owner * n + torch.arange(
+            n, device=owner.device))
+
     def export_rows(self, slots) -> Tuple[np.ndarray, list]:
         """Copy ``slots``' rows and their per-row optimizer state out to
         host memory (a row never travels without its state). Returns
         ``(rows [n, D], state_leaves)`` as numpy, the leaves in tree order
         (dict keys sorted: ``[m, t, v]`` for adam), each sliced to
         ``slots``. A bf16 table's rows come out as f32 (numpy holds no
-        bf16); the widening is exact. One rank only: across ranks a row
-        moves between owners through the van plane (ROADMAP item 5)."""
-        self._one_rank("export_rows")
-        idx = torch.as_tensor(slots).reshape(-1).to(self.device, torch.int64)
-        rows = self.table.index_select(0, idx)
+        bf16); the widening is exact. Across ranks ``slots`` are global
+        rows and every rank passes the same ones: each rank takes the rows
+        it owns, and one all-gather a tensor gives every rank all of them
+        (the reference's global ``jnp.take`` on a sharded array)."""
+        local, mine = self._owned(slots)
+        rows = self._gather_owned(self.table, local, mine)
         if rows.dtype == torch.bfloat16:
             rows = rows.float()
-        leaves = [leaf.index_select(0, idx).cpu().numpy()
+        leaves = [self._gather_owned(leaf, local, mine).cpu().numpy()
                   for leaf in _leaves(self._state)]
         return rows.cpu().numpy(), leaves
 
     def adopt_rows(self, slots, rows, state_leaves) -> None:
         """Write host rows and their per-row optimizer state into
         ``slots``, in place: the inverse of :meth:`export_rows`. Costs
-        O(moved rows), not a table pass. One rank only."""
-        self._one_rank("adopt_rows")
-        idx = torch.as_tensor(slots).reshape(-1).to(self.device, torch.int64)
+        O(moved rows), not a table pass. Across ranks every rank passes the
+        same global slots and rows, and writes the ones it owns."""
+        local, mine = self._owned(slots)
         live = _leaves(self._state)
         if len(state_leaves) != len(live):
             raise ValueError(f"{len(state_leaves)} optimizer-state "
                              f"leaves, this table's optimizer has {len(live)}")
-        self.table.index_copy_(0, idx, torch.as_tensor(rows).to(
-            self.device, self.dtype))
-        for leaf, v in zip(live, state_leaves):
-            leaf.index_copy_(0, idx, torch.as_tensor(v).to(self.device,
-                                                          leaf.dtype))
+        keep = None if self.k == 1 else torch.nonzero(mine).reshape(-1)
 
-    def _one_rank(self, what: str) -> None:
-        if self.k > 1:
-            raise NotImplementedError(
-                f"{what} moves rows within one rank's table; across ranks "
-                f"(tiered storage, ROADMAP Queue 1 item 5.7) it is not ported")
+        def write(dst, src):
+            src = torch.as_tensor(src).to(self.device, dst.dtype)
+            if keep is None:
+                dst.index_copy_(0, local, src)
+            else:
+                dst.index_copy_(0, local[keep], src.index_select(0, keep))
+
+        write(self.table, rows)
+        for leaf, v in zip(live, state_leaves):
+            write(leaf, v)
 
     def adopt_state(self, table: torch.Tensor, state: Any) -> None:
         """Adopt an externally restored (table, state) pair, after checking

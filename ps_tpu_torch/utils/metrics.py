@@ -97,7 +97,10 @@ class TransportStats:
     included), its row apply alone (``record_sparse_apply``, with the raw
     rows it landed) and its push-to-servable lag (``record_fresh_lag``),
     under the reference's ``apply_s``, ``sparse_apply_s`` and
-    ``fresh_lag_s`` latency names.
+    ``fresh_lag_s`` latency names; a tiered table's cold passes, drained
+    after the push commits, go under ``cold_gather_s``
+    (``record_cold_gather``; the reference's
+    ``ps_embed_cold_gather_seconds`` histogram is item 6.1).
 
     The read path: a server counts the READs it answered in Python
     (``record_read_served``), its NOT_MODIFIED replies and delta rows,
@@ -249,6 +252,12 @@ class TransportStats:
         self.record_op("sparse_apply", seconds)
         with self._lock:
             self.sparse_rows_applied += int(rows)
+
+    def record_cold_gather(self, seconds: float) -> None:
+        """One tiered table's cold pass (dedupe, arena gather, apply,
+        scatter back), drained from the table after the push commits
+        (``TieredTable.drain_cold_gather``)."""
+        self._record_sample("cold_gather_s", seconds)
 
     def record_fresh_lag(self, seconds: float) -> None:
         """Server side: one apply's push-to-first-servable lag (from the

@@ -847,6 +847,36 @@ def test_export_adopt_rows_round_trip(kind):
     np.testing.assert_array_equal(untouched, _table()[[4]])
 
 
+@pytest.mark.parametrize("kind", ["adagrad", "adam"])
+def test_export_adopt_rows_round_trip_across_two_ranks(kind, tmp_path):
+    """Across two gloo ranks ``export_rows`` gives every rank the rows of
+    global slots that span both ranks' shards, each from its owner
+    (all-gathers on the mesh), and ``adopt_rows`` writes each rank the
+    slots it owns: both equal one process, bitwise."""
+    import test_torch_ranks_harness as torch_ranks
+
+    pushes = _pushes(3)
+    export = np.array([3, 17, 40, 63, 33, 3])
+    adopt = np.array([0, 1, 35, 36, 62, 50])
+    res = torch_ranks.run_ranks(2, [("export_adopt", dict(
+        num_rows=ROWS, dim=DIM, optimizer=kind, opt_kw=SPARSE_OPTS[kind],
+        table=_table(), pushes=pushes, export=export, adopt=adopt))],
+        tmp_path)
+    one = _port_emb(kind)
+    for ids, g in pushes:
+        one.push(ids, g)
+    rows, leaves = one.export_rows(export)
+    one.adopt_rows(adopt, rows, leaves)
+    for r in range(2):
+        got = res[r][0]
+        np.testing.assert_array_equal(got["rows"], rows)
+        for a, b in zip(got["leaves"], leaves):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(got["again"], rows)
+        np.testing.assert_array_equal(got["table"], one.table.numpy())
+        assert "all_gather" in got["ops"]
+
+
 def test_adopt_state_refuses_what_the_kernel_cannot_take():
     emb = _port_emb("adam")
     table, state = emb.table.clone(), {k: v.clone()

@@ -87,6 +87,7 @@ def test_every_slice_module_is_checked():
                  "ps_tpu_torch/backends/remote_async.py",
                  "ps_tpu_torch/backends/remote_sparse.py",
                  "ps_tpu_torch/backends/aggregator.py",
+                 "ps_tpu_torch/kv/tiered.py",
                  "ps_tpu_torch/kv/keys.py",
                  "ps_tpu_torch/control/shm_lane.py",
                  "ps_tpu_torch/control/native_loop.py",

@@ -254,6 +254,69 @@ def case_sparse_pushes(rank, k, *, num_rows, dim, optimizer, opt_kw, table,
     return out
 
 
+def case_export_adopt(rank, k, *, num_rows, dim, optimizer, opt_kw, table,
+                      pushes, export, adopt):
+    """``export_rows`` of global slots that span the ranks, then
+    ``adopt_rows`` of those rows into other slots, on a table pushed
+    first (every rank passes the same slots)."""
+    emb = _sparse(num_rows, dim, optimizer, opt_kw, table=table)
+    for ids, grads in pushes:
+        emb.push(*_global_slice(ids, grads, rank, k, dim))
+    rows, leaves = emb.export_rows(export)
+    emb.adopt_rows(adopt, rows, leaves)
+    again, again_leaves = emb.export_rows(adopt)
+    return {"rows": rows, "leaves": leaves, "again": again,
+            "again_leaves": again_leaves, "table": _np(emb.full_table()),
+            "ops": [c.op for c in emb.mesh.calls]}
+
+
+def _tiered_result(t):
+    from ps_tpu_torch.ops.sparse_apply import state_leaves
+
+    slots = np.arange(t.device_rows)
+    rows, leaves = t.hot.export_rows(slots)
+    return {"hot": rows, "hot_state": leaves, "arena": _np(t.arena),
+            "cold_state": [_np(s) for s in t.cold_state],
+            "dir": {a: getattr(t, a).copy() for a in (
+                "tier", "slot", "freq", "ref", "slot_to_id")},
+            "hand": t.hand, "dir_gen": t.dir_gen, "row_sum": t.row_sum(),
+            "row_version": t.row_version.copy(),
+            "counters": [t.hot_hits, t.misses, t.promotions, t.evictions,
+                         t.push_count, t.rows_pushed],
+            "leaves": len(state_leaves(t.state()))}
+
+
+def case_tiered_pushes(rank, k, *, num_rows, dim, budget, optimizer, opt_kw,
+                       table, pushes, admit_freq, pull_ids=None, path=None):
+    """A ``TieredTable`` across the ranks, each rank pushing its slice of
+    each global push: the move logs, the directory, both tiers (the hot
+    one gathered), the row sum and, with ``pull_ids``, this rank's pull.
+    With ``path`` a save there restored into a fresh table must equal the
+    saved one."""
+    from ps_tpu_torch.kv.tiered import TieredTable
+
+    t = TieredTable(num_rows, dim, optimizer, device_rows=budget,
+                    admit_freq=admit_freq, **opt_kw)
+    t.init(table)
+    logs = []
+    for ids, grads in pushes:
+        t.push(*_global_slice(ids, grads, rank, k, dim))
+        logs.append(t.pop_moves())
+    out = _tiered_result(t)
+    out["logs"] = logs
+    out["ops"] = sorted({c.op for c in t.mesh.calls})
+    if pull_ids is not None:
+        out["pulled"] = _np(t.pull(_slice(pull_ids, rank, k)))
+    if path is not None:
+        t.save(path)
+        t2 = TieredTable(num_rows, dim, optimizer, device_rows=budget,
+                         admit_freq=admit_freq, **opt_kw)
+        t2.init(table)
+        t2.restore(path)
+        out["restored"] = _tiered_result(t2)
+    return out
+
+
 def case_a2a_route(rank, k, *, ids, grads, rows_per_shard, capacity_factor):
     """The port's ``_a2a_route`` on this rank's slice."""
     import torch

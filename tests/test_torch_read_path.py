@@ -14,8 +14,8 @@ row deltas), against the reference's.
   worker a port service, bitwise against their own pulls.
 - Behaviour, each case of the reference's ``tests/test_read_path.py``
   that needs neither the aggregator (held in ``test_torch_aggregation.py``)
-  nor tiered tables (5.7),
-  against the port's services: a native hit bitwise its pump miss, the
+  nor a tiered table (held in ``test_torch_tiered.py``), against the
+  port's services: a native hit bitwise its pump miss, the
   race drill, per-key invalidation, the cache budget, replica reads
   within the bound and the fallback from a frozen backup, the worker's
   cache until a version bump and its NOT_MODIFIED revalidation,

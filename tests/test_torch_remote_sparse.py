@@ -693,27 +693,23 @@ def test_deferred_worker_options_raise(kwargs, match):
         svc.stop()
 
 
-class _TieredLike(SparseEmbedding):
-    def tier_stats(self):
-        return {}
-
-
 @pytest.mark.parametrize("case,match", [
     ("backup", None),
     ("native_loop", None),
     ("shm", None),
     ("coordinator", "elastic/.*item 6"),
-    ("tiered", "tiered.*item 5.7"),
+    ("tiered", None),
     ("read_rows", None),
     ("READ", None),
 ], ids=["backup", "native_loop", "shm", "coordinator", "tiered",
         "read_rows", "READ"])
 def test_deferred_options_raise_and_name_their_item(case, match):
     """Every option left for a later item raises NotImplementedError
-    naming it (a tiered table, and so its reads, item 5.7); the native
-    loop (item 5.1), accepting shm offers (item 5.2), a backup (item 5.6)
-    and the read path (``read_rows`` and READ, item 5.8, once refused
-    naming it) are in effect."""
+    naming it (elastic membership, item 6); the native loop (item 5.1),
+    accepting shm offers (item 5.2), a backup (item 5.6), the read path
+    (``read_rows`` and READ, item 5.8) and a tiered table (item 5.7), each
+    once refused naming its item, are in effect: a tiered table is served,
+    pushed, pulled and read."""
     if case in ("read_rows", "READ"):
         svc = _serve()
         try:
@@ -732,6 +728,33 @@ def test_deferred_options_raise_and_name_their_item(case, match):
         finally:
             svc.stop()
         return
+    if case == "tiered":
+        from ps_tpu_torch.kv.tiered import TieredTable
+
+        rows, dim = SPEC["deep"]
+        emb = TieredTable(rows, dim, "adagrad", device_rows=rows // 4,
+                          admit_freq=2, learning_rate=harness.SPARSE_LR)
+        emb.init(harness.sparse_table(SHAPE, "deep"))
+        twin = SparseEmbedding(rows, dim, "adagrad",
+                               learning_rate=harness.SPARSE_LR)
+        twin.init(harness.sparse_table(SHAPE, "deep"))
+        svc = SparsePSService({"deep": emb})
+        try:
+            w = connect_sparse(_uri([svc]), 0, {"deep": SPEC["deep"]})
+            for c in range(CYCLES):
+                pushes, _ = _cycle(0, c)
+                w.push({"deep": pushes["deep"]})
+                twin.push(*dedupe_rows_np(*pushes["deep"]))
+            ids = np.arange(rows, dtype=np.int32)
+            np.testing.assert_array_equal(w.pull({"deep": ids})["deep"],
+                                          twin.table.numpy())
+            np.testing.assert_array_equal(
+                w.read_rows({"deep": ids})["deep"], twin.table.numpy())
+            assert emb.promotions > 0 and svc.versions["deep"] == CYCLES
+            w.close()
+        finally:
+            svc.stop()
+        return
     if match is None:
         svc = SparsePSService(harness.sparse_tables(SHAPE, 0, 1),
                               **{case: True})
@@ -746,12 +769,6 @@ def test_deferred_options_raise_and_name_their_item(case, match):
         with pytest.raises(NotImplementedError, match=match):
             SparsePSService(harness.sparse_tables(SHAPE, 0, 1),
                             coordinator="127.0.0.1:1")
-        return
-    if case == "tiered":
-        emb = _TieredLike(8, 2)
-        emb.init(np.zeros((8, 2), np.float32))
-        with pytest.raises(NotImplementedError, match=match):
-            SparsePSService({"t": emb})
         return
 
 

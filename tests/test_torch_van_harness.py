@@ -966,19 +966,33 @@ def check_loop_carried(infos, opts, shape, cycles, what=""):
                 f"workers' {want}; admission {a}")
 
 
-def sparse_tables(shape: str, shard: int, nshards: int, fused_apply=None):
+#: a tiered table's admission threshold in the sparse roles
+TIERED_ADMIT_FREQ = 2
+
+
+def sparse_tables(shape: str, shard: int, nshards: int, fused_apply=None,
+                  tiered=None):
     """The port's tables of ``shard``'s row range, on the device
-    ``ps_tpu_torch.init`` chose."""
+    ``ps_tpu_torch.init`` chose. With ``tiered`` (a divisor) each is a
+    ``TieredTable`` whose device budget is its rows // ``tiered``."""
     import ps_tpu_torch as ps
     from ps_tpu_torch.backends.remote_sparse import row_range
+    from ps_tpu_torch.kv.tiered import TieredTable
 
     out = {}
     for name, (rows, dim) in sparse_spec(shape).items():
         lo, hi = row_range(shard, nshards, rows)
-        emb = ps.SparseEmbedding(hi - lo, dim,
-                                 optimizer=SPARSE_TABLES[name][0],
-                                 learning_rate=SPARSE_LR,
-                                 fused_apply=fused_apply)
+        if tiered:
+            emb = TieredTable(hi - lo, dim, SPARSE_TABLES[name][0],
+                              device_rows=(hi - lo) // int(tiered),
+                              admit_freq=TIERED_ADMIT_FREQ,
+                              learning_rate=SPARSE_LR,
+                              fused_apply=fused_apply)
+        else:
+            emb = ps.SparseEmbedding(hi - lo, dim,
+                                     optimizer=SPARSE_TABLES[name][0],
+                                     learning_rate=SPARSE_LR,
+                                     fused_apply=fused_apply)
         emb.init(sparse_table(shape, name)[lo:hi])
         out[name] = emb
     return out
@@ -1000,17 +1014,28 @@ def _read_ports(ports: str, out: str, suffix: str = "") -> str:
 
 def table_digests(tables) -> dict:
     """SHA-256 of each table's rows and of each of its optimizer-state
-    leaves, over the bytes on the host: equal digests are equal bits."""
+    leaves, over the bytes on the host: equal digests are equal bits. A
+    tiered table's are its hot tier's, then its arena, its cold state
+    leaves and its directory (with the CLOCK hand)."""
     import hashlib
 
     from ps_tpu_torch.ops.sparse_apply import state_leaves
 
+    def digest(x):
+        if hasattr(x, "detach"):
+            x = x.detach().cpu().contiguous().numpy()
+        return hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()
+
     out = {}
     for name, emb in tables.items():
         for i, leaf in enumerate([emb.table] + state_leaves(emb.state())):
-            out[f"{name}/{i}"] = hashlib.sha256(
-                leaf.detach().cpu().contiguous().numpy().tobytes()
-            ).hexdigest()
+            out[f"{name}/{i}"] = digest(leaf)
+        if hasattr(emb, "arena"):
+            for i, leaf in enumerate([emb.arena] + emb.cold_state):
+                out[f"{name}/cold{i}"] = digest(leaf)
+            for a in ("tier", "slot", "freq", "ref", "slot_to_id"):
+                out[f"{name}/{a}"] = digest(getattr(emb, a))
+            out[f"{name}/hand"] = int(emb.hand)
     return out
 
 
@@ -1039,7 +1064,10 @@ def run_sparse_server(out, nworkers, cycles, shard, nshards, device,
       that waits for its backup's port, attaches it and beats its watch
       every 50 ms before it writes ``port<shard>`` (so workers dial an
       attached pair), sampling the backup's lag every 0.5 ms;
-    - ``digests``: only the tables' digests are dumped, no npz.
+    - ``digests``: only the tables' digests are dumped, no npz;
+    - ``tiered`` (a divisor): ``TieredTable`` tables (:func:`sparse_tables`),
+      whose tier stats, row sums and cold passes' seconds join the dump
+      (and their tier stats the snapshots).
 
     Every server of a replicated run writes ``snap<shard><tag>.json`` (its
     tables' digests, launch counts, versions and applies) when ``snap``
@@ -1056,7 +1084,7 @@ def run_sparse_server(out, nworkers, cycles, shard, nshards, device,
     tag = "b" if backup else ""
     replicated = backup or bool(opts.get("replicate"))
     ps.init(backend="cuda", device=device)
-    tables = sparse_tables(shape, shard, nshards)
+    tables = sparse_tables(shape, shard, nshards, tiered=opts.get("tiered"))
     svc = SparsePSService(
         tables, shard=shard, num_shards=nshards,
         total_rows={n: v for n, (v, _) in sparse_spec(shape).items()},
@@ -1114,7 +1142,9 @@ def run_sparse_server(out, nworkers, cycles, shard, nshards, device,
                        "applies": svc.apply_log.total,
                        "role": svc.role,
                        "replica_applied_seq": svc._replica_applied_seq,
-                       "repl": svc.replica_state().get("repl")}
+                       "repl": svc.replica_state().get("repl"),
+                       "tier": {n: t.tier_stats() for n, t in tables.items()
+                                if hasattr(t, "tier_stats")}}
             _write(os.path.join(out, f"snap{shard}{tag}.json"),
                    json.dumps(rec))
 
@@ -1162,6 +1192,10 @@ def run_sparse_server(out, nworkers, cycles, shard, nshards, device,
             "repl_bytes": svc.transport.repl_bytes,
             "repl_ack_wait_s": svc.transport.op_samples("repl_ack_wait"),
             "lag": lag})
+    if opts.get("tiered"):
+        info["tier"] = {n: t.tier_stats() for n, t in tables.items()}
+        info["row_sum"] = {n: t.row_sum() for n, t in tables.items()}
+        info["cold_gather_s"] = svc.transport.op_samples("cold_gather")
     if not opts.get("digests"):
         arrays = {}
         for name, emb in tables.items():
@@ -1471,7 +1505,8 @@ def run_read_reader(out, reader, shape):
 
 
 def sparse_replay(infos, shape, nworkers, cycles, pulls=None,
-                  fused_apply=None, compress=None, by_cycle=False):
+                  fused_apply=None, compress=None, by_cycle=False,
+                  tiered=None):
     """Replay each shard's apply log (``infos``, one server dump a shard,
     in shard order) through the port's one-process tables on the device
     ``ps_tpu_torch.init`` chose; returns ``(tables, checked)`` with
@@ -1488,7 +1523,8 @@ def sparse_replay(infos, shape, nworkers, cycles, pulls=None,
     ``by_cycle`` replays each dump's ``applied`` (worker, cycle) order
     instead of each worker's routed pushes in turn (a replicated run with
     async ack may lose pushes of the window: what was applied is replayed,
-    and nothing need have applied all)."""
+    and nothing need have applied all). ``tiered`` replays through
+    tiered tables (:func:`sparse_tables`)."""
     import torch
 
     from ps_tpu_torch.backends.remote_sparse import row_range
@@ -1497,7 +1533,8 @@ def sparse_replay(infos, shape, nworkers, cycles, pulls=None,
     ids = {w: sparse_ids(shape, w, cycles) for w in range(nworkers)}
     out, checked = [], 0
     for s, info in enumerate(infos):
-        tables = sparse_tables(shape, s, nshards, fused_apply=fused_apply)
+        tables = sparse_tables(shape, s, nshards, fused_apply=fused_apply,
+                               tiered=tiered)
         waiting = {}  # (name, version) -> [(worker, cycle)]
         for w, (_, rec) in (pulls or {}).items():
             for c, vs in enumerate(rec["versions"]):
