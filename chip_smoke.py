@@ -3355,6 +3355,15 @@ def _van_replay_check(infos, final, records, workers, steps, what):
     if sorted(on_card) != sorted(final):
         raise AssertionError(f"{what}: replayed keys differ")
     if grad_err["witness"] > VAN_GRAD_RTOL:
+        # the failing push: each layer's gradient difference, and how close
+        # its ReLU inputs come to zero on the card (a sign the two devices
+        # read differently flips a whole unit's gradient)
+        worst = grad_err["worst"]
+        log(f"{what}: witness failure at worker {worst['worker']} cycle "
+            f"{worst['cycle']}: per-layer |g_cpu - g_card| "
+            f"{json.dumps(worst['per_key'])}; min |ReLU input| on the card "
+            f"{worst['relu_min_abs']:.3g}, inputs on opposite sides of zero "
+            f"{worst['relu_sign_flips']}")
         raise AssertionError(f"{what}: a gradient tree recomputed on the CPU "
                              f"is {grad_err['witness']:.3g} off the card's, "
                              f"past {VAN_GRAD_RTOL} ({grad_err})")
@@ -3381,10 +3390,13 @@ def _van_replay_check(infos, final, records, workers, steps, what):
 
 def _van_grad_errs(checked):
     e = checked["grad_err"]
+    w = e["worst"]
     return (f"{e['witness']:.3g} of the larger of the push's norm and the "
             f"median (bound {VAN_GRAD_RTOL}); {e['relative']:.3g} of the "
             f"push's own, norms {e['smallest']:.3g} to {e['largest']:.3g} "
-            f"of the median")
+            f"of the median; at its worst push (worker {w['worker']} cycle "
+            f"{w['cycle']}) min |ReLU input| {w['relu_min_abs']:.3g}, "
+            f"{w['relu_sign_flips']} on opposite sides of zero")
 
 
 def _van_eval_losses(final):
@@ -5759,8 +5771,7 @@ def phase_replication(tmp, unreplicated=None):
         f"and final params bitwise an unkilled run's "
         f"({b['drill']['promoted'].strip()}); three workers killed the same "
         f"way: the promoted backup's event log replayed on the card bitwise "
-        f"its params, the CPU witness's gradients "
-        f"{ch['grad_err']['witness']:.3g} off (bound {VAN_GRAD_RTOL}); "
+        f"its params, the CPU witness's gradients {_van_grad_errs(ch)}; "
         f"{t_b:.1f} s")
     c = _repl_sparse_async(harness, tmp)
     t_c = time.perf_counter() - t_phase - t_a - t_b
@@ -6352,18 +6363,20 @@ AGG_TIMEOUT_S = 240
 AGG_TREE_FAN_IN, AGG_TREE_ROUNDS = 2, 3  # (e): the 0.44 GB tree
 
 
-def _agg_upstream(harness, dc_lambda=0.0, lr=AGG_LR, init="int"):
-    """Config 5's async server in this process on the card: the MLP at
-    784-256-10 from :func:`agg_tree` (``init``), sgd at ``lr``, its full
-    event log kept."""
+def _agg_upstream(harness, dc_lambda=0.0, lr=AGG_LR, init="int",
+                  device="cuda"):
+    """Config 5's async server in this process on the card (or
+    ``device``): the MLP at 784-256-10 from :func:`agg_tree` (``init``),
+    sgd at ``lr``, its full event log kept."""
     import ps_tpu_torch as ps
     from ps_tpu_torch.backends.remote_async import AsyncPSService
 
     ps.init(backend="cuda", mode="async", num_workers=AGG_FAN_IN,
-            dc_lambda=dc_lambda)
+            dc_lambda=dc_lambda, device=device)
     params0 = harness.agg_tree(AGG_HIDDEN, init)
     store = ps.KVStore(optimizer="sgd", learning_rate=lr, mode="async")
-    store.init({k: torch.from_numpy(v).cuda() for k, v in params0.items()})
+    store.init({k: torch.from_numpy(v).to(device)
+                for k, v in params0.items()})
     return params0, store, AsyncPSService(store, record_full_history=True)
 
 
@@ -7616,6 +7629,627 @@ def phase_tiered(tmp, untiered=None):
             "seconds": t_c - t0}
 
 
+# -- phase 24: observability on the card (ROADMAP item 6.1) ------------------
+
+# (a)-(b): phase 20's layout, every server on the native loop; a worker's
+# cycles: OBS_UNTRACED at sample 0, OBS_TRACED at 1.0 (the pause after
+# them: the traces exported, the counts scraped, primary 0 SIGKILLed),
+# then OBS_AFTER through the failover
+OBS_UNTRACED, OBS_TRACED, OBS_AFTER = 10, 20, 10
+OBS_CYCLES = OBS_UNTRACED + OBS_TRACED + OBS_AFTER
+OBS_CUE_AT = OBS_UNTRACED + OBS_TRACED // 2  # the mid-traffic scrape
+OBS_PAUSE_AT = OBS_UNTRACED + OBS_TRACED
+OBS_PUSH_OPS = ("push", "push_pull")
+# (d): three workers against one shard, a push every OBS_STEP_S of
+# compute, worker 2 slowed by OBS_SLOW_S a push for OBS_SLOW_FOR_S; the
+# rule and the detector read 1 s windows, evaluated after OBS_WARM_S
+OBS_SLO_RULE = "push p99 < 60ms over 1s"
+OBS_STEP_S, OBS_SLOW_S = 0.005, 0.1
+OBS_WARM_S, OBS_SLOW_FOR_S, OBS_RECOVER_S = 1.0, 2.0, 3.0
+OBS_SAMPLE_EVERY_S = 0.1
+
+
+def _obs_spawn(harness, out, device, shape, detector_port):
+    """Phase 20 (a)'s processes with tracing: each shard a primary (on the
+    loop, sync ack, /metrics) and its backup with a PromotionWatch; primary
+    0 also beats this process's failure detector; the workers dial the
+    replica sets over TCP and trace cycles [OBS_UNTRACED, OBS_PAUSE_AT)."""
+    os.makedirs(out)
+    watch = [harness.free_port(harness.socket.SOCK_DGRAM)
+             for _ in range(SPARSE_SHARDS)]
+    spawn = lambda s, opts: harness.spawn(  # noqa: E731
+        "sparse-server", out, SPARSE_WORKERS, OBS_CYCLES, s, SPARSE_SHARDS,
+        device, shape, json.dumps(dict(opts, native_loop=True, digests=True,
+                                       obs=True)))
+    backups = [spawn(s, {"backup": True, "watch_port": watch[s],
+                         "watch_timeout_ms": REPL_WATCH_MS})
+               for s in range(SPARSE_SHARDS)]
+    primaries = [spawn(s, {"replicate": True, "ack": "sync", "window": 256,
+                           "watch_port": watch[s], "metrics": True,
+                           "detector_port": detector_port if s == 0
+                           else None})
+                 for s in range(SPARSE_SHARDS)]
+    workers = [harness.spawn(
+        "sparse-worker", f"@{SPARSE_SHARDS}", out, w, OBS_CYCLES, device,
+        shape, SPARSE_WORKERS, 0, json.dumps({
+            "replicas": True, "pause_at": OBS_PAUSE_AT,
+            "cue_at": OBS_CUE_AT, "obs": True,
+            "trace": [OBS_UNTRACED, OBS_PAUSE_AT]}))
+        for w in range(SPARSE_WORKERS)]
+    return backups, primaries, workers
+
+
+def _prometheus(text):
+    """``name{labels} -> value`` of every sample line; raises on a line
+    that is not the exposition format."""
+    out = {}
+    for line in text.splitlines():
+        if not line.strip() or line.startswith("#"):
+            continue
+        name, val = line.rsplit(" ", 1)
+        if not name or " " in name.strip():
+            raise AssertionError(f"not Prometheus text: {line!r}")
+        out[name.strip()] = float(val)
+    return out
+
+
+def _obs_scrape(out, name):
+    import urllib.request
+
+    with open(os.path.join(out, f"metrics{name}")) as f:
+        port = int(f.read())
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=10) as resp:
+        if not resp.headers["Content-Type"].startswith("text/plain"):
+            raise AssertionError(f"/metrics of {name}: "
+                                 f"{resp.headers['Content-Type']}")
+        return _prometheus(resp.read().decode())
+
+
+def _obs_stats(out, shard):
+    from ps_tpu_torch.control import tensor_van as tv
+
+    with open(os.path.join(out, f"port{shard}")) as f:
+        ch = tv.Channel.connect("127.0.0.1", int(f.read()))
+    try:
+        return tv.decode(ch.request(tv.encode(tv.STATS, 0, None)))[3]
+    finally:
+        ch.close()
+
+
+def _obs_spans(out):
+    """Every process's Chrome export merged (each already on shard 0's
+    primary's clock): the ``X`` events, and each process's clock error
+    (µs) by pid."""
+    from ps_tpu_torch.obs import merge_chrome
+
+    names = [f[6:-5] for f in sorted(os.listdir(out))
+             if f.startswith("trace-") and f.endswith(".json")]
+    merged = merge_chrome([os.path.join(out, f"trace-{n}.json")
+                           for n in names],
+                          os.path.join(out, "trace-merged.json"))
+    events = json.load(open(merged))["traceEvents"]
+    err_by_name = {n: json.load(open(os.path.join(out, f"clock-{n}.json")))
+                   ["err_us"] for n in names}
+    err = {e["pid"]: err_by_name[e["args"]["name"]] for e in events
+           if e["ph"] == "M"}
+    return [e for e in events if e["ph"] == "X"], err, names
+
+
+def _obs_trees(spans, err, workers, traced):
+    """Every traced push a tree across the processes: the worker's op ->
+    each shard's primary serve span -> exactly one ``server_apply`` with
+    the backup's ``replica_append`` under it and the primary's
+    ``replica_ack_wait`` beside it; every span of the trace reaches the
+    root; each child lies inside its parent within the two processes'
+    clock errors (a replica append, streamed while the apply's reply
+    waits for its ack, inside its primary's serve span). Returns (roots,
+    serve spans, the worst margin in µs, the push trees' events, each
+    push's critical path: the slowest shard's serve span cut into the
+    time before its apply, the apply, the ack wait and the rest, the
+    worker's op beyond it (client and wire), and the backup's append)."""
+    by_trace = {}
+    for e in spans:
+        by_trace.setdefault(e["args"]["trace_id"], []).append(e)
+    roots = [e for e in spans if e["cat"] == "worker"
+             and e["args"]["parent_id"] is None
+             and e["name"] in OBS_PUSH_OPS]
+    if len(roots) != workers * traced:
+        raise AssertionError(f"obs (a): {len(roots)} traced push roots, "
+                             f"{workers} x {traced} were sent")
+    serves, margin, trees, paths = 0, float("inf"), [], []
+    for root in roots:
+        tree = by_trace[root["args"]["trace_id"]]
+        trees += tree
+        by_id = {e["args"]["span_id"]: e for e in tree}
+        kids = {}
+        for e in tree:
+            kids.setdefault(e["args"]["parent_id"], []).append(e)
+
+        def inside(child, parent):
+            tol = (0.0 if child["pid"] == parent["pid"]
+                   else err[child["pid"]] + err[parent["pid"]])
+            return min(child["ts"] - parent["ts"],
+                       (parent["ts"] + parent["dur"])
+                       - (child["ts"] + child["dur"])) + tol
+
+        for e in tree:
+            hop, seen = e, 0
+            while hop["args"]["parent_id"] is not None and seen < 16:
+                hop, seen = by_id.get(hop["args"]["parent_id"]), seen + 1
+                if hop is None:
+                    raise AssertionError(f"obs (a): {e['name']} of "
+                                         f"{root['name']}'s trace does not "
+                                         f"reach its root")
+            if hop is not root:
+                raise AssertionError(f"obs (a): a second root in "
+                                     f"{root['name']}'s trace")
+        mine = [e for e in kids.get(root["args"]["span_id"], [])
+                if e["cat"] == "server"]
+        if not 1 <= len(mine) <= SPARSE_SHARDS or any(
+                e["args"].get("role") != "primary" for e in mine):
+            raise AssertionError(f"obs (a): {root['name']} has serve spans "
+                                 f"{[(e['name'], e['args']) for e in mine]}")
+        for serve in mine:
+            serves += 1
+            margin = min(margin, inside(serve, root))
+            under = kids.get(serve["args"]["span_id"], [])
+            applies = [e for e in under if e["name"] == "server_apply"]
+            acks = [e for e in under if e["name"] == "replica_ack_wait"]
+            if len(applies) != 1 or not acks:
+                raise AssertionError(
+                    f"obs (a): serve span {serve['name']} holds "
+                    f"{[e['name'] for e in under]}")
+            appends = [e for e in kids.get(applies[0]["args"]["span_id"], [])
+                       if e["name"] == "replica_append"
+                       and e["args"].get("role") == "backup"]
+            if len(appends) != 1 or appends[0]["pid"] == serve["pid"]:
+                raise AssertionError(f"obs (a): server_apply holds "
+                                     f"{len(appends)} backup appends")
+            for child in applies + acks:
+                margin = min(margin, inside(child, serve))
+            margin = min(margin, inside(appends[0], serve))
+            serve["_path"] = (applies[0], acks, appends[0])
+        slow = max(mine, key=lambda e: e["dur"])
+        apply_, acks, append = slow.pop("_path")
+        ack = sum(e["dur"] for e in acks)
+        pre = apply_["ts"] - slow["ts"]
+        paths.append({"op": root["dur"], "client_wire": root["dur"]
+                      - slow["dur"], "serve_pre_apply": pre,
+                      "server_apply": apply_["dur"], "replica_ack_wait": ack,
+                      "serve_rest": slow["dur"] - pre - apply_["dur"] - ack,
+                      "backup_append": append["dur"]})
+        for e in mine:
+            e.pop("_path", None)
+    if margin < 0:
+        raise AssertionError(f"obs (a): a child span lies {-margin:.1f} µs "
+                             f"outside its parent past the clock error")
+    return roots, serves, margin, trees, paths
+
+
+def _obs_path_table(paths):
+    """Each critical-path phase's mean (ms) and share of the op."""
+    op = float(np.mean([p["op"] for p in paths]))
+    return {k: {"mean_ms": round(float(np.mean([p[k] for p in paths]))
+                                 / 1e3, 4),
+                "share": round(float(np.mean([p[k] for p in paths])) / op,
+                               4)}
+            for k in paths[0]}
+
+
+def _obs_segment(records, lo, hi):
+    """Cycles/s of cycles [lo, hi) over the workers' shared window, and
+    their median cycle."""
+    cycles, start, end = [], None, None
+    for r in records:
+        for c in range(lo, hi):
+            t0, dt = r["starts"][c], r["cycle_s"][c]
+            cycles.append(dt)
+            start = t0 if start is None else min(start, t0)
+            end = t0 + dt if end is None else max(end, t0 + dt)
+    return {"cycles_per_s": len(cycles) / (end - start),
+            "median_cycle_ms": float(np.median(cycles)) * 1e3}
+
+
+def _obs_launches(counts):
+    """A server's launch counts by kernel entry: the grouping pass, and the
+    apply by rule (adagrad: the deep table, sgd: the wide one)."""
+    rule = counts["by_rule"]
+    return {"sparse_group": counts["group"],
+            "sparse_apply/deep": rule.get("adagrad", 0),
+            "sparse_apply/wide": rule.get("sgd", 0)}
+
+
+def _obs_flight(out, name):
+    path = os.path.join(out, f"flight-{name}.jsonl")
+    with open(path) as f:
+        return [json.loads(x) for x in f][1:]
+
+
+def _obs_sparse(harness, tmp, device="cuda", shape="wd"):
+    """(a) and (b) as processes; returns the checked numbers."""
+    import signal
+
+    import ps_tpu_torch as ps
+    from ps_tpu_torch import obs
+    from ps_tpu_torch.control.heartbeat import (FailureDetector,
+                                                WorkerFailureError)
+    from ps_tpu_torch.obs import TraceBreakdown
+    from ps_tpu_torch.ops import sparse_apply as ops
+
+    out = os.path.join(tmp, "a")
+    det = FailureDetector(node_id=0, peers={}, timeout_ms=REPL_WATCH_MS,
+                          bind="127.0.0.1")
+    procs = _obs_spawn(harness, out, device, shape, det.server.port)
+    backups, primaries, workers = procs
+    everyone = backups + primaries + workers
+    try:
+        _wait_files([os.path.join(out, f"cue{w}")
+                     for w in range(SPARSE_WORKERS)], everyone)
+        mid = [_obs_scrape(out, f"p{s}") for s in range(SPARSE_SHARDS)]
+        _wait_files([os.path.join(out, f"paused{w}")
+                     for w in range(SPARSE_WORKERS)], everyone)
+        scraped = [_obs_scrape(out, f"p{s}") for s in range(SPARSE_SHARDS)]
+        stats = [_obs_stats(out, s) for s in range(SPARSE_SHARDS)]
+        with open(os.path.join(out, "snap"), "w") as f:
+            f.write("1")
+        _wait_files([os.path.join(out, f"snap{s}{t}.json")
+                     for s in range(SPARSE_SHARDS) for t in ("", "b")],
+                    everyone)
+        t_kill = time.time()
+        primaries[0].send_signal(signal.SIGKILL)
+        primaries[0].wait(timeout=30)
+        with open(os.path.join(out, "resume"), "w") as f:
+            f.write("1")
+        deadline = time.monotonic() + 30
+        while True:
+            try:
+                det.check()
+            except WorkerFailureError as e:
+                dead = e.dead
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError("obs (b): the detector never saw "
+                                     "primary 0 die")
+            time.sleep(0.01)
+        obs.flight().dump("phase 24 (b)",
+                          path=os.path.join(out, "flight-detector.jsonl"))
+        infos, records = _repl_finish(harness, out, procs, [primaries[0]],
+                                      "obs (a)")
+    finally:
+        harness.kill_all(everyone)
+        det.close()
+    # /metrics: parsed mid-traffic, and at the pause each primary's apply
+    # histogram counts exactly the pushes it served
+    for s in range(SPARSE_SHARDS):
+        if mid[s].get("ps_server_apply_seconds_count", 0) < 1:
+            raise AssertionError(f"obs (a): primary {s}'s mid-traffic "
+                                 f"scrape counts no apply")
+        st, m = stats[s], scraped[s]
+        want = (st["apply_log_total"], st["fused"]["rows_applied"])
+        got = (m["ps_server_apply_seconds_count"],
+               m["ps_sparse_rows_applied_total"])
+        if got != want or st["metrics"]["lat"]["apply_s"]["count"] != \
+                want[0] or m['ps_server_apply_seconds_bucket{le="+Inf"}'] \
+                != want[0]:
+            raise AssertionError(f"obs (a): primary {s}'s /metrics "
+                                 f"{got} against STATS {want}")
+    # the traces
+    spans, err, names = _obs_spans(out)
+    roots, serves, margin, trees, paths = _obs_trees(
+        spans, err, SPARSE_WORKERS, OBS_TRACED)
+    tb = TraceBreakdown()
+    if tb.feed(trees) != len(roots):
+        raise AssertionError("obs (a): the breakdown lost a push")
+    # launches: the servers' (traced) against the same pushes replayed
+    # untraced in this process, and the tables bitwise
+    b0, p1, b1 = infos["0b"], infos["1"], infos["1b"]
+    ps.init(backend="cuda", device=device)
+    try:
+        _launch_counts(reset=True)
+        tables, _ = harness.sparse_replay([b0, p1], shape, SPARSE_WORKERS,
+                                          OBS_CYCLES)
+        replay = _obs_launches({"group": _launch_counts()["sparse_group"],
+                                "by_rule": dict(ops.LAUNCHES_BY_RULE)})
+        digests = [harness.table_digests(t) for t in tables]
+    finally:
+        ps.shutdown()
+    served = {k: _obs_launches(b0["launches"])[k]
+              + _obs_launches(p1["launches"])[k] for k in replay}
+    if device == "cuda" and (replay != served
+                             or b1["launches"] != p1["launches"]
+                             or not served["sparse_group"]):
+        raise AssertionError(f"obs (a): traced launches {served} (backup 1 "
+                             f"{b1['launches']}, primary 1 "
+                             f"{p1['launches']}) against {replay} untraced")
+    if digests != [b0["digests"], p1["digests"]] or \
+            b1["digests"] != p1["digests"]:
+        raise AssertionError("obs (a): the replay is not bitwise the "
+                             "servers' tables")
+    # (b): each process's dump holds its event
+    rep = b0["replica"]
+    if (rep["role"], rep.get("promote_reason")) != ("primary", "timeout"):
+        raise AssertionError(f"obs (b): backup 0 did not promote: {rep}")
+    flights = {w: _obs_flight(out, f"w{w}") for w in range(SPARSE_WORKERS)}
+    backup0 = _obs_flight(out, "b0")
+    detector = _obs_flight(out, "detector")
+    fo = {w: [e for e in ev if e["kind"] == "failover"]
+          for w, ev in flights.items()}
+    promo = [e for e in backup0 if e["kind"] == "promotion"]
+    fired = [e for e in backup0 if e["kind"] == "promotion_watch_fired"]
+    # this process's ring may hold an earlier phase's events
+    died = [e for e in detector if e["kind"] == "peer_dead"
+            and e["t"] >= t_kill]
+    if not all(len(f) == 1 and f[0]["shard"] == 0 and f[0]["epoch"] == 1
+               for f in fo.values()) or len(promo) != 1 or \
+            len(fired) != 1 or len(died) != 1 or died[0]["dead"] != [10] \
+            or dead != [10]:
+        raise AssertionError(f"obs (b): failovers {fo}, promotion {promo}, "
+                             f"watch {fired}, detector {died}")
+    if not (t_kill <= fired[0]["t"] <= promo[0]["t"]
+            <= min(f[0]["t"] for f in fo.values()) and t_kill
+            <= died[0]["t"]):
+        raise AssertionError(
+            f"obs (b): out of order: kill {t_kill}, watch {fired[0]['t']}, "
+            f"promotion {promo[0]['t']}, failovers "
+            f"{[f[0]['t'] for f in fo.values()]}, detector {died[0]['t']}")
+    return {
+        "roots": len(roots), "serves": serves, "margin_us": margin,
+        "err_us": max(err.values()), "processes": len(names),
+        "breakdown": tb.summary(), "path": _obs_path_table(paths),
+        "untraced": _obs_segment(records, 1, OBS_UNTRACED),
+        "traced": _obs_segment(records, OBS_UNTRACED, OBS_PAUSE_AT),
+        "scrape": [{k: m[k] for k in ("ps_server_apply_seconds_count",
+                                      "ps_sparse_rows_applied_total",
+                                      "ps_server_requests_total")}
+                   for m in scraped],
+        "launches": served, "replay_launches": replay,
+        "flight": {"kill": t_kill, "watch": fired[0]["t"] - t_kill,
+                   "promotion": promo[0]["t"] - t_kill,
+                   "failovers": sorted(f[0]["t"] - t_kill
+                                       for f in fo.values()),
+                   "peer_dead": died[0]["t"] - t_kill}}
+
+
+def _obs_agg(harness, device="cuda"):
+    """(c): two member workers -> an aggregator -> a shard on the card, in
+    this process, traced: the shard's apply and the aggregator's merge in
+    one trace that reaches a member's op, the apply naming every member's
+    trace context."""
+    import threading
+
+    import ps_tpu_torch as ps
+    from ps_tpu_torch import obs
+    from ps_tpu_torch.backends.aggregator import AggregatorService
+    from ps_tpu_torch.backends.remote_async import connect_async
+    from ps_tpu_torch.obs import TraceBreakdown
+
+    fan_in = 2
+    params0, store, svc = _agg_upstream(harness, device=device)
+    like = {k: torch.from_numpy(v) for k, v in params0.items()}
+    agg = AggregatorService(f"127.0.0.1:{svc.port}", like,
+                            group_size=fan_in)
+    ws = [connect_async(f"127.0.0.1:{svc.port}", w, like,
+                        aggregator=f"127.0.0.1:{agg.port}")
+          for w in range(fan_in)]
+    tracer = obs.tracer()
+    tracer.clear()
+    tracer.sample = 1.0
+    errs = []
+
+    def member(w):
+        try:
+            ws[w].pull_all()
+            for c in range(2):
+                ws[w].push_pull({k: torch.from_numpy(v) for k, v in
+                                 harness.agg_grads(params0, w, c).items()})
+        except BaseException as e:  # surfaced below
+            errs.append(e)
+
+    try:
+        ts = [threading.Thread(target=member, args=(w,))
+              for w in range(fan_in)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=120)
+        if errs or any(t.is_alive() for t in ts):
+            raise AssertionError(f"obs (c): a member failed: {errs}")
+    finally:
+        tracer.sample = 0.0
+        for w in ws:
+            w.close()
+        agg.stop()
+        svc.stop()
+        ps.shutdown()
+    spans = tracer.spans()
+    tracer.clear()
+    by_id = {s.span_id: s for s in spans}
+    applies = [s for s in spans if s.name == "server_apply"]
+    merges = [s for s in spans if s.name == "agg_merge"]
+    if len(applies) != 2 or len(merges) != 2:
+        raise AssertionError(f"obs (c): {len(applies)} applies, "
+                             f"{len(merges)} merges for 2 rounds")
+    chains = []
+    for a in applies:
+        chain, cur = [], a
+        while cur is not None:
+            chain.append((cur.cat, cur.name))
+            cur = by_id.get(cur.parent_id)
+        if ("aggregator", "agg_merge") not in chain or \
+                chain[-1][0] != "worker" or \
+                len(a.args.get("members_tc") or {}) != fan_in:
+            raise AssertionError(f"obs (c): the apply's chain {chain}, "
+                                 f"members_tc {a.args.get('members_tc')}")
+        chains.append([n for _, n in chain])
+    tb = TraceBreakdown()
+    tb.feed(spans)
+    return {"chain": chains[0], "agg": tb.summary().get("agg")}
+
+
+def _obs_slo():
+    """(d): three workers pushing to one dense shard on the card (the MNIST
+    MLP at 784-256-10, OBS_STEP_S of compute between pushes), worker 2
+    slowed by OBS_SLOW_S a push for OBS_SLOW_FOR_S; the process registry
+    (SLO) and each worker's push histogram (straggler) sampled into 1 s
+    windows every OBS_SAMPLE_EVERY_S and evaluated after OBS_WARM_S: the
+    rule breaches while worker 2 is slow and every breach recovers, the
+    detector names worker 2 alone and at the end nobody."""
+    import threading
+
+    import ps_tpu_torch as ps
+    from ps_tpu_torch import obs
+    from ps_tpu_torch.backends.remote_async import AsyncPSService, \
+        connect_async
+    from ps_tpu_torch.models.mlp import MLP
+    from ps_tpu_torch.kv import keys as keymod
+
+    nw = 3
+    ps.init(backend="cuda", mode="async", num_workers=nw, dc_lambda=0.0)
+    tree = MLP(hidden=256).init(torch.Generator().manual_seed(0))
+    flat, _ = keymod.flatten_with_keys(tree)
+    store = ps.KVStore(optimizer="sgd", learning_rate=0.01, mode="async")
+    store.init({k: v.cuda() for k, v in flat.items()})
+    svc = AsyncPSService(store)
+    ws = [connect_async(f"127.0.0.1:{svc.port}", w, dict(flat))
+          for w in range(nw)]
+    slow, stop = threading.Event(), threading.Event()
+    fanout = ws[2]._fanout
+
+    def slowed(msgs):
+        if slow.is_set():
+            time.sleep(OBS_SLOW_S)
+        return fanout(msgs)
+
+    ws[2]._fanout = slowed
+    grads = {k: torch.full_like(v, 1e-3) for k, v in flat.items()}
+    errs = []
+
+    def loop(w):
+        try:
+            while not stop.is_set():
+                time.sleep(OBS_STEP_S)
+                ws[w].push_all(grads)
+        except BaseException as e:  # surfaced below
+            errs.append(e)
+
+    reg_win = obs.RegistryWindow(window_s=1.0)
+    member_win = obs.RegistryWindow(window_s=1.0)
+    rule = obs.SloEvaluator(reg_win, obs.parse_rules(OBS_SLO_RULE))
+    strag = obs.StragglerDetector(member_win, metrics=("ps_push_seconds",),
+                                  z=3.0, min_members=nw, min_count=3)
+    n0 = len(obs.flight().events())
+    timeline = []
+    ts = [threading.Thread(target=loop, args=(w,)) for w in range(nw)]
+    for t in ts:
+        t.start()
+    try:
+        t0 = time.monotonic()
+        phases = ((OBS_WARM_S, False), (OBS_SLOW_FOR_S, True),
+                  (OBS_RECOVER_S, False))
+        for k, (dur, is_slow) in enumerate(phases):
+            (slow.set if is_slow else slow.clear)()
+            end = time.monotonic() + dur
+            while time.monotonic() < end:
+                time.sleep(OBS_SAMPLE_EVERY_S)
+                reg_win.sample_registry("local")
+                for w in range(nw):
+                    member_win.sample(f"w{w}", {"ps_push_seconds":
+                                                ws[w].transport.hist[
+                                                    "push_s"]})
+                if k == 0:
+                    continue  # the windows fill past the connects first
+                state = rule.evaluate()[0]
+                suspects = [s["uri"] for s in strag.evaluate()]
+                timeline.append((round(time.monotonic() - t0, 2), is_slow,
+                                 state["breached"], state["value_ms"],
+                                 suspects))
+    finally:
+        stop.set()
+        for t in ts:
+            t.join(timeout=30)
+        for w in ws:
+            w.close()
+        svc.stop()
+        ps.shutdown()
+    if errs:
+        raise AssertionError(f"obs (d): a worker failed: {errs}")
+    events = [e["kind"] for e in obs.flight().events()[n0:]
+              if e["kind"] in ("slo_breach", "slo_recover",
+                               "straggler_suspect")]
+    breached = [x for x in timeline if x[2]]
+    named = {s for x in timeline for s in x[4]}
+    last = timeline[-1]
+    if not breached or not breached[0][1] or last[2] \
+            or named != {"w2"} or last[4] \
+            or events.count("slo_breach") < 1 \
+            or events.count("slo_breach") != events.count("slo_recover") \
+            or events.count("straggler_suspect") < 1:
+        raise AssertionError(f"obs (d): timeline {timeline}, events "
+                             f"{events}")
+    pushes = [ws[w].transport.hist["push_s"].summary() for w in range(nw)]
+    return {"breach_at": breached[0][0], "recover_at": next(
+                x[0] for x in timeline if x[0] > breached[-1][0]),
+            "peak_ms": max(x[3] or 0 for x in timeline), "events": events,
+            "push_p50_ms": [round(p["p50"] * 1e3, 3) for p in pushes],
+            "samples": len(timeline)}
+
+
+def phase_obs(tmp):
+    """24: observability on the card (ROADMAP item 6.1)."""
+    from ps_tpu_torch.ops import _build
+
+    _build.build(("sparse_group", "sparse_apply"))  # cached after phase 2
+    harness = _van_harness()
+    card = _card_line()
+    t0 = time.perf_counter()
+    a = _obs_sparse(harness, tmp)
+    t_a = time.perf_counter()
+    u, tr = a["untraced"], a["traced"]
+    log(f"obs (a): {SPARSE_SHARDS} shards x (a serve_sparse primary on the "
+        f"native loop at W&D's width + a sync-ack backup), "
+        f"{SPARSE_WORKERS} workers x {OBS_TRACED} traced cycles of 13,312 "
+        f"ids (after {OBS_UNTRACED} untraced): {a['roots']} push traces, "
+        f"each one tree across {a['processes']} processes (worker op -> "
+        f"{a['serves']} primary serve spans -> server_apply -> the backup's "
+        f"replica_append, replica_ack_wait beside it); merged on shard 0's "
+        f"clock every child inside its parent, worst margin "
+        f"{a['margin_us']:.1f} us, clock error at most {a['err_us']:.1f} "
+        f"us; /metrics parsed mid-traffic and at the pause each primary's "
+        f"apply count and rows equal its STATS {a['scrape']}; launches "
+        f"{a['launches']} traced = {a['replay_launches']} replayed "
+        f"untraced, tables bitwise; {t_a - t0:.1f} s")
+    log(f"obs (a): cycles/s at sample 1.0 {tr['cycles_per_s']:.2f} (median "
+        f"cycle {tr['median_cycle_ms']:.3f} ms) against 0.0 "
+        f"{u['cycles_per_s']:.2f} ({u['median_cycle_ms']:.3f} ms); "
+        f"a push's critical path (mean ms, share of the worker's op): "
+        f"{json.dumps(a['path'])}; TraceBreakdown (s): "
+        f"{json.dumps(a['breakdown'])}; card {card}")
+    f = a["flight"]
+    log(f"obs (b): primary 0 SIGKILLed after cycle {OBS_PAUSE_AT}: backup 0's"
+        f" dump holds promotion_watch_fired (+{f['watch']:.3f} s) and "
+        f"promotion (+{f['promotion']:.3f} s), each worker's its failover "
+        f"(+{', +'.join(f'{x:.3f}' for x in f['failovers'])} s), this "
+        f"process's detector's peer_dead (+{f['peer_dead']:.3f} s)")
+    c = _obs_agg(harness)
+    t_c = time.perf_counter()
+    log(f"obs (c): 2 members -> an aggregator -> a shard on the card, 2 "
+        f"traced rounds: each shard apply's chain {' <- '.join(c['chain'])}"
+        f", naming both members' traces; agg phase {json.dumps(c['agg'])}; "
+        f"{t_c - t_a:.1f} s")
+    d = _obs_slo()
+    t_d = time.perf_counter()
+    log(f"obs (d): '{OBS_SLO_RULE}' over the process registry and a "
+        f"straggler detector over each worker's push histogram, worker 2 "
+        f"slowed {OBS_SLOW_S * 1e3:.0f} ms a push for {OBS_SLOW_FOR_S} s: "
+        f"breach at {d['breach_at']} s (p99 up to {d['peak_ms']} ms), "
+        f"recovery at {d['recover_at']} s, suspects named w2 only; events "
+        f"{d['events']}; push p50 by worker {d['push_p50_ms']} ms; "
+        f"{t_d - t_c:.1f} s; phase {t_d - t0:.1f} s")
+    return {"launches": a["launches"], "a": a, "c": c, "d": d,
+            "seconds": t_d - t0}
+
+
 def main():
     if len(sys.argv) == 5 and sys.argv[1] == "--two-ranks-worker":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -7690,6 +8324,8 @@ def main():
         phase_aggregation(tmp)
     with tempfile.TemporaryDirectory(prefix="ps_tiered_") as tmp:
         tiered = phase_tiered(tmp, untiered=sparse["numbers"])
+    with tempfile.TemporaryDirectory(prefix="ps_obs_") as tmp:
+        observed = phase_obs(tmp)
     for e in entries:  # each rank's launches in phase 15's 20-step runs
         if e["name"] == "flash_attention/fwd":
             # each rank's launches over phase 15 (e)'s bf16 steps, and the
@@ -7721,6 +8357,9 @@ def main():
             # phase 23: the hot tiers' launches in (a) one process, (b)
             # the served shards (the live servers) and (c) a gloo rank
             e["launches_tiered"] = tiered["launches"][e["name"]]
+            # phase 24 (a): the traced run's servers (backup 0, promoted,
+            # and primary 1), equal to the same pushes replayed untraced
+            e["launches_obs"] = observed["launches"][e["name"]]
             part = sparse["shard"][e["name"].split("/")[-1]
                                    if "/" in e["name"] else "group"]
             e["sparse_ps_shard"] = {"ids": sparse["shard"]["ids"],

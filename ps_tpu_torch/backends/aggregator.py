@@ -30,10 +30,13 @@ corrected against the aggregator's last pull).
 
 The round state and the group's snapshot live in host memory: the
 aggregator takes no device and launches no kernel; the shards apply on
-theirs. Not ported yet, each raising with its ROADMAP Queue 1 item: the
-coordinator's membership table (``coordinator=``, ``host=``,
-``advertise_host=``: registration and discovery, item 6.2) and the
-reference's ``agg_merge`` trace span (item 6.1).
+theirs. A round with a traced member is merged inside an ``agg_merge``
+span parented to the first traced member's serve span; the upstream
+push parents to it and carries the members' trace contexts as
+``members_tc``, so the chain worker -> aggregator -> shard is one trace.
+Not ported yet, raising with its ROADMAP Queue 1 item: the coordinator's
+membership table (``coordinator=``, ``host=``, ``advertise_host=``:
+registration and discovery, item 6.2).
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ps_tpu_torch import obs
 from ps_tpu_torch.backends.common import (
     AGG_WORKER_BASE,
     DEFAULT_BUCKET_BYTES,
@@ -175,6 +179,7 @@ class AggregatorService(VanService):
             "state": "filling",          # -> flush -> flushing -> done
             "members": {},               # worker -> grad tree (host arrays)
             "tokens": {},                # worker -> (pnonce, pseq)
+            "tcs": {},                   # worker -> its serve span's context
             "deadline": None,
             "kv": None,                  # the post-flush params snapshot
             "version": None,
@@ -219,38 +224,57 @@ class AggregatorService(VanService):
     def _do_flush(self, r: dict) -> None:
         t0 = time.perf_counter()
         try:
-            # the reference traces the merge here as an "agg_merge" span
-            # parented to the first traced member's serve span, and sends
-            # the members' trace contexts as ``members_tc``: spans are
-            # item 6.1, so nothing is traced and members_tc is never sent
-            order = sorted(r["members"])  # deterministic merge order
-            merged: Dict[str, np.ndarray] = {}
-            for w in order:
-                tree = r["members"][w]
-                if not merged:
-                    # an accumulator of its own (member trees may view
-                    # request frames that die with their reply)
-                    merged = {k: np.array(v) for k, v in tree.items()}
-                else:
-                    for k, v in tree.items():
-                        merged[k] += v
-            r["members"] = None  # release the members' frame views early
-            members = {str(w): [t[0], int(t[1])]
-                       for w, t in r["tokens"].items()
-                       if t is not None and t[1] is not None}
-            # ONE upstream round trip: apply the merged tree and bring the
-            # post-apply snapshot back, which answers the group's pulls
-            with self._ulock:
-                params = self._client.push_pull(merged,
-                                                members=members or None)
-                version = self._client.version
-            kv, _ = keymod.flatten_with_keys(params)
-            r["kv"] = {k: np.ascontiguousarray(np.asarray(v))
-                       for k, v in kv.items()}
-            r["version"] = version
-            # the round's snapshot is born here, now: the merged apply just
-            # committed upstream and these bytes are its post-apply state
-            r["b"] = freshness.birth_record()
+            # a round with a traced member is merged in a span parented to
+            # the first traced member's serve span (the lowest worker id);
+            # open across the upstream push_pull, it parents the upstream
+            # op and through it the shard's spans
+            tcs = r.get("tcs") or {}
+            if tcs:
+                mspan = obs.tracer().span("agg_merge", cat="aggregator",
+                                          parent=tcs[min(tcs)])
+            else:
+                mspan = obs.NOOP
+            with mspan as sp:
+                if sp:
+                    sp.set(group=self.group, members=sorted(r["tokens"]),
+                           member_traces={str(w): c.trace_id
+                                          for w, c in tcs.items()})
+                order = sorted(r["members"])  # deterministic merge order
+                merged: Dict[str, np.ndarray] = {}
+                for w in order:
+                    tree = r["members"][w]
+                    if not merged:
+                        # an accumulator of its own (member trees may view
+                        # request frames that die with their reply)
+                        merged = {k: np.array(v) for k, v in tree.items()}
+                    else:
+                        for k, v in tree.items():
+                            merged[k] += v
+                r["members"] = None  # release the members' frame views
+                members = {str(w): [t[0], int(t[1])]
+                           for w, t in r["tokens"].items()
+                           if t is not None and t[1] is not None}
+                # each member's trace context beside its dedup token: the
+                # shard's apply span names them, so any one member's trace
+                # finds the shared commit
+                members_tc = {str(w): [c.trace_id, c.span_id]
+                              for w, c in tcs.items()}
+                # ONE upstream round trip: apply the merged tree and bring
+                # the post-apply snapshot back, which answers the group's
+                # pulls
+                with self._ulock:
+                    params = self._client.push_pull(
+                        merged, members=members or None,
+                        members_tc=members_tc or None)
+                    version = self._client.version
+                kv, _ = keymod.flatten_with_keys(params)
+                r["kv"] = {k: np.ascontiguousarray(np.asarray(v))
+                           for k, v in kv.items()}
+                r["version"] = version
+                # the round's snapshot is born here, now: the merged apply
+                # just committed upstream and these bytes are its
+                # post-apply state
+                r["b"] = freshness.birth_record()
         except BaseException as e:  # surfaced at every parked member
             r["error"] = e
         if r["error"] is None:
@@ -286,6 +310,9 @@ class AggregatorService(VanService):
             raise KeyError("push keys do not match the registered tree")
         t0 = time.perf_counter()
         token = (extra.get("pnonce"), extra.get("pseq"))
+        # the serve span _dispatch opened is current on this thread: the
+        # flusher's merge span parents to it
+        ctx = obs.tracer().current()
         with self._rcv:
             while True:
                 if self._draining:
@@ -302,6 +329,8 @@ class AggregatorService(VanService):
                 self._rcv.wait(0.05)
             r["members"][worker] = tree
             r["tokens"][worker] = token
+            if ctx is not None:
+                r["tcs"][worker] = ctx
             if r["deadline"] is None:
                 r["deadline"] = time.monotonic() + self._flush_timeout
             if len(r["members"]) >= self.group_size:
@@ -418,7 +447,7 @@ class AggregatorService(VanService):
 
     # -- protocol --------------------------------------------------------------
 
-    def _dispatch(self, kind: int, worker: int, tensors, extra):
+    def _dispatch_traced(self, kind: int, worker: int, tensors, extra):
         # no primary/backup gate: an aggregator serves its group directly
         # (REPLICA_STATE still answers: a member's version watcher and
         # clock probes ride it)

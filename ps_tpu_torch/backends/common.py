@@ -37,6 +37,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ps_tpu_torch import obs
 from ps_tpu_torch.control import tensor_van as tv
 from ps_tpu_torch.optim import Optimizer, delay_compensate
 from ps_tpu_torch.utils.metrics import TransportStats
@@ -574,6 +575,32 @@ class ChannelPump:
         self._ch.close()
 
 
+class _OpScope:
+    """One logical transport op: its span (NOOP when unsampled) and its
+    latency sample in ``TransportStats.record_op``; entering returns the
+    span."""
+
+    __slots__ = ("_transport", "_name", "_sp", "_t0")
+
+    def __init__(self, transport, name: str, sp):
+        self._transport = transport
+        self._name = name
+        self._sp = sp
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        self._sp.__enter__()
+        return self._sp
+
+    def __exit__(self, *exc):
+        try:
+            self._sp.__exit__(*exc)
+        finally:
+            self._transport.record_op(
+                self._name, time.perf_counter() - self._t0)
+        return False
+
+
 class BucketedTransportMixin:
     """Worker-side plumbing of the bucketed, pipelined transport: the pump
     pool, byte and timing accounting, the background cycles and the flush
@@ -647,6 +674,33 @@ class BucketedTransportMixin:
         policy = CompressPolicy.from_spec(self.compress)
         self._compressor = (GradCompressor(policy, stats=self.transport)
                             if policy is not None else None)
+
+    def _op(self, name: str, **args) -> _OpScope:
+        """One logical op's envelope: a worker span (sampled at
+        ``trace_sample``; the NOOP otherwise) and the op's latency sample,
+        both end to end, failover retries included. An op issued while
+        this thread serves a traced request (the aggregator's merged
+        upstream push) parents to the open span instead of rooting a new
+        trace, so the chain worker -> aggregator -> shard stays one trace.
+        Use ``with self._op("push") as sp``; ``sp.wire()`` is the
+        context to send (None unsampled)."""
+        parent = obs.tracer().current()
+        sp = obs.tracer().span(name, cat="worker", parent=parent)
+        if sp:
+            sp.set(worker=getattr(self, "worker", 0), **args)
+        return _OpScope(self.transport, name, sp)
+
+    @staticmethod
+    def _tc_extra(extra: Optional[dict], sp) -> Optional[dict]:
+        """``extra`` with the span's wire context merged in; unchanged
+        (possibly None) when the op is unsampled, so an untraced frame is
+        byte-identical to the reference's."""
+        wire = sp.wire() if sp else None
+        if wire is None:
+            return extra
+        out = dict(extra or {})
+        out[obs.WIRE_KEY] = wire
+        return out
 
     def _bucket_submit_priority(self, b: int) -> int:
         """Pump priority of bucket ``b``: its index when priority
@@ -924,6 +978,9 @@ class BucketedTransportMixin:
             self._open_pumps([i])
         dt = time.monotonic() - t0
         self.transport.record_failover(dt)
+        obs.record_event("failover", shard=i, addr=f"{addr[0]}:{addr[1]}",
+                         epoch=self._epochs[i], seconds=round(dt, 4),
+                         cause=repr(cause))
         logging.getLogger(__name__).warning(
             "%s %d re-routed to %s:%d (epoch %d) in %.2fs",
             self._failure_noun, i, *addr, self._epochs[i], dt)

@@ -65,11 +65,16 @@ push's ``members`` tokens beside the aggregator's own, replicates them,
 and acks a merged push whose members all settled on their own as a
 replay (a partial overlap is refused).
 
-Not ported yet, each raising with its ROADMAP Queue 1 item: elastic
-membership (``coordinator=``, the ``MIGRATE_*`` kinds, a replicated
-partial ``push_sub``; 6.2), and the reference's trace spans and metrics
-endpoint (``obs/``, 6.1). Extra keys in an incoming frame, such as a
-trace context or ``members_tc``, are ignored.
+Observability (``obs/``): each worker op is a span (sampled at
+``trace_sample``) whose context rides every frame of the op under
+``"tc"``, and the server's apply is a ``server_apply`` child of its serve
+span (naming a merged push's ``members_tc``); a cycle's caller wait is a
+``flush_wait`` span. Re-seeds, aggregator degrades and failovers are
+flight events.
+
+Not ported yet, raising with its ROADMAP Queue 1 item: elastic membership
+(``coordinator=``, the ``MIGRATE_*`` kinds, a replicated partial
+``push_sub``, the ``table_reroute`` event; 6.2).
 """
 
 from __future__ import annotations
@@ -102,6 +107,7 @@ from ps_tpu_torch.backends.van_service import (
     make_history_log,
     resolve_ckpt_dir,
 )
+from ps_tpu_torch import obs
 from ps_tpu_torch.control import tensor_van as tv
 from ps_tpu_torch.kv import keys as keymod
 from ps_tpu_torch.obs import freshness
@@ -317,7 +323,8 @@ class AsyncPSService(VanService):
         is acked; checked before it, so a merged push whose members all
         settled on their own is a replay, and one whose members partly
         settled is refused. ``members_tc`` (the members' trace contexts)
-        is accepted and ignored until spans are ported (item 6.1)."""
+        is named on the apply's span, so any one member's trace finds the
+        shared commit."""
         extra = extra or {}
         members = extra.get("members") or None
         pseq = extra.get("pseq")
@@ -332,7 +339,12 @@ class AsyncPSService(VanService):
         # for); this also copies out of the receive buffer
         grads = stage_to_device(grads, self._device, stats=self.transport)
         t_apply = time.perf_counter()
-        with self._engine._lock:
+        # the apply, lock wait included, is a child of the serve span when
+        # the request is traced (the breakdown's server_apply phase)
+        apply_span = obs.tracer().child("server_apply", cat="server")
+        if extra.get("members_tc"):
+            apply_span.set(members_tc=extra["members_tc"])
+        with apply_span, self._engine._lock:
             while (self._paused and not self._draining
                    and not self._admit_while_paused(worker)):
                 self._pause_wait_begin()
@@ -891,6 +903,8 @@ class AsyncPSService(VanService):
             self.attach_backup(shost, int(sport),
                                ack=str(extra.get("ack", "sync")))
         dt = time.monotonic() - t0
+        obs.record_event("reseed", spare=spare, keys=len(rows),
+                         bytes=nbytes, seconds=round(dt, 4))
         logging.getLogger(__name__).warning(
             "re-seeded backup at %s: %d key(s), %.1f MB in %.2fs "
             "(redundancy restored)", spare, len(rows), nbytes / 1e6, dt)
@@ -955,6 +969,8 @@ class AsyncPSService(VanService):
                 for w, toks in (extra.get("tokens") or {}).items()}
             self._invalidate_reads()
             self._birth = freshness.birth_record()
+        obs.record_event("replica_seeded", keys=len(rows),
+                         version=eng.version)
         logging.getLogger(__name__).info(
             "seeded as backup: %d key(s) at version %d", len(rows),
             eng.version)
@@ -1149,7 +1165,10 @@ class PendingCycle:
 
     def wait(self, timeout: Optional[float] = None):
         t0 = time.perf_counter()
-        if not self._evt.wait(timeout):
+        # a child of the caller's open span, if it traces one
+        with obs.tracer().child("flush_wait", cat="worker"):
+            done = self._evt.wait(timeout)
+        if not done:
             raise TimeoutError("transport cycle still in flight")
         if self._stats is not None:
             self._stats.record_blocked(time.perf_counter() - t0)
@@ -1173,22 +1192,6 @@ def _worker_device(params_like) -> torch.device:
         if device.index is None:
             device = torch.device("cuda", 0)
     return device
-
-
-class _Op:
-    """Times one logical transport op into ``TransportStats.record_op``."""
-
-    __slots__ = ("_stats", "_name", "_t0")
-
-    def __init__(self, stats: TransportStats, name: str):
-        self._stats, self._name = stats, name
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-
-    def __exit__(self, *exc):
-        self._stats.record_op(self._name, time.perf_counter() - self._t0)
-        return False
 
 
 class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
@@ -1421,8 +1424,8 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         seq (a degrade is not a new incarnation: the failed op replays
         with its original token right after this)."""
         fb = self._agg_fallback
-        # the reference records an "agg_degrade" flight event here; the
-        # flight recorder is item 6.1
+        obs.record_event("agg_degrade", worker=self.worker,
+                         shards=len(fb["addrs"]), cause=repr(cause))
         self.transport.record_agg_degrade()
         saved = self._saved_transport_state()
         nonce, push_seq = self._transport_nonce, self._push_seq
@@ -1513,14 +1516,16 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
     def pull_all(self) -> Any:
         """Fetch the current params (each server records this worker's
         snapshot of its subtree)."""
-        with _Op(self.transport, "pull"):
+        with self._op("pull") as sp:
             if self.bucket_bytes is not None:
                 self.flush()
                 return self._with_failover(
-                    lambda: self._merge_host_params(self._pull_buckets()))
+                    lambda: self._merge_host_params(
+                        self._pull_buckets(tc=sp.wire())))
+            extra = self._tc_extra(None, sp)
             return self._with_failover(
                 lambda: self._merge_params(self._fanout({
-                    i: tv.encode(tv.PULL, self.worker, None)
+                    i: tv.encode(tv.PULL, self.worker, None, extra=extra)
                     for i in self._active})))
 
     def push_all(self, grads, members: Optional[dict] = None,
@@ -1533,21 +1538,22 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         without applying again. ``members`` (an aggregator's merged push
         only) carries the members' own tokens, so the shards' ledger
         covers a degraded member's flat replay too; ``members_tc`` their
-        trace contexts (sent when given; untraced until item 6.1)."""
+        trace contexts, which the shards name on their apply spans."""
         kv = self._host_grads(grads)
         pseq = self._next_push_seq()
-        with _Op(self.transport, "push"):
+        with self._op("push") as sp:
+            tc = sp.wire()
             if self.bucket_bytes is not None:
                 self.flush()
                 self._with_failover(lambda: self._push_buckets_sync(
-                    self._split_kv(kv), pseq=pseq, members=members,
+                    self._split_kv(kv), pseq=pseq, tc=tc, members=members,
                     members_tc=members_tc))
                 return
 
             def once():
                 msgs = self._fanout({
                     i: self._encode_serial_push(tv.PUSH, sub, pseq=pseq,
-                                                members=members,
+                                                tc=tc, members=members,
                                                 members_tc=members_tc)
                     for i, sub in self._split_kv(kv).items()})
                 for i, msg in msgs.items():
@@ -1565,34 +1571,36 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         as in :meth:`push_all`."""
         kv = self._host_grads(grads)
         pseq = self._next_push_seq()
-        with _Op(self.transport, "push_pull"):
+        with self._op("push_pull") as sp:
+            tc = sp.wire()
             if self.bucket_bytes is not None:
                 self.flush()  # a cycle racing a serial call would reorder
 
                 def once_bucketed():
                     self._push_buckets_sync(self._split_kv(kv), pseq=pseq,
-                                            members=members,
+                                            tc=tc, members=members,
                                             members_tc=members_tc)
-                    return self._merge_host_params(self._pull_buckets())
+                    return self._merge_host_params(self._pull_buckets(tc=tc))
 
                 return self._with_failover(once_bucketed)
             return self._with_failover(
                 lambda: self._merge_params(self._fanout({
                     i: self._encode_serial_push(tv.PUSH_PULL, sub, pseq=pseq,
-                                                members=members,
+                                                tc=tc, members=members,
                                                 members_tc=members_tc)
                     for i, sub in self._split_kv(kv).items()})))
 
     # -- bucketed, pipelined transport (worker half) --------------------------
 
     def _encode_serial_push(self, kind: int, sub: Dict[str, np.ndarray],
-                            pseq: Optional[int] = None,
+                            pseq: Optional[int] = None, tc=None,
                             members: Optional[dict] = None,
                             members_tc: Optional[dict] = None):
         """One serial push frame, compressed by the policy (the packed keys
-        in ``extra["enc"]``), with the (nonce, seq) dedup token and, for a
-        merged push, the members' tokens (and their trace contexts when
-        given); zero copy parts with ``writev``."""
+        in ``extra["enc"]``), with the (nonce, seq) dedup token, for a
+        merged push the members' tokens (and their trace contexts when
+        given), and the op's trace context ``tc`` when sampled; zero copy
+        parts with ``writev``."""
         sub, enc = self._encode_push_tree(sub)
         extra = {}
         if enc:
@@ -1604,6 +1612,8 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
             extra["members"] = members
         if members_tc:
             extra["members_tc"] = members_tc
+        if tc is not None:
+            extra[obs.WIRE_KEY] = tc
         extra = extra or None
         if self.writev:
             return tv.encode_parts(kind, self.worker, sub, extra)
@@ -1617,13 +1627,14 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                 "pipelined path")
 
     def _push_buckets_sync(self, by_owner: Dict[int, Dict[str, np.ndarray]],
-                           pseq: Optional[int] = None,
+                           pseq: Optional[int] = None, tc=None,
                            members: Optional[dict] = None,
                            members_tc: Optional[dict] = None) -> None:
         """Cut each owner's subtree into buckets, stripe them over the
         pool, wait for every ack and adopt the committed versions. The
         server sees one whole-tree apply, as for a serial PUSH; every
-        bucket carries the merged push's ``members`` when given."""
+        bucket carries the merged push's ``members`` when given and the
+        op's trace context ``tc`` when sampled."""
         self._push_epoch += 1
         epoch = self._push_epoch
         futs: List[Tuple[int, Any]] = []
@@ -1642,6 +1653,8 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                     extra["members"] = members
                 if members_tc:
                     extra["members_tc"] = members_tc
+                if tc is not None:
+                    extra[obs.WIRE_KEY] = tc
                 payload = enc_bucket(tv.BUCKET_PUSH, self.worker, sub, b,
                                      extra=extra)
                 futs.append((i, pumps[b % len(pumps)].submit(
@@ -1655,20 +1668,27 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
             if extra.get("committed"):
                 self.versions[i] = int(extra["version"])
 
-    def _pull_buckets(self) -> Dict[str, np.ndarray]:
+    def _pull_buckets(self, tc=None) -> Dict[str, np.ndarray]:
         """Bucketed pull: bucket 0 snapshots each server's subtree and names
         the bucket count; the rest stream over the pool, front of the
         model first. Each reply is copied into its assembler and its
         buffer returned to the pool before the next borrow; keys the
-        server packed (``pull`` compression) are decoded last."""
+        server packed (``pull`` compression) are decoded last. Every
+        bucket carries the op's trace context ``tc`` when sampled."""
         self._pull_epoch += 1
         epoch = self._pull_epoch
+
+        def _extra(b: int, **kw) -> dict:
+            out = {"epoch": epoch, "bucket": b, **kw}
+            if tc is not None:
+                out[obs.WIRE_KEY] = tc
+            return out
+
         first = {
             i: self._pumps[i][0].submit(tv.encode(
                 tv.BUCKET_PULL, self.worker, None,
-                extra={"epoch": epoch, "bucket": 0,
-                       "bucket_bytes": self.bucket_bytes,
-                       "compress": self._pull_compress_spec()}))
+                extra=_extra(0, bucket_bytes=self.bucket_bytes,
+                             compress=self._pull_compress_spec())))
             for i in self._active}
         kv: Dict[str, np.ndarray] = {}
         enc_keys: List[str] = []
@@ -1693,7 +1713,7 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
             pumps = self._pumps[i]
             for b in range(1, n):
                 payload = tv.encode(tv.BUCKET_PULL, self.worker, None,
-                                    extra={"epoch": epoch, "bucket": b})
+                                    extra=_extra(b))
                 rest.append((i, pumps[b % len(pumps)].submit(
                     payload, priority=self._bucket_submit_priority(b))))
         for i, fut in rest:
@@ -1725,10 +1745,13 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
     def _run_cycle(self, kv, pseq: int, pending: PendingCycle) -> None:
         t0 = time.perf_counter()
         try:
-            with _Op(self.transport, "cycle"):
+            with self._op("cycle", pseq=pseq) as sp:
+                tc = sp.wire()
+
                 def once():
-                    self._push_buckets_sync(self._split_kv(kv), pseq=pseq)
-                    return self._merge_host_params(self._pull_buckets())
+                    self._push_buckets_sync(self._split_kv(kv), pseq=pseq,
+                                            tc=tc)
+                    return self._merge_host_params(self._pull_buckets(tc=tc))
 
                 params = self._with_failover(once)
         except BaseException as e:
@@ -1805,6 +1828,9 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
             self.flush()
         except Exception:
             pass  # a dead server is why we reconnect
+        obs.record_event("reconnect", worker=self.worker,
+                         servers=len(self._addrs),
+                         new_addrs=addrs is not None)
         saved = self._saved_transport_state()
         self._close_transport()
         for ch in self._chs:
@@ -1913,7 +1939,7 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         """:meth:`read_all_versioned` and the oldest birth record among
         the served shard snapshots (None when none carried one): a
         re-publisher stamps merged bytes with their oldest part's age."""
-        with _Op(self.transport, "read"):
+        with self._op("read"):
             kv: Dict[str, Any] = {}
             version = 0
             births: List[dict] = []

@@ -71,10 +71,15 @@ after the apply its move log (``tier_moves``) is harvested: the moved
 rows join the read-cache invalidation, the log rides the replicated
 push's meta and a backup replays it verbatim, and the cold passes'
 latencies go to ``cold_gather_s``. STATS reports each tiered table's
-``tier_stats()``; its reads gather the cold rows on the host. Not ported
-yet: elastic membership (``coordinator=``; ROADMAP item 6), which raises
-naming it. The reference's trace spans and ``obs`` registry counters are
-not recorded (item 6.1).
+``tier_stats()``; its reads gather the cold rows on the host.
+
+Observability (``obs/``): a worker op is a span whose context rides its
+row-push and pull frames under ``"tc"``, the server's apply (lock wait
+and the device sync included) is a ``server_apply`` child of its serve
+span, the rows it lands count into ``ps_sparse_rows_applied_total``, and
+a re-dial is a ``reconnect`` flight event. Not ported yet: elastic
+membership (``coordinator=``, the ``table_reroute`` event; ROADMAP item
+6.2), which raises naming it.
 """
 
 from __future__ import annotations
@@ -104,7 +109,6 @@ from ps_tpu_torch.backends.remote_async import (
     CheckpointRoundsMixin,
     PendingCycle,
     _not_ported,
-    _Op,
 )
 from ps_tpu_torch.compress import decode_tree, resolve_spec
 from ps_tpu_torch.backends.van_service import (
@@ -113,6 +117,7 @@ from ps_tpu_torch.backends.van_service import (
     make_history_log,
     resolve_ckpt_dir,
 )
+from ps_tpu_torch import obs
 from ps_tpu_torch.control import tensor_van as tv
 from ps_tpu_torch.obs import freshness
 
@@ -285,6 +290,9 @@ class SparsePSService(VanService):
         #: each table's apply tier ('cuda', 'torch' or 'off')
         self.fused_tiers: Dict[str, str] = {
             n: emb.fused_tier for n, emb in self._tables.items()}
+        self._rows_counter = obs.default_registry().counter(
+            "ps_sparse_rows_applied_total",
+            "raw sparse row updates applied (server side)")
         # exactly-once and the checkpoint's drain round: worker -> (nonce,
         # cycle seq, fanout) of its last applied push. A sparse cycle
         # routes to a subset of the shards, so the seq and the fanout make
@@ -374,7 +382,9 @@ class SparsePSService(VanService):
             if pf is not None:
                 pf(ids)
         t_apply = time.perf_counter()
-        with self._lock:
+        # the apply, lock wait and device sync included, is a child of the
+        # serve span when the request is traced; dedup replays record none
+        with obs.tracer().child("server_apply", cat="server"), self._lock:
             while (self._paused and not self._draining
                    and not self._admit_while_paused(worker)):
                 self._pause_wait_begin()
@@ -407,6 +417,7 @@ class SparsePSService(VanService):
             self._sync_tables()
             self.transport.record_sparse_apply(
                 rows, time.perf_counter() - t_rows)
+            self._rows_counter.inc(rows)
             # a tiered table's move log, for the replication stream (tier
             # placement is replicated state)
             tier_moves = self._pop_tier_moves(todo)
@@ -896,6 +907,7 @@ class SparsePSService(VanService):
         self._sync_tables()
         self.transport.record_sparse_apply(rows,
                                            time.perf_counter() - t_rows)
+        self._rows_counter.inc(rows)
         # a backup replicates nowhere further: its logs are dropped, its
         # cold passes timed
         self._pop_tier_moves(todo)
@@ -1278,13 +1290,14 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         device."""
         if self._pending_cycles:
             self.flush()  # a pull must not overtake an in-flight push
-        with _Op(self.transport, "pull"):
+        with self._op("pull") as sp:
             ids, devices = self._host_ids(requests)
             reqs, routes = self._build_pull(ids)
+            extra = self._tc_extra(None, sp)
 
             def once():
                 msgs = self._fanout({
-                    i: tv.encode(tv.ROW_PULL, self.worker, t)
+                    i: tv.encode(tv.ROW_PULL, self.worker, t, extra=extra)
                     for i, t in reqs.items()})
                 return self._merge_rows(ids, routes, msgs)
 
@@ -1303,7 +1316,7 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         NOT_MODIFIED and a changed one ships only the rows whose change
         stamp moved, merged into the held rows. Rows come back on the
         ids' device, as :meth:`pull`'s do."""
-        with _Op(self.transport, "read"):
+        with self._op("read"):
             ids, devices = self._host_ids(requests)
             reqs, routes = self._build_pull(ids)
 
@@ -1508,19 +1521,20 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         either way). With ``bucket_bytes`` each server's payload travels
         as fusion buckets; the server applies it as one unit either
         way."""
-        with _Op(self.transport, "push"):
+        with self._op("push") as sp:
+            tc = sp.wire()
             reqs = self._build_push(pushes, dedupe)
             pseq, pfan = self._next_push_seq(), sorted(reqs)
             if self.bucket_bytes is not None:
                 self.flush()  # keep per-worker push order == epoch order
                 self._with_failover(lambda: self._push_buckets_sync(
-                    reqs, pseq=pseq, pfan=pfan))
+                    reqs, pseq=pseq, pfan=pfan, tc=tc))
                 return
 
             def once():
                 msgs = self._fanout({
                     i: self._encode_serial_push(tv.ROW_PUSH, t, pseq=pseq,
-                                                pfan=pfan)
+                                                pfan=pfan, tc=tc)
                     for i, t in reqs.items()})
                 for i, m in msgs.items():
                     self._check(i, m)
@@ -1529,11 +1543,12 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
 
     def _encode_serial_push(self, kind: int, t: Dict[str, np.ndarray],
                             pseq: Optional[int] = None,
-                            pfan: Optional[List[int]] = None):
+                            pfan: Optional[List[int]] = None, tc=None):
         """One serial row-push frame, its grads compressed by the policy,
-        tagged with the (nonce, cycle seq, fanout) token: the dedup key,
-        and what the checkpoint's drain round compares across shards.
-        Zero-copy parts with ``writev``."""
+        tagged with the (nonce, cycle seq, fanout) token (the dedup key,
+        and what the checkpoint's drain round compares across shards) and
+        the op's trace context when sampled. Zero-copy parts with
+        ``writev``."""
         t, enc = self._encode_push_tree(t)
         extra = {}
         if enc:
@@ -1541,6 +1556,8 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         if pseq is not None:
             extra.update({"pseq": pseq, "pnonce": self._transport_nonce,
                           "pfan": pfan})
+        if tc is not None:
+            extra[obs.WIRE_KEY] = tc
         extra = extra or None
         if self.writev:
             return tv.encode_parts(kind, self.worker, t, extra)
@@ -1550,10 +1567,12 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
 
     def _push_buckets_sync(self, reqs: Dict[int, Dict[str, np.ndarray]],
                            pseq: Optional[int] = None,
-                           pfan: Optional[List[int]] = None) -> None:
+                           pfan: Optional[List[int]] = None,
+                           tc=None) -> None:
         """Stripe each server's payload over the pool as byte-sliced
-        fusion buckets, every bucket tagged with the push's cycle token;
-        the completing bucket's reply carries the committed versions."""
+        fusion buckets, every bucket tagged with the push's cycle token
+        (and trace context when sampled); the completing bucket's reply
+        carries the committed versions."""
         self._push_epoch += 1
         epoch = self._push_epoch
         futs: List[Tuple[int, Any]] = []
@@ -1569,6 +1588,8 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                 extra = {"epoch": epoch, "nonce": self._transport_nonce,
                          "pseq": pseq, "pnonce": self._transport_nonce,
                          "pfan": pfan, "enc": enc}
+                if tc is not None:
+                    extra[obs.WIRE_KEY] = tc
                 payload = enc_bucket(tv.ROW_BUCKET_PUSH, self.worker, t, b,
                                      extra=extra)
                 futs.append((i, pumps[b % len(pumps)].submit(
@@ -1599,9 +1620,10 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         def run():
             t0 = time.perf_counter()
             try:
-                with _Op(self.transport, "cycle"):
+                with self._op("cycle", pseq=pseq) as sp:
+                    tc = sp.wire()
                     self._with_failover(lambda: self._push_buckets_sync(
-                        reqs, pseq=pseq, pfan=pfan))
+                        reqs, pseq=pseq, pfan=pfan, tc=tc))
             except BaseException as e:
                 pending._fail(e)
             else:
@@ -1620,7 +1642,8 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         the ones after this push."""
         if self._pending_cycles:
             self.flush()  # a cycle must not overtake an in-flight push
-        with _Op(self.transport, "push_pull"):
+        with self._op("push_pull") as sp:
+            tc = sp.wire()
             reqs = self._build_push(pushes, dedupe)
             # the cycle's fanout is the servers receiving grads: a
             # pull-only message must not count toward the drain round
@@ -1634,7 +1657,7 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
             def once():
                 msgs = self._fanout({
                     i: self._encode_serial_push(tv.ROW_PUSH_PULL, t,
-                                                pseq=pseq, pfan=pfan)
+                                                pseq=pseq, pfan=pfan, tc=tc)
                     for i, t in reqs.items()})
                 return self._merge_rows(ids, routes, msgs)
 
@@ -1735,6 +1758,9 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
             self.flush()  # land (or fail fast) in-flight background pushes
         except Exception:
             pass  # a dead server is why we reconnect
+        obs.record_event("reconnect", worker=self.worker,
+                         servers=len(self._addrs),
+                         new_addrs=addrs is not None)
         saved = self._saved_transport_state()
         self._close_transport()
         self._close_read_channels()

@@ -76,9 +76,17 @@ severs the remaining connections. Workers that need a clean end send
 :attr:`VanService.goodbyes`, so a server can :meth:`wait_for_goodbyes`
 before stopping.
 
-Not ported yet: turning the loop's slow frames into flight events (item
-6; the loop counts them, the STATS reply's ``slow_frames``, and they are
-left in its ring undrained).
+Observability (``obs/``): every frame counts into
+``ps_server_requests_total``; a frame whose ``extra`` carries a trace
+context (``"tc"``) is served inside a span named for its kind and
+parented to the sender's span, and a replicated commit hands the open
+span's context to the backup in its REPLICA_APPEND, so the chain worker
+-> primary -> backup is one trace; the sync ack wait is its own
+``replica_ack_wait`` span. Promotion, self-fencing and stale epochs are
+flight events. On the loop, the pump syncs its counters into gauges and
+drains the loop's slow-frame ring into ``slow_frame`` events, each with
+a span of its own when the frame carried a trace. ``PS_METRICS_PORT``
+starts the process's /metrics endpoint.
 """
 
 from __future__ import annotations
@@ -90,6 +98,7 @@ import threading
 import time
 from typing import Dict, List, Optional
 
+from ps_tpu_torch import obs
 from ps_tpu_torch.backends.common import BucketAssembler, send_payload
 from ps_tpu_torch.control import tensor_van as tv
 from ps_tpu_torch.obs import freshness
@@ -312,6 +321,12 @@ class VanService:
         self.promotion_s: Optional[float] = None  # promote()'s duration
         self.goodbyes = 0  # workers that sent SHUTDOWN (clean departures)
         self._goodbye_cond = threading.Condition()
+        # every frame served (several services in one process merge by
+        # name), and the opt-in /metrics endpoint (a no-op unless
+        # PS_METRICS_PORT is set; one a process)
+        self._req_counter = obs.default_registry().counter(
+            "ps_server_requests_total", "frames served (all kinds)")
+        obs.start_metrics_server()
         # the generation both native mirrors key on: every committed change
         # bumps it (_invalidate_reads); a READ handler captures it under the
         # apply lock with its snapshot, and the pump publishes the reply at
@@ -323,6 +338,7 @@ class VanService:
         # the (generation, version, tags) a READ handler's reply serializes
         self._read_pub = threading.local()
         self._native_read_cache = False
+        self._read_pub_version = 0  # version of the last published READ
         want_loop = (env_flag("PS_VAN_NATIVE_LOOP", False)
                      if native_loop is None else bool(native_loop))
         if loop_threads is None:
@@ -384,6 +400,35 @@ class VanService:
                                 strict=False)
             self._nloop.telemetry_config(
                 self._nl_stats, int(slow_ms * 1e6) if self._nl_stats else 0)
+            reg = obs.default_registry()
+            self._loop_conn_gauge = reg.gauge(
+                "ps_van_live_connections",
+                "connections registered in the native event loop")
+            self._loop_iter_gauge = reg.gauge(
+                "ps_van_loop_iterations_total",
+                "cumulative native-loop epoll iterations")
+            self._loop_req_gauge = reg.gauge(
+                "ps_van_loop_requests_total",
+                "cumulative frames read by the native loop")
+            self._read_hits_gauge = reg.gauge(
+                "ps_pull_native_hits_total",
+                "READ frames answered by the native read cache with "
+                "zero upcalls")
+            self._read_miss_gauge = reg.gauge(
+                "ps_pull_native_misses_total",
+                "cacheable READ frames that fell through to the pump")
+            self._read_lag_gauge = reg.gauge(
+                "ps_pull_cache_version_lag",
+                "engine versions the cached READ snapshot trails by "
+                "(0 = fresh or empty)")
+            self._padm_acks_gauge = reg.gauge(
+                "ps_push_native_acks_total",
+                "push replays acked by the native admission ledger with "
+                "zero upcalls")
+            self._padm_ref_gauge = reg.gauge(
+                "ps_push_native_refusals_total",
+                "push frames refused natively (backup/fenced role) with "
+                "zero upcalls")
             self._pump_thread = threading.Thread(target=self._loop_pump,
                                                  daemon=True)
             self._pump_thread.start()
@@ -519,7 +564,13 @@ class VanService:
         s = self._backup_session
         if s is None or s.degraded:
             return None
-        return s.publish(op, worker, tensors, dict(meta or {}))
+        meta = dict(meta or {})
+        # the open span (a traced commit's apply) goes with the entry, so
+        # the backup's serve span parents to it: one trace end to end
+        ctx = obs.tracer().current()
+        if ctx is not None:
+            meta[obs.WIRE_KEY] = [ctx.trace_id, ctx.span_id]
+        return s.publish(op, worker, tensors, meta)
 
     def _await_replication(self, seq: Optional[int]) -> None:
         """Sync-ack gate, outside the apply lock and before the reply:
@@ -533,7 +584,9 @@ class VanService:
         if s is None:
             return
         if seq is not None and s.ack_mode == "sync":
-            s.wait_acked(seq)
+            # a child of the serve span; NOOP on an untraced request
+            with obs.tracer().child("replica_ack_wait", cat="server"):
+                s.wait_acked(seq)
         # checked for every commit, unreplicated ones after the degrade
         # too: once fenced, no reply may say a commit stuck at this zombie
         if s.fenced:
@@ -561,6 +614,8 @@ class VanService:
         # stops answering the backup refusal
         self._admit_sync()
         self.promotion_s = time.perf_counter() - t0
+        obs.record_event("promotion", reason=reason, epoch=self.epoch,
+                         promotion_s=round(self.promotion_s, 6))
         logging.getLogger(__name__).warning(
             "backup promoted to primary (reason=%s, epoch %d) in %.1fms",
             reason, self.epoch, self.promotion_s * 1e3)
@@ -615,6 +670,8 @@ class VanService:
             self.role = "fenced"
         self._invalidate_reads()
         self._admit_sync()  # native admission answers the fenced refusal
+        obs.record_event("self_fence", peer_epoch=int(peer_epoch),
+                         epoch=self.epoch)
         logging.getLogger(__name__).error(
             "FENCED: this shard's backup promoted to primary (epoch %d) "
             "while we were still serving — refusing all worker traffic "
@@ -836,7 +893,21 @@ class VanService:
         reply (the worker's failover loop keys on ``backup``). STATS is
         always answered, and a backup answers READs from its replicated
         state (the reply's version lets the worker hold it to its
-        staleness bound); a fenced zombie refuses them too."""
+        staleness bound); a fenced zombie refuses them too.
+
+        A frame carrying a trace context is served inside a span named
+        for its kind, parented to the sender's span (the worker's op, or
+        the primary's apply for a replica append); an untraced frame costs
+        one dict lookup."""
+        ctx = obs.from_wire(extra)
+        if ctx is not None:
+            with obs.tracer().span(tv.kind_name(kind), cat="server",
+                                   parent=ctx).set(worker=worker,
+                                                   role=self.role):
+                return self._dispatch_traced(kind, worker, tensors, extra)
+        return self._dispatch_traced(kind, worker, tensors, extra)
+
+    def _dispatch_traced(self, kind: int, worker: int, tensors, extra):
         if kind in self._REPLICA_KINDS:
             return self._handle_replica(kind, worker, tensors, extra)
         if self.role != "primary" and kind != tv.STATS:
@@ -951,6 +1022,9 @@ class VanService:
             if stale is not None:
                 old_epoch, staged, nb = stale
                 self.transport.record_stale_epoch(staged)
+                obs.record_event("stale_epoch", worker=worker,
+                                 epoch=old_epoch, superseded_by=epoch,
+                                 buckets=staged)
                 logging.getLogger(__name__).warning(
                     "worker %d abandoned push epoch %d (%d/%d buckets); "
                     "superseded by epoch %d", worker, old_epoch, staged,
@@ -1057,6 +1131,7 @@ class VanService:
                     self._inflight += 1
                 try:
                     kind, worker, tensors, extra = tv.decode(msg)
+                    self._req_counter.inc()
                     goodbye = kind == tv.SHUTDOWN
                     new_lane = None
                     if goodbye:
@@ -1156,30 +1231,67 @@ class VanService:
                         self._inflight_cond.notify_all()
 
     def _sync_loop_stats(self, nloop) -> None:
-        """Fold the loop's own counters into :attr:`transport`."""
+        """Fold the loop's own counters into :attr:`transport` and the
+        registry's gauges."""
         st = nloop.stats()
         self.transport.set_loop_stats(st["requests"], st["conns"])
+        self._loop_conn_gauge.set(st["conns"])
+        self._loop_iter_gauge.set(st["iters"])
+        self._loop_req_gauge.set(st["requests"])
         if self._native_read_cache:
             cs = nloop.cache_stats()
             self.transport.set_read_cache_stats(
                 cs["hits"], cs["misses"], cs["entries"], cs["bytes"],
                 cond_hits=cs["cond_hits"])
+            self._read_hits_gauge.set(cs["hits"])
+            self._read_miss_gauge.set(cs["misses"])
+            v = self._read_version()
+            # versions the cached snapshot trails the engine by (0 when
+            # empty: nothing stale is served)
+            self._read_lag_gauge.set(
+                max(0, int(v) - self._read_pub_version)
+                if v is not None and cs["entries"] else 0)
         if self._native_admit:
             a = nloop.admit_stats()
             self.transport.set_admit_stats(a["acks"], a["refusals"],
                                            a["fresh"], a["punts"])
+            self._padm_acks_gauge.set(a["acks"])
+            self._padm_ref_gauge.set(a["refusals"])
         if self._nl_stats:
             self._sync_nl_telemetry(nloop)
 
     def _sync_nl_telemetry(self, nloop) -> None:
-        """The in-loop queue-wait and read-hit histograms land whole in
-        their ``TransportStats`` histograms (the native stripes own the
-        counting), the slow-frame count in its gauge. The slow frames
-        stay in the loop's ring: turning them into flight events is item
-        6."""
+        """The in-loop histograms land whole in their ``TransportStats``
+        histograms (the native stripes own the counting), the slow-frame
+        count in its gauge, and the loop's slow-frame ring drains into
+        ``slow_frame`` flight events, each with a span rebuilt from the
+        loop's stamps when the frame carried a trace (the zero-upcall path
+        cannot open spans itself)."""
         self.transport.set_nl_hists(nloop.hist_snapshots())
         self.transport.set_nl_slow_frames(
             nloop.stats_snapshot()["slow_frames"])
+        for fr in nloop.slow_drain():
+            total_ns = fr["read_ns"] + fr["wait_ns"] + fr["serve_ns"]
+            obs.record_event(
+                "slow_frame", conn=fr["conn"],
+                wire_kind=tv.kind_name(fr["kind"]), size=fr["size"],
+                read_ms=round(fr["read_ns"] / 1e6, 3),
+                wait_ms=round(fr["wait_ns"] / 1e6, 3),
+                serve_ms=round(fr["serve_ns"] / 1e6, 3),
+                total_ms=round(total_ns / 1e6, 3),
+                trace_id=fr["trace_id"] or None)
+            if fr["trace_id"]:
+                obs.tracer().record_external(
+                    "slow_frame", "server", fr["trace_id"],
+                    fr["span_id"] or None,
+                    ts_us=time.time() * 1e6
+                    - (fr["age_ns"] + total_ns) / 1e3,
+                    dur_us=total_ns / 1e3,
+                    conn=fr["conn"], wire_kind=tv.kind_name(fr["kind"]),
+                    size=fr["size"],
+                    read_us=round(fr["read_ns"] / 1e3, 1),
+                    wait_us=round(fr["wait_ns"] / 1e3, 1),
+                    serve_us=round(fr["serve_ns"] / 1e3, 1))
 
     def _punt_pool(self) -> _DaemonPool:
         """The pool for punted requests that cannot park (threads spawn on
@@ -1209,6 +1321,7 @@ class VanService:
             nloop.free(ptr)
             self._loop_close_conn(cid)
             return
+        self._req_counter.inc()
         # a READ here missed the native cache: its exact request bytes are
         # the key its reply is published under (a copy: the frame is freed
         # after the reply)
@@ -1346,12 +1459,14 @@ class VanService:
         if gen is None:
             return  # an ERR reply, or no snapshot was taken
         tags = getattr(self._read_pub, "tags", None)
+        version = int(getattr(self._read_pub, "version", 0))
         if len(reply) >= 1 and reply[0] == tv.NOT_MODIFIED:
-            self._nloop.cache_put_cond(
-                raw, reply, gen, tags=tags,
-                vfloor=int(getattr(self._read_pub, "version", 0)))
+            if self._nloop.cache_put_cond(raw, reply, gen, tags=tags,
+                                          vfloor=version):
+                self._read_pub_version = version
         elif b'"cond":' not in raw[-4096:]:
-            self._nloop.cache_put(raw, reply, gen, tags=tags)
+            if self._nloop.cache_put(raw, reply, gen, tags=tags):
+                self._read_pub_version = version
 
     def _loop_shm_upgrade(self, cid: int, worker: int, extra: dict,
                           ptr: int) -> None:

@@ -6,8 +6,7 @@ same fields, the same ``PS_*``/``DMLC_*`` spellings and the same
 validation, so a launcher script drives either package unchanged. What
 differs: the backend is 'cuda' (the counterpart of 'tpu'), a ``device``
 field places everything (not an environment variable; only code asks for
-the CPU), ``fused_apply`` names the port's tiers, and ``slo_rules`` is
-kept as the raw string until the observability layer is ported.
+the CPU) and ``fused_apply`` names the port's tiers.
 
 The reference family configures node roles through environment variables
 (``DMLC_ROLE`` / ``DMLC_PS_ROOT_URI`` style) plus per-trainer argparse flags
@@ -872,8 +871,10 @@ class Config:
                              "needs a baseline sample)")
         if self.telemetry_straggler_z <= 0:
             raise ValueError("telemetry_straggler_z must be > 0")
-        # slo_rules stays the raw string: its parser belongs to the
-        # observability layer, which is not ported yet
+        if self.slo_rules:
+            from ps_tpu_torch.obs.slo import parse_rules
+
+            parse_rules(self.slo_rules)  # a bad rule fails here, loudly
         if self.freshness_slo <= 0:
             raise ValueError("freshness_slo must be > 0 (seconds — the "
                              "age bound a served read is judged against)")
@@ -893,6 +894,18 @@ class Config:
                              "or None (no endpoint)")
         if self.flight_events < 1:
             raise ValueError("flight_events must be >= 1")
+
+    def apply_obs(self) -> None:
+        """Push the observability knobs into the process-global obs
+        singletons (the tracer's sample rate, the dump directory, the
+        flight ring's size) and start the /metrics endpoint when
+        ``metrics_port`` is set; a launcher calls this once after building
+        the Config."""
+        from ps_tpu_torch import obs
+
+        obs.configure(sample=self.trace_sample, trace_dir=self.trace_dir,
+                      flight_events=self.flight_events,
+                      metrics_port=self.metrics_port)
 
     def compress_spec(self) -> Optional[dict]:
         """The normalized codec spec dict workers pass to

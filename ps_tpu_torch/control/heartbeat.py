@@ -8,9 +8,8 @@ process of a multi-process run, and ``CudaBackend.check_health`` raises
 its :class:`WorkerFailureError`. The beat and receive loops are C++
 threads (UDP), so a Python pause (a long compile, a blocking collective)
 cannot stop a process from beating; only real death does. Detection polls
-from Python. The reference also writes each detected death to its flight
-recorder; that belongs to the observability layer, which is not ported
-yet (ROADMAP Queue 1 item 6).
+from Python; each detected death lands in the flight recorder as a
+``peer_dead`` event before the raise.
 """
 
 from __future__ import annotations
@@ -222,6 +221,12 @@ class FailureDetector:
         goodbye-leave never raises)."""
         dead = self.server.dead()
         if dead:
+            from ps_tpu_torch import obs
+
+            # recorded before the raise: the dump must hold the first
+            # detection even if the raise takes the process down
+            obs.record_event("peer_dead", node=self.node_id,
+                             dead=sorted(dead))
             raise WorkerFailureError(dead)
 
     def left(self) -> List[int]:

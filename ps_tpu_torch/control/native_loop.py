@@ -49,7 +49,7 @@ MAX_BATCH = 64
 
 #: in-loop histogram geometry: lo=1e-6 s, hi=3600 s, 4 sub-buckets per
 #: octave, in lockstep with van.cpp's kNlHist* constants and with
-#: utils/metrics.NativeHist, so a native snapshot's raw buckets land there
+#: obs/metrics.Histogram, so a native snapshot's raw buckets land there
 #: unchanged
 NL_HIST_LO = 1e-6
 NL_HIST_HI = 3600.0
@@ -556,7 +556,7 @@ class NativeEventLoop:
 
     def hist_snapshots(self) -> dict:
         """The in-loop histograms as raw-state dicts in
-        :class:`~ps_tpu_torch.utils.metrics.NativeHist`'s geometry, keyed
+        :class:`~ps_tpu_torch.obs.metrics.Histogram`'s geometry, keyed
         by their ``TransportStats.hist`` name (``nl_read_hit_s``, ...).
         Stripes are summed natively; sums and extrema convert ns -> s
         here."""

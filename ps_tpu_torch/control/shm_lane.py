@@ -335,6 +335,10 @@ class _Endpoint:
         if total > self._tx.max_frame():
             if self.stats is not None:
                 self.stats.record_shm_spill()
+            from ps_tpu_torch import obs
+
+            obs.record_event("shm_spill", bytes=int(total),
+                             max_frame=self._tx.max_frame())
             if len(parts) == 1:
                 self._ch.send(parts[0])
             else:

@@ -67,6 +67,7 @@ replay their in-flight push exactly once:
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import time
@@ -195,6 +196,10 @@ def run_worker(args):
                          bucket_bytes=args.bucket_bytes or None,
                          pool_size=args.pool if args.bucket_bytes else None,
                          compress=compress)
+    # every op's latency as it was recorded, for the --dump record (the
+    # transport itself keeps histograms)
+    samples = collections.defaultdict(list)
+    w.transport.listener = lambda key, v: samples[key].append(v)
     device = w.device  # params' device; a bare "cuda" is cuda:0
     run = w.make_async_step(loss_fn, overlap=args.overlap)
     log = StepLogger(every=10)
@@ -249,7 +254,7 @@ def run_worker(args):
         "worker": args.worker_id, "losses": [float(x) for x in losses],
         "cycle_s": cycle_s, "window": [t_after_first, t_end],
         "van": van, "versions": list(w.versions),
-        "van_s": w.transport.op_samples(van_name[:-2]),
+        "van_s": samples[van_name],
         "staging_s": w.transport.staging_s,
         "staging_bytes": w.transport.staging_bytes,
         "bytes": [w.bytes_pushed, w.bytes_pulled],
@@ -258,7 +263,7 @@ def run_worker(args):
         "shm_frames": w.transport.shm_frames,
         "shm_spills": w.transport.shm_spill_frames,
         "failovers": w.transport.failovers,
-        "failover_s": w.transport.op_samples("failover"),
+        "failover_s": samples["failover_s"],
         "epochs": list(w._epochs),
         "summary": s,
     }

@@ -51,10 +51,10 @@ plans and broadcasts its move log, which every rank applies; the cold
 ids and grads are gathered, so each rank's arena applies the same global
 cold update once; the hot ids go through the hot tier's exchange.
 
-The reference's registry counters (``ps_embed_hot_hits_total``,
-``_misses_total``, ``_promotions_total``, ``_evictions_total``) belong to
-its ``obs/metrics.py``, ROADMAP item 6.1, not ported: the local ints
-here are what the service's STATS reads.
+Hits, misses, promotions and evictions are local ints (what the
+service's STATS reads) and the registry's ``ps_embed_hot_hits_total``,
+``ps_embed_misses_total``, ``ps_embed_promotions_total`` and
+``ps_embed_evictions_total`` (one family shared by every table).
 """
 
 from __future__ import annotations
@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from ps_tpu_torch import checkpoint as ckpt
+from ps_tpu_torch import obs
 from ps_tpu_torch.config import env_flag, env_int
 from ps_tpu_torch.kv.sparse import SparseEmbedding
 from ps_tpu_torch.ops.sparse_apply import segment_sum_np, state_leaves
@@ -201,13 +202,26 @@ class TieredTable:
         self._staged: Optional[tuple] = None
         self._prefetch_pool = None
 
-        # local counters, which STATS reads (the reference's registry
-        # families are item 6.1)
+        # local counters, which STATS reads, and the registry's families
+        # (same-name instruments of several tables merge at render)
         self.hot_hits = 0
         self.misses = 0
         self.promotions = 0
         self.evictions = 0
         self.prefetch_hits = 0
+        reg = obs.default_registry()
+        self._c_hits = reg.counter(
+            "ps_embed_hot_hits_total",
+            "tiered embedding ids served from the device hot set")
+        self._c_miss = reg.counter(
+            "ps_embed_misses_total",
+            "tiered embedding ids that went to the host cold arena")
+        self._c_promo = reg.counter(
+            "ps_embed_promotions_total",
+            "tiered embedding rows promoted cold -> hot (state moved)")
+        self._c_evict = reg.counter(
+            "ps_embed_evictions_total",
+            "tiered embedding rows demoted hot -> cold (state moved)")
         self._cold_gather_s: list = []
         self.last_moves: dict = {"ops": [], "hand": 0}
 
@@ -336,6 +350,8 @@ class TieredTable:
             self._push_cold(all_ids[gcold], host[gcold])
         self.hot_hits += n_hot
         self.misses += n_cold
+        self._c_hits.inc(int(n_hot))
+        self._c_miss.inc(int(n_cold))
         self.push_count += 1
         # change stamps: the push's rows and every moved row ("d"/"p";
         # a ref clear changes no bytes)
@@ -503,6 +519,7 @@ class TieredTable:
             self.slot_to_id[d_slots] = -1
             self.ref[d_ids] = 0
             self.evictions += len(dem)
+            self._c_evict.inc(len(dem))
         pro = [(rid, s) for kind, rid, s in ops if kind == "p"]
         if pro:
             p_ids = np.asarray([r for r, _ in pro], np.int32)
@@ -514,6 +531,7 @@ class TieredTable:
             self.slot_to_id[p_slots] = p_ids
             self.ref[p_ids] = 1
             self.promotions += len(pro)
+            self._c_promo.inc(len(pro))
         if moves.get("hand") is not None:
             self.hand = int(moves["hand"])
         self.dir_gen += 1
@@ -556,6 +574,8 @@ class TieredTable:
                 0, _index(ids[~hot_mask]))
         self.hot_hits += n_hot
         self.misses += ids.shape[0] - n_hot
+        self._c_hits.inc(int(n_hot))
+        self._c_miss.inc(int(ids.shape[0] - n_hot))
         self.bytes_pulled += out.numel() * out.element_size()
         return out
 

@@ -17,7 +17,8 @@ room to be wrong, NTP's min-RTT filter).
 
 The dense worker's version watcher feeds one :class:`ClockSync` per
 shard with :meth:`ClockSync.observe` from the replies it already gets.
-The reference's trace timeline, which also reads the offset, is item 6.
+A tracer's ``clock_offset_us`` takes the offset too, so several
+processes' Chrome exports merge onto one timeline (``obs/trace.py``).
 """
 
 from __future__ import annotations

@@ -189,6 +189,11 @@ class BackupSession:
 
     def _degrade(self, why: str) -> None:
         if not self.log.dead:
+            from ps_tpu_torch import obs
+
+            obs.record_event("repl_degraded",
+                             backup=f"{self.addr[0]}:{self.addr[1]}",
+                             fenced=self.fenced, why=why)
             logging.getLogger(__name__).warning(
                 "replication to %s:%d degraded — primary continues "
                 "UNREPLICATED: %s", *self.addr, why)

@@ -86,6 +86,10 @@ class PromotionWatch:
             state = self.server.state(self.primary_id)
             if state in ("left", "dead"):
                 reason = "goodbye" if state == "left" else "timeout"
+                from ps_tpu_torch import obs
+
+                obs.record_event("promotion_watch_fired",
+                                 primary_id=self.primary_id, reason=reason)
                 self.detect_age_ms = self.server.age_ms(self.primary_id)
                 t0 = time.monotonic()
                 self.service.promote(reason=reason)

@@ -1,82 +1,49 @@
-"""One training run's throughput and byte metrics, and the van
-transport's counters.
+"""One training run's throughput and byte metrics, the van transport's
+counters and latency histograms, and a rate meter.
 
-Counterpart of ``TrainMetrics`` and the part of ``TransportStats`` in
-``ps_tpu/utils/metrics.py`` that the van's serial and bucketed paths and
-the STATS reply record, with the codec, shared-memory lane, native
-serve loop, replication, failover, read-path and two-level aggregation
-counters and the freshness plane's ages. The rest of that module
-(``Meter``, the log2 latency histograms of the registry) belongs to the
-observability layer and is not ported yet (ROADMAP Queue 1 item 6.1):
-a latency is kept as a bounded window of samples, and the native loop's
-queue-wait and read-hit histograms as their raw state
-(:class:`NativeHist`) in the registry's geometry.
+Counterpart of ``ps_tpu/utils/metrics.py``: ``Meter``, ``TrainMetrics``
+and ``TransportStats`` with the codec, shared-memory lane, native serve
+loop, replication, failover, read-path, two-level aggregation and
+freshness counters. Every latency lands in a log2-bucket
+:class:`~ps_tpu_torch.obs.metrics.Histogram` registered into the process
+registry under the reference's name (``TransportStats.HIST_NAMES``), so
+/metrics, the STATS reply's ``metrics.lat`` and ``tools/ps_top.py`` read
+the port as they read the reference.
 """
 
 from __future__ import annotations
 
 import collections
-import math
 import threading
 import time
-from typing import Deque, Dict, Optional
+from typing import Callable, Deque, Dict, Optional
 
-import numpy as np
+from ps_tpu_torch.obs.metrics import Histogram, default_registry
 
 
-class NativeHist:
-    """One in-loop histogram of the native serve loop as the loop counts
-    it: the registry's geometry (bucket ``k >= 1`` covers ``(lo *
-    2^((k-1)/4), lo * 2^(k/4)]``, bucket 0 underflow, the last overflow),
-    its raw state overwritten by each sync (the native side owns the
-    counting) and read as quantiles."""
+class Meter:
+    """Sliding-window rate meter: ``update(n)`` an event, ``rate()`` in
+    n a second. The window bounds staleness and memory; the first sample
+    opens the window, so an early rate is not inflated by an empty
+    history."""
 
-    SUB = 4
+    def __init__(self, window: int = 64):
+        self._events: Deque = collections.deque(maxlen=window)
 
-    def __init__(self, lo: float = 1e-6, hi: float = 3600.0):
-        self.lo, self.hi = float(lo), float(hi)
-        self._nb = int(math.ceil(math.log2(hi / lo) * self.SUB))
-        self.counts = [0] * (self._nb + 2)
-        self.total = 0
-        self.sum = 0.0
-        self.vmax = 0.0
-        self.vmin = math.inf
+    def update(self, n: float = 1.0, t: Optional[float] = None) -> None:
+        self._events.append((time.monotonic() if t is None else t, float(n)))
 
-    def quantile(self, q: float) -> float:
-        """The estimated ``q``-quantile, interpolated geometrically inside
-        the bucket that crosses it (0 when empty)."""
-        counts = list(self.counts)
-        total = sum(counts)
-        if total == 0:
+    def rate(self) -> float:
+        if len(self._events) < 2:
             return 0.0
-        rank, cum = q * total, 0.0
-        for k, c in enumerate(counts):
-            if c == 0:
-                continue
-            if cum + c >= rank:
-                if k == 0:
-                    return min(self.lo, self.vmax)
-                if k > self._nb:
-                    return self.vmax
-                lo_k = self.lo * 2.0 ** ((k - 1) / self.SUB)
-                est = lo_k * 2.0 ** ((rank - cum) / c / self.SUB)
-                return min(max(est, self.vmin), self.vmax)
-            cum += c
-        return self.vmax
+        dt = self._events[-1][0] - self._events[0][0]
+        if dt <= 0:
+            return 0.0
+        # the first sample opens the window; its count predates it
+        return sum(n for _, n in list(self._events)[1:]) / dt
 
-    def summary(self) -> Optional[dict]:
-        """``{count, mean, p50, p99, max}`` (seconds); None when empty."""
-        if not self.total:
-            return None
-        return {"count": self.total, "mean": self.sum / self.total,
-                "p50": self.quantile(0.5), "p99": self.quantile(0.99),
-                "max": self.vmax}
-
-
-#: the native loop's histograms kept (of ``native_loop.NL_HISTS``' names):
-#: the queue wait and the native read hit's service time, which the STATS
-#: reply reads
-NL_HIST_KEYS = ("nl_queue_wait_s", "nl_read_hit_s")
+    def reset(self) -> None:
+        self._events.clear()
 
 
 class TransportStats:
@@ -99,8 +66,7 @@ class TransportStats:
     under the reference's ``apply_s``, ``sparse_apply_s`` and
     ``fresh_lag_s`` latency names; a tiered table's cold passes, drained
     after the push commits, go under ``cold_gather_s``
-    (``record_cold_gather``; the reference's
-    ``ps_embed_cold_gather_seconds`` histogram is item 6.1).
+    (``record_cold_gather``, ``ps_embed_cold_gather_seconds``).
 
     The read path: a server counts the READs it answered in Python
     (``record_read_served``), its NOT_MODIFIED replies and delta rows,
@@ -110,9 +76,72 @@ class TransportStats:
     (``read_gap_v``). Both record each serve's data age
     (``record_read_age``, ``read_age_s``), which :meth:`fresh_snapshot`
     summarizes for STATS.
+
+    Each latency is one histogram of :attr:`HIST_NAMES`, registered into
+    the process registry (instances of one name merge there). A harness
+    that wants the raw samples too sets :attr:`listener`, a callable
+    given ``(key, value)`` at every record.
     """
 
+    #: ``(key, Prometheus name, help)`` of every latency distribution, the
+    #: reference's list: client ops, fusion-bucket rounds, caller waits,
+    #: sync replica acks, failover re-routes, the server's apply and row
+    #: apply, the native loop's upcall batches and in-loop histograms, the
+    #: aggregator's hold, the tiered cold pass, and the freshness plane
+    HIST_NAMES = (
+        ("push_s", "ps_push_seconds", "client push op latency"),
+        ("pull_s", "ps_pull_seconds", "client pull op latency"),
+        ("read_s", "ps_read_seconds",
+         "client read (side-effect-free pull) op latency"),
+        ("push_pull_s", "ps_push_pull_seconds",
+         "client push_pull cycle latency"),
+        ("cycle_s", "ps_cycle_seconds",
+         "background push->pull transport cycle (push_pull_async)"),
+        ("bucket_s", "ps_bucket_seconds",
+         "one fusion-bucket request/reply round"),
+        ("blocked_s", "ps_blocked_seconds",
+         "caller waits on the flush barrier / pending cycles"),
+        ("repl_ack_wait_s", "ps_replica_ack_wait_seconds",
+         "serve-thread waits on the sync replica ack"),
+        ("failover_s", "ps_failover_seconds",
+         "worker shard re-routes to a promoted replica"),
+        ("apply_s", "ps_server_apply_seconds",
+         "server engine apply of one committed push (lock held)"),
+        ("sparse_apply_s", "ps_sparse_apply_seconds",
+         "server sparse row apply (gather->apply->scatter), per push"),
+        ("upcall_batch", "ps_van_upcall_batch",
+         "requests handed to Python per native-loop upcall"),
+        ("agg_hold_s", "ps_agg_hold_seconds",
+         "member pushes held at the aggregator until the merged "
+         "upstream flush commits"),
+        ("nl_read_frame_s", "ps_nl_read_frame_seconds",
+         "native loop frame read latency (first byte to frame complete)"),
+        ("nl_queue_wait_s", "ps_nl_queue_wait_seconds",
+         "native loop ready-queue wait (frame complete to pump claim)"),
+        ("nl_read_hit_s", "ps_nl_read_hit_seconds",
+         "native READ-hit service time (frame complete to reply "
+         "written, zero upcalls)"),
+        ("nl_flush_s", "ps_nl_flush_seconds",
+         "native loop staged-tail EPOLLOUT flush latency (writev "
+         "stall to drain complete)"),
+        ("cold_gather_s", "ps_embed_cold_gather_seconds",
+         "tiered embedding cold-tier gather->apply->scatter, per push"),
+        ("read_age_s", "ps_read_staleness_seconds",
+         "data age at serve time (now - version birth), any tier"),
+        ("fresh_lag_s", "ps_freshness_lag_seconds",
+         "push -> first-servable lag at the primary's apply"),
+        ("read_gap_v", "ps_read_refused_version_gap",
+         "version gap of replica reads refused by the staleness bound"),
+    )
+
     def __init__(self, window: int = 256):
+        reg = default_registry()
+        self.hist: Dict[str, Histogram] = {}
+        for key, prom, help_ in self.HIST_NAMES:
+            h = Histogram(prom, help_)
+            self.hist[key] = h
+            reg.register(h)
+        self.listener: Optional[Callable[[str, float], None]] = None
         self._lock = threading.Lock()
         self._bucket_window: Deque = collections.deque(maxlen=window)
         self.buckets = 0
@@ -158,8 +187,6 @@ class TransportStats:
         self.push_native_refusals = 0
         self.push_native_fresh = 0
         self.push_native_punts = 0
-        self.hist: Dict[str, NativeHist] = {k: NativeHist()
-                                            for k in NL_HIST_KEYS}
         # shard replication (replica/): entries and bytes the backup acked,
         # time serve threads waited for sync acks, the backup's lag (a
         # gauge), whether the stream degraded (the primary goes on
@@ -204,40 +231,39 @@ class TransportStats:
         self.agg_rounds = 0
         self.agg_members = 0
         self.agg_degrades = 0
-        # the latest samples by the reference's histogram name (push_s,
-        # pull_s, read_s, read_age_s, read_gap_v, ...): the reference
-        # keeps log2 histograms (obs/, not ported yet); a bounded window
-        # of samples gives the same quantiles here
-        self._samples: Dict[str, Deque] = collections.defaultdict(
-            lambda: collections.deque(maxlen=4096))
+        # the read path's and the freshness plane's counter families
+        self._c_read_nm = reg.counter(
+            "ps_read_not_modified_total",
+            "conditional READs answered NOT_MODIFIED (stamp only)")
+        self._c_read_delta = reg.counter(
+            "ps_read_delta_rows_total",
+            "changed rows shipped as conditional-read deltas")
+        self._c_fresh_clamped = reg.counter(
+            "ps_freshness_clock_clamped_total",
+            "negative cross-process data ages clamped to zero (skew)")
+
+    def _observe(self, key: str, value: float) -> None:
+        self.hist[key].record(value)
+        fn = self.listener
+        if fn is not None:
+            fn(key, float(value))
 
     def record_op(self, name: str, seconds: float) -> None:
         """One client-side logical transport op (``push``/``pull``/
-        ``push_pull``/``read``/``cycle``) end to end."""
-        self._record_sample(name + "_s", seconds)
-
-    def _record_sample(self, key: str, value: float) -> None:
-        with self._lock:
-            self._samples[key].append(float(value))
-
-    def op_samples(self, name: str) -> list:
-        """The latest latencies (seconds) of op ``name``, oldest first."""
-        with self._lock:
-            return list(self._samples.get(name + "_s", ()))
+        ``push_pull``/``read``/``cycle``) end to end; a name without a
+        histogram is ignored, as in the reference."""
+        if name + "_s" in self.hist:
+            self._observe(name + "_s", seconds)
 
     def latency_quantiles(self) -> Dict[str, dict]:
-        """``{name: {count, mean, p50, p99, max}}`` over each sampled
-        quantity's latest samples, under the reference's histogram names
-        (``push_s``, ``read_age_s``, ``read_gap_v``, ...)."""
-        with self._lock:
-            samples = {k: list(v) for k, v in self._samples.items() if v}
-        out = {}
-        for name, xs in samples.items():
-            a = np.asarray(xs)
-            out[name] = {
-                "count": len(xs), "mean": float(a.mean()),
-                "p50": float(np.quantile(a, 0.5)),
-                "p99": float(np.quantile(a, 0.99)), "max": float(a.max())}
+        """``{name: {count, mean, p50, p99, p999, max}}`` of every
+        histogram that recorded at least once (the STATS reply's
+        ``metrics.lat``, what ``ps_top`` renders)."""
+        out: Dict[str, dict] = {}
+        for k, h in self.hist.items():
+            s = h.summary()
+            if s is not None:
+                out[k] = s
         return out
 
     def record_apply(self, seconds: float) -> None:
@@ -257,7 +283,7 @@ class TransportStats:
         """One tiered table's cold pass (dedupe, arena gather, apply,
         scatter back), drained from the table after the push commits
         (``TieredTable.drain_cold_gather``)."""
-        self._record_sample("cold_gather_s", seconds)
+        self._observe("cold_gather_s", seconds)
 
     def record_fresh_lag(self, seconds: float) -> None:
         """Server side: one apply's push-to-first-servable lag (from the
@@ -303,7 +329,7 @@ class TransportStats:
     def record_agg_hold(self, seconds: float) -> None:
         """How long one member's push was held at the aggregator, from its
         arrival to the merged upstream commit (``agg_hold_s``)."""
-        self._record_sample("agg_hold_s", seconds)
+        self._observe("agg_hold_s", seconds)
 
     def record_agg_degrade(self) -> None:
         """One worker-side aggregator loss: a degrade to the flat
@@ -369,6 +395,7 @@ class TransportStats:
 
     def record_upcall(self, batch: int) -> None:
         """One native-loop poll that handed ``batch`` requests to Python."""
+        self._observe("upcall_batch", batch)
         with self._lock:
             self.loop_upcalls += 1
 
@@ -394,8 +421,8 @@ class TransportStats:
 
     def set_nl_hists(self, states: Dict[str, dict]) -> None:
         """Overwrite the in-loop histograms with the loop's raw states; a
-        state whose geometry differs from :class:`NativeHist`'s is skipped
-        rather than mis-bucketed."""
+        state whose geometry differs from the registered histogram's is
+        skipped rather than mis-bucketed."""
         for key, st in states.items():
             h = self.hist.get(key)
             if h is None or len(st["c"]) != len(h.counts) \
@@ -406,7 +433,7 @@ class TransportStats:
             h.sum = float(st["s"])
             h.vmax = float(st["mx"])
             mn = st.get("mn")
-            h.vmin = math.inf if mn is None else float(mn)
+            h.vmin = float("inf") if mn is None else float(mn)
 
     def set_nl_slow_frames(self, slow_frames: int) -> None:
         """The loop's count of frames over its slow-frame threshold."""
@@ -464,16 +491,18 @@ class TransportStats:
     def record_read_gap(self, versions: int) -> None:
         """Worker side: how many versions a refused replica reply trailed
         the newest known one (``read_gap_v``)."""
-        self._record_sample("read_gap_v", versions)
+        self._observe("read_gap_v", float(versions))
 
     def record_read_not_modified(self) -> None:
         """Server side: one conditional READ answered NOT_MODIFIED."""
+        self._c_read_nm.inc()
         with self._lock:
             self.read_not_modified += 1
 
     def record_read_delta_rows(self, rows: int) -> None:
         """Server side: one conditional sparse READ shipped ``rows``
         changed rows instead of the whole requested id-set."""
+        self._c_read_delta.inc(int(rows))
         with self._lock:
             self.read_delta_rows += int(rows)
 
@@ -486,7 +515,7 @@ class TransportStats:
         ``tier`` the serving tier (cache, wire, replica, nm, pump, ...),
         ``bound`` the staleness bound in seconds this endpoint holds
         reads to, ``clamped`` marks a negative age clamped to zero."""
-        self._record_sample("read_age_s", seconds)
+        self._observe("read_age_s", seconds)
         with self._lock:
             self.reads_aged += 1
             if bound is not None and seconds <= bound:
@@ -499,34 +528,34 @@ class TransportStats:
                 t[1] = float(seconds)
             if clamped:
                 self.fresh_clock_clamped += 1
+        if clamped:
+            self._c_fresh_clamped.inc()
 
     def fresh_snapshot(self) -> Optional[dict]:
         """The STATS reply's ``fresh`` dict (None until an age or a lag
         was recorded): age and lag quantiles in ms, the share within the
         bound, clamps, the source mix and each tier's count and largest
         age, under the reference's keys."""
+        age = self.hist["read_age_s"]
+        lag = self.hist["fresh_lag_s"]
         with self._lock:
-            ages = list(self._samples.get("read_age_s", ()))
-            lags = list(self._samples.get("fresh_lag_s", ()))
             aged, within = self.reads_aged, self.reads_fresh
             clamped = self.fresh_clock_clamped
             src = {k: v for k, v in self.fresh_src.items() if v}
             tiers = {t: {"n": int(n), "max_ms": round(mx * 1e3, 3)}
                      for t, (n, mx) in self.fresh_tiers.items()}
-        if aged == 0 and not lags:
+        if aged == 0 and lag.total == 0:
             return None
         out: dict = {"aged": int(aged)}
-        if ages:
-            out["age_p50_ms"] = round(float(np.quantile(ages, 0.5)) * 1e3, 3)
-            out["age_p99_ms"] = round(float(np.quantile(ages, 0.99)) * 1e3,
-                                      3)
+        if age.total > 0:
+            out["age_p50_ms"] = round(age.quantile(0.50) * 1e3, 3)
+            out["age_p99_ms"] = round(age.quantile(0.99) * 1e3, 3)
         if aged > 0:
             out["within"] = int(within)
             out["fresh_share"] = round(within / aged, 4)
-        if lags:
-            out["lag_p50_ms"] = round(float(np.quantile(lags, 0.5)) * 1e3, 3)
-            out["lag_p99_ms"] = round(float(np.quantile(lags, 0.99)) * 1e3,
-                                      3)
+        if lag.total > 0:
+            out["lag_p50_ms"] = round(lag.quantile(0.50) * 1e3, 3)
+            out["lag_p99_ms"] = round(lag.quantile(0.99) * 1e3, 3)
         if clamped:
             out["clamped"] = int(clamped)
         if src:
@@ -555,6 +584,7 @@ class TransportStats:
             self.stale_epoch_buckets += int(nbuckets)
 
     def record_bucket(self, nbytes: int, seconds: float) -> None:
+        self._observe("bucket_s", seconds)
         with self._lock:
             self.buckets += 1
             self.bucket_bytes += int(nbytes)
@@ -567,6 +597,7 @@ class TransportStats:
             self.busy_s += float(busy_s)
 
     def record_blocked(self, seconds: float) -> None:
+        self._observe("blocked_s", seconds)
         with self._lock:
             self.blocked_s += float(seconds)
 

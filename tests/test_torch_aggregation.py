@@ -23,11 +23,11 @@ their degrade to the flat path), against the reference's.
   cases), the aggregator cases of ``tests/test_read_path.py`` and part
   (d) of ``tests/test_freshness.py``, and a replicated upstream whose
   backup is bitwise its primary and dedups the members' replays after its
-  promotion. Three reference cases need items the port does not hold
-  yet and are not run: ``test_stale_discovered_aggregator_falls_back_to_
-  flat`` and ``test_coordinator_assigns_host_group`` (the coordinator's
-  membership table, item 6.2) and ``test_trace_chain_worker_aggregator_
-  shard_resolves`` (spans, item 6.1).
+  promotion. Two reference cases need the coordinator's membership
+  table (item 6.2) and are not run: ``test_stale_discovered_aggregator_
+  falls_back_to_flat`` and ``test_coordinator_assigns_host_group``; the
+  trace chain case (``test_trace_chain_worker_aggregator_shard_
+  resolves``) is in ``tests/test_torch_obs_services.py``.
 
 Tolerance: bitwise everywhere. The gradients are small integers and the
 sgd learning rate a power of two, so every sum is exact in float32 and any
@@ -165,7 +165,7 @@ def test_aggregated_rounds_are_exact_and_merged(bucket_bytes):
         assert set(svc._applied) == {AGG_WORKER_BASE + 0}
         s = agg.transport.summary()
         assert s["agg_rounds"] == 3 and s["agg_fan_in"] == FAN_IN
-        assert len(agg.transport.op_samples("agg_hold")) == 3 * FAN_IN
+        assert agg.transport.hist["agg_hold_s"].total == 3 * FAN_IN
     finally:
         _close(ws)
         agg.stop()

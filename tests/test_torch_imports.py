@@ -1,6 +1,6 @@
 """Import hygiene of the port: ``ps_tpu_torch/`` and ``chip_smoke.py``
-import no jax, flax, optax or ps_tpu (the reference package; the name
-``ps_tpu_torch`` is the port's own), and no ``try`` falls back to a
+import no jax, flax, optax, tensorflow or ps_tpu (the reference package;
+the name ``ps_tpu_torch`` is the port's own), and no ``try`` falls back to a
 kernel's plain version (the sparse apply's ``_apply_torch``, flash
 attention's ``_flash_fwd_torch``) when something fails."""
 
@@ -12,7 +12,7 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ps_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "tensorflow", "ps_tpu"}
 PLAIN_VERSIONS = {"_apply_torch", "_flash_fwd_torch"}
 FILES = sorted(str(p.relative_to(ROOT))
                for p in (ROOT / "ps_tpu_torch").rglob("*.py")) + ["chip_smoke.py"]
@@ -101,17 +101,26 @@ def test_every_slice_module_is_checked():
                  "ps_tpu_torch/replica/watch.py",
                  "ps_tpu_torch/obs/__init__.py",
                  "ps_tpu_torch/obs/freshness.py",
-                 "ps_tpu_torch/obs/clock.py"):
+                 "ps_tpu_torch/obs/clock.py",
+                 "ps_tpu_torch/obs/metrics.py",
+                 "ps_tpu_torch/obs/trace.py",
+                 "ps_tpu_torch/obs/flight.py",
+                 "ps_tpu_torch/obs/http.py",
+                 "ps_tpu_torch/obs/slo.py",
+                 "ps_tpu_torch/obs/straggler.py",
+                 "ps_tpu_torch/obs/breakdown.py"):
         assert path in FILES
 
 
 def test_van_plane_loads_neither_jax_nor_its_package():
     """The van plane (the native loader, control/ with the shm lane and
     the native loop, the codecs, the services and the remote workers,
-    dense and sparse, the aggregator, replica/ and obs/, the read path's
-    freshness stamps and clock) runs without JAX and never reaches into ps_tpu/: its
-    modules load no jax, jaxlib, flax, optax or ps_tpu, and the native
-    loader builds the port's own copy of van.cpp."""
+    dense and sparse, the aggregator, replica/ and obs/ with its
+    metrics, traces, flight recorder, /metrics endpoint, SLOs, straggler
+    detector and breakdown) runs without JAX and never reaches into
+    ps_tpu/: its modules load no jax, jaxlib, flax, optax, tensorflow or
+    ps_tpu, and the native loader builds the port's own copy of
+    van.cpp."""
     code = ("import sys, ps_tpu_torch.native as n, "
             "ps_tpu_torch.control.tensor_van, ps_tpu_torch.control.heartbeat, "
             "ps_tpu_torch.control.shm_lane, ps_tpu_torch.control.native_loop, "
@@ -120,9 +129,10 @@ def test_van_plane_loads_neither_jax_nor_its_package():
             "ps_tpu_torch.backends.remote_async, "
             "ps_tpu_torch.backends.remote_sparse, "
             "ps_tpu_torch.backends.aggregator, ps_tpu_torch.replica, "
-            "ps_tpu_torch.obs, ps_tpu_torch.obs.clock; "
+            "ps_tpu_torch.obs, ps_tpu_torch.obs.clock, "
+            "ps_tpu_torch.utils.step_log; "
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
-            "{'jax', 'jaxlib', 'flax', 'optax', 'ps_tpu'}), "
+            "{'jax', 'jaxlib', 'flax', 'optax', 'tensorflow', 'ps_tpu'}), "
             "n._DIR.name, n._DIR.parent.name)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,

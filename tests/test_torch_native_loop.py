@@ -650,23 +650,32 @@ def test_stats_carry_the_loops_counters_and_histograms():
 
 def test_slow_frames_are_counted_and_left_in_the_loops_ring(monkeypatch):
     """A 1 ns threshold makes every pump-bound frame slow: the STATS
-    reply counts them, and the loop's ring still holds them (nothing
-    drains it until item 6's flight events) for ``slow_drain``."""
+    reply counts them, and the pump drains the loop's ring into
+    ``slow_frame`` flight events (one a frame, its kind named), leaving
+    the ring empty for ``slow_drain``."""
+    from ps_tpu_torch import obs
+
     monkeypatch.setenv("PS_NL_SLOW_FRAME_MS", "0.000001")
+    before = len(obs.flight().events())
     svc = Echo(native_loop=True)
     try:
         for i in range(3):
             _request(svc.port, tv.encode(tv.PUSH, i,
                                          {"x": np.zeros(4, np.float32)}))
+
+        def slow_events():
+            return [e for e in obs.flight().events()[before:]
+                    if e["kind"] == "slow_frame"]
+
         deadline = time.monotonic() + 5
-        while (svc.transport.nl_slow_frames < 3
+        while ((svc.transport.nl_slow_frames < 3 or len(slow_events()) < 3)
                and time.monotonic() < deadline):
             time.sleep(0.05)  # the pump syncs on its next idle tick
         assert svc.replica_state()["loop"]["slow_frames"] >= 3
-        frames = svc._nloop.slow_drain()
+        frames = slow_events()
         assert len(frames) >= 3
-        assert {f["kind"] for f in frames} == {tv.PUSH}
-        assert svc._nloop.slow_drain() == []  # drained once
+        assert {f["wire_kind"] for f in frames} == {tv.kind_name(tv.PUSH)}
+        assert svc._nloop.slow_drain() == []  # the pump drained it
     finally:
         svc.stop()
 
@@ -678,7 +687,7 @@ def test_read_cache_calls_name_item_5_8():
     invalidation raised is refused, a conditional put keys on the
     request with its cond digits cut out, and the stats carry nine
     counters."""
-    from ps_tpu_torch.utils.metrics import NL_HIST_KEYS
+    from ps_tpu_torch.utils.metrics import TransportStats
 
     svc = Echo(native_loop=True)
     try:
@@ -697,7 +706,8 @@ def test_read_cache_calls_name_item_5_8():
                            "cond_hits"}
         assert cs["puts"] == 2 and cs["rejects"] == 1 and cs["floor"] == 2
         assert cs["entries"] == 1 and cs["invalidations"] == 1
-        assert set(NL_HIST_KEYS) <= {k for _, k in nl.NL_HISTS}
+        # every in-loop histogram has its TransportStats twin
+        assert {k for _, k in nl.NL_HISTS} <= set(TransportStats().hist)
     finally:
         svc.stop()
 

@@ -114,6 +114,7 @@ compressed them); ``chip_smoke.py`` uses it too.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import json
@@ -294,7 +295,12 @@ def replay(event_logs, num_workers: int, device, witness=None,
     the largest ``‖g_witness,p - g_p‖₂ / ‖g_p‖₂``, which a push whose
     gradient nearly cancels (a near-uniform softmax) inflates while its
     terms keep their rounding, hence the floor m; ``grad_err["smallest"]``
-    and ``grad_err["largest"]`` the least and the largest ``‖g_p‖₂ / m``.
+    and ``grad_err["largest"]`` the least and the largest ``‖g_p‖₂ / m``;
+    ``grad_err["worst"]`` the push that sets ``grad_err["witness"]``: its
+    worker and cycle, each key's ``‖g_witness - g‖₂`` (``per_key``), the
+    smallest ``|z|`` of its ReLU inputs ``z = x W1 + b1`` on ``device``
+    (``relu_min_abs``) and how many of them the two devices put on
+    opposite sides of zero (``relu_sign_flips``).
 
     ``compress`` (``{worker: spec}``, the spec that worker resolved, its
     seed included) replays the codecs: each push goes through the
@@ -369,6 +375,7 @@ def replay(event_logs, num_workers: int, device, witness=None,
     pushes = {}   # (worker, shard) -> pushes replayed
     grads = {}    # (worker, cycle) -> one gradient a device
     diffs, norms = [], []  # a push's ‖g_witness - g‖₂ and ‖g‖₂
+    which, per_key = [], []  # its (worker, cycle) and each key's difference
     cursors = [0] * nshards
     while any(c < len(log) for c, log in zip(cursors, event_logs)):
         moved = False
@@ -408,10 +415,14 @@ def replay(event_logs, num_workers: int, device, witness=None,
                                     g[k] = torch.from_numpy(
                                         np.array(v)).to(g[k].device)
                         for g in gs[1:]:
-                            diffs.append(sum(float(
-                                (g[k].cpu().double() - v.cpu().double())
-                                .square().sum())
-                                for k, v in gs[0].items()) ** 0.5)
+                            per = {k: float((g[k].cpu().double()
+                                             - v.cpu().double())
+                                            .square().sum()) ** 0.5
+                                   for k, v in gs[0].items()}
+                            per_key.append(per)
+                            which.append((w, c))
+                            diffs.append(sum(x * x for x in per.values())
+                                         ** 0.5)
                             norms.append(sum(float(
                                 v.double().square().sum())
                                 for v in gs[0].values()) ** 0.5)
@@ -431,11 +442,30 @@ def replay(event_logs, num_workers: int, device, witness=None,
         return finals[0]
     diffs, norms = np.array(diffs), np.array(norms)
     median = float(np.median(norms))
+    ratio = diffs / np.maximum(norms, median)
+    i = int(ratio.argmax())
+    w, c = which[i]
+    kv = {}
+    for t in range(nshards):
+        kv.update(pulls[(w, t)][used[(w, t)][c]])
+    stream = mnist_batches(batch_size, seed=seed, worker=w,
+                           num_workers=num_workers)
+    for _ in range(c + 1):
+        x = next(stream)[0]
+    zs = []
+    for dev in devices:
+        xd = torch.as_tensor(x).to(dev).reshape(len(x), -1)
+        zs.append((xd @ kv["dense1/kernel"].to(dev)
+                   + kv["dense1/bias"].to(dev)).cpu())
     return finals[0], finals[1], {
-        "witness": float((diffs / np.maximum(norms, median)).max()),
+        "witness": float(ratio.max()),
         "relative": float((diffs / norms).max()),
         "smallest": float(norms.min()) / median,
-        "largest": float(norms.max()) / median}
+        "largest": float(norms.max()) / median,
+        "worst": {"worker": int(w), "cycle": int(c), "per_key": per_key[i],
+                  "relu_min_abs": float(zs[0].abs().min()),
+                  "relu_sign_flips": int(((zs[0] > 0) != (zs[1] > 0))
+                                         .sum())}}
 
 
 def model_params():
@@ -586,6 +616,78 @@ def run_drill(rank, k, port, hb_base, victim, out):
 # -- the replication drill's processes (replica/) -----------------------------
 
 
+def keep_samples(transport) -> dict:
+    """Keep every latency sample ``transport`` records, by its histogram
+    key (``push_s``, ``apply_s``, ``failover_s``, ...). A process reports
+    histograms; a role that hands its run's raw samples to the test (a
+    median, a cycle's slice) keeps them here."""
+    samples = collections.defaultdict(list)
+    transport.listener = lambda key, v: samples[key].append(v)
+    return samples
+
+
+def obs_start(out, opts, name, clock_port=None):
+    """A role's observability, when ``opts["obs"]`` is set: the process's
+    tracer and flight recorder named ``name`` and writing under ``out``
+    (sampling stays off: the role turns it on where it traces), a /metrics
+    endpoint with ``opts["metrics"]`` (its port in ``metrics<name>``), and
+    the clock offset to the server whose port file is ``clock_port``
+    (probed in the background once the file appears; none: this process
+    is the clock). Returns the clock record, or None without ``obs``."""
+    import threading
+
+    from ps_tpu_torch import obs
+
+    if not opts.get("obs"):
+        return None
+    obs.configure(sample=0.0, trace_dir=out, service=name)
+    if opts.get("metrics"):
+        srv = obs.start_metrics_server(0)
+        _write(os.path.join(out, f"metrics{name}"), srv.port)
+    clock = {"offset_us": 0.0, "err_us": 0.0, "of": clock_port}
+    if clock_port is not None:
+        def probe():
+            from ps_tpu_torch.control import tensor_van as tv
+
+            path = os.path.join(out, clock_port)
+            _wait_file(path, timeout=300)
+            with open(path) as f:
+                ch = tv.Channel.connect("127.0.0.1", int(f.read()))
+            try:
+                cs = obs.ClockSync()
+                cs.probe(ch, n=16)
+            finally:
+                ch.close()
+            # every probe the estimate keeps lies within the tie band of
+            # the fastest round trip: half of that bounds its error
+            clock.update(offset_us=cs.offset_us,
+                         err_us=(cs.rtt_us + cs.tie_us) / 2.0)
+
+        clock["thread"] = threading.Thread(target=probe, daemon=True)
+        clock["thread"].start()
+    return clock
+
+
+def obs_export(out, name, clock, dump=True) -> None:
+    """Write the tracer's ring, shifted onto the clock server's time, to
+    ``trace-<name>.json`` with the offset and its error in
+    ``clock-<name>.json``, and with ``dump`` the flight ring to
+    ``flight-<name>.jsonl``."""
+    from ps_tpu_torch import obs
+
+    t = clock.get("thread")
+    if t is not None:
+        t.join(timeout=60)
+    obs.tracer().clock_offset_us = clock["offset_us"]
+    obs.tracer().export_chrome(os.path.join(out, f"trace-{name}.json"))
+    _write(os.path.join(out, f"clock-{name}.json"), json.dumps(
+        {k: v for k, v in clock.items() if k != "thread"}))
+    if dump:
+        obs.flight().dump("end of run",
+                          path=os.path.join(out, f"flight-{name}.jsonl"),
+                          empty_ok=True)
+
+
 def _wait_file(path, timeout=120.0) -> None:
     deadline = time.monotonic() + timeout
     while not os.path.exists(path):
@@ -686,6 +788,7 @@ def run_replica_worker(out, steps, kill_at, device):
     with open(ready) as f, open(os.path.join(out, "backup_port")) as g:
         uri = f"127.0.0.1:{f.read()}|127.0.0.1:{g.read()}"
     w = connect_async(uri, 0, params, failover_timeout=30.0)
+    samples = keep_samples(w.transport)
     losses = []
     p = w.pull_all()
     for step, (images, labels) in enumerate(mnist_batches(32, steps=steps)):
@@ -704,7 +807,7 @@ def run_replica_worker(out, steps, kill_at, device):
              **{k: v.detach().cpu().numpy() for k, v in flat.items()})
     with open(os.path.join(out, "worker.json"), "w") as f:
         json.dump({"losses": losses, "failovers": w.transport.failovers,
-                   "failover_s": w.transport.op_samples("failover"),
+                   "failover_s": samples["failover_s"],
                    "epochs": w._epochs}, f)
     w.close()
 
@@ -782,12 +885,13 @@ def run_agg_server(out, uri, group_size, opts):
                             native_loop=opts.get("native_loop", True),
                             loop_threads=1,
                             flush_timeout_ms=opts.get("flush_timeout_ms"))
+    samples = keep_samples(agg.transport)
     _write(os.path.join(out, "agg_port"), agg.port)
     _wait_file(os.path.join(out, "agg_done"), timeout=600)
     t = agg.transport
     cache = agg._nloop.cache_stats() if agg.native_loop else None
     info = {"rounds": agg._rounds_done, "group_size": agg.group_size,
-            "summary": t.summary(), "hold_s": t.op_samples("agg_hold"),
+            "summary": t.summary(), "hold_s": samples["agg_hold_s"],
             "upstream": {"bytes_pushed": agg._client.bytes_pushed,
                          "bytes_pulled": agg._client.bytes_pulled},
             "reads_served": t.reads_served,
@@ -1067,7 +1171,11 @@ def run_sparse_server(out, nworkers, cycles, shard, nshards, device,
     - ``digests``: only the tables' digests are dumped, no npz;
     - ``tiered`` (a divisor): ``TieredTable`` tables (:func:`sparse_tables`),
       whose tier stats, row sums and cold passes' seconds join the dump
-      (and their tier stats the snapshots).
+      (and their tier stats the snapshots);
+    - ``obs`` (:func:`obs_start`; ``p<shard>`` or ``b<shard>``, its clock
+      shard 0's primary): the traces export at ``snap`` and at the end,
+      the flight ring dumps at the end; ``metrics``; ``detector_port``: a
+      primary also beats that failure detector.
 
     Every server of a replicated run writes ``snap<shard><tag>.json`` (its
     tables' digests, launch counts, versions and applies) when ``snap``
@@ -1085,11 +1193,15 @@ def run_sparse_server(out, nworkers, cycles, shard, nshards, device,
     replicated = backup or bool(opts.get("replicate"))
     ps.init(backend="cuda", device=device)
     tables = sparse_tables(shape, shard, nshards, tiered=opts.get("tiered"))
+    name = f"{tag or 'p'}{shard}"
+    clock = obs_start(out, opts, name, clock_port=None
+                      if (shard, backup) == (0, False) else "port0")
     svc = SparsePSService(
         tables, shard=shard, num_shards=nshards,
         total_rows={n: v for n, (v, _) in sparse_spec(shape).items()},
         record_full_history=True,
         native_loop=bool(opts.get("native_loop")), backup=backup)
+    samples = keep_samples(svc.transport)
     applied = []
     if replicated:
         log_append = svc.apply_log.append
@@ -1099,7 +1211,7 @@ def run_sparse_server(out, nworkers, cycles, shard, nshards, device,
             log_append(worker)
 
         svc.apply_log.append = record
-    watch = hb = None
+    watch = hb = detector = None
     promoted_at = []
     lag = {"max": 0, "samples": 0}
     stop_sampling = threading.Event()
@@ -1124,6 +1236,10 @@ def run_sparse_server(out, nworkers, cycles, shard, nshards, device,
                     window=int(opts.get("window", 256)))
             hb = HeartbeatClient("127.0.0.1", int(opts["watch_port"]),
                                  node_id=1, interval_ms=50)
+            if opts.get("detector_port"):
+                detector = HeartbeatClient(
+                    "127.0.0.1", int(opts["detector_port"]),
+                    node_id=10 + shard, interval_ms=50)
 
             def sample():
                 while not stop_sampling.wait(0.0005):
@@ -1145,6 +1261,8 @@ def run_sparse_server(out, nworkers, cycles, shard, nshards, device,
                        "repl": svc.replica_state().get("repl"),
                        "tier": {n: t.tier_stats() for n, t in tables.items()
                                 if hasattr(t, "tier_stats")}}
+            if clock is not None:
+                obs_export(out, name, clock, dump=False)
             _write(os.path.join(out, f"snap{shard}{tag}.json"),
                    json.dumps(rec))
 
@@ -1170,8 +1288,8 @@ def run_sparse_server(out, nworkers, cycles, shard, nshards, device,
         "rows_applied": svc.rows_applied, "meta": svc._meta,
         "tiers": svc.fused_tiers, "device": str(tables["deep"].device),
         "launches": _launch_counts(),
-        "sparse_apply_s": svc.transport.op_samples("sparse_apply"),
-        "apply_s": svc.transport.op_samples("apply"),
+        "sparse_apply_s": samples["sparse_apply_s"],
+        "apply_s": samples["apply_s"],
         "rows": svc.transport.sparse_rows_applied,
         "staging_s": svc.transport.staging_s,
         "native_loop": svc.native_loop, "admit": svc.admit_stats(),
@@ -1190,12 +1308,12 @@ def run_sparse_server(out, nworkers, cycles, shard, nshards, device,
             "detect_age_ms": watch.detect_age_ms if watch else None,
             "repl_entries": svc.transport.repl_entries,
             "repl_bytes": svc.transport.repl_bytes,
-            "repl_ack_wait_s": svc.transport.op_samples("repl_ack_wait"),
+            "repl_ack_wait_s": samples["repl_ack_wait_s"],
             "lag": lag})
     if opts.get("tiered"):
         info["tier"] = {n: t.tier_stats() for n, t in tables.items()}
         info["row_sum"] = {n: t.row_sum() for n, t in tables.items()}
-        info["cold_gather_s"] = svc.transport.op_samples("cold_gather")
+        info["cold_gather_s"] = samples["cold_gather_s"]
     if not opts.get("digests"):
         arrays = {}
         for name, emb in tables.items():
@@ -1204,8 +1322,12 @@ def run_sparse_server(out, nworkers, cycles, shard, nshards, device,
                 arrays[f"{name}/state{i}"] = leaf.cpu().numpy()
         np.savez(os.path.join(out, f"sparse_tables{shard}{tag}.npz"),
                  **arrays)
+    if clock is not None:
+        obs_export(out, name, clock)
     with open(os.path.join(out, f"sparse_server{shard}{tag}.json"), "w") as f:
         json.dump(info, f)
+    if detector is not None:
+        detector.close(goodbye=True)
     if watch is not None:
         watch.close()
     if hb is not None:
@@ -1228,7 +1350,10 @@ def run_sparse_worker(ports, out, worker, cycles, device, shape,
     replication: ``replicas`` (dial each shard's replica set
     ``port<s>|port<s>b``), ``pause_at`` (after that many cycles write
     ``paused<id>`` and wait for ``resume``), ``cue_at`` (after that many
-    cycles write ``cue<id>`` and go on)."""
+    cycles write ``cue<id>`` and go on); ``obs`` (:func:`obs_start`, its
+    clock shard 0's primary) with ``trace``, ``[first, end)``: the cycles
+    sampled at 1.0, the trace and the flight ring written at the end as
+    ``w<id>``."""
     import torch
 
     from ps_tpu_torch.backends.remote_sparse import connect_sparse
@@ -1243,11 +1368,16 @@ def run_sparse_worker(ports, out, worker, cycles, device, shape,
         backups = _read_ports(str(ports), out, suffix="b").split(",")
         uri = ",".join(f"{p}|127.0.0.1:{b}"
                        for p, b in zip(uri.split(","), backups))
+    from ps_tpu_torch import obs
+
+    clock = obs_start(out, opts, f"w{worker}", clock_port="port0")
+    traced = range(*opts.get("trace", (0, 0)))
     w = connect_sparse(uri, worker, sparse_spec(shape),
                        shm=bool(opts.get("shm")),
                        compress=opts.get("compress"),
                        failover_timeout=60.0 if opts.get("replicas")
                        else None)
+    samples = keep_samples(w.transport)
     keys = {}  # payload key -> [times encoded, times raw, largest bytes]
     encode = w._encode_push_tree
 
@@ -1280,6 +1410,8 @@ def run_sparse_worker(ports, out, worker, cycles, device, shape,
             torch.cuda.synchronize(dev)
         if shape == "small":
             time.sleep(0.003 * ((worker * 7 + c * 3) % 5))  # interleave
+        if clock is not None:
+            obs.tracer().sample = 1.0 if c in traced else 0.0
         t0 = time.perf_counter()
         if c % 2 == 0:
             rows = w.pull(req)
@@ -1310,7 +1442,7 @@ def run_sparse_worker(ports, out, worker, cycles, device, shape,
             "worker": worker, "versions": versions,
             "totals": w.versions(), "cycle_s": cycle_s,
             "window": [starts[1] if cycles > 1 else starts[0], end],
-            "ops": {k: w.transport.op_samples(k)
+            "ops": {k: samples[k + "_s"]
                     for k in ("pull", "push", "push_pull")},
             "staging_s": w.transport.staging_s,
             "bytes": [w.bytes_pushed, w.bytes_pulled],
@@ -1318,11 +1450,14 @@ def run_sparse_worker(ports, out, worker, cycles, device, shape,
             "shm_spills": w.transport.shm_spill_frames,
             "compress": w.compress, "encoded_keys": keys,
             "starts": starts, "failovers": w.transport.failovers,
-            "failover_s": w.transport.op_samples("failover"),
+            "failover_s": samples["failover_s"],
             "epochs": w._epochs,
             "codec_bytes": [w.transport.codec_raw_bytes,
                             w.transport.codec_enc_bytes]}, f)
     w.close()
+    if clock is not None:
+        obs.tracer().sample = 0.0
+        obs_export(out, f"w{worker}", clock)
 
 
 # -- the read path's processes (backends/remote_sparse.py's READ) ------------
