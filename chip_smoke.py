@@ -428,6 +428,20 @@ Phases, each raising on failure:
    chip_smoke as c, tempfile; c.phase_build();
    c.phase_tiered(tempfile.mkdtemp())"``.
 
+25. elastic membership on the card (ROADMAP item 6.2): (a) config 5's
+   784-256-10 MLP (momentum, DC λ 0.04) on two shards under a
+   coordinator (no device) with two standbys, 3 worker threads x 40
+   cycles through a split 2 -> 4 and a drain back, each key applied once
+   a push and the servers' logs replayed key by key bitwise, a CPU
+   witness within MNIST_TOL; (b) the 442,939,392-byte tree split 2 -> 3
+   under a bucketed worker, the moved rows bitwise, the bytes, rate,
+   freezes and re-routes printed; (c) phase 17's sparse shards as
+   members, shard 1 replaced from its save, 2 + 2 launches a push and the
+   tables bitwise (``launches_elastic``); (d) the fleet p99 equal to the
+   members' raw histograms merged, the policy engine acting once and
+   dry. Run it alone with ``python3 -c "import chip_smoke as c,
+   tempfile; c.phase_build(); c.phase_elastic(tempfile.mkdtemp())"``.
+
 It prints one JSON line per timed kernel, then the kernels line, then
 ``{"ok": true, "device": {...}}`` as its last line. Without a GPU, or
 without the rest of the repository beside it, it fails before printing
@@ -8250,6 +8264,1071 @@ def phase_obs(tmp):
             "seconds": t_d - t0}
 
 
+# -- phase 25: elastic membership on the card ----------------------------------
+# (a) config 5's MLP at 784-256-10 (momentum, lr 0.1, DC λ 0.04) on two
+# card-resident AsyncPSService processes under a coordinator, two empty
+# standbys joined beside them; three worker threads of this process on
+# connect_async(coordinator=) x 40 cycles of batch 64; a split 2 -> 4 at
+# cycle 10 and a drain back to 2 at cycle 25; the workers pause at cycle
+# 30 for (d)'s telemetry window. (b) the 442,939,392-byte tree on two
+# shards, one bucketed worker x 10 cycles, split to 3 at cycle 3. (c)
+# phase 17's sparse shards under a coordinator, three worker processes x
+# 20 cycles; shard 1 replaced at cycle 10 by a process restored from its
+# save at the workers' pause. (d) (a)'s members' telemetry at two quiet
+# points, and the policy engine on two skewed two-shard fleets (one
+# acting, one dry).
+EL_WORKERS, EL_CYCLES, EL_BATCH, EL_HIDDEN = 3, 40, 64, 256
+EL_SPLIT_AT, EL_DRAIN_AT, EL_QUIET_AT = 10, 25, 30
+EL_LR, EL_DC = 0.1, 0.04
+EL_REPORT_MS = 100
+# a quiet point lasts EL_QUIET_S (eight report cadences); the telemetry
+# window starts at the end of the first
+EL_QUIET_S = 0.8
+EL_BERT_CYCLES, EL_BERT_SPLIT_AT = 10, 3
+EL_BERT_BUCKET, EL_BERT_POOL = 4 << 20, 2
+EL_SPARSE_CYCLES, EL_SPARSE_STOP_AT = 20, 10
+EL_POLICY_KEYS, EL_POLICY_SHAPE = 8, (256, 1024)
+EL_POLICY = dict(report_ms=50, telemetry_window_s=0.4, max_skew=2.0,
+                 policy_burn_windows=3, policy_cooldown_s=60.0)
+EL_TIMEOUT_S = 300
+
+
+def _el_alive(procs):
+    """Fail when one of ``procs`` died, with the end of its log."""
+    for p in procs:
+        if p.poll() is not None and p.returncode != 0:
+            log_ = getattr(p, "log_path", None)
+            tail = (open(log_).read()[-3000:] if log_ else
+                    (p.communicate()[0] or "")[-3000:])
+            raise AssertionError(f"{' '.join(map(str, p.args[-4:]))} "
+                                 f"exited {p.returncode}:\n{tail}")
+
+
+def _el_wait(path, timeout=EL_TIMEOUT_S, procs=()):
+    """Wait for a file; fail at once when one of ``procs`` died."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        _el_alive(procs)
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} never appeared")
+        time.sleep(0.01)
+
+
+def _el_write(path, text):
+    with open(path + ".tmp", "w") as f:
+        f.write(str(text))
+    os.replace(path + ".tmp", path)
+
+
+def _el_read(path):
+    with open(path) as f:
+        return f.read().strip()
+
+
+def _el_spawn(flag, out, *args):
+    """One internal role of this script, its output in ``out``'s
+    ``log-<role>-<name>``."""
+    here, env = _van_env()
+    path = os.path.join(out, f"log{flag}-{args[0] if args else ''}")
+    with open(path, "w") as f:
+        p = subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"), flag, out,
+             *map(str, args)], cwd=here, env=env, stdout=f,
+            stderr=subprocess.STDOUT, text=True)
+    p.log_path = path
+    return p
+
+
+def _el_tree(kind, device):
+    """The trees of phase 25's servers and workers, made alike in every
+    process: (a)'s MLP (lecun-normal kernels from seed 0), (b)'s
+    BERT-base-shaped tree (normal draws from a generator on ``device``,
+    one seed a key) and the policy fleets' blocks."""
+    from ps_tpu_torch.kv import keys as keymod
+    from ps_tpu_torch.models.mlp import MLP
+
+    if kind == "mlp":
+        flat, _ = keymod.flatten_with_keys(
+            MLP(hidden=EL_HIDDEN).init(torch.Generator().manual_seed(0)))
+        return {k: v.to(device) for k, v in flat.items()}
+    if kind == "blocks":
+        return {f"b{i}": torch.zeros(EL_POLICY_SHAPE, device=device)
+                for i in range(EL_POLICY_KEYS)}
+    out = {}
+    for i, (k, shape) in enumerate(sorted(_el_bert_shapes().items())):
+        g = torch.Generator(device=device).manual_seed(100 + i)
+        out[k] = torch.empty(shape, device=device).normal_(0.0, 0.02,
+                                                           generator=g)
+    return out
+
+
+def _el_bert_shapes():
+    """:func:`_bert_like_tree`'s keys and shapes, allocated nowhere."""
+    shapes = {"embed/word": (30522, 768)}
+    total, i = 30522 * 768 * 4, 0
+    while total < BERT_LIKE_MB * 1e6:
+        shapes[f"layer{i // 4}/block{i % 4}"] = (768, 3072)
+        total += 768 * 3072 * 4
+        i += 1
+    return shapes
+
+
+def _el_bert_split(shapes):
+    """(b)'s two initial key ranges: the largest key first onto the
+    lighter shard."""
+    size = {k: int(np.prod(v)) for k, v in shapes.items()}
+    parts, load = ([], []), [0, 0]
+    for k in sorted(size, key=lambda k: (-size[k], k)):
+        s = 0 if load[0] <= load[1] else 1
+        parts[s].append(k)
+        load[s] += size[k]
+    return [sorted(p) for p in parts]
+
+
+def _el_bert_grads(tree, c):
+    """(b)'s worker's cycle-``c`` gradients, a constant a key (the DC
+    correction still varies them elementwise)."""
+    return {k: torch.full_like(v, 1e-4 * (c + 1) * (1 + i % 5))
+            for i, (k, v) in enumerate(sorted(tree.items()))}
+
+
+def _el_row_digest(row):
+    import hashlib
+
+    h = hashlib.sha256()
+    h.update(row["param"].cpu().numpy().tobytes())
+    for p in sorted(row["state"]):
+        h.update(p.encode())
+        h.update(row["state"][p].cpu().numpy().tobytes())
+    for w in sorted(row["stale"]):
+        h.update(str(w).encode())
+        h.update(row["stale"][w].cpu().numpy().tobytes())
+    h.update(str(int(row["apply_count"])).encode())
+    return h.hexdigest()
+
+
+def _elastic_coords(out):
+    """Internal role: the phase's coordinators in one process that holds
+    no device. Writes ``coord-<name>`` (its ``host:port``) a coordinator,
+    serves until ``coords-stop``, then dumps ``coords.json``: each one's
+    moves, policy state and audit, and whether this process ever
+    initialized CUDA."""
+    from ps_tpu_torch.elastic import Coordinator
+
+    specs = {"a": dict(report_ms=EL_REPORT_MS, telemetry_window_s=60.0),
+             "b": dict(report_ms=EL_REPORT_MS),
+             "c": dict(report_ms=EL_REPORT_MS),
+             "act": dict(policy="on", **EL_POLICY),
+             "dry": dict(policy="dry", **EL_POLICY)}
+    coords = {name: Coordinator(**kw) for name, kw in specs.items()}
+    for name, c in coords.items():
+        _el_write(os.path.join(out, f"coord-{name}"), f"127.0.0.1:{c.port}")
+    _el_wait(os.path.join(out, "coords-stop"), timeout=1200)
+    dump = {"cuda_initialized": torch.cuda.is_initialized(),
+            "moves": {n: c.moves_done for n, c in coords.items()},
+            "epochs": {n: c.table().epoch for n, c in coords.items()}}
+    for c in coords.values():
+        c.stop()
+    _el_write(os.path.join(out, "coords.json"), json.dumps(dump))
+
+
+def _elastic_server(out, name, spec):
+    """Internal role: one AsyncPSService on the card under coordinator
+    ``spec["coord"]``, with the keys ``spec["keys"]`` of tree
+    ``spec["tree"]``. Answers ``hist-<name>-<k>`` command files with its
+    transport's raw histogram states; with ``clones`` keeps a copy on the
+    card of every row it evicts or adopts (the move's check reads their
+    digests). At ``stop`` it dumps ``server-<name>.json`` (event and
+    elastic logs, moves, apply counts, its initial keys, the digests) and
+    ``final-<name>.pt`` (its params)."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.backends.remote_async import AsyncPSService
+
+    spec = json.loads(spec)
+    ps.init(backend="cuda", mode="async", num_workers=spec["workers"],
+            dc_lambda=spec["dc"])
+    tree = _el_tree(spec["tree"], "cuda")
+    store = ps.KVStore(optimizer=spec["opt"], learning_rate=spec["lr"],
+                       mode="async")
+    store.init({k: tree[k] for k in spec["keys"]})
+    del tree
+    coord_file = os.path.join(out, f"coord-{spec['coord']}")
+    _el_wait(coord_file)
+    svc = AsyncPSService(store, coordinator=_el_read(coord_file),
+                         record_full_history=True)
+    eng = svc._engine
+    clones = {"evicted": {}, "adopted": {}}
+    if spec.get("clones"):
+        from ps_tpu_torch.checkpoint import state_to_reference
+
+        def clone(k):
+            return {"param": eng._params[k].clone(),
+                    "state": {p: v.clone() for p, v in state_to_reference(
+                        eng._opt.name, k, eng._state[k]).items()},
+                    "stale": {w: v.clone() for (w, kk), v in
+                              eng._stale.items() if kk == k},
+                    "apply_count": int(eng.apply_count.get(k, 0))}
+
+        evict, adopt = eng.evict_keys, eng.adopt_key
+
+        def evict_keys(keys):
+            for k in keys:
+                clones["evicted"][k] = clone(k)
+            evict(keys)
+
+        def adopt_key(k, *a, **kw):
+            adopt(k, *a, **kw)
+            clones["adopted"][k] = clone(k)
+
+        eng.evict_keys, eng.adopt_key = evict_keys, adopt_key
+    _el_write(os.path.join(out, f"port-{name}"), svc.port)
+    served = 0
+    while not os.path.exists(os.path.join(out, f"stop-{name}")):
+        cmd = os.path.join(out, f"hist-{name}-{served}")
+        if os.path.exists(cmd):
+            states = {h.name: h.state() for h in svc.transport.hist.values()}
+            _el_write(os.path.join(out, f"hists-{name}-{served}.json"),
+                      json.dumps(states))
+            served += 1
+        time.sleep(0.005)
+    with eng._lock:
+        final = ({k: v.cpu() for k, v in eng._params.items()}
+                 if spec.get("final") else {})
+        dump = {"event_log": list(svc.event_log),
+                "elastic_log": list(svc.elastic_log),
+                "migrations": svc.migrations, "keys0": spec["keys"],
+                "keys": list(svc._key_order),
+                "apply_count": dict(eng.apply_count),
+                "version": eng.version, "port": svc.port,
+                "table_epoch": svc.table_epoch,
+                "hists": {h.name: h.state()
+                          for h in svc.transport.hist.values()},
+                "digests": {side: {k: _el_row_digest(r)
+                                   for k, r in rows.items()}
+                            for side, rows in clones.items()}}
+    if spec.get("final"):
+        torch.save(final, os.path.join(out, f"final-{name}.pt"))
+    _el_write(os.path.join(out, f"server-{name}.json"), json.dumps(dump))
+    svc.stop()
+    ps.shutdown()
+
+
+def _el_key_streams(dumps):
+    """Each key's events in order over the servers that held it: the
+    servers' event logs cut by their elastic logs (a key's period at a
+    shard runs from its adoption, or the start, to its move out; the
+    periods in the order of their table epochs), a partial push kept only
+    for the keys it applied."""
+    periods = {}
+    for name, d in dumps.items():
+        owned = {k: (0, 0) for k in d["keys0"]}
+        subs = {}
+        for e in sorted(d["elastic_log"], key=lambda e: e["at"]):
+            if e["op"] == "push_sub":
+                subs[e["at"]] = set(e["keys"])
+            elif e["op"] == "adopt":
+                for k in e["keys"]:
+                    owned[k] = (e["table_epoch"], e["at"])
+            else:  # migrate_out
+                for k in e["keys"]:
+                    epoch, start = owned.pop(k)
+                    periods.setdefault(k, []).append(
+                        (epoch, name, start, e["at"]))
+        for k, (epoch, start) in owned.items():
+            periods.setdefault(k, []).append(
+                (epoch, name, start, len(d["event_log"])))
+        d["_subs"] = subs
+    streams = {}
+    for k, spans in periods.items():
+        ev = []
+        for _epoch, name, start, end in sorted(spans):
+            log_, subs = dumps[name]["event_log"], dumps[name]["_subs"]
+            for i in range(start, end):
+                op, w = log_[i]
+                if op == "push" and i in subs and k not in subs[i]:
+                    continue
+                ev.append((op, int(w)))
+        streams[k] = ev
+    return streams
+
+
+def _el_replay(streams, init, grads_of, device, opt, nworkers,
+               pulled_of=None):
+    """Each key's stream replayed through one unrebalanced
+    ``AsyncCudaServer`` on ``device``: a pull records the worker's stale
+    snapshot of the key, a push applies the key of the worker's c-th
+    gradient (``grads_of(w, c)``). With ``pulled_of(w, c)`` (the params
+    worker w took cycle c's gradient at) every push's preceding pull is
+    held to it bitwise. Returns (params, pushes a (worker, key), pulls
+    held)."""
+    from ps_tpu_torch.backends.cuda import AsyncCudaServer
+    from ps_tpu_torch.optim import make_optimizer
+
+    eng = AsyncCudaServer(make_optimizer(opt, learning_rate=EL_LR),
+                          torch.device(device), nworkers, dc_lambda=EL_DC)
+    eng.register_tree({k: init[k] for k in streams}, None, sorted(streams))
+    pushes, last, held = {}, {}, 0
+    for k, ev in streams.items():
+        for op, w in ev:
+            if op == "pull":
+                with eng._lock:
+                    last[(w, k)] = eng._pull_async(w, [k])[k]
+                continue
+            c = pushes.get((w, k), 0)
+            pushes[(w, k)] = c + 1
+            if pulled_of is not None:
+                want = pulled_of(w, c)[k]
+                if not torch.equal(last[(w, k)], want.to(device)):
+                    raise AssertionError(
+                        f"worker {w} cycle {c}: {k} pulled before the push "
+                        f"differs from the replay")
+                held += 1
+            eng.push_subtree({k: grads_of(w, c)[k].to(device)}, worker=w)
+    return eng._params, pushes, held
+
+
+def _el_finish_servers(out, names, procs):
+    """Stop the named servers; their dumps and (where they saved them)
+    their final params merged."""
+    for n in names:
+        _el_write(os.path.join(out, f"stop-{n}"), "")
+    dumps, final = {}, {}
+    for n in names:
+        _el_wait(os.path.join(out, f"server-{n}.json"), procs=procs)
+        dumps[n] = json.load(open(os.path.join(out, f"server-{n}.json")))
+        path = os.path.join(out, f"final-{n}.pt")
+        if os.path.exists(path):
+            final.update(torch.load(path))
+    return dumps, final
+
+
+def _el_hists(out, names, k, procs):
+    """Each named server's raw histogram states, asked for by command
+    file ``k`` (a stopped server's from its dump: they move no more)."""
+    states = {}
+    stopped = {n for n in names
+               if os.path.exists(os.path.join(out, f"stop-{n}"))}
+    for n in set(names) - stopped:
+        _el_write(os.path.join(out, f"hist-{n}-{k}"), "")
+    for n in names:
+        if n in stopped:
+            path = os.path.join(out, f"server-{n}.json")
+            _el_wait(path, procs=procs)
+            states[n] = json.load(open(path))["hists"]
+            continue
+        path = os.path.join(out, f"hists-{n}-{k}.json")
+        _el_wait(path, procs=procs)
+        states[n] = json.load(open(path))
+    return states
+
+
+def _el_config5_ready(out, procs):
+    """(a)'s fleet registered: the two shards and both standbys (their
+    URIs, registered as spares too)."""
+    from ps_tpu_torch.elastic import fetch_table
+    from ps_tpu_torch.elastic.member import register_spare
+
+    _el_wait(os.path.join(out, "coord-a"), procs=procs)
+    ca = _el_read(os.path.join(out, "coord-a"))
+    fetch_table(ca, cover=list(_el_tree("mlp", "cpu")),
+                timeout=EL_TIMEOUT_S)
+    standby_uris = []
+    while len(standby_uris) < 2:
+        _el_alive(procs)
+        table = fetch_table(ca, timeout=EL_TIMEOUT_S)
+        standby_uris = [u for i, u in enumerate(table.shards)
+                        if not table.keys_of(i)]
+        time.sleep(0.02)
+    return ca, standby_uris, [register_spare(ca, u)["spares"]
+                              for u in standby_uris]
+
+
+def _el_config5(out, procs, server_names, ready):
+    """(a), with (d)'s telemetry: three worker threads through the
+    coordinator, the split and the drain driven from this thread, the
+    quiet points; the gates; returns the numbers."""
+    import threading
+
+    from ps_tpu_torch.backends.remote_async import connect_async
+    from ps_tpu_torch.data.synthetic import mnist_batches
+    from ps_tpu_torch.elastic import (fetch_table, fetch_telemetry,
+                                      request_rebalance)
+    from ps_tpu_torch.kv import keys as keymod
+    from ps_tpu_torch.kv.store import value_and_grad
+    from ps_tpu_torch.models.mlp import MLP, make_loss_fn
+    from ps_tpu_torch.obs.metrics import Histogram, state_add, state_sub
+
+    ca, standby_uris, spares = ready
+    loss_fn = make_loss_fn(MLP(hidden=EL_HIDDEN))
+    init = _el_tree("mlp", "cpu")
+    like = keymod.unflatten(_el_treedef(),
+                            {k: v.cuda() for k, v in init.items()},
+                            list(init))
+    gate = {c: threading.Event() for c in (EL_SPLIT_AT, EL_DRAIN_AT,
+                                           EL_QUIET_AT)}
+    reached = {c: threading.Barrier(EL_WORKERS + 1)
+               for c in (EL_SPLIT_AT, EL_DRAIN_AT, EL_QUIET_AT)}
+    recs = [{"pulled": [], "grads": [], "losses": [], "epochs": [],
+             "t": []} for _ in range(EL_WORKERS)]
+    errors = []
+    workers = {}
+
+    def run(w):
+        try:
+            c = connect_async(None, w, like, coordinator=ca,
+                              failover_timeout=60.0)
+            workers[w] = c
+            batches = mnist_batches(EL_BATCH, seed=0, worker=w,
+                                    num_workers=EL_WORKERS)
+            p = c.pull_all()
+            for i in range(EL_CYCLES):
+                if i in reached:
+                    # the split and the drain run under traffic: the
+                    # workers only meet here; at the quiet point they
+                    # wait for the window's first still reading
+                    reached[i].wait(timeout=EL_TIMEOUT_S)
+                    if i == EL_QUIET_AT:
+                        gate[i].wait(timeout=EL_TIMEOUT_S)
+                images, labels = next(batches)
+                batch = (torch.from_numpy(images).cuda(),
+                         torch.from_numpy(labels).cuda())
+                loss, g, _ = value_and_grad(loss_fn, p, batch)
+                kv, _ = keymod.flatten_with_keys(p)
+                gkv, _ = keymod.flatten_with_keys(g)
+                recs[w]["pulled"].append(kv)
+                recs[w]["grads"].append(gkv)
+                recs[w]["losses"].append(loss)
+                recs[w]["t"].append(time.monotonic())
+                p = c.push_pull(g)
+                recs[w]["epochs"].append(c._table.epoch)
+        except BaseException as e:  # reported below
+            errors.append((w, repr(e)))
+            for b in reached.values():
+                b.abort()
+
+    threads = [threading.Thread(target=run, args=(w,))
+               for w in range(EL_WORKERS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    moves = {}
+    seen_epochs = []
+    try:
+        reached[EL_SPLIT_AT].wait(timeout=EL_TIMEOUT_S)
+        moves["split"] = request_rebalance(ca, targets=list(range(4)))
+        seen_epochs.append(fetch_table(ca).epoch)
+        reached[EL_DRAIN_AT].wait(timeout=EL_TIMEOUT_S)
+        table = fetch_table(ca)
+        drain = [table.shards.index(u) for u in standby_uris]
+        moves["drain"] = request_rebalance(ca, drain=drain)
+        seen_epochs.append(fetch_table(ca).epoch)
+        # the drained standbys stop (their reports too): only a report of
+        # theirs between the drain and the stop would leave them in the
+        # fleet's window, by their lifetime (ROADMAP R7)
+        for n in server_names:
+            uri = f"127.0.0.1:{_el_read(os.path.join(out, f'port-{n}'))}"
+            if uri in standby_uris:
+                _el_write(os.path.join(out, f"stop-{n}"), "")
+        reached[EL_QUIET_AT].wait(timeout=EL_TIMEOUT_S)
+        time.sleep(EL_QUIET_S)
+        hist_a = _el_hists(out, server_names, 0, procs)
+        # the window starts here: the members' reports of their still
+        # state had the quiet point to arrive
+        t_base = time.monotonic()
+        gate[EL_QUIET_AT].set()
+    except threading.BrokenBarrierError:
+        pass
+    for t in threads:
+        t.join(timeout=EL_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"elastic (a): workers failed: {errors}")
+    time.sleep(EL_QUIET_S)
+    hist_b = _el_hists(out, server_names, 1, procs)
+    reroutes = [workers[w].transport.table_reroutes
+                for w in range(EL_WORKERS)]
+    for c in workers.values():
+        c.close()
+    # -- the gates
+    for w, r in enumerate(recs):
+        if r["epochs"] != sorted(r["epochs"]):
+            raise AssertionError(f"elastic (a): worker {w}'s table epochs "
+                                 f"went back: {r['epochs']}")
+    if min(reroutes) < 1:
+        raise AssertionError(f"elastic (a): table reroutes {reroutes}")
+    if seen_epochs != sorted(seen_epochs) or len(set(seen_epochs)) != 2:
+        raise AssertionError(f"elastic (a): epochs {seen_epochs}")
+    # (d): the fleet's p99 of the servers' push applies over the window
+    # (cycles 30-39) against the members' raw histograms merged. A member
+    # is read as the time series reads it: the serving shards by their
+    # window (B - A); a drained standby, whose reports carry nothing new,
+    # by its lifetime (B) when its one sample since it re-entered the
+    # series is all there is, else not at all
+    metric = "ps_server_apply_seconds"
+    uris = {n: f"127.0.0.1:{_el_read(os.path.join(out, f'port-{n}'))}"
+            for n in server_names}
+    serving = set(fetch_table(ca).shards)
+
+    def summary(st):
+        return Histogram.from_state("m", st).summary() if st["n"] else None
+
+    deadline = time.monotonic() + 5.0
+    while True:
+        window_s = time.monotonic() - t_base
+        tel = fetch_telemetry(ca, window_s=window_s)
+        merged, per_p99, bad, counted = None, [], [], {}
+        for n in server_names:
+            b = hist_b[n].get(metric)
+            if b is None:
+                continue
+            a = hist_a[n].get(metric)
+            d = state_sub(b, a) if a is not None else b
+            seen = tel["per_member"].get(uris[n], {}).get(metric)
+            if uris[n] in serving:
+                st = d
+                counted[n] = "window"
+            elif seen is not None and seen == summary(b):
+                st = b
+                counted[n] = "lifetime"
+            else:
+                st = None
+            if (summary(st) if st else None) != seen:
+                bad.append((n, seen))
+                continue
+            if st is not None and st["n"]:
+                merged = state_add(merged, st)
+                per_p99.append(Histogram.from_state("m", st).quantile(0.99))
+        want = summary(merged) if merged else None
+        got = tel["fleet"].get(metric)
+        if (not bad and got == want) or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    if bad or got != want:
+        raise AssertionError(f"elastic (d): the fleet's window {got} is not "
+                             f"the members' raw histograms merged {want} "
+                             f"(members off: {bad})")
+    return {"recs": recs, "moves": moves, "reroutes": reroutes,
+            "counted": counted, "wall_s": wall,
+            "fleet_p99_ms": want["p99"] * 1e3,
+            "fleet_count": want["count"], "window_s": window_s,
+            "mean_member_p99_ms": float(np.mean(per_p99)) * 1e3,
+            "members": len(per_p99), "spares": spares,
+            "loss_fn": loss_fn, "init": init}
+
+
+def _el_config5_checks(out, procs, server_names, a):
+    """(a)'s replay gates on the servers' dumps."""
+    from ps_tpu_torch.data.synthetic import mnist_batches
+    from ps_tpu_torch.kv import keys as keymod
+    from ps_tpu_torch.kv.store import value_and_grad
+
+    dumps, final = _el_finish_servers(out, server_names, procs)
+    recs, init = a["recs"], a["init"]
+    want = EL_WORKERS * EL_CYCLES
+    for k in init:
+        n = sum(int(d["apply_count"].get(k, 0)) for d in dumps.values()
+                if k in d["keys"])
+        if n != want:
+            raise AssertionError(f"elastic (a): {k} applied {n} times, "
+                                 f"{want} pushes were sent")
+    streams = _el_key_streams(dumps)
+    params, pushes, held = _el_replay(
+        streams, {k: v.cuda() for k, v in init.items()},
+        lambda w, c: recs[w]["grads"][c], "cuda", "momentum", EL_WORKERS,
+        pulled_of=lambda w, c: recs[w]["pulled"][c])
+    if set(pushes.values()) != {EL_CYCLES}:
+        raise AssertionError(f"elastic (a): replayed pushes {pushes}")
+    for k, v in final.items():
+        if not torch.equal(params[k].cpu(), v):
+            raise AssertionError(f"elastic (a): {k} replayed on one engine "
+                                 f"is not bitwise the fleet's")
+    # the CPU witness: each gradient recomputed on the CPU from the params
+    # its worker pulled on the card, and the same streams replayed there
+    norms, diffs, cpu_grads = [], [], {}
+    for w in range(EL_WORKERS):
+        batches = mnist_batches(EL_BATCH, seed=0, worker=w,
+                                num_workers=EL_WORKERS)
+        for c in range(EL_CYCLES):
+            images, labels = next(batches)
+            p_cpu = {k: v.cpu() for k, v in recs[w]["pulled"][c].items()}
+            tree = keymod.unflatten(_el_treedef(), p_cpu, list(p_cpu))
+            _, g, _ = value_and_grad(a["loss_fn"], tree,
+                                     (torch.from_numpy(images),
+                                      torch.from_numpy(labels)))
+            g, _ = keymod.flatten_with_keys(g)
+            cpu_grads[(w, c)] = g
+            card = recs[w]["grads"][c]
+            norms.append(float(torch.sqrt(sum(
+                (card[k].double() ** 2).sum().cpu() for k in card))))
+            diffs.append(float(torch.sqrt(sum(
+                ((g[k].double() - card[k].double().cpu()) ** 2).sum()
+                for k in card))))
+    med = float(np.median(norms))
+    grad_err = max(d / max(n, med) for d, n in zip(diffs, norms))
+    if grad_err > VAN_GRAD_RTOL:
+        raise AssertionError(f"elastic (a): a gradient recomputed on the CPU "
+                             f"is {grad_err:.3g} off the card's")
+    witness, _, _ = _el_replay(streams, init,
+                               lambda w, c: cpu_grads[(w, c)], "cpu",
+                               "momentum", EL_WORKERS)
+    cpu_err = 0.0
+    for k, v in final.items():
+        np.testing.assert_allclose(witness[k].numpy(), v.numpy(),
+                                   rtol=MNIST_TOL, atol=MNIST_TOL,
+                                   err_msg=f"elastic (a): {k} on the CPU")
+        cpu_err = max(cpu_err, float((witness[k] - v).abs().max()))
+    losses = [float(x) for r in recs for x in r["losses"]]
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError("elastic (a): a loss is not finite")
+    moved = sum(m["rows"] for d in dumps.values() for m in d["migrations"])
+    return {"held": held, "grad_err": grad_err, "cpu_err": cpu_err,
+            "moves": sum(len(d["migrations"]) for d in dumps.values()),
+            "rows": moved, "loss": (float(np.mean(losses[:EL_WORKERS])),
+                                    float(np.mean(losses[-EL_WORKERS:])))}
+
+
+def _el_treedef():
+    from ps_tpu_torch.kv import keys as keymod
+    from ps_tpu_torch.models.mlp import MLP
+
+    return keymod.flatten_with_keys(
+        MLP(hidden=EL_HIDDEN).init(torch.Generator()))[1]
+
+
+def _el_bert(out, procs):
+    """(b): one bucketed worker thread over the tree's two shards, the
+    split to three at cycle 3 driven beside it; the moved rows' digests,
+    a replay of the final pull, and the numbers."""
+    import threading
+
+    from ps_tpu_torch.backends.remote_async import connect_async
+    from ps_tpu_torch.elastic import fetch_table, request_rebalance
+    from ps_tpu_torch.kv import keys as keymod
+
+    cb = _el_read(os.path.join(out, "coord-b"))
+    tree = _el_tree("bert", "cuda")
+    nbytes = sum(v.nbytes for v in tree.values())
+    table = fetch_table(cb, cover=list(tree), timeout=EL_TIMEOUT_S)
+    while len(table.shards) < 3:
+        time.sleep(0.02)
+        table = fetch_table(cb)
+    w = connect_async(None, 0, tree, coordinator=cb,
+                      bucket_bytes=EL_BERT_BUCKET, pool_size=EL_BERT_POOL,
+                      failover_timeout=60.0)
+    reroute_s = []
+    on_moved = w._on_table_moved
+
+    def timed(err, deadline):
+        t0 = time.perf_counter()
+        on_moved(err, deadline)
+        reroute_s.append(time.perf_counter() - t0)
+
+    w._on_table_moved = timed
+    w.pull_all()
+    move = {}
+    mover = None
+
+    def split():
+        move["t0"] = time.monotonic()
+        move["out"] = request_rebalance(cb, targets=[0, 1, 2])
+        move["t1"] = time.monotonic()
+
+    ends = []
+    starts = []
+    for c in range(EL_BERT_CYCLES):
+        if c == EL_BERT_SPLIT_AT:
+            mover = threading.Thread(target=split)
+            mover.start()
+        starts.append(time.monotonic())
+        w.push_pull(_el_bert_grads(tree, c))
+        torch.cuda.synchronize()
+        ends.append(time.monotonic())
+    mover.join(timeout=EL_TIMEOUT_S)
+    if "out" not in move:
+        raise AssertionError("elastic (b): the split never committed")
+    final, _ = keymod.flatten_with_keys(w.pull_all())
+    table = fetch_table(cb)
+    w.close()
+    names = ["b0", "b1", "b2"]
+    dumps, _ = _el_finish_servers(out, names, procs)
+    # the moved rows at the recipient bitwise the donor's at the cutover
+    evicted = {k: v for n in names
+               for k, v in dumps[n]["digests"]["evicted"].items()}
+    adopted = {k: v for n in names
+               for k, v in dumps[n]["digests"]["adopted"].items()}
+    if not adopted or evicted != adopted:
+        raise AssertionError(f"elastic (b): {len(adopted)} adopted rows, "
+                             f"digests equal to the donors' "
+                             f"{evicted == adopted}")
+    streams = _el_key_streams(dumps)
+    params, pushes, _ = _el_replay(
+        streams, tree, lambda _w, c: _el_bert_grads(tree, c), "cuda",
+        "momentum", 1)
+    if set(pushes.values()) != {EL_BERT_CYCLES}:
+        raise AssertionError(f"elastic (b): replayed pushes {pushes}")
+    for k, v in final.items():
+        if not torch.equal(params[k], v):
+            raise AssertionError(f"elastic (b): the worker's final {k} is "
+                                 f"not bitwise the replay's")
+    migs = [m for n in names for m in dumps[n]["migrations"]]
+    before = [e - s for s, e in zip(starts, ends) if e < move["t0"]][1:]
+    during = [e - s for s, e in zip(starts, ends)
+              if e > move["t0"] and s < move["t1"]]
+    after = [e - s for s, e in zip(starts, ends) if s >= move["t1"]]
+    return {
+        "tree_bytes": nbytes, "moved_keys": len(adopted),
+        "bytes": sum(m["bytes"] for m in migs),
+        "gbps": sum(m["bytes"] for m in migs) / sum(
+            m["seconds"] for m in migs) / 1e9,
+        "move_s": move["t1"] - move["t0"],
+        "snapshot_ms": max(m["snapshot_s"] for m in migs) * 1e3,
+        "copy_ms": max(m["copy_s"] for m in migs) * 1e3,
+        "cutover_ms": max(m["cutover_s"] for m in migs) * 1e3,
+        "reroute_ms": [x * 1e3 for x in reroute_s],
+        "cps": {"before": len(before) / sum(before) if before else 0.0,
+                "during": len(during) / sum(during) if during else 0.0,
+                "after": len(after) / sum(after) if after else 0.0},
+        "moves": len(migs), "epoch": table.epoch}
+
+
+def _el_sparse_run(out, procs, cc, old):
+    """(c)'s orchestration: at the workers' pause shard 1 (process
+    ``old``) saves and stops, its replacement (restored from the save)
+    takes the slot once the process exited, the workers resume; a range
+    move is refused with the typed message."""
+    from ps_tpu_torch.elastic import fetch_view, request_rebalance
+
+    for w in range(SPARSE_WORKERS):
+        _el_wait(os.path.join(out, f"paused{w}"), procs=procs)
+    view = fetch_view(cc)
+    old_port = int(_el_read(os.path.join(out, "port1")))
+    try:
+        request_rebalance(cc, moves=[[0, 1, [k for k, s in
+                                             view["table"]["assign"].items()
+                                             if s == 0][:1]]])
+        raise AssertionError("elastic (c): a sparse range move committed")
+    except RuntimeError as e:
+        if "sparse member" not in str(e):
+            raise
+        refusal = str(e)
+    _el_write(os.path.join(out, "stop1"), "")
+    # the replacement registers once shard 1's process ended (a stopping
+    # service still serves its open connections) and the coordinator saw
+    # it leave
+    old.wait(timeout=EL_TIMEOUT_S)
+    if old.returncode != 0:
+        raise AssertionError(f"elastic (c): shard 1 exited {old.returncode}"
+                             f":\n{old.communicate()[0][-3000:]}")
+    old_uri = f"127.0.0.1:{old_port}"
+    deadline = time.monotonic() + EL_TIMEOUT_S
+    while not any(m["uri"] == old_uri and m["hb_state"] == "left"
+                  for m in fetch_view(cc)["members"]):
+        if time.monotonic() > deadline:
+            raise TimeoutError("elastic (c): shard 1 never left")
+        time.sleep(0.01)
+    _el_write(os.path.join(out, "ckpt1", "go1"), "")
+    while True:
+        shards = fetch_view(cc)["table"]["shards"]
+        if len(shards) == 2 and old_uri not in shards:
+            break
+        if time.monotonic() > deadline:
+            raise TimeoutError("elastic (c): no replacement took the slot")
+        time.sleep(0.02)
+    _el_write(os.path.join(out, "resume"), "")
+    return refusal
+
+
+def _el_sparse_checks(out, rout, harness, procs):
+    """(c)'s gates on the dumps: 2 + 2 launches a push applied at every
+    server process, the logs (shard 1's old and new, joined) replayed on
+    the card bitwise the tables, every pulled row set the replay's."""
+    import ps_tpu_torch as ps
+
+    outs = harness.finish(procs, SPARSE_TIMEOUT_S, fail_fast=True)
+    for p, o in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"elastic (c): {' '.join(p.args[-10:])} "
+                                 f"exited {p.returncode}:\n{o[-3000:]}")
+    info0 = json.load(open(os.path.join(out, "sparse_server0.json")))
+    old1 = json.load(open(os.path.join(out, "sparse_server1.json")))
+    new1 = json.load(open(os.path.join(rout, "sparse_server1.json")))
+    launches = {"sparse_apply/deep": 0, "sparse_apply/wide": 0,
+                "sparse_group": 0}
+    for what, info in (("shard 0", info0), ("shard 1", old1),
+                       ("its replacement", new1)):
+        n = len(info["apply_log"])
+        got = info["launches"]
+        if (got["apply"], got["group"], got["by_rule"]) != (
+                2 * n, 2 * n, {"adagrad": n, "sgd": n}) or not n:
+            raise AssertionError(f"elastic (c): {what} launched {got} for "
+                                 f"{n} pushes: expected 2 grouping + 2 "
+                                 f"apply a push")
+        launches["sparse_apply/deep"] += got["by_rule"]["adagrad"]
+        launches["sparse_apply/wide"] += got["by_rule"]["sgd"]
+        launches["sparse_group"] += got["group"]
+    joined = dict(new1, apply_log=old1["apply_log"] + new1["apply_log"])
+    finals = [dict(np.load(os.path.join(out, "sparse_tables0.npz"))),
+              dict(np.load(os.path.join(rout, "sparse_tables1.npz")))]
+    records = [json.load(open(os.path.join(out, f"sparse_worker{w}.json")))
+               for w in range(SPARSE_WORKERS)]
+    pulls = {w: (dict(np.load(os.path.join(out, f"sparse_pulls{w}.npz"))),
+                 records[w]) for w in range(SPARSE_WORKERS)}
+    ps.init(backend="cuda")
+    try:
+        tables, checked = harness.sparse_replay(
+            [info0, joined], "wd", SPARSE_WORKERS, EL_SPARSE_CYCLES,
+            pulls=pulls)
+        for s, final in enumerate(finals):
+            for name, emb in tables[s].items():
+                leaves = [emb.table] + _emb_leaves(emb)
+                saved = [final[name]] + [final[f"{name}/state{i}"]
+                                         for i in range(len(leaves) - 1)]
+                if not all(np.array_equal(x.cpu().numpy(), y)
+                           for x, y in zip(leaves, saved)):
+                    raise AssertionError(f"elastic (c): shard {s} {name} "
+                                         f"replayed is not bitwise the "
+                                         f"server's")
+    finally:
+        ps.shutdown()
+    reroutes = [r["table_reroutes"] for r in records]
+    if min(reroutes) < 1:
+        raise AssertionError(f"elastic (c): worker re-routes {reroutes}")
+    return {"launches": launches, "checked": checked, "reroutes": reroutes,
+            "applied": [len(info0["apply_log"]), len(old1["apply_log"]),
+                        len(new1["apply_log"])]}
+
+
+def _el_policy(out, procs):
+    """(d)'s policy fleets: the acting engine fires one hotspot rebalance
+    after its burn windows and levels the fleet; skewed again inside the
+    cooldown, it is suppressed; the dry engine records its plan and moves
+    nothing."""
+    from ps_tpu_torch.elastic import fetch_table, request_rebalance
+    from ps_tpu_torch.elastic.member import fetch_policy
+
+    got = {}
+    for mode in ("act", "dry"):
+        ca = _el_read(os.path.join(out, f"coord-{mode}"))
+        keys = [f"b{i}" for i in range(EL_POLICY_KEYS)]
+        fetch_table(ca, cover=keys, timeout=EL_TIMEOUT_S)
+        outcome = "rebalance:ok" if mode == "act" else "rebalance:dry"
+        deadline = time.monotonic() + 30
+        while outcome not in fetch_policy(ca)["actions_total"]:
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"elastic (d): the {mode} engine never "
+                                   f"fired: {fetch_policy(ca)}")
+            time.sleep(0.05)
+        table = fetch_table(ca)
+        if mode == "act":
+            # skewed again inside the cooldown, once the level fleet's
+            # quiet windows re-armed the rule: it burns again and is
+            # suppressed
+            deadline = time.monotonic() + 30
+            while not fetch_policy(ca)["rules"]["hotspot_rebalance"][
+                    "armed"]:
+                if time.monotonic() > deadline:
+                    raise TimeoutError("elastic (d): the rule never "
+                                       "re-armed")
+                time.sleep(0.05)
+            request_rebalance(ca, moves=[[1, 0, table.keys_of(1)[:-1]]])
+            deadline = time.monotonic() + 30
+            while not fetch_policy(ca)["suppressed_total"].get("cooldown"):
+                if time.monotonic() > deadline:
+                    raise TimeoutError("elastic (d): no cooldown "
+                                       "suppression")
+                time.sleep(0.05)
+        st = fetch_policy(ca, n=256)
+        fires = [e for e in st["actions"]
+                 if e["rule"] == "hotspot_rebalance"
+                 and e["outcome"] in ("started", "ok", "dry", "failed")]
+        got[mode] = {"actions_total": st["actions_total"],
+                     "suppressed": st["suppressed_total"],
+                     "fired": st["rules"]["hotspot_rebalance"]["fired_total"],
+                     "fires": fires, "epoch": fetch_table(ca).epoch,
+                     "shards": [len(table.keys_of(i)) for i in range(2)]}
+    act, dry = got["act"], got["dry"]
+    if act["actions_total"] != {"rebalance:ok": 1} or act["fired"] != 1 \
+            or len(act["fires"]) != 1 or act["shards"] != [4, 4]:
+        raise AssertionError(f"elastic (d): the acting engine {act}")
+    if dry["actions_total"] != {"rebalance:dry": 1} or dry["fired"] != 1 \
+            or dry["epoch"] != 2 or sorted(dry["shards"]) != [1, 7] \
+            or dry["fires"][0]["detail"] != {"targets": [0, 1]}:
+        raise AssertionError(f"elastic (d): the dry engine {dry}")
+    return got
+
+
+def phase_elastic(tmp):
+    """25: elastic membership on the card (ROADMAP item 6.2)."""
+    import threading
+
+    from ps_tpu_torch.ops import _build
+
+    _build.build(("sparse_group", "sparse_apply"))  # cached after phase 2
+    harness = _van_harness()
+    card = _card_line()
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "el")
+    rout = os.path.join(out, "r")
+    os.makedirs(rout)
+    mlp_keys = sorted(_el_tree("mlp", "cpu"))
+    base = {"workers": EL_WORKERS, "dc": EL_DC, "lr": EL_LR,
+            "opt": "momentum"}
+    half = len(mlp_keys) // 2
+    # (a)'s fleet and (c)'s processes first; the others start while (a)
+    # runs
+    a_fleet = {"a0": dict(base, coord="a", tree="mlp", final=True,
+                          keys=mlp_keys[:half]),
+               "a1": dict(base, coord="a", tree="mlp", final=True,
+                          keys=mlp_keys[half:]),
+               "a2": dict(base, coord="a", tree="mlp", final=True, keys=[]),
+               "a3": dict(base, coord="a", tree="mlp", final=True, keys=[])}
+    servers = {}
+    for i, ks in enumerate(_el_bert_split(_el_bert_shapes()) + [[]]):
+        servers[f"b{i}"] = dict(base, workers=1, coord="b", tree="bert",
+                                keys=ks, clones=True)
+    pkeys = [f"b{i}" for i in range(EL_POLICY_KEYS)]
+    for mode, tag in (("act", "p"), ("dry", "q")):
+        servers[f"{tag}0"] = dict(base, coord=mode, tree="blocks",
+                                  keys=pkeys[:-1], opt="sgd")
+        servers[f"{tag}1"] = dict(base, coord=mode, tree="blocks",
+                                  keys=pkeys[-1:], opt="sgd")
+    # (c): two sparse shards (shard 1 saves and stops at stop1), the
+    # replacement waiting for its save, three workers pausing at cycle
+    # 10; the coordinator's address in a file
+    ckpt = os.path.join(out, "ckpt1")
+    os.makedirs(ckpt)
+    sopts = {"coordinator": "coord-c"}
+    shard_opts = [sopts, dict(sopts, stop_at="stop1", save=ckpt)]
+    procs, sparse = [], []
+    try:
+        procs.append(_el_spawn("--elastic-coords", out))
+        procs += [_el_spawn("--elastic-server", out, n, json.dumps(spec))
+                  for n, spec in a_fleet.items()]
+        sparse = [harness.spawn("sparse-server", out, SPARSE_WORKERS,
+                                EL_SPARSE_CYCLES, s, SPARSE_SHARDS, "cuda",
+                                "wd", json.dumps(shard_opts[s]))
+                  for s in range(SPARSE_SHARDS)]
+        sparse.append(harness.spawn(
+            "sparse-server", rout, SPARSE_WORKERS, EL_SPARSE_CYCLES, 1,
+            SPARSE_SHARDS, "cuda", "wd",
+            json.dumps(dict(sopts, restore=ckpt, restore_at="go1"))))
+        sparse += [harness.spawn(
+            "sparse-worker", "@0", out, w, EL_SPARSE_CYCLES, "cuda", "wd",
+            SPARSE_WORKERS, 1,
+            json.dumps(dict(sopts, pause_at=EL_SPARSE_STOP_AT)))
+            for w in range(SPARSE_WORKERS)]
+        ready = _el_config5_ready(out, procs)
+        t_ready = time.perf_counter()
+        procs += [_el_spawn("--elastic-server", out, n, json.dumps(spec))
+                  for n, spec in servers.items()]
+        _el_wait(os.path.join(out, "coord-c"), procs=procs)
+        _el_write(os.path.join(rout, "coord-c"),
+                  _el_read(os.path.join(out, "coord-c")))
+        cc = _el_read(os.path.join(out, "coord-c"))
+        side = {}
+
+        def background(name, fn, *args):
+            try:
+                side[name] = fn(*args)
+            except BaseException as e:  # raised below
+                side[name] = e
+
+        bg = [threading.Thread(target=background, args=(
+                  "c", _el_sparse_run, out, procs + sparse, cc, sparse[1])),
+              threading.Thread(target=background, args=(
+                  "d", _el_policy, out, procs))]
+        for t in bg:
+            t.start()
+        a = _el_config5(out, procs, ["a0", "a1", "a2", "a3"], ready)
+        t_a = time.perf_counter()
+        for t in bg:
+            t.join(timeout=EL_TIMEOUT_S)
+        for name in ("c", "d"):
+            if isinstance(side.get(name), BaseException):
+                raise side[name]
+        t_cd = time.perf_counter()
+        a_chk = _el_config5_checks(out, procs, ["a0", "a1", "a2", "a3"], a)
+        t_achk = time.perf_counter()
+        c = _el_sparse_checks(out, rout, harness, sparse)
+        t_c = time.perf_counter()
+        b = _el_bert(out, procs)
+        t_b = time.perf_counter()
+        _el_finish_servers(out, ["p0", "p1", "q0", "q1"], procs)
+        _el_write(os.path.join(out, "coords-stop"), "")
+        _el_wait(os.path.join(out, "coords.json"), procs=procs)
+        coords = json.load(open(os.path.join(out, "coords.json")))
+        if coords["cuda_initialized"]:
+            raise AssertionError("elastic: the coordinators' process "
+                                 "initialized CUDA")
+        for p in procs:
+            p.wait(timeout=60)
+    finally:
+        for p in procs + sparse:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    total = time.perf_counter() - t0
+    m = a["moves"]
+    log(f"elastic (a): a coordinator (no device) + 2 AsyncPSService "
+        f"processes of the {EL_HIDDEN}-hidden MNIST MLP (momentum, lr "
+        f"{EL_LR}, DC λ {EL_DC}, on the card) + 2 empty standbys "
+        f"(register_spare: {a['spares']}); {EL_WORKERS} worker threads x "
+        f"{EL_CYCLES} cycles on connect_async(coordinator=): split 2 -> 4 "
+        f"at cycle {EL_SPLIT_AT} ({len(m['split']['moves'])} moves, epoch "
+        f"{m['split']['epoch']}), drain back at {EL_DRAIN_AT} "
+        f"({len(m['drain']['moves'])} moves, epoch {m['drain']['epoch']}); "
+        f"{a_chk['moves']} committed moves, {a_chk['rows']} rows streamed; "
+        f"every key applied {EL_WORKERS * EL_CYCLES} times; table reroutes "
+        f"{a['reroutes']}, epochs monotonic; the servers' logs replayed "
+        f"key by key on one engine on the card bitwise the fleet's params, "
+        f"{a_chk['held']} pulls bitwise the replay's; CPU witness: "
+        f"gradients {a_chk['grad_err']:.3g} (bound {VAN_GRAD_RTOL}), "
+        f"params max abs {a_chk['cpu_err']:.3g} (tol {MNIST_TOL}); loss "
+        f"{a_chk['loss'][0]:.4f} -> {a_chk['loss'][1]:.4f}; workers "
+        f"{a['wall_s']:.1f} s")
+    log(f"elastic (b): the {b['tree_bytes']:,}-byte tree (momentum) on 2 "
+        f"shards, 1 bucketed worker x {EL_BERT_CYCLES} cycles, split to 3 "
+        f"at cycle {EL_BERT_SPLIT_AT}: {b['moves']} moves, "
+        f"{b['moved_keys']} rows bitwise at their recipients (param, state, "
+        f"stale snapshot, apply count); the final pull bitwise a replay; "
+        f"{b['bytes']:,} bytes streamed at {b['gbps']:.3f} GB/s, the move "
+        f"{b['move_s']:.3f} s; largest snapshot freeze "
+        f"{b['snapshot_ms']:.3f} ms (copy off the card "
+        f"{b['copy_ms']:.3f} ms), largest cutover freeze "
+        f"{b['cutover_ms']:.3f} ms; re-route "
+        f"{', '.join(f'{x:.3f}' for x in b['reroute_ms'])} ms; cycles/s "
+        f"before {b['cps']['before']:.3f}, during {b['cps']['during']:.3f},"
+        f" after {b['cps']['after']:.3f}; card {card}")
+    log(f"elastic (c): phase 17's 2 sparse shards under a coordinator, "
+        f"{SPARSE_WORKERS} worker processes x {EL_SPARSE_CYCLES} cycles on "
+        f"connect_sparse(coordinator=); a range move refused "
+        f"({side['c'][:60]!r}); at the pause after cycle "
+        f"{EL_SPARSE_STOP_AT} shard 1 saved and stopped, a replacement "
+        f"restored from the save took its slot, workers re-routed "
+        f"{c['reroutes']}; applies {c['applied']} (shard 0, shard 1, the "
+        f"replacement), each 2 grouping + 2 apply launches; the joined logs "
+        f"replayed bitwise the tables, {c['checked']} pulled row sets "
+        f"bitwise the replay")
+    d = side["d"]
+    log(f"elastic (d): fleet push-apply p99 over the window of cycles "
+        f"{EL_QUIET_AT}-{EL_CYCLES - 1} ({a['window_s']:.3f} s, "
+        f"{a['fleet_count']} applies; members counted "
+        f"{json.dumps(a['counted'])}) {a['fleet_p99_ms']:.4f} ms, equal to "
+        f"the members' raw histograms merged (their p99s' mean "
+        f"{a['mean_member_p99_ms']:.4f} ms); policy act: "
+        f"{d['act']['actions_total']}, suppressed "
+        f"{d['act']['suppressed']}, fleet back to {d['act']['shards']} keys;"
+        f" dry: {d['dry']['actions_total']}, plan "
+        f"{d['dry']['fires'][0]['detail']}, table epoch "
+        f"{d['dry']['epoch']} (nothing moved); coordinators' process never "
+        f"initialized CUDA; (a)'s fleet up {t_ready - t0:.1f} s, (a) "
+        f"{t_a - t_ready:.1f} s, (c) and (d) after it {t_cd - t_a:.1f} s, "
+        f"(a)'s replays {t_achk - t_cd:.1f} s, (c)'s {t_c - t_achk:.1f} s, "
+        f"(b) {t_b - t_c:.1f} s; phase {total:.1f} s")
+    return {"launches": c["launches"], "seconds": total, "a": a_chk,
+            "b": b, "c": c}
+
+
 def main():
     if len(sys.argv) == 5 and sys.argv[1] == "--two-ranks-worker":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -8270,6 +9349,14 @@ def main():
     if len(sys.argv) == 5 and sys.argv[1] == "--tiered-ranks-worker":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         _tiered_ranks_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--elastic-coords":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _elastic_coords(sys.argv[2])
+        return 0
+    if len(sys.argv) == 5 and sys.argv[1] == "--elastic-server":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _elastic_server(sys.argv[2], sys.argv[3], sys.argv[4])
         return 0
     if len(sys.argv) == 6 and sys.argv[1] == "--van-heartbeat-worker":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -8326,6 +9413,8 @@ def main():
         tiered = phase_tiered(tmp, untiered=sparse["numbers"])
     with tempfile.TemporaryDirectory(prefix="ps_obs_") as tmp:
         observed = phase_obs(tmp)
+    with tempfile.TemporaryDirectory(prefix="ps_elastic_") as tmp:
+        elastic = phase_elastic(tmp)
     for e in entries:  # each rank's launches in phase 15's 20-step runs
         if e["name"] == "flash_attention/fwd":
             # each rank's launches over phase 15 (e)'s bf16 steps, and the
@@ -8360,6 +9449,9 @@ def main():
             # phase 24 (a): the traced run's servers (backup 0, promoted,
             # and primary 1), equal to the same pushes replayed untraced
             e["launches_obs"] = observed["launches"][e["name"]]
+            # phase 25 (c): the sparse members' launches (shard 0, shard 1
+            # and its replacement) for the pushes they applied
+            e["launches_elastic"] = elastic["launches"][e["name"]]
             part = sparse["shard"][e["name"].split("/")[-1]
                                    if "/" in e["name"] else "group"]
             e["sparse_ps_shard"] = {"ids": sparse["shard"]["ids"],

@@ -48,7 +48,10 @@ the sparse-apply kernel, ``connect_sparse`` in the workers; and
 two-level aggregation (``backends/aggregator.py``): ``serve_aggregator``
 pre-reduces a host group's pushes into one upstream push a round, and
 ``connect_async(..., aggregator=...)`` routes a worker through it, with
-the flat path as its fallback. ROADMAP.md lists what is still to port.
+the flat path as its fallback; and elastic membership (``elastic/``): a
+``Coordinator`` holds the shard table, servers and workers given
+``coordinator=`` join it, and key ranges move between live shards
+(``elastic.request_rebalance``). ROADMAP.md lists what is still to port.
 """
 
 from ps_tpu_torch import checkpoint
@@ -66,6 +69,7 @@ from ps_tpu_torch.backends.remote_async import (
     shard_tree,
 )
 from ps_tpu_torch.backends.remote_sparse import connect_sparse, serve_sparse
+from ps_tpu_torch import elastic
 
 __all__ = [
     "checkpoint",
@@ -86,4 +90,5 @@ __all__ = [
     "serve_sparse",
     "connect_sparse",
     "ServerFailureError",
+    "elastic",
 ]

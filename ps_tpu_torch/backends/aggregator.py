@@ -34,9 +34,11 @@ theirs. A round with a traced member is merged inside an ``agg_merge``
 span parented to the first traced member's serve span; the upstream
 push parents to it and carries the members' trace contexts as
 ``members_tc``, so the chain worker -> aggregator -> shard is one trace.
-Not ported yet, raising with its ROADMAP Queue 1 item: the coordinator's
-membership table (``coordinator=``, ``host=``, ``advertise_host=``:
-registration and discovery, item 6.2).
+With ``coordinator=`` the aggregator takes its upstream shards from the
+coordinator's table (its client re-routes when keys move) and registers
+itself there as the aggregator of ``host`` (``socket.gethostname()`` by
+default) at ``advertise_host:port``: a worker of that host given only
+the coordinator finds it in the table and dials it.
 """
 
 from __future__ import annotations
@@ -106,20 +108,12 @@ class AggregatorService(VanService):
                  shm_bytes: Optional[int] = None,
                  failover_timeout: Optional[float] = None,
                  coordinator=None, host: Optional[str] = None,
-                 advertise_host: Optional[str] = None,
+                 advertise_host: str = "127.0.0.1",
                  native_loop: Optional[bool] = None,
                  loop_threads: Optional[int] = None):
-        from ps_tpu_torch.backends.remote_async import (RemoteAsyncWorker,
-                                                        _not_ported)
+        from ps_tpu_torch.backends.remote_async import RemoteAsyncWorker
         from ps_tpu_torch.config import env_float, env_int
 
-        if coordinator is not None or host is not None \
-                or advertise_host is not None:
-            raise _not_ported("an aggregator registered with a coordinator "
-                              "(coordinator=, host=, advertise_host=; "
-                              "elastic/)", "6.2")
-        if uri is None:
-            raise ValueError("AggregatorService needs an upstream uri")
         if group_size is None:
             group_size = env_int("PS_AGG_GROUP_SIZE", 1, lo=1)
         self.group_size = max(int(group_size), 1)
@@ -128,10 +122,20 @@ class AggregatorService(VanService):
                                          lo=1.0)
         self._flush_timeout = float(flush_timeout_ms) / 1e3
         self.group = int(group)
-        addrs, replica_sets = parse_replica_uri(uri)
         # the upstream client's params land in host memory: its structure
         # is params_like's with empty CPU placeholders for leaves
         kv, treedef = keymod.flatten_with_keys(params_like)
+        table = None
+        if coordinator is not None:
+            from ps_tpu_torch.elastic.member import fetch_table
+
+            table = fetch_table(coordinator, cover=list(kv))
+            addrs, replica_sets = table.addrs(), table.replica_sets()
+        elif uri is None:
+            raise ValueError("AggregatorService needs an upstream uri or "
+                             "a coordinator address")
+        else:
+            addrs, replica_sets = parse_replica_uri(uri)
         host_like = keymod.unflatten(
             treedef, {k: torch.empty(0) for k in kv}, list(kv))
         # ONE upstream worker a group, outside the real id space, so merged
@@ -141,7 +145,7 @@ class AggregatorService(VanService):
             bucket_bytes=bucket_bytes, pool_size=pool_size,
             compress=compress, writev=writev, shm=shm, shm_bytes=shm_bytes,
             replica_sets=replica_sets, failover_timeout=failover_timeout,
-            agg_role=True)
+            coordinator=coordinator, table=table, agg_role=True)
         self._key_order = list(self._client._key_order)
         # a member push's key set is checked every round: sort once
         self._sorted_keys = sorted(self._key_order)
@@ -170,6 +174,36 @@ class AggregatorService(VanService):
                          native_loop=native_loop, loop_threads=loop_threads)
         self.role = "aggregator"
         self._flusher.start()
+        self._coord = coordinator
+        self.host = host
+        if coordinator is not None:
+            import socket
+
+            self.host = host or socket.gethostname()
+            self._register(coordinator,
+                           f"{advertise_host}:{self.port}")
+
+    def _register(self, coordinator, uri: str) -> None:
+        """Join the coordinator's table as this host's aggregator: the
+        workers of ``self.host`` find ``uri`` in the table reply and dial
+        it instead of the shards."""
+        from ps_tpu_torch.elastic.member import parse_coord
+
+        chost, cport = parse_coord(coordinator)
+        ch = tv.Channel.connect(chost, cport)
+        try:
+            kind, _, _, extra = tv.decode(ch.request(tv.encode(
+                tv.COORD_HELLO, 0, None,
+                extra={"role": "aggregator", "uri": uri,
+                       "host": self.host})))
+            if kind != tv.OK:
+                raise RuntimeError(f"aggregator registration refused: "
+                                   f"{extra.get('error')}")
+        finally:
+            ch.close()
+        logging.getLogger(__name__).info(
+            "aggregator for host %s registered at %s (group %d, fan-in %d)",
+            self.host, uri, self.group, self.group_size)
 
     # -- rounds ----------------------------------------------------------------
 

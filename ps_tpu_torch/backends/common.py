@@ -227,6 +227,23 @@ class ServerFailureError(RuntimeError):
         self.server = server
 
 
+class TableMovedError(RuntimeError):
+    """The shard table moved under this worker: a rebalance moved keys
+    between shards (``elastic/``). Apart from
+    :class:`ServerFailureError` because the remedy differs: the server is
+    healthy and only the assignment changed, so the worker fetches the
+    table from its coordinator and re-routes (every member of the shard's
+    replica set would refuse alike). ``table_epoch`` is the refusing
+    server's: the worker waits for a fetched table past its own before it
+    retries, so a refusal that raced the coordinator's publish converges."""
+
+    def __init__(self, message: str, server: Optional[int] = None,
+                 table_epoch: int = 0):
+        super().__init__(message)
+        self.server = server
+        self.table_epoch = int(table_epoch)
+
+
 class BackupNotServing(Exception):
     """A replica answered HELLO but is an unpromoted backup: retryable
     (the failover loop waits out the promotion)."""
@@ -810,8 +827,15 @@ class BucketedTransportMixin:
         """The error of an ERR reply: a 'not serving' refusal (an
         unpromoted backup, a zombie fenced mid-commit) is the same
         retryable failure a dead connection raises, so the failover loop
-        re-routes and replays; anything else is an application error."""
+        re-routes and replays; a 'moved' refusal (the shard table changed
+        under a rebalance) takes the table's re-route; anything else is an
+        application error."""
         host, port = self._addrs[i]
+        if extra.get("moved"):
+            return TableMovedError(
+                f"{self._failure_noun} {i} ({host}:{port}) refused: "
+                f"{extra.get('error')}", server=i,
+                table_epoch=int(extra.get("table_epoch") or 0))
         if extra.get("backup"):
             return ServerFailureError(
                 f"{self._failure_noun} {i} ({host}:{port}) is not "
@@ -985,12 +1009,23 @@ class BucketedTransportMixin:
             "%s %d re-routed to %s:%d (epoch %d) in %.2fs",
             self._failure_noun, i, *addr, self._epochs[i], dt)
 
+    def _on_table_moved(self, err: TableMovedError,
+                        deadline: float) -> None:
+        """Hook: fetch the shard table and re-route (a worker with a
+        coordinator overrides it). A worker without one cannot recover:
+        the topology it was started with is wrong now."""
+        raise TableMovedError(
+            f"{err} — this worker has no coordinator configured "
+            f"(connect with coordinator=... / PS_COORD_URI for elastic "
+            f"membership), so it cannot re-fetch the shard table",
+            server=err.server, table_epoch=err.table_epoch) from err
+
     def _on_server_lost(self, err: ServerFailureError,
                         deadline: float) -> None:
         """Hook: a shard failed with no replica left to cycle to, the last
-        chance before the op surfaces the failure. The default raises it
-        (the reference's elastic workers re-discover the fleet here; item
-        6)."""
+        chance before the op surfaces the failure. A worker with a
+        coordinator re-discovers the fleet here (a replacement may have
+        taken the dead shard's slot over); the default raises it."""
         raise err
 
     # -- the read path's rotation over a replica set ---------------------------
@@ -1099,35 +1134,42 @@ class BucketedTransportMixin:
 
     def _with_failover(self, fn):
         """Run one transport operation; on a typed server failure, fail the
-        shard over to a replica and retry the whole operation. Safe
-        because operations are idempotent: pulls read, and every push
-        carries its (nonce, seq) dedup token, so a shard that already
-        applied it (directly, or through its dead primary's replication
-        stream) acks without applying again. The whole window, re-routes
-        of every shard the retry trips over included, is bounded by
-        ``failover_timeout``."""
+        shard over to a replica, or on a 'moved' refusal fetch the shard
+        table and re-route, and retry the whole operation. Safe because
+        operations are idempotent: pulls read, and every push carries its
+        (nonce, seq) dedup token, so a shard that already applied it
+        (directly, through its dead primary's replication stream, or
+        through a moved key range's tokens) acks without applying again.
+        The whole window, every re-route the retry trips over included,
+        is bounded by ``failover_timeout``."""
         try:
             return fn()
-        except ServerFailureError as e:
+        except (ServerFailureError, TableMovedError) as e:
             err = e
         deadline = time.monotonic() + self.failover_timeout
         while True:
-            i = getattr(err, "server", None)
-            if i is None or len(self._replica_sets[i]) <= 1:
-                self._on_server_lost(err, deadline)
+            if isinstance(err, TableMovedError):
+                # the shard is healthy, its assignment changed: fetch the
+                # table and re-split, never cycle its replica set
+                self._on_table_moved(err, deadline)
             else:
-                try:
-                    self._failover(i, err, deadline)
-                except ServerFailureError as e:
-                    # a candidate died mid-adoption: keep cycling within
-                    # the same deadline; a deadline-expired failure raises
-                    if time.monotonic() >= deadline:
-                        raise
-                    err = e
-                    continue
+                i = getattr(err, "server", None)
+                if i is None or len(self._replica_sets[i]) <= 1:
+                    self._on_server_lost(err, deadline)
+                else:
+                    try:
+                        self._failover(i, err, deadline)
+                    except ServerFailureError as e:
+                        # a candidate died mid-adoption: keep cycling within
+                        # the same deadline; a deadline-expired failure
+                        # raises
+                        if time.monotonic() >= deadline:
+                            raise
+                        err = e
+                        continue
             try:
                 return fn()
-            except ServerFailureError as e:
+            except (ServerFailureError, TableMovedError) as e:
                 if time.monotonic() >= deadline:
                     raise
                 err = e

@@ -68,8 +68,14 @@ one the heuristic placed there is all-gathered before the forward, and
 and meaned over 'data', never reduced over 'model' or 'pipe'. The async
 server holds every leaf whole and steps its blocks under the spec.
 
-Not ported yet: the async server's elastic hooks (ROADMAP Queue 1 item
-6).
+The async server's elastic hooks (``elastic/``, the live key-range
+moves of ``backends/remote_async.py``): ``export_keys`` copies whole
+rows off the card (parameter, the key's optimizer state under the
+reference's leaf paths, every worker's stale snapshot, the apply count),
+``adopt_key`` installs one on the engine's device as ``register_tree``
+places a key, ``evict_keys`` drops rows (their staged per-key pushes
+too), and ``push_subtree`` applies a subset of the keys, what a replay
+straddling a move owes. A move of a server across ranks is refused.
 """
 
 from __future__ import annotations
@@ -80,6 +86,7 @@ import os
 import threading
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ps_tpu_torch.backends.common import (
@@ -88,8 +95,11 @@ from ps_tpu_torch.backends.common import (
     backend_device,
     device_copy,
     make_dc_apply_tree,
+    stage_to_host,
 )
-from ps_tpu_torch.checkpoint import CheckpointMixin, keep_worker
+from ps_tpu_torch.checkpoint import (CheckpointMixin, keep_worker,
+                                     state_from_reference,
+                                     state_to_reference)
 from ps_tpu_torch.config import Config
 from ps_tpu_torch.kv import keys as keymod
 from ps_tpu_torch.ops.sparse_apply import resolve_tier
@@ -519,6 +529,7 @@ class AsyncCudaServer(_RankApplyMixin, AsyncStagingMixin,
         self._dims: Dict[str, Optional[int]] = {}
         self._state_specs: List[tuple] = []
         self._state_dims: List[Optional[int]] = []
+        self._key_state_specs: Dict[str, List[tuple]] = {}
         self._thread: Optional[int] = None  # the one thread across ranks
         self._stale: Dict[tuple, torch.Tensor] = {}
         self._staged_async: Dict[int, Dict[str, Any]] = {}
@@ -540,17 +551,19 @@ class AsyncCudaServer(_RankApplyMixin, AsyncStagingMixin,
             raise RuntimeError("server already holds a registered tree")
         self._params = {key: self._place(key, v, self.partition_rules)
                         for key, v in kv.items()}
-        state_specs = {}
         for key, v in self._params.items():
-            self._state[key], state_specs[key] = sharded_opt_init(
+            self._state[key], self._key_state_specs[key] = sharded_opt_init(
                 self._opt.init, {key: v}, {key: self._specs[key]},
                 self.mesh)
             self.apply_count[key] = 0
-        # in checkpoint.flatten_leaves order: the keys sorted
-        self._state_specs = [spec for key in sorted(state_specs)
-                             for spec in state_specs[key]]
-        self._state_dims = _data_dims(self._state_specs)
+        self._index_state_specs()
         return keymod.unflatten(treedef, self._params, key_order)
+
+    def _index_state_specs(self) -> None:
+        # in checkpoint.flatten_leaves order: the keys sorted
+        self._state_specs = [spec for key in sorted(self._key_state_specs)
+                             for spec in self._key_state_specs[key]]
+        self._state_dims = _data_dims(self._state_specs)
 
     def keys(self):
         return list(self._params)
@@ -617,6 +630,19 @@ class AsyncCudaServer(_RankApplyMixin, AsyncStagingMixin,
         with self._lock:
             self._commit_tree(grads_kv, worker)
 
+    def push_subtree(self, grads_kv: Dict[str, Any], worker: int = 0) -> None:
+        """One DC apply of a subset of the keys: a push replayed across a
+        key-range move owes an apply only to the keys whose dedup token
+        missed it, and keys are independent under per-key optimizers, so
+        this is exactly the replay of those keys."""
+        missing = [k for k in grads_kv if k not in self._params]
+        if missing:
+            raise KeyError(f"unregistered keys {missing[:3]}")
+        self._check_worker(worker)
+        self._check_thread()
+        with self._lock:
+            self._commit_tree(grads_kv, worker)
+
     def _commit_tree_accounting(self, grads_kv) -> None:
         # the reference's count: an all-reduce of the pushed keys' bytes
         self._applies += len(grads_kv)
@@ -639,6 +665,101 @@ class AsyncCudaServer(_RankApplyMixin, AsyncStagingMixin,
 
     def optimizer_state(self, key: str):
         return self._state[key]
+
+    # -- elastic membership: live key moves (elastic/) ----------------------
+    # A move carries whole rows: the parameter, the key's optimizer state,
+    # every worker's stale snapshot of it and its apply count. Keys are
+    # independent under per-key optimizers, so a key's history moves
+    # between engines bit for bit.
+
+    def _check_movable(self) -> None:
+        if self.mesh.size > 1:
+            raise RuntimeError("a live key move of a server across ranks is "
+                               "not supported: its ranks hold slices")
+
+    def export_keys(self, keys) -> Dict[str, dict]:
+        """The rows of ``keys`` (the caller holds the lock), in host
+        memory of their own: the copies off the card are waited for
+        before this returns, so every later apply is free to run. The
+        state travels flat under the reference's leaf paths (``"0/trace"``,
+        ...), so a reference engine adopts a port row and the reverse."""
+        self._check_movable()
+        flat: Dict[str, Any] = {}
+        for k in keys:
+            if k not in self._params:
+                raise KeyError(f"unregistered key {k!r}")
+            flat[f"{k}\0param"] = self._params[k]
+            for p, v in state_to_reference(self._opt.name, k,
+                                           self._state[k]).items():
+                flat[f"{k}\0s:{p}"] = v
+            for (w, kk), v in self._stale.items():
+                if kk == k:
+                    flat[f"{k}\0w:{w}"] = v
+        host = stage_to_host(flat, copy=True)
+        out = {k: {"param": None, "state": {}, "stale": {},
+                   "apply_count": int(self.apply_count.get(k, 0))}
+               for k in keys}
+        for name, a in host.items():
+            k, _, field = name.partition("\0")
+            if field == "param":
+                out[k]["param"] = a
+            elif field.startswith("s:"):
+                out[k]["state"][field[2:]] = a
+            else:
+                out[k]["stale"][int(field[2:])] = a
+        return out
+
+    def adopt_key(self, k: str, param, state_kv, stale,
+                  apply_count: int = 0) -> None:
+        """Install one moved row (the caller holds the lock): the parameter
+        placed on the engine's device as :meth:`register_tree` places a
+        key, the optimizer state rebuilt from the donor's leaves over a
+        fresh init of it, the stale snapshots seeded so the DC correction
+        goes on where the donor left it."""
+        self._check_movable()
+        if k in self._params:
+            raise KeyError(f"key {k!r} already registered")
+        p = self._place(k, torch.from_numpy(np.asarray(param)),
+                        self.partition_rules)
+        state, specs = sharded_opt_init(self._opt.init, {k: p},
+                                        {k: self._specs[k]}, self.mesh)
+        try:
+            state_from_reference(self._opt.name, k, state, state_kv)
+        except ValueError:
+            for d in (self._specs, self._ruled, self._whole, self._dims):
+                d.pop(k, None)
+            raise
+        self._params[k] = p
+        self._state[k] = state
+        self._key_state_specs[k] = specs
+        self._index_state_specs()
+        for w, v in stale.items():
+            self._stale[(int(w), k)] = device_copy(
+                torch.from_numpy(np.asarray(v)), self.device)
+        self.apply_count[k] = int(apply_count)
+
+    def evict_keys(self, keys) -> None:
+        """Drop moved-away keys (the caller holds the lock): parameters,
+        state, stale snapshots, apply counts, and any staged per-key push
+        of them (a staged partial tree must not commit a key this engine
+        no longer holds)."""
+        gone = set(keys)
+        for k in gone:
+            if k not in self._params:
+                raise KeyError(f"unregistered key {k!r}")
+        for k in gone:
+            del self._params[k]
+            del self._state[k]
+            self.apply_count.pop(k, None)
+            for d in (self._specs, self._ruled, self._whole, self._dims,
+                      self._key_state_specs):
+                d.pop(k, None)
+        self._index_state_specs()
+        for wk in [wk for wk in self._stale if wk[1] in gone]:
+            del self._stale[wk]
+        for staged in self._staged_async.values():
+            for k in gone & set(staged):
+                del staged[k]
 
     # -- checkpoint hooks (CheckpointMixin) ---------------------------------
     # async mode checkpoints the server-side state, every worker's stale

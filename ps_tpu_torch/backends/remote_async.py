@@ -72,9 +72,19 @@ span (naming a merged push's ``members_tc``); a cycle's caller wait is a
 ``flush_wait`` span. Re-seeds, aggregator degrades and failovers are
 flight events.
 
-Not ported yet, raising with its ROADMAP Queue 1 item: elastic membership
-(``coordinator=``, the ``MIGRATE_*`` kinds, a replicated partial
-``push_sub``, the ``table_reroute`` event; 6.2).
+Elastic membership (``elastic/``): a server given ``coordinator=``
+registers its key range with the coordinator's shard table, reports its
+load and telemetry, and moves key ranges to another shard live on the
+coordinator's ``MIGRATE_OUT``: a snapshot of the rows (parameter,
+optimizer state under the reference's leaf paths, every worker's stale
+snapshot, the apply count) streamed to the recipient, the rows that
+commits touch re-streamed while traffic flows, then a bounded
+stop-and-copy cutover under the engine lock that carries the moved keys'
+dedup tokens, so a replayed pre-move push is acked at the recipient
+unapplied. A push for keys that moved away is refused ``moved`` with the
+table epoch; a worker given ``coordinator=`` fetches the table then and
+re-routes (a ``table_reroute`` flight event), and a replay owed only
+some of its keys applies (and replicates as ``push_sub``) exactly those.
 """
 
 from __future__ import annotations
@@ -94,6 +104,7 @@ from ps_tpu_torch.backends.common import (
     BucketedTransportMixin,
     BucketPlan,
     ServerFailureError,
+    TableMovedError,
     parse_replica_uri,
     payload_nbytes,
     request_payload,
@@ -102,6 +113,7 @@ from ps_tpu_torch.backends.common import (
 )
 from ps_tpu_torch.compress import CompressPolicy, GradCompressor, decode_tree
 from ps_tpu_torch.backends.van_service import (
+    StaleTableError,
     VanService,
     log_tail,
     make_history_log,
@@ -116,13 +128,8 @@ from ps_tpu_torch.utils.metrics import TransportStats
 __all__ = [
     "AsyncPSService", "RemoteAsyncWorker", "ServerFailureError",
     "serve_async", "connect_async", "shard_tree", "PendingCycle",
-    "CheckpointRoundError",
+    "CheckpointRoundError", "TableMovedError",
 ]
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
 def shard_tree(params_like, shard: int, num_shards: int) -> Dict[str, Any]:
@@ -152,6 +159,11 @@ class AsyncPSService(VanService):
       ckpt_root: confine CHECKPOINT saves under this server-side root.
       record_full_history: keep every event-log entry (replay parity);
         by default the logs are rings of ``history`` entries.
+      coordinator: ``"host:port"`` of an elastic-membership coordinator
+        (in place of ``shard``/``num_shards``): the service registers
+        its keys there as ``advertise_host:port`` once it listens (a
+        backup joins only through its primary's replica set), and its
+        key range may then move.
 
     The pull and read paths lean on the engine's out-of-place applies: a
     snapshot taken under the engine lock is a set of tensors no later
@@ -175,12 +187,13 @@ class AsyncPSService(VanService):
         engine = store._engine
         if getattr(engine, "mode", "sync") != "async":
             raise ValueError("AsyncPSService requires an async-mode KVStore")
-        if coordinator is not None:
-            raise _not_ported("coordinator= (elastic membership, elastic/)",
-                              "6.2")
         if (shard is None) != (num_shards is None):
             raise ValueError("pass shard and num_shards together")
-        del advertise_host  # only an elastic member advertises itself
+        if coordinator is not None and num_shards is not None:
+            raise ValueError(
+                "pass either shard/num_shards (static hash topology) or "
+                "coordinator (elastic membership), not both — under a "
+                "coordinator the shard table owns the assignment")
         self.shard, self.num_shards = shard, num_shards
         self._store = store
         self._engine = engine
@@ -223,9 +236,93 @@ class AsyncPSService(VanService):
         # each worker last pulled; replaying it reproduces the params
         self.apply_log = make_history_log(record_full_history, history)
         self.event_log = make_history_log(record_full_history, history)
+        # elastic membership: ``_elastic`` turns a push's key mismatch
+        # from a KeyError into the retryable 'moved' refusal (set by a
+        # coordinator, or by this shard's first committed move);
+        # ``_migrating`` is the double-write set of an outbound move,
+        # ``_moved_keys`` what left (and at which table epoch),
+        # ``_migrate_in`` an inbound move's staged rows until its commit;
+        # the last commit of either side is kept so a re-asked
+        # MIGRATE_OUT or MIGRATE_COMMIT (its reply lost) acks again.
+        # ``elastic_log`` records each change of the served key set and
+        # each partial apply at its place in the event log (``at``), so a
+        # replay can follow every key across shards
+        self._elastic = coordinator is not None
+        self._coordinator = coordinator
+        self._coord_member = None
+        self._migrating: frozenset = frozenset()
+        self._migrate_session = None
+        self._moved_keys: Dict[str, int] = {}
+        self._migrate_in: Optional[dict] = None
+        self._migrate_committed: Optional[dict] = None
+        self._migrate_out_done: Optional[dict] = None
+        self.elastic_log = make_history_log(record_full_history, history)
+        #: each committed outbound move: the reply's numbers, the target,
+        #: and its lock holds: ``snapshot_s`` (the export and queueing of
+        #: every row, of which ``copy_s`` is the copy off the card) and
+        #: ``cutover_s`` (the residual drain, the commit round trip and
+        #: the eviction)
+        self.migrations: List[dict] = []
         super().__init__(port=port, bind=bind, writev=writev, shm=shm,
                          backup=backup, native_loop=native_loop,
                          loop_threads=loop_threads)
+        if coordinator is not None and not backup:
+            # after the listener is up: the advertised URI needs the port
+            self._join_coordinator(advertise_host)
+
+    def _join_coordinator(self, advertise_host: str) -> None:
+        """Register with the coordinator: this service's URI and each
+        key's bytes, and a reporter sending the load (keys, bytes, push
+        and pull rates, replication health) and this service's own
+        telemetry on the coordinator's cadence."""
+        from ps_tpu_torch.config import env_flag
+        from ps_tpu_torch.elastic.member import CoordinatorMember
+        from ps_tpu_torch.obs.collector import collect_telemetry
+
+        key_bytes = {k: int(self._engine._params[k].nbytes)
+                     for k in self._key_order}
+        last = {"t": time.monotonic(), "req": self._req_counter.value,
+                "applies": self.apply_log.total}
+
+        def report_extra() -> dict:
+            # rates from the counters the service keeps: applies a second
+            # is the push rate, the other requests the pull rate
+            now = time.monotonic()
+            req, applies = self._req_counter.value, self.apply_log.total
+            dt = max(now - last["t"], 1e-6)
+            push_qps = (applies - last["applies"]) / dt
+            pull_qps = max(req - last["req"] - (applies - last["applies"]),
+                           0) / dt
+            last.update(t=now, req=req, applies=applies)
+            # under the engine lock: a cutover changes the params dict
+            with self._engine._lock:
+                nkeys = len(self._key_order)
+                nbytes = sum(int(v.nbytes)
+                             for v in self._engine._params.values())
+            out = {"keys": nkeys, "nbytes": nbytes,
+                   "push_qps": round(push_qps, 2),
+                   "pull_qps": round(pull_qps, 2)}
+            s = self._backup_session
+            if s is not None or self.promote_reason is not None:
+                out["repl"] = {
+                    "attached": bool(s is not None and not s.degraded),
+                    "degraded": bool(s is not None and s.degraded),
+                    "promoted": self.promote_reason is not None,
+                }
+            return out
+
+        telemetry = None
+        if env_flag("PS_TELEMETRY", True):
+            def telemetry() -> dict:
+                return collect_telemetry(self.transport, counters={
+                    "ps_applies_total": lambda: self.apply_log.total,
+                })
+
+        self._coord_member = CoordinatorMember(
+            self._coordinator, f"{advertise_host}:{self.port}",
+            key_bytes, kind="dense", report=report_extra,
+            telemetry=telemetry)
+        self.table_epoch = self._coord_member.table.epoch
 
     # -- server internals -----------------------------------------------------
 
@@ -241,6 +338,12 @@ class AsyncPSService(VanService):
             key_order = list(self._key_order)
             with self._log_lock:
                 self.event_log.append(["pull", worker])
+            if self._migrating:
+                # the pull moved this worker's stale snapshots of the moving
+                # keys, part of their rows: stream the rows again, or the
+                # recipient's DC correction would run against older
+                # snapshots (the reference streams rows on commits only)
+                self._publish_migrating(self._migrating)
             rseq = self._replicate("pull", worker)
         self._await_replication(rseq)
         return kv, version, key_order
@@ -371,13 +474,19 @@ class AsyncPSService(VanService):
                 if self._check_members(members, fresh) == "dedup":
                     self.transport.record_dedup_hit()
                     return None, True
+            # under the lock, after the park: a cutover changes the key
+            # range under this same lock, so the check and the apply see
+            # one table
             self._check_push_keys(grads)
-            if len(fresh) != len(grads):
-                # only a replay straddling a key-range move leaves part of
-                # a tree owed, and ranges move only under elastic membership
-                raise _not_ported("a partial replay across a key-range move "
-                                  "(elastic/)", "6")
-            self._engine.push_tree(fresh, worker=worker)
+            partial = len(fresh) != len(grads)
+            if partial:
+                # a replay straddling a range move: this shard's own keys
+                # applied this (nonce, seq) already, the adopted keys are
+                # still owed it. Apply exactly those
+                self.transport.record_dedup_hit()
+                self._engine.push_subtree(fresh, worker=worker)
+            else:
+                self._engine.push_tree(fresh, worker=worker)
             # cached READ replies now describe a superseded version: drop
             # them and refuse any in-flight publish of the pre-apply
             # snapshot (the admission mirror's generation moves too)
@@ -399,15 +508,28 @@ class AsyncPSService(VanService):
             self._admit_publish(worker, *[int(w) for w in members or {}])
             self._pause_cond.notify_all()  # a drain_to waiter may watch
             with self._log_lock:
+                if partial:
+                    self.elastic_log.append({
+                        "op": "push_sub", "worker": worker,
+                        "keys": sorted(fresh), "at": self.event_log.total})
                 self.apply_log.append(worker)
                 self.event_log.append(["push", worker])
+            # double-write: a commit touching keys mid-migration streams
+            # their new rows, so the recipient converges on the live state
+            if self._migrating:
+                self._publish_migrating(self._migrating.intersection(fresh))
             # appended under the engine lock: log order is engine order.
             # ``wire`` is None when the session degraded since the check
             # above, and then _replicate appends nothing either
             if wire is None and self._replicating():
                 # a session attached while this push was staged
                 wire = {k: v.cpu().numpy() for k, v in fresh.items()}
-            rseq = self._replicate("push", worker, wire, {
+            elif wire is not None and partial:
+                wire = {k: wire[k] for k in fresh}
+            # a straddling replay's partial apply is its own op: the
+            # backup mirrors the subset, it must not refuse a torn tree
+            rseq = self._replicate("push_sub" if partial else "push",
+                                   worker, wire, {
                 "pseq": pseq, "pnonce": pnonce, "members": members,
                 "birth": self._birth["birth"]})
         # the apply (lock wait included), and the push-to-servable lag: the
@@ -476,8 +598,39 @@ class AsyncPSService(VanService):
                 if not self._token_settled(toks.get(k), pnonce, pseq)}
 
     def _check_push_keys(self, grads) -> None:
-        if sorted(grads) != sorted(self._key_order):
-            raise KeyError("push keys do not match the registered tree")
+        """The key range (lock held). On an elastic service a mismatch
+        means the worker's table is stale, keys moved under it: the
+        retryable 'moved' refusal (re-fetch and re-route), never a
+        KeyError that ends the job."""
+        if sorted(grads) == sorted(self._key_order):
+            return
+        if self._elastic:
+            wrong = sorted(set(grads) ^ set(self._key_order))
+            moved = [k for k in wrong if k in self._moved_keys]
+            raise StaleTableError(
+                f"push keys do not match this shard's key range (table "
+                f"epoch {self.table_epoch}): "
+                + (f"{moved[:3]} moved to another shard"
+                   if moved else f"{wrong[:3]} differ"))
+        raise KeyError("push keys do not match the registered tree")
+
+    def _publish_migrating(self, touched) -> None:
+        """Stream the just-committed rows of keys still moving to the
+        recipient (lock held: row order is engine order)."""
+        from ps_tpu_torch.elastic.migrate import encode_row
+
+        s = self._migrate_session
+        if not touched or s is None or s.degraded:
+            return  # a degraded stream aborts the move
+        rows = self._engine.export_keys(touched)
+        for k in sorted(rows):
+            r = rows[k]
+            tensors, meta = encode_row(k, r["param"], r["state"],
+                                       r["stale"], r["apply_count"])
+            # a full window stalls commits of the moving keys (bounded
+            # catch-up); the stall timeout degrades, then aborts, a stuck
+            # recipient
+            s.publish_row(k, tensors, meta)
 
     def _admit_while_paused(self, worker: int) -> bool:
         """Under pause, admit exactly the pushes a drain_to round asked
@@ -627,6 +780,9 @@ class AsyncPSService(VanService):
             "metrics": self.transport.metrics_snapshot(),
         }
         out.update(self.replica_state())
+        if self._elastic:
+            out["table_epoch"] = self.table_epoch
+            out["keys_moved"] = len(self._moved_keys)
         return tv.encode(tv.OK, worker, None, extra=out)
 
     def _handle(self, kind: int, worker: int, tensors, extra):
@@ -664,9 +820,16 @@ class AsyncPSService(VanService):
             return self._stats(worker)
         if kind == tv.CHECKPOINT:
             return self._checkpoint(worker, extra)
-        if kind in (tv.MIGRATE_OUT, tv.MIGRATE_BEGIN, tv.MIGRATE_ROW,
-                    tv.MIGRATE_COMMIT, tv.MIGRATE_ABORT):
-            raise _not_ported(f"{tv.kind_name(kind)} (elastic/)", "6")
+        if kind == tv.MIGRATE_OUT:
+            return self._migrate_out(worker, extra)
+        if kind == tv.MIGRATE_BEGIN:
+            return self._migrate_begin(worker, extra)
+        if kind == tv.MIGRATE_ROW:
+            return self._migrate_row(worker, tensors, extra)
+        if kind == tv.MIGRATE_COMMIT:
+            return self._migrate_commit(worker, extra)
+        if kind == tv.MIGRATE_ABORT:
+            return self._migrate_abort(worker)
         if kind == tv.RESEED:
             return self._reseed_backup(worker, extra)
         return tv.encode(tv.ERR, worker, None,
@@ -754,6 +917,289 @@ class AsyncPSService(VanService):
         return tv.encode(tv.OK, worker, None,
                          extra={"version": version, "path": path})
 
+    # -- elastic membership: live key-range moves (elastic/) -----------------
+
+    def _migrate_out(self, worker: int, extra: dict):
+        """DONOR: stream ``extra["keys"]`` to the shard at
+        ``extra["target"]`` and cut over (the coordinator's MIGRATE_OUT;
+        this serve thread drives the whole move while the others serve).
+
+        (1) The rows are exported and queued under the engine lock,
+        atomically with arming the double-write set, so row order is
+        engine order from the first row; (2) the catch-up runs outside
+        the lock, traffic flows and every commit touching a moving key
+        re-streams it; (3) a bounded stop-and-copy: under the lock the
+        residual window drains, MIGRATE_COMMIT installs the rows at the
+        recipient (with the moved keys' dedup tokens), the keys are
+        evicted here, and the lock is released. A failure before the
+        commit aborts with this shard intact. A re-asked move that
+        already committed here acks with its receipt."""
+        from ps_tpu_torch.elastic.migrate import (MigrationError,
+                                                  MigrationSession,
+                                                  encode_row)
+
+        keys = sorted(str(k) for k in extra["keys"])
+        target = str(extra["target"])
+        new_epoch = int(extra["table_epoch"])
+        # the receipt holds only while the keys are still gone: once a
+        # later rebalance brought them back, the same request is a new move
+        done = self._migrate_out_done
+        if (done is not None and done["keys"] == keys
+                and done["target"] == target
+                and not any(k in self._key_order for k in keys)):
+            return tv.encode(tv.OK, worker, None, extra=done["reply"])
+        if not keys:
+            raise ValueError("MIGRATE_OUT with no keys")
+        if self._engine.mesh.size > 1:
+            raise RuntimeError("a live key move of a server across ranks "
+                               "is not supported")
+        repl = self._backup_session
+        if repl is not None and not repl.degraded:
+            raise RuntimeError(
+                "this shard is replicating to a backup — a live key "
+                "migration would drift the replica stream's key range; "
+                "detach the backup, move, then re-seed and re-attach it")
+        host, port = parse_replica_uri(target)[0][0]
+        engine = self._engine
+        t0 = time.monotonic()
+        begin = {"kind": "dense", "keys": keys,
+                 "num_workers": engine.num_workers,
+                 "table_epoch": new_epoch}
+        # a window the whole snapshot fits, so queueing it never blocks
+        # under the lock: backpressure is for the double-write phase
+        session = MigrationSession(host, port, begin, stats=self.transport,
+                                   window=max(64, 2 * len(keys)))
+        committed = False
+        timing = {}
+        try:
+            t1 = time.monotonic()
+            with engine._lock:
+                if self._migrating:
+                    raise RuntimeError(
+                        "a migration is already in flight at this shard")
+                missing = [k for k in keys if k not in self._key_order]
+                if missing:
+                    raise KeyError(
+                        f"donor does not own {missing[:3]} — the "
+                        f"coordinator's table is ahead of this shard")
+                t2 = time.monotonic()
+                rows = engine.export_keys(keys)  # off the card, waited for
+                timing["copy_s"] = time.monotonic() - t2
+                for k in keys:
+                    r = rows[k]
+                    tensors, meta = encode_row(k, r["param"], r["state"],
+                                               r["stale"], r["apply_count"])
+                    session.publish_row(k, tensors, meta)
+                self._migrating = frozenset(keys)
+                self._migrate_session = session
+            timing["snapshot_s"] = time.monotonic() - t1
+            if not session.wait_drained():
+                raise MigrationError(
+                    f"recipient never caught up: {session.log.death_reason}")
+            # the stop-and-copy: the lock held across the residual drain
+            # and one commit round trip makes the cutover atomic (no push
+            # lands between the last row and the ownership change)
+            t3 = time.monotonic()
+            with engine._lock:
+                if not session.wait_drained():
+                    raise MigrationError(
+                        "recipient stalled during the cutover freeze")
+                session.quiesce()
+                gone = set(keys)
+                # the moved keys' dedup tokens travel with them (the
+                # recipient acks a replayed pre-move push unapplied); the
+                # remaining keys keep theirs here
+                tokens = {}
+                for w, toks in self._applied_pseq.items():
+                    moved = {k: [t[0], t[1]] for k, t in toks.items()
+                             if k in gone}
+                    if moved:
+                        tokens[str(w)] = moved
+                applied = {str(w): n for w, n in self._applied.items()}
+                session.commit({"table_epoch": new_epoch, "tokens": tokens,
+                                "applied": applied, "keys": keys})
+                engine.evict_keys(keys)
+                self._invalidate_reads()  # the served subtree shrank
+                self._birth = freshness.birth_record()
+                # only now does this shard refuse the moved range as
+                # 'moved': an aborted move leaves a static deployment's
+                # KeyError untouched
+                self._elastic = True
+                for toks in self._applied_pseq.values():
+                    for k in gone.intersection(toks):
+                        del toks[k]
+                self._key_order = [k for k in self._key_order
+                                   if k not in gone]
+                now_moved = dict(self._moved_keys)
+                now_moved.update({k: new_epoch for k in keys})
+                self._moved_keys = now_moved
+                self.table_epoch = max(self.table_epoch, new_epoch)
+                with self._log_lock:
+                    self.elastic_log.append({
+                        "op": "migrate_out", "keys": keys,
+                        "table_epoch": new_epoch,
+                        "at": self.event_log.total})
+                # the key range and its token folds changed shape
+                self._admit_sync(locked=True)
+                committed = True
+            timing["cutover_s"] = time.monotonic() - t3
+        finally:
+            with engine._lock:
+                self._migrating = frozenset()
+                self._migrate_session = None
+            if committed:
+                session.close()
+            else:
+                session.abort()
+        dt = time.monotonic() - t0
+        logging.getLogger(__name__).info(
+            "migrated %d key(s) to %s in %.2fs (%d row(s), %.1f MB, "
+            "table epoch %d)", len(keys), target, dt, session.rows_sent,
+            session.bytes_sent / 1e6, new_epoch)
+        reply = {"keys": keys, "rows": session.rows_sent,
+                 "bytes": session.bytes_sent, "seconds": round(dt, 4),
+                 "table_epoch": new_epoch}
+        self._migrate_out_done = {"keys": keys, "target": target,
+                                  "reply": reply}
+        self.migrations.append(dict(reply, target=target, **timing))
+        return tv.encode(tv.OK, worker, None, extra=reply)
+
+    def _migrate_begin(self, worker: int, extra: dict):
+        """RECIPIENT: open the intake, the declared range checked and
+        staged; the rows reach the engine only at MIGRATE_COMMIT."""
+        def refuse(error):
+            return tv.encode(tv.ERR, worker, None, extra={"error": error})
+
+        if extra.get("kind") != "dense":
+            return refuse(f"migration stream kind {extra.get('kind')!r} "
+                          f"does not match this dense service")
+        repl = self._backup_session
+        if repl is not None and not repl.degraded:
+            return refuse("this shard is replicating to a backup — "
+                          "adopting keys would drift the replica stream's "
+                          "key range")
+        keys = set(str(k) for k in extra.get("keys") or [])
+        if not keys:
+            return refuse("MIGRATE_BEGIN with no keys")
+        nw = extra.get("num_workers")
+        if nw is not None and int(nw) != self._engine.num_workers:
+            return refuse(f"donor says num_workers={nw}, this service "
+                          f"runs {self._engine.num_workers}")
+        overlap = keys & set(self._key_order)
+        if overlap:
+            return refuse(f"this shard already owns {sorted(overlap)[:3]}")
+        with self._stage_lock:
+            if self._migrate_in is not None:
+                return refuse("a migration intake is already staged here")
+            self._migrate_in = {"keys": keys, "rows": {}, "seq": 0}
+        return tv.encode(tv.OK, worker, None, extra={"applied_seq": 0})
+
+    def _migrate_row(self, worker: int, tensors, extra):
+        """RECIPIENT: stage one sequenced row (a later row of a key
+        supersedes the earlier: the donor's double-write catch-up)."""
+        from ps_tpu_torch.elastic.migrate import decode_row
+
+        seq = int(extra["seq"])
+        # the copy out of the frame runs outside _stage_lock: this shard
+        # serves meanwhile, and every bucketed push stages under that lock
+        row = decode_row(tensors, extra)
+        with self._stage_lock:
+            stage = self._migrate_in
+            if stage is None:
+                return tv.encode(tv.ERR, worker, None, extra={
+                    "error": "MIGRATE_ROW before MIGRATE_BEGIN"})
+            if seq != stage["seq"] + 1:
+                return tv.encode(tv.ERR, worker, None, extra={
+                    "error": f"migration gap: expected seq "
+                             f"{stage['seq'] + 1}, got {seq}"})
+            if row["key"] not in stage["keys"]:
+                return tv.encode(tv.ERR, worker, None, extra={
+                    "error": f"row for {row['key']!r} outside the "
+                             f"declared range"})
+            stage["rows"][row["key"]] = row
+            stage["seq"] = seq
+        return tv.encode(tv.OK, worker, None, extra={"applied_seq": seq})
+
+    def _migrate_commit(self, worker: int, extra: dict):
+        """RECIPIENT: the cutover under one engine-lock hold: every staged
+        row installed, the served range extended, the donor's dedup
+        tokens merged (a push the donor applied and the worker replays
+        here is acked unapplied). A re-asked commit of the range that
+        just committed acks again (its first reply was lost)."""
+        with self._stage_lock:
+            stage = self._migrate_in
+        if stage is None:
+            asked = sorted(str(k) for k in (extra.get("keys") or []))
+            done = self._migrate_committed
+            if asked and done is not None and asked == done["keys"]:
+                return tv.encode(tv.OK, worker, None, extra={
+                    "keys": done["keys"],
+                    "table_epoch": done["table_epoch"]})
+            return tv.encode(tv.ERR, worker, None, extra={
+                "error": "MIGRATE_COMMIT without a staged intake"})
+        missing = sorted(stage["keys"] - set(stage["rows"]))
+        if missing:
+            return tv.encode(tv.ERR, worker, None, extra={
+                "error": f"commit refused: keys never streamed "
+                         f"{missing[:3]}"})
+        new_epoch = int(extra.get("table_epoch", 0))
+        adopted = sorted(stage["rows"])
+        with self._engine._lock:
+            for k in adopted:
+                r = stage["rows"][k]
+                self._engine.adopt_key(k, r["param"], r["state"],
+                                       r["stale"], r["apply_count"])
+            self._key_order = sorted(self._key_order + adopted)
+            for w_str, toks in (extra.get("tokens") or {}).items():
+                mine = self._applied_pseq.setdefault(int(w_str), {})
+                for k, t in toks.items():
+                    # the donor owned the key: its token is the key's
+                    # whole apply history
+                    mine[k] = (t[0], int(t[1]))
+            for w_str, n in (extra.get("applied") or {}).items():
+                w = int(w_str)
+                self._applied[w] = max(self._applied.get(w, 0), int(n))
+            self.table_epoch = max(self.table_epoch, new_epoch)
+            self._invalidate_reads()  # the served subtree grew
+            self._birth = freshness.birth_record()
+            self._elastic = True
+            with self._log_lock:
+                self.elastic_log.append({
+                    "op": "adopt", "keys": adopted,
+                    "table_epoch": self.table_epoch,
+                    "at": self.event_log.total})
+            # the key range grew and tokens merged: re-fold the ledger
+            self._admit_sync(locked=True)
+        with self._stage_lock:
+            self._migrate_in = None
+            self._migrate_committed = {"keys": adopted,
+                                       "table_epoch": self.table_epoch}
+        logging.getLogger(__name__).info(
+            "adopted %d migrated key(s) (table epoch %d); now serving "
+            "%d key(s)", len(adopted), self.table_epoch,
+            len(self._key_order))
+        return tv.encode(tv.OK, worker, None, extra={
+            "keys": adopted, "table_epoch": self.table_epoch})
+
+    def _migrate_abort(self, worker: int):
+        """RECIPIENT: drop the staged range (nothing of it reached the
+        engine; the donor keeps serving)."""
+        with self._stage_lock:
+            self._migrate_in = None
+        return tv.encode(tv.OK, worker, None)
+
+    def stop(self, grace: float = 10.0) -> None:
+        m = self._coord_member
+        if m is not None:
+            m.close(goodbye=True)  # a clean leave: 'left', never 'dead'
+        super().stop(grace=grace)
+
+    def kill(self) -> None:
+        m = self._coord_member
+        if m is not None:
+            m.close(goodbye=False)  # as a SIGKILL: the beats just stop
+        super().kill()
+
     def _set_draining(self) -> None:
         with self._engine._lock:
             self._draining = True
@@ -802,19 +1248,23 @@ class AsyncPSService(VanService):
             with self._log_lock:
                 self.event_log.append(["pull", worker])
             return
-        if op == "push_sub":
-            raise _not_ported("a replicated partial push (push_sub, a "
-                              "replay across a key-range move, elastic/)",
-                              "6")
-        if op != "push":
+        if op not in ("push", "push_sub"):
             raise ValueError(f"unknown replica op {op!r}")
         tree = decode_tree(dict(tensors), extra.get("enc"),
                            stats=self.transport)
-        if sorted(tree) != sorted(self._key_order):
-            raise KeyError("replica push keys do not match the tree")
-        self._engine.push_tree(
-            stage_to_device(tree, self._device, stats=self.transport),
-            worker=worker)
+        on_device = stage_to_device(tree, self._device, stats=self.transport)
+        if op == "push_sub":
+            # the primary's partial apply (a replay straddling a range
+            # move owed only its adopted keys): mirror exactly that subset
+            missing = [k for k in tree if k not in self._key_order]
+            if missing:
+                raise KeyError(f"replica push_sub keys outside the tree: "
+                               f"{missing[:3]}")
+            self._engine.push_subtree(on_device, worker=worker)
+        else:
+            if sorted(tree) != sorted(self._key_order):
+                raise KeyError("replica push keys do not match the tree")
+            self._engine.push_tree(on_device, worker=worker)
         # a backup serves READs: its cached replies go stale on every
         # replicated apply. It installs the primary's birth (a foreign
         # stamp: the wall clock crosses processes, the monotonic one does
@@ -1072,22 +1522,78 @@ def connect_async(uri: Optional[str], worker: int, params_like,
     worker-to-shard path without a restart, keeping its dedup identity, so
     a replay of a push the aggregator already forwarded is acked unapplied.
 
-    Not ported yet (raises, naming its ROADMAP Queue 1 item):
-    ``coordinator`` (elastic membership and the aggregator's discovery
-    through it, 6.2).
+    Elastic membership: ``coordinator="host:port"`` (env
+    ``PS_COORD_URI``) in place of ``uri``: the worker fetches the shard
+    table from the coordinator (waiting until the registered servers
+    cover this model's keys), dials the shards it names, and fetches it
+    again and re-routes whenever a rebalance moves keys under it, with
+    no restart and no global pause. The same poll names the aggregator
+    registered for this host (``socket.gethostname()``): the worker
+    dials it unless ``aggregator`` is given, after a short probe
+    (``PS_AGG_PROBE_MAX_WAIT_MS``, 200 ms) that sends it to the flat path
+    when the entry is stale.
     """
+    table = None
+    discovered = False
     if coordinator is not None:
-        raise _not_ported("coordinator= (elastic membership, elastic/)",
-                          "6.2")
-    if uri is None:
-        raise ValueError("connect_async needs a server uri")
-    addrs, replica_sets = parse_replica_uri(uri)
-    return RemoteAsyncWorker.connect_many(
-        addrs, worker, params_like, bucket_bytes=bucket_bytes,
-        pool_size=pool_size, compress=compress, writev=writev, shm=shm,
-        shm_bytes=shm_bytes, replica_sets=replica_sets,
-        failover_timeout=failover_timeout, aggregator=aggregator,
-        read_staleness=read_staleness, pull_cache=pull_cache)
+        from ps_tpu_torch.elastic import member
+
+        want, _ = keymod.flatten_with_keys(params_like)
+        view: dict = {}
+        table = member.fetch_table(coordinator, cover=want, view_out=view)
+        addrs, replica_sets = table.addrs(), table.replica_sets()
+        if aggregator is None:
+            import socket
+
+            # the coordinator's grouping: workers of a host share the
+            # aggregator registered under its name (none: flat). The map
+            # came with the table's poll
+            aggregator = (view.get("aggregators") or {}).get(
+                socket.gethostname())
+            discovered = aggregator is not None
+    elif uri is None:
+        raise ValueError("connect_async needs a server uri or a "
+                         "coordinator address")
+    else:
+        addrs, replica_sets = parse_replica_uri(uri)
+
+    def dial(agg):
+        return RemoteAsyncWorker.connect_many(
+            addrs, worker, params_like, bucket_bytes=bucket_bytes,
+            pool_size=pool_size, compress=compress, writev=writev, shm=shm,
+            shm_bytes=shm_bytes, replica_sets=replica_sets,
+            failover_timeout=failover_timeout, coordinator=coordinator,
+            table=table, aggregator=agg, read_staleness=read_staleness,
+            pull_cache=pull_cache)
+
+    if discovered:
+        # the table keeps a crashed aggregator's entry until a replacement
+        # registers (an aggregator owns no keys): a new worker of that
+        # host joins flat instead of failing its connect. The probe's
+        # short budget keeps a stale entry from stalling every join; the
+        # second except covers an aggregator dying between probe and dial
+        from ps_tpu_torch.config import env_float
+
+        ahost, aport = str(aggregator).rsplit(":", 1)
+        probe_wait = env_float("PS_AGG_PROBE_MAX_WAIT_MS", 200.0,
+                               lo=0.0) / 1e3
+        try:
+            probe = tv.Channel.connect(ahost, int(aport), timeout_ms=1000,
+                                       retries=2, max_wait_s=probe_wait)
+            probe.close()
+        except (tv.VanError, OSError) as e:
+            logging.getLogger(__name__).warning(
+                "discovered aggregator %s is not answering (%s) — "
+                "joining flat", aggregator, e)
+            return dial(None)
+        try:
+            return dial(aggregator)
+        except (ServerFailureError, tv.VanError, OSError) as e:
+            logging.getLogger(__name__).warning(
+                "discovered aggregator %s is not serving (%s) — "
+                "joining flat", aggregator, e)
+            return dial(None)
+    return dial(aggregator)
 
 
 class CheckpointRoundError(RuntimeError):
@@ -1240,6 +1746,7 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                      shm_bytes: Optional[int] = None,
                      replica_sets=None,
                      failover_timeout: Optional[float] = None,
+                     coordinator=None, table=None,
                      aggregator: Optional[str] = None,
                      agg_role: bool = False,
                      read_staleness: Optional[int] = None,
@@ -1251,6 +1758,7 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                          compress=compress, writev=writev, shm=shm,
                          shm_bytes=shm_bytes, replica_sets=replica_sets,
                          failover_timeout=failover_timeout,
+                         coordinator=coordinator, table=table,
                          aggregator=aggregator, agg_role=agg_role,
                          read_staleness=read_staleness,
                          pull_cache=pull_cache)
@@ -1260,7 +1768,8 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                     params_like, bucket_bytes=None, pool_size=None,
                     compress=None, writev=None, shm=None,
                     shm_bytes=None, replica_sets=None,
-                    failover_timeout=None, aggregator=None, agg_role=False,
+                    failover_timeout=None, coordinator=None, table=None,
+                    aggregator=None, agg_role=False,
                     read_staleness=None, pull_cache=None) -> None:
         self.worker = worker
         # two-level aggregation: with an aggregator this worker dials only
@@ -1272,11 +1781,24 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         self._agg_uri = aggregator
         if aggregator is not None:
             self._agg_fallback = {"addrs": [tuple(a) for a in addrs],
-                                  "replica_sets": replica_sets}
+                                  "replica_sets": replica_sets,
+                                  "table": table}
             ahost, aport = str(aggregator).rsplit(":", 1)
             addrs = [(ahost, int(aport))]
             replica_sets = None
+            table = None  # the aggregator routes now
         self._agg_role = bool(agg_role)
+        # elastic membership: with a coordinator the shard table gives the
+        # addresses and replica sets, and a 'moved' refusal fetches a newer
+        # table (_on_table_moved) instead of failing the job
+        self._coord = coordinator
+        self._table = table
+        # reconnect() reruns this on a live worker: retire the old
+        # telemetry reporter before starting another
+        old_rep = getattr(self, "_tel_reporter", None)
+        if old_rep is not None:
+            old_rep.close()
+        self._tel_reporter = None
         self.device = _worker_device(params_like)
         kv, self._treedef = keymod.flatten_with_keys(params_like)
         # empty placeholders on the worker's device, not the tensors:
@@ -1330,6 +1852,26 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                 for ch in self._chs:
                     ch.close()
                 raise
+        if coordinator is not None:
+            # the worker's op, flush and wire histograms are the step
+            # breakdown's worker phases: they go to the coordinator too
+            # (telemetry only, no registration); a failure here leaves the
+            # data plane alone
+            from ps_tpu_torch.config import env_flag
+
+            if env_flag("PS_TELEMETRY", True):
+                try:
+                    from ps_tpu_torch.elastic.member import TelemetryReporter
+                    from ps_tpu_torch.obs.collector import collect_telemetry
+
+                    self._tel_reporter = TelemetryReporter(
+                        coordinator, f"worker:{worker}",
+                        # self.transport at call time: a re-dial restores it
+                        lambda: collect_telemetry(self.transport))
+                except Exception:
+                    logging.getLogger(__name__).debug(
+                        "worker telemetry reporter failed to start",
+                        exc_info=True)
 
     def _connect_and_validate(self, kv) -> None:
         n = len(self._addrs)
@@ -1403,6 +1945,81 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
 
     # -- two-level aggregation: the degrade to the flat path ------------------
 
+    # -- elastic membership: the table's re-route --------------------------------
+
+    def _on_table_moved(self, err, deadline: float) -> None:
+        """A shard refused 'moved' (or a pull came back short): fetch a
+        shard table newer than the one this worker routes by and rebuild
+        the transport on it, within the failover deadline. It converges:
+        every committed move publishes a higher epoch."""
+        from ps_tpu_torch.elastic import member
+
+        if self._coord is None:
+            super()._on_table_moved(err, deadline)  # raises
+        min_epoch = self._table.epoch if self._table is not None else None
+        while True:
+            budget = deadline - time.monotonic()
+            if budget <= 0:
+                raise TableMovedError(
+                    f"shard table never converged before the failover "
+                    f"deadline: {err}",
+                    table_epoch=getattr(err, "table_epoch", 0)) from err
+            try:
+                table = member.fetch_table(self._coord, cover=self._key_order,
+                                           min_epoch=min_epoch,
+                                           timeout=min(budget, 10.0))
+            except TimeoutError:
+                # the coordinator's publish may lag the refusal: poll on;
+                # the deadline above is the only way out
+                continue
+            try:
+                self._adopt_table(table)
+                return
+            except (ValueError, tv.VanError, ServerFailureError):
+                # the table raced a shard's own cutover (its HELLO
+                # disagrees for a moment): wait for the shards to settle
+                min_epoch = table.epoch - 1
+                time.sleep(0.05)
+
+    def _adopt_table(self, table) -> None:
+        """Rebuild the whole transport (channels, owners, replica sets,
+        pumps) on a new shard table, keeping the transport's identity as
+        :meth:`reconnect` does, and the dedup nonce and push seq too: a
+        re-route is not a new incarnation, the op that was refused replays
+        with its original token right after this."""
+        old_epoch = self._table.epoch if self._table is not None else None
+        obs.record_event("table_reroute", worker=self.worker,
+                         old_epoch=old_epoch, epoch=table.epoch,
+                         shards=len(table.shards))
+        self.transport.record_table_reroute()
+        saved = self._saved_transport_state()
+        nonce, push_seq = self._transport_nonce, self._push_seq
+        self._close_transport()
+        for ch in self._chs:
+            ch.close()
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+        try:
+            self._init_multi(
+                table.addrs(), self.worker,
+                keymod.unflatten(self._treedef, self._kv_like,
+                                 self._key_order),
+                bucket_bytes=self.bucket_bytes, pool_size=self.pool_size,
+                compress=self.compress, writev=self.writev, shm=self.shm,
+                shm_bytes=self.shm_bytes,
+                replica_sets=table.replica_sets(),
+                failover_timeout=self.failover_timeout,
+                coordinator=self._coord, table=table,
+                agg_role=self._agg_role,
+                read_staleness=self.read_staleness,
+                pull_cache=self.pull_cache)
+        finally:
+            self._restore_transport_state(saved)
+            self._transport_nonce, self._push_seq = nonce, push_seq
+        logging.getLogger(__name__).warning(
+            "worker %d re-routed to shard table epoch %d (%d shard(s))",
+            self.worker, table.epoch, len(table.shards))
+
     def _on_server_lost(self, err: ServerFailureError,
                         deadline: float) -> None:
         """A shard failed with no replica to cycle to. When that shard is
@@ -1410,12 +2027,32 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         at connect time; the op that failed is then retried under its
         original (nonce, seq) token, which a shard that applied its merged
         form recorded as this member's, so it is acked, not applied
-        again. Any other loss raises (the reference's elastic workers
-        re-discover the fleet here; item 6.2)."""
+        again. A worker with a coordinator polls its table and adopts it
+        until the slot serves again (the member recovered, or a
+        replacement took its slot over) within the failover deadline,
+        keeping its nonce and push seq; any other loss raises."""
         if self._agg_fallback is not None:
             self._degrade_to_flat(err)
             return
-        raise err
+        if self._coord is None:
+            raise err
+        from ps_tpu_torch.elastic import member
+
+        while True:
+            budget = deadline - time.monotonic()
+            if budget <= 0:
+                raise err
+            # back off first: a refusing member is usually mid-promotion,
+            # and the rebuild below is a full re-dial
+            time.sleep(min(0.25, budget))
+            try:
+                table = member.fetch_table(self._coord, cover=self._key_order,
+                                           timeout=min(budget, 10.0))
+                self._adopt_table(table)
+                return
+            except (TimeoutError, ValueError, tv.VanError,
+                    ServerFailureError):
+                continue
 
     def _degrade_to_flat(self, cause: BaseException) -> None:
         """Rebuild the whole transport against the remembered shards,
@@ -1443,6 +2080,7 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                 compress=self.compress, writev=self.writev, shm=self.shm,
                 shm_bytes=self.shm_bytes, replica_sets=fb["replica_sets"],
                 failover_timeout=self.failover_timeout,
+                coordinator=self._coord, table=fb["table"],
                 read_staleness=self.read_staleness,
                 pull_cache=self.pull_cache)
         finally:
@@ -1494,6 +2132,13 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
     def _merge_host_params(self, host: Dict[str, np.ndarray]) -> Any:
         missing = [k for k in self._key_order if k not in host]
         if missing:
+            # a pull over every dialed shard came back short: on a worker
+            # with a coordinator, keys moved to a shard it does not dial
+            # yet (re-fetch the table and pull again: reads are idempotent)
+            if self._coord is not None:
+                raise TableMovedError(
+                    f"pull returned no value for {missing[:3]} — the shard "
+                    f"table moved during the pull")
             raise RuntimeError(f"pull returned no value for {missing[:3]}")
         kv = stage_to_device(host, self.device, stats=self.transport)
         self._params = keymod.unflatten(self._treedef, kv, self._key_order)
@@ -1852,6 +2497,9 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                               else fb["replica_sets"] if fb is not None
                               else self._replica_sets),
                 failover_timeout=self.failover_timeout,
+                coordinator=self._coord,
+                table=(None if addrs is not None
+                       else fb["table"] if fb is not None else self._table),
                 aggregator=None if addrs is not None else self._agg_uri,
                 agg_role=self._agg_role,
                 read_staleness=self.read_staleness,
@@ -2180,6 +2828,9 @@ class RemoteAsyncWorker(BucketedTransportMixin, CheckpointRoundsMixin):
         return run
 
     def close(self) -> None:
+        if self._tel_reporter is not None:
+            self._tel_reporter.close()
+            self._tel_reporter = None
         try:
             if self._pending_cycles:
                 self.flush()  # land in-flight cycles before the goodbyes

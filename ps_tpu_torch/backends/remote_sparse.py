@@ -77,9 +77,17 @@ Observability (``obs/``): a worker op is a span whose context rides its
 row-push and pull frames under ``"tc"``, the server's apply (lock wait
 and the device sync included) is a ``server_apply`` child of its serve
 span, the rows it lands count into ``ps_sparse_rows_applied_total``, and
-a re-dial is a ``reconnect`` flight event. Not ported yet: elastic
-membership (``coordinator=``, the ``table_reroute`` event; ROADMAP item
-6.2), which raises naming it.
+a re-dial is a ``reconnect`` flight event.
+
+Elastic membership (``elastic/``): a server given ``coordinator=`` joins
+the coordinator's table with one ``<table>@<lo>:<hi>`` key a table it
+serves (membership, liveness, load and telemetry reports); a worker
+given ``coordinator=`` finds the servers covering its tables there. A
+sparse range never moves live (that would resize serving tables): the
+coordinator refuses such a move, and a member leaves by stopping. A
+replacement that registers a departed member's exact ranges takes its
+slot, and the workers re-discover the fleet on their next op (a
+``table_reroute`` flight event) without a restart.
 """
 
 from __future__ import annotations
@@ -108,7 +116,6 @@ from ps_tpu_torch.backends.remote_async import (
     CheckpointRoundError,
     CheckpointRoundsMixin,
     PendingCycle,
-    _not_ported,
 )
 from ps_tpu_torch.compress import decode_tree, resolve_spec
 from ps_tpu_torch.backends.van_service import (
@@ -209,6 +216,9 @@ class SparsePSService(VanService):
       ckpt_root: confine CHECKPOINT saves under this server-side root.
       record_full_history: keep every apply-log entry (replay parity); by
         default the log is a ring of ``history`` entries.
+      coordinator: ``"host:port"`` of an elastic-membership coordinator:
+        the service registers its row ranges there as
+        ``advertise_host:port`` once it listens (a backup does not).
 
     The pull and read paths gather the requested rows into a fresh
     tensor under the lock, on the serve thread's stream, so the gather is
@@ -230,10 +240,6 @@ class SparsePSService(VanService):
                  advertise_host: str = "127.0.0.1",
                  native_loop: Optional[bool] = None,
                  loop_threads: Optional[int] = None):
-        if coordinator is not None:
-            raise _not_ported("coordinator= (elastic membership, elastic/)",
-                              "6")
-        del advertise_host  # only an elastic member advertises itself
         if not tables:
             raise ValueError("no tables to serve")
         if (shard is None) != (num_shards is None):
@@ -303,9 +309,66 @@ class SparsePSService(VanService):
         self._table_hashes: Dict[str, int] = {}
         # worker id per applied push message
         self.apply_log = make_history_log(record_full_history, history)
+        # elastic membership: the shard joins the coordinator's table; its
+        # ranges never move live (a move would resize serving tables)
+        self._coordinator = coordinator
+        self._coord_member = None
         super().__init__(port=port, bind=bind, writev=writev, shm=shm,
                          backup=backup, native_loop=native_loop,
                          loop_threads=loop_threads)
+        if coordinator is not None and not backup:
+            self._join_coordinator(advertise_host)
+
+    def _join_coordinator(self, advertise_host: str) -> None:
+        """Register one ``<table>@<lo>:<hi>`` key a table with its bytes
+        (unique across the row partition, so the coordinator's ownership
+        check holds), and report the push rate and this service's own
+        telemetry on the coordinator's cadence."""
+        from ps_tpu_torch.config import env_flag
+        from ps_tpu_torch.elastic.member import CoordinatorMember
+        from ps_tpu_torch.obs.collector import collect_telemetry
+
+        key_bytes = {
+            f"{name}@{m['lo']}:{m['hi']}":
+                (m["hi"] - m["lo"]) * m["dim"] * np.dtype(m["dtype"]).itemsize
+            for name, m in self._meta.items()}
+        last = {"t": time.monotonic(), "applies": self.apply_log.total}
+
+        def report_extra() -> dict:
+            now = time.monotonic()
+            applies = self.apply_log.total
+            dt = max(now - last["t"], 1e-6)
+            push_qps = (applies - last["applies"]) / dt
+            last.update(t=now, applies=applies)
+            return {"keys": len(self._meta),
+                    "nbytes": sum(key_bytes.values()),
+                    "push_qps": round(push_qps, 2),
+                    "pull_qps": None}  # a read advances no counter
+
+        telemetry = None
+        if env_flag("PS_TELEMETRY", True):
+            def telemetry() -> dict:
+                return collect_telemetry(self.transport, counters={
+                    "ps_applies_total": lambda: self.apply_log.total,
+                })
+
+        self._coord_member = CoordinatorMember(
+            self._coordinator, f"{advertise_host}:{self.port}",
+            key_bytes, kind="sparse", report=report_extra,
+            telemetry=telemetry)
+        self.table_epoch = self._coord_member.table.epoch
+
+    def stop(self, grace: float = 10.0) -> None:
+        m = self._coord_member
+        if m is not None:
+            m.close(goodbye=True)  # a clean leave: 'left', never 'dead'
+        super().stop(grace=grace)
+
+    def kill(self) -> None:
+        m = self._coord_member
+        if m is not None:
+            m.close(goodbye=False)  # as a SIGKILL: the beats just stop
+        super().kill()
 
     # -- server internals -----------------------------------------------------
 
@@ -1004,19 +1067,84 @@ def connect_sparse(uri: Optional[str], worker: int,
     ``PS_READ_STALENESS``, 0) behind the newest this worker knows of its
     shard is refused and the read goes on toward the primary.
 
-    Not ported yet (raises, naming its ROADMAP Queue 1 item):
-    ``coordinator`` (6)."""
+    Elastic membership: ``coordinator="host:port"`` (env
+    ``PS_COORD_URI``) in place of ``uri``: the worker finds the servers in
+    the coordinator's shard table (polling until the registered members
+    cover every row of every table), and a member lost with no replica
+    sends it back there: a replacement that took the slot over is dialed
+    without a restart. The table bootstraps the topology; each server's
+    HELLO still proves it."""
     if coordinator is not None:
-        raise _not_ported("coordinator= (elastic membership, elastic/)", "6")
-    if uri is None:
-        raise ValueError("connect_sparse needs a server uri")
-    addrs, replica_sets = parse_replica_uri(uri)
+        addrs, replica_sets = _sparse_topology_from_coordinator(
+            coordinator, worker, tables)
+    elif uri is None:
+        raise ValueError("connect_sparse needs a server uri or a "
+                         "coordinator address")
+    else:
+        addrs, replica_sets = parse_replica_uri(uri)
     return RemoteSparseWorker(addrs, worker, tables,
                               bucket_bytes=bucket_bytes, pool_size=pool_size,
                               compress=compress, writev=writev, shm=shm,
                               shm_bytes=shm_bytes, replica_sets=replica_sets,
                               failover_timeout=failover_timeout,
-                              read_staleness=read_staleness)
+                              read_staleness=read_staleness,
+                              coordinator=coordinator)
+
+
+def _sparse_topology_from_coordinator(coordinator, worker: int,
+                                      tables: Dict[str, Tuple[int, int]],
+                                      timeout: float = 30.0):
+    """Poll the coordinator until its sparse members cover every row of
+    every table of ``tables`` (a member registers one
+    ``<table>@<lo>:<hi>`` key a range), then their URIs in dial order."""
+    from ps_tpu_torch.elastic.member import fetch_view
+
+    want = {name: int(total) for name, (total, _d) in tables.items()}
+    deadline = time.monotonic() + timeout
+    while True:
+        table = fetch_view(coordinator)["table"]
+        owners = _sparse_owner_shards(table, want)
+        if owners:
+            return parse_replica_uri(
+                ",".join(table["shards"][s] for s in owners))
+        if time.monotonic() >= deadline:
+            raise TimeoutError(
+                f"coordinator's members never covered the row partition "
+                f"of {sorted(want)} within {timeout}s "
+                f"({len(table['shards'])} member(s) registered)")
+        time.sleep(0.05)
+
+
+def _sparse_owner_shards(table: dict,
+                         want: Dict[str, int]) -> Optional[List[int]]:
+    """The shards serving every row of ``want``'s tables in row order
+    (the order the worker's ``row_range`` and the servers' HELLO checks
+    expect), or None while a row is uncovered. Keys that are not this
+    fleet's ``<table>@<lo>:<hi>`` (a dense member's, on a shared
+    coordinator) are skipped."""
+    spans: Dict[str, List[Tuple[int, int, int]]] = {}
+    for k, s in table["assign"].items():
+        name, _, rng = k.partition("@")
+        if name not in want or ":" not in rng:
+            continue
+        lo, hi = rng.split(":")
+        spans.setdefault(name, []).append((int(lo), int(hi), int(s)))
+    for name, total in want.items():
+        pos = 0
+        for lo, hi, _s in sorted(spans.get(name, [])):
+            if lo > pos:
+                return None  # a hole (an overlap is HELLO's to refuse)
+            pos = max(pos, hi)
+        if pos < total:
+            return None
+    # the dial order is the row order of the first table: every table is
+    # split over the same members alike (HELLO checks it again)
+    first = sorted(want)[0]
+    owners: List[int] = []
+    for _lo, _hi, s in sorted(spans.get(first, [])):
+        if s not in owners:
+            owners.append(s)
+    return owners
 
 
 class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
@@ -1053,7 +1181,11 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                  shm_bytes: Optional[int] = None,
                  replica_sets=None,
                  failover_timeout: Optional[float] = None,
-                 read_staleness: Optional[int] = None):
+                 read_staleness: Optional[int] = None,
+                 coordinator=None):
+        # kept, so a changed membership sends the worker back to the
+        # coordinator instead of failing the job
+        self._coord = coordinator
         self._init_multi(list(addrs), worker, tables,
                          bucket_bytes=bucket_bytes, pool_size=pool_size,
                          compress=compress, writev=writev, shm=shm,
@@ -1781,6 +1913,53 @@ class RemoteSparseWorker(BucketedTransportMixin, CheckpointRoundsMixin):
                 read_staleness=self.read_staleness)
         finally:
             self._restore_transport_state(saved)
+
+    def _on_table_moved(self, err, deadline: float) -> None:
+        """Find the fleet in the coordinator's table again and re-dial.
+        Sparse ranges never move live, so this runs when membership
+        changed: a dead member whose slot a replacement took over
+        (through :meth:`_on_server_lost`). It polls within the failover
+        deadline (the replacement may still be registering); the re-dial
+        checks the whole row partition again.
+
+        The re-dial keeps the dedup nonce and the push seq, as the dense
+        worker's table re-route does: the op that failed replays right
+        after this under its original token, so a surviving shard that
+        applied its part acks the replay unapplied (the reference's sparse
+        worker re-dials as a new incarnation here, and such a push would
+        apply twice there)."""
+        if self._coord is None:
+            super()._on_table_moved(err, deadline)  # raises
+        nonce, push_seq = self._transport_nonce, self._push_seq
+        while True:
+            budget = deadline - time.monotonic()
+            if budget <= 0:
+                raise err
+            try:
+                addrs, replica_sets = _sparse_topology_from_coordinator(
+                    self._coord, self.worker, dict(self._spec),
+                    timeout=min(budget, 30.0))
+                self.reconnect(addrs)
+            except (tv.VanError, OSError, TimeoutError,
+                    ServerFailureError, RuntimeError):
+                # the table may still name the dead member
+                time.sleep(0.2)
+                continue
+            finally:
+                self._transport_nonce, self._push_seq = nonce, push_seq
+            self._replica_sets = replica_sets
+            self.transport.record_table_reroute()
+            obs.record_event("table_reroute", worker=self.worker,
+                             shards=len(addrs), fleet="sparse")
+            return
+
+    def _on_server_lost(self, err, deadline: float) -> None:
+        """A member died with no replica to cycle to: with a coordinator a
+        replacement may hold its rows already (find it and re-dial);
+        without one the death surfaces."""
+        if self._coord is None:
+            raise err
+        self._on_table_moved(err, deadline)
 
     def stats(self) -> dict:
         """One server: its STATS dict. Several: ``{"servers": [...],

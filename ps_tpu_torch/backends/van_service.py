@@ -111,6 +111,16 @@ class NotServingError(RuntimeError):
     which the worker maps to :class:`ServerFailureError`."""
 
 
+class StaleTableError(RuntimeError):
+    """Raised inside a handler when the request's key range is not (or no
+    longer) served here because the shard table moved (``elastic/``).
+    Apart from :class:`NotServingError` because the remedy differs: the
+    server is healthy, so the worker re-fetches the table and re-splits
+    instead of cycling the replica set. The serve loop answers an ERR
+    carrying ``moved: True`` and this service's ``table_epoch``, which the
+    worker maps to :class:`~ps_tpu_torch.backends.common.TableMovedError`."""
+
+
 class RingLog:
     """Fixed-size tail of an append-only log, plus the total count: a
     server of 10^6 applies must not hold O(applies) memory.
@@ -252,9 +262,11 @@ class VanService:
     #: waiting inline would hold the pump for the backup's round trip
     _REPLICATED_KINDS = _COMMIT_KINDS | frozenset({tv.PULL, tv.BUCKET_PULL})
     #: kinds whose handlers run multi-request protocols (the checkpoint
-    #: phases park between the coordinator's requests; a RESEED ships the
+    #: phases park between the coordinator's requests; an outbound key
+    #: move or a rebalance runs for the whole move; a RESEED ships the
     #: state and attaches a backup): always punted
-    _PUNT_KINDS = frozenset({tv.CHECKPOINT, tv.RESEED})
+    _PUNT_KINDS = frozenset({tv.CHECKPOINT, tv.MIGRATE_OUT,
+                             tv.COORD_REBALANCE, tv.RESEED})
     #: subclass hook: kinds whose handlers can park waiting for another
     #: member's later request of this same service (the aggregator's group
     #: barrier: a push waits for its group's other pushes). The loop
@@ -309,7 +321,9 @@ class VanService:
         # worker traffic until promoted; a primary may attach_backup() a
         # session. The epoch is the shard's fencing token: promotion bumps
         # it, and workers refuse to re-route to a lower epoch (a zombie).
-        # The table epoch stays 0: elastic membership is not ported
+        # The table epoch is the shard table's (elastic/): set at
+        # registration with a coordinator and raised by each committed
+        # key move; a 'moved' refusal carries it
         self.role = "backup" if backup else "primary"
         self.epoch = 0
         self.table_epoch = 0
@@ -974,13 +988,18 @@ class VanService:
     def _dispatch_reply_payload(self, kind: int, worker: int, tensors,
                                 extra):
         """Dispatch, mapping a raised error to an ERR reply: NotServing ->
-        the retryable refusal, anything else -> a plain ERR. Both serve
-        paths go through here, so their replies are the same bytes."""
+        the retryable refusal, StaleTable -> the 'moved' refusal (re-route
+        by the table), anything else -> a plain ERR. Both serve paths go
+        through here, so their replies are the same bytes."""
         try:
             return self._dispatch(kind, worker, tensors, extra)
         except NotServingError as e:
             return tv.encode(tv.ERR, worker, None, extra={
                 "error": str(e), "backup": True, "epoch": self.epoch})
+        except StaleTableError as e:
+            return tv.encode(tv.ERR, worker, None, extra={
+                "error": str(e), "moved": True,
+                "table_epoch": self.table_epoch})
         except Exception as e:
             return tv.encode(tv.ERR, worker, None, extra={"error": repr(e)})
 
@@ -1234,7 +1253,8 @@ class VanService:
         """Fold the loop's own counters into :attr:`transport` and the
         registry's gauges."""
         st = nloop.stats()
-        self.transport.set_loop_stats(st["requests"], st["conns"])
+        self.transport.set_loop_stats(st["requests"], st["conns"],
+                                      st["iters"])
         self._loop_conn_gauge.set(st["conns"])
         self._loop_iter_gauge.set(st["iters"])
         self._loop_req_gauge.set(st["requests"])
@@ -1268,8 +1288,9 @@ class VanService:
         loop's stamps when the frame carried a trace (the zero-upcall path
         cannot open spans itself)."""
         self.transport.set_nl_hists(nloop.hist_snapshots())
-        self.transport.set_nl_slow_frames(
-            nloop.stats_snapshot()["slow_frames"])
+        nl = nloop.stats_snapshot()
+        self.transport.set_nl_slow_frames(nl["slow_frames"],
+                                          nl["tail_backlog_bytes"])
         for fr in nloop.slow_drain():
             total_ns = fr["read_ns"] + fr["wait_ns"] + fr["serve_ns"]
             obs.record_event(

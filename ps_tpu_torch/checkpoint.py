@@ -656,6 +656,63 @@ def _optax_paths(name: str, scheduled: bool, keys: List[str]) -> List[tuple]:
     return [("rule",) + p for p in rule] + [("schedule_count",)]
 
 
+#: the fields of each optax state of a chain
+_OPTAX_FIELDS = {"EmptyState": (), "TraceState": ("trace",),
+                 "ScaleByAdamState": ("count", "mu", "nu"),
+                 "ScaleByScheduleState": ("count",)}
+
+
+def _state_path_pairs(name: str, state, key: str) -> List[tuple]:
+    """``(reference leaf path, port path)`` of one key's own optimizer
+    state, in optax's flatten order: the reference names a per-key
+    state's leaves ``"<chain index>/<field>"`` (``keys.flatten_with_keys``
+    of its optax state), the port by :func:`_optax_paths`."""
+    scheduled = isinstance(state, dict) and "schedule_count" in state
+    chain = next((c for c, v in _OPTAX_CHAINS.items()
+                  if v == (name, scheduled)), None)
+    if chain is None:
+        raise ValueError(f"no reference leaf paths for optimizer {name!r}")
+    ref = [f"{i}/{f}" for i, st in enumerate(chain)
+           for f in _OPTAX_FIELDS[st]]
+    return list(zip(ref, _optax_paths(name, scheduled, [key])))
+
+
+def _at(tree, path):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def state_to_reference(name: str, key: str, state) -> Dict[str, Any]:
+    """One key's optimizer state as ``{reference leaf path: leaf}``: what
+    a live key move carries, so a reference recipient adopts a port row
+    and the reverse."""
+    return {ref: _at(state, port)
+            for ref, port in _state_path_pairs(name, state, key)}
+
+
+def state_from_reference(name: str, key: str, like,
+                         leaves: Dict[str, Any]) -> None:
+    """Copy ``leaves`` (``{reference leaf path: array}``) into ``like``,
+    one key's freshly initialized state of the same optimizer, in place;
+    a missing, extra or misshapen leaf raises."""
+    pairs = _state_path_pairs(name, like, key)
+    if sorted(ref for ref, _ in pairs) != sorted(leaves):
+        raise ValueError(
+            f"optimizer-state structure mismatch for {key!r}: the row "
+            f"carries {sorted(leaves)[:3]}, this engine expects "
+            f"{sorted(ref for ref, _ in pairs)[:3]} — donor and recipient "
+            f"must run the same optimizer")
+    for ref, port in pairs:
+        dst = _at(like, port)
+        src = torch.as_tensor(np.asarray(leaves[ref]))
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(
+                f"optimizer-state leaf {ref!r} of {key!r} has shape "
+                f"{tuple(src.shape)}, expected {tuple(dst.shape)}")
+        dst.copy_(src.to(dtype=dst.dtype))
+
+
 def _parse_reference_structure(structure: str, per_key: int):
     """``(optimizer, scheduled, key order)`` from the reference's
     ``opt_structure`` (the ``str`` of its state's treedef). ``per_key`` is

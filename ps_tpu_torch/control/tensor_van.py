@@ -61,7 +61,7 @@ REPLICA_HELLO = 16  # shard replication (replica/): attach, then the stream
 REPLICA_APPEND = 17
 REPLICA_PROMOTE = 18
 REPLICA_STATE = 19
-COORD_HELLO = 20    # elastic membership (elastic/, not ported yet)
+COORD_HELLO = 20    # elastic membership (elastic/)
 COORD_TABLE = 21
 COORD_REPORT = 22
 COORD_REBALANCE = 23

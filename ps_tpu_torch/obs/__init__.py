@@ -15,14 +15,20 @@
 - **Flight recorder** (:mod:`~ps_tpu_torch.obs.flight`): a bounded ring
   of typed events dumped as JSONL on an unhandled ``VanError``, on
   ``SIGUSR2`` or on demand.
-- **Analysis** without a coordinator: the per-phase :func:`breakdown`
-  and :class:`TraceBreakdown`, :class:`StragglerDetector` and
-  :class:`SloEvaluator` over a :class:`RegistryWindow`.
+- **Fleet telemetry** (:mod:`~ps_tpu_torch.obs.collector`,
+  :mod:`~ps_tpu_torch.obs.tsdb`): members send delta-encoded snapshots
+  (raw log2 buckets, which merge without loss) with their coordinator
+  reports; the coordinator's :class:`FleetTSDB` answers the fleet's
+  window quantiles and breakdown (``COORD_TELEMETRY``, ``ps_top
+  --fleet``, ``ps_doctor``) and feeds the straggler and SLO signals.
+- **Analysis**: the per-phase :func:`breakdown` and
+  :class:`TraceBreakdown`, :class:`StragglerDetector` and
+  :class:`SloEvaluator` over the coordinator's :class:`FleetTSDB`, or
+  over a :class:`RegistryWindow` in a process without a coordinator.
 - ``freshness`` (birth stamps and data ages) and ``clock`` (cross-process
   clock offsets).
 
-The reference's fleet telemetry (``collector``, ``tsdb``) is ROADMAP item
-6.2. This module owns the process singletons: :func:`tracer` and
+This module owns the process singletons: :func:`tracer` and
 :func:`flight` configure themselves from the environment on first use,
 and :func:`configure` overrides them (what ``Config.apply_obs`` does).
 """
@@ -37,6 +43,11 @@ from ps_tpu_torch.obs import clock, freshness  # noqa: F401
 from ps_tpu_torch.obs import trace as trace  # noqa: F401
 from ps_tpu_torch.obs.breakdown import PHASES, TraceBreakdown, breakdown
 from ps_tpu_torch.obs.clock import ClockSync
+from ps_tpu_torch.obs.collector import (
+    DeltaDecoder,
+    DeltaEncoder,
+    collect_telemetry,
+)
 from ps_tpu_torch.obs.flight import FlightRecorder
 from ps_tpu_torch.obs.http import (
     MetricsServer,
@@ -57,6 +68,7 @@ from ps_tpu_torch.obs.slo import (
     parse_rules,
 )
 from ps_tpu_torch.obs.straggler import StragglerDetector
+from ps_tpu_torch.obs.tsdb import FleetTSDB
 from ps_tpu_torch.obs.trace import (
     NOOP,
     WIRE_KEY,
@@ -74,6 +86,7 @@ __all__ = [
     "MetricsServer", "start_metrics_server", "stop_metrics_server",
     "FlightRecorder", "flight", "record_event",
     "ClockSync", "configure", "clock", "freshness",
+    "FleetTSDB", "DeltaEncoder", "DeltaDecoder", "collect_telemetry",
     "StragglerDetector", "SloEvaluator", "SloRule", "parse_rules",
     "RegistryWindow", "breakdown", "TraceBreakdown", "PHASES",
 ]

@@ -261,7 +261,7 @@ class MetricsRegistry:
         self._by_name: "Dict[str, List]" = {}  # name -> [weakref.ref]
         self._order: List[str] = []
         # extra Prometheus text appended at render time (the coordinator's
-        # fleet-labeled series, item 6.2). Held weakly:
+        # fleet-labeled series, obs/tsdb.py). Held weakly:
         # a garbage-collected owner's series drop out of the next scrape.
         self._exporters: List = []  # weakref.WeakMethod / weakref.ref
 

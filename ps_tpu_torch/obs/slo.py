@@ -4,9 +4,9 @@ Counterpart of ``ps_tpu/obs/slo.py``. A rule is one line of intent,
 "push p99 < 10ms over 30s", parsed into a :class:`SloRule`; the
 evaluator holds each rule's quantile over its window against the
 threshold. The quantiles come from any source with ``quantile(metric,
-q, window_s)``: the coordinator's time series store (item 6.2), or a
-:class:`RegistryWindow` over one process's registry, which needs no
-coordinator.
+q, window_s)``: the coordinator's :class:`~ps_tpu_torch.obs.tsdb.
+FleetTSDB`, or a :class:`RegistryWindow` over one process's registry,
+which needs no coordinator.
 
 Rule syntax (``Config.slo_rules`` / ``PS_SLO_RULES``, ``;``-separated)::
 

@@ -12,7 +12,9 @@ A suspect fires once at onset (it clears below half the threshold): a
 ``straggler_suspect`` flight event, ``ps_straggler_suspects_total`` and a
 hint. The detector never acts. Its source is anything with ``members()``
 and ``member_mean(member, metric)``: the coordinator's time series store
-(item 6.2) or a :class:`~ps_tpu_torch.obs.slo.RegistryWindow`.
+(:class:`~ps_tpu_torch.obs.tsdb.FleetTSDB`, what the coordinator runs
+it on) or a :class:`~ps_tpu_torch.obs.slo.RegistryWindow` in a process
+without a coordinator.
 """
 
 from __future__ import annotations

@@ -174,15 +174,18 @@ class TransportStats:
         self.shm_spill_frames = 0
         self.spin_wakeups = 0
         self.sleep_wakeups = 0
-        # the native serve loop: frames read, live connections and slow
-        # frames (absolute values synced from its counters by the pump),
-        # the pump's batched upcalls and the pushes it dispatched, and
-        # native push admission's acks, refusals, fresh stamps and punts
+        # the native serve loop: epoll iterations, frames read, live
+        # connections, slow frames and the staged-reply backlog (absolute
+        # values synced from its counters by the pump), the pump's batched
+        # upcalls and the pushes it dispatched, and native push
+        # admission's acks, refusals, fresh stamps and punts
+        self.loop_iters = 0
         self.loop_requests = 0
         self.loop_conns = 0
         self.loop_upcalls = 0
         self.loop_pushes = 0
         self.nl_slow_frames = 0
+        self.nl_tail_backlog_bytes = 0  # a gauge
         self.push_native_acks = 0
         self.push_native_refusals = 0
         self.push_native_fresh = 0
@@ -198,6 +201,11 @@ class TransportStats:
         self.repl_degraded = False
         self.failovers = 0
         self.failover_s = 0.0
+        # elastic membership (elastic/): the worker's shard-table
+        # re-routes (a shard refused a moved key range, the worker fetched
+        # the table and re-split), counted apart from failovers: a
+        # re-route is a rebalance doing its work, a failover a death
+        self.table_reroutes = 0
         # the read path: READs answered in Python; the native cache's hits,
         # misses, version-floor hits, entries and bytes (absolute values
         # synced by the pump); the worker's cache hits, wire reads,
@@ -404,11 +412,14 @@ class TransportStats:
         with self._lock:
             self.loop_pushes += 1
 
-    def set_loop_stats(self, requests: int, conns: int) -> None:
-        """The native loop's frame count and connection gauge."""
+    def set_loop_stats(self, requests: int, conns: int,
+                       iters: int = 0) -> None:
+        """The native loop's frame count, connection gauge and epoll
+        iterations."""
         with self._lock:
             self.loop_requests = int(requests)
             self.loop_conns = int(conns)
+            self.loop_iters = int(iters)
 
     def set_admit_stats(self, acks: int, refusals: int, fresh: int,
                         punts: int) -> None:
@@ -435,10 +446,13 @@ class TransportStats:
             mn = st.get("mn")
             h.vmin = float("inf") if mn is None else float(mn)
 
-    def set_nl_slow_frames(self, slow_frames: int) -> None:
-        """The loop's count of frames over its slow-frame threshold."""
+    def set_nl_slow_frames(self, slow_frames: int,
+                           tail_backlog_bytes: int = 0) -> None:
+        """The loop's count of frames over its slow-frame threshold and
+        its staged-reply backlog (a gauge)."""
         with self._lock:
             self.nl_slow_frames = int(slow_frames)
+            self.nl_tail_backlog_bytes = int(tail_backlog_bytes)
 
     # -- the read path -----------------------------------------------------------
 
@@ -572,6 +586,12 @@ class TransportStats:
             else:
                 self.pool_misses += 1
 
+    def record_table_reroute(self) -> None:
+        """One worker-side shard-table fetch and re-route (a rebalance
+        moved keys under this worker)."""
+        with self._lock:
+            self.table_reroutes += 1
+
     def record_dedup_hit(self) -> None:
         """One replayed push acked by its (nonce, seq) token, unapplied."""
         with self._lock:
@@ -628,7 +648,7 @@ class TransportStats:
                     self.codec_s, self.shm_frames, self.shm_frame_bytes,
                     self.shm_spill_frames, self.spin_wakeups,
                     self.sleep_wakeups, self.agg_rounds, self.agg_members,
-                    self.agg_degrades)
+                    self.agg_degrades, self.table_reroutes)
 
     def summary(self, since: Optional[tuple] = None) -> Dict[str, float]:
         """The interval since ``since`` (a :meth:`snapshot`), as the
@@ -681,6 +701,8 @@ class TransportStats:
             out["agg_fan_in"] = round(d[25] / d[24], 3)
         if d[26] > 0:
             out["agg_degrades"] = int(d[26])
+        if d[27] > 0:
+            out["table_reroutes"] = int(d[27])
         return out
 
     def metrics_snapshot(self) -> dict:

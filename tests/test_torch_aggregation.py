@@ -23,11 +23,12 @@ their degrade to the flat path), against the reference's.
   cases), the aggregator cases of ``tests/test_read_path.py`` and part
   (d) of ``tests/test_freshness.py``, and a replicated upstream whose
   backup is bitwise its primary and dedups the members' replays after its
-  promotion. Two reference cases need the coordinator's membership
-  table (item 6.2) and are not run: ``test_stale_discovered_aggregator_
-  falls_back_to_flat`` and ``test_coordinator_assigns_host_group``; the
-  trace chain case (``test_trace_chain_worker_aggregator_shard_
-  resolves``) is in ``tests/test_torch_obs_services.py``.
+  promotion. The two reference cases of the coordinator's membership
+  table (``test_stale_discovered_aggregator_falls_back_to_flat`` and
+  ``test_coordinator_assigns_host_group``) are in
+  ``tests/test_torch_elastic_services.py``; the trace chain case
+  (``test_trace_chain_worker_aggregator_shard_resolves``) is in
+  ``tests/test_torch_obs_services.py``.
 
 Tolerance: bitwise everywhere. The gradients are small integers and the
 sgd learning rate a power of two, so every sum is exact in float32 and any

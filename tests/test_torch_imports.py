@@ -108,16 +108,26 @@ def test_every_slice_module_is_checked():
                  "ps_tpu_torch/obs/http.py",
                  "ps_tpu_torch/obs/slo.py",
                  "ps_tpu_torch/obs/straggler.py",
-                 "ps_tpu_torch/obs/breakdown.py"):
+                 "ps_tpu_torch/obs/breakdown.py",
+                 "ps_tpu_torch/obs/collector.py",
+                 "ps_tpu_torch/obs/tsdb.py",
+                 "ps_tpu_torch/elastic/__init__.py",
+                 "ps_tpu_torch/elastic/table.py",
+                 "ps_tpu_torch/elastic/member.py",
+                 "ps_tpu_torch/elastic/migrate.py",
+                 "ps_tpu_torch/elastic/policy.py",
+                 "ps_tpu_torch/elastic/coordinator.py"):
         assert path in FILES
 
 
 def test_van_plane_loads_neither_jax_nor_its_package():
     """The van plane (the native loader, control/ with the shm lane and
     the native loop, the codecs, the services and the remote workers,
-    dense and sparse, the aggregator, replica/ and obs/ with its
-    metrics, traces, flight recorder, /metrics endpoint, SLOs, straggler
-    detector and breakdown) runs without JAX and never reaches into
+    dense and sparse, the aggregator, replica/, obs/ with its metrics,
+    traces, flight recorder, /metrics endpoint, SLOs, straggler
+    detector, breakdown, collector and time series, and elastic/ with
+    the coordinator and the policy engine) runs without JAX and never
+    reaches into
     ps_tpu/: its modules load no jax, jaxlib, flax, optax, tensorflow or
     ps_tpu, and the native loader builds the port's own copy of
     van.cpp."""
@@ -130,6 +140,7 @@ def test_van_plane_loads_neither_jax_nor_its_package():
             "ps_tpu_torch.backends.remote_sparse, "
             "ps_tpu_torch.backends.aggregator, ps_tpu_torch.replica, "
             "ps_tpu_torch.obs, ps_tpu_torch.obs.clock, "
+            "ps_tpu_torch.elastic, ps_tpu_torch.elastic.policy, "
             "ps_tpu_torch.utils.step_log; "
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'jax', 'jaxlib', 'flax', 'optax', 'tensorflow', 'ps_tpu'}), "

@@ -20,7 +20,8 @@ CPU (ROADMAP item 6.1), against the reference's services and tools.
   pushes counted; ``tools/ps_top.py --once --json`` against a port pair
   gives the keys it gives against a reference pair.
 
-Paths that need the coordinator (item 6.2) are not tested here.
+The coordinator's fleet telemetry is tested in
+``tests/test_torch_fleet.py``.
 """
 
 import json

@@ -815,7 +815,7 @@ def test_reference_worker_against_port_server(bucket_bytes, shm):
 @pytest.mark.parametrize("kwargs,match", [
     ({"compress": "int8"}, None),
     ({"shm": True}, None),
-    ({"coordinator": "127.0.0.1:1"}, "elastic/.*item 6"),
+    ({"coordinator": "{coord}"}, None),
     ({"aggregator": "{agg}"}, None),
     ({"read_staleness": 2}, None),
     ({"pull_cache": True}, None),
@@ -823,22 +823,31 @@ def test_reference_worker_against_port_server(bucket_bytes, shm):
 ], ids=["compress", "shm", "coordinator", "aggregator", "read_staleness",
         "pull_cache", "replica-set"])
 def test_deferred_worker_options_raise(kwargs, match):
+    from ps_tpu_torch.elastic import Coordinator
+
     params = {"w": torch.zeros(2)}
-    (svc,), uri = _job(params)
+    coord = Coordinator() if "coordinator" in kwargs else None
+    ca = f"127.0.0.1:{coord.port}" if coord is not None else None
+    (svc,), uri = _job(params, coordinator=ca)
     agg = None
     try:
         kw = dict(kwargs)
         if match is None:
             # items 5.2 (shm), 5.3 (compress), 5.5 (aggregator), 5.6
-            # (replicas), 5.8 (reads)
+            # (replicas), 5.8 (reads), 6.2 (a coordinator's table)
+            if "coordinator" in kw:
+                kw["coordinator"], kw["uri"] = ca, None
             if "aggregator" in kw:
                 from ps_tpu_torch.backends.aggregator import AggregatorService
 
                 agg = AggregatorService(uri, params, group_size=1)
                 kw["aggregator"] = f"127.0.0.1:{agg.port}"
-            w = connect_async(kw.pop("uri", uri).format(uri=uri), 0, params,
-                              **kw)
-            if "aggregator" in kw:
+            u = kw.pop("uri", uri)
+            w = connect_async(u and u.format(uri=uri), 0, params, **kw)
+            if "coordinator" in kw:
+                assert w._table.epoch == 1
+                assert w._addrs == [("127.0.0.1", svc.port)]
+            elif "aggregator" in kw:
                 assert w._addrs == [("127.0.0.1", agg.port)]
                 assert w._agg_fallback["addrs"] == [("127.0.0.1", svc.port)]
             elif "shm" in kw:
@@ -873,32 +882,44 @@ def test_deferred_worker_options_raise(kwargs, match):
         if agg is not None:
             agg.stop()
         _stop([svc])
+        if coord is not None:
+            coord.stop()
 
 
 @pytest.mark.parametrize("kwargs,match", [
     ({"backup": True}, None),
     ({"native_loop": True}, None),
     ({"shm": True}, None),
-    ({"coordinator": "127.0.0.1:1"}, "elastic/.*item 6"),
+    ({"coordinator": "{coord}"}, None),
 ], ids=["backup", "native_loop", "shm", "coordinator"])
 def test_deferred_server_options_raise(kwargs, match):
     """What stays deferred raises naming its item; what items 5.1 (the
-    native loop), 5.2 (accepting shm offers) and 5.6 (a backup) ported is
-    in effect."""
+    native loop), 5.2 (accepting shm offers), 5.6 (a backup) and 6.2 (a
+    coordinator's table) ported is in effect."""
+    from ps_tpu_torch.elastic import Coordinator
+
     ps_tpu_torch.init(backend="cuda", mode="async", device="cpu")
     store = ps_tpu_torch.KVStore(optimizer="sgd", mode="async")
     store.init({"w": torch.zeros(2)})
     if match is None:
+        coord = Coordinator() if "coordinator" in kwargs else None
+        if coord is not None:
+            kwargs = {"coordinator": f"127.0.0.1:{coord.port}"}
         svc = AsyncPSService(store, **kwargs)
         try:
             if "backup" in kwargs:
                 assert svc.role == "backup" and svc.epoch == 0
             elif "native_loop" in kwargs:
                 assert svc.native_loop
+            elif coord is not None:
+                assert coord.table().keys_of(0) == ["w"]
+                assert svc.table_epoch == 1 and svc._elastic
             else:
                 assert svc._shm_accept and not svc.native_loop
         finally:
             svc.stop()
+            if coord is not None:
+                coord.stop()
         return
     with pytest.raises(NotImplementedError, match=match):
         AsyncPSService(store, **kwargs)
@@ -906,15 +927,15 @@ def test_deferred_server_options_raise(kwargs, match):
 
 @pytest.mark.parametrize("kind,match", [
     (tv.READ, None),
-    (tv.MIGRATE_OUT, "elastic/.*item 6"),
+    (tv.MIGRATE_OUT, "KeyError.*keys"),
     (tv.REPLICA_STATE, None),
     (tv.RESEED, "reseed needs spare"),
 ], ids=["read", "migrate", "replica", "reseed"])
 def test_deferred_kinds_are_answered_err(kind, match):
-    """What stays deferred is answered ERR naming its item; the kinds of
-    items 5.6 and 5.8 are served: REPLICA_STATE reports the role, a
-    RESEED without a spare is refused for that, a READ (once answered
-    ERR naming item 5.8) gets the params at their version."""
+    """The kinds of items 5.6, 5.8 and 6.2, each once answered ERR naming
+    its item, are served: REPLICA_STATE reports the role, a RESEED
+    without a spare and a MIGRATE_OUT without its keys are refused for
+    that, a READ gets the params at their version."""
     import re
 
     params = {"w": torch.zeros(2)}

@@ -665,17 +665,29 @@ def test_port_and_reference_workers_send_the_same_frames():
 @pytest.mark.parametrize("kwargs,match", [
     ({"compress": "int8"}, None),
     ({"shm": True}, None),
-    ({"coordinator": "127.0.0.1:1"}, "elastic/.*item 6"),
+    ({"coordinator": "{coord}"}, None),
     ({"uri": "{uri}|127.0.0.1:1"}, None),
 ], ids=["compress", "shm", "coordinator", "replica-set"])
 def test_deferred_worker_options_raise(kwargs, match):
-    svc = _serve()
+    from ps_tpu_torch.elastic import Coordinator
+
+    coord = Coordinator() if "coordinator" in kwargs else None
+    ca = f"127.0.0.1:{coord.port}" if coord is not None else None
+    svc = _serve() if coord is None else SparsePSService(
+        harness.sparse_tables(SHAPE, 0, 1), coordinator=ca)
     try:
         kw = dict(kwargs)
-        if match is None:  # items 5.3 (compress), 5.2 (shm), 5.6 (replicas)
-            w = connect_sparse(kw.pop("uri", "{uri}").format(
-                uri=_uri([svc])), 0, SPEC, **kw)
-            if "shm" in kw:
+        if match is None:
+            # items 5.3 (compress), 5.2 (shm), 5.6 (replicas), 6.2 (the
+            # coordinator's table)
+            if coord is not None:
+                kw["coordinator"], kw["uri"] = ca, None
+            u = kw.pop("uri", "{uri}")
+            w = connect_sparse(u and u.format(uri=_uri([svc])), 0, SPEC,
+                               **kw)
+            if coord is not None:
+                assert w._addrs == [("127.0.0.1", svc.port)]
+            elif "shm" in kw:
                 assert w._chs[0].lane == "shm"
             elif "compress" in kw:
                 assert w.compress == {"codec": "int8", "seed": 0}
@@ -691,25 +703,41 @@ def test_deferred_worker_options_raise(kwargs, match):
             connect_sparse(kw.pop("uri", _uri([svc])), 0, SPEC, **kw)
     finally:
         svc.stop()
+        if coord is not None:
+            coord.stop()
 
 
 @pytest.mark.parametrize("case,match", [
     ("backup", None),
     ("native_loop", None),
     ("shm", None),
-    ("coordinator", "elastic/.*item 6"),
+    ("coordinator", None),
     ("tiered", None),
     ("read_rows", None),
     ("READ", None),
 ], ids=["backup", "native_loop", "shm", "coordinator", "tiered",
         "read_rows", "READ"])
 def test_deferred_options_raise_and_name_their_item(case, match):
-    """Every option left for a later item raises NotImplementedError
-    naming it (elastic membership, item 6); the native loop (item 5.1),
-    accepting shm offers (item 5.2), a backup (item 5.6), the read path
-    (``read_rows`` and READ, item 5.8) and a tiered table (item 5.7), each
-    once refused naming its item, are in effect: a tiered table is served,
-    pushed, pulled and read."""
+    """The native loop (item 5.1), accepting shm offers (item 5.2), a
+    backup (item 5.6), the read path (``read_rows`` and READ, item 5.8), a
+    tiered table (item 5.7) and a coordinator (item 6.2), each once
+    refused naming its item, are in effect: a tiered table is served,
+    pushed, pulled and read; a service given a coordinator registers its
+    row ranges."""
+    if case == "coordinator":
+        from ps_tpu_torch.elastic import Coordinator
+
+        coord = Coordinator()
+        svc = SparsePSService(harness.sparse_tables(SHAPE, 0, 1),
+                              coordinator=f"127.0.0.1:{coord.port}")
+        try:
+            assert sorted(coord.table().assign) == sorted(
+                f"{n}@0:{rows}" for n, (rows, _) in SPEC.items())
+            assert svc.table_epoch == 1
+        finally:
+            svc.stop()
+            coord.stop()
+        return
     if case in ("read_rows", "READ"):
         svc = _serve()
         try:
@@ -764,11 +792,6 @@ def test_deferred_options_raise_and_name_their_item(case, match):
             assert svc.role == ("backup" if case == "backup" else "primary")
         finally:
             svc.stop()
-        return
-    if case == "coordinator":
-        with pytest.raises(NotImplementedError, match=match):
-            SparsePSService(harness.sparse_tables(SHAPE, 0, 1),
-                            coordinator="127.0.0.1:1")
         return
 
 

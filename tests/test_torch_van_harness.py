@@ -1175,7 +1175,21 @@ def run_sparse_server(out, nworkers, cycles, shard, nshards, device,
     - ``obs`` (:func:`obs_start`; ``p<shard>`` or ``b<shard>``, its clock
       shard 0's primary): the traces export at ``snap`` and at the end,
       the flight ring dumps at the end; ``metrics``; ``detector_port``: a
-      primary also beats that failure detector.
+      primary also beats that failure detector;
+    - ``coordinator``: a file in ``out`` holding an elastic-membership
+      coordinator's ``host:port``, waited for; the service registers its
+      row ranges there;
+    - ``stop_at`` (with ``save``): when the file ``stop_at`` appears the
+      server saves its tables under the directory ``save`` (one
+      ``SparseEmbedding.save`` a table, under the service lock), writes
+      ``saved<shard>`` there, dumps and stops without waiting for
+      goodbyes (the caller holds the workers until the process exited:
+      a stopping service still serves the connections it has);
+    - ``restore``: a directory of such a save, waited for (its
+      ``saved<shard>`` file, or the file ``restore_at`` in it): the tables
+      are restored from it before the service starts (a replacement of a
+      stopped server). Launch counts are dumped as the difference from
+      the restore's, the apply log is this process's.
 
     Every server of a replicated run writes ``snap<shard><tag>.json`` (its
     tables' digests, launch counts, versions and applies) when ``snap``
@@ -1193,6 +1207,18 @@ def run_sparse_server(out, nworkers, cycles, shard, nshards, device,
     replicated = backup or bool(opts.get("replicate"))
     ps.init(backend="cuda", device=device)
     tables = sparse_tables(shape, shard, nshards, tiered=opts.get("tiered"))
+    launches0 = _launch_counts()
+    if opts.get("restore"):
+        _wait_file(os.path.join(opts["restore"], opts.get(
+            "restore_at", f"saved{shard}")), timeout=600)
+        for n, emb in tables.items():
+            emb.restore(os.path.join(opts["restore"], n))
+    coord = None
+    if opts.get("coordinator"):
+        path = os.path.join(out, opts["coordinator"])
+        _wait_file(path, timeout=300)
+        with open(path) as f:
+            coord = f.read().strip()
     name = f"{tag or 'p'}{shard}"
     clock = obs_start(out, opts, name, clock_port=None
                       if (shard, backup) == (0, False) else "port0")
@@ -1200,7 +1226,8 @@ def run_sparse_server(out, nworkers, cycles, shard, nshards, device,
         tables, shard=shard, num_shards=nshards,
         total_rows={n: v for n, (v, _) in sparse_spec(shape).items()},
         record_full_history=True,
-        native_loop=bool(opts.get("native_loop")), backup=backup)
+        native_loop=bool(opts.get("native_loop")), backup=backup,
+        coordinator=coord)
     samples = keep_samples(svc.transport)
     applied = []
     if replicated:
@@ -1268,7 +1295,13 @@ def run_sparse_server(out, nworkers, cycles, shard, nshards, device,
 
         threading.Thread(target=snap, daemon=True).start()
     _write(path, svc.port)
-    if backup:
+    if opts.get("stop_at"):
+        _wait_file(os.path.join(out, opts["stop_at"]), timeout=600)
+        with svc._service_lock():
+            for n, emb in tables.items():
+                emb.save(os.path.join(opts["save"], n))
+        _write(os.path.join(opts["save"], f"saved{shard}"), svc.port)
+    elif backup:
         done = os.path.join(out, "done")
         deadline = time.monotonic() + 600
         while not os.path.exists(done) and not (
@@ -1281,13 +1314,19 @@ def run_sparse_server(out, nworkers, cycles, shard, nshards, device,
                            f"({len(svc.apply_log)} pushes)")
     stop_sampling.set()
     target = expected_pushes(shape, shard, nshards, nworkers, cycles)
-    if not replicated:
+    partial = opts.get("stop_at") or opts.get("restore")
+    if not replicated and not partial:
         assert len(svc.apply_log) == target, (len(svc.apply_log), target)
+    launches = _launch_counts()
+    if opts.get("restore"):
+        launches = {k: (v - launches0[k] if isinstance(v, int) else
+                        {r: n - launches0[k].get(r, 0) for r, n in v.items()})
+                    for k, v in launches.items()}
     info = {
         "apply_log": svc.apply_log, "versions": svc.versions,
         "rows_applied": svc.rows_applied, "meta": svc._meta,
         "tiers": svc.fused_tiers, "device": str(tables["deep"].device),
-        "launches": _launch_counts(),
+        "launches": launches, "port": svc.port,
         "sparse_apply_s": samples["sparse_apply_s"],
         "apply_s": samples["apply_s"],
         "rows": svc.transport.sparse_rows_applied,
@@ -1353,7 +1392,9 @@ def run_sparse_worker(ports, out, worker, cycles, device, shape,
     cycles write ``cue<id>`` and go on); ``obs`` (:func:`obs_start`, its
     clock shard 0's primary) with ``trace``, ``[first, end)``: the cycles
     sampled at 1.0, the trace and the flight ring written at the end as
-    ``w<id>``."""
+    ``w<id>``; ``coordinator`` (a file in ``out`` holding a coordinator's
+    ``host:port``): the worker finds the servers in its table (``ports``
+    is not read) and re-discovers them when a member is replaced."""
     import torch
 
     from ps_tpu_torch.backends.remote_sparse import connect_sparse
@@ -1362,8 +1403,16 @@ def run_sparse_worker(ports, out, worker, cycles, device, shape,
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     opts = opts or {}
-    uri = ",".join(f"127.0.0.1:{p}"
-                   for p in _read_ports(str(ports), out).split(","))
+    coord = None
+    if opts.get("coordinator"):
+        path = os.path.join(out, opts["coordinator"])
+        _wait_file(path, timeout=300)
+        with open(path) as f:
+            coord = f.read().strip()
+        uri = None
+    else:
+        uri = ",".join(f"127.0.0.1:{p}"
+                       for p in _read_ports(str(ports), out).split(","))
     if opts.get("replicas"):
         backups = _read_ports(str(ports), out, suffix="b").split(",")
         uri = ",".join(f"{p}|127.0.0.1:{b}"
@@ -1376,7 +1425,7 @@ def run_sparse_worker(ports, out, worker, cycles, device, shape,
                        shm=bool(opts.get("shm")),
                        compress=opts.get("compress"),
                        failover_timeout=60.0 if opts.get("replicas")
-                       else None)
+                       or coord else None, coordinator=coord)
     samples = keep_samples(w.transport)
     keys = {}  # payload key -> [times encoded, times raw, largest bytes]
     encode = w._encode_push_tree
@@ -1450,6 +1499,7 @@ def run_sparse_worker(ports, out, worker, cycles, device, shape,
             "shm_spills": w.transport.shm_spill_frames,
             "compress": w.compress, "encoded_keys": keys,
             "starts": starts, "failovers": w.transport.failovers,
+            "table_reroutes": w.transport.table_reroutes,
             "failover_s": samples["failover_s"],
             "epochs": w._epochs,
             "codec_bytes": [w.transport.codec_raw_bytes,
