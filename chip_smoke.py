@@ -442,6 +442,20 @@ Phases, each raising on failure:
    dry. Run it alone with ``python3 -c "import chip_smoke as c,
    tempfile; c.phase_build(); c.phase_elastic(tempfile.mkdtemp())"``.
 
+26. the autopilot chaos soak on the card (ROADMAP item 6.3,
+   ``ps_tpu_torch/chaos``): three card-resident shards and a subprocess
+   member (``python -m ps_tpu_torch.chaos.member``) under a policy-on
+   coordinator (no device), two hammer workers pushing the 12 x 16,384
+   f32 tree through drills A-E (a slow apply, SIGSTOP, a blackhole, a
+   reconnect storm, underload), then an aggregator killed mid-round and
+   a subprocess primary SIGKILLed under a watch with a registered spare.
+   Every fault heals within the reference's bound with no operator call
+   in the soak window, each key's applies equal the pushes and its
+   parameter is bitwise that many applies on one engine, the re-seeded
+   spare is bitwise the survivor, the injector's seeded plan is printed,
+   and no kernel is launched. Run it alone with ``python3 -c "import
+   chip_smoke as c, tempfile; c.phase_chaos(tempfile.mkdtemp())"``.
+
 It prints one JSON line per timed kernel, then the kernels line, then
 ``{"ok": true, "device": {...}}`` as its last line. Without a GPU, or
 without the rest of the repository beside it, it fails before printing
@@ -449,6 +463,7 @@ any result.
 """
 
 import contextlib
+import functools
 import importlib
 import json
 import os
@@ -462,9 +477,8 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
-BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor cores, the same sheet
-F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores, the same sheet
+# float32 outside the tensor cores, the H100 SXM's (NVIDIA's data sheet)
+F32_FLOPS_PER_S = 67e12
 RTOL, ATOL = 1e-6, 1e-7    # f32; bf16 is held to one bf16 ulp
 STEPS, BATCH = 50, 512
 SLEEP_CYCLES = 200_000_000  # ~0.1 s at the H100's clock: _device_ms's head start
@@ -555,6 +569,23 @@ TWO_ASYNC_HIDDEN, TWO_ASYNC_CYCLES = 256, ASYNC_CYCLES // ASYNC_WORKERS
 TWO_ASYNC_WITNESS_CYCLES = 3 * TWO_ASYNC_CYCLES
 
 
+@functools.lru_cache(maxsize=None)
+def _card_peaks(name=None):
+    """(HBM bytes/s, dense bf16 FLOP/s) of the card named ``name`` (card 0
+    by default), from ``ps_tpu_torch/utils/chips.py``'s tables: every
+    bound this script prints divides by them. A card the tables lack
+    raises, naming it, rather than borrowing another card's peaks."""
+    from ps_tpu_torch.utils import chips
+
+    name = name or torch.cuda.get_device_name(0)
+    hbm, bf16 = chips.peak_hbm_gbps(name), chips.peak_bf16_tflops(name)
+    if hbm is None or bf16 is None:
+        raise RuntimeError(f"no peaks for the card {name!r} in "
+                           f"ps_tpu_torch/utils/chips.py: add its row from "
+                           f"its data sheet")
+    return hbm * 1e9, bf16 * 1e12
+
+
 def log(msg):
     print(msg, flush=True)
 
@@ -619,7 +650,7 @@ def _bound_ms(ids, dim, opt, table_bytes):
     u = int(torch.unique(ids[ids >= 0]).numel())
     state_bytes = opt.state_scalars_per_row(dim) * 4
     nbytes = n * 4 + n * dim * 4 + 2 * u * (dim * table_bytes + state_bytes)
-    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes, u
+    return nbytes / _card_peaks()[0] * 1e3, nbytes, u
 
 
 def _compare(got, want, dtype, what):
@@ -643,6 +674,9 @@ def phase_environment():
         f"python {sys.version.split()[0]}, device "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     log(smi)
+    hbm, bf16 = _card_peaks()
+    log(f"peaks (ps_tpu_torch/utils/chips.py): HBM {hbm / 1e9:.0f} GB/s, "
+        f"dense bf16 {bf16 / 1e12:.0f} TFLOP/s")
 
 
 def phase_build():
@@ -996,7 +1030,7 @@ def phase_timings(errs, by_rule, group_launches):
     segs = int(group.meta[0])
     # each id read once; sorted ids, permutation and segment table written
     group_bytes = 4 * n + 4 * 2 * n + 4 * (2 * segs + 1) + 4 * ops.META
-    group_bound = group_bytes / HBM_BYTES_PER_S * 1e3
+    group_bound = group_bytes / _card_peaks()[0] * 1e3
     log(json.dumps({
         "kernel": "sparse_group", "ids": n, "segments": segs,
         "path": ops.plan_group(n, cfg.total_rows)["path"],
@@ -1283,8 +1317,8 @@ def phase_flash_timings(err, launches):
                                                          attn_mask=keep))
     nbytes = 4 * b * h * s * d * 2 + b * h * s * 4 + b * s * 4
     flops = 4 * b * h * s * s * d
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    flops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = nbytes / _card_peaks()[0] * 1e3
+    flops_ms = flops / _card_peaks()[1] * 1e3
     bound_ms = max(bytes_ms, flops_ms)
     bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
     log(json.dumps({
@@ -1602,8 +1636,8 @@ def phase_resnet_main_path():
         f"{model.forward_macs(RESNET_SIZE) / 1e9:.3f} G multiply-adds x "
         f"{RESNET_BATCH}, from the layer shapes), "
         f"{flops / step_ms / 1e9:.1f} TFLOP/s, "
-        f"{100 * flops / (step_ms / 1e3) / BF16_FLOPS_PER_S:.1f}% of the "
-        f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16 peak; card "
+        f"{100 * flops / (step_ms / 1e3) / _card_peaks()[1]:.1f}% of the "
+        f"{_card_peaks()[1] / 1e12:.0f} TFLOP/s bf16 peak; card "
         f"{_card_line()}")
     return step_ms
 
@@ -4120,7 +4154,7 @@ def _sparse_shard_timings(harness, card):
     out = {"ids": n_med, "max_ids": routed[-1][0],
            "path": ops.plan_group(n_med, rows)["path"],
            "group": {"ms": group_ms,
-                     "bound_ms": group_bytes / HBM_BYTES_PER_S * 1e3,
+                     "bound_ms": group_bytes / _card_peaks()[0] * 1e3,
                      "plain_ms": _call_ms(lambda: ops._group_torch(ids, rows),
                                           iters=50),
                      "library_ms": _device_ms(
@@ -4653,8 +4687,8 @@ def _flash_entry(q, k, v, mask, heads, causal, dtype):
     # the score pairs this run needs: all of them, or the causal triangle
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 4 * bh * pairs * d
-    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    peak = _card_peaks()[1] if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    bytes_ms = nbytes / _card_peaks()[0] * 1e3
     flops_ms = flops / peak * 1e3
     return {"shape": [bh, s, d], "dtype": str(dtype).split(".")[-1],
             "causal": causal, "max_abs_err": err, "ms": ms,
@@ -9329,6 +9363,685 @@ def phase_elastic(tmp):
             "b": b, "c": c}
 
 
+# -- phase 26: the autopilot chaos soak on the card (ROADMAP item 6.3) -------
+# The reference's soak (bench.py bench_chaos) with every shard's params on
+# the card: three in-process shards and one subprocess member under a
+# coordinator with telemetry, SLOs, the straggler detector and the policy
+# engine on; two hammer workers push the whole tree while drills A-E
+# inject their faults; then the aggregator's death and the SIGKILL pair.
+
+CHAOS_KEYS = [f"k{i:02d}" for i in range(12)]
+CHAOS_DIM = 16384   # 64 KiB a key: a move's window stays under a second
+CHAOS_LR = 0.01
+CHAOS_SEED = 7      # make_tree's seed for the soak's tree
+CHAOS_PAIR_DIMS = {"p0": 8192, "p1": 8192}
+CHAOS_AGG_LR = 0.5  # a power of two: integer partial sums stay exact
+CHAOS_AGG_ROUNDS = 6
+# every fault class's heal bound in seconds (the reference's BOUND_S), in
+# the order the plan printed for the determinism gate takes them
+CHAOS_BOUND_S = {"slow_apply": 20.0, "sigstop": 20.0, "blackhole": 8.0,
+                 "reconnect_storm": 8.0, "underload": 30.0,
+                 "agg_death": 10.0, "sigkill": 30.0}
+CHAOS_PLAN = (30.0, 2.0)  # the printed plan's horizon and spacing (s)
+# after the blackhole: a worker's report cadence (1 s), the SLO window (2 s)
+# and a policy tick (0.5 s), from the hammers' first push past the hole
+CHAOS_SETTLE_S = 3.5
+
+
+def _chaos_wait(cond, timeout_s, what):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if cond():
+            return
+        time.sleep(0.05)
+    raise AssertionError(f"chaos: {what}")
+
+
+def _chaos_wait_action(engine, t0, pred, timeout_s=25.0):
+    """The first policy audit entry at or after ``t0`` matching ``pred``
+    (entries change in place as their action ends, so a poll sees
+    ``started`` become ``ok``), or None."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        for e in engine.audit():
+            if e.get("mono", 0.0) >= t0 and pred(e):
+                return e
+        time.sleep(0.05)
+    return None
+
+
+def _chaos_store(params, device, lr=CHAOS_LR):
+    import ps_tpu_torch as ps
+
+    st = ps.KVStore(optimizer="sgd", learning_rate=lr, mode="async")
+    st.init({k: torch.from_numpy(np.array(v)).to(device)
+             for k, v in params.items()})
+    return st
+
+
+def _chaos_pair_start(out_dir, device):
+    """Boot the SIGKILL drill's pair early, so the subprocess's start
+    overlaps the main soak: its own coordinator (policy on), a backup in
+    this process under a PromotionWatch, a registered spare on
+    placeholder params, and a subprocess primary on ``device`` attached to
+    the backup and registered under the pair's uri."""
+    from ps_tpu_torch.backends.remote_async import AsyncPSService
+    from ps_tpu_torch.chaos import member
+    from ps_tpu_torch.elastic import Coordinator
+    from ps_tpu_torch.elastic.member import register_spare
+    from ps_tpu_torch.replica.watch import PromotionWatch
+
+    tree = member.make_tree(CHAOS_PAIR_DIMS, seed=21)
+    c2 = Coordinator(bind="127.0.0.1", report_ms=200, hb_timeout_ms=1200,
+                     telemetry_window_s=2.0, policy="on",
+                     policy_cooldown_s=3.0, policy_burn_windows=2)
+    c2a = f"127.0.0.1:{c2.port}"
+    # the backup starts at the primary's state point by construction (the
+    # same make_tree seed in both processes)
+    b0 = AsyncPSService(_chaos_store(tree, device), bind="127.0.0.1",
+                        backup=True)
+    watch = PromotionWatch(b0, primary_id=1, timeout_ms=1000)
+    # the spare's placeholder params are evicted by the seed
+    sp = AsyncPSService(_chaos_store(member.make_tree({"ph": 64}, seed=3),
+                                     device),
+                        bind="127.0.0.1", backup=True)
+    register_spare(c2a, f"127.0.0.1:{sp.port}")
+    pair = {"c2": c2, "c2a": c2a, "b0": b0, "watch": watch, "sp": sp,
+            "tree": tree, "proc": None, "log": None}
+    try:
+        pair["proc"], pair["pid"], pair["port"], pair["log"] = member.spawn(
+            "primary", "pair", out_dir, c2a,
+            ",".join(f"{k}:{d}" for k, d in CHAOS_PAIR_DIMS.items()), 21,
+            extra=("--backup", f"127.0.0.1:{b0.port}",
+                   "--watch", f"127.0.0.1:{watch.port}",
+                   "--watch-node", "1", "--report-ms", "200"),
+            device=device)
+    except BaseException:
+        _chaos_pair_stop(pair)
+        raise
+    return pair
+
+
+def _chaos_pair_stop(pair):
+    for name in ("watch", "b0", "sp", "c2"):
+        with contextlib.suppress(Exception):
+            (pair[name].close if name == "watch" else pair[name].stop)()
+    if pair["proc"] is not None:
+        if pair["proc"].poll() is None:
+            pair["proc"].kill()
+        pair["proc"].wait()
+        pair["log"].close()
+
+
+def _chaos_pair_drill(pair, inj, note, device):
+    """SIGKILL the subprocess primary under a hammering worker: the watch
+    promotes the backup, the worker rides the failover, the policy
+    re-seeds the used-up pair onto the spare; then each key's applies on
+    the survivor equal the pushes, and the spare holds the survivor's
+    params and apply counts bitwise."""
+    import threading
+
+    from ps_tpu_torch.backends.remote_async import connect_async
+    from ps_tpu_torch.elastic.member import TelemetryReporter
+    from ps_tpu_torch.obs.collector import collect_telemetry
+
+    c2, b0, sp, watch = pair["c2"], pair["b0"], pair["sp"], pair["watch"]
+    tree = pair["tree"]
+    watch.wait_for_primary(60.0)
+    like = {k: torch.from_numpy(v).to(device) for k, v in tree.items()}
+    w = connect_async(f"127.0.0.1:{pair['port']}|127.0.0.1:{b0.port}", 0,
+                      like, failover_timeout=30.0)
+    rep = None
+    stop = threading.Event()
+    t = None
+    try:
+        w.pull_all()
+        grads = {k: torch.full(v.shape, 0.5, dtype=torch.float32,
+                               device=device) for k, v in tree.items()}
+        w.push_pull(grads)
+        # the worker's reports tick the pair coordinator's policy once the
+        # dead pair stops reporting
+        rep = TelemetryReporter(pair["c2a"], "chaos-pair-worker",
+                                lambda: collect_telemetry(w.transport),
+                                report_ms=200)
+        pushes, errs = [1], []
+
+        def hammer():
+            try:
+                while not stop.is_set():
+                    w.push_pull(grads)
+                    pushes[0] += 1
+                    time.sleep(0.01)
+            except BaseException as e:  # raised after the join
+                errs.append(e)
+
+        t = threading.Thread(target=hammer)
+        t.start()
+        time.sleep(1.0)  # replicated traffic first
+        at_kill = pushes[0]
+        t_kill = time.monotonic()
+        inj.sigkill(pair["pid"])
+        entry = _chaos_wait_action(
+            c2.policy, t_kill,
+            lambda e: e["action"] == "reseed" and e["outcome"] == "ok",
+            timeout_s=30.0)
+        if entry is None:
+            raise AssertionError(f"chaos: the re-seed never fired: "
+                                 f"{c2.policy.audit()[-6:]}")
+        time.sleep(0.5)  # traffic replicated to the spare
+        stop.set()
+        t.join(timeout=60)
+        if errs:
+            raise RuntimeError(f"chaos: the pair's worker died: "
+                               f"{errs[0]!r}") from errs[0]
+        if watch.promoted_reason != "timeout" or b0.role != "primary":
+            raise AssertionError(f"chaos: promotion {watch.promoted_reason}"
+                                 f", role {b0.role}")
+        if pushes[0] <= at_kill:
+            raise AssertionError("chaos: the worker never resumed after "
+                                 "the kill")
+        healed = [u for u in c2.table().shards
+                  if u.endswith(f"|127.0.0.1:{sp.port}")]
+        if not healed or c2.table().epoch < 1:
+            raise AssertionError(f"chaos: the healed pair is not published "
+                                 f"({c2.table().shards}, epoch "
+                                 f"{c2.table().epoch})")
+        _chaos_wait(lambda: set(sp._engine._params) == set(tree)
+                    and b0._backup_session is not None
+                    and not b0._backup_session.degraded,
+                    10.0, "the spare never adopted the pair's state")
+        for k in tree:
+            got = int(b0._engine.apply_count.get(k, 0))
+            if got != pushes[0]:
+                raise AssertionError(f"chaos: pair key {k} applied {got}x "
+                                     f"for {pushes[0]} pushes")
+
+        def mirrored():
+            return all(
+                sp._engine.apply_count.get(k) == b0._engine.apply_count[k]
+                and torch.equal(sp._engine._params[k].cpu(),
+                                b0._engine._params[k].cpu())
+                for k in tree)
+
+        _chaos_wait(mirrored, 10.0,
+                    "the spare never mirrored the survivor bitwise")
+        if any(b0._engine._params[k].device.type != torch.device(
+                device).type for k in tree):
+            raise AssertionError("chaos: the survivor's params left the "
+                                 "device")
+        note("sigkill", entry["mono"] + entry.get("seconds", 0.0) - t_kill,
+             "policy:replica_reseed")
+        pair["proc"].wait(timeout=10)
+        return {"pushes": pushes[0], "epoch": c2.table().epoch,
+                "fire_s": entry["mono"] - t_kill,
+                "action_s": entry.get("seconds", 0.0)}
+    finally:
+        stop.set()
+        if t is not None:
+            t.join(timeout=30)
+        if rep is not None:
+            rep.close()
+        w.close()
+
+
+def _chaos_agg_drill(inj, note, device):
+    """The aggregator dies in the ledger's hardest window: the merged
+    round-2 push commits upstream, then the aggregator dies before any
+    member's ack. The members degrade to the flat path and replay, the
+    replays dedup by the members' tokens, and with integer gradients at a
+    power-of-two rate the parameters end bitwise at the closed form."""
+    import threading
+
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.backends.aggregator import AggregatorService
+    from ps_tpu_torch.backends.remote_async import serve_async
+    from ps_tpu_torch.backends.van_service import VanService
+
+    params = {"a": np.zeros((32, 16), np.float32),
+              "b": np.ones((64,), np.float32)}
+    store = _chaos_store(params, device, lr=CHAOS_AGG_LR)
+    svc = serve_async(store, bind="127.0.0.1")
+    uri = f"127.0.0.1:{svc.port}"
+    like = {k: torch.from_numpy(v).to(device) for k, v in params.items()}
+    agg = AggregatorService(uri, like, group_size=2)
+    ws = [ps.connect_async(uri, w, like, aggregator=f"127.0.0.1:{agg.port}",
+                           failover_timeout=10.0) for w in range(2)]
+    done_t = [[None] * CHAOS_AGG_ROUNDS for _ in range(2)]
+    killed = [0.0]
+    try:
+        for w in ws:
+            w.pull_all()
+
+        def grad(w, s):
+            return {"a": torch.full((32, 16), float(3 * w + s + 1),
+                                    device=device),
+                    "b": torch.full((64,), float(2 * (w + 1) + s),
+                                    device=device)}
+
+        def rounds(lo, hi):
+            errs = []
+
+            def loop(i):
+                try:
+                    for s in range(lo, hi):
+                        ws[i].push_pull(grad(i, s))
+                        done_t[i][s] = time.monotonic()
+                except BaseException as e:  # raised below
+                    errs.append(e)
+
+            ts = [threading.Thread(target=loop, args=(i,)) for i in range(2)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=60)
+            if any(t.is_alive() for t in ts):
+                raise AssertionError("chaos: an aggregated round wedged")
+            if errs:
+                raise errs[0]
+
+        rounds(0, 2)  # two clean aggregated rounds
+        orig = agg._client.push_pull
+
+        def dying(*a, **kw):
+            out = orig(*a, **kw)  # the merged push commits upstream...
+            killed[0] = time.monotonic()
+            inj.mark("agg_death", target=agg.port)
+            VanService.kill(agg)  # ...then death, before any member's ack
+            return out
+
+        agg._client.push_pull = dying
+        rounds(2, CHAOS_AGG_ROUNDS)  # death in round 2; 3-5 run flat
+        for i, w in enumerate(ws):
+            if w._agg_fallback is not None or w.transport.agg_degrades != 1:
+                raise AssertionError(
+                    f"chaos: worker {i} still aggregated or degraded "
+                    f"{w.transport.agg_degrades}x")
+        dedup = svc.transport.dedup_hits
+        if dedup < 2:
+            raise AssertionError(f"chaos: {dedup} dedup hits after the "
+                                 f"aggregator's post-commit death")
+        tot_a = sum(3 * w + s + 1 for w in range(2)
+                    for s in range(CHAOS_AGG_ROUNDS))
+        tot_b = sum(2 * (w + 1) + s for w in range(2)
+                    for s in range(CHAOS_AGG_ROUNDS))
+        a = store._engine._params["a"].cpu().numpy()
+        b = store._engine._params["b"].cpu().numpy()
+        if not (np.all(a == np.float32(0.0 - CHAOS_AGG_LR * tot_a))
+                and np.all(b == np.float32(1.0 - CHAOS_AGG_LR * tot_b))):
+            raise AssertionError(
+                f"chaos: the aggregator drill's params are not the closed "
+                f"form: a {float(a[0, 0])} for {0.0 - CHAOS_AGG_LR * tot_a},"
+                f" b {float(b[0])} for {1.0 - CHAOS_AGG_LR * tot_b}")
+        heal = max(min(x for x in done_t[i][2:] if x is not None)
+                   for i in range(2)) - killed[0]
+        note("agg_death", heal, "non_action:flat_degrade_replay")
+        return {"dedup_hits": dedup, "applies": svc.apply_log.total}
+    finally:
+        for w in ws:
+            w.close()
+        agg.kill()
+        svc.stop()
+
+
+def _chaos_replay(tree, grads, pushes, device):
+    """Each key's parameter after ``pushes`` applies of its gradient on one
+    engine on ``device`` (sgd, DC λ 0: the order of the pushes and their
+    workers change nothing)."""
+    st = _chaos_store(tree, device)
+    g = {k: torch.from_numpy(v).to(device) for k, v in grads.items()}
+    eng = st._engine
+    for _ in range(pushes):
+        eng.push_tree(g, worker=0)
+    return {k: eng._params[k].cpu() for k in tree}
+
+
+def phase_chaos(tmp, device="cuda"):
+    """26: the autopilot chaos soak on the card (ROADMAP item 6.3)."""
+    import threading
+
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.backends.remote_async import (AsyncPSService,
+                                                    connect_async)
+    from ps_tpu_torch.chaos import ChaosHook, ChaosInjector, member
+    from ps_tpu_torch.elastic import Coordinator, request_rebalance
+    from ps_tpu_torch.elastic.policy import ShardDrain
+
+    card = _card_line()
+    t0 = time.perf_counter()
+    _launch_counts(reset=True)
+    heal = {}  # fault class -> [{"heal_s", "resolved_by"}]
+
+    def note(fault, heal_s, resolved_by):
+        heal.setdefault(fault, []).append(
+            {"heal_s": float(heal_s), "resolved_by": resolved_by})
+        log(f"chaos: {fault} healed in {heal_s:.3f} s via {resolved_by}")
+
+    dim = CHAOS_DIM
+    shard_keys = [CHAOS_KEYS[0:3], CHAOS_KEYS[3:6], CHAOS_KEYS[6:9],
+                  CHAOS_KEYS[9:12]]
+    tree = member.make_tree({k: dim for k in CHAOS_KEYS}, seed=CHAOS_SEED)
+    inj = ChaosInjector()
+    plan = ChaosInjector(inj.seed).plan(list(CHAOS_BOUND_S), *CHAOS_PLAN)
+    log(f"chaos: PS_CHAOS_SEED {inj.seed}; plan(classes, {CHAOS_PLAN[0]}, "
+        f"{CHAOS_PLAN[1]}) = {json.dumps(plan)} (the reference's injector "
+        f"plans the same: tests/test_torch_chaos.py)")
+    ps.init(backend="cuda", device=device, mode="async", num_workers=2,
+            dc_lambda=0.0)
+    out_dir = os.path.join(tmp, "chaos")
+    os.makedirs(out_dir)
+    coord = None
+    svcs, ws, ths = [], [], []
+    pair = None
+    proc3 = log3 = None
+    stop = threading.Event()
+    try:
+        coord = Coordinator(
+            bind="127.0.0.1", report_ms=200, hb_timeout_ms=1500,
+            max_skew=4.0, telemetry_window_s=2.0,
+            slo_rules="push_pull p99 < 400ms over 2s",
+            policy="on", policy_cooldown_s=3.0, policy_burn_windows=2)
+        ca = f"127.0.0.1:{coord.port}"
+        pol = coord.policy
+        # the underload rule waits for its own drill: the quiet gaps
+        # between drills must not read as underload
+        drain_rule = next(r for r in pol.rules if isinstance(r, ShardDrain))
+        drain_rule.qps_floor = 0.0
+        svcs = [AsyncPSService(_chaos_store({k: tree[k]
+                                             for k in shard_keys[i]},
+                                            device),
+                               bind="127.0.0.1", coordinator=ca)
+                for i in range(3)]
+        hole = ChaosHook(svcs[2])  # the blackhole drill's interceptor
+        proc3, pid3, port3, log3 = member.spawn(
+            "shard", "s3", out_dir, ca,
+            ",".join(f"{k}:{dim}" for k in shard_keys[3]), CHAOS_SEED,
+            device=device)
+        pair = _chaos_pair_start(out_dir, device)
+        _chaos_wait(lambda: len(coord.table().shards) == 4, 60.0,
+                    "the subprocess shard never joined the table")
+        t_boot = time.perf_counter()
+
+        rng = np.random.default_rng(1)
+        grads_np = {k: rng.normal(0, 1e-3, (dim,)).astype(np.float32)
+                    for k in CHAOS_KEYS}
+        grads = {k: torch.from_numpy(v).to(device)
+                 for k, v in grads_np.items()}
+        like = {k: torch.from_numpy(v).to(device) for k, v in tree.items()}
+        ws = [connect_async(None, w, like, coordinator=ca,
+                            failover_timeout=60.0) for w in range(2)]
+        for w in ws:
+            w.pull_all()
+            w.push_pull(grads)  # counted below
+        storm = {"until": 0.0}
+        counts = [1, 1]
+        samples = ([], [])
+        reconnects = [0, 0]
+        errs = []
+
+        def hammer(i):
+            last_rc = 0.0
+            try:
+                while not stop.is_set():
+                    now = time.monotonic()
+                    if storm["until"] > now and now - last_rc > 0.25:
+                        ws[i].reconnect()  # the storm: re-dial mid-run
+                        reconnects[i] += 1
+                        last_rc = now
+                    t_push = time.monotonic()
+                    ws[i].push_pull(grads)
+                    done = time.monotonic()
+                    counts[i] += 1
+                    samples[i].append((done, done - t_push))
+                    time.sleep(0.01)
+            except BaseException as e:  # raised after the join
+                errs.append(e)
+
+        def stop_hammers():
+            stop.set()
+            for t in ths:
+                t.join(timeout=60)
+            if errs:
+                raise RuntimeError(f"chaos: a hammer died mid-soak: "
+                                   f"{errs[0]!r}") from errs[0]
+
+        ths = [threading.Thread(target=hammer, args=(i,)) for i in range(2)]
+        for t in ths:
+            t.start()
+        t_soak0 = time.monotonic()
+        time.sleep(2.0)  # an undisturbed baseline
+
+        # A: a noisy neighbor slows shard 1's applies; the straggler
+        # detector suspects it and the autopilot drains it
+        tA = time.monotonic()
+        inj.noisy_neighbor(svcs[1], 4.0, hold_s=0.05)
+        eA = _chaos_wait_action(
+            pol, tA, lambda e: e["action"] == "rebalance"
+            and e["outcome"] == "ok" and e["detail"].get("suspects"),
+            timeout_s=25.0)
+        if eA is None or 1 not in eA["detail"]["suspects"]:
+            raise AssertionError(f"chaos: the straggler drain never fired "
+                                 f"on shard 1: {pol.audit()[-8:]}")
+        _chaos_wait(lambda: coord.loads().get(1, 0) == 0, 10.0,
+                    "the suspect shard never drained")
+        note("slow_apply", eA["mono"] + eA.get("seconds", 0.0) - tA,
+             "policy:hotspot_rebalance[drain_suspect]")
+        inj.join()
+        # suspicion clears, the rule re-arms, the cooldown ends
+        _chaos_wait(
+            lambda: pol.state()["rules"]["hotspot_rebalance"]["armed"],
+            20.0, "the hotspot rule never re-armed after the drain")
+        time.sleep(1.0)
+
+        # B: SIGSTOP the subprocess shard; the parked pushes complete late
+        # after SIGCONT, burn the SLO window, and the autopilot levels the
+        # fleet (which refills the shard drill A drained)
+        tB = time.monotonic()
+        inj.sigstop(pid3)
+        time.sleep(2.5)
+        inj.sigcont(pid3)
+        eB = _chaos_wait_action(
+            pol, tB, lambda e: e["action"] in ("rebalance", "shard_add")
+            and e["outcome"] == "ok", timeout_s=30.0)
+        if eB is None:
+            raise AssertionError(f"chaos: the SLO-burn rebalance never "
+                                 f"fired: {pol.audit()[-8:]}")
+        _chaos_wait(lambda: coord.loads().get(1, 0) > 0, 10.0,
+                    "the leveling never refilled the drained shard")
+        note("sigstop", eB["mono"] + eB.get("seconds", 0.0) - tB,
+             f"policy:{eB['rule']}")
+
+        # C: blackhole shard 2 inside B's cooldown: the brakes hold (no
+        # action), the workers ride the typed refusal
+        def n_exec():
+            return sum(1 for e in pol.audit()
+                       if e["outcome"] in ("started", "ok", "failed", "dry"))
+
+        exec0, sup0 = n_exec(), sum(pol.suppressed_total.values())
+        tC = time.monotonic()
+        inj.blackhole(hole, 1.0)
+        time.sleep(2.4)
+        if n_exec() != exec0:
+            raise AssertionError(f"chaos: the brakes failed: an action "
+                                 f"inside the cooldown window: "
+                                 f"{pol.audit()[-3:]}")
+        if hole.refused <= 0:
+            raise AssertionError("chaos: the blackhole refused no frame")
+        supC = sum(pol.suppressed_total.values()) - sup0
+        _chaos_wait(lambda: any(
+            x > tC + 1.0 for x, _ in
+            list(samples[0])[-3:] + list(samples[1])[-3:]),
+            10.0, "the hammers never resumed after the blackhole")
+        tsC = [x for x, _ in list(samples[0]) + list(samples[1])
+               if x > tC + 1.0]
+        note("blackhole", min(tsC) - tC,
+             "non_action:park_retry(cooldown_held)")
+
+        # settle, as after A: the hole's parked pushes reach the SLO
+        # window with the workers' next report (1 s) and stay in it 2 s,
+        # past B's 3 s cooldown (the hotspot rule re-arms between B and C
+        # when B's own residue clears first), so D starts once they have
+        # left it and every rule reads quiet; an action C's residue draws
+        # meanwhile is printed, not hidden
+        t_settle = time.monotonic()
+        t_clear = min(tsC) + CHAOS_SETTLE_S
+        _chaos_wait(lambda: time.monotonic() >= t_clear and all(
+            r["quiet"] >= 1 and r["streak"] == 0
+            for r in pol.state()["rules"].values()),
+            20.0, "the policy never read quiet after the blackhole")
+        # D: a reconnect storm, both hammers re-dialing every 250 ms for
+        # 1.2 s: dedup keeps the ledger whole and nothing acts
+        exec0 = n_exec()
+        tD = time.monotonic()
+        settle = [{k: e[k] for k in ("rule", "outcome", "detail")}
+                  for e in pol.audit() if t_settle <= e["mono"] < tD
+                  and e["outcome"] in ("started", "ok", "failed", "dry")]
+        inj.reconnect_storm(storm, 1.2, target="hammer-workers")
+        time.sleep(2.4)
+        if sum(reconnects) < 2:
+            raise AssertionError("chaos: the storm never re-dialed")
+        if n_exec() != exec0:
+            raise AssertionError(f"chaos: the reconnect storm drew a "
+                                 f"policy action: {pol.audit()[-3:]}")
+        tsD = [x for x, _ in list(samples[0]) + list(samples[1])
+               if x > tD + 1.2]
+        if not tsD:
+            raise AssertionError("chaos: the hammers never resumed after "
+                                 "the storm")
+        note("reconnect_storm", min(tsD) - (tD + 1.2),
+             "non_action:dedup_reconnect_continuity")
+
+        # E: sustained underload: the hammers stop, the drain rule sees
+        # the fleet's rate under its floor and scales 4 -> 2 itself
+        stop_hammers()
+        tE = time.monotonic()
+        drain_rule.qps_floor = 1.0  # an idle fleet is now real underload
+        eE = _chaos_wait_action(
+            pol, tE, lambda e: e["action"] == "shard_remove"
+            and e["outcome"] == "ok", timeout_s=30.0)
+        if eE is None:
+            raise AssertionError(f"chaos: the underload drain never fired: "
+                                 f"{pol.audit()[-8:]}")
+        if len(coord.table().shards) != 2:
+            raise AssertionError(f"chaos: {coord.table().shards} after the "
+                                 f"underload drain")
+        note("underload", eE["mono"] + eE.get("seconds", 0.0) - tE,
+             "policy:shard_drain")
+        t_soak1 = time.monotonic()
+        actions = dict(pol.actions_total)
+        suppressed = dict(pol.suppressed_total)
+        t_main = time.perf_counter()
+
+        agg = _chaos_agg_drill(inj, note, device)
+        t_agg = time.perf_counter()
+        pair_out = _chaos_pair_drill(pair, inj, note, device)
+        t_pair = time.perf_counter()
+
+        # the ledger across the main fleet, after the soak window: if the
+        # subprocess shard still holds keys, an operator drain moves them
+        # into this process's shards so their counts can be read
+        audit_drain = False
+        s3 = next((m for m in coord._members_view()
+                   if m["uri"].endswith(f":{port3}")), None)
+        if s3 is not None and coord.loads().get(s3["shard"], 0) > 0:
+            request_rebalance(ca, drain=[s3["shard"]])
+            audit_drain = True
+        pushes = counts[0] + counts[1]
+        final = {}
+        for k in CHAOS_KEYS:
+            held = [s for s in svcs if k in s._engine._params]
+            total = sum(s._engine.apply_count.get(k, 0) for s in svcs
+                        if k in s._engine._params)
+            if total != pushes or len(held) != 1:
+                raise AssertionError(f"chaos: key {k} applied {total}x for "
+                                     f"{pushes} pushes on {len(held)} "
+                                     f"shards")
+            final[k] = held[0]._engine._params[k]
+            if final[k].device.type != torch.device(device).type:
+                raise AssertionError(f"chaos: key {k} left the device")
+        # the subprocess shard made its keys from its own spec (the same
+        # make_tree seed over its 3 keys, not the 12)
+        init = dict(tree, **member.make_tree(
+            {k: dim for k in shard_keys[3]}, seed=CHAOS_SEED))
+        want = _chaos_replay(init, grads_np, pushes, device)
+        for k in CHAOS_KEYS:
+            if not torch.equal(final[k].cpu(), want[k]):
+                raise AssertionError(
+                    f"chaos: key {k} is not bitwise its replay (max diff "
+                    f"{float((final[k].cpu() - want[k]).abs().max())})")
+        t_replay = time.perf_counter()
+        for fault, rows in heal.items():
+            for r in rows:
+                if r["heal_s"] > CHAOS_BOUND_S[fault]:
+                    raise AssertionError(f"chaos: {fault} healed in "
+                                         f"{r['heal_s']:.3f} s, over its "
+                                         f"bound {CHAOS_BOUND_S[fault]} s")
+        if sorted(heal) != sorted(CHAOS_BOUND_S):
+            raise AssertionError(f"chaos: fault classes healed "
+                                 f"{sorted(heal)}")
+        if not any(o == "ok" for (_, o) in actions):
+            raise AssertionError(f"chaos: no policy action ended ok: "
+                                 f"{actions}")
+        _no_launches("chaos (phase 26)")
+    finally:
+        stop.set()
+        for t in ths:
+            t.join(timeout=30)
+        with open(os.path.join(out_dir, "done"), "w") as f:
+            f.write("done\n")  # the subprocess members' exit cue
+        for w in ws:
+            with contextlib.suppress(Exception):
+                w.close()
+        for s in svcs:
+            with contextlib.suppress(Exception):
+                s.stop()
+        if pair is not None:
+            _chaos_pair_stop(pair)
+        if coord is not None:
+            with contextlib.suppress(Exception):
+                coord.stop()
+        if proc3 is not None:
+            try:
+                proc3.wait(timeout=10)
+            except Exception:
+                proc3.kill()
+                proc3.wait()
+            log3.close()
+        ps.shutdown()
+    allheal = [r["heal_s"] for rows in heal.values() for r in rows]
+    p99 = float(np.percentile(allheal, 99))
+    for fault in CHAOS_BOUND_S:
+        hs = [r["heal_s"] for r in heal[fault]]
+        log(f"chaos: {fault}: n {len(hs)}, heal p50 "
+            f"{float(np.percentile(hs, 50)):.3f} s, p99 "
+            f"{float(np.percentile(hs, 99)):.3f} s (bound "
+            f"{CHAOS_BOUND_S[fault]} s), resolved by "
+            f"{sorted({r['resolved_by'] for r in heal[fault]})}")
+    total = time.perf_counter() - t0
+    acted = {f"{a}:{o}": n for (a, o), n in sorted(actions.items())}
+    log(f"chaos: chaos_self_heal_p99_s {p99:.3f} over {len(allheal)} heals;"
+        f" soak window {t_soak1 - t_soak0:.1f} s, no operator call in it "
+        f"(the post-soak audit drain: {audit_drain}); policy actions "
+        f"{json.dumps(acted)}, suppressed {json.dumps(suppressed)} ({supC} during the "
+        f"blackhole); between C and D (settling {tD - t_settle:.3f} s): "
+        f"{json.dumps(settle)}; the hole refused {hole.refused} frames; "
+        f"{sum(reconnects)} re-dials; {pushes} pushes of the "
+        f"{len(CHAOS_KEYS)} x {dim} f32 tree, each key applied {pushes}x "
+        f"across the fleet and bitwise its replay on one engine "
+        f"({'on the card' if device == 'cuda' else device}); aggregator "
+        f"drill: {agg['dedup_hits']} dedup hits, the closed form bitwise; "
+        f"pair drill: {pair_out['pushes']} pushes, the re-seed fired "
+        f"{pair_out['fire_s']:.3f} s after the kill and took "
+        f"{pair_out['action_s']:.3f} s, survivor and re-seeded spare "
+        f"bitwise, table epoch {pair_out['epoch']}; injections "
+        f"{[r['fault'] for r in inj.injections]}; no kernel launched; boot "
+        f"{t_boot - t0:.1f} s, soak {t_main - t_boot:.1f} s, aggregator "
+        f"{t_agg - t_main:.1f} s, pair {t_pair - t_agg:.1f} s, audit and "
+        f"replay {t_replay - t_pair:.1f} s; phase {total:.1f} s; card "
+        f"{card}")
+    return {"seconds": total, "heal": heal, "p99": p99, "pushes": pushes,
+            "refused": hole.refused, "reconnects": sum(reconnects)}
+
+
 def main():
     if len(sys.argv) == 5 and sys.argv[1] == "--two-ranks-worker":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -9415,6 +10128,8 @@ def main():
         observed = phase_obs(tmp)
     with tempfile.TemporaryDirectory(prefix="ps_elastic_") as tmp:
         elastic = phase_elastic(tmp)
+    with tempfile.TemporaryDirectory(prefix="ps_chaos_") as tmp:
+        phase_chaos(tmp)
     for e in entries:  # each rank's launches in phase 15's 20-step runs
         if e["name"] == "flash_attention/fwd":
             # each rank's launches over phase 15 (e)'s bf16 steps, and the

@@ -1294,8 +1294,11 @@ class AsyncPSService(VanService):
         exact state point the new stream continues from. Ships every row
         (param, optimizer state, stale snapshots, apply count), the
         engine's meta and the per-key exactly-once ledger, in the
-        reference's frame layout; the optimizer state's leaf names are the
-        port's, so the spare is a port service."""
+        reference's frame layout, the optimizer state under the
+        reference's leaf paths (as a key move ships it), so the spare may
+        be a service of either package."""
+        from ps_tpu_torch.elastic.migrate import encode_row
+
         spare = str(extra.get("spare") or "")
         if ":" not in spare:
             return tv.encode(tv.ERR, worker, None, extra={
@@ -1316,17 +1319,14 @@ class AsyncPSService(VanService):
                     "error": "a live backup session is already attached"})
             tensors: Dict[str, np.ndarray] = {}
             rows = []
+            exported = eng.export_keys(self._key_order)
             for i, k in enumerate(self._key_order):
-                state_kv, _ = keymod.flatten_with_keys(eng._state[k])
-                row = {"param": eng._params[k]}
-                row.update({f"s:{sk}": v for sk, v in state_kv.items()})
-                row.update({f"w:{w}": v for (w, kk), v in eng._stale.items()
-                            if kk == k})
-                for name, v in stage_to_host(row, stats=self.transport,
-                                             copy=True).items():
-                    tensors[f"{i}/{name}"] = v
-                rows.append({"key": k, "state_keys": list(state_kv),
-                             "apply_count": int(eng.apply_count.get(k, 0))})
+                r = exported[k]
+                t, e = encode_row(k, r["param"], r["state"], r["stale"],
+                                  r["apply_count"])
+                for name, v in t.items():
+                    tensors[f"{i}/{name}"] = np.asarray(v)
+                rows.append(e)
             frame = tv.encode(tv.REPLICA_SEED, 0, tensors, extra={
                 "kind": "dense",
                 "keys": self._key_order,
@@ -1365,9 +1365,13 @@ class AsyncPSService(VanService):
         """REPLICA_SEED (a re-seeding primary to this empty backup):
         install the shipped state point whole (rows, the engine's meta and
         the exactly-once ledger), so the REPLICA_HELLO that follows
-        validates against an exact copy. The spare boots with the same key
-        range as the primary (its values are placeholders); a seed is
-        refused once a stream is attached."""
+        validates against an exact copy. Whatever the spare booted with is
+        a placeholder: its keys are evicted and the seed's adopted, with
+        the seed's key range and shard. A seed is refused once a stream is
+        attached: a seed is how a spare becomes a backup, never a way to
+        rewrite a live one."""
+        from ps_tpu_torch.elastic.migrate import decode_row
+
         if extra.get("kind") != "dense":
             return (f"seed kind {extra.get('kind')!r} does not match "
                     f"this dense service")
@@ -1377,40 +1381,29 @@ class AsyncPSService(VanService):
             return (f"seed is for num_workers={meta.get('num_workers')}, "
                     f"this spare runs {eng.num_workers} — staleness "
                     f"semantics would differ")
-        rows = list(extra.get("rows") or [])
-        if sorted(r["key"] for r in rows) != sorted(self._key_order):
-            return "seed's key range differs from the spare's"
-        if (extra.get("shard"), extra.get("num_shards")) \
-                != (self.shard, self.num_shards):
-            return (f"seed is shard {extra.get('shard')}/"
-                    f"{extra.get('num_shards')}, spare is shard "
-                    f"{self.shard}/{self.num_shards}")
         per: Dict[int, dict] = {}
         for name, v in (tensors or {}).items():
             i, _, rest = name.partition("/")
             per.setdefault(int(i), {})[rest] = v
+        rows = list(extra.get("rows") or [])
         with eng._lock:
             if self.role != "backup":
                 return f"only a backup accepts a seed (role={self.role})"
             if self._replica_attached:
                 return ("seed refused: a replication stream is already "
                         "attached")
-            for i, row in enumerate(rows):
-                k = row["key"]
-                got = stage_to_device(per.get(i, {}), self._device,
-                                      stats=self.transport)
-                fkv, fdef = keymod.flatten_with_keys(eng._state[k])
-                if sorted(fkv) != sorted(row.get("state_keys") or []):
-                    return (f"optimizer-state structure mismatch for {k!r}: "
-                            f"primary and spare must run the same optimizer")
-                eng._params[k] = got["param"]
-                eng._state[k] = keymod.unflatten(
-                    fdef, {sk: got[f"s:{sk}"] for sk in fkv}, list(fkv))
-                for wk in [wk for wk in eng._stale if wk[1] == k]:
-                    del eng._stale[wk]
-                for name, v in got.items():
-                    if name.startswith("w:"):
-                        eng._stale[(int(name[2:]), k)] = v
+            booted = sorted(eng._params)
+            if booted:
+                eng.evict_keys(booted)
+            keys = []
+            for i, re_ in enumerate(rows):
+                row = decode_row(per.get(i, {}), re_)
+                eng.adopt_key(row["key"], row["param"], row["state"],
+                              row["stale"], row["apply_count"])
+                keys.append(row["key"])
+            self._key_order = sorted(keys)
+            self.shard = extra.get("shard")
+            self.num_shards = extra.get("num_shards")
             eng._load_checkpoint_meta(meta)
             self._applied = {int(w): int(n) for w, n
                              in (extra.get("applied") or {}).items()}
@@ -1419,10 +1412,11 @@ class AsyncPSService(VanService):
                 for w, toks in (extra.get("tokens") or {}).items()}
             self._invalidate_reads()
             self._birth = freshness.birth_record()
-        obs.record_event("replica_seeded", keys=len(rows),
+            self._admit_sync(locked=True)
+        obs.record_event("replica_seeded", keys=len(keys),
                          version=eng.version)
         logging.getLogger(__name__).info(
-            "seeded as backup: %d key(s) at version %d", len(rows),
+            "seeded as backup: %d key(s) at version %d", len(keys),
             eng.version)
         return None
 

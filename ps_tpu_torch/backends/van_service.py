@@ -335,6 +335,11 @@ class VanService:
         self.promotion_s: Optional[float] = None  # promote()'s duration
         self.goodbyes = 0  # workers that sent SHUTDOWN (clean departures)
         self._goodbye_cond = threading.Condition()
+        # the chaos hook (ps_tpu_torch/chaos): when set, every dispatched
+        # frame is offered to it first, and a reply it returns stands in
+        # for the handler's (a blackhole's refusal); None serves as usual.
+        # Only a fault harness sets it
+        self.chaos = None
         # every frame served (several services in one process merge by
         # name), and the opt-in /metrics endpoint (a no-op unless
         # PS_METRICS_PORT is set; one a process)
@@ -909,10 +914,20 @@ class VanService:
         state (the reply's version lets the worker hold it to its
         staleness bound); a fenced zombie refuses them too.
 
+        The chaos hook, when one is set, sees every frame first (both
+        serve paths reach here), so an injected fault answers with the
+        frames a broken shard would send and the worker's own refusal
+        and retry paths do the rest.
+
         A frame carrying a trace context is served inside a span named
         for its kind, parented to the sender's span (the worker's op, or
         the primary's apply for a replica append); an untraced frame costs
         one dict lookup."""
+        hook = self.chaos
+        if hook is not None:
+            reply = hook(self, kind, worker, extra)
+            if reply is not None:
+                return reply
         ctx = obs.from_wire(extra)
         if ctx is not None:
             with obs.tracer().span(tv.kind_name(kind), cat="server",

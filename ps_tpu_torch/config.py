@@ -177,7 +177,8 @@ Environment variables honored by :meth:`Config.from_env`:
   must hold before a rule fires, and consecutive QUIET windows below the
   recover threshold before it re-arms (default 3)
 - ``PS_CHAOS_SEED``          — deterministic seed for the chaos fault
-  injector's schedule (ps_tpu/chaos; default 0 — same seed, same faults)
+  injector's schedule (ps_tpu_torch/chaos; default 0 — same seed, same
+  faults)
 - ``PS_TRACE_SAMPLE``        — distributed-tracing sample rate in [0, 1]
   (ps_tpu/obs: 0 = off, the default — the unsampled path costs nothing)
 - ``PS_TRACE_DIR``           — directory for trace exports and flight-
@@ -522,7 +523,7 @@ class Config:
         the (lower) recover threshold before the rule re-arms — the
         hysteresis pair (default 3).
       chaos_seed: deterministic seed for the chaos injector's fault
-        schedule (ps_tpu/chaos/inject.py) — identical seeds replay
+        schedule (ps_tpu_torch/chaos/inject.py) — identical seeds replay
         identical fault timelines (default 0).
       trace_sample: distributed-tracing sample rate in [0, 1] (README
         "Observability"; ps_tpu/obs). A sampled worker op propagates its
@@ -692,9 +693,10 @@ class Config:
     # freshness plane (ps_tpu/obs/freshness.py, README "Online serving
     # & freshness"): the age bound a served read is judged against
     freshness_slo: float = 0.5
-    # autopilot (ps_tpu/elastic/policy.py, README "Autopilot & chaos"):
-    # the coordinator-side rule engine closing the telemetry→elastic
-    # loop, its storm brakes, and the chaos injector's schedule seed
+    # autopilot (ps_tpu_torch/elastic/policy.py, README "Autopilot &
+    # chaos"): the coordinator-side rule engine closing the
+    # telemetry→elastic loop, its storm brakes, and the chaos injector's
+    # schedule seed (ps_tpu_torch/chaos)
     policy: str = "off"
     policy_cooldown_s: float = 30.0
     policy_burn_windows: int = 3

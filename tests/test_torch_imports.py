@@ -116,7 +116,11 @@ def test_every_slice_module_is_checked():
                  "ps_tpu_torch/elastic/member.py",
                  "ps_tpu_torch/elastic/migrate.py",
                  "ps_tpu_torch/elastic/policy.py",
-                 "ps_tpu_torch/elastic/coordinator.py"):
+                 "ps_tpu_torch/elastic/coordinator.py",
+                 "ps_tpu_torch/chaos/__init__.py",
+                 "ps_tpu_torch/chaos/inject.py",
+                 "ps_tpu_torch/chaos/member.py",
+                 "ps_tpu_torch/utils/chips.py"):
         assert path in FILES
 
 
@@ -125,8 +129,9 @@ def test_van_plane_loads_neither_jax_nor_its_package():
     the native loop, the codecs, the services and the remote workers,
     dense and sparse, the aggregator, replica/, obs/ with its metrics,
     traces, flight recorder, /metrics endpoint, SLOs, straggler
-    detector, breakdown, collector and time series, and elastic/ with
-    the coordinator and the policy engine) runs without JAX and never
+    detector, breakdown, collector and time series, elastic/ with the
+    coordinator and the policy engine, chaos/ with its injector and
+    subprocess members, and the chips table) runs without JAX and never
     reaches into
     ps_tpu/: its modules load no jax, jaxlib, flax, optax, tensorflow or
     ps_tpu, and the native loader builds the port's own copy of
@@ -141,6 +146,8 @@ def test_van_plane_loads_neither_jax_nor_its_package():
             "ps_tpu_torch.backends.aggregator, ps_tpu_torch.replica, "
             "ps_tpu_torch.obs, ps_tpu_torch.obs.clock, "
             "ps_tpu_torch.elastic, ps_tpu_torch.elastic.policy, "
+            "ps_tpu_torch.chaos, ps_tpu_torch.chaos.inject, "
+            "ps_tpu_torch.chaos.member, ps_tpu_torch.utils.chips, "
             "ps_tpu_torch.utils.step_log; "
             "print(sorted({m.split('.')[0] for m in sys.modules} & "
             "{'jax', 'jaxlib', 'flax', 'optax', 'tensorflow', 'ps_tpu'}), "
