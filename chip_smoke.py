@@ -456,6 +456,27 @@ Phases, each raising on failure:
    and no kernel is launched. Run it alone with ``python3 -c "import
    chip_smoke as c, tempfile; c.phase_chaos(tempfile.mkdtemp())"``.
 
+27. a dense async server across ranks on the card (ROADMAP item 6.4,
+   ``backends/op_stream.py``): two gloo ranks of one async store share
+   the card, rank 0 serving and sending every engine call to rank 1 as
+   an op first. (a) config 5 through ``train_mnist_async --role server``
+   launched as 2 ranks (its defaults; the native loop on), a serial and
+   a bucketed worker: both ranks' params bitwise each other and the
+   event log's one-process replay on the card, its cycles/s against the
+   same run on one rank; (b) config 5's MLP at 784-256-10 through
+   ``init``/``KVStore(optimizer="adam", placement="sharded")``/
+   ``serve_async`` (the ranks harness's served case): pushes, READ and
+   NOT_MODIFIED, ``checkpoint_all`` restored into one process, a live
+   move of half the keys to a one-process shard and back, a RESEED onto
+   a one-process spare and its promotion, every reply and every rank's
+   rows bitwise the same frames on one rank. No kernel of the port is
+   launched in any rank. Run it alone with ``python3 -c "import
+   chip_smoke as c, tempfile; c.phase_served_ranks(tempfile.mkdtemp())"``
+   (no kernel build needed).
+
+Every phase's seconds, and the whole script's, are printed on one line
+before the kernels line.
+
 It prints one JSON line per timed kernel, then the kernels line, then
 ``{"ok": true, "device": {...}}`` as its last line. Without a GPU, or
 without the rest of the repository beside it, it fails before printing
@@ -470,6 +491,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -477,8 +499,6 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-# float32 outside the tensor cores, the H100 SXM's (NVIDIA's data sheet)
-F32_FLOPS_PER_S = 67e12
 RTOL, ATOL = 1e-6, 1e-7    # f32; bf16 is held to one bf16 ulp
 STEPS, BATCH = 50, 512
 SLEEP_CYCLES = 200_000_000  # ~0.1 s at the H100's clock: _device_ms's head start
@@ -586,8 +606,39 @@ def _card_peaks(name=None):
     return hbm * 1e9, bf16 * 1e12
 
 
+@functools.lru_cache(maxsize=None)
+def _card_f32_flops(name=None):
+    """Dense FP32 FLOP/s (outside the tensor cores) of the card named
+    ``name`` (card 0 by default), from ``ps_tpu_torch/utils/chips.py``:
+    the f32 flash bounds divide by it. A card the table lacks raises."""
+    from ps_tpu_torch.utils import chips
+
+    name = name or torch.cuda.get_device_name(0)
+    f32 = chips.peak_f32_tflops(name)
+    if f32 is None:
+        raise RuntimeError(f"no f32 peak for the card {name!r} in "
+                           f"ps_tpu_torch/utils/chips.py: add its row from "
+                           f"its data sheet")
+    return f32 * 1e12
+
+
 def log(msg):
     print(msg, flush=True)
+
+
+#: each phase's seconds, by its number (main's clocks)
+PHASE_SECONDS = {}
+
+
+@contextlib.contextmanager
+def _clock(n):
+    """Time phase ``n`` (printed, and kept in :data:`PHASE_SECONDS`)."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_SECONDS[n] = round(time.perf_counter() - t0, 1)
+        log(f"phase {n}: {PHASE_SECONDS[n]} s")
 
 
 def _call_ms(fn, iters=100, warmup=10):
@@ -4687,7 +4738,8 @@ def _flash_entry(q, k, v, mask, heads, causal, dtype):
     # the score pairs this run needs: all of them, or the causal triangle
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 4 * bh * pairs * d
-    peak = _card_peaks()[1] if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    peak = (_card_peaks()[1] if dtype == torch.bfloat16
+            else _card_f32_flops())
     bytes_ms = nbytes / _card_peaks()[0] * 1e3
     flops_ms = flops / peak * 1e3
     return {"shape": [bh, s, d], "dtype": str(dtype).split(".")[-1],
@@ -4878,7 +4930,7 @@ TRANSPORT_CODECS = ("int8", "cast16")
 TRANSPORT_WORKER_CODECS = ("topk", "topk", "cast16")
 TRANSPORT_WORKER_SHM = (False, True, False)  # (c): worker 1 on the rings
 TRANSPORT_BUCKET_BYTES = 4 << 20  # (d): the 0.44 GB tree's buckets
-TRANSPORT_CYCLES = 30  # (a)-(b): a worker's cycles, half of phase 17's
+TRANSPORT_CYCLES = 16  # (a)-(b): a worker's cycles (phase 17: 60)
 
 
 def _sparse_ps_spawn(harness, out, server_opts, worker_opts, cycles):
@@ -5291,8 +5343,8 @@ def phase_transport(tmp, tcp_sparse=None, tcp_config5=None):
 # backup=True process, attached with sync ack, the workers dialling the
 # replica sets; (b) config 5 through the trainer's replication flags; (c)
 # (a) with async ack and a window of REPL_WINDOW; (d) times, printed
-REPL_CYCLES = 40            # (a), (c): a worker's cycles (phase 17: 60)
-REPL_PAUSE_AT = 20          # (a): cycles before the pause, the checks, the kill
+REPL_CYCLES = 24            # (a), (c): a worker's cycles (phase 17: 60)
+REPL_PAUSE_AT = 12          # (a): cycles before the pause, the checks, the kill
 REPL_WATCH_MS = 1000        # the backups' death horizon (PromotionWatch)
 REPL_WINDOW = 8             # (c): the async ack window
 REPL_CONFIG5_STEPS, REPL_CONFIG5_KILL = 60, 30  # (b)
@@ -6401,11 +6453,11 @@ def phase_read_path(tmp, pushed=None):
 
 AGG_HIDDEN = 256        # the MNIST MLP at 784-256-10 (phase 11's full width)
 AGG_FAN_IN = 3          # (a)-(c): one aggregator, three member processes
-AGG_ROUNDS = 30         # (a)-(c): lockstep rounds a member
+AGG_ROUNDS = 16         # (a)-(c): lockstep rounds a member
 AGG_LR = 0.5            # the sgd legs: a power of two, every sum exact
 AGG_DC_LAMBDA = 0.04    # (a)'s DC-ASGD leg: the trainer's default
 AGG_DC_LR, AGG_DC_SCALE = 0.1, 2.0 ** -8  # its lr and gradient scale
-AGG_KILL_AT = 15        # (b), (c): the round after which the kill lands
+AGG_KILL_AT = 8         # (b), (c): the round after which the kill lands
 AGG_BYTES_SLACK = 16 << 10  # (a): a merged round's header overhead, a round
 AGG_TIMEOUT_S = 240
 AGG_TREE_FAN_IN, AGG_TREE_ROUNDS = 2, 3  # (e): the 0.44 GB tree
@@ -10042,6 +10094,290 @@ def phase_chaos(tmp, device="cuda"):
             "refused": hole.refused, "reconnects": sum(reconnects)}
 
 
+# phase 27: a dense async server across ranks (ROADMAP item 6.4,
+# backends/op_stream.py): two gloo ranks of one async store sharing the
+# card, served on rank 0, which sends every engine call to rank 1 first.
+# (a) config 5 through the trainer's --role server launched as 2 ranks
+# (its own defaults: MLP hidden 32, sgd, lr 0.1, λ 0.04; 'replicated'),
+# the native loop on, worker 0 serial and worker 1 bucketed, then the
+# same run on one rank; (b) config 5's MLP at 784-256-10 served through
+# the API (adam, 'sharded': each rank holds its blocks of the moments)
+# by the ranks harness's served case, driven with the harness's
+# scenario_primary and replayed the same way on one rank in this process
+SERVED_WORKERS, SERVED_CYCLES = 2, 40
+SERVED_HIDDEN = 256
+SERVED_MOVED = ("dense1/kernel", "dense2/bias")  # (b): half the keys
+SERVED_LR = 1e-3
+SERVED_TIMEOUT_S = 240
+SERVED_BIRTH = {"birth": 1700000000.5, "bmono": 123.25, "bpid": "served"}
+
+
+def _served_trainer_main(out, argv):
+    """A server process of phase 27 (a): the trainer's ``main(argv)``, then
+    this process's kernel launch counts into ``<out>/launches-<rank>.json``
+    (its rank from ``PS_PROCESS_ID``, 0 alone)."""
+    from ps_tpu_torch.examples import train_mnist_async
+
+    train_mnist_async.main(argv)
+    rank = os.environ.get("PS_PROCESS_ID", "0")
+    with open(os.path.join(out, f"launches-{rank}.json"), "w") as f:
+        json.dump(_launch_counts(), f)
+
+
+def _served_config5(out, ranks, device):
+    """(a)'s run: the trainer's --role server as ``ranks`` processes
+    (one group over gloo on ``device``, rank 0 serving on the native
+    loop) and its two workers. Returns the servers' record, every rank's
+    params and launch counts, and the workers' records."""
+    here, env = _van_env()
+    os.makedirs(out)
+    port, group = _distinct_ports(2)
+    procs = []
+    try:
+        for r in range(ranks):
+            e = dict(env, PS_VAN_NATIVE_LOOP="1")
+            if ranks > 1:
+                e.update(PS_COORDINATOR_URI=f"127.0.0.1:{group}",
+                         PS_NUM_PROCESSES=str(ranks), PS_PROCESS_ID=str(r),
+                         PS_DIST_BACKEND="gloo", LOCAL_RANK="0")
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--served-trainer", out, "--role", "server", "--port",
+                 str(port), "--num-workers", str(SERVED_WORKERS), "--dump",
+                 out, "--device", device], cwd=here, env=e,
+                stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        for w in range(SERVED_WORKERS):
+            procs.append(_spawn_trainer(
+                "--role", "worker", "--server", f"127.0.0.1:{port}",
+                "--worker-id", w, "--steps", SERVED_CYCLES, "--dump", out,
+                "--device", device,
+                *(["--bucket-bytes", VAN_BUCKET_BYTES, "--pool", VAN_POOL]
+                  if w == 1 else [])))
+        deadline = time.monotonic() + SERVED_TIMEOUT_S
+        outs = [p.communicate(timeout=max(deadline - time.monotonic(), 1))[0]
+                for p in procs]
+    finally:
+        _stop_all(procs)
+    for p, o in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"served (a): {' '.join(p.args[2:8])} "
+                                 f"exited {p.returncode}:\n{o[-3000:]}")
+    infos, final, records = _van_dumps(out, SERVED_WORKERS)
+    params = [final] + [torch.load(os.path.join(
+        out, f"server_params.rank{r}.pt")) for r in range(1, ranks)]
+    launches = [json.load(open(os.path.join(out, f"launches-{r}.json")))
+                for r in range(ranks)]
+    return infos[0], params, launches, records
+
+
+def _served_api(tmp, device):
+    """(b): the two ranks (the harness's served case on cuda:0) and the
+    same frames against one rank in this process, each with its helpers
+    (a one-process shard a move goes to and comes back from, a spare)
+    here on the card."""
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.backends.remote_async import serve_async
+    from ps_tpu_torch.kv import keys
+    from ps_tpu_torch.models.mlp import MLP
+    from ps_tpu_torch.obs import freshness
+
+    rh = _ranks_harness()
+    tree = MLP(hidden=SERVED_HIDDEN).init(torch.Generator().manual_seed(0))
+    params = {k: v.numpy().copy()
+              for k, v in keys.flatten_with_keys(tree)[0].items()}
+    rng = np.random.default_rng(27)
+    grads = [{k: (rng.normal(size=v.shape) * 0.01).astype(np.float32)
+              for k, v in params.items()} for _ in range(8)]
+    opt = {"optimizer": "adam", "opt_kw": {"learning_rate": SERVED_LR},
+           "placement": "sharded"}
+    init = {"device": "cuda:0" if device == "cuda" else device,
+            "mode": "async", "num_workers": 2, "dc_lambda": 0.04}
+    ctl = os.path.join(tmp, "ctl")
+    os.makedirs(ctl)
+    run = rh.start_ranks(2, [("served", dict(
+        opt, params=params, ctl=ctl, name="A", native_loop=True,
+        stamp=SERVED_BIRTH))], tmp, init=init)
+    orig = freshness.birth_record
+    freshness.birth_record = lambda wall=None, mono=None: dict(SERVED_BIRTH)
+    ps.init(backend="cuda", **init)
+    try:
+        def store(p):
+            st = ps.KVStore(mode="async", placement="sharded",
+                            optimizer="adam", learning_rate=SERVED_LR)
+            st.init(rh.like(p, device))
+            return st
+
+        def drive(port, ckpt):
+            b = serve_async(store({"y/ph": np.ones(3, np.float32)}))
+            c = serve_async(store({"z/ph": np.zeros(4, np.float32)}),
+                            backup=True)
+            try:
+                t0 = time.perf_counter()
+                got = rh.scenario_primary(port, b.port, c.port, ckpt, params,
+                                          grads, SERVED_MOVED,
+                                          VAN_BUCKET_BYTES, device=device)
+                got["seconds"] = time.perf_counter() - t0
+                got["C"] = rh.served_rows(c._engine)
+            finally:
+                b.stop()
+                c.stop()
+            return got
+
+        def restored(ckpt):
+            st = store(params)
+            st.restore(ckpt, elastic=True)
+            return rh.served_rows(st._engine)
+
+        port_file = os.path.join(ctl, "A.port")
+        deadline = time.monotonic() + SERVED_TIMEOUT_S
+        while not os.path.exists(port_file):
+            if any(p.poll() is not None for p in run.procs):
+                run.finish(wall_s=5)  # raises with the rank's output
+            if time.monotonic() > deadline:
+                raise TimeoutError("served (b): rank 0 never listened")
+            time.sleep(0.05)
+        try:
+            two = drive(int(open(port_file).read()),
+                        os.path.join(tmp, "ckpt-two"))
+        finally:
+            open(os.path.join(ctl, "A.done"), "w").close()
+        ranks = [r[0] for r in run.finish(wall_s=SERVED_TIMEOUT_S)]
+        two["restored"] = restored(os.path.join(tmp, "ckpt-two"))
+        one_store = store(params)
+        svc = serve_async(one_store, native_loop=True)
+        try:
+            one = drive(svc.port, os.path.join(tmp, "ckpt-one"))
+        finally:
+            svc.stop()
+        one["final"] = rh.served_rows(one_store._engine)
+        one["restored"] = restored(os.path.join(tmp, "ckpt-one"))
+    finally:
+        ps.shutdown()
+        freshness.birth_record = orig
+    for tag, reply in one["replies"].items():
+        rh.same_reply(two["replies"][tag], reply, f"served (b) {tag}")
+    for k, v in one["bucketed"].items():
+        np.testing.assert_array_equal(two["bucketed"][k], v, err_msg=k)
+    for r, got in enumerate(ranks):
+        rh.same_rows(got, one["final"], f"served (b) rank {r}")
+        if any(got["launches"].values()):
+            raise AssertionError(f"served (b): rank {r} launched kernels: "
+                                 f"{got['launches']}")
+    rh.same_rows(two["C"], one["C"], "served (b) the re-seeded spare")
+    rh.same_rows(two["restored"], one["restored"],
+                 "served (b) the checkpoint restored into one process")
+    for k, v in two["replies"]["read_ckpt"]["tensors"].items():
+        np.testing.assert_array_equal(two["restored"]["params"][k], v,
+                                      err_msg=f"served (b) checkpoint {k}")
+    if ranks[1]["by_op"] != ranks[0]["by_op"]:
+        raise AssertionError(f"served (b): rank 1 ran {ranks[1]['by_op']}, "
+                             f"rank 0 sent {ranks[0]['by_op']}")
+    events = [op for op, _ in ranks[0]["event_log"]]
+    pushes = ranks[0]["by_op"].get("push", 0)
+    if pushes != events.count("push") or \
+            ranks[0]["by_op"]["pull"] != events.count("pull"):
+        raise AssertionError(f"served (b): ops {ranks[0]['by_op']} against "
+                             f"the event log's {len(events)} events")
+    return {"two": two, "one": one, "ranks": ranks, "pushes": pushes}
+
+
+def _ranks_harness():
+    """``tests/test_torch_ranks_harness.py`` of this checkout, loaded by its
+    path: its ``start_ranks`` runs cases on rank processes, and its served
+    case and ``scenario_primary`` serve and drive a store across ranks."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_torch_ranks_harness.py")
+    spec = importlib.util.spec_from_file_location("_ranks_harness", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_served_ranks(tmp, device="cuda"):
+    """27: a dense async server across two gloo ranks sharing the card
+    (item 6.4): (a) config 5 through the trainer's --role server as two
+    ranks, both ranks bitwise each other and the event log's one-process
+    replay on the card, against one rank's cycles/s; (b) through the API
+    (adam, 'sharded'): pushes, READ and NOT_MODIFIED, checkpoint_all,
+    a live move out and back, a RESEED and its promotion, each bitwise
+    the same frames on one rank. No kernel of the port runs. (``device``
+    'cpu' rehearses it without a card: its timings are the CPU's.)"""
+    t_phase = time.perf_counter()
+    _launch_counts(reset=True)
+    card = _card_line()
+    info, params, launches, records = _served_config5(
+        os.path.join(tmp, "a2"), 2, device)
+    total = SERVED_WORKERS * SERVED_CYCLES
+    if info["version"] != total:
+        raise AssertionError(f"served (a): version {info['version']}, "
+                             f"{total} pushes sent")
+    for k, v in params[0].items():
+        if not torch.equal(params[1][k], v):
+            raise AssertionError(f"served (a): {k} differs between the ranks")
+    replayed = _van_harness().replay([info["event_log"]], SERVED_WORKERS,
+                                     device)
+    for k, v in params[0].items():
+        if not torch.equal(replayed[k].cpu(), v):
+            raise AssertionError(f"served (a): {k} is not bitwise the event "
+                                 f"log's one-process replay")
+    for r, counts in enumerate(launches):
+        if any(counts.values()):
+            raise AssertionError(f"served (a): rank {r} launched kernels: "
+                                 f"{counts}")
+    two = _van_mnist_numbers(types.SimpleNamespace(records=records))
+    _, _, one_launches, one_records = _served_config5(
+        os.path.join(tmp, "a1"), 1, device)
+    one = _van_mnist_numbers(types.SimpleNamespace(records=one_records))
+    if any(one_launches[0].values()):
+        raise AssertionError(f"served (a): one rank launched kernels: "
+                             f"{one_launches[0]}")
+    st = info["op_stream"]
+    per_push = st["bytes_by_op"]["push"] / st["by_op"]["push"]
+    log(f"served (a): config 5 through train_mnist_async --role server as "
+        f"2 gloo ranks on the card (MLP hidden 32, sgd, lr 0.1, λ 0.04, "
+        f"'replicated', the native loop), worker 0 serial and worker 1 "
+        f"bucketed ({VAN_BUCKET_BYTES} B), {SERVED_CYCLES} cycles each: "
+        f"version {info['version']}, both ranks' params bitwise each other "
+        f"and the event log's one-process replay on the card; "
+        f"{two['cycles_per_s']:.1f} cycles/s (median cycle "
+        f"{two['median_cycle_ms']:.3f} ms) against "
+        f"{one['cycles_per_s']:.1f} (median {one['median_cycle_ms']:.3f} "
+        f"ms) on one rank; the op stream {st['ops']} ops, {st['bytes']:,} "
+        f"bytes, {per_push:.0f} bytes a push, "
+        f"{st['ops'] / st['by_op']['push']:.2f} ops a push ({st['by_op']}); "
+        f"no kernel launched in any rank; card {card}")
+    b = _served_api(os.path.join(tmp, "b"), device)
+    r0 = b["ranks"][0]
+    reps = b["two"]["replies"]
+    log(f"served (b): config 5's MLP 784-{SERVED_HIDDEN}-10 through "
+        f"init/KVStore(adam, 'sharded')/serve_async on 2 gloo ranks on the "
+        f"card, the native loop: pushes (serial, a replay, bucketed), READ "
+        f"and NOT_MODIFIED, checkpoint_all (restored into one process "
+        f"bitwise), a move of {list(SERVED_MOVED)} to a one-process shard "
+        f"and back, a RESEED onto a one-process spare and its promotion: "
+        f"every reply and both ranks' rows (params, adam moments, stale "
+        f"snapshots, apply counts) bitwise the same frames on one rank; "
+        f"the op stream {r0['ops']} ops, {r0['op_bytes']:,} bytes "
+        f"({r0['by_op']}), "
+        f"{r0['bytes_by_op']['push'] / r0['by_op']['push']:.0f} bytes a "
+        f"push; move out {reps['move_out']['extra']['seconds']} s and back "
+        f"{reps['move_back']['extra']['seconds']} s (one rank: "
+        f"{b['one']['replies']['move_out']['extra']['seconds']} s, "
+        f"{b['one']['replies']['move_back']['extra']['seconds']} s), "
+        f"re-seed {reps['reseed']['extra']['seconds']} s (one rank "
+        f"{b['one']['replies']['reseed']['extra']['seconds']} s); scenario "
+        f"{b['two']['seconds']:.2f} s on 2 ranks, {b['one']['seconds']:.2f} "
+        f"s on one; card {card}")
+    _no_launches("phase 27 (a dense async server across ranks)")
+    total_s = time.perf_counter() - t_phase
+    log(f"served: phase {total_s:.1f} s; card {card}")
+    return {"seconds": total_s, "cycles_per_s": [two["cycles_per_s"],
+                                                 one["cycles_per_s"]]}
+
+
 def main():
     if len(sys.argv) == 5 and sys.argv[1] == "--two-ranks-worker":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -10071,6 +10407,10 @@ def main():
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         _elastic_server(sys.argv[2], sys.argv[3], sys.argv[4])
         return 0
+    if len(sys.argv) > 2 and sys.argv[1] == "--served-trainer":
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _served_trainer_main(sys.argv[2], sys.argv[3:])
+        return 0
     if len(sys.argv) == 6 and sys.argv[1] == "--van-heartbeat-worker":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         _van_heartbeat_worker(int(sys.argv[2]), int(sys.argv[3]),
@@ -10086,50 +10426,59 @@ def main():
               "from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, here)
-    phase_environment()
-    phase_build()
-    errs = phase_kernel_vs_plain()
-    phase_small_path_vs_cpu()
-    by_rule, group_launches, _ = phase_main_path()
-    entries = phase_timings(errs, by_rule, group_launches)
-    flash_err = phase_flash_vs_plain()
-    phase_bert_small_vs_cpu()
-    phase_bert_flash_vs_full()
-    launches, _ = phase_bert_main_path()
-    entries.append(phase_flash_timings(flash_err, launches))
-    phase_resnet_vs_cpu()
-    phase_resnet_main_path()
-    phase_mnist_local()
-    phase_mnist_async()
-    phase_checkpoint_resume()
-    phase_nccl_one_rank()
+    t_script = time.perf_counter()
+    with _clock(1):
+        phase_environment()
+    with _clock(2):
+        phase_build()
+    with _clock(3):
+        errs = phase_kernel_vs_plain()
+    with _clock(4):
+        phase_small_path_vs_cpu()
+        by_rule, group_launches, _ = phase_main_path()
+    with _clock(5):
+        entries = phase_timings(errs, by_rule, group_launches)
+    with _clock(6):
+        flash_err = phase_flash_vs_plain()
+    with _clock(7):
+        phase_bert_small_vs_cpu()
+        phase_bert_flash_vs_full()
+        launches, _ = phase_bert_main_path()
+    with _clock(8):
+        entries.append(phase_flash_timings(flash_err, launches))
+    with _clock(9):
+        phase_resnet_vs_cpu()
+    with _clock(10):
+        phase_resnet_main_path()
+    with _clock(11):
+        phase_mnist_local()
+    with _clock(12):
+        phase_mnist_async()
+    with _clock(13):
+        phase_checkpoint_resume()
+    with _clock(14):
+        phase_nccl_one_rank()
     import tempfile
 
-    with tempfile.TemporaryDirectory(prefix="ps_ranks_") as tmp:
-        launches, flash_two = phase_two_ranks(tmp)
-    with tempfile.TemporaryDirectory(prefix="ps_van_") as tmp:
-        van = phase_van(tmp)
-    with tempfile.TemporaryDirectory(prefix="ps_sparse_") as tmp:
-        sparse = phase_sparse_ps(tmp)
-    with tempfile.TemporaryDirectory(prefix="ps_axes_") as tmp:
-        axes = phase_axes(tmp)
-    with tempfile.TemporaryDirectory(prefix="ps_transport_") as tmp:
-        transport = phase_transport(tmp, tcp_sparse=sparse["numbers"],
-                                    tcp_config5=van["mnist"])
-    with tempfile.TemporaryDirectory(prefix="ps_replica_") as tmp:
-        replication = phase_replication(tmp, unreplicated=sparse["numbers"])
-    with tempfile.TemporaryDirectory(prefix="ps_read_") as tmp:
-        read = phase_read_path(tmp, pushed=sparse["numbers"])
-    with tempfile.TemporaryDirectory(prefix="ps_agg_") as tmp:
-        phase_aggregation(tmp)
-    with tempfile.TemporaryDirectory(prefix="ps_tiered_") as tmp:
-        tiered = phase_tiered(tmp, untiered=sparse["numbers"])
-    with tempfile.TemporaryDirectory(prefix="ps_obs_") as tmp:
-        observed = phase_obs(tmp)
-    with tempfile.TemporaryDirectory(prefix="ps_elastic_") as tmp:
-        elastic = phase_elastic(tmp)
-    with tempfile.TemporaryDirectory(prefix="ps_chaos_") as tmp:
-        phase_chaos(tmp)
+    def run(n, prefix, fn, **kw):
+        with _clock(n), tempfile.TemporaryDirectory(prefix=prefix) as tmp:
+            return fn(tmp, **kw)
+
+    launches, flash_two = run(15, "ps_ranks_", phase_two_ranks)
+    van = run(16, "ps_van_", phase_van)
+    sparse = run(17, "ps_sparse_", phase_sparse_ps)
+    axes = run(18, "ps_axes_", phase_axes)
+    transport = run(19, "ps_transport_", phase_transport,
+                    tcp_sparse=sparse["numbers"], tcp_config5=van["mnist"])
+    replication = run(20, "ps_replica_", phase_replication,
+                      unreplicated=sparse["numbers"])
+    read = run(21, "ps_read_", phase_read_path, pushed=sparse["numbers"])
+    run(22, "ps_agg_", phase_aggregation)
+    tiered = run(23, "ps_tiered_", phase_tiered, untiered=sparse["numbers"])
+    observed = run(24, "ps_obs_", phase_obs)
+    elastic = run(25, "ps_elastic_", phase_elastic)
+    run(26, "ps_chaos_", phase_chaos)
+    run(27, "ps_served_", phase_served_ranks)
     for e in entries:  # each rank's launches in phase 15's 20-step runs
         if e["name"] == "flash_attention/fwd":
             # each rank's launches over phase 15 (e)'s bf16 steps, and the
@@ -10173,6 +10522,8 @@ def main():
                                     "ms": part["ms"],
                                     "bound_ms": part["bound_ms"],
                                     "plain_ms": part["plain_ms"]}
+    log(json.dumps({"phase_seconds": PHASE_SECONDS, "script_seconds": round(
+        time.perf_counter() - t_script, 1), "card": _card_line()}))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

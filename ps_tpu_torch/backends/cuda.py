@@ -75,7 +75,18 @@ reference's leaf paths, every worker's stale snapshot, the apply count),
 ``adopt_key`` installs one on the engine's device as ``register_tree``
 places a key, ``evict_keys`` drops rows (their staged per-key pushes
 too), and ``push_subtree`` applies a subset of the keys, what a replay
-straddling a move owes. A move of a server across ranks is refused.
+straddling a move owes. Across ranks a row's parameter and stale
+snapshots are whole on every rank; ``export_keys`` all-gathers the owned
+blocks of its optimizer state (every rank makes the call), and
+``adopt_key`` keeps this rank's blocks of the whole leaves a row
+carries.
+
+Served across ranks (``backends/op_stream.py``): rank 0's van service
+sends every engine call to the other ranks first, so every rank makes
+the same calls in one order from its own thread (rank 0's service
+threads under the engine lock), and a push is the global gradient the
+worker sent: each rank steps its owned blocks of it, with no mean over
+the ranks.
 """
 
 from __future__ import annotations
@@ -97,9 +108,9 @@ from ps_tpu_torch.backends.common import (
     make_dc_apply_tree,
     stage_to_host,
 )
-from ps_tpu_torch.checkpoint import (CheckpointMixin, keep_worker,
-                                     state_from_reference,
-                                     state_to_reference)
+from ps_tpu_torch.checkpoint import (CheckpointMixin, flatten_leaves,
+                                     keep_worker, state_from_reference,
+                                     state_to_reference, unflatten_like)
 from ps_tpu_torch.config import Config
 from ps_tpu_torch.kv import keys as keymod
 from ps_tpu_torch.ops.sparse_apply import resolve_tier
@@ -504,8 +515,10 @@ class AsyncCudaServer(_RankApplyMixin, AsyncStagingMixin,
     Applies and pulls serialize on one lock, so host threads can drive
     workers concurrently in one process; they share the device's default
     stream. Across ranks every rank makes the same calls in the same
-    order from one thread (a push there is a collective), and a pull
-    returns whole tensors, bitwise the same on every rank.
+    order from one thread (a push there is a collective), or, served
+    (``backends/op_stream.py``), in the order rank 0's service threads
+    take the lock, and a pull returns whole tensors, bitwise the same on
+    every rank.
     """
 
     mode = "async"
@@ -531,6 +544,9 @@ class AsyncCudaServer(_RankApplyMixin, AsyncStagingMixin,
         self._state_dims: List[Optional[int]] = []
         self._key_state_specs: Dict[str, List[tuple]] = {}
         self._thread: Optional[int] = None  # the one thread across ranks
+        # the op stream of a service across ranks (backends/op_stream.py):
+        # set, every push is the global gradient, whole on every rank
+        self._ops = None
         self._stale: Dict[tuple, torch.Tensor] = {}
         self._staged_async: Dict[int, Dict[str, Any]] = {}
         self._worker_version: Dict[int, int] = {}
@@ -571,8 +587,11 @@ class AsyncCudaServer(_RankApplyMixin, AsyncStagingMixin,
     def _check_thread(self) -> None:
         """Across ranks every push and pull comes from one thread: each
         rank's lock would order concurrent threads' calls its own way, and
-        the collectives of a push would pair different pushes."""
-        if self.mesh.size == 1:
+        the collectives of a push would pair different pushes. A served
+        engine is exempt: its op stream fixes one order (rank 0's service
+        threads call under the engine lock, which also broadcasts each
+        call, and every other rank runs the stream from one thread)."""
+        if self.mesh.size == 1 or self._ops is not None:
             return
         me = threading.get_ident()
         if self._thread is None:
@@ -587,13 +606,17 @@ class AsyncCudaServer(_RankApplyMixin, AsyncStagingMixin,
 
     def _apply_dc_tree(self, params, states, grads, stales, lam):
         """The DC apply of a (partial) tree, out of place: this rank's
-        gradients reduced to their mean over the ranks; each rank corrects
-        and steps the slices it owns against the same slices of the stale
-        snapshots, then the sharded leaves are all-gathered (one device:
-        the whole tree here)."""
+        gradients reduced to their mean over the ranks (served: the
+        worker's gradient as it came, the same on every rank); each rank
+        corrects and steps the slices it owns against the same slices of
+        the stale snapshots, then the sharded leaves are all-gathered (one
+        device: the whole tree here)."""
         if self.mesh.world is None:
             return self._dc_apply(params, states, grads, stales, lam)
-        grads = self._reduce(grads)
+        if self._ops is not None:
+            grads = {key: self._owned(key, g) for key, g in grads.items()}
+        else:
+            grads = self._reduce(grads)
         owned, states = self._dc_apply(
             {key: self._owned(key, p) for key, p in params.items()},
             states, grads,
@@ -672,25 +695,34 @@ class AsyncCudaServer(_RankApplyMixin, AsyncStagingMixin,
     # independent under per-key optimizers, so a key's history moves
     # between engines bit for bit.
 
-    def _check_movable(self) -> None:
-        if self.mesh.size > 1:
-            raise RuntimeError("a live key move of a server across ranks is "
-                               "not supported: its ranks hold slices")
+    def _whole_state(self, k: str):
+        """Key ``k``'s optimizer state with every leaf whole: a leaf cut
+        across the ranks (a moment, laid out as its parameter) is
+        all-gathered from the owned blocks, so every rank must make the
+        call; one rank's state as it is."""
+        if self.mesh.world is None:
+            return self._state[k]
+        flat = flatten_leaves(self._state[k])
+        whole = {i: self._gather(k, v) if any(spec) else v
+                 for (i, v), spec in zip(flat.items(),
+                                         self._key_state_specs[k])}
+        return unflatten_like(self._state[k], whole)
 
     def export_keys(self, keys) -> Dict[str, dict]:
         """The rows of ``keys`` (the caller holds the lock), in host
         memory of their own: the copies off the card are waited for
         before this returns, so every later apply is free to run. The
         state travels flat under the reference's leaf paths (``"0/trace"``,
-        ...), so a reference engine adopts a port row and the reverse."""
-        self._check_movable()
+        ...), so a reference engine adopts a port row and the reverse.
+        Across ranks every rank calls it with the same keys in the same
+        order (the state's blocks are all-gathered, key by key)."""
         flat: Dict[str, Any] = {}
         for k in keys:
             if k not in self._params:
                 raise KeyError(f"unregistered key {k!r}")
             flat[f"{k}\0param"] = self._params[k]
             for p, v in state_to_reference(self._opt.name, k,
-                                           self._state[k]).items():
+                                           self._whole_state(k)).items():
                 flat[f"{k}\0s:{p}"] = v
             for (w, kk), v in self._stale.items():
                 if kk == k:
@@ -714,9 +746,9 @@ class AsyncCudaServer(_RankApplyMixin, AsyncStagingMixin,
         """Install one moved row (the caller holds the lock): the parameter
         placed on the engine's device as :meth:`register_tree` places a
         key, the optimizer state rebuilt from the donor's leaves over a
-        fresh init of it, the stale snapshots seeded so the DC correction
-        goes on where the donor left it."""
-        self._check_movable()
+        fresh init of it (across ranks: this rank's blocks of the whole
+        leaves), the stale snapshots seeded so the DC correction goes on
+        where the donor left it."""
         if k in self._params:
             raise KeyError(f"key {k!r} already registered")
         p = self._place(k, torch.from_numpy(np.asarray(param)),
@@ -724,11 +756,15 @@ class AsyncCudaServer(_RankApplyMixin, AsyncStagingMixin,
         state, specs = sharded_opt_init(self._opt.init, {k: p},
                                         {k: self._specs[k]}, self.mesh)
         try:
-            state_from_reference(self._opt.name, k, state, state_kv)
+            whole = self._opt.init({k: p})  # the leaves as the row has them
+            state_from_reference(self._opt.name, k, whole, state_kv)
         except ValueError:
             for d in (self._specs, self._ruled, self._whole, self._dims):
                 d.pop(k, None)
             raise
+        for dst, src, spec in zip(flatten_leaves(state).values(),
+                                  flatten_leaves(whole).values(), specs):
+            dst.copy_(block(src, spec, self.mesh))
         self._params[k] = p
         self._state[k] = state
         self._key_state_specs[k] = specs

@@ -46,6 +46,14 @@ its bucketed pulls on request, may travel codec-compressed
 (``compress='cast16'|'int8'|'topk'``, ``compress/``), decoded by the
 server before the apply.
 
+A store across ranks (``AsyncCudaServer`` over a mesh of k processes)
+is served by every rank calling :func:`serve_async`: rank 0 runs the
+service, and each call it makes of the engine goes first to the other
+ranks as one op of its op stream (``backends/op_stream.py``), which they
+run in the same order, so PUSH, PULL, READ, CHECKPOINT, the key moves and
+the re-seeds all serve a multi-rank engine. Workers see one
+``host:port``.
+
 The read path: a ``READ`` is a side-effect-free pull (no event-log record,
 no replication entry, no DC snapshot) whose reply is a pure function of
 committed state, stamped with the version and the birth of the last
@@ -89,6 +97,7 @@ some of its keys applies (and replicates as ``push_sub``) exactly those.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 import time
@@ -112,6 +121,7 @@ from ps_tpu_torch.backends.common import (
     stage_to_host,
 )
 from ps_tpu_torch.compress import CompressPolicy, GradCompressor, decode_tree
+from ps_tpu_torch.backends.op_stream import OpStream, RankLostError
 from ps_tpu_torch.backends.van_service import (
     StaleTableError,
     VanService,
@@ -164,6 +174,9 @@ class AsyncPSService(VanService):
         its keys there as ``advertise_host:port`` once it listens (a
         backup joins only through its primary's replica set), and its
         key range may then move.
+      ops: rank 0's :class:`~ps_tpu_torch.backends.op_stream.OpStream`
+        for a store across ranks (required there; ``OpStream.over(store)``
+        on every rank makes it, as :func:`serve_async` does).
 
     The pull and read paths lean on the engine's out-of-place applies: a
     snapshot taken under the engine lock is a set of tensors no later
@@ -183,10 +196,23 @@ class AsyncPSService(VanService):
                  coordinator=None,
                  advertise_host: str = "127.0.0.1",
                  native_loop: Optional[bool] = None,
-                 loop_threads: Optional[int] = None):
+                 loop_threads: Optional[int] = None,
+                 ops=None):
         engine = store._engine
         if getattr(engine, "mode", "sync") != "async":
             raise ValueError("AsyncPSService requires an async-mode KVStore")
+        mesh = getattr(engine, "mesh", None)
+        if (mesh is not None and mesh.world_size > 1
+                and (ops is None or not ops.leader)):
+            raise ValueError(
+                "a store across ranks is served by serve_async(store, ...) "
+                "on every rank: rank 0 serves, the others follow its op "
+                "stream")
+        # the op stream of a store across ranks: every engine call below
+        # is sent to the other ranks first (_op), under the engine lock
+        self._ops = ops
+        if ops is not None:
+            ops.on_failure = self._rank_lost
         if (shard is None) != (num_shards is None):
             raise ValueError("pass shard and num_shards together")
         if coordinator is not None and num_shards is not None:
@@ -333,7 +359,8 @@ class AsyncPSService(VanService):
         pulled); with sync ack the backup's ack is waited for here,
         outside the lock, before the reply."""
         with self._engine._lock:
-            kv = self._engine.pull_tree(worker=worker)
+            with self._ranked("pull", worker=worker):
+                kv = self._engine.pull_tree(worker=worker)
             version = self._engine.version
             key_order = list(self._key_order)
             with self._log_lock:
@@ -366,10 +393,10 @@ class AsyncPSService(VanService):
         encode) is a pure function of committed state and the native loop
         can answer repeats from its cache. The publish generation is taken
         under the engine lock with the snapshot; the applies are out of
-        place, so the copy off the card and the encode run outside it."""
-        if self._engine.mesh.size > 1:
-            raise RuntimeError("a READ of a server across ranks is not "
-                               "supported: its ranks hold slices")
+        place, so the copy off the card and the encode run outside it.
+        Across ranks the async engine's parameters are whole on every rank
+        (its ``_held_axes`` are empty), so rank 0 answers from its own
+        tensors and sends no op to the other ranks."""
         with self._engine._lock:
             kv = {k: self._engine._params[k] for k in self._key_order}
             version = self._engine.version
@@ -438,6 +465,7 @@ class AsyncPSService(VanService):
         # thread encodes the entry
         wire = ({k: np.array(v) for k, v in grads.items()}
                 if self._replicating() else None)
+        host = grads  # what the op stream carries across ranks
         # onto the engine's device before the lock (a CUDA copy is waited
         # for); this also copies out of the receive buffer
         grads = stage_to_device(grads, self._device, stats=self.transport)
@@ -479,14 +507,17 @@ class AsyncPSService(VanService):
             # one table
             self._check_push_keys(grads)
             partial = len(fresh) != len(grads)
-            if partial:
-                # a replay straddling a range move: this shard's own keys
-                # applied this (nonce, seq) already, the adopted keys are
-                # still owed it. Apply exactly those
-                self.transport.record_dedup_hit()
-                self._engine.push_subtree(fresh, worker=worker)
-            else:
-                self._engine.push_tree(fresh, worker=worker)
+            with self._ranked("push_sub" if partial else "push",
+                              worker=worker,
+                              grads={k: host[k] for k in fresh}):
+                if partial:
+                    # a replay straddling a range move: this shard's own
+                    # keys applied this (nonce, seq) already, the adopted
+                    # keys are still owed it. Apply exactly those
+                    self.transport.record_dedup_hit()
+                    self._engine.push_subtree(fresh, worker=worker)
+                else:
+                    self._engine.push_tree(fresh, worker=worker)
             # cached READ replies now describe a superseded version: drop
             # them and refuse any in-flight publish of the pre-apply
             # snapshot (the admission mirror's generation moves too)
@@ -622,7 +653,7 @@ class AsyncPSService(VanService):
         s = self._migrate_session
         if not touched or s is None or s.degraded:
             return  # a degraded stream aborts the move
-        rows = self._engine.export_keys(touched)
+        rows = self._export(sorted(touched))
         for k in sorted(rows):
             r = rows[k]
             tensors, meta = encode_row(k, r["param"], r["state"],
@@ -912,7 +943,8 @@ class AsyncPSService(VanService):
         path = (base if self.num_shards is None
                 else os.path.join(base, f"shard{self.shard}"))
         with self._engine._lock:
-            self._store.save(path)
+            with self._ranked("save", path=path):
+                self._store.save(path)
             version = self._engine.version
         return tv.encode(tv.OK, worker, None,
                          extra={"version": version, "path": path})
@@ -950,9 +982,6 @@ class AsyncPSService(VanService):
             return tv.encode(tv.OK, worker, None, extra=done["reply"])
         if not keys:
             raise ValueError("MIGRATE_OUT with no keys")
-        if self._engine.mesh.size > 1:
-            raise RuntimeError("a live key move of a server across ranks "
-                               "is not supported")
         repl = self._backup_session
         if repl is not None and not repl.degraded:
             raise RuntimeError(
@@ -983,7 +1012,7 @@ class AsyncPSService(VanService):
                         f"donor does not own {missing[:3]} — the "
                         f"coordinator's table is ahead of this shard")
                 t2 = time.monotonic()
-                rows = engine.export_keys(keys)  # off the card, waited for
+                rows = self._export(keys)  # off the card, waited for
                 timing["copy_s"] = time.monotonic() - t2
                 for k in keys:
                     r = rows[k]
@@ -1018,7 +1047,8 @@ class AsyncPSService(VanService):
                 applied = {str(w): n for w, n in self._applied.items()}
                 session.commit({"table_epoch": new_epoch, "tokens": tokens,
                                 "applied": applied, "keys": keys})
-                engine.evict_keys(keys)
+                with self._ranked("evict", keys=keys):
+                    engine.evict_keys(keys)
                 self._invalidate_reads()  # the served subtree shrank
                 self._birth = freshness.birth_record()
                 # only now does this shard refuse the moved range as
@@ -1147,8 +1177,7 @@ class AsyncPSService(VanService):
         with self._engine._lock:
             for k in adopted:
                 r = stage["rows"][k]
-                self._engine.adopt_key(k, r["param"], r["state"],
-                                       r["stale"], r["apply_count"])
+                self._adopt(k, r)
             self._key_order = sorted(self._key_order + adopted)
             for w_str, toks in (extra.get("tokens") or {}).items():
                 mine = self._applied_pseq.setdefault(int(w_str), {})
@@ -1193,12 +1222,64 @@ class AsyncPSService(VanService):
         if m is not None:
             m.close(goodbye=True)  # a clean leave: 'left', never 'dead'
         super().stop(grace=grace)
+        if self._ops is not None:
+            self._ops.close()  # the op "stop": releases the other ranks
 
     def kill(self) -> None:
         m = self._coord_member
         if m is not None:
             m.close(goodbye=False)  # as a SIGKILL: the beats just stop
         super().kill()
+
+    def _rank_lost(self, err: BaseException) -> None:
+        """A rank of this server across ranks failed (its op broadcast
+        raised, or the heartbeat detector declared it dead): stop serving
+        at once, as this process's own death would, so workers see
+        ``ServerFailureError`` or fail over to a backup instead of
+        waiting on a collective that cannot complete."""
+        obs.record_event("rank_lost", error=repr(err))
+        logging.getLogger(__name__).error(
+            "a rank of this server across ranks failed (%r): stopping the "
+            "service", err)
+        self.kill()
+
+    # -- the engine calls a store across ranks sends as ops (op_stream.py) ----
+
+    @contextlib.contextmanager
+    def _ranked(self, op: str, **args):
+        """Send ``op`` to the other ranks (engine lock held), then run
+        rank 0's same engine call in the block; on one rank just the
+        block. Once the op went out, a RuntimeError of the call is a
+        collective a dead rank left unpaired (the engine's own refusals
+        come before any op): the stream fails, the service stops, and
+        the request is refused as not serving."""
+        ops = self._ops
+        if ops is None:
+            yield
+            return
+        ops.send(op, **args)
+        try:
+            yield
+        except RankLostError:
+            raise
+        except RuntimeError as e:
+            ops.fail(e)
+            raise RankLostError(f"a rank of this server across ranks "
+                                f"failed in the {op!r} op: {e!r}") from e
+
+    def _export(self, keys: List[str]) -> Dict[str, dict]:
+        """``export_keys`` as the op ``export`` (every rank joins its
+        all-gathers of the owned state blocks; rank 0 keeps the rows)."""
+        with self._ranked("export", keys=keys):
+            return self._engine.export_keys(keys)
+
+    def _adopt(self, k: str, r: dict) -> None:
+        """``adopt_key`` of one row as the op ``adopt`` (it carries the
+        row: every rank places its blocks)."""
+        with self._ranked("adopt", key=k, param=r["param"], state=r["state"],
+                          stale=r["stale"], apply_count=r["apply_count"]):
+            self._engine.adopt_key(k, r["param"], r["state"], r["stale"],
+                                   r["apply_count"])
 
     def _set_draining(self) -> None:
         with self._engine._lock:
@@ -1244,7 +1325,8 @@ class AsyncPSService(VanService):
         :meth:`_apply_push`). The push's gradients go to the engine's
         device as the primary's did, copied out of the request frame."""
         if op == "pull":
-            self._engine.pull_tree(worker=worker)
+            with self._ranked("pull", worker=worker):
+                self._engine.pull_tree(worker=worker)
             with self._log_lock:
                 self.event_log.append(["pull", worker])
             return
@@ -1260,11 +1342,13 @@ class AsyncPSService(VanService):
             if missing:
                 raise KeyError(f"replica push_sub keys outside the tree: "
                                f"{missing[:3]}")
-            self._engine.push_subtree(on_device, worker=worker)
+            with self._ranked("push_sub", worker=worker, grads=tree):
+                self._engine.push_subtree(on_device, worker=worker)
         else:
             if sorted(tree) != sorted(self._key_order):
                 raise KeyError("replica push keys do not match the tree")
-            self._engine.push_tree(on_device, worker=worker)
+            with self._ranked("push", worker=worker, grads=tree):
+                self._engine.push_tree(on_device, worker=worker)
         # a backup serves READs: its cached replies go stale on every
         # replicated apply. It installs the primary's birth (a foreign
         # stamp: the wall clock crosses processes, the monotonic one does
@@ -1306,9 +1390,6 @@ class AsyncPSService(VanService):
         if self.role != "primary":
             return tv.encode(tv.ERR, worker, None, extra={
                 "error": f"only a primary re-seeds (role={self.role})"})
-        if self._engine.mesh.size > 1:
-            return tv.encode(tv.ERR, worker, None, extra={
-                "error": "re-seed of a server across ranks is not supported"})
         shost, sport = spare.rsplit(":", 1)
         t0 = time.monotonic()
         eng = self._engine
@@ -1319,7 +1400,7 @@ class AsyncPSService(VanService):
                     "error": "a live backup session is already attached"})
             tensors: Dict[str, np.ndarray] = {}
             rows = []
-            exported = eng.export_keys(self._key_order)
+            exported = self._export(list(self._key_order))
             for i, k in enumerate(self._key_order):
                 r = exported[k]
                 t, e = encode_row(k, r["param"], r["state"], r["stale"],
@@ -1394,17 +1475,18 @@ class AsyncPSService(VanService):
                         "attached")
             booted = sorted(eng._params)
             if booted:
-                eng.evict_keys(booted)
+                with self._ranked("evict", keys=booted):
+                    eng.evict_keys(booted)
             keys = []
             for i, re_ in enumerate(rows):
                 row = decode_row(per.get(i, {}), re_)
-                eng.adopt_key(row["key"], row["param"], row["state"],
-                              row["stale"], row["apply_count"])
+                self._adopt(row["key"], row)
                 keys.append(row["key"])
             self._key_order = sorted(keys)
             self.shard = extra.get("shard")
             self.num_shards = extra.get("num_shards")
-            eng._load_checkpoint_meta(meta)
+            with self._ranked("meta", meta=meta):
+                eng._load_checkpoint_meta(meta)
             self._applied = {int(w): int(n) for w, n
                              in (extra.get("applied") or {}).items()}
             self._applied_pseq = {
@@ -1448,11 +1530,22 @@ def serve_async(store, port: int = 0, bind: str = "127.0.0.1",
     The primary calls ``svc.attach_backup(host, port, ack="sync"|"async",
     window=...)`` before admitting workers; both start from the same
     initial params (or a common checkpoint). Parameters and optimizer
-    state stay on the engine's device in both processes."""
+    state stay on the engine's device in both processes.
+
+    A store across ranks (its mesh spans k processes of one group) is
+    served by every rank calling this with the same arguments: rank 0
+    gets the service, which sends each engine call to the other ranks as
+    an op of its stream (``backends/op_stream.py``); ranks 1..k-1 get
+    their follower (an ``OpStream`` running on a thread), whose
+    ``join()`` or ``stop()`` returns at rank 0's ``stop()``. Workers see
+    rank 0's ``host:port``."""
+    ops = OpStream.over(store)
+    if ops is not None and not ops.leader:
+        return ops.start()
     return AsyncPSService(store, port=port, bind=bind, shard=shard,
                           num_shards=num_shards, ckpt_root=ckpt_root,
                           shm=shm, backup=backup, native_loop=native_loop,
-                          loop_threads=loop_threads)
+                          loop_threads=loop_threads, ops=ops)
 
 
 def connect_async(uri: Optional[str], worker: int, params_like,

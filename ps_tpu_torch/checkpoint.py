@@ -695,7 +695,10 @@ def state_from_reference(name: str, key: str, like,
                          leaves: Dict[str, Any]) -> None:
     """Copy ``leaves`` (``{reference leaf path: array}``) into ``like``,
     one key's freshly initialized state of the same optimizer, in place;
-    a missing, extra or misshapen leaf raises."""
+    a missing, extra or misshapen leaf raises. A 0-dim leaf (adam's
+    ``count``) takes its one element from a leaf of shape ``(1,)``: the
+    van carries a 0-dim array so (``np.ascontiguousarray`` in both
+    packages' ``encode``), and a row that crossed it must still adopt."""
     pairs = _state_path_pairs(name, like, key)
     if sorted(ref for ref, _ in pairs) != sorted(leaves):
         raise ValueError(
@@ -706,6 +709,8 @@ def state_from_reference(name: str, key: str, like,
     for ref, port in pairs:
         dst = _at(like, port)
         src = torch.as_tensor(np.asarray(leaves[ref]))
+        if dst.dim() == 0 and tuple(src.shape) == (1,):
+            src = src.reshape(())
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(
                 f"optimizer-state leaf {ref!r} of {key!r} has shape "

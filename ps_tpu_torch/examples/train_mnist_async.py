@@ -46,6 +46,15 @@ and each worker its losses and cycle times (``worker<id>.json``): the
 event log, with each worker's gradients recomputed from what it pulled,
 replays the run through one-process servers.
 
+A server across ranks: launch ``--role server`` as k processes of one
+group (``PS_COORDINATOR_URI``, ``PS_NUM_PROCESSES``, ``PS_PROCESS_ID``;
+``PS_DIST_BACKEND=gloo`` and ``LOCAL_RANK=0`` for ranks that share one
+card): rank 0 serves on ``--port`` and the other ranks follow its op
+stream (``backends/op_stream.py``), running every engine call it makes in
+the same order; they end with rank 0. Workers are unchanged and dial rank
+0 alone. With ``--dump`` a follower writes its final parameters as
+``server_params<shard>.rank<r>.pt``.
+
 Replication and live failover (``replica/``): run a second server with
 ``--backup --watch-port W``, start the primary with ``--replicate-to
 backup:port --beat backup:W`` (``--replica-ack sync|async``,
@@ -284,16 +293,23 @@ def run_server(args):
         store.init(ps.shard_tree(params, args.shard, args.num_shards))
     else:
         store.init(params)
+    from ps_tpu_torch.backends.op_stream import OpStream
     from ps_tpu_torch.backends.remote_async import AsyncPSService
 
     engine = store._engine
+    # across ranks: rank 0 serves, the others follow its op stream
+    ops = OpStream.over(store)
+    if ops is not None and not ops.leader:
+        return run_follower(args, engine, ops)
     svc = AsyncPSService(store, port=args.port, bind=args.bind,
                          shard=args.shard, num_shards=args.num_shards,
                          record_full_history=bool(args.dump),
-                         backup=args.backup)
+                         backup=args.backup, ops=ops)
     shard_note = ("" if args.num_shards is None
                   else f", shard {args.shard}/{args.num_shards}")
     serving = "native loop" if svc.native_loop else "thread per connection"
+    if ops is not None:
+        serving += f", rank 0 of {ops.world} ranks"
     watch = hb = None
     if args.backup:
         from ps_tpu_torch.replica import PromotionWatch
@@ -355,6 +371,10 @@ def run_server(args):
                        "shm_frames": svc.transport.shm_frames,
                        "codec_bytes": [svc.transport.codec_raw_bytes,
                                        svc.transport.codec_enc_bytes],
+                       "op_stream": (None if ops is None else {
+                           "ranks": ops.world, "ops": ops.ops,
+                           "bytes": ops.bytes, "by_op": dict(ops.by_op),
+                           "bytes_by_op": dict(ops.bytes_by_op)}),
                        "replica": dict(
                            svc.replica_state(),
                            repl_entries=svc.transport.repl_entries,
@@ -367,6 +387,27 @@ def run_server(args):
     if hb is not None:
         hb.close(goodbye=True)  # a planned leave: the backup sees 'left'
     svc.stop()
+    if ops is not None:
+        print(f"op stream: {ops.ops} ops, {ops.bytes} bytes "
+              f"{dict(ops.by_op)}", flush=True)
+    ps.shutdown()
+    return {"version": engine.version, "staleness_histogram": hist}
+
+
+def run_follower(args, engine, ops):
+    """Ranks 1..k-1 of a server across ranks: run rank 0's op stream until
+    its stop, then report as rank 0 does."""
+    print(f"async PS rank {ops.rank} of {ops.world}: following rank 0's op "
+          f"stream (params on {engine.device})", flush=True)
+    ops.follow()
+    hist = dict(sorted(engine.staleness_hist.items()))
+    print(f"rank {ops.rank}: {ops.ops} ops, final version {engine.version}, "
+          f"staleness histogram {hist}", flush=True)
+    if args.dump:
+        suffix = "" if args.shard is None else str(args.shard)
+        torch.save({k: v.detach().cpu() for k, v in engine._params.items()},
+                   os.path.join(args.dump, f"server_params{suffix}."
+                                           f"rank{ops.rank}.pt"))
     ps.shutdown()
     return {"version": engine.version, "staleness_histogram": hist}
 

@@ -31,6 +31,14 @@ PEAK_BF16_TFLOPS = {
     "v2": 45.0,
 }
 
+# Dense FP32 peak TFLOP/s (outside the tensor cores), NVIDIA rows only:
+# the same H100 data sheet. The TPU sheets give no such row.
+PEAK_F32_TFLOPS = {
+    "h100 pcie": 51.0,
+    "h100 nvl": 60.0,
+    "h100": 67.0,  # SXM5
+}
+
 # HBM bandwidth GB/s per card (the same sheets).
 PEAK_HBM_GBPS = {
     "h100 pcie": 2000.0,
@@ -71,6 +79,11 @@ def _lookup(table, device) -> Optional[float]:
 def peak_bf16_tflops(device) -> Optional[float]:
     """Dense bf16 peak of the card, or None when the card is unknown."""
     return _lookup(PEAK_BF16_TFLOPS, device)
+
+
+def peak_f32_tflops(device) -> Optional[float]:
+    """Dense FP32 peak of the card, or None when the card is unknown."""
+    return _lookup(PEAK_F32_TFLOPS, device)
 
 
 def peak_hbm_gbps(device) -> Optional[float]:

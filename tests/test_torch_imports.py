@@ -85,6 +85,7 @@ def test_every_slice_module_is_checked():
                  "ps_tpu_torch/control/heartbeat.py",
                  "ps_tpu_torch/backends/van_service.py",
                  "ps_tpu_torch/backends/remote_async.py",
+                 "ps_tpu_torch/backends/op_stream.py",
                  "ps_tpu_torch/backends/remote_sparse.py",
                  "ps_tpu_torch/backends/aggregator.py",
                  "ps_tpu_torch/kv/tiered.py",
@@ -127,7 +128,8 @@ def test_every_slice_module_is_checked():
 def test_van_plane_loads_neither_jax_nor_its_package():
     """The van plane (the native loader, control/ with the shm lane and
     the native loop, the codecs, the services and the remote workers,
-    dense and sparse, the aggregator, replica/, obs/ with its metrics,
+    dense and sparse, the op stream of a server across ranks, the
+    aggregator, replica/, obs/ with its metrics,
     traces, flight recorder, /metrics endpoint, SLOs, straggler
     detector, breakdown, collector and time series, elastic/ with the
     coordinator and the policy engine, chaos/ with its injector and
@@ -142,6 +144,7 @@ def test_van_plane_loads_neither_jax_nor_its_package():
             "ps_tpu_torch.compress, "
             "ps_tpu_torch.backends.van_service, "
             "ps_tpu_torch.backends.remote_async, "
+            "ps_tpu_torch.backends.op_stream, "
             "ps_tpu_torch.backends.remote_sparse, "
             "ps_tpu_torch.backends.aggregator, ps_tpu_torch.replica, "
             "ps_tpu_torch.obs, ps_tpu_torch.obs.clock, "

@@ -277,6 +277,9 @@ def test_one_action_per_tick_and_inflight_suppression():
 
 
 def test_dry_run_records_but_never_executes():
+    # one clock reading for both packages: the entry records it as "mono"
+    now = time.monotonic()
+
     def case(P, _c, _m):
         calls = []
         eng = P.PolicyEngine(
@@ -284,7 +287,7 @@ def test_dry_run_records_but_never_executes():
             cooldown_s=100.0, burn_windows=1, tick_s=0.0,
             rules=[P.HotspotRebalance()])
         v = view([member(i) for i in range(4)], hints=[straggler_hint(2)])
-        [entry] = eng.tick(v, now=time.monotonic())
+        [entry] = eng.tick(v, now=now)
         assert entry["outcome"] == "dry" and calls == []
         st = eng.state()
         assert st["actions_total"] == {"rebalance:dry": 1}
@@ -451,6 +454,9 @@ def test_hints_stamping_and_expiry():
                 {"a": 100_000}))
             members.append(M.CoordinatorMember(
                 f"127.0.0.1:{coord.port}", "127.0.0.1:9101", {"b": 100}))
+            # a stamp is rounded to the millisecond: read the clock a
+            # millisecond after the last registration stamped it
+            time.sleep(0.001)
             now = time.monotonic()
             hints = coord.hints(now=now)
             assert len(hints) == 1 and hints[0]["kind"] == "byte_skew"

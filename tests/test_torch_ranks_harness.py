@@ -40,6 +40,49 @@ def run_ranks(k, cases, tmp_path, env=None, wall_s=240, init=None):
     """Run ``cases`` (``[(name, kwargs)]``) on k ranks; returns
     ``results[rank][i]``. With ``env`` the ranks take their topology from
     those ``PS_*`` variables instead of init arguments."""
+    return start_ranks(k, cases, tmp_path, env=env, init=init).finish(wall_s)
+
+
+class RankRun:
+    """k rank processes started by :func:`start_ranks`; :meth:`finish`
+    waits for them (killing any still running after ``wall_s``) and
+    returns ``results[rank][i]``."""
+
+    def __init__(self, procs, outs, k):
+        self.procs, self.outs, self.k = procs, outs, k
+
+    def finish(self, wall_s=240, expect_rc=None):
+        """``expect_rc`` (``{rank: rc}``): ranks that are to end so (a
+        rank killed by a drill); their results are None."""
+        expect_rc = expect_rc or {}
+        logs = []
+        try:
+            for p in self.procs:
+                logs.append(p.communicate(timeout=wall_s)[0])
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        k = self.k
+        for r, (p, log) in enumerate(zip(self.procs, logs)):
+            if p.returncode != expect_rc.get(r, 0):
+                raise AssertionError(f"rank {r} of {k} failed (rc "
+                                     f"{p.returncode}):\n{log[-6000:]}")
+        results = []
+        for r, out in enumerate(self.outs):
+            if r in expect_rc:
+                results.append(None)
+                continue
+            with open(out, "rb") as f:
+                results.append(pickle.load(f))
+        return results
+
+
+def start_ranks(k, cases, tmp_path, env=None, init=None) -> RankRun:
+    """Start k rank processes running ``cases`` (as :func:`run_ranks`,
+    without waiting): a test drives them meanwhile, then calls
+    ``finish()``."""
     port = free_port()
     spec_file = os.path.join(str(tmp_path), f"spec-{port}.pkl")
     with open(spec_file, "wb") as f:
@@ -62,24 +105,7 @@ def run_ranks(k, cases, tmp_path, env=None, wall_s=240, init=None):
             env=e, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
         outs.append(out)
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=wall_s)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        if p.returncode != 0:
-            raise AssertionError(f"rank {r} of {k} failed (rc "
-                                 f"{p.returncode}):\n{log[-6000:]}")
-    results = []
-    for out in outs:
-        with open(out, "rb") as f:
-            results.append(pickle.load(f))
-    return results
+    return RankRun(procs, outs, k)
 
 
 # -- rank side ------------------------------------------------------------------
@@ -1010,6 +1036,315 @@ def case_pipeline(rank, k, *, stages, x, batches, microbatches):
             "state_specs": _state_specs(adam)}
 
 
+# -- a dense async store served across the ranks (backends/op_stream.py) -------
+
+
+def _ctl_wait(path, timeout=120.0):
+    import time
+
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"{path} never appeared")
+        time.sleep(0.01)
+
+
+def _ctl_write(path, text):
+    with open(path + ".tmp", "w") as f:
+        f.write(text)
+    os.replace(path + ".tmp", path)
+
+
+def _served_store(params, optimizer, opt_kw, placement):
+    import torch
+
+    import ps_tpu_torch as ps
+
+    store = ps.KVStore(optimizer=optimizer, placement=placement,
+                       mode="async", **opt_kw)
+    store.init({key: torch.from_numpy(np.array(v))
+                for key, v in params.items()})
+    return store
+
+
+def _served_result(store, ops):
+    """This rank's engine after the service: every counter, and the whole
+    rows of every key (``export_keys``, a collective every rank makes)."""
+    eng = store._engine
+    keys = sorted(eng._params)
+    rows = eng.export_keys(keys)
+    return {"params": {key: np.array(r["param"]) for key, r in rows.items()},
+            "state": {key: {p: np.array(v) for p, v in r["state"].items()}
+                      for key, r in rows.items()},
+            "stale": {key: {int(w): np.array(v)
+                            for w, v in r["stale"].items()}
+                      for key, r in rows.items()},
+            "apply_count": {key: r["apply_count"] for key, r in rows.items()},
+            "version": eng.version,
+            "worker_version": dict(eng._worker_version),
+            "staleness_hist": dict(eng.staleness_hist),
+            "ops": ops.ops, "op_bytes": ops.bytes,
+            "by_op": dict(ops.by_op), "bytes_by_op": dict(ops.bytes_by_op),
+            "launches": _launches()}
+
+
+def _launches():
+    """This process's launch counts of every kernel of the port."""
+    import importlib
+
+    from ps_tpu_torch.ops import sparse_apply
+
+    fa = importlib.import_module("ps_tpu_torch.ops.flash_attention")
+    return {"sparse_apply": sparse_apply.LAUNCHES,
+            "sparse_group": sparse_apply.GROUP_LAUNCHES,
+            "flash_attention/fwd": fa.LAUNCHES}
+
+
+def case_served(rank, k, *, params, optimizer, opt_kw, placement, ctl, name,
+                backup=False, native_loop=False, stamp=None, probe=False):
+    """A store across the ranks served by ``serve_async``: rank 0 writes
+    its port to ``<ctl>/<name>.port`` and serves until ``<name>.done``
+    appears (the test drives it meanwhile), then stops; the other ranks
+    follow its op stream. With ``stamp`` every birth record is that one
+    (READ replies compare byte for byte); with ``probe`` rank 0 first
+    tries ``AsyncPSService`` alone on the store (its refusal is in the
+    result). Returns this rank's engine state, and on rank 0 the
+    service's logs, its admission counts and its role."""
+    from ps_tpu_torch.backends.remote_async import AsyncPSService, serve_async
+    from ps_tpu_torch.obs import freshness
+
+    if stamp is not None:
+        freshness.birth_record = lambda wall=None, mono=None: dict(stamp)
+    store = _served_store(params, optimizer, opt_kw, placement)
+    out = {}
+    if probe and rank == 0:
+        try:
+            AsyncPSService(store).stop()
+            out["probe"] = ""
+        except ValueError as e:
+            out["probe"] = str(e)
+    svc = serve_async(store, backup=backup, native_loop=native_loop)
+    if rank == 0:
+        _ctl_write(os.path.join(ctl, f"{name}.port"), str(svc.port))
+        _ctl_wait(os.path.join(ctl, f"{name}.done"))
+        out["admit"] = svc.admit_stats()  # the loop's, read before it ends
+        svc.stop()
+        out.update(event_log=list(svc.event_log), role=svc.role,
+                   keys=list(svc._key_order), goodbyes=svc.goodbyes)
+        ops = svc._ops
+    else:
+        if not svc.join(timeout=120):
+            raise TimeoutError("rank 0 never stopped its op stream")
+        ops = svc
+    out.update(_served_result(store, ops))
+    return out
+
+
+def case_served_kill(rank, k, *, params, ctl, victim, placement="sharded",
+                     sig="SIGKILL"):
+    """A follower's death under a served store (heartbeats on): rank
+    ``victim`` sends itself ``sig`` when ``<ctl>/kill`` appears (SIGSTOP:
+    its sockets stay open, only the heartbeat detector can tell); rank 0
+    serves until ``<ctl>/done`` and returns how its service ended (the
+    group is then aborted, never joined)."""
+    import signal
+
+    import ps_tpu_torch as ps
+    from ps_tpu_torch.backends.remote_async import serve_async
+
+    store = _served_store(params, "sgd", {"learning_rate": 0.1}, placement)
+    svc = serve_async(store)
+    if rank == victim:
+        _ctl_wait(os.path.join(ctl, "kill"))
+        os.kill(os.getpid(), getattr(signal, sig))
+    if rank == 0:
+        _ctl_write(os.path.join(ctl, "served.port"), str(svc.port))
+    _ctl_wait(os.path.join(ctl, "done"))
+    ops = svc._ops if rank == 0 else svc
+    out = {"error": repr(ops._error), "ops": ops.ops,
+           "killed": rank == 0 and svc._stop.is_set()}
+    ps.shutdown(abort=True)
+    return out
+
+
+# -- the driver side of the served cases (this repo's tests, chip_smoke.py) ----
+
+
+class Drive:
+    """Frames to services over raw channels, every reply kept by tag (its
+    kind, header, tensors and bytes); a reply that is not OK or
+    NOT_MODIFIED raises."""
+
+    def __init__(self):
+        self.replies = {}
+        self._chs = {}
+
+    def req(self, tag, port, kind, worker, tensors=None, extra=None):
+        from ps_tpu_torch.control import tensor_van as tv
+
+        ch = self._chs.get(port)
+        if ch is None:
+            ch = self._chs[port] = tv.Channel.connect("127.0.0.1", port)
+        raw = bytes(ch.request(tv.encode(kind, worker, tensors, extra)))
+        k, _, t, e = tv.decode(raw)
+        if k not in (tv.OK, tv.NOT_MODIFIED):
+            raise AssertionError(f"{tag}: {e}")
+        self.replies[tag] = {"kind": k, "extra": dict(e or {}), "raw": raw,
+                             "tensors": {n: np.array(v)
+                                         for n, v in (t or {}).items()}}
+        return self.replies[tag]
+
+    def close(self):
+        for ch in self._chs.values():
+            ch.close()
+
+
+def like(tree, device="cpu"):
+    """Numpy leaves as tensors of their own on ``device``."""
+    import torch
+
+    return {k: torch.from_numpy(np.array(v)).to(device)
+            for k, v in tree.items()}
+
+
+def served_rows(engine, keys=None):
+    """An engine's rows as numpy (either package's ``export_keys``, under
+    its lock) and its counters."""
+    with engine._lock:
+        keys = sorted(engine._params) if keys is None else keys
+        rows = engine.export_keys(keys)
+    return {"params": {k: np.asarray(r["param"]) for k, r in rows.items()},
+            "state": {k: {p: np.asarray(v) for p, v in r["state"].items()}
+                      for k, r in rows.items()},
+            "stale": {k: {int(w): np.asarray(v)
+                          for w, v in r["stale"].items()}
+                      for k, r in rows.items()},
+            "apply_count": {k: int(r["apply_count"])
+                            for k, r in rows.items()},
+            "version": engine.version,
+            "worker_version": {int(w): int(v) for w, v
+                               in engine._worker_version.items()},
+            "staleness_hist": {int(t): int(n) for t, n
+                               in engine.staleness_hist.items()}}
+
+
+def scenario_primary(port, b_port, c_port, ckpt, params, grads, moved,
+                     bucket_bytes=256, device="cpu"):
+    """A primary's frames (``grads``: 8 trees): pushes of two workers
+    (serial, a replayed push, a bucketed ``push_pull`` of ``bucket_bytes``
+    buckets), READ and NOT_MODIFIED, ``checkpoint_all`` into ``ckpt``, a
+    live move of ``moved`` to the shard at ``b_port`` and back, a RESEED
+    onto the spare at ``c_port``, a push it follows, and its promotion.
+    Returns the replies, the bucketed pull and the checkpoint's
+    versions."""
+    from ps_tpu_torch.backends.remote_async import connect_async
+    from ps_tpu_torch.control import tensor_van as tv
+
+    d = Drive()
+    try:
+        d.req("hello", port, tv.HELLO, 0)
+        d.req("pull0", port, tv.PULL, 0)
+        d.req("pull1", port, tv.PULL, 1)
+        d.req("push0", port, tv.PUSH, 0, grads[0], {"pseq": 1, "pnonce": "n0"})
+        d.req("pushpull1", port, tv.PUSH_PULL, 1, grads[1],
+              {"pseq": 1, "pnonce": "n1"})
+        d.req("push0b", port, tv.PUSH, 0, grads[2], {"pseq": 2, "pnonce": "n0"})
+        d.req("replay0b", port, tv.PUSH, 0, grads[2],
+              {"pseq": 2, "pnonce": "n0"})
+        w = connect_async(f"127.0.0.1:{port}", 1, like(params, device),
+                          bucket_bytes=bucket_bytes, pool_size=2)
+        try:
+            pulled = w.push_pull(like(grads[3], device))
+            bucketed = {k: v.cpu().numpy().copy() for k, v in pulled.items()}
+        finally:
+            w.close()
+        v = d.req("read", port, tv.READ, 0)["extra"]["version"]
+        d.req("read_nm", port, tv.READ, 0, None, {"cond": v})
+        d.req("read_old", port, tv.READ, 0, None, {"cond": v - 1})
+        w = connect_async(f"127.0.0.1:{port}", 0, like(params, device))
+        try:
+            ckpt_versions = w.checkpoint_all(ckpt)
+        finally:
+            w.close()
+        d.req("read_ckpt", port, tv.READ, 0)
+        d.req("pushpull0", port, tv.PUSH_PULL, 0, grads[4],
+              {"pseq": 3, "pnonce": "n0"})
+        d.req("move_out", port, tv.MIGRATE_OUT, 0, None, {
+            "keys": list(moved), "target": f"127.0.0.1:{b_port}",
+            "table_epoch": 1})
+        rest = {k: g for k, g in grads[5].items() if k not in moved}
+        d.req("push_rest", port, tv.PUSH, 0, rest, {"pseq": 4, "pnonce": "n0"})
+        d.req("move_back", b_port, tv.MIGRATE_OUT, 0, None, {
+            "keys": list(moved), "target": f"127.0.0.1:{port}",
+            "table_epoch": 2})
+        d.req("pushpull1b", port, tv.PUSH_PULL, 1, grads[6],
+              {"pseq": 2, "pnonce": "n1"})
+        d.req("reseed", port, tv.RESEED, 0, None,
+              {"spare": f"127.0.0.1:{c_port}"})
+        d.req("push_repl", port, tv.PUSH, 0, grads[7],
+              {"pseq": 5, "pnonce": "n0"})
+        d.req("pull_repl", port, tv.PULL, 1)
+        d.req("promote_c", c_port, tv.REPLICA_PROMOTE, 0, None,
+              {"reason": "test"})
+        d.req("read_c", c_port, tv.READ, 0)
+        d.req("read_final", port, tv.READ, 0)
+    finally:
+        d.close()
+    return {"replies": d.replies, "bucketed": bucketed,
+            "ckpt_versions": ckpt_versions}
+
+
+#: the reply fields two runs of the same frames may differ in: a move's
+#: and a re-seed's seconds (the run's clock), their frame bytes (a
+#: re-seed ships the engine's meta, whose ``collective_bytes`` counts the
+#: ranks) and a checkpoint's path
+UNEQUAL = frozenset({"seconds", "bytes", "path"})
+
+
+def same_reply(got, want, tag, tol=None):
+    """Two replies to one frame: the kind, the header (:data:`UNEQUAL`
+    aside) and the tensors, bitwise (and then the bytes, where the
+    header has none of those fields) or within ``tol``
+    (``{"rtol", "atol"}``)."""
+    def strip(extra):
+        return {k: v for k, v in extra.items() if k not in UNEQUAL}
+
+    assert got["kind"] == want["kind"], tag
+    assert strip(got["extra"]) == strip(want["extra"]), tag
+    assert sorted(got["tensors"]) == sorted(want["tensors"]), tag
+    for k, v in want["tensors"].items():
+        _same_array(got["tensors"][k], v, f"{tag} {k}", tol)
+    if tol is None and not UNEQUAL & set(want["extra"]):
+        assert got["raw"] == want["raw"], tag
+
+
+def same_rows(got, want, what, tol=None):
+    """Two engines' rows (:func:`served_rows`), bitwise or within
+    ``tol``; the counters exactly, where both carry them."""
+    assert sorted(got["params"]) == sorted(want["params"]), what
+    for k, v in want["params"].items():
+        _same_array(got["params"][k], v, f"{what} param {k}", tol)
+    for k, leaves in want["state"].items():
+        assert sorted(got["state"][k]) == sorted(leaves), (what, k)
+        for p, v in leaves.items():
+            _same_array(got["state"][k][p], v, f"{what} state {k} {p}", tol)
+    for k, per in want["stale"].items():
+        assert sorted(got["stale"][k]) == sorted(per), (what, k)
+        for w, v in per.items():
+            _same_array(got["stale"][k][w], v, f"{what} stale {k} {w}", tol)
+    for key in ("apply_count", "version", "worker_version",
+                "staleness_hist"):
+        if key in want and key in got:
+            assert got[key] == want[key], (what, key, got[key], want[key])
+
+
+def _same_array(got, want, what, tol):
+    if tol is None:
+        np.testing.assert_array_equal(got, want, err_msg=what)
+    else:
+        np.testing.assert_allclose(got, want, err_msg=what, **tol)
+
+
 CASES = {name[len("case_"):]: fn for name, fn in globals().items()
          if name.startswith("case_")}
 
@@ -1026,13 +1361,14 @@ def main(argv) -> int:
         spec = pickle.load(f)
     try:
         if spec["from_env"]:
-            ps.init(device="cpu", **spec["init"])
+            ps.init(**{"device": "cpu", **spec["init"]})
         else:
-            init = dict(coordinator_uri=f"127.0.0.1:{port}",
+            init = dict(backend="cuda", device="cpu",
+                        coordinator_uri=f"127.0.0.1:{port}",
                         num_processes=k, process_id=rank,
                         dist_backend="gloo")
             init.update(spec["init"])
-            ps.init(backend="cuda", device="cpu", **init)
+            ps.init(**init)
     except ValueError as e:  # a refused topology is a result, too
         with open(out_file, "wb") as f:
             pickle.dump([{"init_error": str(e)}], f)
@@ -1045,7 +1381,8 @@ def main(argv) -> int:
         return 1
     with open(out_file, "wb") as f:
         pickle.dump(results, f)
-    ps.shutdown()
+    if ps.is_initialized():  # a drill's case may have aborted the group
+        ps.shutdown()
     return 0
 
 
