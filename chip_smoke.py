@@ -759,6 +759,42 @@ def phase_build():
         if "flash_fwd" in name:
             kernel = name.split("Function ")[-1].rstrip(":")
             log(f"flash resources: {kernel}: {res.strip()}")
+    _abi_against_binaries(_build)
+
+
+def _abi_against_binaries(_build):
+    """Hold the static-analysis gate's C ABI model (ROADMAP item 6.5) to
+    the built libraries: the ``ps_*`` exports PSL6 parses from each
+    ``.cu`` are the library's defined dynamic symbols, and PSL5/PSL6 find
+    nothing in the port's tree."""
+    from ps_tpu_torch.analysis import RepoIndex, run_lint
+    from ps_tpu_torch.analysis.abi import exports_by_library
+
+    t0 = time.perf_counter()
+    parsed = exports_by_library(RepoIndex([str(_build.CSRC)]))
+    n_syms = 0
+    for name in _build.KERNELS:
+        nm = subprocess.run(
+            ["nm", "-D", "--defined-only", str(_build._library_path(name))],
+            capture_output=True, text=True, check=True, timeout=60).stdout
+        built = {ln.split()[-1] for ln in nm.splitlines()
+                 if ln.split() and ln.split()[-1].startswith("ps_")}
+        want = {s for s in parsed.get(name, {}) if s.startswith("ps_")}
+        if built != want:
+            raise AssertionError(
+                f"lib{name}: the ABI model parses {sorted(want)} from "
+                f"{name}.cu, the library exports {sorted(built)}")
+        n_syms += len(built)
+    t1 = time.perf_counter()
+    pkg = str(_build.CSRC.parents[1])
+    findings = run_lint([pkg], rules=["PSL5", "PSL6"])
+    if findings:
+        raise AssertionError("PSL5/PSL6 findings in the port:\n"
+                             + "\n".join(f.format() for f in findings))
+    t2 = time.perf_counter()
+    log(f"abi gate: {n_syms} ps_* exports of {len(_build.KERNELS)} kernel "
+        f"libraries equal their nm -D symbols in {t1 - t0:.3f} s; PSL5+PSL6 "
+        f"over {os.path.basename(pkg)}/: 0 findings in {t2 - t1:.3f} s")
 
 
 def _kernel_vs_plain(opt, table, state, ids, grads):

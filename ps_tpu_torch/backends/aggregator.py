@@ -553,7 +553,7 @@ class AggregatorService(VanService):
             nonce=extra.get("nonce"))
         if tree is None:
             return tv.encode(tv.OK, worker, None,
-                             extra={"staged": int(extra["bucket"])})
+                             extra={"staged": int(extra["bucket"])})  # pslint: disable=PSL203 -- debug-visibility ack field, same contract as AsyncPSService._bucket_push: names the staged bucket for packet-level triage
         tree = decode_tree(tree, extra.get("enc"), stats=self.transport)
         r = self._agg_push(worker, tree, extra)
         return tv.encode(tv.OK, worker, None, extra={

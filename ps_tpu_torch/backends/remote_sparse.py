@@ -512,7 +512,7 @@ class SparsePSService(VanService):
                                            + self._meta[name]["lo"]
                                            ).astype(np.int32)
                     wire[f"{name}/grads"] = _host(grads)
-            rseq = self._replicate("push", worker, wire, {
+            rseq = self._replicate("push", worker, wire, {  # pslint: disable=PSL101 -- deliberate backpressure: a full ack window MUST stall commits under the apply lock (that IS the bounded-lag contract), and stall_timeout degrades a corpse instead of wedging
                 "pseq": pseq, "pnonce": pnonce, "pfan": pfan,
                 "tier_moves": tier_moves or None, "birth": stamp["birth"]})
         self.transport.record_apply(apply_s)
@@ -682,7 +682,7 @@ class SparsePSService(VanService):
             # included, so a revalidation refreshes the age)
             reply = tv.encode(tv.NOT_MODIFIED, 0, None,
                               extra={"versions": versions,
-                                     "version": vsum, "births": births})
+                                     "version": vsum, "births": births})  # pslint: disable=PSL203 -- read on the worker by obs/freshness.from_extra (extra.get("births")), a module that never names the van, so this rule does not scan it
             self.transport.record_read_not_modified()
         elif conds is not None:
             reply = tv.encode(tv.OK, 0, out,

@@ -199,7 +199,7 @@ class ChaosInjector:
         def grind():
             while time.monotonic() < deadline:
                 with lock:
-                    time.sleep(hold_s)  # the fault: applies wait this out
+                    time.sleep(hold_s)  # pslint: disable=PSL101 -- the fault IS blocking under the apply lock: the grinder simulates a contended/throttled host precisely by making real applies wait out its hold
                 time.sleep(idle_s)
 
         t = threading.Thread(target=grind, daemon=True, name="ps-chaos-grind")

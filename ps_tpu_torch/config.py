@@ -562,7 +562,7 @@ class Config:
 
     backend: str = "cuda"
     # no PS_* spelling on purpose: the CPU is reachable only from code
-    device: str = "cuda"
+    device: str = "cuda"  # pslint: disable=PSL402 -- the CPU is reachable only from code (the comment above): a launcher runs on the card
     num_workers: int = 1
     coordinator_uri: Optional[str] = None
     num_processes: int = 1
@@ -943,7 +943,7 @@ class Config:
             kwargs["num_processes"] = int(env["PS_NUM_PROCESSES"])
         if "PS_PROCESS_ID" in env:
             kwargs["process_id"] = int(env["PS_PROCESS_ID"])
-        if "PS_DIST_BACKEND" in env:
+        if "PS_DIST_BACKEND" in env:  # pslint: disable=PSL404 -- the port's own knob, documented in this module's docstring: the README is shared with the reference, whose gate (PSL405) refuses a documented knob its code does not read
             kwargs["dist_backend"] = env["PS_DIST_BACKEND"]
         if "PS_MODE" in env:
             kwargs["mode"] = env["PS_MODE"]

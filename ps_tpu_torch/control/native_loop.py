@@ -426,7 +426,7 @@ class NativeEventLoop:
             self._lib.nl_cache_stats(self._h, self._cache_out)
             o = self._cache_out
             return {"hits": int(o[0]), "misses": int(o[1]),
-                    "puts": int(o[2]), "rejects": int(o[3]),
+                    "puts": int(o[2]), "rejects": int(o[3]),  # pslint: disable=PSL203 -- cache_stats() field for operators and the tests (entries put into the native read cache); not a wire header
                     "invalidations": int(o[4]), "entries": int(o[5]),
                     "bytes": int(o[6]), "floor": int(o[7]),
                     "cond_hits": int(o[8])}

@@ -103,7 +103,7 @@ class _Version:
                 i, i, p, p, p, p, p, p, p, p, p, ll, ll, f, f, f, f, f, f, i,
                 p]
         else:  # the first design: sorted ids and the int64 order
-            self.apply.ps_sparse_apply.argtypes = [
+            self.apply.ps_sparse_apply.argtypes = [  # pslint: disable=PSL601 -- binds a parent's first-design ps_sparse_apply (a --variant source with no sparse_group.cu beside it), which took 20 arguments; the repo's own source is bound above
                 i, i, p, p, p, p, p, p, p, ll, ll, ll, f, f, f, f, f, f, i, p]
 
     def _group(self, ids, num_rows):

@@ -622,9 +622,17 @@ def test_noisy_neighbor_raises_the_targets_apply_window_mean():
         grads = _full(tree, 1e-3)
         inj = ChaosInjector(seed=1)
         inj.noisy_neighbor(svcs[1], 2.0, hold_s=0.05)
+        # a seeded pause of up to one grinder beat (0.05 s hold + 0.01 s
+        # idle) after each push: back to back, a push released at a
+        # hold's end re-pushes inside the 0.01 s gap and the next lands
+        # at the next hold's start, so pushes lock to the grinder's phase
+        # (a third of shard 1's waited, not five sixths), and shard 0's
+        # applies race shard 1's in this one interpreter
+        rng = np.random.default_rng(0)
         t_end = time.monotonic() + 2.0
         while time.monotonic() < t_end:
             w.push_pull(grads)
+            time.sleep(rng.uniform(0.0, 0.06))
         inj.join()
         time.sleep(0.5)  # a report or two after the last push
         means = {}
