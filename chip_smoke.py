@@ -8,8 +8,9 @@ Phases, each raising on failure:
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: every CUDA kernel of the port, from ps_tpu_torch/ops/csrc/, one
    nvcc for each source, all started together; then the flash library's
-   SASS must hold wgmma (HGMMA) and TMA loads (UTMALDG), and its kernels'
-   registers and shared memory are printed;
+   SASS must hold wgmma (HGMMA) and TMA loads (UTMALDG), its three f32
+   kernels FMAs (FFMA) and cp.async (LDGSTS) and no tensor-core product,
+   and its kernels' registers and shared memory are printed;
 3. sparse apply vs its plain version on the card: the sweep (4 id
    distributions x sgd/adagrad/adam x f32/bf16) and one Zipf batch at the
    Wide-&-Deep shapes per rule, type and table width; determinism; the
@@ -752,6 +753,16 @@ def phase_build():
         f"instructions")
     if not all(counts.values()):
         raise AssertionError(f"flash library lacks wgmma or TMA: {counts}")
+    # the f32 kernels: exact FMAs fed by cp.async, no tensor-core product
+    f32 = [body for body in sass.split("Function : ")[1:]
+           if "flash_fwd_f32" in body.split("\n", 1)[0]]
+    f32_ops = {op: sum(body.count(op) for body in f32)
+               for op in ("FFMA", "LDGSTS", "HMMA", "HGMMA")}
+    log(f"flash f32 SASS ({len(f32)} kernels): {f32_ops}")
+    if (len(f32) != 3 or not f32_ops["FFMA"] or not f32_ops["LDGSTS"]
+            or f32_ops["HMMA"] or f32_ops["HGMMA"]):
+        raise AssertionError(f"the f32 flash kernels are not FMAs fed by "
+                             f"cp.async: {f32_ops} over {len(f32)} kernels")
     usage = subprocess.run([os.path.join(tools, "cuobjdump"), "-res-usage",
                             lib], capture_output=True, text=True, check=True,
                            timeout=120).stdout.splitlines()

@@ -26,9 +26,23 @@
 //   softmax on the accumulator fragments, packs P to bf16 in place and
 //   computes O += P V with wgmma m64nDk16, P from registers and V from
 //   shared memory (MN-major, the B-transpose bit).
-// - f32: CUDA cores, one query row per thread, K and V tiles in shared
-//   memory as f32 read by broadcast. Tensor cores would round f32 to tf32
-//   and lose the f32 contract, so f32 stays on FMAs.
+// - f32: exact f32 FMAs on the CUDA cores, one template on D as well. A
+//   block of 256 threads owns two items of one (batch, head), 128 query
+//   rows each, and walks their 64-key tiles: with causal, query tiles i
+//   and n - 1 - i, so that every block walks the same number of key
+//   tiles (the longer item first); without, tiles 2i and 2i + 1. Q is
+//   staged once per item (two buffers); K, V and the tile's mask entries
+//   stream through a ring of three stages filled by cp.async, rows past
+//   a head's end zero-filled, so the next two tiles (and the second
+//   item's Q) load while this one computes. Thread (r, g), r = tid / 8
+//   and g = tid % 8, computes a 4 x 8 register tile of S (rows r + 32i,
+//   keys g + 8j) and owns the same 4 rows of O over D / 8 columns; the 8
+//   threads of a row are 8 lanes of one warp, so its max and sum are warp
+//   shuffles. P goes through shared memory transposed, one 16-byte read a
+//   key giving a thread its 4 rows; a warp writes and reads only its own
+//   rows of it, so a __syncwarp orders them. Rows of Q, K, V and P^T
+//   carry 16 bytes of padding, which puts the 16-byte chunks a warp reads
+//   at one time in distinct banks.
 //
 // Numerics kept from the reference, which the plain version
 // (_flash_fwd_torch in ps_tpu_torch/ops/flash_attention.py) repeats:
@@ -45,7 +59,7 @@
 //   lies wholly past the block's last row is skipped and the live tile on
 //   the diagonal is masked entry by entry.
 // Keys are summed in this kernel's own order and the online update runs
-// per tile of 128 keys (16 for f32), so it is not bitwise equal to the
+// per tile of 128 keys (64 for f32), so it is not bitwise equal to the
 // plain version; it is bitwise equal to itself from run to run (no
 // atomics, no order that depends on scheduling).
 //
@@ -80,6 +94,36 @@
 //    the warp is near -1e30 (the result is the same, see online_softmax),
 //    the rescale of O where no row's max moved, and the epilogue
 //    multiplies by 1 / l.
+//
+// What bounds the f32 kernel. At the causal LM's shape (B*h = 16, S =
+// 2048, d = 64) the work is 4 * 16 * (2048 * 2049 / 2) * 64 = 8.59 GFLOP,
+// 0.128 ms at the CUDA cores' 67 TFLOP/s, and the bytes are q, k, v and O
+// in f32, lse and the mask, 33.7 MB, 0.010 ms at 3.35 TB/s: the FMAs bound
+// it, by 13x. f32 stays off the tensor cores: they take f32 only as tf32
+// (a 10-bit mantissa; three tf32 products win back most, not all, of
+// f32), while the contract, which the reference and the plain version
+// keep, is exact f32 products, and the bound divides by the FMA peak,
+// which a tensor-core kernel could read above 100% of. Each score's dot
+// runs over d in order, one FMA at a time, and is scaled after. What this
+// design does about the five limits of the one-row-per-thread design it
+// replaces:
+// 1. one query row per thread (64 of q and 64 of O in registers), 2 warps
+//    a block -> a 4 x 8 tile of S and 4 rows x D / 8 of O a thread: 32
+//    independent sums in flight each, 8 warps an SM;
+// 2. one 16-byte shared load per 4 FMAs (K by broadcast) -> 12 loads per
+//    128 FMAs in Q K^T (4 of Q, 8 of K a step of 4 along d) and 3 per 32
+//    in P V (P's 4 rows, 8 of V's columns), the padded rows putting the
+//    chunks a warp reads at one time in distinct banks;
+// 3. K and V loaded by every thread between two barriers, nothing
+//    overlapping -> cp.async into a three-stage ring, one barrier a tile;
+// 4. expf per score and an online update per 16 keys -> one update per
+//    64-key tile, exp2 with log2(e) folded into one FMA after the gate;
+//    the mask work skipped on a tile whose keys are all live and which
+//    lies off the diagonal, and the gate's compare where no row of the
+//    warp is near -1e30;
+// 5. a causal grid (S / 64, B*h) whose blocks walk 1 to 32 key tiles ->
+//    query tiles i and n - 1 - i in one block: at the LM's shape 8 pairs
+//    x 16 heads = 128 blocks on 132 SMs, 34 tiles each.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
@@ -643,104 +687,372 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // -- f32: CUDA cores -------------------------------------------------------------
 
-constexpr int kF32BlockM = 64;  // query rows per block, one per thread
-constexpr int kF32BlockN = 64;  // keys per shared-memory tile
-constexpr int kF32Chunk = 16;   // keys per online-softmax update
+constexpr int kF32M = 128;        // query rows per item
+constexpr int kF32N = 64;         // keys per K/V tile
+constexpr int kF32Threads = 256;  // 32 row groups x 8 key groups
+constexpr int kF32Stages = 3;     // K/V ring depth
+
+// Shared memory of one f32 block, in floats: two Q buffers (the block's
+// two items), the K and V rings, P transposed ([key][query slot], a
+// thread's 4 rows in one 16-byte chunk) and each stage's mask entries.
+// Rows of Q, K and V are D + 4 floats, P^T's 128 + 4: 16-byte chunk c of
+// row x lies in bank group (x * (D / 4 + 1) + c) % 8, so the rows a warp
+// reads at one time (8 consecutive keys, 4 consecutive query rows or
+// slots) fall in distinct banks, for D = 16 too (5 is odd).
+template <int D>
+struct F32Smem {
+  static constexpr int kRow = D + 4;
+  static constexpr int kPRow = kF32M + 4;
+  static constexpr int kTileQ = kF32M * kRow;
+  static constexpr int kTile = kF32N * kRow;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + 2 * kTileQ;
+  static constexpr int kV = kK + kF32Stages * kTile;
+  static constexpr int kP = kV + kF32Stages * kTile;
+  static constexpr int kMask = kP + kF32N * kPRow;
+  static constexpr int kBytes = 4 * (kMask + kF32Stages * kF32N);
+};
+
+// 16 (or 4) bytes from global to shared memory, asynchronously; the
+// bytes past `src_bytes` are zero-filled (src_bytes 0: all of them)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The D / 8 columns of O that key group g owns in a row: 16-byte chunks g
+// and g + 8 (D = 64), chunk g (D = 32), or the 8 bytes at 2g (D = 16), so
+// the 8 key groups of a warp touch one row's D floats at once, in
+// distinct banks
+template <int D>
+__device__ __forceinline__ void f32_load_cols(const float* row, int g,
+                                              float (&x)[D / 8]) {
+  if constexpr (D == 16) {
+    const float2 a = *reinterpret_cast<const float2*>(row + 2 * g);
+    x[0] = a.x;
+    x[1] = a.y;
+  } else {
+#pragma unroll
+    for (int u = 0; u < D / 32; ++u) {
+      const float4 a = *reinterpret_cast<const float4*>(row + 32 * u + 4 * g);
+      x[4 * u + 0] = a.x;
+      x[4 * u + 1] = a.y;
+      x[4 * u + 2] = a.z;
+      x[4 * u + 3] = a.w;
+    }
+  }
+}
 
 template <int D>
-__global__ void __launch_bounds__(kF32BlockM)
+__device__ __forceinline__ void f32_store_cols(float* row, int g,
+                                               const float (&x)[D / 8]) {
+  if constexpr (D == 16) {
+    *reinterpret_cast<float2*>(row + 2 * g) = make_float2(x[0], x[1]);
+  } else {
+#pragma unroll
+    for (int u = 0; u < D / 32; ++u) {
+      *reinterpret_cast<float4*>(row + 32 * u + 4 * g) =
+          make_float4(x[4 * u], x[4 * u + 1], x[4 * u + 2], x[4 * u + 3]);
+    }
+  }
+}
+
+// an item's running max, sum and O before its first tile
+template <int D>
+__device__ __forceinline__ void f32_reset(float (&acc)[4][D / 8], float (&m)[4],
+                                          float (&l)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) acc[i][c] = 0.f;
+  }
+}
+
+// p = exp(s - m) of this thread's 4 x 8 scores in place, gated by
+// s > -1e30 / 2 where kGate, with their sums into l and the rescale of
+// what l and acc summed before by alpha
+template <bool kGate, int D>
+__device__ __forceinline__ void f32_exp_rows(float (&s)[4][8],
+                                             const float (&m_log2)[4],
+                                             const float (&alpha)[4],
+                                             float (&l)[4],
+                                             float (&acc)[4][D / 8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float p = exp2_ftz(fmaf(s[i][j], kLog2e, -m_log2[i]));
+      if (kGate && !(s[i][j] > kNegInf / 2)) p = 0.f;
+      s[i][j] = p;
+      psum += p;
+    }
+    l[i] = l[i] * alpha[i] + psum;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) acc[i][c] *= alpha[i];
+  }
+}
+
+// One block: the items (query tiles of 128 rows) tile0 and, if there is
+// one, tile1 of batch*head blockIdx.y. Steps run over the items' key
+// tiles in order, item 0's first; step t's K, V and mask sit in stage
+// t % kF32Stages, loaded kF32Stages - 1 steps ahead, and an item's Q is
+// loaded with its first step's tiles.
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, 1)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
                          const int32_t* __restrict__ mask,
                          float* __restrict__ o, float* __restrict__ lse,
                          int seq, int heads, float scale, int causal) {
-  __shared__ __align__(16) float ks[kF32BlockN * D];
-  __shared__ __align__(16) float vs[kF32BlockN * D];
-  __shared__ int live[kF32BlockN];
-
-  const int bh = blockIdx.y;
-  const int row0 = blockIdx.x * kF32BlockM;
+  using L = F32Smem<D>;
+  // the tiles' 16-byte chunks split evenly over the threads
+  static_assert((kF32N * D / 4) % kF32Threads == 0, "tile chunks");
+  extern __shared__ __align__(16) float fsm[];
+  const uint32_t sbase = smem_u32(fsm);
   const int tid = threadIdx.x;
-  const int row = row0 + tid;
-  const int64_t base = static_cast<int64_t>(bh) * seq * D;
+  const int lane = tid % 32;
+  const int g = tid % 8;   // key group: keys g + 8j, O columns f32_load_cols
+  const int rg = tid / 8;  // row group: rows rg + 32i of an item
+  const int bh = blockIdx.y;
+  const int64_t head = static_cast<int64_t>(bh) * seq;
+  const float* qh = q + head * D;
+  const float* kh = k + head * D;
+  const float* vh = v + head * D;
   const int32_t* mrow = mask + static_cast<int64_t>(bh / heads) * seq;
 
-  float qr[D];
-  float acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = row < seq ? q[base + static_cast<int64_t>(row) * D + d] : 0.f;
-    acc[d] = 0.f;
-  }
-  float m = kNegInf;
-  float l = 0.f;
+  const int q_tiles = (seq + kF32M - 1) / kF32M;
+  const int k_tiles = (seq + kF32N - 1) / kF32N;
+  const int x = blockIdx.x;
+  const int tile0 = causal ? q_tiles - 1 - x : 2 * x;
+  const int tile1 = causal ? x : 2 * x + 1;
+  const bool two = causal ? tile1 < tile0 : tile1 < q_tiles;
+  // key tiles of an item; causal: a tile wholly past its last row adds
+  // nothing
+  auto key_tiles = [&](int tile) {
+    return causal ? min(k_tiles, (tile * kF32M + kF32M - 1) / kF32N + 1)
+                  : k_tiles;
+  };
+  const int n0 = key_tiles(tile0);
+  const int steps = n0 + (two ? key_tiles(tile1) : 0);
 
-  for (int k0 = 0; k0 < seq; k0 += kF32BlockN) {
-    if (causal && k0 > row0 + kF32BlockM - 1) break;
-    __syncthreads();
-    for (int i = tid; i < kF32BlockN * D; i += kF32BlockM) {
-      const int key = k0 + i / D;
-      const int64_t at = base + static_cast<int64_t>(k0) * D + i;
-      ks[i] = key < seq ? k[at] : 0.f;
-      vs[i] = key < seq ? v[at] : 0.f;
-    }
-    for (int j = tid; j < kF32BlockN; j += kF32BlockM) {
-      live[j] = k0 + j < seq && mrow[k0 + j] > 0;
-    }
-    __syncthreads();
-
-#pragma unroll 1
-    for (int c = 0; c < kF32BlockN; c += kF32Chunk) {
-      float s[kF32Chunk];
-      float mx = kNegInf;
+  auto load = [&](int t) {
+    if (t < steps) {
+      const int it = t < n0 ? 0 : 1;
+      const int kt = it ? t - n0 : t;
+      const int st = t % kF32Stages;
+      if (kt == 0) {  // the item's Q, rows past the head's end zero
+        const int row0 = (it ? tile1 : tile0) * kF32M;
+        const uint32_t dq = sbase + 4 * (L::kQ + it * L::kTileQ);
 #pragma unroll
-      for (int j = 0; j < kF32Chunk; ++j) {
-        const float4* kr = reinterpret_cast<const float4*>(ks + (c + j) * D);
-        float dot = 0.f;
-#pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
-          const float4 kk = kr[d4];
-          dot = fmaf(qr[4 * d4 + 0], kk.x, dot);
-          dot = fmaf(qr[4 * d4 + 1], kk.y, dot);
-          dot = fmaf(qr[4 * d4 + 2], kk.z, dot);
-          dot = fmaf(qr[4 * d4 + 3], kk.w, dot);
-        }
-        float sj = __fmul_rn(dot, scale);
-        if (!live[c + j] || (causal && k0 + c + j > row)) sj = kNegInf;
-        s[j] = sj;
-        mx = fmaxf(mx, sj);
-      }
-      const float m_new = fmaxf(m, mx);
-      const float alpha = expf(m - m_new);
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= alpha;
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kF32Chunk; ++j) {
-        const float p = s[j] > kNegInf / 2 ? expf(s[j] - m_new) : 0.f;
-        psum += p;
-        const float4* vr = reinterpret_cast<const float4*>(vs + (c + j) * D);
-#pragma unroll
-        for (int d4 = 0; d4 < D / 4; ++d4) {
-          const float4 vv = vr[d4];
-          acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0]);
-          acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-          acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-          acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
+        for (int u = 0; u < kF32M * D / 4 / kF32Threads; ++u) {
+          const int c = tid + u * kF32Threads;
+          const int r = c / (D / 4), w = c % (D / 4);
+          const bool in = row0 + r < seq;
+          cp_async16(dq + 4 * (r * L::kRow + 4 * w),
+                     qh + static_cast<int64_t>(in ? row0 + r : 0) * D + 4 * w,
+                     in ? 16 : 0);
         }
       }
-      l = l * alpha + psum;
-      m = m_new;
-    }
-  }
-
-  if (row < seq) {
-    const float safe_l = l > 0.f ? l : 1.f;
-    float* orow = o + base + static_cast<int64_t>(row) * D;
+      const int k0 = kt * kF32N;
+      const uint32_t dk = sbase + 4 * (L::kK + st * L::kTile);
+      const uint32_t dv = sbase + 4 * (L::kV + st * L::kTile);
 #pragma unroll
-    for (int d = 0; d < D; ++d) orow[d] = acc[d] / safe_l;
-    lse[static_cast<int64_t>(bh) * seq + row] = m + logf(safe_l);
+      for (int u = 0; u < kF32N * D / 4 / kF32Threads; ++u) {
+        const int c = tid + u * kF32Threads;
+        const int r = c / (D / 4), w = c % (D / 4);
+        const bool in = k0 + r < seq;
+        const int64_t at = static_cast<int64_t>(in ? k0 + r : 0) * D + 4 * w;
+        const uint32_t off = 4 * (r * L::kRow + 4 * w);
+        cp_async16(dk + off, kh + at, in ? 16 : 0);
+        cp_async16(dv + off, vh + at, in ? 16 : 0);
+      }
+      if (tid < kF32N) {  // keys past the end read as masked (0)
+        const bool in = k0 + tid < seq;
+        cp_async4(sbase + 4 * (L::kMask + st * kF32N + tid),
+                  mrow + (in ? k0 + tid : 0), in ? 4 : 0);
+      }
+    }
+    cp_async_commit();  // one group a step, empty past the last
+  };
+
+  float acc[4][D / 8];
+  float m[4], l[4];  // l: this thread's share of each row's sum
+  f32_reset<D>(acc, m, l);
+#pragma unroll
+  for (int t = 0; t < kF32Stages - 1; ++t) load(t);
+
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait<kF32Stages - 2>();  // this thread's copies of step t
+    __syncthreads();  // everyone's, and step t - 1's stage is free
+    load(t + kF32Stages - 1);
+    const int it = t < n0 ? 0 : 1;
+    const int kt = it ? t - n0 : t;
+    const int st = t % kF32Stages;
+    const int row0 = (it ? tile1 : tile0) * kF32M;
+    const int k0 = kt * kF32N;
+    const float* qs = fsm + L::kQ + it * L::kTileQ + rg * L::kRow;
+    const float* ks = fsm + L::kK + st * L::kTile + g * L::kRow;
+    const float* vs = fsm + L::kV + st * L::kTile;
+    const int32_t* ms =
+        reinterpret_cast<const int32_t*>(fsm + L::kMask + st * kF32N);
+
+    // S = Q K^T on this thread's 4 x 8: each dot over d in order
+    float s[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    }
+#pragma unroll
+    for (int w = 0; w < D / 4; ++w) {
+      float4 a[4], b[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = *reinterpret_cast<const float4*>(qs + 32 * i * L::kRow + 4 * w);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        b[j] = *reinterpret_cast<const float4*>(ks + 8 * j * L::kRow + 4 * w);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
+          s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
+          s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
+          s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
+        }
+      }
+    }
+
+    // scale; dead keys and, on the diagonal, keys past the row become
+    // exactly -1e30. live_lo/hi: bit x is key k0 + x (+ 32) live
+    const uint32_t live_lo = __ballot_sync(0xffffffffu, ms[lane] > 0);
+    const uint32_t live_hi = __ballot_sync(0xffffffffu, ms[32 + lane] > 0);
+    const bool diag = causal && k0 + kF32N - 1 > row0;
+    float mx[4] = {kNegInf, kNegInf, kNegInf, kNegInf};
+    if (!diag && (live_lo & live_hi) == 0xffffffffu) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          s[i][j] = __fmul_rn(s[i][j], scale);
+          mx[i] = fmaxf(mx[i], s[i][j]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const uint32_t word = j < 4 ? live_lo : live_hi;
+          const bool dead = !((word >> (g + 8 * (j % 4))) & 1u);
+          float y = __fmul_rn(s[i][j], scale);
+          if (dead || (causal && k0 + g + 8 * j > row0 + rg + 32 * i)) {
+            y = kNegInf;
+          }
+          s[i][j] = y;
+          mx[i] = fmaxf(mx[i], y);
+        }
+      }
+    }
+
+    // the online update, once a tile: the row's max over its 8 lanes, p
+    // gated (a fully masked row has m = -1e30 itself, and exp(s - m)
+    // would be 1), log2(e) folded into exp2 after the gate
+    float alpha[4], m_log2[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 4));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = exp2_ftz((m[i] - m_new) * kLog2e);
+      m[i] = m_new;
+      m_log2[i] = m_new * kLog2e;
+    }
+    // Where every row of the warp has m > -1e30 / 4, an entry the gate
+    // zeroes (s <= -1e30 / 2) gives exp2 of less than -3.6e29, exactly 0
+    // as well, so the gate's compare is skipped with the same result
+    const float m_min = fminf(fminf(m[0], m[1]), fminf(m[2], m[3]));
+    const bool live_rows = __all_sync(0xffffffffu, m_min > kNegInf / 4);
+    if (live_rows) {
+      f32_exp_rows<false, D>(s, m_log2, alpha, l, acc);
+    } else {
+      f32_exp_rows<true, D>(s, m_log2, alpha, l, acc);
+    }
+
+    // P^T: key g + 8j, the 4 rows in slot chunk rg; only this warp's row
+    // groups read these slots, and the barrier at the next step's top
+    // orders this tile's reads before the next writes
+    float* pt = fsm + L::kP;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<float4*>(pt + (g + 8 * j) * L::kPRow + 4 * rg) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    }
+    __syncwarp();
+
+    // O += P V: per key, P's 4 rows in one load, V's D / 8 columns
+    const float* pr = pt + 4 * rg;
+#pragma unroll
+    for (int key = 0; key < kF32N; ++key) {
+      const float4 p = *reinterpret_cast<const float4*>(pr + key * L::kPRow);
+      float y[D / 8];
+      f32_load_cols<D>(vs + key * L::kRow, g, y);
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        acc[0][c] = fmaf(p.x, y[c], acc[0][c]);
+        acc[1][c] = fmaf(p.y, y[c], acc[1][c]);
+        acc[2][c] = fmaf(p.z, y[c], acc[2][c]);
+        acc[3][c] = fmaf(p.w, y[c], acc[3][c]);
+      }
+    }
+
+    if (kt == (it ? steps - n0 : n0) - 1) {  // the item's last tile
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float lt = l[i];
+        lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+        lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+        lt += __shfl_xor_sync(0xffffffffu, lt, 4);
+        // fully masked rows have l == 0: zeros, not NaN
+        const float safe_l = lt > 0.f ? lt : 1.f;
+        const int row = row0 + rg + 32 * i;
+        if (row < seq) {
+          float y[D / 8];
+#pragma unroll
+          for (int c = 0; c < D / 8; ++c) y[c] = acc[i][c] / safe_l;
+          f32_store_cols<D>(o + (head + row) * D, g, y);
+          if (g == 0) lse[head + row] = m[i] + logf(safe_l);
+        }
+      }
+      f32_reset<D>(acc, m, l);
+    }
   }
 }
 
@@ -829,10 +1141,21 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const void* mask, void* o, void* lse, int bh, int seq,
-                       int heads, float scale, int causal,
+                       int heads, float scale, int causal, int device,
                        cudaStream_t stream) {
-  const dim3 grid((seq + kF32BlockM - 1) / kF32BlockM, bh);
-  flash_fwd_f32_kernel<D><<<grid, kF32BlockM, 0, stream>>>(
+  static std::atomic<unsigned long long> allowed{0};
+  const unsigned long long bit = 1ull << (device % 64);
+  if (!(allowed.load() & bit)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        F32Smem<D>::kBytes);
+    if (err != cudaSuccess) return err;
+    allowed.fetch_or(bit);
+  }
+  // two query tiles a block (with causal, i and n - 1 - i)
+  const int q_tiles = (seq + kF32M - 1) / kF32M;
+  const dim3 grid((q_tiles + 1) / 2, bh);
+  flash_fwd_f32_kernel<D><<<grid, kF32Threads, F32Smem<D>::kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int32_t*>(mask),
       static_cast<float*>(o), static_cast<float*>(lse), seq, heads, scale,
@@ -850,15 +1173,15 @@ cudaError_t launch(int is_bf16, const void* q, const void* k, const void* v,
                           causal, device, stream);
   }
   return launch_f32<D>(q, k, v, mask, o, lse, bh, seq, heads, scale, causal,
-                       stream);
+                       device, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, o: contiguous [bh, seq, head_dim], bf16 if is_bf16 else f32
-// (bf16: 16-byte aligned, as TMA requires); mask: contiguous
+// q, k, v, o: contiguous [bh, seq, head_dim], bf16 if is_bf16 else f32,
+// q, k and v 16-byte aligned (TMA and cp.async require it); mask: contiguous
 // [bh / heads, seq] int32 (1 = attend); lse: [bh, seq] f32. head_dim is
 // 16, 32 or 64. Launches on `stream`, does not synchronise, and returns
 // the first CUDA error of the set-up or the launch (0 if none).

@@ -150,9 +150,10 @@ def _flash_fwd_cuda(q, k, v, mask, scale: float, causal: bool, heads: int
             f"mask {tuple(mask.shape)} {mask.dtype} on {mask.device}: the "
             f"kernel takes contiguous ({bh // heads}, {seq}) int32 on "
             f"{q.device}")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("the bf16 kernel loads q, k and v by TMA, which "
-                         "takes 16-byte aligned tensors")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the kernel loads q, k and v in 16-byte copies (TMA "
+                         "for bf16, cp.async for f32), which take 16-byte "
+                         "aligned tensors")
     out = torch.empty_like(q)
     lse = torch.empty((bh, seq), dtype=torch.float32, device=q.device)
     lib = _lib()

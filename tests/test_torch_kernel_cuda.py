@@ -20,9 +20,11 @@ checks at the main paths' shapes.
   ``unique_consecutive``'s, at N from 1 to 1,703,936, with filler, ids
   past the table, all-equal ids and ``num_rows`` up to 2**24.
 - Flash attention: the kernel and ``_flash_fwd_torch`` on the same CUDA
-  tensors, at every head width the kernel is built for and at a length
-  that is no multiple of its 128-row tiles. The kernel sums keys in its own order, so f32 is held to
-  rtol/atol 2e-5 (the reference's flash-vs-einsum bound) and bf16 to
+  tensors, at every head width the kernel is built for, at a length
+  that is no multiple of its 128-row tiles (every head width too) and,
+  in f32, at the causal LM's shape. The kernel sums keys in its own
+  order, so f32 is held to rtol/atol 2e-5 (the reference's
+  flash-vs-einsum bound) and bf16 to
   1.6e-2 (two bf16 ulps: ``p`` and the output are rounded to bf16 after
   sums taken in different orders); ``lse`` is f32 in both, 2e-5.
 """
@@ -326,11 +328,31 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, d, causal, mask_kind):
 
 
 @pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 32, 64])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_kernel_ragged_seq(cuda, dtype, causal):
+def test_flash_kernel_ragged_seq(cuda, dtype, d, causal):
     """A length that is no multiple of the kernel's tiles: the last query
     and key tiles run past the end of each head."""
-    _check_flash_case(cuda, dtype, 64, causal, "padding", 200)
+    _check_flash_case(cuda, dtype, d, causal, "padding", 200)
+
+
+def test_flash_f32_causal_at_the_lm_shape(cuda):
+    """The f32 kernel at the causal LM's shape ([16, 2048, 64]: batch 2,
+    8 heads; chip_smoke.py phase 18 (c)), where each block pairs query
+    tiles i and n - 1 - i: against the plain version within 2e-5, and the
+    same bits run to run."""
+    rng = np.random.default_rng(24)
+    q, k, v = (torch.as_tensor(rng.normal(size=(16, 2048, 64)).astype(
+        np.float32)).to(cuda) for _ in range(3))
+    mask = torch.ones((2, 2048), dtype=torch.int32, device=cuda)
+    out, lse = fa._flash_fwd_cuda(q, k, v, mask, 64 ** -0.5, True, 8)
+    again, lse2 = fa._flash_fwd_cuda(q, k, v, mask, 64 ** -0.5, True, 8)
+    want_out, want_lse = fa._flash_fwd_torch(q, k, v, mask, 64 ** -0.5, True,
+                                             8)
+    torch.cuda.synchronize(cuda)
+    _close(out, want_out, torch.float32)
+    _close(lse, want_lse, torch.float32)
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
 
 
 def _check_flash_case(cuda, dtype, d, causal, mask_kind, seq):
@@ -382,11 +404,12 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q = torch.zeros((FB * FH, FS, 16), device=cuda)
     with pytest.raises(ValueError, match="mask"):
         fa._flash_fwd_cuda(q, q, q, mask.float(), 1.0, False, FH)
-    flat = torch.zeros((FB * FH * FS * 16 + 1,), dtype=torch.bfloat16,
-                       device=cuda)
-    q = flat[1:].view(FB * FH, FS, 16)  # 2 bytes past an aligned address
-    with pytest.raises(ValueError, match="aligned"):
-        fa._flash_fwd_cuda(q, q, q, mask, 1.0, False, FH)
+    for dtype in (torch.bfloat16, torch.float32):
+        flat = torch.zeros((FB * FH * FS * 16 + 1,), dtype=dtype,
+                           device=cuda)
+        q = flat[1:].view(FB * FH, FS, 16)  # 1 element past alignment
+        with pytest.raises(ValueError, match="aligned"):
+            fa._flash_fwd_cuda(q, q, q, mask, 1.0, False, FH)
 
 
 def test_bert_gradient_repeats_bitwise_in_default_mode(cuda):
