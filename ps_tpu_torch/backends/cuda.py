@@ -100,6 +100,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ps_tpu_torch import obs
 from ps_tpu_torch.backends.common import (
     AGG_WORKER_BASE,
     AsyncStagingMixin,
@@ -366,19 +367,34 @@ class CudaServer(_RankApplyMixin, CheckpointMixin):
         """Reduce this rank's ``grads_kv`` over the ranks and step
         ``params`` (the held tensors) in place: each rank steps the blocks
         it owns, then the blocks cut over 'data' or 'seq' are
-        all-gathered."""
-        grads = self._reduce(grads_kv)
-        scale = self.grad_scale
-        if scale != 1.0:
-            grads = {key: g * scale for key, g in grads.items()}
-        owned = {key: self._owned(key, p) for key, p in params.items()}
-        norms = self._norms(params)
-        self._opt.step_(owned, grads, self._state, norms)
-        if norms is not None:
-            norms.finish()
-        for key, spec in self._specs.items():
-            if any(a in spec for a in self._owned_axes):
-                params[key].copy_(self._gather(key, owned[key]))
+        all-gathered, and where ``params`` are the tensors :meth:`tree`
+        gave the forward, its whole leaves are gathered again into the
+        same tensors. Inside a traced step: the span ``apply``, timed on
+        the card too, with ``apply.reduce``, ``apply.optimizer`` and
+        ``apply.gather``."""
+        tr = obs.tracer()
+        with tr.child("apply", "step") as span:
+            span.time_device(self.device)
+            with tr.child("apply.reduce", "step"):
+                grads = self._reduce(grads_kv)
+                scale = self.grad_scale
+                if scale != 1.0:
+                    grads = {key: g * scale for key, g in grads.items()}
+            with tr.child("apply.optimizer", "step"):
+                owned = {key: self._owned(key, p)
+                         for key, p in params.items()}
+                norms = self._norms(params)
+                self._opt.step_(owned, grads, self._state, norms)
+                if norms is not None:
+                    norms.finish()
+            with tr.child("apply.gather", "step"):
+                for key, spec in self._specs.items():
+                    if any(a in spec for a in self._owned_axes):
+                        params[key].copy_(self._gather(key, owned[key]))
+                if self._fwd is not None and self._fwd[0] is params:
+                    fwd = self._fwd[1]
+                    for key, t in self._gathered().items():
+                        fwd[key].copy_(t)
         self.apply_count += 1
         self._account_update()
 
@@ -414,10 +430,6 @@ class CudaServer(_RankApplyMixin, CheckpointMixin):
         gathered are gathered again into the same tensors, so every tree
         it gave holds the new values."""
         self._apply_(self._params, grads_kv)
-        if self._fwd is not None and self._fwd[0] is self._params:
-            fwd = self._fwd[1]
-            for key, t in self._gathered().items():
-                fwd[key].copy_(t)
 
     def _gathered(self) -> Dict[str, torch.Tensor]:
         """The whole of each leaf the heuristic sliced over a held axis

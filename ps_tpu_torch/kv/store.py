@@ -31,6 +31,7 @@ from typing import Any, Dict, List, Optional, Union
 import torch
 
 from ps_tpu_torch import checkpoint as ckpt
+from ps_tpu_torch import obs
 from ps_tpu_torch.api import current_context
 from ps_tpu_torch.kv import keys as keymod
 from ps_tpu_torch.optim import Optimizer, make_optimizer
@@ -131,14 +132,18 @@ def value_and_grad(loss_fn, params: Any, batch: Any, *extra,
     """``(loss, grads, aux)`` of ``loss_fn(params, batch, *extra)`` at
     ``params`` (a structure of tensors), as ``jax.value_and_grad`` gives
     them: ``grads`` has the structure of ``params``, with zeros for a
-    parameter the loss does not reach; ``aux`` is None without has_aux."""
+    parameter the loss does not reach; ``aux`` is None without has_aux.
+    Inside a traced step, the spans ``forward`` and ``backward``."""
     kv, treedef = keymod.flatten_with_keys(params)
     keys = list(kv)
     leaves = {k: v.detach().requires_grad_() for k, v in kv.items()}
-    out = loss_fn(keymod.unflatten(treedef, leaves, keys), batch, *extra)
+    tr = obs.tracer()
+    with tr.child("forward", "step"):
+        out = loss_fn(keymod.unflatten(treedef, leaves, keys), batch, *extra)
     loss, aux = out if has_aux else (out, None)
-    grads = torch.autograd.grad(loss, [leaves[k] for k in keys],
-                                materialize_grads=True)
+    with tr.child("backward", "step"):
+        grads = torch.autograd.grad(loss, [leaves[k] for k in keys],
+                                    materialize_grads=True)
     return (loss.detach(), keymod.unflatten(treedef, dict(zip(keys, grads)),
                                             keys), aux)
 
@@ -312,7 +317,12 @@ class KVStore:
         of its slice and pushes, the server aggregates on the last push,
         and the loss (and aux) are means over the workers. A parameter the
         loss does not reach gets a zero gradient, and the optimizer still
-        steps it."""
+        steps it.
+
+        On the cuda backend each call is a root span ``step`` of the
+        process tracer (:mod:`~ps_tpu_torch.obs`, sampled by
+        ``trace_sample``), timed on the card too, whose context the
+        backward's spans on autograd's thread parent to."""
         self._require_init()
         engine = self._engine
         if getattr(engine, "mode", "sync") == "async":
@@ -324,6 +334,11 @@ class KVStore:
         treedef, key_order = self._treedef, self._key_order
 
         def run(batch, *extra):
+            with obs.tracer().span("step", "step", hold=True) as span:
+                span.time_device(engine.device)
+                return fused(batch, *extra)
+
+        def fused(batch, *extra):
             params_kv = engine.tree()
             loss, grads, aux = value_and_grad(
                 loss_fn, keymod.unflatten(treedef, params_kv, key_order),

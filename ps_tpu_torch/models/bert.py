@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ps_tpu_torch import obs
 from ps_tpu_torch.kv import keys as keymod
 from ps_tpu_torch.ops.flash_attention import flash_attention
 from ps_tpu_torch.parallel import collectives
@@ -158,15 +159,18 @@ class _EmbedLookup(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy):
-        (ids,) = ctx.saved_tensors
-        flat = ids.reshape(-1)
-        gy = gy.reshape(flat.numel(), -1)
-        order = torch.argsort(flat, stable=True)
-        rows, counts = torch.unique_consecutive(flat[order],
-                                                return_counts=True)
-        sums = torch.segment_reduce(gy[order], "sum", lengths=counts)
-        grad = gy.new_zeros((ctx.num_rows, gy.shape[1]))
-        grad[rows] = sums  # distinct rows: a plain write
+        # on the card autograd's device thread runs this: the span
+        # parents to the fused step through the tracer's held context
+        with obs.tracer().child("embed_bwd", "step", held=True):
+            (ids,) = ctx.saved_tensors
+            flat = ids.reshape(-1)
+            gy = gy.reshape(flat.numel(), -1)
+            order = torch.argsort(flat, stable=True)
+            rows, counts = torch.unique_consecutive(flat[order],
+                                                    return_counts=True)
+            sums = torch.segment_reduce(gy[order], "sum", lengths=counts)
+            grad = gy.new_zeros((ctx.num_rows, gy.shape[1]))
+            grad[rows] = sums  # distinct rows: a plain write
         return None, grad
 
 

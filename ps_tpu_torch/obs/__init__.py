@@ -27,6 +27,23 @@
   over a :class:`RegistryWindow` in a process without a coordinator.
 - ``freshness`` (birth stamps and data ages) and ``clock`` (cross-process
   clock offsets).
+- **Step spans**: the same tracer times the fused training step of
+  ``KVStore.make_step`` on the cuda backend, category ``"step"``: the
+  root ``step`` (sampled by ``trace_sample``), its ``forward`` and
+  ``backward`` (``value_and_grad``), and ``apply`` (``CudaServer``'s
+  server apply) with ``apply.reduce``, ``apply.optimizer`` and
+  ``apply.gather``; ``embed_bwd`` (BERT's embedding backward) and
+  ``flash_bwd`` (the flash-attention backward) run on autograd's device
+  thread and parent to ``step`` through the tracer's held context. On
+  the card ``step`` and ``apply`` also carry ``device_ms`` between CUDA
+  events (:meth:`Tracer.resolve_device`, after a synchronize). Spans are
+  stamped on the wall clock that ``torch.profiler`` stamps its events
+  on, so ``utils/profiling.trace`` (the trainers' ``--profile-dir``)
+  turns them on for its traced block and writes them into its
+  ``trace.json`` beside the kernels: Perfetto shows forward, backward
+  and apply over the device's rows. ``configure(capacity=n)`` sizes the
+  ring (a window of n spans: ~22 a BERT step); ``tracer().dropped``
+  counts what it lost.
 
 This module owns the process singletons: :func:`tracer` and
 :func:`flight` configure themselves from the environment on first use,
@@ -140,14 +157,18 @@ def configure(sample: Optional[float] = None,
               trace_dir: Optional[str] = None,
               flight_events: Optional[int] = None,
               metrics_port: Optional[int] = None,
-              service: Optional[str] = None) -> None:
+              service: Optional[str] = None,
+              capacity: Optional[int] = None) -> None:
     """Override the env-seeded defaults (what a launcher does with its
     :class:`~ps_tpu_torch.config.Config` knobs). Only the arguments given
-    change; ``metrics_port`` starts the /metrics endpoint at once."""
+    change; ``metrics_port`` starts the /metrics endpoint at once;
+    ``capacity`` is the number of spans the tracer's ring holds."""
     t = tracer()
     f = flight()
     if sample is not None:
         t.sample = float(sample)
+    if capacity is not None:
+        t.resize(capacity)
     if service is not None:
         t.service = service
         f.service = service

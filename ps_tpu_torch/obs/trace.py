@@ -20,6 +20,18 @@ Sampling is decided once, at the root span (the worker's op):
 ``trace_sample`` (``PS_TRACE_SAMPLE``, default 0) gates roots, and every
 later hop follows the header, so an unsampled op costs one dict lookup a
 hop.
+
+The same tracer times the fused training step in one process (category
+``"step"``): the root ``step`` *holds* its context on the tracer while
+it is open (``span(..., hold=True)``), so a span on a thread with no
+open span of its own, autograd's device thread running a backward,
+parents to it (``child(..., held=True)``). A sampled span on the card
+records a CUDA event at its entry and its exit (:meth:`Span.time_device`),
+never synchronized inside the step; :meth:`Tracer.resolve_device` turns
+the pairs the card has passed into ``device_ms`` once the caller has
+synchronized. Stamps are ``time.time()``, the wall clock the profiler's
+host and device events are stamped on, so the spans and a
+``torch.profiler`` trace share one timeline with no offset.
 """
 
 from __future__ import annotations
@@ -75,6 +87,9 @@ class _NoopSpan:
     def set(self, **args) -> "_NoopSpan":
         return self
 
+    def time_device(self, device) -> "_NoopSpan":
+        return self
+
     def __enter__(self) -> "_NoopSpan":
         return self
 
@@ -98,13 +113,18 @@ class Span:
     clock, so a process descheduled between its two reads at the start
     shifts the span's end off its true place; here an interval is the
     one clock's, whatever the scheduler does (a step of the wall clock
-    inside a span clamps its duration at zero)."""
+    inside a span clamps its duration at zero).
+
+    A span made with ``hold=True`` holds its context on the tracer while
+    it is open (:attr:`Tracer.held`)."""
 
     __slots__ = ("name", "cat", "trace_id", "span_id", "parent_id",
-                 "args", "ts_us", "dur_us", "_t0", "_tracer", "_tid")
+                 "args", "ts_us", "dur_us", "_t0", "_tracer", "_tid",
+                 "_hold", "_outer", "_events")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str,
-                 trace_id: str, span_id: str, parent_id: Optional[str]):
+                 trace_id: str, span_id: str, parent_id: Optional[str],
+                 hold: bool = False):
         self.name = name
         self.cat = cat
         self.trace_id = trace_id
@@ -116,6 +136,9 @@ class Span:
         self._t0 = 0.0
         self._tracer = tracer
         self._tid = 0
+        self._hold = hold
+        self._outer: Optional[TraceContext] = None
+        self._events = None  # [device, entry event, exit event], or None
 
     def ctx(self) -> TraceContext:
         """The context downstream hops parent to."""
@@ -130,19 +153,37 @@ class Span:
         self.args.update(args)
         return self
 
+    def time_device(self, device) -> "Span":
+        """On a CUDA ``device``: record a CUDA event on its current stream
+        now and another as the span exits, so the card's time between
+        them can be read after the caller synchronizes
+        (:meth:`Tracer.resolve_device`). Nothing on another device."""
+        if getattr(device, "type", None) == "cuda":
+            self._events = [device, _record_event(device), None]
+        return self
+
     def __enter__(self) -> "Span":
         self._t0 = time.time()
         self.ts_us = self._t0 * 1e6
         self._tid = threading.get_ident()
         self._tracer._push_current(self)
+        if self._hold:
+            self._outer = self._tracer.held
+            self._tracer.held = self.ctx()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
-        self.dur_us = max(time.time() - self._t0, 0.0) * 1e6
-        if exc_type is not None:
-            self.args.setdefault("error", repr(exc))
-        self._tracer._pop_current(self)
-        self._tracer._record(self)
+        try:
+            if self._events is not None:  # raises after a fault on the card
+                self._events[2] = _record_event(self._events[0])
+        finally:
+            self.dur_us = max(time.time() - self._t0, 0.0) * 1e6
+            if exc_type is not None:
+                self.args.setdefault("error", repr(exc))
+            if self._hold:
+                self._tracer.held = self._outer
+            self._tracer._pop_current(self)
+            self._tracer._record(self)
 
     def __bool__(self) -> bool:
         return True
@@ -152,6 +193,14 @@ def _new_id() -> str:
     return os.urandom(8).hex()
 
 
+def _record_event(device):
+    import torch
+
+    e = torch.cuda.Event(enable_timing=True)
+    e.record(torch.cuda.current_stream(device))
+    return e
+
+
 class Tracer:
     """Per-process span factory + bounded ring + exporter.
 
@@ -159,7 +208,10 @@ class Tracer:
     ``parent`` context is always recorded — the root already paid for the
     trace). ``clock_offset_us`` is added to every exported timestamp so
     several processes' dumps merge onto one timeline (estimated by
-    :class:`~ps_tpu_torch.obs.clock.ClockSync` against a reference server)."""
+    :class:`~ps_tpu_torch.obs.clock.ClockSync` against a reference server).
+    ``held`` is the context of the open span made with ``hold=True`` (the
+    fused step's), None when there is none: one slot a process, so it
+    assumes one sampled step at a time in the process."""
 
     def __init__(self, service: str = "ps", capacity: int = 8192,
                  sample: float = 0.0):
@@ -173,13 +225,15 @@ class Tracer:
         self._tls = threading.local()
         self.dropped = 0  # roots not sampled are NOT drops; ring evictions are
         self._total = 0
+        self.held: Optional[TraceContext] = None
 
     # -- span creation ---------------------------------------------------------
 
     def span(self, name: str, cat: str = "ps",
-             parent: Optional[TraceContext] = None):
+             parent: Optional[TraceContext] = None, hold: bool = False):
         """A new span: child of ``parent`` when given, else a root that is
-        sampled with probability ``sample`` (NOOP otherwise)."""
+        sampled with probability ``sample`` (NOOP otherwise). With
+        ``hold`` it is :attr:`held` while open."""
         if parent is None:
             if self.sample <= 0.0:
                 return NOOP
@@ -188,15 +242,17 @@ class Tracer:
 
                 if random.random() >= self.sample:
                     return NOOP
-            return Span(self, name, cat, _new_id(), _new_id(), None)
+            return Span(self, name, cat, _new_id(), _new_id(), None, hold)
         return Span(self, name, cat, parent.trace_id, _new_id(),
-                    parent.span_id)
+                    parent.span_id, hold)
 
-    def child(self, name: str, cat: str = "ps"):
+    def child(self, name: str, cat: str = "ps", held: bool = False):
         """A span under the CURRENT thread's open span — NOOP when no
         traced work is in progress (never a fresh sampling decision, so
-        internal waits can't spawn orphan root traces)."""
-        cur = self.current()
+        internal waits can't spawn orphan root traces). With ``held``,
+        under :attr:`held` instead, whatever thread calls: the fused
+        step's backward spans, which autograd's device thread records."""
+        cur = self.held if held else self.current()
         return self.span(name, cat, parent=cur) if cur is not None else NOOP
 
     def current(self) -> Optional[TraceContext]:
@@ -250,6 +306,37 @@ class Tracer:
     def clear(self) -> None:
         self._ring.clear()
         self.dropped = 0
+
+    @property
+    def capacity(self) -> int:
+        """The number of spans the ring holds."""
+        return self._ring.maxlen
+
+    def resize(self, capacity: int) -> None:
+        """Hold up to ``capacity`` spans, keeping the newest; the spans
+        that no longer fit count in :attr:`dropped`."""
+        import collections
+
+        capacity = int(capacity)
+        self.dropped += max(len(self._ring) - capacity, 0)
+        self._ring = collections.deque(self._ring, maxlen=capacity)
+
+    def resolve_device(self) -> int:
+        """Set ``args["device_ms"]`` of each span in the ring whose two
+        CUDA events (:meth:`Span.time_device`) the card has passed: the
+        card's time between them. Returns how many were still pending
+        (call after a synchronize, when none are)."""
+        pending = 0
+        for s in list(self._ring):
+            ev = s._events
+            if ev is None or ev[2] is None:
+                continue
+            if not (ev[1].query() and ev[2].query()):
+                pending += 1
+                continue
+            s.args["device_ms"] = ev[1].elapsed_time(ev[2])
+            s._events = None
+        return pending
 
     def chrome_events(self) -> List[dict]:
         """Chrome-trace ``X`` events (+ a process_name metadata record),

@@ -25,6 +25,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ps_tpu_torch import obs
+
 _NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64)  # the head widths the kernel is built for
 
@@ -194,9 +196,12 @@ class _Flash(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, mask, out, lse = ctx.saved_tensors
         scale, causal, block_k, heads = ctx.args
-        dq, dk, dv = _blockwise_bwd(q, k, v, mask, out, lse, do, scale=scale,
-                                    causal=causal, block_k=block_k,
-                                    heads=heads)
+        # on the card autograd's device thread runs this: parented to
+        # the fused step through the tracer's held context
+        with obs.tracer().child("flash_bwd", "step", held=True):
+            dq, dk, dv = _blockwise_bwd(q, k, v, mask, out, lse, do,
+                                        scale=scale, causal=causal,
+                                        block_k=block_k, heads=heads)
         return dq, dk, dv, None, None, None, None, None
 
 
