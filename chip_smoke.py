@@ -514,6 +514,12 @@ BIG_BATCH = 65_536  # a production batch: 1,703,936 ids
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 1.6e-2}
 FLASH_SOURCE = "ps_tpu_torch/ops/csrc/flash_attention.cu"
 FLASH_REPLACES = "ps_tpu/ops/flash_attention.py:136"
+# the fused LAMB step replaces no TPU kernel: its plain version is
+# optim.lamb's loop over the keys; held to that loop within a relative
+# LAMB_TOL a tensor (the norms are summed in another order)
+LAMB_SOURCE = "ps_tpu_torch/ops/csrc/lamb_apply.cu"
+LAMB_PLAIN = "ps_tpu_torch/optim/__init__.py (lamb, the loop over the keys)"
+LAMB_TOL = 1e-6
 BERT_STEPS, BERT_BATCH, BERT_SEQ = 20, 32, 512
 RESNET_STEPS, RESNET_BATCH, RESNET_SIZE, RESNET_BATCHES = 20, 256, 224, 4
 # f32 convolutions of ResNet-50, card against CPU: |got - want| / |want|
@@ -739,8 +745,8 @@ def phase_build():
     secs = time.perf_counter() - t0
     ver = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
                          text=True, check=True, timeout=60).stdout
-    log(f"build: {GROUP_SOURCE}, {SOURCE} and {FLASH_SOURCE} with "
-        f"{ver.strip().splitlines()[-1]} ({' '.join(_build.NVCC_FLAGS)}) in "
+    log(f"build: {GROUP_SOURCE}, {SOURCE}, {FLASH_SOURCE} and {LAMB_SOURCE} "
+        f"with {ver.strip().splitlines()[-1]} ({' '.join(_build.NVCC_FLAGS)}) in "
         f"{secs:.2f} s")
     # the flash kernel must run on Hopper's units: wgmma and TMA loads
     tools = os.path.dirname(_build.nvcc())
@@ -770,6 +776,17 @@ def phase_build():
         if "flash_fwd" in name:
             kernel = name.split("Function ")[-1].rstrip(":")
             log(f"flash resources: {kernel}: {res.strip()}")
+    usage = subprocess.run([os.path.join(tools, "cuobjdump"), "-res-usage",
+                            str(_build._library_path("lamb_apply"))],
+                           capture_output=True, text=True, check=True,
+                           timeout=120).stdout.splitlines()
+    lamb = [(name.split("Function ")[-1].rstrip(":"), res.strip())
+            for name, res in zip(usage, usage[1:]) if "lamb_" in name]
+    if len(lamb) != 2:
+        raise AssertionError(f"the LAMB library holds {len(lamb)} kernels, "
+                             f"expected its two phases: {lamb}")
+    for kernel, res in lamb:
+        log(f"lamb resources: {kernel}: {res}")
     _abi_against_binaries(_build)
 
 
@@ -1360,8 +1377,10 @@ def phase_bert_flash_vs_full():
 
 
 def phase_bert_main_path():
+    from ps_tpu_torch import optim
     from ps_tpu_torch.data.synthetic import mlm_batches
     from ps_tpu_torch.models.bert import BertConfig, BertMLM
+    from ps_tpu_torch.ops import lamb_apply
 
     fa = _flash()
     cfg = BertConfig(attn="flash")  # BERT-base, bf16 compute, f32 params
@@ -1371,11 +1390,25 @@ def phase_bert_main_path():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.LAUNCHES = 0
-    losses, times, _ = _bert_run(model, "cuda", batches)
+    routed = (lamb_apply.LAUNCHES, optim.FUSED_TENSORS.value,
+              optim.LOOP_TENSORS.value)
+    losses, times, params = _bert_run(model, "cuda", batches)
     launches = fa.LAUNCHES
     if launches != cfg.num_layers * BERT_STEPS:
         raise AssertionError(f"flash launches {launches}, expected "
                              f"{cfg.num_layers} per step over {BERT_STEPS}")
+    # the server's LAMB: every tensor in the fused kernel, two launches a
+    # step and none by the loop
+    n_tensors = sum(1 for _ in model.parameters())
+    lamb = (lamb_apply.LAUNCHES - routed[0],
+            optim.FUSED_TENSORS.value - routed[1],
+            optim.LOOP_TENSORS.value - routed[2])
+    if lamb != (2 * BERT_STEPS, n_tensors * BERT_STEPS, 0):
+        raise AssertionError(
+            f"LAMB launches, fused and looped tensors {lamb}, expected "
+            f"({2 * BERT_STEPS}, {n_tensors * BERT_STEPS}, 0) over "
+            f"{BERT_STEPS} steps of {n_tensors} tensors")
+    lamb_err = _lamb_vs_loop(params)
     if not np.all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
     if not np.mean(losses[-5:]) < np.mean(losses[:5]):
@@ -1391,8 +1424,133 @@ def phase_bert_main_path():
         f" {BERT_BATCH / step_ms * 1e3:.2f} seq/s, "
         f"{BERT_BATCH * BERT_SEQ / step_ms * 1e3:.0f} tokens/s, peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"main path: LAMB {lamb[0] // BERT_STEPS} launches a step, "
+        f"{lamb[1] // BERT_STEPS} tensors a step in the fused kernel, "
+        f"{lamb[2]} by the loop; 3 steps on its weights within a relative "
+        f"{lamb_err:.3g} of the loop's (gate {LAMB_TOL})")
     del model
-    return launches, step_ms
+    return launches, step_ms, {"launches": lamb[0], "max_rel_err": lamb_err,
+                               "params": params}
+
+
+def _lamb_tree(params):
+    """BERT-base's trained tensors (f32, on the card) with zero moments and
+    a step count, and gradients of the size LAMB meets (normal, 1e-3)."""
+    from ps_tpu_torch.kv import keys
+
+    flat, _ = keys.flatten_with_keys(params)
+    ps_ = [p.detach().float().contiguous().clone() for p in flat.values()]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    gs = [torch.randn(p.shape, generator=gen, device="cuda") * 1e-3
+          for p in ps_]
+    return (ps_, gs, [torch.zeros_like(p) for p in ps_],
+            [torch.zeros_like(p) for p in ps_],
+            torch.zeros((), dtype=torch.int32, device="cuda"))
+
+
+def _lamb_vs_loop(params, steps=3):
+    """The fused LAMB step against optim.lamb's loop on the same tensors:
+    the worst relative gap a tensor (max |a - b| / max |b|) over p, m and
+    v after ``steps`` steps; raises beyond LAMB_TOL."""
+    from ps_tpu_torch import optim
+    from ps_tpu_torch.ops import lamb_apply
+
+    runs = []
+    for fused in (True, False):
+        ps_, gs, ms, vs, count = _lamb_tree(params)
+        opt = optim.lamb(learning_rate=1e-3, weight_decay=0.01)
+        state = {"count": count, "mu": dict(enumerate(ms)),
+                 "nu": dict(enumerate(vs))}
+        takes = lamb_apply.takes
+        if not fused:
+            lamb_apply.takes = lambda p, g, m, v: False
+        try:
+            for _ in range(steps):
+                opt.step_(dict(enumerate(ps_)), dict(enumerate(gs)), state)
+        finally:
+            lamb_apply.takes = takes
+        torch.cuda.synchronize()
+        if int(count) != steps:
+            raise AssertionError(f"LAMB count {int(count)} after {steps}")
+        runs.append(ps_ + ms + vs)
+    err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+              for a, b in zip(*runs))
+    if not err <= LAMB_TOL:
+        raise AssertionError(f"fused LAMB vs the loop: relative gap {err} "
+                             f"over {LAMB_TOL}")
+    return err
+
+
+def _lamb_foreach(ps_, gs, ms, vs, count, lr, b1, b2, eps, wd):
+    """LAMB over the lists in torch._foreach_* calls: the yardstick of a
+    multi-tensor step in PyTorch's own kernels (the port never calls it)."""
+    count.add_(1)
+    bc1, bc2 = 1 - b1 ** count, 1 - b2 ** count
+    torch._foreach_mul_(ms, b1)
+    torch._foreach_add_(ms, gs, alpha=1 - b1)
+    torch._foreach_mul_(vs, b2)
+    torch._foreach_addcmul_(vs, gs, gs, value=1 - b2)
+    den = torch._foreach_div(vs, bc2)
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, eps)
+    u = torch._foreach_div(ms, bc1)
+    torch._foreach_div_(u, den)
+    torch._foreach_add_(u, ps_, alpha=wd)
+    pn = torch.stack(torch._foreach_norm(ps_))
+    un = torch.stack(torch._foreach_norm(u))
+    ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn), pn / un)
+    torch._foreach_mul_(u, list(ratio.unbind()))
+    torch._foreach_add_(ps_, u, alpha=-lr)
+
+
+def phase_lamb_timings(params, lamb):
+    """The fused LAMB step on BERT-base's 202 tensors: the kernel's device
+    time beside its byte bound (40 B a value: phase 1 reads g, m, v, p and
+    writes m, v; phase 2 reads m, v, p and writes p; 28 B if every value
+    were read and written once), the caller's time, the loop's (its plain
+    version) and a torch._foreach step's."""
+    from ps_tpu_torch import optim
+    from ps_tpu_torch.ops import lamb_apply
+
+    ps_, gs, ms, vs, count = _lamb_tree(params)
+    n = sum(p.numel() for p in ps_)
+    hp = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-6)
+
+    def kernel():
+        lamb_apply.lamb_apply_(ps_, gs, ms, vs, count, hp["lr"], hp["b1"],
+                               hp["b2"], hp["eps"], 0.01)
+
+    kernel_ms = _device_ms(kernel)
+    call_ms = _call_ms(kernel, iters=20)
+    foreach_ms = _device_ms(lambda: _lamb_foreach(ps_, gs, ms, vs, count,
+                                                  wd=0.01, **hp), iters=3)
+    opt = optim.lamb(learning_rate=1e-3, weight_decay=0.01)
+    state = {"count": count, "mu": dict(enumerate(ms)),
+             "nu": dict(enumerate(vs))}
+    takes = lamb_apply.takes
+    lamb_apply.takes = lambda p, g, m, v: False
+    try:
+        plain_ms = _call_ms(lambda: opt.step_(
+            dict(enumerate(ps_)), dict(enumerate(gs)), state),
+            iters=5, warmup=2)
+    finally:
+        lamb_apply.takes = takes
+    nbytes, least = 40 * n, 28 * n
+    bound_ms = nbytes / _card_peaks()[0] * 1e3
+    log(json.dumps({
+        "kernel": "lamb_apply", "tensors": len(ps_), "values": n,
+        "bytes": nbytes, "least_bytes": least, "kernel_ms": kernel_ms,
+        "call_ms": call_ms, "plain_ms": plain_ms, "foreach_ms": foreach_ms,
+        "bound_ms": bound_ms, "least_bound_ms":
+        least / _card_peaks()[0] * 1e3, "bound_share": bound_ms / kernel_ms,
+        "launches_per_step": 2}))
+    del ps_, gs, ms, vs
+    return {"name": "lamb_apply", "route": "cuda", "source": LAMB_SOURCE,
+            "replaces": None, "plain": LAMB_PLAIN,
+            "launches": lamb["launches"], "max_rel_err": lamb["max_rel_err"],
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None,
+            "foreach_ms": foreach_ms}
 
 
 def phase_flash_timings(err, launches):
@@ -10490,9 +10648,10 @@ def main():
     with _clock(7):
         phase_bert_small_vs_cpu()
         phase_bert_flash_vs_full()
-        launches, _ = phase_bert_main_path()
+        launches, _, lamb = phase_bert_main_path()
     with _clock(8):
         entries.append(phase_flash_timings(flash_err, launches))
+        entries.append(phase_lamb_timings(lamb.pop("params"), lamb))
     with _clock(9):
         phase_resnet_vs_cpu()
     with _clock(10):

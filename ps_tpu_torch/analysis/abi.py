@@ -2,10 +2,11 @@
 
 The port crosses two C ABIs by hand: the native van
 (``native/van.cpp``, bound by ``control/heartbeat.py``,
-``control/tensor_van.py`` and ``control/native_loop.py``) and the three
+``control/tensor_van.py`` and ``control/native_loop.py``) and the four
 ``nvcc`` kernel libraries (``ops/csrc/sparse_group.cu``,
-``sparse_apply.cu``, ``flash_attention.cu``, bound by
-``ops/sparse_apply.py`` and ``ops/flash_attention.py``). Nothing but
+``sparse_apply.cu``, ``flash_attention.cu``, ``lamb_apply.cu``, bound by
+``ops/sparse_apply.py``, ``ops/flash_attention.py`` and
+``ops/lamb_apply.py``). Nothing but
 convention kept them in sync: a parameter added on the C side, a
 forgotten ``restype`` (ctypes then defaults to ``c_int`` and silently
 TRUNCATES a 64-bit pointer/size on the way out), a ``c_int`` where the
@@ -36,9 +37,9 @@ sources and every ``lib.<sym>.argtypes``/``.restype`` assignment plus
 Exports are per library: a source's library is its file stem
 (``sparse_apply.cu`` -> ``sparse_apply``, ``van.cpp`` -> ``van``), and a
 ctypes site's library is the one a ``load("<name>")`` call in the same
-function opens (``ops/_build.load``, ``native.load``). A symbol that two
-libraries define (``ps_cuda_error_string``) is two exports, each held to
-the sites of its own library. A site whose library cannot be read (a
+function opens (``ops/_build.load``, ``native.load``). A symbol that
+several libraries define (``ps_cuda_error_string``) is an export of each,
+held to the sites of its own library. A site whose library cannot be read (a
 ``ctypes.CDLL(path)``) is held to the first export of the symbol's name,
 and counts as binding it in every library.
 

@@ -21,7 +21,12 @@ folds the bias correction into the step size), so these follow optax
   ``add_decayed_weights`` (``u + wd * p`` on every tensor, biases and
   LayerNorm parameters included), ``scale_by_trust_ratio`` (``u *
   ‖p‖ / ‖u‖`` per parameter tensor, exactly 1 where either norm is 0),
-  then ``-lr * u``, then ``p + u``.
+  then ``-lr * u``, then ``p + u``. On the card the keys whose tensors
+  are contiguous f32 go to one fused multi-tensor kernel
+  (``ops/lamb_apply.py``, two launches a step) with the same arithmetic;
+  every other key, every CPU tensor included, keeps the loop over the
+  keys. ``FUSED_TENSORS`` and ``LOOP_TENSORS`` (``ps_lamb_*_tensors_total``
+  in ``obs``'s registry) count the tensors each route steps.
 
 Each takes a float learning rate or a schedule ``count -> lr``, as the
 reference takes an ``optax.Schedule``. A schedule is called with optax's
@@ -53,6 +58,8 @@ from typing import Any, Callable, Dict, List, Tuple, Union
 
 import torch
 
+from ps_tpu_torch.obs.metrics import default_registry
+from ps_tpu_torch.ops import lamb_apply
 from ps_tpu_torch.optim.dc import delay_compensate
 from ps_tpu_torch.parallel.mesh import AXES
 
@@ -63,6 +70,15 @@ _INT32_MAX = 2**31 - 1
 
 #: a float, or a schedule ``count -> lr`` (optax's ``Schedule``)
 LearningRate = Union[float, Callable[[torch.Tensor], Any]]
+
+#: tensors LAMB stepped by each route: the fused kernel
+#: (``ops/lamb_apply.py``) or the loop over the keys
+FUSED_TENSORS = default_registry().counter(
+    "ps_lamb_fused_tensors_total",
+    "tensors LAMB stepped in the fused multi-tensor kernel")
+LOOP_TENSORS = default_registry().counter(
+    "ps_lamb_loop_tensors_total",
+    "tensors LAMB stepped one key at a time by the loop")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,7 +279,18 @@ def lamb(learning_rate: LearningRate = 1e-3, b1: float = 0.9,
     @torch.no_grad()
     def step_(params, grads, state, lr, norms):
         whole = norms.whole if norms is not None else {}
-        for k, u in _scale_by_adam_(grads, state, b1, b2, eps, 0.0):
+        fused = _fused_keys(params, grads, state, whole)
+        loop = grads
+        if fused:
+            taken = set(fused)
+            loop = {k: g for k, g in grads.items() if k not in taken}
+        FUSED_TENSORS.inc(len(fused))
+        LOOP_TENSORS.inc(len(loop))
+        # the loop counts the step first (scale_by_adam), unless the kernel
+        # takes every key
+        looped = (_scale_by_adam_(loop, state, b1, b2, eps, 0.0)
+                  if loop or not fused else ())
+        for k, u in looped:
             p = params[k]
             u = u + weight_decay * p
             if k in whole:
@@ -283,8 +310,26 @@ def lamb(learning_rate: LearningRate = 1e-3, b1: float = 0.9,
                 continue
             trust_step_(p, u, torch.linalg.vector_norm(p),
                         torch.linalg.vector_norm(u), lr)
+        if fused:
+            lamb_apply.lamb_apply_(
+                [params[k] for k in fused], [grads[k] for k in fused],
+                [state["mu"][k] for k in fused],
+                [state["nu"][k] for k in fused], state["count"], lr, b1, b2,
+                eps, weight_decay, increment=not loop, checked=True)
 
     return _with_rate("lamb", _adam_init, step_, learning_rate)
+
+
+def _fused_keys(params, grads, state, whole) -> List[str]:
+    """The keys of a LAMB step that the fused kernel takes
+    (:func:`~ps_tpu_torch.ops.lamb_apply.takes`, with the step count on
+    their device); a key in ``whole`` waits for its norms across ranks
+    and stays on the loop."""
+    mu, nu, device = state["mu"], state["nu"], state["count"].device
+    return [k for k, g in grads.items()
+            if k not in whole
+            and lamb_apply.takes(params[k], g, mu[k], nu[k])
+            and params[k].device == device]
 
 
 _REGISTRY = {"sgd": sgd, "momentum": momentum, "adam": adam,

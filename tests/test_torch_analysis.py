@@ -406,7 +406,7 @@ def test_port_kernel_abi_mutation_is_caught(tmp_path):
 def test_port_kernel_exports_per_library():
     """What ``chip_smoke.py`` holds against ``nm -D`` on the card: every
     kernel library of ``_build.KERNELS`` exports its ``ps_*`` entry
-    points, and ``ps_cuda_error_string`` is two exports."""
+    points, and ``ps_cuda_error_string`` is three exports."""
     from ps_tpu_torch.analysis import RepoIndex
     from ps_tpu_torch.analysis.abi import exports_by_library
     from ps_tpu_torch.ops import _build
@@ -417,10 +417,11 @@ def test_port_kernel_exports_per_library():
                          "ps_sparse_group_cluster", "ps_sparse_group_sorted"],
         "sparse_apply": ["ps_cuda_error_string", "ps_sparse_apply"],
         "flash_attention": ["ps_cuda_error_string", "ps_flash_attention_fwd"],
+        "lamb_apply": ["ps_cuda_error_string", "ps_lamb_apply"],
     }
     assert sorted(got) == sorted(_build.KERNELS)
     n_params = sum(len(e.params) for v in got.values() for e in v.values())
-    assert n_params == 64
+    assert n_params == 83
 
 
 # -- (c) the gate -----------------------------------------------------------------

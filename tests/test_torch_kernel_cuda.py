@@ -27,6 +27,13 @@ checks at the main paths' shapes.
   flash-vs-einsum bound) and bf16 to
   1.6e-2 (two bf16 ulps: ``p`` and the output are rounded to bf16 after
   sums taken in different orders); ``lse`` is f32 in both, 2e-5.
+- The fused LAMB step (``ops/lamb_apply.py``) against ``optim.lamb``'s
+  loop over the keys: BERT-base's 202 tensors for 5 steps (a zero
+  parameter and a zero gradient among them), at weight decay 0 and 0.01,
+  a float and a scheduled rate, within a relative 1e-6 a tensor on p, m
+  and v (the norms are summed in another order), two runs bitwise; one
+  key a call (the async DC apply); a non-contiguous and a bf16 key left
+  on the loop in the same call.
 """
 
 import importlib
@@ -435,3 +442,173 @@ def test_bert_gradient_repeats_bitwise_in_default_mode(cuda):
         grads.append(torch.autograd.grad(loss, list(leaves.values())))
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+# -- the fused LAMB step ---------------------------------------------------------
+
+
+def _bert_base_shapes():
+    from ps_tpu_torch.kv import keys
+    from ps_tpu_torch.models import bert
+
+    model = bert.BertMLM(bert.BertConfig(), device="meta")
+    flat, _ = keys.flatten_with_keys(model.param_tree())
+    return {k: tuple(p.shape) for k, p in flat.items()}
+
+
+def _normal_tree(shapes, device, seed, scale, zero=None):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tree = {k: torch.randn(s, generator=gen, device=device) * scale
+            for k, s in shapes.items()}
+    if zero is not None:
+        tree[zero].zero_()
+    return tree
+
+
+def _lamb_steps(monkeypatch, shapes, device, route, wd, rate, steps=5,
+                one_key=False):
+    """``steps`` LAMB steps of a tree of ``shapes`` (one parameter all
+    zeros, one gradient all zeros) by the router (``route`` "fused") or
+    with every key forced onto the loop; one ``step_`` call a key (the
+    async DC apply's shape) with ``one_key``."""
+    from ps_tpu_torch import optim
+    from ps_tpu_torch.ops import lamb_apply
+
+    if route == "loop":
+        monkeypatch.setattr(lamb_apply, "takes", lambda p, g, m, v: False)
+    lr = 1e-3 if rate == "float" else (lambda c: 1e-3 * (1.0 - c / 10))
+    opt = optim.lamb(learning_rate=lr, weight_decay=wd)
+    names = list(shapes)
+    small = [k for k in names if len(shapes[k]) == 1]
+    params = _normal_tree(shapes, device, 0, 0.02, zero=small[0])
+    states = ({k: opt.init({k: params[k]}) for k in names} if one_key
+              else opt.init(params))
+    for step in range(steps):
+        grads = _normal_tree(shapes, device, step + 1, 1e-3,
+                             zero=names[len(names) // 2])
+        if one_key:
+            for k in names:
+                opt.step_({k: params[k]}, {k: grads[k]}, states[k])
+        else:
+            opt.step_(params, grads, states)
+    torch.cuda.synchronize(device)
+    monkeypatch.undo()
+    return params, states
+
+
+def _lamb_leaves(params, states, one_key):
+    out = {("p", k): v for k, v in params.items()}
+    for k in params:
+        st = states[k] if one_key else states
+        st = st.get("rule", st)
+        out[("mu", k)] = st["mu"][k]
+        out[("nu", k)] = st["nu"][k]
+    return out
+
+
+def _rel_gap(got, want):
+    scale = want.abs().max().clamp_min(1e-30)
+    return float((got.float() - want.float()).abs().max() / scale)
+
+
+@pytest.mark.parametrize("rate", ["float", "schedule"])
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+def test_lamb_kernel_matches_the_loop_on_bert_base(cuda, monkeypatch, wd,
+                                                   rate):
+    """BERT-base's 202 tensors, 5 steps: the fused route against the loop
+    within a relative 1e-6 a tensor on p, m and v (the norms are summed in
+    another order; the rest is the loop's arithmetic, rounding for
+    rounding); two fused runs repeat bitwise; the step count is 5."""
+    from ps_tpu_torch.ops import lamb_apply
+
+    shapes = _bert_base_shapes()
+    assert len(shapes) == 202
+    before = lamb_apply.LAUNCHES
+    fused = _lamb_steps(monkeypatch, shapes, cuda, "fused", wd, rate)
+    assert lamb_apply.LAUNCHES - before == 2 * 5
+    again = _lamb_steps(monkeypatch, shapes, cuda, "fused", wd, rate)
+    loop = _lamb_steps(monkeypatch, shapes, cuda, "loop", wd, rate)
+    assert lamb_apply.LAUNCHES - before == 4 * 5
+    got, rerun, want = (_lamb_leaves(*r, False) for r in (fused, again, loop))
+    for st in (fused[1], loop[1]):
+        assert int(st.get("rule", st)["count"]) == 5
+    worst = max((_rel_gap(got[x], want[x]), x) for x in want)
+    assert worst[0] <= 1e-6, worst
+    for x in got:
+        assert torch.equal(got[x], rerun[x]), x
+
+
+def test_lamb_kernel_one_key_a_call_matches_the_loop(cuda, monkeypatch):
+    """The async DC apply's shape: one ``step_`` call a key, each with its
+    own state, on a sample of BERT-base's shapes."""
+    shapes = _bert_base_shapes()
+    names = list(shapes)
+    sample = {k: shapes[k] for k in names[:6] + names[-6:]}
+    got = _lamb_leaves(*_lamb_steps(monkeypatch, sample, cuda, "fused",
+                                    0.01, "float", steps=3, one_key=True),
+                       True)
+    want = _lamb_leaves(*_lamb_steps(monkeypatch, sample, cuda, "loop",
+                                     0.01, "float", steps=3, one_key=True),
+                        True)
+    worst = max((_rel_gap(got[x], want[x]), x) for x in want)
+    assert worst[0] <= 1e-6, worst
+
+
+def test_lamb_keys_the_kernel_does_not_take_keep_the_loop(cuda,
+                                                          monkeypatch):
+    """A non-contiguous key and a bf16 key take the loop, the contiguous
+    f32 key the kernel, in the same call; the step is counted once."""
+    from ps_tpu_torch import optim
+    from ps_tpu_torch.ops import lamb_apply
+
+    def run(route):
+        if route == "loop":
+            monkeypatch.setattr(lamb_apply, "takes",
+                                lambda p, g, m, v: False)
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        params = {
+            "w": torch.randn((64, 48), generator=gen, device=cuda),
+            "t": torch.randn((64, 48), generator=gen, device=cuda).t(),
+            "h": torch.randn((32,), generator=gen,
+                             device=cuda).to(torch.bfloat16),
+        }
+        opt = optim.lamb(learning_rate=1e-2, weight_decay=0.01)
+        state = opt.init(params)
+        counts = (optim.FUSED_TENSORS.value, optim.LOOP_TENSORS.value,
+                  lamb_apply.LAUNCHES)
+        for _ in range(3):
+            grads = {k: torch.randn(p.shape, generator=gen, device=cuda)
+                     .to(p.dtype) for k, p in params.items()}
+            opt.step_(params, grads, state)
+        torch.cuda.synchronize(cuda)
+        monkeypatch.undo()
+        moved = (optim.FUSED_TENSORS.value - counts[0],
+                 optim.LOOP_TENSORS.value - counts[1],
+                 lamb_apply.LAUNCHES - counts[2])
+        return params, state, moved
+
+    got, got_state, moved = run("fused")
+    want, want_state, loop_moved = run("loop")
+    assert not got["t"].is_contiguous()
+    assert moved == (3, 6, 6) and loop_moved == (0, 9, 0)
+    assert int(got_state["count"]) == int(want_state["count"]) == 3
+    for k in want:
+        assert _rel_gap(got[k], want[k]) <= 1e-6, k
+        if k != "w":  # the loop's own keys: the same operations
+            assert torch.equal(got[k], want[k]), k
+
+
+def test_lamb_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from ps_tpu_torch.ops import lamb_apply
+
+    p = torch.zeros((8,), device=cuda)
+    count = torch.zeros((), dtype=torch.int32, device=cuda)
+    bad = [p.to(torch.bfloat16), torch.zeros((16,), device=cuda)[::2],
+           torch.zeros((8,)), torch.zeros((4,), device=cuda)]
+    for g in bad:
+        with pytest.raises(ValueError, match="LAMB kernel"):
+            lamb_apply.lamb_apply_([p], [g], [p.clone()], [p.clone()],
+                                   count, 1e-3, 0.9, 0.999, 1e-6, 0.0)
+    with pytest.raises(ValueError, match="step count"):
+        lamb_apply.lamb_apply_([p], [p.clone()], [p.clone()], [p.clone()],
+                               count.long(), 1e-3, 0.9, 0.999, 1e-6, 0.0)
